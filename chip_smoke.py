@@ -1,0 +1,395 @@
+#!/usr/bin/env python3
+"""On-card smoke run of lightgbm_tpu_torch, the PyTorch/CUDA port.
+
+Run from the repository root on a machine with one CUDA GPU and nvcc:
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; nothing is caught and ignored):
+
+1. card: the GPU's name and power limit (nvidia-smi), torch and CUDA
+   versions;
+2. build: the four Hopper kernels are compiled from lightgbm_tpu_torch/csrc
+   by nvcc into one library (ops/cuda_lib.py), and the build time printed;
+3. kernels: each kernel's wrapper runs on the card at the main path's shapes
+   (N = 10.5M rows, F = 28, B = 64, L = 255; the level pass at S = 32 and
+   127 slots with 2 and 3 channels) and is held against its plain PyTorch
+   version on the same inputs: integer outputs and histograms exactly,
+   leaf sums within 1e-6 of the row mass. Each kernel is timed (median of
+   CUDA-event timings), beside its plain version, the least time the card
+   could take (bytes over memory rate or operations over peak rate), and
+   one PyTorch call computing the same function where one exists;
+4. main path: a HIGGS-shaped 10.5M x 28 table (bench.py's generator,
+   copied), lightgbm_tpu_torch.Dataset with max_bin=63, train() of a
+   binary model (num_leaves=255, learning_rate=0.1, min_data_in_leaf=20)
+   for 5 iterations and of an L2 model on a continuous target for 2; the
+   launch counters are zeroed before and read after, and must equal one
+   grad_quant_hist0 / leaf_sums_grad / take_small per tree and one
+   hist_routed_fused per level pass; train AUC on 1M rows > 0.7; the saved
+   model text loads back and predicts identically;
+5. agreement: the first tree of a 4000-row L2 model trained on the card
+   has the structure of the same tree trained through the plain versions
+   on the CPU, and leaf values within 1e-6 of its largest leaf value in
+   magnitude (the one difference
+   is the f64 order of the leaf sums; later trees inherit it, so only the
+   first is compared exactly).
+
+The line before the last is the JSON kernel table; the last line is
+{"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
+of the repository, it exits non-zero and prints no result.
+"""
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+N, F, B, L = 10_500_000, 28, 64, 255
+# the saved model goes beside the kernel library (ignored by git)
+OUT_DIR = os.path.join(HERE, "lightgbm_tpu_torch", "_build")
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def synth_higgs(n_rows: int, n_feat: int = 28, seed: int = 0):
+    """HIGGS-shaped binary problem (a copy of bench.py synth_higgs)."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n_rows, n_feat).astype(np.float32)
+    w = rng.randn(8)
+    logits = (X[:, :8] @ w) * 0.7 + 0.5 * np.abs(X[:, 8]) * X[:, 9] \
+        - 0.4 * (X[:, 10] ** 2) + 0.3
+    p = 1.0 / (1.0 + np.exp(-logits))
+    y = (rng.rand(n_rows) < p).astype(np.float32)
+    return X, y
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def peaks(name: str):
+    """(memory bytes/s, f32 operations/s) of the card from NVIDIA's data
+    sheets: H100 SXM 3.35 TB/s and 67 TFLOP/s, PCIe 2.0 TB/s and 51, NVL
+    3.9 TB/s and 60."""
+    if "PCIe" in name:
+        return 2.0e12, 51e12
+    if "NVL" in name:
+        return 3.9e12, 60e12
+    return 3.35e12, 67e12
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(HERE, "lightgbm_tpu_torch")):
+        print("chip_smoke: run from a checkout of the repository "
+              "(lightgbm_tpu_torch/ is missing)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch import metrics
+    from lightgbm_tpu_torch.ops import cuda_lib
+    from lightgbm_tpu_torch.ops import hist_kernels as hk
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    name = torch.cuda.get_device_name(0)
+    card = card_line()
+    bw, flops = peaks(name)
+    print(f"card: {card}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}"
+          f" count {torch.cuda.device_count()}; peaks {bw / 1e12} TB/s, "
+          f"{flops / 1e12} TFLOP/s f32")
+
+    # ---- 2. build ----
+    t0 = time.perf_counter()
+    cuda_lib.load()
+    print(f"build: {time.perf_counter() - t0:.3f} s "
+          f"(nvcc {cuda_lib.BUILD_INFO.get('seconds', 0.0):.3f} s, "
+          f"built={cuda_lib.BUILD_INFO.get('built')})")
+    for line in str(cuda_lib.BUILD_INFO.get("log", "")).splitlines():
+        if "registers" in line or "spill" in line or line.startswith("=="):
+            print(f"  ptxas: {line.strip()}")
+
+    def time_ms(fn, reps=7):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+    def bound(nbytes, nops):
+        t_b, t_o = nbytes / bw * 1e3, nops / flops * 1e3
+        return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+    def exact(name_, a, b):
+        """Max abs difference of kernel and plain outputs; fails unless 0."""
+        if a is None and b is None:
+            return 0.0
+        diff = (a.to(torch.float64) - b.to(torch.float64)).abs()
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            fail(f"{name_}: kernel != plain (max abs diff {diff.max()}, "
+                 f"{int((diff > 0).sum())} elements)")
+        return float(diff.max()) if diff.numel() else 0.0
+
+    # ---- 3. kernels against their plain versions ----
+    g = torch.Generator(device=dev).manual_seed(0)
+    bins_T = torch.randint(0, 63, (F, N), generator=g, device=dev,
+                           dtype=torch.int64).to(torch.uint8)
+    score = torch.randn(N, generator=g, device=dev) * 0.5
+    label_pos = (torch.rand(N, generator=g, device=dev) < 0.5).float()
+    label_reg = torch.randn(N, generator=g, device=dev)
+    bag = (torch.rand(N, generator=g, device=dev) < 0.9).float()
+    logloss = ("logloss", 1.0, 1.0, 1.0)
+    kernels = {}
+
+    # B1 grad_quant_hist0: logloss (3 channels) and l2 const-hess (2)
+    variants = []
+    for spec, aux, ch in ((logloss, label_pos, False), (("l2",), label_reg,
+                                                        True)):
+        args = (bins_T, score, aux, bag, 7, spec, B, ch)
+        k = hk.grad_quant_hist0(*args)
+        p = hk.grad_quant_hist0_plain(*args)
+        err = max(exact(f"grad_quant_hist0[{spec[0]}].{nm}", a, b)
+                  for nm, a, b in zip(("gq", "hq", "cq", "scales", "hist"),
+                                      k, p))
+        nch = 2 if ch else 3
+        ms = time_ms(lambda: hk.grad_quant_hist0(*args))
+        plain_ms = time_ms(lambda: hk.grad_quant_hist0_plain(*args), reps=3)
+        bms, by = bound(N * (F + 12 + nch) + nch * F * B * 4,
+                        N * (40 + F * nch))
+        variants.append(dict(spec=spec[0], nch=nch, max_abs_err=err, ms=ms,
+                             plain_ms=plain_ms, bound_ms=bms, bound_by=by))
+        if spec[0] == "logloss":
+            quant3 = k
+        else:
+            quant2 = k
+    main_v = variants[0]
+    kernels["grad_quant_hist0"] = dict(
+        route="cuda", source="lightgbm_tpu_torch/csrc/grad_quant_hist0.cu",
+        replaces="lightgbm_tpu/ops/pallas_hist.py:918",
+        max_abs_err=max(v["max_abs_err"] for v in variants),
+        ms=main_v["ms"], plain_ms=main_v["plain_ms"],
+        bound_ms=main_v["bound_ms"], bound_by=main_v["bound_by"],
+        library_ms=None, variants=variants)
+    print(f"grad_quant_hist0: exact; {variants}")
+
+    # B2 hist_routed_fused at S in {32, 127}, nch in {2, 3}
+    na_bin = torch.full((F,), 256, dtype=torch.int32, device=dev)
+    na_bin[:10] = 62
+    variants = []
+    for s in (32, 127):
+        lid = torch.randint(0, min(L, 2 * s), (N,), generator=g, device=dev,
+                            dtype=torch.int64).to(torch.int32)
+        k_ = torch.arange(L, device=dev)
+        split = k_ < s
+        small_left = torch.rand(L, generator=g, device=dev) < 0.5
+        tab = torch.stack([
+            torch.where(split, torch.randint(0, F, (L,), generator=g,
+                                             device=dev), -1),
+            torch.randint(0, 62, (L,), generator=g, device=dev),
+            torch.randint(0, 2, (L,), generator=g, device=dev),
+            s + k_,
+            torch.where(split & small_left, k_, s),
+            torch.where(split & ~small_left, k_, s)]).to(torch.int32) \
+            .contiguous()
+        routed = int((lid < s).sum())
+        for nch, (gq, hq, cq) in ((3, quant3[:3]), (2, (quant2[0], None,
+                                                        quant2[2]))):
+            args = (bins_T, gq, hq, cq, lid, tab, na_bin, s, B)
+            kh, kl = hk.hist_routed_fused(*args)
+            ph, pl_ = hk.hist_routed_fused_plain(*args)
+            err = max(exact(f"hist_routed_fused[S={s},nch={nch}].hist", kh,
+                            ph),
+                      exact(f"hist_routed_fused[S={s},nch={nch}].lid2", kl,
+                            pl_))
+            ms = time_ms(lambda: hk.hist_routed_fused(*args))
+            plain_ms = time_ms(lambda: hk.hist_routed_fused_plain(*args),
+                               reps=3)
+            bms, by = bound(N * (F + nch + 8) + s * nch * F * B * 4
+                            + 6 * L * 4, routed * F * nch + N * 10)
+            variants.append(dict(S=s, nch=nch, max_abs_err=err, ms=ms,
+                                 plain_ms=plain_ms, bound_ms=bms, bound_by=by))
+    main_v = next(v for v in variants if v["S"] == 127 and v["nch"] == 3)
+    kernels["hist_routed_fused"] = dict(
+        route="cuda", source="lightgbm_tpu_torch/csrc/hist_routed_fused.cu",
+        replaces="lightgbm_tpu/ops/pallas_hist.py:676",
+        max_abs_err=max(v["max_abs_err"] for v in variants),
+        ms=main_v["ms"], plain_ms=main_v["plain_ms"],
+        bound_ms=main_v["bound_ms"], bound_by=main_v["bound_by"],
+        library_ms=None, variants=variants)
+    print(f"hist_routed_fused: exact; {variants}")
+
+    # B3 leaf_sums_grad, tolerance 1e-6 * sum|x| per leaf (both sum the
+    # same f32 rows in f64; only the atomic order differs)
+    lid = torch.randint(0, L, (N,), generator=g, device=dev,
+                        dtype=torch.int64).to(torch.int32)
+    args = (score, label_pos, bag, lid, logloss, L)
+    ks = hk.leaf_sums_grad(*args)
+    ps = hk.leaf_sums_grad_plain(*args)
+    grad, hess = hk.grad_rows(logloss, score, label_pos)
+    ghc = torch.stack([grad * bag, hess * bag, (bag > 0).float()])
+    mass = torch.zeros(3, L, dtype=torch.float64, device=dev).index_add_(
+        1, lid.long(), ghc.abs().double())
+    err = (ks.double() - ps.double()).abs()
+    if bool((err > 1e-6 * mass + 1e-30).any()):
+        fail(f"leaf_sums_grad: kernel vs plain error {float(err.max())} "
+             "exceeds 1e-6 of the leaf's row mass")
+    lid_l = lid.long()
+    lib_ms = time_ms(lambda: torch.zeros(3, L, device=dev).index_add_(
+        1, lid_l, ghc))
+    bms, by = bound(16 * N + 3 * L * 4, 45 * N)
+    kernels["leaf_sums_grad"] = dict(
+        route="cuda", source="lightgbm_tpu_torch/csrc/leaf_sums_grad.cu",
+        replaces="lightgbm_tpu/ops/pallas_hist.py:1036",
+        max_abs_err=float(err.max()), ms=time_ms(lambda: hk.leaf_sums_grad(
+            *args)), plain_ms=time_ms(lambda: hk.leaf_sums_grad_plain(*args)),
+        bound_ms=bms, bound_by=by, library_ms=lib_ms)
+    print(f"leaf_sums_grad: max abs err {float(err.max())}")
+
+    # B4 take_small, with out-of-range indices
+    table = torch.randn(L, generator=g, device=dev)
+    idx = torch.randint(-2, L + 3, (N,), generator=g, device=dev,
+                        dtype=torch.int64).to(torch.int32)
+    err = exact("take_small", hk.take_small(table, idx),
+                hk.take_small_plain(table, idx))
+    padded = torch.cat([table, torch.zeros(1, device=dev)])
+    idx_in = torch.where((idx >= 0) & (idx < L), idx, L).to(torch.int32)
+    bms, by = bound(8 * N + 4 * L, 0)
+    kernels["take_small"] = dict(
+        route="cuda", source="lightgbm_tpu_torch/csrc/take_small.cu",
+        replaces="lightgbm_tpu/ops/pallas_hist.py:1213", max_abs_err=err,
+        ms=time_ms(lambda: hk.take_small(table, idx)),
+        plain_ms=time_ms(lambda: hk.take_small_plain(table, idx)),
+        bound_ms=bms, bound_by=by,
+        library_ms=time_ms(lambda: padded.index_select(0, idx_in)))
+    print("take_small: exact")
+    del bins_T, score, label_pos, label_reg, bag, lid, idx, idx_in, ghc
+    torch.cuda.empty_cache()
+
+    # ---- 4. main path through the public entry points ----
+    t0 = time.perf_counter()
+    X, y = synth_higgs(N, F, seed=0)
+    rng = np.random.RandomState(1)
+    y_reg = (X[:, :4] @ np.array([1.0, -0.5, 0.25, 2.0]) + 0.5 * X[:, 4] ** 2
+             + 0.1 * rng.randn(N)).astype(np.float32)
+    print(f"data: {time.perf_counter() - t0:.3f} s")
+    params = {"objective": "binary", "num_leaves": L, "max_bin": 63,
+              "learning_rate": 0.1, "min_data_in_leaf": 20, "verbosity": -1}
+    t0 = time.perf_counter()
+    ds = lt.Dataset(X, label=y, params=params, free_raw_data=False)
+    ds.construct()
+    torch.cuda.synchronize()
+    construct_s = time.perf_counter() - t0
+    print(f"construct: {construct_s:.3f} s ({N} x {F}, "
+          f"{ds.num_features} used features, max bins {ds.max_num_bins})")
+
+    hk.reset_launches()
+    t0 = time.perf_counter()
+    bst = lt.train(params, ds, num_boost_round=5)
+    torch.cuda.synchronize()
+    bin_s = time.perf_counter() - t0
+    reg_params = dict(params, objective="regression")
+    ds_reg = lt.Dataset(X, label=y_reg, params=reg_params)
+    ds_reg.construct()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reg = lt.train(reg_params, ds_reg, num_boost_round=2)
+    torch.cuda.synchronize()
+    reg_s = time.perf_counter() - t0
+    launches = dict(hk.LAUNCHES)
+    trees = len(bst._gbdt.level_passes) + len(reg._gbdt.level_passes)
+    expected = {
+        "grad_quant_hist0": trees, "leaf_sums_grad": trees,
+        "take_small": bst.num_trees() + reg.num_trees(),
+        "hist_routed_fused": sum(bst._gbdt.level_passes)
+        + sum(reg._gbdt.level_passes)}
+    print(f"train binary: {bin_s:.3f} s for 5 iterations "
+          f"({bin_s / 5:.3f} s/iter), level passes "
+          f"{bst._gbdt.level_passes}; L2: {reg_s:.3f} s for 2 "
+          f"({reg_s / 2:.3f} s/iter), level passes "
+          f"{reg._gbdt.level_passes}")
+    print(f"launches {launches} expected {expected}")
+    if launches != expected or min(launches.values()) <= 0:
+        fail(f"launch counts {launches} != expected {expected}")
+    for nm in kernels:
+        kernels[nm]["launches"] = launches[nm]
+
+    m = 1_000_000
+    prob = bst.predict(X[:m])
+    if prob.shape != (m,) or not np.isfinite(prob).all():
+        fail("binary predictions are not finite [1M] values")
+    auc = metrics.auc(torch.as_tensor(y[:m]), torch.as_tensor(prob))
+    auc = float(auc)
+    print(f"train AUC on 1M rows: {auc:.6f}")
+    if not auc > 0.7:
+        fail(f"train AUC {auc} <= 0.7")
+    reg_pred = reg.predict(X[:m])
+    mse0 = float(np.mean((y_reg[:m] - y_reg.mean()) ** 2))
+    mse = float(np.mean((y_reg[:m] - reg_pred) ** 2))
+    print(f"L2 model: train mse {mse:.6f} vs label variance {mse0:.6f}")
+    if not (np.isfinite(reg_pred).all() and mse < mse0):
+        fail("L2 model did not reduce the squared error")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    path = os.path.join(OUT_DIR, "chip_smoke_model.txt")
+    bst.save_model(path)
+    loaded = lt.Booster(model_file=path)
+    if not np.array_equal(loaded.predict(X[:m], raw_score=True),
+                          bst.predict(X[:m], raw_score=True)):
+        fail("saved and loaded model predict differently")
+    print("model text round trip: predictions identical")
+
+    # ---- 5. card vs plain versions on a small input ----
+    small = {"objective": "regression", "num_leaves": 31, "max_bin": 63,
+             "min_data_in_leaf": 20, "verbosity": -1}
+    Xs, ys = X[:4000], y_reg[:4000]
+    gpu = lt.train(small, lt.Dataset(Xs, label=ys, params=small), 1)
+    cpu_p = dict(small, device_type="cpu")
+    cpu = lt.train(cpu_p, lt.Dataset(Xs, label=ys, params=cpu_p), 1)
+    (a,), (b,) = gpu._host_trees(), cpu._host_trees()
+    for f_ in ("split_feature", "threshold_bin", "default_left",
+               "left_child", "right_child"):
+        if not np.array_equal(getattr(a, f_), getattr(b, f_)):
+            fail(f"card and CPU trees differ in {f_}")
+    # absolute bound on the tree's scale: a leaf whose value nearly cancels
+    # against the init bias would inflate a 1-ulp sum difference relative
+    diff = float(np.abs(a.leaf_value - b.leaf_value).max())
+    scale = float(np.abs(b.leaf_value).max())
+    print(f"card vs CPU (4000 rows, first tree, {a.num_leaves} leaves): "
+          f"structure identical, max leaf-value diff {diff:.3e} "
+          f"(largest leaf {scale:.3e})")
+    if diff > 1e-6 * scale:
+        fail("card and CPU leaf values differ by more than 1e-6 of the "
+             "largest leaf value")
+
+    print(f"card: {card}")
+    print(json.dumps({"kernels": [dict(name=nm, **v)
+                                  for nm, v in kernels.items()]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,411 @@
+"""The training path's four Hopper kernels: wrappers, plain versions, counts.
+
+Each TPU kernel of ``lightgbm_tpu/ops/pallas_hist.py`` that the serial
+depthwise quantized grower runs has a hand-written CUDA counterpart in
+``lightgbm_tpu_torch/csrc/`` and a plain PyTorch version of the same
+function here:
+
+====================  =========================================  ============
+wrapper               TPU kernel replaced                        CUDA source
+====================  =========================================  ============
+grad_quant_hist0      grad_quant_hist0_pallas (:918)             grad_quant_hist0.cu
+hist_routed_fused     hist_routed_fused_q8 (:676), D = 1         hist_routed_fused.cu
+leaf_sums_grad        leaf_sums_grad_pallas (:1036)              leaf_sums_grad.cu
+take_small            take_small_pallas (:1213)                  take_small.cu
+====================  =========================================  ============
+
+A wrapper checks device, dtype, shape and contiguity, allocates its outputs,
+and then launches the CUDA kernel when its tensors lie on a CUDA device, or
+runs the plain version when they lie on the CPU. A CUDA tensor never falls
+back to the plain version: the kernel launches or the wrapper raises.
+``LAUNCHES`` counts kernel launches, one per wrapper call on the CUDA path
+and nowhere else.
+
+The quantized histograms come back as int32 channel sums ([S, nch, F, B],
+nch = 3 for (g, h, count) or 2 for (g, count) under const-hessian elision);
+``ops/histogram.py`` dequantizes them. Integer sums make every accumulation
+order exact, so kernel and plain version agree bit for bit on every output
+except ``leaf_sums_grad``'s f64 sums, whose atomic order varies below f64
+resolution before the final f32 rounding.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from . import cuda_lib
+
+KERNELS = ("grad_quant_hist0", "hist_routed_fused", "leaf_sums_grad",
+           "take_small")
+LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
+
+# shared-memory budget of one block's private histogram (the H100 allows
+# 227 KB a block; the rest is headroom for the runtime's reservation)
+SMEM_BUDGET = 200 * 1024
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        LAUNCHES[k] = 0
+
+
+def _device_of(*tensors: torch.Tensor) -> torch.device:
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"tensors on different devices: {dev} and "
+                             f"{t.device}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _check(t: torch.Tensor, name: str, dtype: torch.dtype,
+           shape: Sequence[int]) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _num_sms(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def spec_args(spec) -> Tuple[int, float, float, float, float]:
+    """(kind, sigmoid, sigmoid*sigmoid, lw_pos, lw_neg) for the C entries.
+
+    ``spec`` is an objective's fused_grad_spec tuple: ("l2",) or
+    ("logloss", sigmoid, lw_pos, lw_neg)."""
+    if spec[0] == "l2":
+        return 0, 1.0, 1.0, 1.0, 1.0
+    if spec[0] == "logloss":
+        s = float(spec[1])
+        return 1, s, s * s, float(spec[2]), float(spec[3])
+    raise ValueError(f"unsupported fused gradient spec: {spec!r}")
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (the CPU path, and the card-side reference)
+# ---------------------------------------------------------------------------
+
+def grad_rows(spec, score: torch.Tensor, aux: torch.Tensor):
+    """The built-in objectives' gradients in the reference's f32 op order
+    (lightgbm_tpu/ops/pallas_hist.py _grad_rows): ("l2",) or
+    ("logloss", sigmoid, lw_pos, lw_neg). Python-float factors are rounded
+    to f32 where they meet a row, as JAX's weak types do."""
+    kind, sigmoid, sig2, lw_pos, lw_neg = spec_args(spec)
+    if kind == 0:
+        return score - aux, torch.ones_like(score)
+    t = 2.0 * aux - 1.0
+    lw = torch.where(aux > 0, torch.tensor(lw_pos, dtype=torch.float32,
+                                           device=aux.device),
+                     torch.tensor(lw_neg, dtype=torch.float32,
+                                  device=aux.device))
+    one = torch.ones((), dtype=torch.float32, device=score.device)
+    resp = torch.div(one, 1.0 + torch.exp(t * sigmoid * score))
+    grad = -t * resp * sigmoid * lw
+    hess = sig2 * resp * (1.0 - resp) * lw
+    return grad, hess
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 x in [0, 2^32) without int64 overflow."""
+    lo = x * (c & 0xFFFF)
+    hi = (x * (c >> 16)) & 0xFFFF
+    return (lo + (hi << 16)) & _M32
+
+
+def sr_dither(n: int, seed: int, salt: int,
+              device: torch.device) -> torch.Tensor:
+    """quantize_sr's counter-hash dither (lightgbm_tpu/ops/histogram.py
+    :353-358) as uint32 arithmetic carried in int64: [n] f32 in [0, 1)."""
+    i = (torch.arange(n, dtype=torch.int64, device=device)
+         + ((salt * 0x632BE59B) & _M32)) & _M32
+    k = (int(seed) * 0x9E3779B9) & _M32
+    z = _mul32(i ^ k, 2654435761)
+    z = _mul32(z ^ (z >> 15), 2246822519)
+    z = z ^ (z >> 13)
+    return (z >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def quantize_rows(x: torch.Tensor, scale: torch.Tensor,
+                  u: torch.Tensor) -> torch.Tensor:
+    """clip(floor(x * (127 / scale) + u), -127, 127) as int8, each f32 op
+    rounded separately (127 / scale is a true division, not 127 * (1/scale))."""
+    mul = torch.div(torch.full_like(scale, 127.0), scale)
+    q = torch.floor(x * mul + u)
+    return torch.clamp(q, -127.0, 127.0).to(torch.int8)
+
+
+def slot_hist_plain(bins_T: torch.Tensor, chans: Sequence[torch.Tensor],
+                    slot: Optional[torch.Tensor], num_slots: int,
+                    num_bins: int) -> torch.Tensor:
+    """int32 [S, nch, F, B] sums of int8 row channels by (slot, feature, bin).
+    Rows whose slot is outside [0, S) and bins >= B are dropped; slot None
+    puts every row in slot 0."""
+    f, n = bins_T.shape
+    dev = bins_T.device
+    s, b = num_slots, num_bins
+    out = torch.zeros((s, len(chans), f, b), dtype=torch.int64, device=dev)
+    if slot is None:
+        keep = torch.ones(n, dtype=torch.bool, device=dev)
+        slot = torch.zeros(n, dtype=torch.int64, device=dev)
+    else:
+        slot = slot.to(torch.int64)
+        keep = (slot >= 0) & (slot < s)
+    for j in range(f):
+        bj = bins_T[j].to(torch.int64)
+        ok = keep & (bj < b)
+        key = (slot[ok] * b + bj[ok])
+        for c, ch in enumerate(chans):
+            acc = torch.zeros(s * b, dtype=torch.int64, device=dev)
+            acc.index_add_(0, key, ch[ok].to(torch.int64))
+            out[:, c, j, :] = acc.view(s, b)
+    return out.to(torch.int32)
+
+
+def grad_quant_hist0_plain(bins_T, score, aux, bag, seed: int, spec,
+                           num_bins: int, const_hess: bool):
+    """Plain version of grad_quant_hist0 (same returns)."""
+    f, n = bins_T.shape
+    dev = score.device
+    grad, hess = grad_rows(spec, score, aux)
+    g = grad * bag
+    h = hess * bag
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    mg = torch.maximum(g.abs().max(), zero) if n else zero
+    hv = h if const_hess else h.abs()
+    mh = torch.maximum(hv.max(), zero) if n else zero
+    floor = torch.tensor(1e-20, dtype=torch.float32, device=dev)
+    scale_g = torch.maximum(mg, floor)
+    scale_h = mh * 127.0 if const_hess else torch.maximum(mh, floor)
+    gq = quantize_rows(g, scale_g, sr_dither(n, seed, 1, dev))
+    cq = (bag > 0).to(torch.int8)
+    if const_hess:
+        hq = None
+        chans = [gq, cq]
+    else:
+        hq = quantize_rows(h, scale_h, sr_dither(n, seed, 2, dev))
+        chans = [gq, hq, cq]
+    hist = slot_hist_plain(bins_T, chans, None, 1, num_bins)[0]
+    return gq, hq, cq, torch.stack([scale_g, scale_h]), hist
+
+
+def route_plain(bins_T, leaf_id, tables, na_bin, num_slots: int):
+    """Per-row (slot, new leaf id) through one level's [6, L] route tables
+    (rows: feat, thr, dleft, new_leaf, slot_left, slot_right). Rows of
+    leaves that do not split (feat < 0) or of no leaf keep their id and get
+    the dropped slot S."""
+    f, n = bins_T.shape
+    l = tables.shape[1]
+    lid = leaf_id.to(torch.int64)
+    valid = (lid >= 0) & (lid < l)
+    lc = lid.clamp(0, max(l - 1, 0))
+    tab = tables.to(torch.int64)
+    feat = torch.where(valid, tab[0][lc], torch.full_like(lc, -1))
+    has = (feat >= 0) & (feat < f)
+    fs = feat.clamp(0, f - 1)
+    rows = torch.arange(n, device=bins_T.device)
+    colv = bins_T[fs, rows].to(torch.int64)
+    is_na = colv == na_bin.to(torch.int64)[fs]
+    go_right = torch.where(is_na, tab[2][lc] == 0, colv > tab[1][lc])
+    lid2 = torch.where(has & go_right, tab[3][lc], lid).to(torch.int32)
+    slot = torch.where(has, torch.where(go_right, tab[5][lc], tab[4][lc]),
+                       torch.full_like(lc, num_slots))
+    return slot, lid2
+
+
+def hist_routed_fused_plain(bins_T, gq, hq, cq, leaf_id, tables, na_bin,
+                            num_slots: int, num_bins: int):
+    """Plain version of hist_routed_fused (same returns)."""
+    slot, lid2 = route_plain(bins_T, leaf_id, tables, na_bin, num_slots)
+    chans = [gq, cq] if hq is None else [gq, hq, cq]
+    return slot_hist_plain(bins_T, chans, slot, num_slots, num_bins), lid2
+
+
+def leaf_sums_grad_plain(score, aux, bag, leaf_id, spec, num_leaves: int):
+    """Plain version of leaf_sums_grad: [3, L] f32 from f64 sums."""
+    grad, hess = grad_rows(spec, score, aux)
+    ghc = torch.stack([grad * bag, hess * bag,
+                       (bag > 0).to(torch.float32)]).to(torch.float64)
+    lid = leaf_id.to(torch.int64)
+    ok = (lid >= 0) & (lid < num_leaves)
+    out = torch.zeros((3, num_leaves), dtype=torch.float64,
+                      device=score.device)
+    out.index_add_(1, lid[ok], ghc[:, ok])
+    return out.to(torch.float32)
+
+
+def take_small_plain(table, idx):
+    """Plain version of take_small."""
+    l = table.shape[0]
+    i = idx.to(torch.int64)
+    ok = (i >= 0) & (i < l)
+    if l == 0:
+        return torch.zeros(i.shape, dtype=torch.float32, device=table.device)
+    val = table[i.clamp(0, l - 1)]
+    return torch.where(ok, val, torch.zeros_like(val))
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def grad_quant_hist0(bins_T: torch.Tensor, score: torch.Tensor,
+                     aux: torch.Tensor, bag: torch.Tensor, seed: int, spec,
+                     num_bins: int, const_hess: bool):
+    """Fused objective gradient + int8 SR quantization + root histogram.
+
+    bins_T [F, N] u8; score/aux/bag [N] f32 (aux: label for "l2", label_pos
+    for "logloss"). Returns (gq [N] i8, hq [N] i8 or None under const_hess,
+    cq [N] i8, scales [2] f32 = (scale_g, scale_h), hist [nch, F, B] i32)."""
+    dev = _device_of(bins_T, score, aux, bag)
+    f, n = bins_T.shape
+    _check(bins_T, "bins_T", torch.uint8, (f, n))
+    for name, t in (("score", score), ("aux", aux), ("bag", bag)):
+        _check(t, name, torch.float32, (n,))
+    if dev.type == "cpu":
+        return grad_quant_hist0_plain(bins_T, score, aux, bag, seed, spec,
+                                      num_bins, const_hess)
+    nch = 2 if const_hess else 3
+    if nch * f * num_bins * 4 > 48 * 1024:
+        raise ValueError(f"grad_quant_hist0: F * B = {f * num_bins} exceeds "
+                         "the kernel's 2048-cell root histogram")
+    lib = cuda_lib.load()
+    gq = torch.empty(n, dtype=torch.int8, device=dev)
+    hq = None if const_hess else torch.empty(n, dtype=torch.int8, device=dev)
+    cq = torch.empty(n, dtype=torch.int8, device=dev)
+    scales = torch.empty(2, dtype=torch.float32, device=dev)
+    mx = torch.zeros(2, dtype=torch.int32, device=dev)
+    hist = torch.zeros((nch, f, num_bins), dtype=torch.int32, device=dev)
+    kind, sig, sig2, lwp, lwn = spec_args(spec)
+    grid = max(1, min(4 * _num_sms(dev), -(-n // 256)))
+    rc = lib.lgbt_grad_quant_hist0(
+        bins_T.data_ptr(), score.data_ptr(), aux.data_ptr(), bag.data_ptr(),
+        n, f, num_bins, kind, sig, sig2, lwp, lwn, int(const_hess),
+        int(seed) & 0xFFFFFFFF, mx.data_ptr(), gq.data_ptr(), _ptr(hq),
+        cq.data_ptr(), scales.data_ptr(), hist.data_ptr(), grid, _stream(dev))
+    cuda_lib.check(rc, "grad_quant_hist0")
+    LAUNCHES["grad_quant_hist0"] += 1
+    return gq, hq, cq, scales, hist
+
+
+def routed_hist_grid(f: int, n: int, num_slots: int, nch: int,
+                     num_bins: int, num_sms: int) -> Tuple[int, int, int]:
+    """(features per block, use shared memory, row chunks) of the level pass:
+    as many features per block as fit the shared-memory budget, and enough
+    row chunks that the grid covers the card about twice."""
+    per_feature = num_slots * nch * num_bins * 4
+    fg = min(f, SMEM_BUDGET // per_feature)
+    use_smem = 1 if fg >= 1 else 0
+    if not use_smem:
+        fg = f
+    n_groups = -(-f // fg)
+    blocks_per_sm = max(1, min(4, SMEM_BUDGET // (per_feature * fg))) \
+        if use_smem else 4
+    chunks = -(-(num_sms * blocks_per_sm) // n_groups)
+    chunks = max(1, min(chunks, -(-n // 1024)))
+    return fg, use_smem, chunks
+
+
+def hist_routed_fused(bins_T: torch.Tensor, gq: torch.Tensor,
+                      hq: Optional[torch.Tensor], cq: torch.Tensor,
+                      leaf_id: torch.Tensor, tables: torch.Tensor,
+                      na_bin: torch.Tensor, num_slots: int, num_bins: int):
+    """Route each row through its leaf's split and build the slot histogram.
+
+    tables [6, L] i32 rows (feat, thr, dleft, new_leaf, slot_left,
+    slot_right); na_bin [F] i32 (a value >= B means no missing bin).
+    Returns (hist [S, nch, F, B] i32, lid2 [N] i32); nch = 2 when hq is None
+    (const-hessian: channels g, count)."""
+    dev = _device_of(bins_T, gq, cq, leaf_id, tables, na_bin)
+    f, n = bins_T.shape
+    l = tables.shape[1]
+    _check(bins_T, "bins_T", torch.uint8, (f, n))
+    _check(gq, "gq", torch.int8, (n,))
+    _check(cq, "cq", torch.int8, (n,))
+    if hq is not None:
+        _device_of(bins_T, hq)
+        _check(hq, "hq", torch.int8, (n,))
+    _check(leaf_id, "leaf_id", torch.int32, (n,))
+    _check(tables, "tables", torch.int32, (6, l))
+    _check(na_bin, "na_bin", torch.int32, (f,))
+    if num_slots < 1:
+        raise ValueError("hist_routed_fused: num_slots must be >= 1")
+    if dev.type == "cpu":
+        return hist_routed_fused_plain(bins_T, gq, hq, cq, leaf_id, tables,
+                                       na_bin, num_slots, num_bins)
+    nch = 2 if hq is None else 3
+    lib = cuda_lib.load()
+    fg, use_smem, chunks = routed_hist_grid(f, n, num_slots, nch, num_bins,
+                                            _num_sms(dev))
+    hist = torch.zeros((num_slots, nch, f, num_bins), dtype=torch.int32,
+                       device=dev)
+    lid2 = torch.empty(n, dtype=torch.int32, device=dev)
+    rc = lib.lgbt_hist_routed_fused(
+        bins_T.data_ptr(), gq.data_ptr(), _ptr(hq), cq.data_ptr(),
+        leaf_id.data_ptr(), tables.data_ptr(), na_bin.data_ptr(), n, f,
+        num_bins, l, num_slots, nch, fg, use_smem, chunks, hist.data_ptr(),
+        lid2.data_ptr(), _stream(dev))
+    cuda_lib.check(rc, "hist_routed_fused")
+    LAUNCHES["hist_routed_fused"] += 1
+    return hist, lid2
+
+
+def leaf_sums_grad(score: torch.Tensor, aux: torch.Tensor, bag: torch.Tensor,
+                   leaf_id: torch.Tensor, spec, num_leaves: int) -> torch.Tensor:
+    """Exact per-leaf (grad, hess, count) sums [3, L] f32 with g/h
+    recomputed from (score, aux, bag); leaf ids outside [0, L) are dropped."""
+    dev = _device_of(score, aux, bag, leaf_id)
+    n = score.shape[0]
+    for name, t in (("score", score), ("aux", aux), ("bag", bag)):
+        _check(t, name, torch.float32, (n,))
+    _check(leaf_id, "leaf_id", torch.int32, (n,))
+    if dev.type == "cpu":
+        return leaf_sums_grad_plain(score, aux, bag, leaf_id, spec,
+                                    num_leaves)
+    lib = cuda_lib.load()
+    out = torch.zeros((3, num_leaves), dtype=torch.float64, device=dev)
+    kind, sig, sig2, lwp, lwn = spec_args(spec)
+    grid = max(1, min(4 * _num_sms(dev), -(-n // 256)))
+    rc = lib.lgbt_leaf_sums_grad(
+        score.data_ptr(), aux.data_ptr(), bag.data_ptr(), leaf_id.data_ptr(),
+        n, num_leaves, kind, sig, sig2, lwp, lwn, out.data_ptr(), grid,
+        _stream(dev))
+    cuda_lib.check(rc, "leaf_sums_grad")
+    LAUNCHES["leaf_sums_grad"] += 1
+    return out.to(torch.float32)
+
+
+def take_small(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table [L] f32, idx [N] i32 -> [N] f32; out-of-range idx -> 0."""
+    dev = _device_of(table, idx)
+    l, n = table.shape[0], idx.shape[0]
+    _check(table, "table", torch.float32, (l,))
+    _check(idx, "idx", torch.int32, (n,))
+    if dev.type == "cpu":
+        return take_small_plain(table, idx)
+    lib = cuda_lib.load()
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    grid = max(1, min(8 * _num_sms(dev), -(-n // 256)))
+    rc = lib.lgbt_take_small(table.data_ptr(), idx.data_ptr(), n, l,
+                             out.data_ptr(), grid, _stream(dev))
+    cuda_lib.check(rc, "take_small")
+    LAUNCHES["take_small"] += 1
+    return out

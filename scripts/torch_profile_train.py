@@ -1,0 +1,121 @@
+#!/usr/bin/env python3
+"""Where one training iteration of the PyTorch/CUDA port spends its time.
+
+Run from the repository root on a machine with one CUDA GPU:
+
+    python3 scripts/torch_profile_train.py [--rows N] [--iters K]
+
+It builds the main-path configuration of chip_smoke.py (HIGGS-shaped
+N x 28 table, max_bin=63, num_leaves=255, learning_rate=0.1,
+min_data_in_leaf=20), trains two warm-up iterations, then traces K
+iterations of the binary and of the L2 model with torch.profiler (CUDA and
+CPU activity). For each it prints one JSON line: the wall time per
+iteration, the device time per iteration by kernel group (the four
+hand-written kernels, everything else), the device busy share, and the
+level passes per tree. Prints the card's name and power limit first.
+"""
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GROUPS = (("grad_quant_hist0", ("max_kernel", "quant_hist_kernel")),
+          ("hist_routed_fused", ("routed_hist_kernel",)),
+          ("leaf_sums_grad", ("leaf_sums_kernel",)),
+          ("take_small", ("take_kernel",)))
+
+
+def synth_higgs(n_rows: int, n_feat: int = 28, seed: int = 0):
+    """HIGGS-shaped binary problem (a copy of bench.py synth_higgs)."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n_rows, n_feat).astype(np.float32)
+    w = rng.randn(8)
+    logits = (X[:, :8] @ w) * 0.7 + 0.5 * np.abs(X[:, 8]) * X[:, 9] \
+        - 0.4 * (X[:, 10] ** 2) + 0.3
+    p = 1.0 / (1.0 + np.exp(-logits))
+    y = (rng.rand(n_rows) < p).astype(np.float32)
+    return X, y
+
+
+def group_of(name: str) -> str:
+    for group, keys in GROUPS:
+        if any(k in name for k in keys):
+            return group
+    return "other (split search, glue)"
+
+
+def profile_iters(booster, iters: int):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            booster.update()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    by_group = {}
+    launches = {}
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "cuda_time_total", 0.0)
+        if dev_us <= 0 or ev.device_type.name != "CUDA":
+            continue
+        g = group_of(ev.key)
+        by_group[g] = by_group.get(g, 0.0) + dev_us / 1e3 / iters
+        launches[g] = launches.get(g, 0) + ev.count
+    busy = sum(by_group.values())
+    return {"wall_ms_per_iter": wall * 1e3 / iters,
+            "device_ms_per_iter": by_group,
+            "device_launches": launches,
+            "device_busy_share": busy / (wall * 1e3 / iters)}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--rows", type=int, default=10_500_000)
+    ap.add_argument("--iters", type=int, default=3)
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import lightgbm_tpu_torch as lt
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60, check=True).stdout.strip()
+    print(f"card: {card}")
+    X, y = synth_higgs(args.rows)
+    rng = np.random.RandomState(1)
+    y_reg = (X[:, :4] @ np.array([1.0, -0.5, 0.25, 2.0]) + 0.5 * X[:, 4] ** 2
+             + 0.1 * rng.randn(args.rows)).astype(np.float32)
+    base = {"num_leaves": 255, "max_bin": 63, "learning_rate": 0.1,
+            "min_data_in_leaf": 20, "verbosity": -1}
+    for objective, label in (("binary", y), ("regression", y_reg)):
+        params = dict(base, objective=objective)
+        ds = lt.Dataset(X, label=label, params=params)
+        t0 = time.perf_counter()
+        ds.construct()
+        torch.cuda.synchronize()
+        construct_s = time.perf_counter() - t0
+        bst = lt.Booster(params=params, train_set=ds)
+        for _ in range(2):
+            bst.update()
+        res = profile_iters(bst, args.iters)
+        res.update(objective=objective, rows=args.rows, card=card,
+                   construct_s=construct_s,
+                   level_passes=bst._gbdt.level_passes)
+        print(json.dumps(res))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,122 @@
+"""On the card: each hand-written CUDA kernel of lightgbm_tpu_torch against
+its plain PyTorch version, and a small training run on the GPU against the
+same run on the CPU.
+
+Every test needs an NVIDIA GPU and nvcc (marker ``cuda``) and skips with a
+reason elsewhere: a CUDA kernel has no CPU mode. This file imports neither
+JAX nor the reference package, so it runs on a machine that has neither:
+
+    python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
+
+Tolerances: exact for the quantized front, the level pass and take_small
+(integer sums, order-free); leaf sums within 1e-6 relative (both sum the
+same f32 rows in f64, in different atomic orders); the first tree of an
+L2 model trained on the GPU has the CPU-trained tree's structure and leaf
+values within 1e-6 of its largest leaf value (the leaf sums may differ in
+their last f32 bit, which a leaf that nearly cancels against the init bias
+magnifies relatively; later trees inherit it, so only the first is
+compared).
+"""
+import numpy as np
+import pytest
+import torch
+
+import lightgbm_tpu_torch as lt
+from lightgbm_tpu_torch.ops import hist_kernels as hk
+
+N, F, B, L, S = 5000, 7, 16, 8, 3
+LOGLOSS = ("logloss", 1.0, 1.0, 1.0)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (CUDA kernels have no CPU "
+                    "mode); chip_smoke.py runs these checks on the card")
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def rows(dev):
+    rng = np.random.default_rng(0)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    return {
+        "bins_T": t(rng.integers(0, B, size=(F, N)).astype(np.uint8)),
+        "score": t(rng.normal(size=N).astype(np.float32)),
+        "label": t(rng.normal(size=N).astype(np.float32)),
+        "label_pos": t((rng.random(N) < 0.5).astype(np.float32)),
+        "bag": t((rng.random(N) < 0.8).astype(np.float32)),
+        "lid": t(rng.integers(0, L, size=N).astype(np.int32)),
+    }
+
+
+def _front(rows, spec, const_hess):
+    aux = rows["label"] if spec[0] == "l2" else rows["label_pos"]
+    return (rows["bins_T"], rows["score"], aux, rows["bag"], 9, spec, B,
+            const_hess)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec,const_hess", [(("l2",), True),
+                                             (LOGLOSS, False)])
+def test_grad_quant_hist0_kernel_equals_plain(rows, spec, const_hess):
+    args = _front(rows, spec, const_hess)
+    for a, b in zip(hk.grad_quant_hist0(*args),
+                    hk.grad_quant_hist0_plain(*args)):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("const_hess", [False, True])
+def test_hist_routed_fused_kernel_equals_plain(rows, dev, const_hess):
+    spec = ("l2",) if const_hess else LOGLOSS
+    gq, hq, cq, _, _ = hk.grad_quant_hist0(*_front(rows, spec, const_hess))
+    tab = torch.tensor([[0, 3, 1, 6, 2, -1, -1, -1],
+                        [5, 9, 2, 11, 7, 0, 0, 0],
+                        [1, 0, 0, 1, 0, 0, 0, 0],
+                        list(range(L, 2 * L)),
+                        [0, S, 1, S, S, S, S, S],
+                        [S, 2, S, 0, S, S, S, S]], dtype=torch.int32,
+                       device=dev)
+    na_bin = torch.full((F,), 256, dtype=torch.int32, device=dev)
+    na_bin[1] = 4
+    args = (rows["bins_T"], gq, hq, cq, rows["lid"], tab, na_bin, S, B)
+    for a, b in zip(hk.hist_routed_fused(*args),
+                    hk.hist_routed_fused_plain(*args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_leaf_sums_and_take_small_kernels_equal_plain(rows, dev):
+    args = (rows["score"], rows["label_pos"], rows["bag"], rows["lid"],
+            LOGLOSS, L)
+    torch.testing.assert_close(hk.leaf_sums_grad(*args),
+                               hk.leaf_sums_grad_plain(*args),
+                               rtol=1e-6, atol=1e-6)
+    table = torch.randn(L, device=dev)
+    idx = torch.randint(-2, L + 2, (N,), device=dev, dtype=torch.int32)
+    assert torch.equal(hk.take_small(table, idx),
+                       hk.take_small_plain(table, idx))
+
+
+@pytest.mark.cuda
+def test_gpu_training_matches_cpu_training(dev):
+    rng = np.random.RandomState(0)
+    X = rng.rand(3000, 6).astype(np.float32)
+    y = (np.round((X[:, 0] * 2 + rng.rand(3000)) * 8) / 8).astype(np.float32)
+    params = {"objective": "regression", "num_leaves": 15, "max_bin": 31,
+              "min_data_in_leaf": 10, "verbosity": -1}
+    hk.reset_launches()
+    gpu = lt.train(params, lt.Dataset(X, label=y, params=params), 1)
+    assert min(hk.LAUNCHES.values()) > 0
+    cpu_p = dict(params, device_type="cpu")
+    cpu = lt.train(cpu_p, lt.Dataset(X, label=y, params=cpu_p), 1)
+    (a,), (b,) = gpu._host_trees(), cpu._host_trees()
+    for name in ("split_feature", "threshold_bin", "default_left",
+                 "left_child", "right_child"):
+        np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+    np.testing.assert_allclose(a.leaf_value, b.leaf_value, rtol=0,
+                               atol=1e-6 * np.abs(b.leaf_value).max())

@@ -1,0 +1,254 @@
+"""Kernel-level parity of the PyTorch/CUDA port (lightgbm_tpu_torch) against
+the JAX reference (lightgbm_tpu), on the CPU.
+
+The reference runs its Pallas kernels in interpret mode, as
+tests/test_hist_packed.py does; the port runs each kernel wrapper on CPU
+tensors, i.e. through the kernel's plain PyTorch version. Inputs are made
+from a seed with numpy and handed to both as the same arrays.
+
+Tolerances (each stated where it is asserted):
+- exact: the dither, the L2 quantized channels, scales and root histogram,
+  the level pass (histogram and new leaf ids, 2 and 3 channels, packed
+  lattice on and off) and take_small; integer sums make them order-free;
+- logloss front: torch.exp and XLA's expf differ by at most 1 ulp, which
+  moves g by at most 2 ulp; the test measures the gap and bounds the share
+  of quantized rows that move by one step;
+- leaf sums: the reference sums bf16 hi/lo halves (16 significant bits per
+  row), the port sums the f32 rows in f64: |diff| <= 2^-15 * sum|x|.
+
+The card-side twins of these checks are in tests/test_torch_cuda.py.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from lightgbm_tpu.ops import histogram as ref_hist
+from lightgbm_tpu.ops import pallas_hist as ph
+from lightgbm_tpu_torch.ops import hist_kernels as hk
+from lightgbm_tpu_torch.ops import histogram as th
+
+N, F, B, L, S = 220, 7, 16, 8, 3
+SEED = 12345
+LOGLOSS = ("logloss", 1.0, 1.0, 1.0)
+LOGLOSS_W = ("logloss", 0.7, 1.0, 2.0)
+
+
+@pytest.fixture(scope="module")
+def rows():
+    rng = np.random.default_rng(0)
+    return {
+        "bins": rng.integers(0, B, size=(N, F)).astype(np.uint8),
+        "score": rng.normal(size=N).astype(np.float32),
+        "label": np.round(rng.normal(size=N) * 8).astype(np.float32) / 8,
+        "label_pos": (rng.random(N) < 0.5).astype(np.float32),
+        "bag": (rng.random(N) < 0.8).astype(np.float32),
+        "lid": rng.integers(0, L, size=N).astype(np.int32),
+    }
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _ref_front(rows, spec, aux, const_hess, pack_k=0):
+    gq, hq, cq, sg, sh, hist0 = ph.grad_quant_hist0_pallas(
+        jnp.asarray(rows["bins"].T), jnp.asarray(rows["score"]),
+        jnp.asarray(aux), jnp.asarray(rows["bag"]), SEED, spec, B,
+        const_hess=const_hess, pack_k=pack_k, interpret=True)
+    return {"gq": np.asarray(gq), "hq": None if hq is None else np.asarray(hq),
+            "cq": np.asarray(cq), "scale_g": np.asarray(sg),
+            "scale_h": np.asarray(sh), "hist0": np.asarray(hist0)}
+
+
+def _port_front(rows, spec, aux, const_hess):
+    quant, hist0 = th.grad_quant_hist0(
+        _t(rows["bins"].T), _t(rows["score"]), _t(aux), _t(rows["bag"]),
+        SEED, spec, B, const_hess=const_hess)
+    return quant, hist0
+
+
+@pytest.mark.parametrize("salt", [1, 2])
+@pytest.mark.parametrize("seed", [0, 7, 2 ** 31 - 1])
+def test_sr_dither_matches_reference_quantizer(seed, salt):
+    # exact: the uint32 counter hash replayed in int64 must give the same
+    # f32 uniforms, hence the same quantized rows
+    rng = np.random.default_rng(seed % 97)
+    x = rng.normal(size=N).astype(np.float32)
+    q_ref, s_ref = ref_hist.quantize_sr(jnp.asarray(x), seed, salt)
+    q, s = th.quantize_sr(_t(x), seed, salt)
+    np.testing.assert_array_equal(q.numpy(), np.asarray(q_ref))
+    assert s.item() == float(s_ref)
+
+
+@pytest.mark.parametrize("const_hess", [False, True])
+def test_make_quant_matches_reference(rows, const_hess):
+    # exact: the unfused quantizer on the same (g, h, c) rows gives the same
+    # int8 channels and scales (under const-hess: no hq, scale_h = 127 max h)
+    rng = np.random.default_rng(3)
+    g = rng.normal(size=N).astype(np.float32) * rows["bag"]
+    h = (rows["bag"] if const_hess
+         else rng.random(N).astype(np.float32) * rows["bag"])
+    c = (rows["bag"] > 0).astype(np.float32)
+    ref = ref_hist.make_quant(jnp.asarray(g), jnp.asarray(h), jnp.asarray(c),
+                              SEED, const_hess=const_hess)
+    got = th.make_quant(_t(g), _t(h), _t(c), SEED, const_hess=const_hess)
+    for name in ("gq", "hq", "cq"):
+        a, b = getattr(got, name), getattr(ref, name)
+        assert (a is None) == (b is None) == (const_hess and name == "hq")
+        if a is not None:
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert got.scale_g.item() == float(ref.scale_g)
+    assert got.scale_h.item() == float(ref.scale_h)
+
+
+@pytest.mark.parametrize("n", [1, 220, 1 << 20, 1 << 24])
+@pytest.mark.parametrize("const_hess", [False, True])
+def test_pack_guard_bits_matches_reference(n, const_hess):
+    assert th.pack_guard_bits(n, const_hess) == \
+        ref_hist.pack_guard_bits(n, const_hess)
+
+
+@pytest.mark.parametrize("pack", [False, True])
+def test_l2_front_exact(rows, pack):
+    # exact: L2 gradients have no transcendental, so the quantized
+    # channels, scales and the dequantized root histogram are bit-identical
+    # to the reference with its packed lattice on or off
+    pk = ref_hist.pack_guard_bits(N, True) if pack else 0
+    ref = _ref_front(rows, ("l2",), rows["label"], True, pack_k=pk)
+    quant, hist0 = _port_front(rows, ("l2",), rows["label"], True)
+    assert quant.hq is None and ref["hq"] is None
+    np.testing.assert_array_equal(quant.gq.numpy(), ref["gq"])
+    np.testing.assert_array_equal(quant.cq.numpy(), ref["cq"])
+    assert quant.scale_g.item() == float(ref["scale_g"])
+    assert quant.scale_h.item() == float(ref["scale_h"])
+    np.testing.assert_array_equal(hist0.numpy(), ref["hist0"])
+
+
+def test_l2_gradients_exact(rows):
+    # exact: grad = score - label, hess = 1
+    g_ref, h_ref = ph._grad_rows(("l2",), jnp.asarray(rows["score"]),
+                                 jnp.asarray(rows["label"]))
+    g, h = hk.grad_rows(("l2",), _t(rows["score"]), _t(rows["label"]))
+    np.testing.assert_array_equal(g.numpy(), np.asarray(g_ref))
+    np.testing.assert_array_equal(h.numpy(), np.asarray(h_ref))
+
+
+def _ulps(a, b):
+    return np.abs(a.view(np.int32).astype(np.int64)
+                  - b.view(np.int32).astype(np.int64))
+
+
+@pytest.mark.parametrize("spec", [LOGLOSS, LOGLOSS_W])
+def test_logloss_gradients_ulp_gap(rows, spec):
+    # measured: torch.exp (CPU) and XLA's expf differ by at most 1 ulp on
+    # about a tenth of these rows; through resp the gradient moves by at
+    # most 2 ulp, and the hessian resp * (1 - resp) by a few ulp more where
+    # 1 - resp cancels (8 ulp bound here)
+    g_ref, h_ref = ph._grad_rows(spec, jnp.asarray(rows["score"]),
+                                 jnp.asarray(rows["label_pos"]))
+    g, h = hk.grad_rows(spec, _t(rows["score"]), _t(rows["label_pos"]))
+    assert _ulps(g.numpy(), np.asarray(g_ref)).max() <= 2
+    assert _ulps(h.numpy(), np.asarray(h_ref)).max() <= 8
+
+
+@pytest.mark.parametrize("spec", [LOGLOSS, LOGLOSS_W])
+def test_logloss_front_within_exp_gap(rows, spec):
+    # tolerance: the exp gap above can move a quantized row by one step
+    # (measured: none of these rows moves); bounded at 1% of rows, |step| 1;
+    # the scales are within 4 ulp and the count channel is exact
+    ref = _ref_front(rows, spec, rows["label_pos"], False)
+    quant, hist0 = _port_front(rows, spec, rows["label_pos"], False)
+    for name, got in (("gq", quant.gq), ("hq", quant.hq)):
+        d = np.abs(got.numpy().astype(np.int32) - ref[name].astype(np.int32))
+        assert d.max() <= 1 and (d > 0).mean() <= 0.01, name
+    np.testing.assert_array_equal(quant.cq.numpy(), ref["cq"])
+    for name in ("scale_g", "scale_h"):
+        got = np.float32(getattr(quant, name).item())
+        assert _ulps(np.array([got]), np.array([ref[name]],
+                                               np.float32)).max() <= 4
+    np.testing.assert_array_equal(hist0[2].numpy(), ref["hist0"][2])
+    np.testing.assert_allclose(hist0[:2].numpy(), ref["hist0"][:2],
+                               rtol=1e-6, atol=0.02 * float(ref["scale_g"]))
+
+
+def _tables(rows):
+    """Route tables with non-splitting leaves (feat -1), NA bins and a
+    dropped slot: leaves 0..4 split, 5..7 do not; leaf 4 routes both
+    children to the sentinel slot S."""
+    feat = np.array([0, 3, 1, 6, 2, -1, -1, -1], np.int32)
+    thr = np.array([5, 9, 2, 11, 7, 0, 0, 0], np.int32)
+    dleft = np.array([1, 0, 0, 1, 0, 0, 0, 0], np.int32)
+    new_leaf = np.arange(L, 2 * L, dtype=np.int32)
+    slot_left = np.array([0, S, 1, S, S, S, S, S], np.int32)
+    slot_right = np.array([S, 2, S, 0, S, S, S, S], np.int32)
+    na_bin = np.full(F, 256, np.int32)
+    na_bin[1] = 4
+    na_bin[3] = 0
+    return (feat, thr, dleft, new_leaf, slot_left, slot_right), na_bin
+
+
+@pytest.mark.parametrize("pack", [False, True])
+@pytest.mark.parametrize("const_hess", [False, True])
+def test_hist_routed_fused_exact(rows, const_hess, pack):
+    # exact: the level pass's dequantized slot histogram and new leaf ids,
+    # 3 channels (g, h, count) or 2 (g, count under const-hessian), against
+    # the reference kernel with its packed lattice on and off
+    spec, aux = (("l2",), rows["label"]) if const_hess \
+        else (LOGLOSS, rows["label_pos"])
+    quant, _ = _port_front(rows, spec, aux, const_hess)
+    cols, na_bin = _tables(rows)
+    ref_tabs = ref_hist.RouteTables(*[jnp.asarray(c) for c in cols])
+    pk = ref_hist.pack_guard_bits(N, const_hess) if pack else 0
+    hq_ref = quant.cq if const_hess else quant.hq
+    ref_h, ref_lid = ph.hist_routed_fused_q8(
+        jnp.asarray(rows["bins"].T), jnp.asarray(quant.gq.numpy()),
+        jnp.asarray(hq_ref.numpy()), jnp.asarray(quant.cq.numpy()),
+        jnp.asarray(rows["lid"]), ref_tabs, jnp.asarray(na_bin), S, B,
+        jnp.float32(quant.scale_g.item()), jnp.float32(quant.scale_h.item()),
+        L, const_hess=const_hess, pack_k=pk, interpret=True)
+    tabs = th.RouteTables(*[_t(c) for c in cols])
+    hist, lid2 = th.hist_routed(_t(rows["bins"].T), _t(rows["lid"]), tabs,
+                                _t(na_bin), S, B, quant)
+    np.testing.assert_array_equal(hist.numpy(), np.asarray(ref_h))
+    np.testing.assert_array_equal(lid2.numpy(), np.asarray(ref_lid))
+
+
+@pytest.mark.parametrize("spec,aux", [(("l2",), "label"),
+                                      (LOGLOSS, "label_pos")])
+def test_leaf_sums_grad_within_hi_lo_error(rows, spec, aux):
+    # tolerance |diff| <= 2^-15 * sum|x| per leaf and channel: the
+    # reference keeps 16 significant bits of each row (bf16 hi + lo), the
+    # port sums the f32 rows in f64; counts are exact
+    ref = np.asarray(ph.leaf_sums_grad_pallas(
+        jnp.asarray(rows["score"]), jnp.asarray(rows[aux]),
+        jnp.asarray(rows["bag"]), jnp.asarray(rows["lid"]), spec, L,
+        interpret=True))
+    got = hk.leaf_sums_grad(_t(rows["score"]), _t(rows[aux]),
+                            _t(rows["bag"]), _t(rows["lid"]), spec, L).numpy()
+    g, h = hk.grad_rows(spec, _t(rows["score"]), _t(rows[aux]))
+    ghc = torch.stack([g * _t(rows["bag"]), h * _t(rows["bag"]),
+                       (_t(rows["bag"]) > 0).float()]).double()
+    mass = torch.zeros(3, L, dtype=torch.float64).index_add_(
+        1, _t(rows["lid"]).long(), ghc.abs()).numpy()
+    np.testing.assert_array_equal(got[2], ref[2])
+    assert (np.abs(got - ref) <= 2.0 ** -15 * mass).all()
+
+
+def test_take_small_exact_with_out_of_range():
+    # exact, out-of-range indices (negative, == L, > L) give 0.0
+    rng = np.random.default_rng(3)
+    table = rng.normal(size=L).astype(np.float32)
+    idx = rng.integers(-3, L + 4, size=N).astype(np.int32)
+    ref = np.asarray(ph.take_small_pallas(jnp.asarray(table),
+                                          jnp.asarray(idx), interpret=True))
+    got = hk.take_small(_t(table), _t(idx)).numpy()
+    np.testing.assert_array_equal(got, ref)
+    assert (got[(idx < 0) | (idx >= L)] == 0.0).all()
+
+
+def test_cpu_wrappers_count_no_launches(rows):
+    hk.reset_launches()
+    hk.take_small(_t(np.ones(L, np.float32)), _t(rows["lid"]))
+    assert hk.LAUNCHES == {k: 0 for k in hk.KERNELS}

@@ -1,0 +1,383 @@
+"""End-to-end parity of the PyTorch/CUDA port (lightgbm_tpu_torch) with the
+JAX reference (lightgbm_tpu), on the CPU, plus the port's boundaries.
+
+The reference trains on its Pallas kernels in interpret mode
+(histogram_impl=pallas, use_quantized_grad=true, as in
+tests/test_megapass.py); the port trains with device_type="cpu", i.e. on
+the kernels' plain versions.
+
+Exact: parameter resolution, bin mappers and bins, the structure of every
+tree of a 3-iteration L2 model and of the first binary tree
+(split_feature, threshold_bin, default_left, children), save/load
+predictions. Tolerances: leaf values and predictions after 3 iterations
+rtol 1e-4 — the reference renews leaf values from bf16 hi/lo sums (16
+significant bits per row) and every later gradient inherits that gap;
+predictions of a loaded reference model rtol 1e-6 — the reference sums
+leaf values in f32, the port in f64.
+"""
+import ast
+import dataclasses
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import lightgbm_tpu as lgb
+from lightgbm_tpu import binning as ref_binning
+from lightgbm_tpu import config as ref_config
+from lightgbm_tpu import metrics as ref_metrics
+import lightgbm_tpu_torch as lt
+from lightgbm_tpu_torch import binning as t_binning
+from lightgbm_tpu_torch import config as t_config
+from lightgbm_tpu_torch import metrics as t_metrics
+from lightgbm_tpu_torch.convert import (booster_from_model_text,
+                                        mappers_from_reference)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+GOLDEN = os.path.join(REPO, "tests", "golden")
+PALLAS_PARAMS = {"num_leaves": 7, "max_bin": 31, "min_data_in_leaf": 5,
+                 "verbosity": -1, "prewarm": 0, "histogram_impl": "pallas",
+                 "use_quantized_grad": "true"}
+CPU = {"device_type": "cpu"}
+STRUCT = ("split_feature", "threshold_bin", "default_left", "left_child",
+          "right_child")
+
+
+def _data():
+    rng = np.random.RandomState(0)
+    X = rng.rand(400, 8).astype(np.float32)
+    X[rng.rand(400) < 0.05, 5] = np.nan
+    yb = (X[:, 0] + 0.3 * rng.rand(400) > 0.65).astype(np.float32)
+    # L2 labels on a 1/8 grid: their f32 mean is exact in any summation
+    # order, so both packages start from the same boost-from-average score
+    yr = (np.round((X[:, 1] * 2.0 + rng.rand(400)) * 8) / 8).astype(
+        np.float32)
+    return X, yb, yr
+
+
+@pytest.fixture(scope="module")
+def models():
+    X, yb, yr = _data()
+    out = {}
+    for objective, y in (("binary", yb), ("regression", yr)):
+        p = dict(PALLAS_PARAMS, objective=objective)
+        ref = lgb.train(p, lgb.Dataset(X, label=y, params=p),
+                        num_boost_round=3)
+        pt = dict(p, **CPU)
+        port = lt.train(pt, lt.Dataset(X, label=y, params=pt),
+                        num_boost_round=3)
+        out[objective] = (ref, port)
+    return X, out
+
+
+@pytest.mark.parametrize("params", [
+    {},
+    {"objective": "binary", "num_leaves": 255, "max_bin": 63, "eta": 0.05,
+     "min_data": 20, "reg_lambda": 1.5, "sub_row": 1.0},
+    {"application": "regression", "num_iteration": 7, "max_leaves": 15,
+     "min_child_weight": 0.5, "histogram_impl": "pallas",
+     "hist_packed": "false", "seed": 11, "metric": "auc,l2"},
+    {"device": "cpu", "max_bin": 400, "use_missing": "false",
+     "max_bin_by_feature": "4,5,6", "verbose": -1},
+])
+def test_config_resolution_matches_reference(params):
+    # exact: every parameter resolves to the same value in both packages
+    # (device_type excepted: the port's default is "cuda")
+    ref = ref_config.params_to_config(params).to_dict()
+    got = t_config.params_to_config(params).to_dict()
+    ref.pop("device_type"), got.pop("device_type")
+    assert got == ref
+    for key in params:
+        assert t_config.canonical_name(key) == ref_config.canonical_name(key)
+
+
+def test_device_type_defaults_to_cuda():
+    assert t_config.Config().device_type == "cuda"
+    assert t_config.Config({"device": "cpu"}).device_type == "cpu"
+
+
+def test_binning_exact_and_converted_mappers():
+    # exact mappers and bins on data with NaNs, zeros, negatives, a
+    # constant column and a row sample (sample_cnt < N)
+    rng = np.random.RandomState(3)
+    X = rng.randn(600, 6)
+    X[rng.rand(600) < 0.1, 0] = np.nan
+    X[rng.rand(600) < 0.3, 1] = 0.0
+    X[:, 2] = np.round(X[:, 2] * 3)
+    X[:, 3] = 1.0
+    kw = dict(max_bin=15, min_data_in_bin=3, sample_cnt=500, seed=7)
+    ref_m = ref_binning.find_bin_mappers(X, **kw)
+    got_m = t_binning.find_bin_mappers(X, **kw)
+    conv = mappers_from_reference([dataclasses.asdict(m) for m in ref_m])
+    for r, g, c in zip(ref_m, got_m, conv):
+        for m in (g, c):
+            assert m.num_bins == r.num_bins and m.default_bin == r.default_bin
+            assert m.missing_type == r.missing_type
+            assert m.is_trivial == r.is_trivial and m.na_bin == r.na_bin
+            np.testing.assert_array_equal(m.upper_bounds, r.upper_bounds)
+    ref_bd = ref_binning.bin_data(X, ref_m)
+    used = t_binning.used_features(got_m)
+    assert used == list(ref_bd.feature_map)
+    bins = t_binning.bin_data(X, [got_m[j] for j in used], used,
+                              torch.device("cpu"))
+    np.testing.assert_array_equal(bins.numpy(), ref_bd.bins)
+
+
+def _trees(ref, port):
+    return ref._gbdt.finalize(), port._host_trees()
+
+
+def test_l2_every_tree_structure_exact(models):
+    X, out = models
+    ref, port = out["regression"]
+    rt, pt = _trees(ref, port)
+    assert len(rt) == len(pt) == 3
+    for a, b in zip(rt, pt):
+        for name in STRUCT:
+            np.testing.assert_array_equal(getattr(b, name),
+                                          getattr(a, name), err_msg=name)
+        np.testing.assert_allclose(b.leaf_value, a.leaf_value, rtol=1e-4)
+    np.testing.assert_allclose(port.predict(X), ref.predict(X), rtol=1e-4)
+
+
+@pytest.mark.parametrize("extra", [
+    {"lambda_l1": 0.5, "lambda_l2": 2.0, "max_depth": 3, "num_leaves": 15,
+     "min_gain_to_split": 0.01, "max_delta_step": 0.8},
+    {"zero_as_missing": True, "min_sum_hessian_in_leaf": 4.0,
+     "learning_rate": 0.3},
+])
+def test_l2_options_tree_structure_exact(extra):
+    # exact structure of every tree under the split options the slice
+    # ports; leaf values and predictions rtol 1e-4 (queue C2)
+    X, _, yr = _data()
+    X[np.random.RandomState(2).rand(*X.shape) < 0.1] = 0.0
+    p = dict(PALLAS_PARAMS, objective="regression", **extra)
+    ref = lgb.train(p, lgb.Dataset(X, label=yr, params=p), num_boost_round=3)
+    pt = dict(p, **CPU)
+    port = lt.train(pt, lt.Dataset(X, label=yr, params=pt), num_boost_round=3)
+    rt, ptr = _trees(ref, port)
+    assert len(rt) == len(ptr) == 3
+    for a, b in zip(rt, ptr):
+        for name in STRUCT:
+            np.testing.assert_array_equal(getattr(b, name),
+                                          getattr(a, name), err_msg=name)
+        np.testing.assert_allclose(b.leaf_value, a.leaf_value, rtol=1e-4)
+    np.testing.assert_allclose(port.predict(X), ref.predict(X), rtol=1e-4)
+
+
+def test_binary_first_tree_structure_exact(models):
+    X, out = models
+    ref, port = out["binary"]
+    rt, pt = _trees(ref, port)
+    for name in STRUCT:
+        np.testing.assert_array_equal(getattr(pt[0], name),
+                                      getattr(rt[0], name), err_msg=name)
+    np.testing.assert_allclose(pt[0].leaf_value, rt[0].leaf_value, rtol=1e-4)
+    np.testing.assert_allclose(port.predict(X, raw_score=True),
+                               ref.predict(X, raw_score=True), rtol=1e-4)
+    np.testing.assert_allclose(port.predict(X), ref.predict(X), rtol=1e-4)
+
+
+def test_pred_leaf_matches_reference(models):
+    # exact leaf indices of every row in every tree (the L2 structures are
+    # identical, so the routing must be too)
+    X, out = models
+    ref, port = out["regression"]
+    np.testing.assert_array_equal(port.predict(X, pred_leaf=True),
+                                  np.asarray(ref.predict(X, pred_leaf=True)))
+
+
+def test_model_text_roundtrip_predicts_identically(models, tmp_path):
+    X, out = models
+    _, port = out["binary"]
+    path = str(tmp_path / "model.txt")
+    port.save_model(path)
+    loaded = lt.Booster(model_file=path, params=CPU)
+    np.testing.assert_array_equal(loaded.predict(X), port.predict(X))
+    assert loaded.model_to_string() == port.model_to_string()
+
+
+@pytest.mark.parametrize("objective", ["binary", "regression"])
+def test_reference_model_text_loads(models, objective):
+    # rtol 1e-6: the reference sums f32 leaf values, the port f64
+    X, out = models
+    ref, _ = out[objective]
+    port = booster_from_model_text(ref.model_to_string(), params=CPU)
+    np.testing.assert_allclose(port.predict(X), ref.predict(X), rtol=1e-6)
+    np.testing.assert_allclose(port.predict(X, raw_score=True),
+                               ref.predict(X, raw_score=True), rtol=1e-6)
+
+
+def test_golden_model_reproduces_golden_preds():
+    # the frozen reference-format model (with a categorical node); rtol
+    # 1e-6: its predictions were written from f32 sums
+    bst = lt.Booster(model_file=os.path.join(GOLDEN, "model_v3.txt"),
+                     params=CPU)
+    Xp = np.loadtxt(os.path.join(GOLDEN, "golden_inputs.txt"))
+    expected = np.loadtxt(os.path.join(GOLDEN, "golden_preds.txt"))
+    np.testing.assert_allclose(bst.predict(Xp, raw_score=True), expected,
+                               rtol=1e-6, atol=1e-12)
+
+
+def test_eval_metrics_match_reference(models):
+    X, yb, yr = _data()
+    rng = np.random.RandomState(4)
+    prob = np.round(rng.rand(400), 2).astype(np.float32)   # with ties
+    for name in ("auc", "binary_logloss"):
+        ref = ref_metrics.create_metrics([name], ref_config.Config())[0]
+        got = t_metrics.create_metrics([name])[0]
+        np.testing.assert_allclose(
+            got(torch.from_numpy(yb), torch.from_numpy(prob)),
+            ref(np.asarray(yb), np.asarray(prob)), rtol=1e-6)
+    for name in ("l2", "rmse"):
+        ref = ref_metrics.create_metrics([name], ref_config.Config())[0]
+        got = t_metrics.create_metrics([name])[0]
+        np.testing.assert_allclose(
+            got(torch.from_numpy(yr), torch.from_numpy(prob)),
+            ref(np.asarray(yr), np.asarray(prob)), rtol=1e-6)
+
+
+def test_train_records_valid_metrics():
+    X, yb, _ = _data()
+    p = dict(PALLAS_PARAMS, objective="binary", metric="auc", **CPU)
+    ds = lt.Dataset(X[:300], label=yb[:300], params=p)
+    valid = lt.Dataset(X[300:], label=yb[300:], reference=ds)
+    res = {}
+    bst = lt.train(p, ds, num_boost_round=3, valid_sets=[ds, valid],
+                   valid_names=["train", "valid"], evals_result=res)
+    assert len(res["training"]["auc"]) == len(res["valid"]["auc"]) == 3
+    # the valid scores maintained during training are the model's own
+    # predictions on those rows
+    got = t_metrics.auc(torch.from_numpy(yb[300:]),
+                        torch.from_numpy(bst.predict(X[300:])))
+    np.testing.assert_allclose(res["valid"]["auc"][-1], float(got),
+                               rtol=1e-9)
+
+
+def test_default_device_needs_a_gpu():
+    X, yb, _ = _data()
+    p = dict(PALLAS_PARAMS, objective="binary")
+    if torch.cuda.is_available():
+        ds = lt.Dataset(X, label=yb, params=p).construct()
+        assert ds.bins.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device_type='cpu'"):
+        lt.train(p, lt.Dataset(X, label=yb, params=p), num_boost_round=1)
+
+
+@pytest.mark.parametrize("extra,item", [
+    ({"grow_policy": "lossguide"}, "A13"),
+    ({"use_quantized_grad": "false"}, "B8"),
+    ({"bagging_fraction": 0.5, "bagging_freq": 1}, "A10"),
+    ({"feature_fraction": 0.5}, "A10"),
+    ({"feature_fraction_bynode": 0.5}, "A10"),
+    ({"extra_trees": True}, "A12"),
+    ({"boosting": "goss"}, "A14"),
+    ({"boosting": "dart"}, "A14"),
+    ({"boosting": "rf"}, "A14"),
+    ({"objective": "multiclass", "num_class": 3}, "A11"),
+    ({"histogram_pool_size": 1.0}, "A13"),
+    ({"tree_learner": "data"}, "A21"),
+    ({"categorical_feature": "0"}, "A12"),
+    ({"max_bin": 255}, "B5"),
+])
+def test_out_of_slice_settings_raise(extra, item):
+    X, yb, _ = _data()
+    X = np.repeat(X, 4, axis=1) if "max_bin" in extra else X
+    p = dict(PALLAS_PARAMS, objective="binary", **CPU)
+    p.update(extra)
+    with pytest.raises(NotImplementedError, match=item):
+        lt.train(p, lt.Dataset(X, label=yb, params=p), num_boost_round=1)
+
+
+@pytest.mark.parametrize("kw,item", [({"weight": np.ones(400)}, "A11"),
+                                     ({"categorical_feature": [0]}, "A12")])
+def test_out_of_slice_dataset_arguments_raise(kw, item):
+    X, yb, _ = _data()
+    with pytest.raises(NotImplementedError, match=item):
+        lt.Dataset(X, label=yb, params=CPU, **kw)
+
+
+@pytest.mark.parametrize("exclusive", [True, False])
+def test_refuses_exactly_the_data_the_reference_bundles(exclusive):
+    # EFB is queue A12: the port must raise where the reference's plan
+    # bundles (mutually exclusive sparse columns) and train where it does
+    # not (sparse columns that overlap), and train with bundling off
+    rng = np.random.RandomState(1)
+    X, yb, _ = _data()
+    X[:, :4] = 0.0
+    which = rng.randint(0, 4, 400)
+    for j in range(4):
+        rows = (which == j) & (rng.rand(400) < 0.6) if exclusive \
+            else rng.rand(400) < 0.15
+        X[rows, j] = 1.0 + j
+    p = dict(PALLAS_PARAMS, objective="binary")
+    ref_ds = lgb.Dataset(X, label=yb, params=p).construct()
+    assert (ref_ds.bundle_meta is not None) == exclusive
+    pt = dict(p, **CPU)
+    if exclusive:
+        with pytest.raises(NotImplementedError, match="A12"):
+            lt.train(pt, lt.Dataset(X, label=yb, params=pt), 1)
+        pt["enable_bundle"] = False
+    assert lt.train(pt, lt.Dataset(X, label=yb, params=pt), 1).num_trees()
+
+
+def test_custom_objective_raises():
+    X, yb, _ = _data()
+    p = dict(PALLAS_PARAMS, objective="binary", **CPU)
+    with pytest.raises(NotImplementedError, match="A11"):
+        lt.train(p, lt.Dataset(X, label=yb, params=p), 1,
+                 fobj=lambda s, d: (s, s))
+
+
+def test_import_leaves_jax_and_reference_out():
+    code = ("import sys, lightgbm_tpu_torch, lightgbm_tpu_torch.convert, "
+            "lightgbm_tpu_torch.ops.hist_kernels; "
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'lightgbm_tpu' or "
+            "m.startswith('lightgbm_tpu.')); print(bad); "
+            "sys.exit(1 if bad else 0)")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def _port_files():
+    for root, _dirs, files in os.walk(os.path.join(REPO, "lightgbm_tpu_torch")):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(root, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_port_sources_import_neither_jax_nor_reference():
+    for path in _port_files():
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), filename=path)
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            for nm in names:
+                top = nm.split(".")[0]
+                assert top not in ("jax", "jaxlib", "lightgbm_tpu"), \
+                    f"{path} imports {nm}"
+
+
+def test_chip_smoke_refuses_without_gpu_or_checkout(tmp_path):
+    # exits non-zero and prints no result line without a card, and outside
+    # a checkout of the repository
+    lone = tmp_path / "chip_smoke.py"
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), lone)
+    for script, cwd in ((os.path.join(REPO, "chip_smoke.py"), REPO),
+                        (str(lone), str(tmp_path))):
+        r = subprocess.run([sys.executable, script], cwd=cwd,
+                           capture_output=True, text=True, timeout=120)
+        assert r.returncode != 0
+        assert '"ok"' not in r.stdout
