@@ -9,30 +9,42 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 
 1. card: the GPU's name and power limit (nvidia-smi), torch and CUDA
    versions;
-2. build: the four Hopper kernels are compiled from lightgbm_tpu_torch/csrc
+2. build: the seven Hopper kernels are compiled from lightgbm_tpu_torch/csrc
    by nvcc into one library (ops/cuda_lib.py), and the build time printed;
-3. kernels: each kernel's wrapper runs on the card at the main path's shapes
-   (N = 10.5M rows, F = 28, B = 64, L = 255; the level pass at S = 32 and
-   127 slots with 2 and 3 channels) and is held against its plain PyTorch
-   version on the same inputs: integer outputs and histograms exactly,
-   leaf sums within 1e-6 of the row mass. Each kernel is timed (median of
-   CUDA-event timings), beside its plain version, the least time the card
-   could take (bytes over memory rate or operations over peak rate), and
-   one PyTorch call computing the same function where one exists;
-4. main path: a HIGGS-shaped 10.5M x 28 table (bench.py's generator,
-   copied), lightgbm_tpu_torch.Dataset with max_bin=63, train() of a
-   binary model (num_leaves=255, learning_rate=0.1, min_data_in_leaf=20)
-   for 5 iterations and of an L2 model on a continuous target for 2; the
-   launch counters are zeroed before and read after, and must equal one
-   grad_quant_hist0 / leaf_sums_grad / take_small per tree and one
-   hist_routed_fused per level pass; train AUC on 1M rows > 0.7; the saved
-   model text loads back and predicts identically;
-5. agreement: the first tree of a 4000-row L2 model trained on the card
-   has the structure of the same tree trained through the plain versions
-   on the CPU, and leaf values within 1e-6 of its largest leaf value in
-   magnitude (the one difference
-   is the f64 order of the leaf sums; later trees inherit it, so only the
-   first is compared exactly).
+3. kernels: each kernel's wrapper runs on the card at the main paths'
+   shapes and is held against its plain PyTorch version on the same
+   inputs: integer outputs and histograms exactly, leaf sums within 1e-6
+   of the row mass. The fused path's kernels at N = 10.5M rows, F = 28,
+   B = 64, L = 255 (the level pass at S = 32 and 127 slots with 2 and 3
+   channels); the unfused path's at B = 256: hist_q8 at S = 1 (no slot
+   vector), 32 and 127 with 2 and 3 channels, fed the slots route_level
+   gives (NA bins, leaves that do not split, about half the rows in
+   dropped slots), route_level at S = 32 and 127, leaf_sums at L = 255.
+   Each kernel is timed (median of CUDA-event timings), beside its plain
+   version, the least time the card could take (bytes over memory rate or
+   operations over peak rate), and one PyTorch call computing the same
+   function where one exists;
+4. main paths: a HIGGS-shaped 10.5M x 28 table (bench.py's generator,
+   copied) through lightgbm_tpu_torch.Dataset and train(): a binary model
+   (num_leaves=255, learning_rate=0.1, min_data_in_leaf=20) for 5
+   iterations and an L2 model on a continuous target for 2, once at
+   max_bin=63 (B = 64, F * B = 1792: the fused path) and once at the
+   default max_bin=255 (B = 256, F * B = 7168: the unfused path). The
+   launch counters are zeroed before each path and read after; at 63 bins
+   they must equal one grad_quant_hist0 / leaf_sums_grad / take_small per
+   tree and one hist_routed_fused per level pass, at 255 bins one
+   hist_q8 per tree and per level pass, one route_level per level pass and
+   one leaf_sums / take_small per tree, and zero for the other path's
+   kernels. On each path: train AUC on 1M rows > 0.7, the L2 model reduces
+   the squared error, the saved model text loads back and predicts
+   identically;
+5. agreement, at max_bin=63 and at 255 (the 4000-row table has more than
+   128 bins a feature, so the unfused path, which is asserted): the first
+   tree of a 4000-row L2 model trained on the card has the structure of
+   the same tree trained through the plain versions on the CPU, and leaf
+   values within 1e-6 of its largest leaf value in magnitude (the one
+   difference is the f64 order of the leaf sums; later trees inherit it,
+   so only the first is compared exactly).
 
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
@@ -49,6 +61,9 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 N, F, B, L = 10_500_000, 28, 64, 255
+BW = 256              # the bin axis of the default max_bin=255
+FUSED = ("grad_quant_hist0", "hist_routed_fused", "leaf_sums_grad")
+UNFUSED = ("hist_q8", "route_level", "leaf_sums")
 # the saved model goes beside the kernel library (ignored by git)
 OUT_DIR = os.path.join(HERE, "lightgbm_tpu_torch", "_build")
 
@@ -284,103 +299,246 @@ def main() -> int:
         bound_ms=bms, bound_by=by,
         library_ms=time_ms(lambda: padded.index_select(0, idx_in)))
     print("take_small: exact")
-    del bins_T, score, label_pos, label_reg, bag, lid, idx, idx_in, ghc
+    del bins_T, idx, idx_in
     torch.cuda.empty_cache()
 
-    # ---- 4. main path through the public entry points ----
+    # B5 / B6 at B = 256: route_level gives hist_q8 its slot vector, as on
+    # the main path. Route tables: leaves 0 .. S-1 split (NA bins on ten
+    # features, both missing directions), the others do not; leaf ids in
+    # [0, 2S), so about half the rows sit in dropped slots or leaves that
+    # do not split.
+    bins_w = torch.randint(0, BW, (F, N), generator=g, device=dev,
+                           dtype=torch.int64).to(torch.uint8)
+    na_w = torch.full((F,), 256, dtype=torch.int32, device=dev)
+    na_w[:5] = 0
+    na_w[5:10] = BW - 1
+    variants, rvariants, slots = [], [], {}
+    for s in (32, 127):
+        lid = torch.randint(0, min(L, 2 * s), (N,), generator=g, device=dev,
+                            dtype=torch.int64).to(torch.int32)
+        k_ = torch.arange(L, device=dev)
+        split = k_ < s
+        small_left = torch.rand(L, generator=g, device=dev) < 0.5
+        tab = torch.stack([
+            torch.where(split, torch.randint(0, F, (L,), generator=g,
+                                             device=dev), -1),
+            torch.randint(0, BW - 1, (L,), generator=g, device=dev),
+            torch.randint(0, 2, (L,), generator=g, device=dev),
+            s + k_,
+            torch.where(split & small_left, k_, s),
+            torch.where(split & ~small_left, k_, s)]).to(torch.int32) \
+            .contiguous()
+        args = (bins_w, lid, tab, na_w, s)
+        ks, kl = hk.route_level(*args)
+        ps_, pl_ = hk.route_plain(*args)
+        err = max(exact(f"route_level[S={s}].slot", ks, ps_),
+                  exact(f"route_level[S={s}].lid2", kl, pl_))
+        routed = int((lid < s).sum())
+        ms = time_ms(lambda: hk.route_level(*args))
+        plain_ms = time_ms(lambda: hk.route_plain(*args), reps=3)
+        # lid in, slot and lid2 out, one bin byte a routed row, tables
+        bms, by = bound(12 * N + routed + 6 * L * 4 + F * 4, 8 * N)
+        rvariants.append(dict(S=s, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bms, bound_by=by))
+        slots[s] = ks
+        del lid, ps_, pl_, kl
+    main_v = rvariants[-1]
+    kernels["route_level"] = dict(
+        route="cuda", source="lightgbm_tpu_torch/csrc/route_level.cu",
+        replaces="lightgbm_tpu/ops/pallas_hist.py:1138",
+        max_abs_err=max(v["max_abs_err"] for v in rvariants),
+        ms=main_v["ms"], plain_ms=main_v["plain_ms"],
+        bound_ms=main_v["bound_ms"], bound_by=main_v["bound_by"],
+        library_ms=None, variants=rvariants)
+    print(f"route_level: exact; {rvariants}")
+
+    for s in (1, 32, 127):
+        slot = slots.get(s)          # None: the root pass reads no slots
+        kept = N if slot is None else int((slot < s).sum())
+        for nch, (gq, hq, cq) in ((3, quant3[:3]), (2, (quant2[0], None,
+                                                        quant2[2]))):
+            args = (bins_w, gq, hq, cq, slot, s, BW)
+            err = exact(f"hist_q8[S={s},nch={nch}]", hk.hist_q8(*args),
+                        hk.hist_q8_plain(*args))
+            ms = time_ms(lambda: hk.hist_q8(*args))
+            plain_ms = time_ms(lambda: hk.hist_q8_plain(*args), reps=3)
+            slot_bytes = 0 if slot is None else 4 * N
+            bms, by = bound(N * (F + nch) + slot_bytes
+                            + s * nch * F * BW * 4, kept * F * nch + N)
+            variants.append(dict(S=s, nch=nch, max_abs_err=err, ms=ms,
+                                 plain_ms=plain_ms, bound_ms=bms,
+                                 bound_by=by))
+    main_v = next(v for v in variants if v["S"] == 127 and v["nch"] == 3)
+    kernels["hist_q8"] = dict(
+        route="cuda", source="lightgbm_tpu_torch/csrc/hist_q8.cu",
+        replaces="lightgbm_tpu/ops/pallas_hist.py:372",
+        max_abs_err=max(v["max_abs_err"] for v in variants),
+        ms=main_v["ms"], plain_ms=main_v["plain_ms"],
+        bound_ms=main_v["bound_ms"], bound_by=main_v["bound_by"],
+        library_ms=None, variants=variants)
+    print(f"hist_q8: exact; {variants}")
+    del bins_w, slots, slot
+    torch.cuda.empty_cache()
+
+    # B7 leaf_sums on materialized rows, tolerance 1e-6 * sum|x| per leaf
+    # (both sum the same f32 rows in f64; only the atomic order differs)
+    lid = torch.randint(0, L, (N,), generator=g, device=dev,
+                        dtype=torch.int64).to(torch.int32)
+    rows = (ghc[0].contiguous(), ghc[1].contiguous(), ghc[2].contiguous())
+    args = rows + (lid, L)
+    ks = hk.leaf_sums(*args)
+    ps = hk.leaf_sums_plain(*args)
+    mass = torch.zeros(3, L, dtype=torch.float64, device=dev).index_add_(
+        1, lid.long(), ghc.abs().double())
+    err = (ks.double() - ps.double()).abs()
+    if bool((err > 1e-6 * mass + 1e-30).any()) or not torch.equal(ks[2],
+                                                                 ps[2]):
+        fail(f"leaf_sums: kernel vs plain error {float(err.max())} exceeds "
+             "1e-6 of the leaf's row mass (or the counts differ)")
+    lid_l = lid.long()
+    lib_ms = time_ms(lambda: torch.zeros(3, L, device=dev).index_add_(
+        1, lid_l, ghc))
+    bms, by = bound(16 * N + 3 * L * 4, 3 * N)
+    kernels["leaf_sums"] = dict(
+        route="cuda", source="lightgbm_tpu_torch/csrc/leaf_sums.cu",
+        replaces="lightgbm_tpu/ops/pallas_hist.py:718",
+        max_abs_err=float(err.max()),
+        ms=time_ms(lambda: hk.leaf_sums(*args)),
+        plain_ms=time_ms(lambda: hk.leaf_sums_plain(*args)),
+        bound_ms=bms, bound_by=by, library_ms=lib_ms)
+    print(f"leaf_sums: max abs err {float(err.max())}")
+    del score, label_pos, label_reg, bag, lid, lid_l, ghc, rows, args
+    del quant2, quant3
+    torch.cuda.empty_cache()
+
+    # ---- 4. main paths through the public entry points ----
     t0 = time.perf_counter()
     X, y = synth_higgs(N, F, seed=0)
     rng = np.random.RandomState(1)
     y_reg = (X[:, :4] @ np.array([1.0, -0.5, 0.25, 2.0]) + 0.5 * X[:, 4] ** 2
              + 0.1 * rng.randn(N)).astype(np.float32)
     print(f"data: {time.perf_counter() - t0:.3f} s")
-    params = {"objective": "binary", "num_leaves": L, "max_bin": 63,
-              "learning_rate": 0.1, "min_data_in_leaf": 20, "verbosity": -1}
-    t0 = time.perf_counter()
-    ds = lt.Dataset(X, label=y, params=params, free_raw_data=False)
-    ds.construct()
-    torch.cuda.synchronize()
-    construct_s = time.perf_counter() - t0
-    print(f"construct: {construct_s:.3f} s ({N} x {F}, "
-          f"{ds.num_features} used features, max bins {ds.max_num_bins})")
+    m = min(1_000_000, N)
+    launches_all = {k: 0 for k in hk.KERNELS}
 
-    hk.reset_launches()
-    t0 = time.perf_counter()
-    bst = lt.train(params, ds, num_boost_round=5)
-    torch.cuda.synchronize()
-    bin_s = time.perf_counter() - t0
-    reg_params = dict(params, objective="regression")
-    ds_reg = lt.Dataset(X, label=y_reg, params=reg_params)
-    ds_reg.construct()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    reg = lt.train(reg_params, ds_reg, num_boost_round=2)
-    torch.cuda.synchronize()
-    reg_s = time.perf_counter() - t0
-    launches = dict(hk.LAUNCHES)
-    trees = len(bst._gbdt.level_passes) + len(reg._gbdt.level_passes)
-    expected = {
-        "grad_quant_hist0": trees, "leaf_sums_grad": trees,
-        "take_small": bst.num_trees() + reg.num_trees(),
-        "hist_routed_fused": sum(bst._gbdt.level_passes)
-        + sum(reg._gbdt.level_passes)}
-    print(f"train binary: {bin_s:.3f} s for 5 iterations "
-          f"({bin_s / 5:.3f} s/iter), level passes "
-          f"{bst._gbdt.level_passes}; L2: {reg_s:.3f} s for 2 "
-          f"({reg_s / 2:.3f} s/iter), level passes "
-          f"{reg._gbdt.level_passes}")
-    print(f"launches {launches} expected {expected}")
-    if launches != expected or min(launches.values()) <= 0:
-        fail(f"launch counts {launches} != expected {expected}")
+    def main_path(max_bin: int, fused: bool) -> None:
+        params = {"objective": "binary", "num_leaves": L, "max_bin": max_bin,
+                  "learning_rate": 0.1, "min_data_in_leaf": 20,
+                  "verbosity": -1}
+        t0 = time.perf_counter()
+        ds = lt.Dataset(X, label=y, params=params, free_raw_data=False)
+        ds.construct()
+        torch.cuda.synchronize()
+        construct_s = time.perf_counter() - t0
+        reg_params = dict(params, objective="regression")
+        ds_reg = lt.Dataset(X, label=y_reg, params=reg_params)
+        ds_reg.construct()
+        torch.cuda.synchronize()
+        print(f"[max_bin={max_bin}] construct: {construct_s:.3f} s ({N} x "
+              f"{F}, {ds.num_features} used features, max bins "
+              f"{ds.max_num_bins})")
+
+        hk.reset_launches()
+        t0 = time.perf_counter()
+        bst = lt.train(params, ds, num_boost_round=5)
+        torch.cuda.synchronize()
+        bin_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        reg = lt.train(reg_params, ds_reg, num_boost_round=2)
+        torch.cuda.synchronize()
+        reg_s = time.perf_counter() - t0
+        launches = dict(hk.LAUNCHES)
+        passes = bst._gbdt.level_passes + reg._gbdt.level_passes
+        trees, n_pass = len(passes), sum(passes)
+        added = bst.num_trees() + reg.num_trees()
+        if fused:
+            expected = {"grad_quant_hist0": trees, "leaf_sums_grad": trees,
+                        "take_small": added, "hist_routed_fused": n_pass}
+        else:
+            expected = {"hist_q8": trees + n_pass, "route_level": n_pass,
+                        "leaf_sums": trees, "take_small": added}
+        expected = {k: expected.get(k, 0) for k in hk.KERNELS}
+        print(f"[max_bin={max_bin}] train binary: {bin_s:.3f} s for 5 "
+              f"iterations ({bin_s / 5:.3f} s/iter), level passes "
+              f"{bst._gbdt.level_passes}; L2: {reg_s:.3f} s for 2 "
+              f"({reg_s / 2:.3f} s/iter), level passes "
+              f"{reg._gbdt.level_passes}")
+        print(f"[max_bin={max_bin}] launches {launches} expected {expected}")
+        path_kernels = (FUSED if fused else UNFUSED) + ("take_small",)
+        if (launches != expected
+                or min(launches[k] for k in path_kernels) <= 0):
+            fail(f"max_bin={max_bin}: launch counts {launches} != expected "
+                 f"{expected}")
+        for k, v in launches.items():
+            launches_all[k] += v
+        if (bst._gbdt.gp.fused_obj is None) == fused:
+            fail(f"max_bin={max_bin}: the booster took the wrong front")
+
+        prob = bst.predict(X[:m])
+        if prob.shape != (m,) or not np.isfinite(prob).all():
+            fail("binary predictions are not finite [1M] values")
+        auc = float(metrics.auc(torch.as_tensor(y[:m]),
+                                torch.as_tensor(prob)))
+        print(f"[max_bin={max_bin}] train AUC on 1M rows: {auc:.6f}")
+        if not auc > 0.7:
+            fail(f"max_bin={max_bin}: train AUC {auc} <= 0.7")
+        reg_pred = reg.predict(X[:m])
+        mse0 = float(np.mean((y_reg[:m] - y_reg.mean()) ** 2))
+        mse = float(np.mean((y_reg[:m] - reg_pred) ** 2))
+        print(f"[max_bin={max_bin}] L2 model: train mse {mse:.6f} vs label "
+              f"variance {mse0:.6f}")
+        if not (np.isfinite(reg_pred).all() and mse < mse0):
+            fail(f"max_bin={max_bin}: L2 model did not reduce the squared "
+                 "error")
+        os.makedirs(OUT_DIR, exist_ok=True)
+        path = os.path.join(OUT_DIR, f"chip_smoke_model_{max_bin}.txt")
+        bst.save_model(path)
+        loaded = lt.Booster(model_file=path)
+        if not np.array_equal(loaded.predict(X[:m], raw_score=True),
+                              bst.predict(X[:m], raw_score=True)):
+            fail(f"max_bin={max_bin}: saved and loaded model predict "
+                 "differently")
+        print(f"[max_bin={max_bin}] model text round trip: predictions "
+              "identical")
+
+    main_path(63, fused=True)
+    main_path(255, fused=False)
     for nm in kernels:
-        kernels[nm]["launches"] = launches[nm]
-
-    m = 1_000_000
-    prob = bst.predict(X[:m])
-    if prob.shape != (m,) or not np.isfinite(prob).all():
-        fail("binary predictions are not finite [1M] values")
-    auc = metrics.auc(torch.as_tensor(y[:m]), torch.as_tensor(prob))
-    auc = float(auc)
-    print(f"train AUC on 1M rows: {auc:.6f}")
-    if not auc > 0.7:
-        fail(f"train AUC {auc} <= 0.7")
-    reg_pred = reg.predict(X[:m])
-    mse0 = float(np.mean((y_reg[:m] - y_reg.mean()) ** 2))
-    mse = float(np.mean((y_reg[:m] - reg_pred) ** 2))
-    print(f"L2 model: train mse {mse:.6f} vs label variance {mse0:.6f}")
-    if not (np.isfinite(reg_pred).all() and mse < mse0):
-        fail("L2 model did not reduce the squared error")
-    os.makedirs(OUT_DIR, exist_ok=True)
-    path = os.path.join(OUT_DIR, "chip_smoke_model.txt")
-    bst.save_model(path)
-    loaded = lt.Booster(model_file=path)
-    if not np.array_equal(loaded.predict(X[:m], raw_score=True),
-                          bst.predict(X[:m], raw_score=True)):
-        fail("saved and loaded model predict differently")
-    print("model text round trip: predictions identical")
+        kernels[nm]["launches"] = launches_all[nm]
 
     # ---- 5. card vs plain versions on a small input ----
-    small = {"objective": "regression", "num_leaves": 31, "max_bin": 63,
-             "min_data_in_leaf": 20, "verbosity": -1}
     Xs, ys = X[:4000], y_reg[:4000]
-    gpu = lt.train(small, lt.Dataset(Xs, label=ys, params=small), 1)
-    cpu_p = dict(small, device_type="cpu")
-    cpu = lt.train(cpu_p, lt.Dataset(Xs, label=ys, params=cpu_p), 1)
-    (a,), (b,) = gpu._host_trees(), cpu._host_trees()
-    for f_ in ("split_feature", "threshold_bin", "default_left",
-               "left_child", "right_child"):
-        if not np.array_equal(getattr(a, f_), getattr(b, f_)):
-            fail(f"card and CPU trees differ in {f_}")
-    # absolute bound on the tree's scale: a leaf whose value nearly cancels
-    # against the init bias would inflate a 1-ulp sum difference relative
-    diff = float(np.abs(a.leaf_value - b.leaf_value).max())
-    scale = float(np.abs(b.leaf_value).max())
-    print(f"card vs CPU (4000 rows, first tree, {a.num_leaves} leaves): "
-          f"structure identical, max leaf-value diff {diff:.3e} "
-          f"(largest leaf {scale:.3e})")
-    if diff > 1e-6 * scale:
-        fail("card and CPU leaf values differ by more than 1e-6 of the "
-             "largest leaf value")
+    for max_bin, fused in ((63, True), (255, False)):
+        small = {"objective": "regression", "num_leaves": 31,
+                 "max_bin": max_bin, "min_data_in_leaf": 20,
+                 "verbosity": -1}
+        hk.reset_launches()
+        gpu = lt.train(small, lt.Dataset(Xs, label=ys, params=small), 1)
+        took = [k for k in (FUSED if fused else UNFUSED)
+                if hk.LAUNCHES[k] > 0]
+        if (gpu._gbdt.gp.fused_obj is None) == fused or len(took) != 3:
+            fail(f"max_bin={max_bin}: the 4000-row model did not take the "
+                 f"{'fused' if fused else 'two-pass'} path "
+                 f"({dict(hk.LAUNCHES)})")
+        cpu_p = dict(small, device_type="cpu")
+        cpu = lt.train(cpu_p, lt.Dataset(Xs, label=ys, params=cpu_p), 1)
+        (a,), (b,) = gpu._host_trees(), cpu._host_trees()
+        for f_ in ("split_feature", "threshold_bin", "default_left",
+                   "left_child", "right_child"):
+            if not np.array_equal(getattr(a, f_), getattr(b, f_)):
+                fail(f"max_bin={max_bin}: card and CPU trees differ in {f_}")
+        # absolute bound on the tree's scale: a leaf whose value nearly
+        # cancels against the init bias would inflate a 1-ulp sum
+        # difference relative
+        diff = float(np.abs(a.leaf_value - b.leaf_value).max())
+        scale = float(np.abs(b.leaf_value).max())
+        print(f"[max_bin={max_bin}] card vs CPU (4000 rows, max bins "
+              f"{gpu.train_set.max_num_bins}, first tree, {a.num_leaves} "
+              f"leaves): structure identical, max leaf-value diff "
+              f"{diff:.3e} (largest leaf {scale:.3e})")
+        if diff > 1e-6 * scale:
+            fail(f"max_bin={max_bin}: card and CPU leaf values differ by "
+                 "more than 1e-6 of the largest leaf value")
 
     print(f"card: {card}")
     print(json.dumps({"kernels": [dict(name=nm, **v)

@@ -56,45 +56,18 @@ routed_hist_kernel(const uint8_t* __restrict__ bins_T,
 
   for (long long rr = row0 + threadIdx.x; rr < row1; rr += blockDim.x) {
     const int r = static_cast<int>(rr);
-    const int lf = lid[r];
-    int slot = s, nl = lf;
-    if (lf >= 0 && lf < l) {
-      const int ft = tab[lf];
-      if (ft >= 0 && ft < f) {
-        const int colv = bins_T[static_cast<size_t>(ft) * n + r];
-        const bool right = colv == na_bin[ft] ? tab[2 * l + lf] == 0
-                                              : colv > tab[l + lf];
-        if (right) nl = tab[3 * l + lf];
-        slot = right ? tab[5 * l + lf] : tab[4 * l + lf];
-      }
-    }
+    int slot, nl;
+    lgbt::route_row(bins_T, tab, na_bin, n, f, l, s, r, lid[r], slot, nl);
     if (blockIdx.y == 0) lid2[r] = nl;
     if (slot < 0 || slot >= s) continue;
-    const int gv = gq[r];
-    const int hv = nch == 3 ? hq[r] : 0;
-    const int cv = cq[r];
     int* base = acc + static_cast<size_t>(slot) * nch * ch_stride + fofs * b;
-    for (int j = 0; j < fcnt; ++j) {
-      const int bin = bins_T[static_cast<size_t>(f0 + j) * n + r];
-      if (bin >= b) continue;
-      int* cell = base + j * b + bin;
-      if (gv) atomicAdd(cell, gv);
-      if (hv) atomicAdd(cell + ch_stride, hv);
-      if (cv) atomicAdd(cell + (nch - 1) * ch_stride, cv);
-    }
+    lgbt::add_q8_row(base, ch_stride, nch,
+                     bins_T + static_cast<size_t>(f0) * n + r, n, fcnt, b,
+                     gq[r], nch == 3 ? hq[r] : 0, cq[r]);
   }
   if (!use_smem) return;
   __syncthreads();
-  const int total = s * nch * fg * b;
-  for (int k = threadIdx.x; k < total; k += blockDim.x) {
-    const int v = sh[k];
-    if (!v) continue;
-    const int bin = k % b;
-    const int j = (k / b) % fg;
-    const int sc = k / (fg * b);  // slot * nch + channel
-    if (j >= fcnt) continue;
-    atomicAdd(hist + (static_cast<size_t>(sc) * f + f0 + j) * b + bin, v);
-  }
+  lgbt::flush_q8(sh, s, nch, fg, fcnt, b, 0, f0, f, hist);
 }
 
 }  // namespace
@@ -110,12 +83,8 @@ extern "C" int lgbt_hist_routed_fused(
   const dim3 grid(n_chunks, (f + fg - 1) / fg);
   const size_t smem =
       use_smem ? static_cast<size_t>(s) * nch * fg * b * sizeof(int) : 0;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        routed_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const cudaError_t err = lgbt::allow_smem(routed_hist_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   routed_hist_kernel<<<grid, kThreads, smem, stream>>>(
       bins_T, gq, hq, cq, lid, tab, na_bin, n, f, b, l, s, nch, fg,
       rows_per_block, use_smem, hist, lid2);

@@ -39,16 +39,12 @@ leaf_sums_kernel(const float* __restrict__ score,
     float grad, hess;
     lgbt::grad_rows(sp, score[i], aux[i], grad, hess);
     const float b = bag[i];
-    atomicAdd(acc + lf, static_cast<double>(__fmul_rn(grad, b)));
-    atomicAdd(acc + l + lf, static_cast<double>(__fmul_rn(hess, b)));
-    if (b > 0.0f) atomicAdd(acc + 2 * l + lf, 1.0);
+    lgbt::leaf_add(acc, l, lf, __fmul_rn(grad, b), __fmul_rn(hess, b),
+                   b > 0.0f ? 1.0f : 0.0f);
   }
   if (!use_smem) return;
   __syncthreads();
-  for (int k = threadIdx.x; k < 3 * l; k += blockDim.x) {
-    const double v = shd[k];
-    if (v != 0.0) atomicAdd(out + k, v);
-  }
+  lgbt::leaf_flush(shd, l, out);
 }
 
 }  // namespace
@@ -61,14 +57,10 @@ extern "C" int lgbt_leaf_sums_grad(const float* score, const float* aux,
                                    int grid, cudaStream_t stream) {
   const lgbt::GradSpec sp{kind, sigmoid, sig2, lw_pos, lw_neg};
   const size_t need = static_cast<size_t>(3) * l * sizeof(double);
-  const int use_smem = need <= 200 * 1024 ? 1 : 0;
+  const int use_smem = need <= lgbt::kSmemBudget ? 1 : 0;
   const size_t smem = use_smem ? need : 0;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        leaf_sums_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const cudaError_t err = lgbt::allow_smem(leaf_sums_kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   leaf_sums_kernel<<<grid, kThreads, smem, stream>>>(score, aux, bag, lid, n,
                                                      l, sp, use_smem, out);
   return static_cast<int>(cudaGetLastError());

@@ -54,4 +54,99 @@ __device__ __forceinline__ float sr_dither(uint32_t idx, uint32_t seed,
   return __fmul_rn(static_cast<float>(z >> 8), 1.0f / 16777216.0f);
 }
 
+// DataPartition::Split for one row: the (slot, new leaf id) of row r in leaf
+// lf through the [6, L] int32 route tables (feat, thr, dleft, new_leaf,
+// slot_left, slot_right). A bin equal to the feature's missing bin goes
+// right iff dleft == 0, any other bin iff bin > thr. Rows of a leaf that does
+// not split (feat outside [0, F)) or of no leaf keep their id and get the
+// dropped slot s.
+__device__ __forceinline__ void route_row(const uint8_t* __restrict__ bins_T,
+                                          const int* tab,
+                                          const int* __restrict__ na_bin,
+                                          int n, int f, int l, int s, int r,
+                                          int lf, int& slot, int& new_leaf) {
+  slot = s;
+  new_leaf = lf;
+  if (lf < 0 || lf >= l) return;
+  const int ft = tab[lf];
+  if (ft < 0 || ft >= f) return;
+  const int colv = bins_T[static_cast<size_t>(ft) * n + r];
+  const bool right = colv == __ldg(na_bin + ft) ? tab[2 * l + lf] == 0
+                                                : colv > tab[l + lf];
+  if (right) new_leaf = tab[3 * l + lf];
+  slot = right ? tab[5 * l + lf] : tab[4 * l + lf];
+}
+
+// Add one row's int8 channels (g[, h], count) into an int32 histogram laid
+// out [..][nch][width][B] with channel stride ch_stride = width * B: base
+// points at the row's slot and first feature, col at the row's bin of that
+// feature in bins_T (feature stride n). Bins >= b are dropped; zero values
+// are skipped (integer sums, so the result is the same).
+__device__ __forceinline__ void add_q8_row(int* base, int ch_stride, int nch,
+                                           const uint8_t* __restrict__ col,
+                                           size_t n, int fcnt, int b, int gv,
+                                           int hv, int cv) {
+  for (int j = 0; j < fcnt; ++j) {
+    const int bin = col[j * n];
+    if (bin >= b) continue;
+    int* cell = base + j * b + bin;
+    if (gv) atomicAdd(cell, gv);
+    if (hv) atomicAdd(cell + ch_stride, hv);
+    if (cv) atomicAdd(cell + (nch - 1) * ch_stride, cv);
+  }
+}
+
+// Flush a block-private [ss][nch][fg][B] shared histogram (features
+// f0 .. f0 + fcnt - 1, slots s0 .. s0 + ss - 1) into the global
+// [S][nch][F][B] histogram with atomicAdd. Call after __syncthreads().
+__device__ __forceinline__ void flush_q8(const int* sh, int ss, int nch,
+                                         int fg, int fcnt, int b, int s0,
+                                         int f0, int f, int* hist) {
+  const int total = ss * nch * fg * b;
+  for (int k = threadIdx.x; k < total; k += blockDim.x) {
+    const int v = sh[k];
+    if (!v) continue;
+    const int bin = k % b;
+    const int j = (k / b) % fg;
+    const int sc = k / (fg * b);  // local slot * nch + channel
+    if (j >= fcnt) continue;
+    atomicAdd(hist + (static_cast<size_t>(s0 * nch + sc) * f + f0 + j) * b +
+                  bin,
+              v);
+  }
+}
+
+// One row's exact leaf sums: f32 g, h and count widened to f64 and added to
+// the [3, L] table acc (zeros skipped; adding 0.0 changes no f64 sum).
+__device__ __forceinline__ void leaf_add(double* acc, int l, int lf, float g,
+                                         float h, float c) {
+  if (g != 0.0f) atomicAdd(acc + lf, static_cast<double>(g));
+  if (h != 0.0f) atomicAdd(acc + l + lf, static_cast<double>(h));
+  if (c != 0.0f) atomicAdd(acc + 2 * l + lf, static_cast<double>(c));
+}
+
+// Flush a block-private [3, L] f64 table into the global one. Call after
+// __syncthreads().
+__device__ __forceinline__ void leaf_flush(const double* shd, int l,
+                                           double* out) {
+  for (int k = threadIdx.x; k < 3 * l; k += blockDim.x) {
+    const double v = shd[k];
+    if (v != 0.0) atomicAdd(out + k, v);
+  }
+}
+
+// Shared-memory budget of one block's private table (the H100 allows 227 KB
+// a block; the rest is headroom for the runtime's reservation). Must equal
+// SMEM_BUDGET of ops/hist_kernels.py.
+constexpr size_t kSmemBudget = 200 * 1024;
+
+// Allow a kernel more than the default 48 KB of dynamic shared memory.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
 }  // namespace lgbt

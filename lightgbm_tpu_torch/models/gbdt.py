@@ -1,13 +1,15 @@
 """GBDT boosting core: the serial eager step.
 
-Port of the serial fused-front path of ``lightgbm_tpu/models/gbdt.py``:
-init score and boost-from-average (:645-669), the quantized-gradient and
-const-hessian resolution (:123-134, :737-766), the per-tree dither seed
-``qseed = iter * k + cls`` (:1504), shrinkage (:952-954), the score update
-through ``take_small`` (:955-956) and the first-iteration bias folded into
-the stored tree (:1326-1339). One iteration grows one tree (one model per
-iteration on this slice) with ``grow_tree_depthwise``; train and valid
-scores stay on the training device.
+Port of the serial path of ``lightgbm_tpu/models/gbdt.py``: init score and
+boost-from-average (:645-669), the quantized-gradient and const-hessian
+resolution (:123-134, :737-766), the fused-front gate (``_fused_front``,
+:714-727) and the unfused step's materialized gradients (:929-934,
+:969-976), the per-tree dither seed ``qseed = iter * k + cls`` (:1504),
+shrinkage (:952-954), the score update through ``take_small`` (:955-956)
+and the first-iteration bias folded into the stored tree (:1326-1339). One
+iteration grows one tree (one model per iteration on this slice) with
+``grow_tree_depthwise``; train and valid scores stay on the training
+device.
 """
 from __future__ import annotations
 
@@ -47,13 +49,13 @@ class GBDT:
         n = train_set.num_data
         f = train_set.num_features
         B = padded_bins(train_set.max_num_bins)
-        if f * B > ACC_ROWS_MAX:
-            raise NotImplementedError(
-                f"F * B = {f} * {B} > {ACC_ROWS_MAX}: the unfused level "
-                "passes (hist_pallas_q8, route_level_pallas) are ROADMAP.md "
-                "queue B5/B6, not yet ported")
         objective.init(train_set.label)
         spec, self._aux = objective.fused_grad_spec()
+        # the reference's fused-front gate: the fused kernels hold an
+        # [F * B] root histogram of at most 2048 cells; wider data
+        # materializes the gradients and takes the unfused front
+        if f * B > ACC_ROWS_MAX:
+            spec = None
         self.gp = GrowParams(
             num_leaves=config.num_leaves, max_depth=config.max_depth,
             max_bin=B,
@@ -72,7 +74,7 @@ class GBDT:
         self.init_score = 0.0
         self.models_dev: List[TreeArrays] = []
         self.models_host: List[Tree] = []
-        self.level_passes: List[int] = []   # hist_routed_fused launches a tree
+        self.level_passes: List[int] = []   # level passes of each tree
         self.valid_sets: List = []
         self.valid_names: List[str] = []
         self.valid_scores: List[torch.Tensor] = []
@@ -98,9 +100,19 @@ class GBDT:
                 self.train_score = self.train_score + shift
                 self.valid_scores = [s + shift for s in self.valid_scores]
         ts = self.train_set
+        bag = self._bag
+        if self.gp.fused_obj is not None:
+            # fused front: the kernels recompute the gradients from (score,
+            # aux, bag) and never materialize them
+            ghc = (None, None, None)
+            fused = (self.train_score, self._aux, bag)
+        else:
+            grad, hess = self.objective.get_gradients(self.train_score)
+            ghc = (grad * bag, hess * bag, (bag > 0).to(torch.float32))
+            fused = None
         tree, leaf_id, passes = grow_tree_depthwise(
-            ts.bins_T, ts.num_bins_dev, ts.na_bin_dev, self._fmask, self.gp,
-            self.train_score, self._aux, self._bag, qseed=self.iter_)
+            ts.bins_T, *ghc, ts.num_bins_dev, ts.na_bin_dev, self._fmask,
+            self.gp, qseed=self.iter_, fused=fused)
         self.level_passes.append(passes)
         if tree.num_leaves <= 1:
             self.iter_ += 1

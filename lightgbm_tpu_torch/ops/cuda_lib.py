@@ -1,6 +1,6 @@
 """Build and bind the hand-written Hopper kernels of ``csrc/``.
 
-The four CUDA sources are compiled by ``nvcc`` for ``sm_90a`` into one
+The CUDA sources are compiled by ``nvcc`` for ``sm_90a`` into one
 shared library with a plain C interface, at first use, into
 ``lightgbm_tpu_torch/_build/`` (listed in ``.gitignore``), and loaded with
 ``ctypes``. Each source compiles to its own object in a parallel ``nvcc``
@@ -27,7 +27,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("grad_quant_hist0.cu", "hist_routed_fused.cu",
-           "leaf_sums_grad.cu", "take_small.cu")
+           "leaf_sums_grad.cu", "take_small.cu", "hist_q8.cu",
+           "route_level.cu", "leaf_sums.cu")
 HEADERS = ("lgbt_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
@@ -47,6 +48,10 @@ _SIGNATURES: Dict[str, List] = {
     "lgbt_leaf_sums_grad": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P,
                             _I, _P],
     "lgbt_take_small": [_P, _P, _I, _I, _P, _I, _P],
+    "lgbt_hist_q8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                     _P],
+    "lgbt_route_level": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P],
+    "lgbt_leaf_sums": [_P, _P, _P, _P, _I, _I, _P, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,13 +1,17 @@
-"""Depthwise (level-wise) tree growing: the serial, fused-front path.
+"""Depthwise (level-wise) tree growing: the serial quantized path.
 
 Port of ``lightgbm_tpu/ops/grow_depthwise.py`` ``grow_tree_depthwise``
 (:238) for the slice's path: the fused gradient + quantization + root
-histogram front (:281-294), the level function with budgeted top-gain
-selection and sibling subtraction (:349-632), the level schedule (:167,
-:634-657) and leaf renewal from exact sums (:659-692).
+histogram front (:281-294) or the unfused one from materialized rows
+(:295-308), the level function with budgeted top-gain selection and
+sibling subtraction (:349-632), the level schedule (:167, :634-657) and
+leaf renewal from exact sums (:659-692).
 
-Per tree the kernels run: ``grad_quant_hist0`` once, ``hist_routed_fused``
-once per level that selects at least one split, ``leaf_sums_grad`` once.
+Per tree the kernels run, on the fused path (F * B <= 2048):
+``grad_quant_hist0`` once, ``hist_routed_fused`` once per level that
+selects at least one split, ``leaf_sums_grad`` once; on the unfused path:
+``hist_q8`` once for the root, ``route_level`` and ``hist_q8`` once per such
+level, ``leaf_sums`` once.
 The reference builds the whole tree inside one jitted program with
 fixed-width masked scatters; here the level schedule is a Python loop that
 reads the level's split count to the host once per level, and the level
@@ -18,13 +22,13 @@ widths still bound the per-level selection exactly as in the reference.
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
+from . import hist_kernels as K
 from . import histogram as H
 from .grow import GrowParams, TreeArrays, empty_tree
-from .hist_kernels import leaf_sums_grad
 from .scan import tree_sum
 from .split import NEG_INF, best_split, leaf_output
 
@@ -52,17 +56,22 @@ def level_widths(num_leaves: int, max_levels: int) -> List[int]:
     return widths + [max_slots] * (max_levels - n_unroll)
 
 
-def grow_tree_depthwise(bins_T: torch.Tensor, num_bins: torch.Tensor,
-                        na_bin: torch.Tensor, feature_mask: torch.Tensor,
-                        gp: GrowParams, score: torch.Tensor, aux: torch.Tensor,
-                        bag: torch.Tensor, qseed: int
+def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
+                        h: Optional[torch.Tensor], c: Optional[torch.Tensor],
+                        num_bins: torch.Tensor, na_bin: torch.Tensor,
+                        feature_mask: torch.Tensor, gp: GrowParams, qseed: int,
+                        fused: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]] = None
                         ) -> Tuple[TreeArrays, torch.Tensor, int]:
-    """Grow one tree level-wise from (score, aux, bag) rows.
+    """Grow one tree level-wise.
 
-    bins_T [F, N] u8 on the device; num_bins / na_bin [F] i32 (na_bin >= B
+    bins_T [F, N] u8 on the device; g/h/c [N] f32 grad/hess/in-bag count
+    rows (already masked by the bag); num_bins / na_bin [F] i32 (na_bin >= B
     means no missing bin); feature_mask [F] bool. ``qseed`` varies the
-    stochastic-rounding dither. Returns (TreeArrays, leaf_id [N] i32,
-    number of level passes)."""
+    stochastic-rounding dither. ``fused``: (score, aux, bag) rows for the
+    fused front, valid only with gp.fused_obj set; g/h/c are then unused
+    (None) and the gradients are recomputed in the kernels. Returns
+    (TreeArrays, leaf_id [N] i32, number of level passes)."""
     f, n = bins_T.shape
     dev = bins_T.device
     L, B = gp.num_leaves, gp.max_bin
@@ -70,8 +79,17 @@ def grow_tree_depthwise(bins_T: torch.Tensor, num_bins: torch.Tensor,
     spec = gp.fused_obj
     max_levels = gp.max_depth if gp.max_depth > 0 else max(1, L - 1)
 
-    quant, hist0 = H.grad_quant_hist0(bins_T, score, aux, bag, qseed, spec, B,
-                                      const_hess=gp.const_hess)
+    if fused is not None:
+        if spec is None:
+            raise ValueError("the fused front needs gp.fused_obj")
+        score, aux, bag = fused
+        quant, hist0 = H.grad_quant_hist0(bins_T, score, aux, bag, qseed,
+                                          spec, B, const_hess=gp.const_hess)
+    else:
+        # int8 quantized channels of the materialized rows, built once per
+        # tree, then the root histogram
+        quant = H.make_quant(g, h, c, qseed, const_hess=gp.const_hess)
+        hist0 = H.hist_leaf(bins_T, B, quant)
     g0, h0, c0 = tree_sum(hist0[0, 0]), tree_sum(hist0[1, 0]), \
         tree_sum(hist0[2, 0])
 
@@ -144,9 +162,9 @@ def grow_tree_depthwise(bins_T: torch.Tensor, num_bins: torch.Tensor,
         tree.internal_weight[nid] = (lh + rh)[si]
         tree.internal_count[nid] = (lc + rc)[si]
 
-        # ---- fused route + smaller-child histogram pass: one slot per
-        # selected leaf (in leaf order); the larger child is the parent
-        # minus the smaller ----
+        # ---- route + smaller-child histogram pass: one slot per selected
+        # leaf (in leaf order); the larger child is the parent minus the
+        # smaller ----
         small_is_left = lc <= rc
         sentinel = torch.full_like(idx_in_lvl, num_sel)
         tables = H.RouteTables(
@@ -179,7 +197,10 @@ def grow_tree_depthwise(bins_T: torch.Tensor, num_bins: torch.Tensor,
 
     # ---- leaf renewal from exact sums (quantized-training: splits
     # tolerate int8 gains, leaf outputs use exact sums) ----
-    sums = leaf_sums_grad(score, aux, bag, leaf_id, spec, L)
+    if fused is not None:
+        sums = K.leaf_sums_grad(score, aux, bag, leaf_id, spec, L)
+    else:
+        sums = K.leaf_sums(g, h, c, leaf_id, L)
     eg, eh, ec = sums[0], sums[1], sums[2]
     w = leaf_output(eg, eh, sp)
     live = leaves_iota < num_leaves

@@ -1,4 +1,4 @@
-"""The training path's four Hopper kernels: wrappers, plain versions, counts.
+"""The training path's Hopper kernels: wrappers, plain versions, counts.
 
 Each TPU kernel of ``lightgbm_tpu/ops/pallas_hist.py`` that the serial
 depthwise quantized grower runs has a hand-written CUDA counterpart in
@@ -12,7 +12,15 @@ grad_quant_hist0      grad_quant_hist0_pallas (:918)             grad_quant_hist
 hist_routed_fused     hist_routed_fused_q8 (:676), D = 1         hist_routed_fused.cu
 leaf_sums_grad        leaf_sums_grad_pallas (:1036)              leaf_sums_grad.cu
 take_small            take_small_pallas (:1213)                  take_small.cu
+hist_q8               hist_pallas_q8 (:372)                      hist_q8.cu
+route_level           route_level_pallas (:1138), numerical      route_level.cu
+leaf_sums             leaf_sums_pallas (:718)                    leaf_sums.cu
 ====================  =========================================  ============
+
+The first four carry the fused path (F * B <= 2048); ``hist_q8``,
+``route_level`` and ``leaf_sums`` carry the unfused one (the root pass, the
+two-pass level and leaf renewal from materialized rows), which wider data
+takes, such as the default max_bin=255 (B = 256) on 28 features.
 
 A wrapper checks device, dtype, shape and contiguity, allocates its outputs,
 and then launches the CUDA kernel when its tensors lie on a CUDA device, or
@@ -25,8 +33,8 @@ The quantized histograms come back as int32 channel sums ([S, nch, F, B],
 nch = 3 for (g, h, count) or 2 for (g, count) under const-hessian elision);
 ``ops/histogram.py`` dequantizes them. Integer sums make every accumulation
 order exact, so kernel and plain version agree bit for bit on every output
-except ``leaf_sums_grad``'s f64 sums, whose atomic order varies below f64
-resolution before the final f32 rounding.
+except the f64 sums of ``leaf_sums_grad`` and ``leaf_sums``, whose atomic
+order varies below f64 resolution before the final f32 rounding.
 """
 from __future__ import annotations
 
@@ -37,11 +45,12 @@ import torch
 from . import cuda_lib
 
 KERNELS = ("grad_quant_hist0", "hist_routed_fused", "leaf_sums_grad",
-           "take_small")
+           "take_small", "hist_q8", "route_level", "leaf_sums")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 # shared-memory budget of one block's private histogram (the H100 allows
-# 227 KB a block; the rest is headroom for the runtime's reservation)
+# 227 KB a block; the rest is headroom for the runtime's reservation);
+# csrc/lgbt_common.cuh kSmemBudget is the same number
 SMEM_BUDGET = 200 * 1024
 
 
@@ -180,6 +189,13 @@ def slot_hist_plain(bins_T: torch.Tensor, chans: Sequence[torch.Tensor],
     return out.to(torch.int32)
 
 
+def hist_q8_plain(bins_T, gq, hq, cq, slot, num_slots: int,
+                  num_bins: int) -> torch.Tensor:
+    """Plain version of hist_q8 (same returns)."""
+    chans = [gq, cq] if hq is None else [gq, hq, cq]
+    return slot_hist_plain(bins_T, chans, slot, num_slots, num_bins)
+
+
 def grad_quant_hist0_plain(bins_T, score, aux, bag, seed: int, spec,
                            num_bins: int, const_hess: bool):
     """Plain version of grad_quant_hist0 (same returns)."""
@@ -227,7 +243,7 @@ def route_plain(bins_T, leaf_id, tables, na_bin, num_slots: int):
     go_right = torch.where(is_na, tab[2][lc] == 0, colv > tab[1][lc])
     lid2 = torch.where(has & go_right, tab[3][lc], lid).to(torch.int32)
     slot = torch.where(has, torch.where(go_right, tab[5][lc], tab[4][lc]),
-                       torch.full_like(lc, num_slots))
+                       torch.full_like(lc, num_slots)).to(torch.int32)
     return slot, lid2
 
 
@@ -235,21 +251,25 @@ def hist_routed_fused_plain(bins_T, gq, hq, cq, leaf_id, tables, na_bin,
                             num_slots: int, num_bins: int):
     """Plain version of hist_routed_fused (same returns)."""
     slot, lid2 = route_plain(bins_T, leaf_id, tables, na_bin, num_slots)
-    chans = [gq, cq] if hq is None else [gq, hq, cq]
-    return slot_hist_plain(bins_T, chans, slot, num_slots, num_bins), lid2
+    return hist_q8_plain(bins_T, gq, hq, cq, slot, num_slots, num_bins), lid2
+
+
+def leaf_sums_plain(g, h, c, leaf_id, num_leaves: int):
+    """Plain version of leaf_sums: [3, L] f32 from f64 sums; leaf ids
+    outside [0, L) are dropped."""
+    ghc = torch.stack([g, h, c]).to(torch.float64)
+    lid = leaf_id.to(torch.int64)
+    ok = (lid >= 0) & (lid < num_leaves)
+    out = torch.zeros((3, num_leaves), dtype=torch.float64, device=g.device)
+    out.index_add_(1, lid[ok], ghc[:, ok])
+    return out.to(torch.float32)
 
 
 def leaf_sums_grad_plain(score, aux, bag, leaf_id, spec, num_leaves: int):
     """Plain version of leaf_sums_grad: [3, L] f32 from f64 sums."""
     grad, hess = grad_rows(spec, score, aux)
-    ghc = torch.stack([grad * bag, hess * bag,
-                       (bag > 0).to(torch.float32)]).to(torch.float64)
-    lid = leaf_id.to(torch.int64)
-    ok = (lid >= 0) & (lid < num_leaves)
-    out = torch.zeros((3, num_leaves), dtype=torch.float64,
-                      device=score.device)
-    out.index_add_(1, lid[ok], ghc[:, ok])
-    return out.to(torch.float32)
+    return leaf_sums_plain(grad * bag, hess * bag,
+                           (bag > 0).to(torch.float32), leaf_id, num_leaves)
 
 
 def take_small_plain(table, idx):
@@ -409,3 +429,118 @@ def take_small(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     cuda_lib.check(rc, "take_small")
     LAUNCHES["take_small"] += 1
     return out
+
+
+def q8_hist_grid(f: int, n: int, num_slots: int, nch: int, num_bins: int,
+                 num_sms: int) -> Tuple[int, int, int]:
+    """(features per block, slots per block, row chunks) of hist_q8: all
+    slots and as many features as fit the shared-memory budget, or one
+    feature and an even share of the slots when even one feature's slots do
+    not fit; enough row chunks that the grid covers the card about twice."""
+    per_cell = nch * num_bins * 4              # one slot of one feature
+    if num_slots * per_cell <= SMEM_BUDGET:
+        ss = num_slots
+        fg = min(f, SMEM_BUDGET // (num_slots * per_cell))
+    else:
+        fg = 1
+        tiles = -(-num_slots // (SMEM_BUDGET // per_cell))
+        ss = -(-num_slots // tiles)
+    n_tiles = -(-f // fg) * -(-num_slots // ss)
+    blocks_per_sm = max(1, min(2, SMEM_BUDGET // (ss * fg * per_cell)))
+    chunks = -(-(2 * num_sms * blocks_per_sm) // n_tiles)
+    chunks = max(1, min(chunks, -(-n // 1024)))
+    return fg, ss, chunks
+
+
+def hist_q8(bins_T: torch.Tensor, gq: torch.Tensor, hq: Optional[torch.Tensor],
+            cq: torch.Tensor, slot: Optional[torch.Tensor], num_slots: int,
+            num_bins: int) -> torch.Tensor:
+    """int8 slot histogram over a precomputed slot vector.
+
+    bins_T [F, N] u8; gq/hq/cq [N] i8 (hq None: const-hessian, channels g
+    and count); slot [N] i32, or None to put every row in slot 0 (the root
+    pass reads no slot vector). Rows whose slot lies outside [0, S) are
+    dropped. Returns int32 [S, nch, F, B]."""
+    dev = _device_of(bins_T, gq, cq)
+    f, n = bins_T.shape
+    _check(bins_T, "bins_T", torch.uint8, (f, n))
+    _check(gq, "gq", torch.int8, (n,))
+    _check(cq, "cq", torch.int8, (n,))
+    if hq is not None:
+        _device_of(bins_T, hq)
+        _check(hq, "hq", torch.int8, (n,))
+    if slot is not None:
+        _device_of(bins_T, slot)
+        _check(slot, "slot", torch.int32, (n,))
+    if num_slots < 1:
+        raise ValueError("hist_q8: num_slots must be >= 1")
+    if not 1 <= num_bins <= 256:
+        raise ValueError(f"hist_q8: num_bins {num_bins} outside [1, 256] "
+                         "(uint8 bins)")
+    if dev.type == "cpu":
+        return hist_q8_plain(bins_T, gq, hq, cq, slot, num_slots, num_bins)
+    nch = 2 if hq is None else 3
+    lib = cuda_lib.load()
+    fg, ss, chunks = q8_hist_grid(f, n, num_slots, nch, num_bins,
+                                  _num_sms(dev))
+    hist = torch.zeros((num_slots, nch, f, num_bins), dtype=torch.int32,
+                       device=dev)
+    rc = lib.lgbt_hist_q8(
+        bins_T.data_ptr(), gq.data_ptr(), _ptr(hq), cq.data_ptr(), _ptr(slot),
+        n, f, num_bins, num_slots, nch, fg, ss, chunks, hist.data_ptr(),
+        _stream(dev))
+    cuda_lib.check(rc, "hist_q8")
+    LAUNCHES["hist_q8"] += 1
+    return hist
+
+
+def route_level(bins_T: torch.Tensor, leaf_id: torch.Tensor,
+                tables: torch.Tensor, na_bin: torch.Tensor, num_slots: int):
+    """Each row's (slot, new leaf id) through its leaf's split.
+
+    tables [6, L] i32 rows (feat, thr, dleft, new_leaf, slot_left,
+    slot_right); na_bin [F] i32 (a value >= B means no missing bin). Rows
+    of leaves that do not split (feat < 0) or of no leaf keep their id and
+    get slot S. Returns (slot [N] i32, lid2 [N] i32)."""
+    dev = _device_of(bins_T, leaf_id, tables, na_bin)
+    f, n = bins_T.shape
+    l = tables.shape[1]
+    _check(bins_T, "bins_T", torch.uint8, (f, n))
+    _check(leaf_id, "leaf_id", torch.int32, (n,))
+    _check(tables, "tables", torch.int32, (6, l))
+    _check(na_bin, "na_bin", torch.int32, (f,))
+    if dev.type == "cpu":
+        return route_plain(bins_T, leaf_id, tables, na_bin, num_slots)
+    lib = cuda_lib.load()
+    slot = torch.empty(n, dtype=torch.int32, device=dev)
+    lid2 = torch.empty(n, dtype=torch.int32, device=dev)
+    grid = max(1, min(8 * _num_sms(dev), -(-n // 256)))
+    rc = lib.lgbt_route_level(
+        bins_T.data_ptr(), leaf_id.data_ptr(), tables.data_ptr(),
+        na_bin.data_ptr(), n, f, l, num_slots, slot.data_ptr(),
+        lid2.data_ptr(), grid, _stream(dev))
+    cuda_lib.check(rc, "route_level")
+    LAUNCHES["route_level"] += 1
+    return slot, lid2
+
+
+def leaf_sums(g: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+              leaf_id: torch.Tensor, num_leaves: int) -> torch.Tensor:
+    """Exact per-leaf (grad, hess, count) sums [3, L] f32 of materialized
+    [N] f32 rows, summed in f64; leaf ids outside [0, L) are dropped."""
+    dev = _device_of(g, h, c, leaf_id)
+    n = g.shape[0]
+    for name, t in (("g", g), ("h", h), ("c", c)):
+        _check(t, name, torch.float32, (n,))
+    _check(leaf_id, "leaf_id", torch.int32, (n,))
+    if dev.type == "cpu":
+        return leaf_sums_plain(g, h, c, leaf_id, num_leaves)
+    lib = cuda_lib.load()
+    out = torch.zeros((3, num_leaves), dtype=torch.float64, device=dev)
+    grid = max(1, min(4 * _num_sms(dev), -(-n // 256)))
+    rc = lib.lgbt_leaf_sums(g.data_ptr(), h.data_ptr(), c.data_ptr(),
+                            leaf_id.data_ptr(), n, num_leaves, out.data_ptr(),
+                            grid, _stream(dev))
+    cuda_lib.check(rc, "leaf_sums")
+    LAUNCHES["leaf_sums"] += 1
+    return out.to(torch.float32)

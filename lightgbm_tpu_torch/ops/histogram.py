@@ -4,10 +4,12 @@ Port of the parts of ``lightgbm_tpu/ops/histogram.py`` that the serial
 depthwise quantized grower runs: the stochastic-rounding quantizer
 (``quantize_sr``/``make_quant``/``QuantChannels``), the packed-lattice
 guard-bit budget (``pack_guard_bits``), ``RouteTables``, the fused
-gradient front ``grad_quant_hist0`` and the fused branch of
-``hist_routed``. The kernels themselves live in ``hist_kernels.py``; this
-module turns their int32 channel sums into the channel-major f32
-histograms ``[S, 3, F, B]`` of the reference contract.
+gradient front ``grad_quant_hist0``, the quantized branch of ``hist_leaf``
+(the unfused root pass) and the Pallas branches of ``hist_routed`` (the
+fused level pass when F * B <= 2048, else route then histogram). The
+kernels themselves live in ``hist_kernels.py``; this module turns their
+int32 channel sums into the channel-major f32 histograms ``[S, 3, F, B]``
+of the reference contract.
 
 The packed g/h lattice is a lane economy of the TPU's matrix unit: unpacking
 returns exactly the int32 sums the separate channels give, so the port
@@ -108,30 +110,44 @@ def grad_quant_hist0(bins_T: torch.Tensor, score: torch.Tensor,
                      aux: torch.Tensor, bag: torch.Tensor, seed: int, spec,
                      num_bins: int, const_hess: bool = False):
     """Fused per-iteration front: objective gradients + SR quantization +
-    root histogram in one pass. Returns (QuantChannels, hist0 [3, F, B])."""
-    f = bins_T.shape[0]
-    if f * num_bins > ACC_ROWS_MAX:
-        raise NotImplementedError(
-            f"F * B = {f * num_bins} > {ACC_ROWS_MAX}: the unfused root pass "
-            "(hist_pallas_q8) is ROADMAP queue B5, not yet ported")
+    root histogram in one pass. Returns (QuantChannels, hist0 [3, F, B]).
+    Only for F * B <= 2048 (models/gbdt.py gates it); wider data takes the
+    unfused front (make_quant, hist_leaf)."""
     gq, hq, cq, scales, acc = K.grad_quant_hist0(
         bins_T, score, aux, bag, seed, spec, num_bins, const_hess)
     quant = QuantChannels(gq, hq, cq, scales[0], scales[1])
     return quant, dequant(acc, const_hess, quant.scale_g, quant.scale_h)
 
 
+def hist_leaf(bins_T: torch.Tensor, num_bins: int,
+              quant: QuantChannels) -> torch.Tensor:
+    """Root histogram [3, F, B] f32 of the quantized channels: one slot,
+    every row in it (the reference's hist_leaf with quant on its Pallas
+    path, hist_pallas_q8 with slot zeros)."""
+    acc = K.hist_q8(bins_T, quant.gq, quant.hq, quant.cq, None, 1, num_bins)
+    return dequant(acc, quant.hq is None, quant.scale_g, quant.scale_h)[0]
+
+
 def hist_routed(bins_T: torch.Tensor, leaf_id: torch.Tensor,
                 tables: RouteTables, na_bin: torch.Tensor, num_slots: int,
                 num_bins: int, quant: QuantChannels):
-    """Fused route + level histogram. Returns (hist [S, 3, F, B] f32,
-    new leaf id [N] i32)."""
+    """Route + level histogram. Returns (hist [S, 3, F, B] f32, new leaf
+    id [N] i32).
+
+    F * B <= 2048 takes the fused pass (one kernel, one read of bins_T);
+    wider data routes first (``route_level``) and then builds the slot
+    histogram (``hist_q8``). The reference routes data wider than 512
+    features through an XLA gather instead, because its route kernel's
+    [F, chunk] block would exhaust VMEM; ``route_level`` reads one bin a
+    row and has no such limit, so every F takes it: the same function."""
     f = bins_T.shape[0]
-    if f * num_bins > ACC_ROWS_MAX:
-        raise NotImplementedError(
-            f"F * B = {f * num_bins} > {ACC_ROWS_MAX}: the two-pass level "
-            "(route_level_pallas + hist_pallas_q8) is ROADMAP queue B5/B6, "
-            "not yet ported")
-    acc, lid2 = K.hist_routed_fused(
-        bins_T, quant.gq, quant.hq, quant.cq, leaf_id, tables.stacked(),
-        na_bin, num_slots, num_bins)
+    if f * num_bins <= ACC_ROWS_MAX:
+        acc, lid2 = K.hist_routed_fused(
+            bins_T, quant.gq, quant.hq, quant.cq, leaf_id, tables.stacked(),
+            na_bin, num_slots, num_bins)
+    else:
+        slot, lid2 = K.route_level(bins_T, leaf_id, tables.stacked(), na_bin,
+                                   num_slots)
+        acc = K.hist_q8(bins_T, quant.gq, quant.hq, quant.cq, slot,
+                        num_slots, num_bins)
     return dequant(acc, quant.hq is None, quant.scale_g, quant.scale_h), lid2

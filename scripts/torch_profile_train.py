@@ -4,19 +4,22 @@
 Run from the repository root on a machine with one CUDA GPU:
 
     python3 scripts/torch_profile_train.py [--rows N] [--iters K]
+                                           [--max-bin 63|255]
 
-It builds the main-path configuration of chip_smoke.py (HIGGS-shaped
-N x 28 table, max_bin=63, num_leaves=255, learning_rate=0.1,
-min_data_in_leaf=20), trains two warm-up iterations, then traces K
-iterations of the binary and of the L2 model with torch.profiler (CUDA and
-CPU activity). For each it prints one JSON line: the wall time per
-iteration, the device time per iteration by kernel group (the four
-hand-written kernels, everything else), the device busy share, and the
-level passes per tree. Prints the card's name and power limit first.
+It builds a main-path configuration of chip_smoke.py (HIGGS-shaped N x 28
+table, num_leaves=255, learning_rate=0.1, min_data_in_leaf=20) at
+max_bin=63 (B = 64: the fused path) or at the default max_bin=255 (B = 256:
+the unfused path), trains two warm-up iterations, then traces K iterations
+of the binary and of the L2 model with torch.profiler (CUDA and CPU
+activity). For each it prints one JSON line: the wall time per iteration,
+the device time per iteration by kernel group (each hand-written kernel,
+everything else), the device busy share, and the level passes per tree.
+Prints the card's name and power limit first.
 """
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -24,10 +27,14 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# kernel group -> the exact names of its CUDA kernel functions
 GROUPS = (("grad_quant_hist0", ("max_kernel", "quant_hist_kernel")),
           ("hist_routed_fused", ("routed_hist_kernel",)),
           ("leaf_sums_grad", ("leaf_sums_kernel",)),
-          ("take_small", ("take_kernel",)))
+          ("take_small", ("take_kernel",)),
+          ("hist_q8", ("hist_q8_kernel",)),
+          ("route_level", ("route_level_kernel",)),
+          ("leaf_sums", ("leaf_sums_rows_kernel",)))
 
 
 def synth_higgs(n_rows: int, n_feat: int = 28, seed: int = 0):
@@ -43,8 +50,12 @@ def synth_higgs(n_rows: int, n_feat: int = 28, seed: int = 0):
 
 
 def group_of(name: str) -> str:
+    """The group of a profiler event by its function's own name (the last
+    identifier before the argument list), matched exactly."""
+    m = re.search(r"(\w+)\(", name)
+    fn = m.group(1) if m else name
     for group, keys in GROUPS:
-        if any(k in name for k in keys):
+        if fn in keys:
             return group
     return "other (split search, glue)"
 
@@ -82,6 +93,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=10_500_000)
     ap.add_argument("--iters", type=int, default=3)
+    ap.add_argument("--max-bin", type=int, default=63, choices=(63, 255))
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -97,7 +109,7 @@ def main() -> int:
     rng = np.random.RandomState(1)
     y_reg = (X[:, :4] @ np.array([1.0, -0.5, 0.25, 2.0]) + 0.5 * X[:, 4] ** 2
              + 0.1 * rng.randn(args.rows)).astype(np.float32)
-    base = {"num_leaves": 255, "max_bin": 63, "learning_rate": 0.1,
+    base = {"num_leaves": 255, "max_bin": args.max_bin, "learning_rate": 0.1,
             "min_data_in_leaf": 20, "verbosity": -1}
     for objective, label in (("binary", y), ("regression", y_reg)):
         params = dict(base, objective=objective)
@@ -110,7 +122,8 @@ def main() -> int:
         for _ in range(2):
             bst.update()
         res = profile_iters(bst, args.iters)
-        res.update(objective=objective, rows=args.rows, card=card,
+        res.update(objective=objective, rows=args.rows,
+                   max_bin=args.max_bin, card=card,
                    construct_s=construct_s,
                    level_passes=bst._gbdt.level_passes)
         print(json.dumps(res))

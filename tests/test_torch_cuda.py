@@ -8,12 +8,14 @@ JAX nor the reference package, so it runs on a machine that has neither:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances: exact for the quantized front, the level pass and take_small
+Tolerances: exact for the quantized front, the level passes (fused, and
+route then slot histogram), the root slot histogram and take_small
 (integer sums, order-free); leaf sums within 1e-6 relative (both sum the
 same f32 rows in f64, in different atomic orders); the first tree of an
-L2 model trained on the GPU has the CPU-trained tree's structure and leaf
-values within 1e-6 of its largest leaf value (the leaf sums may differ in
-their last f32 bit, which a leaf that nearly cancels against the init bias
+L2 model trained on the GPU, at max_bin=31 (fused path) and at max_bin=255
+(unfused path), has the CPU-trained tree's structure and leaf values
+within 1e-6 of its largest leaf value (the leaf sums may differ in their
+last f32 bit, which a leaf that nearly cancels against the init bias
 magnifies relatively; later trees inherit it, so only the first is
 compared).
 """
@@ -26,6 +28,8 @@ from lightgbm_tpu_torch.ops import hist_kernels as hk
 
 N, F, B, L, S = 5000, 7, 16, 8, 3
 LOGLOSS = ("logloss", 1.0, 1.0, 1.0)
+FUSED = ("grad_quant_hist0", "hist_routed_fused", "leaf_sums_grad")
+UNFUSED = ("hist_q8", "route_level", "leaf_sums")
 
 
 @pytest.fixture
@@ -102,6 +106,68 @@ def test_leaf_sums_and_take_small_kernels_equal_plain(rows, dev):
                        hk.take_small_plain(table, idx))
 
 
+def _wide(dev, s):
+    """B = 256 bins (0 and 255 included), 3 channels and a slot vector with
+    dropped slots, and route tables with NA bins and leaves that do not
+    split."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    bins_T = torch.randint(0, 256, (9, N), generator=g, device=dev,
+                           dtype=torch.int64).to(torch.uint8)
+    gq = torch.randint(-127, 128, (N,), generator=g, device=dev,
+                       dtype=torch.int64).to(torch.int8)
+    hq = torch.randint(0, 128, (N,), generator=g, device=dev,
+                       dtype=torch.int64).to(torch.int8)
+    cq = (torch.rand(N, generator=g, device=dev) < 0.9).to(torch.int8)
+    slot = torch.randint(-1, s + 3, (N,), generator=g, device=dev,
+                         dtype=torch.int64).to(torch.int32)
+    return bins_T, gq, hq, cq, slot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [1, 5, 127])
+@pytest.mark.parametrize("nch", [2, 3])
+def test_hist_q8_kernel_equals_plain(dev, s, nch):
+    bins_T, gq, hq, cq, slot = _wide(dev, s)
+    hq = hq if nch == 3 else None
+    for sl in ((None, slot) if s == 1 else (slot,)):
+        args = (bins_T, gq, hq, cq, sl, s, 256)
+        assert torch.equal(hk.hist_q8(*args), hk.hist_q8_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [8, 300])
+def test_route_level_kernel_equals_plain(dev, l):
+    bins_T = _wide(dev, S)[0]
+    g = torch.Generator(device=dev).manual_seed(l)
+    k = torch.arange(l, device=dev)
+    feat = torch.randint(-1, 9, (l,), generator=g, device=dev)
+    feat[:3] = -1
+    tab = torch.stack([
+        feat, torch.randint(0, 256, (l,), generator=g, device=dev),
+        torch.randint(0, 2, (l,), generator=g, device=dev), l + k,
+        torch.randint(0, S + 1, (l,), generator=g, device=dev),
+        torch.randint(0, S + 1, (l,), generator=g, device=dev)]).to(
+            torch.int32).contiguous()
+    na_bin = torch.full((9,), 256, dtype=torch.int32, device=dev)
+    na_bin[1], na_bin[4] = 0, 255
+    lid = torch.randint(0, l, (N,), generator=g, device=dev,
+                        dtype=torch.int32)
+    args = (bins_T, lid, tab, na_bin, S)
+    for a, b in zip(hk.route_level(*args), hk.route_plain(*args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_leaf_sums_kernel_equals_plain(rows, dev):
+    g, h = hk.grad_rows(LOGLOSS, rows["score"], rows["label_pos"])
+    args = (g * rows["bag"], h * rows["bag"], (rows["bag"] > 0).float(),
+            rows["lid"], L)
+    got = hk.leaf_sums(*args)
+    ref = hk.leaf_sums_plain(*args)
+    torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
+    assert torch.equal(got[2], ref[2])
+
+
 @pytest.mark.cuda
 def test_gpu_training_matches_cpu_training(dev):
     rng = np.random.RandomState(0)
@@ -111,7 +177,33 @@ def test_gpu_training_matches_cpu_training(dev):
               "min_data_in_leaf": 10, "verbosity": -1}
     hk.reset_launches()
     gpu = lt.train(params, lt.Dataset(X, label=y, params=params), 1)
-    assert min(hk.LAUNCHES.values()) > 0
+    assert min(hk.LAUNCHES[k] for k in FUSED) > 0
+    assert max(hk.LAUNCHES[k] for k in UNFUSED) == 0
+    cpu_p = dict(params, device_type="cpu")
+    cpu = lt.train(cpu_p, lt.Dataset(X, label=y, params=cpu_p), 1)
+    (a,), (b,) = gpu._host_trees(), cpu._host_trees()
+    for name in ("split_feature", "threshold_bin", "default_left",
+                 "left_child", "right_child"):
+        np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+    np.testing.assert_allclose(a.leaf_value, b.leaf_value, rtol=0,
+                               atol=1e-6 * np.abs(b.leaf_value).max())
+
+
+@pytest.mark.cuda
+def test_gpu_training_matches_cpu_training_max_bin_255(dev):
+    # 3000 rows give 255 bins a feature (B = 256) on 9 features: F * B =
+    # 2304 > 2048, the unfused path
+    rng = np.random.RandomState(1)
+    X = rng.rand(3000, 9).astype(np.float32)
+    y = (np.round((X[:, 0] * 2 + rng.rand(3000)) * 8) / 8).astype(np.float32)
+    params = {"objective": "regression", "num_leaves": 15, "max_bin": 255,
+              "min_data_in_leaf": 10, "verbosity": -1}
+    hk.reset_launches()
+    ds = lt.Dataset(X, label=y, params=params)
+    gpu = lt.train(params, ds, 1)
+    assert ds.max_num_bins > 128
+    assert min(hk.LAUNCHES[k] for k in UNFUSED) > 0
+    assert max(hk.LAUNCHES[k] for k in FUSED) == 0
     cpu_p = dict(params, device_type="cpu")
     cpu = lt.train(cpu_p, lt.Dataset(X, label=y, params=cpu_p), 1)
     (a,), (b,) = gpu._host_trees(), cpu._host_trees()

@@ -9,12 +9,16 @@ from a seed with numpy and handed to both as the same arrays.
 Tolerances (each stated where it is asserted):
 - exact: the dither, the L2 quantized channels, scales and root histogram,
   the level pass (histogram and new leaf ids, 2 and 3 channels, packed
-  lattice on and off) and take_small; integer sums make them order-free;
+  lattice on and off), the slot histogram over a slot vector (hist_q8), the
+  level routing (route_level), the two-pass level and the unfused root
+  histogram at F * B > 2048, and take_small; integer sums make them
+  order-free;
 - logloss front: torch.exp and XLA's expf differ by at most 1 ulp, which
   moves g by at most 2 ulp; the test measures the gap and bounds the share
   of quantized rows that move by one step;
-- leaf sums: the reference sums bf16 hi/lo halves (16 significant bits per
-  row), the port sums the f32 rows in f64: |diff| <= 2^-15 * sum|x|.
+- leaf sums (leaf_sums_grad, leaf_sums): the reference sums bf16 hi/lo
+  halves (16 significant bits per row), the port sums the f32 rows in f64:
+  |diff| <= 2^-15 * sum|x|, counts exact.
 
 The card-side twins of these checks are in tests/test_torch_cuda.py.
 """
@@ -236,6 +240,169 @@ def test_leaf_sums_grad_within_hi_lo_error(rows, spec, aux):
     assert (np.abs(got - ref) <= 2.0 ** -15 * mass).all()
 
 
+# ---- the unfused path's kernels (hist_q8, route_level, leaf_sums) at
+# B = 256, F * B > 2048: the reference's hist_leaf / hist_routed leave the
+# fused kernels there ----
+
+NW, FW, BW, SW = 300, 9, 256, 5
+
+
+@pytest.fixture(scope="module")
+def wide():
+    """Rows over the full uint8 bin range (0 and 255 included), quantized
+    channels with and without const-hessian elision, and a slot vector with
+    dropped slots (>= S and negative)."""
+    rng = np.random.default_rng(21)
+    bins = rng.integers(0, BW, size=(NW, FW)).astype(np.uint8)
+    bins[:3] = 0
+    bins[3:6] = BW - 1
+    # a quarter of the rows in the missing bin of features 1, 4 and 6
+    for j, na in zip((1, 4, 6), _wide_na_bin()[[1, 4, 6]]):
+        bins[rng.random(NW) < 0.25, j] = na
+    bag = (rng.random(NW) < 0.85).astype(np.float32)
+    g = rng.normal(size=NW).astype(np.float32) * bag
+    h = rng.random(NW).astype(np.float32) * bag
+    c = (bag > 0).astype(np.float32)
+    slot = rng.integers(0, SW + 3, size=NW).astype(np.int32)
+    slot[::17] = -1
+    quants = {ch: th.make_quant(_t(g), _t(bag if ch else h), _t(c), SEED,
+                                const_hess=ch) for ch in (False, True)}
+    return {"bins": bins, "g": g, "h": h, "c": c, "slot": slot,
+            "quants": quants}
+
+
+def _ref_q8_args(quant):
+    """(gq, hq-or-cq, cq, scale_g, scale_h) as the reference's q8 kernels
+    take them (_q8_h_arg: const-hessian passes cq in hq's place)."""
+    hq = quant.cq if quant.hq is None else quant.hq
+    return (jnp.asarray(quant.gq.numpy()), jnp.asarray(hq.numpy()),
+            jnp.asarray(quant.cq.numpy()), jnp.float32(quant.scale_g.item()),
+            jnp.float32(quant.scale_h.item()))
+
+
+@pytest.mark.parametrize("pack", [False, True])
+@pytest.mark.parametrize("const_hess", [False, True])
+@pytest.mark.parametrize("s", [1, SW])
+def test_hist_q8_exact(wide, s, const_hess, pack):
+    # exact: the dequantized slot histogram over a slot vector, one slot
+    # (every row; the port reads no slot vector) or S slots with dropped
+    # rows, 3 or 2 channels, against the reference with its packed lattice
+    # on and off
+    quant = wide["quants"][const_hess]
+    gq, hq, cq, sg, sh = _ref_q8_args(quant)
+    slot = np.zeros(NW, np.int32) if s == 1 else wide["slot"]
+    pk = ref_hist.pack_guard_bits(NW, const_hess) if pack else 0
+    ref = ph.hist_pallas_q8(jnp.asarray(wide["bins"].T), gq, hq, cq,
+                            jnp.asarray(slot), s, BW, sg, sh,
+                            const_hess=const_hess, pack_k=pk, interpret=True)
+    acc = hk.hist_q8(_t(wide["bins"].T), quant.gq, quant.hq, quant.cq,
+                     None if s == 1 else _t(slot), s, BW)
+    assert acc.dtype == torch.int32
+    assert tuple(acc.shape) == (s, 2 if const_hess else 3, FW, BW)
+    got = th.dequant(acc, const_hess, quant.scale_g, quant.scale_h)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def _wide_tables(rng, l, s):
+    """[L] route-table columns with non-splitting leaves (feat -1), new
+    leaf ids past bf16's exact integer range (> 256), thresholds over the
+    whole bin axis and sentinel slots."""
+    feat = rng.integers(-1, FW, size=l).astype(np.int32)
+    feat[:4] = -1
+    thr = rng.integers(0, BW, size=l).astype(np.int32)
+    dleft = rng.integers(0, 2, size=l).astype(np.int32)
+    # leaves that split on the features with missing bins, missing rows
+    # sent both ways
+    feat[4:7] = (1, 4, 6)
+    dleft[4:7] = (0, 1, 0)
+    new_leaf = (l + np.arange(l)).astype(np.int32)
+    slot_left = rng.integers(0, s + 1, size=l).astype(np.int32)
+    slot_right = rng.integers(0, s + 1, size=l).astype(np.int32)
+    return feat, thr, dleft, new_leaf, slot_left, slot_right
+
+
+def _wide_na_bin():
+    na_bin = np.full(FW, 256, np.int32)
+    na_bin[1] = 0
+    na_bin[4] = BW - 1
+    na_bin[6] = 17
+    return na_bin
+
+
+@pytest.mark.parametrize("l", [8, 300])
+def test_route_level_exact(wide, l):
+    # exact (slot, new leaf id) per row, with NA bins (bins 0, 255 and 17
+    # missing for three features), leaves that do not split and L = 300,
+    # whose leaf ids the reference decodes at HIGHEST precision; leaf ids
+    # stay in [0, L) as real rows' do
+    rng = np.random.default_rng(l)
+    cols = _wide_tables(rng, l, SW)
+    na_bin = _wide_na_bin()
+    lid = rng.integers(0, l, size=NW).astype(np.int32)
+    ref_slot, ref_lid = ph.route_level_pallas(
+        jnp.asarray(wide["bins"].T), jnp.asarray(lid),
+        ref_hist.RouteTables(*[jnp.asarray(c) for c in cols]),
+        jnp.asarray(na_bin), SW, l, interpret=True)
+    slot, lid2 = hk.route_level(_t(wide["bins"].T), _t(lid),
+                                _t(np.stack(cols)), _t(na_bin), SW)
+    assert slot.dtype == lid2.dtype == torch.int32
+    np.testing.assert_array_equal(slot.numpy(), np.asarray(ref_slot))
+    np.testing.assert_array_equal(lid2.numpy(), np.asarray(ref_lid))
+    assert (lid2.numpy() >= l).any() and (slot.numpy() == SW).any()
+
+
+def test_leaf_sums_within_hi_lo_error(wide):
+    # tolerance |diff| <= 2^-15 * sum|x| per leaf and channel (bf16 hi/lo
+    # on the reference side, f64 sums on the port's); counts exact
+    rng = np.random.default_rng(5)
+    lid = rng.integers(0, L, size=NW).astype(np.int32)
+    g, h, c = wide["g"], wide["h"], wide["c"]
+    ref = np.asarray(ph.leaf_sums_pallas(jnp.asarray(g), jnp.asarray(h),
+                                         jnp.asarray(c), jnp.asarray(lid), L,
+                                         interpret=True))
+    got = hk.leaf_sums(_t(g), _t(h), _t(c), _t(lid), L).numpy()
+    mass = np.zeros((3, L))
+    for k, x in enumerate((g, h, c)):
+        np.add.at(mass[k], lid, np.abs(x.astype(np.float64)))
+    np.testing.assert_array_equal(got[2], ref[2])
+    assert (np.abs(got - ref) <= 2.0 ** -15 * mass).all()
+
+
+@pytest.mark.parametrize("const_hess", [False, True])
+def test_two_pass_level_and_root_exact(wide, const_hess):
+    # exact: at F * B = 9 * 256 > 2048 the port's hist_routed routes, then
+    # histograms (route_level + hist_q8), and hist_leaf builds the root
+    # from the quantized channels, against the reference's hist_routed and
+    # hist_leaf on their Pallas path (route_level_pallas + hist_pallas_q8)
+    assert FW * BW > th.ACC_ROWS_MAX
+    quant = wide["quants"][const_hess]
+    rng = np.random.default_rng(9)
+    l = 8
+    cols = _wide_tables(rng, l, SW)
+    na_bin = _wide_na_bin()
+    lid = rng.integers(0, l, size=NW).astype(np.int32)
+    ref_q = ref_hist.QuantChannels(
+        jnp.asarray(quant.gq.numpy()),
+        None if quant.hq is None else jnp.asarray(quant.hq.numpy()),
+        jnp.asarray(quant.cq.numpy()), jnp.float32(quant.scale_g.item()),
+        jnp.float32(quant.scale_h.item()))
+    bins = jnp.asarray(wide["bins"])
+    dummy = jnp.zeros(NW, jnp.float32)
+    ref_h, ref_lid = ref_hist.hist_routed(
+        bins, dummy, dummy, dummy, jnp.asarray(lid),
+        ref_hist.RouteTables(*[jnp.asarray(c) for c in cols]),
+        jnp.asarray(na_bin), SW, BW, impl="pallas", quant=ref_q)
+    hist, lid2 = th.hist_routed(_t(wide["bins"].T), _t(lid),
+                                th.RouteTables(*[_t(c) for c in cols]),
+                                _t(na_bin), SW, BW, quant)
+    np.testing.assert_array_equal(hist.numpy(), np.asarray(ref_h))
+    np.testing.assert_array_equal(lid2.numpy(), np.asarray(ref_lid))
+    ref_root = ref_hist.hist_leaf(bins, dummy, dummy, dummy, BW,
+                                  impl="pallas", quant=ref_q)
+    root = th.hist_leaf(_t(wide["bins"].T), BW, quant)
+    np.testing.assert_array_equal(root.numpy(), np.asarray(ref_root))
+
+
 def test_take_small_exact_with_out_of_range():
     # exact, out-of-range indices (negative, == L, > L) give 0.0
     rng = np.random.default_rng(3)
@@ -248,7 +415,15 @@ def test_take_small_exact_with_out_of_range():
     assert (got[(idx < 0) | (idx >= L)] == 0.0).all()
 
 
-def test_cpu_wrappers_count_no_launches(rows):
+def test_cpu_wrappers_count_no_launches(rows, wide):
     hk.reset_launches()
     hk.take_small(_t(np.ones(L, np.float32)), _t(rows["lid"]))
+    q = wide["quants"][False]
+    bins_T = _t(wide["bins"].T)
+    hk.hist_q8(bins_T, q.gq, q.hq, q.cq, None, 1, BW)
+    cols = _wide_tables(np.random.default_rng(0), 8, SW)
+    hk.route_level(bins_T, _t(np.zeros(NW, np.int32)), _t(np.stack(cols)),
+                   _t(_wide_na_bin()), SW)
+    hk.leaf_sums(_t(wide["g"]), _t(wide["h"]), _t(wide["c"]),
+                 _t(np.zeros(NW, np.int32)), L)
     assert hk.LAUNCHES == {k: 0 for k in hk.KERNELS}

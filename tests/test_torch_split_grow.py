@@ -3,9 +3,11 @@
 
 Exact: the fixed-order prefix sum and window sum against XLA's, the split
 records (gain, feature, bin, missing direction, left sums) on random and
-near-tie histograms, and the grown tree's structure and final leaf ids.
-Tolerance: the grown tree's leaf values, renewed from leaf sums whose
-reference keeps 16 significant bits per row (bf16 hi + lo): rtol 1e-4.
+near-tie histograms, and the grown tree's structure and final leaf ids,
+through the fused front (B = 64) and through the unfused one from
+materialized rows (B = 256, F * B > 2048). Tolerance: the grown tree's leaf
+values, renewed from leaf sums whose reference keeps 16 significant bits
+per row (bf16 hi + lo): rtol 1e-4.
 """
 import numpy as np
 import pytest
@@ -146,8 +148,13 @@ def test_grow_tree_depthwise_matches_reference(objective):
                            split=t_split.SplitParams(**sp),
                            const_hess=const_hess, fused_obj=spec)
     tree, lid, passes = t_gd.grow_tree_depthwise(
-        _t(bins.T), _t(num_bins), _t(na_bin), torch.ones(F, dtype=torch.bool),
-        gp, _t(score), _t(aux), _t(bag), qseed=3)
+        _t(bins.T), None, None, None, _t(num_bins), _t(na_bin),
+        torch.ones(F, dtype=torch.bool), gp, qseed=3,
+        fused=(_t(score), _t(aux), _t(bag)))
+    _compare_tree(tree, lid, passes, ref_tree, ref_lid)
+
+
+def _compare_tree(tree, lid, passes, ref_tree, ref_lid):
     nl = int(ref_tree.num_leaves)
     assert tree.num_leaves == nl and nl > 4 and passes >= 2
     m = nl - 1
@@ -162,6 +169,52 @@ def test_grow_tree_depthwise_matches_reference(objective):
                                rtol=1e-4, atol=1e-7)
     np.testing.assert_array_equal(tree.leaf_count.numpy()[:nl],
                                   np.asarray(ref_tree.leaf_count)[:nl])
+
+
+@pytest.mark.parametrize("objective", ["l2", "logloss"])
+def test_grow_tree_depthwise_unfused_matches_reference(objective):
+    # exact tree structure and leaf ids of one tree grown from materialized
+    # (g, h, c) rows at B = 256 (F * B = 2304 > 2048: make_quant, the root
+    # hist_q8, route_level + hist_q8 per level, leaf_sums renewal); leaf
+    # values rtol 1e-4 (hi/lo leaf sums, see module docstring)
+    from lightgbm_tpu.ops.pallas_hist import _grad_rows
+    rng = np.random.default_rng(17)
+    N, F, B, L = 400, 9, 256, 15
+    nb = 200
+    bins = rng.integers(0, nb, size=(N, F)).astype(np.uint8)
+    bins[rng.random(N) < 0.1, 4] = nb - 1          # feature 4: NaN bin
+    num_bins = np.full(F, nb, np.int32)
+    na_bin = np.full(F, 256, np.int32)
+    na_bin[4] = nb - 1
+    score = (rng.normal(size=N) * 0.3).astype(np.float32)
+    if objective == "l2":
+        spec = ("l2",)
+        aux = (np.round((bins[:, 0] * 0.01 + bins[:, 3] * 0.005
+                         + rng.normal(size=N)) * 8) / 8).astype(np.float32)
+    else:
+        spec = ("logloss", 1.0, 1.0, 1.0)
+        aux = ((bins[:, 0] + rng.integers(0, 80, N)) > 120).astype(np.float32)
+    bag = (rng.random(N) < 0.9).astype(np.float32)
+    grad, hess = _grad_rows(spec, jnp.asarray(score), jnp.asarray(aux))
+    g = np.asarray(grad) * bag
+    h = np.asarray(hess) * bag
+    c = (bag > 0).astype(np.float32)
+    const_hess = objective == "l2"
+    sp = dict(min_data_in_leaf=5)
+    ref_gp = ref_grow.GrowParams(
+        num_leaves=L, max_bin=B, split=ref_split.SplitParams(**sp),
+        hist_impl="pallas", quant=True, const_hess=const_hess)
+    ref_tree, ref_lid = ref_gd.grow_tree_depthwise(
+        jnp.asarray(bins), jnp.asarray(g), jnp.asarray(h), jnp.asarray(c),
+        jnp.asarray(num_bins), jnp.asarray(na_bin), jnp.ones(F, bool),
+        ref_gp, qseed=jnp.int32(5), bins_T=jnp.asarray(bins.T))
+    gp = t_grow.GrowParams(num_leaves=L, max_bin=B,
+                           split=t_split.SplitParams(**sp),
+                           const_hess=const_hess)
+    tree, lid, passes = t_gd.grow_tree_depthwise(
+        _t(bins.T), _t(g), _t(h), _t(c), _t(num_bins), _t(na_bin),
+        torch.ones(F, dtype=torch.bool), gp, qseed=5)
+    _compare_tree(tree, lid, passes, ref_tree, ref_lid)
 
 
 @pytest.mark.parametrize("L,max_levels", [(7, 6), (255, 254), (63, 5)])

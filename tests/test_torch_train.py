@@ -8,12 +8,15 @@ the kernels' plain versions.
 
 Exact: parameter resolution, bin mappers and bins, the structure of every
 tree of a 3-iteration L2 model and of the first binary tree
-(split_feature, threshold_bin, default_left, children), save/load
-predictions. Tolerances: leaf values and predictions after 3 iterations
-rtol 1e-4 — the reference renews leaf values from bf16 hi/lo sums (16
-significant bits per row) and every later gradient inherits that gap;
-predictions of a loaded reference model rtol 1e-6 — the reference sums
-leaf values in f32, the port in f64.
+(split_feature, threshold_bin, default_left, children), at max_bin=31
+(the fused path) and at the default max_bin=255 (B = 256, F * B > 2048:
+the unfused path), save/load predictions, the L2 objective's gradients.
+Tolerances: leaf values and predictions after 3 iterations rtol 1e-4 —
+the reference renews leaf values from bf16 hi/lo sums (16 significant
+bits per row) and every later gradient inherits that gap; predictions of
+a loaded reference model rtol 1e-6 — the reference sums leaf values in
+f32, the port in f64; the logloss objective's gradients within the CPU
+exp gap (queue C1).
 """
 import ast
 import dataclasses
@@ -36,6 +39,9 @@ from lightgbm_tpu_torch import config as t_config
 from lightgbm_tpu_torch import metrics as t_metrics
 from lightgbm_tpu_torch.convert import (booster_from_model_text,
                                         mappers_from_reference)
+from lightgbm_tpu_torch.models.gbdt import padded_bins
+from lightgbm_tpu_torch.ops import hist_kernels as hk
+from lightgbm_tpu_torch.ops.histogram import ACC_ROWS_MAX
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "golden")
@@ -55,6 +61,19 @@ def _data():
     # L2 labels on a 1/8 grid: their f32 mean is exact in any summation
     # order, so both packages start from the same boost-from-average score
     yr = (np.round((X[:, 1] * 2.0 + rng.rand(400)) * 8) / 8).astype(
+        np.float32)
+    return X, yb, yr
+
+
+def _data255():
+    """Rows enough for more than 128 bins a feature at max_bin=255 (600
+    uniform rows give about 200 at min_data_in_bin=3, so B = 256) on 9
+    features: F * B = 2304 > 2048, the unfused path."""
+    rng = np.random.RandomState(5)
+    X = rng.rand(600, 9).astype(np.float32)
+    X[rng.rand(600) < 0.05, 5] = np.nan
+    yb = (X[:, 0] + 0.3 * rng.rand(600) > 0.65).astype(np.float32)
+    yr = (np.round((X[:, 1] * 2.0 + rng.rand(600)) * 8) / 8).astype(
         np.float32)
     return X, yb, yr
 
@@ -182,6 +201,162 @@ def test_binary_first_tree_structure_exact(models):
     np.testing.assert_allclose(port.predict(X), ref.predict(X), rtol=1e-4)
 
 
+@pytest.fixture(scope="module")
+def models255():
+    X, yb, yr = _data255()
+    out = {}
+    for objective, y in (("binary", yb), ("regression", yr)):
+        p = dict(PALLAS_PARAMS, objective=objective, max_bin=255,
+                 num_leaves=15)
+        ref = lgb.train(p, lgb.Dataset(X, label=y, params=p),
+                        num_boost_round=3)
+        pt = dict(p, **CPU)
+        ds = lt.Dataset(X, label=y, params=pt)
+        port = lt.train(pt, ds, num_boost_round=3)
+        out[objective] = (ref, port, ds)
+    return X, out
+
+
+def test_max_bin_255_takes_the_unfused_path(models255):
+    _, out = models255
+    for _ref, port, ds in out.values():
+        assert ds.max_num_bins > 128
+        assert ds.num_features * padded_bins(ds.max_num_bins) > ACC_ROWS_MAX
+        assert port._gbdt.gp.max_bin == 256
+        assert port._gbdt.gp.fused_obj is None
+        assert min(port._gbdt.level_passes) >= 2
+
+
+def test_max_bin_255_l2_every_tree_structure_exact(models255):
+    # exact structure of every tree; leaf values and predictions rtol 1e-4
+    # (queue C2)
+    X, out = models255
+    ref, port, _ = out["regression"]
+    rt, pt = _trees(ref, port)
+    assert len(rt) == len(pt) == 3
+    for a, b in zip(rt, pt):
+        assert b.num_leaves > 4
+        for name in STRUCT:
+            np.testing.assert_array_equal(getattr(b, name),
+                                          getattr(a, name), err_msg=name)
+        np.testing.assert_allclose(b.leaf_value, a.leaf_value, rtol=1e-4)
+    np.testing.assert_allclose(port.predict(X), ref.predict(X), rtol=1e-4)
+    np.testing.assert_array_equal(port.predict(X, pred_leaf=True),
+                                  np.asarray(ref.predict(X, pred_leaf=True)))
+
+
+def test_max_bin_255_binary_first_tree_structure_exact(models255):
+    X, out = models255
+    ref, port, _ = out["binary"]
+    rt, pt = _trees(ref, port)
+    assert pt[0].num_leaves > 4
+    for name in STRUCT:
+        np.testing.assert_array_equal(getattr(pt[0], name),
+                                      getattr(rt[0], name), err_msg=name)
+    np.testing.assert_allclose(pt[0].leaf_value, rt[0].leaf_value, rtol=1e-4)
+    np.testing.assert_allclose(port.predict(X, raw_score=True),
+                               ref.predict(X, raw_score=True), rtol=1e-4)
+    np.testing.assert_allclose(port.predict(X), ref.predict(X), rtol=1e-4)
+
+
+@pytest.mark.parametrize("objective", ["binary", "regression"])
+def test_max_bin_255_model_text_roundtrip(models255, objective, tmp_path):
+    # thresholds up to bin 255 survive the text; the loaded model predicts
+    # identically and writes the same text
+    X, out = models255
+    ref, port, _ = out[objective]
+    path = str(tmp_path / "model.txt")
+    port.save_model(path)
+    loaded = lt.Booster(model_file=path, params=CPU)
+    np.testing.assert_array_equal(loaded.predict(X), port.predict(X))
+    assert loaded.model_to_string() == port.model_to_string()
+    conv = booster_from_model_text(ref.model_to_string(), params=CPU)
+    np.testing.assert_allclose(conv.predict(X), ref.predict(X), rtol=1e-6)
+
+
+def test_max_bin_255_mappers_convert_from_reference():
+    # exact: the reference's 255-bin mappers convert to the port's own
+    X, _, _ = _data255()
+    kw = dict(max_bin=255, min_data_in_bin=3)
+    ref_m = ref_binning.find_bin_mappers(X, **kw)
+    got_m = t_binning.find_bin_mappers(X, **kw)
+    conv = mappers_from_reference([dataclasses.asdict(m) for m in ref_m])
+    assert max(m.num_bins for m in ref_m) > 128
+    for r, g, c in zip(ref_m, got_m, conv):
+        for m in (g, c):
+            assert m.num_bins == r.num_bins and m.na_bin == r.na_bin
+            np.testing.assert_array_equal(m.upper_bounds, r.upper_bounds)
+    bins = t_binning.bin_data(X, got_m, list(range(X.shape[1])),
+                              torch.device("cpu"))
+    np.testing.assert_array_equal(bins.numpy(),
+                                  ref_binning.bin_data(X, ref_m).bins)
+
+
+@pytest.mark.parametrize("objective,params", [
+    ("regression", {}), ("binary", {}),
+    ("binary", {"sigmoid": 0.7, "scale_pos_weight": 2.0})])
+def test_objective_gradients_match_reference(objective, params):
+    # the unfused path's materialized gradients: L2 exact; logloss within
+    # the CPU exp gap of queue C1 (g <= 2 ulp, h <= 8 ulp)
+    from lightgbm_tpu import objectives as ref_obj
+    from lightgbm_tpu_torch import objectives as t_obj
+    import jax.numpy as jnp
+    X, yb, yr = _data255()
+    y = yr if objective == "regression" else yb
+    score = np.random.RandomState(7).normal(size=y.shape[0]).astype(
+        np.float32)
+    ref = ref_obj.create_objective(objective, ref_config.Config(params))
+    ref.init(jnp.asarray(y), None)
+    got = t_obj.create_objective(objective, t_config.Config(params))
+    got.init(torch.from_numpy(y))
+    rg, rh = (np.asarray(a) for a in ref.get_gradients(jnp.asarray(score)))
+    g, h = (a.numpy() for a in got.get_gradients(torch.from_numpy(score)))
+
+    def ulps(a, b):
+        return np.abs(a.view(np.int32).astype(np.int64)
+                      - b.view(np.int32).astype(np.int64)).max()
+    if objective == "regression":
+        np.testing.assert_array_equal(g, rg)
+        np.testing.assert_array_equal(h, rh)
+    else:
+        assert ulps(g, rg) <= 2 and ulps(h, rh) <= 8
+
+
+FUSED_KERNELS = ("grad_quant_hist0", "hist_routed_fused", "leaf_sums_grad")
+UNFUSED_KERNELS = ("hist_q8", "route_level", "leaf_sums")
+
+
+@pytest.mark.parametrize("max_bin", [63, 255])
+def test_path_calls_exactly_its_kernels(monkeypatch, max_bin):
+    # spy on the wrappers: the 255-bin model (F * B > 2048) calls hist_q8,
+    # route_level and leaf_sums and none of the fused kernels; the 63-bin
+    # model the reverse; both update the score through take_small
+    calls = {k: 0 for k in hk.KERNELS}
+    for name in hk.KERNELS:
+        fn = getattr(hk, name)
+
+        def spy(*args, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*args, **kw)
+        monkeypatch.setattr(hk, name, spy)
+    X, yb, _ = _data255() if max_bin == 255 else _data()
+    p = dict(PALLAS_PARAMS, objective="binary", max_bin=max_bin,
+             num_leaves=15, **CPU)
+    bst = lt.train(p, lt.Dataset(X, label=yb, params=p), num_boost_round=2)
+    trees = bst.num_trees()
+    passes = sum(bst._gbdt.level_passes)
+    assert trees == 2 and passes >= 4
+    used, unused = ((UNFUSED_KERNELS, FUSED_KERNELS) if max_bin == 255
+                    else (FUSED_KERNELS, UNFUSED_KERNELS))
+    assert all(calls[k] == 0 for k in unused), calls
+    assert all(calls[k] > 0 for k in used), calls
+    assert calls["take_small"] == trees
+    if max_bin == 255:
+        assert calls["hist_q8"] == trees + passes
+        assert calls["route_level"] == passes
+        assert calls["leaf_sums"] == trees
+
+
 def test_pred_leaf_matches_reference(models):
     # exact leaf indices of every row in every tree (the L2 structures are
     # identical, so the routing must be too)
@@ -283,11 +458,9 @@ def test_default_device_needs_a_gpu():
     ({"histogram_pool_size": 1.0}, "A13"),
     ({"tree_learner": "data"}, "A21"),
     ({"categorical_feature": "0"}, "A12"),
-    ({"max_bin": 255}, "B5"),
 ])
 def test_out_of_slice_settings_raise(extra, item):
     X, yb, _ = _data()
-    X = np.repeat(X, 4, axis=1) if "max_bin" in extra else X
     p = dict(PALLAS_PARAMS, objective="binary", **CPU)
     p.update(extra)
     with pytest.raises(NotImplementedError, match=item):
