@@ -9,7 +9,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
 
 1. card: the GPU's name and power limit (nvidia-smi), torch and CUDA
    versions;
-2. build: the seven Hopper kernels are compiled from lightgbm_tpu_torch/csrc
+2. build: the eight Hopper kernels are compiled from lightgbm_tpu_torch/csrc
    by nvcc into one library (ops/cuda_lib.py), and the build time printed;
 3. kernels: each kernel's wrapper runs on the card at the main paths'
    shapes and is held against its plain PyTorch version on the same
@@ -19,24 +19,32 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    channels); the unfused path's at B = 256: hist_q8 at S = 1 (no slot
    vector), 32 and 127 with 2 and 3 channels, fed the slots route_level
    gives (NA bins, leaves that do not split, about half the rows in
-   dropped slots), route_level at S = 32 and 127, leaf_sums at L = 255.
-   Each kernel is timed (median of CUDA-event timings), beside its plain
-   version, the least time the card could take (bytes over memory rate or
-   operations over peak rate), and one PyTorch call computing the same
-   function where one exists;
+   dropped slots), route_level at S = 32 and 127, leaf_sums at L = 255,
+   hist_f32 (f32 rows) at B = 256 and S = 1 (no slot vector), 32 and 127
+   and at B = 64 and S = 127, fed the same slots (counts exactly, g and h
+   within 2^-15 of the cell's absolute mass). Each kernel is timed (median
+   of CUDA-event timings), beside its plain version, the least time the
+   card could take (bytes over memory rate or operations over peak rate),
+   and one PyTorch call computing the same function where one exists;
 4. main paths: a HIGGS-shaped 10.5M x 28 table (bench.py's generator,
-   copied) through lightgbm_tpu_torch.Dataset and train(): a binary model
-   (num_leaves=255, learning_rate=0.1, min_data_in_leaf=20) for 5
-   iterations and an L2 model on a continuous target for 2, once at
-   max_bin=63 (B = 64, F * B = 1792: the fused path) and once at the
-   default max_bin=255 (B = 256, F * B = 7168: the unfused path). The
-   launch counters are zeroed before each path and read after; at 63 bins
-   they must equal one grad_quant_hist0 / leaf_sums_grad / take_small per
-   tree and one hist_routed_fused per level pass, at 255 bins one
-   hist_q8 per tree and per level pass, one route_level per level pass and
-   one leaf_sums / take_small per tree, and zero for the other path's
-   kernels. On each path: train AUC on 1M rows > 0.7, the L2 model reduces
-   the squared error, the saved model text loads back and predicts
+   copied) through lightgbm_tpu_torch.Dataset and train(), one constructed
+   Dataset a bin count: a binary model (num_leaves=255, learning_rate=0.1,
+   min_data_in_leaf=20) and an L2 model on a continuous target, (a) at
+   max_bin=63 (B = 64, F * B = 1792: the fused quantized path), (b) at the
+   default max_bin=255 (B = 256, F * B = 7168: the unfused quantized
+   path), (c) at 255 with use_quantized_grad=false (the depthwise grower
+   on f32 histograms) and (d) at 255 with grow_policy=lossguide (the
+   leaf-wise grower, never quantized); binary for 5 iterations on (a)-(c)
+   and 3 on (d), L2 for 2 on each. The launch counters are zeroed before
+   each path and read after; on (a) they must equal one grad_quant_hist0 /
+   leaf_sums_grad / take_small per tree and one hist_routed_fused per
+   level pass, on (b) one hist_q8 per tree and per level pass, one
+   route_level per level pass and one leaf_sums / take_small per tree, on
+   (c) one hist_f32 per tree and per level pass, one route_level per level
+   pass and one take_small per tree, on (d) one hist_f32 per tree and per
+   split and one take_small per tree, and zero for every other kernel. On
+   each path: train AUC on 1M rows > 0.7, the L2 model's squared error
+   below the label variance, the saved model text loads back and predicts
    identically;
 5. agreement, at max_bin=63 and at 255 (the 4000-row table has more than
    128 bins a feature, so the unfused path, which is asserted): the first
@@ -44,7 +52,11 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    the same tree trained through the plain versions on the CPU, and leaf
    values within 1e-6 of its largest leaf value in magnitude (the one
    difference is the f64 order of the leaf sums; later trees inherit it,
-   so only the first is compared exactly).
+   so only the first is compared exactly). Paths (c) and (d) at both bin
+   counts on exact-sum data (labels on a 1/8 grid in [0, 4), no init
+   score, so the first tree's gradients are -label and h = 1, and every
+   histogram sum is exact in any order): the first tree equals the
+   CPU-trained one bit for bit, leaf values included.
 
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
@@ -64,6 +76,10 @@ N, F, B, L = 10_500_000, 28, 64, 255
 BW = 256              # the bin axis of the default max_bin=255
 FUSED = ("grad_quant_hist0", "hist_routed_fused", "leaf_sums_grad")
 UNFUSED = ("hist_q8", "route_level", "leaf_sums")
+# the main paths of phase 4: (max_bin, extra parameters, binary iterations)
+PATHS = {"fused": (63, {}, 5), "unfused": (255, {}, 5),
+         "f32": (255, {"use_quantized_grad": "false"}, 5),
+         "lossguide": (255, {"grow_policy": "lossguide"}, 3)}
 # the saved model goes beside the kernel library (ignored by git)
 OUT_DIR = os.path.join(HERE, "lightgbm_tpu_torch", "_build")
 
@@ -377,7 +393,68 @@ def main() -> int:
         bound_ms=main_v["bound_ms"], bound_by=main_v["bound_by"],
         library_ms=None, variants=variants)
     print(f"hist_q8: exact; {variants}")
-    del bins_w, slots, slot
+
+    # B8 hist_f32 on the logloss rows (g, h, count) over the same slots:
+    # counts exactly (integers below 2^24 are exact in any f32 order), g
+    # and h within 2^-15 of the cell's absolute mass against the plain
+    # version's f64 sums. The yardstick is one index_add_ of the rows into
+    # a [3, S * F * B] table over flat cell indices precomputed for the
+    # kept rows (the same sums, laid out channel-first)
+    rows = tuple(x.contiguous() for x in ghc)
+    abs_rows = (rows[0].abs(), rows[1].abs(), rows[2])
+    variants = []
+    for b_, s in ((BW, 1), (BW, 32), (BW, 127), (B, 127)):
+        bins_s = bins_w if b_ == BW else (bins_w & (b_ - 1))
+        slot = slots.get(s)
+        args = (bins_s, *rows, slot, s, b_)
+        kh, ph_ = hk.hist_f32(*args), hk.hist_f32_plain(*args)
+        mass = hk.hist_f32_plain(bins_s, *abs_rows, slot, s, b_).double()
+        err = (kh.double() - ph_.double()).abs()
+        tag = f"hist_f32[B={b_},S={s}]"
+        if not torch.equal(kh[:, 2], ph_[:, 2]):
+            fail(f"{tag}: counts differ from the plain version")
+        if bool((err[:, :2] > 2.0 ** -15 * mass[:, :2]).any()):
+            fail(f"{tag}: kernel vs plain error {float(err.max())} exceeds "
+                 "2^-15 of the cell's absolute mass")
+        keep = (torch.ones(N, dtype=torch.bool, device=dev) if slot is None
+                else (slot >= 0) & (slot < s))
+        kept = int(keep.sum())
+        ms = time_ms(lambda: hk.hist_f32(*args))
+        plain_ms = time_ms(lambda: hk.hist_f32_plain(*args), reps=3)
+        slot_bytes = 0 if slot is None else 4 * N
+        bms, by = bound(N * (F + 12) + slot_bytes + s * 3 * F * b_ * 4,
+                        kept * F * 3)
+        ridx = keep.nonzero().squeeze(1)
+        sl = (torch.zeros_like(ridx) if slot is None
+              else slot[ridx].long())
+        flat = ((sl[None, :] * F + torch.arange(F, device=dev)[:, None])
+                * b_ + bins_s[:, ridx].long()).reshape(-1)
+        src = torch.stack(rows)[:, ridx][:, None, :].expand(
+            3, F, kept).reshape(3, -1)
+        lib = torch.zeros(3, s * F * b_, device=dev).index_add_(1, flat, src)
+        lib_err = (lib.view(3, s, F, b_).transpose(0, 1).double()
+                   - ph_.double()).abs()
+        if bool((lib_err[:, :2] > 2.0 ** -15 * mass[:, :2]).any()):
+            fail(f"{tag}: the index_add_ yardstick computes another "
+                 "function")
+        lib_ms = time_ms(lambda: torch.zeros(3, s * F * b_, device=dev)
+                         .index_add_(1, flat, src))
+        variants.append(dict(B=b_, S=s, max_abs_err=float(err.max()),
+                             ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                             bound_by=by, library_ms=lib_ms))
+        del kh, ph_, mass, err, ridx, sl, flat, src, lib, lib_err, keep
+        torch.cuda.empty_cache()
+    main_v = next(v for v in variants if v["S"] == 127 and v["B"] == BW)
+    kernels["hist_f32"] = dict(
+        route="cuda", source="lightgbm_tpu_torch/csrc/hist_f32.cu",
+        replaces="lightgbm_tpu/ops/pallas_hist.py:114",
+        max_abs_err=max(v["max_abs_err"] for v in variants),
+        ms=main_v["ms"], plain_ms=main_v["plain_ms"],
+        bound_ms=main_v["bound_ms"], bound_by=main_v["bound_by"],
+        library_ms=main_v["library_ms"], variants=variants)
+    print(f"hist_f32: counts exact, g/h within 2^-15 of the cell mass; "
+          f"{variants}")
+    del bins_w, slots, slot, bins_s, rows, abs_rows, args
     torch.cuda.empty_cache()
 
     # B7 leaf_sums on materialized rows, tolerance 1e-6 * sum|x| per leaf
@@ -421,26 +498,54 @@ def main() -> int:
     m = min(1_000_000, N)
     launches_all = {k: 0 for k in hk.KERNELS}
 
-    def main_path(max_bin: int, fused: bool) -> None:
+    datasets = {}
+
+    def dataset(max_bin: int):
+        """The (binary, L2) Datasets of one bin count, constructed once and
+        shared by the paths at that bin count."""
+        if max_bin not in datasets:
+            params = {"max_bin": max_bin, "verbosity": -1}
+            t0 = time.perf_counter()
+            ds = lt.Dataset(X, label=y, params=params, free_raw_data=False)
+            ds.construct()
+            torch.cuda.synchronize()
+            construct_s = time.perf_counter() - t0
+            ds_reg = lt.Dataset(X, label=y_reg, params=params)
+            ds_reg.construct()
+            torch.cuda.synchronize()
+            print(f"[max_bin={max_bin}] construct: {construct_s:.3f} s ({N} x "
+                  f"{F}, {ds.num_features} used features, max bins "
+                  f"{ds.max_num_bins})")
+            datasets[max_bin] = (ds, ds_reg)
+        return datasets[max_bin]
+
+    def expected_launches(path: str, trees: int, n_pass: int, added: int):
+        """(launch count of every kernel, the path's own kernels)."""
+        if path == "fused":
+            exp = {"grad_quant_hist0": trees, "leaf_sums_grad": trees,
+                   "hist_routed_fused": n_pass}
+        elif path == "unfused":
+            exp = {"hist_q8": trees + n_pass, "route_level": n_pass,
+                   "leaf_sums": trees}
+        elif path == "f32":
+            exp = {"hist_f32": trees + n_pass, "route_level": n_pass}
+        else:
+            exp = {"hist_f32": trees + n_pass}
+        exp["take_small"] = added
+        return {k: exp.get(k, 0) for k in hk.KERNELS}, tuple(exp)
+
+    def main_path(path: str) -> None:
+        max_bin, extra, iters = PATHS[path]
         params = {"objective": "binary", "num_leaves": L, "max_bin": max_bin,
                   "learning_rate": 0.1, "min_data_in_leaf": 20,
-                  "verbosity": -1}
-        t0 = time.perf_counter()
-        ds = lt.Dataset(X, label=y, params=params, free_raw_data=False)
-        ds.construct()
-        torch.cuda.synchronize()
-        construct_s = time.perf_counter() - t0
+                  "verbosity": -1, **extra}
         reg_params = dict(params, objective="regression")
-        ds_reg = lt.Dataset(X, label=y_reg, params=reg_params)
-        ds_reg.construct()
-        torch.cuda.synchronize()
-        print(f"[max_bin={max_bin}] construct: {construct_s:.3f} s ({N} x "
-              f"{F}, {ds.num_features} used features, max bins "
-              f"{ds.max_num_bins})")
+        ds, ds_reg = dataset(max_bin)
+        tag = f"[{path}, max_bin={max_bin}]"
 
         hk.reset_launches()
         t0 = time.perf_counter()
-        bst = lt.train(params, ds, num_boost_round=5)
+        bst = lt.train(params, ds, num_boost_round=iters)
         torch.cuda.synchronize()
         bin_s = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -448,61 +553,60 @@ def main() -> int:
         torch.cuda.synchronize()
         reg_s = time.perf_counter() - t0
         launches = dict(hk.LAUNCHES)
-        passes = bst._gbdt.level_passes + reg._gbdt.level_passes
+        passes = bst._gbdt.hist_passes + reg._gbdt.hist_passes
         trees, n_pass = len(passes), sum(passes)
         added = bst.num_trees() + reg.num_trees()
-        if fused:
-            expected = {"grad_quant_hist0": trees, "leaf_sums_grad": trees,
-                        "take_small": added, "hist_routed_fused": n_pass}
-        else:
-            expected = {"hist_q8": trees + n_pass, "route_level": n_pass,
-                        "leaf_sums": trees, "take_small": added}
-        expected = {k: expected.get(k, 0) for k in hk.KERNELS}
-        print(f"[max_bin={max_bin}] train binary: {bin_s:.3f} s for 5 "
-              f"iterations ({bin_s / 5:.3f} s/iter), level passes "
-              f"{bst._gbdt.level_passes}; L2: {reg_s:.3f} s for 2 "
-              f"({reg_s / 2:.3f} s/iter), level passes "
-              f"{reg._gbdt.level_passes}")
-        print(f"[max_bin={max_bin}] launches {launches} expected {expected}")
-        path_kernels = (FUSED if fused else UNFUSED) + ("take_small",)
-        if (launches != expected
-                or min(launches[k] for k in path_kernels) <= 0):
-            fail(f"max_bin={max_bin}: launch counts {launches} != expected "
-                 f"{expected}")
+        expected, own = expected_launches(path, trees, n_pass, added)
+        what = "splits" if path == "lossguide" else "level passes"
+        print(f"{tag} train binary: {bin_s:.3f} s for {iters} iterations "
+              f"({bin_s / iters:.3f} s/iter), {what} a tree "
+              f"{bst._gbdt.hist_passes}; L2: {reg_s:.3f} s for 2 "
+              f"({reg_s / 2:.3f} s/iter), {what} {reg._gbdt.hist_passes}")
+        if path == "lossguide":
+            # one host sync a split step, plus the step that finds no
+            # split when a tree stops short of num_leaves
+            syncs = [p + (p < L - 1) for p in passes]
+            print(f"{tag} host syncs a tree (split steps): {syncs}")
+        print(f"{tag} launches {launches} expected {expected}")
+        if launches != expected or min(launches[k] for k in own) <= 0:
+            fail(f"{path}: launch counts {launches} != expected {expected}")
         for k, v in launches.items():
             launches_all[k] += v
-        if (bst._gbdt.gp.fused_obj is None) == fused:
-            fail(f"max_bin={max_bin}: the booster took the wrong front")
+        gp = bst._gbdt.gp
+        want = {"fused": (True, True), "unfused": (True, False),
+                "f32": (False, False), "lossguide": (False, False)}[path]
+        if (gp.quant, gp.fused_obj is not None) != want or (
+                not gp.quant and reg._gbdt.gp.const_hess):
+            fail(f"{path}: the booster took the wrong front (quant "
+                 f"{gp.quant}, fused {gp.fused_obj})")
 
         prob = bst.predict(X[:m])
         if prob.shape != (m,) or not np.isfinite(prob).all():
-            fail("binary predictions are not finite [1M] values")
+            fail(f"{path}: binary predictions are not finite [1M] values")
         auc = float(metrics.auc(torch.as_tensor(y[:m]),
                                 torch.as_tensor(prob)))
-        print(f"[max_bin={max_bin}] train AUC on 1M rows: {auc:.6f}")
+        print(f"{tag} train AUC on 1M rows: {auc:.6f}")
         if not auc > 0.7:
-            fail(f"max_bin={max_bin}: train AUC {auc} <= 0.7")
+            fail(f"{path}: train AUC {auc} <= 0.7")
         reg_pred = reg.predict(X[:m])
         mse0 = float(np.mean((y_reg[:m] - y_reg.mean()) ** 2))
         mse = float(np.mean((y_reg[:m] - reg_pred) ** 2))
-        print(f"[max_bin={max_bin}] L2 model: train mse {mse:.6f} vs label "
-              f"variance {mse0:.6f}")
+        print(f"{tag} L2 model: train mse {mse:.6f} vs label variance "
+              f"{mse0:.6f}")
         if not (np.isfinite(reg_pred).all() and mse < mse0):
-            fail(f"max_bin={max_bin}: L2 model did not reduce the squared "
-                 "error")
+            fail(f"{path}: L2 model did not reduce the squared error")
         os.makedirs(OUT_DIR, exist_ok=True)
-        path = os.path.join(OUT_DIR, f"chip_smoke_model_{max_bin}.txt")
-        bst.save_model(path)
-        loaded = lt.Booster(model_file=path)
+        fname = os.path.join(OUT_DIR, f"chip_smoke_model_{path}.txt")
+        bst.save_model(fname)
+        loaded = lt.Booster(model_file=fname)
         if not np.array_equal(loaded.predict(X[:m], raw_score=True),
                               bst.predict(X[:m], raw_score=True)):
-            fail(f"max_bin={max_bin}: saved and loaded model predict "
-                 "differently")
-        print(f"[max_bin={max_bin}] model text round trip: predictions "
-              "identical")
+            fail(f"{path}: saved and loaded model predict differently")
+        print(f"{tag} model text round trip: predictions identical")
 
-    main_path(63, fused=True)
-    main_path(255, fused=False)
+    for path in PATHS:
+        main_path(path)
+    del datasets
     for nm in kernels:
         kernels[nm]["launches"] = launches_all[nm]
 
@@ -539,6 +643,39 @@ def main() -> int:
         if diff > 1e-6 * scale:
             fail(f"max_bin={max_bin}: card and CPU leaf values differ by "
                  "more than 1e-6 of the largest leaf value")
+
+    # paths (c) and (d) on exact-sum data: labels on a 1/8 grid in [0, 4)
+    # and no init score, so the first tree's gradients are -label and
+    # h = 1; every histogram sum is exact in any order, and the first tree
+    # must equal the CPU's bit for bit
+    y8 = np.clip(np.floor((Xs[:, 0] + 2.0) * 8) / 8, 0, 3.875).astype(
+        np.float32)
+    for path in ("f32", "lossguide"):
+        for max_bin in (63, 255):
+            small = {"objective": "regression", "num_leaves": 31,
+                     "max_bin": max_bin, "min_data_in_leaf": 20,
+                     "verbosity": -1, "boost_from_average": False,
+                     **PATHS[path][1]}
+            hk.reset_launches()
+            gpu = lt.train(small, lt.Dataset(Xs, label=y8, params=small), 1)
+            other = sum(v for k, v in hk.LAUNCHES.items()
+                        if k not in ("hist_f32", "route_level", "take_small"))
+            if hk.LAUNCHES["hist_f32"] < 2 or other:
+                fail(f"{path}, max_bin={max_bin}: the 4000-row model did "
+                     f"not take its path ({dict(hk.LAUNCHES)})")
+            cpu_p = dict(small, device_type="cpu")
+            cpu = lt.train(cpu_p, lt.Dataset(Xs, label=y8, params=cpu_p), 1)
+            (a,), (b,) = gpu._host_trees(), cpu._host_trees()
+            for f_ in ("split_feature", "threshold_bin", "default_left",
+                       "left_child", "right_child", "leaf_value",
+                       "leaf_weight", "leaf_count"):
+                if not np.array_equal(getattr(a, f_), getattr(b, f_)):
+                    fail(f"{path}, max_bin={max_bin}: card and CPU first "
+                         f"trees differ in {f_} on exact-sum data")
+            print(f"[{path}, max_bin={max_bin}] card vs CPU on exact-sum "
+                  f"data (4000 rows, max bins {gpu.train_set.max_num_bins},"
+                  f" first tree, {a.num_leaves} leaves): identical, leaf "
+                  "values included")
 
     print(f"card: {card}")
     print(json.dumps({"kernels": [dict(name=nm, **v)

@@ -6,9 +6,10 @@ dict written for the reference parses here to the same values. Two things
 differ: ``device_type`` (alias ``device``) defaults to ``"cuda"``, and
 ``check_slice`` refuses, with ``NotImplementedError`` naming the ROADMAP
 item, every setting that would leave the path this package implements
-(serial depthwise training of binary / L2 models on dense numeric data with
-int8 quantized gradients). The TPU-only knobs (``histogram_impl``,
-``hist_packed``, ``mesh_axis``, ...) are accepted and have no effect.
+(serial training of binary / L2 models on dense numeric data with the
+depthwise grower, quantized or not, or the unpooled leaf-wise grower). The
+TPU-only knobs (``histogram_impl``, ``hist_packed``, ``mesh_axis``, ...)
+are accepted and have no effect.
 """
 from __future__ import annotations
 
@@ -535,14 +536,9 @@ def check_slice(conf: Config) -> None:
         raise _out_of_slice("reg_sqrt", "A11")
     if str(conf.boosting).lower() not in ("gbdt", "gbrt"):
         raise _out_of_slice(f"boosting={conf.boosting!r}", "A14")
-    if conf.grow_policy != "depthwise":
-        raise _out_of_slice(f"grow_policy={conf.grow_policy!r}", "A13")
-    if str(conf.use_quantized_grad).lower() in ("false", "0"):
-        raise _out_of_slice("use_quantized_grad=false (unquantized "
-                            "histograms, hist_pallas)", "B8")
     if conf.histogram_pool_size > 0:
-        raise _out_of_slice("histogram_pool_size (lean depthwise grower)",
-                            "A13")
+        raise _out_of_slice("histogram_pool_size (the lean depthwise grower "
+                            "and the lossguide histogram pool)", "A13b")
     if str(conf.tree_learner).lower() != "serial" or conf.num_machines > 1:
         raise _out_of_slice(f"tree_learner={conf.tree_learner!r}", "A21")
     if (conf.bagging_fraction < 1.0 or conf.pos_bagging_fraction < 1.0

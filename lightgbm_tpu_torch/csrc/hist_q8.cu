@@ -55,11 +55,11 @@ hist_q8_kernel(const uint8_t* __restrict__ bins_T,
     const int sl = slot ? slot[r] : 0;
     if (sl < s0 || sl >= s1) continue;
     int* base = sh + static_cast<size_t>(sl - s0) * nch * ch_stride;
-    lgbt::add_q8_row(base, ch_stride, nch, col0 + r, n, fcnt, b, gq[r],
-                     nch == 3 ? hq[r] : 0, cq[r]);
+    lgbt::add_row<int>(base, ch_stride, nch, col0 + r, n, fcnt, b, gq[r],
+                       nch == 3 ? hq[r] : 0, cq[r]);
   }
   __syncthreads();
-  lgbt::flush_q8(sh, ss, nch, fg, fcnt, b, s0, f0, f, hist);
+  lgbt::flush_hist(sh, ss, nch, fg, fcnt, b, s0, f0, f, hist);
 }
 
 }  // namespace

@@ -61,13 +61,13 @@ routed_hist_kernel(const uint8_t* __restrict__ bins_T,
     if (blockIdx.y == 0) lid2[r] = nl;
     if (slot < 0 || slot >= s) continue;
     int* base = acc + static_cast<size_t>(slot) * nch * ch_stride + fofs * b;
-    lgbt::add_q8_row(base, ch_stride, nch,
-                     bins_T + static_cast<size_t>(f0) * n + r, n, fcnt, b,
-                     gq[r], nch == 3 ? hq[r] : 0, cq[r]);
+    lgbt::add_row<int>(base, ch_stride, nch,
+                       bins_T + static_cast<size_t>(f0) * n + r, n, fcnt, b,
+                       gq[r], nch == 3 ? hq[r] : 0, cq[r]);
   }
   if (!use_smem) return;
   __syncthreads();
-  lgbt::flush_q8(sh, s, nch, fg, fcnt, b, 0, f0, f, hist);
+  lgbt::flush_hist(sh, s, nch, fg, fcnt, b, 0, f0, f, hist);
 }
 
 }  // namespace

@@ -77,35 +77,38 @@ __device__ __forceinline__ void route_row(const uint8_t* __restrict__ bins_T,
   slot = right ? tab[5 * l + lf] : tab[4 * l + lf];
 }
 
-// Add one row's int8 channels (g[, h], count) into an int32 histogram laid
-// out [..][nch][width][B] with channel stride ch_stride = width * B: base
-// points at the row's slot and first feature, col at the row's bin of that
-// feature in bins_T (feature stride n). Bins >= b are dropped; zero values
-// are skipped (integer sums, so the result is the same).
-__device__ __forceinline__ void add_q8_row(int* base, int ch_stride, int nch,
-                                           const uint8_t* __restrict__ col,
-                                           size_t n, int fcnt, int b, int gv,
-                                           int hv, int cv) {
+// Add one row's channels (g[, h], count) into a histogram laid out
+// [..][nch][width][B] with channel stride ch_stride = width * B: base points
+// at the row's slot and first feature, col at the row's bin of that feature
+// in bins_T (feature stride n). T is int (int8 quantized channels, exact
+// sums) or float (f32 rows). Bins >= b are dropped; zero values are skipped
+// (adding 0 to a cell that starts at +0 changes no sum).
+template <typename T>
+__device__ __forceinline__ void add_row(T* base, int ch_stride, int nch,
+                                        const uint8_t* __restrict__ col,
+                                        size_t n, int fcnt, int b, T gv, T hv,
+                                        T cv) {
   for (int j = 0; j < fcnt; ++j) {
     const int bin = col[j * n];
     if (bin >= b) continue;
-    int* cell = base + j * b + bin;
-    if (gv) atomicAdd(cell, gv);
-    if (hv) atomicAdd(cell + ch_stride, hv);
-    if (cv) atomicAdd(cell + (nch - 1) * ch_stride, cv);
+    T* cell = base + j * b + bin;
+    if (gv != T(0)) atomicAdd(cell, gv);
+    if (hv != T(0)) atomicAdd(cell + ch_stride, hv);
+    if (cv != T(0)) atomicAdd(cell + (nch - 1) * ch_stride, cv);
   }
 }
 
 // Flush a block-private [ss][nch][fg][B] shared histogram (features
 // f0 .. f0 + fcnt - 1, slots s0 .. s0 + ss - 1) into the global
 // [S][nch][F][B] histogram with atomicAdd. Call after __syncthreads().
-__device__ __forceinline__ void flush_q8(const int* sh, int ss, int nch,
-                                         int fg, int fcnt, int b, int s0,
-                                         int f0, int f, int* hist) {
+template <typename T>
+__device__ __forceinline__ void flush_hist(const T* sh, int ss, int nch,
+                                           int fg, int fcnt, int b, int s0,
+                                           int f0, int f, T* hist) {
   const int total = ss * nch * fg * b;
   for (int k = threadIdx.x; k < total; k += blockDim.x) {
-    const int v = sh[k];
-    if (!v) continue;
+    const T v = sh[k];
+    if (v == T(0)) continue;
     const int bin = k % b;
     const int j = (k / b) % fg;
     const int sc = k / (fg * b);  // local slot * nch + channel

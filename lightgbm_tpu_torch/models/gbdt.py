@@ -7,9 +7,10 @@ resolution (:123-134, :737-766), the fused-front gate (``_fused_front``,
 :969-976), the per-tree dither seed ``qseed = iter * k + cls`` (:1504),
 shrinkage (:952-954), the score update through ``take_small`` (:955-956)
 and the first-iteration bias folded into the stored tree (:1326-1339). One
-iteration grows one tree (one model per iteration on this slice) with
-``grow_tree_depthwise``; train and valid scores stay on the training
-device.
+iteration grows one tree (one model per iteration on this slice) with the
+grower ``_grow_fn`` picks (:1297-1304): ``grow_tree_depthwise`` for
+``grow_policy=depthwise``, the leaf-wise ``grow_tree`` otherwise; train
+and valid scores stay on the training device.
 """
 from __future__ import annotations
 
@@ -19,8 +20,9 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..log import warning
 from ..ops.gather import take_small
-from ..ops.grow import GrowParams, TreeArrays
+from ..ops.grow import GrowParams, TreeArrays, grow_tree
 from ..ops.grow_depthwise import grow_tree_depthwise
 from ..ops.histogram import ACC_ROWS_MAX
 from ..ops.predict import route_bins
@@ -33,6 +35,21 @@ K_EPSILON = 1e-15
 def padded_bins(max_num_bins: int) -> int:
     """The reference's bin-axis padding (gbdt.py:110)."""
     return 64 if max_num_bins <= 64 else (128 if max_num_bins <= 128 else 256)
+
+
+def resolve_quant(config: Config) -> bool:
+    """use_quantized_grad as the reference resolves it (gbdt.py:123-134):
+    true, or auto on the kernel path, turns the int8 histograms on, but
+    only for the depthwise grower. The port always runs the kernel path
+    (its CPU run stands in for the card), so auto means on."""
+    uq = str(config.use_quantized_grad).lower()
+    quant_on = uq in ("true", "1", "auto")
+    if quant_on and config.grow_policy != "depthwise":
+        if uq in ("true", "1"):
+            warning("use_quantized_grad only applies to the depthwise "
+                    f"grower; ignoring for grow_policy={config.grow_policy}")
+        quant_on = False
+    return quant_on
 
 
 class GBDT:
@@ -51,10 +68,13 @@ class GBDT:
         B = padded_bins(train_set.max_num_bins)
         objective.init(train_set.label)
         spec, self._aux = objective.fused_grad_spec()
-        # the reference's fused-front gate: the fused kernels hold an
-        # [F * B] root histogram of at most 2048 cells; wider data
-        # materializes the gradients and takes the unfused front
-        if f * B > ACC_ROWS_MAX:
+        quant = resolve_quant(config)
+        self.depthwise = config.grow_policy == "depthwise"
+        # the reference's fused-front gate: the quantized depthwise grower
+        # only, and the fused kernels hold an [F * B] root histogram of at
+        # most 2048 cells; wider data materializes the gradients and takes
+        # the unfused front
+        if not (quant and self.depthwise) or f * B > ACC_ROWS_MAX:
             spec = None
         self.gp = GrowParams(
             num_leaves=config.num_leaves, max_depth=config.max_depth,
@@ -65,7 +85,10 @@ class GBDT:
                 min_data_in_leaf=config.min_data_in_leaf,
                 min_sum_hessian_in_leaf=config.min_sum_hessian_in_leaf,
                 max_delta_step=config.max_delta_step),
-            const_hess=bool(objective.is_constant_hessian),
+            quant=quant,
+            # constant-hessian elision is a property of the quantized
+            # channels (gbdt.py:737-744)
+            const_hess=quant and bool(objective.is_constant_hessian),
             fused_obj=spec)
         self.train_score = torch.zeros(n, dtype=torch.float32,
                                        device=self.device)
@@ -74,7 +97,9 @@ class GBDT:
         self.init_score = 0.0
         self.models_dev: List[TreeArrays] = []
         self.models_host: List[Tree] = []
-        self.level_passes: List[int] = []   # level passes of each tree
+        # histogram passes of each tree after its root: one per level
+        # (depthwise) or per split (lossguide)
+        self.hist_passes: List[int] = []
         self.valid_sets: List = []
         self.valid_names: List[str] = []
         self.valid_scores: List[torch.Tensor] = []
@@ -110,10 +135,15 @@ class GBDT:
             grad, hess = self.objective.get_gradients(self.train_score)
             ghc = (grad * bag, hess * bag, (bag > 0).to(torch.float32))
             fused = None
-        tree, leaf_id, passes = grow_tree_depthwise(
-            ts.bins_T, *ghc, ts.num_bins_dev, ts.na_bin_dev, self._fmask,
-            self.gp, qseed=self.iter_, fused=fused)
-        self.level_passes.append(passes)
+        if self.depthwise:
+            tree, leaf_id, passes = grow_tree_depthwise(
+                ts.bins_T, *ghc, ts.num_bins_dev, ts.na_bin_dev, self._fmask,
+                self.gp, qseed=self.iter_, fused=fused)
+        else:
+            tree, leaf_id, passes = grow_tree(
+                ts.bins_T, *ghc, ts.num_bins_dev, ts.na_bin_dev, self._fmask,
+                self.gp)
+        self.hist_passes.append(passes)
         if tree.num_leaves <= 1:
             self.iter_ += 1
             return True

@@ -28,7 +28,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("grad_quant_hist0.cu", "hist_routed_fused.cu",
            "leaf_sums_grad.cu", "take_small.cu", "hist_q8.cu",
-           "route_level.cu", "leaf_sums.cu")
+           "route_level.cu", "leaf_sums.cu", "hist_f32.cu")
 HEADERS = ("lgbt_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
@@ -52,6 +52,8 @@ _SIGNATURES: Dict[str, List] = {
                      _P],
     "lgbt_route_level": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P],
     "lgbt_leaf_sums": [_P, _P, _P, _P, _I, _I, _P, _I, _P],
+    "lgbt_hist_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                      _P],
 }
 
 _lock = threading.Lock()

@@ -1,17 +1,21 @@
-"""Depthwise (level-wise) tree growing: the serial quantized path.
+"""Depthwise (level-wise) tree growing: the serial path.
 
 Port of ``lightgbm_tpu/ops/grow_depthwise.py`` ``grow_tree_depthwise``
-(:238) for the slice's path: the fused gradient + quantization + root
-histogram front (:281-294) or the unfused one from materialized rows
-(:295-308), the level function with budgeted top-gain selection and
-sibling subtraction (:349-632), the level schedule (:167, :634-657) and
-leaf renewal from exact sums (:659-692).
+(:238) for the serial path, quantized or not: the fused gradient +
+quantization + root histogram front (:281-294) or the unfused one from
+materialized rows (:295-308), the level function with budgeted top-gain
+selection and sibling subtraction (:349-632), the level schedule (:167,
+:634-657) and, under quantization, leaf renewal from exact sums
+(:659-692).
 
-Per tree the kernels run, on the fused path (F * B <= 2048):
+Per tree the kernels run, on the fused quantized path (F * B <= 2048):
 ``grad_quant_hist0`` once, ``hist_routed_fused`` once per level that
-selects at least one split, ``leaf_sums_grad`` once; on the unfused path:
-``hist_q8`` once for the root, ``route_level`` and ``hist_q8`` once per such
-level, ``leaf_sums`` once.
+selects at least one split, ``leaf_sums_grad`` once; on the unfused
+quantized path: ``hist_q8`` once for the root, ``route_level`` and
+``hist_q8`` once per such level, ``leaf_sums`` once; unquantized
+(``gp.quant`` off): ``hist_f32`` once for the root, ``route_level`` and
+``hist_f32`` once per such level, and no leaf renewal (the leaf values
+are those of the split records, which the f32 histograms give).
 The reference builds the whole tree inside one jitted program with
 fixed-width masked scatters; here the level schedule is a Python loop that
 reads the level's split count to the host once per level, and the level
@@ -68,10 +72,11 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
     bins_T [F, N] u8 on the device; g/h/c [N] f32 grad/hess/in-bag count
     rows (already masked by the bag); num_bins / na_bin [F] i32 (na_bin >= B
     means no missing bin); feature_mask [F] bool. ``qseed`` varies the
-    stochastic-rounding dither. ``fused``: (score, aux, bag) rows for the
-    fused front, valid only with gp.fused_obj set; g/h/c are then unused
-    (None) and the gradients are recomputed in the kernels. Returns
-    (TreeArrays, leaf_id [N] i32, number of level passes)."""
+    stochastic-rounding dither (under gp.quant). ``fused``: (score, aux,
+    bag) rows for the fused front, valid only with gp.quant and
+    gp.fused_obj set; g/h/c are then unused (None) and the gradients are
+    recomputed in the kernels. Returns (TreeArrays, leaf_id [N] i32, number
+    of level passes)."""
     f, n = bins_T.shape
     dev = bins_T.device
     L, B = gp.num_leaves, gp.max_bin
@@ -79,17 +84,22 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
     spec = gp.fused_obj
     max_levels = gp.max_depth if gp.max_depth > 0 else max(1, L - 1)
 
+    rows = (g, h, c)
     if fused is not None:
-        if spec is None:
-            raise ValueError("the fused front needs gp.fused_obj")
+        if spec is None or not gp.quant:
+            raise ValueError("the fused front needs gp.quant and "
+                             "gp.fused_obj")
         score, aux, bag = fused
         quant, hist0 = H.grad_quant_hist0(bins_T, score, aux, bag, qseed,
                                           spec, B, const_hess=gp.const_hess)
-    else:
+    elif gp.quant:
         # int8 quantized channels of the materialized rows, built once per
         # tree, then the root histogram
         quant = H.make_quant(g, h, c, qseed, const_hess=gp.const_hess)
         hist0 = H.hist_leaf(bins_T, B, quant)
+    else:
+        quant = None
+        hist0 = H.hist_leaf(bins_T, B, rows=rows)
     g0, h0, c0 = tree_sum(hist0[0, 0]), tree_sum(hist0[1, 0]), \
         tree_sum(hist0[2, 0])
 
@@ -174,7 +184,7 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
             slot_left=torch.where(sel & small_is_left, idx_in_lvl, sentinel),
             slot_right=torch.where(sel & ~small_is_left, idx_in_lvl, sentinel))
         hist_pass, leaf_id = H.hist_routed(bins_T, leaf_id, tables, na_bin,
-                                           num_sel, B, quant)
+                                           num_sel, B, quant, rows)
         passes += 1
         parent_hist = hist[si]
         hist_sib = parent_hist - hist_pass
@@ -195,6 +205,8 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
         parent_right[nl] = True
         num_leaves += num_sel
 
+    if not gp.quant:
+        return tree._replace(num_leaves=num_leaves), leaf_id, passes
     # ---- leaf renewal from exact sums (quantized-training: splits
     # tolerate int8 gains, leaf outputs use exact sums) ----
     if fused is not None:

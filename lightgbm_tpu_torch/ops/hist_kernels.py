@@ -1,26 +1,29 @@
 """The training path's Hopper kernels: wrappers, plain versions, counts.
 
-Each TPU kernel of ``lightgbm_tpu/ops/pallas_hist.py`` that the serial
-depthwise quantized grower runs has a hand-written CUDA counterpart in
-``lightgbm_tpu_torch/csrc/`` and a plain PyTorch version of the same
-function here:
+Each TPU kernel of ``lightgbm_tpu/ops/pallas_hist.py`` has a hand-written
+CUDA counterpart in ``lightgbm_tpu_torch/csrc/`` and a plain PyTorch
+version of the same function here:
 
-====================  =========================================  ============
-wrapper               TPU kernel replaced                        CUDA source
-====================  =========================================  ============
-grad_quant_hist0      grad_quant_hist0_pallas (:918)             grad_quant_hist0.cu
-hist_routed_fused     hist_routed_fused_q8 (:676), D = 1         hist_routed_fused.cu
-leaf_sums_grad        leaf_sums_grad_pallas (:1036)              leaf_sums_grad.cu
-take_small            take_small_pallas (:1213)                  take_small.cu
-hist_q8               hist_pallas_q8 (:372)                      hist_q8.cu
-route_level           route_level_pallas (:1138), numerical      route_level.cu
-leaf_sums             leaf_sums_pallas (:718)                    leaf_sums.cu
-====================  =========================================  ============
+====================  =============================================  ====================
+wrapper               TPU kernel replaced                            CUDA source
+====================  =============================================  ====================
+grad_quant_hist0      grad_quant_hist0_pallas (:918)                 grad_quant_hist0.cu
+hist_routed_fused     hist_routed_fused_q8 (:676), D = 1             hist_routed_fused.cu
+leaf_sums_grad        leaf_sums_grad_pallas (:1036)                  leaf_sums_grad.cu
+take_small            take_small_pallas (:1213)                      take_small.cu
+hist_q8               hist_pallas_q8 (:372)                          hist_q8.cu
+route_level           route_level_pallas (:1138), numerical          route_level.cu
+leaf_sums             leaf_sums_pallas (:718)                        leaf_sums.cu
+hist_f32              hist_pallas (:114), hist_leaf_pallas (:175)    hist_f32.cu
+====================  =============================================  ====================
 
-The first four carry the fused path (F * B <= 2048); ``hist_q8``,
-``route_level`` and ``leaf_sums`` carry the unfused one (the root pass, the
-two-pass level and leaf renewal from materialized rows), which wider data
-takes, such as the default max_bin=255 (B = 256) on 28 features.
+The first four carry the fused quantized path (F * B <= 2048);
+``hist_q8``, ``route_level`` and ``leaf_sums`` carry the unfused one (the
+root pass, the two-pass level and leaf renewal from materialized rows),
+which wider data takes, such as the default max_bin=255 (B = 256) on 28
+features. ``hist_f32`` carries unquantized training: the root and, after
+``route_level``, every level of the depthwise grower, and the root and the
+smaller child of every split of the leaf-wise (lossguide) grower.
 
 A wrapper checks device, dtype, shape and contiguity, allocates its outputs,
 and then launches the CUDA kernel when its tensors lie on a CUDA device, or
@@ -34,7 +37,9 @@ nch = 3 for (g, h, count) or 2 for (g, count) under const-hessian elision);
 ``ops/histogram.py`` dequantizes them. Integer sums make every accumulation
 order exact, so kernel and plain version agree bit for bit on every output
 except the f64 sums of ``leaf_sums_grad`` and ``leaf_sums``, whose atomic
-order varies below f64 resolution before the final f32 rounding.
+order varies below f64 resolution before the final f32 rounding, and the
+f32 sums of ``hist_f32``, whose plain version sums in f64 and rounds once
+(counts, and values on a coarse grid, are exact in any order).
 """
 from __future__ import annotations
 
@@ -45,7 +50,7 @@ import torch
 from . import cuda_lib
 
 KERNELS = ("grad_quant_hist0", "hist_routed_fused", "leaf_sums_grad",
-           "take_small", "hist_q8", "route_level", "leaf_sums")
+           "take_small", "hist_q8", "route_level", "leaf_sums", "hist_f32")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 # shared-memory budget of one block's private histogram (the H100 allows
@@ -164,14 +169,17 @@ def quantize_rows(x: torch.Tensor, scale: torch.Tensor,
 
 def slot_hist_plain(bins_T: torch.Tensor, chans: Sequence[torch.Tensor],
                     slot: Optional[torch.Tensor], num_slots: int,
-                    num_bins: int) -> torch.Tensor:
-    """int32 [S, nch, F, B] sums of int8 row channels by (slot, feature, bin).
-    Rows whose slot is outside [0, S) and bins >= B are dropped; slot None
-    puts every row in slot 0."""
+                    num_bins: int, acc: torch.dtype = torch.int64,
+                    out_dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """[S, nch, F, B] sums of row channels by (slot, feature, bin), taken in
+    ``acc`` and cast to ``out_dtype`` once: int32 sums of int8 channels, or
+    f32 roundings of the f64 sums of f32 channels. Rows whose slot is
+    outside [0, S) and bins >= B are dropped; slot None puts every row in
+    slot 0."""
     f, n = bins_T.shape
     dev = bins_T.device
     s, b = num_slots, num_bins
-    out = torch.zeros((s, len(chans), f, b), dtype=torch.int64, device=dev)
+    out = torch.zeros((s, len(chans), f, b), dtype=acc, device=dev)
     if slot is None:
         keep = torch.ones(n, dtype=torch.bool, device=dev)
         slot = torch.zeros(n, dtype=torch.int64, device=dev)
@@ -183,10 +191,10 @@ def slot_hist_plain(bins_T: torch.Tensor, chans: Sequence[torch.Tensor],
         ok = keep & (bj < b)
         key = (slot[ok] * b + bj[ok])
         for c, ch in enumerate(chans):
-            acc = torch.zeros(s * b, dtype=torch.int64, device=dev)
-            acc.index_add_(0, key, ch[ok].to(torch.int64))
-            out[:, c, j, :] = acc.view(s, b)
-    return out.to(torch.int32)
+            cell = torch.zeros(s * b, dtype=acc, device=dev)
+            cell.index_add_(0, key, ch[ok].to(acc))
+            out[:, c, j, :] = cell.view(s, b)
+    return out.to(out_dtype)
 
 
 def hist_q8_plain(bins_T, gq, hq, cq, slot, num_slots: int,
@@ -194,6 +202,14 @@ def hist_q8_plain(bins_T, gq, hq, cq, slot, num_slots: int,
     """Plain version of hist_q8 (same returns)."""
     chans = [gq, cq] if hq is None else [gq, hq, cq]
     return slot_hist_plain(bins_T, chans, slot, num_slots, num_bins)
+
+
+def hist_f32_plain(bins_T, g, h, c, slot, num_slots: int,
+                   num_bins: int) -> torch.Tensor:
+    """Plain version of hist_f32 (same returns): f64 sums rounded to f32
+    once, the yardstick of the kernel's accuracy."""
+    return slot_hist_plain(bins_T, [g, h, c], slot, num_slots, num_bins,
+                           torch.float64, torch.float32)
 
 
 def grad_quant_hist0_plain(bins_T, score, aux, bag, seed: int, spec,
@@ -431,12 +447,13 @@ def take_small(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def q8_hist_grid(f: int, n: int, num_slots: int, nch: int, num_bins: int,
-                 num_sms: int) -> Tuple[int, int, int]:
-    """(features per block, slots per block, row chunks) of hist_q8: all
-    slots and as many features as fit the shared-memory budget, or one
-    feature and an even share of the slots when even one feature's slots do
-    not fit; enough row chunks that the grid covers the card about twice."""
+def slot_hist_grid(f: int, n: int, num_slots: int, nch: int, num_bins: int,
+                   num_sms: int) -> Tuple[int, int, int]:
+    """(features per block, slots per block, row chunks) of hist_q8 and
+    hist_f32, whose cells are 4 bytes (int32 or f32): all slots and as many
+    features as fit the shared-memory budget, or one feature and an even
+    share of the slots when even one feature's slots do not fit; enough row
+    chunks that the grid covers the card about twice."""
     per_cell = nch * num_bins * 4              # one slot of one feature
     if num_slots * per_cell <= SMEM_BUDGET:
         ss = num_slots
@@ -481,8 +498,8 @@ def hist_q8(bins_T: torch.Tensor, gq: torch.Tensor, hq: Optional[torch.Tensor],
         return hist_q8_plain(bins_T, gq, hq, cq, slot, num_slots, num_bins)
     nch = 2 if hq is None else 3
     lib = cuda_lib.load()
-    fg, ss, chunks = q8_hist_grid(f, n, num_slots, nch, num_bins,
-                                  _num_sms(dev))
+    fg, ss, chunks = slot_hist_grid(f, n, num_slots, nch, num_bins,
+                                    _num_sms(dev))
     hist = torch.zeros((num_slots, nch, f, num_bins), dtype=torch.int32,
                        device=dev)
     rc = lib.lgbt_hist_q8(
@@ -544,3 +561,41 @@ def leaf_sums(g: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
     cuda_lib.check(rc, "leaf_sums")
     LAUNCHES["leaf_sums"] += 1
     return out.to(torch.float32)
+
+
+def hist_f32(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
+             c: torch.Tensor, slot: Optional[torch.Tensor], num_slots: int,
+             num_bins: int) -> torch.Tensor:
+    """f32 slot histogram of (grad, hess, count) rows over a slot vector.
+
+    bins_T [F, N] u8; g/h/c [N] f32 (already masked by the bag); slot [N]
+    i32, or None to put every row in slot 0 (the root pass reads no slot
+    vector). Rows whose slot lies outside [0, S) are dropped. Returns f32
+    [S, 3, F, B], channel-major."""
+    dev = _device_of(bins_T, g, h, c)
+    f, n = bins_T.shape
+    _check(bins_T, "bins_T", torch.uint8, (f, n))
+    for name, t in (("g", g), ("h", h), ("c", c)):
+        _check(t, name, torch.float32, (n,))
+    if slot is not None:
+        _device_of(bins_T, slot)
+        _check(slot, "slot", torch.int32, (n,))
+    if num_slots < 1:
+        raise ValueError("hist_f32: num_slots must be >= 1")
+    if not 1 <= num_bins <= 256:
+        raise ValueError(f"hist_f32: num_bins {num_bins} outside [1, 256] "
+                         "(uint8 bins)")
+    if dev.type == "cpu":
+        return hist_f32_plain(bins_T, g, h, c, slot, num_slots, num_bins)
+    lib = cuda_lib.load()
+    fg, ss, chunks = slot_hist_grid(f, n, num_slots, 3, num_bins,
+                                    _num_sms(dev))
+    hist = torch.zeros((num_slots, 3, f, num_bins), dtype=torch.float32,
+                       device=dev)
+    rc = lib.lgbt_hist_f32(
+        bins_T.data_ptr(), g.data_ptr(), h.data_ptr(), c.data_ptr(),
+        _ptr(slot), n, f, num_bins, num_slots, fg, ss, chunks,
+        hist.data_ptr(), _stream(dev))
+    cuda_lib.check(rc, "hist_f32")
+    LAUNCHES["hist_f32"] += 1
+    return hist

@@ -1,15 +1,16 @@
-"""Quantized histogram dispatch of the depthwise grower.
+"""Histogram dispatch of the growers.
 
 Port of the parts of ``lightgbm_tpu/ops/histogram.py`` that the serial
-depthwise quantized grower runs: the stochastic-rounding quantizer
+growers run: the stochastic-rounding quantizer
 (``quantize_sr``/``make_quant``/``QuantChannels``), the packed-lattice
 guard-bit budget (``pack_guard_bits``), ``RouteTables``, the fused
-gradient front ``grad_quant_hist0``, the quantized branch of ``hist_leaf``
-(the unfused root pass) and the Pallas branches of ``hist_routed`` (the
-fused level pass when F * B <= 2048, else route then histogram). The
-kernels themselves live in ``hist_kernels.py``; this module turns their
-int32 channel sums into the channel-major f32 histograms ``[S, 3, F, B]``
-of the reference contract.
+gradient front ``grad_quant_hist0``, and the Pallas branches of
+``hist_leaf`` (the root pass, from quantized channels or from f32 rows) and
+``hist_routed`` (with quantized channels, the fused level pass when
+F * B <= 2048, else route then histogram; with f32 rows, route then
+histogram at every F * B). The kernels themselves live in
+``hist_kernels.py``; this module turns their sums into the channel-major
+f32 histograms ``[S, 3, F, B]`` of the reference contract.
 
 The packed g/h lattice is a lane economy of the TPU's matrix unit: unpacking
 returns exactly the int32 sums the separate channels give, so the port
@@ -18,7 +19,7 @@ operations (``dequant``), whatever ``pack_k`` says.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -119,28 +120,42 @@ def grad_quant_hist0(bins_T: torch.Tensor, score: torch.Tensor,
     return quant, dequant(acc, const_hess, quant.scale_g, quant.scale_h)
 
 
+Rows = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
 def hist_leaf(bins_T: torch.Tensor, num_bins: int,
-              quant: QuantChannels) -> torch.Tensor:
-    """Root histogram [3, F, B] f32 of the quantized channels: one slot,
-    every row in it (the reference's hist_leaf with quant on its Pallas
-    path, hist_pallas_q8 with slot zeros)."""
+              quant: Optional[QuantChannels] = None,
+              rows: Optional[Rows] = None) -> torch.Tensor:
+    """Root histogram [3, F, B] f32: one slot, every row in it. From the
+    quantized channels when ``quant`` is given (the reference's hist_leaf
+    with quant on its Pallas path: hist_pallas_q8 with slot zeros), else
+    from the f32 ``rows`` (g, h, c) (hist_leaf_pallas)."""
+    if quant is None:
+        return K.hist_f32(bins_T, *rows, None, 1, num_bins)[0]
     acc = K.hist_q8(bins_T, quant.gq, quant.hq, quant.cq, None, 1, num_bins)
     return dequant(acc, quant.hq is None, quant.scale_g, quant.scale_h)[0]
 
 
 def hist_routed(bins_T: torch.Tensor, leaf_id: torch.Tensor,
                 tables: RouteTables, na_bin: torch.Tensor, num_slots: int,
-                num_bins: int, quant: QuantChannels):
-    """Route + level histogram. Returns (hist [S, 3, F, B] f32, new leaf
-    id [N] i32).
+                num_bins: int, quant: Optional[QuantChannels] = None,
+                rows: Optional[Rows] = None):
+    """Route + level histogram of the quantized channels ``quant``, or of
+    the f32 ``rows`` (g, h, c) when quant is None. Returns (hist
+    [S, 3, F, B] f32, new leaf id [N] i32).
 
-    F * B <= 2048 takes the fused pass (one kernel, one read of bins_T);
-    wider data routes first (``route_level``) and then builds the slot
-    histogram (``hist_q8``). The reference routes data wider than 512
-    features through an XLA gather instead, because its route kernel's
-    [F, chunk] block would exhaust VMEM; ``route_level`` reads one bin a
-    row and has no such limit, so every F takes it: the same function."""
+    Quantized channels at F * B <= 2048 take the fused pass (one kernel,
+    one read of bins_T); wider data, and f32 rows at every width, route
+    first (``route_level``) and then build the slot histogram (``hist_q8``
+    or ``hist_f32``). The reference routes data wider than 512 features
+    through an XLA gather instead, because its route kernel's [F, chunk]
+    block would exhaust VMEM; ``route_level`` reads one bin a row and has
+    no such limit, so every F takes it: the same function."""
     f = bins_T.shape[0]
+    if quant is None:
+        slot, lid2 = K.route_level(bins_T, leaf_id, tables.stacked(), na_bin,
+                                   num_slots)
+        return K.hist_f32(bins_T, *rows, slot, num_slots, num_bins), lid2
     if f * num_bins <= ACC_ROWS_MAX:
         acc, lid2 = K.hist_routed_fused(
             bins_T, quant.gq, quant.hq, quant.cq, leaf_id, tables.stacked(),

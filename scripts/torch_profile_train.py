@@ -4,17 +4,21 @@
 Run from the repository root on a machine with one CUDA GPU:
 
     python3 scripts/torch_profile_train.py [--rows N] [--iters K]
-                                           [--max-bin 63|255]
+        [--max-bin 63|255] [--grow-policy depthwise|lossguide]
+        [--quant auto|true|false]
 
 It builds a main-path configuration of chip_smoke.py (HIGGS-shaped N x 28
 table, num_leaves=255, learning_rate=0.1, min_data_in_leaf=20) at
 max_bin=63 (B = 64: the fused path) or at the default max_bin=255 (B = 256:
-the unfused path), trains two warm-up iterations, then traces K iterations
-of the binary and of the L2 model with torch.profiler (CUDA and CPU
-activity). For each it prints one JSON line: the wall time per iteration,
-the device time per iteration by kernel group (each hand-written kernel,
-everything else), the device busy share, and the level passes per tree.
-Prints the card's name and power limit first.
+the unfused path), with the depthwise grower (quantized unless --quant
+false) or the leaf-wise one (--grow-policy lossguide, never quantized),
+trains two warm-up iterations, then traces K iterations of the binary and
+of the L2 model with torch.profiler (CUDA and CPU activity). For each it
+prints one JSON line: the wall time per iteration, the device time per
+iteration by kernel group (each hand-written kernel, everything else), the
+device busy share, and the histogram passes per tree after the root (one
+per level, or per split under lossguide). Prints the card's name and
+power limit first.
 """
 import argparse
 import json
@@ -34,7 +38,8 @@ GROUPS = (("grad_quant_hist0", ("max_kernel", "quant_hist_kernel")),
           ("take_small", ("take_kernel",)),
           ("hist_q8", ("hist_q8_kernel",)),
           ("route_level", ("route_level_kernel",)),
-          ("leaf_sums", ("leaf_sums_rows_kernel",)))
+          ("leaf_sums", ("leaf_sums_rows_kernel",)),
+          ("hist_f32", ("hist_f32_kernel",)))
 
 
 def synth_higgs(n_rows: int, n_feat: int = 28, seed: int = 0):
@@ -94,6 +99,10 @@ def main() -> int:
     ap.add_argument("--rows", type=int, default=10_500_000)
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--max-bin", type=int, default=63, choices=(63, 255))
+    ap.add_argument("--grow-policy", default="depthwise",
+                    choices=("depthwise", "lossguide"))
+    ap.add_argument("--quant", default="auto",
+                    choices=("auto", "true", "false"))
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -110,7 +119,9 @@ def main() -> int:
     y_reg = (X[:, :4] @ np.array([1.0, -0.5, 0.25, 2.0]) + 0.5 * X[:, 4] ** 2
              + 0.1 * rng.randn(args.rows)).astype(np.float32)
     base = {"num_leaves": 255, "max_bin": args.max_bin, "learning_rate": 0.1,
-            "min_data_in_leaf": 20, "verbosity": -1}
+            "min_data_in_leaf": 20, "verbosity": -1,
+            "grow_policy": args.grow_policy,
+            "use_quantized_grad": args.quant}
     for objective, label in (("binary", y), ("regression", y_reg)):
         params = dict(base, objective=objective)
         ds = lt.Dataset(X, label=label, params=params)
@@ -123,9 +134,10 @@ def main() -> int:
             bst.update()
         res = profile_iters(bst, args.iters)
         res.update(objective=objective, rows=args.rows,
-                   max_bin=args.max_bin, card=card,
+                   max_bin=args.max_bin, grow_policy=args.grow_policy,
+                   quant=bst._gbdt.gp.quant, card=card,
                    construct_s=construct_s,
-                   level_passes=bst._gbdt.level_passes)
+                   hist_passes=bst._gbdt.hist_passes)
         print(json.dumps(res))
     return 0
 

@@ -17,7 +17,12 @@ L2 model trained on the GPU, at max_bin=31 (fused path) and at max_bin=255
 within 1e-6 of its largest leaf value (the leaf sums may differ in their
 last f32 bit, which a leaf that nearly cancels against the init bias
 magnifies relatively; later trees inherit it, so only the first is
-compared).
+compared). The f32 histogram (hist_f32): counts exact, g and h within
+2^-15 of the cell's absolute mass (f32 atomics against the plain
+version's f64 sums), exact on gradients on a 1/8 grid (every partial sum
+is representable); the unquantized depthwise and the leaf-wise growers'
+first tree on such exact-sum data equals the CPU-trained tree bit for
+bit, leaf values included.
 """
 import numpy as np
 import pytest
@@ -30,6 +35,8 @@ N, F, B, L, S = 5000, 7, 16, 8, 3
 LOGLOSS = ("logloss", 1.0, 1.0, 1.0)
 FUSED = ("grad_quant_hist0", "hist_routed_fused", "leaf_sums_grad")
 UNFUSED = ("hist_q8", "route_level", "leaf_sums")
+STRUCT = ("split_feature", "threshold_bin", "default_left", "left_child",
+          "right_child")
 
 
 @pytest.fixture
@@ -212,3 +219,92 @@ def test_gpu_training_matches_cpu_training_max_bin_255(dev):
         np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
     np.testing.assert_allclose(a.leaf_value, b.leaf_value, rtol=0,
                                atol=1e-6 * np.abs(b.leaf_value).max())
+
+
+def _f32_rows(dev, n, f, b, s, grid):
+    """bins over [0, B), Gaussian or 1/8-grid (|g| < 4) gradients, uniform
+    hessians (1/8 grid too with grid), a 0/1 bag and a slot vector with
+    dropped slots (negative and >= S)."""
+    gen = torch.Generator(device=dev).manual_seed(11 + s + b)
+    bins_T = torch.randint(0, b, (f, n), generator=gen, device=dev,
+                           dtype=torch.int64).to(torch.uint8)
+    bag = (torch.rand(n, generator=gen, device=dev) < 0.9).float()
+    g = torch.randn(n, generator=gen, device=dev)
+    h = torch.rand(n, generator=gen, device=dev)
+    if grid:
+        g = torch.clamp(torch.round(g * 8), -31, 31) / 8
+        h = torch.round(h * 8) / 8
+    slot = torch.randint(-1, s + 3, (n,), generator=gen, device=dev,
+                         dtype=torch.int64).to(torch.int32)
+    return bins_T, g * bag, h * bag, bag, slot
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s", [(256, 1), (256, 32), (256, 127), (64, 127)])
+def test_hist_f32_kernel_within_plain(dev, b, s):
+    # counts exact; g, h within 2^-15 of the cell's absolute mass (the
+    # chip_smoke.py shapes: 10.5M rows, 28 features)
+    n, f = 10_500_000, 28
+    bins_T, g, h, c, slot = _f32_rows(dev, n, f, b, s, grid=False)
+    for sl in ((None, slot) if s == 1 else (slot,)):
+        got = hk.hist_f32(bins_T, g, h, c, sl, s, b)
+        ref = hk.hist_f32_plain(bins_T, g, h, c, sl, s, b)
+        mass = hk.hist_f32_plain(bins_T, g.abs(), h, c, sl, s, b).double()
+        assert got.shape == (s, 3, f, b) and got.dtype == torch.float32
+        assert torch.equal(got[:, 2], ref[:, 2])
+        err = (got.double() - ref.double()).abs()[:, :2]
+        assert bool((err <= 2.0 ** -15 * mass[:, :2]).all()), \
+            float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s", [(256, 1), (64, 127)])
+def test_hist_f32_kernel_exact_on_grid(dev, b, s):
+    # exact: 1/8-grid rows make every partial sum representable in f32
+    bins_T, g, h, c, slot = _f32_rows(dev, 1_000_000, 28, b, s, grid=True)
+    args = (bins_T, g, h, c, slot, s, b)
+    assert torch.equal(hk.hist_f32(*args), hk.hist_f32_plain(*args))
+
+
+@pytest.mark.cuda
+def test_hist_f32_cuda_tensor_never_falls_back(dev, monkeypatch):
+    # a CUDA tensor launches the kernel (one count a call) and never
+    # reaches the plain version
+    def boom(*a, **k):
+        raise AssertionError("plain version called on a CUDA tensor")
+    monkeypatch.setattr(hk, "hist_f32_plain", boom)
+    bins_T, g, h, c, slot = _f32_rows(dev, 5000, 7, 16, 3, grid=False)
+    hk.reset_launches()
+    hk.hist_f32(bins_T, g, h, c, slot, 3, 16)
+    hk.hist_f32(bins_T, g, h, c, None, 1, 16)
+    assert hk.LAUNCHES["hist_f32"] == 2
+    with pytest.raises(ValueError):
+        hk.hist_f32(bins_T, g, h, c, slot, 3, 300)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_bin", [63, 255])
+@pytest.mark.parametrize("extra", [{"use_quantized_grad": "false"},
+                                   {"grow_policy": "lossguide"}])
+def test_gpu_unquantized_first_tree_equals_cpu(dev, extra, max_bin):
+    # exact-sum data (labels on a 1/8 grid in [0, 4), no init score: the
+    # first tree's gradients are -label and h = 1): the first tree trained
+    # on the card equals the CPU-trained one bit for bit
+    rng = np.random.RandomState(2)
+    X = rng.rand(4000, 9).astype(np.float32)
+    y = np.clip(np.floor((X[:, 0] * 2 + rng.rand(4000)) * 8) / 8, 0,
+                3.875).astype(np.float32)
+    params = {"objective": "regression", "num_leaves": 31,
+              "max_bin": max_bin, "min_data_in_leaf": 20, "verbosity": -1,
+              "boost_from_average": False, **extra}
+    hk.reset_launches()
+    gpu = lt.train(params, lt.Dataset(X, label=y, params=params), 1)
+    assert hk.LAUNCHES["hist_f32"] > 1
+    assert max(hk.LAUNCHES[k] for k in FUSED + ("hist_q8", "leaf_sums")) == 0
+    cpu_p = dict(params, device_type="cpu")
+    cpu = lt.train(cpu_p, lt.Dataset(X, label=y, params=cpu_p), 1)
+    (a,), (b,) = gpu._host_trees(), cpu._host_trees()
+    assert a.num_leaves == b.num_leaves > 4
+    for name in STRUCT + ("leaf_value", "leaf_weight", "leaf_count"):
+        np.testing.assert_array_equal(getattr(a, name), getattr(b, name),
+                                      err_msg=name)

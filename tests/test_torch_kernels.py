@@ -18,7 +18,12 @@ Tolerances (each stated where it is asserted):
   of quantized rows that move by one step;
 - leaf sums (leaf_sums_grad, leaf_sums): the reference sums bf16 hi/lo
   halves (16 significant bits per row), the port sums the f32 rows in f64:
-  |diff| <= 2^-15 * sum|x|, counts exact.
+  |diff| <= 2^-15 * sum|x|, counts exact;
+- the f32 slot histogram (hist_f32) and the unquantized root and level
+  passes: exact on gradients and hessians on a 1/8 grid (the hi/lo split
+  keeps them whole and every partial sum is representable), else the hi/lo
+  error against the port's f64 sums: |diff| <= 2^-15 * the cell's sum|x|,
+  counts exact.
 
 The card-side twins of these checks are in tests/test_torch_cuda.py.
 """
@@ -403,6 +408,99 @@ def test_two_pass_level_and_root_exact(wide, const_hess):
     np.testing.assert_array_equal(root.numpy(), np.asarray(ref_root))
 
 
+# ---- the unquantized histogram (hist_f32) against hist_pallas ----
+
+def _f32_case(b, s, grid):
+    """Rows over [0, B) on 9 features (bins 0 and B - 1 included), 0/1 bag,
+    gradients and hessians either on a 1/8 grid (|g| < 4) or Gaussian and
+    uniform, and a slot vector with dropped slots (-1 and >= S)."""
+    rng = np.random.default_rng(31 + b + s)
+    bins = rng.integers(0, b, size=(NW, FW)).astype(np.uint8)
+    bins[:3] = 0
+    bins[3:6] = b - 1
+    bag = (rng.random(NW) < 0.85).astype(np.float32)
+    g = rng.normal(size=NW).astype(np.float32)
+    h = rng.random(NW).astype(np.float32)
+    if grid:
+        g = (np.clip(np.round(g * 8), -31, 31) / 8).astype(np.float32)
+        h = (np.round(h * 8) / 8).astype(np.float32)
+    slot = rng.integers(0, s + 2, size=NW).astype(np.int32)
+    slot[::13] = -1
+    return bins, g * bag, h * bag, bag, slot
+
+
+def _f32_mass(bins, g, h, c, slot, s, b):
+    """f64 [S, 3, F, B] sums of |g|, |h| and c: each cell's absolute mass."""
+    return hk.hist_f32(_t(bins.T), _t(np.abs(g)), _t(np.abs(h)), _t(c),
+                       None if slot is None else _t(slot), s, b).numpy()
+
+
+def _assert_f32_close(got, ref, mass, grid):
+    if grid:
+        np.testing.assert_array_equal(got, ref)
+        return
+    np.testing.assert_array_equal(got[..., 2, :, :], ref[..., 2, :, :])
+    assert (np.abs(got.astype(np.float64) - ref) <= 2.0 ** -15 * mass).all()
+
+
+@pytest.mark.parametrize("grid", [True, False])
+@pytest.mark.parametrize("b", [64, BW])
+@pytest.mark.parametrize("s", [1, SW])
+def test_hist_f32_matches_hist_pallas(s, b, grid):
+    # exact on 1/8-grid rows; Gaussian rows within 2^-15 of the cell's
+    # absolute mass (hi/lo on the reference's side), counts exact. S = 1
+    # is held against hist_leaf_pallas (every row, no slot vector) and
+    # hist_pallas over a slot vector that drops rows; S > 1 against
+    # hist_pallas with dropped slots
+    bins, g, h, c, slot = _f32_case(b, s, grid)
+    jb, jg, jh, jc = (jnp.asarray(a) for a in (bins.T, g, h, c))
+    got = hk.hist_f32(_t(bins.T), _t(g), _t(h), _t(c), _t(slot), s, b)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (s, 3, FW, b)
+    ref = np.asarray(ph.hist_pallas(jb, jg, jh, jc, jnp.asarray(slot), s, b,
+                                    interpret=True))
+    _assert_f32_close(got.numpy(), ref, _f32_mass(bins, g, h, c, slot, s, b),
+                      grid)
+    if s == 1:
+        root = hk.hist_f32(_t(bins.T), _t(g), _t(h), _t(c), None, 1, b)[0]
+        ref0 = np.asarray(ph.hist_leaf_pallas(jb, jg, jh, jc, b,
+                                              interpret=True))
+        _assert_f32_close(root.numpy(), ref0,
+                          _f32_mass(bins, g, h, c, None, 1, b)[0], grid)
+
+
+@pytest.mark.parametrize("b", [64, BW])
+def test_unquantized_level_and_root_exact(b):
+    # exact on 1/8-grid rows: the port's hist_routed without quantized
+    # channels (route_level, then hist_f32, at every F * B) and hist_leaf
+    # from f32 rows against the reference's on its Pallas path
+    # (route_level_pallas + hist_pallas, hist_leaf_pallas)
+    bins, g, h, c, _ = _f32_case(b, SW, grid=True)
+    rng = np.random.default_rng(b)
+    l = 8
+    feat, thr, dleft, new_leaf, slot_left, slot_right = _wide_tables(rng, l,
+                                                                     SW)
+    thr = thr % b
+    cols = (feat, thr, dleft, new_leaf, slot_left, slot_right)
+    na_bin = _wide_na_bin()
+    na_bin[4] = b - 1                  # a missing bin inside [0, B)
+    lid = rng.integers(0, l, size=NW).astype(np.int32)
+    jb = jnp.asarray(bins)
+    jg, jh, jc = (jnp.asarray(a) for a in (g, h, c))
+    ref_h, ref_lid = ref_hist.hist_routed(
+        jb, jg, jh, jc, jnp.asarray(lid),
+        ref_hist.RouteTables(*[jnp.asarray(x) for x in cols]),
+        jnp.asarray(na_bin), SW, b, impl="pallas")
+    rows = (_t(g), _t(h), _t(c))
+    hist, lid2 = th.hist_routed(_t(bins.T), _t(lid),
+                                th.RouteTables(*[_t(x) for x in cols]),
+                                _t(na_bin), SW, b, rows=rows)
+    np.testing.assert_array_equal(hist.numpy(), np.asarray(ref_h))
+    np.testing.assert_array_equal(lid2.numpy(), np.asarray(ref_lid))
+    ref_root = ref_hist.hist_leaf(jb, jg, jh, jc, b, impl="pallas")
+    root = th.hist_leaf(_t(bins.T), b, rows=rows)
+    np.testing.assert_array_equal(root.numpy(), np.asarray(ref_root))
+
+
 def test_take_small_exact_with_out_of_range():
     # exact, out-of-range indices (negative, == L, > L) give 0.0
     rng = np.random.default_rng(3)
@@ -426,4 +524,6 @@ def test_cpu_wrappers_count_no_launches(rows, wide):
                    _t(_wide_na_bin()), SW)
     hk.leaf_sums(_t(wide["g"]), _t(wide["h"]), _t(wide["c"]),
                  _t(np.zeros(NW, np.int32)), L)
+    hk.hist_f32(bins_T, _t(wide["g"]), _t(wide["h"]), _t(wide["c"]),
+                _t(wide["slot"]), SW, BW)
     assert hk.LAUNCHES == {k: 0 for k in hk.KERNELS}

@@ -7,7 +7,10 @@ near-tie histograms, and the grown tree's structure and final leaf ids,
 through the fused front (B = 64) and through the unfused one from
 materialized rows (B = 256, F * B > 2048). Tolerance: the grown tree's leaf
 values, renewed from leaf sums whose reference keeps 16 significant bits
-per row (bf16 hi + lo): rtol 1e-4.
+per row (bf16 hi + lo): rtol 1e-4. Unquantized (the leaf-wise grower and
+the depthwise one with quantization off) on exact-sum data, gradients and
+hessians on a 1/8 grid whose every partial sum is exact in f32: every
+array of the grown tree and the leaf ids, exactly.
 """
 import numpy as np
 import pytest
@@ -145,7 +148,7 @@ def test_grow_tree_depthwise_matches_reference(objective):
         bins_T=jnp.asarray(bins.T),
         fused=(jnp.asarray(score), jnp.asarray(aux), jnp.asarray(bag)))
     gp = t_grow.GrowParams(num_leaves=L, max_bin=B,
-                           split=t_split.SplitParams(**sp),
+                           split=t_split.SplitParams(**sp), quant=True,
                            const_hess=const_hess, fused_obj=spec)
     tree, lid, passes = t_gd.grow_tree_depthwise(
         _t(bins.T), None, None, None, _t(num_bins), _t(na_bin),
@@ -209,12 +212,65 @@ def test_grow_tree_depthwise_unfused_matches_reference(objective):
         jnp.asarray(num_bins), jnp.asarray(na_bin), jnp.ones(F, bool),
         ref_gp, qseed=jnp.int32(5), bins_T=jnp.asarray(bins.T))
     gp = t_grow.GrowParams(num_leaves=L, max_bin=B,
-                           split=t_split.SplitParams(**sp),
+                           split=t_split.SplitParams(**sp), quant=True,
                            const_hess=const_hess)
     tree, lid, passes = t_gd.grow_tree_depthwise(
         _t(bins.T), _t(g), _t(h), _t(c), _t(num_bins), _t(na_bin),
         torch.ones(F, dtype=torch.bool), gp, qseed=5)
     _compare_tree(tree, lid, passes, ref_tree, ref_lid)
+
+
+@pytest.mark.parametrize("grower,B,max_depth", [
+    ("lossguide", 64, -1), ("lossguide", 256, 3), ("depthwise", 64, -1),
+    ("depthwise", 256, -1)])
+def test_unquantized_growers_match_reference_exactly(grower, B, max_depth):
+    # exact-sum data (g = score - label with both on a 1/8 grid, h = 1, a
+    # 0/1 bag): the reference's hi/lo histograms and the port's f32 ones
+    # are the same numbers, so every TreeArrays field and the leaf ids
+    # must be identical, leaf values included (no leaf renewal without
+    # quantization)
+    rng = np.random.default_rng(23 + B)
+    N, F, L = 400, 9, 11
+    nb = 40 if B == 64 else 200
+    bins = rng.integers(0, nb, size=(N, F)).astype(np.uint8)
+    bins[rng.random(N) < 0.1, 4] = nb - 1          # feature 4: NaN bin
+    num_bins = np.full(F, nb, np.int32)
+    na_bin = np.full(F, 256, np.int32)
+    na_bin[4] = nb - 1
+    label = np.clip(np.floor((bins[:, 0] / nb * 2 + rng.random(N)) * 8) / 8,
+                    0, 3.875).astype(np.float32)
+    score = (np.round(rng.normal(size=N) * 2) / 8).astype(np.float32)
+    bag = (rng.random(N) < 0.9).astype(np.float32)
+    g = (score - label) * bag
+    h = bag.copy()
+    c = bag.copy()
+    sp = dict(min_data_in_leaf=5)
+    ref_gp = ref_grow.GrowParams(
+        num_leaves=L, max_depth=max_depth, max_bin=B,
+        split=ref_split.SplitParams(**sp), hist_impl="pallas", quant=False)
+    ref_fn = ref_grow.grow_tree if grower == "lossguide" \
+        else ref_gd.grow_tree_depthwise
+    ref_tree, ref_lid = ref_fn(
+        jnp.asarray(bins), jnp.asarray(g), jnp.asarray(h), jnp.asarray(c),
+        jnp.asarray(num_bins), jnp.asarray(na_bin), jnp.ones(F, bool),
+        ref_gp, bins_T=jnp.asarray(bins.T))
+    gp = t_grow.GrowParams(num_leaves=L, max_depth=max_depth, max_bin=B,
+                           split=t_split.SplitParams(**sp))
+    args = (_t(bins.T), _t(g), _t(h), _t(c), _t(num_bins), _t(na_bin),
+            torch.ones(F, dtype=torch.bool), gp)
+    if grower == "lossguide":
+        tree, lid, passes = t_grow.grow_tree(*args)
+        assert passes == tree.num_leaves - 1
+    else:
+        tree, lid, passes = t_gd.grow_tree_depthwise(*args, qseed=0)
+        assert passes >= 2
+    assert tree.num_leaves == int(ref_tree.num_leaves) > 4
+    for name in t_grow.TreeArrays._fields[:-1]:
+        np.testing.assert_array_equal(
+            getattr(tree, name).numpy(),
+            np.asarray(getattr(ref_tree, name)).astype(
+                getattr(tree, name).numpy().dtype), err_msg=name)
+    np.testing.assert_array_equal(lid.numpy(), np.asarray(ref_lid))
 
 
 @pytest.mark.parametrize("L,max_levels", [(7, 6), (255, 254), (63, 5)])

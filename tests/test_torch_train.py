@@ -224,7 +224,7 @@ def test_max_bin_255_takes_the_unfused_path(models255):
         assert ds.num_features * padded_bins(ds.max_num_bins) > ACC_ROWS_MAX
         assert port._gbdt.gp.max_bin == 256
         assert port._gbdt.gp.fused_obj is None
-        assert min(port._gbdt.level_passes) >= 2
+        assert min(port._gbdt.hist_passes) >= 2
 
 
 def test_max_bin_255_l2_every_tree_structure_exact(models255):
@@ -324,13 +324,20 @@ def test_objective_gradients_match_reference(objective, params):
 
 FUSED_KERNELS = ("grad_quant_hist0", "hist_routed_fused", "leaf_sums_grad")
 UNFUSED_KERNELS = ("hist_q8", "route_level", "leaf_sums")
+F32_KERNELS = ("hist_f32", "route_level")
 
 
-@pytest.mark.parametrize("max_bin", [63, 255])
-def test_path_calls_exactly_its_kernels(monkeypatch, max_bin):
+@pytest.mark.parametrize("max_bin,extra", [
+    pytest.param(63, {}, id="63"), pytest.param(255, {}, id="255"),
+    pytest.param(255, {"use_quantized_grad": "false"}, id="255-f32"),
+    pytest.param(255, {"grow_policy": "lossguide"}, id="255-lossguide")])
+def test_path_calls_exactly_its_kernels(monkeypatch, max_bin, extra):
     # spy on the wrappers: the 255-bin model (F * B > 2048) calls hist_q8,
     # route_level and leaf_sums and none of the fused kernels; the 63-bin
-    # model the reverse; both update the score through take_small
+    # model the reverse; unquantized depthwise calls hist_f32 once per tree
+    # and per level and route_level once per level; lossguide calls
+    # hist_f32 once per tree and per split; all update the score through
+    # take_small, and no path calls another path's kernels
     calls = {k: 0 for k in hk.KERNELS}
     for name in hk.KERNELS:
         fn = getattr(hk, name)
@@ -341,20 +348,28 @@ def test_path_calls_exactly_its_kernels(monkeypatch, max_bin):
         monkeypatch.setattr(hk, name, spy)
     X, yb, _ = _data255() if max_bin == 255 else _data()
     p = dict(PALLAS_PARAMS, objective="binary", max_bin=max_bin,
-             num_leaves=15, **CPU)
+             num_leaves=15, **extra, **CPU)
     bst = lt.train(p, lt.Dataset(X, label=yb, params=p), num_boost_round=2)
     trees = bst.num_trees()
-    passes = sum(bst._gbdt.level_passes)
+    passes = sum(bst._gbdt.hist_passes)
     assert trees == 2 and passes >= 4
-    used, unused = ((UNFUSED_KERNELS, FUSED_KERNELS) if max_bin == 255
-                    else (FUSED_KERNELS, UNFUSED_KERNELS))
+    if "grow_policy" in extra:
+        used, expected = ("hist_f32",), {"hist_f32": trees + passes}
+    elif extra:
+        used = F32_KERNELS
+        expected = {"hist_f32": trees + passes, "route_level": passes}
+    elif max_bin == 255:
+        used = UNFUSED_KERNELS
+        expected = {"hist_q8": trees + passes, "route_level": passes,
+                    "leaf_sums": trees}
+    else:
+        used, expected = FUSED_KERNELS, {}
+    unused = [k for k in hk.KERNELS if k not in used + ("take_small",)]
     assert all(calls[k] == 0 for k in unused), calls
     assert all(calls[k] > 0 for k in used), calls
     assert calls["take_small"] == trees
-    if max_bin == 255:
-        assert calls["hist_q8"] == trees + passes
-        assert calls["route_level"] == passes
-        assert calls["leaf_sums"] == trees
+    for k, v in expected.items():
+        assert calls[k] == v, calls
 
 
 def test_pred_leaf_matches_reference(models):
@@ -445,8 +460,8 @@ def test_default_device_needs_a_gpu():
 
 
 @pytest.mark.parametrize("extra,item", [
-    ({"grow_policy": "lossguide"}, "A13"),
-    ({"use_quantized_grad": "false"}, "B8"),
+    ({"objective": "huber"}, "A11"),
+    ({"grow_policy": "lossguide", "histogram_pool_size": 1.0}, "A13b"),
     ({"bagging_fraction": 0.5, "bagging_freq": 1}, "A10"),
     ({"feature_fraction": 0.5}, "A10"),
     ({"feature_fraction_bynode": 0.5}, "A10"),
@@ -455,7 +470,7 @@ def test_default_device_needs_a_gpu():
     ({"boosting": "dart"}, "A14"),
     ({"boosting": "rf"}, "A14"),
     ({"objective": "multiclass", "num_class": 3}, "A11"),
-    ({"histogram_pool_size": 1.0}, "A13"),
+    ({"histogram_pool_size": 1.0}, "A13b"),
     ({"tree_learner": "data"}, "A21"),
     ({"categorical_feature": "0"}, "A12"),
 ])
