@@ -16,16 +16,20 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    inputs: integer outputs and histograms exactly, leaf sums within 1e-6
    of the row mass. The fused path's kernels at N = 10.5M rows, F = 28,
    B = 64, L = 255 (the level pass at S = 32 and 127 slots with 2 and 3
-   channels); the unfused path's at B = 256: hist_q8 at S = 1 (no slot
-   vector), 32 and 127 with 2 and 3 channels, fed the slots route_level
-   gives (NA bins, leaves that do not split, about half the rows in
-   dropped slots), route_level at S = 32 and 127, leaf_sums at L = 255,
-   hist_f32 (f32 rows) at B = 256 and S = 1 (no slot vector), 32 and 127
-   and at B = 64 and S = 127, fed the same slots (counts exactly, g and h
-   within 2^-15 of the cell's absolute mass). Each kernel is timed (median
-   of CUDA-event timings), beside its plain version, the least time the
-   card could take (bytes over memory rate or operations over peak rate),
-   and one PyTorch call computing the same function where one exists;
+   channels); the unfused path's at B = 256: route_level at S = 32 and
+   127, leaf_sums at L = 255, and the two slot histograms, hist_q8 (2 and
+   3 channels) and hist_f32 (f32 rows; counts exactly, g and h within
+   2^-15 of the cell's absolute mass), at S = 1 (no slot vector), at S =
+   32 and 127 fed the slots route_level gives (NA bins, leaves that do not
+   split, about half the rows in dropped slots), on a skewed level (S =
+   127, about half the kept rows in one slot) and on two lossguide-shaped
+   passes (S = 1, about 5% and 0.5% of the rows kept), hist_f32 also at
+   B = 64 and S = 127. Each kernel is timed (median of CUDA-event
+   timings), beside its plain version, the least time the card could take
+   (bytes over memory rate or operations over peak rate, counting only
+   what the data needs) and one PyTorch call computing the same function
+   where one exists (for the slot histograms an index_add_ over flat cell
+   indices, int32 for hist_q8, checked against the plain version);
 4. main paths: a HIGGS-shaped 10.5M x 28 table (bench.py's generator,
    copied) through lightgbm_tpu_torch.Dataset and train(), one constructed
    Dataset a bin count: a binary model (num_leaves=255, learning_rate=0.1,
@@ -328,7 +332,7 @@ def main() -> int:
     na_w = torch.full((F,), 256, dtype=torch.int32, device=dev)
     na_w[:5] = 0
     na_w[5:10] = BW - 1
-    variants, rvariants, slots = [], [], {}
+    rvariants, slots = [], {}
     for s in (32, 127):
         lid = torch.randint(0, min(L, 2 * s), (N,), generator=g, device=dev,
                             dtype=torch.int64).to(torch.int32)
@@ -368,93 +372,117 @@ def main() -> int:
         library_ms=None, variants=rvariants)
     print(f"route_level: exact; {rvariants}")
 
-    for s in (1, 32, 127):
-        slot = slots.get(s)          # None: the root pass reads no slots
-        kept = N if slot is None else int((slot < s).sum())
-        for nch, (gq, hq, cq) in ((3, quant3[:3]), (2, (quant2[0], None,
-                                                        quant2[2]))):
-            args = (bins_w, gq, hq, cq, slot, s, BW)
-            err = exact(f"hist_q8[S={s},nch={nch}]", hk.hist_q8(*args),
-                        hk.hist_q8_plain(*args))
-            ms = time_ms(lambda: hk.hist_q8(*args))
-            plain_ms = time_ms(lambda: hk.hist_q8_plain(*args), reps=3)
-            slot_bytes = 0 if slot is None else 4 * N
-            bms, by = bound(N * (F + nch) + slot_bytes
-                            + s * nch * F * BW * 4, kept * F * nch + N)
-            variants.append(dict(S=s, nch=nch, max_abs_err=err, ms=ms,
-                                 plain_ms=plain_ms, bound_ms=bms,
-                                 bound_by=by))
-    main_v = next(v for v in variants if v["S"] == 127 and v["nch"] == 3)
-    kernels["hist_q8"] = dict(
-        route="cuda", source="lightgbm_tpu_torch/csrc/hist_q8.cu",
-        replaces="lightgbm_tpu/ops/pallas_hist.py:372",
-        max_abs_err=max(v["max_abs_err"] for v in variants),
-        ms=main_v["ms"], plain_ms=main_v["plain_ms"],
-        bound_ms=main_v["bound_ms"], bound_by=main_v["bound_by"],
-        library_ms=None, variants=variants)
-    print(f"hist_q8: exact; {variants}")
-
-    # B8 hist_f32 on the logloss rows (g, h, count) over the same slots:
-    # counts exactly (integers below 2^24 are exact in any f32 order), g
-    # and h within 2^-15 of the cell's absolute mass against the plain
-    # version's f64 sums. The yardstick is one index_add_ of the rows into
-    # a [3, S * F * B] table over flat cell indices precomputed for the
-    # kept rows (the same sums, laid out channel-first)
+    # B5 hist_q8 and B8 hist_f32 over shared slot vectors at B = 256: the
+    # root (S = 1, no slot vector), the slots route_level gave at S = 32
+    # and 127 (about half the rows dropped), a skewed level (S = 127, about
+    # half the kept rows moved into slot 0) and two lossguide-shaped passes
+    # (S = 1 over a slot vector keeping about 5% and 0.5% of the rows); B8
+    # also at B = 64, S = 127. hist_q8 (3 and 2 channels) exactly; hist_f32
+    # on the logloss rows (g, h, count): counts exactly (integers below 2^24
+    # are exact in any f32 order), g and h within 2^-15 of the cell's
+    # absolute mass against the plain version's f64 sums. The yardstick of
+    # each is one index_add_ of the kept rows' channels (widened to int32
+    # for hist_q8) into a [nch, S * F * B] table over flat cell indices
+    # precomputed for the kept rows: the same sums, channel-first. Bounds
+    # count the bytes this data needs: the slot vector, and the bins and
+    # channels of the kept rows only
+    u = torch.rand(N, generator=g, device=dev)
+    slot_vars = {
+        "root": (None, 1), "S32": (slots[32], 32), "S127": (slots[127], 127),
+        "skew127": (torch.where((slots[127] < 127) & (u < 0.5), 0,
+                                slots[127]).to(torch.int32), 127),
+        "lossguide5%": ((u >= 0.05).to(torch.int32), 1),
+        "lossguide0.5%": ((u >= 0.005).to(torch.int32), 1)}
+    del u
     rows = tuple(x.contiguous() for x in ghc)
     abs_rows = (rows[0].abs(), rows[1].abs(), rows[2])
-    variants = []
-    for b_, s in ((BW, 1), (BW, 32), (BW, 127), (B, 127)):
+    qvariants, fvariants = [], []
+    for name_, (slot, s), b_ in [(k, v, BW) for k, v in slot_vars.items()] \
+            + [("S127", slot_vars["S127"], B)]:
         bins_s = bins_w if b_ == BW else (bins_w & (b_ - 1))
-        slot = slots.get(s)
+        rowmajor = bins_s.t().contiguous()    # the Dataset's bins [N, F]
+        keep = (torch.ones(N, dtype=torch.bool, device=dev) if slot is None
+                else (slot >= 0) & (slot < s))
+        kept = int(keep.sum())
+        ridx = keep.nonzero().squeeze(1)
+        sl = (torch.zeros_like(ridx) if slot is None else slot[ridx].long())
+        flat = ((sl[None, :] * F + torch.arange(F, device=dev)[:, None])
+                * b_ + bins_s[:, ridx].long()).reshape(-1)
+        del sl
+        slot_bytes = 0 if slot is None else 4 * N
+        base = dict(variant=name_, S=s, B=b_, kept=kept)
+
+        def yardstick(chans, dtype):
+            src = torch.stack(chans)[:, ridx].to(dtype)[:, None, :].expand(
+                len(chans), F, kept).reshape(len(chans), -1)
+
+            def call():
+                return torch.zeros(len(chans), s * F * b_, dtype=dtype,
+                                   device=dev).index_add_(1, flat, src)
+            out = call().view(len(chans), s, F, b_).transpose(0, 1)
+            return out, time_ms(call)
+
+        for nch, (gq, hq, cq) in (((3, quant3[:3]), (2, (quant2[0], None,
+                                                          quant2[2])))
+                                  if b_ == BW else ()):
+            args = (bins_s, gq, hq, cq, slot, s, b_)
+            tag = f"hist_q8[{name_},nch={nch}]"
+            ph_ = hk.hist_q8_plain(*args)
+            err = exact(tag, hk.hist_q8(*args, bins=rowmajor), ph_)
+            lib, lib_ms = yardstick([x for x in (gq, hq, cq)
+                                     if x is not None], torch.int32)
+            exact(f"{tag} index_add_ yardstick", lib.contiguous(), ph_)
+            bms, by = bound(slot_bytes + kept * (F + nch)
+                            + s * nch * F * b_ * 4, kept * F * nch)
+            qvariants.append(dict(
+                base, nch=nch, max_abs_err=err,
+                ms=time_ms(lambda: hk.hist_q8(*args, bins=rowmajor)),
+                plain_ms=time_ms(lambda: hk.hist_q8_plain(*args), reps=3),
+                bound_ms=bms, bound_by=by, library_ms=lib_ms))
+            del ph_, lib
+
         args = (bins_s, *rows, slot, s, b_)
-        kh, ph_ = hk.hist_f32(*args), hk.hist_f32_plain(*args)
+        tag = f"hist_f32[{name_},B={b_}]"
+        kh = hk.hist_f32(*args, bins=rowmajor)
+        ph_ = hk.hist_f32_plain(*args)
         mass = hk.hist_f32_plain(bins_s, *abs_rows, slot, s, b_).double()
         err = (kh.double() - ph_.double()).abs()
-        tag = f"hist_f32[B={b_},S={s}]"
         if not torch.equal(kh[:, 2], ph_[:, 2]):
             fail(f"{tag}: counts differ from the plain version")
         if bool((err[:, :2] > 2.0 ** -15 * mass[:, :2]).any()):
             fail(f"{tag}: kernel vs plain error {float(err.max())} exceeds "
                  "2^-15 of the cell's absolute mass")
-        keep = (torch.ones(N, dtype=torch.bool, device=dev) if slot is None
-                else (slot >= 0) & (slot < s))
-        kept = int(keep.sum())
-        ms = time_ms(lambda: hk.hist_f32(*args))
-        plain_ms = time_ms(lambda: hk.hist_f32_plain(*args), reps=3)
-        slot_bytes = 0 if slot is None else 4 * N
-        bms, by = bound(N * (F + 12) + slot_bytes + s * 3 * F * b_ * 4,
-                        kept * F * 3)
-        ridx = keep.nonzero().squeeze(1)
-        sl = (torch.zeros_like(ridx) if slot is None
-              else slot[ridx].long())
-        flat = ((sl[None, :] * F + torch.arange(F, device=dev)[:, None])
-                * b_ + bins_s[:, ridx].long()).reshape(-1)
-        src = torch.stack(rows)[:, ridx][:, None, :].expand(
-            3, F, kept).reshape(3, -1)
-        lib = torch.zeros(3, s * F * b_, device=dev).index_add_(1, flat, src)
-        lib_err = (lib.view(3, s, F, b_).transpose(0, 1).double()
-                   - ph_.double()).abs()
+        lib, lib_ms = yardstick(list(rows), torch.float32)
+        lib_err = (lib.double() - ph_.double()).abs()
         if bool((lib_err[:, :2] > 2.0 ** -15 * mass[:, :2]).any()):
-            fail(f"{tag}: the index_add_ yardstick computes another "
-                 "function")
-        lib_ms = time_ms(lambda: torch.zeros(3, s * F * b_, device=dev)
-                         .index_add_(1, flat, src))
-        variants.append(dict(B=b_, S=s, max_abs_err=float(err.max()),
-                             ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                             bound_by=by, library_ms=lib_ms))
-        del kh, ph_, mass, err, ridx, sl, flat, src, lib, lib_err, keep
+            fail(f"{tag}: the index_add_ yardstick computes another function")
+        bms, by = bound(slot_bytes + kept * (F + 12) + s * 3 * F * b_ * 4,
+                        kept * F * 3)
+        fvariants.append(dict(
+            base, max_abs_err=float(err.max()),
+            ms=time_ms(lambda: hk.hist_f32(*args, bins=rowmajor)),
+            plain_ms=time_ms(lambda: hk.hist_f32_plain(*args), reps=3),
+            bound_ms=bms, bound_by=by, library_ms=lib_ms))
+        del kh, ph_, mass, err, lib, lib_err, ridx, flat, keep, rowmajor
         torch.cuda.empty_cache()
-    main_v = next(v for v in variants if v["S"] == 127 and v["B"] == BW)
-    kernels["hist_f32"] = dict(
-        route="cuda", source="lightgbm_tpu_torch/csrc/hist_f32.cu",
-        replaces="lightgbm_tpu/ops/pallas_hist.py:114",
-        max_abs_err=max(v["max_abs_err"] for v in variants),
-        ms=main_v["ms"], plain_ms=main_v["plain_ms"],
-        bound_ms=main_v["bound_ms"], bound_by=main_v["bound_by"],
-        library_ms=main_v["library_ms"], variants=variants)
-    print(f"hist_f32: counts exact, g/h within 2^-15 of the cell mass; "
-          f"{variants}")
-    del bins_w, slots, slot, bins_s, rows, abs_rows, args
+    for nm, variants, extra in (
+            ("hist_q8", qvariants, dict(source="lightgbm_tpu_torch/csrc/"
+                                        "hist_q8.cu", replaces="lightgbm_tpu/"
+                                        "ops/pallas_hist.py:372")),
+            ("hist_f32", fvariants, dict(source="lightgbm_tpu_torch/csrc/"
+                                         "hist_f32.cu", replaces="lightgbm_"
+                                         "tpu/ops/pallas_hist.py:114"))):
+        main_v = next(v for v in variants if v["variant"] == "S127"
+                      and v["B"] == BW and v.get("nch", 3) == 3)
+        kernels[nm] = dict(
+            route="cuda", **extra,
+            max_abs_err=max(v["max_abs_err"] for v in variants),
+            ms=main_v["ms"], plain_ms=main_v["plain_ms"],
+            bound_ms=main_v["bound_ms"], bound_by=main_v["bound_by"],
+            library_ms=main_v["library_ms"], variants=variants)
+        print(f"{nm}: {'exact' if nm == 'hist_q8' else 'counts exact'}; "
+              f"{variants}")
+    del bins_w, slots, slot_vars, slot, bins_s, rows, abs_rows, args
     torch.cuda.empty_cache()
 
     # B7 leaf_sums on materialized rows, tolerance 1e-6 * sum|x| per leaf

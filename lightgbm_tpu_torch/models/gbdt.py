@@ -138,11 +138,11 @@ class GBDT:
         if self.depthwise:
             tree, leaf_id, passes = grow_tree_depthwise(
                 ts.bins_T, *ghc, ts.num_bins_dev, ts.na_bin_dev, self._fmask,
-                self.gp, qseed=self.iter_, fused=fused)
+                self.gp, qseed=self.iter_, fused=fused, bins=ts.bins)
         else:
             tree, leaf_id, passes = grow_tree(
                 ts.bins_T, *ghc, ts.num_bins_dev, ts.na_bin_dev, self._fmask,
-                self.gp)
+                self.gp, bins=ts.bins)
         self.hist_passes.append(passes)
         if tree.num_leaves <= 1:
             self.iter_ += 1

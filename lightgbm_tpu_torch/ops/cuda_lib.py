@@ -29,7 +29,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("grad_quant_hist0.cu", "hist_routed_fused.cu",
            "leaf_sums_grad.cu", "take_small.cu", "hist_q8.cu",
            "route_level.cu", "leaf_sums.cu", "hist_f32.cu")
-HEADERS = ("lgbt_common.cuh",)
+HEADERS = ("lgbt_common.cuh", "slot_hist.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -38,6 +38,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
+# the slot histograms' entries (csrc/slot_hist.cuh slot_hist_launch)
+_SLOT_HIST = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+              _P, _I, _P, _P]
 # C entry points and their argument types (pointers and the stream as
 # c_void_p, so ctypes never truncates them to 32 bits)
 _SIGNATURES: Dict[str, List] = {
@@ -48,12 +51,10 @@ _SIGNATURES: Dict[str, List] = {
     "lgbt_leaf_sums_grad": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P,
                             _I, _P],
     "lgbt_take_small": [_P, _P, _I, _I, _P, _I, _P],
-    "lgbt_hist_q8": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
-                     _P],
+    "lgbt_hist_q8": _SLOT_HIST,
     "lgbt_route_level": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P],
     "lgbt_leaf_sums": [_P, _P, _P, _P, _I, _I, _P, _I, _P],
-    "lgbt_hist_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
-                      _P],
+    "lgbt_hist_f32": _SLOT_HIST,
 }
 
 _lock = threading.Lock()

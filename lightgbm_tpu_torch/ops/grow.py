@@ -75,14 +75,17 @@ def empty_tree(L: int, device: torch.device) -> TreeArrays:
 
 def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
               c: torch.Tensor, num_bins: torch.Tensor, na_bin: torch.Tensor,
-              feature_mask: torch.Tensor, gp: GrowParams
+              feature_mask: torch.Tensor, gp: GrowParams,
+              bins: Optional[torch.Tensor] = None
               ) -> Tuple[TreeArrays, torch.Tensor, int]:
     """Grow one tree leaf-wise (best-first), unquantized.
 
     bins_T [F, N] u8 on the device; g/h/c [N] f32 grad/hess/in-bag count
     rows (already masked by the bag); num_bins / na_bin [F] i32 (na_bin >=
-    B means no missing bin); feature_mask [F] bool. Returns (TreeArrays,
-    leaf_id [N] i32, number of split passes).
+    B means no missing bin); feature_mask [F] bool; bins the row-major
+    [N, F] copy of bins_T, which the split passes' slot histogram needs on
+    the card. Returns (TreeArrays, leaf_id [N] i32, number of split
+    passes).
 
     Each split step t takes the leaf with the best gain (the first on
     ties, as ``jnp.argmax``), partitions its rows with a vectorized
@@ -154,7 +157,7 @@ def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
         small_is_left = lc <= rc
         small_leaf = torch.where(small_is_left, l, new_leaf)
         slot = (leaf_id != small_leaf).to(torch.int32)   # 1: dropped
-        hist_small = K.hist_f32(bins_T, g, h, c, slot, 1, B)[0]
+        hist_small = K.hist_f32(bins_T, g, h, c, slot, 1, B, bins)[0]
         hist_large = hist[l] - hist_small
         hist_left = torch.where(small_is_left, hist_small, hist_large)
         hist_right = torch.where(small_is_left, hist_large, hist_small)

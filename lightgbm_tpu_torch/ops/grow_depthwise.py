@@ -65,7 +65,8 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
                         num_bins: torch.Tensor, na_bin: torch.Tensor,
                         feature_mask: torch.Tensor, gp: GrowParams, qseed: int,
                         fused: Optional[Tuple[torch.Tensor, torch.Tensor,
-                                              torch.Tensor]] = None
+                                              torch.Tensor]] = None,
+                        bins: Optional[torch.Tensor] = None
                         ) -> Tuple[TreeArrays, torch.Tensor, int]:
     """Grow one tree level-wise.
 
@@ -75,8 +76,9 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
     stochastic-rounding dither (under gp.quant). ``fused``: (score, aux,
     bag) rows for the fused front, valid only with gp.quant and
     gp.fused_obj set; g/h/c are then unused (None) and the gradients are
-    recomputed in the kernels. Returns (TreeArrays, leaf_id [N] i32, number
-    of level passes)."""
+    recomputed in the kernels. ``bins``: the row-major [N, F] copy of
+    bins_T, which the level passes' slot histograms need on the card.
+    Returns (TreeArrays, leaf_id [N] i32, number of level passes)."""
     f, n = bins_T.shape
     dev = bins_T.device
     L, B = gp.num_leaves, gp.max_bin
@@ -184,7 +186,7 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
             slot_left=torch.where(sel & small_is_left, idx_in_lvl, sentinel),
             slot_right=torch.where(sel & ~small_is_left, idx_in_lvl, sentinel))
         hist_pass, leaf_id = H.hist_routed(bins_T, leaf_id, tables, na_bin,
-                                           num_sel, B, quant, rows)
+                                           num_sel, B, quant, rows, bins)
         passes += 1
         parent_hist = hist[si]
         hist_sib = parent_hist - hist_pass

@@ -30,7 +30,10 @@ and then launches the CUDA kernel when its tensors lie on a CUDA device, or
 runs the plain version when they lie on the CPU. A CUDA tensor never falls
 back to the plain version: the kernel launches or the wrapper raises.
 ``LAUNCHES`` counts kernel launches, one per wrapper call on the CUDA path
-and nowhere else.
+and nowhere else. A call can issue several CUDA launches: grad_quant_hist0
+two; hist_q8 and hist_f32 four with a slot vector over S > 1 slots (count,
+scan, scatter, histogram; ``csrc/slot_hist.cuh``), two over one slot
+(scatter, histogram) and one without a slot vector.
 
 The quantized histograms come back as int32 channel sums ([S, nch, F, B],
 nch = 3 for (g, h, count) or 2 for (g, count) under const-hessian elision);
@@ -43,7 +46,8 @@ f32 sums of ``hist_f32``, whose plain version sums in f64 and rounds once
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+import bisect
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -447,37 +451,136 @@ def take_small(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def slot_hist_grid(f: int, n: int, num_slots: int, nch: int, num_bins: int,
-                   num_sms: int) -> Tuple[int, int, int]:
-    """(features per block, slots per block, row chunks) of hist_q8 and
-    hist_f32, whose cells are 4 bytes (int32 or f32): all slots and as many
-    features as fit the shared-memory budget, or one feature and an even
-    share of the slots when even one feature's slots do not fit; enough row
-    chunks that the grid covers the card about twice."""
-    per_cell = nch * num_bins * 4              # one slot of one feature
-    if num_slots * per_cell <= SMEM_BUDGET:
-        ss = num_slots
-        fg = min(f, SMEM_BUDGET // (num_slots * per_cell))
-    else:
-        fg = 1
-        tiles = -(-num_slots // (SMEM_BUDGET // per_cell))
-        ss = -(-num_slots // tiles)
-    n_tiles = -(-f // fg) * -(-num_slots // ss)
-    blocks_per_sm = max(1, min(2, SMEM_BUDGET // (ss * fg * per_cell)))
-    chunks = -(-(2 * num_sms * blocks_per_sm) // n_tiles)
-    chunks = max(1, min(chunks, -(-n // 1024)))
-    return fg, ss, chunks
+class SlotHistPlan(NamedTuple):
+    """Grid and range sizes of hist_q8 and hist_f32 (csrc/slot_hist.cuh)."""
+    fg: int           # features a histogram block (grid.y = ceil(F / fg))
+    blocks: int       # histogram blocks a feature group (grid.x)
+    min_rows: int     # least list entries (or rows) a histogram block takes
+    pass_blocks: int  # blocks of the count and scatter passes
+    smem: int         # bytes of one block's [nch, fg, B] shared table
+
+
+def slot_hist_plan(f: int, n: int, nch: int, num_bins: int,
+                   num_sms: int) -> SlotHistPlan:
+    """Plan of the slot histograms, whose cells are 4 bytes (int32 or f32).
+
+    A block holds one slot's table for as many features as fit the
+    shared-memory budget (all 28 at B = 256; even groups where they do not
+    fit). 2 x SMs x blocks-an-SM blocks cover the card twice; each takes at
+    least 1024 entries, so that its flush (at most nch * fg * B global
+    atomics a slot segment) stays within a quarter of its row atomics
+    (rows * fg * nch) at B = 256 when few rows are kept. The count pass
+    takes 4096 rows a block and step, at most 8 blocks an SM; the scatter
+    pass four times as many blocks of a quarter the size."""
+    per_feature = nch * num_bins * 4
+    groups = -(-f // max(1, SMEM_BUDGET // per_feature))
+    fg = -(-f // groups)
+    smem = fg * per_feature
+    blocks_per_sm = max(1, min(2, SMEM_BUDGET // smem))
+    blocks = -(-(2 * num_sms * blocks_per_sm) // groups)
+    pass_blocks = max(1, min(8 * num_sms, -(-n // 4096)))
+    return SlotHistPlan(fg, blocks, 1024, pass_blocks, smem)
+
+
+def slot_hist_tiles(plan: SlotHistPlan, f: int,
+                    counts: Sequence[int]) -> List[Tuple[int, int, int, int,
+                                                         int]]:
+    """(feature group, block, slot, first entry, end) of every segment that
+    the histogram blocks take from the slot-ordered list of kept rows, as
+    csrc/slot_hist.cuh slot_hist computes them on the card from the per-slot
+    counts (one count, n, for the root pass in natural order)."""
+    off = [0]
+    for k in counts:
+        off.append(off[-1] + int(k))
+    kept = off[-1]
+    per = max(plan.min_rows, -(-kept // plan.blocks))
+    out = []
+    for grp in range(-(-f // plan.fg)):
+        for blk in range(plan.blocks):
+            e = blk * per
+            if e >= kept:
+                break
+            e1 = min(kept, e + per)
+            sl = bisect.bisect_right(off, e) - 1   # off[sl] <= e < off[sl+1]
+            while True:
+                seg = min(e1, off[sl + 1])
+                out.append((grp, blk, sl, e, seg))
+                e = seg
+                if e >= e1:
+                    break
+                sl += 1
+                while off[sl + 1] <= e:
+                    sl += 1
+    return out
+
+
+def slot_compact_plain(slot: torch.Tensor, num_slots: int):
+    """Plain version of the compaction of hist_q8 and hist_f32: (offsets
+    [S + 1] i64, the exclusive prefix sums of the kept rows' per-slot
+    counts, and the kept rows [K] i64 grouped by slot, in row order within
+    a slot, which the kernel does not keep). Rows whose slot lies outside
+    [0, S) are dropped."""
+    sl = slot.to(torch.int64)
+    keep = (sl >= 0) & (sl < num_slots)
+    counts = torch.bincount(sl[keep], minlength=num_slots)
+    off = torch.zeros(num_slots + 1, dtype=torch.int64, device=slot.device)
+    off[1:] = torch.cumsum(counts, 0)
+    rows = keep.nonzero().squeeze(1)
+    order = torch.sort(sl[rows], stable=True).indices
+    return off, rows[order]
+
+
+def _check_bins(name: str, bins_T: torch.Tensor, bins, slot) -> None:
+    """The row-major bins of hist_q8 / hist_f32: [N, F] u8 beside bins_T,
+    and needed on the card with a slot vector (the compaction reads the kept
+    rows' bins from it)."""
+    f, n = bins_T.shape
+    if bins is not None:
+        _device_of(bins_T, bins)
+        _check(bins, "bins", torch.uint8, (n, f))
+    elif slot is not None and bins_T.device.type == "cuda":
+        raise ValueError(f"{name}: a slot vector needs the row-major bins "
+                         "[N, F] on the card")
+
+
+def _slot_hist(name: str, bins_T: torch.Tensor, bins, chans, slot,
+               num_slots: int, num_bins: int, nch: int, cell: torch.dtype,
+               chan_words: int) -> torch.Tensor:
+    """Launch hist_q8 or hist_f32 (the kernel ``name``) on the card: the
+    compaction and the histogram with a slot vector, the histogram alone
+    without one. Counts one launch."""
+    dev = bins_T.device
+    f, n = bins_T.shape
+    plan = slot_hist_plan(f, n, nch, num_bins, _num_sms(dev))
+    hist = torch.zeros((num_slots, nch, f, num_bins), dtype=cell, device=dev)
+    rec_words = (f + 3) // 4 + chan_words      # slot_hist.cuh record_words
+    idx = rec = None
+    if slot is not None:
+        idx = torch.zeros(3 * num_slots + 1, dtype=torch.int32, device=dev)
+        rec = torch.empty(n * rec_words, dtype=torch.int32, device=dev)
+    lib = cuda_lib.load()
+    rc = getattr(lib, f"lgbt_{name}")(
+        bins_T.data_ptr(), _ptr(bins), *(_ptr(t) for t in chans), _ptr(slot),
+        n, f, num_bins, num_slots, nch, plan.fg, plan.blocks, plan.min_rows,
+        plan.pass_blocks, _ptr(idx), _ptr(rec), rec_words, hist.data_ptr(),
+        _stream(dev))
+    cuda_lib.check(rc, name)
+    LAUNCHES[name] += 1
+    return hist
 
 
 def hist_q8(bins_T: torch.Tensor, gq: torch.Tensor, hq: Optional[torch.Tensor],
             cq: torch.Tensor, slot: Optional[torch.Tensor], num_slots: int,
-            num_bins: int) -> torch.Tensor:
+            num_bins: int, bins: Optional[torch.Tensor] = None
+            ) -> torch.Tensor:
     """int8 slot histogram over a precomputed slot vector.
 
     bins_T [F, N] u8; gq/hq/cq [N] i8 (hq None: const-hessian, channels g
     and count); slot [N] i32, or None to put every row in slot 0 (the root
     pass reads no slot vector). Rows whose slot lies outside [0, S) are
-    dropped. Returns int32 [S, nch, F, B]."""
+    dropped. bins [N, F] u8 is the row-major copy of bins_T
+    (basic.Dataset.bins), needed on the card with a slot vector. Returns
+    int32 [S, nch, F, B]."""
     dev = _device_of(bins_T, gq, cq)
     f, n = bins_T.shape
     _check(bins_T, "bins_T", torch.uint8, (f, n))
@@ -494,21 +597,11 @@ def hist_q8(bins_T: torch.Tensor, gq: torch.Tensor, hq: Optional[torch.Tensor],
     if not 1 <= num_bins <= 256:
         raise ValueError(f"hist_q8: num_bins {num_bins} outside [1, 256] "
                          "(uint8 bins)")
+    _check_bins("hist_q8", bins_T, bins, slot)
     if dev.type == "cpu":
         return hist_q8_plain(bins_T, gq, hq, cq, slot, num_slots, num_bins)
-    nch = 2 if hq is None else 3
-    lib = cuda_lib.load()
-    fg, ss, chunks = slot_hist_grid(f, n, num_slots, nch, num_bins,
-                                    _num_sms(dev))
-    hist = torch.zeros((num_slots, nch, f, num_bins), dtype=torch.int32,
-                       device=dev)
-    rc = lib.lgbt_hist_q8(
-        bins_T.data_ptr(), gq.data_ptr(), _ptr(hq), cq.data_ptr(), _ptr(slot),
-        n, f, num_bins, num_slots, nch, fg, ss, chunks, hist.data_ptr(),
-        _stream(dev))
-    cuda_lib.check(rc, "hist_q8")
-    LAUNCHES["hist_q8"] += 1
-    return hist
+    return _slot_hist("hist_q8", bins_T, bins, (gq, hq, cq), slot, num_slots,
+                      num_bins, 2 if hq is None else 3, torch.int32, 1)
 
 
 def route_level(bins_T: torch.Tensor, leaf_id: torch.Tensor,
@@ -565,13 +658,15 @@ def leaf_sums(g: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
 
 def hist_f32(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
              c: torch.Tensor, slot: Optional[torch.Tensor], num_slots: int,
-             num_bins: int) -> torch.Tensor:
+             num_bins: int, bins: Optional[torch.Tensor] = None
+             ) -> torch.Tensor:
     """f32 slot histogram of (grad, hess, count) rows over a slot vector.
 
     bins_T [F, N] u8; g/h/c [N] f32 (already masked by the bag); slot [N]
     i32, or None to put every row in slot 0 (the root pass reads no slot
-    vector). Rows whose slot lies outside [0, S) are dropped. Returns f32
-    [S, 3, F, B], channel-major."""
+    vector). Rows whose slot lies outside [0, S) are dropped. bins [N, F]
+    u8 is the row-major copy of bins_T (basic.Dataset.bins), needed on the
+    card with a slot vector. Returns f32 [S, 3, F, B], channel-major."""
     dev = _device_of(bins_T, g, h, c)
     f, n = bins_T.shape
     _check(bins_T, "bins_T", torch.uint8, (f, n))
@@ -585,17 +680,8 @@ def hist_f32(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
     if not 1 <= num_bins <= 256:
         raise ValueError(f"hist_f32: num_bins {num_bins} outside [1, 256] "
                          "(uint8 bins)")
+    _check_bins("hist_f32", bins_T, bins, slot)
     if dev.type == "cpu":
         return hist_f32_plain(bins_T, g, h, c, slot, num_slots, num_bins)
-    lib = cuda_lib.load()
-    fg, ss, chunks = slot_hist_grid(f, n, num_slots, 3, num_bins,
-                                    _num_sms(dev))
-    hist = torch.zeros((num_slots, 3, f, num_bins), dtype=torch.float32,
-                       device=dev)
-    rc = lib.lgbt_hist_f32(
-        bins_T.data_ptr(), g.data_ptr(), h.data_ptr(), c.data_ptr(),
-        _ptr(slot), n, f, num_bins, num_slots, fg, ss, chunks,
-        hist.data_ptr(), _stream(dev))
-    cuda_lib.check(rc, "hist_f32")
-    LAUNCHES["hist_f32"] += 1
-    return hist
+    return _slot_hist("hist_f32", bins_T, bins, (g, h, c), slot, num_slots,
+                      num_bins, 3, torch.float32, 3)

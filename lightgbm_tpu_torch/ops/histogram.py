@@ -139,7 +139,8 @@ def hist_leaf(bins_T: torch.Tensor, num_bins: int,
 def hist_routed(bins_T: torch.Tensor, leaf_id: torch.Tensor,
                 tables: RouteTables, na_bin: torch.Tensor, num_slots: int,
                 num_bins: int, quant: Optional[QuantChannels] = None,
-                rows: Optional[Rows] = None):
+                rows: Optional[Rows] = None,
+                bins: Optional[torch.Tensor] = None):
     """Route + level histogram of the quantized channels ``quant``, or of
     the f32 ``rows`` (g, h, c) when quant is None. Returns (hist
     [S, 3, F, B] f32, new leaf id [N] i32).
@@ -147,15 +148,18 @@ def hist_routed(bins_T: torch.Tensor, leaf_id: torch.Tensor,
     Quantized channels at F * B <= 2048 take the fused pass (one kernel,
     one read of bins_T); wider data, and f32 rows at every width, route
     first (``route_level``) and then build the slot histogram (``hist_q8``
-    or ``hist_f32``). The reference routes data wider than 512 features
-    through an XLA gather instead, because its route kernel's [F, chunk]
-    block would exhaust VMEM; ``route_level`` reads one bin a row and has
-    no such limit, so every F takes it: the same function."""
+    or ``hist_f32``, which on the card read the kept rows' bins from
+    ``bins``, the row-major [N, F] copy of bins_T). The reference routes
+    data wider than 512 features through an XLA gather instead, because
+    its route kernel's [F, chunk] block would exhaust VMEM;
+    ``route_level`` reads one bin a row and has no such limit, so every F
+    takes it: the same function."""
     f = bins_T.shape[0]
     if quant is None:
         slot, lid2 = K.route_level(bins_T, leaf_id, tables.stacked(), na_bin,
                                    num_slots)
-        return K.hist_f32(bins_T, *rows, slot, num_slots, num_bins), lid2
+        return (K.hist_f32(bins_T, *rows, slot, num_slots, num_bins, bins),
+                lid2)
     if f * num_bins <= ACC_ROWS_MAX:
         acc, lid2 = K.hist_routed_fused(
             bins_T, quant.gq, quant.hq, quant.cq, leaf_id, tables.stacked(),
@@ -164,5 +168,5 @@ def hist_routed(bins_T: torch.Tensor, leaf_id: torch.Tensor,
         slot, lid2 = K.route_level(bins_T, leaf_id, tables.stacked(), na_bin,
                                    num_slots)
         acc = K.hist_q8(bins_T, quant.gq, quant.hq, quant.cq, slot,
-                        num_slots, num_bins)
+                        num_slots, num_bins, bins)
     return dequant(acc, quant.hq is None, quant.scale_g, quant.scale_h), lid2

@@ -31,15 +31,18 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# kernel group -> the exact names of its CUDA kernel functions
+# kernel group -> the exact names of its CUDA kernel functions (the slot
+# histograms' compaction passes count as their kernel's time)
 GROUPS = (("grad_quant_hist0", ("max_kernel", "quant_hist_kernel")),
           ("hist_routed_fused", ("routed_hist_kernel",)),
           ("leaf_sums_grad", ("leaf_sums_kernel",)),
           ("take_small", ("take_kernel",)),
-          ("hist_q8", ("hist_q8_kernel",)),
+          ("hist_q8", ("hist_q8_count_kernel", "hist_q8_scan_kernel",
+                       "hist_q8_scatter_kernel", "hist_q8_kernel")),
           ("route_level", ("route_level_kernel",)),
           ("leaf_sums", ("leaf_sums_rows_kernel",)),
-          ("hist_f32", ("hist_f32_kernel",)))
+          ("hist_f32", ("hist_f32_count_kernel", "hist_f32_scan_kernel",
+                        "hist_f32_scatter_kernel", "hist_f32_kernel")))
 
 
 def synth_higgs(n_rows: int, n_feat: int = 28, seed: int = 0):

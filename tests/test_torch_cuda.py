@@ -22,7 +22,11 @@ compared). The f32 histogram (hist_f32): counts exact, g and h within
 version's f64 sums), exact on gradients on a 1/8 grid (every partial sum
 is representable); the unquantized depthwise and the leaf-wise growers'
 first tree on such exact-sum data equals the CPU-trained tree bit for
-bit, leaf values included.
+bit, leaf values included. The two slot histograms group the kept rows by
+slot before they sum them; their edge cases (empty slots, one slot,
+dropped slots, ragged N, S = 255 and 7000, B from 2 to 256, two feature
+groups, a pass keeping 10 rows) hold hist_q8 exactly and hist_f32 within
+the same tolerance.
 """
 import numpy as np
 import pytest
@@ -138,7 +142,8 @@ def test_hist_q8_kernel_equals_plain(dev, s, nch):
     hq = hq if nch == 3 else None
     for sl in ((None, slot) if s == 1 else (slot,)):
         args = (bins_T, gq, hq, cq, sl, s, 256)
-        assert torch.equal(hk.hist_q8(*args), hk.hist_q8_plain(*args))
+        assert torch.equal(hk.hist_q8(*args, bins=bins_T.t().contiguous()),
+                           hk.hist_q8_plain(*args))
 
 
 @pytest.mark.cuda
@@ -247,7 +252,8 @@ def test_hist_f32_kernel_within_plain(dev, b, s):
     n, f = 10_500_000, 28
     bins_T, g, h, c, slot = _f32_rows(dev, n, f, b, s, grid=False)
     for sl in ((None, slot) if s == 1 else (slot,)):
-        got = hk.hist_f32(bins_T, g, h, c, sl, s, b)
+        got = hk.hist_f32(bins_T, g, h, c, sl, s, b,
+                          bins=bins_T.t().contiguous())
         ref = hk.hist_f32_plain(bins_T, g, h, c, sl, s, b)
         mass = hk.hist_f32_plain(bins_T, g.abs(), h, c, sl, s, b).double()
         assert got.shape == (s, 3, f, b) and got.dtype == torch.float32
@@ -263,7 +269,8 @@ def test_hist_f32_kernel_exact_on_grid(dev, b, s):
     # exact: 1/8-grid rows make every partial sum representable in f32
     bins_T, g, h, c, slot = _f32_rows(dev, 1_000_000, 28, b, s, grid=True)
     args = (bins_T, g, h, c, slot, s, b)
-    assert torch.equal(hk.hist_f32(*args), hk.hist_f32_plain(*args))
+    assert torch.equal(hk.hist_f32(*args, bins=bins_T.t().contiguous()),
+                       hk.hist_f32_plain(*args))
 
 
 @pytest.mark.cuda
@@ -275,11 +282,100 @@ def test_hist_f32_cuda_tensor_never_falls_back(dev, monkeypatch):
     monkeypatch.setattr(hk, "hist_f32_plain", boom)
     bins_T, g, h, c, slot = _f32_rows(dev, 5000, 7, 16, 3, grid=False)
     hk.reset_launches()
-    hk.hist_f32(bins_T, g, h, c, slot, 3, 16)
+    bins = bins_T.t().contiguous()
+    hk.hist_f32(bins_T, g, h, c, slot, 3, 16, bins)
     hk.hist_f32(bins_T, g, h, c, None, 1, 16)
     assert hk.LAUNCHES["hist_f32"] == 2
     with pytest.raises(ValueError):
-        hk.hist_f32(bins_T, g, h, c, slot, 3, 300)
+        hk.hist_f32(bins_T, g, h, c, slot, 3, 300, bins)
+    with pytest.raises(ValueError):      # the compaction needs bins
+        hk.hist_f32(bins_T, g, h, c, slot, 3, 16)
+
+
+@pytest.mark.cuda
+def test_hist_q8_cuda_tensor_never_falls_back(dev, monkeypatch):
+    # B5's twin of the test above: one count a call, never the plain version
+    def boom(*a, **k):
+        raise AssertionError("plain version called on a CUDA tensor")
+    monkeypatch.setattr(hk, "hist_q8_plain", boom)
+    bins_T, gq, hq, cq, slot = _wide(dev, 3)
+    hk.reset_launches()
+    bins = bins_T.t().contiguous()
+    hk.hist_q8(bins_T, gq, hq, cq, slot, 3, 256, bins)
+    hk.hist_q8(bins_T, gq, None, cq, None, 1, 256)
+    assert hk.LAUNCHES["hist_q8"] == 2
+    with pytest.raises(ValueError):
+        hk.hist_q8(bins_T, gq, hq, cq, slot, 3, 300, bins)
+    with pytest.raises(ValueError):      # the compaction needs bins
+        hk.hist_q8(bins_T, gq, hq, cq, slot, 3, 256)
+
+
+def _edge_slots(dev, case, n, s):
+    gen = torch.Generator(device=dev).manual_seed(n + s)
+
+    def draw(lo, hi):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dev,
+                             dtype=torch.int64)
+    if case == "empty_slots":          # only slots 1 and 5 of 8 hold rows
+        slot = torch.where(draw(0, 2) == 0, 1, 5)
+    elif case == "one_slot":
+        slot = torch.full((n,), s - 1, device=dev, dtype=torch.int64)
+    elif case == "dropped":            # mostly -3..-1 and S..S+5
+        slot = torch.where(draw(0, 10) == 0, draw(0, s), draw(-3, 0))
+        slot = torch.where(draw(0, 2) == 0, slot, draw(s, s + 6))
+    elif case == "lossguide10":        # slot 0 keeps 10 rows, 1 drops
+        slot = torch.ones(n, device=dev, dtype=torch.int64)
+        slot[torch.randperm(n, generator=gen, device=dev)[:10]] = 0
+    else:                              # uniform over [-1, S + 3)
+        slot = draw(-1, s + 3)
+    return slot.to(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,n,f,s,b", [
+    ("empty_slots", 20_000, 9, 8, 256), ("one_slot", 20_000, 9, 5, 256),
+    ("dropped", 20_000, 9, 4, 64), ("ragged", 1024 * 37 + 13, 9, 6, 64),
+    ("s255", 200_000, 28, 255, 256), ("b2", 20_000, 9, 7, 2),
+    ("b64", 20_000, 9, 7, 64), ("b255", 20_000, 9, 7, 255),
+    ("b256", 20_000, 9, 7, 256), ("groups", 50_000, 100, 5, 256),
+    ("s7000", 50_000, 9, 7000, 64), ("lossguide10", 1_000_000, 28, 1, 256)])
+def test_slot_hists_equal_plain_on_edge_cases(dev, case, n, f, s, b):
+    # hist_q8 exact at 3 and 2 channels; hist_f32 counts exact, g and h
+    # within 2^-15 of the cell's absolute mass; on empty slots, one slot,
+    # slots -1 and >= S, N not a multiple of any range, S = 255, B in
+    # {2, 64, 255, 256}, two feature groups (F = 100), more slots than the
+    # compaction counts in shared memory (S = 7000) and a lossguide-like
+    # pass keeping 10 rows; the root pass (no slot vector) on the first
+    gen = torch.Generator(device=dev).manual_seed(b + f)
+    bins_T = torch.randint(0, b, (f, n), generator=gen, device=dev,
+                           dtype=torch.int64).to(torch.uint8)
+    bins = bins_T.t().contiguous()
+    gq = torch.randint(-127, 128, (n,), generator=gen, device=dev,
+                       dtype=torch.int64).to(torch.int8)
+    hq = torch.randint(0, 128, (n,), generator=gen, device=dev,
+                       dtype=torch.int64).to(torch.int8)
+    cq = (torch.rand(n, generator=gen, device=dev) < 0.9).to(torch.int8)
+    slot = _edge_slots(dev, case, n, s)
+    c = cq.float()
+    g = torch.randn(n, generator=gen, device=dev) * c
+    h = torch.rand(n, generator=gen, device=dev) * c
+    for sl in ((slot, None) if case == "empty_slots" else (slot,)):
+        sv = s if sl is not None else 1
+        for hq_ in (hq, None):
+            args = (bins_T, gq, hq_, cq, sl, sv, b)
+            assert torch.equal(hk.hist_q8(*args, bins=bins),
+                               hk.hist_q8_plain(*args))
+        args = (bins_T, g, h, c, sl, sv, b)
+        got, ref = hk.hist_f32(*args, bins=bins), hk.hist_f32_plain(*args)
+        mass = hk.hist_f32_plain(bins_T, g.abs(), h.abs(), c, sl, sv,
+                                 b).double()
+        assert got.shape == (sv, 3, f, b)
+        assert torch.equal(got[:, 2], ref[:, 2])
+        err = (got.double() - ref.double()).abs()[:, :2]
+        assert bool((err <= 2.0 ** -15 * mass[:, :2]).all()), \
+            float(err.max())
+        if case == "lossguide10":
+            assert int(got[0, 2].sum()) == int(c[slot == 0].sum()) * f
 
 
 @pytest.mark.cuda

@@ -23,7 +23,10 @@ Tolerances (each stated where it is asserted):
   passes: exact on gradients and hessians on a 1/8 grid (the hi/lo split
   keeps them whole and every partial sum is representable), else the hi/lo
   error against the port's f64 sums: |diff| <= 2^-15 * the cell's sum|x|,
-  counts exact.
+  counts exact;
+- the plan of the slot histograms (hist_q8, hist_f32) and their plain
+  compaction: every kept row in exactly one segment of its own slot per
+  feature group, each block's table within the shared-memory budget.
 
 The card-side twins of these checks are in tests/test_torch_cuda.py.
 """
@@ -527,3 +530,117 @@ def test_cpu_wrappers_count_no_launches(rows, wide):
     hk.hist_f32(bins_T, _t(wide["g"]), _t(wide["h"]), _t(wide["c"]),
                 _t(wide["slot"]), SW, BW)
     assert hk.LAUNCHES == {k: 0 for k in hk.KERNELS}
+
+
+# ---- the plan of the slot histograms (hist_q8, hist_f32) ----
+# The CUDA kernels (csrc/slot_hist.cuh) group the kept rows by slot and cut
+# the slot-ordered list into ranges, one per block; the card tests hold
+# their sums against the plain versions. Here, without a card: every kept
+# row falls in exactly one segment per feature group, in its own slot's
+# segment; each block's shared table fits the budget; a slot holding most
+# rows spreads over many blocks; and the plain compaction keeps each kept
+# row once, grouped by slot, dropping slots < 0 and >= S.
+
+PLAN_SMS = 132       # an H100's streaming multiprocessors
+PLAN_N = 40_000
+
+
+def _plan_slots(s, kind, seed):
+    """[PLAN_N] i32 slots: uniform over [-1, S + 2) (dropped rows both
+    sides), skewed (about half the kept rows in slot 0 when S > 1), or
+    sparse (most slots empty, a fifth of the rows kept)."""
+    rng = np.random.default_rng(seed)
+    slot = rng.integers(-1, s + 2, size=PLAN_N)
+    if kind == "skewed":
+        slot[rng.random(PLAN_N) < 0.4] = 0
+    elif kind == "sparse":
+        used = rng.choice(s, size=min(s, 3), replace=False)
+        slot = np.where(rng.random(PLAN_N) < 0.2,
+                        rng.choice(used, size=PLAN_N), s)
+    return torch.from_numpy(slot.astype(np.int32))
+
+
+def _check_tiles(plan, f, slot, s):
+    off, rows = hk.slot_compact_plain(slot, s)
+    counts = (off[1:] - off[:-1]).tolist()
+    tiles = hk.slot_hist_tiles(plan, f, counts)
+    kept = int(off[-1])
+    per = max(plan.min_rows, -(-kept // plan.blocks))
+    groups = -(-f // plan.fg)
+    sl_of = slot.numpy()[rows.numpy()]
+    for grp in range(groups):
+        segs = [t for t in tiles if t[0] == grp]
+        hits = np.zeros(kept, np.int64)
+        for _, blk, sl, a, e in segs:
+            assert 0 <= blk < plan.blocks and blk * per <= a < e
+            assert e <= min(kept, (blk + 1) * per)
+            assert off[sl] <= a and e <= off[sl + 1]
+            assert (sl_of[a:e] == sl).all()
+            hits[a:e] += 1
+        assert (hits == 1).all()
+    assert {t[0] for t in tiles} == (set(range(groups)) if kept else set())
+    return tiles, counts
+
+
+@pytest.mark.parametrize("s", [1, 2, 127, 255])
+@pytest.mark.parametrize("nch", [2, 3])
+@pytest.mark.parametrize("b", [2, 64, 256])
+@pytest.mark.parametrize("f", [1, 28, 100])
+def test_plan_covers_every_kept_row_once(f, b, nch, s):
+    plan = hk.slot_hist_plan(f, PLAN_N, nch, b, PLAN_SMS)
+    assert plan.smem == nch * plan.fg * b * 4 <= hk.SMEM_BUDGET
+    assert 1 <= plan.fg <= f and -(-f // plan.fg) * plan.fg - f < plan.fg
+    assert plan.pass_blocks <= 8 * PLAN_SMS
+    for i, kind in enumerate(("uniform", "skewed", "sparse")):
+        tiles, counts = _check_tiles(plan, f, _plan_slots(s, kind, 7 * s + i),
+                                     s)
+        if kind == "skewed" and s > 1:
+            # the big slot spreads over as many blocks as its share allows
+            big = {t[1] for t in tiles if t[0] == 0 and t[2] == 0}
+            per = max(plan.min_rows, -(-sum(counts) // plan.blocks))
+            assert len(big) >= counts[0] // per
+    # the root pass: every row, in natural order, slot 0
+    root = hk.slot_hist_tiles(plan, f, [PLAN_N])
+    assert {t[2] for t in root} == {0}
+    assert sum(t[4] - t[3] for t in root) == PLAN_N * -(-f // plan.fg)
+
+
+def test_plan_at_the_main_path_shapes():
+    # F = 28, B = 256 (max_bin=255): one slot's whole table a block, two
+    # blocks an SM, 528 blocks; F = 100 splits into two even feature groups
+    # of 150 KB tables, one block an SM, 132 blocks a group
+    for nch, smem in ((3, 86_016), (2, 57_344)):
+        plan = hk.slot_hist_plan(28, 10_500_000, nch, 256, PLAN_SMS)
+        assert (plan.fg, plan.blocks, plan.min_rows, plan.smem) == \
+            (28, 528, 1024, smem)
+    plan = hk.slot_hist_plan(100, 10_500_000, 3, 256, PLAN_SMS)
+    assert (plan.fg, plan.blocks) == (50, 132)
+    # a lossguide pass keeping 0.5% of 10.5M rows takes 52 blocks
+    tiles = hk.slot_hist_tiles(hk.slot_hist_plan(28, 10_500_000, 3, 256,
+                                                 PLAN_SMS), 28, [52_500])
+    assert len({t[1] for t in tiles}) == 52
+
+
+def test_plan_with_no_kept_rows():
+    plan = hk.slot_hist_plan(28, PLAN_N, 3, 256, PLAN_SMS)
+    assert hk.slot_hist_tiles(plan, 28, [0] * 5) == []
+    slot = torch.full((PLAN_N,), 7, dtype=torch.int32)
+    off, rows = hk.slot_compact_plain(slot, 5)
+    assert off.tolist() == [0] * 6 and rows.numel() == 0
+
+
+@pytest.mark.parametrize("s", [1, 5, 255])
+def test_compaction_plain(s):
+    # offsets are the per-slot counts' prefix sums; each kept row appears
+    # once, grouped by slot; slots < 0 and >= S are dropped
+    slot = _plan_slots(s, "uniform", s)
+    off, rows = hk.slot_compact_plain(slot, s)
+    sl = slot.numpy().astype(np.int64)
+    keep = (sl >= 0) & (sl < s)
+    np.testing.assert_array_equal(np.diff(off.numpy()),
+                                  np.bincount(sl[keep], minlength=s))
+    assert off[0] == 0 and off[-1] == keep.sum() == rows.numel()
+    np.testing.assert_array_equal(np.sort(rows.numpy()),
+                                  np.nonzero(keep)[0])
+    for k in range(s):
+        assert (sl[rows[off[k]:off[k + 1]].numpy()] == k).all()
