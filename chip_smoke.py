@@ -15,21 +15,26 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    shapes and is held against its plain PyTorch version on the same
    inputs: integer outputs and histograms exactly, leaf sums within 1e-6
    of the row mass. The fused path's kernels at N = 10.5M rows, F = 28,
-   B = 64, L = 255 (the level pass at S = 32 and 127 slots with 2 and 3
-   channels); the unfused path's at B = 256: route_level at S = 32 and
-   127, leaf_sums at L = 255, and the two slot histograms, hist_q8 (2 and
-   3 channels) and hist_f32 (f32 rows; counts exactly, g and h within
-   2^-15 of the cell's absolute mass), at S = 1 (no slot vector), at S =
-   32 and 127 fed the slots route_level gives (NA bins, leaves that do not
-   split, about half the rows in dropped slots), on a skewed level (S =
-   127, about half the kept rows in one slot) and on two lossguide-shaped
-   passes (S = 1, about 5% and 0.5% of the rows kept), hist_f32 also at
-   B = 64 and S = 127. Each kernel is timed (median of CUDA-event
-   timings), beside its plain version, the least time the card could take
-   (bytes over memory rate or operations over peak rate, counting only
-   what the data needs) and one PyTorch call computing the same function
-   where one exists (for the slot histograms an index_add_ over flat cell
-   indices, int32 for hist_q8, checked against the plain version);
+   B = 64, L = 255 (the level pass, given the row-major bins, at a first
+   level, S = 1, at S = 32 and 127 slots and on a skewed S = 127 level,
+   with 2 and 3 channels); the unfused path's at B = 256: route_level at
+   S = 32 and 127, leaf_sums at L = 255, and the two slot histograms,
+   hist_q8 (2 and 3 channels) and hist_f32 (f32 rows; counts exactly, g
+   and h within 2^-15 of the cell's absolute mass), at S = 1 (no slot
+   vector), at S = 32 and 127 fed the slots route_level gives (NA bins,
+   leaves that do not split, about half the rows in dropped slots), on a
+   skewed level (S = 127, about half the kept rows in one slot) and on
+   two lossguide-shaped passes (S = 1, about 5% and 0.5% of the rows
+   kept), hist_f32 also at B = 64 and S = 127. Each kernel is timed
+   (median of CUDA-event timings), beside its plain version, the least
+   time the card could take (bytes over memory rate or operations over
+   peak rate, counting only what the data needs) and one PyTorch call
+   computing the same function where one exists (for the slot histograms
+   an index_add_ over flat cell indices, int32 for hist_q8, checked
+   against the plain version; index_select for take_small); take_small,
+   its index_select and the level pass at S = 127 also by the device time
+   of their kernels alone (torch.profiler), without the host time that
+   event timings include;
 4. main paths: a HIGGS-shaped 10.5M x 28 table (bench.py's generator,
    copied) through lightgbm_tpu_torch.Dataset and train(), one constructed
    Dataset a bin count: a binary model (num_leaves=255, learning_rate=0.1,
@@ -49,7 +54,7 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    split and one take_small per tree, and zero for every other kernel. On
    each path: train AUC on 1M rows > 0.7, the L2 model's squared error
    below the label variance, the saved model text loads back and predicts
-   identically;
+   identically; the peak device memory of its training is printed;
 5. agreement, at max_bin=63 and at 255 (the 4000-row table has more than
    128 bins a feature, so the unfused path, which is asserted): the first
    tree of a 4000-row L2 model trained on the card has the structure of
@@ -173,6 +178,28 @@ def main() -> int:
             times.append(a.elapsed_time(b))
         return statistics.median(times)
 
+    def device_ms(fn, reps=10):
+        """Device ms a call (torch.profiler over reps calls): the time of
+        the call's CUDA kernels alone, without the host time before and
+        between launches that CUDA-event timings include."""
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = 0.0
+        for ev in prof.key_averages():
+            t = getattr(ev, "device_time_total", None)
+            if t is None:
+                t = getattr(ev, "cuda_time_total", 0.0)
+            if ev.device_type.name == "CUDA":
+                us += t
+        if us <= 0:
+            fail("device_ms: the profiler saw no device time")
+        return us / reps / 1e3
+
     def bound(nbytes, nops):
         t_b, t_o = nbytes / bw * 1e3, nops / flops * 1e3
         return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
@@ -229,16 +256,31 @@ def main() -> int:
         library_ms=None, variants=variants)
     print(f"grad_quant_hist0: exact; {variants}")
 
-    # B2 hist_routed_fused at S in {32, 127}, nch in {2, 3}
+    # B2 hist_routed_fused, given the row-major bins as the growers give
+    # it, on four levels: a first level (every row in leaf 0, S = 1), S = 32
+    # and 127 (leaf ids over [0, 2S), leaves < S split, one child of each
+    # kept: about a quarter of the rows), and S = 127 skewed (half the rows
+    # moved into leaf 0, whose left child is kept); nch in {3, 2}. Bounds
+    # count what the data needs: leaf ids in and out, the split bin of each
+    # routed row, the kept rows' bins and channels, the histogram, tables
     na_bin = torch.full((F,), 256, dtype=torch.int32, device=dev)
     na_bin[:10] = 62
+    rowmajor = bins_T.t().contiguous()      # the Dataset's bins [N, F]
     variants = []
-    for s in (32, 127):
+    for name_, s, skew in (("S1", 1, False), ("S32", 32, False),
+                           ("S127", 127, False), ("skew127", 127, True)):
         lid = torch.randint(0, min(L, 2 * s), (N,), generator=g, device=dev,
-                            dtype=torch.int64).to(torch.int32)
+                            dtype=torch.int64)
+        if s == 1:
+            lid = torch.zeros_like(lid)
+        if skew:
+            lid = torch.where(torch.rand(N, generator=g, device=dev) < 0.5,
+                              0, lid)
+        lid = lid.to(torch.int32)
         k_ = torch.arange(L, device=dev)
         split = k_ < s
-        small_left = torch.rand(L, generator=g, device=dev) < 0.5
+        small_left = (torch.rand(L, generator=g, device=dev) < 0.5) \
+            | (k_ == 0)
         tab = torch.stack([
             torch.where(split, torch.randint(0, F, (L,), generator=g,
                                              device=dev), -1),
@@ -249,31 +291,40 @@ def main() -> int:
             torch.where(split & ~small_left, k_, s)]).to(torch.int32) \
             .contiguous()
         routed = int((lid < s).sum())
+        kept = int(hk.route_plain(bins_T, lid, tab, na_bin, s)[0].lt(s)
+                   .sum())
         for nch, (gq, hq, cq) in ((3, quant3[:3]), (2, (quant2[0], None,
                                                         quant2[2]))):
             args = (bins_T, gq, hq, cq, lid, tab, na_bin, s, B)
-            kh, kl = hk.hist_routed_fused(*args)
+            tag = f"hist_routed_fused[{name_},nch={nch}]"
+            kh, kl = hk.hist_routed_fused(*args, bins=rowmajor)
             ph, pl_ = hk.hist_routed_fused_plain(*args)
-            err = max(exact(f"hist_routed_fused[S={s},nch={nch}].hist", kh,
-                            ph),
-                      exact(f"hist_routed_fused[S={s},nch={nch}].lid2", kl,
-                            pl_))
-            ms = time_ms(lambda: hk.hist_routed_fused(*args))
+            err = max(exact(f"{tag}.hist", kh, ph),
+                      exact(f"{tag}.lid2", kl, pl_))
+            del kh, kl, ph, pl_
+            ms = time_ms(lambda: hk.hist_routed_fused(*args, bins=rowmajor))
             plain_ms = time_ms(lambda: hk.hist_routed_fused_plain(*args),
                                reps=3)
-            bms, by = bound(N * (F + nch + 8) + s * nch * F * B * 4
-                            + 6 * L * 4, routed * F * nch + N * 10)
-            variants.append(dict(S=s, nch=nch, max_abs_err=err, ms=ms,
-                                 plain_ms=plain_ms, bound_ms=bms, bound_by=by))
-    main_v = next(v for v in variants if v["S"] == 127 and v["nch"] == 3)
+            bms, by = bound(8 * N + routed + kept * (F + nch)
+                            + s * nch * F * B * 4 + 6 * L * 4 + F * 4,
+                            kept * F * nch + N * 10)
+            variants.append(dict(variant=name_, S=s, nch=nch, kept=kept,
+                                 max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bms, bound_by=by))
+            if name_ == "S127" and nch == 3:
+                b2_device_ms = device_ms(
+                    lambda: hk.hist_routed_fused(*args, bins=rowmajor))
+    main_v = next(v for v in variants if v["variant"] == "S127"
+                  and v["nch"] == 3)
     kernels["hist_routed_fused"] = dict(
         route="cuda", source="lightgbm_tpu_torch/csrc/hist_routed_fused.cu",
         replaces="lightgbm_tpu/ops/pallas_hist.py:676",
         max_abs_err=max(v["max_abs_err"] for v in variants),
-        ms=main_v["ms"], plain_ms=main_v["plain_ms"],
+        ms=main_v["ms"], device_ms=b2_device_ms, plain_ms=main_v["plain_ms"],
         bound_ms=main_v["bound_ms"], bound_by=main_v["bound_by"],
         library_ms=None, variants=variants)
     print(f"hist_routed_fused: exact; {variants}")
+    del rowmajor, lid, tab
 
     # B3 leaf_sums_grad, tolerance 1e-6 * sum|x| per leaf (both sum the
     # same f32 rows in f64; only the atomic order differs)
@@ -315,10 +366,13 @@ def main() -> int:
         route="cuda", source="lightgbm_tpu_torch/csrc/take_small.cu",
         replaces="lightgbm_tpu/ops/pallas_hist.py:1213", max_abs_err=err,
         ms=time_ms(lambda: hk.take_small(table, idx)),
+        device_ms=device_ms(lambda: hk.take_small(table, idx)),
         plain_ms=time_ms(lambda: hk.take_small_plain(table, idx)),
         bound_ms=bms, bound_by=by,
-        library_ms=time_ms(lambda: padded.index_select(0, idx_in)))
-    print("take_small: exact")
+        library_ms=time_ms(lambda: padded.index_select(0, idx_in)),
+        library_device_ms=device_ms(lambda: padded.index_select(0,
+                                                                idx_in)))
+    print(f"take_small: exact; {kernels['take_small']}")
     del bins_T, idx, idx_in
     torch.cuda.empty_cache()
 
@@ -572,6 +626,7 @@ def main() -> int:
         tag = f"[{path}, max_bin={max_bin}]"
 
         hk.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         bst = lt.train(params, ds, num_boost_round=iters)
         torch.cuda.synchronize()
@@ -581,6 +636,7 @@ def main() -> int:
         torch.cuda.synchronize()
         reg_s = time.perf_counter() - t0
         launches = dict(hk.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
         passes = bst._gbdt.hist_passes + reg._gbdt.hist_passes
         trees, n_pass = len(passes), sum(passes)
         added = bst.num_trees() + reg.num_trees()
@@ -596,6 +652,9 @@ def main() -> int:
             syncs = [p + (p < L - 1) for p in passes]
             print(f"{tag} host syncs a tree (split steps): {syncs}")
         print(f"{tag} launches {launches} expected {expected}")
+        print(f"{tag} peak device memory in training: {peak} bytes "
+              f"({peak / 2 ** 30:.3f} GiB; torch.cuda.max_memory_allocated, "
+              "both Datasets of the bin count resident)")
         if launches != expected or min(launches[k] for k in own) <= 0:
             fail(f"{path}: launch counts {launches} != expected {expected}")
         for k, v in launches.items():

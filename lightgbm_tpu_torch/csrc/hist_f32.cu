@@ -34,7 +34,8 @@ using lgbt::kSlotThreads;
 __global__ void __launch_bounds__(kSlotThreads)
 hist_f32_count_kernel(const int* __restrict__ slot, int n, int s,
                       int* __restrict__ counts) {
-  lgbt::slot_count(slot, n, s, counts);
+  extern __shared__ int sh[];   // [S] counts
+  lgbt::slot_count(lgbt::SlotVector{slot}, n, s, counts, sh);
 }
 
 __global__ void __launch_bounds__(kSlotThreads)
@@ -73,7 +74,8 @@ hist_f32_kernel(const uint8_t* __restrict__ bins_T,
 // of bins_T, is read with a slot vector only. nch must be 3. hist
 // [S, 3, F, B] f32 and idx [3S + 1] i32 zero on entry; rec [n, rec_words]
 // u32 scratch (unused without a slot vector). Grid and range sizes from
-// ops/hist_kernels.py slot_hist_plan. Returns the first launch error.
+// ops/hist_kernels.py slot_hist_plan. Returns the first launch error, or
+// cudaErrorInvalidValue for arguments it refuses.
 extern "C" int lgbt_hist_f32(const uint8_t* bins_T, const uint8_t* bins,
                              const float* g, const float* h, const float* c,
                              const int* slot, int n, int f, int b, int s,
@@ -82,6 +84,10 @@ extern "C" int lgbt_hist_f32(const uint8_t* bins_T, const uint8_t* bins,
                              int* idx, uint32_t* rec, int rec_words,
                              float* hist, cudaStream_t stream) {
   if (nch != 3) return static_cast<int>(cudaErrorInvalidValue);
+  const int rc = lgbt::slot_hist_check<float>(
+      slot != nullptr, bins, n, f, b, nch, fg, blocks, min_rows, pass_blocks,
+      rec_words);
+  if (rc != cudaSuccess) return rc;
   const lgbt::SlotHistKernels<float> k{
       hist_f32_count_kernel, hist_f32_scan_kernel, hist_f32_scatter_kernel,
       hist_f32_kernel};

@@ -27,7 +27,8 @@ using lgbt::kSlotThreads;
 __global__ void __launch_bounds__(kSlotThreads)
 hist_q8_count_kernel(const int* __restrict__ slot, int n, int s,
                      int* __restrict__ counts) {
-  lgbt::slot_count(slot, n, s, counts);
+  extern __shared__ int sh[];   // [S] counts
+  lgbt::slot_count(lgbt::SlotVector{slot}, n, s, counts, sh);
 }
 
 __global__ void __launch_bounds__(kSlotThreads)
@@ -64,7 +65,8 @@ hist_q8_kernel(const uint8_t* __restrict__ bins_T,
 // of bins_T, is read with a slot vector only; hq is null when nch == 2. hist
 // [S, nch, F, B] i32 and idx [3S + 1] i32 zero on entry; rec [n, rec_words]
 // u32 scratch (unused without a slot vector). Grid and range sizes from
-// ops/hist_kernels.py slot_hist_plan. Returns the first launch error.
+// ops/hist_kernels.py slot_hist_plan. Returns the first launch error, or
+// cudaErrorInvalidValue for arguments it refuses.
 extern "C" int lgbt_hist_q8(const uint8_t* bins_T, const uint8_t* bins,
                             const int8_t* gq, const int8_t* hq,
                             const int8_t* cq, const int* slot, int n,
@@ -73,6 +75,10 @@ extern "C" int lgbt_hist_q8(const uint8_t* bins_T, const uint8_t* bins,
                             uint32_t* rec, int rec_words, int* hist,
                             cudaStream_t stream) {
   if (nch != 2 && nch != 3) return static_cast<int>(cudaErrorInvalidValue);
+  const int rc = lgbt::slot_hist_check<int8_t>(
+      slot != nullptr, bins, n, f, b, nch, fg, blocks, min_rows, pass_blocks,
+      rec_words);
+  if (rc != cudaSuccess) return rc;
   const lgbt::SlotHistKernels<int8_t> k{
       hist_q8_count_kernel, hist_q8_scan_kernel, hist_q8_scatter_kernel,
       hist_q8_kernel};

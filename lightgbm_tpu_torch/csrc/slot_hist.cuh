@@ -1,10 +1,11 @@
-// The slot histogram shared by B8 hist_f32.cu (f32 rows, float cells) and B5
-// hist_q8.cu (int8 rows, int cells): sums of row channels by (slot, feature,
-// bin) into the channel-major [S, nch, F, B] table (zero on entry). Rows
-// whose slot lies outside [0, S), negative ones included, are dropped; a null
-// slot vector puts every row in slot 0. Each source wraps these device
-// functions in __global__ kernels of its own names, so that a profile
-// attributes every launch to its kernel.
+// The slot histogram shared by B8 hist_f32.cu (f32 rows, float cells), B5
+// hist_q8.cu (int8 rows, int cells) and B2 hist_routed_fused.cu (int8 rows
+// whose slots its own routing gives): sums of row channels by (slot,
+// feature, bin) into the channel-major [S, nch, F, B] table (zero on
+// entry). Rows whose slot lies outside [0, S), negative ones included, are
+// dropped; a null slot vector puts every row in slot 0. Each source wraps
+// these device functions in __global__ kernels of its own names, so that a
+// profile attributes every launch to its kernel.
 //
 // Design: group the kept rows by slot, then histogram each group with its
 // slot's whole [nch, F, B] table in one block's shared memory, so that each
@@ -16,7 +17,9 @@
 // 1. Compaction, with a slot vector; three launches:
 //    count    per-slot counts of kept rows, block-local in shared memory
 //             (warp-aggregated with __match_any_sync), then one global atomic
-//             per slot and block;
+//             per slot and block; the slots come from a source (SlotVector
+//             reads them; B2's routing computes them, writing the slot
+//             vector as it goes, in the same launch);
 //    scan     one block: exclusive scan of the S counts into offsets [S + 1]
 //             and per-slot cursors;
 //    scatter  each kept row takes the next place in its slot's range (one
@@ -51,9 +54,14 @@
 //    changes, zeroes the table and goes on. A slot that holds most rows
 //    spreads over as many blocks as its share of the list. At F = 28,
 //    B = 256 the table is 86,016 B (nch 3) or 57,344 B (nch 2): two
-//    1024-thread blocks an SM. Where one slot's table exceeds the budget
-//    (F > 66 at B = 256 and nch 3) the features are cut into groups and each
-//    row is read once a group.
+//    1024-thread blocks an SM. At B = 64 (21,504 B, nch 3) eight tables
+//    would fit an SM, but on an H100 two blocks of 1024 threads beat four of
+//    512 by 7-16% and eight of 256 by 19-35% (B2's histogram pass, S = 1 to
+//    127, kSlotThreads and the plan's blocks an SM varied together; one
+//    block of 1024 came within 4% of two), so every histogram block has
+//    kSlotThreads threads and the plan keeps two an SM. Where one slot's
+//    table exceeds the budget (F > 66 at B = 256 and nch 3) the features
+//    are cut into groups and each row is read once a group.
 //    Range size (ops/hist_kernels.py slot_hist_plan): 2 x SMs x blocks an SM
 //    blocks (528 on an H100 at two blocks an SM), each taking at least
 //    1024 entries. The flushes cost at most nch F B global atomics per
@@ -159,28 +167,50 @@ __device__ __forceinline__ void slot_peers(unsigned keep_mask, int sl, int s,
   rank = __popc(peers & ((1u << lane) - 1u));
 }
 
-// count: counts [S] (zero on entry) += kept rows of each slot.
-__device__ __forceinline__ void slot_count(const int* __restrict__ slot,
-                                           int n, int s,
-                                           int* __restrict__ counts) {
-  extern __shared__ int slot_count_sh[];
-  const bool local = s <= kCountSlots;
+// The slots of a precomputed slot vector, the source of slot_count for
+// hist_q8 and hist_f32. A source's at(r, aux) only loads: it returns row
+// r's slot and may keep a word of its own in aux; done(r, slot, aux) then
+// stores what the source writes for the row (nothing here; the level
+// routing of hist_routed_fused.cu writes the slot and the new leaf id).
+struct SlotVector {
+  const int* __restrict__ slot;
+  __device__ __forceinline__ int at(int r, int&) const { return slot[r]; }
+  __device__ __forceinline__ void done(int, int, int) const {}
+};
+
+// count: counts [S] (zero on entry) += kept rows of each slot, row r's slot
+// being src.at(r). sh is the block's [S] ints of dynamic shared memory when
+// S <= kCountSlots (else unused: the counts go straight to global memory).
+// One slot is not counted (slot_hist_launch starts its range at 0 and needs
+// no count): the source still visits every row.
+template <typename Src>
+__device__ __forceinline__ void slot_count(const Src& src, int n, int s,
+                                           int* __restrict__ counts,
+                                           int* sh) {
+  const bool counting = s > 1;
+  const bool local = counting && s <= kCountSlots;
   if (local) {
-    for (int k = threadIdx.x; k < s; k += blockDim.x) slot_count_sh[k] = 0;
+    for (int k = threadIdx.x; k < s; k += blockDim.x) sh[k] = 0;
     __syncthreads();
   }
-  int* dst = local ? slot_count_sh : counts;
-  // four coalesced loads in flight a thread; base is warp-uniform, so every
-  // lane of a warp takes the same iterations
+  int* dst = local ? sh : counts;
+  // four rows in flight a thread (every load of the four before any store);
+  // base is warp-uniform, so every lane of a warp takes the same iterations
   const long long step = 4LL * gridDim.x * blockDim.x;
   for (long long base = 4LL * blockIdx.x * blockDim.x; base < n;
        base += step) {
-    int sl[4];
+    int sl[4], aux[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const long long r = base + u * blockDim.x + threadIdx.x;
-      sl[u] = r < n ? slot[r] : -1;
+      sl[u] = r < n ? src.at(static_cast<int>(r), aux[u]) : -1;
     }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const long long r = base + u * blockDim.x + threadIdx.x;
+      if (r < n) src.done(static_cast<int>(r), sl[u], aux[u]);
+    }
+    if (!counting) continue;
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const bool keep = sl[u] >= 0 && sl[u] < s;
@@ -196,7 +226,7 @@ __device__ __forceinline__ void slot_count(const int* __restrict__ slot,
   if (local) {
     __syncthreads();
     for (int k = threadIdx.x; k < s; k += blockDim.x) {
-      const int v = slot_count_sh[k];
+      const int v = sh[k];
       if (v) atomicAdd(counts + k, v);
     }
   }
@@ -431,7 +461,8 @@ __device__ __forceinline__ void slot_hist(
 }
 
 // The four kernels of one cell type, each a __global__ wrapper of the device
-// function of its name.
+// function of its name. A null count means that the caller has counted the
+// slots itself (hist_routed_fused.cu routes and counts in one kernel).
 template <typename C>
 struct SlotHistKernels {
   using Cell = typename SlotChans<C>::Cell;
@@ -443,16 +474,37 @@ struct SlotHistKernels {
                const uint32_t*, int, int, int, int, int, int, int, Cell*);
 };
 
-// Launch the slot histogram on one stream: with a slot vector the
-// compaction passes (pass_blocks blocks for count, as many threads in
-// kScatterThreads blocks for scatter; one slot needs the scatter alone)
-// and the histogram over the records, else the
-// histogram over the rows in natural order. bins is the row-major [N, F]
-// matrix of bins_T, needed with a slot vector. idx [3S + 1] i32 (zero on
-// entry) holds counts, offsets and cursors; rec holds n * rec_words words.
-// Returns the first launch error, or cudaErrorInvalidValue for a table over
-// the budget, a missing bins or a record size that is not
+// The arguments that the C entries refuse before slot_hist_launch, as
+// cudaErrorInvalidValue: a table over the budget, a grid size below 1, a
+// block range whose (record, bin word) items overflow an int, and, with a
+// slot vector (slotted), a missing bins or a record size that is not
 // record_words<C>(f).
+template <typename C>
+inline int slot_hist_check(bool slotted, const uint8_t* bins, int n, int f,
+                           int b, int nch, int fg, int blocks, int min_rows,
+                           int pass_blocks, int rec_words) {
+  const size_t smem = static_cast<size_t>(nch) * fg * b *
+                      sizeof(typename SlotChans<C>::Cell);
+  if (smem > kSmemBudget || fg < 1 || blocks < 1 || pass_blocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long items = (static_cast<long long>(n) / blocks + min_rows + 1) *
+                          ((fg + 3) / 4 + 1);
+  if (items > 0x7fffffffLL ||
+      (slotted && (!bins || rec_words != record_words<C>(f))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaSuccess);
+}
+
+// Launch the slot histogram on one stream, after slot_hist_check has
+// passed the arguments: with a slot vector the compaction passes
+// (pass_blocks blocks for count, as many threads in kScatterThreads blocks
+// for scatter; one slot needs the scatter alone) and the histogram over the
+// records, else the histogram over the rows in natural order. bins is the
+// row-major [N, F] matrix of bins_T, needed with a slot vector. idx [3S + 1]
+// i32 (zero on entry) holds counts, offsets and cursors; with a null
+// k.count the caller has already added every kept row to its slot's count,
+// idx[0 .. S). rec holds n * rec_words words. Returns the first launch
+// error.
 template <typename C>
 inline int slot_hist_launch(const SlotHistKernels<C>& k,
                             const uint8_t* bins_T, const uint8_t* bins,
@@ -460,18 +512,10 @@ inline int slot_hist_launch(const SlotHistKernels<C>& k,
                             const C* c, const int* slot, int n, int f, int b,
                             int s, int nch, int fg, int blocks, int min_rows,
                             int pass_blocks, int* idx, uint32_t* rec,
-                            int rec_words,
-                            typename SlotChans<C>::Cell* hist,
+                            int rec_words, typename SlotChans<C>::Cell* hist,
                             cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(nch) * fg * b *
                       sizeof(typename SlotChans<C>::Cell);
-  // a block's (record, bin word) items must fit an int
-  const long long items = (static_cast<long long>(n) / blocks + min_rows + 1) *
-                          ((fg + 3) / 4 + 1);
-  if (smem > kSmemBudget || fg < 1 || blocks < 1 || pass_blocks < 1 ||
-      items > 0x7fffffffLL ||
-      (slot && (!bins || rec_words != record_words<C>(f))))
-    return static_cast<int>(cudaErrorInvalidValue);
   const auto count = k.count;
   const auto scan = k.scan;
   const auto scatter = k.scatter;
@@ -482,17 +526,19 @@ inline int slot_hist_launch(const SlotHistKernels<C>& k,
   if (slot) {
     int* counts = idx;
     int* offs = idx + s;
-    // one slot (a lossguide pass) needs no counts: its range starts at 0,
-    // and the scatter's cursor, offs[1], ends at the kept rows
+    // one slot (a lossguide pass, a first level) needs no counts: its range
+    // starts at 0, and the scatter's cursor, offs[1], ends at the kept rows
     int* cursor = s > 1 ? idx + 2 * s + 1 : offs + 1;
     const size_t count_smem = s <= kCountSlots ? s * sizeof(int) : 0;
     const size_t scatter_smem =
         s <= kCountSlots / 2 ? 2 * s * sizeof(int) : 0;
     if (s > 1) {
-      count<<<pass_blocks, kSlotThreads, count_smem, stream>>>(slot, n, s,
-                                                               counts);
-      if ((err = cudaGetLastError()) != cudaSuccess)
-        return static_cast<int>(err);
+      if (count) {
+        count<<<pass_blocks, kSlotThreads, count_smem, stream>>>(slot, n, s,
+                                                                 counts);
+        if ((err = cudaGetLastError()) != cudaSuccess)
+          return static_cast<int>(err);
+      }
       scan<<<1, kSlotThreads, 0, stream>>>(counts, s, offs, cursor);
       if ((err = cudaGetLastError()) != cudaSuccess)
         return static_cast<int>(err);
@@ -504,9 +550,8 @@ inline int slot_hist_launch(const SlotHistKernels<C>& k,
     off = offs;
   }
   const dim3 grid(blocks, (f + fg - 1) / fg);
-  histogram<<<grid, kSlotThreads, smem, stream>>>(bins_T, g, h, c, off, rec, n,
-                                                  f, b, s, nch, fg, min_rows,
-                                                  hist);
+  histogram<<<grid, kSlotThreads, smem, stream>>>(
+      bins_T, g, h, c, off, rec, n, f, b, s, nch, fg, min_rows, hist);
   return static_cast<int>(cudaGetLastError());
 }
 

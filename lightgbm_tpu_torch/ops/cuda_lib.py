@@ -46,8 +46,9 @@ _SLOT_HIST = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
 _SIGNATURES: Dict[str, List] = {
     "lgbt_grad_quant_hist0": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F,
                               _I, _U, _P, _P, _P, _P, _P, _P, _I, _P],
-    "lgbt_hist_routed_fused": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _I, _P, _P, _P],
+    "lgbt_hist_routed_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                               _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I,
+                               _P, _P, _P],
     "lgbt_leaf_sums_grad": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P,
                             _I, _P],
     "lgbt_take_small": [_P, _P, _I, _I, _P, _I, _P],
@@ -126,6 +127,8 @@ def _build(target: str) -> None:
 def load() -> ctypes.CDLL:
     """The kernel library, built on first call if needed."""
     global _lib
+    if _lib is not None:        # every launch comes here: no lock once loaded
+        return _lib
     with _lock:
         if _lib is not None:
             return _lib

@@ -33,7 +33,9 @@ back to the plain version: the kernel launches or the wrapper raises.
 and nowhere else. A call can issue several CUDA launches: grad_quant_hist0
 two; hist_q8 and hist_f32 four with a slot vector over S > 1 slots (count,
 scan, scatter, histogram; ``csrc/slot_hist.cuh``), two over one slot
-(scatter, histogram) and one without a slot vector.
+(scatter, histogram) and one without a slot vector; hist_routed_fused four
+over S > 1 slots (route and count, scan, scatter, histogram) and three over
+one.
 
 The quantized histograms come back as int32 channel sums ([S, nch, F, B],
 nch = 3 for (g, h, count) or 2 for (g, count) under const-hessian elision);
@@ -47,6 +49,7 @@ f32 sums of ``hist_f32``, whose plain version sums in f64 and rounds once
 from __future__ import annotations
 
 import bisect
+import functools
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -95,10 +98,16 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+    """The current stream's handle. torch's raw query builds no
+    torch.cuda.Stream object: 0.12 us a call against 4.06 for
+    current_stream(dev).cuda_stream on an H100 host
+    (scripts/torch_take_small_split.py)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
+@functools.lru_cache(maxsize=None)
 def _num_sms(dev: torch.device) -> int:
+    """SMs of the card, read once a device (a 4 us query each launch)."""
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
@@ -346,33 +355,18 @@ def grad_quant_hist0(bins_T: torch.Tensor, score: torch.Tensor,
     return gq, hq, cq, scales, hist
 
 
-def routed_hist_grid(f: int, n: int, num_slots: int, nch: int,
-                     num_bins: int, num_sms: int) -> Tuple[int, int, int]:
-    """(features per block, use shared memory, row chunks) of the level pass:
-    as many features per block as fit the shared-memory budget, and enough
-    row chunks that the grid covers the card about twice."""
-    per_feature = num_slots * nch * num_bins * 4
-    fg = min(f, SMEM_BUDGET // per_feature)
-    use_smem = 1 if fg >= 1 else 0
-    if not use_smem:
-        fg = f
-    n_groups = -(-f // fg)
-    blocks_per_sm = max(1, min(4, SMEM_BUDGET // (per_feature * fg))) \
-        if use_smem else 4
-    chunks = -(-(num_sms * blocks_per_sm) // n_groups)
-    chunks = max(1, min(chunks, -(-n // 1024)))
-    return fg, use_smem, chunks
-
-
 def hist_routed_fused(bins_T: torch.Tensor, gq: torch.Tensor,
                       hq: Optional[torch.Tensor], cq: torch.Tensor,
                       leaf_id: torch.Tensor, tables: torch.Tensor,
-                      na_bin: torch.Tensor, num_slots: int, num_bins: int):
+                      na_bin: torch.Tensor, num_slots: int, num_bins: int,
+                      bins: Optional[torch.Tensor] = None):
     """Route each row through its leaf's split and build the slot histogram.
 
     tables [6, L] i32 rows (feat, thr, dleft, new_leaf, slot_left,
-    slot_right); na_bin [F] i32 (a value >= B means no missing bin).
-    Returns (hist [S, nch, F, B] i32, lid2 [N] i32); nch = 2 when hq is None
+    slot_right); na_bin [F] i32 (a value >= B means no missing bin). bins
+    [N, F] u8 is the row-major copy of bins_T (basic.Dataset.bins), needed
+    on the card (the kept rows' bins are copied from it). Returns (hist
+    [S, nch, F, B] i32, lid2 [N] i32); nch = 2 when hq is None
     (const-hessian: channels g, count)."""
     dev = _device_of(bins_T, gq, cq, leaf_id, tables, na_bin)
     f, n = bins_T.shape
@@ -388,21 +382,27 @@ def hist_routed_fused(bins_T: torch.Tensor, gq: torch.Tensor,
     _check(na_bin, "na_bin", torch.int32, (f,))
     if num_slots < 1:
         raise ValueError("hist_routed_fused: num_slots must be >= 1")
+    if not 1 <= num_bins <= 256:
+        raise ValueError(f"hist_routed_fused: num_bins {num_bins} outside "
+                         "[1, 256] (uint8 bins)")
+    _check_bins("hist_routed_fused", bins_T, bins, True)
     if dev.type == "cpu":
         return hist_routed_fused_plain(bins_T, gq, hq, cq, leaf_id, tables,
                                        na_bin, num_slots, num_bins)
     nch = 2 if hq is None else 3
-    lib = cuda_lib.load()
-    fg, use_smem, chunks = routed_hist_grid(f, n, num_slots, nch, num_bins,
-                                            _num_sms(dev))
+    plan = slot_hist_plan(f, n, nch, num_bins, _num_sms(dev))
     hist = torch.zeros((num_slots, nch, f, num_bins), dtype=torch.int32,
                        device=dev)
     lid2 = torch.empty(n, dtype=torch.int32, device=dev)
-    rc = lib.lgbt_hist_routed_fused(
-        bins_T.data_ptr(), gq.data_ptr(), _ptr(hq), cq.data_ptr(),
-        leaf_id.data_ptr(), tables.data_ptr(), na_bin.data_ptr(), n, f,
-        num_bins, l, num_slots, nch, fg, use_smem, chunks, hist.data_ptr(),
-        lid2.data_ptr(), _stream(dev))
+    slot = torch.empty(n, dtype=torch.int32, device=dev)
+    idx, rec, rec_words = _slot_scratch(n, f, num_slots, 1, dev)
+    rc = cuda_lib.load().lgbt_hist_routed_fused(
+        bins_T.data_ptr(), bins.data_ptr(), gq.data_ptr(), _ptr(hq),
+        cq.data_ptr(), leaf_id.data_ptr(), tables.data_ptr(),
+        na_bin.data_ptr(), n, f, num_bins, l, num_slots, nch, plan.fg,
+        plan.blocks, plan.min_rows, plan.pass_blocks,
+        slot.data_ptr(), idx.data_ptr(), rec.data_ptr(), rec_words,
+        hist.data_ptr(), lid2.data_ptr(), _stream(dev))
     cuda_lib.check(rc, "hist_routed_fused")
     LAUNCHES["hist_routed_fused"] += 1
     return hist, lid2
@@ -441,18 +441,21 @@ def take_small(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     _check(idx, "idx", torch.int32, (n,))
     if dev.type == "cpu":
         return take_small_plain(table, idx)
-    lib = cuda_lib.load()
     out = torch.empty(n, dtype=torch.float32, device=dev)
-    grid = max(1, min(8 * _num_sms(dev), -(-n // 256)))
-    rc = lib.lgbt_take_small(table.data_ptr(), idx.data_ptr(), n, l,
-                             out.data_ptr(), grid, _stream(dev))
+    # 256-thread blocks of four rows a thread, at most eight an SM: the
+    # card once over
+    grid = max(1, min(8 * _num_sms(dev), -(-n // 1024)))
+    rc = cuda_lib.load().lgbt_take_small(table.data_ptr(), idx.data_ptr(), n,
+                                         l, out.data_ptr(), grid,
+                                         _stream(dev))
     cuda_lib.check(rc, "take_small")
     LAUNCHES["take_small"] += 1
     return out
 
 
 class SlotHistPlan(NamedTuple):
-    """Grid and range sizes of hist_q8 and hist_f32 (csrc/slot_hist.cuh)."""
+    """Grid, block and range sizes of hist_q8, hist_f32 and
+    hist_routed_fused (csrc/slot_hist.cuh)."""
     fg: int           # features a histogram block (grid.y = ceil(F / fg))
     blocks: int       # histogram blocks a feature group (grid.x)
     min_rows: int     # least list entries (or rows) a histogram block takes
@@ -466,12 +469,16 @@ def slot_hist_plan(f: int, n: int, nch: int, num_bins: int,
 
     A block holds one slot's table for as many features as fit the
     shared-memory budget (all 28 at B = 256; even groups where they do not
-    fit). 2 x SMs x blocks-an-SM blocks cover the card twice; each takes at
-    least 1024 entries, so that its flush (at most nch * fg * B global
-    atomics a slot segment) stays within a quarter of its row atomics
-    (rows * fg * nch) at B = 256 when few rows are kept. The count pass
-    takes 4096 rows a block and step, at most 8 blocks an SM; the scatter
-    pass four times as many blocks of a quarter the size."""
+    fit), in blocks of 1024 threads (csrc/slot_hist.cuh kSlotThreads), two
+    an SM where two tables fit the budget (F = 28 at B = 64 and 256), else
+    one: at B = 64, where eight tables fit, two blocks of 1024 beat four of
+    512 and eight of 256 on an H100 (slot_hist.cuh, "Design"). 2 x SMs x
+    blocks-an-SM blocks cover the card twice; each takes at least 1024
+    entries, so that its flush (at most nch * fg * B global atomics a slot
+    segment) stays within a quarter of its row atomics (rows * fg * nch) at
+    B = 256 when few rows are kept. The count pass takes 4096 rows a block
+    and step, at most 8 blocks an SM; the scatter pass four times as many
+    blocks of a quarter the size."""
     per_feature = nch * num_bins * 4
     groups = -(-f // max(1, SMEM_BUDGET // per_feature))
     fg = -(-f // groups)
@@ -530,17 +537,28 @@ def slot_compact_plain(slot: torch.Tensor, num_slots: int):
     return off, rows[order]
 
 
-def _check_bins(name: str, bins_T: torch.Tensor, bins, slot) -> None:
-    """The row-major bins of hist_q8 / hist_f32: [N, F] u8 beside bins_T,
-    and needed on the card with a slot vector (the compaction reads the kept
-    rows' bins from it)."""
+def _check_bins(name: str, bins_T: torch.Tensor, bins,
+                needed: bool) -> None:
+    """The row-major bins of the slot histograms: [N, F] u8 beside bins_T,
+    and ``needed`` on the card (with a slot vector, and always by the fused
+    level pass: the compaction reads the kept rows' bins from it)."""
     f, n = bins_T.shape
     if bins is not None:
         _device_of(bins_T, bins)
         _check(bins, "bins", torch.uint8, (n, f))
-    elif slot is not None and bins_T.device.type == "cuda":
-        raise ValueError(f"{name}: a slot vector needs the row-major bins "
-                         "[N, F] on the card")
+    elif needed and bins_T.device.type == "cuda":
+        raise ValueError(f"{name}: needs the row-major bins [N, F] on the "
+                         "card (to group the kept rows by slot)")
+
+
+def _slot_scratch(n: int, f: int, num_slots: int, chan_words: int,
+                  dev: torch.device):
+    """(idx [3S + 1] i32 zeros: counts, offsets, cursors; rec [N x
+    rec_words] i32 records; rec_words) of a compaction by slot."""
+    rec_words = (f + 3) // 4 + chan_words      # slot_hist.cuh record_words
+    idx = torch.zeros(3 * num_slots + 1, dtype=torch.int32, device=dev)
+    rec = torch.empty(n * rec_words, dtype=torch.int32, device=dev)
+    return idx, rec, rec_words
 
 
 def _slot_hist(name: str, bins_T: torch.Tensor, bins, chans, slot,
@@ -553,17 +571,15 @@ def _slot_hist(name: str, bins_T: torch.Tensor, bins, chans, slot,
     f, n = bins_T.shape
     plan = slot_hist_plan(f, n, nch, num_bins, _num_sms(dev))
     hist = torch.zeros((num_slots, nch, f, num_bins), dtype=cell, device=dev)
-    rec_words = (f + 3) // 4 + chan_words      # slot_hist.cuh record_words
     idx = rec = None
+    rec_words = 0
     if slot is not None:
-        idx = torch.zeros(3 * num_slots + 1, dtype=torch.int32, device=dev)
-        rec = torch.empty(n * rec_words, dtype=torch.int32, device=dev)
-    lib = cuda_lib.load()
-    rc = getattr(lib, f"lgbt_{name}")(
+        idx, rec, rec_words = _slot_scratch(n, f, num_slots, chan_words, dev)
+    rc = getattr(cuda_lib.load(), f"lgbt_{name}")(
         bins_T.data_ptr(), _ptr(bins), *(_ptr(t) for t in chans), _ptr(slot),
-        n, f, num_bins, num_slots, nch, plan.fg, plan.blocks, plan.min_rows,
-        plan.pass_blocks, _ptr(idx), _ptr(rec), rec_words, hist.data_ptr(),
-        _stream(dev))
+        n, f, num_bins, num_slots, nch, plan.fg, plan.blocks,
+        plan.min_rows, plan.pass_blocks, _ptr(idx), _ptr(rec), rec_words,
+        hist.data_ptr(), _stream(dev))
     cuda_lib.check(rc, name)
     LAUNCHES[name] += 1
     return hist
@@ -597,7 +613,7 @@ def hist_q8(bins_T: torch.Tensor, gq: torch.Tensor, hq: Optional[torch.Tensor],
     if not 1 <= num_bins <= 256:
         raise ValueError(f"hist_q8: num_bins {num_bins} outside [1, 256] "
                          "(uint8 bins)")
-    _check_bins("hist_q8", bins_T, bins, slot)
+    _check_bins("hist_q8", bins_T, bins, slot is not None)
     if dev.type == "cpu":
         return hist_q8_plain(bins_T, gq, hq, cq, slot, num_slots, num_bins)
     return _slot_hist("hist_q8", bins_T, bins, (gq, hq, cq), slot, num_slots,
@@ -680,7 +696,7 @@ def hist_f32(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
     if not 1 <= num_bins <= 256:
         raise ValueError(f"hist_f32: num_bins {num_bins} outside [1, 256] "
                          "(uint8 bins)")
-    _check_bins("hist_f32", bins_T, bins, slot)
+    _check_bins("hist_f32", bins_T, bins, slot is not None)
     if dev.type == "cpu":
         return hist_f32_plain(bins_T, g, h, c, slot, num_slots, num_bins)
     return _slot_hist("hist_f32", bins_T, bins, (g, h, c), slot, num_slots,

@@ -145,11 +145,12 @@ def hist_routed(bins_T: torch.Tensor, leaf_id: torch.Tensor,
     the f32 ``rows`` (g, h, c) when quant is None. Returns (hist
     [S, 3, F, B] f32, new leaf id [N] i32).
 
-    Quantized channels at F * B <= 2048 take the fused pass (one kernel,
-    one read of bins_T); wider data, and f32 rows at every width, route
-    first (``route_level``) and then build the slot histogram (``hist_q8``
-    or ``hist_f32``, which on the card read the kept rows' bins from
-    ``bins``, the row-major [N, F] copy of bins_T). The reference routes
+    Quantized channels at F * B <= 2048 take the fused pass (one kernel
+    call that routes each row once); wider data, and f32 rows at every
+    width, route first (``route_level``) and then build the slot histogram
+    (``hist_q8`` or ``hist_f32``). On the card every histogram over routed
+    rows reads the kept rows' bins from ``bins``, the row-major [N, F] copy
+    of bins_T. The reference routes
     data wider than 512 features through an XLA gather instead, because
     its route kernel's [F, chunk] block would exhaust VMEM;
     ``route_level`` reads one bin a row and has no such limit, so every F
@@ -163,7 +164,7 @@ def hist_routed(bins_T: torch.Tensor, leaf_id: torch.Tensor,
     if f * num_bins <= ACC_ROWS_MAX:
         acc, lid2 = K.hist_routed_fused(
             bins_T, quant.gq, quant.hq, quant.cq, leaf_id, tables.stacked(),
-            na_bin, num_slots, num_bins)
+            na_bin, num_slots, num_bins, bins)
     else:
         slot, lid2 = K.route_level(bins_T, leaf_id, tables.stacked(), na_bin,
                                    num_slots)

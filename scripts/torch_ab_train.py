@@ -4,15 +4,17 @@
 Run from the repository root on a machine with one CUDA GPU:
 
     python3 scripts/torch_ab_train.py A_DIR B_DIR [--max-bin 255]
-        [--grow-policy depthwise|lossguide] [--quant auto|true|false]
-        [--pairs 10] [--iters 1]
+        [--objective binary|regression] [--grow-policy depthwise|lossguide]
+        [--quant auto|true|false] [--pairs 10] [--iters 1]
 
 A_DIR and B_DIR are checkouts of the repository (for example the parent
 commit unpacked with git archive, and this tree). Both copies of
 lightgbm_tpu_torch are imported into one process under their own names,
 each builds its kernels into its own _build directory, and each trains a
-binary model on the same HIGGS-shaped table (chip_smoke.py's generator,
-10.5M x 28, seed 0) with chip_smoke.py's parameters. After one warm-up
+binary model (or, with --objective regression, an L2 model on
+chip_smoke.py's continuous target) on the same HIGGS-shaped table
+(chip_smoke.py's generator, 10.5M x 28, seed 0) with chip_smoke.py's
+parameters. After one warm-up
 iteration each, the two boosters take turns, `--iters` iterations a turn,
 A first in even pairs and B first in odd ones, each turn timed on the host
 clock and ended by torch.cuda.synchronize(). Host load then falls on both
@@ -68,6 +70,8 @@ def main() -> int:
     ap.add_argument("b")
     ap.add_argument("--rows", type=int, default=10_500_000)
     ap.add_argument("--max-bin", type=int, default=255, choices=(63, 255))
+    ap.add_argument("--objective", default="binary",
+                    choices=("binary", "regression"))
     ap.add_argument("--grow-policy", default="depthwise",
                     choices=("depthwise", "lossguide"))
     ap.add_argument("--quant", default="auto",
@@ -84,7 +88,12 @@ def main() -> int:
                           text=True, timeout=60, check=True).stdout.strip()
     print(f"card: {card}", flush=True)
     X, y = synth_higgs(args.rows)
-    params = {"objective": "binary", "num_leaves": 255,
+    if args.objective == "regression":    # chip_smoke.py's y_reg
+        rng = np.random.RandomState(1)
+        y = (X[:, :4] @ np.array([1.0, -0.5, 0.25, 2.0])
+             + 0.5 * X[:, 4] ** 2 + 0.1 * rng.randn(args.rows)
+             ).astype(np.float32)
+    params = {"objective": args.objective, "num_leaves": 255,
               "max_bin": args.max_bin, "learning_rate": 0.1,
               "min_data_in_leaf": 20, "verbosity": -1,
               "grow_policy": args.grow_policy,
@@ -110,7 +119,7 @@ def main() -> int:
             times[side].append(pair[side])
         print(json.dumps(dict(pair=k, **pair)), flush=True)
     print(json.dumps(dict(
-        a=args.a, b=args.b, max_bin=args.max_bin,
+        a=args.a, b=args.b, max_bin=args.max_bin, objective=args.objective,
         grow_policy=args.grow_policy, quant=args.quant, rows=args.rows,
         card=card, a_quartiles=quartiles(times["A"]),
         b_quartiles=quartiles(times["B"]),

@@ -9,8 +9,11 @@ JAX nor the reference package, so it runs on a machine that has neither:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: exact for the quantized front, the level passes (fused, and
-route then slot histogram), the root slot histogram and take_small
-(integer sums, order-free); leaf sums within 1e-6 relative (both sum the
+route then slot histogram; the fused one also at a first level, a skewed
+level, a level that keeps no row, and with route tables and slot counts
+too large for shared memory), the root slot histogram and take_small (on
+N % 4 != 0 rows and on views that do not start on 16 bytes too; integer
+sums, order-free); leaf sums within 1e-6 relative (both sum the
 same f32 rows in f64, in different atomic orders); the first tree of an
 L2 model trained on the GPU, at max_bin=31 (fused path) and at max_bin=255
 (unfused path), has the CPU-trained tree's structure and leaf values
@@ -99,9 +102,88 @@ def test_hist_routed_fused_kernel_equals_plain(rows, dev, const_hess):
     na_bin = torch.full((F,), 256, dtype=torch.int32, device=dev)
     na_bin[1] = 4
     args = (rows["bins_T"], gq, hq, cq, rows["lid"], tab, na_bin, S, B)
-    for a, b in zip(hk.hist_routed_fused(*args),
+    for a, b in zip(hk.hist_routed_fused(
+            *args, bins=rows["bins_T"].t().contiguous()),
                     hk.hist_routed_fused_plain(*args)):
         assert torch.equal(a, b)
+
+
+def _level(dev, case, n, f, l, s, b=64):
+    """bins over [0, B) with NA bins, int8 channels, leaf ids and [6, L]
+    route tables of a level: a first level (every row in leaf 0, which
+    splits; S = 1), a skewed level (S = 127, leaf ids in [0, 2S), three rows
+    in five in leaf 0 with its left child kept), a level where no leaf
+    splits, or any other S with leaves < S splitting."""
+    gen = torch.Generator(device=dev).manual_seed(n + s + l)
+
+    def draw(lo, hi, size):
+        return torch.randint(lo, hi, (size,), generator=gen, device=dev,
+                             dtype=torch.int64)
+    bins_T = torch.stack([draw(0, b, n) for _ in range(f)]).to(torch.uint8)
+    gq = draw(-127, 128, n).to(torch.int8)
+    hq = draw(0, 128, n).to(torch.int8)
+    cq = (torch.rand(n, generator=gen, device=dev) < 0.9).to(torch.int8)
+    k = torch.arange(l, device=dev)
+    split = k < (1 if case == "first_level" else
+                 0 if case == "no_split" else s)
+    small_left = (torch.rand(l, generator=gen, device=dev) < 0.5) | (k == 0)
+    lid = draw(0, max(1, min(l, 2 * s)), n)
+    if case == "first_level":
+        lid = torch.zeros_like(lid)
+    elif case == "skewed":
+        lid = torch.where(torch.rand(n, generator=gen, device=dev) < 0.6, 0,
+                          lid)
+    tab = torch.stack([
+        torch.where(split, draw(0, f, l), -1), draw(0, b - 2, l),
+        draw(0, 2, l),
+        l + k, torch.where(split & small_left, k, s),
+        torch.where(split & ~small_left, k, s)]).to(torch.int32).contiguous()
+    na_bin = torch.full((f,), 256, dtype=torch.int32, device=dev)
+    na_bin[: f // 3] = b - 2
+    return bins_T, gq, hq, cq, lid.to(torch.int32), tab, na_bin
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,n,f,l,s", [
+    ("first_level", 200_000, 28, 255, 1), ("skewed", 200_000, 28, 255, 127),
+    ("no_split", 200_000, 28, 255, 32), ("ragged", 1024 * 37 + 13, 9, 15, 7),
+    ("tables_in_global", 200_000, 9, 10_000, 4000),
+    ("counts_in_global", 100_000, 7, 30_000, 13_000)])
+def test_hist_routed_fused_level_shapes_equal_plain(dev, case, n, f, l, s):
+    # exact, 3 and 2 channels: a first level (S = 1: no scan), a skewed
+    # S = 127, a level that keeps no row, ragged N, route tables too large
+    # for shared memory (6 x 10,000 ints) and more slots than the count
+    # keeps in shared memory (13,000); the last two at B = 16
+    b = 16 if l > 255 else 64
+    bins_T, gq, hq, cq, lid, tab, na_bin = _level(dev, case, n, f, l, s, b)
+    bins = bins_T.t().contiguous()
+    for hq_ in (hq, None):
+        args = (bins_T, gq, hq_, cq, lid, tab, na_bin, s, b)
+        kh, kl = hk.hist_routed_fused(*args, bins=bins)
+        ph_, pl_ = hk.hist_routed_fused_plain(*args)
+        assert torch.equal(kh, ph_) and torch.equal(kl, pl_)
+        if case == "no_split":
+            assert not kh.any() and torch.equal(kl, lid)
+        else:
+            assert kh.any()
+
+
+@pytest.mark.cuda
+def test_hist_routed_fused_needs_bins_and_never_falls_back(dev, monkeypatch):
+    # one count a call, never the plain version; without the row-major bins
+    # the card refuses the call
+    def boom(*a, **k):
+        raise AssertionError("plain version called on a CUDA tensor")
+    monkeypatch.setattr(hk, "hist_routed_fused_plain", boom)
+    bins_T, gq, hq, cq, lid, tab, na_bin = _level(dev, "skewed", 5000, 7,
+                                                  15, 5)
+    args = (bins_T, gq, hq, cq, lid, tab, na_bin, 5, 64)
+    hk.reset_launches()
+    hk.hist_routed_fused(*args, bins=bins_T.t().contiguous())
+    assert hk.LAUNCHES["hist_routed_fused"] == 1
+    with pytest.raises(ValueError):
+        hk.hist_routed_fused(*args)
+    assert hk.LAUNCHES["hist_routed_fused"] == 1
 
 
 @pytest.mark.cuda
@@ -115,6 +197,24 @@ def test_leaf_sums_and_take_small_kernels_equal_plain(rows, dev):
     idx = torch.randint(-2, L + 2, (N,), device=dev, dtype=torch.int32)
     assert torch.equal(hk.take_small(table, idx),
                        hk.take_small_plain(table, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("l", [0, 8, 255, 5000])
+def test_take_small_kernel_on_tails_and_views(dev, l):
+    # exact: N % 4 in {0, 1, 2, 3}, idx views starting 1-3 elements into
+    # their storage (not on 16 bytes: the scalar path), tables in shared
+    # memory and, at L = 5000 (over 16 KB), in global memory
+    gen = torch.Generator(device=dev).manual_seed(l)
+    table = torch.randn(l, generator=gen, device=dev)
+    base = torch.randint(-3, l + 4, (1_000_005,), generator=gen, device=dev,
+                         dtype=torch.int64).to(torch.int32)
+    for n in (1_000_000, 1_000_001, 1_000_002, 1, 0):
+        for offset in range(4 if n else 1):
+            idx = base[offset:offset + n]
+            got = hk.take_small(table, idx)
+            assert got.shape == (n,)
+            assert torch.equal(got, hk.take_small_plain(table, idx))
 
 
 def _wide(dev, s):

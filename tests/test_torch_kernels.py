@@ -9,10 +9,11 @@ from a seed with numpy and handed to both as the same arrays.
 Tolerances (each stated where it is asserted):
 - exact: the dither, the L2 quantized channels, scales and root histogram,
   the level pass (histogram and new leaf ids, 2 and 3 channels, packed
-  lattice on and off), the slot histogram over a slot vector (hist_q8), the
+  lattice on and off; a first level, a level with no row kept and a skewed
+  one), the slot histogram over a slot vector (hist_q8), the
   level routing (route_level), the two-pass level and the unfused root
-  histogram at F * B > 2048, and take_small; integer sums make them
-  order-free;
+  histogram at F * B > 2048, and take_small (on N % 4 != 0 rows and offset
+  views too); integer sums make them order-free;
 - logloss front: torch.exp and XLA's expf differ by at most 1 ulp, which
   moves g by at most 2 ulp; the test measures the gap and bounds the share
   of quantized rows that move by one step;
@@ -24,9 +25,10 @@ Tolerances (each stated where it is asserted):
   keeps them whole and every partial sum is representable), else the hi/lo
   error against the port's f64 sums: |diff| <= 2^-15 * the cell's sum|x|,
   counts exact;
-- the plan of the slot histograms (hist_q8, hist_f32) and their plain
-  compaction: every kept row in exactly one segment of its own slot per
-  feature group, each block's table within the shared-memory budget.
+- the plan of the slot histograms (hist_q8, hist_f32, hist_routed_fused)
+  and their plain compaction: every kept row in exactly one segment of its
+  own slot per feature group, each block's table within the shared-memory
+  budget, the blocks an SM at B = 64 and 256.
 
 The card-side twins of these checks are in tests/test_torch_cuda.py.
 """
@@ -225,6 +227,73 @@ def test_hist_routed_fused_exact(rows, const_hess, pack):
                                 _t(na_bin), S, B, quant)
     np.testing.assert_array_equal(hist.numpy(), np.asarray(ref_h))
     np.testing.assert_array_equal(lid2.numpy(), np.asarray(ref_lid))
+
+
+def _level_case(case):
+    """(leaf ids [N], route-table columns, S) of three level shapes: a
+    first level (every row in leaf 0, which splits; S = 1, the smaller
+    child kept), a level where no leaf splits (no row kept), and a skewed
+    level (S = 3; four rows in five in leaf 0, whose kept left child then
+    holds most kept rows)."""
+    rng = np.random.default_rng(41)
+    feat = np.full(L, -1, np.int32)
+    thr = np.zeros(L, np.int32)
+    dleft = np.zeros(L, np.int32)
+    new_leaf = np.arange(L, 2 * L, dtype=np.int32)
+    if case == "first_level":
+        s = 1
+        lid = np.zeros(N, np.int32)
+        feat[0], thr[0], dleft[0] = 3, 9, 1
+        slot_left = np.where(np.arange(L) == 0, 0, s).astype(np.int32)
+        slot_right = np.full(L, s, np.int32)
+    elif case == "no_split":
+        s = S
+        lid = rng.integers(0, L, size=N).astype(np.int32)
+        slot_left = slot_right = np.full(L, s, np.int32)
+    else:
+        s = S
+        lid = np.where(rng.random(N) < 0.8, 0,
+                       rng.integers(1, 3, size=N)).astype(np.int32)
+        feat[:3], thr[:3], dleft[:3] = (1, 4, 6), (B - 2, 5, 8), (0, 1, 0)
+        slot_left = np.array([0, s, 2] + [s] * (L - 3), np.int32)
+        slot_right = np.array([s, 1, s] + [s] * (L - 3), np.int32)
+    return lid, (feat, thr, dleft, new_leaf, slot_left, slot_right), s
+
+
+@pytest.mark.parametrize("const_hess", [False, True])
+@pytest.mark.parametrize("case", ["first_level", "no_split", "skewed"])
+def test_hist_routed_level_shapes_exact(rows, case, const_hess):
+    # exact: the fused level pass through ops/histogram.hist_routed, given
+    # the row-major bins as the growers give it, at a first level (S = 1),
+    # a level where no leaf splits (a zero histogram, leaf ids unchanged)
+    # and a skewed level (one slot holds most kept rows), 3 channels
+    # (g, h, count) and 2 (g, count under const-hessian), against the
+    # reference kernel
+    spec, aux = (("l2",), rows["label"]) if const_hess \
+        else (LOGLOSS, rows["label_pos"])
+    quant, _ = _port_front(rows, spec, aux, const_hess)
+    lid, cols, s = _level_case(case)
+    _, na_bin = _tables(rows)
+    hq_ref = quant.cq if const_hess else quant.hq
+    ref_h, ref_lid = ph.hist_routed_fused_q8(
+        jnp.asarray(rows["bins"].T), jnp.asarray(quant.gq.numpy()),
+        jnp.asarray(hq_ref.numpy()), jnp.asarray(quant.cq.numpy()),
+        jnp.asarray(lid), ref_hist.RouteTables(*[jnp.asarray(c)
+                                                  for c in cols]),
+        jnp.asarray(na_bin), s, B, jnp.float32(quant.scale_g.item()),
+        jnp.float32(quant.scale_h.item()), L, const_hess=const_hess,
+        interpret=True)
+    hist, lid2 = th.hist_routed(_t(rows["bins"].T), _t(lid),
+                                th.RouteTables(*[_t(c) for c in cols]),
+                                _t(na_bin), s, B, quant,
+                                bins=_t(rows["bins"]))
+    np.testing.assert_array_equal(hist.numpy(), np.asarray(ref_h))
+    np.testing.assert_array_equal(lid2.numpy(), np.asarray(ref_lid))
+    counts = hist[:, 2].sum(axis=(1, 2)).numpy() / F
+    if case == "no_split":
+        assert not hist.any() and (lid2.numpy() == lid).all()
+    elif case == "skewed":
+        assert counts[0] > counts[1:].sum() > 0
 
 
 @pytest.mark.parametrize("spec,aux", [(("l2",), "label"),
@@ -516,6 +585,24 @@ def test_take_small_exact_with_out_of_range():
     assert (got[(idx < 0) | (idx >= L)] == 0.0).all()
 
 
+@pytest.mark.parametrize("n,offset", [(N + 1, 0), (N + 2, 0), (N + 3, 0),
+                                      (N, 1), (N + 1, 2), (N, 3), (3, 1)])
+def test_take_small_tails_and_offset_views(n, offset):
+    # exact: N % 4 != 0 rows, and idx as a view that starts 1-3 elements
+    # into its storage (on the card, not on 16 bytes: the kernel's scalar
+    # path), out-of-range indices giving 0.0
+    rng = np.random.default_rng(7 * n + offset)
+    table = rng.normal(size=L).astype(np.float32)
+    base = rng.integers(-3, L + 4, size=n + offset).astype(np.int32)
+    view = _t(base)[offset:]
+    assert view.is_contiguous() and view.storage_offset() == offset
+    ref = np.asarray(ph.take_small_pallas(jnp.asarray(table),
+                                          jnp.asarray(base[offset:]),
+                                          interpret=True))
+    got = hk.take_small(_t(table), view).numpy()
+    np.testing.assert_array_equal(got, ref)
+
+
 def test_cpu_wrappers_count_no_launches(rows, wide):
     hk.reset_launches()
     hk.take_small(_t(np.ones(L, np.float32)), _t(rows["lid"]))
@@ -619,6 +706,27 @@ def test_plan_at_the_main_path_shapes():
     tiles = hk.slot_hist_tiles(hk.slot_hist_plan(28, 10_500_000, 3, 256,
                                                  PLAN_SMS), 28, [52_500])
     assert len({t[1] for t in tiles}) == 52
+
+
+@pytest.mark.parametrize("nch", [2, 3])
+@pytest.mark.parametrize("b", [64, 256])
+def test_plan_blocks_an_sm_at_both_bin_widths(b, nch):
+    # B = 64 (the fused level pass; a 21,504 B or 14,336 B table) and
+    # B = 256 (86,016 B or 57,344 B) both run two blocks an SM, their
+    # tables within the budget; every kept row of a first
+    # level (S = 1), of a level that keeps none and of a skewed S = 127
+    # falls in exactly one segment of its slot
+    plan = hk.slot_hist_plan(28, PLAN_N, nch, b, PLAN_SMS)
+    assert plan.blocks == 2 * PLAN_SMS * 2 and plan.fg == 28
+    assert 2 * plan.smem <= hk.SMEM_BUDGET
+    assert plan.smem == nch * 28 * b * 4
+    first = torch.from_numpy(np.where(
+        np.random.default_rng(b).random(PLAN_N) < 0.5, 0, 1).astype(np.int32))
+    for slot, s in ((first, 1), (torch.full((PLAN_N,), 127, dtype=torch.int32),
+                                 127), (_plan_slots(127, "skewed", b), 127)):
+        tiles, counts = _check_tiles(plan, 28, slot, s)
+        per = max(plan.min_rows, -(-sum(counts) // plan.blocks))
+        assert len({t[1] for t in tiles}) == -(-sum(counts) // per)
 
 
 def test_plan_with_no_kept_rows():
