@@ -5,7 +5,9 @@ Run from the repository root on a machine with one CUDA GPU and nvcc:
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero; nothing is caught and ignored):
+Phases (any failure exits non-zero; nothing is caught and ignored, except
+that a device time the profiler does not see is printed as null, not
+measured):
 
 1. card: the GPU's name and power limit (nvidia-smi), torch and CUDA
    versions;
@@ -15,26 +17,31 @@ Phases (any failure exits non-zero; nothing is caught and ignored):
    shapes and is held against its plain PyTorch version on the same
    inputs: integer outputs and histograms exactly, leaf sums within 1e-6
    of the row mass. The fused path's kernels at N = 10.5M rows, F = 28,
-   B = 64, L = 255 (the level pass, given the row-major bins, at a first
-   level, S = 1, at S = 32 and 127 slots and on a skewed S = 127 level,
-   with 2 and 3 channels); the unfused path's at B = 256: route_level at
-   S = 32 and 127, leaf_sums at L = 255, and the two slot histograms,
-   hist_q8 (2 and 3 channels) and hist_f32 (f32 rows; counts exactly, g
-   and h within 2^-15 of the cell's absolute mass), at S = 1 (no slot
-   vector), at S = 32 and 127 fed the slots route_level gives (NA bins,
-   leaves that do not split, about half the rows in dropped slots), on a
-   skewed level (S = 127, about half the kept rows in one slot) and on
-   two lossguide-shaped passes (S = 1, about 5% and 0.5% of the rows
-   kept), hist_f32 also at B = 64 and S = 127. Each kernel is timed
+   B = 64, L = 255 (grad_quant_hist0 with 3 and 2 channels, its two
+   launches split by device time, and at its packed cells' worst case:
+   every row kept, in bin 0, at |gq| = |hq| = 127; the level pass, given
+   the row-major bins, at a first level, S = 1, at S = 32 and 127 slots
+   and on a skewed S = 127 level, with 2 and 3 channels); the unfused
+   path's at B = 256: route_level at S = 32 and 127 (slot, new leaf id and
+   per-slot counts, the counts also against the bincount of its slots),
+   leaf_sums at L = 255, and the two slot histograms, hist_q8 (2 and 3
+   channels) and hist_f32 (f32 rows; counts exactly, g and h within 2^-15
+   of the cell's absolute mass), at S = 1 (no slot vector), at S = 32 and
+   127 fed the slots and the counts route_level gives (NA bins, leaves
+   that do not split, about half the rows in dropped slots; each also
+   without the counts, against the same yardstick), on a skewed level
+   (S = 127, about half the kept rows in one slot) and on two
+   lossguide-shaped passes (S = 1, about 5% and 0.5% of the rows kept),
+   hist_f32 also at B = 64 and S = 127. Each kernel is timed
    (median of CUDA-event timings), beside its plain version, the least
    time the card could take (bytes over memory rate or operations over
    peak rate, counting only what the data needs) and one PyTorch call
    computing the same function where one exists (for the slot histograms
    an index_add_ over flat cell indices, int32 for hist_q8, checked
    against the plain version; index_select for take_small); take_small,
-   its index_select and the level pass at S = 127 also by the device time
-   of their kernels alone (torch.profiler), without the host time that
-   event timings include;
+   its index_select, route_level and the level pass at S = 127 also by the
+   device time of their kernels alone (torch.profiler), without the host
+   time that event timings include;
 4. main paths: a HIGGS-shaped 10.5M x 28 table (bench.py's generator,
    copied) through lightgbm_tpu_torch.Dataset and train(), one constructed
    Dataset a bin count: a binary model (num_leaves=255, learning_rate=0.1,
@@ -73,6 +80,7 @@ of the repository, it exits non-zero and prints no result.
 """
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -129,6 +137,63 @@ def peaks(name: str):
     return 3.35e12, 67e12
 
 
+def time_ms(fn, reps=7):
+    """Median of reps CUDA-event timings of one call of fn, after a warm-up
+    call. Shared with scripts/torch_*.py."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def device_split(fn, reps=10, tries=3):
+    """Device ms a call of fn by CUDA kernel (torch.profiler over reps calls,
+    after a warm-up call): the time of the call's CUDA kernels alone,
+    without the host time before and between launches that CUDA-event
+    timings include. CUPTI's trace sometimes comes back without device
+    events: the profile is taken again, up to tries sessions, and None
+    (device time not measured) is returned when none of them saw any.
+    Shared with scripts/torch_*.py."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        split = {}
+        for ev in prof.key_averages():
+            t = getattr(ev, "device_time_total", None)
+            if t is None:
+                t = getattr(ev, "cuda_time_total", 0.0)
+            if ev.device_type.name == "CUDA" and t > 0:
+                m = re.search(r"(\w+)\(", ev.key)   # the function's name
+                key = m.group(1) if m else ev.key
+                split[key] = split.get(key, 0.0) + t / reps / 1e3
+        if split:
+            return split
+    print(f"chip_smoke: the profiler saw no device time in {tries} "
+          "sessions; device time not measured", file=sys.stderr)
+    return None
+
+
+def device_ms(fn, reps=10):
+    """Sum of device_split's kernel times, or None when not measured."""
+    split = device_split(fn, reps)
+    return None if split is None else sum(split.values())
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -164,42 +229,6 @@ def main() -> int:
         if "registers" in line or "spill" in line or line.startswith("=="):
             print(f"  ptxas: {line.strip()}")
 
-    def time_ms(fn, reps=7):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(reps):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            torch.cuda.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
-
-    def device_ms(fn, reps=10):
-        """Device ms a call (torch.profiler over reps calls): the time of
-        the call's CUDA kernels alone, without the host time before and
-        between launches that CUDA-event timings include."""
-        from torch.profiler import ProfilerActivity, profile
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = 0.0
-        for ev in prof.key_averages():
-            t = getattr(ev, "device_time_total", None)
-            if t is None:
-                t = getattr(ev, "cuda_time_total", 0.0)
-            if ev.device_type.name == "CUDA":
-                us += t
-        if us <= 0:
-            fail("device_ms: the profiler saw no device time")
-        return us / reps / 1e3
-
     def bound(nbytes, nops):
         t_b, t_o = nbytes / bw * 1e3, nops / flops * 1e3
         return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
@@ -225,35 +254,57 @@ def main() -> int:
     logloss = ("logloss", 1.0, 1.0, 1.0)
     kernels = {}
 
-    # B1 grad_quant_hist0: logloss (3 channels) and l2 const-hess (2)
+    # B1 grad_quant_hist0: logloss (3 channels) and l2 const-hess (2), each
+    # split by device time into its max pass and its quantize + histogram
+    # pass; then the packed cells' worst case: every row kept and in bin 0
+    # of every feature with gq = hq = 127 (score 0: logloss g = 0.5 and
+    # h = 0.25 with label 0, L2 g = 1 with label -1, each at its scale), so
+    # that each block's cell (j, 0) holds its whole range of rows at the
+    # fields' largest sums
     variants = []
-    for spec, aux, ch in ((logloss, label_pos, False), (("l2",), label_reg,
-                                                        True)):
-        args = (bins_T, score, aux, bag, 7, spec, B, ch)
+    zeros_T = torch.zeros_like(bins_T)
+    ones = torch.ones(N, device=dev)
+    for spec, aux, ch, worst in (
+            (logloss, label_pos, False, False),
+            (("l2",), label_reg, True, False),
+            (logloss, torch.zeros(N, device=dev), False, True),
+            (("l2",), -ones, True, True)):
+        args = ((zeros_T, torch.zeros(N, device=dev), aux, ones) if worst
+                else (bins_T, score, aux, bag)) + (7, spec, B, ch)
         k = hk.grad_quant_hist0(*args)
         p = hk.grad_quant_hist0_plain(*args)
-        err = max(exact(f"grad_quant_hist0[{spec[0]}].{nm}", a, b)
+        tag = f"grad_quant_hist0[{spec[0]}{', worst' if worst else ''}]"
+        err = max(exact(f"{tag}.{nm}", a, b)
                   for nm, a, b in zip(("gq", "hq", "cq", "scales", "hist"),
                                       k, p))
         nch = 2 if ch else 3
+        if worst:
+            if int(k[0].min()) != 127 or int(k[4][0, :, 0].min()) != 127 * N:
+                fail(f"{tag}: not the fields' worst case")
+            variants.append(dict(spec=spec[0], nch=nch, worst_case=True,
+                                 max_abs_err=err))
+            continue
         ms = time_ms(lambda: hk.grad_quant_hist0(*args))
+        split = device_split(lambda: hk.grad_quant_hist0(*args))
         plain_ms = time_ms(lambda: hk.grad_quant_hist0_plain(*args), reps=3)
         bms, by = bound(N * (F + 12 + nch) + nch * F * B * 4,
                         N * (40 + F * nch))
         variants.append(dict(spec=spec[0], nch=nch, max_abs_err=err, ms=ms,
-                             plain_ms=plain_ms, bound_ms=bms, bound_by=by))
+                             device_ms_by_kernel=split, plain_ms=plain_ms,
+                             bound_ms=bms, bound_by=by))
         if spec[0] == "logloss":
             quant3 = k
         else:
             quant2 = k
+    del zeros_T, ones
     main_v = variants[0]
     kernels["grad_quant_hist0"] = dict(
         route="cuda", source="lightgbm_tpu_torch/csrc/grad_quant_hist0.cu",
         replaces="lightgbm_tpu/ops/pallas_hist.py:918",
         max_abs_err=max(v["max_abs_err"] for v in variants),
-        ms=main_v["ms"], plain_ms=main_v["plain_ms"],
-        bound_ms=main_v["bound_ms"], bound_by=main_v["bound_by"],
-        library_ms=None, variants=variants)
+        ms=main_v["ms"], device_ms_by_kernel=main_v["device_ms_by_kernel"],
+        plain_ms=main_v["plain_ms"], bound_ms=main_v["bound_ms"],
+        bound_by=main_v["bound_by"], library_ms=None, variants=variants)
     print(f"grad_quant_hist0: exact; {variants}")
 
     # B2 hist_routed_fused, given the row-major bins as the growers give
@@ -386,7 +437,7 @@ def main() -> int:
     na_w = torch.full((F,), 256, dtype=torch.int32, device=dev)
     na_w[:5] = 0
     na_w[5:10] = BW - 1
-    rvariants, slots = [], {}
+    rvariants, slots, route_counts = [], {}, {}
     for s in (32, 127):
         lid = torch.randint(0, min(L, 2 * s), (N,), generator=g, device=dev,
                             dtype=torch.int64).to(torch.int32)
@@ -403,27 +454,35 @@ def main() -> int:
             torch.where(split & ~small_left, k_, s)]).to(torch.int32) \
             .contiguous()
         args = (bins_w, lid, tab, na_w, s)
-        ks, kl = hk.route_level(*args)
-        ps_, pl_ = hk.route_plain(*args)
+        ks, kl, kc = hk.route_level(*args)
+        ps_, pl_, pc_ = hk.route_plain(*args)
         err = max(exact(f"route_level[S={s}].slot", ks, ps_),
-                  exact(f"route_level[S={s}].lid2", kl, pl_))
+                  exact(f"route_level[S={s}].lid2", kl, pl_),
+                  exact(f"route_level[S={s}].counts", kc, pc_))
+        kept = ks[(ks >= 0) & (ks < s)].long()
+        exact(f"route_level[S={s}].counts vs bincount", kc,
+              torch.bincount(kept, minlength=s).to(torch.int32))
         routed = int((lid < s).sum())
         ms = time_ms(lambda: hk.route_level(*args))
         plain_ms = time_ms(lambda: hk.route_plain(*args), reps=3)
-        # lid in, slot and lid2 out, one bin byte a routed row, tables
-        bms, by = bound(12 * N + routed + 6 * L * 4 + F * 4, 8 * N)
-        rvariants.append(dict(S=s, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                              bound_ms=bms, bound_by=by))
-        slots[s] = ks
-        del lid, ps_, pl_, kl
+        # lid in, slot and lid2 out, one bin byte a routed row, the counts,
+        # tables (PERF.md states beside it the split-bin gather's practical
+        # floor, a 32-byte sector of bins_T a routed row)
+        bms, by = bound(12 * N + routed + 4 * s + 6 * L * 4 + F * 4, 8 * N)
+        rvariants.append(dict(
+            S=s, routed=routed, kept=int(kept.numel()), max_abs_err=err,
+            ms=ms, device_ms=device_ms(lambda: hk.route_level(*args)),
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by))
+        slots[s], route_counts[s] = ks, kc
+        del lid, ps_, pl_, pc_, kl, kept
     main_v = rvariants[-1]
     kernels["route_level"] = dict(
         route="cuda", source="lightgbm_tpu_torch/csrc/route_level.cu",
         replaces="lightgbm_tpu/ops/pallas_hist.py:1138",
         max_abs_err=max(v["max_abs_err"] for v in rvariants),
-        ms=main_v["ms"], plain_ms=main_v["plain_ms"],
-        bound_ms=main_v["bound_ms"], bound_by=main_v["bound_by"],
-        library_ms=None, variants=rvariants)
+        ms=main_v["ms"], device_ms=main_v["device_ms"],
+        plain_ms=main_v["plain_ms"], bound_ms=main_v["bound_ms"],
+        bound_by=main_v["bound_by"], library_ms=None, variants=rvariants)
     print(f"route_level: exact; {rvariants}")
 
     # B5 hist_q8 and B8 hist_f32 over shared slot vectors at B = 256: the
@@ -440,6 +499,9 @@ def main() -> int:
     # precomputed for the kept rows: the same sums, channel-first. Bounds
     # count the bytes this data needs: the slot vector, and the bins and
     # channels of the kept rows only
+    # S = 32 and 127 are handed route_level's counts, as on the main path,
+    # and each is held against the same call without them (its own count
+    # pass): hist_q8 exactly, hist_f32 within 2^-15 of the cell's mass
     u = torch.rand(N, generator=g, device=dev)
     slot_vars = {
         "root": (None, 1), "S32": (slots[32], 32), "S127": (slots[127], 127),
@@ -465,6 +527,7 @@ def main() -> int:
         del sl
         slot_bytes = 0 if slot is None else 4 * N
         base = dict(variant=name_, S=s, B=b_, kept=kept)
+        counts = route_counts.get(s) if name_ in ("S32", "S127") else None
 
         def yardstick(chans, dtype):
             src = torch.stack(chans)[:, ridx].to(dtype)[:, None, :].expand(
@@ -482,7 +545,14 @@ def main() -> int:
             args = (bins_s, gq, hq, cq, slot, s, b_)
             tag = f"hist_q8[{name_},nch={nch}]"
             ph_ = hk.hist_q8_plain(*args)
-            err = exact(tag, hk.hist_q8(*args, bins=rowmajor), ph_)
+            err = exact(tag, hk.hist_q8(*args, bins=rowmajor, counts=counts),
+                        ph_)
+            extra = {}
+            if counts is not None:
+                exact(f"{tag} without counts",
+                      hk.hist_q8(*args, bins=rowmajor), ph_)
+                extra["ms_without_counts"] = time_ms(
+                    lambda: hk.hist_q8(*args, bins=rowmajor))
             lib, lib_ms = yardstick([x for x in (gq, hq, cq)
                                      if x is not None], torch.int32)
             exact(f"{tag} index_add_ yardstick", lib.contiguous(), ph_)
@@ -490,22 +560,32 @@ def main() -> int:
                             + s * nch * F * b_ * 4, kept * F * nch)
             qvariants.append(dict(
                 base, nch=nch, max_abs_err=err,
-                ms=time_ms(lambda: hk.hist_q8(*args, bins=rowmajor)),
+                counts_given=counts is not None,
+                ms=time_ms(lambda: hk.hist_q8(*args, bins=rowmajor,
+                                              counts=counts)),
+                **extra,
                 plain_ms=time_ms(lambda: hk.hist_q8_plain(*args), reps=3),
                 bound_ms=bms, bound_by=by, library_ms=lib_ms))
             del ph_, lib
 
         args = (bins_s, *rows, slot, s, b_)
         tag = f"hist_f32[{name_},B={b_}]"
-        kh = hk.hist_f32(*args, bins=rowmajor)
         ph_ = hk.hist_f32_plain(*args)
         mass = hk.hist_f32_plain(bins_s, *abs_rows, slot, s, b_).double()
-        err = (kh.double() - ph_.double()).abs()
-        if not torch.equal(kh[:, 2], ph_[:, 2]):
-            fail(f"{tag}: counts differ from the plain version")
-        if bool((err[:, :2] > 2.0 ** -15 * mass[:, :2]).any()):
-            fail(f"{tag}: kernel vs plain error {float(err.max())} exceeds "
-                 "2^-15 of the cell's absolute mass")
+        extra, errs = {}, []
+        for kw in ({"counts": counts},) + (({},) if counts is not None
+                                           else ()):
+            kh = hk.hist_f32(*args, bins=rowmajor, **kw)
+            err = (kh.double() - ph_.double()).abs()
+            if not torch.equal(kh[:, 2], ph_[:, 2]):
+                fail(f"{tag}: counts differ from the plain version")
+            if bool((err[:, :2] > 2.0 ** -15 * mass[:, :2]).any()):
+                fail(f"{tag}: kernel vs plain error {float(err.max())} "
+                     "exceeds 2^-15 of the cell's absolute mass")
+            errs.append(float(err.max()))
+        if counts is not None:
+            extra["ms_without_counts"] = time_ms(
+                lambda: hk.hist_f32(*args, bins=rowmajor))
         lib, lib_ms = yardstick(list(rows), torch.float32)
         lib_err = (lib.double() - ph_.double()).abs()
         if bool((lib_err[:, :2] > 2.0 ** -15 * mass[:, :2]).any()):
@@ -513,8 +593,9 @@ def main() -> int:
         bms, by = bound(slot_bytes + kept * (F + 12) + s * 3 * F * b_ * 4,
                         kept * F * 3)
         fvariants.append(dict(
-            base, max_abs_err=float(err.max()),
-            ms=time_ms(lambda: hk.hist_f32(*args, bins=rowmajor)),
+            base, max_abs_err=errs[0], counts_given=counts is not None,
+            ms=time_ms(lambda: hk.hist_f32(*args, bins=rowmajor,
+                                           counts=counts)), **extra,
             plain_ms=time_ms(lambda: hk.hist_f32_plain(*args), reps=3),
             bound_ms=bms, bound_by=by, library_ms=lib_ms))
         del kh, ph_, mass, err, lib, lib_err, ridx, flat, keep, rowmajor
@@ -536,7 +617,8 @@ def main() -> int:
             library_ms=main_v["library_ms"], variants=variants)
         print(f"{nm}: {'exact' if nm == 'hist_q8' else 'counts exact'}; "
               f"{variants}")
-    del bins_w, slots, slot_vars, slot, bins_s, rows, abs_rows, args
+    del bins_w, slots, route_counts, counts, slot_vars, slot, bins_s, rows
+    del abs_rows, args
     torch.cuda.empty_cache()
 
     # B7 leaf_sums on materialized rows, tolerance 1e-6 * sum|x| per leaf

@@ -541,8 +541,11 @@ def check_slice(conf: Config) -> None:
                             "and the lossguide histogram pool)", "A13b")
     if str(conf.tree_learner).lower() != "serial" or conf.num_machines > 1:
         raise _out_of_slice(f"tree_learner={conf.tree_learner!r}", "A21")
-    if (conf.bagging_fraction < 1.0 or conf.pos_bagging_fraction < 1.0
-            or conf.neg_bagging_fraction < 1.0):
+    # the reference bags only when bagging_freq > 0 (models/gbdt.py
+    # _update_bag): a fraction below 1 alone trains without bagging there
+    if conf.bagging_freq > 0 and (conf.bagging_fraction < 1.0
+                                  or conf.pos_bagging_fraction < 1.0
+                                  or conf.neg_bagging_fraction < 1.0):
         raise _out_of_slice("bagging", "A10")
     if conf.feature_fraction < 1.0 or conf.feature_fraction_bynode < 1.0:
         raise _out_of_slice("feature_fraction / feature_fraction_bynode",

@@ -35,13 +35,13 @@ __global__ void __launch_bounds__(kSlotThreads)
 hist_f32_count_kernel(const int* __restrict__ slot, int n, int s,
                       int* __restrict__ counts) {
   extern __shared__ int sh[];   // [S] counts
-  lgbt::slot_count(lgbt::SlotVector{slot}, n, s, counts, sh);
+  lgbt::slot_count(slot, n, s, counts, sh);
 }
 
 __global__ void __launch_bounds__(kSlotThreads)
-hist_f32_scan_kernel(const int* __restrict__ counts, int s,
+hist_f32_scan_kernel(const int* __restrict__ counts, int s, int n,
                      int* __restrict__ off, int* __restrict__ cursor) {
-  lgbt::slot_scan(counts, s, off, cursor);
+  lgbt::slot_scan(counts, s, n, off, cursor);
 }
 
 // eight blocks an SM (at most 32 registers), so that some blocks' tiles
@@ -52,8 +52,11 @@ hist_f32_scatter_kernel(const uint8_t* __restrict__ bins,
                         const float* __restrict__ h,
                         const float* __restrict__ c,
                         const int* __restrict__ slot, int n, int f, int s,
-                        int* __restrict__ cursor, uint32_t* __restrict__ rec) {
-  lgbt::slot_scatter<float>(bins, g, h, c, slot, n, f, s, cursor, rec);
+                        int* __restrict__ cursor,
+                        const int* __restrict__ end,
+                        uint32_t* __restrict__ rec) {
+  lgbt::slot_scatter<float>(bins, g, h, c, slot, n, f, s, cursor,
+                            end, rec);
 }
 
 __global__ void __launch_bounds__(kSlotThreads)
@@ -71,18 +74,21 @@ hist_f32_kernel(const uint8_t* __restrict__ bins_T,
 }  // namespace
 
 // slot may be null (every row in slot 0); bins, the row-major [N, F] matrix
-// of bins_T, is read with a slot vector only. nch must be 3. hist
-// [S, 3, F, B] f32 and idx [3S + 1] i32 zero on entry; rec [n, rec_words]
-// u32 scratch (unused without a slot vector). Grid and range sizes from
-// ops/hist_kernels.py slot_hist_plan. Returns the first launch error, or
-// cudaErrorInvalidValue for arguments it refuses.
+// of bins_T, is read with a slot vector only. nch must be 3. counts [S]
+// i32, when not null (with a slot vector), are the kept rows of each slot
+// (route_level.cu's), and the count pass does not run. hist [S, 3, F, B]
+// f32 zero on entry; idx [3S + 1] i32 zero on entry unless counts are given
+// over S > 1 slots; rec [n, rec_words] u32 scratch (unused without a slot
+// vector). Grid and range sizes from ops/hist_kernels.py slot_hist_plan.
+// Returns the first launch error, or cudaErrorInvalidValue for arguments it
+// refuses.
 extern "C" int lgbt_hist_f32(const uint8_t* bins_T, const uint8_t* bins,
                              const float* g, const float* h, const float* c,
-                             const int* slot, int n, int f, int b, int s,
-                             int nch, int fg,
-                             int blocks, int min_rows, int pass_blocks,
-                             int* idx, uint32_t* rec, int rec_words,
-                             float* hist, cudaStream_t stream) {
+                             const int* slot, const int* counts, int n, int f,
+                             int b, int s, int nch, int fg, int blocks,
+                             int min_rows, int pass_blocks, int* idx,
+                             uint32_t* rec, int rec_words, float* hist,
+                             cudaStream_t stream) {
   if (nch != 3) return static_cast<int>(cudaErrorInvalidValue);
   const int rc = lgbt::slot_hist_check<float>(
       slot != nullptr, bins, n, f, b, nch, fg, blocks, min_rows, pass_blocks,
@@ -91,8 +97,8 @@ extern "C" int lgbt_hist_f32(const uint8_t* bins_T, const uint8_t* bins,
   const lgbt::SlotHistKernels<float> k{
       hist_f32_count_kernel, hist_f32_scan_kernel, hist_f32_scatter_kernel,
       hist_f32_kernel};
-  return lgbt::slot_hist_launch<float>(k, bins_T, bins, g, h, c, slot, n, f,
-                                       b, s, nch, fg, blocks, min_rows,
-                                       pass_blocks, idx, rec, rec_words, hist,
-                                       stream);
+  return lgbt::slot_hist_launch<float>(k, bins_T, bins, g, h, c, slot,
+                                       counts, n, f, b, s, nch, fg, blocks,
+                                       min_rows, pass_blocks, idx, rec,
+                                       rec_words, hist, stream);
 }

@@ -28,13 +28,13 @@ __global__ void __launch_bounds__(kSlotThreads)
 hist_q8_count_kernel(const int* __restrict__ slot, int n, int s,
                      int* __restrict__ counts) {
   extern __shared__ int sh[];   // [S] counts
-  lgbt::slot_count(lgbt::SlotVector{slot}, n, s, counts, sh);
+  lgbt::slot_count(slot, n, s, counts, sh);
 }
 
 __global__ void __launch_bounds__(kSlotThreads)
-hist_q8_scan_kernel(const int* __restrict__ counts, int s,
+hist_q8_scan_kernel(const int* __restrict__ counts, int s, int n,
                     int* __restrict__ off, int* __restrict__ cursor) {
-  lgbt::slot_scan(counts, s, off, cursor);
+  lgbt::slot_scan(counts, s, n, off, cursor);
 }
 
 // eight blocks an SM (at most 32 registers), so that some blocks' tiles
@@ -45,8 +45,11 @@ hist_q8_scatter_kernel(const uint8_t* __restrict__ bins,
                        const int8_t* __restrict__ hq,
                        const int8_t* __restrict__ cq,
                        const int* __restrict__ slot, int n, int f, int s,
-                       int* __restrict__ cursor, uint32_t* __restrict__ rec) {
-  lgbt::slot_scatter<int8_t>(bins, gq, hq, cq, slot, n, f, s, cursor, rec);
+                       int* __restrict__ cursor,
+                       const int* __restrict__ end,
+                       uint32_t* __restrict__ rec) {
+  lgbt::slot_scatter<int8_t>(bins, gq, hq, cq, slot, n, f, s, cursor,
+                             end, rec);
 }
 
 __global__ void __launch_bounds__(kSlotThreads)
@@ -62,18 +65,21 @@ hist_q8_kernel(const uint8_t* __restrict__ bins_T,
 }  // namespace
 
 // slot may be null (every row in slot 0); bins, the row-major [N, F] matrix
-// of bins_T, is read with a slot vector only; hq is null when nch == 2. hist
-// [S, nch, F, B] i32 and idx [3S + 1] i32 zero on entry; rec [n, rec_words]
-// u32 scratch (unused without a slot vector). Grid and range sizes from
+// of bins_T, is read with a slot vector only; hq is null when nch == 2.
+// counts [S] i32, when not null (with a slot vector), are the kept rows of
+// each slot (route_level.cu's), and the count pass does not run. hist
+// [S, nch, F, B] i32 zero on entry; idx [3S + 1] i32 zero on entry unless
+// counts are given over S > 1 slots; rec [n, rec_words] u32 scratch
+// (unused without a slot vector). Grid and range sizes from
 // ops/hist_kernels.py slot_hist_plan. Returns the first launch error, or
 // cudaErrorInvalidValue for arguments it refuses.
 extern "C" int lgbt_hist_q8(const uint8_t* bins_T, const uint8_t* bins,
                             const int8_t* gq, const int8_t* hq,
-                            const int8_t* cq, const int* slot, int n,
-                            int f, int b, int s, int nch, int fg, int blocks,
-                            int min_rows, int pass_blocks, int* idx,
-                            uint32_t* rec, int rec_words, int* hist,
-                            cudaStream_t stream) {
+                            const int8_t* cq, const int* slot,
+                            const int* counts, int n, int f, int b, int s,
+                            int nch, int fg, int blocks, int min_rows,
+                            int pass_blocks, int* idx, uint32_t* rec,
+                            int rec_words, int* hist, cudaStream_t stream) {
   if (nch != 2 && nch != 3) return static_cast<int>(cudaErrorInvalidValue);
   const int rc = lgbt::slot_hist_check<int8_t>(
       slot != nullptr, bins, n, f, b, nch, fg, blocks, min_rows, pass_blocks,
@@ -83,6 +89,7 @@ extern "C" int lgbt_hist_q8(const uint8_t* bins_T, const uint8_t* bins,
       hist_q8_count_kernel, hist_q8_scan_kernel, hist_q8_scatter_kernel,
       hist_q8_kernel};
   return lgbt::slot_hist_launch<int8_t>(
-      k, bins_T, bins, gq, nch == 3 ? hq : nullptr, cq, slot, n, f, b, s, nch,
-      fg, blocks, min_rows, pass_blocks, idx, rec, rec_words, hist, stream);
+      k, bins_T, bins, gq, nch == 3 ? hq : nullptr, cq, slot, counts, n, f, b,
+      s, nch, fg, blocks, min_rows, pass_blocks, idx, rec, rec_words, hist,
+      stream);
 }

@@ -17,18 +17,17 @@
 // (slot_hist.cuh). The TPU decoded each row's split with a one-hot
 // [L, C] x [8, L] HIGHEST-precision MXU product and contracted a [F*B, C]
 // one-hot against a [S*nch, C] weight block; here:
-// 1. route + count (hist_routed_count_kernel), one thread a row, four rows
-//    in flight: each block copies the [6, L] int32 tables (feat, thr, dleft,
-//    new_leaf, slot_left, slot_right) into shared memory (6 KB at L = 255;
-//    larger tables are read from global memory), routes each row with
-//    lgbt::route_row, writes its new leaf id and its slot (the [N] scratch
-//    slot vector) and counts the kept rows per slot: slot_count with this
-//    routing as its source (block-local counts, warp-aggregated with
-//    __match_any_sync, one global atomic per slot and block). This is
-//    route_level's launch and hist_q8's count pass in one, and every row's
-//    split bin is read once a call. One slot (a first level) is routed but
-//    not counted: its range starts at 0.
-// 2. slot_hist_launch with a null count kernel: scan (skipped at one slot,
+// 1. route + count (hist_routed_count_kernel), slot_hist.cuh route_count,
+//    the launch of route_level.cu: one row a thread in 256-thread blocks,
+//    the [6, L] int32 tables in shared memory (6 KB at L = 255; larger
+//    tables are read from global memory); each row is routed with
+//    lgbt::route_row, its new leaf id and its slot (the [N] scratch slot
+//    vector) written, and the kept rows counted per slot (block-local
+//    counts, warp-aggregated with __match_any_sync, one global atomic per
+//    slot and block) into the first S words of idx. Every row's split bin
+//    is read once a call. One slot (a first level) is routed but not
+//    counted: its range starts at 0.
+// 2. slot_hist_launch given those counts: scan (skipped at one slot,
 //    a first level), scatter of each kept row into its slot's range of
 //    packed records (its F bins from the row-major [N, F] bins, then one
 //    word of int8 g, h, count: 32 B at F = 28), and histogram blocks that
@@ -45,51 +44,22 @@ namespace {
 
 using lgbt::kSlotThreads;
 
-// The level routing as slot_count's source: at() routes row r and keeps its
-// new leaf id in aux; done() writes the row's slot and new leaf id.
-struct RouteSource {
-  const uint8_t* __restrict__ bins_T;
-  const int* tab;   // [6, L], in shared or global memory
-  const int* __restrict__ na_bin;
-  const int* __restrict__ lid;
-  int n, f, l, s;
-  int* __restrict__ slot;
-  int* __restrict__ lid2;
-  __device__ __forceinline__ int at(int r, int& new_leaf) const {
-    int sl;
-    lgbt::route_row(bins_T, tab, na_bin, n, f, l, s, r, lid[r], sl, new_leaf);
-    return sl;
-  }
-  __device__ __forceinline__ void done(int r, int sl, int new_leaf) const {
-    slot[r] = sl;
-    lid2[r] = new_leaf;
-  }
-};
-
-__global__ void __launch_bounds__(kSlotThreads)
+__global__ void __launch_bounds__(lgbt::kRouteThreads)
 hist_routed_count_kernel(const uint8_t* __restrict__ bins_T,
                          const int* __restrict__ lid,
                          const int* __restrict__ tab_g,
                          const int* __restrict__ na_bin, int n, int f, int l,
-                         int s, int tab_smem, int* __restrict__ slot,
-                         int* __restrict__ lid2, int* __restrict__ counts) {
-  // [S] counts when S <= kCountSlots, then the tables when tab_smem
-  extern __shared__ int sh[];
-  const int* tab = tab_g;
-  if (tab_smem) {
-    int* tsh = sh + (s <= lgbt::kCountSlots ? s : 0);
-    for (int k = threadIdx.x; k < 6 * l; k += blockDim.x) tsh[k] = tab_g[k];
-    __syncthreads();
-    tab = tsh;
-  }
-  const RouteSource src{bins_T, tab, na_bin, lid, n, f, l, s, slot, lid2};
-  lgbt::slot_count(src, n, s, counts, sh);
+                         int s, int tab_smem, bool counting,
+                         int* __restrict__ slot, int* __restrict__ lid2,
+                         int* __restrict__ counts) {
+  lgbt::route_count(bins_T, lid, tab_g, na_bin, n, f, l, s, tab_smem,
+                    counting, slot, lid2, counts);
 }
 
 __global__ void __launch_bounds__(kSlotThreads)
-hist_routed_scan_kernel(const int* __restrict__ counts, int s,
+hist_routed_scan_kernel(const int* __restrict__ counts, int s, int n,
                         int* __restrict__ off, int* __restrict__ cursor) {
-  lgbt::slot_scan(counts, s, off, cursor);
+  lgbt::slot_scan(counts, s, n, off, cursor);
 }
 
 // eight blocks an SM (at most 32 registers), as hist_q8.cu's scatter
@@ -100,8 +70,10 @@ hist_routed_scatter_kernel(const uint8_t* __restrict__ bins,
                            const int8_t* __restrict__ cq,
                            const int* __restrict__ slot, int n, int f, int s,
                            int* __restrict__ cursor,
+                           const int* __restrict__ end,
                            uint32_t* __restrict__ rec) {
-  lgbt::slot_scatter<int8_t>(bins, gq, hq, cq, slot, n, f, s, cursor, rec);
+  lgbt::slot_scatter<int8_t>(bins, gq, hq, cq, slot, n, f, s, cursor,
+                             end, rec);
 }
 
 __global__ void __launch_bounds__(kSlotThreads)
@@ -135,19 +107,15 @@ extern "C" int lgbt_hist_routed_fused(
                                                blocks, min_rows, pass_blocks,
                                                rec_words);
   if (rc != cudaSuccess) return rc;
-  const size_t count_smem = s <= lgbt::kCountSlots ? s * sizeof(int) : 0;
-  const size_t tab_bytes = static_cast<size_t>(6) * l * sizeof(int);
-  const int tab_smem = count_smem + tab_bytes <= lgbt::kSmemBudget ? 1 : 0;
-  const size_t smem = count_smem + (tab_smem ? tab_bytes : 0);
-  cudaError_t err = lgbt::allow_smem(hist_routed_count_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  hist_routed_count_kernel<<<pass_blocks, kSlotThreads, smem, stream>>>(
-      bins_T, lid, tab, na_bin, n, f, l, s, tab_smem, slot, lid2, idx);
-  if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  const int err = lgbt::route_count_launch(
+      hist_routed_count_kernel, bins_T, lid, tab, na_bin, n, f, l, s, s > 1,
+      slot, lid2, idx, pass_blocks, stream);
+  if (err != cudaSuccess) return err;
   const lgbt::SlotHistKernels<int8_t> k{
       nullptr, hist_routed_scan_kernel, hist_routed_scatter_kernel,
       hist_routed_kernel};
   return lgbt::slot_hist_launch<int8_t>(
-      k, bins_T, bins, gq, nch == 3 ? hq : nullptr, cq, slot, n, f, b, s, nch,
-      fg, blocks, min_rows, pass_blocks, idx, rec, rec_words, hist, stream);
+      k, bins_T, bins, gq, nch == 3 ? hq : nullptr, cq, slot, idx, n, f, b, s,
+      nch, fg, blocks, min_rows, pass_blocks, idx, rec, rec_words, hist,
+      stream);
 }

@@ -3,9 +3,12 @@
 // whose slots its own routing gives): sums of row channels by (slot,
 // feature, bin) into the channel-major [S, nch, F, B] table (zero on
 // entry). Rows whose slot lies outside [0, S), negative ones included, are
-// dropped; a null slot vector puts every row in slot 0. Each source wraps
-// these device functions in __global__ kernels of its own names, so that a
-// profile attributes every launch to its kernel.
+// dropped; a null slot vector puts every row in slot 0. Also the level
+// routing with its per-slot counts (route_count), shared by B2 and B6
+// route_level.cu, whose counts B5 and B8 then take in place of their own
+// count pass. Each source wraps these device functions in __global__
+// kernels of its own names, so that a profile attributes every launch to
+// its kernel.
 //
 // Design: group the kept rows by slot, then histogram each group with its
 // slot's whole [nch, F, B] table in one block's shared memory, so that each
@@ -17,13 +20,15 @@
 // 1. Compaction, with a slot vector; three launches:
 //    count    per-slot counts of kept rows, block-local in shared memory
 //             (warp-aggregated with __match_any_sync), then one global atomic
-//             per slot and block; the slots come from a source (SlotVector
-//             reads them; B2's routing computes them, writing the slot
-//             vector as it goes, in the same launch);
+//             per slot and block: slot_count over a slot vector, or
+//             route_count, which routes the rows and writes the slot vector
+//             in the same launch (B2's first launch, and B6's, whose counts
+//             B5 and B8 are handed, so that they skip this pass);
 //    scan     one block: exclusive scan of the S counts into offsets [S + 1]
 //             and per-slot cursors;
 //    scatter  each kept row takes the next place in its slot's range (one
-//             cursor atomic per slot and 1024-row tile) and writes one
+//             cursor atomic per slot and 1024-row tile, checked against
+//             the range's end) and writes one
 //             record there: its F bins as bytes, padded to a word, then its
 //             channels (SlotChans: three f32 words, or one word of int8 g,
 //             h, count). A warp writes its kept rows' records one word a
@@ -77,13 +82,28 @@
 // 3. Root pass (no slot vector): no compaction; the same histogram blocks
 //    walk ranges of rows in natural order, reading bins_T and the channel
 //    arrays directly, all in slot 0.
+//
+// Counts handed over (route_level's) must be those of the slot vector. Ones
+// that do not match it stop the launch with a device-side assert
+// (cudaErrorAssert at the next synchronizing call) and never move a write
+// or a read outside the scratch: the scan clamps the offsets to [0, N], the
+// scatter drops the rows of a reservation that passes its slot's range (too
+// low a count), and the histogram asserts that the scatter filled every
+// slot's range (too high a count).
 #pragma once
+
+#include <cassert>
 
 #include "lgbt_common.cuh"
 
 namespace lgbt {
 
 constexpr int kSlotThreads = 1024;
+// threads of a route_count block (one row a thread in 256-thread blocks
+// beat four rows in flight in 1024-thread blocks by up to 9 us a call at
+// narrow levels on an H100 80GB HBM3 at 700 W,
+// scripts/torch_profile_slot_hist.py --only b6)
+constexpr int kRouteThreads = 256;
 // threads of a scatter block: more, smaller blocks an SM overlap one
 // block's waits at its two barriers a tile with the others' loads (on an
 // H100 a few per cent to a sixth faster than 1024)
@@ -167,50 +187,31 @@ __device__ __forceinline__ void slot_peers(unsigned keep_mask, int sl, int s,
   rank = __popc(peers & ((1u << lane) - 1u));
 }
 
-// The slots of a precomputed slot vector, the source of slot_count for
-// hist_q8 and hist_f32. A source's at(r, aux) only loads: it returns row
-// r's slot and may keep a word of its own in aux; done(r, slot, aux) then
-// stores what the source writes for the row (nothing here; the level
-// routing of hist_routed_fused.cu writes the slot and the new leaf id).
-struct SlotVector {
-  const int* __restrict__ slot;
-  __device__ __forceinline__ int at(int r, int&) const { return slot[r]; }
-  __device__ __forceinline__ void done(int, int, int) const {}
-};
-
-// count: counts [S] (zero on entry) += kept rows of each slot, row r's slot
-// being src.at(r). sh is the block's [S] ints of dynamic shared memory when
-// S <= kCountSlots (else unused: the counts go straight to global memory).
-// One slot is not counted (slot_hist_launch starts its range at 0 and needs
-// no count): the source still visits every row.
-template <typename Src>
-__device__ __forceinline__ void slot_count(const Src& src, int n, int s,
+// count: counts [S] (zero on entry) += kept rows of each slot of the slot
+// vector. sh is the block's [S] ints of dynamic shared memory when S <=
+// kCountSlots (else unused: the counts go straight to global memory).
+__device__ __forceinline__ void slot_count(const int* __restrict__ slot,
+                                           int n, int s,
                                            int* __restrict__ counts,
                                            int* sh) {
-  const bool counting = s > 1;
-  const bool local = counting && s <= kCountSlots;
+  const bool local = s <= kCountSlots;
   if (local) {
     for (int k = threadIdx.x; k < s; k += blockDim.x) sh[k] = 0;
     __syncthreads();
   }
   int* dst = local ? sh : counts;
-  // four rows in flight a thread (every load of the four before any store);
-  // base is warp-uniform, so every lane of a warp takes the same iterations
+  // four rows in flight a thread (every load of the four before any
+  // count); base is warp-uniform, so every lane of a warp takes the same
+  // iterations
   const long long step = 4LL * gridDim.x * blockDim.x;
   for (long long base = 4LL * blockIdx.x * blockDim.x; base < n;
        base += step) {
-    int sl[4], aux[4];
+    int sl[4];
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const long long r = base + u * blockDim.x + threadIdx.x;
-      sl[u] = r < n ? src.at(static_cast<int>(r), aux[u]) : -1;
+      sl[u] = r < n ? slot[r] : -1;
     }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const long long r = base + u * blockDim.x + threadIdx.x;
-      if (r < n) src.done(static_cast<int>(r), sl[u], aux[u]);
-    }
-    if (!counting) continue;
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const bool keep = sl[u] >= 0 && sl[u] < s;
@@ -232,34 +233,127 @@ __device__ __forceinline__ void slot_count(const Src& src, int n, int s,
   }
 }
 
+// Dynamic shared memory of route_count: the [S] counts when S <=
+// kCountSlots, then the [6, L] tables when both fit the budget (tab_smem
+// set; larger tables are read from global memory).
+inline size_t route_count_smem(int s, int l, int& tab_smem) {
+  const size_t count_smem = s <= kCountSlots ? s * sizeof(int) : 0;
+  const size_t tab_bytes = static_cast<size_t>(6) * l * sizeof(int);
+  tab_smem = count_smem + tab_bytes <= kSmemBudget ? 1 : 0;
+  return count_smem + (tab_smem ? tab_bytes : 0);
+}
+
+// route + count, one row a thread: each block
+// copies the [6, L] int32 route tables (feat, thr, dleft, new_leaf,
+// slot_left, slot_right) into shared memory (6 KB at L = 255), routes its
+// warps' rows through lgbt::route_row (a warp-uniform stride, so that the
+// count's warp votes see every lane), writes each row's slot and new leaf
+// id, and (with counting) adds the kept rows of each slot into counts [S]
+// (zero on entry).
+__device__ __forceinline__ void route_count(
+    const uint8_t* __restrict__ bins_T, const int* __restrict__ lid,
+    const int* __restrict__ tab_g, const int* __restrict__ na_bin, int n,
+    int f, int l, int s, int tab_smem, bool counting, int* __restrict__ slot,
+    int* __restrict__ lid2, int* __restrict__ counts) {
+  extern __shared__ int route_count_sh[];
+  const bool local = counting && s <= kCountSlots;
+  const int* tab = tab_g;
+  if (local)
+    for (int k = threadIdx.x; k < s; k += blockDim.x) route_count_sh[k] = 0;
+  if (tab_smem) {
+    int* tsh = route_count_sh + (s <= kCountSlots ? s : 0);
+    for (int k = threadIdx.x; k < 6 * l; k += blockDim.x) tsh[k] = tab_g[k];
+    tab = tsh;
+  }
+  __syncthreads();
+  int* dst = local ? route_count_sh : counts;
+  const int lane = threadIdx.x & 31;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long base = static_cast<long long>(blockIdx.x) * blockDim.x +
+                        (threadIdx.x & ~31);
+       base < n; base += stride) {
+    const int r = static_cast<int>(base) + lane;
+    int sl = -1, nl;
+    if (r < n) {
+      route_row(bins_T, tab, na_bin, n, f, l, s, r, lid[r], sl, nl);
+      slot[r] = sl;
+      lid2[r] = nl;
+    }
+    if (!counting) continue;
+    const bool keep = sl >= 0 && sl < s;
+    const unsigned km = __ballot_sync(kFullMask, keep);
+    if (keep) {
+      unsigned peers;
+      int leader, rank;
+      slot_peers(km, sl, s, peers, leader, rank);
+      if (rank == 0) atomicAdd(dst + sl, __popc(peers));
+    }
+  }
+  if (local) {
+    __syncthreads();
+    for (int k = threadIdx.x; k < s; k += blockDim.x) {
+      const int v = route_count_sh[k];
+      if (v) atomicAdd(counts + k, v);
+    }
+  }
+}
+
+// Launch a __global__ wrapper of route_count on pass_blocks blocks of
+// kRouteThreads. Returns the launch error.
+template <typename Kernel>
+inline int route_count_launch(Kernel kernel, const uint8_t* bins_T,
+                              const int* lid, const int* tab,
+                              const int* na_bin, int n, int f, int l, int s,
+                              bool counting, int* slot, int* lid2,
+                              int* counts, int pass_blocks,
+                              cudaStream_t stream) {
+  int tab_smem = 0;
+  const size_t smem = route_count_smem(s, l, tab_smem);
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<pass_blocks, kRouteThreads, smem, stream>>>(
+      bins_T, lid, tab, na_bin, n, f, l, s, tab_smem, counting, slot, lid2,
+      counts);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // scan, one block: off [S + 1] = exclusive prefix sums of counts (off[S] =
-// kept rows), cursor [S] = off[0 .. S).
+// kept rows), cursor [S] = off[0 .. S). Counts handed over must lie in
+// [0, N] and sum to at most N (asserted); the offsets are clamped to
+// [0, N] all the same.
 __device__ __forceinline__ void slot_scan(const int* __restrict__ counts,
-                                          int s, int* __restrict__ off,
+                                          int s, int n,
+                                          int* __restrict__ off,
                                           int* __restrict__ cursor) {
-  __shared__ int part[kSlotThreads];
+  __shared__ long long part[kSlotThreads];
   const int t = threadIdx.x;
   const int per = (s + blockDim.x - 1) / blockDim.x;
   const int k0 = min(s, t * per);
   const int k1 = min(s, k0 + per);
-  int sum = 0;
-  for (int k = k0; k < k1; ++k) sum += counts[k];
+  long long sum = 0;
+  for (int k = k0; k < k1; ++k) {
+    assert(counts[k] >= 0 && counts[k] <= n);
+    sum += min(max(counts[k], 0), n);
+  }
   part[t] = sum;
   __syncthreads();
   // inclusive Hillis-Steele scan of the per-thread partial sums
   for (int d = 1; d < static_cast<int>(blockDim.x); d <<= 1) {
-    const int v = t >= d ? part[t - d] : 0;
+    const long long v = t >= d ? part[t - d] : 0;
     __syncthreads();
     part[t] += v;
     __syncthreads();
   }
-  int run = part[t] - sum;
+  long long run = part[t] - sum;
   for (int k = k0; k < k1; ++k) {
-    off[k] = run;
-    cursor[k] = run;
-    run += counts[k];
+    off[k] = static_cast<int>(min(run, static_cast<long long>(n)));
+    cursor[k] = off[k];
+    run += min(max(counts[k], 0), n);
   }
-  if (t == blockDim.x - 1) off[s] = part[t];
+  if (t == blockDim.x - 1) {
+    assert(part[t] <= n);
+    off[s] = static_cast<int>(min(part[t], static_cast<long long>(n)));
+  }
 }
 
 // Word k of row r's record: its bins as bytes (four a word, from the
@@ -280,12 +374,26 @@ __device__ __forceinline__ uint32_t record_word(
   return w;
 }
 
+// The first of v places taken at slot k's cursor, or, where they would
+// pass the end of its range (counts handed over that undercount slot k), a
+// device-side assert and a negative place that drops the rows.
+__device__ __forceinline__ int scatter_reserve(int* __restrict__ cursor,
+                                               const int* __restrict__ end,
+                                               int k, int v) {
+  const int first = atomicAdd(cursor + k, v);
+  const bool fits = !end || first + v <= end[k];
+  assert(fits);
+  return fits ? first : -(1 << 30);
+}
+
 // scatter: each kept row writes its record at the next place of its slot's
 // range (cursor [S] from slot_scan) of rec [kept, record_words<C>(f)],
-// reading its bins from the row-major [N, F] matrix bins. A
-// block takes tiles of 4 x blockDim rows: the rows of a tile are ranked
-// within their slot by shared atomics (warp-aggregated), and the tile then
-// reserves each slot's run of places with one global atomic (a global
+// reading its bins from the row-major [N, F] matrix bins. end [S], the
+// ranges' ends (off + 1; null at one slot, whose range ends at N), bounds
+// each reservation (scatter_reserve). A block takes tiles of 4 x blockDim
+// rows: the rows of a tile are ranked within their slot by shared atomics
+// (warp-aggregated), and the tile then reserves each slot's run of places
+// with one global atomic (a global
 // atomic a row or a warp serializes on the cursor of a slot that holds many
 // rows: the one slot of a lossguide pass). With more slots than fit shared
 // memory, each warp reserves its places on the global cursors directly.
@@ -298,7 +406,8 @@ __device__ __forceinline__ void slot_scatter(
     const uint8_t* __restrict__ bins, const C* __restrict__ g,
     const C* __restrict__ h, const C* __restrict__ c,
     const int* __restrict__ slot, int n, int f, int s,
-    int* __restrict__ cursor, uint32_t* __restrict__ rec) {
+    int* __restrict__ cursor, const int* __restrict__ end,
+    uint32_t* __restrict__ rec) {
   extern __shared__ int slot_scatter_sh[];   // [S] tile counts, [S] bases
   __shared__ int2 kept_sh[kScatterThreads];  // a warp's (row, place) pairs
   const bool local = s <= kCountSlots / 2;
@@ -334,7 +443,8 @@ __device__ __forceinline__ void slot_scatter(
         slot_peers(km, sl[u], s, peers, leader, rank);
         int first = 0;
         if (lane == leader)
-          first = atomicAdd((local ? cnt : cursor) + sl[u], __popc(peers));
+          first = local ? atomicAdd(cnt + sl[u], __popc(peers))
+                        : scatter_reserve(cursor, end, sl[u], __popc(peers));
         at[u] = __shfl_sync(peers, first, leader) + rank;
       }
     }
@@ -343,7 +453,7 @@ __device__ __forceinline__ void slot_scatter(
       for (int k = threadIdx.x; k < s; k += blockDim.x) {
         const int v = cnt[k];
         if (v) {
-          start[k] = atomicAdd(cursor + k, v);
+          start[k] = scatter_reserve(cursor, end, k, v);
           cnt[k] = 0;
         }
       }
@@ -351,13 +461,13 @@ __device__ __forceinline__ void slot_scatter(
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
-      const bool keep = at[u] >= 0;
+      const int place = at[u] >= 0 && local ? start[sl[u]] + at[u] : at[u];
+      const bool keep = place >= 0;
       const unsigned km = __ballot_sync(kFullMask, keep);
       if (!km) continue;                       // warp-uniform
       if (keep)
         mine[__popc(km & ((1u << lane) - 1u))] = make_int2(
-            static_cast<int>(base + u * blockDim.x + threadIdx.x),
-            local ? start[sl[u]] + at[u] : at[u]);
+            static_cast<int>(base + u * blockDim.x + threadIdx.x), place);
       __syncwarp();
       const int items = __popc(km) * rw;
       for (int t = lane; t < items; t += 32) {
@@ -376,7 +486,9 @@ __device__ __forceinline__ void slot_scatter(
 // [x * per, (x + 1) * per) of the slot-ordered list (off non-null: records
 // rec, off [S + 1] from slot_scan) or of the rows in natural order (off
 // null: bins_T and the channel arrays, slot 0), per = max(min_rows,
-// ceil(kept / grid.x)), and features [y * fg, y * fg + fg).
+// ceil(kept / grid.x)), and features [y * fg, y * fg + fg). Over S > 1
+// slots the scatter's cursors follow the offsets in slot_hist_launch's idx
+// (off + S + 1), and block (0, 0) asserts that each ends at its range's end.
 template <typename C>
 __device__ __forceinline__ void slot_hist(
     const uint8_t* __restrict__ bins_T, const C* __restrict__ g,
@@ -402,6 +514,9 @@ __device__ __forceinline__ void slot_hist(
   const int w0 = f0 / 4;                        // bin words of the group
   const int wg = (f0 + fcnt + 3) / 4 - w0;
   for (int k = threadIdx.x; k < total; k += blockDim.x) sh[k] = T(0);
+  if (off && s > 1 && blockIdx.x == 0 && blockIdx.y == 0)
+    for (int k = threadIdx.x; k < s; k += blockDim.x)
+      assert(off[s + 1 + k] == off[k + 1]);
   __syncthreads();
 
   int e = static_cast<int>(e0);
@@ -461,15 +576,17 @@ __device__ __forceinline__ void slot_hist(
 }
 
 // The four kernels of one cell type, each a __global__ wrapper of the device
-// function of its name. A null count means that the caller has counted the
-// slots itself (hist_routed_fused.cu routes and counts in one kernel).
+// function of its name. count may be null where the caller always hands
+// slot_hist_launch its counts (hist_routed_fused.cu routes and counts in
+// one kernel).
 template <typename C>
 struct SlotHistKernels {
   using Cell = typename SlotChans<C>::Cell;
   void (*count)(const int*, int, int, int*);
-  void (*scan)(const int*, int, int*, int*);
+  void (*scan)(const int*, int, int, int*, int*);
   void (*scatter)(const uint8_t*, const C*, const C*, const C*, const int*,
-                  int, int, int, int*, uint32_t*);   // bins, not bins_T
+                  int, int, int, int*, const int*,
+                  uint32_t*);                        // bins, not bins_T
   void (*hist)(const uint8_t*, const C*, const C*, const C*, const int*,
                const uint32_t*, int, int, int, int, int, int, int, Cell*);
 };
@@ -501,15 +618,20 @@ inline int slot_hist_check(bool slotted, const uint8_t* bins, int n, int f,
 // for scatter; one slot needs the scatter alone) and the histogram over the
 // records, else the histogram over the rows in natural order. bins is the
 // row-major [N, F] matrix of bins_T, needed with a slot vector. idx [3S + 1]
-// i32 (zero on entry) holds counts, offsets and cursors; with a null
-// k.count the caller has already added every kept row to its slot's count,
-// idx[0 .. S). rec holds n * rec_words words. Returns the first launch
-// error.
+// i32 holds counts, offsets and cursors: its counts zero on entry where the
+// count pass adds into them, and at one slot its words zero (the cursor
+// idx[S + 1] counts the scattered rows). counts [S], when not null, are the
+// kept rows of each slot that the caller has counted (route_level's, or
+// hist_routed_fused.cu's own, in idx), and no count pass runs; counts that
+// do not match the slot vector stop the launch with a device-side assert
+// (see the top of this file). rec holds n * rec_words words. Returns the
+// first launch error.
 template <typename C>
 inline int slot_hist_launch(const SlotHistKernels<C>& k,
                             const uint8_t* bins_T, const uint8_t* bins,
                             const C* g, const C* h,
-                            const C* c, const int* slot, int n, int f, int b,
+                            const C* c, const int* slot, const int* counts,
+                            int n, int f, int b,
                             int s, int nch, int fg, int blocks, int min_rows,
                             int pass_blocks, int* idx, uint32_t* rec,
                             int rec_words, typename SlotChans<C>::Cell* hist,
@@ -524,7 +646,6 @@ inline int slot_hist_launch(const SlotHistKernels<C>& k,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int* off = nullptr;
   if (slot) {
-    int* counts = idx;
     int* offs = idx + s;
     // one slot (a lossguide pass, a first level) needs no counts: its range
     // starts at 0, and the scatter's cursor, offs[1], ends at the kept rows
@@ -533,19 +654,21 @@ inline int slot_hist_launch(const SlotHistKernels<C>& k,
     const size_t scatter_smem =
         s <= kCountSlots / 2 ? 2 * s * sizeof(int) : 0;
     if (s > 1) {
-      if (count) {
+      if (!counts) {
         count<<<pass_blocks, kSlotThreads, count_smem, stream>>>(slot, n, s,
-                                                                 counts);
+                                                                 idx);
         if ((err = cudaGetLastError()) != cudaSuccess)
           return static_cast<int>(err);
+        counts = idx;
       }
-      scan<<<1, kSlotThreads, 0, stream>>>(counts, s, offs, cursor);
+      scan<<<1, kSlotThreads, 0, stream>>>(counts, s, n, offs, cursor);
       if ((err = cudaGetLastError()) != cudaSuccess)
         return static_cast<int>(err);
     }
     scatter<<<pass_blocks * (kSlotThreads / kScatterThreads), kScatterThreads,
               scatter_smem, stream>>>(
-        bins, g, h, c, slot, n, f, s, cursor, rec);
+        bins, g, h, c, slot, n, f, s, cursor, s > 1 ? offs + 1 : nullptr,
+        rec);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     off = offs;
   }

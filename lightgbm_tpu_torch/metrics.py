@@ -9,8 +9,6 @@ from typing import Callable, List, Optional
 
 import torch
 
-from .log import warning
-
 
 class Metric:
     """One named metric (reference: Metric, metric.h:24)."""
@@ -82,9 +80,8 @@ def create_metrics(names: List[str]) -> List[Metric]:
         if name in ("", "none", "null", "na", "custom"):
             continue
         if name not in _TABLE:
-            warning(f"metric {name} is not ported yet (ROADMAP.md queue "
-                    "A11); skipped")
-            continue
+            raise NotImplementedError(f"metric {name!r} is not ported yet "
+                                      "(ROADMAP.md queue A11)")
         nm, fn, gib = _TABLE[name]
         out.append(Metric(nm, fn, gib, use_prob=True))
     return out

@@ -39,13 +39,14 @@ _I = ctypes.c_int
 _U = ctypes.c_uint
 _F = ctypes.c_float
 # the slot histograms' entries (csrc/slot_hist.cuh slot_hist_launch)
-_SLOT_HIST = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
-              _P, _I, _P, _P]
+_SLOT_HIST = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+              _P, _P, _I, _P, _P]
 # C entry points and their argument types (pointers and the stream as
 # c_void_p, so ctypes never truncates them to 32 bits)
 _SIGNATURES: Dict[str, List] = {
     "lgbt_grad_quant_hist0": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F,
-                              _I, _U, _P, _P, _P, _P, _P, _P, _I, _P],
+                              _I, _U, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                              _P],
     "lgbt_hist_routed_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I,
                                _P, _P, _P],
@@ -53,7 +54,8 @@ _SIGNATURES: Dict[str, List] = {
                             _I, _P],
     "lgbt_take_small": [_P, _P, _I, _I, _P, _I, _P],
     "lgbt_hist_q8": _SLOT_HIST,
-    "lgbt_route_level": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P],
+    "lgbt_route_level": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I,
+                         _P],
     "lgbt_leaf_sums": [_P, _P, _P, _P, _I, _I, _P, _I, _P],
     "lgbt_hist_f32": _SLOT_HIST,
 }

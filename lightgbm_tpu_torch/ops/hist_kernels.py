@@ -19,7 +19,8 @@ hist_f32              hist_pallas (:114), hist_leaf_pallas (:175)    hist_f32.cu
 
 The first four carry the fused quantized path (F * B <= 2048);
 ``hist_q8``, ``route_level`` and ``leaf_sums`` carry the unfused one (the
-root pass, the two-pass level and leaf renewal from materialized rows),
+root pass, the two-pass level, where route_level hands hist_q8 its per-slot
+counts, and leaf renewal from materialized rows),
 which wider data takes, such as the default max_bin=255 (B = 256) on 28
 features. ``hist_f32`` carries unquantized training: the root and, after
 ``route_level``, every level of the depthwise grower, and the root and the
@@ -31,11 +32,12 @@ runs the plain version when they lie on the CPU. A CUDA tensor never falls
 back to the plain version: the kernel launches or the wrapper raises.
 ``LAUNCHES`` counts kernel launches, one per wrapper call on the CUDA path
 and nowhere else. A call can issue several CUDA launches: grad_quant_hist0
-two; hist_q8 and hist_f32 four with a slot vector over S > 1 slots (count,
-scan, scatter, histogram; ``csrc/slot_hist.cuh``), two over one slot
-(scatter, histogram) and one without a slot vector; hist_routed_fused four
-over S > 1 slots (route and count, scan, scatter, histogram) and three over
-one.
+two (max, quantize + histogram); hist_q8 and hist_f32 four with a slot
+vector over S > 1 slots (count, scan, scatter, histogram;
+``csrc/slot_hist.cuh``), three when handed route_level's per-slot counts
+(as the two-pass level hands them), two over one slot (scatter, histogram)
+and one without a slot vector; hist_routed_fused four over S > 1 slots
+(route and count, scan, scatter, histogram) and three over one.
 
 The quantized histograms come back as int32 channel sums ([S, nch, F, B],
 nch = 3 for (g, h, count) or 2 for (g, count) under const-hessian elision);
@@ -254,9 +256,10 @@ def grad_quant_hist0_plain(bins_T, score, aux, bag, seed: int, spec,
 
 def route_plain(bins_T, leaf_id, tables, na_bin, num_slots: int):
     """Per-row (slot, new leaf id) through one level's [6, L] route tables
-    (rows: feat, thr, dleft, new_leaf, slot_left, slot_right). Rows of
-    leaves that do not split (feat < 0) or of no leaf keep their id and get
-    the dropped slot S."""
+    (rows: feat, thr, dleft, new_leaf, slot_left, slot_right), and the kept
+    rows of each slot (slot in [0, S)): (slot [N] i32, lid2 [N] i32, counts
+    [S] i32). Rows of leaves that do not split (feat < 0) or of no leaf keep
+    their id and get the dropped slot S."""
     f, n = bins_T.shape
     l = tables.shape[1]
     lid = leaf_id.to(torch.int64)
@@ -272,14 +275,16 @@ def route_plain(bins_T, leaf_id, tables, na_bin, num_slots: int):
     go_right = torch.where(is_na, tab[2][lc] == 0, colv > tab[1][lc])
     lid2 = torch.where(has & go_right, tab[3][lc], lid).to(torch.int32)
     slot = torch.where(has, torch.where(go_right, tab[5][lc], tab[4][lc]),
-                       torch.full_like(lc, num_slots)).to(torch.int32)
-    return slot, lid2
+                       torch.full_like(lc, num_slots))
+    keep = (slot >= 0) & (slot < num_slots)
+    counts = torch.bincount(slot[keep], minlength=num_slots)
+    return slot.to(torch.int32), lid2, counts.to(torch.int32)
 
 
 def hist_routed_fused_plain(bins_T, gq, hq, cq, leaf_id, tables, na_bin,
                             num_slots: int, num_bins: int):
     """Plain version of hist_routed_fused (same returns)."""
-    slot, lid2 = route_plain(bins_T, leaf_id, tables, na_bin, num_slots)
+    slot, lid2, _ = route_plain(bins_T, leaf_id, tables, na_bin, num_slots)
     return hist_q8_plain(bins_T, gq, hq, cq, slot, num_slots, num_bins), lid2
 
 
@@ -333,9 +338,10 @@ def grad_quant_hist0(bins_T: torch.Tensor, score: torch.Tensor,
         return grad_quant_hist0_plain(bins_T, score, aux, bag, seed, spec,
                                       num_bins, const_hess)
     nch = 2 if const_hess else 3
-    if nch * f * num_bins * 4 > 48 * 1024:
+    if (nch + 1) * f * num_bins * 4 > 48 * 1024:
         raise ValueError(f"grad_quant_hist0: F * B = {f * num_bins} exceeds "
-                         "the kernel's 2048-cell root histogram")
+                         f"the kernel's {12288 // (nch + 1)}-cell root "
+                         "histogram")
     lib = cuda_lib.load()
     gq = torch.empty(n, dtype=torch.int8, device=dev)
     hq = None if const_hess else torch.empty(n, dtype=torch.int8, device=dev)
@@ -344,12 +350,13 @@ def grad_quant_hist0(bins_T: torch.Tensor, score: torch.Tensor,
     mx = torch.zeros(2, dtype=torch.int32, device=dev)
     hist = torch.zeros((nch, f, num_bins), dtype=torch.int32, device=dev)
     kind, sig, sig2, lwp, lwn = spec_args(spec)
-    grid = max(1, min(4 * _num_sms(dev), -(-n // 256)))
+    plan = grad_quant_plan(n, _num_sms(dev))
     rc = lib.lgbt_grad_quant_hist0(
         bins_T.data_ptr(), score.data_ptr(), aux.data_ptr(), bag.data_ptr(),
         n, f, num_bins, kind, sig, sig2, lwp, lwn, int(const_hess),
         int(seed) & 0xFFFFFFFF, mx.data_ptr(), gq.data_ptr(), _ptr(hq),
-        cq.data_ptr(), scales.data_ptr(), hist.data_ptr(), grid, _stream(dev))
+        cq.data_ptr(), scales.data_ptr(), hist.data_ptr(), plan.max_grid,
+        plan.blocks, plan.quads, _stream(dev))
     cuda_lib.check(rc, "grad_quant_hist0")
     LAUNCHES["grad_quant_hist0"] += 1
     return gq, hq, cq, scales, hist
@@ -453,6 +460,41 @@ def take_small(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# grad_quant_hist0's root histogram (csrc/grad_quant_hist0.cu): one packed
+# 32-bit shared cell a (feature, bin), fields (name, first bit, bits) of
+# the count (modulo 2^12) and sum(gq + 127), and the rows a block adds
+# between two drains of its cells (1024 threads, four rows each)
+GQ_FIELDS = (("count", 0, 12), ("g", 12, 20))
+GQ_STEP_ROWS = 4 * 1024
+
+
+class GradQuantPlan(NamedTuple):
+    """Grid of grad_quant_hist0's two launches."""
+    max_grid: int   # 256-thread blocks of the max pass, four rows a thread
+    blocks: int     # 1024-thread blocks of the quantize + histogram pass
+    quads: int      # groups of four rows a block takes (the last fewer)
+
+
+def grad_quant_plan(n: int, num_sms: int) -> GradQuantPlan:
+    """Grid of grad_quant_hist0: the quantize + histogram pass cuts the N
+    rows into equal ranges of consecutive rows, one a block, as the root
+    pass of the slot histograms does (slot_hist_plan: two 1024-thread blocks
+    an SM, the card covered twice, at least 1024 rows a block); the max pass
+    takes four rows a thread in at most eight 256-thread blocks an SM."""
+    nq = -(-n // 4)
+    quads = max(256, -(-nq // (4 * num_sms)))
+    blocks = max(1, -(-nq // quads))
+    max_grid = max(1, min(8 * num_sms, -(-nq // 256)))
+    return GradQuantPlan(max_grid, blocks, quads)
+
+
+def pass_blocks(n: int, num_sms: int) -> int:
+    """Blocks of the slot histograms' count and scatter passes (4096 rows a
+    block and step) and of the level routing (256 threads, one row a thread
+    and step): one block a 4096 rows, at most 8 an SM."""
+    return max(1, min(8 * num_sms, -(-n // 4096)))
+
+
 class SlotHistPlan(NamedTuple):
     """Grid, block and range sizes of hist_q8, hist_f32 and
     hist_routed_fused (csrc/slot_hist.cuh)."""
@@ -485,8 +527,7 @@ def slot_hist_plan(f: int, n: int, nch: int, num_bins: int,
     smem = fg * per_feature
     blocks_per_sm = max(1, min(2, SMEM_BUDGET // smem))
     blocks = -(-(2 * num_sms * blocks_per_sm) // groups)
-    pass_blocks = max(1, min(8 * num_sms, -(-n // 4096)))
-    return SlotHistPlan(fg, blocks, 1024, pass_blocks, smem)
+    return SlotHistPlan(fg, blocks, 1024, pass_blocks(n, num_sms), smem)
 
 
 def slot_hist_tiles(plan: SlotHistPlan, f: int,
@@ -552,21 +593,41 @@ def _check_bins(name: str, bins_T: torch.Tensor, bins,
 
 
 def _slot_scratch(n: int, f: int, num_slots: int, chan_words: int,
-                  dev: torch.device):
-    """(idx [3S + 1] i32 zeros: counts, offsets, cursors; rec [N x
-    rec_words] i32 records; rec_words) of a compaction by slot."""
+                  dev: torch.device, zero: bool = True):
+    """(idx [3S + 1] i32: counts, offsets, cursors, zeros unless not zero;
+    rec [N x rec_words] i32 records; rec_words) of a compaction by slot."""
     rec_words = (f + 3) // 4 + chan_words      # slot_hist.cuh record_words
-    idx = torch.zeros(3 * num_slots + 1, dtype=torch.int32, device=dev)
+    idx = (torch.zeros if zero else torch.empty)(
+        3 * num_slots + 1, dtype=torch.int32, device=dev)
     rec = torch.empty(n * rec_words, dtype=torch.int32, device=dev)
     return idx, rec, rec_words
 
 
-def _slot_hist(name: str, bins_T: torch.Tensor, bins, chans, slot,
+def _check_counts(name: str, slot, counts, num_slots: int) -> None:
+    """The per-slot counts a slot histogram may be handed: [S] i32 beside a
+    slot vector, the kept rows of each of its slots. On the CPU counts that
+    do not match the slot vector raise here; on the card the kernel stops
+    with a device-side assert (csrc/slot_hist.cuh)."""
+    if counts is None:
+        return
+    if slot is None:
+        raise ValueError(f"{name}: counts need a slot vector")
+    _device_of(slot, counts)
+    _check(counts, "counts", torch.int32, (num_slots,))
+    if counts.device.type == "cpu":
+        kept = slot[(slot >= 0) & (slot < num_slots)].long()
+        if not torch.equal(counts, torch.bincount(
+                kept, minlength=num_slots).to(torch.int32)):
+            raise ValueError(f"{name}: counts are not the kept rows of each "
+                             "slot of this slot vector")
+
+
+def _slot_hist(name: str, bins_T: torch.Tensor, bins, chans, slot, counts,
                num_slots: int, num_bins: int, nch: int, cell: torch.dtype,
                chan_words: int) -> torch.Tensor:
     """Launch hist_q8 or hist_f32 (the kernel ``name``) on the card: the
-    compaction and the histogram with a slot vector, the histogram alone
-    without one. Counts one launch."""
+    compaction (its count pass only without counts) and the histogram with a
+    slot vector, the histogram alone without one. Counts one launch."""
     dev = bins_T.device
     f, n = bins_T.shape
     plan = slot_hist_plan(f, n, nch, num_bins, _num_sms(dev))
@@ -574,10 +635,14 @@ def _slot_hist(name: str, bins_T: torch.Tensor, bins, chans, slot,
     idx = rec = None
     rec_words = 0
     if slot is not None:
-        idx, rec, rec_words = _slot_scratch(n, f, num_slots, chan_words, dev)
+        # handed counts over S > 1 slots, the scan writes every offset and
+        # cursor and nothing adds into idx
+        idx, rec, rec_words = _slot_scratch(
+            n, f, num_slots, chan_words, dev,
+            zero=counts is None or num_slots == 1)
     rc = getattr(cuda_lib.load(), f"lgbt_{name}")(
         bins_T.data_ptr(), _ptr(bins), *(_ptr(t) for t in chans), _ptr(slot),
-        n, f, num_bins, num_slots, nch, plan.fg, plan.blocks,
+        _ptr(counts), n, f, num_bins, num_slots, nch, plan.fg, plan.blocks,
         plan.min_rows, plan.pass_blocks, _ptr(idx), _ptr(rec), rec_words,
         hist.data_ptr(), _stream(dev))
     cuda_lib.check(rc, name)
@@ -587,16 +652,19 @@ def _slot_hist(name: str, bins_T: torch.Tensor, bins, chans, slot,
 
 def hist_q8(bins_T: torch.Tensor, gq: torch.Tensor, hq: Optional[torch.Tensor],
             cq: torch.Tensor, slot: Optional[torch.Tensor], num_slots: int,
-            num_bins: int, bins: Optional[torch.Tensor] = None
-            ) -> torch.Tensor:
+            num_bins: int, bins: Optional[torch.Tensor] = None,
+            counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """int8 slot histogram over a precomputed slot vector.
 
     bins_T [F, N] u8; gq/hq/cq [N] i8 (hq None: const-hessian, channels g
     and count); slot [N] i32, or None to put every row in slot 0 (the root
     pass reads no slot vector). Rows whose slot lies outside [0, S) are
     dropped. bins [N, F] u8 is the row-major copy of bins_T
-    (basic.Dataset.bins), needed on the card with a slot vector. Returns
-    int32 [S, nch, F, B]."""
+    (basic.Dataset.bins), needed on the card with a slot vector. counts [S]
+    i32, the kept rows of each slot as route_level returns them, spare the
+    kernel its count pass (the plain version needs none; counts that do
+    not match slot raise on the CPU and assert on the card). Returns int32
+    [S, nch, F, B]."""
     dev = _device_of(bins_T, gq, cq)
     f, n = bins_T.shape
     _check(bins_T, "bins_T", torch.uint8, (f, n))
@@ -614,20 +682,25 @@ def hist_q8(bins_T: torch.Tensor, gq: torch.Tensor, hq: Optional[torch.Tensor],
         raise ValueError(f"hist_q8: num_bins {num_bins} outside [1, 256] "
                          "(uint8 bins)")
     _check_bins("hist_q8", bins_T, bins, slot is not None)
+    _check_counts("hist_q8", slot, counts, num_slots)
     if dev.type == "cpu":
         return hist_q8_plain(bins_T, gq, hq, cq, slot, num_slots, num_bins)
-    return _slot_hist("hist_q8", bins_T, bins, (gq, hq, cq), slot, num_slots,
-                      num_bins, 2 if hq is None else 3, torch.int32, 1)
+    return _slot_hist("hist_q8", bins_T, bins, (gq, hq, cq), slot, counts,
+                      num_slots, num_bins, 2 if hq is None else 3,
+                      torch.int32, 1)
 
 
 def route_level(bins_T: torch.Tensor, leaf_id: torch.Tensor,
                 tables: torch.Tensor, na_bin: torch.Tensor, num_slots: int):
-    """Each row's (slot, new leaf id) through its leaf's split.
+    """Each row's (slot, new leaf id) through its leaf's split, and the kept
+    rows of each slot.
 
     tables [6, L] i32 rows (feat, thr, dleft, new_leaf, slot_left,
     slot_right); na_bin [F] i32 (a value >= B means no missing bin). Rows
     of leaves that do not split (feat < 0) or of no leaf keep their id and
-    get slot S. Returns (slot [N] i32, lid2 [N] i32)."""
+    get slot S. Returns (slot [N] i32, lid2 [N] i32, counts [S] i32: the
+    rows whose slot lies in [0, S), by slot), the counts for hist_q8 or
+    hist_f32 over this slot vector."""
     dev = _device_of(bins_T, leaf_id, tables, na_bin)
     f, n = bins_T.shape
     l = tables.shape[1]
@@ -635,19 +708,22 @@ def route_level(bins_T: torch.Tensor, leaf_id: torch.Tensor,
     _check(leaf_id, "leaf_id", torch.int32, (n,))
     _check(tables, "tables", torch.int32, (6, l))
     _check(na_bin, "na_bin", torch.int32, (f,))
+    if num_slots < 1:
+        raise ValueError("route_level: num_slots must be >= 1")
     if dev.type == "cpu":
         return route_plain(bins_T, leaf_id, tables, na_bin, num_slots)
     lib = cuda_lib.load()
     slot = torch.empty(n, dtype=torch.int32, device=dev)
     lid2 = torch.empty(n, dtype=torch.int32, device=dev)
-    grid = max(1, min(8 * _num_sms(dev), -(-n // 256)))
+    counts = torch.zeros(num_slots, dtype=torch.int32, device=dev)
     rc = lib.lgbt_route_level(
         bins_T.data_ptr(), leaf_id.data_ptr(), tables.data_ptr(),
         na_bin.data_ptr(), n, f, l, num_slots, slot.data_ptr(),
-        lid2.data_ptr(), grid, _stream(dev))
+        lid2.data_ptr(), counts.data_ptr(), pass_blocks(n, _num_sms(dev)),
+        _stream(dev))
     cuda_lib.check(rc, "route_level")
     LAUNCHES["route_level"] += 1
-    return slot, lid2
+    return slot, lid2, counts
 
 
 def leaf_sums(g: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
@@ -674,15 +750,17 @@ def leaf_sums(g: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
 
 def hist_f32(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
              c: torch.Tensor, slot: Optional[torch.Tensor], num_slots: int,
-             num_bins: int, bins: Optional[torch.Tensor] = None
-             ) -> torch.Tensor:
+             num_bins: int, bins: Optional[torch.Tensor] = None,
+             counts: Optional[torch.Tensor] = None) -> torch.Tensor:
     """f32 slot histogram of (grad, hess, count) rows over a slot vector.
 
     bins_T [F, N] u8; g/h/c [N] f32 (already masked by the bag); slot [N]
     i32, or None to put every row in slot 0 (the root pass reads no slot
     vector). Rows whose slot lies outside [0, S) are dropped. bins [N, F]
     u8 is the row-major copy of bins_T (basic.Dataset.bins), needed on the
-    card with a slot vector. Returns f32 [S, 3, F, B], channel-major."""
+    card with a slot vector. counts [S] i32, as route_level returns them,
+    spare the kernel its count pass (as in hist_q8). Returns f32
+    [S, 3, F, B], channel-major."""
     dev = _device_of(bins_T, g, h, c)
     f, n = bins_T.shape
     _check(bins_T, "bins_T", torch.uint8, (f, n))
@@ -697,7 +775,8 @@ def hist_f32(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
         raise ValueError(f"hist_f32: num_bins {num_bins} outside [1, 256] "
                          "(uint8 bins)")
     _check_bins("hist_f32", bins_T, bins, slot is not None)
+    _check_counts("hist_f32", slot, counts, num_slots)
     if dev.type == "cpu":
         return hist_f32_plain(bins_T, g, h, c, slot, num_slots, num_bins)
-    return _slot_hist("hist_f32", bins_T, bins, (g, h, c), slot, num_slots,
-                      num_bins, 3, torch.float32, 3)
+    return _slot_hist("hist_f32", bins_T, bins, (g, h, c), slot, counts,
+                      num_slots, num_bins, 3, torch.float32, 3)

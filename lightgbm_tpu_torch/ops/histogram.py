@@ -147,8 +147,9 @@ def hist_routed(bins_T: torch.Tensor, leaf_id: torch.Tensor,
 
     Quantized channels at F * B <= 2048 take the fused pass (one kernel
     call that routes each row once); wider data, and f32 rows at every
-    width, route first (``route_level``) and then build the slot histogram
-    (``hist_q8`` or ``hist_f32``). On the card every histogram over routed
+    width, route first (``route_level``, which also counts the rows of each
+    slot) and then build the slot histogram (``hist_q8`` or ``hist_f32``,
+    handed those counts). On the card every histogram over routed
     rows reads the kept rows' bins from ``bins``, the row-major [N, F] copy
     of bins_T. The reference routes
     data wider than 512 features through an XLA gather instead, because
@@ -157,17 +158,17 @@ def hist_routed(bins_T: torch.Tensor, leaf_id: torch.Tensor,
     takes it: the same function."""
     f = bins_T.shape[0]
     if quant is None:
-        slot, lid2 = K.route_level(bins_T, leaf_id, tables.stacked(), na_bin,
-                                   num_slots)
-        return (K.hist_f32(bins_T, *rows, slot, num_slots, num_bins, bins),
-                lid2)
+        slot, lid2, counts = K.route_level(bins_T, leaf_id, tables.stacked(),
+                                           na_bin, num_slots)
+        return (K.hist_f32(bins_T, *rows, slot, num_slots, num_bins, bins,
+                           counts), lid2)
     if f * num_bins <= ACC_ROWS_MAX:
         acc, lid2 = K.hist_routed_fused(
             bins_T, quant.gq, quant.hq, quant.cq, leaf_id, tables.stacked(),
             na_bin, num_slots, num_bins, bins)
     else:
-        slot, lid2 = K.route_level(bins_T, leaf_id, tables.stacked(), na_bin,
-                                   num_slots)
+        slot, lid2, counts = K.route_level(bins_T, leaf_id, tables.stacked(),
+                                           na_bin, num_slots)
         acc = K.hist_q8(bins_T, quant.gq, quant.hq, quant.cq, slot,
-                        num_slots, num_bins, bins)
+                        num_slots, num_bins, bins, counts)
     return dequant(acc, quant.hq is None, quant.scale_g, quant.scale_h), lid2

@@ -13,9 +13,10 @@ L = 255 f32 table, indices over [-2, L + 3)) it measures, for each
 checkout's take_small and for index_select on the zero-padded table:
 
 - event_ms: the median of 21 CUDA-event timings of one call, as
-  chip_smoke.py reports it (host time inside the window included);
+  chip_smoke.py reports it (host time inside the window included;
+  chip_smoke.py time_ms);
 - device_ms: the device time of the call's kernels (torch.profiler, 20
-  calls; scripts/torch_profile_slot_hist.py device_split);
+  calls; chip_smoke.py device_ms; null when not measured);
 - host_us: host microseconds a call takes to return (200 calls on the host
   clock, then one synchronize; the card runs behind the host);
 
@@ -28,13 +29,16 @@ per measurement.
 import argparse
 import importlib
 import json
-import statistics
+import os
 import subprocess
 import sys
 import time
 
 from torch_ab_train import load_port
-from torch_profile_slot_hist import device_split
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+from chip_smoke import device_ms, time_ms  # noqa: E402
 
 
 def main() -> int:
@@ -60,21 +64,7 @@ def main() -> int:
     idx_in = torch.where((idx >= 0) & (idx < l), idx, l).to(torch.int32)
 
     def event_ms(fn):
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(21):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            torch.cuda.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
-
-    def device_ms(fn):
-        return sum(device_split(fn, reps=20).values()) / 1e3
+        return time_ms(fn, reps=21)
 
     def host_us(fn, reps=200):
         fn()
@@ -104,7 +94,8 @@ def main() -> int:
             fn = calls[name]
             print(json.dumps(dict(
                 call=name, turn=turn, rows=n, event_ms=event_ms(fn),
-                device_ms=device_ms(fn), host_us=host_us(fn), card=card)),
+                device_ms=device_ms(fn, reps=20), host_us=host_us(fn),
+                card=card)),
                 flush=True)
     raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
     parts = {

@@ -8,12 +8,15 @@ JAX nor the reference package, so it runs on a machine that has neither:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances: exact for the quantized front, the level passes (fused, and
-route then slot histogram; the fused one also at a first level, a skewed
-level, a level that keeps no row, and with route tables and slot counts
-too large for shared memory), the root slot histogram and take_small (on
-N % 4 != 0 rows and on views that do not start on 16 bytes too; integer
-sums, order-free); leaf sums within 1e-6 relative (both sum the
+Tolerances: exact for the quantized front (also on N % 4 != 0 rows, on
+views that start on neither 16 bytes nor a word, with every row kept in
+one bin at |gq| = |hq| = 127 and a block's whole budget of rows, and with
+an all-zero bag), the level passes (fused, and route then slot histogram
+given route_level's per-slot counts or not; the fused one and the
+routing also at a first level, a skewed level, a level that keeps no row,
+and with route tables and slot counts too large for shared memory), the
+root slot histogram and take_small (on N % 4 != 0 rows and on views that
+do not start on 16 bytes too; integer sums, order-free); leaf sums within 1e-6 relative (both sum the
 same f32 rows in f64, in different atomic orders); the first tree of an
 L2 model trained on the GPU, at max_bin=31 (fused path) and at max_bin=255
 (unfused path), has the CPU-trained tree's structure and leaf values
@@ -29,8 +32,14 @@ bit, leaf values included. The two slot histograms group the kept rows by
 slot before they sum them; their edge cases (empty slots, one slot,
 dropped slots, ragged N, S = 255 and 7000, B from 2 to 256, two feature
 groups, a pass keeping 10 rows) hold hist_q8 exactly and hist_f32 within
-the same tolerance.
+the same tolerance. Counts handed to hist_q8 that are not its slot
+vector's own stop it with a device-side assert.
 """
+import os
+import subprocess
+import sys
+import textwrap
+
 import numpy as np
 import pytest
 import torch
@@ -85,6 +94,84 @@ def test_grad_quant_hist0_kernel_equals_plain(rows, spec, const_hess):
     for a, b in zip(hk.grad_quant_hist0(*args),
                     hk.grad_quant_hist0_plain(*args)):
         assert (a is None and b is None) or torch.equal(a, b)
+
+
+def _front_case(dev, case, n, spec, const_hess):
+    """grad_quant_hist0's arguments for n rows at B = 64 on 28 features:
+    random rows; every row in bin 0 of every feature, kept, at the fields'
+    worst case (score 0: logloss g = 0.5, h = 0.25 with label 0, L2 g = 1
+    with label -1, so gq = hq = 127); or an all-zero bag."""
+    gen = torch.Generator(device=dev).manual_seed(n)
+    bins_T = torch.randint(0, 64, (28, n), generator=gen, device=dev,
+                           dtype=torch.int64).to(torch.uint8)
+    score = torch.randn(n, generator=gen, device=dev)
+    if spec[0] == "l2":
+        aux = torch.randn(n, generator=gen, device=dev)
+    else:
+        aux = (torch.rand(n, generator=gen, device=dev) < 0.5).float()
+    bag = (torch.rand(n, generator=gen, device=dev) < 0.8).float()
+    if case == "one_bin":
+        bins_T.zero_()
+        score.zero_()
+        aux.fill_(-1.0 if spec[0] == "l2" else 0.0)
+        bag.fill_(1.0)
+    elif case == "zero_bag":
+        bag.zero_()
+    return [bins_T, score, aux, bag, 5, spec, 64, const_hess]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,n", [
+    ("random", 1_000_000), ("random", 1_000_003), ("random", 3),
+    ("views", 1_000_002), ("one_bin", 1_000_001), ("one_bin", 3 * 2 ** 15 + 5),
+    ("zero_bag", 100_001)])
+@pytest.mark.parametrize("spec,const_hess", [(("l2",), True),
+                                             (LOGLOSS, False)])
+def test_grad_quant_hist0_kernel_on_tails_views_and_one_bin(
+        dev, monkeypatch, case, n, spec, const_hess):
+    # exact (gq, hq, cq, scales, hist): N % 4 in {0, 1, 2, 3}; score, aux,
+    # bag and bins_T as views one to three elements into their storage (not
+    # on 16 bytes or on a word: the byte paths); every row kept in bin 0 at
+    # |gq| = |hq| = 127, so that each block step fills one packed cell with
+    # its whole GQ_STEP_ROWS rows (the count field's wrap), once with one
+    # block over all rows (grad_quant_plan replaced); an all-zero bag (no
+    # row kept, scales at their floors)
+    if case == "one_bin" and n < 2 ** 20:
+        monkeypatch.setattr(hk, "grad_quant_plan", lambda n_, sms: (
+            hk.GradQuantPlan(8, 1, -(-n_ // 4))))
+    if case == "views":
+        args = _front_case(dev, "random", n + 3, spec, const_hess)
+        args[1:4] = args[1][1:1 + n], args[2][3:3 + n], args[3][2:2 + n]
+        flat = torch.empty(28 * n + 3, dtype=torch.uint8, device=dev)
+        flat[3:].copy_(args[0][:, :n].reshape(-1))
+        args[0] = flat[3:].view(28, n)
+    else:
+        args = _front_case(dev, case, n, spec, const_hess)
+    got = hk.grad_quant_hist0(*args)
+    for name, a, b in zip(("gq", "hq", "cq", "scales", "hist"), got,
+                          hk.grad_quant_hist0_plain(*args)):
+        assert (a is None and b is None) or torch.equal(a, b), name
+    if case == "one_bin":
+        assert int(got[0].min()) == 127 and int(got[4][0, 0, 0]) == 127 * n
+    if case == "zero_bag":
+        assert not got[4].any() and not got[2].any()
+
+
+@pytest.mark.cuda
+def test_grad_quant_hist0_cuda_tensor_never_falls_back(dev, monkeypatch):
+    # one count a call, never the plain version; a root table over the
+    # kernel's shared memory is refused
+    def boom(*a, **k):
+        raise AssertionError("plain version called on a CUDA tensor")
+    monkeypatch.setattr(hk, "grad_quant_hist0_plain", boom)
+    args = _front_case(dev, "random", 5003, LOGLOSS, False)
+    hk.reset_launches()
+    hk.grad_quant_hist0(*args)
+    assert hk.LAUNCHES["grad_quant_hist0"] == 1
+    args[6] = 256
+    with pytest.raises(ValueError):
+        hk.grad_quant_hist0(*args)
+    assert hk.LAUNCHES["grad_quant_hist0"] == 1
 
 
 @pytest.mark.cuda
@@ -267,6 +354,106 @@ def test_route_level_kernel_equals_plain(dev, l):
     args = (bins_T, lid, tab, na_bin, S)
     for a, b in zip(hk.route_level(*args), hk.route_plain(*args)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,n,f,l,s", [
+    ("first_level", 200_000, 28, 255, 1), ("skewed", 200_000, 28, 255, 127),
+    ("no_split", 200_000, 28, 255, 32), ("ragged", 1024 * 37 + 13, 9, 15, 7),
+    ("tables_in_global", 200_000, 9, 10_000, 4000),
+    ("counts_in_global", 100_000, 7, 30_000, 13_000)])
+def test_route_level_counts_feed_the_slot_hists(dev, case, n, f, l, s):
+    # exact: route_level's slot, lid2 and counts equal route_plain's, and
+    # the counts the bincount of its kept slots; hist_q8 (3 and 2
+    # channels) and hist_f32 (rows on a 1/16 grid) handed the counts equal
+    # the calls without them and the plain versions (on the fused level
+    # pass's level shapes, with tables and counts too large for shared
+    # memory)
+    b = 16 if l > 255 else 64
+    bins_T, gq, hq, cq, lid, tab, na_bin = _level(dev, case, n, f, l, s, b)
+    bins = bins_T.t().contiguous()
+    slot, lid2, counts = hk.route_level(bins_T, lid, tab, na_bin, s)
+    for a, b_ in zip((slot, lid2, counts),
+                     hk.route_plain(bins_T, lid, tab, na_bin, s)):
+        assert torch.equal(a, b_)
+    kept = slot[(slot >= 0) & (slot < s)].long()
+    assert torch.equal(counts, torch.bincount(kept, minlength=s).int())
+    for hq_ in (hq, None):
+        args = (bins_T, gq, hq_, cq, slot, s, b)
+        got = hk.hist_q8(*args, bins=bins, counts=counts)
+        assert torch.equal(got, hk.hist_q8(*args, bins=bins))
+        assert torch.equal(got, hk.hist_q8_plain(*args))
+    # f32 rows on a 1/16 grid: every partial sum is exact in f32
+    c = cq.float()
+    args = (bins_T, gq.float() / 16 * c, hq.float().abs() / 16 * c, c, slot,
+            s, b)
+    got = hk.hist_f32(*args, bins=bins, counts=counts)
+    assert torch.equal(got, hk.hist_f32(*args, bins=bins))
+    assert torch.equal(got, hk.hist_f32_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fault", ["moved", "over", "negative"])
+def test_slot_hist_asserts_on_counts_of_another_slot_vector(dev, fault):
+    # counts that are not the slot vector's own (a row counted in another
+    # slot, one row too many, a negative count) stop hist_q8 with a
+    # device-side assert, after the slot vector's own counts have passed;
+    # the assert ends the process's CUDA context, so each runs in a process
+    # of its own
+    code = textwrap.dedent(f"""
+        import torch
+        from lightgbm_tpu_torch.ops import hist_kernels as hk
+        dev = torch.device("cuda")
+        g = torch.Generator(device=dev).manual_seed(3)
+        n, f, s = 5000, 9, 5
+        def ri(lo, hi, dt):
+            return torch.randint(lo, hi, (n,), generator=g, device=dev,
+                                 dtype=torch.int64).to(dt)
+        bins_T = torch.randint(0, 256, (f, n), generator=g, device=dev,
+                               dtype=torch.int64).to(torch.uint8)
+        slot = ri(-1, s + 3, torch.int32)
+        args = (bins_T, ri(-127, 128, torch.int8), ri(0, 128, torch.int8),
+                ri(0, 2, torch.int8), slot, s, 256)
+        bins = bins_T.t().contiguous()
+        counts = torch.bincount(slot[(slot >= 0) & (slot < s)].long(),
+                                minlength=s).int()
+        assert torch.equal(hk.hist_q8(*args, bins=bins, counts=counts),
+                           hk.hist_q8_plain(*args))
+        torch.cuda.synchronize()
+        print("own counts exact", flush=True)
+        bad, full = counts.clone(), int(counts.argmax())
+        if "{fault}" == "moved":
+            bad[full] -= 1
+            bad[(full + 1) % s] += 1
+        elif "{fault}" == "over":
+            bad[full] += 1
+        else:
+            bad[full] = -1
+        hk.hist_q8(*args, bins=bins, counts=bad)
+        torch.cuda.synchronize()
+        print("no assert", flush=True)
+    """)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    run = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, timeout=300)
+    assert "own counts exact" in run.stdout, run.stderr[-2000:]
+    assert run.returncode != 0 and "no assert" not in run.stdout
+    assert "device-side assert" in run.stderr, run.stderr[-2000:]
+
+
+@pytest.mark.cuda
+def test_route_level_cuda_tensor_never_falls_back(dev, monkeypatch):
+    # one count a call, never the plain version
+    def boom(*a, **k):
+        raise AssertionError("plain version called on a CUDA tensor")
+    monkeypatch.setattr(hk, "route_plain", boom)
+    bins_T, _, _, _, lid, tab, na_bin = _level(dev, "skewed", 5000, 7, 15, 5)
+    hk.reset_launches()
+    slot, lid2, counts = hk.route_level(bins_T, lid, tab, na_bin, 5)
+    assert hk.LAUNCHES["route_level"] == 1 and counts.is_cuda
+    with pytest.raises(ValueError):
+        hk.route_level(bins_T, lid, tab, na_bin, 0)
+    assert hk.LAUNCHES["route_level"] == 1
 
 
 @pytest.mark.cuda

@@ -420,12 +420,84 @@ def test_route_level_exact(wide, l):
         jnp.asarray(wide["bins"].T), jnp.asarray(lid),
         ref_hist.RouteTables(*[jnp.asarray(c) for c in cols]),
         jnp.asarray(na_bin), SW, l, interpret=True)
-    slot, lid2 = hk.route_level(_t(wide["bins"].T), _t(lid),
-                                _t(np.stack(cols)), _t(na_bin), SW)
+    slot, lid2, _ = hk.route_level(_t(wide["bins"].T), _t(lid),
+                                   _t(np.stack(cols)), _t(na_bin), SW)
     assert slot.dtype == lid2.dtype == torch.int32
     np.testing.assert_array_equal(slot.numpy(), np.asarray(ref_slot))
     np.testing.assert_array_equal(lid2.numpy(), np.asarray(ref_lid))
     assert (lid2.numpy() >= l).any() and (slot.numpy() == SW).any()
+
+
+@pytest.mark.parametrize("s", [1, SW, 40])
+def test_route_level_counts_equal_reference_slots(wide, s):
+    # exact: route_level's per-slot counts (which hist_q8 and hist_f32
+    # take in place of their count pass) equal the bincount of the kept
+    # slots ([0, S)) that route_level_pallas gives; S = 40 leaves slots
+    # empty
+    rng = np.random.default_rng(100 + s)
+    l = 12
+    cols = _wide_tables(rng, l, s)
+    lid = rng.integers(0, l, size=NW).astype(np.int32)
+    ref_slot, _ = ph.route_level_pallas(
+        jnp.asarray(wide["bins"].T), jnp.asarray(lid),
+        ref_hist.RouteTables(*[jnp.asarray(c) for c in cols]),
+        jnp.asarray(_wide_na_bin()), s, l, interpret=True)
+    ref_slot = np.asarray(ref_slot)
+    *_, counts = hk.route_level(_t(wide["bins"].T), _t(lid),
+                                _t(np.stack(cols)), _t(_wide_na_bin()), s)
+    assert counts.dtype == torch.int32 and tuple(counts.shape) == (s,)
+    kept = ref_slot[(ref_slot >= 0) & (ref_slot < s)]
+    np.testing.assert_array_equal(counts.numpy(),
+                                  np.bincount(kept, minlength=s))
+    assert 0 < counts.sum() < NW
+
+
+def test_slot_hists_take_route_counts(wide):
+    # exact: handed route_level's counts, hist_q8 and hist_f32 return what
+    # they return without them (the CPU's plain versions need none); counts
+    # of another shape, or without a slot vector, are refused
+    q = wide["quants"][False]
+    bins_T = _t(wide["bins"].T)
+    cols = _wide_tables(np.random.default_rng(3), 8, SW)
+    lid = _t(np.arange(NW, dtype=np.int32) % 8)
+    slot, _, counts = hk.route_level(bins_T, lid, _t(np.stack(cols)),
+                                     _t(_wide_na_bin()), SW)
+    rows = (_t(wide["g"]), _t(wide["h"]), _t(wide["c"]))
+    for fn, chans in ((hk.hist_q8, (q.gq, q.hq, q.cq)), (hk.hist_f32, rows)):
+        np.testing.assert_array_equal(
+            fn(bins_T, *chans, slot, SW, BW, None, counts).numpy(),
+            fn(bins_T, *chans, slot, SW, BW).numpy())
+        with pytest.raises(ValueError):
+            fn(bins_T, *chans, slot, SW, BW, None, counts[:-1].contiguous())
+        with pytest.raises(ValueError):
+            fn(bins_T, *chans, None, SW, BW, None, counts)
+
+
+@pytest.mark.parametrize("fault", ["moved", "over", "negative"])
+@pytest.mark.parametrize("kernel", ["hist_q8", "hist_f32"])
+def test_slot_hists_refuse_counts_of_another_slot_vector(wide, kernel, fault):
+    # counts that are not the slot vector's own (a row counted in another
+    # slot, one row too many, a negative count) raise before any sum; on
+    # the card the kernel asserts instead (tests/test_torch_cuda.py)
+    q = wide["quants"][False]
+    bins_T = _t(wide["bins"].T)
+    cols = _wide_tables(np.random.default_rng(3), 8, SW)
+    lid = _t(np.arange(NW, dtype=np.int32) % 8)
+    slot, _, counts = hk.route_level(bins_T, lid, _t(np.stack(cols)),
+                                     _t(_wide_na_bin()), SW)
+    bad = counts.clone()
+    full = int(torch.argmax(counts))
+    if fault == "moved":
+        bad[full] -= 1
+        bad[(full + 1) % SW] += 1
+    elif fault == "over":
+        bad[full] += 1
+    else:
+        bad[full] = -1
+    chans = ((q.gq, q.hq, q.cq) if kernel == "hist_q8" else
+             (_t(wide["g"]), _t(wide["h"]), _t(wide["c"])))
+    with pytest.raises(ValueError, match="kept rows of each slot"):
+        getattr(hk, kernel)(bins_T, *chans, slot, SW, BW, None, bad)
 
 
 def test_leaf_sums_within_hi_lo_error(wide):
@@ -752,3 +824,90 @@ def test_compaction_plain(s):
                                   np.nonzero(keep)[0])
     for k in range(s):
         assert (sl[rows[off[k]:off[k + 1]].numpy()] == k).all()
+
+
+# ---- the plan and the packed root histogram of grad_quant_hist0 ----
+# csrc/grad_quant_hist0.cu adds each kept row's g and count into one packed
+# 32-bit shared cell a (feature, bin): the count modulo 2^12 and
+# sum(gq + 127) in the fields GQ_FIELDS, GQ_STEP_ROWS rows a block step,
+# after which the block drains its cells. Here, without a card: the plan
+# covers every row once, the fields hold a step's worst case without
+# ambiguity, and the packed sums over the steps unpack to the plain
+# version's histogram.
+
+
+@pytest.mark.parametrize("n", [0, 1, 5, 4096, 1_000_003, 10_500_000,
+                               300_000_001])
+def test_grad_quant_plan_covers_every_row_once(n):
+    plan = hk.grad_quant_plan(n, PLAN_SMS)
+    nq = -(-n // 4)
+    assert plan.blocks * plan.quads >= nq
+    assert (plan.blocks - 1) * plan.quads < max(nq, 1)    # no empty block
+    assert plan.quads >= 256                 # at least 1024 rows a block
+    assert 1 <= plan.max_grid <= 8 * PLAN_SMS
+    if n == 10_500_000:   # two 1024-thread blocks an SM, the card twice
+        assert plan.blocks == 4 * PLAN_SMS
+
+
+def _packed_word(gq):
+    """The packed (g, count) word of one kept row (int64 arrays)."""
+    f = {nm: lo for nm, lo, _ in hk.GQ_FIELDS}
+    return (1 << f["count"]) + ((gq + 127) << f["g"])
+
+
+def _unpack(v):
+    """(g sum, count) of packed cells holding at most GQ_STEP_ROWS rows: a
+    count field of 0 in a non-empty cell is 2^12 rows (the kernel's
+    unpack)."""
+    (_, lo_c, bits_c), (_, lo_g, _) = hk.GQ_FIELDS
+    c = (v >> lo_c) & ((1 << bits_c) - 1)
+    c = np.where((v != 0) & (c == 0), 1 << bits_c, c)
+    return ((v - c) >> lo_g) - 127 * c, c
+
+
+@pytest.mark.parametrize("gq", [127, -127, 0, 5])
+@pytest.mark.parametrize("rows", [1, hk.GQ_STEP_ROWS - 1, hk.GQ_STEP_ROWS])
+def test_grad_quant_packed_cell_worst_case(rows, gq):
+    # exact: up to a block step's rows (GQ_STEP_ROWS, the most a cell takes
+    # between drains, whether the channels are 2 or 3: h keeps its own
+    # int32 cell), all in one cell at |gq| = 127 (or less), fit the 32-bit
+    # word and unpack to the channel sums
+    (_, lo_c, bits_c), (_, lo_g, bits_g) = hk.GQ_FIELDS
+    assert lo_c == 0 and lo_g == bits_c and lo_g + bits_g == 32
+    assert hk.GQ_STEP_ROWS == 1 << bits_c
+    assert 254 * hk.GQ_STEP_ROWS < 1 << bits_g
+    total = rows * int(_packed_word(np.int64(gq)))
+    assert total < 1 << 32
+    g, c = _unpack(np.int64(total))
+    assert (int(g), int(c)) == (rows * gq, rows)
+
+
+@pytest.mark.parametrize("const_hess", [False, True])
+def test_grad_quant_packed_sums_equal_plain(rows, const_hess):
+    # exact: the kernel's arithmetic replayed with numpy over steps of 16
+    # rows: each kept row (cq = 1; rows with cq = 0 quantize to 0 and are
+    # skipped) adds one packed (g, count) word into its (feature, bin)
+    # cell and its hq into an int32 h cell; each step's cells unpack, and
+    # the sums equal the plain version's root histogram
+    spec = ("l2",) if const_hess else LOGLOSS
+    aux = rows["label"] if const_hess else rows["label_pos"]
+    gq, hq, cq, _, hist = hk.grad_quant_hist0_plain(
+        _t(rows["bins"].T), _t(rows["score"]), _t(aux), _t(rows["bag"]),
+        SEED, spec, B, const_hess)
+    gq, cq = gq.numpy().astype(np.int64), cq.numpy().astype(bool)
+    hq = np.zeros_like(gq) if hq is None else hq.numpy().astype(np.int64)
+    assert not gq[~cq].any() and not hq[~cq].any()
+    word = _packed_word(gq)
+    got = np.zeros((3, F, B), np.int64)
+    for r0 in range(0, N, 16):
+        cell = np.zeros((F, B), np.int64)
+        for r in range(r0, min(N, r0 + 16)):
+            if cq[r]:
+                cell[np.arange(F), rows["bins"][r]] += word[r]
+                got[1, np.arange(F), rows["bins"][r]] += hq[r]
+        assert (cell < 1 << 32).all()
+        g, c = _unpack(cell)
+        got[0] += g
+        got[2] += c
+    want = hist.numpy()
+    np.testing.assert_array_equal(got[[0, 2]] if const_hess else got, want)

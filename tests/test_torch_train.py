@@ -473,6 +473,7 @@ def test_default_device_needs_a_gpu():
     ({"histogram_pool_size": 1.0}, "A13b"),
     ({"tree_learner": "data"}, "A21"),
     ({"categorical_feature": "0"}, "A12"),
+    ({"metric": "binary_error"}, "A11"),
 ])
 def test_out_of_slice_settings_raise(extra, item):
     X, yb, _ = _data()
@@ -480,6 +481,35 @@ def test_out_of_slice_settings_raise(extra, item):
     p.update(extra)
     with pytest.raises(NotImplementedError, match=item):
         lt.train(p, lt.Dataset(X, label=yb, params=p), num_boost_round=1)
+
+
+def test_bagging_fraction_without_bagging_freq_trains_as_reference():
+    # the reference bags only when bagging_freq > 0, so bagging_fraction
+    # below 1 alone trains the unbagged model in both packages: exact
+    # against each one's own run without the fraction; against the
+    # reference, tree structures exact, predictions rtol 1e-4 (queue C2)
+    rng = np.random.RandomState(0)
+    X = rng.rand(200, 3).astype(np.float32)
+    y = (X[:, 0] > 0.5).astype(np.float32)
+    runs = {}
+    for frac in (0.5, 1.0):
+        p = dict(PALLAS_PARAMS, objective="binary", num_leaves=4,
+                 bagging_fraction=frac)
+        ref = lgb.train(p, lgb.Dataset(X, label=y, params=p),
+                        num_boost_round=2)
+        pt = dict(p, **CPU)
+        runs[frac] = (ref, lt.train(pt, lt.Dataset(X, label=y, params=pt),
+                                    num_boost_round=2))
+    (ref, port), (ref1, port1) = runs[0.5], runs[1.0]
+    np.testing.assert_array_equal(port.predict(X), port1.predict(X))
+    np.testing.assert_array_equal(ref.predict(X), ref1.predict(X))
+    rt, ptr = _trees(ref, port)
+    assert len(rt) == len(ptr) == 2
+    for a, b in zip(rt, ptr):
+        for name in STRUCT:
+            np.testing.assert_array_equal(getattr(b, name),
+                                          getattr(a, name), err_msg=name)
+    np.testing.assert_allclose(port.predict(X), ref.predict(X), rtol=1e-4)
 
 
 @pytest.mark.parametrize("kw,item", [({"weight": np.ones(400)}, "A11"),
