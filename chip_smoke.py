@@ -15,16 +15,20 @@ measured):
    by nvcc into one library (ops/cuda_lib.py), and the build time printed;
 3. kernels: each kernel's wrapper runs on the card at the main paths'
    shapes and is held against its plain PyTorch version on the same
-   inputs: integer outputs and histograms exactly, leaf sums within 1e-6
-   of the row mass. The fused path's kernels at N = 10.5M rows, F = 28,
+   inputs: integer outputs and histograms exactly, leaf sums' counts
+   exactly and g, h within 1e-6 of the row mass, two launches of a leaf
+   sum bit for bit. The fused path's kernels at N = 10.5M rows, F = 28,
    B = 64, L = 255 (grad_quant_hist0 with 3 and 2 channels, its two
    launches split by device time, and at its packed cells' worst case:
-   every row kept, in bin 0, at |gq| = |hq| = 127; the level pass, given
+   every row kept, in bin 0, at |gq| = |hq| = 127; leaf_sums_grad on
+   uniform and on skewed leaf ids, leaf k drawn with probability
+   proportional to 1 / (k + 1); the level pass, given
    the row-major bins, at a first level, S = 1, at S = 32 and 127 slots
    and on a skewed S = 127 level, with 2 and 3 channels); the unfused
    path's at B = 256: route_level at S = 32 and 127 (slot, new leaf id and
    per-slot counts, the counts also against the bincount of its slots),
-   leaf_sums at L = 255, and the two slot histograms, hist_q8 (2 and 3
+   leaf_sums at L = 255 on the two leaf-id distributions, and the two
+   slot histograms, hist_q8 (2 and 3
    channels) and hist_f32 (f32 rows; counts exactly, g and h within 2^-15
    of the cell's absolute mass), at S = 1 (no slot vector), at S = 32 and
    127 fed the slots and the counts route_level gives (NA bins, leaves
@@ -38,9 +42,10 @@ measured):
    peak rate, counting only what the data needs) and one PyTorch call
    computing the same function where one exists (for the slot histograms
    an index_add_ over flat cell indices, int32 for hist_q8, checked
-   against the plain version; index_select for take_small); take_small,
-   its index_select, route_level and the level pass at S = 127 also by the
-   device time of their kernels alone (torch.profiler), without the host
+   against the plain version; index_select for take_small; index_add_ of
+   the rows for the leaf sums); take_small, its index_select, route_level,
+   the level pass at S = 127 and the leaf sums also by the device time of
+   their kernels alone (torch.profiler), without the host
    time that event timings include;
 4. main paths: a HIGGS-shaped 10.5M x 28 table (bench.py's generator,
    copied) through lightgbm_tpu_torch.Dataset and train(), one constructed
@@ -153,6 +158,20 @@ def time_ms(fn, reps=7):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def skewed_leaves(n: int, l: int, rand):
+    """[n] int32 leaf ids over [0, l), leaf k drawn with probability
+    proportional to 1 / (k + 1) (the few large leaves at the end of a
+    depthwise tree; at l = 255 the largest holds about 16% of the rows),
+    by the inverse CDF of rand(n), uniform on [0, 1) on the device. Shared
+    with scripts/torch_*.py."""
+    import torch
+    u = rand(n).double()
+    w = 1.0 / torch.arange(1, l + 1, dtype=torch.float64, device=u.device)
+    cdf = torch.cumsum(w, 0) / w.sum()
+    return torch.searchsorted(cdf, u, right=True).clamp_(max=l - 1).to(
+        torch.int32)
 
 
 def device_split(fn, reps=10, tries=3):
@@ -377,32 +396,63 @@ def main() -> int:
     print(f"hist_routed_fused: exact; {variants}")
     del rowmajor, lid, tab
 
-    # B3 leaf_sums_grad, tolerance 1e-6 * sum|x| per leaf (both sum the
-    # same f32 rows in f64; only the atomic order differs)
-    lid = torch.randint(0, L, (N,), generator=g, device=dev,
-                        dtype=torch.int64).to(torch.int32)
-    args = (score, label_pos, bag, lid, logloss, L)
-    ks = hk.leaf_sums_grad(*args)
-    ps = hk.leaf_sums_grad_plain(*args)
+    # B3 leaf_sums_grad and B7 leaf_sums on uniform and on skewed leaf ids
+    # (their own generator, so the other phases' inputs stay as they were):
+    # counts exactly, g and h within 1e-6 * sum|x| of the leaf's rows (both
+    # sum the same f32 rows in f64, in different orders), two launches bit
+    # for bit; timed by events and by the device time of their kernels
+    # alone, beside an index_add_ of the rows
+    gen_leaves = torch.Generator(device=dev).manual_seed(7)
+
+    def leaf_sums_phase(nm, fn, plain, make_args, ghc, lid_uniform, ops_row,
+                        replaces):
+        variants = []
+        skewed = skewed_leaves(N, L, lambda n: torch.rand(
+            n, generator=gen_leaves, device=dev))
+        for leaves, lid in (("uniform", lid_uniform), ("skewed", skewed)):
+            args = make_args(lid)
+            ks, ks2, ps = fn(*args), fn(*args), plain(*args)
+            if not torch.equal(ks.view(torch.int32), ks2.view(torch.int32)):
+                fail(f"{nm}[{leaves}]: two launches differ in their bits")
+            lid_l = lid.long()
+            mass = torch.zeros(3, L, dtype=torch.float64, device=dev) \
+                .index_add_(1, lid_l, ghc.abs().double())
+            err = (ks.double() - ps.double()).abs()
+            if bool((err > 1e-6 * mass + 1e-30).any()) or not torch.equal(
+                    ks[2], ps[2]):
+                fail(f"{nm}[{leaves}]: kernel vs plain error "
+                     f"{float(err.max())} exceeds 1e-6 of the leaf's row "
+                     "mass (or the counts differ)")
+            split = device_split(lambda: fn(*args))
+            bms, by = bound(16 * N + 3 * L * 4, ops_row * N)
+            variants.append(dict(
+                leaves=leaves, largest_leaf_share=float(
+                    torch.bincount(lid_l, minlength=L).max()) / N,
+                max_abs_err=float(err.max()), ms=time_ms(lambda: fn(*args)),
+                device_ms=None if split is None else sum(split.values()),
+                device_ms_by_kernel=split,
+                plain_ms=time_ms(lambda: plain(*args)), bound_ms=bms,
+                bound_by=by, library_ms=time_ms(
+                    lambda: torch.zeros(3, L, device=dev).index_add_(
+                        1, lid_l, ghc))))
+        v = variants[0]
+        kernels[nm] = dict(
+            route="cuda", source=f"lightgbm_tpu_torch/csrc/{nm}.cu",
+            replaces=replaces,
+            max_abs_err=max(x["max_abs_err"] for x in variants),
+            **{k: v[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms")},
+            variants=variants)
+        print(f"{nm}: counts exact, two launches bit-identical; {variants}")
+
     grad, hess = hk.grad_rows(logloss, score, label_pos)
     ghc = torch.stack([grad * bag, hess * bag, (bag > 0).float()])
-    mass = torch.zeros(3, L, dtype=torch.float64, device=dev).index_add_(
-        1, lid.long(), ghc.abs().double())
-    err = (ks.double() - ps.double()).abs()
-    if bool((err > 1e-6 * mass + 1e-30).any()):
-        fail(f"leaf_sums_grad: kernel vs plain error {float(err.max())} "
-             "exceeds 1e-6 of the leaf's row mass")
-    lid_l = lid.long()
-    lib_ms = time_ms(lambda: torch.zeros(3, L, device=dev).index_add_(
-        1, lid_l, ghc))
-    bms, by = bound(16 * N + 3 * L * 4, 45 * N)
-    kernels["leaf_sums_grad"] = dict(
-        route="cuda", source="lightgbm_tpu_torch/csrc/leaf_sums_grad.cu",
-        replaces="lightgbm_tpu/ops/pallas_hist.py:1036",
-        max_abs_err=float(err.max()), ms=time_ms(lambda: hk.leaf_sums_grad(
-            *args)), plain_ms=time_ms(lambda: hk.leaf_sums_grad_plain(*args)),
-        bound_ms=bms, bound_by=by, library_ms=lib_ms)
-    print(f"leaf_sums_grad: max abs err {float(err.max())}")
+    lid = torch.randint(0, L, (N,), generator=g, device=dev,
+                        dtype=torch.int64).to(torch.int32)
+    leaf_sums_phase(
+        "leaf_sums_grad", hk.leaf_sums_grad, hk.leaf_sums_grad_plain,
+        lambda lid_: (score, label_pos, bag, lid_, logloss, L), ghc, lid, 45,
+        "lightgbm_tpu/ops/pallas_hist.py:1036")
 
     # B4 take_small, with out-of-range indices
     table = torch.randn(L, generator=g, device=dev)
@@ -621,34 +671,14 @@ def main() -> int:
     del abs_rows, args
     torch.cuda.empty_cache()
 
-    # B7 leaf_sums on materialized rows, tolerance 1e-6 * sum|x| per leaf
-    # (both sum the same f32 rows in f64; only the atomic order differs)
+    # B7 leaf_sums on the same rows materialized (see B3)
     lid = torch.randint(0, L, (N,), generator=g, device=dev,
                         dtype=torch.int64).to(torch.int32)
     rows = (ghc[0].contiguous(), ghc[1].contiguous(), ghc[2].contiguous())
-    args = rows + (lid, L)
-    ks = hk.leaf_sums(*args)
-    ps = hk.leaf_sums_plain(*args)
-    mass = torch.zeros(3, L, dtype=torch.float64, device=dev).index_add_(
-        1, lid.long(), ghc.abs().double())
-    err = (ks.double() - ps.double()).abs()
-    if bool((err > 1e-6 * mass + 1e-30).any()) or not torch.equal(ks[2],
-                                                                 ps[2]):
-        fail(f"leaf_sums: kernel vs plain error {float(err.max())} exceeds "
-             "1e-6 of the leaf's row mass (or the counts differ)")
-    lid_l = lid.long()
-    lib_ms = time_ms(lambda: torch.zeros(3, L, device=dev).index_add_(
-        1, lid_l, ghc))
-    bms, by = bound(16 * N + 3 * L * 4, 3 * N)
-    kernels["leaf_sums"] = dict(
-        route="cuda", source="lightgbm_tpu_torch/csrc/leaf_sums.cu",
-        replaces="lightgbm_tpu/ops/pallas_hist.py:718",
-        max_abs_err=float(err.max()),
-        ms=time_ms(lambda: hk.leaf_sums(*args)),
-        plain_ms=time_ms(lambda: hk.leaf_sums_plain(*args)),
-        bound_ms=bms, bound_by=by, library_ms=lib_ms)
-    print(f"leaf_sums: max abs err {float(err.max())}")
-    del score, label_pos, label_reg, bag, lid, lid_l, ghc, rows, args
+    leaf_sums_phase("leaf_sums", hk.leaf_sums, hk.leaf_sums_plain,
+                    lambda lid_: rows + (lid_, L), ghc, lid, 3,
+                    "lightgbm_tpu/ops/pallas_hist.py:718")
+    del score, label_pos, label_reg, bag, lid, ghc, rows
     del quant2, quant3
     torch.cuda.empty_cache()
 

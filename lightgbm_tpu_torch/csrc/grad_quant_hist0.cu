@@ -79,23 +79,6 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   return v;
 }
 
-// rows r .. r + nr - 1 of p into v (nr <= 4; one 16-byte load when vec and
-// all four are rows)
-__device__ __forceinline__ void load_rows(const float* __restrict__ p,
-                                          long long r, int nr, bool vec,
-                                          float v[4]) {
-  if (vec && nr == 4) {
-    const float4 x = *reinterpret_cast<const float4*>(p + r);
-    v[0] = x.x;
-    v[1] = x.y;
-    v[2] = x.z;
-    v[3] = x.w;
-    return;
-  }
-#pragma unroll
-  for (int u = 0; u < 4; ++u) v[u] = u < nr ? p[r + u] : 0.0f;
-}
-
 // g = grad * bag and h = hess * bag of row r (bag is the 0/1 row mask)
 __device__ __forceinline__ void grad_row(const lgbt::GradSpec& sp,
                                          float score, float aux, float bag,
@@ -123,9 +106,9 @@ max_kernel(const float* __restrict__ score, const float* __restrict__ aux,
     const long long r = 4 * q;
     const int nr = static_cast<int>(min(4LL, n - r));
     float s4[4], a4[4], b4[4];
-    load_rows(score, r, nr, vec, s4);
-    load_rows(aux, r, nr, vec, a4);
-    load_rows(bag, r, nr, vec, b4);
+    lgbt::load_rows(score, r, nr, vec, s4);
+    lgbt::load_rows(aux, r, nr, vec, a4);
+    lgbt::load_rows(bag, r, nr, vec, b4);
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       if (u >= nr) break;
@@ -233,9 +216,9 @@ quant_hist_kernel(const uint8_t* __restrict__ bins_T,
       int hv[4];
       {
         float s4[4], a4[4], b4[4];
-        load_rows(score, r, nr, vec, s4);
-        load_rows(aux, r, nr, vec, a4);
-        load_rows(bag, r, nr, vec, b4);
+        lgbt::load_rows(score, r, nr, vec, s4);
+        lgbt::load_rows(aux, r, nr, vec, a4);
+        lgbt::load_rows(bag, r, nr, vec, b4);
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
           float g, h;

@@ -11,55 +11,53 @@
 //
 // Design: the TPU split g/h into bf16 hi/lo halves and contracted them with
 // a one-hot [L, C] leaf mask on the MXU, which keeps about 16 mantissa bits
-// per row. Here each row adds its f32 g, h and c, widened to f64, into a
-// block-private [3, L] f64 table in shared memory (L = 255: 6 KB), flushed
-// once per block with global f64 atomicAdd (lgbt::leaf_add / leaf_flush,
-// shared with leaf_sums_grad.cu); the caller rounds the f64 table to f32
-// once. The sums are at least as accurate as the reference's; their atomic
-// order varies from run to run only below f64 resolution. Leaf ids outside
-// [0, L) are dropped. Tables too large for shared memory accumulate in
-// global memory.
-#include "lgbt_common.cuh"
+// per row. Here the f32 rows are summed in f64 and rounded once. The first
+// design added each row with three shared f64 atomicAdds into one
+// block-shared [3, L] table (on sm_90a a compare-and-swap loop each, which
+// contends as a leaf's share of the rows grows), read one row a thread,
+// flushed every block's table with global f64 atomics, and left the zeroed
+// f64 output and its f32 cast to two launches of the wrapper; its sums
+// changed from run to run in their f64 rounding. Now (leaf_sums.cuh, shared
+// with leaf_sums_grad.cu): warp-private tables written without atomics,
+// four rows a thread with 16-byte loads, each block's sums written to its
+// own scratch row, and a second launch that sums the rows in a fixed order
+// and writes the f32 output: deterministic at a fixed grid, and the wrapper
+// allocates with torch.empty only. Leaf ids outside [0, L) are dropped.
+#include "leaf_sums.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using lgbt::GhcRows;
 
-__global__ void __launch_bounds__(kThreads)
-leaf_sums_rows_kernel(const float* __restrict__ g,
-                      const float* __restrict__ h,
-                      const float* __restrict__ c,
-                      const int* __restrict__ lid, int n, int l, int use_smem,
-                      double* __restrict__ out) {
-  extern __shared__ double shd[];
-  double* acc = use_smem ? shd : out;
-  if (use_smem) {
-    for (int k = threadIdx.x; k < 3 * l; k += blockDim.x) shd[k] = 0.0;
-    __syncthreads();
-  }
-  const int stride = gridDim.x * blockDim.x;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    const int lf = lid[i];
-    if (lf < 0 || lf >= l) continue;
-    lgbt::leaf_add(acc, l, lf, g[i], h[i], c[i]);
-  }
-  if (!use_smem) return;
-  __syncthreads();
-  lgbt::leaf_flush(shd, l, out);
+__global__ void __launch_bounds__(lgbt::kLeafThreads, 2)
+leaf_sums_rows_kernel(GhcRows src, const int* __restrict__ lid, int n, int l,
+                      double* __restrict__ part) {
+  lgbt::leaf_rows(src, lid, n, l, part);
+}
+
+__global__ void __launch_bounds__(lgbt::kLeafThreads)
+leaf_sums_global_kernel(GhcRows src, const int* __restrict__ lid, int n,
+                        int l, double* __restrict__ acc) {
+  lgbt::leaf_rows_global(src, lid, n, l, acc);
+}
+
+__global__ void __launch_bounds__(lgbt::kFinalGroups * lgbt::kFinalCells)
+leaf_sums_final_kernel(const double* __restrict__ part, int rows, int cells,
+                       float* __restrict__ out) {
+  lgbt::leaf_final(part, rows, cells, out);
 }
 
 }  // namespace
 
-// out [3, L] f64 zero on entry. Returns cudaGetLastError() after the launch.
+// part [grid, 3, L] f64 scratch ([3, L] when warps = 0), out [3, L] f32;
+// warps and grid from ops/hist_kernels.py leaf_sums_plan. Returns a
+// cudaError_t (0 when both launches were accepted).
 extern "C" int lgbt_leaf_sums(const float* g, const float* h, const float* c,
-                              const int* lid, int n, int l, double* out,
-                              int grid, cudaStream_t stream) {
-  const size_t need = static_cast<size_t>(3) * l * sizeof(double);
-  const int use_smem = need <= lgbt::kSmemBudget ? 1 : 0;
-  const size_t smem = use_smem ? need : 0;
-  const cudaError_t err = lgbt::allow_smem(leaf_sums_rows_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  leaf_sums_rows_kernel<<<grid, kThreads, smem, stream>>>(g, h, c, lid, n, l,
-                                                          use_smem, out);
-  return static_cast<int>(cudaGetLastError());
+                              const int* lid, int n, int l, int warps,
+                              int grid, double* part, float* out,
+                              cudaStream_t stream) {
+  const lgbt::LeafSumsKernels<GhcRows> k{
+      leaf_sums_rows_kernel, leaf_sums_global_kernel, leaf_sums_final_kernel};
+  return lgbt::leaf_sums_launch(k, GhcRows{{g, h, c}}, lid, n, l, warps, grid,
+                                part, out, stream);
 }

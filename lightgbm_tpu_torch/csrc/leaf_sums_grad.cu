@@ -1,67 +1,71 @@
 // Exact per-leaf (grad, hess, count) sums with the gradients recomputed from
-// (score, aux, bag): the leaf renewal of the quantized depthwise grower.
+// (score, aux, bag): the leaf renewal of the quantized depthwise grower on
+// the fused front.
 //
 // Replaces the TPU kernel lightgbm_tpu/ops/pallas_hist.py
 // leaf_sums_grad_pallas (:1036), kernel body _leaf_sums_grad_kernel (:1005).
 //
 // Bound on the H100: bytes. It reads score/aux/bag [N] f32 and lid [N] i32
-// (16 bytes a row) and writes a [3, L] table.
+// (16 bytes a row: 168 MB at N = 10.5M, 0.050 ms at 3.35 TB/s) and writes
+// a [3, L] table; the logloss gradient's few dozen f32 operations a row
+// stay far below the card's rate.
 //
 // Design: the TPU split g/h into bf16 hi/lo halves and contracted them with
 // a one-hot [L, C] leaf mask on the MXU, which keeps about 16 mantissa bits
-// per row. Here each row adds its f32 g, h and count, widened to f64, into a
-// block-private [3, L] f64 table in shared memory (L = 255: 6 KB), flushed
-// once per block with global f64 atomicAdd; the caller rounds the f64 table
-// to f32 once. The sums are therefore at least as accurate as the
-// reference's; their atomic order varies from run to run only below f64
-// resolution. Tables too large for shared memory accumulate in global memory.
-#include "lgbt_common.cuh"
+// per row. Here g = grad * bag, h = hess * bag and c = (bag > 0) are
+// recomputed in registers (lgbt::grad_rows, the reference's f32 operations
+// in its order), summed in f64 and rounded once. The first design added
+// each row with three shared f64 atomicAdds into one block-shared [3, L]
+// table (on sm_90a a compare-and-swap loop each, which contends as a leaf's
+// share of the rows grows), read one row a thread, flushed every block's
+// table with global f64 atomics, and left the zeroed f64 output and its f32
+// cast to two launches of the wrapper; its sums changed from run to run in
+// their f64 rounding. Now (leaf_sums.cuh, shared with leaf_sums.cu):
+// warp-private tables written without atomics, four rows a thread with
+// 16-byte loads, each block's sums written to its own scratch row, and a
+// second launch that sums the rows in a fixed order and writes the f32
+// output: deterministic at a fixed grid, and the wrapper allocates with
+// torch.empty only. Leaf ids outside [0, L) are dropped.
+#include "leaf_sums.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+using lgbt::GradRows;
 
-__global__ void __launch_bounds__(kThreads)
-leaf_sums_kernel(const float* __restrict__ score,
-                 const float* __restrict__ aux, const float* __restrict__ bag,
-                 const int* __restrict__ lid, int n, int l, lgbt::GradSpec sp,
-                 int use_smem, double* __restrict__ out) {
-  extern __shared__ double shd[];
-  double* acc = use_smem ? shd : out;
-  if (use_smem) {
-    for (int k = threadIdx.x; k < 3 * l; k += blockDim.x) shd[k] = 0.0;
-    __syncthreads();
-  }
-  const int stride = gridDim.x * blockDim.x;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    const int lf = lid[i];
-    if (lf < 0 || lf >= l) continue;
-    float grad, hess;
-    lgbt::grad_rows(sp, score[i], aux[i], grad, hess);
-    const float b = bag[i];
-    lgbt::leaf_add(acc, l, lf, __fmul_rn(grad, b), __fmul_rn(hess, b),
-                   b > 0.0f ? 1.0f : 0.0f);
-  }
-  if (!use_smem) return;
-  __syncthreads();
-  lgbt::leaf_flush(shd, l, out);
+__global__ void __launch_bounds__(lgbt::kLeafThreads, 2)
+leaf_sums_grad_rows_kernel(GradRows src, const int* __restrict__ lid, int n,
+                           int l, double* __restrict__ part) {
+  lgbt::leaf_rows(src, lid, n, l, part);
+}
+
+__global__ void __launch_bounds__(lgbt::kLeafThreads)
+leaf_sums_grad_global_kernel(GradRows src, const int* __restrict__ lid,
+                             int n, int l, double* __restrict__ acc) {
+  lgbt::leaf_rows_global(src, lid, n, l, acc);
+}
+
+__global__ void __launch_bounds__(lgbt::kFinalGroups * lgbt::kFinalCells)
+leaf_sums_grad_final_kernel(const double* __restrict__ part, int rows,
+                            int cells, float* __restrict__ out) {
+  lgbt::leaf_final(part, rows, cells, out);
 }
 
 }  // namespace
 
-// out [3, L] f64 zero on entry. Returns cudaGetLastError() after the launch.
+// part [grid, 3, L] f64 scratch ([3, L] when warps = 0), out [3, L] f32;
+// warps and grid from ops/hist_kernels.py leaf_sums_plan. Returns a
+// cudaError_t (0 when both launches were accepted).
 extern "C" int lgbt_leaf_sums_grad(const float* score, const float* aux,
                                    const float* bag, const int* lid, int n,
                                    int l, int kind, float sigmoid, float sig2,
-                                   float lw_pos, float lw_neg, double* out,
-                                   int grid, cudaStream_t stream) {
-  const lgbt::GradSpec sp{kind, sigmoid, sig2, lw_pos, lw_neg};
-  const size_t need = static_cast<size_t>(3) * l * sizeof(double);
-  const int use_smem = need <= lgbt::kSmemBudget ? 1 : 0;
-  const size_t smem = use_smem ? need : 0;
-  const cudaError_t err = lgbt::allow_smem(leaf_sums_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  leaf_sums_kernel<<<grid, kThreads, smem, stream>>>(score, aux, bag, lid, n,
-                                                     l, sp, use_smem, out);
-  return static_cast<int>(cudaGetLastError());
+                                   float lw_pos, float lw_neg, int warps,
+                                   int grid, double* part, float* out,
+                                   cudaStream_t stream) {
+  const lgbt::LeafSumsKernels<GradRows> k{leaf_sums_grad_rows_kernel,
+                                          leaf_sums_grad_global_kernel,
+                                          leaf_sums_grad_final_kernel};
+  const GradRows src{{score, aux, bag},
+                     lgbt::GradSpec{kind, sigmoid, sig2, lw_pos, lw_neg}};
+  return lgbt::leaf_sums_launch(k, src, lid, n, l, warps, grid, part, out,
+                                stream);
 }

@@ -54,6 +54,26 @@ __device__ __forceinline__ float sr_dither(uint32_t idx, uint32_t seed,
   return __fmul_rn(static_cast<float>(z >> 8), 1.0f / 16777216.0f);
 }
 
+// Rows r .. r + nr - 1 of a 32-bit row vector p into v (nr <= 4; v[u] = 0
+// for u >= nr): one 16-byte load when vec (every row vector of the kernel
+// starts on 16 bytes) and all four are rows, else scalar loads.
+template <typename T>
+__device__ __forceinline__ void load_rows(const T* __restrict__ p,
+                                          long long r, int nr, bool vec,
+                                          T v[4]) {
+  static_assert(sizeof(T) == 4, "32-bit rows");
+  if (vec && nr == 4) {
+    const int4 x = *reinterpret_cast<const int4*>(p + r);
+    memcpy(&v[0], &x.x, 4);
+    memcpy(&v[1], &x.y, 4);
+    memcpy(&v[2], &x.z, 4);
+    memcpy(&v[3], &x.w, 4);
+    return;
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) v[u] = u < nr ? p[r + u] : T(0);
+}
+
 // DataPartition::Split for one row: the (slot, new leaf id) of row r in leaf
 // lf through the [6, L] int32 route tables (feat, thr, dleft, new_leaf,
 // slot_left, slot_right). A bin equal to the feature's missing bin goes
@@ -116,25 +136,6 @@ __device__ __forceinline__ void flush_hist(const T* sh, int ss, int nch,
     atomicAdd(hist + (static_cast<size_t>(s0 * nch + sc) * f + f0 + j) * b +
                   bin,
               v);
-  }
-}
-
-// One row's exact leaf sums: f32 g, h and count widened to f64 and added to
-// the [3, L] table acc (zeros skipped; adding 0.0 changes no f64 sum).
-__device__ __forceinline__ void leaf_add(double* acc, int l, int lf, float g,
-                                         float h, float c) {
-  if (g != 0.0f) atomicAdd(acc + lf, static_cast<double>(g));
-  if (h != 0.0f) atomicAdd(acc + l + lf, static_cast<double>(h));
-  if (c != 0.0f) atomicAdd(acc + 2 * l + lf, static_cast<double>(c));
-}
-
-// Flush a block-private [3, L] f64 table into the global one. Call after
-// __syncthreads().
-__device__ __forceinline__ void leaf_flush(const double* shd, int l,
-                                           double* out) {
-  for (int k = threadIdx.x; k < 3 * l; k += blockDim.x) {
-    const double v = shd[k];
-    if (v != 0.0) atomicAdd(out + k, v);
   }
 }
 

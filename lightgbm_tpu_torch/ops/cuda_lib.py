@@ -29,7 +29,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("grad_quant_hist0.cu", "hist_routed_fused.cu",
            "leaf_sums_grad.cu", "take_small.cu", "hist_q8.cu",
            "route_level.cu", "leaf_sums.cu", "hist_f32.cu")
-HEADERS = ("lgbt_common.cuh", "slot_hist.cuh")
+HEADERS = ("lgbt_common.cuh", "slot_hist.cuh", "leaf_sums.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -50,13 +50,13 @@ _SIGNATURES: Dict[str, List] = {
     "lgbt_hist_routed_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I,
                                _P, _P, _P],
-    "lgbt_leaf_sums_grad": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _P,
-                            _I, _P],
+    "lgbt_leaf_sums_grad": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _I,
+                            _I, _P, _P, _P],
     "lgbt_take_small": [_P, _P, _I, _I, _P, _I, _P],
     "lgbt_hist_q8": _SLOT_HIST,
     "lgbt_route_level": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I,
                          _P],
-    "lgbt_leaf_sums": [_P, _P, _P, _P, _I, _I, _P, _I, _P],
+    "lgbt_leaf_sums": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "lgbt_hist_f32": _SLOT_HIST,
 }
 

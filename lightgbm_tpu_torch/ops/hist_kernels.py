@@ -37,14 +37,17 @@ vector over S > 1 slots (count, scan, scatter, histogram;
 ``csrc/slot_hist.cuh``), three when handed route_level's per-slot counts
 (as the two-pass level hands them), two over one slot (scatter, histogram)
 and one without a slot vector; hist_routed_fused four over S > 1 slots
-(route and count, scan, scatter, histogram) and three over one.
+(route and count, scan, scatter, histogram) and three over one;
+leaf_sums_grad and leaf_sums two (rows into warp tables, then a final sum
+that writes the f32 output; ``csrc/leaf_sums.cuh``).
 
 The quantized histograms come back as int32 channel sums ([S, nch, F, B],
 nch = 3 for (g, h, count) or 2 for (g, count) under const-hessian elision);
 ``ops/histogram.py`` dequantizes them. Integer sums make every accumulation
 order exact, so kernel and plain version agree bit for bit on every output
-except the f64 sums of ``leaf_sums_grad`` and ``leaf_sums``, whose atomic
-order varies below f64 resolution before the final f32 rounding, and the
+except the f64 sums of ``leaf_sums_grad`` and ``leaf_sums``, whose order
+differs from the plain version's below f64 resolution before the final f32
+rounding (fixed for a given grid: two calls give the same bits), and the
 f32 sums of ``hist_f32``, whose plain version sums in f64 and rounds once
 (counts, and values on a coarse grid, are exact in any order).
 """
@@ -66,6 +69,8 @@ LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 # 227 KB a block; the rest is headroom for the runtime's reservation);
 # csrc/lgbt_common.cuh kSmemBudget is the same number
 SMEM_BUDGET = 200 * 1024
+# warps a leaf-sum block at most (csrc/leaf_sums.cuh kLeafWarps)
+LEAF_WARPS = 16
 
 
 def reset_launches() -> None:
@@ -415,6 +420,50 @@ def hist_routed_fused(bins_T: torch.Tensor, gq: torch.Tensor,
     return hist, lid2
 
 
+class LeafSumsPlan(NamedTuple):
+    """Launch plan of the leaf sums (csrc/leaf_sums.cuh)."""
+    warps: int    # warps a block, each with a private f64 leaf table;
+    #               0: too large for shared memory, global atomics
+    grid: int     # row blocks: the rows of the [grid, 3, L] f64 scratch
+
+
+def leaf_table_bytes(num_leaves: int) -> int:
+    """Shared bytes of one warp's leaf table: 3 * L f64 rounded up to 16
+    bytes (csrc/leaf_sums.cuh leaf_table_words)."""
+    return 8 * ((3 * num_leaves + 1) & ~1)
+
+
+def leaf_sums_plan(n: int, num_leaves: int, num_sms: int) -> LeafSumsPlan:
+    """As many warps a block as LEAF_WARPS and the shared-memory budget
+    allow (leaf_table_bytes a warp), two blocks an SM, fewer when the rows
+    (four a thread) do not fill them. The grid fixes the leaf sums' order
+    of addition: a card with another SM count may round them otherwise."""
+    warps = min(LEAF_WARPS, SMEM_BUDGET // leaf_table_bytes(num_leaves))
+    quads = -(-n // 4)
+    blocks = -(-quads // (32 * (warps or LEAF_WARPS)))
+    return LeafSumsPlan(warps, max(1, min(2 * num_sms, blocks)))
+
+
+def _check_leaves(name: str, num_leaves: int) -> None:
+    if num_leaves < 1:
+        raise ValueError(f"{name}: num_leaves must be >= 1")
+
+
+def _leaf_sums_launch(name: str, fn, args, n: int, num_leaves: int,
+                      dev: torch.device) -> torch.Tensor:
+    """Run a leaf-sum C entry (row pass + final pass) into a new [3, L]
+    f32 output; one count a call."""
+    plan = leaf_sums_plan(n, num_leaves, _num_sms(dev))
+    part = torch.empty((plan.grid if plan.warps else 1) * 3 * num_leaves,
+                       dtype=torch.float64, device=dev)
+    out = torch.empty((3, num_leaves), dtype=torch.float32, device=dev)
+    rc = fn(*args, plan.warps, plan.grid, part.data_ptr(), out.data_ptr(),
+            _stream(dev))
+    cuda_lib.check(rc, name)
+    LAUNCHES[name] += 1
+    return out
+
+
 def leaf_sums_grad(score: torch.Tensor, aux: torch.Tensor, bag: torch.Tensor,
                    leaf_id: torch.Tensor, spec, num_leaves: int) -> torch.Tensor:
     """Exact per-leaf (grad, hess, count) sums [3, L] f32 with g/h
@@ -424,20 +473,16 @@ def leaf_sums_grad(score: torch.Tensor, aux: torch.Tensor, bag: torch.Tensor,
     for name, t in (("score", score), ("aux", aux), ("bag", bag)):
         _check(t, name, torch.float32, (n,))
     _check(leaf_id, "leaf_id", torch.int32, (n,))
+    _check_leaves("leaf_sums_grad", num_leaves)
     if dev.type == "cpu":
         return leaf_sums_grad_plain(score, aux, bag, leaf_id, spec,
                                     num_leaves)
-    lib = cuda_lib.load()
-    out = torch.zeros((3, num_leaves), dtype=torch.float64, device=dev)
     kind, sig, sig2, lwp, lwn = spec_args(spec)
-    grid = max(1, min(4 * _num_sms(dev), -(-n // 256)))
-    rc = lib.lgbt_leaf_sums_grad(
-        score.data_ptr(), aux.data_ptr(), bag.data_ptr(), leaf_id.data_ptr(),
-        n, num_leaves, kind, sig, sig2, lwp, lwn, out.data_ptr(), grid,
-        _stream(dev))
-    cuda_lib.check(rc, "leaf_sums_grad")
-    LAUNCHES["leaf_sums_grad"] += 1
-    return out.to(torch.float32)
+    return _leaf_sums_launch(
+        "leaf_sums_grad", cuda_lib.load().lgbt_leaf_sums_grad,
+        (score.data_ptr(), aux.data_ptr(), bag.data_ptr(),
+         leaf_id.data_ptr(), n, num_leaves, kind, sig, sig2, lwp, lwn),
+        n, num_leaves, dev)
 
 
 def take_small(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -735,17 +780,13 @@ def leaf_sums(g: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
     for name, t in (("g", g), ("h", h), ("c", c)):
         _check(t, name, torch.float32, (n,))
     _check(leaf_id, "leaf_id", torch.int32, (n,))
+    _check_leaves("leaf_sums", num_leaves)
     if dev.type == "cpu":
         return leaf_sums_plain(g, h, c, leaf_id, num_leaves)
-    lib = cuda_lib.load()
-    out = torch.zeros((3, num_leaves), dtype=torch.float64, device=dev)
-    grid = max(1, min(4 * _num_sms(dev), -(-n // 256)))
-    rc = lib.lgbt_leaf_sums(g.data_ptr(), h.data_ptr(), c.data_ptr(),
-                            leaf_id.data_ptr(), n, num_leaves, out.data_ptr(),
-                            grid, _stream(dev))
-    cuda_lib.check(rc, "leaf_sums")
-    LAUNCHES["leaf_sums"] += 1
-    return out.to(torch.float32)
+    return _leaf_sums_launch(
+        "leaf_sums", cuda_lib.load().lgbt_leaf_sums,
+        (g.data_ptr(), h.data_ptr(), c.data_ptr(), leaf_id.data_ptr(), n,
+         num_leaves), n, num_leaves, dev)
 
 
 def hist_f32(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,

@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Where the slot histograms (hist_q8, hist_f32, hist_routed_fused), the
-fused front grad_quant_hist0 and the level routing route_level spend their
-device time.
+fused front grad_quant_hist0, the level routing route_level and the leaf
+sums leaf_sums_grad and leaf_sums spend their device time.
 
 Run from the repository root on a machine with one CUDA GPU:
 
     python3 scripts/torch_profile_slot_hist.py [--rows N] [--min-rows M ...]
-        [--only slots|b1|b2|b6] [--port DIR]
+        [--only slots|b1|b2|b6|b3|b7 ...] [--port DIR]
 
-Sections (all four without --only):
+Sections (all six without --only; --only takes one or more):
 
 - slots: at chip_smoke.py's phase-3 shapes (N x 28 bins over [0, 256)), for
   each slot variant (the root without a slot vector; S = 127 keeping about
@@ -75,8 +75,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--rows", type=int, default=10_500_000)
     ap.add_argument("--min-rows", type=int, nargs="*", default=[])
-    ap.add_argument("--only", choices=("slots", "b1", "b2", "b6"),
-                    default=None)
+    ap.add_argument("--only", nargs="+",
+                    choices=("slots", "b1", "b2", "b6", "b3", "b7"),
+                    default=("slots", "b1", "b2", "b6", "b3", "b7"))
     ap.add_argument("--port", default=HERE)
     args = ap.parse_args()
     import torch
@@ -85,7 +86,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     sys.path.insert(0, HERE)
-    from chip_smoke import device_split, time_ms
+    from chip_smoke import device_split, skewed_leaves, time_ms
     from torch_ab_train import load_port
     hk = load_port(args.port, "lightgbm_tpu_torch_profiled").ops.hist_kernels
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -117,7 +118,7 @@ def main() -> int:
             randint(0, 128, (n,)).to(torch.int8),
             (rand(n) < 0.9).to(torch.int8)]
 
-    if args.only in (None, "slots"):
+    if "slots" in args.only:
         bins_T, bins, q8 = q8_chans(B)
         rows = [torch.randn(n, generator=g, device=dev) * q8[2],
                 rand(n) * q8[2], q8[2].float()]
@@ -148,7 +149,7 @@ def main() -> int:
         del q8, rows, variants, bins_T, bins, s127, u
         torch.cuda.empty_cache()
 
-    if args.only in (None, "b1"):
+    if "b1" in args.only:
         # chip_smoke.py's B1 inputs: bins over [0, 63), score N(0, 0.25),
         # a 0/1 label, a bag keeping 90% of the rows
         bins_T = randint(0, 63, (F, n)).to(torch.uint8)
@@ -165,7 +166,7 @@ def main() -> int:
         del bins_T, score, label_pos, label_reg, bag
         torch.cuda.empty_cache()
 
-    if args.only in (None, "b2"):
+    if "b2" in args.only:
         # B2 at B = 64: the fused quantized path's level pass
         b2 = 64
         bins_T, bins, q8 = q8_chans(b2 - 1)
@@ -193,7 +194,7 @@ def main() -> int:
         del bins_T, bins, q8
         torch.cuda.empty_cache()
 
-    if args.only in (None, "b6"):
+    if "b6" in args.only:
         # chip_smoke.py's route_level inputs at B = 256: NA bins 0 and 255
         bins_T, bins, q8 = q8_chans(B)
         rows = [torch.randn(n, generator=g, device=dev) * q8[2],
@@ -231,6 +232,27 @@ def main() -> int:
             report("b6", f"routed_S{s}", "route_level",
                    lambda: hk.route_level(bins_T, lid, tab, na_bin, s),
                    S=s, B=B, routed=n)
+
+    if "b3" in args.only or "b7" in args.only:
+        logloss = ("logloss", 1.0, 1.0, 1.0)
+        score = torch.randn(n, generator=g, device=dev) * 0.5
+        label_pos = (rand(n) < 0.5).float()
+        bag = (rand(n) < 0.9).float()
+        grad, hess = hk.grad_rows(logloss, score, label_pos)
+        rows = (grad * bag, hess * bag, (bag > 0).float())
+        leaves = {"uniform": randint(0, L, (n,)).to(torch.int32),
+                  "skewed": skewed_leaves(n, L, rand)}
+        for name, lid in leaves.items():
+            share = float(torch.bincount(lid.long(), minlength=L).max()) / n
+            if "b3" in args.only:
+                report("b3", name, "leaf_sums_grad",
+                       lambda: hk.leaf_sums_grad(score, label_pos, bag, lid,
+                                                 logloss, L),
+                       L=L, largest_leaf_share=share)
+            if "b7" in args.only:
+                report("b7", name, "leaf_sums",
+                       lambda: hk.leaf_sums(*rows, lid, L), L=L,
+                       largest_leaf_share=share)
     return 0
 
 

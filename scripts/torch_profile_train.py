@@ -32,19 +32,22 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # kernel group -> the exact names of its CUDA kernel functions (the slot
-# histograms' compaction passes, and the fused level pass's route and
-# count, count as their kernel's time)
+# histograms' compaction passes, the fused level pass's route and count,
+# and the leaf sums' final pass count as their kernel's time)
 GROUPS = (("grad_quant_hist0", ("max_kernel", "quant_hist_kernel")),
           ("hist_routed_fused", ("hist_routed_count_kernel",
                                  "hist_routed_scan_kernel",
                                  "hist_routed_scatter_kernel",
                                  "hist_routed_kernel")),
-          ("leaf_sums_grad", ("leaf_sums_kernel",)),
+          ("leaf_sums_grad", ("leaf_sums_grad_rows_kernel",
+                              "leaf_sums_grad_final_kernel",
+                              "leaf_sums_grad_global_kernel")),
           ("take_small", ("take_kernel",)),
           ("hist_q8", ("hist_q8_count_kernel", "hist_q8_scan_kernel",
                        "hist_q8_scatter_kernel", "hist_q8_kernel")),
           ("route_level", ("route_level_kernel",)),
-          ("leaf_sums", ("leaf_sums_rows_kernel",)),
+          ("leaf_sums", ("leaf_sums_rows_kernel", "leaf_sums_final_kernel",
+                         "leaf_sums_global_kernel")),
           ("hist_f32", ("hist_f32_count_kernel", "hist_f32_scan_kernel",
                         "hist_f32_scatter_kernel", "hist_f32_kernel")))
 

@@ -17,7 +17,10 @@ routing also at a first level, a skewed level, a level that keeps no row,
 and with route tables and slot counts too large for shared memory), the
 root slot histogram and take_small (on N % 4 != 0 rows and on views that
 do not start on 16 bytes too; integer sums, order-free); leaf sums within 1e-6 relative (both sum the
-same f32 rows in f64, in different atomic orders); the first tree of an
+same f32 rows in f64, in different orders), on uniform, skewed and
+out-of-range leaf ids, N % 4 != 0 rows, views off 16 bytes, L = 1, 255,
+1000 (fewer warps a block) and 9000 (global tables), their counts
+exactly, and two calls bit for bit wherever the warp tables run; the first tree of an
 L2 model trained on the GPU, at max_bin=31 (fused path) and at max_bin=255
 (unfused path), has the CPU-trained tree's structure and leaf values
 within 1e-6 of its largest leaf value (the leaf sums may differ in their
@@ -465,6 +468,81 @@ def test_leaf_sums_kernel_equals_plain(rows, dev):
     ref = hk.leaf_sums_plain(*args)
     torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
     assert torch.equal(got[2], ref[2])
+
+
+def _leaf_case(dev, kernel, leaves, l, n):
+    """Inputs of one leaf-sum kernel, leaf ids uniform over [0, L), skewed
+    (leaf k with probability proportional to 1 / (k + 1)) or "dropped"
+    (uniform over [-3, L + 3)), and the [3, N] rows it sums."""
+    gen = torch.Generator(device=dev).manual_seed(l + n)
+    score = torch.randn(n, generator=gen, device=dev) * 0.5
+    label = (torch.rand(n, generator=gen, device=dev) < 0.5).float()
+    bag = (torch.rand(n, generator=gen, device=dev) < 0.8).float()
+    bag[: n // 8] = 0.0                     # a run of rows out of the bag
+    if leaves == "skewed":
+        w = 1.0 / torch.arange(1, l + 1, dtype=torch.float64, device=dev)
+        lid = torch.multinomial(w, n, replacement=True, generator=gen)
+    else:
+        lo, hi = (0, l) if leaves == "uniform" else (-3, l + 3)
+        lid = torch.randint(lo, hi, (n,), generator=gen, device=dev)
+    lid = lid.to(torch.int32)
+    g, h = hk.grad_rows(LOGLOSS, score, label)
+    ghc = torch.stack([g * bag, h * bag, (bag > 0).float()])
+    if kernel == "leaf_sums_grad":
+        return (score, label, bag, lid, LOGLOSS, l), ghc, lid
+    return (ghc[0].contiguous(), ghc[1].contiguous(), ghc[2].contiguous(),
+            lid, l), ghc, lid
+
+
+def _assert_leaf_sums(got, ref, ghc, lid, l):
+    """Counts exactly; g and h within 1e-6 of the leaf's row mass (both sum
+    the same f32 rows in f64, in different orders)."""
+    ok = (lid >= 0) & (lid < l)
+    mass = torch.zeros(3, l, dtype=torch.float64, device=lid.device)
+    mass.index_add_(1, lid[ok].long(), ghc[:, ok].abs().double())
+    assert torch.equal(got[2], ref[2])
+    err = (got.double() - ref.double()).abs()
+    assert bool((err <= 1e-6 * mass).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["leaf_sums_grad", "leaf_sums"])
+@pytest.mark.parametrize("leaves", ["uniform", "skewed", "dropped"])
+@pytest.mark.parametrize("l", [1, 255, 1000, 9000])
+def test_leaf_sums_kernels_on_leaves_tails_and_views(dev, kernel, leaves, l):
+    # N % 4 in {0, 1, 2, 3}, and views one element into their storage (not
+    # on 16 bytes: scalar loads); L = 1000 takes 8 warps a block, L = 9000
+    # global tables (past the shared-memory budget). Two calls give the
+    # same bits wherever the warp tables run.
+    fn, plain = getattr(hk, kernel), getattr(hk, f"{kernel}_plain")
+    args, ghc, lid = _leaf_case(dev, kernel, leaves, l, 200_005)
+    warps = hk.leaf_sums_plan(200_000, l, hk._num_sms(dev)).warps
+    assert warps == {1: 16, 255: 16, 1000: 8, 9000: 0}[l]
+    for n in (200_000, 200_001, 200_002, 200_003):
+        for offset in (0, 1):
+            sl = slice(offset, offset + n)      # three row vectors, lid
+            a = tuple(x[sl] for x in args[:4]) + args[4:]
+            got = fn(*a)
+            assert got.shape == (3, l) and got.dtype == torch.float32
+            _assert_leaf_sums(got, plain(*a), ghc[:, sl], lid[sl], l)
+            if warps:
+                again = fn(*a)
+                assert torch.equal(got.view(torch.int32),
+                                   again.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["leaf_sums_grad", "leaf_sums"])
+def test_leaf_sums_kernels_never_fall_back(dev, kernel, monkeypatch):
+    # one count a call, two CUDA launches and no plain version
+    def boom(*a, **k):
+        raise AssertionError("plain version called on a CUDA tensor")
+    args, _, _ = _leaf_case(dev, kernel, "skewed", 255, 10_001)
+    monkeypatch.setattr(hk, f"{kernel}_plain", boom)
+    hk.reset_launches()
+    out = getattr(hk, kernel)(*args)
+    assert out.is_cuda and hk.LAUNCHES[kernel] == 1
+    assert sum(hk.LAUNCHES.values()) == 1
 
 
 @pytest.mark.cuda

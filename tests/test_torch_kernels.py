@@ -19,7 +19,9 @@ Tolerances (each stated where it is asserted):
   of quantized rows that move by one step;
 - leaf sums (leaf_sums_grad, leaf_sums): the reference sums bf16 hi/lo
   halves (16 significant bits per row), the port sums the f32 rows in f64:
-  |diff| <= 2^-15 * sum|x|, counts exact;
+  |diff| <= 2^-15 * sum|x|, counts exact; on uniform, skewed and
+  out-of-range leaf ids; their launch plan keeps the warp tables within
+  the shared-memory budget;
 - the f32 slot histogram (hist_f32) and the unquantized root and level
   passes: exact on gradients and hessians on a 1/8 grid (the hi/lo split
   keeps them whole and every partial sum is representable), else the hi/lo
@@ -317,6 +319,78 @@ def test_leaf_sums_grad_within_hi_lo_error(rows, spec, aux):
     assert (np.abs(got - ref) <= 2.0 ** -15 * mass).all()
 
 
+def _leaf_ids(kind, n, l, seed):
+    """[n] int32 leaf ids: "skewed" draws leaf k with probability
+    proportional to 1 / (k + 1) (chip_smoke.py's skewed leaves); "dropped"
+    is uniform over [-3, L + 3), so some ids lie outside [0, L)."""
+    rng = np.random.default_rng(seed)
+    if kind == "skewed":
+        p = 1.0 / np.arange(1, l + 1)
+        return rng.choice(l, size=n, p=p / p.sum()).astype(np.int32)
+    return rng.integers(-3, l + 3, size=n).astype(np.int32)
+
+
+def _assert_within_hi_lo(got, ref, ghc, lid):
+    """Counts exact; g and h within 2^-15 * sum|x| of the leaf's rows (the
+    reference keeps 16 significant bits of each row, bf16 hi + lo; the
+    port sums the f32 rows in f64). Ids outside [0, L) add to no leaf."""
+    ok = (lid >= 0) & (lid < L)
+    mass = np.zeros((3, L))
+    for k, x in enumerate(ghc):
+        np.add.at(mass[k], lid[ok], np.abs(x[ok].astype(np.float64)))
+    np.testing.assert_array_equal(got[2], ref[2])
+    assert (np.abs(got - ref) <= 2.0 ** -15 * mass).all()
+
+
+@pytest.mark.parametrize("leaves", ["skewed", "dropped"])
+@pytest.mark.parametrize("spec,aux", [(("l2",), "label"),
+                                      (LOGLOSS, "label_pos")])
+def test_leaf_sums_grad_on_skewed_and_dropped_leaves(rows, spec, aux,
+                                                     leaves):
+    # test_leaf_sums_grad_within_hi_lo_error's tolerance on skewed leaf ids
+    # and on ids outside [0, L), the reference's grid over chunks of 64
+    # rows (N = 220: a ragged last chunk)
+    lid = _leaf_ids(leaves, N, L, 7)
+    ref = np.asarray(ph.leaf_sums_grad_pallas(
+        jnp.asarray(rows["score"]), jnp.asarray(rows[aux]),
+        jnp.asarray(rows["bag"]), jnp.asarray(lid), spec, L, chunk=64,
+        interpret=True))
+    got = hk.leaf_sums_grad(_t(rows["score"]), _t(rows[aux]),
+                            _t(rows["bag"]), _t(lid), spec, L).numpy()
+    g, h = hk.grad_rows(spec, _t(rows["score"]), _t(rows[aux]))
+    bag = rows["bag"]
+    _assert_within_hi_lo(got, ref, (g.numpy() * bag, h.numpy() * bag,
+                                    (bag > 0).astype(np.float32)), lid)
+
+
+@pytest.mark.parametrize("l", [1, 255, 1000, 8533, 8534])
+def test_leaf_sums_plan_fits_shared_memory(l):
+    # as many warp tables (3 * L f64 each, in 16-byte cells) as LEAF_WARPS
+    # and the budget allow, none past 8533 leaves (global tables); at most
+    # two blocks an SM, and no block without rows
+    table = hk.leaf_table_bytes(l)
+    assert 24 * l <= table <= 24 * l + 8 and table % 16 == 0
+    for n in (0, 1, 5000, 1_000_001, 10_500_000):
+        warps, grid = hk.leaf_sums_plan(n, l, 132)
+        assert 0 <= warps <= hk.LEAF_WARPS
+        assert warps * table <= hk.SMEM_BUDGET
+        assert warps == hk.LEAF_WARPS or (warps + 1) * table > \
+            hk.SMEM_BUDGET
+        assert (warps == 0) == (l > 8533)
+        threads = 32 * (warps or hk.LEAF_WARPS)
+        assert 1 <= grid <= 2 * 132
+        assert (grid - 1) * threads * 4 < max(n, 1)
+
+
+def test_leaf_sums_refuse_no_leaves():
+    z = torch.zeros(4)
+    lid = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="num_leaves"):
+        hk.leaf_sums(z, z, z, lid, 0)
+    with pytest.raises(ValueError, match="num_leaves"):
+        hk.leaf_sums_grad(z, z, z, lid, ("l2",), 0)
+
+
 # ---- the unfused path's kernels (hist_q8, route_level, leaf_sums) at
 # B = 256, F * B > 2048: the reference's hist_leaf / hist_routed leave the
 # fused kernels there ----
@@ -515,6 +589,20 @@ def test_leaf_sums_within_hi_lo_error(wide):
         np.add.at(mass[k], lid, np.abs(x.astype(np.float64)))
     np.testing.assert_array_equal(got[2], ref[2])
     assert (np.abs(got - ref) <= 2.0 ** -15 * mass).all()
+
+
+@pytest.mark.parametrize("leaves", ["skewed", "dropped"])
+def test_leaf_sums_on_skewed_and_dropped_leaves(wide, leaves):
+    # test_leaf_sums_within_hi_lo_error's tolerance on skewed leaf ids and
+    # on ids outside [0, L), the reference's grid over chunks of 64 rows
+    # (NW = 300: a ragged last chunk)
+    lid = _leaf_ids(leaves, NW, L, 8)
+    g, h, c = wide["g"], wide["h"], wide["c"]
+    ref = np.asarray(ph.leaf_sums_pallas(jnp.asarray(g), jnp.asarray(h),
+                                         jnp.asarray(c), jnp.asarray(lid), L,
+                                         chunk=64, interpret=True))
+    got = hk.leaf_sums(_t(g), _t(h), _t(c), _t(lid), L).numpy()
+    _assert_within_hi_lo(got, ref, (g, h, c), lid)
 
 
 @pytest.mark.parametrize("const_hess", [False, True])
