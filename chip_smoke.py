@@ -67,6 +67,19 @@ measured):
    each path: train AUC on 1M rows > 0.7, the L2 model's squared error
    below the label variance, the saved model text loads back and predicts
    identically; the peak device memory of its training is printed;
+   then (e) "sampled": max_bin=63 with bagging_fraction 0.8 every
+   iteration, feature_fraction 0.8 and feature_fraction_bynode 0.8, a
+   500,000-row synth_higgs valid set (seed 1), early stopping after 3
+   rounds, binary for up to 10 iterations (valid AUC) and L2 for up to 3
+   (valid l2): the fused front's launch counts (take_small twice a tree,
+   train and valid score), an in-bag share of 0.8 +- 0.001, 22 of 28
+   features a tree, best_iteration, and a saved model that holds the
+   best_iteration trees and predicts as the booster does; the bag draw
+   timed on the card; and (f) "goss": boosting=goss (top_rate 0.2,
+   other_rate 0.1) at max_bin=255, binary 5 and L2 2 iterations, on the
+   unfused front with the hessian channel kept (hist_q8 / route_level /
+   leaf_sums counts, none of the fused kernels), weights 0, 1 and 8, and
+   the top-k and the weight draw timed;
 5. agreement, at max_bin=63 and at 255 (the 4000-row table has more than
    128 bins a feature, so the unfused path, which is asserted): the first
    tree of a 4000-row L2 model trained on the card has the structure of
@@ -77,7 +90,13 @@ measured):
    counts on exact-sum data (labels on a 1/8 grid in [0, 4), no init
    score, so the first tree's gradients are -label and h = 1, and every
    histogram sum is exact in any order): the first tree equals the
-   CPU-trained one bit for bit, leaf values included.
+   CPU-trained one bit for bit, leaf values included. With sampling, on
+   4000 rows: (e)'s settings, GOSS, and f32 and lossguide with bagging and
+   feature_fraction_bynode give the card the CPU run's bag and feature
+   masks and first-tree structure, leaf values within 1e-6 of the largest
+   leaf; an early-stopped L2 run (a valid label the model moves away
+   from) stops at the CPU run's iteration with its best_iteration; and the
+   threefry replica's uniforms at N rows are the CPU's bit for bit.
 
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
@@ -102,6 +121,11 @@ UNFUSED = ("hist_q8", "route_level", "leaf_sums")
 PATHS = {"fused": (63, {}, 5), "unfused": (255, {}, 5),
          "f32": (255, {"use_quantized_grad": "false"}, 5),
          "lossguide": (255, {"grow_policy": "lossguide"}, 3)}
+# path (e)'s sampling: bagging, feature_fraction, feature_fraction_bynode
+SAMPLED = {"bagging_fraction": 0.8, "bagging_freq": 1,
+           "feature_fraction": 0.8, "feature_fraction_bynode": 0.8}
+GOSS = {"boosting": "goss", "top_rate": 0.2, "other_rate": 0.1}
+N_VALID = 500_000
 # the saved model goes beside the kernel library (ignored by git)
 OUT_DIR = os.path.join(HERE, "lightgbm_tpu_torch", "_build")
 
@@ -228,6 +252,7 @@ def main() -> int:
     from lightgbm_tpu_torch.ops import cuda_lib
     from lightgbm_tpu_torch.ops import hist_kernels as hk
 
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     name = torch.cuda.get_device_name(0)
@@ -805,9 +830,172 @@ def main() -> int:
 
     for path in PATHS:
         main_path(path)
-    del datasets
+    print(f"elapsed after paths (a)-(d): "
+          f"{time.perf_counter() - t_start:.1f} s")
+
+    # ---- 4b. (e) sampled and (f) GOSS, through the public entry points ----
+    from lightgbm_tpu_torch.utils import threefry
+    Xv, yv = synth_higgs(N_VALID, F, seed=1)
+    yv_reg = (Xv[:, :4] @ np.array([1.0, -0.5, 0.25, 2.0])
+              + 0.5 * Xv[:, 4] ** 2
+              + 0.1 * np.random.RandomState(2).randn(N_VALID)).astype(
+                  np.float32)
+
+    def count_launches(tag, path, boosters, n_valid):
+        """Check the launch counts of boosters trained since the last
+        reset, each with n_valid valid sets (a take_small a tree each)."""
+        launches = dict(hk.LAUNCHES)
+        passes = [p for b in boosters for p in b._gbdt.hist_passes]
+        added = sum(b.num_trees() for b in boosters)
+        expected, own = expected_launches(path, len(passes), sum(passes),
+                                          added * (1 + n_valid))
+        print(f"{tag} launches {launches} expected {expected}")
+        if launches != expected or min(launches[k] for k in own) <= 0:
+            fail(f"{tag}: launch counts {launches} != expected {expected}")
+        for k, v in launches.items():
+            launches_all[k] += v
+
+    def check_auc(tag, bst):
+        prob = bst.predict(X[:m])
+        if prob.shape != (m,) or not np.isfinite(prob).all():
+            fail(f"{tag}: binary predictions are not finite [1M] values")
+        auc = float(metrics.auc(torch.as_tensor(y[:m]),
+                                torch.as_tensor(prob)))
+        print(f"{tag} train AUC on 1M rows: {auc:.6f}")
+        if not auc > 0.7:
+            fail(f"{tag}: train AUC {auc} <= 0.7")
+
+    def sampled_path() -> None:
+        """(e): max_bin=63 (the fused front) with bagging 0.8 every
+        iteration, feature_fraction 0.8 and feature_fraction_bynode 0.8; a
+        500,000-row valid set, early stopping after 3 rounds; binary for
+        10 iterations (valid AUC), then L2 for 3 (valid l2)."""
+        ds, ds_reg = dataset(63)
+        tag = "[sampled, max_bin=63]"
+        boosters = []
+        hk.reset_launches()
+        for objective, train_ds, yval, iters, metric in (
+                ("binary", ds, yv, 10, "auc"),
+                ("regression", ds_reg, yv_reg, 3, "l2")):
+            params = {"objective": objective, "num_leaves": L, "max_bin": 63,
+                      "learning_rate": 0.1, "min_data_in_leaf": 20,
+                      "verbosity": -1, "metric": metric, **SAMPLED}
+            valid = lt.Dataset(Xv, label=yval, reference=train_ds)
+            valid.construct()
+            evals = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bst = lt.train(params, train_ds, num_boost_round=iters,
+                           valid_sets=[valid], valid_names=["valid"],
+                           evals_result=evals, early_stopping_rounds=3,
+                           verbose_eval=False)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            boosters.append(bst)
+            gb = bst._gbdt
+            ran = len(evals["valid"][metric])
+            share = float(gb._bag.mean())
+            n_feat = int(gb._fmask.sum())
+            print(f"{tag} {objective}: {sec:.3f} s for {ran} iterations "
+                  f"({sec / ran:.3f} s/iter), "
+                  f"level passes a tree {gb.hist_passes}; fused front "
+                  f"{gb.gp.fused_obj is not None}; in-bag share of rows "
+                  f"{share:.6f}; features a tree {n_feat} of {F}")
+            print(f"{tag} {objective}: valid {metric} by iteration "
+                  f"{evals['valid'][metric]}; best_iteration "
+                  f"{bst.best_iteration}, best_score {bst.best_score}")
+            if gb.gp.fused_obj is None or not gb.gp.quant:
+                fail(f"{tag} {objective}: the booster left the fused front")
+            if abs(share - 0.8) > 1e-3:
+                fail(f"{tag} {objective}: in-bag share {share} not 0.8 +- "
+                     "0.001")
+            if n_feat != round(0.8 * F):
+                fail(f"{tag} {objective}: {n_feat} features a tree")
+            if not 0 < bst.best_iteration <= ran:
+                fail(f"{tag} {objective}: best_iteration "
+                     f"{bst.best_iteration} after {ran} iterations")
+            fname = os.path.join(OUT_DIR, f"chip_smoke_model_sampled_"
+                                 f"{objective}.txt")
+            bst.save_model(fname)
+            loaded = lt.Booster(model_file=fname)
+            if loaded.num_trees() != bst.best_iteration or not np.array_equal(
+                    loaded.predict(X[:m], raw_score=True),
+                    bst.predict(X[:m], raw_score=True)):
+                fail(f"{tag} {objective}: the saved model does not hold the "
+                     "best_iteration trees that predict() uses")
+            print(f"{tag} {objective}: model text round trip holds "
+                  f"{loaded.num_trees()} trees (best_iteration), predictions "
+                  "identical")
+        count_launches(tag, "fused", boosters, 1)
+        check_auc(tag, boosters[0])
+        gb = boosters[0]._gbdt
+        key = threefry.prng_key(3)
+        draw = dict(
+            uniform_ms=time_ms(lambda: threefry.uniform(key, (N,), dev)),
+            bag_mask_ms=time_ms(lambda: gb._update_bag(0, None, None)),
+            bag_mask_device_ms=device_ms(lambda: gb._update_bag(0, None,
+                                                                None)))
+        print(f"{tag} bag draw at N = {N} (CUDA events; the replica's "
+              f"uniforms alone, then split + uniform + compare): {draw}")
+        sampling["bag_draw"] = draw
+
+    def goss_path() -> None:
+        """(f): boosting=goss (top_rate 0.2, other_rate 0.1) at max_bin=255,
+        binary for 5 iterations and L2 for 2: materialized gradients, so
+        hist_q8 / route_level / leaf_sums with the hessian channel."""
+        ds, ds_reg = dataset(255)
+        tag = "[goss, max_bin=255]"
+        hk.reset_launches()
+        boosters = []
+        for objective, train_ds, iters in (("binary", ds, 5),
+                                           ("regression", ds_reg, 2)):
+            params = {"objective": objective, "num_leaves": L,
+                      "max_bin": 255, "learning_rate": 0.1,
+                      "min_data_in_leaf": 20, "verbosity": -1, **GOSS}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bst = lt.train(params, train_ds, num_boost_round=iters)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            boosters.append(bst)
+            gb = bst._gbdt
+            w = gb._bag
+            print(f"{tag} {objective}: {sec:.3f} s for {iters} iterations "
+                  f"({sec / iters:.3f} s/iter), level passes a tree "
+                  f"{gb.hist_passes}; rows kept at weight 1: "
+                  f"{int((w == 1).sum())}, up-weighted: "
+                  f"{int((w > 1).sum())} (x{float(w.max()):g})")
+            if gb.gp.fused_obj is not None or gb.gp.const_hess \
+                    or not gb.gp.quant:
+                fail(f"{tag} {objective}: GOSS must take the unfused front "
+                     "with all three channels")
+            kinds = set(torch.unique(w).tolist())
+            if not kinds <= {0.0, 1.0, 8.0} or 8.0 not in kinds:
+                fail(f"{tag} {objective}: GOSS weights {kinds}, expected "
+                     "0, 1 and (1 - 0.2) / 0.1 = 8")
+        count_launches(tag, "unfused", boosters, 0)
+        check_auc(tag, boosters[0])
+        gb = boosters[0]._gbdt
+        grad, hess = gb.objective.get_gradients(gb.train_score)
+        score = (grad * hess).abs()
+        sampling["goss_draw"] = dict(
+            topk_ms=time_ms(lambda: torch.topk(score, int(N * 0.2),
+                                               sorted=False)),
+            weights_ms=time_ms(lambda: gb._update_bag(0, grad, hess)),
+            weights_device_ms=device_ms(lambda: gb._update_bag(0, grad,
+                                                               hess)))
+        print(f"{tag} GOSS draw at N = {N} (CUDA events; torch.topk of "
+              f"|g * h| alone, then the whole weight draw): "
+              f"{sampling['goss_draw']}")
+
+    sampling = {}
+    sampled_path()
+    goss_path()
+    del datasets, Xv, yv, yv_reg
     for nm in kernels:
         kernels[nm]["launches"] = launches_all[nm]
+    print(f"elapsed after paths (e)-(f): "
+          f"{time.perf_counter() - t_start:.1f} s")
 
     # ---- 5. card vs plain versions on a small input ----
     Xs, ys = X[:4000], y_reg[:4000]
@@ -875,6 +1063,78 @@ def main() -> int:
                   f"data (4000 rows, max bins {gpu.train_set.max_num_bins},"
                   f" first tree, {a.num_leaves} leaves): identical, leaf "
                   "values included")
+
+    # (e), GOSS, and f32 and lossguide with bagging and bynode, card vs CPU
+    # on 4000 rows: the bag and feature masks equal, the first tree's
+    # structure equal, leaf values within 1e-6 of the largest leaf (the
+    # unquantized and GOSS ones on the exact-sum labels, where a leaf's
+    # gradients are -label times its weight and both devices see the same
+    # rows); then an early-stopped L2 run whose valid label is the negated
+    # target, which training moves away from, stops at the same iteration
+    for name_, extra, labels in (
+            ("sampled", {"max_bin": 63, **SAMPLED}, ys),
+            ("goss", {"max_bin": 255, **GOSS, "boost_from_average": False},
+             y8),
+            ("f32 sampled", {"max_bin": 255, "use_quantized_grad": "false",
+                             "boost_from_average": False, **SAMPLED}, y8),
+            ("lossguide sampled", {"max_bin": 255, "grow_policy": "lossguide",
+                                   "boost_from_average": False, **SAMPLED},
+             y8)):
+        small = {"objective": "regression", "num_leaves": 31,
+                 "min_data_in_leaf": 20, "verbosity": -1, **extra}
+        runs = []
+        for kw in ({}, {"device_type": "cpu"}):
+            p_ = dict(small, **kw)
+            runs.append(lt.train(p_, lt.Dataset(Xs, label=labels, params=p_),
+                                 1))
+        gpu, cpu = runs
+        ga, ca = gpu._gbdt, cpu._gbdt
+        for what, a_, b_ in (("bag mask", ga._bag, ca._bag),
+                             ("feature mask", ga._fmask, ca._fmask)):
+            if not torch.equal(a_.cpu(), b_):
+                fail(f"{name_}: card and CPU {what}s differ")
+        (a,), (b,) = gpu._host_trees(), cpu._host_trees()
+        for f_ in ("split_feature", "threshold_bin", "default_left",
+                   "left_child", "right_child"):
+            if not np.array_equal(getattr(a, f_), getattr(b, f_)):
+                fail(f"{name_}: card and CPU first trees differ in {f_}")
+        diff = float(np.abs(a.leaf_value - b.leaf_value).max())
+        scale = float(np.abs(b.leaf_value).max())
+        print(f"[{name_}] card vs CPU (4000 rows, first tree, {a.num_leaves}"
+              f" leaves, in-bag weight {float(ca._bag.sum()):g}, features "
+              f"{int(ca._fmask.sum())}): masks and structure identical, max "
+              f"leaf-value diff {diff:.3e} (largest leaf {scale:.3e})")
+        if diff > 1e-6 * scale:
+            fail(f"{name_}: card and CPU leaf values differ by more than "
+                 "1e-6 of the largest leaf value")
+    stops = []
+    for kw in ({}, {"device_type": "cpu"}):
+        p_ = {"objective": "regression", "num_leaves": 31, "max_bin": 63,
+              "min_data_in_leaf": 20, "verbosity": -1, "metric": "l2",
+              **SAMPLED, **kw}
+        ds_s = lt.Dataset(Xs, label=ys, params=p_)
+        valid = lt.Dataset(Xs[:1000], label=-ys[:1000], reference=ds_s)
+        evals = {}
+        bst = lt.train(p_, ds_s, num_boost_round=20, valid_sets=[valid],
+                       evals_result=evals, early_stopping_rounds=3,
+                       verbose_eval=False)
+        stops.append((len(evals["valid_0"]["l2"]), bst.best_iteration,
+                      bst.num_trees()))
+    print(f"early stopping card vs CPU (iterations run, best_iteration, "
+          f"trees): {stops}")
+    if stops[0] != stops[1] or not stops[0][0] < 20:
+        fail(f"early stopping: card {stops[0]} vs CPU {stops[1]}")
+
+    # the replica's uniforms: card and CPU bit for bit at N rows
+    key = threefry.fold_in(threefry.prng_key(3), 1)
+    u_card = threefry.uniform(key, (N,), dev).cpu()
+    u_host = threefry.uniform(key, (N,), "cpu")
+    if not torch.equal(u_card.view(torch.int32), u_host.view(torch.int32)):
+        fail("threefry: card and CPU uniforms differ")
+    print(f"threefry: card and CPU uniforms identical at N = {N} "
+          f"(mean {float(u_card.mean()):.6f})")
+    print(f"sampling draws (CUDA events, ms): {sampling}")
+    print(f"elapsed: {time.perf_counter() - t_start:.1f} s")
 
     print(f"card: {card}")
     print(json.dumps({"kernels": [dict(name=nm, **v)

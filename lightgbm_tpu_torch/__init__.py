@@ -1,10 +1,12 @@
 """lightgbm_tpu_torch: the PyTorch/CUDA port of lightgbm_tpu.
 
 Trains binary-logloss and L2 gradient-boosted trees on dense numeric data
-with the depthwise grower and int8 quantized gradients, on an NVIDIA Hopper
-GPU through four hand-written CUDA kernels (``ops/hist_kernels.py``,
-``csrc/``). It imports torch and numpy only: nothing of JAX and nothing of
-the ``lightgbm_tpu`` reference package.
+(gbdt or GOSS boosting; the depthwise grower on int8 quantized gradients
+or f32 histograms, or the leaf-wise grower; bagging, feature_fraction and
+feature_fraction_bynode; validation sets, early stopping and callbacks) on
+an NVIDIA Hopper GPU through eight hand-written CUDA kernels
+(``ops/hist_kernels.py``, ``csrc/``). It imports torch and numpy only:
+nothing of JAX and nothing of the ``lightgbm_tpu`` reference package.
 
 Entry points run on the GPU (``device_type="cuda"``, the default) unless
 the caller passes ``device_type="cpu"``; then every kernel wrapper runs its
@@ -12,7 +14,11 @@ plain PyTorch version. Settings outside the ported path raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
 from .basic import Booster, Dataset
+from .callback import (EarlyStopException, early_stopping, print_evaluation,
+                       record_evaluation, reset_parameter)
 from .config import Config
 from .engine import train
 
-__all__ = ["Booster", "Config", "Dataset", "train"]
+__all__ = ["Booster", "Config", "Dataset", "train", "early_stopping",
+           "print_evaluation", "record_evaluation", "reset_parameter",
+           "EarlyStopException"]

@@ -26,6 +26,7 @@ from .io import model_text
 from .log import LightGBMError
 from .metrics import create_metrics, default_metric_for_objective
 from .models.gbdt import GBDT
+from .models.goss import GOSS
 from .models.tree import Tree
 from .objectives import create_objective
 from .ops import predict as P
@@ -180,7 +181,11 @@ class Dataset:
 
 
 class Booster:
-    """Trained or training model (reference: lightgbm.Booster)."""
+    """Trained or training model (reference: lightgbm.Booster).
+
+    ``best_iteration`` (-1 until early stopping sets it) is the iteration
+    count ``predict``, ``model_to_string`` and ``save_model`` use when
+    called without ``num_iteration``."""
 
     def __init__(self, params: Optional[Dict] = None,
                  train_set: Optional[Dataset] = None,
@@ -191,6 +196,8 @@ class Booster:
         self._gbdt: Optional[GBDT] = None
         self.trees: List[Tree] = []
         self._loaded_meta: Dict[str, Any] = {}
+        self.best_iteration = -1
+        self.best_score: Dict[str, Dict[str, float]] = {}
         self.train_set: Optional[Dataset] = None
         if model_file is not None:
             with open(model_file) as fh:
@@ -212,7 +219,10 @@ class Booster:
         objective = create_objective(conf.objective, conf)
         metrics = create_metrics(
             conf.metric or [default_metric_for_objective(conf.objective)])
-        self._gbdt = GBDT(conf, train_set, objective, metrics)
+        # the trainer of the boosting type (reference: booster_class,
+        # basic.py:1010); check_slice refused the unported ones
+        trainer = GOSS if str(conf.boosting).lower() == "goss" else GBDT
+        self._gbdt = trainer(conf, train_set, objective, metrics)
         self.objective = objective
 
     def add_valid(self, data: Dataset, name: str) -> None:
@@ -222,6 +232,10 @@ class Booster:
     def update(self) -> bool:
         """One boosting iteration; True when no further split was found."""
         return self._gbdt.train_one_iter()
+
+    @property
+    def current_iteration(self) -> int:
+        return self._gbdt.iter_ if self._gbdt else len(self.trees)
 
     def num_model_per_iteration(self) -> int:
         return 1
@@ -263,7 +277,9 @@ class Booster:
         (transformed by the objective unless raw_score), or [N, T] leaf
         indices with pred_leaf."""
         trees = self._host_trees()
-        if num_iteration and num_iteration > 0:
+        if num_iteration is None:
+            num_iteration = self._default_num_iteration()
+        if num_iteration > 0:
             trees = trees[:num_iteration]
         x_np = _to_numpy_2d(data)
         nf = self.num_feature()
@@ -296,11 +312,18 @@ class Booster:
         return create_objective(parts[0], conf)
 
     # ---- persistence ----
+    def _default_num_iteration(self) -> int:
+        """The iteration count of a call without num_iteration: the best
+        iteration once early stopping set it, else all (reference:
+        basic.py:1230, :1387)."""
+        return self.best_iteration if self.best_iteration > 0 else -1
+
     def model_to_string(self, num_iteration: Optional[int] = None,
                         start_iteration: int = 0) -> str:
+        if num_iteration is None:
+            num_iteration = self._default_num_iteration()
         return model_text.dump_model_text(self, self._host_trees(),
-                                          num_iteration or -1,
-                                          start_iteration)
+                                          num_iteration, start_iteration)
 
     def save_model(self, filename: str, num_iteration: Optional[int] = None,
                    start_iteration: int = 0) -> "Booster":
@@ -321,3 +344,4 @@ class Booster:
                 "queue A11/A14)")
         self._loaded_meta = meta
         self.trees = trees
+        self.best_iteration = -1

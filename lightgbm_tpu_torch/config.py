@@ -6,8 +6,9 @@ dict written for the reference parses here to the same values. Two things
 differ: ``device_type`` (alias ``device``) defaults to ``"cuda"``, and
 ``check_slice`` refuses, with ``NotImplementedError`` naming the ROADMAP
 item, every setting that would leave the path this package implements
-(serial training of binary / L2 models on dense numeric data with the
-depthwise grower, quantized or not, or the unpooled leaf-wise grower). The
+(serial gbdt or GOSS training of binary / L2 models on dense numeric data
+with the depthwise grower, quantized or not, or the unpooled leaf-wise
+grower; bagging, the feature fractions and early stopping included). The
 TPU-only knobs (``histogram_impl``, ``hist_packed``, ``mesh_axis``, ...)
 are accepted and have no effect.
 """
@@ -534,22 +535,13 @@ def check_slice(conf: Config) -> None:
                             f"(num_class={conf.num_class})", "A11")
     if obj in L2_OBJECTIVES and conf.reg_sqrt:
         raise _out_of_slice("reg_sqrt", "A11")
-    if str(conf.boosting).lower() not in ("gbdt", "gbrt"):
+    if str(conf.boosting).lower() not in ("gbdt", "gbrt", "goss"):
         raise _out_of_slice(f"boosting={conf.boosting!r}", "A14")
     if conf.histogram_pool_size > 0:
         raise _out_of_slice("histogram_pool_size (the lean depthwise grower "
                             "and the lossguide histogram pool)", "A13b")
     if str(conf.tree_learner).lower() != "serial" or conf.num_machines > 1:
         raise _out_of_slice(f"tree_learner={conf.tree_learner!r}", "A21")
-    # the reference bags only when bagging_freq > 0 (models/gbdt.py
-    # _update_bag): a fraction below 1 alone trains without bagging there
-    if conf.bagging_freq > 0 and (conf.bagging_fraction < 1.0
-                                  or conf.pos_bagging_fraction < 1.0
-                                  or conf.neg_bagging_fraction < 1.0):
-        raise _out_of_slice("bagging", "A10")
-    if conf.feature_fraction < 1.0 or conf.feature_fraction_bynode < 1.0:
-        raise _out_of_slice("feature_fraction / feature_fraction_bynode",
-                            "A10")
     if conf.extra_trees:
         raise _out_of_slice("extra_trees", "A12")
     if any(conf.monotone_constraints) or any(
@@ -562,5 +554,3 @@ def check_slice(conf: Config) -> None:
         raise _out_of_slice("CEGB", "A12")
     if str(conf.categorical_feature).strip():
         raise _out_of_slice("categorical features", "A12")
-    if conf.early_stopping_round > 0:
-        raise _out_of_slice("early stopping", "A9")

@@ -1,15 +1,24 @@
 """Training entry point ``train()``.
 
 Port of ``lightgbm_tpu/engine.py`` ``train`` (:35) for the slice: build a
-Booster on the training Dataset, attach validation sets, run up to
-``num_boost_round`` iterations (stopping early only when a tree cannot
-split), and record each iteration's metrics on the validation sets in
-``evals_result``. Early stopping and callbacks are ROADMAP queue A9.
+Booster on the training Dataset, attach validation sets, and run up to
+``num_boost_round`` iterations with the reference's callback loop
+(:124-152, :188-206): callbacks before and after each iteration, each
+group sorted by ``order``; early stopping from ``early_stopping_rounds``
+or the ``early_stopping_round`` parameter (:71-72) under
+``first_metric_only``; ``verbose_eval`` printing; ``evals_result``
+recording; the training metric when the training set is among the valid
+sets or under ``is_provide_training_metric``. An ``EarlyStopException``
+sets the booster's ``best_iteration`` and ``best_score`` (:272-275).
+Snapshots, faults and telemetry (ROADMAP.md queues A16, A20) are not
+ported.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Union
 
+from . import callback as cb
+from . import log
 from .basic import Booster, Dataset
 from .config import canonical_name, params_to_config
 
@@ -21,41 +30,77 @@ def train(params: Dict[str, Any], train_set: Dataset,
           fobj: Optional[Callable] = None,
           feval: Optional[Callable] = None,
           evals_result: Optional[Dict] = None,
-          early_stopping_rounds: Optional[int] = None) -> Booster:
+          early_stopping_rounds: Optional[int] = None,
+          verbose_eval: Union[bool, int] = True,
+          callbacks: Optional[List[Callable]] = None) -> Booster:
     """Train a booster (reference: engine.py:35)."""
     if fobj is not None or feval is not None:
         raise NotImplementedError("custom objectives and eval functions are "
                                   "not ported yet (ROADMAP.md queue A11)")
-    if early_stopping_rounds:
-        raise NotImplementedError("early stopping is not ported yet "
-                                  "(ROADMAP.md queue A9)")
     params = dict(params or {})
+    conf = params_to_config(params)
     if any(canonical_name(str(k)) == "num_iterations" for k in params):
-        num_boost_round = params_to_config(params).num_iterations
+        num_boost_round = conf.num_iterations
+    if conf.early_stopping_round and early_stopping_rounds is None:
+        early_stopping_rounds = conf.early_stopping_round
     booster = Booster(params=params, train_set=train_set)
     valid_sets = list(valid_sets or [])
     valid_names = list(valid_names or [])
-    eval_training = False
     for i, vs in enumerate(valid_sets):
         if vs is train_set:
-            eval_training = True
             continue
         name = valid_names[i] if i < len(valid_names) else f"valid_{i}"
         if vs.reference is not train_set:
             vs.reference = train_set
         vs.params = {**train_set.params, **vs.params}
         booster.add_valid(vs, name)
+    eval_training = any(vs is train_set for vs in valid_sets) \
+        or conf.is_provide_training_metric
+
+    callbacks = list(callbacks or [])
+    if early_stopping_rounds is not None and early_stopping_rounds > 0:
+        callbacks.append(cb.early_stopping(early_stopping_rounds,
+                                           conf.first_metric_only,
+                                           verbose=bool(verbose_eval)))
+    if verbose_eval is True:
+        callbacks.append(cb.print_evaluation())
+    elif isinstance(verbose_eval, int) and verbose_eval >= 1:
+        callbacks.append(cb.print_evaluation(verbose_eval))
     if evals_result is not None:
-        evals_result.clear()
-    for _ in range(num_boost_round):
-        finished = booster.update()
-        if evals_result is not None:
-            results = booster.eval_valid()
-            if eval_training:
-                results = booster.eval_train() + results
-            for name, metric, value, _gib in results:
-                evals_result.setdefault(name, {}).setdefault(
-                    metric, []).append(value)
-        if finished:
-            break
+        callbacks.append(cb.record_evaluation(evals_result))
+    before = sorted((c for c in callbacks
+                     if getattr(c, "before_iteration", False)),
+                    key=lambda c: getattr(c, "order", 0))
+    after = sorted((c for c in callbacks
+                    if not getattr(c, "before_iteration", False)),
+                   key=lambda c: getattr(c, "order", 0))
+
+    begin_iteration = booster.current_iteration
+    end_iteration = begin_iteration + num_boost_round
+    try:
+        for i in range(begin_iteration, end_iteration):
+            for c in before:
+                c(cb.CallbackEnv(model=booster, params=params, iteration=i,
+                                 begin_iteration=begin_iteration,
+                                 end_iteration=end_iteration,
+                                 evaluation_result_list=None))
+            finished = booster.update()
+            results = []
+            if booster._gbdt.valid_sets or eval_training:
+                if eval_training:
+                    results.extend(booster.eval_train())
+                results.extend(booster.eval_valid())
+            for c in after:
+                c(cb.CallbackEnv(model=booster, params=params, iteration=i,
+                                 begin_iteration=begin_iteration,
+                                 end_iteration=end_iteration,
+                                 evaluation_result_list=results))
+            if finished:
+                log.warning("Stopped training because there are no more "
+                            "leaves that meet the split requirements")
+                break
+    except cb.EarlyStopException as e:
+        booster.best_iteration = e.best_iteration + 1
+        for item in (e.best_score or []):
+            booster.best_score.setdefault(item[0], {})[item[1]] = item[2]
     return booster

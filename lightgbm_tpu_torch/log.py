@@ -17,3 +17,7 @@ class LightGBMError(RuntimeError):
 
 def warning(msg: str, *args) -> None:
     _LOG.warning(msg, *args)
+
+
+def info(msg: str, *args) -> None:
+    _LOG.info(msg, *args)

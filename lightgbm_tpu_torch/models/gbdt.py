@@ -6,7 +6,11 @@ resolution (:123-134, :737-766), the fused-front gate (``_fused_front``,
 :714-727) and the unfused step's materialized gradients (:929-934,
 :969-976), the per-tree dither seed ``qseed = iter * k + cls`` (:1504),
 shrinkage (:952-954), the score update through ``take_small`` (:955-956)
-and the first-iteration bias folded into the stored tree (:1326-1339). One
+and the first-iteration bias folded into the stored tree (:1326-1339); the
+row and feature sampling of ``_update_bag`` (:606-628, bagging on the
+threefry replica of ``utils/threefry.py``) and ``_feature_mask``
+(:630-642), drawn in the reference's order each iteration (bag, then
+feature mask, :671-677, :1114-1140). One
 iteration grows one tree (one model per iteration on this slice) with the
 grower ``_grow_fn`` picks (:1297-1304): ``grow_tree_depthwise`` for
 ``grow_policy=depthwise``, the leaf-wise ``grow_tree`` otherwise; train
@@ -14,13 +18,14 @@ and valid scores stay on the training device.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import Config
 from ..log import warning
+from ..utils import threefry
 from ..ops.gather import take_small
 from ..ops.grow import GrowParams, TreeArrays, grow_tree
 from ..ops.grow_depthwise import grow_tree_depthwise
@@ -52,8 +57,18 @@ def resolve_quant(config: Config) -> bool:
     return quant_on
 
 
+def _f32(x: float) -> float:
+    """x rounded to f32, as the reference's f32 comparisons see it."""
+    return float(np.float32(x))
+
+
 class GBDT:
     """Gradient Boosting Decision Tree trainer (reference: GBDT, gbdt.h:33)."""
+
+    # the step is handed materialized gradients (GOSS samples by |g * h|
+    # before growing): the reference's custom step, which keeps the fused
+    # front off and all three quantized channels (gbdt.py:733-744)
+    _custom_grad = False
 
     def __init__(self, config: Config, train_set, objective, metrics=None):
         self.config = config
@@ -74,7 +89,8 @@ class GBDT:
         # only, and the fused kernels hold an [F * B] root histogram of at
         # most 2048 cells; wider data materializes the gradients and takes
         # the unfused front
-        if not (quant and self.depthwise) or f * B > ACC_ROWS_MAX:
+        if (self._custom_grad or not (quant and self.depthwise)
+                or f * B > ACC_ROWS_MAX):
             spec = None
         self.gp = GrowParams(
             num_leaves=config.num_leaves, max_depth=config.max_depth,
@@ -87,13 +103,22 @@ class GBDT:
                 max_delta_step=config.max_delta_step),
             quant=quant,
             # constant-hessian elision is a property of the quantized
-            # channels (gbdt.py:737-744)
-            const_hess=quant and bool(objective.is_constant_hessian),
-            fused_obj=spec)
+            # channels of the objective's own gradients (gbdt.py:737-744)
+            const_hess=(quant and bool(objective.is_constant_hessian)
+                        and not self._custom_grad),
+            fused_obj=spec, ff_bynode=float(config.feature_fraction_bynode))
         self.train_score = torch.zeros(n, dtype=torch.float32,
                                        device=self.device)
-        self._bag = torch.ones(n, dtype=torch.float32, device=self.device)
-        self._fmask = torch.ones(f, dtype=torch.bool, device=self.device)
+        # sampling state (gbdt.py:272-274): the bag mask (None when bagging
+        # is off, f32 row weights otherwise), its threefry key, the feature
+        # mask and its RandomState
+        self._bag_ones = torch.ones(n, dtype=torch.float32,
+                                    device=self.device)
+        self._bag_mask: Optional[torch.Tensor] = None
+        self._bag_key = threefry.prng_key(config.bagging_seed)
+        self._feat_rng = np.random.RandomState(config.feature_fraction_seed)
+        self._fmask_ones = torch.ones(f, dtype=torch.bool, device=self.device)
+        self._fmask = self._fmask_ones
         self.init_score = 0.0
         self.models_dev: List[TreeArrays] = []
         self.models_host: List[Tree] = []
@@ -113,6 +138,49 @@ class GBDT:
         self.valid_scores.append(torch.zeros(
             valid_set.num_data, dtype=torch.float32, device=self.device))
 
+    # ---- sampling ----
+    @property
+    def _bag(self) -> torch.Tensor:
+        """The rows' bag weights of this iteration (all ones unbagged)."""
+        return self._bag_ones if self._bag_mask is None else self._bag_mask
+
+    def _update_bag(self, iter_idx: int, grad, hess) -> None:
+        """Bagging (reference: _update_bag, gbdt.py:606-628): a fresh mask
+        every bagging_freq iterations from a split of the bagging key,
+        balanced by label under pos_/neg_bagging_fraction."""
+        c = self.config
+        need = c.bagging_freq > 0 and (c.bagging_fraction < 1.0
+                                       or c.pos_bagging_fraction < 1.0
+                                       or c.neg_bagging_fraction < 1.0)
+        if not need:
+            self._bag_mask = None
+            return
+        if iter_idx % c.bagging_freq != 0 and self._bag_mask is not None:
+            return
+        self._bag_key, sub = threefry.split(self._bag_key)
+        u = threefry.uniform(sub, (self.train_set.num_data,), self.device)
+        # the reference compares f32 uniforms with f32 fractions
+        if c.pos_bagging_fraction < 1.0 or c.neg_bagging_fraction < 1.0:
+            keep = torch.where(self.train_set.label > 0,
+                               u < _f32(c.pos_bagging_fraction),
+                               u < _f32(c.neg_bagging_fraction))
+        else:
+            keep = u < _f32(c.bagging_fraction)
+        self._bag_mask = keep.to(torch.float32)
+
+    def _feature_mask(self) -> torch.Tensor:
+        """feature_fraction (reference: _feature_mask, gbdt.py:630-642):
+        k of the F used features, drawn on the host once a tree."""
+        f = self.train_set.num_features
+        frac = self.config.feature_fraction
+        if frac >= 1.0:
+            return self._fmask_ones
+        k = max(1, int(round(f * frac)))
+        idx = self._feat_rng.choice(f, k, replace=False)
+        mask = np.zeros(f, dtype=bool)
+        mask[idx] = True
+        return torch.as_tensor(mask, device=self.device)
+
     def train_one_iter(self) -> bool:
         """One boosting iteration; True when the tree could not split (the
         reference then stops without adding it, gbdt.cpp:430)."""
@@ -125,16 +193,23 @@ class GBDT:
                 self.train_score = self.train_score + shift
                 self.valid_scores = [s + shift for s in self.valid_scores]
         ts = self.train_set
+        grad = hess = None
+        if self._custom_grad:
+            grad, hess = self.objective.get_gradients(self.train_score)
+        self._update_bag(self.iter_, grad, hess)
         bag = self._bag
+        self._fmask = self._feature_mask()
         if self.gp.fused_obj is not None:
             # fused front: the kernels recompute the gradients from (score,
             # aux, bag) and never materialize them
             ghc = (None, None, None)
             fused = (self.train_score, self._aux, bag)
         else:
-            grad, hess = self.objective.get_gradients(self.train_score)
+            if grad is None:
+                grad, hess = self.objective.get_gradients(self.train_score)
             ghc = (grad * bag, hess * bag, (bag > 0).to(torch.float32))
             fused = None
+        # qseed = iter * k + cls (gbdt.py:1504), one model per iteration
         if self.depthwise:
             tree, leaf_id, passes = grow_tree_depthwise(
                 ts.bins_T, *ghc, ts.num_bins_dev, ts.na_bin_dev, self._fmask,
@@ -142,7 +217,8 @@ class GBDT:
         else:
             tree, leaf_id, passes = grow_tree(
                 ts.bins_T, *ghc, ts.num_bins_dev, ts.na_bin_dev, self._fmask,
-                self.gp, bins=ts.bins)
+                self.gp, bins=ts.bins,
+                qseed=self.iter_ if self.gp.ff_bynode < 1.0 else None)
         self.hist_passes.append(passes)
         if tree.num_leaves <= 1:
             self.iter_ += 1

@@ -12,8 +12,10 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
+from ..utils import threefry
 from . import hist_kernels as K
 from . import histogram as H
 from .scan import tree_sum
@@ -36,6 +38,9 @@ class GrowParams:
     # fused_grad_spec of the objective: ("l2",) or
     # ("logloss", sigmoid, lw_pos, lw_neg)
     fused_obj: Optional[tuple] = None
+    # feature_fraction_bynode: the share of usable features each node
+    # searches (node_feature_mask)
+    ff_bynode: float = 1.0
 
 
 class TreeArrays(NamedTuple):
@@ -73,10 +78,29 @@ def empty_tree(L: int, device: torch.device) -> TreeArrays:
         num_leaves=1)
 
 
+def node_feature_mask(base_mask: torch.Tensor, gp: GrowParams,
+                      qseed: Optional[int], tag: int) -> torch.Tensor:
+    """feature_fraction_bynode (reference: ``_node_mask``, grow.py:220-234,
+    and the depthwise level's draw, grow_depthwise.py:350-367): each node
+    (a row of base_mask) keeps a usable feature when its uniform, keyed on
+    fold_in(PRNGKey(qseed), tag), is below ff_bynode, and always keeps its
+    best-u usable feature, so no node searches nothing. base_mask [F] or
+    [nodes, F] bool."""
+    if gp.ff_bynode >= 1.0:
+        return base_mask
+    key = threefry.fold_in(threefry.prng_key(qseed or 0), tag)
+    u = threefry.uniform(key, tuple(base_mask.shape), base_mask.device)
+    u_allowed = torch.where(base_mask, u, torch.full_like(u, -1.0))
+    best = u_allowed >= u_allowed.max(dim=-1, keepdim=True).values
+    # the reference compares f32 uniforms with the f32 fraction
+    return base_mask & ((u < float(np.float32(gp.ff_bynode))) | best)
+
+
 def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
               c: torch.Tensor, num_bins: torch.Tensor, na_bin: torch.Tensor,
               feature_mask: torch.Tensor, gp: GrowParams,
-              bins: Optional[torch.Tensor] = None
+              bins: Optional[torch.Tensor] = None,
+              qseed: Optional[int] = None
               ) -> Tuple[TreeArrays, torch.Tensor, int]:
     """Grow one tree leaf-wise (best-first), unquantized.
 
@@ -107,7 +131,8 @@ def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
         tree_sum(hist0[2, 0])
     ones = torch.ones(2, dtype=torch.bool, device=dev)
     best0 = best_split(hist0[None], num_bins, na_bin, g0[None], h0[None],
-                       c0[None], feature_mask, sp, ones[:1])
+                       c0[None], node_feature_mask(feature_mask, gp, qseed, L),
+                       sp, ones[:1])
 
     def tile(x: torch.Tensor, fill) -> torch.Tensor:
         out = torch.full((L,), fill, dtype=x.dtype, device=dev)
@@ -190,9 +215,10 @@ def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
         # ---- best splits of the two children (batched) ----
         d = depth[l] + 1
         allow = ones if gp.max_depth <= 0 or d < gp.max_depth else ~ones
+        ch_mask = node_feature_mask(feature_mask.expand(2, f), gp, qseed, t)
         bs = best_split(torch.stack([hist_left, hist_right]), num_bins,
                         na_bin, torch.stack([lg, rg]), torch.stack([lh, rh]),
-                        torch.stack([lc, rc]), feature_mask, sp, allow)
+                        torch.stack([lc, rc]), ch_mask, sp, allow)
         for arr, vals in zip(best, bs):
             arr[l] = vals[0]
             arr[new_leaf] = vals[1]

@@ -32,7 +32,7 @@ import torch
 
 from . import hist_kernels as K
 from . import histogram as H
-from .grow import GrowParams, TreeArrays, empty_tree
+from .grow import GrowParams, TreeArrays, empty_tree, node_feature_mask
 from .scan import tree_sum
 from .split import NEG_INF, best_split, leaf_output
 
@@ -124,11 +124,13 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
     gain_gate = float(max(sp.min_gain_to_split, 0.0))
     passes = 0
 
-    for slots in level_widths(L, max_levels):
+    for lvl, slots in enumerate(level_widths(L, max_levels)):
         if num_leaves >= L:
             break
+        search_mask = node_feature_mask(feature_mask.expand(L, f), gp, qseed,
+                                        lvl)
         res = best_split(hist, num_bins, na_bin, leaf_g, leaf_h, leaf_c,
-                         feature_mask, sp, active)
+                         search_mask, sp, active)
         # budgeted selection: top-gain candidates win, ties by leaf index
         cand = active & (res.gain > gain_gate) & (res.gain > NEG_INF / 2)
         key = torch.where(cand, res.gain,

@@ -84,7 +84,8 @@ def best_split(hist: torch.Tensor, num_bins: torch.Tensor,
 
     hist [L, 3, F, B] channel-major (grad, hess, count) f32; num_bins [F]
     bins per feature; na_bin [F] missing-bin index (>= B when none);
-    parent_g/h/cnt and allow_split [L]; feature_mask [F] bool."""
+    parent_g/h/cnt and allow_split [L]; feature_mask [F] bool, or [L, F]
+    for a mask per leaf (feature_fraction_bynode)."""
     L, _, f, b = hist.shape
     dev = hist.device
     iota = torch.arange(b, device=dev)[None, None, :]              # [1,1,B]
@@ -111,7 +112,7 @@ def best_split(hist: torch.Tensor, num_bins: torch.Tensor,
                       cum[:, 1] + na_stats[:, 1, :, None],
                       cum[:, 2] + na_stats[:, 2, :, None])
     valid_t = ((iota < num_bins.to(torch.int64)[None, :, None] - 1)
-               & ~na_sel & feature_mask[None, :, None])
+               & ~na_sel & feature_mask.view(-1, f)[:, :, None])
     has_na = na < b
     neg = torch.full_like(gain_r, NEG_INF)
     gain_r = torch.where(valid_t, gain_r, neg)

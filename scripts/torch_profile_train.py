@@ -5,7 +5,7 @@ Run from the repository root on a machine with one CUDA GPU:
 
     python3 scripts/torch_profile_train.py [--rows N] [--iters K]
         [--max-bin 63|255] [--grow-policy depthwise|lossguide]
-        [--quant auto|true|false]
+        [--quant auto|true|false] [--sampling none|bagged|goss]
 
 It builds a main-path configuration of chip_smoke.py (HIGGS-shaped N x 28
 table, num_leaves=255, learning_rate=0.1, min_data_in_leaf=20) at
@@ -17,8 +17,15 @@ of the L2 model with torch.profiler (CUDA and CPU activity). For each it
 prints one JSON line: the wall time per iteration, the device time per
 iteration by kernel group (each hand-written kernel, everything else), the
 device busy share, and the histogram passes per tree after the root (one
-per level, or per split under lossguide). Prints the card's name and
-power limit first.
+per level, or per split under lossguide). ``--sampling bagged`` adds
+chip_smoke.py path (e)'s sampling (bagging_fraction 0.8 every iteration,
+feature_fraction 0.8, feature_fraction_bynode 0.8), ``--sampling goss``
+path (f)'s GOSS (top_rate 0.2, other_rate 0.1); their draws get groups of
+their own, from profiler ranges this script opens around them: "bag draw"
+(the bag mask or GOSS's weights, without the top-k), "GOSS topk" (the
+torch.topk calls) and "bynode draw" (the per-level or per-split feature
+masks), and their host time per iteration (the ranges' CPU time, which
+the draws' launches set). Prints the card's name and power limit first.
 """
 import argparse
 import json
@@ -75,6 +82,36 @@ def group_of(name: str) -> str:
     return "other (split search, glue)"
 
 
+SAMPLING = {"none": {},
+            "bagged": {"bagging_fraction": 0.8, "bagging_freq": 1,
+                       "feature_fraction": 0.8,
+                       "feature_fraction_bynode": 0.8},
+            "goss": {"boosting": "goss", "top_rate": 0.2,
+                     "other_rate": 0.1}}
+RANGES = ("bag draw", "GOSS topk", "bynode draw")
+
+
+def ranged(name, fn):
+    """fn, called inside a profiler range named name."""
+    from torch.profiler import record_function
+
+    def call(*args, **kw):
+        with record_function(name):
+            return fn(*args, **kw)
+    return call
+
+
+def annotate_draws() -> None:
+    """Open a profiler range (RANGES) around every torch.topk call and
+    every node mask the growers draw; boosters' _update_bag get theirs
+    where they are made."""
+    import torch
+    from lightgbm_tpu_torch.ops import grow, grow_depthwise
+    torch.topk = ranged("GOSS topk", torch.topk)
+    node_mask = ranged("bynode draw", grow.node_feature_mask)
+    grow.node_feature_mask = grow_depthwise.node_feature_mask = node_mask
+
+
 def profile_iters(booster, iters: int):
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -92,14 +129,34 @@ def profile_iters(booster, iters: int):
         dev_us = getattr(ev, "device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "cuda_time_total", 0.0)
-        if dev_us <= 0 or ev.device_type.name != "CUDA":
+        # the ranges' own device-side spans (user annotations, gaps
+        # included) are no kernels: skip them
+        if dev_us <= 0 or ev.device_type.name != "CUDA" or ev.key in RANGES:
             continue
         g = group_of(ev.key)
         by_group[g] = by_group.get(g, 0.0) + dev_us / 1e3 / iters
         launches[g] = launches.get(g, 0) + ev.count
+    # the draws' kernels, by the ranges annotate_draws opened (their
+    # generic elementwise kernels are counted in "other" above)
+    ranges, host = {}, {}
+    for ev in prof.events():
+        if ev.name in RANGES and ev.device_type.name == "CPU":
+            ranges[ev.name] = ranges.get(ev.name, 0.0) \
+                + ev.device_time_total / 1e3 / iters
+            host[ev.name] = host.get(ev.name, 0.0) \
+                + ev.cpu_time_total / 1e3 / iters
+    if ranges:
+        other = "other (split search, glue)"
+        by_group[other] = by_group.get(other, 0.0) - ranges.get(
+            "bag draw", 0.0) - ranges.get("bynode draw", 0.0)
+        if "GOSS topk" in ranges:
+            ranges["bag draw"] = ranges.get("bag draw", 0.0) \
+                - ranges["GOSS topk"]
+        by_group.update(ranges)
     busy = sum(by_group.values())
     return {"wall_ms_per_iter": wall * 1e3 / iters,
             "device_ms_per_iter": by_group,
+            "draws_host_ms_per_iter": host,
             "device_launches": launches,
             "device_busy_share": busy / (wall * 1e3 / iters)}
 
@@ -113,6 +170,7 @@ def main() -> int:
                     choices=("depthwise", "lossguide"))
     ap.add_argument("--quant", default="auto",
                     choices=("auto", "true", "false"))
+    ap.add_argument("--sampling", default="none", choices=tuple(SAMPLING))
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -131,7 +189,8 @@ def main() -> int:
     base = {"num_leaves": 255, "max_bin": args.max_bin, "learning_rate": 0.1,
             "min_data_in_leaf": 20, "verbosity": -1,
             "grow_policy": args.grow_policy,
-            "use_quantized_grad": args.quant}
+            "use_quantized_grad": args.quant, **SAMPLING[args.sampling]}
+    annotate_draws()
     for objective, label in (("binary", y), ("regression", y_reg)):
         params = dict(base, objective=objective)
         ds = lt.Dataset(X, label=label, params=params)
@@ -140,11 +199,13 @@ def main() -> int:
         torch.cuda.synchronize()
         construct_s = time.perf_counter() - t0
         bst = lt.Booster(params=params, train_set=ds)
+        bst._gbdt._update_bag = ranged("bag draw", bst._gbdt._update_bag)
         for _ in range(2):
             bst.update()
         res = profile_iters(bst, args.iters)
         res.update(objective=objective, rows=args.rows,
                    max_bin=args.max_bin, grow_policy=args.grow_policy,
+                   sampling=args.sampling,
                    quant=bst._gbdt.gp.quant, card=card,
                    construct_s=construct_s,
                    hist_passes=bst._gbdt.hist_passes)

@@ -36,7 +36,13 @@ slot before they sum them; their edge cases (empty slots, one slot,
 dropped slots, ragged N, S = 255 and 7000, B from 2 to 256, two feature
 groups, a pass keeping 10 rows) hold hist_q8 exactly and hist_f32 within
 the same tolerance. Counts handed to hist_q8 that are not its slot
-vector's own stop it with a device-side assert.
+vector's own stop it with a device-side assert. Sampling: the threefry
+replica's uniforms on the card equal its CPU draws bit for bit; with
+bagging, feature_fraction and feature_fraction_bynode on the fused,
+unfused, f32 and lossguide paths, and with GOSS, the card's bag and
+feature masks equal the CPU run's and its first tree has the CPU tree's
+structure and leaf values within 1e-6 of the largest; an early-stopped run
+stops at the same iteration with the same best_iteration on both.
 """
 import os
 import subprocess
@@ -769,3 +775,78 @@ def test_gpu_unquantized_first_tree_equals_cpu(dev, extra, max_bin):
     for name in STRUCT + ("leaf_value", "leaf_weight", "leaf_count"):
         np.testing.assert_array_equal(getattr(a, name), getattr(b, name),
                                       err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,lo,hi", [((100_003,), 0.0, 1.0),
+                                         ((255, 28), 0.0, 1.0),
+                                         ((65_537,), -2.0, 3.5)])
+def test_threefry_uniform_card_equals_cpu(dev, shape, lo, hi):
+    # exact: the replica's draws are integer ops and one rounding
+    from lightgbm_tpu_torch.utils import threefry
+    for key in (threefry.prng_key(0), threefry.fold_in(threefry.prng_key(7),
+                                                       3)):
+        a = threefry.uniform(key, shape, dev, lo, hi)
+        b = threefry.uniform(key, shape, "cpu", lo, hi)
+        assert a.device.type == "cuda"
+        assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+
+
+SAMPLED = {"bagging_fraction": 0.7, "bagging_freq": 1,
+           "feature_fraction": 0.7, "feature_fraction_bynode": 0.7}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [
+    {"max_bin": 31, **SAMPLED},
+    {"max_bin": 255, **SAMPLED},
+    {"max_bin": 255, "boosting": "goss", "top_rate": 0.3, "other_rate": 0.2},
+    {"max_bin": 31, "boosting": "goss"},
+    {"max_bin": 255, "use_quantized_grad": "false", **SAMPLED},
+    {"max_bin": 255, "grow_policy": "lossguide", **SAMPLED}])
+def test_gpu_sampled_training_matches_cpu(dev, extra):
+    # the bag and feature masks equal, the first tree's structure equal,
+    # leaf values within 1e-6 of the largest leaf (exact-sum labels, no
+    # init score: a leaf's gradients are -label times its row weight)
+    rng = np.random.RandomState(2)
+    X = rng.rand(4000, 9).astype(np.float32)
+    y = np.clip(np.floor((X[:, 0] * 2 + rng.rand(4000)) * 8) / 8, 0,
+                3.875).astype(np.float32)
+    params = {"objective": "regression", "num_leaves": 31,
+              "min_data_in_leaf": 20, "verbosity": -1,
+              "boost_from_average": False, **extra}
+    gpu = lt.train(params, lt.Dataset(X, label=y, params=params), 1)
+    cpu_p = dict(params, device_type="cpu")
+    cpu = lt.train(cpu_p, lt.Dataset(X, label=y, params=cpu_p), 1)
+    assert torch.equal(gpu._gbdt._bag.cpu(), cpu._gbdt._bag)
+    assert torch.equal(gpu._gbdt._fmask.cpu(), cpu._gbdt._fmask)
+    (a,), (b,) = gpu._host_trees(), cpu._host_trees()
+    assert a.num_leaves == b.num_leaves > 4
+    for name in STRUCT:
+        np.testing.assert_array_equal(getattr(a, name), getattr(b, name),
+                                      err_msg=name)
+    np.testing.assert_allclose(a.leaf_value, b.leaf_value, rtol=0,
+                               atol=1e-6 * np.abs(b.leaf_value).max())
+
+
+@pytest.mark.cuda
+def test_gpu_early_stopping_matches_cpu(dev):
+    # a valid label the model moves away from (the negated target): both
+    # devices stop at the same iteration with the same best_iteration
+    rng = np.random.RandomState(3)
+    X = rng.rand(3000, 6).astype(np.float32)
+    y = (X[:, 0] * 2 + rng.rand(3000)).astype(np.float32)
+    out = []
+    for kw in ({}, {"device_type": "cpu"}):
+        params = {"objective": "regression", "num_leaves": 15,
+                  "max_bin": 63, "min_data_in_leaf": 10, "verbosity": -1,
+                  "metric": "l2", **SAMPLED, **kw}
+        ds = lt.Dataset(X, label=y, params=params)
+        valid = lt.Dataset(X[:500], label=-y[:500], reference=ds)
+        res = {}
+        bst = lt.train(params, ds, num_boost_round=20, valid_sets=[valid],
+                       evals_result=res, early_stopping_rounds=3,
+                       verbose_eval=False)
+        out.append((len(res["valid_0"]["l2"]), bst.best_iteration,
+                    bst.num_trees()))
+    assert out[0] == out[1] and out[0][0] < 20

@@ -462,11 +462,11 @@ def test_default_device_needs_a_gpu():
 @pytest.mark.parametrize("extra,item", [
     ({"objective": "huber"}, "A11"),
     ({"grow_policy": "lossguide", "histogram_pool_size": 1.0}, "A13b"),
-    ({"bagging_fraction": 0.5, "bagging_freq": 1}, "A10"),
-    ({"feature_fraction": 0.5}, "A10"),
-    ({"feature_fraction_bynode": 0.5}, "A10"),
+    ({"objective": "regression", "reg_sqrt": True}, "A11"),
+    ({"monotone_constraints": [0, 0, 1, 0, 0, 0, 0, 0]}, "A12"),
+    ({"cegb_penalty_split": 0.1}, "A12"),
     ({"extra_trees": True}, "A12"),
-    ({"boosting": "goss"}, "A14"),
+    ({"feature_contri": [1.0, 1.0, 1.0, 0.5, 1.0, 1.0, 1.0, 1.0]}, "A12"),
     ({"boosting": "dart"}, "A14"),
     ({"boosting": "rf"}, "A14"),
     ({"objective": "multiclass", "num_class": 3}, "A11"),
@@ -474,6 +474,7 @@ def test_default_device_needs_a_gpu():
     ({"tree_learner": "data"}, "A21"),
     ({"categorical_feature": "0"}, "A12"),
     ({"metric": "binary_error"}, "A11"),
+    ({"forcedsplits_filename": "forced.json"}, "A12"),
 ])
 def test_out_of_slice_settings_raise(extra, item):
     X, yb, _ = _data()
