@@ -79,7 +79,23 @@ measured):
    other_rate 0.1) at max_bin=255, binary 5 and L2 2 iterations, on the
    unfused front with the hessian channel kept (hist_q8 / route_level /
    leaf_sums counts, none of the fused kernels), weights 0, 1 and 8, and
-   the top-k and the weight draw timed;
+   the top-k and the weight draw timed; (g) "multiclass": num_class=5
+   (the quintiles of the generator's latent score, its logit plus the
+   logistic noise of its label draw) at max_bin=255, objective=multiclass
+   for 3 iterations (15 trees) and multiclassova for 1, on a Dataset that
+   takes (b)'s bin mappers: one hist_q8 / leaf_sums / take_small a class
+   tree, hist_q8 and route_level once a level pass, nothing else;
+   multi_logloss on 1M rows below ln 5 and falling each iteration, softmax
+   rows summing to 1 within 1e-6, [1M, 5] predictions, the model text
+   round trip, the peak device memory and the softmax gradients' time;
+   (h) "weighted": row weights uniform on [0.5, 2) (RandomState(2)) at
+   max_bin=63, a binary model for 3 iterations and a quantile model
+   (alpha 0.9) on the L2 target for 2: the unfused front at F * B <= 2048
+   (one hist_q8 root, one hist_routed_fused a level pass, one leaf_sums and
+   one take_small a tree, none of B1 / B3), weighted train AUC on 1M rows
+   > 0.7, the quantile model's weighted pinball loss below its init
+   score's, the model text round trips, and the leaf renewal (a stable
+   sort of 10.5M f32 keys) timed;
 5. agreement, at max_bin=63 and at 255 (the 4000-row table has more than
    128 bins a feature, so the unfused path, which is asserted): the first
    tree of a 4000-row L2 model trained on the card has the structure of
@@ -95,7 +111,11 @@ measured):
    feature_fraction_bynode give the card the CPU run's bag and feature
    masks and first-tree structure, leaf values within 1e-6 of the largest
    leaf; an early-stopped L2 run (a valid label the model moves away
-   from) stops at the CPU run's iteration with its best_iteration; and the
+   from) stops at the CPU run's iteration with its best_iteration; a K = 3
+   multiclass model's first three trees, a weighted quantile model's first
+   tree (its renewed leaf values bit for bit) and an fobj model's first
+   tree (the L2 gradient as a custom function) have the CPU run's
+   structure, leaf values within 1e-6 of the largest; and the
    threefry replica's uniforms at N rows are the CPU's bit for bit.
 
 The line before the last is the JSON kernel table; the last line is
@@ -135,16 +155,24 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def synth_higgs(n_rows: int, n_feat: int = 28, seed: int = 0):
-    """HIGGS-shaped binary problem (a copy of bench.py synth_higgs)."""
+def synth_higgs(n_rows: int, n_feat: int = 28, seed: int = 0,
+                latent: bool = False):
+    """HIGGS-shaped binary problem (a copy of bench.py synth_higgs). With
+    latent, also the latent score behind each label: the logit plus the
+    logistic noise of the uniform draw u that makes it, logit - logit(u),
+    so y = latent > 0 (path (g) cuts its classes from it)."""
     rng = np.random.RandomState(seed)
     X = rng.randn(n_rows, n_feat).astype(np.float32)
     w = rng.randn(8)
     logits = (X[:, :8] @ w) * 0.7 + 0.5 * np.abs(X[:, 8]) * X[:, 9] \
         - 0.4 * (X[:, 10] ** 2) + 0.3
     p = 1.0 / (1.0 + np.exp(-logits))
-    y = (rng.rand(n_rows) < p).astype(np.float32)
-    return X, y
+    u = rng.rand(n_rows)
+    y = (u < p).astype(np.float32)
+    if not latent:
+        return X, y
+    with np.errstate(divide="ignore"):
+        return X, y, (logits - np.log(u / (1.0 - u))).astype(np.float32)
 
 
 def card_line() -> str:
@@ -709,7 +737,7 @@ def main() -> int:
 
     # ---- 4. main paths through the public entry points ----
     t0 = time.perf_counter()
-    X, y = synth_higgs(N, F, seed=0)
+    X, y, latent = synth_higgs(N, F, seed=0, latent=True)
     rng = np.random.RandomState(1)
     y_reg = (X[:, :4] @ np.array([1.0, -0.5, 0.25, 2.0]) + 0.5 * X[:, 4] ** 2
              + 0.1 * rng.randn(N)).astype(np.float32)
@@ -748,6 +776,11 @@ def main() -> int:
                    "leaf_sums": trees}
         elif path == "f32":
             exp = {"hist_f32": trees + n_pass, "route_level": n_pass}
+        elif path == "weighted":
+            # materialized weighted rows at F * B <= 2048: the root through
+            # hist_q8, each level through the fused level pass
+            exp = {"hist_q8": trees, "hist_routed_fused": n_pass,
+                   "leaf_sums": trees}
         else:
             exp = {"hist_f32": trees + n_pass}
         exp["take_small"] = added
@@ -849,6 +882,8 @@ def main() -> int:
         added = sum(b.num_trees() for b in boosters)
         expected, own = expected_launches(path, len(passes), sum(passes),
                                           added * (1 + n_valid))
+        if len(passes) != added:
+            fail(f"{tag}: {len(passes)} trees grown, {added} kept")
         print(f"{tag} launches {launches} expected {expected}")
         if launches != expected or min(launches[k] for k in own) <= 0:
             fail(f"{tag}: launch counts {launches} != expected {expected}")
@@ -991,10 +1026,162 @@ def main() -> int:
     sampling = {}
     sampled_path()
     goss_path()
+    print(f"elapsed after paths (e)-(f): "
+          f"{time.perf_counter() - t_start:.1f} s")
+
+    # ---- 4c. (g) multiclass and (h) weighted, through the entry points ----
+    q = np.quantile(latent, [0.2, 0.4, 0.6, 0.8])
+    y5 = np.digitize(latent, q).astype(np.float32)
+    w_rows = np.random.RandomState(2).uniform(0.5, 2.0, N).astype(np.float32)
+    slice_ms = {}
+
+    def multiclass_path() -> None:
+        """(g): objective=multiclass, num_class=5 (the quintiles of the
+        generator's latent score) at max_bin=255 for 3 iterations, 15
+        trees; then one multiclassova iteration on the same Dataset."""
+        ds255, _ = dataset(255)
+        ds5 = lt.Dataset(X, label=y5, reference=ds255)
+        ds5.construct()
+        tag = "[multiclass, max_bin=255]"
+        boosters = []
+        hk.reset_launches()
+        for objective, iters in (("multiclass", 3), ("multiclassova", 1)):
+            params = {"objective": objective, "num_class": 5,
+                      "num_leaves": L, "max_bin": 255, "learning_rate": 0.1,
+                      "min_data_in_leaf": 20, "verbosity": -1,
+                      "metric": "multi_logloss,multi_error"}
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bst = lt.train(params, ds5, num_boost_round=iters)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            boosters.append(bst)
+            gb = bst._gbdt
+            print(f"{tag} {objective}: {sec:.3f} s for {iters} iterations "
+                  f"({sec / iters:.3f} s/iter, {bst.num_trees()} trees), "
+                  f"level passes a tree {gb.hist_passes}; peak device "
+                  f"memory {peak} bytes ({peak / 2 ** 30:.3f} GiB, both "
+                  "Datasets of max_bin=255 and this one resident)")
+            if (gb.gp.fused_obj is not None or gb.gp.const_hess
+                    or bst.num_trees() != 5 * iters
+                    or tuple(gb.train_score.shape) != (N, 5)):
+                fail(f"{tag} {objective}: not K = 5 trees an iteration on "
+                     "the unfused front with three channels")
+            prob = bst.predict(X[:m])
+            if prob.shape != (m, 5) or not np.isfinite(prob).all():
+                fail(f"{tag} {objective}: predictions are not finite "
+                     "[1M, 5] values")
+            fname = os.path.join(OUT_DIR, f"chip_smoke_model_{objective}.txt")
+            bst.save_model(fname)
+            loaded = lt.Booster(model_file=fname)
+            if not np.array_equal(loaded.predict(X[:m]), prob):
+                fail(f"{tag} {objective}: saved and loaded model predict "
+                     "differently")
+            if objective == "multiclassova":
+                continue
+            if np.abs(prob.sum(axis=1) - 1.0).max() > 1e-6:
+                fail(f"{tag}: softmax rows do not sum to 1 within 1e-6")
+            mlog = metrics.create_metrics(["multi_logloss", "multi_error"])
+            lab = torch.as_tensor(y5[:m])
+            losses = []
+            for it in range(1, iters + 1):
+                p_it = torch.as_tensor(bst.predict(X[:m], num_iteration=it))
+                losses.append([mm(lab, p_it) for mm in mlog])
+            print(f"{tag} (multi_logloss, multi_error) on 1M rows by "
+                  f"iteration: {losses} (ln 5 = {np.log(5):.6f}); model "
+                  "text round trip: [1M, 5] predictions identical")
+            ll = [v[0] for v in losses]
+            if not (ll[0] < np.log(5) and all(
+                    b_ < a_ for a_, b_ in zip(ll, ll[1:]))):
+                fail(f"{tag}: multi_logloss {ll} not below ln 5 and "
+                     "falling")
+            # the softmax gradients of one iteration, alone
+            slice_ms["softmax_gradients_ms"] = time_ms(
+                lambda: gb.objective.get_gradients(gb.train_score))
+        count_launches(tag, "unfused", boosters, 0)
+        print(f"{tag} softmax + gradients at [{N}, 5] (CUDA events): "
+              f"{slice_ms['softmax_gradients_ms']:.4f} ms")
+
+    def weighted_path() -> None:
+        """(h): row weights from RandomState(2).uniform(0.5, 2.0) at
+        max_bin=63: a binary model for 3 iterations (weighted auc) and a
+        quantile (alpha 0.9) model on the L2 target for 2, whose leaves are
+        renewed from the weighted 0.9-percentile of their residuals."""
+        ds63, ds63_reg = dataset(63)
+        tag = "[weighted, max_bin=63]"
+        hk.reset_launches()
+        boosters = []
+        wt = torch.as_tensor(w_rows[:m])
+        for objective, label, ref_ds, iters in (
+                ("binary", y, ds63, 3), ("quantile", y_reg, ds63_reg, 2)):
+            params = {"objective": objective, "alpha": 0.9, "num_leaves": L,
+                      "max_bin": 63, "learning_rate": 0.1,
+                      "min_data_in_leaf": 20, "verbosity": -1}
+            dsw = lt.Dataset(X, label=label, weight=w_rows,
+                             reference=ref_ds)
+            dsw.construct()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bst = lt.train(params, dsw, num_boost_round=iters)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            boosters.append(bst)
+            gb = bst._gbdt
+            print(f"{tag} {objective}: {sec:.3f} s for {iters} iterations "
+                  f"({sec / iters:.3f} s/iter), level passes a tree "
+                  f"{gb.hist_passes}")
+            if gb.gp.fused_obj is not None or gb.gp.const_hess \
+                    or not gb.gp.quant:
+                fail(f"{tag} {objective}: weights must take the unfused "
+                     "front with all three channels")
+            fname = os.path.join(OUT_DIR, f"chip_smoke_model_w_{objective}"
+                                 ".txt")
+            bst.save_model(fname)
+            loaded = lt.Booster(model_file=fname)
+            pred = bst.predict(X[:m])
+            if not np.isfinite(pred).all() or not np.array_equal(
+                    loaded.predict(X[:m]), pred):
+                fail(f"{tag} {objective}: predictions not finite, or the "
+                     "saved model predicts differently")
+            if objective == "binary":
+                auc = float(metrics.auc(torch.as_tensor(y[:m]),
+                                        torch.as_tensor(pred), wt))
+                print(f"{tag} weighted train AUC on 1M rows: {auc:.6f}")
+                if not auc > 0.7:
+                    fail(f"{tag}: weighted train AUC {auc} <= 0.7")
+                continue
+            pinball = metrics.create_metrics(
+                ["quantile"], lt.Config({"alpha": 0.9}))[0]
+            lab = torch.as_tensor(y_reg[:m])
+            init = gb.init_scores[0]
+            before = pinball(lab, torch.full_like(lab, init), wt)
+            after = pinball(lab, torch.as_tensor(pred), wt)
+            print(f"{tag} quantile: weighted pinball loss on 1M rows "
+                  f"{after:.6f}, at the init score {init:.6f}: {before:.6f}"
+                  "; model text round trip: predictions identical")
+            if not after < before:
+                fail(f"{tag}: the quantile model's pinball loss {after} is "
+                     f"not below its init score's {before}")
+            # the renewal of the last tree: the stable sort of 10.5M f32
+            # keys, the f64 cumulative weights and the per-leaf pick
+            from lightgbm_tpu_torch.ops.predict import route_bins
+            leaf = route_bins(gb.models_dev[-1], dsw.bins,
+                              dsw.na_bin_dev).to(torch.int32)
+            slice_ms["leaf_renewal_ms"] = time_ms(
+                lambda: gb.objective.renew_leaf_values(gb.train_score, leaf,
+                                                       L))
+            print(f"{tag} leaf renewal at N = {N}, L = {L} (CUDA events): "
+                  f"{slice_ms['leaf_renewal_ms']:.4f} ms")
+        count_launches(tag, "weighted", boosters, 0)
+
+    multiclass_path()
+    weighted_path()
     del datasets, Xv, yv, yv_reg
     for nm in kernels:
         kernels[nm]["launches"] = launches_all[nm]
-    print(f"elapsed after paths (e)-(f): "
+    print(f"elapsed after paths (g)-(h): "
           f"{time.perf_counter() - t_start:.1f} s")
 
     # ---- 5. card vs plain versions on a small input ----
@@ -1125,6 +1312,64 @@ def main() -> int:
     if stops[0] != stops[1] or not stops[0][0] < 20:
         fail(f"early stopping: card {stops[0]} vs CPU {stops[1]}")
 
+    # (g), (h) and a custom objective, card vs CPU on 4000 rows: a K = 3
+    # multiclass model (its first iteration's three trees), a weighted
+    # quantile model (its first tree, the renewed leaf values bit for bit:
+    # residuals picked by order, not sums) and an fobj run (the L2
+    # gradient as a custom function; its first tree)
+    y3 = np.digitize(latent[:4000], np.quantile(latent[:4000],
+                                                [1 / 3, 2 / 3])).astype(
+        np.float32)
+
+    def l2_fobj(score, ds_):
+        return score - ds_.get_label(), np.ones_like(score)
+
+    for name_, extra, labels, wts, fobj, k, took in (
+            ("multiclass", {"objective": "multiclass", "num_class": 3,
+                            "max_bin": 255}, y3, None, None, 3, UNFUSED),
+            ("weighted quantile", {"objective": "quantile", "alpha": 0.9,
+                                   "max_bin": 63}, ys, w_rows[:4000], None,
+             1, ("hist_q8", "hist_routed_fused", "leaf_sums")),
+            ("fobj", {"objective": "regression", "max_bin": 63}, ys, None,
+             l2_fobj, 1, ("hist_q8", "hist_routed_fused", "leaf_sums"))):
+        small = {"num_leaves": 31, "min_data_in_leaf": 20, "verbosity": -1,
+                 **extra}
+        runs = []
+        for kw in ({}, {"device_type": "cpu"}):
+            p_ = dict(small, **kw)
+            hk.reset_launches()
+            runs.append(lt.train(p_, lt.Dataset(Xs, label=labels,
+                                                weight=wts, params=p_),
+                                 1, fobj=fobj))
+            if not kw and (min(hk.LAUNCHES[k_] for k_ in took) <= 0
+                           or hk.LAUNCHES["take_small"] != k):
+                fail(f"{name_}: the 4000-row model did not take its path "
+                     f"({dict(hk.LAUNCHES)})")
+        gpu, cpu = runs
+        diff = scale = 0.0
+        for a, b in zip(gpu._host_trees(), cpu._host_trees()):
+            for f_ in ("split_feature", "threshold_bin", "default_left",
+                       "left_child", "right_child"):
+                if not np.array_equal(getattr(a, f_), getattr(b, f_)):
+                    fail(f"{name_}: card and CPU first trees differ in {f_}")
+            diff = max(diff, float(np.abs(a.leaf_value - b.leaf_value).max()))
+            scale = max(scale, float(np.abs(b.leaf_value).max()))
+        if len(gpu._host_trees()) != k:
+            fail(f"{name_}: {len(gpu._host_trees())} trees, expected {k}")
+        if name_ == "weighted quantile":
+            (a,), (b,) = gpu._host_trees(), cpu._host_trees()
+            if not np.array_equal(a.leaf_value.view(np.int64),
+                                  b.leaf_value.view(np.int64)):
+                fail("weighted quantile: card and CPU renewed leaf values "
+                     "differ")
+        print(f"[{name_}] card vs CPU (4000 rows, first iteration, {k} "
+              f"tree(s), {[t.num_leaves for t in gpu._host_trees()]} "
+              f"leaves): structure identical, max leaf-value diff "
+              f"{diff:.3e} (largest leaf {scale:.3e})")
+        if diff > 1e-6 * scale:
+            fail(f"{name_}: card and CPU leaf values differ by more than "
+                 "1e-6 of the largest leaf value")
+
     # the replica's uniforms: card and CPU bit for bit at N rows
     key = threefry.fold_in(threefry.prng_key(3), 1)
     u_card = threefry.uniform(key, (N,), dev).cpu()
@@ -1134,6 +1379,7 @@ def main() -> int:
     print(f"threefry: card and CPU uniforms identical at N = {N} "
           f"(mean {float(u_card.mean()):.6f})")
     print(f"sampling draws (CUDA events, ms): {sampling}")
+    print(f"slice times (CUDA events, ms): {slice_ms}")
     print(f"elapsed: {time.perf_counter() - t_start:.1f} s")
 
     print(f"card: {card}")

@@ -1,9 +1,13 @@
 """lightgbm_tpu_torch: the PyTorch/CUDA port of lightgbm_tpu.
 
-Trains binary-logloss and L2 gradient-boosted trees on dense numeric data
-(gbdt or GOSS boosting; the depthwise grower on int8 quantized gradients
-or f32 histograms, or the leaf-wise grower; bagging, feature_fraction and
-feature_fraction_bynode; validation sets, early stopping and callbacks) on
+Trains gradient-boosted trees of the pointwise objectives (the regression
+family, binary, multiclass softmax and one-vs-all with K trees an
+iteration, cross-entropy), with row weights or a custom objective, on
+dense numeric data (gbdt or GOSS boosting; the depthwise grower on int8
+quantized gradients or f32 histograms, or the leaf-wise grower; bagging,
+feature_fraction and feature_fraction_bynode; validation sets, the
+reference's metric table but ranking, custom eval functions, early
+stopping and callbacks) on
 an NVIDIA Hopper GPU through eight hand-written CUDA kernels
 (``ops/hist_kernels.py``, ``csrc/``). It imports torch and numpy only:
 nothing of JAX and nothing of the ``lightgbm_tpu`` reference package.

@@ -1,10 +1,12 @@
 """Dataset and Booster.
 
 Port of the dense numeric construct of ``lightgbm_tpu/basic.py``
-``Dataset`` (:95) and of ``Booster`` (``predict``, ``save_model``,
-``model_to_string``, loading from model text). The binned matrix lives on
-the device as uint8 ``[N, F]`` together with its cached ``[F, N]``
-transpose ``bins_T``, which is what the kernels read.
+``Dataset`` (:95), with labels and row weights, and of ``Booster``
+(``update`` with a custom objective, ``predict``, ``save_model``,
+``model_to_string``, loading from model text), K trees an iteration for
+the multiclass objectives. The binned matrix lives on the device as uint8
+``[N, F]`` together with its cached ``[F, N]`` transpose ``bins_T``, which
+is what the kernels read.
 
 Device rule: ``device_type`` (alias ``device``) defaults to ``"cuda"``.
 Without a GPU, constructing a Dataset or a training Booster raises
@@ -14,14 +16,14 @@ moves to the CPU on its own.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
 from .binning import bin_data, find_bin_mappers, used_features
 from . import efb
-from .config import Config, check_slice, params_to_config
+from .config import Config, check_slice, params_to_config, ranking_refusal
 from .io import model_text
 from .log import LightGBMError
 from .metrics import create_metrics, default_metric_for_objective
@@ -72,12 +74,11 @@ class Dataset:
                  categorical_feature: Union[str, List] = "auto",
                  params: Optional[Dict[str, Any]] = None,
                  free_raw_data: bool = True):
-        for what, val, item in (("weight", weight, "A11"),
-                                ("group", group, "A11"),
-                                ("init_score", init_score, "A14")):
-            if val is not None:
-                raise NotImplementedError(f"Dataset {what} is not ported yet "
-                                          f"(ROADMAP.md queue {item})")
+        if group is not None:
+            raise ranking_refusal("Dataset group")
+        if init_score is not None:
+            raise NotImplementedError("Dataset init_score is not ported yet "
+                                      "(ROADMAP.md queue A14)")
         if categorical_feature not in ("auto", None, [], ()):
             raise NotImplementedError("categorical features are not ported "
                                       "yet (ROADMAP.md queue A12)")
@@ -85,6 +86,8 @@ class Dataset:
         self.raw_data = data
         self.label_np = None if label is None else \
             np.asarray(label, dtype=np.float32).reshape(-1)
+        self.weight_np = None if weight is None else \
+            np.asarray(weight, dtype=np.float32).reshape(-1)
         self.reference = reference
         self.feature_name = feature_name
         self.free_raw_data = free_raw_data
@@ -94,6 +97,7 @@ class Dataset:
         self.bins: Optional[torch.Tensor] = None
         self._bins_T: Optional[torch.Tensor] = None
         self.label: Optional[torch.Tensor] = None
+        self.weight: Optional[torch.Tensor] = None
         self.device: Optional[torch.device] = None
         self._names: List[str] = []
         self.num_data = int(np.shape(data)[0])
@@ -154,8 +158,15 @@ class Dataset:
         self.num_bins_dev = torch.as_tensor(
             np.array([m.num_bins for m in self.mappers], dtype=np.int32),
             device=self.device)
-        if self.label_np is not None:
-            self.label = torch.as_tensor(self.label_np, device=self.device)
+        for what, arr in (("label", self.label_np),
+                          ("weight", self.weight_np)):
+            if arr is None:
+                continue
+            if arr.shape[0] != self.num_data:
+                raise LightGBMError(f"length of {what} ({arr.shape[0]}) "
+                                    "differs from the number of rows "
+                                    f"({self.num_data})")
+            setattr(self, what, torch.as_tensor(arr, device=self.device))
         self._constructed = True
         if self.free_raw_data:
             self.raw_data = None
@@ -178,6 +189,12 @@ class Dataset:
 
     def feature_names(self) -> List[str]:
         return list(self._names)
+
+    def get_label(self) -> Optional[np.ndarray]:
+        return self.label_np
+
+    def get_weight(self) -> Optional[np.ndarray]:
+        return self.weight_np
 
 
 class Booster:
@@ -216,9 +233,12 @@ class Booster:
             raise LightGBMError("the training Dataset needs a label")
         self.train_set = train_set
         conf = self.config
+        # None for a custom objective (objective="none", as train() sets it
+        # for fobj)
         objective = create_objective(conf.objective, conf)
         metrics = create_metrics(
-            conf.metric or [default_metric_for_objective(conf.objective)])
+            conf.metric or [default_metric_for_objective(conf.objective)],
+            conf)
         # the trainer of the boosting type (reference: booster_class,
         # basic.py:1010); check_slice refused the unported ones
         trainer = GOSS if str(conf.boosting).lower() == "goss" else GBDT
@@ -229,16 +249,36 @@ class Booster:
         data.construct()
         self._gbdt.add_valid(data, name)
 
-    def update(self) -> bool:
-        """One boosting iteration; True when no further split was found."""
-        return self._gbdt.train_one_iter()
+    def update(self, fobj: Optional[Callable] = None) -> bool:
+        """One boosting iteration; True when no further split was found.
+
+        ``fobj(score, train_set) -> (grad, hess)`` is called with the raw
+        training score as a numpy array, [N] or [N, K], and may return
+        [N] / [N, K] arrays or row-major flat ones of N * K values
+        (reference: Booster.update, basic.py:1100-1117)."""
+        gb = self._gbdt
+        if fobj is None:
+            return gb.train_one_iter()
+        grad, hess = fobj(gb.train_score.cpu().numpy().copy(), gb.train_set)
+        shape = tuple(gb.train_score.shape)
+        rows = []
+        for what, a in (("grad", grad), ("hess", hess)):
+            a = np.asarray(a, dtype=np.float32)
+            if a.size != gb.train_score.numel():
+                raise LightGBMError(f"fobj returned {a.size} {what} values "
+                                    f"for a score of shape {shape}")
+            rows.append(torch.as_tensor(a.reshape(shape), device=gb.device))
+        return gb.train_one_iter(*rows)
 
     @property
     def current_iteration(self) -> int:
-        return self._gbdt.iter_ if self._gbdt else len(self.trees)
+        return self._gbdt.iter_ if self._gbdt else \
+            len(self.trees) // self.num_model_per_iteration()
 
     def num_model_per_iteration(self) -> int:
-        return 1
+        if self._gbdt is not None:
+            return self._gbdt.num_tree_per_iteration
+        return int(self._loaded_meta.get("num_tree_per_iteration", 1))
 
     def num_trees(self) -> int:
         return self._gbdt.num_trees() if self._gbdt else len(self.trees)
@@ -274,13 +314,15 @@ class Booster:
                 raw_score: bool = False, pred_leaf: bool = False
                 ) -> np.ndarray:
         """Predictions on raw features [N, F] as a numpy array: f64 scores
-        (transformed by the objective unless raw_score), or [N, T] leaf
-        indices with pred_leaf."""
+        (transformed by the objective unless raw_score), [N] or, with K
+        trees an iteration, [N, K]; or [N, T] leaf indices with
+        pred_leaf."""
         trees = self._host_trees()
+        k = self.num_model_per_iteration()
         if num_iteration is None:
             num_iteration = self._default_num_iteration()
         if num_iteration > 0:
-            trees = trees[:num_iteration]
+            trees = trees[:num_iteration * k]
         x_np = _to_numpy_2d(data)
         nf = self.num_feature()
         if nf and x_np.shape[1] != nf:
@@ -290,7 +332,7 @@ class Booster:
         x = torch.as_tensor(x_np, device=self._device()).to(torch.float64)
         if pred_leaf:
             return P.predict_leaf(trees, x).cpu().numpy()
-        raw = P.predict_raw(trees, x)
+        raw = P.predict_raw(trees, x, k)
         if not raw_score:
             obj = self._objective_for_predict()
             if obj is not None:
@@ -309,7 +351,12 @@ class Booster:
             if ":" in p:
                 kk, vv = p.split(":", 1)
                 conf.update({kk: vv})
-        return create_objective(parts[0], conf)
+        try:
+            return create_objective(parts[0], conf)
+        except (LightGBMError, NotImplementedError):
+            # an objective the port does not train (ranking) or know: raw
+            # scores, as the reference predicts then
+            return None
 
     # ---- persistence ----
     def _default_num_iteration(self) -> int:
@@ -336,12 +383,10 @@ class Booster:
 
     def _load_model_string(self, s: str) -> None:
         meta, trees = model_text.parse_model_text(s)
-        if meta.get("average_output") or \
-                int(meta.get("num_tree_per_iteration", 1)) != 1:
+        if meta.get("average_output"):
             raise NotImplementedError(
-                "models with average_output (RF) or several trees per "
-                "iteration (multiclass) are not ported yet (ROADMAP.md "
-                "queue A11/A14)")
+                "models with average_output (RF) are not ported yet "
+                "(ROADMAP.md queue A14)")
         self._loaded_meta = meta
         self.trees = trees
         self.best_iteration = -1

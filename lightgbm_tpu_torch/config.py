@@ -6,11 +6,13 @@ dict written for the reference parses here to the same values. Two things
 differ: ``device_type`` (alias ``device``) defaults to ``"cuda"``, and
 ``check_slice`` refuses, with ``NotImplementedError`` naming the ROADMAP
 item, every setting that would leave the path this package implements
-(serial gbdt or GOSS training of binary / L2 models on dense numeric data
-with the depthwise grower, quantized or not, or the unpooled leaf-wise
-grower; bagging, the feature fractions and early stopping included). The
-TPU-only knobs (``histogram_impl``, ``hist_packed``, ``mesh_axis``, ...)
-are accepted and have no effect.
+(serial gbdt or GOSS training of the pointwise objectives, row weights
+included, on dense numeric data with the depthwise grower, quantized or
+not, or the unpooled leaf-wise grower; bagging, the feature fractions and
+early stopping included). ``OBJECTIVES`` is the reference's objective
+alias table (``lightgbm_tpu/objectives.py:690-709``). The TPU-only knobs
+(``histogram_impl``, ``hist_packed``, ``mesh_axis``, ...) are accepted and
+have no effect.
 """
 from __future__ import annotations
 
@@ -515,11 +517,46 @@ def params_to_config(params: Optional[Dict[str, Any]]) -> Config:
     return Config(params)
 
 
-# ---- the slice's boundary ----
+# ---- the objective table and the slice's boundary ----
 
-L2_OBJECTIVES = ("regression", "regression_l2", "l2", "mean_squared_error",
-                 "mse", "l2_root", "root_mean_squared_error", "rmse")
-BINARY_OBJECTIVES = ("binary",)
+# alias -> canonical objective name (lightgbm_tpu/objectives.py:690-709);
+# "none" is a custom objective (fobj), trained without one
+OBJECTIVES: Dict[str, str] = {
+    **dict.fromkeys(("regression", "regression_l2", "l2",
+                     "mean_squared_error", "mse", "l2_root",
+                     "root_mean_squared_error", "rmse"), "regression"),
+    **dict.fromkeys(("regression_l1", "l1", "mean_absolute_error", "mae"),
+                    "regression_l1"),
+    "huber": "huber", "fair": "fair", "poisson": "poisson",
+    "quantile": "quantile",
+    **dict.fromkeys(("mape", "mean_absolute_percentage_error"), "mape"),
+    "gamma": "gamma", "tweedie": "tweedie", "binary": "binary",
+    **dict.fromkeys(("multiclass", "softmax"), "multiclass"),
+    **dict.fromkeys(("multiclassova", "multiclass_ova", "ova", "ovr"),
+                    "multiclassova"),
+    **dict.fromkeys(("cross_entropy", "xentropy"), "cross_entropy"),
+    **dict.fromkeys(("cross_entropy_lambda", "xentlambda"),
+                    "cross_entropy_lambda"),
+    "lambdarank": "lambdarank",
+    **dict.fromkeys(("rank_xendcg", "xendcg", "xe_ndcg", "xe_ndcg_mart",
+                     "xendcg_mart"), "rank_xendcg"),
+    **dict.fromkeys(("none", "null", "custom", "na"), "none"),
+}
+RANKING_OBJECTIVES = ("lambdarank", "rank_xendcg")
+MULTICLASS_OBJECTIVES = ("multiclass", "multiclassova")
+# the ranking metrics' names (lightgbm_tpu/metrics.py:306-307)
+RANKING_METRICS = ("ndcg", "lambdarank", "rank_xendcg", "xendcg", "xe_ndcg",
+                   "xe_ndcg_mart", "xendcg_mart", "map",
+                   "mean_average_precision")
+
+
+def objective_kind(name) -> str:
+    """The canonical objective of a configured name; unknown names are
+    fatal, as in the reference (objectives.py:716)."""
+    kind = OBJECTIVES.get(str(name or "regression").lower())
+    if kind is None:
+        raise LightGBMError(f"unknown objective: {name}")
+    return kind
 
 
 def _out_of_slice(what: str, item: str) -> NotImplementedError:
@@ -527,14 +564,28 @@ def _out_of_slice(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported yet (ROADMAP.md queue {item})")
 
 
+def ranking_refusal(what: str) -> NotImplementedError:
+    """The refusal of a ranking setting (ROADMAP.md queue A11b)."""
+    return _out_of_slice(what, "A11b")
+
+
 def check_slice(conf: Config) -> None:
-    """Raise NotImplementedError for any setting outside the ported path."""
-    obj = str(conf.objective).lower()
-    if obj not in L2_OBJECTIVES + BINARY_OBJECTIVES or conf.num_class > 1:
-        raise _out_of_slice(f"objective={conf.objective!r} "
-                            f"(num_class={conf.num_class})", "A11")
-    if obj in L2_OBJECTIVES and conf.reg_sqrt:
-        raise _out_of_slice("reg_sqrt", "A11")
+    """Raise NotImplementedError for any setting outside the ported path,
+    and LightGBMError for a num_class the objective cannot take (LightGBM's
+    config check: multiclass needs num_class > 1, any other objective but
+    a custom one num_class = 1)."""
+    kind = objective_kind(conf.objective)
+    if kind in RANKING_OBJECTIVES:
+        raise ranking_refusal(f"objective={conf.objective!r}")
+    for m in conf.metric:
+        if m.lower().strip() in RANKING_METRICS:
+            raise ranking_refusal(f"metric={m!r}")
+    if kind in MULTICLASS_OBJECTIVES and conf.num_class <= 1:
+        raise LightGBMError(f"objective={conf.objective!r} needs num_class "
+                            f"> 1 (got {conf.num_class})")
+    if kind not in MULTICLASS_OBJECTIVES + ("none",) and conf.num_class != 1:
+        raise LightGBMError(f"num_class must be 1 for objective="
+                            f"{conf.objective!r} (got {conf.num_class})")
     if str(conf.boosting).lower() not in ("gbdt", "gbrt", "goss"):
         raise _out_of_slice(f"boosting={conf.boosting!r}", "A14")
     if conf.histogram_pool_size > 0:

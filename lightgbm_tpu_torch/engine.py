@@ -10,12 +10,19 @@ or the ``early_stopping_round`` parameter (:71-72) under
 recording; the training metric when the training set is among the valid
 sets or under ``is_provide_training_metric``. An ``EarlyStopException``
 sets the booster's ``best_iteration`` and ``best_score`` (:272-275).
-Snapshots, faults and telemetry (ROADMAP.md queues A16, A20) are not
-ported.
+``fobj`` trains on custom gradients (objective "none", :73-74); ``feval``
+(one function or a list) adds its results after the built-in metrics', in
+``_run_feval``'s order (:321-335), so they reach ``evals_result``, early
+stopping and the callbacks alike. ``fobj`` and ``feval`` see numpy arrays:
+the raw score, [N] or [N, K], and the Dataset (``get_label``,
+``get_weight``). Snapshots, faults, the non-finite guard and telemetry
+(ROADMAP.md queues A16, A20) are not ported.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional, Union
+
+import numpy as np
 
 from . import callback as cb
 from . import log
@@ -34,15 +41,16 @@ def train(params: Dict[str, Any], train_set: Dataset,
           verbose_eval: Union[bool, int] = True,
           callbacks: Optional[List[Callable]] = None) -> Booster:
     """Train a booster (reference: engine.py:35)."""
-    if fobj is not None or feval is not None:
-        raise NotImplementedError("custom objectives and eval functions are "
-                                  "not ported yet (ROADMAP.md queue A11)")
     params = dict(params or {})
     conf = params_to_config(params)
     if any(canonical_name(str(k)) == "num_iterations" for k in params):
         num_boost_round = conf.num_iterations
     if conf.early_stopping_round and early_stopping_rounds is None:
         early_stopping_rounds = conf.early_stopping_round
+    if fobj is not None:
+        params = {k: v for k, v in params.items()
+                  if canonical_name(str(k)) != "objective"}
+        params["objective"] = "none"
     booster = Booster(params=params, train_set=train_set)
     valid_sets = list(valid_sets or [])
     valid_names = list(valid_names or [])
@@ -84,12 +92,14 @@ def train(params: Dict[str, Any], train_set: Dataset,
                                  begin_iteration=begin_iteration,
                                  end_iteration=end_iteration,
                                  evaluation_result_list=None))
-            finished = booster.update()
+            finished = booster.update(fobj=fobj)
             results = []
             if booster._gbdt.valid_sets or eval_training:
                 if eval_training:
                     results.extend(booster.eval_train())
                 results.extend(booster.eval_valid())
+                if feval is not None:
+                    results.extend(_run_feval(feval, booster, eval_training))
             for c in after:
                 c(cb.CallbackEnv(model=booster, params=params, iteration=i,
                                  begin_iteration=begin_iteration,
@@ -104,3 +114,21 @@ def train(params: Dict[str, Any], train_set: Dataset,
         for item in (e.best_score or []):
             booster.best_score.setdefault(item[0], {})[item[1]] = item[2]
     return booster
+
+
+def _run_feval(feval, booster: Booster, eval_training: bool) -> List:
+    """Each feval on the training set (when evaluated) and each valid set,
+    in the reference's order: feval(raw score as numpy, Dataset) returns
+    one (name, value, greater_is_better) or a list of them."""
+    gb = booster._gbdt
+    sets = [("training", gb.train_score, gb.train_set)] if eval_training \
+        else []
+    sets += list(zip(gb.valid_names, gb.valid_scores, gb.valid_sets))
+    out = []
+    for f in (feval if isinstance(feval, (list, tuple)) else [feval]):
+        for name, score, ds in sets:
+            res = f(np.array(score.cpu().numpy()), ds)
+            for metric, value, greater in ([res] if isinstance(res, tuple)
+                                           else res):
+                out.append((name, metric, value, greater))
+    return out

@@ -4,6 +4,9 @@ Port of ``lightgbm_tpu/io/model_text.py`` ``dump_model_text`` (:36) and
 ``parse_model_text`` (:113): the reference's v3 model file (header, one
 block per tree with exact ``tree_sizes``, feature importances, parameters
 footer), so models move between the two packages and LightGBM tooling.
+A model of K trees an iteration (multiclass) writes ``num_class`` and
+``num_tree_per_iteration`` = K and is sliced K trees an iteration; a
+loaded model keeps the ``num_class`` of its file.
 """
 from __future__ import annotations
 
@@ -16,15 +19,21 @@ _VERSION = "v3"
 
 
 def _objective_string(booster) -> str:
+    """The objective line (reference: model_text.py:20-33): the configured
+    name, with num_class for the multiclass names and sigmoid for binary
+    and multiclassova."""
     obj = booster._loaded_meta.get("objective") if booster._loaded_meta \
         else None
     if obj:
         return obj
     conf = booster.config
     name = conf.objective
-    if name == "binary":
-        return f"{name} sigmoid:{conf.sigmoid:g}"
-    return name
+    extras = []
+    if name in ("multiclass", "multiclassova", "softmax", "ova", "ovr"):
+        extras.append(f"num_class:{conf.num_class}")
+    if name in ("binary", "multiclassova"):
+        extras.append(f"sigmoid:{conf.sigmoid:g}")
+    return " ".join([name] + extras)
 
 
 def dump_model_text(booster, trees: List[Tree], num_iteration: int = -1,
@@ -47,10 +56,12 @@ def dump_model_text(booster, trees: List[Tree], num_iteration: int = -1,
                                          ["none"] * len(names))
         max_feature_idx = int(booster._loaded_meta.get("max_feature_idx",
                                                        len(names) - 1))
+    num_class = (booster._loaded_meta or {}).get("num_class",
+                                                 booster.config.num_class)
     lines = [
         "tree",
         f"version={_VERSION}",
-        f"num_class={booster.config.num_class}",
+        f"num_class={num_class}",
         f"num_tree_per_iteration={k}",
         "label_index=0",
         f"max_feature_idx={max_feature_idx}",

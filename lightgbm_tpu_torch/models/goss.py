@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..log import LightGBMError, warning
+from ..objectives import class_sum
 from ..utils import threefry
 from .gbdt import GBDT, _f32
 
@@ -35,7 +36,10 @@ class GOSS(GBDT):
         n = self.train_set.num_data
         k1 = max(1, int(n * self.top_rate))
         k2 = max(1, int(n * self.other_rate))
+        # a multiclass row's score sums its classes' |g * h|
         score = (grad * hess).abs()
+        if score.dim() > 1:
+            score = class_sum(score)
         # the top-k1 |g * h| rows keep weight 1
         kth = torch.topk(score, k1, sorted=False).values.min()
         top_mask = score >= kth

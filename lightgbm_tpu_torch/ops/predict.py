@@ -98,13 +98,15 @@ def route_raw(t: Tree, x: torch.Tensor) -> torch.Tensor:
     return ~ptr
 
 
-def predict_raw(trees: Sequence[Tree], x: torch.Tensor) -> torch.Tensor:
-    """Raw scores [N] f64: the sum of every tree's leaf value."""
-    out = torch.zeros(x.shape[0], dtype=torch.float64, device=x.device)
-    for t in trees:
-        out += torch.as_tensor(t.leaf_value, dtype=torch.float64,
-                               device=x.device)[route_raw(t, x)]
-    return out
+def predict_raw(trees: Sequence[Tree], x: torch.Tensor,
+                k: int = 1) -> torch.Tensor:
+    """Raw scores f64: [N], the sum of every tree's leaf value, or with k
+    trees an iteration [N, k], tree t adding to column t mod k."""
+    out = torch.zeros((x.shape[0], k), dtype=torch.float64, device=x.device)
+    for i, t in enumerate(trees):
+        out[:, i % k] += torch.as_tensor(t.leaf_value, dtype=torch.float64,
+                                         device=x.device)[route_raw(t, x)]
+    return out[:, 0] if k == 1 else out
 
 
 def predict_leaf(trees: Sequence[Tree], x: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,8 @@ Run from the repository root on a machine with one CUDA GPU:
 
     python3 scripts/torch_ab_train.py A_DIR B_DIR [--max-bin 255]
         [--objective binary|regression] [--grow-policy depthwise|lossguide]
-        [--quant auto|true|false] [--pairs 10] [--iters 1]
+        [--quant auto|true|false] [--sampling none|bagged|goss]
+        [--pairs 10] [--iters 1]
 
 A_DIR and B_DIR are checkouts of the repository (for example the parent
 commit unpacked with git archive, and this tree). Both copies of
@@ -14,7 +15,8 @@ each builds its kernels into its own _build directory, and each trains a
 binary model (or, with --objective regression, an L2 model on
 chip_smoke.py's continuous target) on the same HIGGS-shaped table
 (chip_smoke.py's generator, 10.5M x 28, seed 0) with chip_smoke.py's
-parameters. After one warm-up
+parameters, with ``--sampling`` chip_smoke.py path (e)'s bagging and
+feature fractions or path (f)'s GOSS. After one warm-up
 iteration each, the two boosters take turns, `--iters` iterations a turn,
 A first in even pairs and B first in odd ones, each turn timed on the host
 clock and ended by torch.cuda.synchronize(). Host load then falls on both
@@ -44,6 +46,14 @@ def synth_higgs(n_rows: int, n_feat: int = 28, seed: int = 0):
     p = 1.0 / (1.0 + np.exp(-logits))
     y = (rng.rand(n_rows) < p).astype(np.float32)
     return X, y
+
+
+SAMPLING = {"none": {},
+            "bagged": {"bagging_fraction": 0.8, "bagging_freq": 1,
+                       "feature_fraction": 0.8,
+                       "feature_fraction_bynode": 0.8},
+            "goss": {"boosting": "goss", "top_rate": 0.2,
+                     "other_rate": 0.1}}
 
 
 def load_port(root: str, alias: str):
@@ -76,6 +86,7 @@ def main() -> int:
                     choices=("depthwise", "lossguide"))
     ap.add_argument("--quant", default="auto",
                     choices=("auto", "true", "false"))
+    ap.add_argument("--sampling", default="none", choices=tuple(SAMPLING))
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--iters", type=int, default=1)
     args = ap.parse_args()
@@ -97,7 +108,7 @@ def main() -> int:
               "max_bin": args.max_bin, "learning_rate": 0.1,
               "min_data_in_leaf": 20, "verbosity": -1,
               "grow_policy": args.grow_policy,
-              "use_quantized_grad": args.quant}
+              "use_quantized_grad": args.quant, **SAMPLING[args.sampling]}
     boosters = {}
     for side, root in (("A", args.a), ("B", args.b)):
         lt = load_port(root, f"lightgbm_tpu_torch_{side}")
@@ -120,7 +131,8 @@ def main() -> int:
         print(json.dumps(dict(pair=k, **pair)), flush=True)
     print(json.dumps(dict(
         a=args.a, b=args.b, max_bin=args.max_bin, objective=args.objective,
-        grow_policy=args.grow_policy, quant=args.quant, rows=args.rows,
+        grow_policy=args.grow_policy, quant=args.quant,
+        sampling=args.sampling, rows=args.rows,
         card=card, a_quartiles=quartiles(times["A"]),
         b_quartiles=quartiles(times["B"]),
         b_wins=sum(b < a for a, b in zip(times["A"], times["B"])),

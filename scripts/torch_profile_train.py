@@ -6,6 +6,7 @@ Run from the repository root on a machine with one CUDA GPU:
     python3 scripts/torch_profile_train.py [--rows N] [--iters K]
         [--max-bin 63|255] [--grow-policy depthwise|lossguide]
         [--quant auto|true|false] [--sampling none|bagged|goss]
+        [--models binary-l2|multiclass|weighted]
 
 It builds a main-path configuration of chip_smoke.py (HIGGS-shaped N x 28
 table, num_leaves=255, learning_rate=0.1, min_data_in_leaf=20) at
@@ -25,7 +26,14 @@ their own, from profiler ranges this script opens around them: "bag draw"
 (the bag mask or GOSS's weights, without the top-k), "GOSS topk" (the
 torch.topk calls) and "bynode draw" (the per-level or per-split feature
 masks), and their host time per iteration (the ranges' CPU time, which
-the draws' launches set). Prints the card's name and power limit first.
+the draws' launches set). ``--models multiclass`` traces chip_smoke.py
+path (g)'s models instead (objective multiclass and multiclassova,
+num_class=5, the quintiles of the generator's latent score), ``--models
+weighted`` path (h)'s (row weights uniform on [0.5, 2): binary, and
+quantile with alpha 0.9 on the L2 target); their objective work gets
+groups of its own too: "gradients" (the objective's gradients, the
+softmax for multiclass) and "leaf renewal" (the quantile model's
+per-leaf percentile). Prints the card's name and power limit first.
 """
 import argparse
 import json
@@ -59,16 +67,8 @@ GROUPS = (("grad_quant_hist0", ("max_kernel", "quant_hist_kernel")),
                         "hist_f32_scatter_kernel", "hist_f32_kernel")))
 
 
-def synth_higgs(n_rows: int, n_feat: int = 28, seed: int = 0):
-    """HIGGS-shaped binary problem (a copy of bench.py synth_higgs)."""
-    rng = np.random.RandomState(seed)
-    X = rng.randn(n_rows, n_feat).astype(np.float32)
-    w = rng.randn(8)
-    logits = (X[:, :8] @ w) * 0.7 + 0.5 * np.abs(X[:, 8]) * X[:, 9] \
-        - 0.4 * (X[:, 10] ** 2) + 0.3
-    p = 1.0 / (1.0 + np.exp(-logits))
-    y = (rng.rand(n_rows) < p).astype(np.float32)
-    return X, y
+sys.path.insert(0, HERE)
+from chip_smoke import synth_higgs   # noqa: E402  (numpy only at import)
 
 
 def group_of(name: str) -> str:
@@ -88,7 +88,8 @@ SAMPLING = {"none": {},
                        "feature_fraction_bynode": 0.8},
             "goss": {"boosting": "goss", "top_rate": 0.2,
                      "other_rate": 0.1}}
-RANGES = ("bag draw", "GOSS topk", "bynode draw")
+RANGES = ("bag draw", "GOSS topk", "bynode draw", "gradients",
+          "leaf renewal")
 
 
 def ranged(name, fn):
@@ -147,8 +148,9 @@ def profile_iters(booster, iters: int):
                 + ev.cpu_time_total / 1e3 / iters
     if ranges:
         other = "other (split search, glue)"
-        by_group[other] = by_group.get(other, 0.0) - ranges.get(
-            "bag draw", 0.0) - ranges.get("bynode draw", 0.0)
+        by_group[other] = by_group.get(other, 0.0) - sum(
+            ranges.get(r, 0.0) for r in ("bag draw", "bynode draw",
+                                         "gradients", "leaf renewal"))
         if "GOSS topk" in ranges:
             ranges["bag draw"] = ranges.get("bag draw", 0.0) \
                 - ranges["GOSS topk"]
@@ -171,35 +173,54 @@ def main() -> int:
     ap.add_argument("--quant", default="auto",
                     choices=("auto", "true", "false"))
     ap.add_argument("--sampling", default="none", choices=tuple(SAMPLING))
+    ap.add_argument("--models", default="binary-l2",
+                    choices=("binary-l2", "multiclass", "weighted"))
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("needs a CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, HERE)
     import lightgbm_tpu_torch as lt
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60, check=True).stdout.strip()
     print(f"card: {card}")
-    X, y = synth_higgs(args.rows)
+    X, y, latent = synth_higgs(args.rows, latent=True)
     rng = np.random.RandomState(1)
     y_reg = (X[:, :4] @ np.array([1.0, -0.5, 0.25, 2.0]) + 0.5 * X[:, 4] ** 2
              + 0.1 * rng.randn(args.rows)).astype(np.float32)
+    # (objective, label, row weights, extra parameters) of each model
+    if args.models == "multiclass":
+        y5 = np.digitize(latent, np.quantile(latent, [0.2, 0.4, 0.6, 0.8])
+                         ).astype(np.float32)
+        models = [(o, y5, None, {"num_class": 5})
+                  for o in ("multiclass", "multiclassova")]
+    elif args.models == "weighted":
+        w = np.random.RandomState(2).uniform(0.5, 2.0, args.rows).astype(
+            np.float32)
+        models = [("binary", y, w, {}), ("quantile", y_reg, w,
+                                         {"alpha": 0.9})]
+    else:
+        models = [("binary", y, None, {}), ("regression", y_reg, None, {})]
     base = {"num_leaves": 255, "max_bin": args.max_bin, "learning_rate": 0.1,
             "min_data_in_leaf": 20, "verbosity": -1,
             "grow_policy": args.grow_policy,
             "use_quantized_grad": args.quant, **SAMPLING[args.sampling]}
     annotate_draws()
-    for objective, label in (("binary", y), ("regression", y_reg)):
-        params = dict(base, objective=objective)
-        ds = lt.Dataset(X, label=label, params=params)
+    for objective, label, weight, extra in models:
+        params = dict(base, objective=objective, **extra)
+        ds = lt.Dataset(X, label=label, weight=weight, params=params)
         t0 = time.perf_counter()
         ds.construct()
         torch.cuda.synchronize()
         construct_s = time.perf_counter() - t0
         bst = lt.Booster(params=params, train_set=ds)
-        bst._gbdt._update_bag = ranged("bag draw", bst._gbdt._update_bag)
+        gb = bst._gbdt
+        gb._update_bag = ranged("bag draw", gb._update_bag)
+        gb.objective.get_gradients = ranged("gradients",
+                                            gb.objective.get_gradients)
+        gb.objective.renew_leaf_values = ranged(
+            "leaf renewal", gb.objective.renew_leaf_values)
         for _ in range(2):
             bst.update()
         res = profile_iters(bst, args.iters)

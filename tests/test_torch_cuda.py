@@ -43,6 +43,14 @@ unfused, f32 and lossguide paths, and with GOSS, the card's bag and
 feature masks equal the CPU run's and its first tree has the CPU tree's
 structure and leaf values within 1e-6 of the largest; an early-stopped run
 stops at the same iteration with the same best_iteration on both.
+Objectives: each objective's gradients, hessians, init score and converted
+output on CUDA tensors equal the CPU's (exact without ``exp``, else within
+1e-6 of the largest magnitude); the L1-family leaf renewal at 10.5M rows and
+255 skewed leaves equals the CPU's bit for bit; a K = 3 multiclass model's
+first three trees have the CPU's structure (leaf values within 1e-6 of the
+largest) and it predicts [N, 3] probabilities; with row weights the first
+tree of every grower has the CPU's structure (unquantized: bit for bit on
+exact-sum data; quantized: leaf values within 1e-6 of the largest).
 """
 import os
 import subprocess
@@ -850,3 +858,145 @@ def test_gpu_early_stopping_matches_cpu(dev):
         out.append((len(res["valid_0"]["l2"]), bst.best_iteration,
                     bst.num_trees()))
     assert out[0] == out[1] and out[0][0] < 20
+
+
+# ---- objectives, leaf renewal and K trees an iteration on the card ----
+
+OBJECTIVES = ["regression", "regression_l1", "huber", "fair", "poisson",
+              "quantile", "mape", "gamma", "tweedie", "binary",
+              "cross_entropy", "cross_entropy_lambda", "multiclass",
+              "multiclassova"]
+NO_EXP = {"regression", "regression_l1", "huber", "fair", "quantile",
+          "mape"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("name", OBJECTIVES)
+def test_objective_gradients_on_the_card_equal_cpu(dev, name, weighted):
+    # exact without exp; through exp within 1e-6 of the largest magnitude
+    # (CUDA's expf and the CPU's may differ by an ulp), 1e-5 for
+    # cross_entropy_lambda
+    from lightgbm_tpu_torch import config as t_config
+    from lightgbm_tpu_torch import objectives as t_obj
+    rng = np.random.RandomState(4)
+    n, k = 100_003, (3 if name.startswith("multiclass") else 1)
+    if name == "binary" or k > 1:
+        y = rng.randint(0, max(k, 2), n).astype(np.float32)
+    elif name.startswith("cross_entropy"):
+        y = (rng.randint(0, 5, n) / 4).astype(np.float32)
+    else:
+        y = (rng.randint(1, 40, n) / 8).astype(np.float32)
+    w = (rng.rand(n) * 1.5 + 0.5).astype(np.float32) if weighted else None
+    score = (rng.randn(*((n,) if k == 1 else (n, k))) * 0.8).astype(
+        np.float32)
+    out = []
+    for d in (dev, torch.device("cpu")):
+        obj = t_obj.create_objective(name, t_config.Config(
+            {"objective": name, "num_class": k}))
+        obj.init(torch.from_numpy(y).to(d),
+                 None if w is None else torch.from_numpy(w).to(d))
+        g, h = obj.get_gradients(torch.from_numpy(score).to(d))
+        out.append((g.cpu().numpy(), h.cpu().numpy(), obj.boost_from_score(),
+                    obj.convert_output(torch.from_numpy(score).to(d)).cpu()
+                    .numpy()))
+    # cross_entropy_lambda subtracts exp and log1p terms: measured 1.3e-6
+    # of the largest on the card
+    bound = 1e-5 if name == "cross_entropy_lambda" else 1e-6
+    for a, b in zip(out[0][:2] + out[0][3:], out[1][:2] + out[1][3:]):
+        if name in NO_EXP:
+            np.testing.assert_array_equal(a, b)
+        else:
+            np.testing.assert_allclose(a, b, rtol=0,
+                                       atol=bound * np.abs(b).max())
+    assert out[0][2] == out[1][2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weighted", [False, True])
+def test_leaf_percentile_on_the_card_equals_cpu_at_full_size(dev, weighted):
+    # 10.5M rows, 255 leaves of skewed sizes (leaf k with probability
+    # proportional to 1 / (k + 1)), ties in the f32 key: the stable sort
+    # and the f64 cumulative weights give the CPU's pick bit for bit
+    from lightgbm_tpu_torch.objectives import leaf_percentile
+    n, l = 10_500_000, 255
+    gen = torch.Generator(device=dev).manual_seed(5)
+    r = torch.round(torch.randn(n, generator=gen, device=dev) * 64) / 64
+    u = torch.rand(n, generator=gen, device=dev, dtype=torch.float64)
+    p = 1.0 / torch.arange(1, l + 1, dtype=torch.float64, device=dev)
+    lid = torch.searchsorted(torch.cumsum(p, 0) / p.sum(), u).clamp_(
+        max=l - 1).to(torch.int32)
+    w = (torch.rand(n, generator=gen, device=dev) * 1.5 + 0.5
+         if weighted else None)
+    for alpha in (0.5, 0.9):
+        got = leaf_percentile(r, lid, l, alpha, w)
+        want = leaf_percentile(r.cpu(), lid.cpu(), l, alpha,
+                               None if w is None else w.cpu())
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_multiclass_on_the_card_matches_cpu(dev):
+    # K = 3: the first iteration's three trees have the CPU's structure,
+    # leaf values within 1e-6 of the largest; predict gives [N, K]
+    rng = np.random.RandomState(6)
+    X = rng.rand(4000, 9).astype(np.float32)
+    s = X[:, 0] + 0.6 * X[:, 1] + 0.5 * rng.rand(4000)
+    y = np.digitize(s, np.quantile(s, [1 / 3, 2 / 3])).astype(np.float32)
+    runs = []
+    for kw in ({}, {"device_type": "cpu"}):
+        params = {"objective": "multiclass", "num_class": 3,
+                  "num_leaves": 31, "max_bin": 255, "min_data_in_leaf": 20,
+                  "verbosity": -1, **kw}
+        hk.reset_launches()
+        runs.append(lt.train(params, lt.Dataset(X, label=y, params=params),
+                             2))
+        if not kw:
+            assert hk.LAUNCHES["take_small"] == 6
+            assert max(hk.LAUNCHES[k] for k in FUSED) == 0
+    gpu, cpu = runs
+    for a, b in zip(gpu._host_trees()[:3], cpu._host_trees()[:3]):
+        for name in STRUCT:
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+        np.testing.assert_allclose(a.leaf_value, b.leaf_value, rtol=0,
+                                   atol=1e-6 * np.abs(b.leaf_value).max())
+    prob = gpu.predict(X)
+    assert prob.shape == (4000, 3)
+    np.testing.assert_allclose(prob.sum(axis=1), 1.0, atol=1e-12)
+    np.testing.assert_allclose(gpu.predict(X, num_iteration=1),
+                               cpu.predict(X, num_iteration=1), rtol=0,
+                               atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [
+    {"max_bin": 63}, {"max_bin": 255},
+    {"max_bin": 255, "use_quantized_grad": "false"},
+    {"max_bin": 255, "grow_policy": "lossguide"}])
+def test_gpu_weighted_training_matches_cpu(dev, extra):
+    # row weights on a 1/4 grid, labels on a 1/8 grid, no init score: the
+    # first tree's gradients -label * weight sum exactly in any order, so
+    # the unquantized growers' first tree equals the CPU's bit for bit and
+    # the quantized ones' within 1e-6 of the largest leaf
+    rng = np.random.RandomState(7)
+    X = rng.rand(4000, 9).astype(np.float32)
+    y = np.clip(np.floor((X[:, 0] * 2 + rng.rand(4000)) * 8) / 8, 0,
+                3.875).astype(np.float32)
+    w = (rng.randint(2, 9, 4000) / 4).astype(np.float32)
+    runs = []
+    for kw in ({}, {"device_type": "cpu"}):
+        params = {"objective": "regression", "num_leaves": 31,
+                  "min_data_in_leaf": 20, "verbosity": -1,
+                  "boost_from_average": False, **extra, **kw}
+        runs.append(lt.train(params, lt.Dataset(X, label=y, weight=w,
+                                                params=params), 1))
+    (a,), (b,) = runs[0]._host_trees(), runs[1]._host_trees()
+    assert a.num_leaves == b.num_leaves > 4
+    for name in STRUCT:
+        np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+    if runs[0]._gbdt.gp.quant:
+        np.testing.assert_allclose(a.leaf_value, b.leaf_value, rtol=0,
+                                   atol=1e-6 * np.abs(b.leaf_value).max())
+    else:
+        np.testing.assert_array_equal(a.leaf_value, b.leaf_value)

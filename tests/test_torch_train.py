@@ -39,6 +39,7 @@ from lightgbm_tpu_torch import config as t_config
 from lightgbm_tpu_torch import metrics as t_metrics
 from lightgbm_tpu_torch.convert import (booster_from_model_text,
                                         mappers_from_reference)
+from lightgbm_tpu_torch.log import LightGBMError
 from lightgbm_tpu_torch.models.gbdt import padded_bins
 from lightgbm_tpu_torch.ops import hist_kernels as hk
 from lightgbm_tpu_torch.ops.histogram import ACC_ROWS_MAX
@@ -459,21 +460,25 @@ def test_default_device_needs_a_gpu():
         lt.train(p, lt.Dataset(X, label=yb, params=p), num_boost_round=1)
 
 
+# the cases that named A11 (huber, reg_sqrt, multiclass, binary_error) train
+# since A11a and are held against the reference in test_torch_objectives.py,
+# test_torch_multiclass.py and test_torch_metrics.py; they now hold the
+# ranking settings, A11b, under their old ids
 @pytest.mark.parametrize("extra,item", [
-    ({"objective": "huber"}, "A11"),
+    pytest.param({"objective": "lambdarank"}, "A11b", id="extra0-A11"),
     ({"grow_policy": "lossguide", "histogram_pool_size": 1.0}, "A13b"),
-    ({"objective": "regression", "reg_sqrt": True}, "A11"),
+    pytest.param({"metric": "ndcg"}, "A11b", id="extra2-A11"),
     ({"monotone_constraints": [0, 0, 1, 0, 0, 0, 0, 0]}, "A12"),
     ({"cegb_penalty_split": 0.1}, "A12"),
     ({"extra_trees": True}, "A12"),
     ({"feature_contri": [1.0, 1.0, 1.0, 0.5, 1.0, 1.0, 1.0, 1.0]}, "A12"),
     ({"boosting": "dart"}, "A14"),
     ({"boosting": "rf"}, "A14"),
-    ({"objective": "multiclass", "num_class": 3}, "A11"),
+    pytest.param({"objective": "rank_xendcg"}, "A11b", id="extra9-A11"),
     ({"histogram_pool_size": 1.0}, "A13b"),
     ({"tree_learner": "data"}, "A21"),
     ({"categorical_feature": "0"}, "A12"),
-    ({"metric": "binary_error"}, "A11"),
+    pytest.param({"metric": "map"}, "A11b", id="extra13-A11"),
     ({"forcedsplits_filename": "forced.json"}, "A12"),
 ])
 def test_out_of_slice_settings_raise(extra, item):
@@ -513,8 +518,12 @@ def test_bagging_fraction_without_bagging_freq_trains_as_reference():
     np.testing.assert_allclose(port.predict(X), ref.predict(X), rtol=1e-4)
 
 
-@pytest.mark.parametrize("kw,item", [({"weight": np.ones(400)}, "A11"),
-                                     ({"categorical_feature": [0]}, "A12")])
+# row weights train since A11a (test_torch_objectives.py); the weight case
+# now holds Dataset group (A11b) under its old id
+@pytest.mark.parametrize("kw,item", [
+    pytest.param({"group": [200, 200]}, "A11b", id="kw0-A11"),
+    ({"categorical_feature": [0]}, "A12"),
+    ({"init_score": np.zeros(400)}, "A14")])
 def test_out_of_slice_dataset_arguments_raise(kw, item):
     X, yb, _ = _data()
     with pytest.raises(NotImplementedError, match=item):
@@ -546,11 +555,17 @@ def test_refuses_exactly_the_data_the_reference_bundles(exclusive):
 
 
 def test_custom_objective_raises():
+    # custom objectives train since A11a (test_torch_custom.py); what still
+    # raises is a custom objective without gradients, and gradients of the
+    # wrong size
     X, yb, _ = _data()
-    p = dict(PALLAS_PARAMS, objective="binary", **CPU)
-    with pytest.raises(NotImplementedError, match="A11"):
+    p = dict(PALLAS_PARAMS, objective="none", **CPU)
+    with pytest.raises(LightGBMError, match="fobj"):
+        lt.train(p, lt.Dataset(X, label=yb, params=p), 1)
+    p["objective"] = "binary"
+    with pytest.raises(LightGBMError, match="grad"):
         lt.train(p, lt.Dataset(X, label=yb, params=p), 1,
-                 fobj=lambda s, d: (s, s))
+                 fobj=lambda s, d: (s[:10], s[:10]))
 
 
 def test_import_leaves_jax_and_reference_out():
