@@ -36,7 +36,10 @@ measured):
    without the counts, against the same yardstick), on a skewed level
    (S = 127, about half the kept rows in one slot) and on two
    lossguide-shaped passes (S = 1, about 5% and 0.5% of the rows kept),
-   hist_f32 also at B = 64 and S = 127. Each kernel is timed
+   hist_f32 also at B = 64 and S = 127; and hist_q8 at path (i)'s width,
+   F = 700, B = 64 (three feature groups a slot block), 473,134 rows,
+   at the root and at S = 32, with and without the counts. Each kernel
+   is timed
    (median of CUDA-event timings), beside its plain version, the least
    time the card could take (bytes over memory rate or operations over
    peak rate, counting only what the data needs) and one PyTorch call
@@ -95,7 +98,31 @@ measured):
    one take_small a tree, none of B1 / B3), weighted train AUC on 1M rows
    > 0.7, the quantile model's weighted pinball loss below its init
    score's, the model text round trips, and the leaf renewal (a stable
-   sort of 10.5M f32 keys) timed;
+   sort of 10.5M f32 keys) timed; (i) "ranking": a Yahoo-LTR-shaped set
+   (scripts/parity_bench.py's synth_ranking, copied: 700 features, 40
+   relevant, graded labels 0-4, queries of about 25 docs, seed 0), the
+   whole queries in the first 473,134 rows for training and the next
+   ones, about 50,000 rows, as the valid set, at max_bin=63 (F * B =
+   44,800: the unfused front), objective=lambdarank, metric ndcg at
+   eval_at 10, 3 iterations, then rank_xendcg for 2 on the same Dataset:
+   one hist_q8 a tree and a level pass, one route_level a level pass, one
+   leaf_sums and two take_small (train and valid score) a tree, nothing
+   else; valid NDCG@10 above the constant score's, the model text round
+   trip, the peak device memory, the gradients' time (CUDA events)
+   beside s/iteration and each model's iteration by part
+   (torch.profiler, the pair grid on its own line); (j) "boosters" on
+   (a)'s Dataset, binary: DART (defaults, 6 iterations; its drop lists,
+   one more take_small for each drop and rescale, the train score against
+   the saved model's raw prediction within 1e-5 of the largest, one
+   tree's replay timed), RF (bagging 0.8 every iteration,
+   feature_fraction 0.8, 3 iterations on the weighted path's front; AUC,
+   average_output in the model text, its round trip), a 2-iteration model
+   continued for 2 from its file with the 500,000-row valid set (the
+   valid score after the replay against the old model's prediction
+   within 1e-6 of the largest, old plus continued predictions against the
+   train score), the same continuation through Dataset(init_score=) (the
+   first new tree's structure equal) and a refit on 1M rows (no kernel,
+   finite leaves, AUC);
 5. agreement, at max_bin=63 and at 255 (the 4000-row table has more than
    128 bins a feature, so the unfused path, which is asserted): the first
    tree of a 4000-row L2 model trained on the card has the structure of
@@ -115,8 +142,12 @@ measured):
    multiclass model's first three trees, a weighted quantile model's first
    tree (its renewed leaf values bit for bit) and an fobj model's first
    tree (the L2 gradient as a custom function) have the CPU run's
-   structure, leaf values within 1e-6 of the largest; and the
-   threefry replica's uniforms at N rows are the CPU's bit for bit.
+   structure, leaf values within 1e-6 of the largest; a lambdarank model
+   on about 160 queries (first tree), on exact-sum labels a DART model
+   (drop lists and all four trees) and an RF model (bag mask and first
+   tree), and a refit of a card-trained binary model agree with the CPU
+   the same way; and the threefry replica's uniforms at N rows are the
+   CPU's bit for bit.
 
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
@@ -146,6 +177,11 @@ SAMPLED = {"bagging_fraction": 0.8, "bagging_freq": 1,
            "feature_fraction": 0.8, "feature_fraction_bynode": 0.8}
 GOSS = {"boosting": "goss", "top_rate": 0.2, "other_rate": 0.1}
 N_VALID = 500_000
+# path (i): Yahoo LTR set 1's train rows and a valid set of the next queries
+N_RANK, F_RANK, N_RANK_VALID = 473_134, 700, 50_000
+# path (j)'s RF sampling
+RF = {"boosting": "rf", "bagging_fraction": 0.8, "bagging_freq": 1,
+      "feature_fraction": 0.8}
 # the saved model goes beside the kernel library (ignored by git)
 OUT_DIR = os.path.join(HERE, "lightgbm_tpu_torch", "_build")
 
@@ -173,6 +209,44 @@ def synth_higgs(n_rows: int, n_feat: int = 28, seed: int = 0,
         return X, y
     with np.errstate(divide="ignore"):
         return X, y, (logits - np.log(u / (1.0 - u))).astype(np.float32)
+
+
+def synth_ranking(n_rows, n_feat=700, n_rel_feat=40, seed=0,
+                  mean_docs=25):
+    """Yahoo-LTR-shaped synthetic ranking set (a copy of
+    scripts/parity_bench.py synth_ranking): graded relevance 0-4, a noisy
+    monotone function of a sparse linear score over the first n_rel_feat
+    features; query sizes geometric around mean_docs. Returns (X, y,
+    group)."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n_rows, n_feat).astype(np.float32)
+    w = np.zeros(n_feat)
+    w[:n_rel_feat] = rng.randn(n_rel_feat)
+    score = X @ w / np.sqrt(n_rel_feat) + 0.7 * rng.randn(n_rows)
+    qtl = np.quantile(score, [0.55, 0.8, 0.93, 0.985])
+    y = np.digitize(score, qtl).astype(np.float32)
+    sizes = []
+    total = 0
+    while total < n_rows:
+        sz = max(2, int(rng.geometric(1.0 / mean_docs)))
+        sz = min(sz, n_rows - total)
+        sizes.append(sz)
+        total += sz
+    if sizes[-1] < 2 and len(sizes) > 1:
+        sizes[-2] += sizes[-1]
+        sizes.pop()
+    return X, y, np.asarray(sizes, dtype=np.int64)
+
+
+def split_queries(X, y, group, n_train):
+    """The whole queries within the first n_train rows, and the rest, as
+    parity_bench.py run_ranking splits them: (train, valid), each (X, y,
+    group)."""
+    bounds = np.cumsum(group)
+    q_train = int(np.searchsorted(bounds, n_train))
+    cut = int(bounds[q_train - 1])
+    return ((X[:cut], y[:cut], group[:q_train]),
+            (X[cut:], y[cut:], group[q_train:]))
 
 
 def card_line() -> str:
@@ -257,6 +331,53 @@ def device_split(fn, reps=10, tries=3):
     print(f"chip_smoke: the profiler saw no device time in {tries} "
           "sessions; device time not measured", file=sys.stderr)
     return None
+
+
+# each kernel's CUDA functions (the slot histograms' compaction passes and
+# the leaf sums' final pass count as their kernel's time), as
+# scripts/torch_profile_train.py groups them
+KERNEL_PARTS = {
+    **dict.fromkeys(("max_kernel", "quant_hist_kernel"), "grad_quant_hist0"),
+    **dict.fromkeys(("hist_routed_count_kernel", "hist_routed_scan_kernel",
+                     "hist_routed_scatter_kernel", "hist_routed_kernel"),
+                    "hist_routed_fused"),
+    **dict.fromkeys(("leaf_sums_grad_rows_kernel",
+                     "leaf_sums_grad_final_kernel",
+                     "leaf_sums_grad_global_kernel"), "leaf_sums_grad"),
+    "take_kernel": "take_small",
+    **dict.fromkeys(("hist_q8_count_kernel", "hist_q8_scan_kernel",
+                     "hist_q8_scatter_kernel", "hist_q8_kernel"), "hist_q8"),
+    "route_level_kernel": "route_level",
+    **dict.fromkeys(("leaf_sums_rows_kernel", "leaf_sums_final_kernel",
+                     "leaf_sums_global_kernel"), "leaf_sums"),
+    **dict.fromkeys(("hist_f32_count_kernel", "hist_f32_scan_kernel",
+                     "hist_f32_scatter_kernel", "hist_f32_kernel"),
+                    "hist_f32")}
+
+
+def iteration_parts(booster, carved=None, reps=2):
+    """Device ms of one boosting iteration by part (torch.profiler over
+    reps iterations after a warm-up one): each kernel, the parts of
+    ``carved`` (name: a function whose device time, measured alone, is
+    taken out of the rest), and "other" (split search, partition, glue);
+    with the iteration's wall ms (CUDA events) and the device busy share.
+    None where the profiler saw no device time. The iterations add trees
+    to the booster."""
+    split = device_split(booster.update, reps=reps)
+    if split is None:
+        return None
+    parts = {}
+    for fn_, ms_ in split.items():
+        key = KERNEL_PARTS.get(fn_, "other")
+        parts[key] = parts.get(key, 0.0) + ms_
+    for name_, fn_ in (carved or {}).items():
+        ms_ = device_ms(fn_, reps=3)
+        if ms_ is not None:
+            parts[name_] = ms_
+            parts["other"] = parts.get("other", 0.0) - ms_
+    wall = time_ms(booster.update, reps=3)
+    return {"device_ms": parts, "wall_ms": wall,
+            "busy_share": sum(parts.values()) / wall}
 
 
 def device_ms(fn, reps=10):
@@ -616,31 +737,41 @@ def main() -> int:
     rows = tuple(x.contiguous() for x in ghc)
     abs_rows = (rows[0].abs(), rows[1].abs(), rows[2])
     qvariants, fvariants = [], []
+
+    def cells(bins_s, slot, s, b_):
+        """The kept rows of a slot vector and their flat cell indices into
+        [S, F, B], feature-major."""
+        f = bins_s.shape[0]
+        keep = (torch.ones(bins_s.shape[1], dtype=torch.bool, device=dev)
+                if slot is None else (slot >= 0) & (slot < s))
+        ridx = keep.nonzero().squeeze(1)
+        sl = (torch.zeros_like(ridx) if slot is None else slot[ridx].long())
+        flat = ((sl[None, :] * f + torch.arange(f, device=dev)[:, None])
+                * b_ + bins_s[:, ridx].long()).reshape(-1)
+        return ridx, flat
+
+    def yardstick(chans, dtype, ridx, flat, s, b_):
+        """One index_add_ of the kept rows' channels into [nch, S * F * B]
+        and its time; the sums returned as [S, nch, F, B]."""
+        f = flat.numel() // max(ridx.numel(), 1)
+        src = torch.stack(chans)[:, ridx].to(dtype)[:, None, :].expand(
+            len(chans), f, ridx.numel()).reshape(len(chans), -1)
+
+        def call():
+            return torch.zeros(len(chans), s * f * b_, dtype=dtype,
+                               device=dev).index_add_(1, flat, src)
+        out = call().view(len(chans), s, f, b_).transpose(0, 1)
+        return out, time_ms(call)
+
     for name_, (slot, s), b_ in [(k, v, BW) for k, v in slot_vars.items()] \
             + [("S127", slot_vars["S127"], B)]:
         bins_s = bins_w if b_ == BW else (bins_w & (b_ - 1))
         rowmajor = bins_s.t().contiguous()    # the Dataset's bins [N, F]
-        keep = (torch.ones(N, dtype=torch.bool, device=dev) if slot is None
-                else (slot >= 0) & (slot < s))
-        kept = int(keep.sum())
-        ridx = keep.nonzero().squeeze(1)
-        sl = (torch.zeros_like(ridx) if slot is None else slot[ridx].long())
-        flat = ((sl[None, :] * F + torch.arange(F, device=dev)[:, None])
-                * b_ + bins_s[:, ridx].long()).reshape(-1)
-        del sl
+        ridx, flat = cells(bins_s, slot, s, b_)
+        kept = int(ridx.numel())
         slot_bytes = 0 if slot is None else 4 * N
         base = dict(variant=name_, S=s, B=b_, kept=kept)
         counts = route_counts.get(s) if name_ in ("S32", "S127") else None
-
-        def yardstick(chans, dtype):
-            src = torch.stack(chans)[:, ridx].to(dtype)[:, None, :].expand(
-                len(chans), F, kept).reshape(len(chans), -1)
-
-            def call():
-                return torch.zeros(len(chans), s * F * b_, dtype=dtype,
-                                   device=dev).index_add_(1, flat, src)
-            out = call().view(len(chans), s, F, b_).transpose(0, 1)
-            return out, time_ms(call)
 
         for nch, (gq, hq, cq) in (((3, quant3[:3]), (2, (quant2[0], None,
                                                           quant2[2])))
@@ -657,7 +788,8 @@ def main() -> int:
                 extra["ms_without_counts"] = time_ms(
                     lambda: hk.hist_q8(*args, bins=rowmajor))
             lib, lib_ms = yardstick([x for x in (gq, hq, cq)
-                                     if x is not None], torch.int32)
+                                     if x is not None], torch.int32,
+                                    ridx, flat, s, b_)
             exact(f"{tag} index_add_ yardstick", lib.contiguous(), ph_)
             bms, by = bound(slot_bytes + kept * (F + nch)
                             + s * nch * F * b_ * 4, kept * F * nch)
@@ -689,7 +821,7 @@ def main() -> int:
         if counts is not None:
             extra["ms_without_counts"] = time_ms(
                 lambda: hk.hist_f32(*args, bins=rowmajor))
-        lib, lib_ms = yardstick(list(rows), torch.float32)
+        lib, lib_ms = yardstick(list(rows), torch.float32, ridx, flat, s, b_)
         lib_err = (lib.double() - ph_.double()).abs()
         if bool((lib_err[:, :2] > 2.0 ** -15 * mass[:, :2]).any()):
             fail(f"{tag}: the index_add_ yardstick computes another function")
@@ -701,8 +833,50 @@ def main() -> int:
                                            counts=counts)), **extra,
             plain_ms=time_ms(lambda: hk.hist_f32_plain(*args), reps=3),
             bound_ms=bms, bound_by=by, library_ms=lib_ms))
-        del kh, ph_, mass, err, lib, lib_err, ridx, flat, keep, rowmajor
+        del kh, ph_, mass, err, lib, lib_err, ridx, flat, rowmajor
         torch.cuda.empty_cache()
+    # hist_q8 at path (i)'s width: F = 700, B = 64 (three feature groups a
+    # slot histogram block), N_RANK rows, 3 channels: the root and S = 32
+    # (slots over [0, 32], slot 32 and about half the rows dropped), with
+    # and without the slot counts, exactly, and timed against the same
+    # index_add_ yardstick as the F = 28 variants
+    bins_r = torch.randint(0, B - 1, (F_RANK, N_RANK), generator=g,
+                           device=dev, dtype=torch.int64).to(torch.uint8)
+    rowmajor_r = bins_r.t().contiguous()
+    q_r = tuple(x[:N_RANK].contiguous() for x in quant3[:3])
+    slot_r = torch.randint(0, 64, (N_RANK,), generator=g, device=dev,
+                           dtype=torch.int64).clamp_(max=32).to(torch.int32)
+    counts_r = torch.bincount(slot_r[slot_r < 32].long(),
+                              minlength=32).to(torch.int32)
+    for name_, slot, s, counts in (("F700root", None, 1, None),
+                                   ("F700S32", slot_r, 32, counts_r)):
+        args = (bins_r, *q_r, slot, s, B)
+        tag = f"hist_q8[{name_},nch=3]"
+        ph_ = hk.hist_q8_plain(*args)
+        err = exact(tag, hk.hist_q8(*args, bins=rowmajor_r, counts=counts),
+                    ph_)
+        if counts is not None:
+            exact(f"{tag} without counts", hk.hist_q8(*args, bins=rowmajor_r),
+                  ph_)
+        ridx, flat = cells(bins_r, slot, s, B)
+        kept = int(ridx.numel())
+        lib, lib_ms = yardstick(list(q_r), torch.int32, ridx, flat, s, B)
+        exact(f"{tag} index_add_ yardstick", lib.contiguous(), ph_)
+        del lib, ridx, flat
+        bms, by = bound((0 if slot is None else 4 * N_RANK)
+                        + kept * (F_RANK + 3) + s * 3 * F_RANK * B * 4,
+                        kept * F_RANK * 3)
+        qvariants.append(dict(
+            variant=name_, S=s, B=B, F=F_RANK, kept=kept, nch=3,
+            max_abs_err=err, counts_given=counts is not None,
+            ms=time_ms(lambda: hk.hist_q8(*args, bins=rowmajor_r,
+                                          counts=counts)),
+            plain_ms=time_ms(lambda: hk.hist_q8_plain(*args), reps=3),
+            bound_ms=bms, bound_by=by, library_ms=lib_ms))
+        del ph_
+        torch.cuda.empty_cache()
+    del bins_r, rowmajor_r, q_r, slot_r, counts_r
+    torch.cuda.empty_cache()
     for nm, variants, extra in (
             ("hist_q8", qvariants, dict(source="lightgbm_tpu_torch/csrc/"
                                         "hist_q8.cu", replaces="lightgbm_tpu/"
@@ -1176,12 +1350,264 @@ def main() -> int:
                   f"{slice_ms['leaf_renewal_ms']:.4f} ms")
         count_launches(tag, "weighted", boosters, 0)
 
+    # ---- 4d. (i) ranking and (j) the other boosters, through the entry
+    # points ----
+    def ranking_path() -> None:
+        """(i): synth_ranking's Yahoo-LTR-shaped set, the whole queries in
+        the first N_RANK rows for training and the next ones, about
+        N_RANK_VALID rows, as the valid set, at max_bin=63 (B = 64, F * B
+        = 44,800: the unfused front): lambdarank for 3 iterations, then
+        rank_xendcg for 2 on the same Dataset, each with the valid set."""
+        t0 = time.perf_counter()
+        (Xt, yt, gt), (Xq, yq, gq) = split_queries(
+            *synth_ranking(N_RANK + N_RANK_VALID, F_RANK), N_RANK)
+        data_s = time.perf_counter() - t0
+        params = {"objective": "lambdarank", "num_leaves": L, "max_bin": 63,
+                  "learning_rate": 0.1, "min_data_in_leaf": 20,
+                  "verbosity": -1, "metric": "ndcg", "eval_at": [10]}
+        t0 = time.perf_counter()
+        ds = lt.Dataset(Xt, label=yt, group=gt, params=params)
+        ds.construct()
+        vs = lt.Dataset(Xq, label=yq, group=gq, reference=ds)
+        vs.construct()
+        torch.cuda.synchronize()
+        tag = "[ranking, max_bin=63]"
+        construct_s = time.perf_counter() - t0
+        print(f"{tag} data {data_s:.3f} s, construct {construct_s:.3f} s: "
+              f"train {len(yt)} rows in {len(gt)} queries (longest "
+              f"{int(gt.max())}), valid {len(yq)} rows in {len(gq)} queries; "
+              f"{ds.num_features} used features, max bins {ds.max_num_bins}")
+        const = metrics.ndcg(yq, np.zeros(len(yq), np.float32), None, gq, 10)
+        hk.reset_launches()
+        boosters = []
+        for objective, iters in (("lambdarank", 3), ("rank_xendcg", 2)):
+            evals = {}
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bst = lt.train(dict(params, objective=objective), ds,
+                           num_boost_round=iters, valid_sets=[vs],
+                           valid_names=["valid"], evals_result=evals,
+                           verbose_eval=False)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            boosters.append(bst)
+            gb = bst._gbdt
+            ndcg = evals["valid"]["ndcg@10"]
+            print(f"{tag} {objective}: {sec:.3f} s for {iters} iterations "
+                  f"({sec / iters:.3f} s/iter), level passes a tree "
+                  f"{gb.hist_passes}; valid ndcg@10 by iteration {ndcg} "
+                  f"(constant score: {const:.6f}); peak device memory {peak} "
+                  f"bytes ({peak / 2 ** 30:.3f} GiB)")
+            if gb.gp.fused_obj is not None or not gb.gp.quant \
+                    or gb.gp.const_hess:
+                fail(f"{tag} {objective}: not the quantized unfused front "
+                     "with three channels")
+            if not ndcg[-1] > const:
+                fail(f"{tag} {objective}: valid ndcg@10 {ndcg[-1]} not above "
+                     f"the constant score's {const}")
+            t_grad = time_ms(lambda: gb.objective.get_gradients(
+                gb.train_score))
+            slice_ms[f"{objective}_gradients_ms"] = t_grad
+            share = t_grad / (sec / iters * 1e3)
+            print(f"{tag} {objective} gradients at {len(yt)} rows (CUDA "
+                  f"events): {t_grad:.4f} ms, {100 * share:.2f}% of the "
+                  "s/iteration")
+            fname = os.path.join(OUT_DIR, f"chip_smoke_model_{objective}.txt")
+            bst.save_model(fname)
+            pred = bst.predict(Xq)
+            if not np.isfinite(pred).all() or not np.array_equal(
+                    lt.Booster(model_file=fname).predict(Xq), pred):
+                fail(f"{tag} {objective}: predictions not finite, or the "
+                     "saved model predicts differently")
+            print(f"{tag} {objective}: model text round trip: valid "
+                  "predictions identical")
+        count_launches(tag, "unfused", boosters, 1)
+        for bst in boosters:
+            obj = bst._gbdt.objective
+            parts = iteration_parts(bst, {"gradients": lambda: (
+                obj.get_gradients(bst._gbdt.train_score))})
+            print(f"{tag} {obj.name} one iteration by part (torch.profiler;"
+                  f" \"gradients\" is the pair grid or the softmax): "
+                  f"{json.dumps(parts)}")
+
+    def boosters_path() -> None:
+        """(j): on (a)'s max_bin=63 Dataset, binary: DART (defaults, 6
+        iterations), RF (bagging 0.8 every iteration, feature_fraction
+        0.8, 3), a 2-iteration model continued for 2 from its file with
+        the 500,000-row valid set, the same continuation through an init
+        score, and a refit of the 2-iteration model on 1M rows."""
+        ds, _ = dataset(63)
+        base = {"objective": "binary", "num_leaves": L, "max_bin": 63,
+                "learning_rate": 0.1, "min_data_in_leaf": 20,
+                "verbosity": -1}
+        tag = "[dart, max_bin=63]"
+        hk.reset_launches()
+        bst = lt.Booster(params=dict(base, boosting="dart"), train_set=ds)
+        drops = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(6):
+            bst.update()
+            drops.append(list(bst._gbdt.drop_idx))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        gb = bst._gbdt
+        print(f"{tag} {sec:.3f} s for 6 iterations ({sec / 6:.3f} s/iter), "
+              f"drop lists {drops}, tree weights {gb.tree_weights}")
+        # a drop takes its tree out of the score and puts it back scaled;
+        # the new tree leaves and re-enters scaled: one take_small each
+        extra = sum(2 * len(d) + 2 for d in drops if d)
+        launches = dict(hk.LAUNCHES)
+        expected, own = expected_launches("fused", len(gb.hist_passes),
+                                          sum(gb.hist_passes),
+                                          bst.num_trees() + extra)
+        print(f"{tag} launches {launches} expected {expected}")
+        if launches != expected or min(launches[k] for k in own) <= 0:
+            fail(f"{tag}: launch counts {launches} != expected {expected}")
+        for k, v in launches.items():
+            launches_all[k] += v
+        fname = os.path.join(OUT_DIR, "chip_smoke_model_dart.txt")
+        bst.save_model(fname)
+        got = lt.Booster(model_file=fname).predict(X[:m], raw_score=True)
+        want = gb.train_score[:m].cpu().numpy()
+        diff = float(np.abs(got - want).max())
+        print(f"{tag} saved model's raw prediction vs the train score on 1M"
+              f" rows: max diff {diff:.3e} (largest {np.abs(want).max():.3e})")
+        if not diff <= 1e-5 * np.abs(want).max():
+            fail(f"{tag}: the rescaled trees and the train score disagree")
+        check_auc(tag, bst)
+        from lightgbm_tpu_torch.models.gbdt import tree_delta
+        tree0 = gb.models_dev[0]
+        replay = device_ms(lambda: tree_delta(tree0, ds))
+        slice_ms["dart_tree_replay_ms"] = time_ms(lambda: tree_delta(tree0,
+                                                                     ds))
+        print(f"{tag} one tree's replay (route_bins + take_small, {N} rows):"
+              f" {slice_ms['dart_tree_replay_ms']:.4f} ms (CUDA events), "
+              f"device {replay}; 2 d + 2 replays an iteration of d drops; "
+              f"one iteration by part: {json.dumps(iteration_parts(bst))}")
+
+        tag = "[rf, max_bin=63]"
+        hk.reset_launches()
+        t0 = time.perf_counter()
+        bst = lt.train(dict(base, **RF), ds, num_boost_round=3)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        print(f"{tag} {sec:.3f} s for 3 iterations ({sec / 3:.3f} s/iter), "
+              f"level passes a tree {bst._gbdt.hist_passes}, in-bag share "
+              f"{float(bst._gbdt._bag.mean()):.6f}")
+        # constant gradients handed to the step: the weighted path's front
+        count_launches(tag, "weighted", [bst], 0)
+        check_auc(tag, bst)
+        fname = os.path.join(OUT_DIR, "chip_smoke_model_rf.txt")
+        bst.save_model(fname)
+        with open(fname) as fh:
+            if "\naverage_output\n" not in fh.read().split("\nTree=")[0]:
+                fail(f"{tag}: no average_output line in the model text")
+        if not np.array_equal(lt.Booster(model_file=fname).predict(X[:m]),
+                              bst.predict(X[:m])):
+            fail(f"{tag}: saved and loaded model predict differently")
+        print(f"{tag} model text: average_output, round trip identical")
+        rf_gb = bst._gbdt
+        print(f"{tag} one iteration by part: " + json.dumps(iteration_parts(
+            bst, {"bag draw": lambda: rf_gb._update_bag(0, None, None)})))
+
+        tag = "[init_model, max_bin=63]"
+        valid = lt.Dataset(Xv, label=yv, reference=ds)
+        valid.construct()
+        hk.reset_launches()
+        first = lt.train(base, ds, num_boost_round=2)
+        fname = os.path.join(OUT_DIR, "chip_smoke_model_first.txt")
+        first.save_model(fname)
+        seen = {}
+
+        def at_start(env):
+            if env.iteration == env.begin_iteration:
+                g_ = env.model._gbdt
+                seen["train"] = g_.train_score.cpu().numpy().copy()
+                seen["valid"] = g_.valid_scores[0].cpu().numpy().copy()
+        at_start.before_iteration = True
+        t0 = time.perf_counter()
+        cont = lt.train(base, ds, num_boost_round=2, init_model=fname,
+                        valid_sets=[valid], callbacks=[at_start],
+                        verbose_eval=False)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        old = lt.Booster(model_file=fname)
+        # take_small: the first model's 2 trees, their replay on the train
+        # and the valid bins (2 each), the continued trees on both
+        launches = dict(hk.LAUNCHES)
+        passes = first._gbdt.hist_passes + cont._gbdt.hist_passes
+        expected, own = expected_launches(
+            "fused", len(passes), sum(passes),
+            first.num_trees() + 2 * old.num_trees() + 2 * cont.num_trees())
+        print(f"{tag} continued 2 iterations in {sec:.3f} s; launches "
+              f"{launches} expected {expected}")
+        if launches != expected or min(launches[k] for k in own) <= 0:
+            fail(f"{tag}: launch counts {launches} != expected {expected}")
+        for k, v in launches.items():
+            launches_all[k] += v
+        vold = old.predict(Xv, raw_score=True)
+        vdiff = float(np.abs(seen["valid"] - vold).max())
+        tsum = old.predict(X[:m], raw_score=True) \
+            + cont.predict(X[:m], raw_score=True)
+        tscore = cont._gbdt.train_score[:m].cpu().numpy()
+        tdiff = float(np.abs(tsum - tscore).max())
+        print(f"{tag} valid score after the replay vs the first model's raw "
+              f"prediction: max diff {vdiff:.3e} (largest "
+              f"{np.abs(vold).max():.3e}); first + continued predictions vs "
+              f"the train score on 1M rows: max diff {tdiff:.3e}")
+        if not vdiff <= 1e-6 * np.abs(vold).max():
+            fail(f"{tag}: the valid set's replay of the init model disagrees")
+        if not tdiff <= 1e-5 * np.abs(tscore).max():
+            fail(f"{tag}: the continued model is not the old trees plus the "
+                 "new ones")
+
+        tag = "[init_score, max_bin=63]"
+        raw = old.predict(X, raw_score=True)
+        d_is = lt.Dataset(X, label=y, init_score=raw, reference=ds)
+        d_is.construct()
+        moved = int((d_is.init_score.cpu().numpy() != seen["train"]).sum())
+        print(f"{tag} the f32 init score differs from the warm start's "
+              f"score in {moved} rows")
+        hk.reset_launches()
+        b_is = lt.train(base, d_is, num_boost_round=2)
+        count_launches(tag, "fused", [b_is], 0)
+        a_, b_ = cont._host_trees()[0], b_is._host_trees()[0]
+        for f_ in ("split_feature", "threshold_bin", "default_left",
+                   "left_child", "right_child"):
+            if not np.array_equal(getattr(a_, f_), getattr(b_, f_)):
+                fail(f"{tag}: the first new tree differs from the init_model"
+                     f" run's in {f_}")
+        print(f"{tag} first new tree ({b_.num_leaves} leaves) has the "
+              "init_model run's structure")
+        del d_is, raw
+
+        tag = "[refit, max_bin=63]"
+        hk.reset_launches()
+        t0 = time.perf_counter()
+        ref_b = first.refit(X[:m], y[:m], decay_rate=0.9)
+        sec = time.perf_counter() - t0
+        if any(hk.LAUNCHES.values()):
+            fail(f"{tag}: refit launched kernels {dict(hk.LAUNCHES)}")
+        if not all(np.isfinite(t.leaf_value).all()
+                   for t in ref_b._host_trees()):
+            fail(f"{tag}: non-finite leaf values")
+        auc = float(metrics.auc(torch.as_tensor(y[:m]),
+                                torch.as_tensor(ref_b.predict(X[:m]))))
+        print(f"{tag} refit on 1M rows in {sec:.3f} s (no kernel: leaves by "
+              f"the raw-feature walk, sums on the host); leaf values finite; "
+              f"AUC on those rows {auc:.6f}")
+
     multiclass_path()
     weighted_path()
+    ranking_path()
+    boosters_path()
     del datasets, Xv, yv, yv_reg
     for nm in kernels:
         kernels[nm]["launches"] = launches_all[nm]
-    print(f"elapsed after paths (g)-(h): "
+    print(f"elapsed after paths (g)-(j): "
           f"{time.perf_counter() - t_start:.1f} s")
 
     # ---- 5. card vs plain versions on a small input ----
@@ -1369,6 +1795,82 @@ def main() -> int:
         if diff > 1e-6 * scale:
             fail(f"{name_}: card and CPU leaf values differ by more than "
                  "1e-6 of the largest leaf value")
+
+    # (i) and (j), card vs CPU on about 4000 rows: a lambdarank model on
+    # synth_ranking's first queries (its first tree: structure, leaf values
+    # within 1e-6 of the largest); on exact-sum labels (the 1/8 grid, no
+    # init score) a DART model (the same drop lists, every tree's
+    # structure for 4 iterations) and an RF model (the same bag masks and
+    # first tree); a refit of a card-trained binary model, on the card and
+    # on the CPU, leaf values within 1e-6 of the largest
+    (Xr4, yr4, gr4), _ = split_queries(*synth_ranking(4400, F_RANK, seed=3),
+                                       4000)
+
+    def same_trees(name_, ta, tb, exact_leaves=False):
+        diff = scale = 0.0
+        if len(ta) != len(tb):
+            fail(f"{name_}: {len(ta)} trees on the card, {len(tb)} on the CPU")
+        for a, b in zip(ta, tb):
+            for f_ in ("split_feature", "threshold_bin", "default_left",
+                       "left_child", "right_child"):
+                if not np.array_equal(getattr(a, f_), getattr(b, f_)):
+                    fail(f"{name_}: card and CPU trees differ in {f_}")
+            diff = max(diff, float(np.abs(a.leaf_value - b.leaf_value).max()))
+            scale = max(scale, float(np.abs(b.leaf_value).max()))
+        if diff > 1e-6 * scale:
+            fail(f"{name_}: card and CPU leaf values differ by more than "
+                 "1e-6 of the largest leaf value")
+        return diff, scale
+
+    for name_, extra, data_, rounds, check_all in (
+            ("lambdarank", {"objective": "lambdarank", "max_bin": 63},
+             (Xr4, yr4, gr4), 1, True),
+            ("dart", {"objective": "regression", "max_bin": 63,
+                      "boosting": "dart", "skip_drop": 0.0,
+                      "boost_from_average": False}, (Xs, y8, None), 4, True),
+            ("rf", {"objective": "regression", "max_bin": 63, **RF},
+             (Xs, y8, None), 2, False)):
+        small = {"num_leaves": 31, "min_data_in_leaf": 20, "verbosity": -1,
+                 **extra}
+        runs, drop_lists = [], []
+        for kw in ({}, {"device_type": "cpu"}):
+            p_ = dict(small, **kw)
+            Xd, yd, gd = data_
+            b_ = lt.Booster(params=p_, train_set=lt.Dataset(
+                Xd, label=yd, group=gd, params=p_))
+            dl = []
+            for _ in range(rounds):
+                b_.update()
+                dl.append(list(getattr(b_._gbdt, "drop_idx", [])))
+            runs.append(b_)
+            drop_lists.append(dl)
+        gpu, cpu = runs
+        if drop_lists[0] != drop_lists[1]:
+            fail(f"{name_}: card drop lists {drop_lists[0]} != CPU "
+                 f"{drop_lists[1]}")
+        if name_ == "rf" and not torch.equal(gpu._gbdt._bag.cpu(),
+                                             cpu._gbdt._bag):
+            fail("rf: card and CPU bag masks differ")
+        ta, tb = gpu._host_trees(), cpu._host_trees()
+        diff, scale = same_trees(name_, ta if check_all else ta[:1],
+                                 tb if check_all else tb[:1])
+        print(f"[{name_}] card vs CPU ({len(yd)} rows, {rounds} iteration(s),"
+              f" drop lists {drop_lists[0]}, trees compared "
+              f"{len(ta) if check_all else 1}, leaves "
+              f"{[t.num_leaves for t in ta]}): structure identical, max "
+              f"leaf-value diff {diff:.3e} (largest leaf {scale:.3e})")
+    ys8 = (ys > np.median(ys)).astype(np.float32)
+    small = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
+             "min_data_in_leaf": 20, "verbosity": -1}
+    model = lt.train(small, lt.Dataset(Xs, label=ys8, params=small), 2)
+    r_gpu = model.refit(Xs, ys8, decay_rate=0.9)
+    r_cpu = lt.Booster(model_str=model.model_to_string(),
+                       params=dict(small, device_type="cpu")).refit(
+                           Xs, ys8, decay_rate=0.9)
+    diff, scale = same_trees("refit", r_gpu._host_trees(),
+                             r_cpu._host_trees())
+    print(f"[refit] card vs CPU (4000 rows, 2 trees): max leaf-value diff "
+          f"{diff:.3e} (largest leaf {scale:.3e})")
 
     # the replica's uniforms: card and CPU bit for bit at N rows
     key = threefry.fold_in(threefry.prng_key(3), 1)

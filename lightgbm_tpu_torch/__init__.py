@@ -2,12 +2,13 @@
 
 Trains gradient-boosted trees of the pointwise objectives (the regression
 family, binary, multiclass softmax and one-vs-all with K trees an
-iteration, cross-entropy), with row weights or a custom objective, on
-dense numeric data (gbdt or GOSS boosting; the depthwise grower on int8
-quantized gradients or f32 histograms, or the leaf-wise grower; bagging,
-feature_fraction and feature_fraction_bynode; validation sets, the
-reference's metric table but ranking, custom eval functions, early
-stopping and callbacks) on
+iteration, cross-entropy) and the ranking ones (lambdarank, rank_xendcg on
+query groups), with row weights, init scores or a custom objective, on
+dense numeric data (gbdt, GOSS, DART or RF boosting, continued from an
+init model or refit; the depthwise grower on int8 quantized gradients or
+f32 histograms, or the leaf-wise grower; bagging, feature_fraction and
+feature_fraction_bynode; validation sets, the reference's metric table,
+custom eval functions, early stopping and callbacks) on
 an NVIDIA Hopper GPU through eight hand-written CUDA kernels
 (``ops/hist_kernels.py``, ``csrc/``). It imports torch and numpy only:
 nothing of JAX and nothing of the ``lightgbm_tpu`` reference package.
@@ -22,7 +23,8 @@ from .callback import (EarlyStopException, early_stopping, print_evaluation,
                        record_evaluation, reset_parameter)
 from .config import Config
 from .engine import train
+from .log import LightGBMError
 
 __all__ = ["Booster", "Config", "Dataset", "train", "early_stopping",
            "print_evaluation", "record_evaluation", "reset_parameter",
-           "EarlyStopException"]
+           "EarlyStopException", "LightGBMError"]

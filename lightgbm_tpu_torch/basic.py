@@ -1,12 +1,13 @@
 """Dataset and Booster.
 
 Port of the dense numeric construct of ``lightgbm_tpu/basic.py``
-``Dataset`` (:95), with labels and row weights, and of ``Booster``
-(``update`` with a custom objective, ``predict``, ``save_model``,
-``model_to_string``, loading from model text), K trees an iteration for
-the multiclass objectives. The binned matrix lives on the device as uint8
-``[N, F]`` together with its cached ``[F, N]`` transpose ``bins_T``, which
-is what the kernels read.
+``Dataset`` (:95), with labels, row weights, query groups and init scores,
+and of ``Booster`` (``update`` with a custom objective, ``predict``,
+``save_model``, ``model_to_string``, loading from model text, ``refit``),
+K trees an iteration for the multiclass objectives, and the trainers of
+every boosting type (gbdt, GOSS, DART, RF). The binned matrix lives on the
+device as uint8 ``[N, F]`` together with its cached ``[F, N]`` transpose
+``bins_T``, which is what the kernels read.
 
 Device rule: ``device_type`` (alias ``device``) defaults to ``"cuda"``.
 Without a GPU, constructing a Dataset or a training Booster raises
@@ -23,15 +24,18 @@ import torch
 
 from .binning import bin_data, find_bin_mappers, used_features
 from . import efb
-from .config import Config, check_slice, params_to_config, ranking_refusal
+from .config import Config, boosting_kind, check_slice, params_to_config
 from .io import model_text
 from .log import LightGBMError
 from .metrics import create_metrics, default_metric_for_objective
+from .models.dart import DART
 from .models.gbdt import GBDT
 from .models.goss import GOSS
+from .models.rf import RF
 from .models.tree import Tree
 from .objectives import create_objective
 from .ops import predict as P
+from .ops.split import SplitParams, leaf_output
 
 _NO_NA_BIN = 256   # na_bin value that never matches a uint8 bin
 
@@ -74,20 +78,24 @@ class Dataset:
                  categorical_feature: Union[str, List] = "auto",
                  params: Optional[Dict[str, Any]] = None,
                  free_raw_data: bool = True):
-        if group is not None:
-            raise ranking_refusal("Dataset group")
-        if init_score is not None:
-            raise NotImplementedError("Dataset init_score is not ported yet "
-                                      "(ROADMAP.md queue A14)")
         if categorical_feature not in ("auto", None, [], ()):
             raise NotImplementedError("categorical features are not ported "
                                       "yet (ROADMAP.md queue A12)")
+        if type(data).__module__.split(".")[0] in ("scipy", "pandas"):
+            raise NotImplementedError("sparse and pandas input are not "
+                                      "ported yet (ROADMAP.md queue A12)")
         self.params = dict(params or {})
         self.raw_data = data
         self.label_np = None if label is None else \
             np.asarray(label, dtype=np.float32).reshape(-1)
         self.weight_np = None if weight is None else \
             np.asarray(weight, dtype=np.float32).reshape(-1)
+        # query sizes, int64 on the host; init scores f32, [N] or [N, K]
+        # once on the device
+        self.set_group(group)
+        self.init_score_np = None if init_score is None else \
+            np.asarray(init_score, dtype=np.float32)
+        self.init_score: Optional[torch.Tensor] = None
         self.reference = reference
         self.feature_name = feature_name
         self.free_raw_data = free_raw_data
@@ -167,6 +175,16 @@ class Dataset:
                                     "differs from the number of rows "
                                     f"({self.num_data})")
             setattr(self, what, torch.as_tensor(arr, device=self.device))
+        if self.group is not None and int(self.group.sum()) != self.num_data:
+            raise LightGBMError(f"sum of the query sizes "
+                                f"({int(self.group.sum())}) differs from the "
+                                f"number of rows ({self.num_data})")
+        if self.init_score_np is not None:
+            if self.init_score_np.size % max(self.num_data, 1):
+                raise LightGBMError(f"init_score has {self.init_score_np.size}"
+                                    f" values for {self.num_data} rows")
+            self.init_score = torch.as_tensor(self.init_score_np,
+                                              device=self.device)
         self._constructed = True
         if self.free_raw_data:
             self.raw_data = None
@@ -195,6 +213,17 @@ class Dataset:
 
     def get_weight(self) -> Optional[np.ndarray]:
         return self.weight_np
+
+    def get_group(self) -> Optional[np.ndarray]:
+        return self.group
+
+    def set_group(self, group) -> "Dataset":
+        self.group = None if group is None else \
+            np.asarray(group, dtype=np.int64).reshape(-1)
+        return self
+
+    def get_init_score(self) -> Optional[np.ndarray]:
+        return self.init_score_np
 
 
 class Booster:
@@ -240,8 +269,9 @@ class Booster:
             conf.metric or [default_metric_for_objective(conf.objective)],
             conf)
         # the trainer of the boosting type (reference: booster_class,
-        # basic.py:1010); check_slice refused the unported ones
-        trainer = GOSS if str(conf.boosting).lower() == "goss" else GBDT
+        # basic.py:1010)
+        trainer = {"gbdt": GBDT, "goss": GOSS, "dart": DART,
+                   "rf": RF}[boosting_kind(conf.boosting)]
         self._gbdt = trainer(conf, train_set, objective, metrics)
         self.objective = objective
 
@@ -333,6 +363,8 @@ class Booster:
         if pred_leaf:
             return P.predict_leaf(trees, x).cpu().numpy()
         raw = P.predict_raw(trees, x, k)
+        if self.average_output() and trees:
+            raw = raw / (len(trees) // k)
         if not raw_score:
             obj = self._objective_for_predict()
             if obj is not None:
@@ -353,10 +385,73 @@ class Booster:
                 conf.update({kk: vv})
         try:
             return create_objective(parts[0], conf)
-        except (LightGBMError, NotImplementedError):
-            # an objective the port does not train (ranking) or know: raw
-            # scores, as the reference predicts then
+        except LightGBMError:
+            # an objective the port does not know: raw scores, as the
+            # reference predicts then
             return None
+
+    def average_output(self) -> bool:
+        """Whether the model's output is the mean of its iterations (RF)."""
+        if self._gbdt is not None:
+            return self._gbdt.average_output
+        return bool(self._loaded_meta.get("average_output", False))
+
+    def refit(self, data, label, decay_rate: Optional[float] = None,
+              weight=None, group=None) -> "Booster":
+        """A new Booster with this model's tree structures and leaf values
+        refit to new data (reference: Booster.refit, basic.py:1318-1362):
+        the rows' leaves from ``predict(pred_leaf=True)``; per tree, the
+        gradients of the model's objective at the score of the trees
+        refit so far, on the port's device; their leaf sums on the host in
+        f64, the regularized leaf outputs ``ops/split.leaf_output`` in f32
+        times the tree's shrinkage, blended as ``decay * old + (1 - decay)
+        * new``."""
+        conf = params_to_config(self.params)
+        decay = conf.refit_decay_rate if decay_rate is None else decay_rate
+        new_b = Booster(model_str=self.model_to_string(), params=self.params)
+        trees = new_b._host_trees()
+        if not trees:
+            raise LightGBMError("Cannot refit an empty model")
+        x = _to_numpy_2d(data)
+        dev = self._device()
+        obj = new_b._objective_for_predict()
+        if obj is None:
+            raise LightGBMError("Cannot refit: model has no objective")
+        y = torch.as_tensor(np.asarray(label, dtype=np.float32).reshape(-1),
+                            device=dev)
+        w = None if weight is None else torch.as_tensor(
+            np.asarray(weight, dtype=np.float32).reshape(-1), device=dev)
+        obj.init(y, w, None if group is None
+                 else np.asarray(group, dtype=np.int64))
+        k = new_b.num_model_per_iteration()
+        n = x.shape[0]
+        leaf_mat = np.asarray(self.predict(x, pred_leaf=True))
+        score = np.zeros(n) if k == 1 else np.zeros((n, k))
+        sp = SplitParams(lambda_l1=conf.lambda_l1, lambda_l2=conf.lambda_l2,
+                         max_delta_step=conf.max_delta_step)
+        grad = hess = None
+        for ti, t in enumerate(trees):
+            cls = ti % k
+            if cls == 0:
+                g_dev, h_dev = obj.get_gradients(torch.as_tensor(
+                    score, dtype=torch.float32, device=dev))
+                grad, hess = g_dev.cpu().numpy(), h_dev.cpu().numpy()
+            g = grad if k == 1 else grad[:, cls]
+            h = hess if k == 1 else hess[:, cls]
+            leaf = leaf_mat[:, ti]
+            sg = np.bincount(leaf, weights=g, minlength=t.num_leaves)
+            sh = np.bincount(leaf, weights=h, minlength=t.num_leaves) + 1e-15
+            new_out = leaf_output(
+                torch.as_tensor(sg, dtype=torch.float32),
+                torch.as_tensor(sh, dtype=torch.float32), sp).numpy() \
+                * np.float32(t.shrinkage)
+            t.leaf_value = decay * t.leaf_value + (1.0 - decay) * new_out
+            delta = t.leaf_value[leaf]
+            if k == 1:
+                score = score + delta
+            else:
+                score[:, cls] += delta
+        return new_b
 
     # ---- persistence ----
     def _default_num_iteration(self) -> int:
@@ -383,10 +478,6 @@ class Booster:
 
     def _load_model_string(self, s: str) -> None:
         meta, trees = model_text.parse_model_text(s)
-        if meta.get("average_output"):
-            raise NotImplementedError(
-                "models with average_output (RF) are not ported yet "
-                "(ROADMAP.md queue A14)")
         self._loaded_meta = meta
         self.trees = trees
         self.best_iteration = -1

@@ -6,10 +6,11 @@ dict written for the reference parses here to the same values. Two things
 differ: ``device_type`` (alias ``device``) defaults to ``"cuda"``, and
 ``check_slice`` refuses, with ``NotImplementedError`` naming the ROADMAP
 item, every setting that would leave the path this package implements
-(serial gbdt or GOSS training of the pointwise objectives, row weights
-included, on dense numeric data with the depthwise grower, quantized or
-not, or the unpooled leaf-wise grower; bagging, the feature fractions and
-early stopping included). ``OBJECTIVES`` is the reference's objective
+(serial gbdt, GOSS, DART or RF training of the pointwise and ranking
+objectives, row weights, query groups and init scores included, on dense
+numeric data with the depthwise grower, quantized or not, or the unpooled
+leaf-wise grower; bagging, the feature fractions and early stopping
+included). ``OBJECTIVES`` is the reference's objective
 alias table (``lightgbm_tpu/objectives.py:690-709``). The TPU-only knobs
 (``histogram_impl``, ``hist_packed``, ``mesh_axis``, ...) are accepted and
 have no effect.
@@ -542,12 +543,11 @@ OBJECTIVES: Dict[str, str] = {
                      "xendcg_mart"), "rank_xendcg"),
     **dict.fromkeys(("none", "null", "custom", "na"), "none"),
 }
-RANKING_OBJECTIVES = ("lambdarank", "rank_xendcg")
 MULTICLASS_OBJECTIVES = ("multiclass", "multiclassova")
-# the ranking metrics' names (lightgbm_tpu/metrics.py:306-307)
-RANKING_METRICS = ("ndcg", "lambdarank", "rank_xendcg", "xendcg", "xe_ndcg",
-                   "xe_ndcg_mart", "xendcg_mart", "map",
-                   "mean_average_precision")
+# the boosting types and their trainers' names (reference: booster_class,
+# basic.py:1009-1025)
+BOOSTING = {"gbdt": "gbdt", "gbrt": "gbdt", "goss": "goss", "dart": "dart",
+            "rf": "rf", "random_forest": "rf"}
 
 
 def objective_kind(name) -> str:
@@ -564,9 +564,13 @@ def _out_of_slice(what: str, item: str) -> NotImplementedError:
         f"{what} is not ported yet (ROADMAP.md queue {item})")
 
 
-def ranking_refusal(what: str) -> NotImplementedError:
-    """The refusal of a ranking setting (ROADMAP.md queue A11b)."""
-    return _out_of_slice(what, "A11b")
+def boosting_kind(name) -> str:
+    """The trainer of a configured boosting type; unknown types are fatal,
+    as in the reference (basic.py:1025)."""
+    kind = BOOSTING.get(str(name).lower())
+    if kind is None:
+        raise LightGBMError(f"unknown boosting type {name}")
+    return kind
 
 
 def check_slice(conf: Config) -> None:
@@ -575,19 +579,13 @@ def check_slice(conf: Config) -> None:
     config check: multiclass needs num_class > 1, any other objective but
     a custom one num_class = 1)."""
     kind = objective_kind(conf.objective)
-    if kind in RANKING_OBJECTIVES:
-        raise ranking_refusal(f"objective={conf.objective!r}")
-    for m in conf.metric:
-        if m.lower().strip() in RANKING_METRICS:
-            raise ranking_refusal(f"metric={m!r}")
+    boosting_kind(conf.boosting)
     if kind in MULTICLASS_OBJECTIVES and conf.num_class <= 1:
         raise LightGBMError(f"objective={conf.objective!r} needs num_class "
                             f"> 1 (got {conf.num_class})")
     if kind not in MULTICLASS_OBJECTIVES + ("none",) and conf.num_class != 1:
         raise LightGBMError(f"num_class must be 1 for objective="
                             f"{conf.objective!r} (got {conf.num_class})")
-    if str(conf.boosting).lower() not in ("gbdt", "gbrt", "goss"):
-        raise _out_of_slice(f"boosting={conf.boosting!r}", "A14")
     if conf.histogram_pool_size > 0:
         raise _out_of_slice("histogram_pool_size (the lean depthwise grower "
                             "and the lossguide histogram pool)", "A13b")

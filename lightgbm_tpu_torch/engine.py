@@ -15,7 +15,11 @@ sets the booster's ``best_iteration`` and ``best_score`` (:272-275).
 ``_run_feval``'s order (:321-335), so they reach ``evals_result``, early
 stopping and the callbacks alike. ``fobj`` and ``feval`` see numpy arrays:
 the raw score, [N] or [N, K], and the Dataset (``get_label``,
-``get_weight``). Snapshots, faults, the non-finite guard and telemetry
+``get_weight``, ``get_group``). ``init_model`` (a model file or a Booster)
+continues training: its trees' raw score on the train Dataset's bins is
+the train score's init score (``_warm_start``, :337-387), and the valid
+sets replay it too; the returned Booster holds the new trees, as in the
+reference. Snapshots, faults, the non-finite guard and telemetry
 (ROADMAP.md queues A16, A20) are not ported.
 """
 from __future__ import annotations
@@ -36,11 +40,15 @@ def train(params: Dict[str, Any], train_set: Dataset,
           valid_names: Optional[List[str]] = None,
           fobj: Optional[Callable] = None,
           feval: Optional[Callable] = None,
+          init_model: Optional[Union[str, Booster]] = None,
           evals_result: Optional[Dict] = None,
           early_stopping_rounds: Optional[int] = None,
           verbose_eval: Union[bool, int] = True,
+          keep_training_booster: bool = False,
           callbacks: Optional[List[Callable]] = None) -> Booster:
-    """Train a booster (reference: engine.py:35)."""
+    """Train a booster (reference: engine.py:35). ``keep_training_booster``
+    is accepted for the reference's signature: the returned Booster can
+    always go on training."""
     params = dict(params or {})
     conf = params_to_config(params)
     if any(canonical_name(str(k)) == "num_iterations" for k in params):
@@ -52,6 +60,10 @@ def train(params: Dict[str, Any], train_set: Dataset,
                   if canonical_name(str(k)) != "objective"}
         params["objective"] = "none"
     booster = Booster(params=params, train_set=train_set)
+    if init_model is not None:
+        init = (Booster(model_file=init_model)
+                if isinstance(init_model, str) else init_model)
+        booster._gbdt.warm_start(init._host_trees())
     valid_sets = list(valid_sets or [])
     valid_names = list(valid_names or [])
     for i, vs in enumerate(valid_sets):

@@ -6,7 +6,8 @@ block per tree with exact ``tree_sizes``, feature importances, parameters
 footer), so models move between the two packages and LightGBM tooling.
 A model of K trees an iteration (multiclass) writes ``num_class`` and
 ``num_tree_per_iteration`` = K and is sliced K trees an iteration; a
-loaded model keeps the ``num_class`` of its file.
+loaded model keeps the ``num_class`` of its file. An averaged model (RF)
+writes the ``average_output`` line.
 """
 from __future__ import annotations
 
@@ -20,8 +21,8 @@ _VERSION = "v3"
 
 def _objective_string(booster) -> str:
     """The objective line (reference: model_text.py:20-33): the configured
-    name, with num_class for the multiclass names and sigmoid for binary
-    and multiclassova."""
+    name, with num_class for the multiclass names, sigmoid for binary and
+    multiclassova, and the truncation level for lambdarank."""
     obj = booster._loaded_meta.get("objective") if booster._loaded_meta \
         else None
     if obj:
@@ -33,6 +34,9 @@ def _objective_string(booster) -> str:
         extras.append(f"num_class:{conf.num_class}")
     if name in ("binary", "multiclassova"):
         extras.append(f"sigmoid:{conf.sigmoid:g}")
+    if name == "lambdarank":
+        extras.append("lambdarank_truncation_level:"
+                      f"{conf.lambdarank_truncation_level}")
     return " ".join([name] + extras)
 
 
@@ -66,10 +70,12 @@ def dump_model_text(booster, trees: List[Tree], num_iteration: int = -1,
         "label_index=0",
         f"max_feature_idx={max_feature_idx}",
         f"objective={_objective_string(booster)}",
+        "average_output" if booster.average_output() else None,
         f"feature_names={' '.join(names)}",
         f"feature_infos={' '.join(infos)}",
         "",
     ]
+    lines = [ln for ln in lines if ln is not None]
     # reference byte convention (gbdt_model_text.cpp:313-325): each block is
     # "Tree=i\n" + Tree::ToString() + "\n" and tree_sizes is its length
     tree_blocks = [t.to_string(i) + "\n" for i, t in enumerate(trees)]

@@ -19,9 +19,15 @@ column, with the grower ``_grow_fn`` picks (:1297-1304):
 ``grow_tree`` otherwise. Each tree is finished as ``_finish_tree``
 (:1559-1578) does: the objective's leaf renewal (L1 family) on the
 pre-tree score column, shrinkage, the first iteration's bias. Scores are
-[N] or [N, K] and stay on the training device; an iteration whose K trees
-are all stumps ends training, and trailing all-stump iterations are popped
-K trees at a time (:1395-1404).
+[N] or [N, K] and stay on the training device, starting from the
+Datasets' init scores (:99-104, :598-600), which turn boosting from the
+average off (:651-652); an iteration whose K trees are all stumps ends
+training, and trailing all-stump iterations are popped K trees at a time
+(:1395-1404). A valid set added after training started replays the
+trees so far on its bins (:591-604). DART and RF (``dart.py``,
+``rf.py``) override the score hooks: ``average_output`` (no shrinkage,
+renewal or bias; :1126, :1571, :1681, :1703) and ``_apply_tree_delta``
+(:1027).
 """
 from __future__ import annotations
 
@@ -38,7 +44,7 @@ from ..ops.gather import take_small
 from ..ops.grow import GrowParams, TreeArrays, grow_tree
 from ..ops.grow_depthwise import grow_tree_depthwise
 from ..ops.histogram import ACC_ROWS_MAX
-from ..ops.predict import route_bins
+from ..ops.predict import bin_tree, route_bins
 from ..ops.split import SplitParams
 from .tree import Tree
 
@@ -65,6 +71,13 @@ def resolve_quant(config: Config) -> bool:
     return quant_on
 
 
+def tree_delta(tree: TreeArrays, data) -> torch.Tensor:
+    """A device tree's leaf value for each row of a Dataset's bins
+    (route_bins, then the take_small kernel)."""
+    return take_small(tree.leaf_value,
+                      route_bins(tree, data.bins, data.na_bin_dev))
+
+
 def _f32(x: float) -> float:
     """x rounded to f32, as the reference's f32 comparisons see it."""
     return float(np.float32(x))
@@ -77,6 +90,8 @@ class GBDT:
     # before growing): the reference's custom step, which keeps the fused
     # front off and all three quantized channels (gbdt.py:733-744)
     _custom_grad = False
+    # the model's output is the mean of its trees, not their sum (RF)
+    average_output = False
 
     def __init__(self, config: Config, train_set, objective, metrics=None):
         self.config = config
@@ -94,7 +109,8 @@ class GBDT:
             else int(config.num_class))
         spec = self._aux = None
         if objective is not None:
-            objective.init(train_set.label, train_set.weight)
+            objective.init(train_set.label, train_set.weight,
+                           train_set.group)
             fs = objective.fused_grad_spec()
             if fs is not None:
                 spec, self._aux = fs
@@ -131,6 +147,14 @@ class GBDT:
         self._score_shape = (n,) if k == 1 else (n, k)
         self.train_score = torch.zeros(self._score_shape, dtype=torch.float32,
                                        device=self.device)
+        self._has_init_score = train_set.init_score is not None
+        if self._has_init_score:
+            self.train_score = self.train_score + \
+                train_set.init_score.reshape(self._score_shape)
+        # an init model's trees on this Dataset's bins (engine._warm_start):
+        # their score is the train score's init score and replays into
+        # each valid set added later
+        self.init_model_dev: List[TreeArrays] = []
         # sampling state (gbdt.py:272-274): the bag mask (None when bagging
         # is off, f32 row weights otherwise), its threefry key, the feature
         # mask and its RandomState
@@ -152,14 +176,51 @@ class GBDT:
         self.valid_scores: List[torch.Tensor] = []
 
     def add_valid(self, valid_set, name: str) -> None:
-        if self.models_dev:
-            raise NotImplementedError("adding a valid set after training "
-                                      "started is ROADMAP.md queue A14")
+        """A valid set's score: its init score, an init model's trees, and
+        the trees so far replayed on its bins (route_bins + take_small)."""
         self.valid_sets.append(valid_set)
         self.valid_names.append(name)
         shape = (valid_set.num_data,) + self._score_shape[1:]
-        self.valid_scores.append(torch.zeros(shape, dtype=torch.float32,
-                                             device=self.device))
+        score = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        if valid_set.init_score is not None:
+            score = score + valid_set.init_score.reshape(shape)
+        for trees, avg in ((self.init_model_dev, False),
+                           (self.models_dev, self.average_output)):
+            if trees:
+                score = score + self.predict_bins(trees, valid_set, avg)
+        self.valid_scores.append(score)
+
+    def warm_start(self, trees: List[Tree]) -> None:
+        """Continue from an init model's host trees (reference:
+        engine._warm_start, :337-351): they are put into the train
+        Dataset's bin space and their raw score on its bins joins the train
+        score as an init score (no boosting from the average); valid sets
+        added later replay them too."""
+        ts = self.train_set
+        self.init_model_dev = [bin_tree(t, ts.mappers, ts.feature_map,
+                                        self.device) for t in trees]
+        if self.init_model_dev:
+            self.train_score = self.train_score + self.predict_bins(
+                self.init_model_dev, ts)
+        self._has_init_score = True
+
+    def predict_bins(self, trees: List[TreeArrays], data,
+                     average: bool = False) -> torch.Tensor:
+        """Raw f32 score of device trees (K an iteration) on a Dataset's
+        bins, tree by tree in order (reference: _predict_bins_dev,
+        :1688-1706); the mean over iterations with ``average``."""
+        k = self.num_tree_per_iteration
+        out = torch.zeros((data.num_data,) + self._score_shape[1:],
+                          dtype=torch.float32, device=self.device)
+        for i, tree in enumerate(trees):
+            delta = tree_delta(tree, data)
+            if k == 1:
+                out = out + delta
+            else:
+                out[:, i % k] += delta
+        if average:
+            out = out / (len(trees) // k)
+        return out
 
     # ---- sampling ----
     @property
@@ -213,7 +274,8 @@ class GBDT:
         channels, as the reference's custom step does."""
         k = self.num_tree_per_iteration
         if (self.iter_ == 0 and self.objective is not None
-                and self.config.boost_from_average and not self.models_dev):
+                and self.config.boost_from_average and not self._has_init_score
+                and not self.models_dev and not self.average_output):
             # boost from average (gbdt.cpp:345,372-377); the multiclass
             # objectives have no init score
             for cls in range(k):
@@ -267,20 +329,27 @@ class GBDT:
             any_split = any_split or tree.num_leaves > 1
             self._add_tree(tree, leaf_id, cls)
         self.iter_ += 1
-        if not any_split:
+        return self._end_iteration(not any_split)
+
+    def _end_iteration(self, finished: bool) -> bool:
+        """Close an iteration: one whose trees are all stumps ends
+        training and leaves the model."""
+        if finished:
             self._pop_trailing_stumps()
-        return not any_split
+        return finished
 
     def _add_tree(self, tree: TreeArrays, leaf_id: torch.Tensor,
                   cls: int) -> None:
-        """Finish one class tree (reference: _finish_tree, :1559-1578, in
-        the fused step's order): renew the live leaves from the pre-tree
-        score column (L1 family), shrink, add the tree to the train score
-        through take_small, fold the first iteration's bias into the stored
-        tree, and add it to the valid scores."""
+        """Finish one class tree (reference: the fused step's one_class,
+        :914-959, and _grow_and_update, :1326-1341): renew the live leaves
+        from the pre-tree score column (L1 family), shrink, fold its delta
+        into the train score through take_small, fold the first
+        iteration's bias into the stored tree, and fold it into the valid
+        scores. Averaged models (RF) skip the renewal, the shrinkage and
+        the bias."""
         k = self.num_tree_per_iteration
         lv = tree.leaf_value
-        if self.objective is not None:
+        if self.objective is not None and not self.average_output:
             renewed = self.objective.renew_leaf_values(
                 self.train_score if k == 1 else self.train_score[:, cls],
                 leaf_id, self.gp.num_leaves)
@@ -288,29 +357,33 @@ class GBDT:
                 live = torch.arange(lv.shape[0], device=lv.device) \
                     < tree.num_leaves
                 lv = torch.where(live, renewed.to(lv.dtype), lv)
-        shrink = torch.tensor(self.learning_rate, dtype=torch.float32,
+        shrink = torch.tensor(1.0 if self.average_output
+                              else self.learning_rate, dtype=torch.float32,
                               device=self.device)
         tree = tree._replace(leaf_value=lv * shrink,
                              internal_value=tree.internal_value * shrink)
         delta = take_small(tree.leaf_value, leaf_id)
-        if k == 1:
-            self.train_score = self.train_score + delta
-        else:
-            self.train_score[:, cls] += delta
+        self.train_score = self._apply_tree_delta(self.train_score, delta,
+                                                  cls)
         bias = self.init_scores[cls] if self.iter_ == 0 else 0.0
-        if abs(bias) > K_EPSILON:
+        if abs(bias) > K_EPSILON and not self.average_output:
             tree = tree._replace(leaf_value=tree.leaf_value + bias,
                                  internal_value=tree.internal_value + bias)
         else:
             bias = 0.0
         for i, vs in enumerate(self.valid_sets):
-            leaf = route_bins(tree, vs.bins, vs.na_bin_dev)
-            vdelta = take_small(tree.leaf_value, leaf) - bias
-            if k == 1:
-                self.valid_scores[i] = self.valid_scores[i] + vdelta
-            else:
-                self.valid_scores[i][:, cls] += vdelta
+            self.valid_scores[i] = self._apply_tree_delta(
+                self.valid_scores[i], tree_delta(tree, vs) - bias, cls)
         self.models_dev.append(tree)
+
+    def _apply_tree_delta(self, score: torch.Tensor, delta: torch.Tensor,
+                          cls: int) -> torch.Tensor:
+        """Fold one class tree's row deltas into a score (reference:
+        _apply_tree_delta, :1027-1036): boosting adds; RF averages."""
+        if self.num_tree_per_iteration == 1:
+            return score + delta
+        score[:, cls] += delta
+        return score
 
     def _pop_trailing_stumps(self) -> None:
         """Drop trailing all-stump iterations, K trees at a time (their
@@ -328,7 +401,8 @@ class GBDT:
         conv = (self.objective.convert_output(score)
                 if self.objective is not None else score)
         return [(name, m.name,
-                 m(data.label, conv if m.use_prob else score, data.weight),
+                 m(data.label, conv if m.use_prob else score, data.weight,
+                   data.group),
                  m.greater_is_better) for m in self.metrics]
 
     def eval_train(self):
@@ -351,7 +425,7 @@ class GBDT:
                 for k in TreeArrays._fields if k != "num_leaves"}
             t = Tree.from_device(arrays, tree.num_leaves, ts.mappers,
                                  ts.feature_map)
-            t.shrinkage = self.learning_rate
+            t.shrinkage = 1.0 if self.average_output else self.learning_rate
             self.models_host.append(t)
         return self.models_host
 

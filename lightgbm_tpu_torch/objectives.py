@@ -11,7 +11,11 @@ operation order, Python-float factors rounded to f32 where they meet a row,
 as JAX's weak types do; only ``exp`` differs, by an ulp on some arguments
 of the CPU (ROADMAP.md C1). ``fused_grad_spec`` (the spec the fused
 gradient front replays in-kernel) exists for the unweighted L2 and binary
-objectives alone. Ranking (lambdarank, rank_xendcg) is ROADMAP.md A11b.
+objectives alone. The ranking objectives (lambdarank, rank_xendcg, :430-638)
+take the Dataset's query groups: their per-query doc grid and ideal DCGs are
+built on the host, the lambdas run as plain torch on the training device,
+as the reference computes them outside any Pallas kernel (their log2
+discounts and minor-axis sums differ from XLA:CPU's by ulps, ROADMAP.md C6).
 """
 from __future__ import annotations
 
@@ -20,8 +24,10 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .config import Config, objective_kind, ranking_refusal
+from .config import Config, objective_kind
+from .log import LightGBMError
 from .ops.hist_kernels import grad_rows
+from .utils.query import query_grid
 
 
 def _weighted(grad, hess, weight):
@@ -86,7 +92,8 @@ class ObjectiveFunction:
         self.num_data = 0
 
     def init(self, label: torch.Tensor,
-             weight: Optional[torch.Tensor] = None) -> None:
+             weight: Optional[torch.Tensor] = None,
+             group: Optional[np.ndarray] = None) -> None:
         self.label = label
         self.weight = weight
         self.num_data = int(label.shape[0])
@@ -117,8 +124,8 @@ class RegressionL2(ObjectiveFunction):
     name = "regression"
     is_constant_hessian = True   # with unit weights
 
-    def init(self, label, weight=None):
-        super().init(label, weight)
+    def init(self, label, weight=None, group=None):
+        super().init(label, weight, group)
         if self.config.reg_sqrt:
             self.label = torch.sign(label) * torch.sqrt(label.abs())
 
@@ -187,8 +194,8 @@ class Poisson(RegressionL2):
     name = "poisson"
     is_constant_hessian = False
 
-    def init(self, label, weight=None):
-        super().init(label, weight)
+    def init(self, label, weight=None, group=None):
+        super().init(label, weight, group)
         self._hess_scale = float(np.exp(self.config.poisson_max_delta_step))
 
     def get_gradients(self, score):
@@ -228,8 +235,8 @@ class Mape(RegressionL2):
     name = "mape"
     is_constant_hessian = False
 
-    def init(self, label, weight=None):
-        super().init(label, weight)
+    def init(self, label, weight=None, group=None):
+        super().init(label, weight, group)
         w = weight if weight is not None else torch.ones_like(label)
         self._mape_w = w / torch.clamp(label.abs(), min=1.0)
 
@@ -247,8 +254,8 @@ class Mape(RegressionL2):
 class Gamma(Poisson):
     name = "gamma"
 
-    def init(self, label, weight=None):
-        RegressionL2.init(self, label, weight)
+    def init(self, label, weight=None, group=None):
+        RegressionL2.init(self, label, weight, group)
 
     def get_gradients(self, score):
         ex = torch.exp(-score)
@@ -258,8 +265,8 @@ class Gamma(Poisson):
 class Tweedie(Poisson):
     name = "tweedie"
 
-    def init(self, label, weight=None):
-        RegressionL2.init(self, label, weight)
+    def init(self, label, weight=None, group=None):
+        RegressionL2.init(self, label, weight, group)
         self.rho = self.config.tweedie_variance_power
 
     def get_gradients(self, score):
@@ -282,8 +289,8 @@ class Binary(ObjectiveFunction):
         self.label_weight_pos = 1.0
         self.label_weight_neg = 1.0
 
-    def init(self, label, weight=None):
-        super().init(label, weight)
+    def init(self, label, weight=None, group=None):
+        super().init(label, weight, group)
         self.label_pos = (label > 0).to(torch.float32)
         pos = self.label_pos.to(torch.float64)
         if weight is None:
@@ -348,8 +355,8 @@ class MulticlassSoftmax(ObjectiveFunction):
         self.num_class = config.num_class
         self.num_model_per_iteration = config.num_class
 
-    def init(self, label, weight=None):
-        super().init(label, weight)
+    def init(self, label, weight=None, group=None):
+        super().init(label, weight, group)
         self.onehot = _onehot(label, self.num_class)
 
     def get_gradients(self, score):
@@ -372,8 +379,8 @@ class MulticlassOVA(ObjectiveFunction):
         self.num_model_per_iteration = config.num_class
         self.sigmoid = float(config.sigmoid)
 
-    def init(self, label, weight=None):
-        super().init(label, weight)
+    def init(self, label, weight=None, group=None):
+        super().init(label, weight, group)
         self.onehot = _onehot(label, self.num_class)
 
     def get_gradients(self, score):
@@ -430,6 +437,180 @@ class CrossEntropyLambda(ObjectiveFunction):
 
     def convert_output(self, score):
         return torch.log1p(torch.exp(score))
+
+
+# ---------------- ranking (rank_objective.hpp:23) ----------------
+
+class LambdaRank(ObjectiveFunction):
+    """LambdaRank with NDCG lambdas (reference: LambdaRank,
+    objectives.py:432-507). The queries are padded into a [Q, M] doc grid;
+    the pairs of each query are a masked [T, M] block, T =
+    min(lambdarank_truncation_level, M) score-sorted positions against all
+    M, run over query chunks of about 16M pair cells (lambdarank_grid)."""
+    name = "lambdarank"
+
+    def init(self, label, weight=None, group=None):
+        super().init(label, weight, group)
+        if group is None:
+            raise LightGBMError("lambdarank requires query/group "
+                                "information")
+        self.group = np.asarray(group, dtype=np.int64)
+        dev = label.device
+        idx, msk = query_grid(self.group)
+        self._idx = torch.as_tensor(idx, dtype=torch.int64, device=dev)
+        self._msk = torch.as_tensor(msk, device=dev)
+        # the grid's real cells in row-major order: queries hold
+        # consecutive rows, so cell k of them is row k
+        self._cells = torch.as_tensor(np.flatnonzero(msk), device=dev)
+        label_np = label.cpu().numpy()
+        # label gains (default 2^i - 1)
+        gains = self.config.label_gain
+        if not gains:
+            maxl = int(label_np.max())
+            gains = [(1 << i) - 1 for i in range(max(maxl + 1, 2))]
+        self._label_gain = torch.as_tensor(
+            np.array(gains, dtype=np.float64).astype(np.float32), device=dev)
+        self.sigmoid = self.config.sigmoid
+        self.trunc = self.config.lambdarank_truncation_level
+        self.norm = self.config.lambdarank_norm
+        # the inverse ideal DCG of each query, in f64, then f32
+        lab_grid = np.where(msk, label_np[idx], -1)
+        inv_max_dcg = np.zeros(len(self.group), dtype=np.float64)
+        for q in range(len(self.group)):
+            ls = np.sort(lab_grid[q][msk[q]])[::-1]
+            g = np.array([gains[int(v)] for v in ls], dtype=np.float64)
+            disc = 1.0 / np.log2(np.arange(len(ls)) + 2.0)
+            dcg = float((g * disc).sum())
+            inv_max_dcg[q] = 1.0 / dcg if dcg > 0 else 0.0
+        self._inv_max_dcg = torch.as_tensor(inv_max_dcg.astype(np.float32),
+                                            device=dev)
+
+    def _scatter(self, grad_grid, hess_grid, score):
+        """The grids back to rows, hessians floored at 1e-16. The
+        reference scatter-adds every cell into zeros, the padded ones 0.0
+        into row 0: each row ends as 0.0 plus its own cell, which is what
+        a gather of the real cells plus 0.0 gives (and on the card without
+        an atomic add a padded cell into one row)."""
+        zero = torch.zeros_like(score)
+        grad = zero + grad_grid.reshape(-1).index_select(0, self._cells)
+        hess = zero + hess_grid.reshape(-1).index_select(0, self._cells)
+        return _weighted(grad, torch.clamp(hess, min=1e-16), self.weight)
+
+    def get_gradients(self, score):
+        lab = self.label[self._idx] * self._msk
+        sc = torch.where(self._msk, score[self._idx],
+                         torch.full((), -np.inf, device=score.device))
+        grad_grid, hess_grid = lambdarank_grid(
+            sc, lab.to(torch.int32), self._msk, self._label_gain,
+            self._inv_max_dcg, self.sigmoid, self.trunc, self.norm)
+        return self._scatter(grad_grid, hess_grid, score)
+
+
+def _sum_in_order(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over a short non-minor axis one slice after another, the order
+    in which XLA:CPU reduces such an axis."""
+    out = x.select(dim, 0)
+    for i in range(1, x.shape[dim]):
+        out = out + x.select(dim, i)
+    return out
+
+
+def lambdarank_grid(sc, lab, msk, label_gain, inv_max_dcg, sigmoid, trunc,
+                    norm, max_cells: int = 1 << 24):
+    """Pairwise NDCG lambdas of a [Q, M] grid (reference: _lambdarank_grid,
+    objectives.py:514-607): for each query the pairs (i, j), i among the
+    first T score-sorted positions, j > i, of different gains; with norm,
+    the score-distance term and the log2(1 + denom) / denom scale. Runs
+    over query chunks so that the [C, T, M] pair tensors stay near
+    ``max_cells`` cells. Returns the (grad, hess) grids in doc order."""
+    q, m = sc.shape
+    dev = sc.device
+    t = min(max(int(trunc), 1), m)
+    chunk = int(max(1, min(q, max_cells // max(1, t * m))))
+    disc = 1.0 / torch.log2(torch.arange(m, dtype=torch.float32,
+                                         device=dev) + 2.0)
+    pos_i = torch.arange(t, device=dev)[None, :, None]
+    pos_j = torch.arange(m, device=dev)[None, None, :]
+    gain = label_gain[lab.clamp(0, label_gain.shape[0] - 1).to(torch.int64)]
+    inf = torch.full((), np.inf, device=dev)
+    zero = torch.zeros((), device=dev)
+    grad = torch.empty_like(sc)
+    hess = torch.empty_like(sc)
+    for c0 in range(0, q, chunk):
+        sc_c, gain_c = sc[c0:c0 + chunk], gain[c0:c0 + chunk]
+        msk_c, imd_c = msk[c0:c0 + chunk], inv_max_dcg[c0:c0 + chunk]
+        order = torch.argsort(-torch.where(msk_c, sc_c, -inf), dim=1,
+                              stable=True)
+        ssc = sc_c.gather(1, order)
+        sgain = gain_c.gather(1, order)
+        smsk = msk_c.gather(1, order)
+        s_i, s_j = ssc[:, :t, None], ssc[:, None, :]
+        g_i, g_j = sgain[:, :t, None], sgain[:, None, :]
+        d_i, d_j = disc[None, :t, None], disc[None, None, :]
+        valid = (smsk[:, :t, None] & smsk[:, None, :] & (pos_j > pos_i)
+                 & (g_i != g_j))
+        delta_pair = ((g_i - g_j).abs() * (d_i - d_j).abs()
+                      * imd_c[:, None, None])
+        # high = the pair's doc of the higher label
+        i_is_high = g_i > g_j
+        ds = torch.where(i_is_high, s_i - s_j, s_j - s_i)
+        if norm:
+            # score-distance term, only where the query's scores spread
+            best = torch.where(msk_c, sc_c, -inf).amax(dim=1)
+            worst = torch.where(msk_c, sc_c, inf).amin(dim=1)
+            spread = (best != worst)[:, None, None]
+            delta_pair = torch.where(spread, delta_pair / (0.01 + ds.abs()),
+                                     delta_pair)
+        p = 1.0 / (1.0 + torch.exp(sigmoid * ds))
+        lam = -sigmoid * p * delta_pair
+        hes = sigmoid * sigmoid * p * (1.0 - p) * delta_pair
+        lam = torch.where(valid, lam, zero)
+        hes = torch.where(valid, hes, zero)
+        sign_i = torch.where(i_is_high, 1.0, -1.0)
+        # position j collects from every i row; the first t positions also
+        # their own rows' sums
+        grad_s = _sum_in_order(-sign_i * lam, 1)
+        grad_s[:, :t] += (sign_i * lam).sum(dim=2)
+        hess_s = _sum_in_order(hes, 1)
+        hess_s[:, :t] += hes.sum(dim=2)
+        if norm:
+            denom = 2.0 * lam.abs().sum(dim=(1, 2))[:, None]
+            scale = torch.where(
+                denom > 0.0, torch.log2(1.0 + denom)
+                / torch.clamp(denom, min=1e-30), torch.ones_like(denom))
+            grad_s = grad_s * scale
+            hess_s = hess_s * scale
+        # back to doc order
+        grad[c0:c0 + chunk] = torch.zeros_like(sc_c).scatter_(1, order,
+                                                              grad_s)
+        hess[c0:c0 + chunk] = torch.zeros_like(sc_c).scatter_(1, order,
+                                                              hess_s)
+    return grad, hess
+
+
+class RankXENDCG(LambdaRank):
+    """XE-NDCG (reference: RankXENDCG, objectives.py:610-638). The
+    reference draws Gumbel noise and adds it times 0.0 (:629); its uniforms
+    lie in [1e-20, 1), so the noise is finite and phi is the gain exactly:
+    the port leaves the draw out."""
+    name = "rank_xendcg"
+
+    def get_gradients(self, score):
+        dev = score.device
+        lab = self.label[self._idx] * self._msk
+        big = torch.full((), -1e30, device=dev)
+        sc = torch.where(self._msk, score[self._idx], big)
+        z = torch.where(self._msk, sc, big)
+        u = torch.exp(z - z.amax(dim=1, keepdim=True))
+        rho = u / u.sum(dim=1, keepdim=True)
+        gain = self._label_gain[lab.to(torch.int32).clamp(
+            0, self._label_gain.shape[0] - 1).to(torch.int64)]
+        phi = gain
+        denom = torch.where(self._msk, phi, torch.zeros((), device=dev)
+                            ).sum(dim=1, keepdim=True) + 1e-9
+        grad_grid = rho - phi / denom
+        hess_grid = rho * (1.0 - rho)
+        return self._scatter(grad_grid, hess_grid, score)
 
 
 # ---------------- percentile helpers (L1-family leaf renewal) ----------------
@@ -499,6 +680,7 @@ _CLASSES: Dict[str, type] = {
     "mape": Mape, "gamma": Gamma, "tweedie": Tweedie, "binary": Binary,
     "multiclass": MulticlassSoftmax, "multiclassova": MulticlassOVA,
     "cross_entropy": CrossEntropy, "cross_entropy_lambda": CrossEntropyLambda,
+    "lambdarank": LambdaRank, "rank_xendcg": RankXENDCG,
 }
 
 
@@ -512,8 +694,6 @@ def create_objective(name: str, config: Config
         config.reg_sqrt = False
     if kind == "none":
         return None
-    if kind not in _CLASSES:
-        raise ranking_refusal(f"objective {name!r}")
     cls = _CLASSES[kind]
     obj = cls(config)
     obj.name = name if name not in ("l2", "mse") else cls.name

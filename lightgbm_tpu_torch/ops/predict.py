@@ -1,7 +1,9 @@
 """Prediction: route rows through trees, as plain PyTorch.
 
 Port of ``lightgbm_tpu/ops/predict.py``: ``route_bins`` walks binned rows
-through a device tree (valid-set score updates during training), and
+through a device tree (valid-set score updates during training, DART's
+drops, the replay of a model on a Dataset), ``bin_tree`` puts a host
+tree's real thresholds into a Dataset's bin space, and
 ``predict_raw`` / ``predict_leaf`` walk raw f64 feature rows through the
 host trees of a model (``Booster.predict``), with the reference's
 per-node missing handling (tree.h:240 NumericalDecision) and categorical
@@ -44,6 +46,43 @@ def route_bins(tree: TreeArrays, bins: torch.Tensor,
         if not bool((ptr >= 0).any()):
             break
     return ~ptr
+
+
+def bin_tree(t: Tree, mappers, feature_map, device: torch.device
+             ) -> TreeArrays:
+    """A host tree as device TreeArrays on a Dataset's bins (reference:
+    engine._predict_via_trees, :354-387): each node's real threshold mapped
+    to its bin by the node feature's mapper (a feature the Dataset does not
+    use maps to used feature 0, as there), f32 leaf values."""
+    inv = ({int(orig): used for used, orig in enumerate(feature_map)}
+           if feature_map is not None else None)
+    n_int = max(t.num_leaves - 1, 1)
+    sf = np.zeros(n_int, dtype=np.int32)
+    tb = np.zeros(n_int, dtype=np.int32)
+    for i in range(t.num_leaves - 1):
+        orig = int(t.split_feature[i])
+        used = inv.get(orig, 0) if inv is not None else orig
+        sf[i] = used
+        tb[i] = int(mappers[used].values_to_bins(
+            np.array([t.threshold_real[i]]))[0])
+
+    def dev(a, dtype, size=n_int):
+        out = np.zeros(size, dtype=dtype)
+        out[: len(a)] = a
+        return torch.as_tensor(out, device=device)
+
+    nl = t.num_leaves
+    zf = dev([], np.float32)
+    return TreeArrays(
+        split_feature=dev(sf, np.int32), threshold_bin=dev(tb, np.int32),
+        default_left=dev(t.default_left, bool),
+        left_child=dev(t.left_child, np.int32),
+        right_child=dev(t.right_child, np.int32), split_gain=zf,
+        leaf_value=dev(t.leaf_value, np.float32, nl),
+        leaf_weight=dev([], np.float32, nl),
+        leaf_count=dev([], np.float32, nl),
+        internal_value=zf, internal_weight=zf, internal_count=zf,
+        num_leaves=nl)
 
 
 def _tree_tensors(t: Tree, device: torch.device):

@@ -1,7 +1,7 @@
 """The metric table of the PyTorch/CUDA port (lightgbm_tpu_torch) against
-the JAX reference (lightgbm_tpu), on the CPU: every metric but the ranking
-ones (ndcg, map: ROADMAP.md A11b), with and without row weights, on the
-same inputs made from numpy seeds.
+the JAX reference (lightgbm_tpu), on the CPU: every pointwise metric, with
+and without row weights, on the same inputs made from numpy seeds, and the
+ranking ones' names (their values: test_torch_ranking.py).
 
 Exact: each alias's reported name and direction (greater_is_better), and
 the default metric of every objective name. Tolerance: values rtol 1e-5
@@ -115,11 +115,17 @@ def test_default_metric_for_every_objective_name():
             ref_metrics.default_metric_for_objective(name), name
 
 
+# the ranking metrics train since A11b; under the old name, each alias now
+# gives the reference's metrics, one per eval_at entry
 @pytest.mark.parametrize("name", ["ndcg", "map", "mean_average_precision",
                                   "lambdarank", "xendcg"])
 def test_ranking_metrics_raise_naming_a11b(name):
-    with pytest.raises(NotImplementedError, match="A11b"):
-        t_metrics.create_metrics([name])
+    for conf in ({}, {"eval_at": [3, 10]}):
+        got = t_metrics.create_metrics([name], t_config.Config(conf))
+        want = ref_metrics.create_metrics([name], ref_config.Config(conf))
+        assert [(m.name, m.greater_is_better, m.use_prob, m.eval_at)
+                for m in got] == [(m.name, m.greater_is_better, m.use_prob,
+                                   m.eval_at) for m in want]
 
 
 def test_unknown_metric_raises_and_none_is_skipped():

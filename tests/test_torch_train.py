@@ -462,23 +462,28 @@ def test_default_device_needs_a_gpu():
 
 # the cases that named A11 (huber, reg_sqrt, multiclass, binary_error) train
 # since A11a and are held against the reference in test_torch_objectives.py,
-# test_torch_multiclass.py and test_torch_metrics.py; they now hold the
-# ranking settings, A11b, under their old ids
+# test_torch_multiclass.py and test_torch_metrics.py; the ranking settings
+# (A11b) and boosting=dart|rf (A14) that they then held train since A11b
+# and A14 (test_torch_ranking.py, test_torch_boosters.py): the six cases
+# hold settings still refused under their old ids
 @pytest.mark.parametrize("extra,item", [
-    pytest.param({"objective": "lambdarank"}, "A11b", id="extra0-A11"),
+    pytest.param({"forcedbins_filename": "bins.json"}, "A12",
+                 id="extra0-A11"),
     ({"grow_policy": "lossguide", "histogram_pool_size": 1.0}, "A13b"),
-    pytest.param({"metric": "ndcg"}, "A11b", id="extra2-A11"),
+    pytest.param({"cegb_penalty_feature_lazy": [0.5] * 8}, "A12",
+                 id="extra2-A11"),
     ({"monotone_constraints": [0, 0, 1, 0, 0, 0, 0, 0]}, "A12"),
     ({"cegb_penalty_split": 0.1}, "A12"),
     ({"extra_trees": True}, "A12"),
     ({"feature_contri": [1.0, 1.0, 1.0, 0.5, 1.0, 1.0, 1.0, 1.0]}, "A12"),
-    ({"boosting": "dart"}, "A14"),
-    ({"boosting": "rf"}, "A14"),
-    pytest.param({"objective": "rank_xendcg"}, "A11b", id="extra9-A11"),
+    pytest.param({"cegb_penalty_feature_coupled": [0.5] * 8}, "A12",
+                 id="extra7-A14"),
+    pytest.param({"tree_learner": "feature"}, "A21", id="extra8-A14"),
+    pytest.param({"tree_learner": "voting"}, "A21", id="extra9-A11"),
     ({"histogram_pool_size": 1.0}, "A13b"),
     ({"tree_learner": "data"}, "A21"),
     ({"categorical_feature": "0"}, "A12"),
-    pytest.param({"metric": "map"}, "A11b", id="extra13-A11"),
+    pytest.param({"num_machines": 2}, "A21", id="extra13-A11"),
     ({"forcedsplits_filename": "forced.json"}, "A12"),
 ])
 def test_out_of_slice_settings_raise(extra, item):
@@ -518,16 +523,22 @@ def test_bagging_fraction_without_bagging_freq_trains_as_reference():
     np.testing.assert_allclose(port.predict(X), ref.predict(X), rtol=1e-4)
 
 
-# row weights train since A11a (test_torch_objectives.py); the weight case
-# now holds Dataset group (A11b) under its old id
+# row weights train since A11a (test_torch_objectives.py), Dataset group
+# since A11b (test_torch_ranking.py) and init_score since A14
+# (test_torch_boosters.py): those cases hold sparse and pandas input (A12)
+# under their old ids
 @pytest.mark.parametrize("kw,item", [
-    pytest.param({"group": [200, 200]}, "A11b", id="kw0-A11"),
+    pytest.param({"data": "sparse"}, "A12", id="kw0-A11"),
     ({"categorical_feature": [0]}, "A12"),
-    ({"init_score": np.zeros(400)}, "A14")])
+    pytest.param({"data": "pandas"}, "A12", id="kw2-A14")])
 def test_out_of_slice_dataset_arguments_raise(kw, item):
     X, yb, _ = _data()
+    kw = dict(kw)
+    data = {"sparse": lambda: __import__("scipy.sparse").sparse.csr_matrix(X),
+            "pandas": lambda: __import__("pandas").DataFrame(X),
+            None: lambda: X}[kw.pop("data", None)]()
     with pytest.raises(NotImplementedError, match=item):
-        lt.Dataset(X, label=yb, params=CPU, **kw)
+        lt.Dataset(data, label=yb, params=CPU, **kw)
 
 
 @pytest.mark.parametrize("exclusive", [True, False])
