@@ -36,9 +36,14 @@ measured):
    without the counts, against the same yardstick), on a skewed level
    (S = 127, about half the kept rows in one slot) and on two
    lossguide-shaped passes (S = 1, about 5% and 0.5% of the rows kept),
-   hist_f32 also at B = 64 and S = 127; and hist_q8 at path (i)'s width,
+   hist_f32 also at B = 64 and S = 127; hist_q8 at path (i)'s width,
    F = 700, B = 64 (three feature groups a slot block), 473,134 rows,
-   at the root and at S = 32, with and without the counts. Each kernel
+   at the root and at S = 32, with and without the counts; and the level
+   pass (S = 1, 32, 127) and route_level (S = 32, 127) with categorical
+   membership at path (k)'s shape, F = 8, B = 256 (six features of
+   skewed categories, route tables mixing numerical and categorical
+   leaves, an is_cat row and each leaf's bitset; each also timed on the
+   same tables read numerically, without the bitset). Each kernel
    is timed
    (median of CUDA-event timings), beside its plain version, the least
    time the card could take (bytes over memory rate or operations over
@@ -122,7 +127,22 @@ measured):
    within 1e-6 of the largest, old plus continued predictions against the
    train score), the same continuation through Dataset(init_score=) (the
    first new tree's structure equal) and a refit on 1M rows (no kernel,
-   finite leaves, AUC);
+   finite leaves, AUC); (k) "categorical": an airline-shaped set
+   (synth_airline: the ASA Data Expo 2009 on-time data as benchm-ml trains
+   it, 10M rows, 8 columns of which Month, DayofMonth, DayOfWeek,
+   UniqueCarrier, Origin and Dest are categorical, label
+   dep_delayed_15min, about 19% positive) at max_bin=255 (F * B = 2048,
+   the fused front, as the reference's gate says), binary for 5
+   iterations with a 100,000-row valid set of another seed holding
+   unseen categories and NaN: one grad_quant_hist0 / leaf_sums_grad a
+   tree, one hist_routed_fused a level pass, two take_small a tree,
+   nothing else; valid AUC above 0.7, a categorical node in the first
+   tree, the model text round trip with its cat_threshold, predictions
+   from raw values against the train and valid scores, the construct
+   seconds and the iteration by part; (k') the same Dataset unquantized
+   for 3 iterations (hist_f32 a tree and a level pass, route_level a
+   level pass, take_small a tree); and for information the valid AUC
+   with the six columns numerical;
 5. agreement, at max_bin=63 and at 255 (the 4000-row table has more than
    128 bins a feature, so the unfused path, which is asserted): the first
    tree of a 4000-row L2 model trained on the card has the structure of
@@ -146,8 +166,11 @@ measured):
    on about 160 queries (first tree), on exact-sum labels a DART model
    (drop lists and all four trees) and an RF model (bag mask and first
    tree), and a refit of a card-trained binary model agree with the CPU
-   the same way; and the threefry replica's uniforms at N rows are the
-   CPU's bit for bit.
+   the same way; a 4000-row airline model with its six categorical
+   columns on exact-sum labels has the CPU's first tree (structure and
+   categories) on the fused quantized path (leaf values within 1e-6 of
+   the largest) and unquantized and lossguide (bit for bit); and the
+   threefry replica's uniforms at N rows are the CPU's bit for bit.
 
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
@@ -236,6 +259,72 @@ def synth_ranking(n_rows, n_feat=700, n_rel_feat=40, seed=0,
         sizes[-2] += sizes[-1]
         sizes.pop()
     return X, y, np.asarray(sizes, dtype=np.int64)
+
+
+# path (k): the airline data's categorical columns (Month, DayofMonth,
+# DayOfWeek, UniqueCarrier, Origin, Dest), its train and valid rows
+AIRLINE_CATS = [0, 1, 2, 4, 5, 6]
+N_AIR, N_AIR_VALID = 10_000_000, 100_000
+
+
+def synth_airline(n_rows: int, seed: int = 0, latent: bool = False):
+    """Airline-shaped binary problem: the ASA Data Expo 2009 on-time data
+    as benchm-ml trains it, 8 columns (Month 1-12, DayofMonth 1-31,
+    DayOfWeek 1-7, DepTime as hhmm 1-2400, UniqueCarrier 22 codes, Origin
+    and Dest about 300 airport codes each, Zipf-skewed, Distance 30-4,960
+    miles) and the label dep_delayed_15min (about 19% positive). The label
+    follows a latent score of random per-category effects that are not
+    monotone in the codes (only subset splits separate them), a later
+    departure and the distance, with logistic noise; the effects come from
+    a fixed seed, so every seed's rows follow one rule. With latent, also
+    that score before its noise."""
+    rng = np.random.RandomState(seed)
+    fx = np.random.RandomState(20090)
+    n_air = 300
+    pop = 1.0 / np.arange(1, n_air + 1) ** 1.1
+    code_of_rank = fx.permutation(n_air)
+    car = 1.0 / np.arange(1, 23) ** 0.8
+    eff = {k: fx.randn(v) for k, v in (("month", 13), ("dom", 32),
+                                       ("dow", 8), ("car", 22),
+                                       ("org", n_air), ("dst", n_air))}
+    X = np.empty((n_rows, 8), np.float32)
+    month = rng.randint(1, 13, n_rows)
+    dom = rng.randint(1, 32, n_rows)
+    dow = rng.randint(1, 8, n_rows)
+    minute = np.clip(rng.normal(810, 270, n_rows), 1, 1439).astype(np.int64)
+    dep = (minute // 60) * 100 + minute % 60
+    carrier = rng.choice(22, n_rows, p=car / car.sum())
+    org = code_of_rank[rng.choice(n_air, n_rows, p=pop / pop.sum())]
+    dst = code_of_rank[rng.choice(n_air, n_rows, p=pop / pop.sum())]
+    dist = np.clip(np.exp(rng.normal(6.4, 0.7, n_rows)), 30, 4960).round()
+    for j, col in enumerate((month, dom, dow, dep, carrier, org, dst, dist)):
+        X[:, j] = col
+    score = (0.5 * eff["month"][month] + 0.2 * eff["dom"][dom]
+             + 0.3 * eff["dow"][dow] + 0.002 * (minute - 720)
+             + 0.7 * eff["car"][carrier] + 0.9 * eff["org"][org]
+             + 0.8 * eff["dst"][dst] + 0.1 * np.log(dist))
+    u = rng.rand(n_rows)
+    with np.errstate(divide="ignore"):
+        noisy = score + np.log(u / (1.0 - u))
+    # the cut at the rule's 81st percentile (fixed, so seeds agree)
+    y = (noisy > 3.33).astype(np.float32)
+    if not latent:
+        return X, y
+    return X, y, score.astype(np.float32)
+
+
+def airline_valid(n_rows: int, seed: int = 1):
+    """synth_airline rows of another seed with a few unseen categories
+    (Origin and Dest codes past the 300 seen, carrier 22) and NaN in the
+    categorical and numeric columns; they route right."""
+    X, y = synth_airline(n_rows, seed)
+    rng = np.random.RandomState(seed + 100)
+    X[rng.rand(n_rows) < 0.01, 5] = 300 + rng.randint(0, 10)
+    X[rng.rand(n_rows) < 0.01, 6] = 305
+    X[rng.rand(n_rows) < 0.005, 4] = 22
+    for j in (3, 5, 7):
+        X[rng.rand(n_rows) < 0.01, j] = np.nan
+    return X, y
 
 
 def split_queries(X, y, group, n_train):
@@ -708,6 +797,121 @@ def main() -> int:
         plain_ms=main_v["plain_ms"], bound_ms=main_v["bound_ms"],
         bound_by=main_v["bound_by"], library_ms=None, variants=rvariants)
     print(f"route_level: exact; {rvariants}")
+
+    # B2 and B6 with categorical membership at the airline shape of path
+    # (k): F = 8, B = 256 (F * B = 2048, the fused pass's cap; the first
+    # time B2 runs at B = 256), six categorical features whose bins are
+    # skewed (bin k drawn with probability proportional to 1 / (k + 1),
+    # bin 0 the missing / other bin) and two numerical ones; route tables
+    # whose splitting leaves mix numerical and categorical splits (the
+    # is_cat row and each leaf's [8]-word bitset of random member bins).
+    # B2 at S = 1, 32 and 127 (3 channels), B6 at S = 32 and 127, exactly
+    # against hist_routed_fused_plain and route_plain given the same bitset;
+    # their own generator, so the other phases' inputs stay as they were
+    gen_cat = torch.Generator(device=dev).manual_seed(11)
+    fc = len(AIRLINE_CATS) + 2
+    is_cat_feat = torch.zeros(fc, dtype=torch.bool, device=dev)
+    is_cat_feat[AIRLINE_CATS] = True
+    bins_c = torch.stack([
+        skewed_leaves(N, BW - 1, lambda n: torch.rand(
+            n, generator=gen_cat, device=dev)).to(torch.uint8)
+        if j in AIRLINE_CATS else
+        torch.randint(0, BW, (N,), generator=gen_cat, device=dev,
+                      dtype=torch.int64).to(torch.uint8)
+        for j in range(fc)]).contiguous()
+    rowmajor_c = bins_c.t().contiguous()
+    na_c = torch.full((fc,), 256, dtype=torch.int32, device=dev)
+    na_c[AIRLINE_CATS] = 0
+    chans_c = (torch.randint(-127, 128, (N,), generator=gen_cat, device=dev,
+                             dtype=torch.int64).to(torch.int8),
+               torch.randint(0, 128, (N,), generator=gen_cat, device=dev,
+                             dtype=torch.int64).to(torch.int8),
+               (torch.rand(N, generator=gen_cat, device=dev) < 0.9).to(
+                   torch.int8))
+    cat_b2, cat_b6 = [], []
+    for s in (1, 32, 127):
+        lid = torch.randint(0, min(L, 2 * s), (N,), generator=gen_cat,
+                            device=dev, dtype=torch.int64).to(torch.int32)
+        if s == 1:
+            lid = torch.zeros_like(lid)
+        k_ = torch.arange(L, device=dev)
+        split = k_ < s
+        small_left = (torch.rand(L, generator=gen_cat, device=dev) < 0.5) \
+            | (k_ == 0)
+        feat = torch.where(split, torch.randint(0, fc, (L,), generator=gen_cat,
+                                                device=dev), -1)
+        is_cat = (split & is_cat_feat[feat.clamp(min=0)]
+                  & (torch.rand(L, generator=gen_cat, device=dev) < 0.8))
+        if s == 1:
+            # a first level: the root splits on Origin's categories
+            feat[0], is_cat[0] = AIRLINE_CATS[4], True
+        tab = torch.stack([
+            feat, torch.randint(0, BW - 1, (L,), generator=gen_cat,
+                                device=dev),
+            torch.randint(0, 2, (L,), generator=gen_cat, device=dev), s + k_,
+            torch.where(split & small_left, k_, s),
+            torch.where(split & ~small_left, k_, s), is_cat]).to(
+                torch.int32).contiguous()
+        member = torch.rand((L, BW), generator=gen_cat, device=dev) \
+            < torch.rand((L, 1), generator=gen_cat, device=dev)
+        member[:, 0] = False
+        bits = hk.member_bitset(member)
+        words = bits.shape[1]
+        routed = int((lid < s).sum())
+        kept = int(hk.route_plain(bins_c, lid, tab, na_c, s, bits)[0].lt(s)
+                   .sum())
+        args = (bins_c, *chans_c, lid, tab, na_c, s, BW)
+        tag = f"hist_routed_fused[categorical S{s}, F={fc}, B={BW}]"
+        kh, kl = hk.hist_routed_fused(*args, bins=rowmajor_c, catbits=bits)
+        ph, pl_ = hk.hist_routed_fused_plain(*args, catbits=bits)
+        err = max(exact(f"{tag}.hist", kh, ph), exact(f"{tag}.lid2", kl, pl_))
+        del kh, kl, ph, pl_
+        bms, by = bound(8 * N + routed + kept * (fc + 3)
+                        + s * 3 * fc * BW * 4 + (7 + words) * L * 4 + fc * 4,
+                        kept * fc * 3 + N * 10)
+        cat_b2.append(dict(
+            variant=f"categorical_S{s}", categorical=True, F=fc, B=BW, S=s,
+            nch=3, kept=kept, categorical_leaves=int(is_cat.sum()),
+            max_abs_err=err,
+            ms=time_ms(lambda: hk.hist_routed_fused(*args, bins=rowmajor_c,
+                                                    catbits=bits)),
+            device_ms=device_ms(lambda: hk.hist_routed_fused(
+                *args, bins=rowmajor_c, catbits=bits)),
+            plain_ms=time_ms(lambda: hk.hist_routed_fused_plain(
+                *args, catbits=bits), reps=3),
+            # the same level read numerically: no is_cat row, no bitset
+            numerical_tables_ms=time_ms(lambda: hk.hist_routed_fused(
+                *args[:5], tab[:6].contiguous(), *args[6:], bins=rowmajor_c)),
+            bound_ms=bms, bound_by=by))
+        if s == 1:
+            continue
+        rargs = (bins_c, lid, tab, na_c, s)
+        tag = f"route_level[categorical S{s}, F={fc}, B={BW}]"
+        ks, kl, kc = hk.route_level(*rargs, catbits=bits)
+        ps_, pl_, pc_ = hk.route_plain(*rargs, catbits=bits)
+        err = max(exact(f"{tag}.slot", ks, ps_), exact(f"{tag}.lid2", kl, pl_),
+                  exact(f"{tag}.counts", kc, pc_))
+        del ks, kl, kc, ps_, pl_, pc_
+        bms, by = bound(12 * N + routed + 4 * s + (7 + words) * L * 4
+                        + fc * 4, 8 * N)
+        cat_b6.append(dict(
+            variant=f"categorical_S{s}", categorical=True, F=fc, B=BW, S=s,
+            routed=routed, categorical_leaves=int(is_cat.sum()),
+            max_abs_err=err,
+            ms=time_ms(lambda: hk.route_level(*rargs, catbits=bits)),
+            device_ms=device_ms(lambda: hk.route_level(*rargs, catbits=bits)),
+            plain_ms=time_ms(lambda: hk.route_plain(*rargs, catbits=bits),
+                             reps=3),
+            numerical_tables_ms=time_ms(lambda: hk.route_level(
+                bins_c, lid, tab[:6].contiguous(), na_c, s)),
+            bound_ms=bms, bound_by=by))
+    for nm, extra in (("hist_routed_fused", cat_b2), ("route_level", cat_b6)):
+        kernels[nm]["variants"] += extra
+        kernels[nm]["max_abs_err"] = max(v["max_abs_err"]
+                                         for v in kernels[nm]["variants"])
+    print(f"hist_routed_fused with categorical membership: exact; {cat_b2}")
+    print(f"route_level with categorical membership: exact; {cat_b6}")
+    del bins_c, rowmajor_c, chans_c, lid, tab, member, bits
 
     # B5 hist_q8 and B8 hist_f32 over shared slot vectors at B = 256: the
     # root (S = 1, no slot vector), the slots route_level gave at S = 32
@@ -1600,14 +1804,149 @@ def main() -> int:
               f"the raw-feature walk, sums on the host); leaf values finite; "
               f"AUC on those rows {auc:.6f}")
 
+    def categorical_path() -> None:
+        """(k) "categorical": the airline data (synth_airline, 10M rows,
+        six categorical columns of eight) at max_bin=255, binary with a
+        100,000-row valid set of another seed (unseen categories and NaN)
+        for 5 iterations on the fused front, with categorical membership
+        in B2; (k') the same Dataset unquantized for 3 (B8 and B6, with
+        membership in B6). For information: the AUC of the same 5
+        iterations with the six columns numerical."""
+        from lightgbm_tpu_torch.models.gbdt import padded_bins
+        from lightgbm_tpu_torch.ops.histogram import ACC_ROWS_MAX
+        t0 = time.perf_counter()
+        Xa, ya, lat = synth_airline(N_AIR, seed=0, latent=True)
+        Xav, yav = airline_valid(N_AIR_VALID)
+        print(f"[categorical] data: {time.perf_counter() - t0:.3f} s "
+              f"({N_AIR} x {Xa.shape[1]}, positive share {ya.mean():.4f})")
+        params = {"objective": "binary", "num_leaves": L, "max_bin": 255,
+                  "learning_rate": 0.1, "min_data_in_leaf": 20,
+                  "verbosity": -1, "metric": "auc"}
+        sets = {}
+        for kind, cats in (("categorical", AIRLINE_CATS), ("numerical", [])):
+            t0 = time.perf_counter()
+            ds = lt.Dataset(Xa, label=ya, categorical_feature=cats,
+                            params={"max_bin": 255, "verbosity": -1})
+            ds.construct()
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            valid = lt.Dataset(Xav, label=yav, reference=ds)
+            valid.construct()
+            slice_ms[f"airline_{kind}_construct_s"] = sec
+            print(f"[categorical] {kind} Dataset construct: {sec:.3f} s "
+                  f"(max bins {ds.max_num_bins}, categorical columns "
+                  f"{sum(m.bin_type == 1 for m in ds.mappers)})")
+            sets[kind] = (ds, valid)
+        ds, valid = sets["categorical"]
+        # the reference's fused-front gate (models/gbdt.py _fused_front):
+        # one model an iteration of a fused objective on the quantized
+        # depthwise grower with an F * B root histogram of at most 2048
+        # cells; categorical features do not enter it
+        fb = ds.num_features * padded_bins(ds.max_num_bins)
+        print(f"[categorical] F * B = {fb}: "
+              f"{'fused' if fb <= ACC_ROWS_MAX else 'unfused'} front")
+        if fb > ACC_ROWS_MAX:
+            fail(f"[categorical]: F * B = {fb} > {ACC_ROWS_MAX}")
+
+        tag = "[categorical, max_bin=255]"
+        hk.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        evals = {}
+        t0 = time.perf_counter()
+        bst = lt.train(params, ds, num_boost_round=5, valid_sets=[valid],
+                       evals_result=evals, verbose_eval=False)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        print(f"{tag} train: {sec:.3f} s for 5 iterations ({sec / 5:.3f} "
+              f"s/iter), level passes a tree {bst._gbdt.hist_passes}; peak "
+              f"device memory {torch.cuda.max_memory_allocated()} bytes")
+        count_launches(tag, "fused", [bst], 1)
+        if bst._gbdt.gp.fused_obj is None:
+            fail(f"{tag}: the booster did not take the fused front")
+        auc_v = evals["valid_0"]["auc"]
+        print(f"{tag} valid AUC by iteration: {auc_v}")
+        if not auc_v[-1] > 0.7:
+            fail(f"{tag}: valid AUC {auc_v[-1]} <= 0.7")
+        trees = bst._host_trees()
+        n_cat = [int(t.is_cat_node.sum()) for t in trees]
+        print(f"{tag} categorical nodes a tree: {n_cat} of "
+              f"{[t.num_leaves - 1 for t in trees]}")
+        if not n_cat[0]:
+            fail(f"{tag}: no categorical node in the first tree")
+        fname = os.path.join(OUT_DIR, "chip_smoke_model_categorical.txt")
+        bst.save_model(fname)
+        loaded = lt.Booster(model_file=fname)
+
+        def cat_lines(text):
+            return [ln for ln in text.splitlines()
+                    if ln.startswith(("cat_threshold=", "cat_boundaries="))]
+        if not cat_lines(bst.model_to_string()) or cat_lines(
+                loaded.model_to_string()) != cat_lines(bst.model_to_string()):
+            fail(f"{tag}: the loaded model's cat_threshold differs")
+        if not np.array_equal(loaded.predict(Xav, raw_score=True),
+                              bst.predict(Xav, raw_score=True)):
+            fail(f"{tag}: saved and loaded model predict differently")
+        raw = bst.predict(Xa[:m], raw_score=True)
+        tscore = bst._gbdt.train_score[:m].cpu().numpy()
+        vscore = bst._gbdt.valid_scores[0].cpu().numpy()
+        tdiff = float(np.abs(raw - tscore).max())
+        vdiff = float(np.abs(bst.predict(Xav, raw_score=True)
+                             - vscore).max())
+        print(f"{tag} model text round trip: cat_threshold and predictions "
+              f"identical; raw-value predictions vs the train score on 1M "
+              f"rows: max diff {tdiff:.3e}, vs the valid score: {vdiff:.3e} "
+              f"(largest {np.abs(tscore).max():.3e})")
+        if max(tdiff, vdiff) > 1e-5 * max(1.0, np.abs(tscore).max()):
+            fail(f"{tag}: predictions from raw values disagree with the "
+                 "training scores")
+        print(f"{tag} one iteration by part: " + json.dumps(
+            iteration_parts(bst)))
+
+        tag = "[categorical unquantized, max_bin=255]"
+        hk.reset_launches()
+        t0 = time.perf_counter()
+        b32 = lt.train(dict(params, use_quantized_grad="false"), ds,
+                       num_boost_round=3)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        print(f"{tag} train: {sec:.3f} s for 3 iterations ({sec / 3:.3f} "
+              f"s/iter), level passes a tree {b32._gbdt.hist_passes}")
+        count_launches(tag, "f32", [b32], 0)
+        auc32 = float(metrics.auc(torch.as_tensor(yav),
+                                  torch.as_tensor(b32.predict(Xav))))
+        n_cat = [int(t.is_cat_node.sum()) for t in b32._host_trees()]
+        print(f"{tag} valid AUC {auc32:.6f}; categorical nodes a tree "
+              f"{n_cat}")
+        if not (auc32 > 0.7 and n_cat[0]):
+            fail(f"{tag}: valid AUC {auc32} or no categorical node")
+        print(f"{tag} one iteration by part: " + json.dumps(
+            iteration_parts(b32)))
+
+        tag = "[airline as numerical, max_bin=255]"
+        ds_n, valid_n = sets["numerical"]
+        hk.reset_launches()
+        ev_n = {}
+        bn = lt.train(params, ds_n, num_boost_round=5, valid_sets=[valid_n],
+                      evals_result=ev_n, verbose_eval=False)
+        count_launches(tag, "fused" if bn._gbdt.gp.fused_obj is not None
+                       else "unfused", [bn], 1)
+        print(f"{tag} (information) valid AUC by iteration: "
+              f"{ev_n['valid_0']['auc']}, against {auc_v} with the six "
+              "columns categorical")
+        print(f"{tag} one iteration by part: " + json.dumps(
+            iteration_parts(bn)))
+        airline_small.update(X=Xa[:4000], latent=lat[:4000])
+
+    airline_small = {}
     multiclass_path()
     weighted_path()
     ranking_path()
     boosters_path()
     del datasets, Xv, yv, yv_reg
+    categorical_path()
     for nm in kernels:
         kernels[nm]["launches"] = launches_all[nm]
-    print(f"elapsed after paths (g)-(j): "
+    print(f"elapsed after paths (g)-(k): "
           f"{time.perf_counter() - t_start:.1f} s")
 
     # ---- 5. card vs plain versions on a small input ----
@@ -1871,6 +2210,54 @@ def main() -> int:
                              r_cpu._host_trees())
     print(f"[refit] card vs CPU (4000 rows, 2 trees): max leaf-value diff "
           f"{diff:.3e} (largest leaf {scale:.3e})")
+
+    # (k), card vs CPU on 4000 airline rows with its six categorical
+    # columns: an L2 model on exact-sum labels (the latent score on a 1/8
+    # grid, no init score) on the fused quantized path (F * B = 2048), the
+    # unquantized depthwise grower and lossguide; the first tree's
+    # structure and categories equal, leaf values within 1e-6 of the
+    # largest (quantized) or bit for bit
+    xa4 = airline_small["X"]
+    ya8 = np.clip(np.floor(airline_small["latent"] * 8) / 8, -4.0,
+                  3.875).astype(np.float32)
+    for name_, extra, own in (
+            ("categorical quantized", {}, FUSED),
+            ("categorical f32", {"use_quantized_grad": "false"},
+             ("hist_f32", "route_level")),
+            ("categorical lossguide", {"grow_policy": "lossguide"},
+             ("hist_f32",))):
+        small = {"objective": "regression", "num_leaves": 31,
+                 "max_bin": 255, "min_data_in_leaf": 20, "verbosity": -1,
+                 "boost_from_average": False, **extra}
+        runs = []
+        for kw in ({}, {"device_type": "cpu"}):
+            p_ = dict(small, **kw)
+            hk.reset_launches()
+            runs.append(lt.train(p_, lt.Dataset(
+                xa4, label=ya8, categorical_feature=AIRLINE_CATS,
+                params=p_), 1))
+            if not kw and min(hk.LAUNCHES[k_] for k_ in own) <= 0:
+                fail(f"{name_}: the 4000-row model did not take its path "
+                     f"({dict(hk.LAUNCHES)})")
+        gpu, cpu = runs
+        (a,), (b,) = gpu._host_trees(), cpu._host_trees()
+        for f_ in ("split_feature", "threshold_bin", "default_left",
+                   "left_child", "right_child", "is_cat_node"):
+            if not np.array_equal(getattr(a, f_), getattr(b, f_)):
+                fail(f"{name_}: card and CPU first trees differ in {f_}")
+        if not all(np.array_equal(x_, y_)
+                   for x_, y_ in zip(a.cat_sets, b.cat_sets)):
+            fail(f"{name_}: card and CPU first trees' categories differ")
+        if not b.is_cat_node.any():
+            fail(f"{name_}: no categorical node in the first tree")
+        diff = float(np.abs(a.leaf_value - b.leaf_value).max())
+        scale = float(np.abs(b.leaf_value).max())
+        if (diff > 1e-6 * scale if gpu._gbdt.gp.quant else diff != 0.0):
+            fail(f"{name_}: card and CPU leaf values differ by {diff}")
+        print(f"[{name_}] card vs CPU (4000 rows, first tree, {a.num_leaves}"
+              f" leaves, {int(a.is_cat_node.sum())} categorical nodes): "
+              f"structure and categories identical, max leaf-value diff "
+              f"{diff:.3e} (largest leaf {scale:.3e})")
 
     # the replica's uniforms: card and CPU bit for bit at N rows
     key = threefry.fold_in(threefry.prng_key(3), 1)

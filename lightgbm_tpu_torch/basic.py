@@ -1,7 +1,8 @@
 """Dataset and Booster.
 
-Port of the dense numeric construct of ``lightgbm_tpu/basic.py``
-``Dataset`` (:95), with labels, row weights, query groups and init scores,
+Port of the dense construct of ``lightgbm_tpu/basic.py`` ``Dataset``
+(:95), with numerical and categorical columns (``categorical_feature``,
+:168-182), labels, row weights, query groups and init scores,
 and of ``Booster`` (``update`` with a custom objective, ``predict``,
 ``save_model``, ``model_to_string``, loading from model text, ``refit``),
 K trees an iteration for the multiclass objectives, and the trainers of
@@ -22,7 +23,8 @@ from typing import Any, Callable, Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from .binning import bin_data, find_bin_mappers, used_features
+from .binning import (BIN_CATEGORICAL, bin_data, find_bin_mappers,
+                      used_features)
 from . import efb
 from .config import Config, boosting_kind, check_slice, params_to_config
 from .io import model_text
@@ -78,12 +80,10 @@ class Dataset:
                  categorical_feature: Union[str, List] = "auto",
                  params: Optional[Dict[str, Any]] = None,
                  free_raw_data: bool = True):
-        if categorical_feature not in ("auto", None, [], ()):
-            raise NotImplementedError("categorical features are not ported "
-                                      "yet (ROADMAP.md queue A12)")
         if type(data).__module__.split(".")[0] in ("scipy", "pandas"):
-            raise NotImplementedError("sparse and pandas input are not "
-                                      "ported yet (ROADMAP.md queue A12)")
+            raise NotImplementedError("sparse and pandas input (with pandas "
+                                      "categoricals) are not ported yet "
+                                      "(ROADMAP.md queue A12b)")
         self.params = dict(params or {})
         self.raw_data = data
         self.label_np = None if label is None else \
@@ -98,6 +98,7 @@ class Dataset:
         self.init_score: Optional[torch.Tensor] = None
         self.reference = reference
         self.feature_name = feature_name
+        self.categorical_feature = categorical_feature
         self.free_raw_data = free_raw_data
         self._constructed = False
         self.mappers = []
@@ -127,6 +128,37 @@ class Dataset:
     def max_num_bins(self) -> int:
         return max((m.num_bins for m in self.mappers), default=1)
 
+    @property
+    def has_categorical(self) -> bool:
+        return any(m.bin_type == BIN_CATEGORICAL for m in self.mappers)
+
+    def _resolve_categorical(self, conf: Config, ncols: int) -> List[int]:
+        """The categorical columns (reference: ``_resolve_categorical``,
+        basic.py:168-182): the ``categorical_feature`` argument, else the
+        ``categorical_feature`` parameter as LightGBM writes it
+        ("0,1,5", or "name:a,b"). Integers are column indices; strings
+        name columns through ``feature_name``, as in LightGBM (the
+        reference resolves names only against pandas columns, and pandas
+        input is not ported)."""
+        cf = self.categorical_feature
+        if cf in ("auto", None):
+            text = str(conf.categorical_feature).strip().strip("[]")
+            if not text:
+                return []
+            by_name = text.startswith("name:")
+            items = [t.strip() for t in text[5 if by_name else 0:].split(",")
+                     if t.strip()]
+            cf = items if by_name else [int(t) for t in items]
+        names = (list(self.feature_name)
+                 if isinstance(self.feature_name, (list, tuple)) else [])
+        out = []
+        for c in (cf if isinstance(cf, (list, tuple)) else [cf]):
+            if isinstance(c, (int, np.integer)) and not isinstance(c, bool):
+                out.append(int(c))
+            elif isinstance(c, str) and c in names:
+                out.append(names.index(c))
+        return sorted(set(j for j in out if 0 <= j < ncols))
+
     def construct(self) -> "Dataset":
         if self._constructed:
             return self
@@ -148,7 +180,8 @@ class Dataset:
                 use_missing=conf.use_missing,
                 zero_as_missing=conf.zero_as_missing,
                 seed=conf.data_random_seed,
-                max_bin_by_feature=conf.max_bin_by_feature)
+                max_bin_by_feature=conf.max_bin_by_feature,
+                categorical=self._resolve_categorical(conf, raw.shape[1]))
             used = used_features(mappers)
             self.mappers = [mappers[j] for j in used]
             self.feature_map = np.asarray(used, dtype=np.int32)
@@ -202,7 +235,7 @@ class Dataset:
                             conf.sparse_threshold):
             raise NotImplementedError(
                 "the reference would bundle these sparse features (EFB), "
-                "which is not ported yet (ROADMAP.md queue A12); pass "
+                "which is not ported yet (ROADMAP.md queue A12b); pass "
                 "enable_bundle=false to train them as separate columns")
 
     def feature_names(self) -> List[str]:

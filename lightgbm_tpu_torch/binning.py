@@ -1,12 +1,19 @@
-"""Feature discretization for dense numeric data.
+"""Feature discretization for dense data.
 
 Port of ``lightgbm_tpu/binning.py``: ``BinMapper`` (numerical mappers found
-from a row sample, with the reference's None / Zero / NaN missing modes),
-``find_bin_mappers`` (the ``RandomState`` row sample of :557) and
-``bin_data``. Bin finding is host numpy, exactly as in the reference; the
-bulk encode runs ``torch.searchsorted`` on the target device with the same
-f64 comparisons as the reference's ``values_to_bins``, so the uint8 bin
-matrix is the reference's byte for byte.
+from a row sample, with the reference's None / Zero / NaN missing modes;
+categorical mappers with count-ordered category bins, :323-370),
+``find_bin_mappers`` (the ``RandomState`` row sample of :557, with the
+``categorical`` columns of :543) and ``bin_data``. Bin finding is host
+numpy, exactly as in the reference; the bulk encode runs
+``torch.searchsorted`` on the target device with the same f64 comparisons
+as the reference's ``values_to_bins``, so the uint8 bin matrix is the
+reference's byte for byte. A categorical column is encoded by a lookup
+(the categories sorted, ``searchsorted``, then each one's count-order
+bin) where the reference compares every row with each category in turn;
+the bins are the same. A valid set binned with its reference's mappers
+is the reference's frozen re-binning (``rebin_frozen``, :755): unseen
+categories land in bin 0.
 """
 from __future__ import annotations
 
@@ -61,10 +68,14 @@ class BinMapper:
     @staticmethod
     def from_sample(values: np.ndarray, total_cnt: int, max_bin: int,
                     min_data_in_bin: int = 3, use_missing: bool = True,
-                    zero_as_missing: bool = False) -> "BinMapper":
-        """Numerical bins from the sampled raw values of one feature
+                    zero_as_missing: bool = False,
+                    bin_type: int = BIN_NUMERICAL) -> "BinMapper":
+        """Bins from the sampled raw values of one feature
         (``len(values) < total_cnt`` means the rest are implicit zeros)."""
         values = np.asarray(values, dtype=np.float64)
+        if bin_type == BIN_CATEGORICAL:
+            return BinMapper._categorical_from_sample(
+                values, total_cnt, max_bin, min_data_in_bin, use_missing)
         na_cnt = int(np.isnan(values).sum())
         vals = values[~np.isnan(values)]
         implicit_zeros = max(0, total_cnt - len(values))
@@ -98,17 +109,78 @@ class BinMapper:
             m.max_value = float(allv.max())
         return m
 
+    @staticmethod
+    def _categorical_from_sample(values: np.ndarray, total_cnt: int,
+                                 max_bin: int, min_data_in_bin: int,
+                                 use_missing: bool) -> "BinMapper":
+        """Categorical bins (reference: :323): NaN and negative values are
+        missing; the sample's implicit zeros count as category 0."""
+        na_mask = np.isnan(values) | (values < 0)
+        if np.any(values < 0):
+            warning("negative categorical value found; treated as missing")
+        cats = values[~na_mask].astype(np.int64)
+        implicit_zeros = max(0, total_cnt - len(values))
+        if implicit_zeros:
+            cats = np.concatenate([cats, np.zeros(implicit_zeros,
+                                                  dtype=np.int64)])
+        distinct, counts = np.unique(cats, return_counts=True)
+        return BinMapper._categorical_from_weighted(
+            distinct, counts.astype(np.int64), max_bin, min_data_in_bin,
+            use_missing)
+
+    @staticmethod
+    def _categorical_from_weighted(distinct: np.ndarray, counts: np.ndarray,
+                                   max_bin: int, min_data_in_bin: int,
+                                   use_missing: bool) -> "BinMapper":
+        """Bin 0 is other/missing; bins 1..keep hold the categories by
+        descending count, ties by ascending category (a stable sort of the
+        sorted distinct values). At most max_bin - 1 are kept, and the rare
+        tail (fewer than min_data_in_bin rows past 99% of the mass) is cut
+        into bin 0 (reference: :340)."""
+        distinct = np.asarray(distinct, dtype=np.int64)
+        counts = np.asarray(counts, dtype=np.int64)
+        n_distinct_all = len(distinct)
+        order = np.argsort(-counts, kind="stable")
+        distinct, counts = distinct[order], counts[order]
+        keep = min(len(distinct), max_bin - 1)
+        cum = np.cumsum(counts)
+        total = cum[-1] if len(cum) else 0
+        while (keep > 1 and counts[keep - 1] < min_data_in_bin
+               and cum[keep - 1] > 0.99 * total):
+            keep -= 1
+        m = BinMapper(num_bins=max(1, keep + 1), bin_type=BIN_CATEGORICAL,
+                      missing_type=MISSING_NAN if use_missing
+                      else MISSING_NONE,
+                      cat_values=distinct[:keep])
+        m.is_trivial = keep <= 1 and n_distinct_all <= 1
+        return m
+
+    def _category_lookup(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(the categories sorted, the bin of each): bin b holds
+        cat_values[b - 1]."""
+        order = np.argsort(self.cat_values, kind="stable")
+        return (np.asarray(self.cat_values, dtype=np.int64)[order],
+                (order + 1).astype(np.int64))
+
     def _numeric_bounds(self) -> Tuple[int, np.ndarray]:
         n_numeric = self.num_bins - (1 if self.missing_type == MISSING_NAN else 0)
         return n_numeric, np.asarray(self.upper_bounds[:n_numeric],
                                      dtype=np.float64)
 
     def values_to_bins(self, values: np.ndarray) -> np.ndarray:
-        """Vectorized value->bin (reference: BinMapper::ValueToBin)."""
-        if self.bin_type == BIN_CATEGORICAL:
-            raise NotImplementedError(
-                "categorical features are ROADMAP queue A12, not yet ported")
+        """Vectorized value->bin (reference: BinMapper::ValueToBin). A
+        categorical value is truncated to its integer category; NaN,
+        negative and unseen categories give bin 0."""
         values = np.asarray(values, dtype=np.float64)
+        if self.bin_type == BIN_CATEGORICAL:
+            cats, cat_bins = self._category_lookup()
+            ok = ~np.isnan(values) & (values >= 0) & (values < 2.0 ** 63)
+            iv = np.where(ok, values, -1.0).astype(np.int64)
+            if not len(cats):
+                return np.zeros(len(values), dtype=np.int32)
+            pos = np.minimum(np.searchsorted(cats, iv), len(cats) - 1)
+            hit = ok & (cats[pos] == iv)
+            return np.where(hit, cat_bins[pos], 0).astype(np.int32)
         n_numeric, bounds = self._numeric_bounds()
         na = np.isnan(values)
         v = np.where(na, 0.0, values)
@@ -122,6 +194,18 @@ class BinMapper:
 
     def values_to_bins_torch(self, v: torch.Tensor) -> torch.Tensor:
         """values_to_bins on a device f64 tensor -> int64 bins."""
+        if self.bin_type == BIN_CATEGORICAL:
+            cats_np, bins_np = self._category_lookup()
+            if not len(cats_np):
+                return torch.zeros(v.shape, dtype=torch.int64,
+                                   device=v.device)
+            cats = torch.as_tensor(cats_np, device=v.device)
+            cat_bins = torch.as_tensor(bins_np, device=v.device)
+            ok = ~torch.isnan(v) & (v >= 0) & (v < 2.0 ** 63)
+            iv = torch.where(ok, v, torch.full_like(v, -1.0)).to(torch.int64)
+            pos = torch.searchsorted(cats, iv).clamp(max=len(cats_np) - 1)
+            hit = ok & (cats[pos] == iv)
+            return torch.where(hit, cat_bins[pos], torch.zeros_like(pos))
         n_numeric, bounds_np = self._numeric_bounds()
         bounds = torch.as_tensor(bounds_np, dtype=torch.float64,
                                  device=v.device)
@@ -139,7 +223,11 @@ class BinMapper:
         return out
 
     def bin_to_value(self, b: int) -> float:
-        """Representative threshold value for bin b (its upper bound)."""
+        """Representative threshold value for bin b: its upper bound, or
+        for a categorical mapper its category (-1 for bin 0)."""
+        if self.bin_type == BIN_CATEGORICAL:
+            return (float(self.cat_values[b - 1])
+                    if 1 <= b <= len(self.cat_values) else -1.0)
         n_numeric, _ = self._numeric_bounds()
         return float(self.upper_bounds[min(b, n_numeric - 1)])
 
@@ -242,9 +330,11 @@ def check_max_bin_by_feature(max_bin_by_feature, num_features: int,
 def find_bin_mappers(data: np.ndarray, max_bin: int, min_data_in_bin: int = 3,
                      sample_cnt: int = 200000, use_missing: bool = True,
                      zero_as_missing: bool = False, seed: int = 1,
-                     max_bin_by_feature: Optional[Sequence[int]] = None
+                     max_bin_by_feature: Optional[Sequence[int]] = None,
+                     categorical: Optional[Sequence[int]] = None
                      ) -> List[BinMapper]:
-    """Per-feature mappers from a row sample of ``data`` [N, F]."""
+    """Per-feature mappers from a row sample of ``data`` [N, F]; the
+    columns ``categorical`` get categorical mappers."""
     n, f = data.shape
     rng = np.random.RandomState(seed)
     if n > sample_cnt:
@@ -252,10 +342,13 @@ def find_bin_mappers(data: np.ndarray, max_bin: int, min_data_in_bin: int = 3,
     else:
         sample = data
     per_feat = check_max_bin_by_feature(max_bin_by_feature, f, max_bin)
+    cats = set(categorical or ())
     return [BinMapper.from_sample(sample[:, j], len(sample), per_feat[j],
                                   min_data_in_bin=min_data_in_bin,
                                   use_missing=use_missing,
-                                  zero_as_missing=zero_as_missing)
+                                  zero_as_missing=zero_as_missing,
+                                  bin_type=BIN_CATEGORICAL if j in cats
+                                  else BIN_NUMERICAL)
             for j in range(f)]
 
 

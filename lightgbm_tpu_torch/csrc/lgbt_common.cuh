@@ -75,13 +75,19 @@ __device__ __forceinline__ void load_rows(const T* __restrict__ p,
 }
 
 // DataPartition::Split for one row: the (slot, new leaf id) of row r in leaf
-// lf through the [6, L] int32 route tables (feat, thr, dleft, new_leaf,
-// slot_left, slot_right). A bin equal to the feature's missing bin goes
-// right iff dleft == 0, any other bin iff bin > thr. Rows of a leaf that does
-// not split (feat outside [0, F)) or of no leaf keep their id and get the
-// dropped slot s.
+// lf through the route tables, int32 rows of L (feat, thr, dleft, new_leaf,
+// slot_left, slot_right, then is_cat when bits is not null). A numerical
+// split sends a bin equal to the feature's missing bin right iff dleft == 0,
+// any other bin iff bin > thr. A categorical split (bits not null and
+// is_cat[lf] set) sends a bin left iff its bit is set in the leaf's w words
+// of bits ([L, w], bit b of word b / 32; LightGBM's cat_threshold bitset,
+// tree.h FindInBitset), and every other bin right, the missing bin
+// included. Rows of a leaf that does not split (feat outside [0, F)) or of
+// no leaf keep their id and get the dropped slot s. A level without a
+// categorical split passes a null bits and never reads an is_cat row.
 __device__ __forceinline__ void route_row(const uint8_t* __restrict__ bins_T,
-                                          const int* tab,
+                                          const int* tab, const uint32_t* bits,
+                                          int w,
                                           const int* __restrict__ na_bin,
                                           int n, int f, int l, int s, int r,
                                           int lf, int& slot, int& new_leaf) {
@@ -91,8 +97,15 @@ __device__ __forceinline__ void route_row(const uint8_t* __restrict__ bins_T,
   const int ft = tab[lf];
   if (ft < 0 || ft >= f) return;
   const int colv = bins_T[static_cast<size_t>(ft) * n + r];
-  const bool right = colv == __ldg(na_bin + ft) ? tab[2 * l + lf] == 0
-                                                : colv > tab[l + lf];
+  bool right;
+  if (bits && tab[6 * l + lf]) {
+    const int word = colv >> 5;
+    right = word >= w ||
+            !((bits[static_cast<size_t>(lf) * w + word] >> (colv & 31)) & 1u);
+  } else {
+    right = colv == __ldg(na_bin + ft) ? tab[2 * l + lf] == 0
+                                       : colv > tab[l + lf];
+  }
   if (right) new_leaf = tab[3 * l + lf];
   slot = right ? tab[5 * l + lf] : tab[4 * l + lf];
 }

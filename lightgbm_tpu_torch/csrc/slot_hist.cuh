@@ -4,11 +4,11 @@
 // feature, bin) into the channel-major [S, nch, F, B] table (zero on
 // entry). Rows whose slot lies outside [0, S), negative ones included, are
 // dropped; a null slot vector puts every row in slot 0. Also the level
-// routing with its per-slot counts (route_count), shared by B2 and B6
-// route_level.cu, whose counts B5 and B8 then take in place of their own
-// count pass. Each source wraps these device functions in __global__
-// kernels of its own names, so that a profile attributes every launch to
-// its kernel.
+// routing (numerical and categorical splits) with its per-slot counts
+// (route_count), shared by B2 and B6 route_level.cu, whose counts B5 and
+// B8 then take in place of their own count pass. Each source wraps these
+// device functions in __global__ kernels of its own names, so that a
+// profile attributes every launch to its kernel.
 //
 // Design: group the kept rows by slot, then histogram each group with its
 // slot's whole [nch, F, B] table in one block's shared memory, so that each
@@ -234,36 +234,48 @@ __device__ __forceinline__ void slot_count(const int* __restrict__ slot,
 }
 
 // Dynamic shared memory of route_count: the [S] counts when S <=
-// kCountSlots, then the [6, L] tables when both fit the budget (tab_smem
-// set; larger tables are read from global memory).
-inline size_t route_count_smem(int s, int l, int& tab_smem) {
+// kCountSlots, then the route tables when they fit the budget beside them
+// (tab_smem set; larger tables are read from global memory): six [L] int32
+// rows, or with a bitset (w > 0) seven rows and the [L, w] bitset words
+// (15.3 KB at L = 255, B = 256).
+inline size_t route_count_smem(int s, int l, int w, int& tab_smem) {
   const size_t count_smem = s <= kCountSlots ? s * sizeof(int) : 0;
-  const size_t tab_bytes = static_cast<size_t>(6) * l * sizeof(int);
+  const size_t tab_bytes =
+      static_cast<size_t>(w > 0 ? 7 + w : 6) * l * sizeof(int);
   tab_smem = count_smem + tab_bytes <= kSmemBudget ? 1 : 0;
   return count_smem + (tab_smem ? tab_bytes : 0);
 }
 
-// route + count, one row a thread: each block
-// copies the [6, L] int32 route tables (feat, thr, dleft, new_leaf,
-// slot_left, slot_right) into shared memory (6 KB at L = 255), routes its
-// warps' rows through lgbt::route_row (a warp-uniform stride, so that the
-// count's warp votes see every lane), writes each row's slot and new leaf
-// id, and (with counting) adds the kept rows of each slot into counts [S]
-// (zero on entry).
+// route + count, one row a thread: each block copies the route tables
+// (feat, thr, dleft, new_leaf, slot_left, slot_right, and with a bitset
+// is_cat and the [L, w] membership words) into shared memory (6 KB at
+// L = 255 for a numerical level), routes its warps' rows through
+// lgbt::route_row (a warp-uniform stride, so that the count's warp votes
+// see every lane), writes each row's slot and new leaf id, and (with
+// counting) adds the kept rows of each slot into counts [S] (zero on
+// entry). bits_g is null on a level without a categorical split.
 __device__ __forceinline__ void route_count(
     const uint8_t* __restrict__ bins_T, const int* __restrict__ lid,
-    const int* __restrict__ tab_g, const int* __restrict__ na_bin, int n,
-    int f, int l, int s, int tab_smem, bool counting, int* __restrict__ slot,
+    const int* __restrict__ tab_g, const uint32_t* __restrict__ bits_g,
+    int w, const int* __restrict__ na_bin, int n, int f, int l, int s,
+    int tab_smem, bool counting, int* __restrict__ slot,
     int* __restrict__ lid2, int* __restrict__ counts) {
   extern __shared__ int route_count_sh[];
   const bool local = counting && s <= kCountSlots;
   const int* tab = tab_g;
+  const uint32_t* bits = bits_g;
   if (local)
     for (int k = threadIdx.x; k < s; k += blockDim.x) route_count_sh[k] = 0;
   if (tab_smem) {
     int* tsh = route_count_sh + (s <= kCountSlots ? s : 0);
-    for (int k = threadIdx.x; k < 6 * l; k += blockDim.x) tsh[k] = tab_g[k];
+    const int rows = bits_g ? 7 : 6;
+    for (int k = threadIdx.x; k < rows * l; k += blockDim.x) tsh[k] = tab_g[k];
     tab = tsh;
+    if (bits_g) {
+      uint32_t* bsh = reinterpret_cast<uint32_t*>(tsh + rows * l);
+      for (int k = threadIdx.x; k < l * w; k += blockDim.x) bsh[k] = bits_g[k];
+      bits = bsh;
+    }
   }
   __syncthreads();
   int* dst = local ? route_count_sh : counts;
@@ -275,7 +287,7 @@ __device__ __forceinline__ void route_count(
     const int r = static_cast<int>(base) + lane;
     int sl = -1, nl;
     if (r < n) {
-      route_row(bins_T, tab, na_bin, n, f, l, s, r, lid[r], sl, nl);
+      route_row(bins_T, tab, bits, w, na_bin, n, f, l, s, r, lid[r], sl, nl);
       slot[r] = sl;
       lid2[r] = nl;
     }
@@ -299,21 +311,22 @@ __device__ __forceinline__ void route_count(
 }
 
 // Launch a __global__ wrapper of route_count on pass_blocks blocks of
-// kRouteThreads. Returns the launch error.
+// kRouteThreads; bits null (w 0) on a level without a categorical split.
+// Returns the launch error.
 template <typename Kernel>
 inline int route_count_launch(Kernel kernel, const uint8_t* bins_T,
                               const int* lid, const int* tab,
-                              const int* na_bin, int n, int f, int l, int s,
-                              bool counting, int* slot, int* lid2,
-                              int* counts, int pass_blocks,
-                              cudaStream_t stream) {
+                              const uint32_t* bits, int w, const int* na_bin,
+                              int n, int f, int l, int s, bool counting,
+                              int* slot, int* lid2, int* counts,
+                              int pass_blocks, cudaStream_t stream) {
   int tab_smem = 0;
-  const size_t smem = route_count_smem(s, l, tab_smem);
+  const size_t smem = route_count_smem(s, l, bits ? w : 0, tab_smem);
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<pass_blocks, kRouteThreads, smem, stream>>>(
-      bins_T, lid, tab, na_bin, n, f, l, s, tab_smem, counting, slot, lid2,
-      counts);
+      bins_T, lid, tab, bits, bits ? w : 0, na_bin, n, f, l, s, tab_smem,
+      counting, slot, lid2, counts);
   return static_cast<int>(cudaGetLastError());
 }
 

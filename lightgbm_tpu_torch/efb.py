@@ -1,19 +1,20 @@
 """Whether the reference would bundle a dataset's features (EFB).
 
-The port has no Exclusive Feature Bundling yet (ROADMAP.md queue A12). The
-reference plans bundles at construct time (``lightgbm_tpu/efb.py``
+The port has no Exclusive Feature Bundling yet (ROADMAP.md queue A12b).
+The reference plans bundles at construct time (``lightgbm_tpu/efb.py``
 ``plan_bundles``, called from ``basic.py`` with a 50,000-row sample drawn
 by ``RandomState(data_random_seed)``); when that plan bundles anything, its
 model is grown on bundle columns and the port's would differ. This module
-replays the plan's decision — candidate sparse features, pairwise conflict
-counts, the greedy first-fit — so the port can refuse exactly the datasets
-the reference would bundle and train every other one.
+replays the plan's decision — candidate sparse features (never a
+categorical one), pairwise conflict counts, the greedy first-fit — so the
+port can refuse exactly the datasets the reference would bundle and train
+every other one.
 """
 from typing import List, Sequence
 
 import numpy as np
 
-from .binning import MISSING_NONE, BinMapper
+from .binning import BIN_CATEGORICAL, MISSING_NONE, BinMapper
 
 PLAN_SAMPLE = 50_000       # the reference's EFB plan sample (basic.py:506)
 MAX_BUNDLE_BINS = 256
@@ -37,7 +38,9 @@ def would_bundle(sample_bins: np.ndarray, mappers: Sequence[BinMapper],
     cand = []
     default_bin = np.zeros(f, dtype=np.int64)
     for j, m in enumerate(mappers):
-        if m.missing_type != MISSING_NONE or m.num_bins < 2:
+        # categorical features are never bundled (reference: efb.py:112)
+        if (m.bin_type == BIN_CATEGORICAL or m.missing_type != MISSING_NONE
+                or m.num_bins < 2):
             continue
         counts = np.bincount(sample_bins[:, j], minlength=m.num_bins)
         db = int(counts.argmax())

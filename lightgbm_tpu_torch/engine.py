@@ -41,13 +41,18 @@ def train(params: Dict[str, Any], train_set: Dataset,
           fobj: Optional[Callable] = None,
           feval: Optional[Callable] = None,
           init_model: Optional[Union[str, Booster]] = None,
-          evals_result: Optional[Dict] = None,
+          feature_name: Union[str, List[str]] = "auto",
+          categorical_feature: Union[str, List] = "auto",
           early_stopping_rounds: Optional[int] = None,
+          evals_result: Optional[Dict] = None,
           verbose_eval: Union[bool, int] = True,
           keep_training_booster: bool = False,
           callbacks: Optional[List[Callable]] = None) -> Booster:
-    """Train a booster (reference: engine.py:35). ``keep_training_booster``
-    is accepted for the reference's signature: the returned Booster can
+    """Train a booster (reference: engine.py:35), with the reference's
+    parameters in its order but ``resume_from_snapshot`` (ROADMAP.md queue
+    A16). ``feature_name`` and ``categorical_feature`` other than "auto"
+    are set on the train set (:76-79). ``keep_training_booster`` is
+    accepted for the reference's signature: the returned Booster can
     always go on training."""
     params = dict(params or {})
     conf = params_to_config(params)
@@ -59,6 +64,10 @@ def train(params: Dict[str, Any], train_set: Dataset,
         params = {k: v for k, v in params.items()
                   if canonical_name(str(k)) != "objective"}
         params["objective"] = "none"
+    if feature_name != "auto":
+        train_set.feature_name = feature_name
+    if categorical_feature != "auto":
+        train_set.categorical_feature = categorical_feature
     booster = Booster(params=params, train_set=train_set)
     if init_model is not None:
         init = (Booster(model_file=init_model)

@@ -37,6 +37,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..binning import BIN_CATEGORICAL
 from ..config import Config
 from ..log import LightGBMError, warning
 from ..utils import threefry
@@ -75,7 +76,8 @@ def tree_delta(tree: TreeArrays, data) -> torch.Tensor:
     """A device tree's leaf value for each row of a Dataset's bins
     (route_bins, then the take_small kernel)."""
     return take_small(tree.leaf_value,
-                      route_bins(tree, data.bins, data.na_bin_dev))
+                      route_bins(tree, data.bins, data.na_bin_dev,
+                                 data.has_categorical))
 
 
 def _f32(x: float) -> float:
@@ -132,7 +134,16 @@ class GBDT:
                 min_gain_to_split=config.min_gain_to_split,
                 min_data_in_leaf=config.min_data_in_leaf,
                 min_sum_hessian_in_leaf=config.min_sum_hessian_in_leaf,
-                max_delta_step=config.max_delta_step),
+                max_delta_step=config.max_delta_step,
+                # the used columns with categorical mappers (gbdt.py:111-122;
+                # the port bundles no features)
+                cat_features=tuple(
+                    i for i, m in enumerate(train_set.mappers)
+                    if m.bin_type == BIN_CATEGORICAL),
+                cat_l2=config.cat_l2, cat_smooth=config.cat_smooth,
+                max_cat_threshold=config.max_cat_threshold,
+                max_cat_to_onehot=config.max_cat_to_onehot,
+                min_data_per_group=config.min_data_per_group),
             quant=quant,
             # constant-hessian elision is a property of the quantized
             # channels of the objective's own gradients (gbdt.py:737-744)

@@ -47,15 +47,15 @@ _SIGNATURES: Dict[str, List] = {
     "lgbt_grad_quant_hist0": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _F,
                               _I, _U, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                               _P],
-    "lgbt_hist_routed_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                               _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _I,
-                               _P, _P, _P],
+    "lgbt_hist_routed_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I,
+                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                               _P, _I, _P, _P, _P],
     "lgbt_leaf_sums_grad": [_P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _F, _I,
                             _I, _P, _P, _P],
     "lgbt_take_small": [_P, _P, _I, _I, _P, _I, _P],
     "lgbt_hist_q8": _SLOT_HIST,
-    "lgbt_route_level": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I,
-                         _P],
+    "lgbt_route_level": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P,
+                         _I, _P],
     "lgbt_leaf_sums": [_P, _P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "lgbt_hist_f32": _SLOT_HIST,
 }

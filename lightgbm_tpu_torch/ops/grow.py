@@ -3,9 +3,9 @@ leaf-wise (lossguide) grower.
 
 Port of ``GrowParams`` (:32), ``TreeArrays`` (:129), ``_empty_tree``
 (:173) and the serial, unpooled path of ``grow_tree`` (:195) of
-``lightgbm_tpu/ops/grow.py``. Internal node ``i`` is created by split
-``i``; child pointers use the reference encoding: >= 0 an internal node,
-< 0 ``~leaf``.
+``lightgbm_tpu/ops/grow.py``, numerical and categorical splits. Internal
+node ``i`` is created by split ``i``; child pointers use the reference
+encoding: >= 0 an internal node, < 0 ``~leaf``.
 """
 from __future__ import annotations
 
@@ -57,10 +57,12 @@ class TreeArrays(NamedTuple):
     internal_value: torch.Tensor  # [L-1] f32
     internal_weight: torch.Tensor  # [L-1] f32
     internal_count: torch.Tensor  # [L-1] f32
+    is_cat: torch.Tensor          # [L-1] bool: categorical subset split
+    cat_mask: torch.Tensor        # [L-1, B] bool: bins routed left (is_cat)
     num_leaves: int
 
 
-def empty_tree(L: int, device: torch.device) -> TreeArrays:
+def empty_tree(L: int, B: int, device: torch.device) -> TreeArrays:
     m = max(L - 1, 1)
 
     def zi():
@@ -75,6 +77,8 @@ def empty_tree(L: int, device: torch.device) -> TreeArrays:
         left_child=zi(), right_child=zi(), split_gain=zf(m),
         leaf_value=zf(L), leaf_weight=zf(L), leaf_count=zf(L),
         internal_value=zf(m), internal_weight=zf(m), internal_count=zf(m),
+        is_cat=torch.zeros(m, dtype=torch.bool, device=device),
+        cat_mask=torch.zeros((m, B), dtype=torch.bool, device=device),
         num_leaves=1)
 
 
@@ -113,14 +117,15 @@ def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
 
     Each split step t takes the leaf with the best gain (the first on
     ties, as ``jnp.argmax``), partitions its rows with a vectorized
-    ``where`` on the leaf ids, builds the smaller child's histogram with
-    one ``hist_f32`` pass over a slot vector (the smaller child's rows in
-    slot 0, every other row dropped: the reference's masked full-width
-    pass) and the sibling's by subtraction from the parent, then searches
-    both children's best splits at once. Node t is created by step t and
-    its right child is leaf t + 1. The reference runs the L - 1 steps in
-    one ``lax.scan``; here the step loop runs on the host and reads the
-    chosen leaf and its "can split" flag once a step, the one host sync of
+    ``where`` on the leaf ids (by threshold, or by category membership),
+    builds the smaller child's histogram with one ``hist_f32`` pass over a
+    slot vector (the smaller child's rows in slot 0, every other row
+    dropped: the reference's masked full-width pass) and the sibling's by
+    subtraction from the parent, then searches both children's best
+    splits at once. Node t is created by step t and its right child is
+    leaf t + 1. The reference runs the L - 1 steps in one ``lax.scan``;
+    here the step loop runs on the host and reads the chosen leaf and its
+    "can split" flag once a step, the one host sync of
     a step."""
     f, n = bins_T.shape
     dev = bins_T.device
@@ -139,17 +144,20 @@ def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
         out[0] = x[0]
         return out
 
+    member0 = torch.zeros((L, B), dtype=torch.bool, device=dev)
+    member0[0] = best0.cat_member[0]
     best = SplitResult(
         gain=tile(best0.gain, NEG_INF), feature=tile(best0.feature, 0),
         bin=tile(best0.bin, 0), default_left=tile(best0.default_left, False),
         left_g=tile(best0.left_g, 0.0), left_h=tile(best0.left_h, 0.0),
-        left_cnt=tile(best0.left_cnt, 0.0))
+        left_cnt=tile(best0.left_cnt, 0.0),
+        is_cat=tile(best0.is_cat, False), cat_member=member0)
     hist = torch.zeros((L, 3, f, B), dtype=torch.float32, device=dev)
     hist[0] = hist0
     leaf_g, leaf_h, leaf_c = (torch.zeros(L, dtype=torch.float32, device=dev)
                               for _ in range(3))
     leaf_g[0], leaf_h[0], leaf_c[0] = g0, h0, c0
-    tree = empty_tree(L, dev)
+    tree = empty_tree(L, B, dev)
     leaf_id = torch.zeros(n, dtype=torch.int32, device=dev)
     # host-side bookkeeping: every entry follows from the chosen leaves
     depth = [0] * L
@@ -171,6 +179,11 @@ def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
         is_na = col == na_bin.index_select(0, feat.view(1))
         go_right = torch.where(is_na, ~best.default_left[l],
                                col > best.bin[l])
+        if sp.cat_features:
+            # a categorical split sends its member bins left (reference:
+            # grow.py:355-358)
+            go_right = torch.where(best.is_cat[l],
+                                   ~best.cat_member[l][col.long()], go_right)
         leaf_id = torch.where((leaf_id == l) & go_right, new_leaf, leaf_id)
 
         # ---- child stats ----
@@ -199,6 +212,8 @@ def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
         tree.threshold_bin[t] = best.bin[l]
         tree.default_left[t] = best.default_left[l]
         tree.split_gain[t] = best.gain[l]
+        tree.is_cat[t] = best.is_cat[l]
+        tree.cat_mask[t] = best.cat_member[l]
         # (pg, ph, pc are views of the leaf stats rewritten below)
         tree.internal_value[t] = leaf_output(pg, ph, sp)
         tree.internal_weight[t] = ph

@@ -15,7 +15,9 @@ quantized path: ``hist_q8`` once for the root, ``route_level`` and
 ``hist_q8`` once per such level, ``leaf_sums`` once; unquantized
 (``gp.quant`` off): ``hist_f32`` once for the root, ``route_level`` and
 ``hist_f32`` once per such level, and no leaf renewal (the leaf values
-are those of the split records, which the f32 histograms give).
+are those of the split records, which the f32 histograms give). A level
+with a categorical split hands the routing each leaf's membership bitset
+(one more host read of the level, only with categorical features).
 The reference builds the whole tree inside one jitted program with
 fixed-width masked scatters; here the level schedule is a Python loop that
 reads the level's split count to the host once per level, and the level
@@ -114,7 +116,7 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
     active[0] = True
     parent_node = torch.full((L,), -1, dtype=torch.int64, device=dev)
     parent_right = torch.zeros(L, dtype=torch.bool, device=dev)
-    tree = empty_tree(L, dev)
+    tree = empty_tree(L, B, dev)
     tree.leaf_value[0] = leaf_output(g0, h0, sp)
     tree.leaf_weight[0] = h0
     tree.leaf_count[0] = c0
@@ -175,6 +177,13 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
         tree.internal_value[nid] = w_p[si]
         tree.internal_weight[nid] = (lh + rh)[si]
         tree.internal_count[nid] = (lc + rc)[si]
+        cat_sel = None
+        if sp.cat_features:
+            tree.is_cat[nid] = res.is_cat[si]
+            tree.cat_mask[nid] = res.cat_member[si]
+            cat_sel = res.is_cat & sel
+            if not bool(cat_sel.any()):
+                cat_sel = None
 
         # ---- route + smaller-child histogram pass: one slot per selected
         # leaf (in leaf order); the larger child is the parent minus the
@@ -186,7 +195,12 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
             thr=res.bin, dleft=res.default_left.to(torch.int32),
             new_leaf=new_leaf,
             slot_left=torch.where(sel & small_is_left, idx_in_lvl, sentinel),
-            slot_right=torch.where(sel & ~small_is_left, idx_in_lvl, sentinel))
+            slot_right=torch.where(sel & ~small_is_left, idx_in_lvl, sentinel),
+            # a level with a categorical split routes by membership
+            # (reference: grow_depthwise.py:521-524); others pass no bitset
+            is_cat=cat_sel,
+            member=(None if cat_sel is None
+                    else res.cat_member & sel[:, None]))
         hist_pass, leaf_id = H.hist_routed(bins_T, leaf_id, tables, na_bin,
                                            num_sel, B, quant, rows, bins)
         passes += 1

@@ -12,7 +12,7 @@ hist_routed_fused     hist_routed_fused_q8 (:676), D = 1             hist_routed
 leaf_sums_grad        leaf_sums_grad_pallas (:1036)                  leaf_sums_grad.cu
 take_small            take_small_pallas (:1213)                      take_small.cu
 hist_q8               hist_pallas_q8 (:372)                          hist_q8.cu
-route_level           route_level_pallas (:1138), numerical          route_level.cu
+route_level           route_level_pallas (:1138)                     route_level.cu
 leaf_sums             leaf_sums_pallas (:718)                        leaf_sums.cu
 hist_f32              hist_pallas (:114), hist_leaf_pallas (:175)    hist_f32.cu
 ====================  =============================================  ====================
@@ -102,6 +102,24 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype,
 
 def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
+
+
+def _words(catbits: Optional[torch.Tensor]) -> int:
+    return 0 if catbits is None else int(catbits.shape[1])
+
+
+def _check_tables(bins_T: torch.Tensor, tables: torch.Tensor,
+                  catbits: Optional[torch.Tensor]) -> None:
+    """Route tables [6, L] i32, or [7, L] (the is_cat row) with a
+    categorical bitset catbits [L, W >= 1] i32 on their device."""
+    l = tables.shape[1] if tables.dim() == 2 else -1
+    if catbits is None:
+        _check(tables, "tables", torch.int32, (6, l))
+        return
+    _device_of(bins_T, tables, catbits)
+    _check(tables, "tables", torch.int32, (7, l))
+    w = catbits.shape[1] if catbits.dim() == 2 else 0
+    _check(catbits, "catbits", torch.int32, (l, max(w, 1)))
 
 
 def _stream(dev: torch.device) -> int:
@@ -259,12 +277,30 @@ def grad_quant_hist0_plain(bins_T, score, aux, bag, seed: int, spec,
     return gq, hq, cq, torch.stack([scale_g, scale_h]), hist
 
 
-def route_plain(bins_T, leaf_id, tables, na_bin, num_slots: int):
-    """Per-row (slot, new leaf id) through one level's [6, L] route tables
-    (rows: feat, thr, dleft, new_leaf, slot_left, slot_right), and the kept
-    rows of each slot (slot in [0, S)): (slot [N] i32, lid2 [N] i32, counts
-    [S] i32). Rows of leaves that do not split (feat < 0) or of no leaf keep
-    their id and get the dropped slot S."""
+def member_bitset(member: torch.Tensor) -> torch.Tensor:
+    """[L, B] bool membership (True: the bin goes left) -> the kernels'
+    [L, ceil(B / 32)] int32 bitset words, bit b of word b // 32 (LightGBM's
+    cat_threshold layout)."""
+    l, b = member.shape
+    w = max(1, -(-b // 32))
+    m = torch.zeros((l, w * 32), dtype=torch.int64, device=member.device)
+    m[:, :b] = member.to(torch.int64)
+    shift = torch.arange(32, device=member.device)
+    words = (m.view(l, w, 32) << shift).sum(dim=2)
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(
+        torch.int32).contiguous()
+
+
+def route_plain(bins_T, leaf_id, tables, na_bin, num_slots: int,
+                catbits=None):
+    """Per-row (slot, new leaf id) through one level's route tables (rows:
+    feat, thr, dleft, new_leaf, slot_left, slot_right, and with ``catbits``
+    is_cat), and the kept rows of each slot (slot in [0, S)): (slot [N]
+    i32, lid2 [N] i32, counts [S] i32). Rows of leaves that do not split
+    (feat < 0) or of no leaf keep their id and get the dropped slot S. A
+    leaf with is_cat set sends a row left iff its bin's bit is set in the
+    leaf's row of ``catbits`` [L, W] i32 (member_bitset), whatever the
+    missing bin."""
     f, n = bins_T.shape
     l = tables.shape[1]
     lid = leaf_id.to(torch.int64)
@@ -278,6 +314,11 @@ def route_plain(bins_T, leaf_id, tables, na_bin, num_slots: int):
     colv = bins_T[fs, rows].to(torch.int64)
     is_na = colv == na_bin.to(torch.int64)[fs]
     go_right = torch.where(is_na, tab[2][lc] == 0, colv > tab[1][lc])
+    if catbits is not None:
+        w = catbits.shape[1]
+        word = catbits.to(torch.int64)[lc, (colv >> 5).clamp(max=w - 1)]
+        member = ((colv >> 5) < w) & (((word >> (colv & 31)) & 1) == 1)
+        go_right = torch.where(tab[6][lc] != 0, ~member, go_right)
     lid2 = torch.where(has & go_right, tab[3][lc], lid).to(torch.int32)
     slot = torch.where(has, torch.where(go_right, tab[5][lc], tab[4][lc]),
                        torch.full_like(lc, num_slots))
@@ -287,9 +328,10 @@ def route_plain(bins_T, leaf_id, tables, na_bin, num_slots: int):
 
 
 def hist_routed_fused_plain(bins_T, gq, hq, cq, leaf_id, tables, na_bin,
-                            num_slots: int, num_bins: int):
+                            num_slots: int, num_bins: int, catbits=None):
     """Plain version of hist_routed_fused (same returns)."""
-    slot, lid2, _ = route_plain(bins_T, leaf_id, tables, na_bin, num_slots)
+    slot, lid2, _ = route_plain(bins_T, leaf_id, tables, na_bin, num_slots,
+                                catbits)
     return hist_q8_plain(bins_T, gq, hq, cq, slot, num_slots, num_bins), lid2
 
 
@@ -371,15 +413,17 @@ def hist_routed_fused(bins_T: torch.Tensor, gq: torch.Tensor,
                       hq: Optional[torch.Tensor], cq: torch.Tensor,
                       leaf_id: torch.Tensor, tables: torch.Tensor,
                       na_bin: torch.Tensor, num_slots: int, num_bins: int,
-                      bins: Optional[torch.Tensor] = None):
+                      bins: Optional[torch.Tensor] = None,
+                      catbits: Optional[torch.Tensor] = None):
     """Route each row through its leaf's split and build the slot histogram.
 
     tables [6, L] i32 rows (feat, thr, dleft, new_leaf, slot_left,
-    slot_right); na_bin [F] i32 (a value >= B means no missing bin). bins
-    [N, F] u8 is the row-major copy of bins_T (basic.Dataset.bins), needed
-    on the card (the kept rows' bins are copied from it). Returns (hist
-    [S, nch, F, B] i32, lid2 [N] i32); nch = 2 when hq is None
-    (const-hessian: channels g, count)."""
+    slot_right), or [7, L] with an is_cat row when ``catbits`` [L, W] i32
+    (member_bitset) gives the categorical leaves' left bins; na_bin [F] i32
+    (a value >= B means no missing bin). bins [N, F] u8 is the row-major
+    copy of bins_T (basic.Dataset.bins), needed on the card (the kept rows'
+    bins are copied from it). Returns (hist [S, nch, F, B] i32, lid2 [N]
+    i32); nch = 2 when hq is None (const-hessian: channels g, count)."""
     dev = _device_of(bins_T, gq, cq, leaf_id, tables, na_bin)
     f, n = bins_T.shape
     l = tables.shape[1]
@@ -390,7 +434,7 @@ def hist_routed_fused(bins_T: torch.Tensor, gq: torch.Tensor,
         _device_of(bins_T, hq)
         _check(hq, "hq", torch.int8, (n,))
     _check(leaf_id, "leaf_id", torch.int32, (n,))
-    _check(tables, "tables", torch.int32, (6, l))
+    _check_tables(bins_T, tables, catbits)
     _check(na_bin, "na_bin", torch.int32, (f,))
     if num_slots < 1:
         raise ValueError("hist_routed_fused: num_slots must be >= 1")
@@ -400,7 +444,7 @@ def hist_routed_fused(bins_T: torch.Tensor, gq: torch.Tensor,
     _check_bins("hist_routed_fused", bins_T, bins, True)
     if dev.type == "cpu":
         return hist_routed_fused_plain(bins_T, gq, hq, cq, leaf_id, tables,
-                                       na_bin, num_slots, num_bins)
+                                       na_bin, num_slots, num_bins, catbits)
     nch = 2 if hq is None else 3
     plan = slot_hist_plan(f, n, nch, num_bins, _num_sms(dev))
     hist = torch.zeros((num_slots, nch, f, num_bins), dtype=torch.int32,
@@ -410,9 +454,9 @@ def hist_routed_fused(bins_T: torch.Tensor, gq: torch.Tensor,
     idx, rec, rec_words = _slot_scratch(n, f, num_slots, 1, dev)
     rc = cuda_lib.load().lgbt_hist_routed_fused(
         bins_T.data_ptr(), bins.data_ptr(), gq.data_ptr(), _ptr(hq),
-        cq.data_ptr(), leaf_id.data_ptr(), tables.data_ptr(),
-        na_bin.data_ptr(), n, f, num_bins, l, num_slots, nch, plan.fg,
-        plan.blocks, plan.min_rows, plan.pass_blocks,
+        cq.data_ptr(), leaf_id.data_ptr(), tables.data_ptr(), _ptr(catbits),
+        _words(catbits), na_bin.data_ptr(), n, f, num_bins, l, num_slots,
+        nch, plan.fg, plan.blocks, plan.min_rows, plan.pass_blocks,
         slot.data_ptr(), idx.data_ptr(), rec.data_ptr(), rec_words,
         hist.data_ptr(), lid2.data_ptr(), _stream(dev))
     cuda_lib.check(rc, "hist_routed_fused")
@@ -736,36 +780,40 @@ def hist_q8(bins_T: torch.Tensor, gq: torch.Tensor, hq: Optional[torch.Tensor],
 
 
 def route_level(bins_T: torch.Tensor, leaf_id: torch.Tensor,
-                tables: torch.Tensor, na_bin: torch.Tensor, num_slots: int):
+                tables: torch.Tensor, na_bin: torch.Tensor, num_slots: int,
+                catbits: Optional[torch.Tensor] = None):
     """Each row's (slot, new leaf id) through its leaf's split, and the kept
     rows of each slot.
 
     tables [6, L] i32 rows (feat, thr, dleft, new_leaf, slot_left,
-    slot_right); na_bin [F] i32 (a value >= B means no missing bin). Rows
-    of leaves that do not split (feat < 0) or of no leaf keep their id and
-    get slot S. Returns (slot [N] i32, lid2 [N] i32, counts [S] i32: the
-    rows whose slot lies in [0, S), by slot), the counts for hist_q8 or
-    hist_f32 over this slot vector."""
+    slot_right), or [7, L] with an is_cat row when ``catbits`` [L, W] i32
+    (member_bitset) gives the categorical leaves' left bins; na_bin [F] i32
+    (a value >= B means no missing bin). Rows of leaves that do not split
+    (feat < 0) or of no leaf keep their id and get slot S. Returns (slot
+    [N] i32, lid2 [N] i32, counts [S] i32: the rows whose slot lies in
+    [0, S), by slot), the counts for hist_q8 or hist_f32 over this slot
+    vector."""
     dev = _device_of(bins_T, leaf_id, tables, na_bin)
     f, n = bins_T.shape
     l = tables.shape[1]
     _check(bins_T, "bins_T", torch.uint8, (f, n))
     _check(leaf_id, "leaf_id", torch.int32, (n,))
-    _check(tables, "tables", torch.int32, (6, l))
+    _check_tables(bins_T, tables, catbits)
     _check(na_bin, "na_bin", torch.int32, (f,))
     if num_slots < 1:
         raise ValueError("route_level: num_slots must be >= 1")
     if dev.type == "cpu":
-        return route_plain(bins_T, leaf_id, tables, na_bin, num_slots)
+        return route_plain(bins_T, leaf_id, tables, na_bin, num_slots,
+                           catbits)
     lib = cuda_lib.load()
     slot = torch.empty(n, dtype=torch.int32, device=dev)
     lid2 = torch.empty(n, dtype=torch.int32, device=dev)
     counts = torch.zeros(num_slots, dtype=torch.int32, device=dev)
     rc = lib.lgbt_route_level(
         bins_T.data_ptr(), leaf_id.data_ptr(), tables.data_ptr(),
-        na_bin.data_ptr(), n, f, l, num_slots, slot.data_ptr(),
-        lid2.data_ptr(), counts.data_ptr(), pass_blocks(n, _num_sms(dev)),
-        _stream(dev))
+        _ptr(catbits), _words(catbits), na_bin.data_ptr(), n, f, l,
+        num_slots, slot.data_ptr(), lid2.data_ptr(), counts.data_ptr(),
+        pass_blocks(n, _num_sms(dev)), _stream(dev))
     cuda_lib.check(rc, "route_level")
     LAUNCHES["route_level"] += 1
     return slot, lid2, counts

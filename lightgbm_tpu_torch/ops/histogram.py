@@ -8,9 +8,10 @@ gradient front ``grad_quant_hist0``, and the Pallas branches of
 ``hist_leaf`` (the root pass, from quantized channels or from f32 rows) and
 ``hist_routed`` (with quantized channels, the fused level pass when
 F * B <= 2048, else route then histogram; with f32 rows, route then
-histogram at every F * B). The kernels themselves live in
-``hist_kernels.py``; this module turns their sums into the channel-major
-f32 histograms ``[S, 3, F, B]`` of the reference contract.
+histogram at every F * B; numerical and categorical splits alike). The
+kernels themselves live in ``hist_kernels.py``; this module turns their
+sums into the channel-major f32 histograms ``[S, 3, F, B]`` of the
+reference contract.
 
 The packed g/h lattice is a lane economy of the TPU's matrix unit: unpacking
 returns exactly the int32 sums the separate channels give, so the port
@@ -31,23 +32,36 @@ _INV127 = float(torch.tensor(1.0 / 127.0, dtype=torch.float32))
 
 
 class RouteTables(NamedTuple):
-    """Per-leaf split routing tables for one depthwise level, all [L] i32.
+    """Per-leaf split routing tables for one depthwise level, all [L] i32
+    but ``member``.
 
     ``feat < 0`` means the leaf does not split this level; ``slot_left`` /
     ``slot_right`` name the histogram slot a row lands in (the out-of-range
-    sentinel for the larger child, rebuilt by subtraction)."""
+    sentinel for the larger child, rebuilt by subtraction). ``is_cat`` and
+    ``member`` [L, B] bool (the bins that go left) give the categorical
+    splits (reference: CategoricalDecision); None on a level without one."""
     feat: torch.Tensor
     thr: torch.Tensor
     dleft: torch.Tensor       # 1 if missing goes left
     new_leaf: torch.Tensor    # leaf id of the right child
     slot_left: torch.Tensor
     slot_right: torch.Tensor
+    is_cat: Optional[torch.Tensor] = None
+    member: Optional[torch.Tensor] = None
 
     def stacked(self) -> torch.Tensor:
-        """The kernel's [6, L] int32 table."""
-        return torch.stack([self.feat, self.thr, self.dleft, self.new_leaf,
-                            self.slot_left, self.slot_right]).to(
-                                torch.int32).contiguous()
+        """The kernel's int32 table: [6, L], or [7, L] with the is_cat row
+        on a level with a categorical split."""
+        rows = [self.feat, self.thr, self.dleft, self.new_leaf,
+                self.slot_left, self.slot_right]
+        if self.is_cat is not None:
+            rows.append(self.is_cat)
+        return torch.stack(rows).to(torch.int32).contiguous()
+
+    def bitset(self) -> Optional[torch.Tensor]:
+        """The kernel's [L, ceil(B / 32)] int32 membership words, or None
+        on a level without a categorical split."""
+        return None if self.member is None else K.member_bitset(self.member)
 
 
 class QuantChannels(NamedTuple):
@@ -157,18 +171,19 @@ def hist_routed(bins_T: torch.Tensor, leaf_id: torch.Tensor,
     ``route_level`` reads one bin a row and has no such limit, so every F
     takes it: the same function."""
     f = bins_T.shape[0]
+    tab, bits = tables.stacked(), tables.bitset()
     if quant is None:
-        slot, lid2, counts = K.route_level(bins_T, leaf_id, tables.stacked(),
-                                           na_bin, num_slots)
+        slot, lid2, counts = K.route_level(bins_T, leaf_id, tab, na_bin,
+                                           num_slots, bits)
         return (K.hist_f32(bins_T, *rows, slot, num_slots, num_bins, bins,
                            counts), lid2)
     if f * num_bins <= ACC_ROWS_MAX:
         acc, lid2 = K.hist_routed_fused(
-            bins_T, quant.gq, quant.hq, quant.cq, leaf_id, tables.stacked(),
-            na_bin, num_slots, num_bins, bins)
+            bins_T, quant.gq, quant.hq, quant.cq, leaf_id, tab, na_bin,
+            num_slots, num_bins, bins, bits)
     else:
-        slot, lid2, counts = K.route_level(bins_T, leaf_id, tables.stacked(),
-                                           na_bin, num_slots)
+        slot, lid2, counts = K.route_level(bins_T, leaf_id, tab, na_bin,
+                                           num_slots, bits)
         acc = K.hist_q8(bins_T, quant.gq, quant.hq, quant.cq, slot,
                         num_slots, num_bins, bins, counts)
     return dequant(acc, quant.hq is None, quant.scale_g, quant.scale_h), lid2

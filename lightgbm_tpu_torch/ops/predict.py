@@ -7,8 +7,8 @@ tree's real thresholds into a Dataset's bin space, and
 ``predict_raw`` / ``predict_leaf`` walk raw f64 feature rows through the
 host trees of a model (``Booster.predict``), with the reference's
 per-node missing handling (tree.h:240 NumericalDecision) and categorical
-bitsets for loaded models. Every row advances one level per step; the
-walk stops when all rows sit on a leaf. No kernel of the TPU package is
+bitsets (tree.h:279 CategoricalDecision). Every row advances one level
+per step; the walk stops when all rows sit on a leaf. No kernel of the TPU package is
 involved, so none is ported here.
 """
 from __future__ import annotations
@@ -24,8 +24,11 @@ from .grow import TreeArrays
 
 
 def route_bins(tree: TreeArrays, bins: torch.Tensor,
-               na_bin: torch.Tensor) -> torch.Tensor:
-    """Leaf index [N] i64 of each row of a binned matrix [N, F] u8."""
+               na_bin: torch.Tensor, categorical: bool = False
+               ) -> torch.Tensor:
+    """Leaf index [N] i64 of each row of a binned matrix [N, F] u8; with
+    ``categorical`` (data with a categorical feature), a categorical node
+    sends the bins of its cat_mask left."""
     n = bins.shape[0]
     if tree.num_leaves <= 1:
         return torch.zeros(n, dtype=torch.int64, device=bins.device)
@@ -41,6 +44,9 @@ def route_bins(tree: TreeArrays, bins: torch.Tensor,
         col = bins.gather(1, feat[:, None])[:, 0].to(torch.int64)
         go_left = torch.where(col == na[feat], tree.default_left[node],
                               col <= thr[node])
+        if categorical:
+            go_left = torch.where(tree.is_cat[node],
+                                  tree.cat_mask[node, col], go_left)
         nxt = torch.where(go_left, lc[node], rc[node])
         ptr = torch.where(ptr >= 0, nxt, ptr)
         if not bool((ptr >= 0).any()):
@@ -53,18 +59,25 @@ def bin_tree(t: Tree, mappers, feature_map, device: torch.device
     """A host tree as device TreeArrays on a Dataset's bins (reference:
     engine._predict_via_trees, :354-387): each node's real threshold mapped
     to its bin by the node feature's mapper (a feature the Dataset does not
-    use maps to used feature 0, as there), f32 leaf values."""
+    use maps to used feature 0, as there), a categorical node's categories
+    to the bins that hold them, f32 leaf values."""
     inv = ({int(orig): used for used, orig in enumerate(feature_map)}
            if feature_map is not None else None)
     n_int = max(t.num_leaves - 1, 1)
     sf = np.zeros(n_int, dtype=np.int32)
     tb = np.zeros(n_int, dtype=np.int32)
+    width = max((m.num_bins for m in mappers), default=1)
+    cat_mask = np.zeros((n_int, width), dtype=bool)
     for i in range(t.num_leaves - 1):
         orig = int(t.split_feature[i])
         used = inv.get(orig, 0) if inv is not None else orig
         sf[i] = used
-        tb[i] = int(mappers[used].values_to_bins(
-            np.array([t.threshold_real[i]]))[0])
+        m = mappers[used]
+        if t.is_cat_node[i]:
+            cat_mask[i, 1:m.num_bins] = np.isin(
+                m.cat_values[:m.num_bins - 1], t.cat_sets[i])
+            continue
+        tb[i] = int(m.values_to_bins(np.array([t.threshold_real[i]]))[0])
 
     def dev(a, dtype, size=n_int):
         out = np.zeros(size, dtype=dtype)
@@ -82,7 +95,8 @@ def bin_tree(t: Tree, mappers, feature_map, device: torch.device
         leaf_weight=dev([], np.float32, nl),
         leaf_count=dev([], np.float32, nl),
         internal_value=zf, internal_weight=zf, internal_count=zf,
-        num_leaves=nl)
+        is_cat=dev(t.is_cat_node, bool),
+        cat_mask=torch.as_tensor(cat_mask, device=device), num_leaves=nl)
 
 
 def _tree_tensors(t: Tree, device: torch.device):

@@ -1,20 +1,30 @@
-"""Vectorized best-split search over histograms (numerical features).
+"""Vectorized best-split search over histograms.
 
 Port of ``lightgbm_tpu/ops/split.py`` ``best_split`` (:218) for the slice's
 path: numerical features, both missing-direction planes, the L1/L2 terms,
 ``max_delta_step``, ``min_data_in_leaf``, ``min_sum_hessian_in_leaf``,
 ``min_gain_to_split`` and the lowest-index election inside the ``TIE_RTOL``
-gain band. The whole ``[L, 3, F, B]`` frontier is searched at once: prefix
-sums over the bin axis give the left-side stats of every threshold, and one
-masked election picks each leaf's (feature, bin, default_left).
+gain band; and categorical features (``SplitParams.cat_features``,
+:354-451): the one-hot scan at ``num_bins <= max_cat_to_onehot`` and the
+sorted k-subset scan in ascending and descending order of g / (h +
+cat_smooth), with ``cat_l2``, ``cat_smooth``, ``max_cat_threshold`` and
+``min_data_per_group``, decoded into ``SplitResult.is_cat`` and the
+``cat_member [L, B]`` bins that go left (:528-566). The whole
+``[L, 3, F, B]`` frontier is searched at once: prefix sums over the bin
+axis give the left-side stats of every threshold, and one masked election
+over the sections ``[num_r, num_l, onehot, asc, desc]`` picks each leaf's
+split, so the lowest flat index wins a tie as in the reference.
 
 Every f32 operation is the reference's, in its order; the bin-axis prefix
-sum uses the reference's summation order (``scan.blocked_cumsum``), so on
-the same histograms the split records agree bit for bit.
+sums use the reference's summation order (``scan.blocked_cumsum``), so on
+the same histograms the split records agree bit for bit. The reference
+ranks the categories with ``[L, Fc, B, B]`` compare and one-hot tensors;
+here a stable sort gives the same order (equal means by bin index,
+invalid bins last) and a gather the same sorted stats.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import NamedTuple
 
 import torch
@@ -37,10 +47,20 @@ class SplitParams:
     min_data_in_leaf: int = 20
     min_sum_hessian_in_leaf: float = 1e-3
     max_delta_step: float = 0.0
+    # the categorical features' indices (empty: numerical search only)
+    cat_features: tuple = ()
+    cat_l2: float = 10.0
+    cat_smooth: float = 10.0
+    max_cat_threshold: int = 32
+    max_cat_to_onehot: int = 4
+    min_data_per_group: int = 100
 
 
 class SplitResult(NamedTuple):
-    """Best split per leaf (reference analog: SplitInfo). All [L]."""
+    """Best split per leaf (reference analog: SplitInfo). All [L] but
+    cat_member [L, B]. A categorical split (is_cat) sends the bins of
+    cat_member left and every other bin right; its ``bin`` is the subset
+    size - 1, or the one-hot bin."""
     gain: torch.Tensor          # improvement; NEG_INF where no split
     feature: torch.Tensor       # i64
     bin: torch.Tensor           # i64 threshold bin (left if bin <= threshold)
@@ -48,6 +68,8 @@ class SplitResult(NamedTuple):
     left_g: torch.Tensor
     left_h: torch.Tensor
     left_cnt: torch.Tensor
+    is_cat: torch.Tensor        # bool
+    cat_member: torch.Tensor    # [L, B] bool (all False but on is_cat)
 
 
 def threshold_l1(s: torch.Tensor, l1: float) -> torch.Tensor:
@@ -111,16 +133,27 @@ def best_split(hist: torch.Tensor, num_bins: torch.Tensor,
     gain_l = gains_of(cum[:, 0] + na_stats[:, 0, :, None],         # missing -> left
                       cum[:, 1] + na_stats[:, 1, :, None],
                       cum[:, 2] + na_stats[:, 2, :, None])
+    fm_lf = feature_mask.view(-1, f).expand(L, f)
     valid_t = ((iota < num_bins.to(torch.int64)[None, :, None] - 1)
-               & ~na_sel & feature_mask.view(-1, f)[:, :, None])
+               & ~na_sel & fm_lf[:, :, None])
+    cat_idx = sorted(set(ci for ci in p.cat_features if 0 <= ci < f))
+    if cat_idx:
+        # the numerical planes skip categorical features
+        is_num = torch.ones(f, dtype=torch.bool, device=dev)
+        is_num[cat_idx] = False
+        valid_t = valid_t & is_num[None, :, None]
     has_na = na < b
     neg = torch.full_like(gain_r, NEG_INF)
     gain_r = torch.where(valid_t, gain_r, neg)
     gain_l = torch.where(valid_t & has_na, gain_l, neg)
     parent_gain = leaf_split_gain(parent_g, parent_h, p)          # [L]
 
-    gains = torch.cat([gain_r.reshape(L, f * b), gain_l.reshape(L, f * b)],
-                      dim=1)
+    sections = [gain_r.reshape(L, f * b), gain_l.reshape(L, f * b)]
+    cat = (_categorical_planes(hist, num_bins, fm_lf, pg, ph, pc, cat_idx,
+                               p) if cat_idx else None)
+    if cat is not None:
+        sections += [x.reshape(L, -1) for x in cat.gains]
+    gains = torch.cat(sections, dim=1)
     n_flat = gains.shape[1]
     best_raw = gains.max(dim=1).values
     tie_scale = torch.clamp(torch.maximum(best_raw.abs(), parent_gain.abs()),
@@ -140,11 +173,144 @@ def best_split(hist: torch.Tensor, num_bins: torch.Tensor,
         base = cum[lidx, chan, feat, tbin]
         return base + torch.where(d == 1, na_stats[lidx, chan, feat], zero)
 
+    left = [pick(0), pick(1), pick(2)]
+    is_cat = torch.zeros(L, dtype=torch.bool, device=dev)
+    member = torch.zeros((L, b), dtype=torch.bool, device=dev)
+    if cat is not None:
+        is_cat, feat, tbin, member, left = _decode_categorical(
+            cat, flat, 2 * f * b, lidx, feat, tbin, left)
+
     improvement = best_gain - parent_gain
     found = (allow_split & (best_gain > NEG_INF / 2)
              & (improvement > p.min_gain_to_split) & (improvement > 0.0))
     return SplitResult(
         gain=torch.where(found, improvement,
                          torch.full_like(improvement, NEG_INF)),
-        feature=feat, bin=tbin, default_left=d == 1,
-        left_g=pick(0), left_h=pick(1), left_cnt=pick(2))
+        feature=feat, bin=tbin, default_left=(d == 1) & ~is_cat,
+        left_g=left[0], left_h=left[1], left_cnt=left[2], is_cat=is_cat,
+        cat_member=member & is_cat[:, None])
+
+
+class _CatPlanes(NamedTuple):
+    """The categorical sections of one search and what decodes them."""
+    gains: tuple            # (onehot, asc, desc), each [L, Fc, B]
+    cat_idx: torch.Tensor   # [Fc] i64 feature of each categorical column
+    rank: torch.Tensor      # [L, Fc, B] i64 ascending rank; B + 1 invalid
+    used: torch.Tensor      # [L, Fc] i64 valid bins
+    onehot: tuple           # (g, h, count) [L, Fc, B] of each bin
+    asc: tuple              # (g, h, count) of the ascending prefixes
+    desc: tuple             # (g, h, count) of the descending prefixes
+
+
+def _categorical_planes(hist, num_bins, fm_lf, pg, ph, pc, cat_idx,
+                        p: SplitParams) -> _CatPlanes:
+    """The one-hot, ascending and descending subset gains of every
+    categorical feature (reference: split.py:354-451). Bin 0 (other /
+    missing) is never a member."""
+    L, _, f, b = hist.shape
+    dev = hist.device
+    ci = torch.as_tensor(cat_idx, dtype=torch.int64, device=dev)
+    hcat = hist[:, :, ci, :]                                     # [L,3,Fc,B]
+    gch, hch, cch = hcat[:, 0], hcat[:, 1], hcat[:, 2]
+    nb_c = num_bins.to(torch.int64)[ci][None, :, None]           # [1,Fc,1]
+    iota = torch.arange(b, device=dev)[None, None, :]
+    fm_c = fm_lf[:, ci][:, :, None]                              # [L,Fc,1]
+    in_range = (iota >= 1) & (iota < nb_c)
+    neg = torch.full_like(gch, NEG_INF)
+
+    # one-hot: one category left, lambda_l2 as is
+    oh_allowed = (nb_c <= p.max_cat_to_onehot) & fm_c & in_range
+    rg, rh, rc = pg - gch, ph - hch, pc - cch
+    ok = ((cch >= p.min_data_in_leaf) & (rc >= p.min_data_in_leaf)
+          & (hch >= p.min_sum_hessian_in_leaf)
+          & (rh >= p.min_sum_hessian_in_leaf))
+    gain_oh = leaf_split_gain(gch, hch, p) + leaf_split_gain(rg, rh, p)
+    gain_oh = torch.where(ok & oh_allowed, gain_oh, neg)
+
+    # k-subsets of the bins sorted by g / (h + cat_smooth); bins under
+    # cat_smooth rows are left out (mean +inf, sorted last, rank B + 1)
+    pc2 = replace(p, lambda_l2=p.lambda_l2 + p.cat_l2)
+    subset_allowed = (nb_c > p.max_cat_to_onehot) & fm_c
+    svalid = in_range & (cch >= p.cat_smooth)
+    inf = torch.full_like(gch, float("inf"))
+    mean = torch.where(svalid, gch / (hch + p.cat_smooth), inf)
+    # the reference's pairwise rank counts -0.0 and 0.0 equal, and gives a
+    # NaN mean (cat_smooth 0, an empty bin) rank 0 without counting it in
+    # any other bin's rank
+    key = torch.where(mean == 0, torch.zeros_like(mean), mean)
+    order = torch.sort(key, dim=-1, stable=True).indices
+    pos = torch.arange(b, device=dev).expand_as(order)
+    rank = torch.empty_like(order).scatter_(-1, order, pos)
+    rank = torch.where(torch.isnan(mean), torch.zeros_like(rank), rank)
+    rank = torch.where(svalid, rank, torch.full_like(rank, b + 1))
+    used = svalid.sum(dim=-1)                                    # [L, Fc]
+    first = pos < used[..., None]
+    zero = torch.zeros((), dtype=gch.dtype, device=dev)
+
+    def sort_prefix(x):
+        # the reference's one-hot contraction adds exact zeros to each
+        # sorted bin: -0.0 comes out +0.0
+        srt = torch.where(first, torch.gather(torch.where(svalid, x, zero),
+                                              -1, order), zero)
+        return blocked_cumsum(srt + 0.0)
+
+    asc = tuple(sort_prefix(x) for x in (gch, hch, cch))
+    kidx = pos
+
+    def desc_prefix(cum):
+        j = used[..., None] - kidx - 2
+        got = torch.gather(cum, -1, j.clamp(0, b - 1))
+        return cum[..., -1:] - torch.where(j >= 0, got, zero)
+
+    desc = tuple(desc_prefix(c) for c in asc)
+
+    def subset_gains(lg, lh, lc):
+        rg_, rh_, rc_ = pg - lg, ph - lh, pc - lc
+        max_num_cat = torch.clamp((used[..., None] + 1) // 2,
+                                  max=p.max_cat_threshold)
+        ok = ((kidx < torch.minimum(max_num_cat, used[..., None]))
+              & (lc >= p.min_data_in_leaf) & (rc_ >= p.min_data_in_leaf)
+              & (rc_ >= p.min_data_per_group)
+              & (lh >= p.min_sum_hessian_in_leaf)
+              & (rh_ >= p.min_sum_hessian_in_leaf) & subset_allowed)
+        gain = leaf_split_gain(lg, lh, pc2) + leaf_split_gain(rg_, rh_, pc2)
+        return torch.where(ok, gain, neg)
+
+    return _CatPlanes(
+        gains=(gain_oh, subset_gains(*asc), subset_gains(*desc)),
+        cat_idx=ci, rank=rank, used=used, onehot=(gch, hch, cch), asc=asc,
+        desc=desc)
+
+
+def _decode_categorical(cat: _CatPlanes, flat, n_num: int, lidx, feat, tbin,
+                        left):
+    """The winner of a categorical section: its feature, its bin (the
+    one-hot bin or the prefix length - 1), the bins that go left and its
+    left stats (reference: split.py:528-566)."""
+    L, fc, b = cat.rank.shape
+    n_cat = 3 * fc * b
+    cflat = torch.clamp(flat - n_num, min=0)
+    plane = torch.clamp(cflat // (fc * b), 0, 2)
+    crem = cflat % (fc * b)
+    cf = crem // b
+    ck = crem % b
+    is_cat = (flat >= n_num) & (flat < n_num + n_cat)
+    feat = torch.where(is_cat, cat.cat_idx[cf], feat)
+    tbin = torch.where(is_cat, ck, tbin)
+    rank_w = cat.rank[lidx, cf]                                  # [L, B]
+    used_w = cat.used[lidx, cf][:, None]
+    iota = torch.arange(b, device=flat.device)[None, :]
+    mem_oh = iota == ck[:, None]
+    mem_asc = rank_w <= ck[:, None]
+    mem_desc = (rank_w >= used_w - ck[:, None] - 1) & (rank_w <= b)
+    member = torch.where((plane == 0)[:, None], mem_oh,
+                         torch.where((plane == 1)[:, None], mem_asc,
+                                     mem_desc))
+    member = member & is_cat[:, None]
+    out = []
+    for ch in range(3):
+        v = torch.where(plane == 0, cat.onehot[ch][lidx, cf, ck],
+                        torch.where(plane == 1, cat.asc[ch][lidx, cf, ck],
+                                    cat.desc[ch][lidx, cf, ck]))
+        out.append(torch.where(is_cat, v, left[ch]))
+    return is_cat, feat, tbin, member, out

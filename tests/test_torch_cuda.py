@@ -51,6 +51,12 @@ first three trees have the CPU's structure (leaf values within 1e-6 of the
 largest) and it predicts [N, 3] probabilities; with row weights the first
 tree of every grower has the CPU's structure (unquantized: bit for bit on
 exact-sum data; quantized: leaf values within 1e-6 of the largest).
+Categorical features: hist_routed_fused and route_level with categorical
+leaves (an is_cat row and membership bitsets) equal their plain versions
+exactly, at F = 8, B = 256 and with tables too large for shared memory;
+the first tree of a categorical model on exact-sum labels trained on the
+card has the CPU tree's structure and categories (leaf values as with
+weights).
 """
 import os
 import subprocess
@@ -995,6 +1001,94 @@ def test_gpu_weighted_training_matches_cpu(dev, extra):
     assert a.num_leaves == b.num_leaves > 4
     for name in STRUCT:
         np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+    if runs[0]._gbdt.gp.quant:
+        np.testing.assert_allclose(a.leaf_value, b.leaf_value, rtol=0,
+                                   atol=1e-6 * np.abs(b.leaf_value).max())
+    else:
+        np.testing.assert_array_equal(a.leaf_value, b.leaf_value)
+
+
+def _cat_tables(dev, tab, l, b, seed):
+    """[7, L] tables (tab's six rows and an is_cat row: about half the
+    splitting leaves categorical) and the membership bitset of each leaf
+    ([L, ceil(B / 32)] words; random member bins, bin 0 and the top bin
+    among them on some leaves, none on others)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    is_cat = ((torch.rand(l, generator=g, device=dev) < 0.5)
+              & (tab[0] >= 0)).to(torch.int32)
+    share = torch.rand((l, 1), generator=g, device=dev)
+    member = torch.rand((l, b), generator=g, device=dev) < share
+    member[::7] = False
+    tab7 = torch.cat([tab, is_cat[None]]).contiguous()
+    return tab7, hk.member_bitset(member), is_cat
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,n,f,l,s,b", [
+    ("first_level", 200_000, 8, 255, 1, 256),
+    ("level", 200_000, 8, 255, 32, 256),
+    ("skewed", 200_000, 8, 255, 127, 256),
+    ("ragged", 1024 * 37 + 13, 5, 15, 7, 64),
+    ("tables_in_global", 200_000, 8, 10_000, 4000, 16)])
+def test_categorical_membership_kernels_equal_plain(dev, case, n, f, l, s, b):
+    # exact: hist_routed_fused (3 and 2 channels) and route_level route a
+    # categorical leaf's rows by its bitset, at F = 8, B = 256 (the
+    # airline shape: F * B = 2048, the fused pass's cap) and with tables
+    # and bitsets too large for shared memory; a level with categorical
+    # leaves routes otherwise than its tables read numerically
+    bins_T, gq, hq, cq, lid, tab, na_bin = _level(dev, case, n, f, l, s, b)
+    tab7, bits, is_cat = _cat_tables(dev, tab, l, b, n + l)
+    if case == "first_level":
+        tab7[6, 0] = 1
+    bins = bins_T.t().contiguous()
+    for hq_ in (hq, None):
+        args = (bins_T, gq, hq_, cq, lid, tab7, na_bin, s, b)
+        kh, kl = hk.hist_routed_fused(*args, bins=bins, catbits=bits)
+        ph_, pl_ = hk.hist_routed_fused_plain(*args, catbits=bits)
+        assert torch.equal(kh, ph_) and torch.equal(kl, pl_)
+    args = (bins_T, lid, tab7, na_bin, s)
+    routed = hk.route_level(*args, catbits=bits)
+    for a, p in zip(routed, hk.route_plain(*args, catbits=bits)):
+        assert torch.equal(a, p)
+    numeric = hk.route_plain(bins_T, lid, tab, na_bin, s)
+    assert not torch.equal(routed[1], numeric[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [{"use_quantized_grad": "true"},
+                                   {"use_quantized_grad": "false"},
+                                   {"grow_policy": "lossguide"}])
+def test_gpu_categorical_first_tree_equals_cpu(dev, extra):
+    # a 4000-row model with four categorical columns (one of 40
+    # categories, a subset split) on exact-sum labels: the first tree
+    # trained on the card has the CPU tree's structure and categories,
+    # its leaf values bit for bit unquantized and within 1e-6 of the
+    # largest quantized; the fused path launches its kernels
+    rng = np.random.RandomState(3)
+    X = rng.rand(4000, 6).astype(np.float32)
+    for j, k in ((0, 12), (1, 40), (3, 3), (4, 7)):
+        X[:, j] = rng.randint(0, k, 4000)
+    eff = rng.normal(size=40)
+    y = np.clip(np.floor((eff[X[:, 1].astype(int)] + X[:, 2] * 2
+                          + rng.rand(4000)) * 8) / 8, -3, 3.875).astype(
+                              np.float32)
+    runs = []
+    for kw in ({}, {"device_type": "cpu"}):
+        params = {"objective": "regression", "num_leaves": 31,
+                  "max_bin": 63, "min_data_in_leaf": 20, "verbosity": -1,
+                  "boost_from_average": False, "cat_smooth": 5.0,
+                  "min_data_per_group": 20, **extra, **kw}
+        hk.reset_launches()
+        runs.append(lt.train(params, lt.Dataset(
+            X, label=y, categorical_feature=[0, 1, 3, 4], params=params), 1))
+        if not kw and extra.get("use_quantized_grad") == "true":
+            assert hk.LAUNCHES["hist_routed_fused"] > 0
+    (a,), (b,) = runs[0]._host_trees(), runs[1]._host_trees()
+    assert a.num_leaves == b.num_leaves > 4 and b.is_cat_node.any()
+    for name in STRUCT + ("is_cat_node",):
+        np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+    for ca, cb in zip(a.cat_sets, b.cat_sets):
+        np.testing.assert_array_equal(ca, cb)
     if runs[0]._gbdt.gp.quant:
         np.testing.assert_allclose(a.leaf_value, b.leaf_value, rtol=0,
                                    atol=1e-6 * np.abs(b.leaf_value).max())

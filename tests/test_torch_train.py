@@ -465,7 +465,9 @@ def test_default_device_needs_a_gpu():
 # test_torch_multiclass.py and test_torch_metrics.py; the ranking settings
 # (A11b) and boosting=dart|rf (A14) that they then held train since A11b
 # and A14 (test_torch_ranking.py, test_torch_boosters.py): the six cases
-# hold settings still refused under their old ids
+# hold settings still refused under their old ids; categorical_feature
+# (A12a) trains since A12a (test_torch_categorical.py), and its case holds
+# monotone constraints on the lossguide grower under its old id
 @pytest.mark.parametrize("extra,item", [
     pytest.param({"forcedbins_filename": "bins.json"}, "A12",
                  id="extra0-A11"),
@@ -482,7 +484,8 @@ def test_default_device_needs_a_gpu():
     pytest.param({"tree_learner": "voting"}, "A21", id="extra9-A11"),
     ({"histogram_pool_size": 1.0}, "A13b"),
     ({"tree_learner": "data"}, "A21"),
-    ({"categorical_feature": "0"}, "A12"),
+    pytest.param({"monotone_constraints": [-1, 0, 0, 0, 0, 0, 0, 0],
+                  "grow_policy": "lossguide"}, "A12", id="extra12-A12"),
     pytest.param({"num_machines": 2}, "A21", id="extra13-A11"),
     ({"forcedsplits_filename": "forced.json"}, "A12"),
 ])
@@ -525,17 +528,22 @@ def test_bagging_fraction_without_bagging_freq_trains_as_reference():
 
 # row weights train since A11a (test_torch_objectives.py), Dataset group
 # since A11b (test_torch_ranking.py) and init_score since A14
-# (test_torch_boosters.py): those cases hold sparse and pandas input (A12)
-# under their old ids
+# (test_torch_boosters.py): those cases hold sparse and pandas input (A12b)
+# under their old ids; categorical_feature trains since A12a
+# (test_torch_categorical.py), and its case holds a pandas categorical
+# column (A12b) under its old id
 @pytest.mark.parametrize("kw,item", [
     pytest.param({"data": "sparse"}, "A12", id="kw0-A11"),
-    ({"categorical_feature": [0]}, "A12"),
+    pytest.param({"data": "pandas_categorical"}, "A12", id="kw1-A12"),
     pytest.param({"data": "pandas"}, "A12", id="kw2-A14")])
 def test_out_of_slice_dataset_arguments_raise(kw, item):
     X, yb, _ = _data()
     kw = dict(kw)
+    pd = lambda: __import__("pandas")  # noqa: E731
     data = {"sparse": lambda: __import__("scipy.sparse").sparse.csr_matrix(X),
-            "pandas": lambda: __import__("pandas").DataFrame(X),
+            "pandas": lambda: pd().DataFrame(X),
+            "pandas_categorical": lambda: pd().DataFrame(
+                {"c": pd().Categorical(np.round(X[:, 0] * 4)), "x": X[:, 1]}),
             None: lambda: X}[kw.pop("data", None)]()
     with pytest.raises(NotImplementedError, match=item):
         lt.Dataset(data, label=yb, params=CPU, **kw)
@@ -563,6 +571,63 @@ def test_refuses_exactly_the_data_the_reference_bundles(exclusive):
             lt.train(pt, lt.Dataset(X, label=yb, params=pt), 1)
         pt["enable_bundle"] = False
     assert lt.train(pt, lt.Dataset(X, label=yb, params=pt), 1).num_trees()
+
+
+def test_train_feature_name_matches_reference():
+    # C8: train(feature_name=) names the train set's features; the model
+    # text's feature_names= line equals the reference's
+    rng = np.random.RandomState(0)
+    X = rng.rand(200, 3)
+    y = (X[:, 0] > 0.5).astype(np.float32)
+    p = {"objective": "binary", "num_leaves": 4, "verbosity": -1,
+         "prewarm": 0}
+    names = ["a", "b", "c"]
+    ref = lgb.train(p, lgb.Dataset(X, label=y), 2, feature_name=names,
+                    verbose_eval=False)
+    port = lt.train(dict(p, **CPU), lt.Dataset(X, label=y), 2,
+                    feature_name=names, verbose_eval=False)
+    line = [ln for ln in port.model_to_string().splitlines()
+            if ln.startswith("feature_names=")]
+    assert line == [ln for ln in ref.model_to_string().splitlines()
+                    if ln.startswith("feature_names=")]
+    assert line == ["feature_names=a b c"]
+
+
+def test_train_parameters_in_reference_order():
+    # C8: train's parameters, their order and defaults are the
+    # reference's, but resume_from_snapshot (queue A16), so a positional
+    # call binds alike
+    import inspect
+    ref = [(q.name, q.default) for q in
+           inspect.signature(lgb.train).parameters.values()
+           if q.name != "resume_from_snapshot"]
+    port = [(q.name, q.default) for q in
+            inspect.signature(lt.train).parameters.values()]
+    assert port == ref
+
+
+def test_train_categorical_feature_matches_reference():
+    # C8: train(categorical_feature=[0]) trains column 0 as categorical, as
+    # the reference: first binary tree exact with its categories (queue
+    # C1), predictions rtol 1e-4 (queue C2)
+    X, yb, _ = _data()
+    X = X.copy()
+    X[:, 0] = np.floor(X[:, 0] * 9)
+    p = dict(PALLAS_PARAMS, objective="binary", max_cat_to_onehot=2,
+             cat_smooth=1.0, min_data_per_group=5)
+    ref = lgb.train(p, lgb.Dataset(X, label=yb, params=p), 2,
+                    categorical_feature=[0], verbose_eval=False)
+    pt = dict(p, **CPU)
+    port = lt.train(pt, lt.Dataset(X, label=yb, params=pt), 2,
+                    categorical_feature=[0], verbose_eval=False)
+    rt, ptr = _trees(ref, port)
+    for name in STRUCT + ("is_cat_node",):
+        np.testing.assert_array_equal(getattr(ptr[0], name),
+                                      getattr(rt[0], name), err_msg=name)
+    assert ptr[0].is_cat_node.any()
+    for a, b in zip(rt[0].cat_sets, ptr[0].cat_sets):
+        np.testing.assert_array_equal(b, a)
+    np.testing.assert_allclose(port.predict(X), ref.predict(X), rtol=1e-4)
 
 
 def test_custom_objective_raises():
