@@ -43,7 +43,12 @@ measured):
    membership at path (k)'s shape, F = 8, B = 256 (six features of
    skewed categories, route tables mixing numerical and categorical
    leaves, an is_cat row and each leaf's bitset; each also timed on the
-   same tables read numerically, without the bitset). Each kernel
+   same tables read numerically, without the bitset); route_level with
+   EFB bundle bitsets and hist_q8 fed its slots and counts at path (l)'s
+   shape, F = 16, B = 256 (six single columns, ten bundle columns of 127
+   one-hot members; bundle leaves sending a member's range prefix and
+   every bin outside the range left, or only the bins outside it), at
+   S = 32 and 127. Each kernel
    is timed
    (median of CUDA-event timings), beside its plain version, the least
    time the card could take (bytes over memory rate or operations over
@@ -142,7 +147,24 @@ measured):
    seconds and the iteration by part; (k') the same Dataset unquantized
    for 3 iterations (hist_f32 a tree and a level pass, route_level a
    level pass, take_small a tree); and for information the valid AUC
-   with the six columns numerical;
+   with the six columns numerical; (l) "bundled": the same rows one-hot
+   encoded (airline_onehot: a 10M x 674 CSR matrix, DepTime and Distance
+   numeric, 8 stored values a row, the LightGBM paper's Flight Delay
+   shape) at max_bin=255 with the default enable_bundle, binary for 5
+   iterations with the valid set in the train's column layout: at least
+   one bundle and fewer columns than 674, the launch contract of the
+   front the bundled width F_b * B gives (above 2048 cells: hist_q8 a
+   tree and a level pass, route_level a level pass, leaf_sums a tree;
+   two take_small a tree, train and valid score), the recorded valid
+   AUC equal to the AUC of Booster.predict on the sparse valid rows
+   within 1e-4 and above 0.7, a
+   node of the first tree on a bundle column, the model text round trip
+   naming the original features only, predictions from raw values
+   against the train and valid scores; the construct's seconds by phase,
+   F_b, its peak host RSS, the card's bins against the unbundled bytes,
+   s/iteration and the iteration by part printed; (l') the same Dataset
+   with grow_policy=lossguide for 3 iterations (hist_f32 a tree and a
+   split, take_small a tree);
 5. agreement, at max_bin=63 and at 255 (the 4000-row table has more than
    128 bins a feature, so the unfused path, which is asserted): the first
    tree of a 4000-row L2 model trained on the card has the structure of
@@ -169,8 +191,11 @@ measured):
    the same way; a 4000-row airline model with its six categorical
    columns on exact-sum labels has the CPU's first tree (structure and
    categories) on the fused quantized path (leaf values within 1e-6 of
-   the largest) and unquantized and lossguide (bit for bit); and the
-   threefry replica's uniforms at N rows are the CPU's bit for bit.
+   the largest) and unquantized and lossguide (bit for bit); the same
+   4000 airline rows one-hot (bundled) on the same three paths from the
+   CSR matrix and from the dense array (whose model text must equal the
+   CSR one's); and the threefry replica's uniforms at N rows are the
+   CPU's bit for bit.
 
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
@@ -325,6 +350,66 @@ def airline_valid(n_rows: int, seed: int = 1):
     for j in (3, 5, 7):
         X[rng.rand(n_rows) < 0.01, j] = np.nan
     return X, y
+
+
+# path (l): synth_airline's categorical columns one-hot encoded, each
+# (column of X, first code, codes): Month, DayofMonth, DayOfWeek,
+# UniqueCarrier, Origin, Dest; DepTime and Distance stay numeric
+ONE_HOT = ((0, 1, 12), (1, 1, 31), (2, 1, 7), (4, 0, 22), (5, 0, 300),
+           (6, 0, 300))
+
+
+def airline_onehot(X):
+    """synth_airline rows as the LightGBM paper's Flight Delay data feeds
+    EFB: a scipy CSR matrix of 2 + 672 = 674 columns, DepTime and Distance
+    in columns 0 and 1, then one column a code of Month, DayofMonth,
+    DayOfWeek, UniqueCarrier, Origin and Dest (a 1.0 in the row's code);
+    8 stored values a row, and an all-zero block where a code lies outside
+    the training codes or is NaN."""
+    import scipy.sparse as sps
+    n = X.shape[0]
+    cols = [np.zeros(n, np.int32), np.ones(n, np.int32)]
+    vals = [X[:, 3], X[:, 7]]
+    keep = [np.ones(n, bool), np.ones(n, bool)]
+    base = 2
+    for j, first, k in ONE_HOT:
+        code = X[:, j]
+        ok = np.isfinite(code) & (code >= first) & (code < first + k)
+        cols.append((base + np.where(ok, code - first, 0)).astype(np.int32))
+        vals.append(np.ones(n, np.float32))
+        keep.append(ok)
+        base += k
+    keep = np.stack(keep, 1)
+    indptr = np.concatenate([[0], np.cumsum(keep.sum(1))]).astype(np.int64)
+    return sps.csr_matrix((np.stack(vals, 1)[keep], np.stack(cols, 1)[keep],
+                           indptr), shape=(n, base))
+
+
+def peak_rss(fn):
+    """(fn's result, the resident set of this process before fn, and its
+    peak while fn ran, in bytes: /proc/self/statm read every 20 ms by a
+    thread)."""
+    import threading
+    page = os.sysconf("SC_PAGE_SIZE")
+
+    def rss():
+        with open("/proc/self/statm") as fh:
+            return int(fh.read().split()[1]) * page
+    before = rss()
+    peak = [before]
+    done = threading.Event()
+
+    def watch():
+        while not done.wait(0.02):
+            peak[0] = max(peak[0], rss())
+    th = threading.Thread(target=watch, daemon=True)
+    th.start()
+    try:
+        out = fn()
+    finally:
+        done.set()
+        th.join()
+    return out, before, max(peak[0], rss())
 
 
 def split_queries(X, y, group, n_train):
@@ -487,8 +572,10 @@ def main() -> int:
     sys.path.insert(0, HERE)
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch import metrics
+    from lightgbm_tpu_torch.models.gbdt import padded_bins
     from lightgbm_tpu_torch.ops import cuda_lib
     from lightgbm_tpu_torch.ops import hist_kernels as hk
+    from lightgbm_tpu_torch.ops.histogram import ACC_ROWS_MAX
 
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
@@ -1080,6 +1167,107 @@ def main() -> int:
         del ph_
         torch.cuda.empty_cache()
     del bins_r, rowmajor_r, q_r, slot_r, counts_r
+    torch.cuda.empty_cache()
+    # B6 with EFB bundle bitsets, and B5 fed B6's counts, at path (l)'s
+    # shape: F = 16, B = 256 (F * B = 4096, the unfused front), N rows; six
+    # single columns (bins uniform on [0, 256)) and ten bundle columns of
+    # 127 one-hot members each (bin 0, every member at its default, on a
+    # third of the rows; else member k's non-default position 2k + 2, k
+    # skewed as the leaves of skewed_leaves). Route tables whose splitting
+    # leaves mix numerical splits on the single columns with bundle splits
+    # (the is_cat row) whose bitsets are what a bundle split sends left: a
+    # member's first position and every bin outside its range, or every
+    # bin outside it ("t == default", the empty prefix). Exactly against
+    # route_plain and hist_q8_plain (3 channels), at S = 32 and 127; their
+    # own generator, so the other phases' inputs stay as they were
+    gen_b = torch.Generator(device=dev).manual_seed(12)
+    fb_, singles = 16, 6
+    bins_b = torch.stack([
+        torch.randint(0, BW, (N,), generator=gen_b, device=dev,
+                      dtype=torch.int64).to(torch.uint8) if j < singles else
+        torch.where(torch.rand(N, generator=gen_b, device=dev) < 1 / 3, 0,
+                    2 * skewed_leaves(N, 127, lambda n: torch.rand(
+                        n, generator=gen_b, device=dev)).long() + 2).to(
+                            torch.uint8)
+        for j in range(fb_)]).contiguous()
+    rowmajor_b = bins_b.t().contiguous()
+    na_b = torch.full((fb_,), 256, dtype=torch.int32, device=dev)
+    q_b = tuple(x.contiguous() for x in quant3[:3])
+    iota_b = torch.arange(BW, device=dev)[None, :]
+    bun_b6 = []
+    for s in (32, 127):
+        lid = torch.randint(0, min(L, 2 * s), (N,), generator=gen_b,
+                            device=dev, dtype=torch.int64).to(torch.int32)
+        k_ = torch.arange(L, device=dev)
+        split = k_ < s
+        small_left = (torch.rand(L, generator=gen_b, device=dev) < 0.5) \
+            | (k_ == 0)
+        feat = torch.where(split, torch.randint(0, fb_, (L,), generator=gen_b,
+                                                device=dev), -1)
+        is_cat = split & (feat >= singles)
+        off = 1 + 2 * torch.randint(0, 127, (L,), generator=gen_b,
+                                    device=dev)[:, None]
+        first = torch.rand(L, generator=gen_b, device=dev)[:, None] < 0.5
+        member = ((iota_b < off) | (iota_b > off + 1)
+                  | (first & (iota_b == off)))
+        bits = hk.member_bitset(member)
+        words = bits.shape[1]
+        tab = torch.stack([
+            feat, torch.randint(0, BW - 1, (L,), generator=gen_b, device=dev),
+            torch.zeros_like(k_), s + k_,
+            torch.where(split & small_left, k_, s),
+            torch.where(split & ~small_left, k_, s), is_cat]).to(
+                torch.int32).contiguous()
+        rargs = (bins_b, lid, tab, na_b, s)
+        tag = f"route_level[bundle S{s}, F={fb_}, B={BW}]"
+        ks, kl, kc = hk.route_level(*rargs, catbits=bits)
+        ps_, pl_, pc_ = hk.route_plain(*rargs, catbits=bits)
+        err = max(exact(f"{tag}.slot", ks, ps_), exact(f"{tag}.lid2", kl, pl_),
+                  exact(f"{tag}.counts", kc, pc_))
+        del ps_, pl_, pc_
+        routed = int((lid < s).sum())
+        bms, by = bound(12 * N + routed + 4 * s + (7 + words) * L * 4
+                        + fb_ * 4, 8 * N)
+        bun_b6.append(dict(
+            variant=f"bundle_S{s}", bundle=True, F=fb_, B=BW, S=s,
+            routed=routed, bundle_leaves=int(is_cat.sum()), max_abs_err=err,
+            ms=time_ms(lambda: hk.route_level(*rargs, catbits=bits)),
+            device_ms=device_ms(lambda: hk.route_level(*rargs,
+                                                        catbits=bits)),
+            plain_ms=time_ms(lambda: hk.route_plain(*rargs, catbits=bits),
+                             reps=3),
+            numerical_tables_ms=time_ms(lambda: hk.route_level(
+                bins_b, lid, tab[:6].contiguous(), na_b, s)),
+            bound_ms=bms, bound_by=by))
+        args = (bins_b, *q_b, ks, s, BW)
+        tag = f"hist_q8[bundle S{s} with route_level's counts, F={fb_}]"
+        ph_ = hk.hist_q8_plain(*args)
+        err = exact(tag, hk.hist_q8(*args, bins=rowmajor_b, counts=kc), ph_)
+        ridx, flat = cells(bins_b, ks, s, BW)
+        kept = int(ridx.numel())
+        lib, lib_ms = yardstick(list(q_b), torch.int32, ridx, flat, s, BW)
+        exact(f"{tag} index_add_ yardstick", lib.contiguous(), ph_)
+        del lib, ridx, flat, ph_
+        bms, by = bound(4 * N + kept * (fb_ + 3) + s * 3 * fb_ * BW * 4,
+                        kept * fb_ * 3)
+        qvariants.append(dict(
+            variant=f"bundle_S{s}", S=s, B=BW, F=fb_, kept=kept, nch=3,
+            max_abs_err=err, counts_given=True,
+            ms=time_ms(lambda: hk.hist_q8(*args, bins=rowmajor_b,
+                                          counts=kc)),
+            device_ms=device_ms(lambda: hk.hist_q8(*args, bins=rowmajor_b,
+                                                   counts=kc)),
+            plain_ms=time_ms(lambda: hk.hist_q8_plain(*args), reps=3),
+            bound_ms=bms, bound_by=by, library_ms=lib_ms))
+        del ks, kl, kc
+        torch.cuda.empty_cache()
+    kernels["route_level"]["variants"] += bun_b6
+    kernels["route_level"]["max_abs_err"] = max(
+        v["max_abs_err"] for v in kernels["route_level"]["variants"])
+    print(f"route_level with bundle bitsets: exact; {bun_b6}")
+    print(f"hist_q8 fed route_level's counts on bundle columns: exact; "
+          f"{[v for v in qvariants if v['variant'].startswith('bundle')]}")
+    del bins_b, rowmajor_b, q_b, lid, tab, member, bits
     torch.cuda.empty_cache()
     for nm, variants, extra in (
             ("hist_q8", qvariants, dict(source="lightgbm_tpu_torch/csrc/"
@@ -1812,8 +2000,6 @@ def main() -> int:
         in B2; (k') the same Dataset unquantized for 3 (B8 and B6, with
         membership in B6). For information: the AUC of the same 5
         iterations with the six columns numerical."""
-        from lightgbm_tpu_torch.models.gbdt import padded_bins
-        from lightgbm_tpu_torch.ops.histogram import ACC_ROWS_MAX
         t0 = time.perf_counter()
         Xa, ya, lat = synth_airline(N_AIR, seed=0, latent=True)
         Xav, yav = airline_valid(N_AIR_VALID)
@@ -1936,17 +2122,144 @@ def main() -> int:
         print(f"{tag} one iteration by part: " + json.dumps(
             iteration_parts(bn)))
         airline_small.update(X=Xa[:4000], latent=lat[:4000])
+        airline.update(X=Xa, y=ya, Xv=Xav, yv=yav)
+
+    def bundled_path() -> None:
+        """(l) "bundled": (k)'s airline rows one-hot encoded
+        (airline_onehot: a 10M x 674 CSR matrix, 8 stored values a row)
+        at max_bin=255 with the default enable_bundle, binary with the
+        100,000-row valid set in the train's column layout for 5
+        iterations; the front follows from the bundled width F_b * B, as
+        the reference's gate says; (l') the same Dataset with
+        grow_policy=lossguide for 3, without a valid set."""
+        t0 = time.perf_counter()
+        csr = airline_onehot(airline["X"])
+        vcsr = airline_onehot(airline["Xv"])
+        ya, yav = airline["y"], airline["yv"]
+        airline.clear()
+        print(f"[bundled] data: {time.perf_counter() - t0:.3f} s "
+              f"(CSR {csr.shape[0]} x {csr.shape[1]}, {csr.nnz} stored "
+              f"values, {csr.nnz / csr.shape[0]:.3f} a row)")
+        params = {"objective": "binary", "num_leaves": L, "max_bin": 255,
+                  "learning_rate": 0.1, "min_data_in_leaf": 20,
+                  "verbosity": -1, "metric": "auc"}
+        t0 = time.perf_counter()
+        ds = lt.Dataset(csr, label=ya, params={"max_bin": 255,
+                                               "verbosity": -1})
+        _, rss0, rss = peak_rss(ds.construct)
+        sec = time.perf_counter() - t0
+        valid = lt.Dataset(vcsr, label=yav, reference=ds)
+        valid.construct()
+        slice_ms["bundled_construct_s"] = sec
+        meta = ds.bundle_meta
+        fb = ds.num_features
+        if meta is None or not meta.is_bundle.any() or fb >= csr.shape[1]:
+            fail(f"[bundled]: no bundle ({fb} columns of {csr.shape[1]})")
+        sizes = [len(mem) for mem in meta.members if len(mem) > 1]
+        print(f"[bundled] construct: {sec:.3f} s by phase "
+              f"{json.dumps(ds.construct_phases)}; {len(ds.mappers)} used "
+              f"features in F_b = {fb} columns ({len(sizes)} bundles of "
+              f"{sizes} members, max bins {ds.max_num_bins}); host RSS "
+              f"{rss0} bytes before construct, peak {rss} in it (+"
+              f"{(rss - rss0) / 2 ** 30:.3f} GiB); bins on "
+              f"the card {ds.bins.numel()} bytes against {csr.shape[0]} x "
+              f"{csr.shape[1]} = {csr.shape[0] * csr.shape[1]} unbundled")
+        # the reference's fused-front gate on the bundled width
+        front = ("fused" if fb * padded_bins(ds.max_num_bins) <= ACC_ROWS_MAX
+                 else "unfused")
+        print(f"[bundled] F_b * B = {fb * padded_bins(ds.max_num_bins)}: "
+              f"{front} front")
+
+        tag = "[bundled, max_bin=255]"
+        hk.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        evals = {}
+        t0 = time.perf_counter()
+        bst = lt.train(params, ds, num_boost_round=5, valid_sets=[valid],
+                       evals_result=evals, verbose_eval=False)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        print(f"{tag} train: {sec:.3f} s for 5 iterations ({sec / 5:.3f} "
+              f"s/iter), level passes a tree {bst._gbdt.hist_passes}; peak "
+              f"device memory {torch.cuda.max_memory_allocated()} bytes")
+        count_launches(tag, front, [bst], 1)
+        auc_v = evals["valid_0"]["auc"]
+        pv = bst.predict(vcsr, raw_score=True)
+        auc_p = float(metrics.auc(torch.as_tensor(yav), torch.as_tensor(pv)))
+        print(f"{tag} valid AUC by iteration (recorded): {auc_v}; AUC of "
+              f"Booster.predict on the sparse valid rows: {auc_p:.7f}")
+        if abs(auc_v[-1] - auc_p) > 1e-4 or not auc_v[-1] > 0.7:
+            fail(f"{tag}: recorded valid AUC {auc_v[-1]} against the "
+                 f"predictions' {auc_p}, or not above 0.7")
+        first = bst._gbdt.models_dev[0]
+        nodes = first.num_leaves - 1
+        on_bundle = int((first.is_cat[:nodes] & torch.as_tensor(
+            meta.is_bundle, device=dev)[first.split_feature[:nodes].long()])
+            .sum())
+        print(f"{tag} first tree: {on_bundle} of {nodes} nodes split a "
+              "bundle column")
+        if not on_bundle:
+            fail(f"{tag}: no node of the first tree splits a bundle column")
+        fname = os.path.join(OUT_DIR, "chip_smoke_model_bundled.txt")
+        bst.save_model(fname)
+        loaded = lt.Booster(model_file=fname)
+        text = bst.model_to_string()
+        names = [ln for ln in text.splitlines()
+                 if ln.startswith("feature_names=")]
+        if (loaded.model_to_string() != text
+                or names != ["feature_names=" + " ".join(
+                    f"Column_{j}" for j in range(csr.shape[1]))]
+                or max(int(t.split_feature.max())
+                       for t in loaded._host_trees()) >= csr.shape[1]
+                or not np.array_equal(loaded.predict(vcsr, raw_score=True),
+                                      pv)):
+            fail(f"{tag}: the model text does not round-trip, or names "
+                 "other than the original features")
+        m_ = 200_000
+        raw = bst.predict(csr[:m_], raw_score=True)
+        tscore = bst._gbdt.train_score[:m_].cpu().numpy()
+        vscore = bst._gbdt.valid_scores[0].cpu().numpy()
+        tdiff = float(np.abs(raw - tscore).max())
+        vdiff = float(np.abs(pv - vscore).max())
+        print(f"{tag} model text round trip identical, original features "
+              f"only; raw-value predictions vs the train score on {m_} rows:"
+              f" max diff {tdiff:.3e}, vs the valid score: {vdiff:.3e} "
+              f"(largest {np.abs(tscore).max():.3e})")
+        if max(tdiff, vdiff) > 1e-5 * max(1.0, np.abs(tscore).max()):
+            fail(f"{tag}: predictions from raw values disagree with the "
+                 "training scores")
+        print(f"{tag} one iteration by part: " + json.dumps(
+            iteration_parts(bst)))
+
+        tag = "[bundled lossguide, max_bin=255]"
+        hk.reset_launches()
+        t0 = time.perf_counter()
+        blg = lt.train(dict(params, grow_policy="lossguide"), ds,
+                       num_boost_round=3)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        print(f"{tag} train: {sec:.3f} s for 3 iterations ({sec / 3:.3f} "
+              f"s/iter), splits a tree {blg._gbdt.hist_passes}")
+        count_launches(tag, "lossguide", [blg], 0)
+        auc_lg = float(metrics.auc(torch.as_tensor(yav), torch.as_tensor(
+            blg.predict(vcsr))))
+        print(f"{tag} valid AUC of its predictions {auc_lg:.6f}")
+        if not auc_lg > 0.7:
+            fail(f"{tag}: valid AUC {auc_lg} <= 0.7")
 
     airline_small = {}
+    airline = {}
     multiclass_path()
     weighted_path()
     ranking_path()
     boosters_path()
     del datasets, Xv, yv, yv_reg
     categorical_path()
+    print(f"elapsed after path (k): {time.perf_counter() - t_start:.1f} s")
+    bundled_path()
     for nm in kernels:
         kernels[nm]["launches"] = launches_all[nm]
-    print(f"elapsed after paths (g)-(k): "
+    print(f"elapsed after paths (g)-(l): "
           f"{time.perf_counter() - t_start:.1f} s")
 
     # ---- 5. card vs plain versions on a small input ----
@@ -2258,6 +2571,48 @@ def main() -> int:
               f" leaves, {int(a.is_cat_node.sum())} categorical nodes): "
               f"structure and categories identical, max leaf-value diff "
               f"{diff:.3e} (largest leaf {scale:.3e})")
+
+    # (l), card vs CPU on the same 4000 airline rows one-hot encoded (a CSR
+    # matrix, and the same rows as a dense array, which bundle alike): an
+    # L2 model on the exact-sum labels above on the quantized depthwise
+    # path (its front from F_b * B), unquantized and lossguide; the first
+    # tree's structure equal to the CPU run's on the CSR rows, leaf values
+    # within 1e-6 of the largest (quantized) or bit for bit; the dense
+    # rows' model text equal to the CSR rows' on the card
+    csr4 = airline_onehot(xa4)
+    for name_, extra in (("bundled quantized", {}),
+                         ("bundled f32", {"use_quantized_grad": "false"}),
+                         ("bundled lossguide", {"grow_policy": "lossguide"})):
+        small = {"objective": "regression", "num_leaves": 31,
+                 "max_bin": 255, "min_data_in_leaf": 20, "verbosity": -1,
+                 "boost_from_average": False, **extra}
+        runs = {}
+        for what, data, kw in (("card", csr4, {}),
+                               ("card dense", csr4.toarray(), {}),
+                               ("cpu", csr4, {"device_type": "cpu"})):
+            p_ = dict(small, **kw)
+            runs[what] = lt.train(p_, lt.Dataset(data, label=ya8, params=p_),
+                                  1)
+        gpu, cpu = runs["card"], runs["cpu"]
+        ts_ = gpu.train_set
+        if ts_.bundle_meta is None:
+            fail(f"{name_}: the 4000 one-hot rows did not bundle")
+        if runs["card dense"].model_to_string() != gpu.model_to_string():
+            fail(f"{name_}: dense and CSR rows train different models")
+        (a,), (b,) = gpu._host_trees(), cpu._host_trees()
+        for f_ in ("split_feature", "threshold_bin", "default_left",
+                   "left_child", "right_child", "is_cat_node"):
+            if not np.array_equal(getattr(a, f_), getattr(b, f_)):
+                fail(f"{name_}: card and CPU first trees differ in {f_}")
+        diff = float(np.abs(a.leaf_value - b.leaf_value).max())
+        scale = float(np.abs(b.leaf_value).max())
+        if (diff > 1e-6 * scale if gpu._gbdt.gp.quant else diff != 0.0):
+            fail(f"{name_}: card and CPU leaf values differ by {diff}")
+        fb4 = ts_.num_features * padded_bins(ts_.max_num_bins)
+        print(f"[{name_}] card vs CPU (4000 rows, F_b {ts_.num_features}, "
+              f"F_b * B {fb4}, first tree {a.num_leaves} leaves): structure "
+              f"identical, max leaf-value diff {diff:.3e} (largest leaf "
+              f"{scale:.3e}); dense rows train the CSR rows' model")
 
     # the replica's uniforms: card and CPU bit for bit at N rows
     key = threefry.fold_in(threefry.prng_key(3), 1)

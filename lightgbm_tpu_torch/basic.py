@@ -1,14 +1,19 @@
 """Dataset and Booster.
 
-Port of the dense construct of ``lightgbm_tpu/basic.py`` ``Dataset``
-(:95), with numerical and categorical columns (``categorical_feature``,
-:168-182), labels, row weights, query groups and init scores,
-and of ``Booster`` (``update`` with a custom objective, ``predict``,
-``save_model``, ``model_to_string``, loading from model text, ``refit``),
+Port of the construct of ``lightgbm_tpu/basic.py`` ``Dataset`` (:95) from
+numpy arrays, scipy-sparse matrices (:234-292) and pandas DataFrames
+(``_data_from_pandas``, :46-71: category columns become their codes),
+with numerical and categorical columns (``categorical_feature``,
+:168-182), Exclusive Feature Bundling of sparse columns (``efb.py``),
+labels, row weights, query groups and init scores, and of ``Booster``
+(``update`` with a custom objective, ``predict``, ``save_model``,
+``model_to_string``, loading from model text, ``refit``),
 K trees an iteration for the multiclass objectives, and the trainers of
 every boosting type (gbdt, GOSS, DART, RF). The binned matrix lives on the
-device as uint8 ``[N, F]`` together with its cached ``[F, N]`` transpose
-``bins_T``, which is what the kernels read.
+device as uint8 ``[N, F]`` (F the bundle columns under EFB) together with
+its cached ``[F, N]`` transpose ``bins_T``, which is what the kernels
+read. scipy is imported only for a sparse matrix and pandas only for a
+DataFrame: neither is needed for numpy input.
 
 Device rule: ``device_type`` (alias ``device``) defaults to ``"cuda"``.
 Without a GPU, constructing a Dataset or a training Booster raises
@@ -18,13 +23,15 @@ moves to the CPU on its own.
 from __future__ import annotations
 
 import os
+import time
 from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
-from .binning import (BIN_CATEGORICAL, bin_data, find_bin_mappers,
-                      used_features)
+from .binning import (BIN_CATEGORICAL, bin_data, bin_data_sparse,
+                      bin_sparse_column, find_bin_mappers,
+                      find_bin_mappers_sparse, used_features)
 from . import efb
 from .config import Config, boosting_kind, check_slice, params_to_config
 from .io import model_text
@@ -58,7 +65,63 @@ def resolve_device(conf: Config) -> torch.device:
                      "'cpu'")
 
 
-def _to_numpy_2d(data) -> np.ndarray:
+def _is_sparse(data) -> bool:
+    """Whether ``data`` is a scipy.sparse matrix (scipy is imported only
+    for an object of its package)."""
+    if type(data).__module__.split(".")[0] != "scipy":
+        return False
+    import scipy.sparse
+    return scipy.sparse.issparse(data)
+
+
+def _pandas_of(data):
+    """The pandas module when ``data`` is a DataFrame, else None (pandas
+    is imported only for an object of its package, and may be absent)."""
+    if type(data).__module__.split(".")[0] != "pandas":
+        return None
+    try:
+        import pandas
+    except ImportError:
+        return None
+    return pandas if isinstance(data, pandas.DataFrame) else None
+
+
+def _data_from_pandas(df, pd, pandas_categorical: Optional[List] = None):
+    """A DataFrame as f64 rows and its category lists (reference:
+    _data_from_pandas, basic.py:46-71): a category column becomes its
+    codes under ``pandas_categorical`` (the training categories; captured
+    from the frame when None), -1 (NaN, unseen) becomes NaN; an object or
+    string column is fatal."""
+    cat_cols = [c for c, dt in zip(df.columns, df.dtypes)
+                if isinstance(dt, pd.CategoricalDtype)]
+    bad = [str(c) for c, dt in zip(df.columns, df.dtypes)
+           if c not in cat_cols and (dt == object
+                                     or pd.api.types.is_string_dtype(dt))]
+    if bad:
+        raise LightGBMError("DataFrame.dtypes must be int, float or bool; "
+                            "did you mean astype('category') for columns "
+                            f"{', '.join(bad)}?")
+    if pandas_categorical is None:
+        pandas_categorical = [list(df[c].cat.categories) for c in cat_cols]
+    elif len(cat_cols) != len(pandas_categorical):
+        raise LightGBMError("train and valid/predict DataFrames have "
+                            "different numbers of categorical columns")
+    if cat_cols:
+        df = df.copy(deep=False)
+        for c, cats in zip(cat_cols, pandas_categorical):
+            codes = (df[c].cat.set_categories(cats).cat.codes
+                     .to_numpy(dtype=np.float64))
+            df[c] = np.where(codes < 0, np.nan, codes)
+    arr = df.to_numpy(dtype=np.float64, na_value=np.nan)
+    # pandas may hand out a read-only array (copy on write)
+    return (arr if arr.flags.writeable else arr.copy()), pandas_categorical
+
+
+def _to_numpy_2d(data, pandas_categorical: Optional[List] = None
+                 ) -> np.ndarray:
+    pd = _pandas_of(data)
+    if pd is not None:
+        return _data_from_pandas(data, pd, pandas_categorical)[0]
     arr = np.asarray(data)
     if arr.ndim == 1:
         arr = arr.reshape(-1, 1)
@@ -80,10 +143,6 @@ class Dataset:
                  categorical_feature: Union[str, List] = "auto",
                  params: Optional[Dict[str, Any]] = None,
                  free_raw_data: bool = True):
-        if type(data).__module__.split(".")[0] in ("scipy", "pandas"):
-            raise NotImplementedError("sparse and pandas input (with pandas "
-                                      "categoricals) are not ported yet "
-                                      "(ROADMAP.md queue A12b)")
         self.params = dict(params or {})
         self.raw_data = data
         self.label_np = None if label is None else \
@@ -103,6 +162,13 @@ class Dataset:
         self._constructed = False
         self.mappers = []
         self.feature_map: Optional[np.ndarray] = None
+        # the EFB plan (None: every used feature its own column), the
+        # category lists of a DataFrame's category columns, and the
+        # construct's seconds by phase
+        self.bundle_meta: Optional[efb.BundleMeta] = None
+        self.pandas_categorical: Optional[List] = None
+        self.construct_phases: Dict[str, float] = {}
+        self._max_num_bins = 1
         self.bins: Optional[torch.Tensor] = None
         self._bins_T: Optional[torch.Tensor] = None
         self.label: Optional[torch.Tensor] = None
@@ -126,21 +192,34 @@ class Dataset:
 
     @property
     def max_num_bins(self) -> int:
-        return max((m.num_bins for m in self.mappers), default=1)
+        """The most bins of a column of ``bins`` (a bundle column's under
+        EFB)."""
+        return self._max_num_bins
 
     @property
     def has_categorical(self) -> bool:
         return any(m.bin_type == BIN_CATEGORICAL for m in self.mappers)
 
-    def _resolve_categorical(self, conf: Config, ncols: int) -> List[int]:
+    @property
+    def routes_by_membership(self) -> bool:
+        """Whether a tree on these bins may hold membership (is_cat) nodes:
+        a categorical column or an EFB bundle."""
+        return self.has_categorical or self.bundle_meta is not None
+
+    def _resolve_categorical(self, conf: Config, ncols: int,
+                             columns: Optional[List] = None) -> List[int]:
         """The categorical columns (reference: ``_resolve_categorical``,
-        basic.py:168-182): the ``categorical_feature`` argument, else the
-        ``categorical_feature`` parameter as LightGBM writes it
+        basic.py:168-182): the ``categorical_feature`` argument; else a
+        DataFrame's category columns (``columns``: its column labels);
+        else the ``categorical_feature`` parameter as LightGBM writes it
         ("0,1,5", or "name:a,b"). Integers are column indices; strings
-        name columns through ``feature_name``, as in LightGBM (the
-        reference resolves names only against pandas columns, and pandas
-        input is not ported)."""
+        name columns through ``feature_name``, or a DataFrame's labels
+        (the reference resolves names only against the labels)."""
         cf = self.categorical_feature
+        pd = _pandas_of(self.raw_data)
+        if cf in ("auto", None) and pd is not None:
+            return [i for i, dt in enumerate(self.raw_data.dtypes)
+                    if isinstance(dt, pd.CategoricalDtype)]
         if cf in ("auto", None):
             text = str(conf.categorical_feature).strip().strip("[]")
             if not text:
@@ -150,7 +229,8 @@ class Dataset:
                      if t.strip()]
             cf = items if by_name else [int(t) for t in items]
         names = (list(self.feature_name)
-                 if isinstance(self.feature_name, (list, tuple)) else [])
+                 if isinstance(self.feature_name, (list, tuple))
+                 else list(columns or []))
         out = []
         for c in (cf if isinstance(cf, (list, tuple)) else [cf]):
             if isinstance(c, (int, np.integer)) and not isinstance(c, bool):
@@ -160,12 +240,27 @@ class Dataset:
         return sorted(set(j for j in out if 0 <= j < ncols))
 
     def construct(self) -> "Dataset":
+        """Bin the rows on the device (reference: _construct_inner,
+        basic.py:187-292): the train set finds its mappers (from a
+        sample's stored values for sparse input) and its EFB plan; a valid
+        set takes its reference's mappers, plan and pandas categories."""
         if self._constructed:
             return self
         conf = params_to_config(self.params)
         check_slice(conf)
         self.device = resolve_device(conf)
-        raw = _to_numpy_2d(self.raw_data)
+        phases = self.construct_phases = {}
+        t_last = time.perf_counter()
+
+        def mark(name: str) -> None:
+            nonlocal t_last
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            now = time.perf_counter()
+            phases[name] = now - t_last
+            t_last = now
+
+        sparse = _is_sparse(self.raw_data)
         if self.reference is not None:
             ref = self.reference.construct()
             if ref.device != self.device:
@@ -173,32 +268,47 @@ class Dataset:
                                  "reference's device")
             self.mappers, self.feature_map = ref.mappers, ref.feature_map
             self._names = ref._names
+            self.bundle_meta = ref.bundle_meta
+            self.pandas_categorical = ref.pandas_categorical
+            raw = (self.raw_data.tocsc() if sparse else
+                   _to_numpy_2d(self.raw_data, self.pandas_categorical))
         else:
-            mappers = find_bin_mappers(
+            columns = None
+            pd = _pandas_of(self.raw_data)
+            if sparse:
+                # binned column by column: no dense f64 copy
+                raw = self.raw_data.tocsc()
+            elif pd is not None:
+                raw, self.pandas_categorical = _data_from_pandas(
+                    self.raw_data, pd)
+                columns = list(self.raw_data.columns)
+            else:
+                raw = _to_numpy_2d(self.raw_data)
+            find = find_bin_mappers_sparse if sparse else find_bin_mappers
+            mappers = find(
                 raw, max_bin=conf.max_bin, min_data_in_bin=conf.min_data_in_bin,
                 sample_cnt=conf.bin_construct_sample_cnt,
                 use_missing=conf.use_missing,
                 zero_as_missing=conf.zero_as_missing,
                 seed=conf.data_random_seed,
                 max_bin_by_feature=conf.max_bin_by_feature,
-                categorical=self._resolve_categorical(conf, raw.shape[1]))
+                categorical=self._resolve_categorical(conf, raw.shape[1],
+                                                      columns))
             used = used_features(mappers)
             self.mappers = [mappers[j] for j in used]
             self.feature_map = np.asarray(used, dtype=np.int32)
-            self._names = (list(self.feature_name)
-                           if isinstance(self.feature_name, (list, tuple))
-                           else [f"Column_{i}" for i in range(raw.shape[1])])
-        if self.reference is None and conf.enable_bundle:
-            self._refuse_bundles(conf, raw)
-        self.bins = bin_data(raw, self.mappers, list(self.feature_map),
-                             self.device)
-        na = np.array([m.na_bin for m in self.mappers], dtype=np.int32)
-        self.na_bin_dev = torch.as_tensor(
-            np.where(na < 0, _NO_NA_BIN, na).astype(np.int32),
-            device=self.device)
-        self.num_bins_dev = torch.as_tensor(
-            np.array([m.num_bins for m in self.mappers], dtype=np.int32),
-            device=self.device)
+            if isinstance(self.feature_name, (list, tuple)):
+                self._names = list(self.feature_name)
+            elif columns is not None:
+                self._names = [str(c) for c in columns]
+            else:
+                self._names = [f"Column_{i}" for i in range(raw.shape[1])]
+            mark("find_bins_s")
+            self.bundle_meta = self._plan_efb(conf, raw, sparse)
+            mark("efb_plan_s")
+        self.bins = self._encode(raw, sparse)
+        mark("encode_s")
+        self._derive_meta()
         for what, arr in (("label", self.label_np),
                           ("weight", self.weight_np)):
             if arr is None:
@@ -223,20 +333,69 @@ class Dataset:
             self.raw_data = None
         return self
 
-    def _refuse_bundles(self, conf: Config, raw: np.ndarray) -> None:
-        """Raise when the reference would bundle this data's features (EFB,
-        not ported yet): its plan decision, replayed on the same sample."""
+    def _plan_efb(self, conf: Config, raw, sparse: bool
+                  ) -> Optional[efb.BundleMeta]:
+        """The EFB plan of the train set, or None (reference: _plan_efb,
+        basic.py:457-512): ``efb.plan_bundles`` on the used features' bins
+        of the 50,000-row plan sample. The reference keeps monotone
+        features out of bundles and turns bundling off under
+        feature_contri (:468-482); both settings are refused until A12c
+        (``config.check_slice``), so nothing is excluded here."""
+        if not conf.enable_bundle or len(self.mappers) < 3:
+            return None
         idx = efb.plan_sample_index(raw.shape[0], conf.data_random_seed)
-        sample = raw if idx is None else raw[idx]
-        sample_bins = np.stack(
-            [m.values_to_bins(sample[:, j]).astype(np.uint8)
-             for m, j in zip(self.mappers, self.feature_map)], axis=1)
-        if efb.would_bundle(sample_bins, self.mappers, conf.max_conflict_rate,
-                            conf.sparse_threshold):
-            raise NotImplementedError(
-                "the reference would bundle these sparse features (EFB), "
-                "which is not ported yet (ROADMAP.md queue A12b); pass "
-                "enable_bundle=false to train them as separate columns")
+        if sparse:
+            sample = raw if idx is None else raw[idx].tocsc()
+            sample_bins = np.empty((sample.shape[0], len(self.mappers)),
+                                   dtype=np.uint8)
+            for k, j in enumerate(self.feature_map):
+                bin_sparse_column(self.mappers[k], sample, int(j),
+                                  sample_bins[:, k])
+        else:
+            sample = raw if idx is None else raw[idx]
+            sample_bins = np.stack(
+                [m.values_to_bins(sample[:, j]).astype(np.uint8)
+                 for m, j in zip(self.mappers, self.feature_map)], axis=1)
+        return efb.plan_bundles(
+            sample_bins, self.mappers,
+            max_conflict_rate=conf.max_conflict_rate,
+            sparse_threshold=conf.sparse_threshold,
+            sample_cnt=sample_bins.shape[0], seed=conf.data_random_seed,
+            exclude=())
+
+    def _encode(self, raw, sparse: bool) -> torch.Tensor:
+        """The uint8 [N, F] bins on the device: one column a used feature,
+        or the EFB plan's columns (encoded straight from the CSC columns
+        for sparse input; bundled on the device for dense input)."""
+        meta = self.bundle_meta
+        if sparse:
+            if meta is not None:
+                return efb.encode_sparse(raw, self.mappers, self.feature_map,
+                                         meta, self.device)
+            return bin_data_sparse(raw, self.mappers, self.feature_map,
+                                   self.device)
+        bins = bin_data(raw, self.mappers, list(self.feature_map),
+                        self.device)
+        return bins if meta is None else efb.apply_bundles(bins, meta)
+
+    def _derive_meta(self) -> None:
+        """Bins and missing bin of each column of ``bins`` (reference:
+        _derive_meta, basic.py:435-455): a bundle column has its plan's
+        bins and no missing bin."""
+        meta = self.bundle_meta
+        if meta is None:
+            num_bins = np.array([m.num_bins for m in self.mappers])
+            na = np.array([m.na_bin for m in self.mappers])
+        else:
+            num_bins = np.asarray(meta.num_bins)
+            na = np.array([self.mappers[mem[0][0]].na_bin if len(mem) == 1
+                           else -1 for mem in meta.members])
+        self._max_num_bins = int(num_bins.max()) if len(num_bins) else 1
+        self.na_bin_dev = torch.as_tensor(
+            np.where(na < 0, _NO_NA_BIN, na).astype(np.int32),
+            device=self.device)
+        self.num_bins_dev = torch.as_tensor(num_bins.astype(np.int32),
+                                            device=self.device)
 
     def feature_names(self) -> List[str]:
         return list(self._names)
@@ -373,20 +532,38 @@ class Booster:
             return self.train_set.feature_names()
         return list(self._loaded_meta.get("feature_names", []))
 
+    @property
+    def pandas_categorical(self) -> Optional[List]:
+        """The category lists of the training DataFrame's category columns
+        (reference: Booster.pandas_categorical, basic.py:1164-1170), which
+        map a DataFrame's categories to the training codes."""
+        if self.train_set is not None:
+            return self.train_set.pandas_categorical
+        return self._loaded_meta.get("pandas_categorical")
+
     def predict(self, data, num_iteration: Optional[int] = None,
                 raw_score: bool = False, pred_leaf: bool = False
                 ) -> np.ndarray:
-        """Predictions on raw features [N, F] as a numpy array: f64 scores
+        """Predictions on raw features [N, F] (a numpy array, a scipy
+        sparse matrix or a DataFrame) as a numpy array: f64 scores
         (transformed by the objective unless raw_score), [N] or, with K
         trees an iteration, [N, K]; or [N, T] leaf indices with
-        pred_leaf."""
+        pred_leaf. Sparse rows are densified 64 MB of f64 at a time
+        (reference: basic.py:1207-1215)."""
+        if _is_sparse(data):
+            csr = data.tocsr()
+            chunk = max(1, (64 << 20) // max(1, 8 * csr.shape[1]))
+            return np.concatenate([
+                self.predict(csr[i:i + chunk].toarray(), num_iteration,
+                             raw_score, pred_leaf)
+                for i in range(0, max(csr.shape[0], 1), chunk)], axis=0)
         trees = self._host_trees()
         k = self.num_model_per_iteration()
         if num_iteration is None:
             num_iteration = self._default_num_iteration()
         if num_iteration > 0:
             trees = trees[:num_iteration * k]
-        x_np = _to_numpy_2d(data)
+        x_np = _to_numpy_2d(data, self.pandas_categorical)
         nf = self.num_feature()
         if nf and x_np.shape[1] != nf:
             raise LightGBMError(f"The number of features in data "
@@ -432,7 +609,8 @@ class Booster:
     def refit(self, data, label, decay_rate: Optional[float] = None,
               weight=None, group=None) -> "Booster":
         """A new Booster with this model's tree structures and leaf values
-        refit to new data (reference: Booster.refit, basic.py:1318-1362):
+        refit to new data, rows as ``predict`` takes them (reference:
+        Booster.refit, basic.py:1318-1362, which densifies no sparse rows):
         the rows' leaves from ``predict(pred_leaf=True)``; per tree, the
         gradients of the model's objective at the score of the trees
         refit so far, on the port's device; their leaf sums on the host in
@@ -445,7 +623,8 @@ class Booster:
         trees = new_b._host_trees()
         if not trees:
             raise LightGBMError("Cannot refit an empty model")
-        x = _to_numpy_2d(data)
+        x = (data if _is_sparse(data)
+             else _to_numpy_2d(data, self.pandas_categorical))
         dev = self._device()
         obj = new_b._objective_for_predict()
         if obj is None:

@@ -1,11 +1,14 @@
-"""Feature discretization for dense data.
+"""Feature discretization for dense and scipy-sparse data.
 
 Port of ``lightgbm_tpu/binning.py``: ``BinMapper`` (numerical mappers found
 from a row sample, with the reference's None / Zero / NaN missing modes;
 categorical mappers with count-ordered category bins, :323-370),
 ``find_bin_mappers`` (the ``RandomState`` row sample of :557, with the
-``categorical`` columns of :543) and ``bin_data``. Bin finding is host
-numpy, exactly as in the reference; the bulk encode runs
+``categorical`` columns of :543) and ``bin_data``, and for CSC input
+``find_bin_mappers_sparse`` (:598; only stored values are sampled, the
+rest of the sample counts as zeros), ``bin_sparse_column`` (:644) and
+``bin_data_sparse`` (:657; an absent entry takes the bin of 0.0). Bin
+finding is host numpy, exactly as in the reference; the bulk encode runs
 ``torch.searchsorted`` on the target device with the same f64 comparisons
 as the reference's ``values_to_bins``, so the uint8 bin matrix is the
 reference's byte for byte. A categorical column is encoded by a lookup
@@ -350,6 +353,80 @@ def find_bin_mappers(data: np.ndarray, max_bin: int, min_data_in_bin: int = 3,
                                   bin_type=BIN_CATEGORICAL if j in cats
                                   else BIN_NUMERICAL)
             for j in range(f)]
+
+
+def find_bin_mappers_sparse(csc, max_bin: int, min_data_in_bin: int = 3,
+                            sample_cnt: int = 200000,
+                            use_missing: bool = True,
+                            zero_as_missing: bool = False, seed: int = 1,
+                            max_bin_by_feature: Optional[Sequence[int]] = None,
+                            categorical: Optional[Sequence[int]] = None
+                            ) -> List[BinMapper]:
+    """Per-feature mappers of a scipy CSC matrix without densifying it
+    (reference: find_bin_mappers_sparse, binning.py:598): the same row
+    sample as ``find_bin_mappers``, of which only each column's stored
+    values are handed to ``from_sample``; the rest of the sample counts as
+    implicit zeros through its ``total_cnt``."""
+    n, f = csc.shape
+    if n > sample_cnt:
+        idx = np.sort(np.random.RandomState(seed).choice(n, sample_cnt,
+                                                         replace=False))
+        sub, total = csc[idx].tocsc(), sample_cnt
+    else:
+        sub, total = csc.tocsc(), n
+    per_feat = check_max_bin_by_feature(max_bin_by_feature, f, max_bin)
+    cats = set(categorical or ())
+    return [BinMapper.from_sample(
+        sub.data[sub.indptr[j]:sub.indptr[j + 1]], total, per_feat[j],
+        min_data_in_bin=min_data_in_bin, use_missing=use_missing,
+        zero_as_missing=zero_as_missing,
+        bin_type=BIN_CATEGORICAL if j in cats else BIN_NUMERICAL)
+        for j in range(f)]
+
+
+def sparse_column_bins(mapper: BinMapper, csc, col: int,
+                       device: torch.device
+                       ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """One CSC column binned on ``device``: (the rows of its stored values
+    [nnz] i64, their bins [nnz] i64, the bin of an absent entry, i.e. of
+    0.0)."""
+    lo, hi = int(csc.indptr[col]), int(csc.indptr[col + 1])
+    rows = torch.as_tensor(csc.indices[lo:hi], device=device).to(torch.int64)
+    vals = torch.as_tensor(csc.data[lo:hi], device=device)
+    zero_bin = int(mapper.values_to_bins(np.zeros(1))[0])
+    return rows, mapper.values_to_bins_torch(vals.to(torch.float64)), zero_bin
+
+
+def bin_sparse_column(mapper: BinMapper, csc, col: int,
+                      out_col: np.ndarray) -> None:
+    """Bin one CSC column into ``out_col`` [N] uint8 on the host: absent
+    entries take the bin of 0.0, stored values their own (reference:
+    bin_sparse_column, binning.py:644)."""
+    lo, hi = csc.indptr[col], csc.indptr[col + 1]
+    out_col[:] = np.uint8(mapper.values_to_bins(np.zeros(1))[0])
+    if hi > lo:
+        out_col[csc.indices[lo:hi]] = mapper.values_to_bins(
+            csc.data[lo:hi]).astype(np.uint8)
+
+
+def bin_data_sparse(csc, mappers: Sequence[BinMapper],
+                    columns: Sequence[int],
+                    device: torch.device) -> torch.Tensor:
+    """Encode the raw columns ``columns`` of a scipy CSC matrix with their
+    mappers into a uint8 [N, len(columns)] matrix on ``device`` (reference:
+    bin_data_sparse, binning.py:657), one column's stored values at a
+    time."""
+    out = torch.empty((csc.shape[0], len(columns)), dtype=torch.uint8,
+                      device=device)
+    for k, j in enumerate(columns):
+        if mappers[k].num_bins > 256:
+            raise LightGBMError(f"feature {j}: {mappers[k].num_bins} bins > "
+                                "256 unsupported")
+        rows, bins, zero_bin = sparse_column_bins(mappers[k], csc, int(j),
+                                                  device)
+        out[:, k] = zero_bin
+        out[rows, k] = bins.to(torch.uint8)
+    return out
 
 
 def used_features(mappers: Sequence[BinMapper]) -> List[int]:

@@ -7,7 +7,9 @@ footer), so models move between the two packages and LightGBM tooling.
 A model of K trees an iteration (multiclass) writes ``num_class`` and
 ``num_tree_per_iteration`` = K and is sliced K trees an iteration; a
 loaded model keeps the ``num_class`` of its file. An averaged model (RF)
-writes the ``average_output`` line.
+writes the ``average_output`` line; a model trained on a DataFrame with
+category columns writes their categories on the ``pandas_categorical:``
+line (:96-127).
 """
 from __future__ import annotations
 
@@ -99,10 +101,20 @@ def dump_model_text(booster, trees: List[Tree], num_iteration: int = -1,
     else:
         for key, val in sorted(booster.params.items()):
             body += f"[{key}: {val}]\n"
-    pc = (booster._loaded_meta or {}).get("pandas_categorical")
+    # the training DataFrame's category lists, so that a loaded model
+    # maps a frame's categories to the same codes (reference:
+    # model_text.py:96-109)
+    pc = booster.pandas_categorical
     body += ("end of parameters\n\npandas_categorical:"
-             f"{json.dumps(pc) if pc else 'null'}\n")
+             f"{json.dumps(pc, default=_json_default) if pc else 'null'}\n")
     return body
+
+
+def _json_default(o):
+    """numpy scalars among the categories as Python numbers."""
+    if hasattr(o, "item"):
+        return o.item()
+    raise TypeError(f"not JSON serializable: {type(o)}")
 
 
 def parse_model_text(s: str) -> Tuple[Dict, List[Tree]]:

@@ -24,7 +24,11 @@ Datasets' init scores (:99-104, :598-600), which turn boosting from the
 average off (:651-652); an iteration whose K trees are all stumps ends
 training, and trailing all-stump iterations are popped K trees at a time
 (:1395-1404). A valid set added after training started replays the
-trees so far on its bins (:591-604). DART and RF (``dart.py``,
+trees so far on its bins (:591-604). On EFB-bundled data the grower works
+on bundle columns with the plan's ``BundleArrays`` (:233-242), and every
+replay of a tree on a Dataset's bins (valid sets, DART's drops, init
+models) routes bundle splits by membership, where the reference's replays
+route them by threshold (ROADMAP caveats). DART and RF (``dart.py``,
 ``rf.py``) override the score hooks: ``average_output`` (no shrinkage,
 renewal or bias; :1126, :1571, :1681, :1703) and ``_apply_tree_delta``
 (:1027).
@@ -46,7 +50,7 @@ from ..ops.grow import GrowParams, TreeArrays, grow_tree
 from ..ops.grow_depthwise import grow_tree_depthwise
 from ..ops.histogram import ACC_ROWS_MAX
 from ..ops.predict import bin_tree, route_bins
-from ..ops.split import SplitParams
+from ..ops.split import BundleArrays, SplitParams
 from .tree import Tree
 
 K_EPSILON = 1e-15
@@ -77,7 +81,7 @@ def tree_delta(tree: TreeArrays, data) -> torch.Tensor:
     (route_bins, then the take_small kernel)."""
     return take_small(tree.leaf_value,
                       route_bins(tree, data.bins, data.na_bin_dev,
-                                 data.has_categorical))
+                                 data.routes_by_membership))
 
 
 def _f32(x: float) -> float:
@@ -117,6 +121,25 @@ class GBDT:
             if fs is not None:
                 spec, self._aux = fs
         quant = resolve_quant(config)
+        # the grower's columns: the EFB plan's (bundles and single
+        # features), else one a used feature
+        meta = train_set.bundle_meta
+        columns = (meta.members if meta is not None else
+                   [[(j, 0, m.num_bins)] for j, m in
+                    enumerate(train_set.mappers)])
+        self.bundle = None
+        if meta is not None:
+            # the plan's per-position arrays on the grower's bin axis, the
+            # range and prefix ends clamped to it (gbdt.py:233-242)
+            def on_dev(a, dtype=torch.int64):
+                return torch.as_tensor(a, device=self.device).to(dtype)
+            self.bundle = BundleArrays(
+                range_start=on_dev(meta.range_start[:, :B]),
+                range_end=on_dev(np.minimum(meta.range_end[:, :B], B - 1)),
+                prefix_end=on_dev(np.minimum(meta.prefix_end[:, :B], B - 1)),
+                incl_default=on_dev(meta.incl_default[:, :B], torch.bool),
+                valid=on_dev(meta.valid[:, :B], torch.bool),
+                is_bundle=on_dev(meta.is_bundle, torch.bool))
         self.depthwise = config.grow_policy == "depthwise"
         # the reference's fused-front gate (_fused_front, :695-729): one
         # model an iteration of an objective with a fused spec (unweighted
@@ -135,11 +158,13 @@ class GBDT:
                 min_data_in_leaf=config.min_data_in_leaf,
                 min_sum_hessian_in_leaf=config.min_sum_hessian_in_leaf,
                 max_delta_step=config.max_delta_step,
-                # the used columns with categorical mappers (gbdt.py:111-122;
-                # the port bundles no features)
+                # the columns of one categorical feature (gbdt.py:111-121;
+                # categorical features are never bundled)
                 cat_features=tuple(
-                    i for i, m in enumerate(train_set.mappers)
-                    if m.bin_type == BIN_CATEGORICAL),
+                    c for c, mem in enumerate(columns)
+                    if len(mem) == 1 and train_set.mappers[mem[0][0]].bin_type
+                    == BIN_CATEGORICAL),
+                has_bundles=meta is not None,
                 cat_l2=config.cat_l2, cat_smooth=config.cat_smooth,
                 max_cat_threshold=config.max_cat_threshold,
                 max_cat_to_onehot=config.max_cat_to_onehot,
@@ -209,7 +234,8 @@ class GBDT:
         added later replay them too."""
         ts = self.train_set
         self.init_model_dev = [bin_tree(t, ts.mappers, ts.feature_map,
-                                        self.device) for t in trees]
+                                        self.device, ts.bundle_meta)
+                               for t in trees]
         if self.init_model_dev:
             self.train_score = self.train_score + self.predict_bins(
                 self.init_model_dev, ts)
@@ -330,12 +356,14 @@ class GBDT:
             if self.depthwise:
                 tree, leaf_id, passes = grow_tree_depthwise(
                     ts.bins_T, *ghc, ts.num_bins_dev, ts.na_bin_dev,
-                    self._fmask, gp, qseed=qseed, fused=fused, bins=ts.bins)
+                    self._fmask, gp, qseed=qseed, fused=fused, bins=ts.bins,
+                    bundle=self.bundle)
             else:
                 tree, leaf_id, passes = grow_tree(
                     ts.bins_T, *ghc, ts.num_bins_dev, ts.na_bin_dev,
                     self._fmask, gp, bins=ts.bins,
-                    qseed=qseed if gp.ff_bynode < 1.0 else None)
+                    qseed=qseed if gp.ff_bynode < 1.0 else None,
+                    bundle=self.bundle)
             self.hist_passes.append(passes)
             any_split = any_split or tree.num_leaves > 1
             self._add_tree(tree, leaf_id, cls)
@@ -435,7 +463,7 @@ class GBDT:
                 k: getattr(tree, k).cpu().numpy()
                 for k in TreeArrays._fields if k != "num_leaves"}
             t = Tree.from_device(arrays, tree.num_leaves, ts.mappers,
-                                 ts.feature_map)
+                                 ts.feature_map, ts.bundle_meta)
             t.shrinkage = 1.0 if self.average_output else self.learning_rate
             self.models_host.append(t)
         return self.models_host

@@ -6,7 +6,8 @@ real-valued thresholds through the BinMappers) and its block of the
 reference model-text format (gbdt_model_text.cpp:271, tree.cpp:209-246),
 categorical nodes included: a trained categorical node's member bins
 become its raw categories, written as LightGBM's ``cat_threshold``
-bitsets.
+bitsets; a node on an EFB bundle column becomes the numerical node on
+its original feature, so a bundled model reads as if trained unbundled.
 """
 from __future__ import annotations
 
@@ -66,19 +67,34 @@ class Tree:
     @staticmethod
     def from_device(arrays: Dict[str, np.ndarray], num_leaves: int,
                     mappers: Sequence[BinMapper],
-                    feature_map: Optional[np.ndarray]) -> "Tree":
+                    feature_map: Optional[np.ndarray],
+                    bundle_meta=None) -> "Tree":
         """From host copies of a TreeArrays' fields (reference:
         tree.py:82-138): a numerical node's bin threshold becomes its real
         threshold; a categorical node's member bins become its sorted raw
         categories (bin b holds cat_values[b - 1]; bin 0 and bins past the
         categories are dropped) and its threshold 0 (the category index is
-        written at serialization)."""
+        written at serialization). With an EFB plan (``bundle_meta``) node
+        features are bundle columns: a bundle-subset node at position p of
+        column c becomes a numerical node on pos_feat[c, p] at bin
+        pos_bin[c, p], and a node on a single column one on its
+        feature."""
         nl = int(num_leaves)
         n_int = max(nl - 1, 0)
-        sf = np.asarray(arrays["split_feature"])[:n_int]
-        tb = np.asarray(arrays["threshold_bin"])[:n_int]
-        is_cat = np.asarray(arrays["is_cat"])[:n_int]
+        sf = np.array(arrays["split_feature"][:n_int], dtype=np.int64)
+        tb = np.array(arrays["threshold_bin"][:n_int], dtype=np.int32)
+        is_cat = np.array(arrays["is_cat"][:n_int], dtype=bool)
         cat_mask = np.asarray(arrays["cat_mask"])
+        if bundle_meta is not None:
+            for i in range(n_int):
+                c = int(sf[i])
+                if bundle_meta.is_bundle[c] and is_cat[i]:
+                    p = int(tb[i])
+                    sf[i] = bundle_meta.pos_feat[c, p]
+                    tb[i] = bundle_meta.pos_bin[c, p]
+                    is_cat[i] = False
+                else:
+                    sf[i] = bundle_meta.members[c][0][0]
         thr_real = np.zeros(n_int, dtype=np.float64)
         cat_sets: List[np.ndarray] = []
         for i in range(n_int):

@@ -19,7 +19,8 @@ from ..utils import threefry
 from . import hist_kernels as K
 from . import histogram as H
 from .scan import tree_sum
-from .split import NEG_INF, SplitParams, SplitResult, best_split, leaf_output
+from .split import (NEG_INF, BundleArrays, SplitParams, SplitResult,
+                    best_split, leaf_output)
 
 
 @dataclass(frozen=True)
@@ -104,7 +105,8 @@ def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
               c: torch.Tensor, num_bins: torch.Tensor, na_bin: torch.Tensor,
               feature_mask: torch.Tensor, gp: GrowParams,
               bins: Optional[torch.Tensor] = None,
-              qseed: Optional[int] = None
+              qseed: Optional[int] = None,
+              bundle: Optional[BundleArrays] = None
               ) -> Tuple[TreeArrays, torch.Tensor, int]:
     """Grow one tree leaf-wise (best-first), unquantized.
 
@@ -112,17 +114,17 @@ def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
     rows (already masked by the bag); num_bins / na_bin [F] i32 (na_bin >=
     B means no missing bin); feature_mask [F] bool; bins the row-major
     [N, F] copy of bins_T, which the split passes' slot histogram needs on
-    the card. Returns (TreeArrays, leaf_id [N] i32, number of split
-    passes).
+    the card; ``bundle`` the EFB arrays when ``gp.split.has_bundles``.
+    Returns (TreeArrays, leaf_id [N] i32, number of split passes).
 
     Each split step t takes the leaf with the best gain (the first on
     ties, as ``jnp.argmax``), partitions its rows with a vectorized
-    ``where`` on the leaf ids (by threshold, or by category membership),
-    builds the smaller child's histogram with one ``hist_f32`` pass over a
-    slot vector (the smaller child's rows in slot 0, every other row
-    dropped: the reference's masked full-width pass) and the sibling's by
-    subtraction from the parent, then searches both children's best
-    splits at once. Node t is created by step t and its right child is
+    ``where`` on the leaf ids (by threshold, or by membership for a
+    categorical or bundle split), builds the smaller child's histogram
+    with one ``hist_f32`` pass over a slot vector (the smaller child's
+    rows in slot 0, every other row dropped: the reference's masked
+    full-width pass) and the sibling's by subtraction from the parent,
+    then searches both children's best splits at once. Node t is created by step t and its right child is
     leaf t + 1. The reference runs the L - 1 steps in one ``lax.scan``;
     here the step loop runs on the host and reads the chosen leaf and its
     "can split" flag once a step, the one host sync of
@@ -137,7 +139,7 @@ def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
     ones = torch.ones(2, dtype=torch.bool, device=dev)
     best0 = best_split(hist0[None], num_bins, na_bin, g0[None], h0[None],
                        c0[None], node_feature_mask(feature_mask, gp, qseed, L),
-                       sp, ones[:1])
+                       sp, ones[:1], bundle)
 
     def tile(x: torch.Tensor, fill) -> torch.Tensor:
         out = torch.full((L,), fill, dtype=x.dtype, device=dev)
@@ -179,9 +181,9 @@ def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
         is_na = col == na_bin.index_select(0, feat.view(1))
         go_right = torch.where(is_na, ~best.default_left[l],
                                col > best.bin[l])
-        if sp.cat_features:
-            # a categorical split sends its member bins left (reference:
-            # grow.py:355-358)
+        if sp.cat_features or sp.has_bundles:
+            # a categorical or bundle split sends its member bins left
+            # (reference: grow.py:355-358)
             go_right = torch.where(best.is_cat[l],
                                    ~best.cat_member[l][col.long()], go_right)
         leaf_id = torch.where((leaf_id == l) & go_right, new_leaf, leaf_id)
@@ -233,7 +235,7 @@ def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
         ch_mask = node_feature_mask(feature_mask.expand(2, f), gp, qseed, t)
         bs = best_split(torch.stack([hist_left, hist_right]), num_bins,
                         na_bin, torch.stack([lg, rg]), torch.stack([lh, rh]),
-                        torch.stack([lc, rc]), ch_mask, sp, allow)
+                        torch.stack([lc, rc]), ch_mask, sp, allow, bundle)
         for arr, vals in zip(best, bs):
             arr[l] = vals[0]
             arr[new_leaf] = vals[1]

@@ -16,8 +16,9 @@ quantized path: ``hist_q8`` once for the root, ``route_level`` and
 (``gp.quant`` off): ``hist_f32`` once for the root, ``route_level`` and
 ``hist_f32`` once per such level, and no leaf renewal (the leaf values
 are those of the split records, which the f32 histograms give). A level
-with a categorical split hands the routing each leaf's membership bitset
-(one more host read of the level, only with categorical features).
+with a categorical or an EFB bundle split hands the routing each leaf's
+membership bitset (one more host read of the level, only with categorical
+features or bundles).
 The reference builds the whole tree inside one jitted program with
 fixed-width masked scatters; here the level schedule is a Python loop that
 reads the level's split count to the host once per level, and the level
@@ -36,7 +37,7 @@ from . import hist_kernels as K
 from . import histogram as H
 from .grow import GrowParams, TreeArrays, empty_tree, node_feature_mask
 from .scan import tree_sum
-from .split import NEG_INF, best_split, leaf_output
+from .split import NEG_INF, BundleArrays, best_split, leaf_output
 
 # the reference's master slot widths and slot floor on its kernel path
 # (pallas_hist.MASTER_SLOT_WIDTHS, grow_depthwise._SLOT_FLOOR)
@@ -68,7 +69,8 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
                         feature_mask: torch.Tensor, gp: GrowParams, qseed: int,
                         fused: Optional[Tuple[torch.Tensor, torch.Tensor,
                                               torch.Tensor]] = None,
-                        bins: Optional[torch.Tensor] = None
+                        bins: Optional[torch.Tensor] = None,
+                        bundle: Optional[BundleArrays] = None
                         ) -> Tuple[TreeArrays, torch.Tensor, int]:
     """Grow one tree level-wise.
 
@@ -79,8 +81,8 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
     bag) rows for the fused front, valid only with gp.quant and
     gp.fused_obj set; g/h/c are then unused (None) and the gradients are
     recomputed in the kernels. ``bins``: the row-major [N, F] copy of
-    bins_T, which the level passes' slot histograms need on the card.
-    Returns (TreeArrays, leaf_id [N] i32, number of level passes)."""
+    bins_T, which the level passes' slot histograms need on the card;
+    ``bundle`` the EFB arrays when ``gp.split.has_bundles``. Returns (TreeArrays, leaf_id [N] i32, number of level passes)."""
     f, n = bins_T.shape
     dev = bins_T.device
     L, B = gp.num_leaves, gp.max_bin
@@ -132,7 +134,7 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
         search_mask = node_feature_mask(feature_mask.expand(L, f), gp, qseed,
                                         lvl)
         res = best_split(hist, num_bins, na_bin, leaf_g, leaf_h, leaf_c,
-                         search_mask, sp, active)
+                         search_mask, sp, active, bundle)
         # budgeted selection: top-gain candidates win, ties by leaf index
         cand = active & (res.gain > gain_gate) & (res.gain > NEG_INF / 2)
         key = torch.where(cand, res.gain,
@@ -178,7 +180,7 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
         tree.internal_weight[nid] = (lh + rh)[si]
         tree.internal_count[nid] = (lc + rc)[si]
         cat_sel = None
-        if sp.cat_features:
+        if sp.cat_features or sp.has_bundles:
             tree.is_cat[nid] = res.is_cat[si]
             tree.cat_mask[nid] = res.cat_member[si]
             cat_sel = res.is_cat & sel
@@ -196,8 +198,9 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
             new_leaf=new_leaf,
             slot_left=torch.where(sel & small_is_left, idx_in_lvl, sentinel),
             slot_right=torch.where(sel & ~small_is_left, idx_in_lvl, sentinel),
-            # a level with a categorical split routes by membership
-            # (reference: grow_depthwise.py:521-524); others pass no bitset
+            # a level with a categorical or bundle split routes by
+            # membership (reference: grow_depthwise.py:521-524); others
+            # pass no bitset
             is_cat=cat_sel,
             member=(None if cat_sel is None
                     else res.cat_member & sel[:, None]))

@@ -27,8 +27,8 @@ def route_bins(tree: TreeArrays, bins: torch.Tensor,
                na_bin: torch.Tensor, categorical: bool = False
                ) -> torch.Tensor:
     """Leaf index [N] i64 of each row of a binned matrix [N, F] u8; with
-    ``categorical`` (data with a categorical feature), a categorical node
-    sends the bins of its cat_mask left."""
+    ``categorical`` (data with a categorical feature or an EFB bundle), a
+    node with is_cat set sends the bins of its cat_mask left."""
     n = bins.shape[0]
     if tree.num_leaves <= 1:
         return torch.zeros(n, dtype=torch.int64, device=bins.device)
@@ -54,30 +54,52 @@ def route_bins(tree: TreeArrays, bins: torch.Tensor,
     return ~ptr
 
 
-def bin_tree(t: Tree, mappers, feature_map, device: torch.device
-             ) -> TreeArrays:
+def bin_tree(t: Tree, mappers, feature_map, device: torch.device,
+             bundle_meta=None) -> TreeArrays:
     """A host tree as device TreeArrays on a Dataset's bins (reference:
     engine._predict_via_trees, :354-387): each node's real threshold mapped
     to its bin by the node feature's mapper (a feature the Dataset does not
     use maps to used feature 0, as there), a categorical node's categories
-    to the bins that hold them, f32 leaf values."""
+    to the bins that hold them, f32 leaf values.
+
+    With an EFB plan (``bundle_meta``) a node goes to its feature's column,
+    and a numerical node on a bundled feature j at bin t becomes a
+    membership node on j's bundle column (the inverse of
+    ``Tree.from_device``): j's positions whose original bin is <= t go
+    left, and every bin outside j's range (the rows where j is at its
+    default) too when its default bin is <= t. The reference replays such
+    a node by threshold on the bundle column (ROADMAP caveats)."""
     inv = ({int(orig): used for used, orig in enumerate(feature_map)}
            if feature_map is not None else None)
     n_int = max(t.num_leaves - 1, 1)
     sf = np.zeros(n_int, dtype=np.int32)
     tb = np.zeros(n_int, dtype=np.int32)
-    width = max((m.num_bins for m in mappers), default=1)
+    is_cat = np.zeros(n_int, dtype=bool)
+    is_cat[:t.num_leaves - 1] = t.is_cat_node
+    column = {j: (j, 0) for j in range(len(mappers))}
+    if bundle_meta is not None:
+        column = {j: (c, off) for c, mem in enumerate(bundle_meta.members)
+                  for j, off, _ in mem}
+    width = (int(np.max(bundle_meta.num_bins)) if bundle_meta is not None
+             else max((m.num_bins for m in mappers), default=1))
     cat_mask = np.zeros((n_int, width), dtype=bool)
     for i in range(t.num_leaves - 1):
         orig = int(t.split_feature[i])
         used = inv.get(orig, 0) if inv is not None else orig
-        sf[i] = used
+        c, off = column[used]
+        sf[i] = c
         m = mappers[used]
         if t.is_cat_node[i]:
             cat_mask[i, 1:m.num_bins] = np.isin(
                 m.cat_values[:m.num_bins - 1], t.cat_sets[i])
             continue
         tb[i] = int(m.values_to_bins(np.array([t.threshold_real[i]]))[0])
+        if bundle_meta is not None and bundle_meta.is_bundle[c]:
+            db = int(bundle_meta.default_bin[used])
+            ob = np.array([b for b in range(m.num_bins) if b != db])
+            cat_mask[i] = db <= tb[i]
+            cat_mask[i, off:off + len(ob)] = ob <= tb[i]
+            is_cat[i] = True
 
     def dev(a, dtype, size=n_int):
         out = np.zeros(size, dtype=dtype)
@@ -95,7 +117,7 @@ def bin_tree(t: Tree, mappers, feature_map, device: torch.device
         leaf_weight=dev([], np.float32, nl),
         leaf_count=dev([], np.float32, nl),
         internal_value=zf, internal_weight=zf, internal_count=zf,
-        is_cat=dev(t.is_cat_node, bool),
+        is_cat=torch.as_tensor(is_cat, device=device),
         cat_mask=torch.as_tensor(cat_mask, device=device), num_leaves=nl)
 
 

@@ -9,11 +9,16 @@ gain band; and categorical features (``SplitParams.cat_features``,
 sorted k-subset scan in ascending and descending order of g / (h +
 cat_smooth), with ``cat_l2``, ``cat_smooth``, ``max_cat_threshold`` and
 ``min_data_per_group``, decoded into ``SplitResult.is_cat`` and the
-``cat_member [L, B]`` bins that go left (:528-566). The whole
+``cat_member [L, B]`` bins that go left (:528-566); and the EFB bundle
+columns (``SplitParams.has_bundles`` with ``BundleArrays``, :450-495):
+each bundle position is its member's candidate "original bin <=
+pos_bin", its left side a range of the column's prefix sums plus, when the
+threshold covers the member's default bin, everything outside that range;
+the winner routes as the bin-subset ``cat_member`` (:569-591). The whole
 ``[L, 3, F, B]`` frontier is searched at once: prefix sums over the bin
 axis give the left-side stats of every threshold, and one masked election
-over the sections ``[num_r, num_l, onehot, asc, desc]`` picks each leaf's
-split, so the lowest flat index wins a tie as in the reference.
+over the sections ``[num_r, num_l, onehot, asc, desc, bundle]`` picks each
+leaf's split, so the lowest flat index wins a tie as in the reference.
 
 Every f32 operation is the reference's, in its order; the bin-axis prefix
 sums use the reference's summation order (``scan.blocked_cumsum``), so on
@@ -25,7 +30,7 @@ invalid bins last) and a gather the same sorted stats.
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -54,13 +59,28 @@ class SplitParams:
     max_cat_threshold: int = 32
     max_cat_to_onehot: int = 4
     min_data_per_group: int = 100
+    # the Dataset has EFB bundle columns (searched through BundleArrays)
+    has_bundles: bool = False
+
+
+class BundleArrays(NamedTuple):
+    """The EFB plan's per-position arrays on the device (``efb.BundleMeta``
+    sliced to the grower's bin axis), all [F, B] but is_bundle [F]."""
+    range_start: torch.Tensor
+    range_end: torch.Tensor
+    prefix_end: torch.Tensor
+    incl_default: torch.Tensor
+    valid: torch.Tensor
+    is_bundle: torch.Tensor
 
 
 class SplitResult(NamedTuple):
     """Best split per leaf (reference analog: SplitInfo). All [L] but
     cat_member [L, B]. A categorical split (is_cat) sends the bins of
     cat_member left and every other bin right; its ``bin`` is the subset
-    size - 1, or the one-hot bin."""
+    size - 1, or the one-hot bin; a bundle split (is_cat too) sends its
+    range and, with its default, the bins outside it left, and its
+    ``feature`` and ``bin`` are the bundle column and position."""
     gain: torch.Tensor          # improvement; NEG_INF where no split
     feature: torch.Tensor       # i64
     bin: torch.Tensor           # i64 threshold bin (left if bin <= threshold)
@@ -101,13 +121,15 @@ def best_split(hist: torch.Tensor, num_bins: torch.Tensor,
                na_bin: torch.Tensor, parent_g: torch.Tensor,
                parent_h: torch.Tensor, parent_cnt: torch.Tensor,
                feature_mask: torch.Tensor, p: SplitParams,
-               allow_split: torch.Tensor) -> SplitResult:
+               allow_split: torch.Tensor,
+               bundle: Optional[BundleArrays] = None) -> SplitResult:
     """Best split of every leaf of a frontier.
 
     hist [L, 3, F, B] channel-major (grad, hess, count) f32; num_bins [F]
     bins per feature; na_bin [F] missing-bin index (>= B when none);
     parent_g/h/cnt and allow_split [L]; feature_mask [F] bool, or [L, F]
-    for a mask per leaf (feature_fraction_bynode)."""
+    for a mask per leaf (feature_fraction_bynode); ``bundle`` the EFB
+    arrays when ``p.has_bundles``."""
     L, _, f, b = hist.shape
     dev = hist.device
     iota = torch.arange(b, device=dev)[None, None, :]              # [1,1,B]
@@ -142,6 +164,10 @@ def best_split(hist: torch.Tensor, num_bins: torch.Tensor,
         is_num = torch.ones(f, dtype=torch.bool, device=dev)
         is_num[cat_idx] = False
         valid_t = valid_t & is_num[None, :, None]
+    bun = bundle if p.has_bundles else None
+    if bun is not None:
+        # so do bundle columns: the bundle plane scores them
+        valid_t = valid_t & ~bun.is_bundle[None, :, None]
     has_na = na < b
     neg = torch.full_like(gain_r, NEG_INF)
     gain_r = torch.where(valid_t, gain_r, neg)
@@ -153,6 +179,9 @@ def best_split(hist: torch.Tensor, num_bins: torch.Tensor,
                                p) if cat_idx else None)
     if cat is not None:
         sections += [x.reshape(L, -1) for x in cat.gains]
+    if bun is not None:
+        lB, gain_b = _bundle_plane(cum, pg, ph, pc, fm_lf, bun, p)
+        sections.append(gain_b.reshape(L, f * b))
     gains = torch.cat(sections, dim=1)
     n_flat = gains.shape[1]
     best_raw = gains.max(dim=1).values
@@ -179,6 +208,11 @@ def best_split(hist: torch.Tensor, num_bins: torch.Tensor,
     if cat is not None:
         is_cat, feat, tbin, member, left = _decode_categorical(
             cat, flat, 2 * f * b, lidx, feat, tbin, left)
+    if bun is not None:
+        n_cat = 0 if cat is None else sum(x[0].numel() for x in cat.gains)
+        is_cat, feat, tbin, member, left = _decode_bundle(
+            bun, lB, flat, 2 * f * b + n_cat, lidx, is_cat, feat, tbin,
+            member, left)
 
     improvement = best_gain - parent_gain
     found = (allow_split & (best_gain > NEG_INF / 2)
@@ -314,3 +348,64 @@ def _decode_categorical(cat: _CatPlanes, flat, n_num: int, lidx, feat, tbin,
                                     cat.desc[ch][lidx, cf, ck]))
         out.append(torch.where(is_cat, v, left[ch]))
     return is_cat, feat, tbin, member, out
+
+
+def _bundle_plane(cum, pg, ph, pc, fm_lf, bun: BundleArrays,
+                  p: SplitParams):
+    """The left stats ([L, 3, F, B]) and gains ([L, F, B]) of every bundle
+    position (reference: split.py:450-495): the range's prefix through
+    prefix_end, plus the parent minus the whole range where the candidate
+    takes the default side. The prefix sums are read at range_start - 1,
+    range_end and prefix_end; prefix_end below range_start is the empty
+    prefix (the candidate "t == default" at default bin 0)."""
+    shape = cum.shape
+
+    def at(idx):
+        return torch.gather(cum, -1, idx.to(torch.int64)[None, None]
+                            .expand(shape))
+
+    rs = bun.range_start[None, None]
+    pe = bun.prefix_end[None, None]
+    cum_start = at((bun.range_start - 1).clamp(min=0))
+    cum_end = at(bun.range_end)
+    cum_pe = at(bun.prefix_end.clamp(min=0))
+    zero = torch.zeros((), dtype=cum.dtype, device=cum.device)
+    prefix = torch.where(pe >= rs, cum_pe - cum_start, zero)
+    rng_tot = cum_end - cum_start
+    incl = bun.incl_default.to(torch.float32)[None, None]
+    par = torch.stack([pg, ph, pc], dim=1)                  # [L, 3, 1, 1]
+    lB = prefix + incl * (par - rng_tot)
+    lg, lh, lc = lB[:, 0], lB[:, 1], lB[:, 2]
+    rg, rh, rc = pg - lg, ph - lh, pc - lc
+    ok = ((lc >= p.min_data_in_leaf) & (rc >= p.min_data_in_leaf)
+          & (lh >= p.min_sum_hessian_in_leaf)
+          & (rh >= p.min_sum_hessian_in_leaf)
+          & bun.valid[None] & bun.is_bundle[None, :, None]
+          & fm_lf[:, :, None])
+    gain = leaf_split_gain(lg, lh, p) + leaf_split_gain(rg, rh, p)
+    return lB, torch.where(ok, gain, torch.full_like(gain, NEG_INF))
+
+
+def _decode_bundle(bun: BundleArrays, lB, flat, base: int, lidx, is_cat,
+                   feat, tbin, member, left):
+    """The winner of the bundle section: its column and position, the
+    bins that go left (the range through prefix_end, and every bin outside
+    the range when it takes the default side) and its left stats
+    (reference: split.py:569-591)."""
+    b = member.shape[1]
+    bflat = torch.clamp(flat - base, min=0)
+    bf = bflat // b
+    bp = bflat % b
+    is_bun = flat >= base
+    start = bun.range_start[bf, bp][:, None]
+    end = bun.range_end[bf, bp][:, None]
+    pe = bun.prefix_end[bf, bp][:, None]
+    incl = bun.incl_default[bf, bp][:, None]
+    iota = torch.arange(b, device=flat.device)[None, :]
+    mem_b = (((iota >= start) & (iota <= pe))
+             | (incl & ((iota < start) | (iota > end))))
+    out = [torch.where(is_bun, lB[lidx, ch, bf, bp], left[ch])
+           for ch in range(3)]
+    return (is_cat | is_bun, torch.where(is_bun, bf, feat),
+            torch.where(is_bun, bp, tbin),
+            torch.where(is_bun[:, None], mem_b, member), out)

@@ -56,7 +56,11 @@ leaves (an is_cat row and membership bitsets) equal their plain versions
 exactly, at F = 8, B = 256 and with tables too large for shared memory;
 the first tree of a categorical model on exact-sum labels trained on the
 card has the CPU tree's structure and categories (leaf values as with
-weights).
+weights). EFB bundles: route_level with bundle leaves (a member's range
+plus the bins outside it in the bitset) and hist_q8 handed its slots and
+counts equal their plain versions exactly at F = 16, B = 256; a bundled
+model's first tree trained on the card from a CSR matrix and from the
+dense array has the CPU tree's structure (leaf values as with weights).
 """
 import os
 import subprocess
@@ -1089,6 +1093,117 @@ def test_gpu_categorical_first_tree_equals_cpu(dev, extra):
         np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
     for ca, cb in zip(a.cat_sets, b.cat_sets):
         np.testing.assert_array_equal(ca, cb)
+    if runs[0]._gbdt.gp.quant:
+        np.testing.assert_allclose(a.leaf_value, b.leaf_value, rtol=0,
+                                   atol=1e-6 * np.abs(b.leaf_value).max())
+    else:
+        np.testing.assert_array_equal(a.leaf_value, b.leaf_value)
+
+
+def _bundle_level(dev, n, s, f=16, singles=6, b=256, seed=12):
+    """A level at path (l)'s shape: six single columns (bins uniform) and
+    ten bundle columns of 127 one-hot members (bin 0, every member at its
+    default, on a third of the rows, else member k's position 2k + 2);
+    route tables mixing numerical splits on the single columns with
+    bundle splits (the is_cat row) whose bitsets send a member's first
+    position and every bin outside its range left, or every bin outside
+    it ("t == default")."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    l = 255
+
+    def randint(hi, size):
+        return torch.randint(0, hi, size, generator=g, device=dev,
+                             dtype=torch.int64)
+
+    def rand(size):
+        return torch.rand(size, generator=g, device=dev)
+    cols = []
+    for j in range(f):
+        if j < singles:
+            cols.append(randint(b, (n,)))
+        else:
+            cols.append(torch.where(rand(n) < 1 / 3, 0, 2 * randint(127, (n,))
+                                    + 2))
+    bins_T = torch.stack(cols).to(torch.uint8).contiguous()
+    lid = randint(min(l, 2 * s), (n,)).to(torch.int32)
+    k = torch.arange(l, device=dev)
+    split = k < s
+    small_left = (rand(l) < 0.5) | (k == 0)
+    feat = torch.where(split, randint(f, (l,)), -1)
+    is_cat = split & (feat >= singles)
+    off = 1 + 2 * randint(127, (l,))[:, None]
+    iota = torch.arange(b, device=dev)[None, :]
+    member = ((iota < off) | (iota > off + 1)
+              | ((rand(l)[:, None] < 0.5) & (iota == off)))
+    tab = torch.stack([feat, randint(b - 1, (l,)), torch.zeros_like(k),
+                       s + k, torch.where(split & small_left, k, s),
+                       torch.where(split & ~small_left, k, s),
+                       is_cat]).to(torch.int32).contiguous()
+    chans = (randint(255, (n,)).sub(127).to(torch.int8),
+             randint(128, (n,)).to(torch.int8),
+             (rand(n) < 0.9).to(torch.int8))
+    na = torch.full((f,), 256, dtype=torch.int32, device=dev)
+    return bins_T, lid, tab, hk.member_bitset(member), na, chans
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [32, 127])
+def test_bundle_bitset_routing_and_counted_slot_hist_equal_plain(dev, s):
+    # exact: route_level routes bundle leaves by their bitsets (a range
+    # plus the bins outside it) at F = 16, B = 256 (path (l): F * B = 4096,
+    # the unfused front), and hist_q8 handed route_level's slots and
+    # counts equals hist_q8_plain on those slots (3 channels)
+    bins_T, lid, tab, bits, na, (gq, hq, cq) = _bundle_level(dev, 200_000, s)
+    args = (bins_T, lid, tab, na, s)
+    slot, lid2, counts = hk.route_level(*args, catbits=bits)
+    for a, p in zip((slot, lid2, counts), hk.route_plain(*args,
+                                                         catbits=bits)):
+        assert torch.equal(a, p)
+    assert not torch.equal(lid2, hk.route_plain(bins_T, lid, tab[:6]
+                                                .contiguous(), na, s)[1])
+    hist_args = (bins_T, gq, hq, cq, slot, s, 256)
+    assert torch.equal(hk.hist_q8(*hist_args, bins=bins_T.t().contiguous(),
+                                  counts=counts),
+                       hk.hist_q8_plain(*hist_args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", [{"use_quantized_grad": "true"},
+                                   {"use_quantized_grad": "false"},
+                                   {"grow_policy": "lossguide"}])
+def test_gpu_bundled_first_tree_equals_cpu(dev, extra):
+    # 4000 rows of three one-hot blocks (40, 12 and 6 codes) beside two
+    # numeric columns, which bundle, on exact-sum labels: the first tree
+    # trained on the card from the CSR matrix and from the dense array
+    # has the CPU tree's structure, its leaf values bit for bit
+    # unquantized and within 1e-6 of the largest quantized
+    import scipy.sparse as sps
+    rng = np.random.RandomState(8)
+    n, blocks = 4000, (40, 12, 6)
+    X = np.zeros((n, 2 + sum(blocks)), np.float32)
+    X[:, :2] = rng.rand(n, 2)
+    lat = X[:, 0] * 2
+    off = 2
+    for k in blocks:
+        code = rng.randint(0, k, n)
+        X[np.arange(n), off + code] = 1.0
+        lat += rng.normal(size=k)[code]
+        off += k
+    y = np.clip(np.floor(lat * 8) / 8, -4, 3.875).astype(np.float32)
+    runs = []
+    for data, kw in ((sps.csr_matrix(X), {}), (X, {}),
+                     (sps.csr_matrix(X), {"device_type": "cpu"})):
+        params = {"objective": "regression", "num_leaves": 31,
+                  "max_bin": 63, "min_data_in_leaf": 20, "verbosity": -1,
+                  "boost_from_average": False, **extra, **kw}
+        runs.append(lt.train(params, lt.Dataset(data, label=y,
+                                                params=params), 1))
+    assert runs[0].train_set.bundle_meta is not None
+    assert runs[0].model_to_string() == runs[1].model_to_string()
+    (a,), (b,) = runs[0]._host_trees(), runs[2]._host_trees()
+    assert a.num_leaves == b.num_leaves > 4
+    for name in STRUCT:
+        np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
     if runs[0]._gbdt.gp.quant:
         np.testing.assert_allclose(a.leaf_value, b.leaf_value, rtol=0,
                                    atol=1e-6 * np.abs(b.leaf_value).max())

@@ -528,32 +528,49 @@ def test_bagging_fraction_without_bagging_freq_trains_as_reference():
 
 # row weights train since A11a (test_torch_objectives.py), Dataset group
 # since A11b (test_torch_ranking.py) and init_score since A14
-# (test_torch_boosters.py): those cases hold sparse and pandas input (A12b)
-# under their old ids; categorical_feature trains since A12a
-# (test_torch_categorical.py), and its case holds a pandas categorical
-# column (A12b) under its old id
-@pytest.mark.parametrize("kw,item", [
-    pytest.param({"data": "sparse"}, "A12", id="kw0-A11"),
-    pytest.param({"data": "pandas_categorical"}, "A12", id="kw1-A12"),
-    pytest.param({"data": "pandas"}, "A12", id="kw2-A14")])
-def test_out_of_slice_dataset_arguments_raise(kw, item):
+# (test_torch_boosters.py): those cases held sparse and pandas input under
+# their old ids; categorical_feature trains since A12a
+# (test_torch_categorical.py), and its case held a pandas categorical
+# column under its old id. Sparse and pandas input train since A12b: the
+# test keeps its name and ids and holds each input against the reference
+@pytest.mark.parametrize("kind", [
+    pytest.param("sparse", id="kw0-A11"),
+    pytest.param("pandas_categorical", id="kw1-A12"),
+    pytest.param("pandas", id="kw2-A14")])
+def test_out_of_slice_dataset_arguments_raise(kind):
+    # exact: the first tree of a binary model (structure, categories; queue
+    # C1) trained from a CSR matrix, a DataFrame with a category column
+    # ("auto" takes it as categorical) or a numeric DataFrame equals the
+    # reference's on the same input; predictions of that tree rtol 1e-4
+    # (queue C2) on the same input
     X, yb, _ = _data()
-    kw = dict(kw)
-    pd = lambda: __import__("pandas")  # noqa: E731
+    pd = (pytest.importorskip("pandas") if kind.startswith("pandas")
+          else None)
     data = {"sparse": lambda: __import__("scipy.sparse").sparse.csr_matrix(X),
-            "pandas": lambda: pd().DataFrame(X),
-            "pandas_categorical": lambda: pd().DataFrame(
-                {"c": pd().Categorical(np.round(X[:, 0] * 4)), "x": X[:, 1]}),
-            None: lambda: X}[kw.pop("data", None)]()
-    with pytest.raises(NotImplementedError, match=item):
-        lt.Dataset(data, label=yb, params=CPU, **kw)
+            "pandas": lambda: pd.DataFrame(X),
+            "pandas_categorical": lambda: pd.DataFrame(
+                {"c": pd.Categorical(np.round(X[:, 0] * 4)),
+                 "x": X[:, 1]})}[kind]()
+    p = dict(PALLAS_PARAMS, objective="binary")
+    ref = lgb.train(p, lgb.Dataset(data, label=yb, params=p), 2)
+    port = lt.train(dict(p, **CPU), lt.Dataset(data, label=yb,
+                                               params=dict(p, **CPU)), 2)
+    rt, ptr = _trees(ref, port)
+    for name in STRUCT + ("is_cat_node",):
+        np.testing.assert_array_equal(getattr(ptr[0], name),
+                                      getattr(rt[0], name), err_msg=name)
+    assert ptr[0].is_cat_node.any() == (kind == "pandas_categorical")
+    np.testing.assert_allclose(port.predict(data, num_iteration=1),
+                               ref.predict(data, num_iteration=1), rtol=1e-4)
 
 
 @pytest.mark.parametrize("exclusive", [True, False])
 def test_refuses_exactly_the_data_the_reference_bundles(exclusive):
-    # EFB is queue A12: the port must raise where the reference's plan
-    # bundles (mutually exclusive sparse columns) and train where it does
-    # not (sparse columns that overlap), and train with bundling off
+    # the data the reference bundles (mutually exclusive sparse columns)
+    # and the data it does not (sparse columns that overlap) both train;
+    # the port bundles exactly where the reference does (EFB, A12b), and
+    # its first tree equals the reference's (structure exact, queue C1);
+    # with bundling off the same data trains unbundled
     rng = np.random.RandomState(1)
     X, yb, _ = _data()
     X[:, :4] = 0.0
@@ -567,10 +584,18 @@ def test_refuses_exactly_the_data_the_reference_bundles(exclusive):
     assert (ref_ds.bundle_meta is not None) == exclusive
     pt = dict(p, **CPU)
     if exclusive:
-        with pytest.raises(NotImplementedError, match="A12"):
-            lt.train(pt, lt.Dataset(X, label=yb, params=pt), 1)
+        ref = lgb.train(p, ref_ds, 1)
+        port = lt.train(pt, lt.Dataset(X, label=yb, params=pt), 1)
+        assert port.train_set.bundle_meta is not None
+        rt, ptr = _trees(ref, port)
+        for name in STRUCT:
+            np.testing.assert_array_equal(getattr(ptr[0], name),
+                                          getattr(rt[0], name), err_msg=name)
+        np.testing.assert_allclose(port.predict(X), ref.predict(X),
+                                   rtol=1e-4)
         pt["enable_bundle"] = False
-    assert lt.train(pt, lt.Dataset(X, label=yb, params=pt), 1).num_trees()
+    off = lt.train(pt, lt.Dataset(X, label=yb, params=pt), 1)
+    assert off.num_trees() and off.train_set.bundle_meta is None
 
 
 def test_train_feature_name_matches_reference():
