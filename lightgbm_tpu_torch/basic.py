@@ -22,6 +22,7 @@ moves to the CPU on its own.
 """
 from __future__ import annotations
 
+import json
 import os
 import time
 from typing import Any, Callable, Dict, List, Optional, Union
@@ -35,7 +36,7 @@ from .binning import (BIN_CATEGORICAL, bin_data, bin_data_sparse,
 from . import efb
 from .config import Config, boosting_kind, check_slice, params_to_config
 from .io import model_text
-from .log import LightGBMError
+from .log import LightGBMError, warning
 from .metrics import create_metrics, default_metric_for_objective
 from .models.dart import DART
 from .models.gbdt import GBDT
@@ -285,6 +286,13 @@ class Dataset:
             else:
                 raw = _to_numpy_2d(self.raw_data)
             find = find_bin_mappers_sparse if sparse else find_bin_mappers
+            forced_bins = None
+            if conf.forcedbins_filename:
+                # a JSON list of {"feature", "bin_upper_bound"} (reference:
+                # basic.py:245-256)
+                with open(conf.forcedbins_filename) as fh:
+                    forced_bins = {int(e["feature"]): e["bin_upper_bound"]
+                                   for e in json.load(fh)}
             mappers = find(
                 raw, max_bin=conf.max_bin, min_data_in_bin=conf.min_data_in_bin,
                 sample_cnt=conf.bin_construct_sample_cnt,
@@ -293,7 +301,8 @@ class Dataset:
                 seed=conf.data_random_seed,
                 max_bin_by_feature=conf.max_bin_by_feature,
                 categorical=self._resolve_categorical(conf, raw.shape[1],
-                                                      columns))
+                                                      columns),
+                forced_bins=forced_bins)
             used = used_features(mappers)
             self.mappers = [mappers[j] for j in used]
             self.feature_map = np.asarray(used, dtype=np.int32)
@@ -337,12 +346,20 @@ class Dataset:
                   ) -> Optional[efb.BundleMeta]:
         """The EFB plan of the train set, or None (reference: _plan_efb,
         basic.py:457-512): ``efb.plan_bundles`` on the used features' bins
-        of the 50,000-row plan sample. The reference keeps monotone
-        features out of bundles and turns bundling off under
-        feature_contri (:468-482); both settings are refused until A12c
-        (``config.check_slice``), so nothing is excluded here."""
+        of the 50,000-row plan sample. Monotone-constrained features stay
+        out of bundles (the bundle plane has no direction filter), and a
+        feature_contri other than all ones turns bundling off (one gain
+        multiplier a column cannot hold its members' own; :468-482)."""
         if not conf.enable_bundle or len(self.mappers) < 3:
             return None
+        if any(float(v) != 1.0 for v in (conf.feature_contri or [])):
+            warning("EFB bundling is disabled because feature_contri is set "
+                    "(per-feature gain multipliers cannot apply to merged "
+                    "bundle columns)")
+            return None
+        mc = list(conf.monotone_constraints or [])
+        exclude = [u for u, orig in enumerate(self.feature_map)
+                   if int(orig) < len(mc) and mc[int(orig)] != 0]
         idx = efb.plan_sample_index(raw.shape[0], conf.data_random_seed)
         if sparse:
             sample = raw if idx is None else raw[idx].tocsc()
@@ -361,7 +378,7 @@ class Dataset:
             max_conflict_rate=conf.max_conflict_rate,
             sparse_threshold=conf.sparse_threshold,
             sample_cnt=sample_bins.shape[0], seed=conf.data_random_seed,
-            exclude=())
+            exclude=exclude)
 
     def _encode(self, raw, sparse: bool) -> torch.Tensor:
         """The uint8 [N, F] bins on the device: one column a used feature,
@@ -416,6 +433,18 @@ class Dataset:
 
     def get_init_score(self) -> Optional[np.ndarray]:
         return self.init_score_np
+
+    def get_feature_penalty(self) -> Optional[np.ndarray]:
+        """The feature_contri (feature_penalty) parameter as f64, or None
+        (reference: basic.py:917-922)."""
+        v = params_to_config(self.params).feature_contri
+        return np.asarray(v, dtype=np.float64) if v else None
+
+    def get_monotone_constraints(self) -> Optional[np.ndarray]:
+        """The monotone_constraints parameter as int8, or None (reference:
+        basic.py:924-928)."""
+        v = params_to_config(self.params).monotone_constraints
+        return np.asarray(v, dtype=np.int8) if v else None
 
 
 class Booster:

@@ -7,7 +7,10 @@ categorical mappers with count-ordered category bins, :323-370),
 ``categorical`` columns of :543) and ``bin_data``, and for CSC input
 ``find_bin_mappers_sparse`` (:598; only stored values are sampled, the
 rest of the sample counts as zeros), ``bin_sparse_column`` (:644) and
-``bin_data_sparse`` (:657; an absent entry takes the bin of 0.0). Bin
+``bin_data_sparse`` (:657; an absent entry takes the bin of 0.0); the
+forced bin bounds of ``forcedbins_filename`` (``forced_bins``: a
+feature's bounds used verbatim, at most max_bin - 1 of them, then +inf;
+:234-239, :552-573, :607-639). Bin
 finding is host numpy, exactly as in the reference; the bulk encode runs
 ``torch.searchsorted`` on the target device with the same f64 comparisons
 as the reference's ``values_to_bins``, so the uint8 bin matrix is the
@@ -21,7 +24,7 @@ categories land in bin 0.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -72,9 +75,12 @@ class BinMapper:
     def from_sample(values: np.ndarray, total_cnt: int, max_bin: int,
                     min_data_in_bin: int = 3, use_missing: bool = True,
                     zero_as_missing: bool = False,
-                    bin_type: int = BIN_NUMERICAL) -> "BinMapper":
+                    bin_type: int = BIN_NUMERICAL,
+                    forced_bounds: Optional[Sequence[float]] = None
+                    ) -> "BinMapper":
         """Bins from the sampled raw values of one feature
-        (``len(values) < total_cnt`` means the rest are implicit zeros)."""
+        (``len(values) < total_cnt`` means the rest are implicit zeros);
+        ``forced_bounds`` replace the found upper bounds."""
         values = np.asarray(values, dtype=np.float64)
         if bin_type == BIN_CATEGORICAL:
             return BinMapper._categorical_from_sample(
@@ -95,7 +101,8 @@ class BinMapper:
         n_avail = max_bin - (1 if missing_type == MISSING_NAN else 0)
         distinct, counts = np.unique(nonzero, return_counts=True)
         bounds = _find_weighted_bounds(distinct, counts.astype(np.int64),
-                                       zero_cnt, n_avail, min_data_in_bin)
+                                       zero_cnt, n_avail, min_data_in_bin,
+                                       forced_bounds)
         num_bins = len(bounds)
         if missing_type == MISSING_NAN:
             bounds = np.append(bounds, np.nan)
@@ -244,12 +251,19 @@ class BinMapper:
 
 def _find_weighted_bounds(distinct: np.ndarray, counts: np.ndarray,
                           zero_cnt: int, max_bin: int,
-                          min_data_in_bin: int) -> np.ndarray:
+                          min_data_in_bin: int,
+                          forced_bounds: Optional[Sequence[float]] = None
+                          ) -> np.ndarray:
     """Equal-frequency bin upper bounds over (sorted distinct nonzero values
     with multiplicities + zero_cnt zeros); strictly increasing, last +inf,
-    zero kept separable (reference: binning.py _find_weighted_bounds)."""
+    zero kept separable (reference: binning.py _find_weighted_bounds).
+    Forced bounds are used verbatim instead: sorted, unique, at most
+    max_bin - 1 of them, then +inf."""
     if len(distinct) == 0 and zero_cnt == 0:
         return np.array([np.inf])
+    if forced_bounds is not None and len(forced_bounds):
+        fb = np.unique(np.asarray(sorted(forced_bounds), dtype=np.float64))
+        return np.append(fb[: max(1, max_bin - 1)], np.inf)
     reserve = 0
     if zero_cnt > 0:
         reserve = int(np.any(distinct < -K_ZERO_THRESHOLD)) \
@@ -334,10 +348,12 @@ def find_bin_mappers(data: np.ndarray, max_bin: int, min_data_in_bin: int = 3,
                      sample_cnt: int = 200000, use_missing: bool = True,
                      zero_as_missing: bool = False, seed: int = 1,
                      max_bin_by_feature: Optional[Sequence[int]] = None,
-                     categorical: Optional[Sequence[int]] = None
+                     categorical: Optional[Sequence[int]] = None,
+                     forced_bins: Optional[Dict[int, Sequence[float]]] = None
                      ) -> List[BinMapper]:
     """Per-feature mappers from a row sample of ``data`` [N, F]; the
-    columns ``categorical`` get categorical mappers."""
+    columns ``categorical`` get categorical mappers, the columns of
+    ``forced_bins`` its bounds."""
     n, f = data.shape
     rng = np.random.RandomState(seed)
     if n > sample_cnt:
@@ -351,7 +367,8 @@ def find_bin_mappers(data: np.ndarray, max_bin: int, min_data_in_bin: int = 3,
                                   use_missing=use_missing,
                                   zero_as_missing=zero_as_missing,
                                   bin_type=BIN_CATEGORICAL if j in cats
-                                  else BIN_NUMERICAL)
+                                  else BIN_NUMERICAL,
+                                  forced_bounds=(forced_bins or {}).get(j))
             for j in range(f)]
 
 
@@ -360,7 +377,9 @@ def find_bin_mappers_sparse(csc, max_bin: int, min_data_in_bin: int = 3,
                             use_missing: bool = True,
                             zero_as_missing: bool = False, seed: int = 1,
                             max_bin_by_feature: Optional[Sequence[int]] = None,
-                            categorical: Optional[Sequence[int]] = None
+                            categorical: Optional[Sequence[int]] = None,
+                            forced_bins: Optional[
+                                Dict[int, Sequence[float]]] = None
                             ) -> List[BinMapper]:
     """Per-feature mappers of a scipy CSC matrix without densifying it
     (reference: find_bin_mappers_sparse, binning.py:598): the same row
@@ -380,7 +399,8 @@ def find_bin_mappers_sparse(csc, max_bin: int, min_data_in_bin: int = 3,
         sub.data[sub.indptr[j]:sub.indptr[j + 1]], total, per_feat[j],
         min_data_in_bin=min_data_in_bin, use_missing=use_missing,
         zero_as_missing=zero_as_missing,
-        bin_type=BIN_CATEGORICAL if j in cats else BIN_NUMERICAL)
+        bin_type=BIN_CATEGORICAL if j in cats else BIN_NUMERICAL,
+        forced_bounds=(forced_bins or {}).get(j))
         for j in range(f)]
 
 

@@ -591,13 +591,3 @@ def check_slice(conf: Config) -> None:
                             "and the lossguide histogram pool)", "A13b")
     if str(conf.tree_learner).lower() != "serial" or conf.num_machines > 1:
         raise _out_of_slice(f"tree_learner={conf.tree_learner!r}", "A21")
-    if conf.extra_trees:
-        raise _out_of_slice("extra_trees", "A12c")
-    if any(conf.monotone_constraints) or any(
-            float(v) != 1.0 for v in conf.feature_contri):
-        raise _out_of_slice("monotone_constraints / feature_contri", "A12c")
-    if conf.forcedsplits_filename or conf.forcedbins_filename:
-        raise _out_of_slice("forced splits / forced bins", "A12c")
-    if (conf.cegb_penalty_split > 0.0 or any(conf.cegb_penalty_feature_lazy)
-            or any(conf.cegb_penalty_feature_coupled)):
-        raise _out_of_slice("CEGB", "A12c")

@@ -28,7 +28,16 @@ trees so far on its bins (:591-604). On EFB-bundled data the grower works
 on bundle columns with the plan's ``BundleArrays`` (:233-242), and every
 replay of a tree on a Dataset's bins (valid sets, DART's drops, init
 models) routes bundle splits by membership, where the reference's replays
-route them by threshold (ROADMAP caveats). DART and RF (``dart.py``,
+route them by threshold (ROADMAP caveats). The split constraints
+(A12c) reach the growers as the reference sets them up: the raw-column
+monotone constraints and feature_contri mapped to the grower's columns
+(``_monotone_tuple``, :533-554; ``_contri_tuple``, :556-590), the CEGB
+penalty vectors likewise, a bundle charged its largest member's
+(``_cegb_setup``, :404-441), with their bookkeeping kept across trees
+(:247-267; depthwise only, lossguide warns and ignores CEGB), and the
+forced-splits JSON as flat arrays of bins (``_build_forced``,
+:476-531); CEGB and forced splits turn the fused front off
+(:715-719). DART and RF (``dart.py``,
 ``rf.py``) override the score hooks: ``average_output`` (no shrinkage,
 renewal or bias; :1126, :1571, :1681, :1703) and ``_apply_tree_delta``
 (:1027).
@@ -36,6 +45,7 @@ renewal or bias; :1126, :1571, :1681, :1703) and ``_apply_tree_delta``
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -46,8 +56,8 @@ from ..config import Config
 from ..log import LightGBMError, warning
 from ..utils import threefry
 from ..ops.gather import take_small
-from ..ops.grow import GrowParams, TreeArrays, grow_tree
-from ..ops.grow_depthwise import grow_tree_depthwise
+from ..ops.grow import ForcedSplits, GrowParams, TreeArrays, grow_tree
+from ..ops.grow_depthwise import CEGBState, grow_tree_depthwise
 from ..ops.histogram import ACC_ROWS_MAX
 from ..ops.predict import bin_tree, route_bins
 from ..ops.split import BundleArrays, SplitParams
@@ -141,13 +151,17 @@ class GBDT:
                 valid=on_dev(meta.valid[:, :B], torch.bool),
                 is_bundle=on_dev(meta.is_bundle, torch.bool))
         self.depthwise = config.grow_policy == "depthwise"
+        cegb_coupled, cegb_lazy = self._cegb_setup(config, train_set)
+        self.forced = self._build_forced(config, train_set)
         # the reference's fused-front gate (_fused_front, :695-729): one
         # model an iteration of an objective with a fused spec (unweighted
-        # L2 or binary), the quantized depthwise grower, and an [F * B]
-        # root histogram of at most 2048 cells; anything else materializes
-        # the gradients and takes the unfused front
+        # L2 or binary), the quantized depthwise grower, no CEGB or forced
+        # splits, and an [F * B] root histogram of at most 2048 cells;
+        # anything else materializes the gradients and takes the unfused
+        # front
         if (self._custom_grad or k != 1 or not (quant and self.depthwise)
-                or f * B > ACC_ROWS_MAX):
+                or f * B > ACC_ROWS_MAX or self._cegb_ok
+                or self.forced is not None):
             spec = None
         self.gp = GrowParams(
             num_leaves=config.num_leaves, max_depth=config.max_depth,
@@ -168,7 +182,16 @@ class GBDT:
                 cat_l2=config.cat_l2, cat_smooth=config.cat_smooth,
                 max_cat_threshold=config.max_cat_threshold,
                 max_cat_to_onehot=config.max_cat_to_onehot,
-                min_data_per_group=config.min_data_per_group),
+                min_data_per_group=config.min_data_per_group,
+                monotone_constraints=self._monotone_tuple(config, train_set),
+                feature_contri=self._contri_tuple(config, train_set),
+                extra_trees=bool(config.extra_trees),
+                extra_seed=int(config.extra_seed),
+                cegb_tradeoff=config.cegb_tradeoff,
+                cegb_penalty_split=(config.cegb_penalty_split
+                                    if self._cegb_ok else 0.0),
+                cegb_coupled=cegb_coupled is not None,
+                cegb_lazy=cegb_lazy is not None),
             quant=quant,
             # constant-hessian elision is a property of the quantized
             # channels of the objective's own gradients (gbdt.py:737-744)
@@ -180,6 +203,27 @@ class GBDT:
         # fused front nor the const-hessian elision
         self.gp_custom = dataclasses.replace(self.gp, fused_obj=None,
                                              const_hess=False)
+        # CEGB bookkeeping across trees (gbdt.py:246-267)
+        self.cegb: Optional[CEGBState] = None
+        if self.gp.split.has_cegb:
+            if cegb_lazy is not None and n * f > 1 << 30:
+                warning("cegb_penalty_feature_lazy allocates a per-(row, "
+                        f"feature) bitset: {n * f / 1e9:.1f} GB of device "
+                        "memory at this dataset size")
+
+            def vec(v):
+                return torch.as_tensor(np.zeros(f) if v is None else v,
+                                       dtype=torch.float32,
+                                       device=self.device)
+            self.cegb = CEGBState(
+                feature_used=torch.zeros(f, dtype=torch.bool,
+                                         device=self.device),
+                data_used=(torch.zeros((n, f), dtype=torch.bool,
+                                       device=self.device)
+                           if cegb_lazy is not None else None),
+                coupled_pen=vec(cegb_coupled), lazy_pen=vec(cegb_lazy),
+                lazy_cols=(None if cegb_lazy is None else torch.as_tensor(
+                    np.flatnonzero(cegb_lazy), device=self.device)))
         self._score_shape = (n,) if k == 1 else (n, k)
         self.train_score = torch.zeros(self._score_shape, dtype=torch.float32,
                                        device=self.device)
@@ -210,6 +254,146 @@ class GBDT:
         self.valid_sets: List = []
         self.valid_names: List[str] = []
         self.valid_scores: List[torch.Tensor] = []
+
+    def _cegb_setup(self, config: Config, train_set):
+        """The CEGB penalty vectors in the grower's columns, or None each
+        (reference: ``_cegb_setup``, gbdt.py:404-441): a vector is given
+        per raw feature (another length is fatal), taken at the used
+        features, and a bundle column is charged its largest member's
+        penalty. CEGB rides the depthwise grower only: lossguide warns and
+        ignores it. Sets ``self._cegb_ok``."""
+        cp = list(config.cegb_penalty_feature_coupled or [])
+        lp = list(config.cegb_penalty_feature_lazy or [])
+        enabled = config.cegb_penalty_split > 0.0 or any(cp) or any(lp)
+        self._cegb_ok = enabled and config.grow_policy == "depthwise"
+        if not enabled:
+            return None, None
+        if not self._cegb_ok:
+            warning("CEGB is only supported with grow_policy=depthwise "
+                    "(the default); ignoring cegb_* parameters")
+            return None, None
+        n_raw = train_set.num_features_raw or train_set.num_features
+
+        def map_vec(vec, name):
+            if not any(vec):
+                return None
+            if len(vec) != n_raw:
+                raise LightGBMError(f"{name} should be the same size as "
+                                    f"feature number ({len(vec)} vs "
+                                    f"{n_raw})")
+            used = np.asarray(vec, np.float64)[
+                np.asarray(train_set.feature_map, np.int64)]
+            meta = train_set.bundle_meta
+            if meta is None:
+                return used
+            return np.asarray([used[[m[0] for m in mem]].max()
+                               for mem in meta.members])
+
+        return (map_vec(cp, "cegb_penalty_feature_coupled"),
+                map_vec(lp, "cegb_penalty_feature_lazy"))
+
+    def _build_forced(self, config: Config, train_set
+                      ) -> Optional[ForcedSplits]:
+        """The forcedsplits_filename JSON tree as flat arrays (reference:
+        ``_build_forced``, gbdt.py:476-531): each node's feature in the
+        grower's columns and its threshold as a bin through the feature's
+        mapper. A forced feature that EFB bundled, or a categorical one,
+        warns and drops its subtree."""
+        if not config.forcedsplits_filename:
+            return None
+        with open(config.forcedsplits_filename) as fh:
+            root = json.load(fh)
+        inv = {int(o): u for u, o in enumerate(train_set.feature_map)}
+        meta = train_set.bundle_meta
+        col_of = None
+        if meta is not None:
+            col_of = {mem[0][0]: c for c, mem in enumerate(meta.members)
+                      if len(mem) == 1}
+        feats: List[int] = []
+        bins_: List[int] = []
+        lefts: List[int] = []
+        rights: List[int] = []
+
+        def rec(node) -> int:
+            if node is None or "feature" not in node:
+                return -1
+            raw_f = int(node["feature"])
+            used = inv.get(raw_f, raw_f)
+            col = used
+            if col_of is not None:
+                if used not in col_of:
+                    warning(f"forced split feature {raw_f} was bundled by "
+                            "EFB; ignoring this forced subtree")
+                    return -1
+                col = col_of[used]
+            m = train_set.mappers[used]
+            if m.bin_type == BIN_CATEGORICAL:
+                warning("categorical forced splits are not supported; "
+                        "ignoring this forced subtree")
+                return -1
+            b = int(m.values_to_bins(
+                np.asarray([float(node["threshold"])]))[0])
+            i = len(feats)
+            feats.append(col)
+            bins_.append(b)
+            lefts.append(-1)
+            rights.append(-1)
+            lefts[i] = rec(node.get("left"))
+            rights[i] = rec(node.get("right"))
+            return i
+
+        if rec(root) < 0:
+            return None
+
+        def dev(v):
+            return torch.as_tensor(np.asarray(v, np.int64),
+                                   device=self.device)
+        return ForcedSplits(feat=dev(feats), bin=dev(bins_), left=dev(lefts),
+                            right=dev(rights))
+
+    @staticmethod
+    def _monotone_tuple(config: Config, train_set) -> tuple:
+        """Raw-column monotone constraints in the grower's columns
+        (reference: gbdt.py:533-554): the used features', and under EFB 0
+        for a merged bundle (constrained features are never bundled)."""
+        mc = list(config.monotone_constraints or [])
+        if not any(mc):
+            return ()
+        used = [mc[int(o)] if int(o) < len(mc) else 0
+                for o in train_set.feature_map]
+        meta = train_set.bundle_meta
+        if meta is not None:
+            used = [used[mem[0][0]] if len(mem) == 1 else 0
+                    for mem in meta.members]
+        return tuple(int(v) for v in used)
+
+    @staticmethod
+    def _contri_tuple(config: Config, train_set) -> tuple:
+        """Raw-column feature_contri in the grower's columns, clamped at 0
+        (reference: gbdt.py:556-590); another length than the raw
+        features' is fatal. A Dataset constructed before the parameter
+        arrived may hold bundles: a single column keeps its feature's
+        contri, a merged one takes 1.0 with a warning."""
+        fc = list(config.feature_contri or [])
+        if not fc or all(float(v) == 1.0 for v in fc):
+            return ()
+        nraw = train_set.num_features_raw or len(fc)
+        if len(fc) != nraw:
+            raise LightGBMError(f"feature_contri has {len(fc)} entries but "
+                                f"the data has {nraw} features")
+        used = [fc[int(o)] if int(o) < len(fc) else 1.0
+                for o in train_set.feature_map]
+        meta = train_set.bundle_meta
+        if meta is not None:
+            merged = [i for i, mem in enumerate(meta.members) if len(mem) > 1]
+            if merged and any(float(used[m[0]]) != 1.0
+                              for i in merged for m in meta.members[i]):
+                warning("feature_contri on EFB-merged bundle columns is "
+                        "approximated as 1.0 (construct the Dataset with "
+                        "feature_contri in params to disable bundling)")
+            used = [used[mem[0][0]] if len(mem) == 1 else 1.0
+                    for mem in meta.members]
+        return tuple(max(0.0, float(v)) for v in used)
 
     def add_valid(self, valid_set, name: str) -> None:
         """A valid set's score: its init score, an init model's trees, and
@@ -357,13 +541,14 @@ class GBDT:
                 tree, leaf_id, passes = grow_tree_depthwise(
                     ts.bins_T, *ghc, ts.num_bins_dev, ts.na_bin_dev,
                     self._fmask, gp, qseed=qseed, fused=fused, bins=ts.bins,
-                    bundle=self.bundle)
+                    bundle=self.bundle, forced=self.forced, cegb=self.cegb)
             else:
                 tree, leaf_id, passes = grow_tree(
                     ts.bins_T, *ghc, ts.num_bins_dev, ts.na_bin_dev,
                     self._fmask, gp, bins=ts.bins,
-                    qseed=qseed if gp.ff_bynode < 1.0 else None,
-                    bundle=self.bundle)
+                    qseed=(qseed if gp.ff_bynode < 1.0 or gp.split.extra_trees
+                           else None),
+                    bundle=self.bundle, forced=self.forced)
             self.hist_passes.append(passes)
             any_split = any_split or tree.num_leaves > 1
             self._add_tree(tree, leaf_id, cls)

@@ -3,7 +3,12 @@ leaf-wise (lossguide) grower.
 
 Port of ``GrowParams`` (:32), ``TreeArrays`` (:129), ``_empty_tree``
 (:173) and the serial, unpooled path of ``grow_tree`` (:195) of
-``lightgbm_tpu/ops/grow.py``, numerical and categorical splits. Internal
+``lightgbm_tpu/ops/grow.py``, numerical and categorical splits, with the
+split constraints: monotone bounds (:438-478), forced splits applied
+leaf-wise (:308-340, :479-490) and extra_trees keyed by ``_et_key``
+(:236-262; the root's tag is L, a split step's children's is the step).
+CEGB is not supported on this grower (GBDT warns and ignores it, as the
+reference does). Internal
 node ``i`` is created by split ``i``; child pointers use the reference
 encoding: >= 0 an internal node, < 0 ``~leaf``.
 """
@@ -18,7 +23,7 @@ import torch
 from ..utils import threefry
 from . import hist_kernels as K
 from . import histogram as H
-from .scan import tree_sum
+from .scan import blocked_cumsum, tree_sum
 from .split import (NEG_INF, BundleArrays, SplitParams, SplitResult,
                     best_split, leaf_output)
 
@@ -101,20 +106,97 @@ def node_feature_mask(base_mask: torch.Tensor, gp: GrowParams,
     return base_mask & ((u < float(np.float32(gp.ff_bynode))) | best)
 
 
+class ForcedSplits(NamedTuple):
+    """The forced-splits tree as flat arrays (reference: ForcedSplits,
+    grow_depthwise.py:65-72): each forced node's column and bin, and the
+    forced nodes of its children (-1: stop forcing)."""
+    feat: torch.Tensor    # [M] i64
+    bin: torch.Tensor     # [M] i64
+    left: torch.Tensor    # [M] i64
+    right: torch.Tensor   # [M] i64
+
+
+def forced_override(res: SplitResult, forced: ForcedSplits,
+                    forced_ptr: torch.Tensor, has_f: torch.Tensor,
+                    hist: torch.Tensor, na_bin: torch.Tensor,
+                    leaf_c: torch.Tensor) -> Tuple[SplitResult, torch.Tensor]:
+    """Forced splits override the search (reference: grow_depthwise.py
+    :406-435, grow.py:308-340): a leaf holding a forced node (``has_f``)
+    splits on its (column, bin) with gain 1e30, its left stats the prefix
+    sums of its histogram at the bin with the missing bin left out, when
+    both sides keep a row. Returns (the records, where a forced split
+    applies [L] bool). The prefix sums run over the forced columns' rows
+    alone, which gives each row's sums in the same order."""
+    lv = hist.shape[0]
+    b = hist.shape[-1]
+    fp = torch.clamp(forced_ptr, min=0)
+    ffeat, fbin = forced.feat[fp], forced.bin[fp]
+    lidx = torch.arange(lv, device=hist.device)
+    rows = hist[lidx, :, ffeat]                                   # [L,3,B]
+    na_self = (torch.arange(b, device=hist.device)[None, :]
+               == na_bin.to(torch.int64)[ffeat][:, None])          # [L,B]
+    cumf = blocked_cumsum(torch.where(na_self[:, None], torch.zeros(
+        (), dtype=hist.dtype, device=hist.device), rows))
+    flg, flh, flc = (cumf[lidx, ch, fbin] for ch in range(3))
+    okf = has_f & (flc >= 1) & (leaf_c - flc >= 1)
+    no = torch.zeros_like(res.default_left)
+    res = res._replace(
+        gain=torch.where(okf, torch.full_like(res.gain, 1e30), res.gain),
+        feature=torch.where(okf, ffeat, res.feature),
+        bin=torch.where(okf, fbin, res.bin),
+        default_left=torch.where(okf, no, res.default_left),
+        left_g=torch.where(okf, flg, res.left_g),
+        left_h=torch.where(okf, flh, res.left_h),
+        left_cnt=torch.where(okf, flc, res.left_cnt),
+        is_cat=torch.where(okf, no, res.is_cat),
+        cat_member=res.cat_member & ~okf[:, None])
+    return res, okf
+
+
+def extra_trees_key(sp: SplitParams, qseed: Optional[int],
+                    tag: int) -> Optional[threefry.Key]:
+    """The extra_trees key of one search (reference: grow_depthwise.py
+    :392-400, grow.py ``_et_key``): fold_in(fold_in(PRNGKey(extra_seed),
+    qseed), tag); None when extra_trees is off."""
+    if not sp.extra_trees:
+        return None
+    return threefry.fold_in(threefry.fold_in(
+        threefry.prng_key(sp.extra_seed), qseed or 0), tag)
+
+
+def monotone_child_bounds(sp: SplitParams, f: int, is_cat: torch.Tensor,
+                          feat: torch.Tensor, w_l: torch.Tensor,
+                          w_r: torch.Tensor, lo: torch.Tensor,
+                          hi: torch.Tensor):
+    """The output bounds of a split's (left, right) children (reference:
+    ``_monotone_child_bounds``, grow_depthwise.py:143-163): each inherits
+    its parent's; a split on a constrained column pins the midpoint of
+    the two outputs as the bound between them. Returns (left min, left
+    max, right min, right max), shaped like ``w_l``."""
+    mf = torch.where(is_cat, torch.zeros_like(feat),
+                     sp.monotone_array(f, feat.device)[feat])
+    mid = (w_l + w_r) / 2.0
+    return (torch.where(mf < 0, torch.maximum(lo, mid), lo),
+            torch.where(mf > 0, torch.minimum(hi, mid), hi),
+            torch.where(mf > 0, torch.maximum(lo, mid), lo),
+            torch.where(mf < 0, torch.minimum(hi, mid), hi))
+
+
 def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
               c: torch.Tensor, num_bins: torch.Tensor, na_bin: torch.Tensor,
               feature_mask: torch.Tensor, gp: GrowParams,
               bins: Optional[torch.Tensor] = None,
               qseed: Optional[int] = None,
-              bundle: Optional[BundleArrays] = None
-              ) -> Tuple[TreeArrays, torch.Tensor, int]:
+              bundle: Optional[BundleArrays] = None,
+              forced=None) -> Tuple[TreeArrays, torch.Tensor, int]:
     """Grow one tree leaf-wise (best-first), unquantized.
 
     bins_T [F, N] u8 on the device; g/h/c [N] f32 grad/hess/in-bag count
     rows (already masked by the bag); num_bins / na_bin [F] i32 (na_bin >=
     B means no missing bin); feature_mask [F] bool; bins the row-major
     [N, F] copy of bins_T, which the split passes' slot histogram needs on
-    the card; ``bundle`` the EFB arrays when ``gp.split.has_bundles``.
+    the card; ``bundle`` the EFB arrays when ``gp.split.has_bundles``;
+    ``forced`` the forced-splits tree (``ForcedSplits``).
     Returns (TreeArrays, leaf_id [N] i32, number of split passes).
 
     Each split step t takes the leaf with the best gain (the first on
@@ -139,7 +221,8 @@ def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
     ones = torch.ones(2, dtype=torch.bool, device=dev)
     best0 = best_split(hist0[None], num_bins, na_bin, g0[None], h0[None],
                        c0[None], node_feature_mask(feature_mask, gp, qseed, L),
-                       sp, ones[:1], bundle)
+                       sp, ones[:1], bundle,
+                       rand_key=extra_trees_key(sp, qseed, L))
 
     def tile(x: torch.Tensor, fill) -> torch.Tensor:
         out = torch.full((L,), fill, dtype=x.dtype, device=dev)
@@ -161,6 +244,12 @@ def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
     leaf_g[0], leaf_h[0], leaf_c[0] = g0, h0, c0
     tree = empty_tree(L, B, dev)
     leaf_id = torch.zeros(n, dtype=torch.int32, device=dev)
+    # monotone output bounds and forced-node pointers of the leaves
+    leaf_min = torch.full((L,), -float("inf"), device=dev)
+    leaf_max = torch.full((L,), float("inf"), device=dev)
+    forced_ptr = torch.full((L,), -1, dtype=torch.int64, device=dev)
+    if forced is not None:
+        forced_ptr[0] = 0
     # host-side bookkeeping: every entry follows from the chosen leaves
     depth = [0] * L
     parent_node = [-1] * L
@@ -168,28 +257,38 @@ def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
     num_leaves = 1
 
     for t in range(L - 1):
-        lt = torch.argmax(best.gain)
-        ok = best.gain[lt] > NEG_INF / 2
+        best_eff = best
+        if forced is not None:
+            # a leaf holding a forced node splits on it first (gain 1e30);
+            # a degenerate forced split stops forcing at that leaf
+            has_f = forced_ptr >= 0
+            best_eff, okf = forced_override(best, forced, forced_ptr, has_f,
+                                            hist, na_bin, leaf_c)
+            forced_ptr = torch.where(has_f & ~okf,
+                                     torch.full_like(forced_ptr, -1),
+                                     forced_ptr)
+        lt = torch.argmax(best_eff.gain)
+        ok = best_eff.gain[lt] > NEG_INF / 2
         l, can_split = torch.stack([lt, ok.to(lt.dtype)]).tolist()
         if not can_split:
             break
         new_leaf = t + 1
-        feat = best.feature[l]
+        feat = best_eff.feature[l]
 
         # ---- partition rows (DataPartition::Split: a where on leaf_id) ----
         col = bins_T.index_select(0, feat.view(1))[0].to(torch.int32)
         is_na = col == na_bin.index_select(0, feat.view(1))
-        go_right = torch.where(is_na, ~best.default_left[l],
-                               col > best.bin[l])
+        go_right = torch.where(is_na, ~best_eff.default_left[l],
+                               col > best_eff.bin[l])
         if sp.cat_features or sp.has_bundles:
             # a categorical or bundle split sends its member bins left
             # (reference: grow.py:355-358)
-            go_right = torch.where(best.is_cat[l],
-                                   ~best.cat_member[l][col.long()], go_right)
+            go_right = torch.where(best_eff.is_cat[l],
+                                   ~best_eff.cat_member[l][col.long()], go_right)
         leaf_id = torch.where((leaf_id == l) & go_right, new_leaf, leaf_id)
 
         # ---- child stats ----
-        lg, lh, lc = best.left_g[l], best.left_h[l], best.left_cnt[l]
+        lg, lh, lc = best_eff.left_g[l], best_eff.left_h[l], best_eff.left_cnt[l]
         pg, ph, pc = leaf_g[l], leaf_h[l], leaf_c[l]
         rg, rh, rc = pg - lg, ph - lh, pc - lc
 
@@ -211,17 +310,34 @@ def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
         tree.left_child[t] = ~l
         tree.right_child[t] = ~new_leaf
         tree.split_feature[t] = feat
-        tree.threshold_bin[t] = best.bin[l]
-        tree.default_left[t] = best.default_left[l]
-        tree.split_gain[t] = best.gain[l]
-        tree.is_cat[t] = best.is_cat[l]
-        tree.cat_mask[t] = best.cat_member[l]
+        tree.threshold_bin[t] = best_eff.bin[l]
+        tree.default_left[t] = best_eff.default_left[l]
+        tree.split_gain[t] = best_eff.gain[l]
+        tree.is_cat[t] = best_eff.is_cat[l]
+        tree.cat_mask[t] = best_eff.cat_member[l]
         # (pg, ph, pc are views of the leaf stats rewritten below)
-        tree.internal_value[t] = leaf_output(pg, ph, sp)
+        w_l, w_r = leaf_output(lg, lh, sp), leaf_output(rg, rh, sp)
+        w_p = leaf_output(pg, ph, sp)
+        if sp.has_monotone:
+            # outputs clamped to the parent's bounds; the children's
+            # bounds pin the midpoint on a constrained column
+            lo, hi = leaf_min[l].clone(), leaf_max[l].clone()
+            w_l, w_r, w_p = (torch.clamp(w, lo, hi) for w in (w_l, w_r, w_p))
+            lo_l, hi_l, lo_r, hi_r = monotone_child_bounds(
+                sp, f, best_eff.is_cat[l], feat, w_l, w_r, lo, hi)
+            leaf_min[l], leaf_max[l] = lo_l, hi_l
+            leaf_min[new_leaf], leaf_max[new_leaf] = lo_r, hi_r
+        if forced is not None:
+            # the forced pointer moves to the children
+            fnode = torch.clamp(forced_ptr[l], min=0)
+            applied = forced_ptr[l] >= 0
+            fl_next = torch.where(applied, forced.left[fnode], -1)
+            fr_next = torch.where(applied, forced.right[fnode], -1)
+            forced_ptr[l], forced_ptr[new_leaf] = fl_next, fr_next
+        tree.internal_value[t] = w_p
         tree.internal_weight[t] = ph
         tree.internal_count[t] = pc
-        for arr, left, right in ((tree.leaf_value, leaf_output(lg, lh, sp),
-                                  leaf_output(rg, rh, sp)),
+        for arr, left, right in ((tree.leaf_value, w_l, w_r),
                                  (tree.leaf_weight, lh, rh),
                                  (tree.leaf_count, lc, rc),
                                  (leaf_g, lg, rg), (leaf_h, lh, rh),
@@ -235,7 +351,12 @@ def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
         ch_mask = node_feature_mask(feature_mask.expand(2, f), gp, qseed, t)
         bs = best_split(torch.stack([hist_left, hist_right]), num_bins,
                         na_bin, torch.stack([lg, rg]), torch.stack([lh, rh]),
-                        torch.stack([lc, rc]), ch_mask, sp, allow, bundle)
+                        torch.stack([lc, rc]), ch_mask, sp, allow, bundle,
+                        leaf_min=(leaf_min[[l, new_leaf]] if sp.has_monotone
+                                  else None),
+                        leaf_max=(leaf_max[[l, new_leaf]] if sp.has_monotone
+                                  else None),
+                        rand_key=extra_trees_key(sp, qseed, t))
         for arr, vals in zip(best, bs):
             arr[l] = vals[0]
             arr[new_leaf] = vals[1]

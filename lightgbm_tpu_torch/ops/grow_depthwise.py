@@ -19,6 +19,17 @@ are those of the split records, which the f32 histograms give). A level
 with a categorical or an EFB bundle split hands the routing each leaf's
 membership bitset (one more host read of the level, only with categorical
 features or bundles).
+The split constraints (A12c) ride on the level function: per-leaf
+monotone output bounds clamp the split records' outputs (:464-472) and
+the renewed leaves (:685-686) and propagate to the children
+(``grow.monotone_child_bounds``, :143-163); the CEGB penalty plane is
+recomputed each level from the ``CEGBState`` bookkeeping (:369-390),
+which the selected splits update (:478-490); extra_trees draws its
+thresholds from ``fold_in(fold_in(PRNGKey(extra_seed), qseed), level)``
+(:392-400, ``grow.extra_trees_key``); ``grow.ForcedSplits`` override the
+search at the leaves that hold a forced-node pointer, with left stats
+from the leaf histogram's prefix sums, the missing bin excluded
+(:406-428), and the pointers move to the children (:613-622).
 The reference builds the whole tree inside one jitted program with
 fixed-width masked scatters; here the level schedule is a Python loop that
 reads the level's split count to the host once per level, and the level
@@ -29,20 +40,71 @@ widths still bound the per-level selection exactly as in the reference.
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
 import torch
 
 from . import hist_kernels as K
 from . import histogram as H
-from .grow import GrowParams, TreeArrays, empty_tree, node_feature_mask
+from .grow import (ForcedSplits, GrowParams, TreeArrays, empty_tree,
+                   extra_trees_key, forced_override, monotone_child_bounds,
+                   node_feature_mask)
 from .scan import tree_sum
-from .split import NEG_INF, BundleArrays, best_split, leaf_output
+from .split import (NEG_INF, BundleArrays, SplitParams, best_split,
+                    leaf_output)
 
 # the reference's master slot widths and slot floor on its kernel path
 # (pallas_hist.MASTER_SLOT_WIDTHS, grow_depthwise._SLOT_FLOOR)
 MASTER_SLOT_WIDTHS = (32, 128, 512)
 SLOT_FLOOR = 32
+
+
+@dataclass
+class CEGBState:
+    """CEGB bookkeeping that lives across trees (reference: CEGBState,
+    grow_depthwise.py:52-62), in the grower's column space: whether each
+    column was ever split on (the coupled penalty's), which (row, column)
+    pairs paid the lazy penalty already (``data_used`` [N, F], None when
+    the lazy penalty is off), the two penalty vectors and the columns
+    whose lazy penalty is not 0. The grower updates the first two in
+    place."""
+    feature_used: torch.Tensor   # [F] bool
+    data_used: Optional[torch.Tensor]
+    coupled_pen: torch.Tensor    # [F] f32 (zeros when off)
+    lazy_pen: torch.Tensor       # [F] f32 (zeros when off)
+    lazy_cols: Optional[torch.Tensor] = None   # [K] i64
+
+
+def cegb_penalty(sp: SplitParams, cegb: CEGBState, leaf_c: torch.Tensor,
+                 leaf_id: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """The CEGB penalty plane [L, F] of a frontier (reference:
+    grow_depthwise.py:369-390): tradeoff * (penalty_split * the leaf's
+    rows + the coupled penalty of a column never split on + the lazy
+    penalty of each in-bag row of the leaf that has not paid for the
+    column yet). The lazy sums run over the columns of a nonzero lazy
+    penalty only: every other column's sum is of zeros."""
+    L, f = leaf_c.shape[0], cegb.feature_used.shape[0]
+    pen = (torch.tensor(sp.cegb_tradeoff * sp.cegb_penalty_split,
+                        dtype=torch.float32, device=leaf_c.device)
+           * leaf_c[:, None]).expand(L, f)
+    zero = torch.zeros((), dtype=torch.float32, device=leaf_c.device)
+    if sp.cegb_coupled:
+        pen = pen + sp.cegb_tradeoff * torch.where(
+            cegb.feature_used, zero, cegb.coupled_pen)[None, :]
+    if sp.cegb_lazy:
+        cols = cegb.lazy_cols
+        fresh = torch.where(cegb.data_used[:, cols], zero,
+                            cegb.lazy_pen[cols][None, :])
+        fresh = fresh * (c > 0)[:, None]
+        sums = torch.zeros((L, cols.numel()), dtype=torch.float32,
+                           device=leaf_c.device)
+        sums.index_add_(0, leaf_id.to(torch.int64), fresh)
+        lazy_cost = torch.zeros((L, f), dtype=torch.float32,
+                                device=leaf_c.device)
+        lazy_cost[:, cols] = sums
+        pen = pen + sp.cegb_tradeoff * lazy_cost
+    return pen
 
 
 def floor_slot_width(needed: int, max_slots: int) -> int:
@@ -70,7 +132,9 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
                         fused: Optional[Tuple[torch.Tensor, torch.Tensor,
                                               torch.Tensor]] = None,
                         bins: Optional[torch.Tensor] = None,
-                        bundle: Optional[BundleArrays] = None
+                        bundle: Optional[BundleArrays] = None,
+                        forced: Optional[ForcedSplits] = None,
+                        cegb: Optional[CEGBState] = None
                         ) -> Tuple[TreeArrays, torch.Tensor, int]:
     """Grow one tree level-wise.
 
@@ -82,7 +146,10 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
     gp.fused_obj set; g/h/c are then unused (None) and the gradients are
     recomputed in the kernels. ``bins``: the row-major [N, F] copy of
     bins_T, which the level passes' slot histograms need on the card;
-    ``bundle`` the EFB arrays when ``gp.split.has_bundles``. Returns (TreeArrays, leaf_id [N] i32, number of level passes)."""
+    ``bundle`` the EFB arrays when ``gp.split.has_bundles``; ``forced``
+    the forced-splits tree; ``cegb`` the CEGB bookkeeping, updated in
+    place (needs the materialized rows). Returns (TreeArrays, leaf_id [N]
+    i32, number of level passes)."""
     f, n = bins_T.shape
     dev = bins_T.device
     L, B = gp.num_leaves, gp.max_bin
@@ -92,9 +159,9 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
 
     rows = (g, h, c)
     if fused is not None:
-        if spec is None or not gp.quant:
+        if spec is None or not gp.quant or cegb is not None:
             raise ValueError("the fused front needs gp.quant and "
-                             "gp.fused_obj")
+                             "gp.fused_obj, and no CEGB")
         score, aux, bag = fused
         quant, hist0 = H.grad_quant_hist0(bins_T, score, aux, bag, qseed,
                                           spec, B, const_hess=gp.const_hess)
@@ -125,16 +192,33 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
     num_leaves = 1
     leaf_id = torch.zeros(n, dtype=torch.int32, device=dev)
     leaves_iota = torch.arange(L, device=dev)
-    gain_gate = float(max(sp.min_gain_to_split, 0.0))
+    # under feature_contri the records hold the penalized improvement,
+    # min_gain_to_split taken off already
+    gain_gate = 0.0 if sp.has_contri else float(max(sp.min_gain_to_split,
+                                                    0.0))
     passes = 0
+    leaf_min = torch.full((L,), -math.inf, **f32)
+    leaf_max = torch.full((L,), math.inf, **f32)
+    forced_ptr = torch.full((L,), -1, dtype=torch.int64, device=dev)
+    if forced is not None:
+        forced_ptr[0] = 0
 
     for lvl, slots in enumerate(level_widths(L, max_levels)):
         if num_leaves >= L:
             break
         search_mask = node_feature_mask(feature_mask.expand(L, f), gp, qseed,
                                         lvl)
+        pen = (cegb_penalty(sp, cegb, leaf_c, leaf_id, c)
+               if cegb is not None else None)
         res = best_split(hist, num_bins, na_bin, leaf_g, leaf_h, leaf_c,
-                         search_mask, sp, active, bundle)
+                         search_mask, sp, active, bundle,
+                         leaf_min=leaf_min, leaf_max=leaf_max,
+                         gain_penalty=pen,
+                         rand_key=extra_trees_key(sp, qseed, lvl))
+        if forced is not None:
+            res, okf = forced_override(res, forced, forced_ptr,
+                                       (forced_ptr >= 0) & active, hist,
+                                       na_bin, leaf_c)
         # budgeted selection: top-gain candidates win, ties by leaf index
         cand = active & (res.gain > gain_gate) & (res.gain > NEG_INF / 2)
         key = torch.where(cand, res.gain,
@@ -156,6 +240,11 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
         w_l = leaf_output(lg, lh, sp)
         w_r = leaf_output(rg, rh, sp)
         w_p = leaf_output(leaf_g, leaf_h, sp)
+        if sp.has_monotone:
+            # outputs clamped to the leaf's monotone bounds
+            w_l = torch.clamp(w_l, leaf_min, leaf_max)
+            w_r = torch.clamp(w_r, leaf_min, leaf_max)
+            w_p = torch.clamp(w_p, leaf_min, leaf_max)
 
         # ---- tree arrays ----
         nid, nl = node_id[si], new_leaf[si]
@@ -187,6 +276,17 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
             if not bool(cat_sel.any()):
                 cat_sel = None
 
+        # ---- CEGB bookkeeping: a split marks its column used, and every
+        # in-bag row of the split leaf paid for it ----
+        if cegb is not None and sp.cegb_coupled:
+            cegb.feature_used[res.feature[si]] = True
+        if cegb is not None and sp.cegb_lazy:
+            f_row = torch.where(sel, res.feature,
+                                torch.full_like(res.feature, -1))[
+                                    leaf_id.to(torch.int64)]
+            pay = (f_row >= 0) & (c > 0)
+            cegb.data_used[pay.nonzero().squeeze(1), f_row[pay]] = True
+
         # ---- route + smaller-child histogram pass: one slot per selected
         # leaf (in leaf order); the larger child is the parent minus the
         # smaller ----
@@ -213,6 +313,21 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
         hist[si] = torch.where(sl, hist_pass, hist_sib)
         hist[nl] = torch.where(sl, hist_sib, hist_pass)
 
+        # ---- monotone bounds and forced pointers of the children ----
+        if sp.has_monotone:
+            lo_l, hi_l, lo_r, hi_r = monotone_child_bounds(
+                sp, f, res.is_cat[si], res.feature[si], w_l[si], w_r[si],
+                leaf_min[si], leaf_max[si])
+            leaf_min[si], leaf_max[si] = lo_l, hi_l
+            leaf_min[nl], leaf_max[nl] = lo_r, hi_r
+        if forced is not None:
+            fp = torch.clamp(forced_ptr, min=0)
+            none = torch.full_like(forced_ptr, -1)
+            nxt_l = torch.where(okf, forced.left[fp], none)[si]
+            nxt_r = torch.where(okf, forced.right[fp], none)[si]
+            forced_ptr[si] = nxt_l
+            forced_ptr[nl] = nxt_r
+
         # ---- per-leaf stats / frontier ----
         for arr, left, right in ((leaf_g, lg, rg), (leaf_h, lh, rh),
                                  (leaf_c, lc, rc)):
@@ -236,6 +351,8 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
         sums = K.leaf_sums(g, h, c, leaf_id, L)
     eg, eh, ec = sums[0], sums[1], sums[2]
     w = leaf_output(eg, eh, sp)
+    if sp.has_monotone:
+        w = torch.clamp(w, leaf_min, leaf_max)
     live = leaves_iota < num_leaves
     tree = tree._replace(
         leaf_value=torch.where(live, w, tree.leaf_value),

@@ -14,7 +14,16 @@ columns (``SplitParams.has_bundles`` with ``BundleArrays``, :450-495):
 each bundle position is its member's candidate "original bin <=
 pos_bin", its left side a range of the column's prefix sums plus, when the
 threshold covers the member's default bin, everything outside that range;
-the winner routes as the bin-subset ``cat_member`` (:569-591). The whole
+the winner routes as the bin-subset ``cat_member`` (:569-591); and the
+split constraints (:254-345, :437-446, :478-495, :593-603): per-leaf
+monotone output bounds (``leaf_min``/``leaf_max``) with the gains at the
+clamped outputs and the direction filter of ``monotone_constraints`` on
+the numerical planes (the bundle plane clamps, the categorical ones do
+not), ``feature_contri`` rewriting every plane to the penalized
+improvement ``contri * (gain - parent - min_gain_to_split)``, a CEGB
+``gain_penalty`` [L, F] subtracted from every plane, and extra_trees
+keeping one threshold per (leaf, feature) on the numerical planes, drawn
+from ``rand_key`` on the threefry replica (:314-325). The whole
 ``[L, 3, F, B]`` frontier is searched at once: prefix sums over the bin
 axis give the left-side stats of every threshold, and one masked election
 over the sections ``[num_r, num_l, onehot, asc, desc, bundle]`` picks each
@@ -34,6 +43,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils import threefry
 from .scan import blocked_cumsum
 
 NEG_INF = -1e30
@@ -61,6 +71,49 @@ class SplitParams:
     min_data_per_group: int = 100
     # the Dataset has EFB bundle columns (searched through BundleArrays)
     has_bundles: bool = False
+    # per-column monotone constraints (-1 / 0 / +1; empty: off)
+    monotone_constraints: tuple = ()
+    # per-column split-gain multipliers (feature_contri; empty: off)
+    feature_contri: tuple = ()
+    # extremely randomized trees: one random threshold per (leaf, feature)
+    # on the numerical planes, drawn from a ``rand_key`` of extra_seed
+    extra_trees: bool = False
+    extra_seed: int = 6
+    # CEGB: the penalty vectors ride along in the grower's CEGBState;
+    # these gate the penalty plane's terms
+    cegb_tradeoff: float = 1.0
+    cegb_penalty_split: float = 0.0
+    cegb_coupled: bool = False
+    cegb_lazy: bool = False
+
+    @property
+    def has_monotone(self) -> bool:
+        return any(m != 0 for m in self.monotone_constraints)
+
+    @property
+    def has_contri(self) -> bool:
+        return any(c != 1.0 for c in self.feature_contri)
+
+    def contri_array(self, f: int, device=None) -> torch.Tensor:
+        """[F] f32 gain multipliers: the tuple clamped at 0 and padded
+        with 1.0 to width f."""
+        out = torch.ones(f, dtype=torch.float32)
+        vals = torch.tensor(self.feature_contri, dtype=torch.float32)
+        vals = torch.clamp(vals, min=0.0)[:f]
+        out[: vals.numel()] = vals
+        return out.to(device) if device is not None else out
+
+    def monotone_array(self, f: int, device=None) -> torch.Tensor:
+        """[F] i64 constraints padded with 0 to width f."""
+        out = torch.zeros(f, dtype=torch.int64)
+        vals = torch.tensor(self.monotone_constraints, dtype=torch.int64)[:f]
+        out[: vals.numel()] = vals
+        return out.to(device) if device is not None else out
+
+    @property
+    def has_cegb(self) -> bool:
+        return (self.cegb_penalty_split > 0.0 or self.cegb_coupled
+                or self.cegb_lazy)
 
 
 class BundleArrays(NamedTuple):
@@ -107,14 +160,22 @@ def leaf_output(sum_g: torch.Tensor, sum_h: torch.Tensor,
     return w
 
 
+def leaf_gain_given_output(sum_g: torch.Tensor, sum_h: torch.Tensor,
+                           output: torch.Tensor,
+                           p: SplitParams) -> torch.Tensor:
+    """Gain of a leaf whose output is fixed (clamped by monotone bounds)."""
+    sg = threshold_l1(sum_g, p.lambda_l1)
+    return -(2.0 * sg * output + (sum_h + p.lambda_l2) * output * output)
+
+
 def leaf_split_gain(sum_g: torch.Tensor, sum_h: torch.Tensor,
                     p: SplitParams) -> torch.Tensor:
     """Gain contribution of a leaf (no 1/2 factor, as the reference)."""
-    sg = threshold_l1(sum_g, p.lambda_l1)
     if p.max_delta_step <= 0.0:
+        sg = threshold_l1(sum_g, p.lambda_l1)
         return sg * sg / (sum_h + p.lambda_l2 + _EPS_H)
-    w = leaf_output(sum_g, sum_h, p)
-    return -(2.0 * sg * w + (sum_h + p.lambda_l2) * w * w)
+    return leaf_gain_given_output(sum_g, sum_h,
+                                  leaf_output(sum_g, sum_h, p), p)
 
 
 def best_split(hist: torch.Tensor, num_bins: torch.Tensor,
@@ -122,14 +183,22 @@ def best_split(hist: torch.Tensor, num_bins: torch.Tensor,
                parent_h: torch.Tensor, parent_cnt: torch.Tensor,
                feature_mask: torch.Tensor, p: SplitParams,
                allow_split: torch.Tensor,
-               bundle: Optional[BundleArrays] = None) -> SplitResult:
+               bundle: Optional[BundleArrays] = None,
+               leaf_min: Optional[torch.Tensor] = None,
+               leaf_max: Optional[torch.Tensor] = None,
+               gain_penalty: Optional[torch.Tensor] = None,
+               rand_key: Optional[threefry.Key] = None) -> SplitResult:
     """Best split of every leaf of a frontier.
 
     hist [L, 3, F, B] channel-major (grad, hess, count) f32; num_bins [F]
     bins per feature; na_bin [F] missing-bin index (>= B when none);
     parent_g/h/cnt and allow_split [L]; feature_mask [F] bool, or [L, F]
     for a mask per leaf (feature_fraction_bynode); ``bundle`` the EFB
-    arrays when ``p.has_bundles``."""
+    arrays when ``p.has_bundles``. Under ``p.has_monotone``, ``leaf_min``
+    / ``leaf_max`` [L] bound each leaf's outputs (unbounded when None);
+    ``gain_penalty`` [L, F] is subtracted from every candidate of that
+    (leaf, feature) (CEGB); under ``p.extra_trees``, ``rand_key`` draws
+    the one threshold each (leaf, feature) may take."""
     L, _, f, b = hist.shape
     dev = hist.device
     iota = torch.arange(b, device=dev)[None, None, :]              # [1,1,B]
@@ -142,13 +211,33 @@ def best_split(hist: torch.Tensor, num_bins: torch.Tensor,
     pg = parent_g[:, None, None]
     ph = parent_h[:, None, None]
     pc = parent_cnt[:, None, None]
+    mono = None
+    if p.has_monotone:
+        inf = torch.full((L, 1, 1), float("inf"), device=dev)
+        lmin = -inf if leaf_min is None else leaf_min.reshape(L, 1, 1)
+        lmax = inf if leaf_max is None else leaf_max.reshape(L, 1, 1)
+        mono = p.monotone_array(f, dev)[None, :, None]
+
+    def clamped_gains(lg, lh, rg, rh):
+        """The gain at the outputs clamped to the leaf's bounds, and the
+        clamped (left, right) outputs."""
+        wl = torch.clamp(leaf_output(lg, lh, p), lmin, lmax)
+        wr = torch.clamp(leaf_output(rg, rh, p), lmin, lmax)
+        return (leaf_gain_given_output(lg, lh, wl, p)
+                + leaf_gain_given_output(rg, rh, wr, p)), wl, wr
 
     def gains_of(lg, lh, lc):
         rg, rh, rc = pg - lg, ph - lh, pc - lc
         ok = ((lc >= p.min_data_in_leaf) & (rc >= p.min_data_in_leaf)
               & (lh >= p.min_sum_hessian_in_leaf)
               & (rh >= p.min_sum_hessian_in_leaf))
-        gain = leaf_split_gain(lg, lh, p) + leaf_split_gain(rg, rh, p)
+        if mono is not None:
+            # the direction filter: an increasing feature may not send
+            # the larger output left
+            gain, wl, wr = clamped_gains(lg, lh, rg, rh)
+            ok = ok & ~(((mono > 0) & (wl > wr)) | ((mono < 0) & (wl < wr)))
+        else:
+            gain = leaf_split_gain(lg, lh, p) + leaf_split_gain(rg, rh, p)
         return torch.where(ok, gain, torch.full_like(gain, NEG_INF))
 
     gain_r = gains_of(cum[:, 0], cum[:, 1], cum[:, 2])           # missing -> right
@@ -168,20 +257,50 @@ def best_split(hist: torch.Tensor, num_bins: torch.Tensor,
     if bun is not None:
         # so do bundle columns: the bundle plane scores them
         valid_t = valid_t & ~bun.is_bundle[None, :, None]
+    if p.extra_trees and rand_key is not None:
+        # one random threshold per (leaf, feature) on the numerical
+        # planes; a draw on the missing bin leaves none
+        u = threefry.uniform(rand_key, (L, f), dev)
+        nb = num_bins.to(torch.int64)[None, :]
+        rnd = torch.floor(u * torch.clamp(nb - 1, min=1).to(torch.float32))
+        rnd = torch.minimum(rnd.to(torch.int64), nb - 2)
+        valid_t = valid_t & (iota == rnd[:, :, None])
     has_na = na < b
     neg = torch.full_like(gain_r, NEG_INF)
     gain_r = torch.where(valid_t, gain_r, neg)
     gain_l = torch.where(valid_t & has_na, gain_l, neg)
     parent_gain = leaf_split_gain(parent_g, parent_h, p)          # [L]
 
+    # feature_contri: every plane becomes the penalized improvement
+    # contri * (gain - parent - min_gain_to_split); then the CEGB penalty
+    contri = shift = None
+    if p.has_contri:
+        contri = p.contri_array(f, dev)
+        shift = (parent_gain + p.min_gain_to_split)[:, None, None]
+    pen = (None if gain_penalty is None else
+           gain_penalty.to(torch.float32).expand(L, f))
+
+    def penalized(gain, cols=None):
+        if contri is not None:
+            c_ = contri if cols is None else contri[cols]
+            gain = c_[None, :, None] * (gain - shift)
+        if pen is not None:
+            gain = gain - (pen if cols is None else pen[:, cols])[:, :, None]
+        return gain
+
+    gain_r, gain_l = penalized(gain_r), penalized(gain_l)
     sections = [gain_r.reshape(L, f * b), gain_l.reshape(L, f * b)]
     cat = (_categorical_planes(hist, num_bins, fm_lf, pg, ph, pc, cat_idx,
                                p) if cat_idx else None)
     if cat is not None:
+        cat = cat._replace(gains=tuple(penalized(x, cat.cat_idx)
+                                       for x in cat.gains))
         sections += [x.reshape(L, -1) for x in cat.gains]
     if bun is not None:
-        lB, gain_b = _bundle_plane(cum, pg, ph, pc, fm_lf, bun, p)
-        sections.append(gain_b.reshape(L, f * b))
+        lB, gain_b = _bundle_plane(
+            cum, pg, ph, pc, fm_lf, bun, p,
+            clamped_gains if mono is not None else None)
+        sections.append(penalized(gain_b).reshape(L, f * b))
     gains = torch.cat(sections, dim=1)
     n_flat = gains.shape[1]
     best_raw = gains.max(dim=1).values
@@ -214,9 +333,15 @@ def best_split(hist: torch.Tensor, num_bins: torch.Tensor,
             bun, lB, flat, 2 * f * b + n_cat, lidx, is_cat, feat, tbin,
             member, left)
 
-    improvement = best_gain - parent_gain
-    found = (allow_split & (best_gain > NEG_INF / 2)
-             & (improvement > p.min_gain_to_split) & (improvement > 0.0))
+    if contri is not None:
+        # the planes hold the penalized improvement already: a masked
+        # candidate is <= 0 after the rewrite, so positivity alone gates
+        improvement = best_gain
+        found = allow_split & (improvement > 0.0)
+    else:
+        improvement = best_gain - parent_gain
+        found = (allow_split & (best_gain > NEG_INF / 2)
+                 & (improvement > p.min_gain_to_split) & (improvement > 0.0))
     return SplitResult(
         gain=torch.where(found, improvement,
                          torch.full_like(improvement, NEG_INF)),
@@ -351,7 +476,7 @@ def _decode_categorical(cat: _CatPlanes, flat, n_num: int, lidx, feat, tbin,
 
 
 def _bundle_plane(cum, pg, ph, pc, fm_lf, bun: BundleArrays,
-                  p: SplitParams):
+                  p: SplitParams, clamped_gains=None):
     """The left stats ([L, 3, F, B]) and gains ([L, F, B]) of every bundle
     position (reference: split.py:450-495): the range's prefix through
     prefix_end, plus the parent minus the whole range where the candidate
@@ -382,7 +507,12 @@ def _bundle_plane(cum, pg, ph, pc, fm_lf, bun: BundleArrays,
           & (rh >= p.min_sum_hessian_in_leaf)
           & bun.valid[None] & bun.is_bundle[None, :, None]
           & fm_lf[:, :, None])
-    gain = leaf_split_gain(lg, lh, p) + leaf_split_gain(rg, rh, p)
+    if clamped_gains is not None:
+        # a monotone leaf's bounds hold on a bundle split too (bundled
+        # features are never constrained themselves)
+        gain = clamped_gains(lg, lh, rg, rh)[0]
+    else:
+        gain = leaf_split_gain(lg, lh, p) + leaf_split_gain(rg, rh, p)
     return lB, torch.where(ok, gain, torch.full_like(gain, NEG_INF))
 
 

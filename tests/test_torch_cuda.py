@@ -61,6 +61,11 @@ plus the bins outside it in the bitset) and hist_q8 handed its slots and
 counts equal their plain versions exactly at F = 16, B = 256; a bundled
 model's first tree trained on the card from a CSR matrix and from the
 dense array has the CPU tree's structure (leaf values as with weights).
+Split constraints: three 4000-row trees under monotone constraints,
+feature_contri and extra_trees (fused front), forced splits and bins with
+CEGB (unfused front) and monotone constraints, extra_trees and forced
+splits on lossguide have the CPU trees' structure (leaf values as with
+weights, bit for bit on lossguide's exact-sum labels).
 """
 import os
 import subprocess
@@ -1209,3 +1214,81 @@ def test_gpu_bundled_first_tree_equals_cpu(dev, extra):
                                    atol=1e-6 * np.abs(b.leaf_value).max())
     else:
         np.testing.assert_array_equal(a.leaf_value, b.leaf_value)
+
+
+def _constrained_params(tmp_path, path):
+    """Path (m), (m') or (m'')'s settings on 28 columns: monotone
+    constraints on 0-7 (the signs of the label's weights, the forced
+    features 0 and 1 among them), feature_contri 0.5 on 11-27 and
+    extra_trees; forced bins on 0 and 1, a forced root on 0 with its left
+    child on 1, and CEGB (a split penalty, a coupled penalty blocking
+    20-27 and a lazy one on 8-10)."""
+    sign = [1, -1, 1, 1, -1, 1, -1, 1]
+    forced = tmp_path / "forced.json"
+    forced.write_text('{"feature": 0, "threshold": 0.0, "left": '
+                      '{"feature": 1, "threshold": 0.0}}')
+    bins = tmp_path / "bins.json"
+    bins.write_text('[{"feature": 0, "bin_upper_bound": [-1, 0, 1]}, '
+                    '{"feature": 1, "bin_upper_bound": [0]}]')
+    mono = {"monotone_constraints": sign + [0] * 20,
+            "feature_contri": [1.0] * 11 + [0.5] * 17, "extra_trees": True}
+    if path == "m":
+        return mono, {}
+    if path == "m'":
+        return {"forcedsplits_filename": str(forced),
+                "cegb_penalty_split": 1e-4,
+                "cegb_penalty_feature_coupled": [0.0] * 20 + [1e9] * 8,
+                "cegb_penalty_feature_lazy": [0.0] * 8 + [0.0005] * 3
+                + [0.0] * 17}, {"forcedbins_filename": str(bins)}
+    return {"grow_policy": "lossguide", "extra_trees": True,
+            "monotone_constraints": sign + [0] * 20,
+            "forcedsplits_filename": str(forced)}, {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["m", "m'", "m''"])
+def test_gpu_constrained_trees_equal_cpu(dev, path, tmp_path):
+    # 4000 rows on exact-sum labels (a 1/8 grid, no init score): the three
+    # trees trained on the card under the split constraints have the CPU
+    # trees' structure, leaf values within 1e-6 of the largest; lossguide's
+    # first tree bit for bit, its later ones within 2^-17 (off-grid
+    # gradients summed by the f32 histogram's atomics in another order on
+    # each launch; scripts/torch_constrained_parity.py reads this model's
+    # spread and its one-row leaf changes); (m) takes the fused front, (m')
+    # the unfused one
+    rng = np.random.RandomState(21)
+    X = rng.randn(4000, 28).astype(np.float32)
+    w = np.array([0.8, -1.1, 0.5, 0.9, -0.4, 1.3, -0.7, 0.6])
+    y = np.clip(np.floor((X[:, :8] @ w - 0.4 * X[:, 10] ** 2
+                          + 0.5 * rng.rand(4000)) * 8) / 8, -6,
+                5.875).astype(np.float32)
+    extra, ds_extra = _constrained_params(tmp_path, path)
+    runs = []
+    for kw in ({}, {"device_type": "cpu"}):
+        params = {"objective": "regression", "num_leaves": 31,
+                  "max_bin": 63, "min_data_in_leaf": 20, "verbosity": -1,
+                  "boost_from_average": False, **extra, **kw}
+        hk.reset_launches()
+        runs.append(lt.train(params, lt.Dataset(
+            X, label=y, params=dict(params, **ds_extra)), 3))
+        if not kw:
+            own = {"m": FUSED, "m'": ("hist_q8", "hist_routed_fused",
+                                      "leaf_sums"),
+                   "m''": ("hist_f32",)}[path]
+            assert min(hk.LAUNCHES[k] for k in own) > 0
+    ta, tb = runs[0]._host_trees(), runs[1]._host_trees()
+    assert len(ta) == len(tb) == 3
+    for i, (a, b) in enumerate(zip(ta, tb)):
+        assert a.num_leaves == b.num_leaves > 4
+        for name in STRUCT:
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+        quant = runs[0]._gbdt.gp.quant
+        if quant or i:
+            np.testing.assert_allclose(
+                a.leaf_value, b.leaf_value, rtol=0,
+                atol=(1e-6 if quant else 2 ** -17)
+                * np.abs(b.leaf_value).max())
+        else:
+            np.testing.assert_array_equal(a.leaf_value, b.leaf_value)
+    if path != "m":
+        assert all(t.split_feature[0] == 0 for t in ta)

@@ -20,6 +20,7 @@ exp gap (queue C1).
 """
 import ast
 import dataclasses
+import json
 import os
 import shutil
 import subprocess
@@ -464,37 +465,71 @@ def test_default_device_needs_a_gpu():
 # since A11a and are held against the reference in test_torch_objectives.py,
 # test_torch_multiclass.py and test_torch_metrics.py; the ranking settings
 # (A11b) and boosting=dart|rf (A14) that they then held train since A11b
-# and A14 (test_torch_ranking.py, test_torch_boosters.py): the six cases
-# hold settings still refused under their old ids; categorical_feature
-# (A12a) trains since A12a (test_torch_categorical.py), and its case holds
-# monotone constraints on the lossguide grower under its old id
+# and A14 (test_torch_ranking.py, test_torch_boosters.py); categorical_feature
+# (A12a) trains since A12a (test_torch_categorical.py). The split
+# constraints (forced bins and splits, CEGB, monotone constraints,
+# extra_trees, feature_contri) train since A12c: their cases (item None)
+# keep their ids and hold the first binary tree against the reference
+# (tests/test_torch_constraints.py holds every tree of L2 models on each
+# path); the A13b and A21 cases are still refused
 @pytest.mark.parametrize("extra,item", [
-    pytest.param({"forcedbins_filename": "bins.json"}, "A12",
+    pytest.param({"forcedbins_filename": "bins.json"}, None,
                  id="extra0-A11"),
-    ({"grow_policy": "lossguide", "histogram_pool_size": 1.0}, "A13b"),
-    pytest.param({"cegb_penalty_feature_lazy": [0.5] * 8}, "A12",
+    pytest.param({"grow_policy": "lossguide", "histogram_pool_size": 1.0},
+                 "A13b", id="extra1-A13b"),
+    pytest.param({"cegb_penalty_feature_lazy": [0.5] * 8}, None,
                  id="extra2-A11"),
-    ({"monotone_constraints": [0, 0, 1, 0, 0, 0, 0, 0]}, "A12"),
-    ({"cegb_penalty_split": 0.1}, "A12"),
-    ({"extra_trees": True}, "A12"),
-    ({"feature_contri": [1.0, 1.0, 1.0, 0.5, 1.0, 1.0, 1.0, 1.0]}, "A12"),
-    pytest.param({"cegb_penalty_feature_coupled": [0.5] * 8}, "A12",
+    pytest.param({"monotone_constraints": [0, 0, 1, 0, 0, 0, 0, 0]}, None,
+                 id="extra3-A12"),
+    pytest.param({"cegb_penalty_split": 0.1}, None, id="extra4-A12"),
+    pytest.param({"extra_trees": True}, None, id="extra5-A12"),
+    pytest.param({"feature_contri": [1.0, 1.0, 1.0, 0.5, 1.0, 1.0, 1.0,
+                                     1.0]}, None, id="extra6-A12"),
+    pytest.param({"cegb_penalty_feature_coupled": [0.5] * 8}, None,
                  id="extra7-A14"),
     pytest.param({"tree_learner": "feature"}, "A21", id="extra8-A14"),
     pytest.param({"tree_learner": "voting"}, "A21", id="extra9-A11"),
-    ({"histogram_pool_size": 1.0}, "A13b"),
-    ({"tree_learner": "data"}, "A21"),
+    pytest.param({"histogram_pool_size": 1.0}, "A13b", id="extra10-A13b"),
+    pytest.param({"tree_learner": "data"}, "A21", id="extra11-A21"),
     pytest.param({"monotone_constraints": [-1, 0, 0, 0, 0, 0, 0, 0],
-                  "grow_policy": "lossguide"}, "A12", id="extra12-A12"),
+                  "grow_policy": "lossguide"}, None, id="extra12-A12"),
     pytest.param({"num_machines": 2}, "A21", id="extra13-A11"),
-    ({"forcedsplits_filename": "forced.json"}, "A12"),
+    pytest.param({"forcedsplits_filename": "forced.json"}, None,
+                 id="extra14-A12"),
 ])
-def test_out_of_slice_settings_raise(extra, item):
+def test_out_of_slice_settings_raise(extra, item, tmp_path):
     X, yb, _ = _data()
     p = dict(PALLAS_PARAMS, objective="binary", **CPU)
     p.update(extra)
-    with pytest.raises(NotImplementedError, match=item):
-        lt.train(p, lt.Dataset(X, label=yb, params=p), num_boost_round=1)
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=item):
+            lt.train(p, lt.Dataset(X, label=yb, params=p), num_boost_round=1)
+        return
+    # exact: the first binary tree (queue C1) equals the reference's;
+    # predictions after 2 iterations rtol 1e-4 (queue C2)
+    files = {"bins.json": [{"feature": 0, "bin_upper_bound": [0.3, 0.65]}],
+             "forced.json": {"feature": 1, "threshold": 0.5,
+                             "left": {"feature": 0, "threshold": 0.6}}}
+    for key in ("forcedbins_filename", "forcedsplits_filename"):
+        if key in p:
+            fn = tmp_path / p[key]
+            fn.write_text(json.dumps(files[p[key]]))
+            p[key] = str(fn)
+    ref_p = {k: v for k, v in p.items() if k != "device_type"}
+    ref = lgb.train(ref_p, lgb.Dataset(X, label=yb, params=ref_p), 2)
+    port = lt.train(p, lt.Dataset(X, label=yb, params=p), 2)
+    rt, ptr = _trees(ref, port)
+    assert len(rt) == len(ptr) == 2
+    for name in STRUCT:
+        np.testing.assert_array_equal(getattr(ptr[0], name),
+                                      getattr(rt[0], name), err_msg=name)
+    np.testing.assert_allclose(port.predict(X), ref.predict(X), rtol=1e-4)
+    if "forcedbins_filename" in p:
+        np.testing.assert_array_equal(port.train_set.mappers[0].upper_bounds,
+                                      [0.3, 0.65, np.inf])
+    if "forcedsplits_filename" in p:
+        assert ptr[0].split_feature[0] == 1
+        assert ptr[0].split_feature[ptr[0].left_child[0]] == 0
 
 
 def test_bagging_fraction_without_bagging_freq_trains_as_reference():
