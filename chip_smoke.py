@@ -48,7 +48,12 @@ measured):
    shape, F = 16, B = 256 (six single columns, ten bundle columns of 127
    one-hot members; bundle leaves sending a member's range prefix and
    every bin outside the range left, or only the bins outside it), at
-   S = 32 and 127. Each kernel
+   S = 32 and 127; hist_q8 and hist_f32 on a feature tile read in place
+   at path (n)'s shape (the whole row-major bins [473,134, 700], B = 64,
+   bins_T's rows [lo, hi) and a column offset: the lean grower's tile
+   [172, 344) at S = 254 fed route_level's slots and counts, the same
+   tile at the root, and the unaligned tile [5, 177) at S = 254), each
+   also on a contiguous copy of the tile. Each kernel
    is timed
    (median of CUDA-event timings), beside its plain version, the least
    time the card could take (bytes over memory rate or operations over
@@ -181,6 +186,26 @@ measured):
    root and left child in the reloaded model text, no (m') node on 20-27
    and a first-tree node on 8-10, AUC on 1M rows above 0.7; the lazy
    CEGB plane timed and the iteration by part of (m) and (a) printed;
+   (n) "lean": (i)'s Dataset and valid set with histogram_pool_size=32,
+   lambdarank 3 iterations on the lean depthwise grower (feature tiles
+   of 172 columns: hist_q8 a tile at the root and after each level's
+   route_level, leaf_sums twice and take_small twice a tree); (n') the
+   same unquantized, 2 (hist_f32 a tile and pass, leaf_sums once); gates:
+   the live tile within the budget, valid NDCG@10 within 0.01 of (i)'s
+   lambdarank at each iteration and above the constant score's, the
+   peak device memory of one tree's growth below the default grower's on
+   the same gradients; the trees equal to (i)'s printed; (n'') "pooled":
+   (d) with histogram_pool_size=8 (97 of 255 leaf histograms cached),
+   binary 2 iterations: hist_f32 a tree, a split and a rebuild of an
+   evicted parent, take_small a tree, at least one rebuild a tree, AUC on
+   1M rows within 0.005 of (d)'s at 2 iterations; (o) "api" on (a)'s
+   data: LGBMClassifier(n_estimators=3, num_leaves=255, max_bin=63) on
+   the numpy rows, its model text equal to train's under the parameters
+   it passes; cv on the first 1M rows (3 stratified folds, 3 rounds, AUC
+   above 0.7 on every fold); save_binary / load_binary of 1M rows training
+   the same model text; rollback_one_iter from 3 iterations leaving train
+   and valid scores within 1e-6 of the largest of a 2-iteration run's; a
+   pickled Booster predicting identically;
 5. agreement, at max_bin=63 and at 255 (the 4000-row table has more than
    128 bins a feature, so the unfused path, which is asserted): the first
    tree of a 4000-row L2 model trained on the card has the structure of
@@ -215,15 +240,20 @@ measured):
    largest (lossguide's first tree bit for bit, its later trees, whose f32
    histograms sum off-grid gradients with atomics, within 2^-17), and
    (m)'s extra_trees
-   draws are the CPU's bit for bit; and the threefry replica's uniforms
+   draws are the CPU's bit for bit; three 4000-row trees of (n), (n') and
+   (n'') (lean tiles of 5 columns, a pool of 4 leaves) on the same labels
+   likewise (quantized within 1e-6; unquantized the first tree bit for
+   bit, later ones within 2^-17); and the threefry replica's uniforms
    at N rows are the CPU's bit for bit.
 
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
 of the repository, it exits non-zero and prints no result.
 """
+import dataclasses
 import json
 import os
+import pickle
 import re
 import statistics
 import subprocess
@@ -1150,6 +1180,108 @@ def main() -> int:
         out = call().view(len(chans), s, f, b_).transpose(0, 1)
         return out, time_ms(call)
 
+    def tile_variants(bins_r, rowmajor_r, q_r):
+        """B5 hist_q8 and B8 hist_f32 on a feature tile of path (n)'s
+        shape, read in place: the whole row-major bins [N_RANK, 700],
+        bins_T's rows [lo, hi) and col0 = lo. The lean grower's second
+        tile [172, 344) at S = 254, fed the slots and counts route_level
+        gives for a level of 127 splits (both children measured), the
+        same tile at the root (no slot vector), and an unaligned tile
+        [5, 177) at S = 254 (the byte path of the compaction); hist_q8
+        exactly, hist_f32 counts exactly and g, h within 2^-15 of the
+        cell's absolute mass. Each timed beside the same call on a
+        contiguous copy of the tile's bins (the copy the lean grower does
+        not make) and beside the index_add_ yardstick."""
+        k_ = torch.arange(L, device=dev)
+        split_t = k_ < 127
+        tab_t = torch.stack([
+            torch.where(split_t, torch.randint(0, F_RANK, (L,), generator=g,
+                                               device=dev), -1),
+            torch.randint(0, B - 1, (L,), generator=g, device=dev),
+            torch.randint(0, 2, (L,), generator=g, device=dev), 127 + k_,
+            torch.where(split_t, 2 * k_, 254),
+            torch.where(split_t, 2 * k_ + 1, 254)]).to(torch.int32)
+        lid_t = torch.randint(0, 127, (N_RANK,), generator=g, device=dev,
+                              dtype=torch.int64).to(torch.int32)
+        na_r = torch.full((F_RANK,), 256, dtype=torch.int32, device=dev)
+        slot_t, _, counts_t = hk.route_level(bins_r, lid_t,
+                                             tab_t.contiguous(), na_r, 254)
+        f_rows = (torch.randn(N_RANK, generator=g, device=dev),
+                  torch.rand(N_RANK, generator=g, device=dev),
+                  (torch.rand(N_RANK, generator=g, device=dev)
+                   < 0.9).float())
+        abs_f = (f_rows[0].abs(), f_rows[1], f_rows[2])
+        for name_, lo, hi, slot, s, counts in (
+                ("tile172_S254", 172, 344, slot_t, 254, counts_t),
+                ("tile172_root", 172, 344, None, 1, None),
+                ("tile5_S254", 5, 177, slot_t, 254, counts_t)):
+            ft = hi - lo
+            tile = bins_r[lo:hi]
+            copy_rm = rowmajor_r[:, lo:hi].contiguous()
+            ridx, flat = cells(tile, slot, s, B)
+            kept = int(ridx.numel())
+            slot_bytes = 0 if slot is None else 4 * N_RANK
+            base = dict(variant=name_, S=s, B=B, F=ft, col0=lo,
+                        tile_of=F_RANK, kept=kept,
+                        counts_given=counts is not None)
+            args = (tile, *q_r, slot, s, B)
+            tag = f"hist_q8[{name_}]"
+            ph_ = hk.hist_q8_plain(*args)
+            err = exact(tag, hk.hist_q8(*args, bins=rowmajor_r,
+                                        counts=counts, col0=lo), ph_)
+            exact(f"{tag} on a copy", hk.hist_q8(*args, bins=copy_rm,
+                                                 counts=counts), ph_)
+            lib, lib_ms = yardstick(list(q_r), torch.int32, ridx, flat, s, B)
+            exact(f"{tag} index_add_ yardstick", lib.contiguous(), ph_)
+            del lib, ph_
+            bms, by = bound(slot_bytes + kept * (ft + 3)
+                            + s * 3 * ft * B * 4, kept * ft * 3)
+            qvariants.append(dict(
+                base, nch=3, max_abs_err=err,
+                ms=time_ms(lambda: hk.hist_q8(*args, bins=rowmajor_r,
+                                              counts=counts, col0=lo)),
+                copy_ms=time_ms(lambda: hk.hist_q8(*args, bins=copy_rm,
+                                                   counts=counts)),
+                plain_ms=time_ms(lambda: hk.hist_q8_plain(*args), reps=3),
+                bound_ms=bms, bound_by=by, library_ms=lib_ms))
+            args = (tile, *f_rows, slot, s, B)
+            tag = f"hist_f32[{name_}]"
+            ph_ = hk.hist_f32_plain(*args)
+            mass = hk.hist_f32_plain(tile, *abs_f, slot, s, B).double()
+            errs = []
+            for bins_, col0 in ((rowmajor_r, lo), (copy_rm, 0)):
+                kh = hk.hist_f32(*args, bins=bins_, counts=counts, col0=col0)
+                e_ = (kh.double() - ph_.double()).abs()
+                if not torch.equal(kh[:, 2], ph_[:, 2]):
+                    fail(f"{tag}: counts differ from the plain version")
+                if bool((e_[:, :2] > 2.0 ** -15 * mass[:, :2]).any()):
+                    fail(f"{tag}: kernel vs plain error {float(e_.max())} "
+                         "exceeds 2^-15 of the cell's absolute mass")
+                errs.append(float(e_.max()))
+                del kh, e_
+            lib, lib_ms = yardstick(list(f_rows), torch.float32, ridx, flat,
+                                    s, B)
+            lib_err = (lib.double() - ph_.double()).abs()
+            if bool((lib_err[:, :2] > 2.0 ** -15 * mass[:, :2]).any()):
+                fail(f"{tag}: the index_add_ yardstick computes another "
+                     "function")
+            del lib, lib_err, ph_, mass
+            bms, by = bound(slot_bytes + kept * (ft + 12)
+                            + s * 3 * ft * B * 4, kept * ft * 3)
+            fvariants.append(dict(
+                base, max_abs_err=errs[0],
+                ms=time_ms(lambda: hk.hist_f32(*args, bins=rowmajor_r,
+                                               counts=counts, col0=lo)),
+                copy_ms=time_ms(lambda: hk.hist_f32(*args, bins=copy_rm,
+                                                    counts=counts)),
+                plain_ms=time_ms(lambda: hk.hist_f32_plain(*args), reps=3),
+                bound_ms=bms, bound_by=by, library_ms=lib_ms))
+            del ridx, flat, copy_rm
+            torch.cuda.empty_cache()
+        tiles = [v for v in qvariants + fvariants if "col0" in v]
+        print("hist_q8 / hist_f32 on a feature tile read in place: exact / "
+              f"within 2^-15; {tiles}")
+
     for name_, (slot, s), b_ in [(k, v, BW) for k, v in slot_vars.items()] \
             + [("S127", slot_vars["S127"], B)]:
         bins_s = bins_w if b_ == BW else (bins_w & (b_ - 1))
@@ -1262,6 +1394,7 @@ def main() -> int:
             bound_ms=bms, bound_by=by, library_ms=lib_ms))
         del ph_
         torch.cuda.empty_cache()
+    tile_variants(bins_r, rowmajor_r, q_r)
     del bins_r, rowmajor_r, q_r, slot_r, counts_r
     torch.cuda.empty_cache()
     # B6 with EFB bundle bitsets, and B5 fed B6's counts, at path (l)'s
@@ -1508,6 +1641,12 @@ def main() -> int:
         print(f"{tag} train AUC on 1M rows: {auc:.6f}")
         if not auc > 0.7:
             fail(f"{path}: train AUC {auc} <= 0.7")
+        if path == "lossguide":
+            # (n'') trains 2 iterations of this model with a pool
+            path_auc[path] = float(metrics.auc(torch.as_tensor(y[:m]),
+                                               torch.as_tensor(bst.predict(
+                                                   X[:m], num_iteration=2))))
+            path_trees[path] = bst._host_trees()[:2]
         reg_pred = reg.predict(X[:m])
         mse0 = float(np.mean((y_reg[:m] - y_reg.mean()) ** 2))
         mse = float(np.mean((y_reg[:m] - reg_pred) ** 2))
@@ -1524,9 +1663,70 @@ def main() -> int:
             fail(f"{path}: saved and loaded model predict differently")
         print(f"{tag} model text round trip: predictions identical")
 
+    def pooled_path() -> None:
+        """(n''): (d) with histogram_pool_size=8: the leaf-wise grower
+        caches 8 MiB // (3 * 28 * 256 * 4 B) = 97 of 255 leaf histograms,
+        and an evicted parent is rebuilt by one more hist_f32 pass; binary
+        for 2 iterations on (d)'s Dataset."""
+        ds, _ = dataset(255)
+        params = {"objective": "binary", "num_leaves": L, "max_bin": 255,
+                  "learning_rate": 0.1, "min_data_in_leaf": 20,
+                  "verbosity": -1, "grow_policy": "lossguide",
+                  "histogram_pool_size": 8}
+        tag = "[pooled (n''), max_bin=255]"
+        hk.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bst = lt.train(params, ds, num_boost_round=2)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        gb = bst._gbdt
+        per_leaf = 3 * ds.num_features * BW * 4
+        want_pool = max(2, (8 << 20) // per_leaf)
+        print(f"{tag} {sec:.3f} s for 2 iterations ({sec / 2:.3f} s/iter); "
+              f"pool {gb.gp.hist_pool} of {L} leaves ({per_leaf} B a leaf), "
+              f"splits a tree {gb.hist_passes}, rebuilds a tree "
+              f"{gb.hist_rebuilds}; peak device memory {peak} bytes")
+        if gb.gp.hist_pool != want_pool or not want_pool < L:
+            fail(f"{tag}: pool of {gb.gp.hist_pool}, expected {want_pool}")
+        if min(gb.hist_rebuilds) < 1:
+            fail(f"{tag}: a tree without a rebuild ({gb.hist_rebuilds})")
+        launches = dict(hk.LAUNCHES)
+        trees = len(gb.hist_passes)
+        expected = {k: 0 for k in hk.KERNELS}
+        expected["hist_f32"] = (trees + sum(gb.hist_passes)
+                                + sum(gb.hist_rebuilds))
+        expected["take_small"] = bst.num_trees()
+        print(f"{tag} launches {launches} expected {expected}")
+        if launches != expected or trees != bst.num_trees():
+            fail(f"{tag}: launch counts {launches} != expected {expected}")
+        for k, v in launches.items():
+            launches_all[k] += v
+        prob = bst.predict(X[:m])
+        auc = float(metrics.auc(torch.as_tensor(y[:m]),
+                                torch.as_tensor(prob)))
+        same = sum(all(np.array_equal(getattr(a, f_), getattr(b, f_))
+                       for f_ in ("split_feature", "threshold_bin",
+                                  "left_child", "right_child"))
+                   for a, b in zip(bst._host_trees(),
+                                   path_trees["lossguide"]))
+        print(f"{tag} train AUC on 1M rows {auc:.6f}, (d)'s at 2 iterations "
+              f"{path_auc['lossguide']:.6f}; trees with (d)'s structure: "
+              f"{same} of 2")
+        if not (np.isfinite(prob).all()
+                and abs(auc - path_auc["lossguide"]) <= 0.005):
+            fail(f"{tag}: AUC {auc} not within 0.005 of (d)'s "
+                 f"{path_auc['lossguide']}")
+        print(f"{tag} one iteration by part (torch.profiler): "
+              f"{json.dumps(iteration_parts(bst, reps=1))}")
+
+    path_auc, path_trees = {}, {}
     for path in PATHS:
         main_path(path)
-    print(f"elapsed after paths (a)-(d): "
+    pooled_path()
+    print(f"elapsed after paths (a)-(d), (n''): "
           f"{time.perf_counter() - t_start:.1f} s")
 
     # ---- 4b. (e) sampled and (f) GOSS, through the public entry points ----
@@ -1868,7 +2068,7 @@ def main() -> int:
               f"{ds.num_features} used features, max bins {ds.max_num_bins}")
         const = metrics.ndcg(yq, np.zeros(len(yq), np.float32), None, gq, 10)
         hk.reset_launches()
-        boosters = []
+        boosters, ndcg_of = [], {}
         for objective, iters in (("lambdarank", 3), ("rank_xendcg", 2)):
             evals = {}
             torch.cuda.reset_peak_memory_stats()
@@ -1883,7 +2083,7 @@ def main() -> int:
             peak = torch.cuda.max_memory_allocated()
             boosters.append(bst)
             gb = bst._gbdt
-            ndcg = evals["valid"]["ndcg@10"]
+            ndcg = ndcg_of[objective] = evals["valid"]["ndcg@10"]
             print(f"{tag} {objective}: {sec:.3f} s for {iters} iterations "
                   f"({sec / iters:.3f} s/iter), level passes a tree "
                   f"{gb.hist_passes}; valid ndcg@10 by iteration {ndcg} "
@@ -1913,6 +2113,9 @@ def main() -> int:
             print(f"{tag} {objective}: model text round trip: valid "
                   "predictions identical")
         count_launches(tag, "unfused", boosters, 1)
+        rank = dict(ds=ds, vs=vs, const=const, params=params,
+                    ndcg=ndcg_of["lambdarank"],
+                    trees=boosters[0]._host_trees())
         for bst in boosters:
             obj = bst._gbdt.objective
             parts = iteration_parts(bst, {"gradients": lambda: (
@@ -1920,6 +2123,112 @@ def main() -> int:
             print(f"{tag} {obj.name} one iteration by part (torch.profiler;"
                   f" \"gradients\" is the pair grid or the softmax): "
                   f"{json.dumps(parts)}")
+        return rank
+
+    def lean_paths(rank) -> None:
+        """(n) and (n'): (i)'s ranking Dataset and valid set with
+        histogram_pool_size=32, lambdarank: the lean depthwise grower
+        (feature tiles of width 32 MiB // (254 * 3 * 64 * 4 B) = 172, the
+        second to fifth at column offsets 172, 344, 516 and 688),
+        quantized for 3 iterations (n), then unquantized for 2 (n')."""
+        from lightgbm_tpu_torch.ops.grow_depthwise import (
+            grow_tree_depthwise, grow_tree_depthwise_lean, lean_tiles)
+        ds, vs = rank["ds"], rank["vs"]
+        budget = 32 << 20
+        for path, extra, iters in (("n", {}, 3),
+                                   ("n'", {"use_quantized_grad": False}, 2)):
+            tag = f"[lean ({path}), max_bin=63]"
+            params = dict(rank["params"], histogram_pool_size=32, **extra)
+            evals = {}
+            hk.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bst = lt.train(params, ds, num_boost_round=iters,
+                           valid_sets=[vs], valid_names=["valid"],
+                           evals_result=evals, verbose_eval=False)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            gb = bst._gbdt
+            gp = gb.gp
+            tiles = lean_tiles(ds.num_features, gp.lean_ft)
+            live = 2 * (L // 2) * 3 * gp.lean_ft * B * 4
+            ndcg = evals["valid"]["ndcg@10"]
+            print(f"{tag} {sec:.3f} s for {iters} iterations "
+                  f"({sec / iters:.3f} s/iter); lean_ft {gp.lean_ft} of "
+                  f"{ds.num_features} used features, tiles {tiles}, live "
+                  f"tile histogram {live} B (budget {budget} B); level "
+                  f"passes a tree {gb.hist_passes}; valid ndcg@10 {ndcg} "
+                  f"((i)'s {rank['ndcg'][:iters]}, constant "
+                  f"{rank['const']:.6f})")
+            if gp.lean_ft <= 0 or gp.fused_obj is not None \
+                    or gp.quant != (path == "n") or live > budget:
+                fail(f"{tag}: not the lean grower within the budget "
+                     f"(lean_ft {gp.lean_ft}, quant {gp.quant})")
+            trees, n_pass = len(gb.hist_passes), sum(gb.hist_passes)
+            hist = "hist_q8" if gp.quant else "hist_f32"
+            expected = {k: 0 for k in hk.KERNELS}
+            expected.update({hist: len(tiles) * (trees + n_pass),
+                             "route_level": n_pass,
+                             "leaf_sums": trees * (2 if gp.quant else 1),
+                             "take_small": 2 * bst.num_trees()})
+            launches = dict(hk.LAUNCHES)
+            print(f"{tag} launches {launches} expected {expected}")
+            if launches != expected or trees != bst.num_trees():
+                fail(f"{tag}: launch counts {launches} != expected "
+                     f"{expected}")
+            for k, v in launches.items():
+                launches_all[k] += v
+            # (n) is held to (i)'s quantized default grower; (n') only
+            # above the constant score
+            if not ndcg[-1] > rank["const"] or (path == "n" and any(
+                    abs(a - b) > 0.01 for a, b in zip(ndcg, rank["ndcg"]))):
+                fail(f"{tag}: valid ndcg@10 {ndcg} not within 0.01 of (i)'s "
+                     f"{rank['ndcg']} or not above the constant score's")
+            same = sum(all(np.array_equal(getattr(a, f_), getattr(b, f_))
+                           for f_ in ("split_feature", "threshold_bin",
+                                      "left_child", "right_child"))
+                       for a, b in zip(bst._host_trees(), rank["trees"]))
+            print(f"{tag} trees with the default grower's structure ((i)'s "
+                  f"lambdarank): {same} of {bst.num_trees()}")
+            if path != "n":
+                continue
+            obj = gb.objective
+            parts = iteration_parts(bst, {"gradients": lambda: (
+                obj.get_gradients(gb.train_score))})
+            print(f"{tag} one iteration by part (torch.profiler): "
+                  f"{json.dumps(parts)}")
+            # one tree's growth on the same gradients, the default grower
+            # against the lean one: peak device memory above what was
+            # allocated before, and the time
+            g_, h_ = gb.objective.get_gradients(gb.train_score)
+            rows = (g_, h_, torch.ones_like(g_))
+            growers = {
+                "default": lambda: grow_tree_depthwise(
+                    ds.bins_T, *rows, ds.num_bins_dev, ds.na_bin_dev,
+                    gb._fmask, dataclasses.replace(gp, lean_ft=0), qseed=0,
+                    bins=ds.bins),
+                "lean": lambda: grow_tree_depthwise_lean(
+                    ds.bins_T, *rows, ds.num_bins_dev, ds.na_bin_dev,
+                    gb._fmask, gp, qseed=0, bins=ds.bins)}
+            peak, grow_s = {}, {}
+            for nm, fn in growers.items():
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                grow_s[nm] = time.perf_counter() - t0
+                peak[nm] = torch.cuda.max_memory_allocated() - base
+            print(f"{tag} one tree's growth on the same gradients: peak "
+                  f"device memory above the resident {peak} bytes, seconds "
+                  f"{grow_s}")
+            slice_ms["lean_tree_s"] = grow_s["lean"]
+            slice_ms["default_tree_s"] = grow_s["default"]
+            if not peak["lean"] < peak["default"]:
+                fail(f"{tag}: the lean grower's peak memory {peak['lean']} "
+                     f"is not below the default grower's {peak['default']}")
 
     def boosters_path() -> None:
         """(j): on (a)'s max_bin=63 Dataset, binary: DART (defaults, 6
@@ -2498,14 +2807,102 @@ def main() -> int:
                 slice_ms[f"split_search_other_ms_{name_}"] = \
                     parts["device_ms"].get("other")
 
+    def api_path() -> None:
+        """(o): the entry points of A15a on (a)'s data: LGBMClassifier on
+        the numpy rows against train under the parameters it passes; cv on
+        the first 1M rows (3 stratified folds, 3 rounds, AUC); a Dataset
+        saved with save_binary and loaded with load_binary; a rollback to
+        2 iterations against a 2-iteration run; a pickled Booster."""
+        tag = "[api (o), max_bin=63]"
+        hk.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        clf = lt.LGBMClassifier(n_estimators=3, num_leaves=L,
+                                max_bin=63).fit(X, y)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        count_launches(f"{tag} LGBMClassifier", "fused", [clf.booster_], 0)
+        params = clf._make_train_params()
+        direct = lt.train(params, lt.Dataset(X, label=y, params=params), 3,
+                          verbose_eval=False)
+        same_text = clf.booster_.model_to_string() == \
+            direct.model_to_string()
+        proba = clf.predict_proba(X[:m])
+        auc = float(metrics.auc(torch.as_tensor(y[:m]),
+                                torch.as_tensor(proba[:, 1])))
+        print(f"{tag} LGBMClassifier fit {fit_s:.3f} s (construct included)"
+              f", classes {clf.classes_.tolist()}, model text equal to "
+              f"train's: {same_text}, AUC on 1M rows {auc:.6f}")
+        if not same_text or proba.shape != (m, 2) or not np.allclose(
+                proba.sum(axis=1), 1.0) or not auc > 0.7:
+            fail(f"{tag}: the estimator's model or predictions are wrong")
+
+        m_cv = min(1_000_000, N)
+        hk.reset_launches()
+        cv_params = {"objective": "binary", "num_leaves": L, "max_bin": 63,
+                     "verbosity": -1}
+        t0 = time.perf_counter()
+        res = lt.cv(cv_params, lt.Dataset(X[:m_cv], label=y[:m_cv],
+                                          params=cv_params), 3, nfold=3,
+                    metrics="auc", return_cvbooster=True)
+        torch.cuda.synchronize()
+        cv_s = time.perf_counter() - t0
+        folds = res.pop("cvbooster")
+        count_launches(f"{tag} cv", "fused", folds, 1)
+        fold_auc = [b.eval_valid()[0][2] for b in folds]
+        print(f"{tag} cv on {m_cv} rows: {cv_s:.3f} s, {res}, each fold's "
+              f"valid AUC {fold_auc}")
+        if len(folds) != 3 or not all(a > 0.7 for a in fold_auc) \
+                or len(res["auc-mean"]) != 3:
+            fail(f"{tag}: cv folds' AUC {fold_auc}")
+
+        hk.reset_launches()
+        ds, _ = dataset(63)
+        p2 = {"objective": "binary", "num_leaves": L, "max_bin": 63,
+              "verbosity": -1}
+        sub = ds.subset(np.arange(m))
+        fname = os.path.join(OUT_DIR, "chip_smoke_dataset.bin")
+        sub.save_binary(fname)
+        loaded = lt.Dataset.load_binary(fname)
+        os.remove(fname)
+        same_bin = lt.train(p2, sub, 2).model_to_string() == \
+            lt.train(p2, loaded, 2).model_to_string()
+        print(f"{tag} save_binary / load_binary of {m} rows: the same "
+              f"2-iteration model text: {same_bin}")
+        if not same_bin:
+            fail(f"{tag}: the loaded Dataset trains another model")
+
+        vs = lt.Dataset(Xv, label=yv, reference=ds)
+        b3 = lt.train(p2, ds, 3, valid_sets=[vs])
+        b3.rollback_one_iter()
+        b2 = lt.train(p2, ds, 2, valid_sets=[vs])
+        diffs = []
+        for a_, b_ in ((b3._gbdt.train_score, b2._gbdt.train_score),
+                       (b3._gbdt.valid_scores[0], b2._gbdt.valid_scores[0])):
+            diffs.append(float((a_ - b_).abs().max()
+                               / b_.abs().max().clamp(min=1e-30)))
+        print(f"{tag} rollback_one_iter from 3 to 2 iterations: train and "
+              f"valid scores against a 2-iteration run, largest difference "
+              f"over the largest score {diffs}")
+        if b3.num_trees() != 2 or max(diffs) > 1e-6:
+            fail(f"{tag}: the rolled-back scores differ by {diffs}")
+        pb = pickle.loads(pickle.dumps(b2))
+        if not np.array_equal(pb.predict(X[:m]), b2.predict(X[:m])):
+            fail(f"{tag}: the pickled Booster predicts differently")
+        print(f"{tag} pickled Booster: predictions identical")
+        for k, v in hk.LAUNCHES.items():
+            launches_all[k] += v
+
     airline_small = {}
     airline = {}
     multiclass_path()
     weighted_path()
-    ranking_path()
+    lean_paths(ranking_path())
     boosters_path()
     constrained_path()
-    print(f"elapsed after path (m): {time.perf_counter() - t_start:.1f} s")
+    api_path()
+    print(f"elapsed after paths (m), (o): "
+          f"{time.perf_counter() - t_start:.1f} s")
     del datasets, Xv, yv, yv_reg
     categorical_path()
     print(f"elapsed after path (k): {time.perf_counter() - t_start:.1f} s")
@@ -2902,6 +3299,49 @@ def main() -> int:
             fail(f"{name_}: card and CPU first-tree leaf values differ")
         print(f"[{name_}] card vs CPU (4000 rows, 3 trees, leaves "
               f"{[t.num_leaves for t in ta]}): structure identical, max "
+              f"leaf-value diff {diff:.3e} (largest leaf {scale:.3e})")
+    # (n), (n'), (n''), card vs CPU on the same 4000 rows of exact-sum
+    # labels: the lean grower (tiles of 5 of 28 columns, so offsets 5 to
+    # 25) quantized and not, and the pooled leaf-wise grower (4 of 31
+    # leaves cached); three trees each with the CPU run's structure, leaf
+    # values within 1e-6 of the largest (quantized) or the first tree bit
+    # for bit and the later ones within 2^-17, each path's kernels launched
+    lean_mb = (5 * 30 * 3 * B * 4 + 1) / 2.0 ** 20
+    pool_mb = (4 * 3 * F * B * 4 + 1) / 2.0 ** 20
+    for name_, extra, own in (
+            ("lean (n)", {"histogram_pool_size": lean_mb},
+             ("hist_q8", "route_level", "leaf_sums")),
+            ("lean f32 (n')", {"histogram_pool_size": lean_mb,
+                               "use_quantized_grad": False},
+             ("hist_f32", "route_level", "leaf_sums")),
+            ("pooled (n'')", {"histogram_pool_size": pool_mb,
+                              "grow_policy": "lossguide"}, ("hist_f32",))):
+        runs = []
+        for kw in ({}, {"device_type": "cpu"}):
+            p_ = {"objective": "regression", "num_leaves": 31,
+                  "max_bin": 63, "min_data_in_leaf": 20, "verbosity": -1,
+                  "boost_from_average": False, **extra, **kw}
+            hk.reset_launches()
+            runs.append(lt.train(p_, lt.Dataset(Xs, label=ym8, params=p_),
+                                 3))
+            if not kw and (min(hk.LAUNCHES[k_] for k_ in own) <= 0
+                           or hk.LAUNCHES["hist_routed_fused"]):
+                fail(f"{name_}: the 4000-row model did not take its path "
+                     f"({dict(hk.LAUNCHES)})")
+        gpu, cpu = runs
+        gp_ = gpu._gbdt.gp
+        if (gp_.lean_ft, gp_.hist_pool) != ((0, 4) if "pooled" in name_
+                                            else (5, 0)):
+            fail(f"{name_}: lean_ft {gp_.lean_ft}, pool {gp_.hist_pool}")
+        ta, tb = gpu._host_trees(), cpu._host_trees()
+        diff, scale = same_trees(name_, ta, tb,
+                                 1e-6 if gp_.quant else 2 ** -17)
+        if not gp_.quant and not np.array_equal(ta[0].leaf_value,
+                                                tb[0].leaf_value):
+            fail(f"{name_}: card and CPU first-tree leaf values differ")
+        print(f"[{name_}] card vs CPU (4000 rows, 3 trees, leaves "
+              f"{[t.num_leaves for t in ta]}, rebuilds "
+              f"{gpu._gbdt.hist_rebuilds}): structure identical, max "
               f"leaf-value diff {diff:.3e} (largest leaf {scale:.3e})")
     for q_ in range(5):
         for lvl in range(10):

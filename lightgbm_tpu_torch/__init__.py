@@ -8,7 +8,9 @@ dense numeric data (gbdt, GOSS, DART or RF boosting, continued from an
 init model or refit; the depthwise grower on int8 quantized gradients or
 f32 histograms, or the leaf-wise grower; bagging, feature_fraction and
 feature_fraction_bynode; validation sets, the reference's metric table,
-custom eval functions, early stopping and callbacks) on
+custom eval functions, early stopping and callbacks; histogram_pool_size
+on both growers; cross-validation ``cv`` and the scikit-learn style
+``LGBM*`` estimators) on
 an NVIDIA Hopper GPU through eight hand-written CUDA kernels
 (``ops/hist_kernels.py``, ``csrc/``). It imports torch and numpy only:
 nothing of JAX and nothing of the ``lightgbm_tpu`` reference package.
@@ -22,9 +24,11 @@ from .basic import Booster, Dataset
 from .callback import (EarlyStopException, early_stopping, print_evaluation,
                        record_evaluation, reset_parameter)
 from .config import Config
-from .engine import train
+from .engine import cv, train
 from .log import LightGBMError
+from .sklearn import LGBMClassifier, LGBMModel, LGBMRanker, LGBMRegressor
 
-__all__ = ["Booster", "Config", "Dataset", "train", "early_stopping",
-           "print_evaluation", "record_evaluation", "reset_parameter",
-           "EarlyStopException", "LightGBMError"]
+__all__ = ["Dataset", "Booster", "Config", "train", "cv", "LightGBMError",
+           "early_stopping", "print_evaluation", "record_evaluation",
+           "reset_parameter", "EarlyStopException", "LGBMModel",
+           "LGBMClassifier", "LGBMRegressor", "LGBMRanker"]

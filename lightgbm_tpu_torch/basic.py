@@ -22,6 +22,8 @@ moves to the CPU on its own.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import os
 import time
@@ -30,7 +32,7 @@ from typing import Any, Callable, Dict, List, Optional, Union
 import numpy as np
 import torch
 
-from .binning import (BIN_CATEGORICAL, bin_data, bin_data_sparse,
+from .binning import (BIN_CATEGORICAL, BinMapper, bin_data, bin_data_sparse,
                       bin_sparse_column, find_bin_mappers,
                       find_bin_mappers_sparse, used_features)
 from . import efb
@@ -64,6 +66,13 @@ def resolve_device(conf: Config) -> torch.device:
         return torch.device("cpu")
     raise ValueError(f"device_type={conf.device_type!r}: expected 'cuda' or "
                      "'cpu'")
+
+
+def _json_scalar(o):
+    """numpy scalars in a JSON header as Python numbers."""
+    if isinstance(o, np.generic):
+        return o.item()
+    raise TypeError(f"{type(o).__name__} is not JSON serializable")
 
 
 def _is_sparse(data) -> bool:
@@ -176,9 +185,11 @@ class Dataset:
         self.weight: Optional[torch.Tensor] = None
         self.device: Optional[torch.device] = None
         self._names: List[str] = []
-        self.num_data = int(np.shape(data)[0])
-        self.num_features_raw = int(np.shape(data)[1]) \
-            if np.ndim(data) > 1 else 1
+        # data None: a Dataset that subset or load_binary fills in
+        self.num_data = 0 if data is None else int(np.shape(data)[0])
+        self.num_features_raw = (0 if data is None else
+                                 int(np.shape(data)[1]) if np.ndim(data) > 1
+                                 else 1)
 
     @property
     def bins_T(self) -> torch.Tensor:
@@ -417,11 +428,251 @@ class Dataset:
     def feature_names(self) -> List[str]:
         return list(self._names)
 
+    # ---- derived Datasets ----
+    def create_valid(self, data, label=None, weight=None, group=None,
+                     init_score=None, params=None) -> "Dataset":
+        """A validation Dataset binned with this one's mappers (reference:
+        basic.py:624)."""
+        return Dataset(data, label=label, reference=self, weight=weight,
+                       group=group, init_score=init_score, params=params)
+
+    def _constructed_like(self, params: Optional[Dict]) -> "Dataset":
+        """A constructed Dataset with this one's mappers, plan, names and
+        device, and no rows yet."""
+        ds = Dataset(None, params={**self.params, **(params or {})},
+                     free_raw_data=self.free_raw_data)
+        for name in ("mappers", "feature_map", "_names", "bundle_meta",
+                     "pandas_categorical", "device", "num_features_raw",
+                     "_max_num_bins", "na_bin_dev", "num_bins_dev",
+                     "feature_name", "categorical_feature"):
+            setattr(ds, name, getattr(self, name))
+        ds._constructed = True
+        return ds
+
+    def subset(self, used_indices, params: Optional[Dict] = None
+               ) -> "Dataset":
+        """The rows ``used_indices`` of this constructed Dataset, sharing
+        its bin mappers and EFB plan, so that binning happens once
+        (reference: basic.py:629-688): the rows of ``bins`` and ``bins_T``
+        are gathered on the device, with the label, weight and init score.
+        Query groups survive when the rows cover whole queries in order;
+        otherwise they are dropped with a warning."""
+        self.construct()
+        idx = np.asarray(used_indices, dtype=np.int64).reshape(-1)
+        ds = self._constructed_like(params)
+        ds.reference = self
+        idx_dev = torch.as_tensor(idx, device=self.device)
+        ds.bins = self.bins.index_select(0, idx_dev)
+        ds._bins_T = self.bins_T.index_select(1, idx_dev)
+        ds.num_data = int(idx.shape[0])
+        for name in ("label", "weight"):
+            arr = getattr(self, f"{name}_np")
+            if arr is not None:
+                setattr(ds, f"{name}_np", arr[idx])
+                setattr(ds, name, getattr(self, name).index_select(0,
+                                                                   idx_dev))
+        if self.group is not None:
+            bounds = np.cumsum(self.group)
+            qid = np.searchsorted(bounds, idx, side="right")
+            counts = np.bincount(qid, minlength=len(self.group))
+            whole = np.all((counts == 0) | (counts == self.group))
+            ordered = len(idx) < 2 or bool(np.all(np.diff(idx) > 0))
+            if whole and ordered:
+                ds.group = self.group[counts > 0].copy()
+            else:
+                warning("Dataset.subset on grouped (ranking) data drops the "
+                        "group boundaries unless rows cover whole queries "
+                        "in order; re-set group on the subset if needed")
+        if self.init_score_np is not None:
+            isc, n = self.init_score_np, self.num_data
+            if isc.ndim == 1 and isc.size != n and isc.size % max(n, 1) == 0:
+                # a flat [N * K] init score, row-major by row
+                isc = isc.reshape(n, -1)[idx].reshape(-1)
+            else:
+                isc = isc[idx]
+            ds.init_score_np = isc
+            ds.init_score = torch.as_tensor(isc, device=self.device)
+        return ds
+
+    def add_features_from(self, other: "Dataset") -> "Dataset":
+        """Append ``other``'s columns to this Dataset (reference:
+        basic.py:942-1007): both constructed with the same rows; both bin
+        layouts are concatenated on the device, the EFB plans merged
+        (``efb.merge_bundle_meta``), and feature_contri and the monotone
+        constraints padded with their neutral values. Labels, weights and
+        groups stay this Dataset's."""
+        if not self._constructed or not other._constructed:
+            raise LightGBMError("Both source and target Datasets must be "
+                                "constructed before adding features")
+        if other.num_data != self.num_data:
+            raise LightGBMError("Cannot add features from other Dataset with "
+                                "a different number of rows")
+        if self.bundle_meta is not None or other.bundle_meta is not None:
+            a = self.bundle_meta or efb.identity_meta(self.mappers)
+            b = other.bundle_meta or efb.identity_meta(other.mappers)
+            self.bundle_meta = efb.merge_bundle_meta(a, b, len(self.mappers))
+        na, nb = self.num_features_raw, other.num_features_raw
+        self.feature_map = np.concatenate(
+            [np.asarray(self.feature_map, dtype=np.int64),
+             np.asarray(other.feature_map, dtype=np.int64) + na]).astype(
+                 np.int32)
+        self.mappers = list(self.mappers) + list(other.mappers)
+        self._bins_T = torch.cat([self.bins_T, other.bins_T], dim=0)
+        self.bins = torch.cat([self.bins, other.bins], dim=1)
+        self._derive_meta()
+        self._names = list(self._names) + list(other._names)
+        for key, aliases, get, default, cast in (
+                ("feature_contri", ("feature_contrib", "fc", "fp",
+                                    "feature_penalty"),
+                 Dataset.get_feature_penalty, 1.0, float),
+                ("monotone_constraints", ("mc", "monotone_constraint"),
+                 Dataset.get_monotone_constraints, 0, int)):
+            va, vb = get(self), get(other)
+            if va is None and vb is None:
+                continue
+            merged = (list(va) if va is not None else [default] * na) + \
+                (list(vb) if vb is not None else [default] * nb)
+            # drop the aliases, or a stale spelling wins over the key
+            for alias in aliases:
+                self.params.pop(alias, None)
+            self.params[key] = [cast(v) for v in merged]
+        self.num_features_raw = na + nb
+        return self
+
+    # ---- the binned Dataset on disk ----
+    _BIN_MAGIC = "lightgbm_tpu_torch_dataset_v1"
+
+    def save_binary(self, filename: str) -> "Dataset":
+        """Write the binned Dataset, so that training again skips binning
+        (reference: basic.py:567-597, which pickles its own classes): one
+        numpy ``.npz`` archive of the bins, the label, weight, groups, init
+        score and the EFB plan's arrays, and a JSON header of the mappers,
+        feature map, names, parameters and plan members. Nothing in it is
+        pickled."""
+        self.construct()
+        arrays = {"bins": self.bins.cpu().numpy()}
+        for name in ("label_np", "weight_np", "group", "init_score_np"):
+            val = getattr(self, name)
+            if val is not None:
+                arrays[name] = np.asarray(val)
+        meta = self.bundle_meta
+        if meta is not None:
+            for k in ("default_bin", "pos_feat", "pos_bin", "range_start",
+                      "range_end", "prefix_end", "incl_default", "valid",
+                      "is_bundle", "num_bins"):
+                arrays[f"efb_{k}"] = np.asarray(getattr(meta, k))
+        header = {
+            "magic": self._BIN_MAGIC,
+            "mappers": [{k: (v.tolist() if isinstance(v, np.ndarray)
+                             else v) for k, v in dataclasses.asdict(m).items()}
+                        for m in self.mappers],
+            "feature_map": np.asarray(self.feature_map).tolist(),
+            "names": list(self._names),
+            "num_features_raw": self.num_features_raw,
+            "params": {k: v for k, v in self.params.items()
+                       if isinstance(v, (str, int, float, bool, list))},
+            "pandas_categorical": self.pandas_categorical,
+            "efb_members": None if meta is None else meta.members,
+        }
+        arrays["header"] = np.frombuffer(
+            json.dumps(header, default=_json_scalar).encode(), np.uint8)
+        with open(filename, "wb") as fh:
+            np.savez(fh, **arrays)
+        return self
+
+    @staticmethod
+    def load_binary(filename: str, params: Optional[Dict] = None
+                    ) -> "Dataset":
+        """A Dataset from ``save_binary``'s file, on the device that
+        ``params`` (over the saved ones) ask for. The reference package's
+        binary files are pickles of its own classes, which would import
+        it: they are refused."""
+        with open(filename, "rb") as fh:
+            zipped = fh.read(4) == b"PK\x03\x04"
+        header = None
+        if zipped:
+            with np.load(filename, allow_pickle=False) as z:
+                arrays = {k: z[k] for k in z.files}
+            if "header" in arrays:
+                header = json.loads(arrays.pop("header").tobytes().decode())
+        if header is None or header.get("magic") != Dataset._BIN_MAGIC:
+            raise LightGBMError(
+                f"{filename} is not a lightgbm_tpu_torch binary Dataset "
+                "(the reference package's binary files, pickles of its "
+                "classes, cannot be read; construct from the raw data, or "
+                "carry the reference's mappers over with "
+                "convert.mappers_from_reference)")
+        ds = Dataset(None, params={**header["params"], **(params or {})})
+        conf = params_to_config(ds.params)
+        check_slice(conf)
+        ds.device = resolve_device(conf)
+        ds.mappers = [BinMapper(**{
+            k: (np.asarray(v, dtype=np.float64) if k == "upper_bounds"
+                else np.asarray(v, dtype=np.int64) if k == "cat_values"
+                else v) for k, v in m.items()}) for m in header["mappers"]]
+        ds.feature_map = np.asarray(header["feature_map"], dtype=np.int32)
+        ds._names = list(header["names"])
+        ds.num_features_raw = int(header["num_features_raw"])
+        ds.pandas_categorical = header["pandas_categorical"]
+        if header["efb_members"] is not None:
+            ds.bundle_meta = efb.BundleMeta(
+                members=[[tuple(int(v) for v in t) for t in mem]
+                         for mem in header["efb_members"]],
+                **{k: arrays.pop(f"efb_{k}") for k in (
+                    "default_bin", "pos_feat", "pos_bin", "range_start",
+                    "range_end", "prefix_end", "incl_default", "valid",
+                    "is_bundle", "num_bins")})
+        bins = arrays.pop("bins")
+        ds.num_data = int(bins.shape[0])
+        ds.bins = torch.as_tensor(bins, device=ds.device)
+        ds._derive_meta()
+        ds.label_np = arrays.get("label_np")
+        ds.weight_np = arrays.get("weight_np")
+        ds.set_group(arrays.get("group"))
+        ds.init_score_np = arrays.get("init_score_np")
+        for name in ("label", "weight", "init_score"):
+            arr = getattr(ds, f"{name}_np")
+            if arr is not None:
+                setattr(ds, name, torch.as_tensor(arr, device=ds.device))
+        ds._constructed = True
+        return ds
+
+    # ---- fields ----
     def get_label(self) -> Optional[np.ndarray]:
         return self.label_np
 
     def get_weight(self) -> Optional[np.ndarray]:
         return self.weight_np
+
+    def set_label(self, label) -> "Dataset":
+        """The label, on the device too once constructed (reference:
+        basic.py:899)."""
+        self.label_np = None if label is None else \
+            np.asarray(label, dtype=np.float32).reshape(-1)
+        if self._constructed:
+            self.label = None if label is None else torch.as_tensor(
+                self.label_np, device=self.device)
+        return self
+
+    def set_weight(self, weight) -> "Dataset":
+        """Row weights (None: none), on the device too once constructed
+        (reference: basic.py:903)."""
+        self.weight_np = None if weight is None else \
+            np.asarray(weight, dtype=np.float32).reshape(-1)
+        if self._constructed:
+            self.weight = None if weight is None else torch.as_tensor(
+                self.weight_np, device=self.device)
+        return self
+
+    def set_init_score(self, init_score) -> "Dataset":
+        """Init scores, [N] or [N, K] (None: none; reference:
+        basic.py:911)."""
+        self.init_score_np = None if init_score is None else \
+            np.asarray(init_score, dtype=np.float32)
+        if self._constructed:
+            self.init_score = None if init_score is None else \
+                torch.as_tensor(self.init_score_np, device=self.device)
+        return self
 
     def get_group(self) -> Optional[np.ndarray]:
         return self.group
@@ -466,6 +717,7 @@ class Booster:
         self.best_iteration = -1
         self.best_score: Dict[str, Dict[str, float]] = {}
         self.train_set: Optional[Dataset] = None
+        self._attr: Dict[str, str] = {}
         if model_file is not None:
             with open(model_file) as fh:
                 self._load_model_string(fh.read())
@@ -520,6 +772,18 @@ class Booster:
                                     f"for a score of shape {shape}")
             rows.append(torch.as_tensor(a.reshape(shape), device=gb.device))
         return gb.train_one_iter(*rows)
+
+    def rollback_one_iter(self) -> "Booster":
+        """Drop the last iteration's trees and take their scores off the
+        train and valid scores (reference: basic.py:1119,
+        models/gbdt.py:1601-1643)."""
+        self._gbdt.rollback_one_iter()
+        return self
+
+    def raw_train_score(self) -> np.ndarray:
+        """The raw training score, [N] or [N, K] (reference:
+        basic.py:1136)."""
+        return self._gbdt.train_score.cpu().numpy()
 
     @property
     def current_iteration(self) -> int:
@@ -722,3 +986,225 @@ class Booster:
         self._loaded_meta = meta
         self.trees = trees
         self.best_iteration = -1
+
+    def dump_model(self, num_iteration: Optional[int] = None,
+                   start_iteration: int = 0) -> Dict:
+        """The model as a dict of nested tree nodes (reference:
+        basic.py:1390-1398; the reference takes start_iteration and
+        ignores it)."""
+        trees = self._host_trees()
+        if num_iteration is None:
+            num_iteration = self._default_num_iteration()
+        if num_iteration and num_iteration > 0:
+            trees = trees[:num_iteration * self.num_model_per_iteration()]
+        return model_text.dump_model_json(self, trees)
+
+    # ---- introspection ----
+    def feature_importance(self, importance_type: str = "split",
+                           iteration: Optional[int] = None) -> np.ndarray:
+        """Each raw feature's number of splits (int64) or their summed gain
+        (f64), over every tree (reference: basic.py:1414-1432)."""
+        nf = self.num_feature()
+        out = np.zeros(nf)
+        for t in self._host_trees():
+            for i in range(t.num_leaves - 1):
+                f = int(t.split_feature[i])
+                if f < nf:
+                    out[f] += 1 if importance_type == "split" \
+                        else t.split_gain[i]
+        return out.astype(np.int64) if importance_type == "split" else out
+
+    def attr(self, key: str) -> Optional[str]:
+        """A string attribute, or None (reference: basic.py:1440)."""
+        return self._attr.get(key)
+
+    def set_attr(self, **kwargs) -> "Booster":
+        """Set string attributes; None deletes one (reference:
+        basic.py:1445)."""
+        for key, value in kwargs.items():
+            if value is None:
+                self._attr.pop(key, None)
+            elif not isinstance(value, str):
+                raise ValueError("Only string values are accepted")
+            else:
+                self._attr[key] = value
+        return self
+
+    def get_leaf_output(self, tree_id: int, leaf_id: int) -> float:
+        """One leaf's output (reference: basic.py:1457)."""
+        trees = self._host_trees()
+        if not 0 <= tree_id < len(trees):
+            raise LightGBMError(f"tree_id {tree_id} out of range "
+                                f"[0, {len(trees)})")
+        t = trees[tree_id]
+        if not 0 <= leaf_id < t.num_leaves:
+            raise LightGBMError(f"leaf_id {leaf_id} out of range "
+                                f"[0, {t.num_leaves})")
+        return float(t.leaf_value[leaf_id])
+
+    def get_split_value_histogram(self, feature, bins=None,
+                                  xgboost_style: bool = False):
+        """The histogram of one feature's split thresholds (reference:
+        basic.py:1468-1504): ``bins`` None takes one bin a distinct
+        threshold, and an int with ``xgboost_style`` at most that many;
+        xgboost_style returns the nonzero (upper edge, count) rows, as a
+        DataFrame when pandas is installed. A categorical feature is
+        fatal."""
+        names = self.feature_name()
+        if isinstance(feature, str):
+            if feature not in names:
+                raise LightGBMError(f"Unknown feature name {feature!r}")
+            fidx = names.index(feature)
+        else:
+            fidx = int(feature)
+        values: List[float] = []
+        for t in self._host_trees():
+            for i in range(t.num_leaves - 1):
+                if int(t.split_feature[i]) != fidx:
+                    continue
+                if bool(t.is_cat_node[i]):
+                    raise LightGBMError("Cannot compute split value "
+                                        "histogram for the categorical "
+                                        "feature")
+                values.append(float(t.threshold_real[i]))
+        if bins is None or (isinstance(bins, (int, np.integer))
+                            and xgboost_style):
+            n_unique = len(np.unique(values))
+            bins = max(min(n_unique, bins) if bins is not None else n_unique,
+                       1)
+        hist, edges = np.histogram(values, bins=bins)
+        if not xgboost_style:
+            return hist, edges
+        ret = np.column_stack((edges[1:], hist))
+        ret = ret[ret[:, 1] > 0]
+        try:
+            import pandas as pd
+        except ImportError:
+            return ret
+        return pd.DataFrame(ret, columns=["SplitValue", "Count"])
+
+    def trees_to_dataframe(self):
+        """One row a node of every tree (reference: basic.py:1506-1570, the
+        reference's columns and "<tree>-S<split>" / "<tree>-L<leaf>" node
+        indices). Needs pandas, imported here."""
+        import pandas as pd
+        if self.num_trees() == 0:
+            raise LightGBMError("There are no trees in this Booster and thus "
+                                "nothing to parse")
+        model = self.dump_model()
+        feature_names = model.get("feature_names") or None
+        rows: List[Dict[str, Any]] = []
+
+        def node_index(tree_index, node):
+            if "split_index" in node:
+                return f"{tree_index}-S{node['split_index']}"
+            return f"{tree_index}-L{node.get('leaf_index', 0)}"
+
+        def rec(node, tree_index, depth, parent):
+            row = dict.fromkeys((
+                "left_child", "right_child", "split_feature", "split_gain",
+                "threshold", "decision_type", "missing_direction",
+                "missing_type", "value", "weight", "count"))
+            row.update(tree_index=tree_index, node_depth=depth,
+                       node_index=node_index(tree_index, node),
+                       parent_index=parent)
+            if "split_index" in node:
+                sf = node["split_feature"]
+                row.update(
+                    left_child=node_index(tree_index, node["left_child"]),
+                    right_child=node_index(tree_index, node["right_child"]),
+                    split_feature=feature_names[sf] if feature_names else sf,
+                    split_gain=node["split_gain"],
+                    threshold=node["threshold"],
+                    decision_type=node["decision_type"],
+                    missing_direction=("left" if node["default_left"]
+                                       else "right"),
+                    missing_type=node["missing_type"],
+                    value=node["internal_value"],
+                    weight=node["internal_weight"],
+                    count=node["internal_count"])
+                rows.append(row)
+                rec(node["left_child"], tree_index, depth + 1,
+                    row["node_index"])
+                rec(node["right_child"], tree_index, depth + 1,
+                    row["node_index"])
+            else:
+                row.update(value=node["leaf_value"],
+                           weight=node.get("leaf_weight"),
+                           count=node.get("leaf_count"))
+                rows.append(row)
+
+        for ti in model["tree_info"]:
+            rec(ti["tree_structure"], ti["tree_index"], 1, None)
+        columns = ["tree_index", "node_depth", "node_index", "left_child",
+                   "right_child", "parent_index", "split_feature",
+                   "split_gain", "threshold", "decision_type",
+                   "missing_direction", "missing_type", "value", "weight",
+                   "count"]
+        return pd.DataFrame(rows, columns=columns)
+
+    def shuffle_models(self, start_iteration: int = 0,
+                       end_iteration: int = -1) -> "Booster":
+        """Permute whole iterations (blocks of K trees) in [start, end)
+        with RandomState(17) (reference: basic.py:1611-1642); a training
+        Booster's device trees follow, so that training goes on in the new
+        order."""
+        trees = self._host_trees()
+        k = max(self.num_model_per_iteration(), 1)
+        total = len(trees) // k
+        start = max(0, start_iteration)
+        end = total if end_iteration <= 0 else min(total, end_iteration)
+        perm = np.arange(total)
+        if end > start:
+            sub = perm[start:end].copy()
+            np.random.RandomState(17).shuffle(sub)
+            perm[start:end] = sub
+
+        def reorder(lst):
+            return [lst[it * k + j] for it in perm for j in range(k)]
+        if self._gbdt is not None:
+            self._gbdt.models_host = reorder(self._gbdt.models_host)
+            self._gbdt.models_dev = reorder(self._gbdt.models_dev)
+            self.trees = self._gbdt.models_host
+        else:
+            self.trees = reorder(trees)
+        return self
+
+    # ---- pickling and copies: the whole model, as model text ----
+    def __getstate__(self) -> Dict[str, Any]:
+        """The whole model's text (every tree, not best_iteration's) with
+        the parameters, best iteration and score, attributes, valid set
+        names and pandas categories (reference: basic.py:1572-1586)."""
+        return {
+            "params": self.params, "best_iteration": self.best_iteration,
+            "best_score": self.best_score, "attr": dict(self._attr),
+            "name_valid_sets": (list(self._gbdt.valid_names)
+                                if self._gbdt is not None else []),
+            "pandas_categorical": self.pandas_categorical,
+            "model_str": (self.model_to_string(num_iteration=-1)
+                          if self.num_trees() else None)}
+
+    def __setstate__(self, state: Dict[str, Any]) -> None:
+        self.__init__(params=state.get("params"),
+                      model_str=state.get("model_str"))
+        self.best_iteration = state.get("best_iteration", -1)
+        self.best_score = state.get("best_score", {})
+        self._attr = dict(state.get("attr", {}))
+        self.name_valid_sets = list(state.get("name_valid_sets", []))
+        pc = state.get("pandas_categorical")
+        if pc is not None:
+            self._loaded_meta["pandas_categorical"] = pc
+
+    def __copy__(self) -> "Booster":
+        return self.__deepcopy__(None)
+
+    def __deepcopy__(self, _memodict) -> "Booster":
+        """A Booster of the whole model's text (reference:
+        basic.py:1599-1609)."""
+        b = Booster(params=copy.deepcopy(self.params),
+                    model_str=(self.model_to_string(num_iteration=-1)
+                               if self.num_trees() else None))
+        b.best_iteration = self.best_iteration
+        b.best_score = copy.deepcopy(self.best_score)
+        b._attr = dict(self._attr)
+        return b

@@ -5,12 +5,9 @@ same aliases, ``canonical_name`` and ``params_to_config``, so a parameter
 dict written for the reference parses here to the same values. Two things
 differ: ``device_type`` (alias ``device``) defaults to ``"cuda"``, and
 ``check_slice`` refuses, with ``NotImplementedError`` naming the ROADMAP
-item, every setting that would leave the path this package implements
-(serial gbdt, GOSS, DART or RF training of the pointwise and ranking
-objectives, row weights, query groups and init scores included, on dense
-numeric data with the depthwise grower, quantized or not, or the unpooled
-leaf-wise grower; bagging, the feature fractions and early stopping
-included). ``OBJECTIVES`` is the reference's objective
+item, every setting that would leave the path this package implements:
+what remains outside it is a tree learner other than serial, or more than
+one machine (A21). ``OBJECTIVES`` is the reference's objective
 alias table (``lightgbm_tpu/objectives.py:690-709``). The TPU-only knobs
 (``histogram_impl``, ``hist_packed``, ``mesh_axis``, ...) are accepted and
 have no effect.
@@ -586,8 +583,5 @@ def check_slice(conf: Config) -> None:
     if kind not in MULTICLASS_OBJECTIVES + ("none",) and conf.num_class != 1:
         raise LightGBMError(f"num_class must be 1 for objective="
                             f"{conf.objective!r} (got {conf.num_class})")
-    if conf.histogram_pool_size > 0:
-        raise _out_of_slice("histogram_pool_size (the lean depthwise grower "
-                            "and the lossguide histogram pool)", "A13b")
     if str(conf.tree_learner).lower() != "serial" or conf.num_machines > 1:
         raise _out_of_slice(f"tree_learner={conf.tree_learner!r}", "A21")

@@ -51,11 +51,12 @@ hist_f32_scatter_kernel(const uint8_t* __restrict__ bins,
                         const float* __restrict__ g,
                         const float* __restrict__ h,
                         const float* __restrict__ c,
-                        const int* __restrict__ slot, int n, int f, int s,
+                        const int* __restrict__ slot, int n, int f, int ld,
+                        int col0, int s,
                         int* __restrict__ cursor,
                         const int* __restrict__ end,
                         uint32_t* __restrict__ rec) {
-  lgbt::slot_scatter<float>(bins, g, h, c, slot, n, f, s, cursor,
+  lgbt::slot_scatter<float>(bins, g, h, c, slot, n, f, ld, col0, s, cursor,
                             end, rec);
 }
 
@@ -73,8 +74,10 @@ hist_f32_kernel(const uint8_t* __restrict__ bins_T,
 
 }  // namespace
 
-// slot may be null (every row in slot 0); bins, the row-major [N, F] matrix
-// of bins_T, is read with a slot vector only. nch must be 3. counts [S]
+// slot may be null (every row in slot 0); bins, a row-major matrix of ld
+// bytes a row whose columns [col0, col0 + F) are bins_T [F, N] (the whole
+// [N, F] matrix at col0 0 and ld F, or a feature tile read in place), is
+// read with a slot vector only. nch must be 3. counts [S]
 // i32, when not null (with a slot vector), are the kept rows of each slot
 // (route_level.cu's), and the count pass does not run. hist [S, 3, F, B]
 // f32 zero on entry; idx [3S + 1] i32 zero on entry unless counts are given
@@ -85,20 +88,21 @@ hist_f32_kernel(const uint8_t* __restrict__ bins_T,
 extern "C" int lgbt_hist_f32(const uint8_t* bins_T, const uint8_t* bins,
                              const float* g, const float* h, const float* c,
                              const int* slot, const int* counts, int n, int f,
-                             int b, int s, int nch, int fg, int blocks,
+                             int ld, int col0, int b, int s, int nch, int fg,
+                             int blocks,
                              int min_rows, int pass_blocks, int* idx,
                              uint32_t* rec, int rec_words, float* hist,
                              cudaStream_t stream) {
   if (nch != 3) return static_cast<int>(cudaErrorInvalidValue);
   const int rc = lgbt::slot_hist_check<float>(
-      slot != nullptr, bins, n, f, b, nch, fg, blocks, min_rows, pass_blocks,
-      rec_words);
+      slot != nullptr, bins, n, f, ld, col0, b, nch, fg, blocks, min_rows,
+      pass_blocks, rec_words);
   if (rc != cudaSuccess) return rc;
   const lgbt::SlotHistKernels<float> k{
       hist_f32_count_kernel, hist_f32_scan_kernel, hist_f32_scatter_kernel,
       hist_f32_kernel};
   return lgbt::slot_hist_launch<float>(k, bins_T, bins, g, h, c, slot,
-                                       counts, n, f, b, s, nch, fg, blocks,
-                                       min_rows, pass_blocks, idx, rec,
-                                       rec_words, hist, stream);
+                                       counts, n, f, ld, col0, b, s, nch, fg,
+                                       blocks, min_rows, pass_blocks, idx,
+                                       rec, rec_words, hist, stream);
 }

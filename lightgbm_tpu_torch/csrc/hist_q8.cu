@@ -44,12 +44,13 @@ hist_q8_scatter_kernel(const uint8_t* __restrict__ bins,
                        const int8_t* __restrict__ gq,
                        const int8_t* __restrict__ hq,
                        const int8_t* __restrict__ cq,
-                       const int* __restrict__ slot, int n, int f, int s,
+                       const int* __restrict__ slot, int n, int f, int ld,
+                       int col0, int s,
                        int* __restrict__ cursor,
                        const int* __restrict__ end,
                        uint32_t* __restrict__ rec) {
-  lgbt::slot_scatter<int8_t>(bins, gq, hq, cq, slot, n, f, s, cursor,
-                             end, rec);
+  lgbt::slot_scatter<int8_t>(bins, gq, hq, cq, slot, n, f, ld, col0, s,
+                             cursor, end, rec);
 }
 
 __global__ void __launch_bounds__(kSlotThreads)
@@ -64,8 +65,10 @@ hist_q8_kernel(const uint8_t* __restrict__ bins_T,
 
 }  // namespace
 
-// slot may be null (every row in slot 0); bins, the row-major [N, F] matrix
-// of bins_T, is read with a slot vector only; hq is null when nch == 2.
+// slot may be null (every row in slot 0); bins, a row-major matrix of ld
+// bytes a row whose columns [col0, col0 + F) are bins_T [F, N] (the whole
+// [N, F] matrix at col0 0 and ld F, or a feature tile read in place), is
+// read with a slot vector only; hq is null when nch == 2.
 // counts [S] i32, when not null (with a slot vector), are the kept rows of
 // each slot (route_level.cu's), and the count pass does not run. hist
 // [S, nch, F, B] i32 zero on entry; idx [3S + 1] i32 zero on entry unless
@@ -76,20 +79,21 @@ hist_q8_kernel(const uint8_t* __restrict__ bins_T,
 extern "C" int lgbt_hist_q8(const uint8_t* bins_T, const uint8_t* bins,
                             const int8_t* gq, const int8_t* hq,
                             const int8_t* cq, const int* slot,
-                            const int* counts, int n, int f, int b, int s,
-                            int nch, int fg, int blocks, int min_rows,
+                            const int* counts, int n, int f, int ld,
+                            int col0, int b, int s, int nch, int fg,
+                            int blocks, int min_rows,
                             int pass_blocks, int* idx, uint32_t* rec,
                             int rec_words, int* hist, cudaStream_t stream) {
   if (nch != 2 && nch != 3) return static_cast<int>(cudaErrorInvalidValue);
   const int rc = lgbt::slot_hist_check<int8_t>(
-      slot != nullptr, bins, n, f, b, nch, fg, blocks, min_rows, pass_blocks,
-      rec_words);
+      slot != nullptr, bins, n, f, ld, col0, b, nch, fg, blocks, min_rows,
+      pass_blocks, rec_words);
   if (rc != cudaSuccess) return rc;
   const lgbt::SlotHistKernels<int8_t> k{
       hist_q8_count_kernel, hist_q8_scan_kernel, hist_q8_scatter_kernel,
       hist_q8_kernel};
   return lgbt::slot_hist_launch<int8_t>(
-      k, bins_T, bins, gq, nch == 3 ? hq : nullptr, cq, slot, counts, n, f, b,
-      s, nch, fg, blocks, min_rows, pass_blocks, idx, rec, rec_words, hist,
-      stream);
+      k, bins_T, bins, gq, nch == 3 ? hq : nullptr, cq, slot, counts, n, f, ld,
+      col0, b, s, nch, fg, blocks, min_rows, pass_blocks, idx, rec, rec_words,
+      hist, stream);
 }

@@ -72,12 +72,13 @@ hist_routed_scatter_kernel(const uint8_t* __restrict__ bins,
                            const int8_t* __restrict__ gq,
                            const int8_t* __restrict__ hq,
                            const int8_t* __restrict__ cq,
-                           const int* __restrict__ slot, int n, int f, int s,
+                           const int* __restrict__ slot, int n, int f,
+                           int ld, int col0, int s,
                            int* __restrict__ cursor,
                            const int* __restrict__ end,
                            uint32_t* __restrict__ rec) {
-  lgbt::slot_scatter<int8_t>(bins, gq, hq, cq, slot, n, f, s, cursor,
-                             end, rec);
+  lgbt::slot_scatter<int8_t>(bins, gq, hq, cq, slot, n, f, ld, col0, s,
+                             cursor, end, rec);
 }
 
 __global__ void __launch_bounds__(kSlotThreads)
@@ -111,9 +112,9 @@ extern "C" int lgbt_hist_routed_fused(
     cudaStream_t stream) {
   if ((nch != 2 && nch != 3) || s < 1 || l < 0 || (bits && w < 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int rc = lgbt::slot_hist_check<int8_t>(true, bins, n, f, b, nch, fg,
-                                               blocks, min_rows, pass_blocks,
-                                               rec_words);
+  const int rc = lgbt::slot_hist_check<int8_t>(true, bins, n, f, f, 0, b, nch,
+                                               fg, blocks, min_rows,
+                                               pass_blocks, rec_words);
   if (rc != cudaSuccess) return rc;
   const int err = lgbt::route_count_launch(
       hist_routed_count_kernel, bins_T, lid, tab, bits, w, na_bin, n, f, l,
@@ -123,7 +124,7 @@ extern "C" int lgbt_hist_routed_fused(
       nullptr, hist_routed_scan_kernel, hist_routed_scatter_kernel,
       hist_routed_kernel};
   return lgbt::slot_hist_launch<int8_t>(
-      k, bins_T, bins, gq, nch == 3 ? hq : nullptr, cq, slot, idx, n, f, b, s,
-      nch, fg, blocks, min_rows, pass_blocks, idx, rec, rec_words, hist,
+      k, bins_T, bins, gq, nch == 3 ? hq : nullptr, cq, slot, idx, n, f, f, 0,
+      b, s, nch, fg, blocks, min_rows, pass_blocks, idx, rec, rec_words, hist,
       stream);
 }

@@ -369,17 +369,18 @@ __device__ __forceinline__ void slot_scan(const int* __restrict__ counts,
   }
 }
 
-// Word k of row r's record: its bins as bytes (four a word, from the
-// row-major [N, F] matrix bins; as one load when every row starts on a
-// word), then its channels.
+// Word k of row r's record: its f bins as bytes (four a word, from columns
+// [col0, col0 + f) of the row-major matrix bins, whose rows are ld bytes
+// apart: the whole [N, F] matrix, or a feature tile of it read in place; as
+// one load when every row's first bin starts on a word), then its channels.
 template <typename C>
 __device__ __forceinline__ uint32_t record_word(
     const uint8_t* __restrict__ bins, const C* __restrict__ g,
-    const C* __restrict__ h, const C* __restrict__ c, int r, int f, int k,
-    bool words) {
+    const C* __restrict__ h, const C* __restrict__ c, int r, int f, int ld,
+    int col0, int k, bool words) {
   const int wb = (f + 3) / 4;
   if (k >= wb) return SlotChans<C>::word(g, h, c, r, k - wb);
-  const uint8_t* row = bins + static_cast<size_t>(r) * f;
+  const uint8_t* row = bins + static_cast<size_t>(r) * ld + col0;
   if (words) return reinterpret_cast<const uint32_t*>(row)[k];
   uint32_t w = 0;
   for (int t = 0; t < 4 && 4 * k + t < f; ++t)
@@ -401,7 +402,8 @@ __device__ __forceinline__ int scatter_reserve(int* __restrict__ cursor,
 
 // scatter: each kept row writes its record at the next place of its slot's
 // range (cursor [S] from slot_scan) of rec [kept, record_words<C>(f)],
-// reading its bins from the row-major [N, F] matrix bins. end [S], the
+// reading its f bins from columns [col0, col0 + f) of the row-major matrix
+// bins, ld bytes a row (record_word). end [S], the
 // ranges' ends (off + 1; null at one slot, whose range ends at N), bounds
 // each reservation (scatter_reserve). A block takes tiles of 4 x blockDim
 // rows: the rows of a tile are ranked within their slot by shared atomics
@@ -418,7 +420,7 @@ template <typename C>
 __device__ __forceinline__ void slot_scatter(
     const uint8_t* __restrict__ bins, const C* __restrict__ g,
     const C* __restrict__ h, const C* __restrict__ c,
-    const int* __restrict__ slot, int n, int f, int s,
+    const int* __restrict__ slot, int n, int f, int ld, int col0, int s,
     int* __restrict__ cursor, const int* __restrict__ end,
     uint32_t* __restrict__ rec) {
   extern __shared__ int slot_scatter_sh[];   // [S] tile counts, [S] bases
@@ -429,8 +431,9 @@ __device__ __forceinline__ void slot_scatter(
   const int rw = record_words<C>(f);
   const int lane = threadIdx.x & 31;
   int2* mine = kept_sh + (threadIdx.x & ~31);
-  const bool words =
-      f % 4 == 0 && reinterpret_cast<uintptr_t>(bins) % 4 == 0;
+  // word loads only where every row's tile starts on a word and ends on one
+  const bool words = f % 4 == 0 && ld % 4 == 0 && col0 % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(bins) % 4 == 0;
   if (local) {
     for (int k = threadIdx.x; k < s; k += blockDim.x) cnt[k] = 0;
     __syncthreads();
@@ -488,7 +491,7 @@ __device__ __forceinline__ void slot_scatter(
         const int k = t - q * rw;
         const int2 rp = mine[q];
         rec[static_cast<size_t>(rp.y) * rw + k] =
-            record_word<C>(bins, g, h, c, rp.x, f, k, words);
+            record_word<C>(bins, g, h, c, rp.x, f, ld, col0, k, words);
       }
       __syncwarp();
     }
@@ -598,7 +601,7 @@ struct SlotHistKernels {
   void (*count)(const int*, int, int, int*);
   void (*scan)(const int*, int, int, int*, int*);
   void (*scatter)(const uint8_t*, const C*, const C*, const C*, const int*,
-                  int, int, int, int*, const int*,
+                  int, int, int, int, int, int*, const int*,
                   uint32_t*);                        // bins, not bins_T
   void (*hist)(const uint8_t*, const C*, const C*, const C*, const int*,
                const uint32_t*, int, int, int, int, int, int, int, Cell*);
@@ -607,12 +610,14 @@ struct SlotHistKernels {
 // The arguments that the C entries refuse before slot_hist_launch, as
 // cudaErrorInvalidValue: a table over the budget, a grid size below 1, a
 // block range whose (record, bin word) items overflow an int, and, with a
-// slot vector (slotted), a missing bins or a record size that is not
+// slot vector (slotted), a missing bins, a column tile [col0, col0 + f)
+// that does not lie within rows of ld bytes, or a record size that is not
 // record_words<C>(f).
 template <typename C>
 inline int slot_hist_check(bool slotted, const uint8_t* bins, int n, int f,
-                           int b, int nch, int fg, int blocks, int min_rows,
-                           int pass_blocks, int rec_words) {
+                           int ld, int col0, int b, int nch, int fg,
+                           int blocks, int min_rows, int pass_blocks,
+                           int rec_words) {
   const size_t smem = static_cast<size_t>(nch) * fg * b *
                       sizeof(typename SlotChans<C>::Cell);
   if (smem > kSmemBudget || fg < 1 || blocks < 1 || pass_blocks < 1)
@@ -620,7 +625,9 @@ inline int slot_hist_check(bool slotted, const uint8_t* bins, int n, int f,
   const long long items = (static_cast<long long>(n) / blocks + min_rows + 1) *
                           ((fg + 3) / 4 + 1);
   if (items > 0x7fffffffLL ||
-      (slotted && (!bins || rec_words != record_words<C>(f))))
+      (slotted && (!bins || col0 < 0 ||
+                   static_cast<long long>(col0) + f > ld ||
+                   rec_words != record_words<C>(f))))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaSuccess);
 }
@@ -630,7 +637,9 @@ inline int slot_hist_check(bool slotted, const uint8_t* bins, int n, int f,
 // (pass_blocks blocks for count, as many threads in kScatterThreads blocks
 // for scatter; one slot needs the scatter alone) and the histogram over the
 // records, else the histogram over the rows in natural order. bins is the
-// row-major [N, F] matrix of bins_T, needed with a slot vector. idx [3S + 1]
+// row-major matrix whose columns [col0, col0 + F), ld bytes a row, are
+// bins_T [F, N] (the whole matrix at col0 0 and ld F, or a feature tile of
+// it), needed with a slot vector. idx [3S + 1]
 // i32 holds counts, offsets and cursors: its counts zero on entry where the
 // count pass adds into them, and at one slot its words zero (the cursor
 // idx[S + 1] counts the scattered rows). counts [S], when not null, are the
@@ -644,7 +653,7 @@ inline int slot_hist_launch(const SlotHistKernels<C>& k,
                             const uint8_t* bins_T, const uint8_t* bins,
                             const C* g, const C* h,
                             const C* c, const int* slot, const int* counts,
-                            int n, int f, int b,
+                            int n, int f, int ld, int col0, int b,
                             int s, int nch, int fg, int blocks, int min_rows,
                             int pass_blocks, int* idx, uint32_t* rec,
                             int rec_words, typename SlotChans<C>::Cell* hist,
@@ -680,8 +689,8 @@ inline int slot_hist_launch(const SlotHistKernels<C>& k,
     }
     scatter<<<pass_blocks * (kSlotThreads / kScatterThreads), kScatterThreads,
               scatter_smem, stream>>>(
-        bins, g, h, c, slot, n, f, s, cursor, s > 1 ? offs + 1 : nullptr,
-        rec);
+        bins, g, h, c, slot, n, f, ld, col0, s, cursor,
+        s > 1 ? offs + 1 : nullptr, rec);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
     off = offs;
   }

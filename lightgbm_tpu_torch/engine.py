@@ -1,4 +1,4 @@
-"""Training entry point ``train()``.
+"""Training entry points ``train()`` and ``cv()``.
 
 Port of ``lightgbm_tpu/engine.py`` ``train`` (:35) for the slice: build a
 Booster on the training Dataset, attach validation sets, and run up to
@@ -19,7 +19,8 @@ the raw score, [N] or [N, K], and the Dataset (``get_label``,
 continues training: its trees' raw score on the train Dataset's bins is
 the train score's init score (``_warm_start``, :337-387), and the valid
 sets replay it too; the returned Booster holds the new trees, as in the
-reference. Snapshots, faults, the non-finite guard and telemetry
+reference. ``cv`` (:390) trains one Booster a fold on subsets of one
+constructed Dataset. Snapshots, faults, the non-finite guard and telemetry
 (ROADMAP.md queues A16, A20) are not ported.
 """
 from __future__ import annotations
@@ -31,7 +32,10 @@ import numpy as np
 from . import callback as cb
 from . import log
 from .basic import Booster, Dataset
-from .config import canonical_name, params_to_config
+from .config import canonical_name, objective_kind, params_to_config
+
+# the objectives whose folds are whole queries
+RANKING_OBJECTIVES = ("lambdarank", "rank_xendcg")
 
 
 def train(params: Dict[str, Any], train_set: Dataset,
@@ -153,3 +157,195 @@ def _run_feval(feval, booster: Booster, eval_training: bool) -> List:
                                            else res):
                 out.append((name, metric, value, greater))
     return out
+
+
+def stratified_folds(label: np.ndarray, nfold: int, shuffle: bool,
+                     seed: int) -> List:
+    """(train, test) row indices of ``nfold`` folds that keep each class's
+    share: the folds of scikit-learn's StratifiedKFold(nfold, shuffle,
+    random_state=seed), which the reference's cv draws, without importing
+    scikit-learn. Classes are numbered in order of first appearance, the
+    rows of each class dealt to the folds by a round robin over the sorted
+    labels, in blocks, and each class's fold numbers shuffled by
+    RandomState(seed)."""
+    y = np.asarray(label).reshape(-1)
+    _, y_idx, y_inv = np.unique(y, return_index=True, return_inverse=True)
+    _, class_perm = np.unique(y_idx, return_inverse=True)
+    y_enc = class_perm[y_inv.reshape(-1)]
+    n_classes = len(y_idx)
+    if np.all(nfold > np.bincount(y_enc)):
+        raise log.LightGBMError(f"nfold={nfold} cannot be greater than the "
+                                "number of members in each class")
+    y_order = np.sort(y_enc)
+    allocation = np.asarray([np.bincount(y_order[i::nfold],
+                                         minlength=n_classes)
+                             for i in range(nfold)])
+    rng = np.random.RandomState(seed)
+    test_folds = np.empty(len(y), dtype=np.int64)
+    for k in range(n_classes):
+        folds_k = np.arange(nfold).repeat(allocation[:, k])
+        if shuffle:
+            rng.shuffle(folds_k)
+        test_folds[y_enc == k] = folds_k
+    rows = np.arange(len(y))
+    return [(rows[test_folds != i], rows[test_folds == i])
+            for i in range(nfold)]
+
+
+def make_folds(train_set: Dataset, conf, nfold: int, stratified: bool,
+               shuffle: bool, seed: int) -> List:
+    """The reference's fold maker (engine.py:413-447): whole queries for
+    a ranking objective (the queries permuted by RandomState(seed) and
+    split into nfold runs), stratified folds for binary and multiclass
+    under ``stratified``, else the rows permuted by RandomState(seed) and
+    split into nfold runs."""
+    rng = np.random.RandomState(seed)
+    n = train_set.num_data
+    if objective_kind(conf.objective) in RANKING_OBJECTIVES:
+        group = np.asarray(train_set.group)
+        nq = len(group)
+        q_order = rng.permutation(nq) if shuffle else np.arange(nq)
+        bounds = np.concatenate([[0], np.cumsum(group)])
+        folds = []
+        for part in np.array_split(q_order, nfold):
+            va_q = np.zeros(nq, bool)
+            va_q[part] = True
+
+            def rows_of(qs):
+                return (np.concatenate([np.arange(bounds[q], bounds[q + 1])
+                                        for q in qs]) if len(qs)
+                        else np.empty(0, np.int64))
+            folds.append((rows_of(np.flatnonzero(~va_q)),
+                          rows_of(np.flatnonzero(va_q))))
+        return folds
+    if stratified and conf.objective in ("binary", "multiclass",
+                                         "multiclassova"):
+        return stratified_folds(train_set.get_label(), nfold, shuffle, seed)
+    idx = rng.permutation(n) if shuffle else np.arange(n)
+    return [(np.setdiff1d(idx, part, assume_unique=False), part)
+            for part in np.array_split(idx, nfold)]
+
+
+def cv(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100,
+       folds=None, nfold: int = 5, stratified: bool = True,
+       shuffle: bool = True, metrics=None, fobj: Optional[Callable] = None,
+       feval: Optional[Callable] = None,
+       init_model: Optional[Union[str, Booster]] = None,
+       feature_name: Union[str, List[str]] = "auto",
+       categorical_feature: Union[str, List] = "auto",
+       early_stopping_rounds: Optional[int] = None,
+       fpreproc: Optional[Callable] = None,
+       verbose_eval: Union[bool, int, None] = None, show_stdv: bool = True,
+       seed: int = 0, callbacks: Optional[List[Callable]] = None,
+       eval_train_metric: bool = False,
+       return_cvbooster: bool = False) -> Dict[str, Any]:
+    """K-fold cross-validation (reference: engine.py:390-510).
+
+    The folds (``folds`` as (train, test) index pairs, or ``make_folds``)
+    are ``Dataset.subset``s of the one constructed ``train_set``, so that
+    binning happens once. Each round updates every fold's Booster and
+    records the mean and standard deviation of each valid metric over the
+    folds as "<metric>-mean" / "<metric>-stdv". ``early_stopping_rounds``
+    stops when the first metric's mean has not improved for that many
+    rounds and cuts the results to the best round, as the reference does;
+    ``callbacks`` run before and after each round with the
+    ("cv_agg", metric, mean, greater_is_better, stdv) results, and an
+    ``EarlyStopException`` they raise cuts the results to its best
+    iteration. ``feval`` adds its results to each fold's;
+    ``return_cvbooster`` returns the fold Boosters under "cvbooster"."""
+    params = dict(params or {})
+    if metrics is not None:
+        params["metric"] = metrics
+    conf = params_to_config(params)
+    if any(canonical_name(str(k)) == "num_iterations" for k in params):
+        num_boost_round = conf.num_iterations
+    if conf.early_stopping_round and early_stopping_rounds is None:
+        early_stopping_rounds = conf.early_stopping_round
+    if fobj is not None:
+        params = {k: v for k, v in params.items()
+                  if canonical_name(str(k)) != "objective"}
+        params["objective"] = "none"
+    if objective_kind(conf.objective) in RANKING_OBJECTIVES \
+            and train_set.group is None:
+        raise log.LightGBMError("cv() with a ranking objective needs "
+                                "query/group information on the Dataset")
+    if feature_name != "auto":
+        train_set.feature_name = feature_name
+    if categorical_feature != "auto":
+        train_set.categorical_feature = categorical_feature
+    train_set.params = {**params, **train_set.params}
+    train_set.construct()
+    if folds is None:
+        folds = make_folds(train_set, conf, nfold, stratified, shuffle, seed)
+    init = None
+    if init_model is not None:
+        init = (Booster(model_file=init_model)
+                if isinstance(init_model, str) else init_model)
+    boosters = []
+    for tr_idx, va_idx in folds:
+        dtr = train_set.subset(tr_idx, params=params)
+        dva = train_set.subset(va_idx, params=params)
+        fold_params = params
+        if fpreproc is not None:
+            dtr, dva, fold_params = fpreproc(dtr, dva, dict(params))
+        bst = Booster(params=fold_params, train_set=dtr)
+        if init is not None:
+            bst._gbdt.warm_start(init._host_trees())
+        dva.reference = dtr
+        bst.add_valid(dva, "valid")
+        boosters.append(bst)
+
+    callbacks = list(callbacks or [])
+    if verbose_eval is True:
+        callbacks.append(cb.print_evaluation(show_stdv=show_stdv))
+    elif isinstance(verbose_eval, int) and verbose_eval >= 1:
+        callbacks.append(cb.print_evaluation(verbose_eval, show_stdv))
+    before = sorted((c for c in callbacks
+                     if getattr(c, "before_iteration", False)),
+                    key=lambda c: getattr(c, "order", 0))
+    after = sorted((c for c in callbacks
+                    if not getattr(c, "before_iteration", False)),
+                   key=lambda c: getattr(c, "order", 0))
+    results: Dict[str, Any] = {}
+    best_mean, best_iter = None, 0
+    for i in range(num_boost_round):
+        env = dict(model=boosters, params=params, iteration=i,
+                   begin_iteration=0, end_iteration=num_boost_round)
+        for c in before:
+            c(cb.CallbackEnv(evaluation_result_list=None, **env))
+        allres: Dict = {}
+        for bst in boosters:
+            bst.update(fobj=fobj)
+            res = (bst.eval_train() if eval_train_metric else []) \
+                + bst.eval_valid()
+            if feval is not None:
+                res += _run_feval(feval, bst, eval_train_metric)
+            for name, metric, val, gib in res:
+                key = metric if name == "valid" else f"{name} {metric}"
+                allres.setdefault((key, gib), []).append(val)
+        res_list = []
+        for (metric, gib), vals in allres.items():
+            mean, std = float(np.mean(vals)), float(np.std(vals))
+            results.setdefault(f"{metric}-mean", []).append(mean)
+            results.setdefault(f"{metric}-stdv", []).append(std)
+            res_list.append(("cv_agg", metric, mean, gib, std))
+        try:
+            for c in after:
+                c(cb.CallbackEnv(evaluation_result_list=res_list, **env))
+        except cb.EarlyStopException as e:
+            for k in results:
+                results[k] = results[k][:e.best_iteration + 1]
+            break
+        if early_stopping_rounds:
+            (metric, gib), vals = next(iter(allres.items()))
+            mean = float(np.mean(vals))
+            if best_mean is None or (mean > best_mean if gib
+                                     else mean < best_mean):
+                best_mean, best_iter = mean, i
+            elif i - best_iter >= early_stopping_rounds:
+                for k in results:
+                    results[k] = results[k][:best_iter + 1]
+                break
+    if return_cvbooster:
+        results["cvbooster"] = boosters
+    return results

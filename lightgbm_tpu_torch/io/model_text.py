@@ -1,7 +1,7 @@
 """Model text serialization, reference-format compatible.
 
-Port of ``lightgbm_tpu/io/model_text.py`` ``dump_model_text`` (:36) and
-``parse_model_text`` (:113): the reference's v3 model file (header, one
+Port of ``lightgbm_tpu/io/model_text.py`` ``dump_model_text`` (:36),
+``parse_model_text`` (:113) and ``dump_model_json`` (:159): the reference's v3 model file (header, one
 block per tree with exact ``tree_sizes``, feature importances, parameters
 footer), so models move between the two packages and LightGBM tooling.
 A model of K trees an iteration (multiclass) writes ``num_class`` and
@@ -108,6 +108,24 @@ def dump_model_text(booster, trees: List[Tree], num_iteration: int = -1,
     body += ("end of parameters\n\npandas_categorical:"
              f"{json.dumps(pc, default=_json_default) if pc else 'null'}\n")
     return body
+
+
+def dump_model_json(booster, trees: List[Tree]) -> Dict:
+    """The model as a dict (reference: dump_model_json, :159-172)."""
+    names = booster.feature_name()
+    return {
+        "name": "tree",
+        "version": _VERSION,
+        "num_class": (booster._loaded_meta or {}).get(
+            "num_class", booster.config.num_class),
+        "num_tree_per_iteration": booster.num_model_per_iteration(),
+        "label_index": 0,
+        "max_feature_idx": len(names) - 1,
+        "objective": _objective_string(booster),
+        "average_output": booster.average_output(),
+        "feature_names": names,
+        "tree_info": [t.to_json(i) for i, t in enumerate(trees)],
+    }
 
 
 def _json_default(o):

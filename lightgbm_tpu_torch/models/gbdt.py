@@ -15,10 +15,14 @@ iteration grows K trees (``num_tree_per_iteration``: the objective's
 model count, K classes for multiclass, or ``num_class`` for a custom
 objective; :72-93), one per class on that class' contiguous gradient
 column, with the grower ``_grow_fn`` picks (:1297-1304):
-``grow_tree_depthwise`` for ``grow_policy=depthwise``, the leaf-wise
-``grow_tree`` otherwise. Each tree is finished as ``_finish_tree``
-(:1559-1578) does: the objective's leaf renewal (L1 family) on the
-pre-tree score column, shrinkage, the first iteration's bias. Scores are
+``grow_tree_depthwise`` for ``grow_policy=depthwise``, or
+``grow_tree_depthwise_lean`` when ``histogram_pool_size`` gives it a
+feature tile, the leaf-wise ``grow_tree`` otherwise, with a histogram pool
+when ``histogram_pool_size`` caps its cached leaves (``_pool_sizes``,
+:136-184; the lean grower keeps the fused front off, :716). Each tree
+is finished as ``_finish_tree`` (:1559-1578) does: the objective's leaf
+renewal (L1 family) on the pre-tree score column, shrinkage, the first
+iteration's bias. Scores are
 [N] or [N, K] and stay on the training device, starting from the
 Datasets' init scores (:99-104, :598-600), which turn boosting from the
 average off (:651-652); an iteration whose K trees are all stumps ends
@@ -53,11 +57,12 @@ import torch
 
 from ..binning import BIN_CATEGORICAL
 from ..config import Config
-from ..log import LightGBMError, warning
+from ..log import LightGBMError, info, warning
 from ..utils import threefry
 from ..ops.gather import take_small
 from ..ops.grow import ForcedSplits, GrowParams, TreeArrays, grow_tree
-from ..ops.grow_depthwise import CEGBState, grow_tree_depthwise
+from ..ops.grow_depthwise import (CEGBState, grow_tree_depthwise,
+                                  grow_tree_depthwise_lean)
 from ..ops.histogram import ACC_ROWS_MAX
 from ..ops.predict import bin_tree, route_bins
 from ..ops.split import BundleArrays, SplitParams
@@ -159,9 +164,10 @@ class GBDT:
         # splits, and an [F * B] root histogram of at most 2048 cells;
         # anything else materializes the gradients and takes the unfused
         # front
+        hist_pool, lean_ft = self._pool_sizes(config, f, B)
         if (self._custom_grad or k != 1 or not (quant and self.depthwise)
                 or f * B > ACC_ROWS_MAX or self._cegb_ok
-                or self.forced is not None):
+                or self.forced is not None or lean_ft > 0):
             spec = None
         self.gp = GrowParams(
             num_leaves=config.num_leaves, max_depth=config.max_depth,
@@ -198,7 +204,8 @@ class GBDT:
             const_hess=(quant and objective is not None
                         and bool(objective.is_constant_hessian)
                         and not self._custom_grad),
-            fused_obj=spec, ff_bynode=float(config.feature_fraction_bynode))
+            fused_obj=spec, ff_bynode=float(config.feature_fraction_bynode),
+            hist_pool=hist_pool, lean_ft=lean_ft)
         # the step's parameters for gradients handed in (fobj): neither the
         # fused front nor the const-hessian elision
         self.gp_custom = dataclasses.replace(self.gp, fused_obj=None,
@@ -249,11 +256,50 @@ class GBDT:
         self.models_dev: List[TreeArrays] = []
         self.models_host: List[Tree] = []
         # histogram passes of each tree after its root: one per level
-        # (depthwise) or per split (lossguide)
+        # (depthwise) or per split (lossguide); and the lossguide pool's
+        # rebuilds of evicted parents
         self.hist_passes: List[int] = []
+        self.hist_rebuilds: List[int] = []
         self.valid_sets: List = []
         self.valid_names: List[str] = []
         self.valid_scores: List[torch.Tensor] = []
+
+    def _pool_sizes(self, config: Config, f: int, B: int
+                    ) -> Tuple[int, int]:
+        """(hist_pool, lean_ft) of histogram_pool_size MB (reference:
+        gbdt.py:136-184): when the whole frontier's [L, 3, F, B] f32
+        histograms exceed the budget, the leaf-wise grower caches
+        max(2, budget // one leaf's) of them, and the depthwise grower
+        turns lean with a feature tile of width budget // (2 (L // 2) 3 B
+        4), unless CEGB, forced splits, feature_fraction_bynode or
+        extra_trees keep its whole frontier (a warning)."""
+        if config.histogram_pool_size <= 0:
+            return 0, 0
+        per_leaf = 3 * f * B * 4
+        budget = int(config.histogram_pool_size * (1 << 20))
+        cap = budget // max(1, per_leaf)
+        if cap >= config.num_leaves:
+            return 0, 0
+        if not self.depthwise:
+            info(f"histogram pool: {max(2, cap)} cached leaf histograms "
+                 "(evicted parents rebuild)")
+            return max(2, cap), 0
+        incompat = [what for what, on in (
+            ("CEGB", self._cegb_ok),
+            ("forced splits", bool(config.forcedsplits_filename)),
+            ("feature_fraction_bynode", config.feature_fraction_bynode < 1.0),
+            ("extra_trees", bool(config.extra_trees))) if on]
+        if incompat:
+            warning("histogram_pool_size is ignored for the depthwise grower "
+                    f"with {', '.join(incompat)}; the whole-frontier state is "
+                    "kept")
+            return 0, 0
+        slots = 2 * max(1, config.num_leaves // 2)
+        lean_ft = max(1, min(f, budget // max(1, slots * 3 * B * 4)))
+        info(f"histogram pool: lean depthwise mode, feature tile {lean_ft}/"
+             f"{f} (budget {config.histogram_pool_size}MB < "
+             f"{per_leaf * config.num_leaves >> 20}MB whole-frontier state)")
+        return 0, lean_ft
 
     def _cegb_setup(self, config: Config, train_set):
         """The CEGB penalty vectors in the grower's columns, or None each
@@ -537,19 +583,26 @@ class GBDT:
                 ghc = (g * bag, h * bag, (bag > 0).to(torch.float32))
                 fused = None
             qseed = self.iter_ * k + cls     # gbdt.py:1504
-            if self.depthwise:
+            rebuilds = 0
+            if self.depthwise and gp.lean_ft > 0:
+                tree, leaf_id, passes = grow_tree_depthwise_lean(
+                    ts.bins_T, *ghc, ts.num_bins_dev, ts.na_bin_dev,
+                    self._fmask, gp, qseed=qseed, bins=ts.bins,
+                    bundle=self.bundle)
+            elif self.depthwise:
                 tree, leaf_id, passes = grow_tree_depthwise(
                     ts.bins_T, *ghc, ts.num_bins_dev, ts.na_bin_dev,
                     self._fmask, gp, qseed=qseed, fused=fused, bins=ts.bins,
                     bundle=self.bundle, forced=self.forced, cegb=self.cegb)
             else:
-                tree, leaf_id, passes = grow_tree(
+                tree, leaf_id, passes, rebuilds = grow_tree(
                     ts.bins_T, *ghc, ts.num_bins_dev, ts.na_bin_dev,
                     self._fmask, gp, bins=ts.bins,
                     qseed=(qseed if gp.ff_bynode < 1.0 or gp.split.extra_trees
                            else None),
                     bundle=self.bundle, forced=self.forced)
             self.hist_passes.append(passes)
+            self.hist_rebuilds.append(rebuilds)
             any_split = any_split or tree.num_leaves > 1
             self._add_tree(tree, leaf_id, cls)
         self.iter_ += 1
@@ -617,6 +670,29 @@ class GBDT:
                 t.num_leaves <= 1 for t in self.models_dev[-k:]):
             del self.models_dev[-k:]
         del self.models_host[len(self.models_dev):]
+
+    def rollback_one_iter(self) -> None:
+        """Drop the last iteration's K trees (reference: rollback_one_iter,
+        gbdt.py:1601-1643): each tree's replay on the train and valid
+        Datasets' bins (route_bins + take_small, by membership as every
+        replay of the port; the reference routes categorical and bundle
+        nodes by threshold there) comes off their scores. As in the
+        reference, the first iteration's bias folded into its stored trees
+        comes off too."""
+        if self.iter_ <= 0:
+            return
+        k = self.num_tree_per_iteration
+        for cls in reversed(range(k)):
+            tree = self.models_dev.pop()
+            # a plain subtraction whatever the booster (the reference's)
+            self.train_score = GBDT._apply_tree_delta(
+                self, self.train_score, -tree_delta(tree, self.train_set),
+                cls)
+            for i, vs in enumerate(self.valid_sets):
+                self.valid_scores[i] = GBDT._apply_tree_delta(
+                    self, self.valid_scores[i], -tree_delta(tree, vs), cls)
+        del self.models_host[len(self.models_dev):]
+        self.iter_ -= 1
 
     # ---- evaluation ----
     def _eval(self, name: str, score: torch.Tensor, data

@@ -175,6 +175,46 @@ class Tree:
                               f"cat_threshold={arr(cat_words, '%d')}"]
         return "\n".join(lines)
 
+    @property
+    def num_cat(self) -> int:
+        return int(self.is_cat_node.sum())
+
+    def to_json(self, tree_idx: int) -> Dict:
+        """The tree as the nested dict of ``Booster.dump_model`` (reference:
+        tree.py:336-377): a categorical node's threshold is its categories
+        joined by "||" and its decision "==", a numerical node's its real
+        threshold and "<="."""
+        def node_json(ptr: int) -> Dict:
+            if ptr < 0:
+                leaf = ~ptr
+                return {"leaf_index": int(leaf),
+                        "leaf_value": float(self.leaf_value[leaf]),
+                        "leaf_weight": float(self.leaf_weight[leaf]),
+                        "leaf_count": int(self.leaf_count[leaf])}
+            cat = bool(self.is_cat_node[ptr])
+            return {
+                "split_index": int(ptr),
+                "split_feature": int(self.split_feature[ptr]),
+                "split_gain": float(self.split_gain[ptr]),
+                "threshold": ("||".join(str(int(v))
+                                        for v in self.cat_sets[ptr]) if cat
+                              else float(self.threshold_real[ptr])),
+                "decision_type": "==" if cat else "<=",
+                "default_left": False if cat
+                else bool(self.default_left[ptr]),
+                "missing_type": ["None", "Zero", "NaN"][
+                    int(self.missing_type[ptr])],
+                "internal_value": float(self.internal_value[ptr]),
+                "internal_weight": float(self.internal_weight[ptr]),
+                "internal_count": int(self.internal_count[ptr]),
+                "left_child": node_json(int(self.left_child[ptr])),
+                "right_child": node_json(int(self.right_child[ptr])),
+            }
+        root = 0 if self.num_leaves > 1 else ~0
+        return {"tree_index": tree_idx, "num_leaves": self.num_leaves,
+                "num_cat": self.num_cat, "shrinkage": self.shrinkage,
+                "tree_structure": node_json(root)}
+
     @staticmethod
     def from_string(block: str) -> "Tree":
         kv: Dict[str, str] = {}

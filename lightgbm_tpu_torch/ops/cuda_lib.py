@@ -40,7 +40,7 @@ _U = ctypes.c_uint
 _F = ctypes.c_float
 # the slot histograms' entries (csrc/slot_hist.cuh slot_hist_launch)
 _SLOT_HIST = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-              _P, _P, _I, _P, _P]
+              _I, _I, _P, _P, _I, _P, _P]
 # C entry points and their argument types (pointers and the stream as
 # c_void_p, so ctypes never truncates them to 32 bits)
 _SIGNATURES: Dict[str, List] = {

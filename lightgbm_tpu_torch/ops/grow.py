@@ -2,11 +2,12 @@
 leaf-wise (lossguide) grower.
 
 Port of ``GrowParams`` (:32), ``TreeArrays`` (:129), ``_empty_tree``
-(:173) and the serial, unpooled path of ``grow_tree`` (:195) of
+(:173) and the serial path of ``grow_tree`` (:195) of
 ``lightgbm_tpu/ops/grow.py``, numerical and categorical splits, with the
 split constraints: monotone bounds (:438-478), forced splits applied
 leaf-wise (:308-340, :479-490) and extra_trees keyed by ``_et_key``
-(:236-262; the root's tag is L, a split step's children's is the step).
+(:236-262; the root's tag is L, a split step's children's is the step),
+and the histogram pool of ``histogram_pool_size`` (:276-290, :377-420).
 CEGB is not supported on this grower (GBDT warns and ignores it, as the
 reference does). Internal
 node ``i`` is created by split ``i``; child pointers use the reference
@@ -47,6 +48,11 @@ class GrowParams:
     # feature_fraction_bynode: the share of usable features each node
     # searches (node_feature_mask)
     ff_bynode: float = 1.0
+    # histogram_pool_size (models/gbdt.py sizes both): the leaf-wise
+    # grower's cached leaf histograms (0: one a leaf), and the lean
+    # depthwise grower's feature tile (0: the whole-frontier grower)
+    hist_pool: int = 0
+    lean_ft: int = 0
 
 
 class TreeArrays(NamedTuple):
@@ -188,7 +194,7 @@ def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
               bins: Optional[torch.Tensor] = None,
               qseed: Optional[int] = None,
               bundle: Optional[BundleArrays] = None,
-              forced=None) -> Tuple[TreeArrays, torch.Tensor, int]:
+              forced=None) -> Tuple[TreeArrays, torch.Tensor, int, int]:
     """Grow one tree leaf-wise (best-first), unquantized.
 
     bins_T [F, N] u8 on the device; g/h/c [N] f32 grad/hess/in-bag count
@@ -197,7 +203,8 @@ def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
     [N, F] copy of bins_T, which the split passes' slot histogram needs on
     the card; ``bundle`` the EFB arrays when ``gp.split.has_bundles``;
     ``forced`` the forced-splits tree (``ForcedSplits``).
-    Returns (TreeArrays, leaf_id [N] i32, number of split passes).
+    Returns (TreeArrays, leaf_id [N] i32, number of split passes, number
+    of pool rebuilds).
 
     Each split step t takes the leaf with the best gain (the first on
     ties, as ``jnp.argmax``), partitions its rows with a vectorized
@@ -206,11 +213,21 @@ def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
     with one ``hist_f32`` pass over a slot vector (the smaller child's
     rows in slot 0, every other row dropped: the reference's masked
     full-width pass) and the sibling's by subtraction from the parent,
-    then searches both children's best splits at once. Node t is created by step t and its right child is
-    leaf t + 1. The reference runs the L - 1 steps in one ``lax.scan``;
-    here the step loop runs on the host and reads the chosen leaf and its
-    "can split" flag once a step, the one host sync of
-    a step."""
+    then searches both children's best splits at once. Node t is created
+    by step t and its right child is leaf t + 1. The reference runs the
+    L - 1 steps in one ``lax.scan``; here the step loop runs on the host and
+    reads the chosen leaf and its "can split" flag once a step, the one
+    host sync of a step.
+
+    With ``gp.hist_pool`` = P < L (and no forced splits, which keep every
+    histogram resident, reference :278) at most P leaf histograms are
+    cached, in least-recently-written slots (reference: HistogramPool,
+    :276-290, :377-420): the left child takes its parent's slot when the
+    parent's histogram is cached, else the oldest slot, and the right child
+    the oldest slot left (the lower index first on equal age, as argmin);
+    a parent whose histogram was evicted is rebuilt by one more hist_f32
+    pass with its pre-split rows in slot 0. The pool's bookkeeping lives on
+    the host: it follows from the chosen leaves alone."""
     f, n = bins_T.shape
     dev = bins_T.device
     L, B = gp.num_leaves, gp.max_bin
@@ -237,8 +254,16 @@ def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
         left_g=tile(best0.left_g, 0.0), left_h=tile(best0.left_h, 0.0),
         left_cnt=tile(best0.left_cnt, 0.0),
         is_cat=tile(best0.is_cat, False), cat_member=member0)
-    hist = torch.zeros((L, 3, f, B), dtype=torch.float32, device=dev)
+    # the histogram pool: P cached slots, each leaf's slot (-1: evicted),
+    # each slot's leaf (-1: free) and the step that last wrote it
+    P = gp.hist_pool if 0 < gp.hist_pool < L and forced is None else L
+    pooled = P < L
+    hist = torch.zeros((P, 3, f, B), dtype=torch.float32, device=dev)
     hist[0] = hist0
+    slot_of_leaf = [0] + [-1] * (L - 1)
+    leaf_of_slot = [0] + [-1] * (P - 1)
+    slot_age = [0] * P
+    rebuilds = 0
     leaf_g, leaf_h, leaf_c = (torch.zeros(L, dtype=torch.float32, device=dev)
                               for _ in range(3))
     leaf_g[0], leaf_h[0], leaf_c[0] = g0, h0, c0
@@ -297,11 +322,31 @@ def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
         small_leaf = torch.where(small_is_left, l, new_leaf)
         slot = (leaf_id != small_leaf).to(torch.int32)   # 1: dropped
         hist_small = K.hist_f32(bins_T, g, h, c, slot, 1, B, bins)[0]
-        hist_large = hist[l] - hist_small
+        if not pooled:
+            hist_parent = hist[l]
+        elif slot_of_leaf[l] >= 0:
+            hist_parent = hist[slot_of_leaf[l]]
+        else:
+            # the parent was evicted: one pass over its pre-split rows
+            pre = (leaf_id == l) | (leaf_id == new_leaf)
+            hist_parent = K.hist_f32(bins_T, g, h, c, (~pre).to(torch.int32),
+                                     1, B, bins)[0]
+            rebuilds += 1
+        hist_large = hist_parent - hist_small
         hist_left = torch.where(small_is_left, hist_small, hist_large)
         hist_right = torch.where(small_is_left, hist_large, hist_small)
-        hist[l] = hist_left
-        hist[new_leaf] = hist_right
+        if pooled:
+            slot_l, slot_r = _pool_slots(slot_of_leaf[l], slot_age)
+            for sl, leaf in ((slot_l, l), (slot_r, new_leaf)):
+                if leaf_of_slot[sl] >= 0:
+                    slot_of_leaf[leaf_of_slot[sl]] = -1
+                leaf_of_slot[sl] = leaf
+                slot_of_leaf[leaf] = sl
+                slot_age[sl] = t + 1
+        else:
+            slot_l, slot_r = l, new_leaf
+        hist[slot_l] = hist_left
+        hist[slot_r] = hist_right
 
         # ---- tree arrays (node t) ----
         par = parent_node[l]
@@ -370,4 +415,16 @@ def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
         tree.leaf_value[0] = leaf_output(g0, h0, sp)
         tree.leaf_weight[0] = h0
         tree.leaf_count[0] = c0
-    return tree._replace(num_leaves=num_leaves), leaf_id, num_leaves - 1
+    return tree._replace(num_leaves=num_leaves), leaf_id, num_leaves - 1, \
+        rebuilds
+
+
+def _pool_slots(slot_p: int, slot_age: list) -> Tuple[int, int]:
+    """The pool slots of a split's (left, right) children (reference:
+    grow.py:400-412): with the parent's histogram cached in slot_p the
+    left child takes it and the right child the oldest other slot; else
+    the two oldest slots, the lower index first on equal age."""
+    order = sorted((age, i) for i, age in enumerate(slot_age) if i != slot_p)
+    if slot_p >= 0:
+        return slot_p, order[0][1]
+    return order[0][1], order[1][1]

@@ -40,7 +40,7 @@ widths still bound the per-level selection exactly as in the reference.
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import List, Optional, Tuple
 
 import torch
@@ -51,8 +51,8 @@ from .grow import (ForcedSplits, GrowParams, TreeArrays, empty_tree,
                    extra_trees_key, forced_override, monotone_child_bounds,
                    node_feature_mask)
 from .scan import tree_sum
-from .split import (NEG_INF, BundleArrays, SplitParams, best_split,
-                    leaf_output)
+from .split import (NEG_INF, BundleArrays, SplitParams, SplitResult,
+                    best_split, leaf_output)
 
 # the reference's master slot widths and slot floor on its kernel path
 # (pallas_hist.MASTER_SLOT_WIDTHS, grow_depthwise._SLOT_FLOOR)
@@ -125,6 +125,89 @@ def level_widths(num_leaves: int, max_levels: int) -> List[int]:
     return widths + [max_slots] * (max_levels - n_unroll)
 
 
+def apply_level_to_tree(tree: TreeArrays, parent_node: torch.Tensor,
+                        parent_right: torch.Tensor, res: SplitResult,
+                        si: torch.Tensor, nid: torch.Tensor, nl: torch.Tensor,
+                        left, right, outputs, sp: SplitParams) -> None:
+    """Write one level's selected splits into the tree arrays, in place
+    (reference: ``_apply_level_to_tree``, grow_depthwise.py:103-141): the
+    selected leaves ``si`` (ascending) become nodes ``nid`` whose right
+    children are the new leaves ``nl``; each parent's child pointer moves
+    to its node; ``left`` / ``right`` the (g, h, count) stats and
+    ``outputs`` the (left, right, parent) outputs of every leaf [L]."""
+    (lg, lh, lc), (rg, rh, rc), (w_l, w_r, w_p) = left, right, outputs
+    par = parent_node[si]
+    has_par = par >= 0
+    pr = parent_right[si]
+    tree.left_child[par[has_par & ~pr]] = nid[has_par & ~pr].to(torch.int32)
+    tree.right_child[par[has_par & pr]] = nid[has_par & pr].to(torch.int32)
+    tree.split_feature[nid] = res.feature[si].to(torch.int32)
+    tree.threshold_bin[nid] = res.bin[si].to(torch.int32)
+    tree.default_left[nid] = res.default_left[si]
+    tree.left_child[nid] = (~si).to(torch.int32)
+    tree.right_child[nid] = (~nl).to(torch.int32)
+    tree.split_gain[nid] = res.gain[si]
+    tree.leaf_value[si] = w_l[si]
+    tree.leaf_value[nl] = w_r[si]
+    tree.leaf_weight[si] = lh[si]
+    tree.leaf_weight[nl] = rh[si]
+    tree.leaf_count[si] = lc[si]
+    tree.leaf_count[nl] = rc[si]
+    tree.internal_value[nid] = w_p[si]
+    tree.internal_weight[nid] = (lh + rh)[si]
+    tree.internal_count[nid] = (lc + rc)[si]
+    if sp.cat_features or sp.has_bundles:
+        tree.is_cat[nid] = res.is_cat[si]
+        tree.cat_mask[nid] = res.cat_member[si]
+
+
+def split_outputs(res: SplitResult, leaf_g, leaf_h, leaf_c, leaf_min,
+                  leaf_max, sp: SplitParams):
+    """Every leaf's split as ((left g, h, count), (right g, h, count),
+    (left, right, parent output)), the outputs clamped to the leaf's
+    monotone bounds under monotone constraints."""
+    lg, lh, lc = res.left_g, res.left_h, res.left_cnt
+    rg, rh, rc = leaf_g - lg, leaf_h - lh, leaf_c - lc
+    w = [leaf_output(lg, lh, sp), leaf_output(rg, rh, sp),
+         leaf_output(leaf_g, leaf_h, sp)]
+    if sp.has_monotone:
+        w = [torch.clamp(x, leaf_min, leaf_max) for x in w]
+    return (lg, lh, lc), (rg, rh, rc), tuple(w)
+
+
+def _membership_leaves(res: SplitResult, sel: torch.Tensor,
+                       sp: SplitParams) -> Optional[torch.Tensor]:
+    """The selected leaves whose split routes by membership (categorical
+    or bundle), or None on a level without one (a host read, only with
+    categorical features or bundles)."""
+    if not (sp.cat_features or sp.has_bundles):
+        return None
+    cat_sel = res.is_cat & sel
+    return cat_sel if bool(cat_sel.any()) else None
+
+
+def select_level(res: SplitResult, active: torch.Tensor, sp: SplitParams,
+                 budget: int, slots: int):
+    """The level's budgeted selection (reference: grow_depthwise.py
+    :446-458, :859-868): leaves whose record gains pass the gate, ranked by
+    gain with ties to the lower leaf index, the first min(budget, slots).
+    Returns (sel [L] bool, si the selected leaves ascending, idx_in_lvl
+    [L] i64: each selected leaf's place among them)."""
+    # under feature_contri the records hold the penalized improvement,
+    # min_gain_to_split taken off already
+    gain_gate = 0.0 if sp.has_contri else float(max(sp.min_gain_to_split,
+                                                    0.0))
+    iota = torch.arange(active.shape[0], device=active.device)
+    cand = active & (res.gain > gain_gate) & (res.gain > NEG_INF / 2)
+    key = torch.where(cand, res.gain, torch.full_like(res.gain, -math.inf))
+    kj, ki = key[None, :], key[:, None]
+    better = (kj > ki) | ((kj == ki) & (iota[None, :] < iota[:, None]))
+    rank = better.sum(dim=1)
+    sel = cand & (rank < min(budget, slots))
+    return sel, sel.nonzero().squeeze(1), torch.cumsum(sel.to(torch.int64),
+                                                       0) - 1
+
+
 def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
                         h: Optional[torch.Tensor], c: Optional[torch.Tensor],
                         num_bins: torch.Tensor, na_bin: torch.Tensor,
@@ -192,10 +275,6 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
     num_leaves = 1
     leaf_id = torch.zeros(n, dtype=torch.int32, device=dev)
     leaves_iota = torch.arange(L, device=dev)
-    # under feature_contri the records hold the penalized improvement,
-    # min_gain_to_split taken off already
-    gain_gate = 0.0 if sp.has_contri else float(max(sp.min_gain_to_split,
-                                                    0.0))
     passes = 0
     leaf_min = torch.full((L,), -math.inf, **f32)
     leaf_max = torch.full((L,), math.inf, **f32)
@@ -220,61 +299,19 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
                                        (forced_ptr >= 0) & active, hist,
                                        na_bin, leaf_c)
         # budgeted selection: top-gain candidates win, ties by leaf index
-        cand = active & (res.gain > gain_gate) & (res.gain > NEG_INF / 2)
-        key = torch.where(cand, res.gain,
-                          torch.full_like(res.gain, -math.inf))
-        kj, ki = key[None, :], key[:, None]
-        better = (kj > ki) | ((kj == ki)
-                              & (leaves_iota[None, :] < leaves_iota[:, None]))
-        rank = better.sum(dim=1)
-        sel = cand & (rank < min(L - num_leaves, slots))
-        si = sel.nonzero().squeeze(1)            # selected leaves, ascending
+        sel, si, idx_in_lvl = select_level(res, active, sp, L - num_leaves,
+                                           slots)
         num_sel = int(si.shape[0])
         if num_sel == 0:
             break
-        idx_in_lvl = torch.cumsum(sel.to(torch.int64), 0) - 1
-        node_id = num_leaves - 1 + idx_in_lvl
         new_leaf = num_leaves + idx_in_lvl
-        lg, lh, lc = res.left_g, res.left_h, res.left_cnt
-        rg, rh, rc = leaf_g - lg, leaf_h - lh, leaf_c - lc
-        w_l = leaf_output(lg, lh, sp)
-        w_r = leaf_output(rg, rh, sp)
-        w_p = leaf_output(leaf_g, leaf_h, sp)
-        if sp.has_monotone:
-            # outputs clamped to the leaf's monotone bounds
-            w_l = torch.clamp(w_l, leaf_min, leaf_max)
-            w_r = torch.clamp(w_r, leaf_min, leaf_max)
-            w_p = torch.clamp(w_p, leaf_min, leaf_max)
-
-        # ---- tree arrays ----
-        nid, nl = node_id[si], new_leaf[si]
-        par = parent_node[si]
-        has_par = par >= 0
-        pr = parent_right[si]
-        tree.left_child[par[has_par & ~pr]] = nid[has_par & ~pr].to(torch.int32)
-        tree.right_child[par[has_par & pr]] = nid[has_par & pr].to(torch.int32)
-        tree.split_feature[nid] = res.feature[si].to(torch.int32)
-        tree.threshold_bin[nid] = res.bin[si].to(torch.int32)
-        tree.default_left[nid] = res.default_left[si]
-        tree.left_child[nid] = (~si).to(torch.int32)
-        tree.right_child[nid] = (~nl).to(torch.int32)
-        tree.split_gain[nid] = res.gain[si]
-        tree.leaf_value[si] = w_l[si]
-        tree.leaf_value[nl] = w_r[si]
-        tree.leaf_weight[si] = lh[si]
-        tree.leaf_weight[nl] = rh[si]
-        tree.leaf_count[si] = lc[si]
-        tree.leaf_count[nl] = rc[si]
-        tree.internal_value[nid] = w_p[si]
-        tree.internal_weight[nid] = (lh + rh)[si]
-        tree.internal_count[nid] = (lc + rc)[si]
-        cat_sel = None
-        if sp.cat_features or sp.has_bundles:
-            tree.is_cat[nid] = res.is_cat[si]
-            tree.cat_mask[nid] = res.cat_member[si]
-            cat_sel = res.is_cat & sel
-            if not bool(cat_sel.any()):
-                cat_sel = None
+        nid, nl = (num_leaves - 1 + idx_in_lvl)[si], new_leaf[si]
+        (lg, lh, lc), (rg, rh, rc), (w_l, w_r, w_p) = split_outputs(
+            res, leaf_g, leaf_h, leaf_c, leaf_min, leaf_max, sp)
+        apply_level_to_tree(tree, parent_node, parent_right, res, si, nid,
+                            nl, (lg, lh, lc), (rg, rh, rc), (w_l, w_r, w_p),
+                            sp)
+        cat_sel = _membership_leaves(res, sel, sp)
 
         # ---- CEGB bookkeeping: a split marks its column used, and every
         # in-bag row of the split leaf paid for it ----
@@ -358,5 +395,227 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
         leaf_value=torch.where(live, w, tree.leaf_value),
         leaf_weight=torch.where(live, eh, tree.leaf_weight),
         leaf_count=torch.where(live, ec, tree.leaf_count),
+        num_leaves=num_leaves)
+    return tree, leaf_id, passes
+
+
+# ---------------------------------------------------------------------------
+# the lean depthwise grower: histogram_pool_size for the level-wise path
+# ---------------------------------------------------------------------------
+
+def tile_split_params(sp: SplitParams, lo: int, hi: int) -> SplitParams:
+    """The split parameters of the feature tile [lo, hi) (reference:
+    ``_tile_split_params``, grow_depthwise.py:715-737): categorical
+    indices, monotone constraints and feature_contri re-indexed to the
+    tile. The clamp to the leaf's output bounds and the contri rewrite stay
+    on in a tile whose own slice is trivial (``monotone_clamp``,
+    ``contri_active``): a leaf's bounds hold for a split on any column, and
+    the tiles' winners are compared on one gain scale."""
+    kw = {}
+    if sp.cat_features:
+        kw["cat_features"] = tuple(c - lo for c in sp.cat_features
+                                   if lo <= c < hi)
+    if sp.monotone_constraints:
+        mc = list(sp.monotone_constraints)
+        kw["monotone_constraints"] = tuple((mc + [0] * hi)[lo:hi])
+        kw["monotone_clamp"] = sp.has_monotone
+    if sp.feature_contri:
+        fc = list(sp.feature_contri)
+        kw["feature_contri"] = tuple((fc + [1.0] * hi)[lo:hi])
+        kw["contri_active"] = sp.has_contri
+    return replace(sp, **kw) if kw else sp
+
+
+def fold_best(a: SplitResult, b: SplitResult) -> SplitResult:
+    """Per leaf the record of higher gain, the earlier tile's on a tie
+    (reference: ``_fold_best``, grow_depthwise.py:740-748: the whole
+    search's first maximum in feature order)."""
+    take = b.gain > a.gain
+    return SplitResult(*[
+        torch.where(take.reshape(take.shape + (1,) * (va.dim() - 1)), vb, va)
+        for va, vb in zip(a, b)])
+
+
+def slice_bundle(bundle: Optional[BundleArrays], lo: int,
+                 hi: int) -> Optional[BundleArrays]:
+    """The EFB arrays of the columns [lo, hi)."""
+    return None if bundle is None else BundleArrays(
+        *[v[lo:hi] for v in bundle])
+
+
+def lean_tiles(f: int, lean_ft: int) -> List[Tuple[int, int]]:
+    """The feature tiles [t * ft, min(F, (t + 1) * ft)) of the lean grower
+    (reference: grow_depthwise.py:784-786, :821-822)."""
+    ft = max(1, min(lean_ft or f, f))
+    return [(lo, min(f, lo + ft)) for lo in range(0, f, ft)]
+
+
+def grow_tree_depthwise_lean(bins_T: torch.Tensor, g: torch.Tensor,
+                             h: torch.Tensor, c: torch.Tensor,
+                             num_bins: torch.Tensor, na_bin: torch.Tensor,
+                             feature_mask: torch.Tensor, gp: GrowParams,
+                             qseed: int, bins: Optional[torch.Tensor] = None,
+                             bundle: Optional[BundleArrays] = None
+                             ) -> Tuple[TreeArrays, torch.Tensor, int]:
+    """Grow one tree level-wise under a histogram-memory budget (reference:
+    ``grow_tree_depthwise_lean``, grow_depthwise.py:751-1022).
+
+    The default grower keeps the [L, 3, F, B] histograms of the whole
+    frontier for sibling subtraction and for leaves whose split waits for
+    a later level. This grower keeps none: each active leaf caches its
+    best split record (valid until it splits, since its rows do not
+    change), each level measures both children of every selected split
+    (slots 2i and 2i + 1), and the histogram pass and the split search run
+    one feature tile [lo, hi) of width ``gp.lean_ft`` at a time, folding
+    the tiles' winners (``fold_best``), so that the live histogram is one
+    tile's [2S, 3, ft, B].
+
+    Arguments as ``grow_tree_depthwise`` (materialized g/h/c rows; bins
+    the row-major [N, F] matrix, which each tile's slot histogram reads in
+    place at the tile's column offset). Per tree the kernels run:
+    ``leaf_sums`` once for the root's stats (and once more for the leaf
+    renewal under ``gp.quant``); at the root and after each level's
+    ``route_level`` (one a level, full width, 2S slots, its counts handed
+    to every tile), ``hist_q8`` (``gp.quant``) or ``hist_f32`` once a
+    tile. One host sync a level, the selection's count. Not combined with
+    CEGB, forced splits, feature_fraction_bynode or extra_trees (GBDT keeps
+    the default grower then). Returns (TreeArrays, leaf_id [N] i32, number
+    of level passes)."""
+    f, n = bins_T.shape
+    dev = bins_T.device
+    L, B = gp.num_leaves, gp.max_bin
+    sp = gp.split
+    max_levels = gp.max_depth if gp.max_depth > 0 else max(1, L - 1)
+    tiles = [(lo, hi, tile_split_params(sp, lo, hi),
+              slice_bundle(bundle, lo, hi)) for lo, hi in
+             lean_tiles(f, gp.lean_ft)]
+    quant = (H.make_quant(g, h, c, qseed, const_hess=gp.const_hess)
+             if gp.quant else None)
+
+    def measure_tile(slot, counts, n_slots, lo, hi):
+        """[S, 3, hi - lo, B] f32 histograms of one tile, read in place."""
+        if quant is None:
+            return K.hist_f32(bins_T[lo:hi], g, h, c, slot, n_slots, B, bins,
+                              counts, col0=lo)
+        acc = K.hist_q8(bins_T[lo:hi], quant.gq, quant.hq, quant.cq, slot,
+                        n_slots, B, bins, counts, col0=lo)
+        return H.dequant(acc, quant.hq is None, quant.scale_g, quant.scale_h)
+
+    def tiled_search(slot, counts, n_slots, sg, sh, sc, lmin, lmax):
+        """Each slot's best split from the tiles' passes and searches."""
+        best = None
+        allow = torch.ones(n_slots, dtype=torch.bool, device=dev)
+        for lo, hi, sp_t, bun_t in tiles:
+            res_t = best_split(measure_tile(slot, counts, n_slots, lo, hi),
+                               num_bins[lo:hi], na_bin[lo:hi], sg, sh, sc,
+                               feature_mask[lo:hi], sp_t, allow, bun_t,
+                               leaf_min=lmin, leaf_max=lmax)
+            res_t = res_t._replace(feature=res_t.feature + lo)
+            best = res_t if best is None else fold_best(best, res_t)
+        return best
+
+    # ---- root: exact stats from one leaf sum, its record from the tiles'
+    # natural-order passes ----
+    leaf_id = torch.zeros(n, dtype=torch.int32, device=dev)
+    sums0 = K.leaf_sums(g, h, c, leaf_id, 1)
+    g0, h0, c0 = sums0[0, 0], sums0[1, 0], sums0[2, 0]
+    f32 = dict(dtype=torch.float32, device=dev)
+    inf = torch.full((1,), math.inf, **f32)
+    rec0 = tiled_search(None, None, 1, g0[None], h0[None], c0[None], -inf,
+                        inf)
+    rec = SplitResult(*[
+        torch.cat([v, torch.full((L - 1,) + v.shape[1:],
+                                 NEG_INF if v.is_floating_point() else 0,
+                                 dtype=v.dtype, device=dev)])
+        for v in rec0])
+    leaf_g, leaf_h, leaf_c = (torch.zeros(L, **f32) for _ in range(3))
+    leaf_g[0], leaf_h[0], leaf_c[0] = g0, h0, c0
+    active = torch.zeros(L, dtype=torch.bool, device=dev)
+    active[0] = True
+    parent_node = torch.full((L,), -1, dtype=torch.int64, device=dev)
+    parent_right = torch.zeros(L, dtype=torch.bool, device=dev)
+    leaf_min = torch.full((L,), -math.inf, **f32)
+    leaf_max = torch.full((L,), math.inf, **f32)
+    tree = empty_tree(L, B, dev)
+    tree.leaf_value[0] = leaf_output(g0, h0, sp)
+    tree.leaf_weight[0] = h0
+    tree.leaf_count[0] = c0
+    num_leaves, passes = 1, 0
+
+    for slots in level_widths(L, max_levels):
+        if num_leaves >= L:
+            break
+        sel, si, idx_in_lvl = select_level(rec, active, sp, L - num_leaves,
+                                           slots)
+        num_sel = int(si.shape[0])
+        if num_sel == 0:
+            break
+        new_leaf = num_leaves + idx_in_lvl
+        nid, nl = (num_leaves - 1 + idx_in_lvl)[si], new_leaf[si]
+        (lg, lh, lc), (rg, rh, rc), (w_l, w_r, w_p) = split_outputs(
+            rec, leaf_g, leaf_h, leaf_c, leaf_min, leaf_max, sp)
+        apply_level_to_tree(tree, parent_node, parent_right, rec, si, nid,
+                            nl, (lg, lh, lc), (rg, rh, rc), (w_l, w_r, w_p),
+                            sp)
+        cat_sel = _membership_leaves(rec, sel, sp)
+
+        # ---- route: both children measured, split i's in slots 2i and
+        # 2i + 1 ----
+        s_pass = 2 * num_sel
+        none = torch.full_like(idx_in_lvl, s_pass)
+        tables = H.RouteTables(
+            feat=torch.where(sel, rec.feature, torch.full_like(rec.feature,
+                                                               -1)),
+            thr=rec.bin, dleft=rec.default_left.to(torch.int32),
+            new_leaf=new_leaf,
+            slot_left=torch.where(sel, 2 * idx_in_lvl, none),
+            slot_right=torch.where(sel, 2 * idx_in_lvl + 1, none),
+            is_cat=cat_sel,
+            member=(None if cat_sel is None
+                    else rec.cat_member & sel[:, None]))
+        slot, leaf_id, counts = K.route_level(
+            bins_T, leaf_id, tables.stacked(), na_bin, s_pass,
+            tables.bitset())
+        passes += 1
+
+        # ---- monotone bounds, per-leaf stats, frontier ----
+        if sp.has_monotone:
+            lo_l, hi_l, lo_r, hi_r = monotone_child_bounds(
+                sp, f, rec.is_cat[si], rec.feature[si], w_l[si], w_r[si],
+                leaf_min[si], leaf_max[si])
+            leaf_min[si], leaf_max[si] = lo_l, hi_l
+            leaf_min[nl], leaf_max[nl] = lo_r, hi_r
+        for arr, left, right in ((leaf_g, lg, rg), (leaf_h, lh, rh),
+                                 (leaf_c, lc, rc)):
+            arr[si] = left[si]
+            arr[nl] = right[si]
+        active = sel.clone()
+        active[nl] = True
+        parent_node[si] = nid
+        parent_node[nl] = nid
+        parent_right[si] = False
+        parent_right[nl] = True
+        num_leaves += num_sel
+
+        # ---- fresh records of the 2S children from the tiled search ----
+        slot_leaf = torch.stack([si, nl], dim=1).reshape(s_pass)
+        child = tiled_search(slot, counts, s_pass, leaf_g[slot_leaf],
+                             leaf_h[slot_leaf], leaf_c[slot_leaf],
+                             leaf_min[slot_leaf], leaf_max[slot_leaf])
+        for arr, vals in zip(rec, child):
+            arr[slot_leaf] = vals
+
+    if not gp.quant:
+        return tree._replace(num_leaves=num_leaves), leaf_id, passes
+    # ---- leaf renewal from exact sums, as the default grower ----
+    sums = K.leaf_sums(g, h, c, leaf_id, L)
+    w = leaf_output(sums[0], sums[1], sp)
+    if sp.has_monotone:
+        w = torch.clamp(w, leaf_min, leaf_max)
+    live = torch.arange(L, device=dev) < num_leaves
+    tree = tree._replace(
+        leaf_value=torch.where(live, w, tree.leaf_value),
+        leaf_weight=torch.where(live, sums[1], tree.leaf_weight),
+        leaf_count=torch.where(live, sums[2], tree.leaf_count),
         num_leaves=num_leaves)
     return tree, leaf_id, passes

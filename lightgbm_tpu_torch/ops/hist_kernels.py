@@ -667,18 +667,32 @@ def slot_compact_plain(slot: torch.Tensor, num_slots: int):
     return off, rows[order]
 
 
-def _check_bins(name: str, bins_T: torch.Tensor, bins,
-                needed: bool) -> None:
-    """The row-major bins of the slot histograms: [N, F] u8 beside bins_T,
-    and ``needed`` on the card (with a slot vector, and always by the fused
-    level pass: the compaction reads the kept rows' bins from it)."""
+def _check_bins(name: str, bins_T: torch.Tensor, bins, needed: bool,
+                col0: Optional[int] = None) -> None:
+    """The row-major bins of the slot histograms: [N, F] u8 beside bins_T
+    [F, N], and ``needed`` on the card (with a slot vector, and always by
+    the fused level pass: the compaction reads the kept rows' bins from
+    it). With a column offset ``col0`` (hist_q8, hist_f32) bins may be
+    wider: its columns [col0, col0 + F) are bins_T, a feature tile of the
+    whole row-major matrix read in place, its row stride the matrix's
+    width."""
     f, n = bins_T.shape
-    if bins is not None:
-        _device_of(bins_T, bins)
+    if bins is None:
+        if needed and bins_T.device.type == "cuda":
+            raise ValueError(f"{name}: needs the row-major bins [N, F] on "
+                             "the card (to group the kept rows by slot)")
+        if col0:
+            raise ValueError(f"{name}: a column offset needs the bins")
+        return
+    _device_of(bins_T, bins)
+    if col0 is None:
         _check(bins, "bins", torch.uint8, (n, f))
-    elif needed and bins_T.device.type == "cuda":
-        raise ValueError(f"{name}: needs the row-major bins [N, F] on the "
-                         "card (to group the kept rows by slot)")
+        return
+    _check(bins, "bins", torch.uint8, (n, bins.shape[1] if bins.dim() == 2
+                                       else -1))
+    if not 0 <= col0 <= bins.shape[1] - f:
+        raise ValueError(f"{name}: the tile [{col0}, {col0 + f}) lies "
+                         f"outside the bins' {bins.shape[1]} columns")
 
 
 def _slot_scratch(n: int, f: int, num_slots: int, chan_words: int,
@@ -713,10 +727,12 @@ def _check_counts(name: str, slot, counts, num_slots: int) -> None:
 
 def _slot_hist(name: str, bins_T: torch.Tensor, bins, chans, slot, counts,
                num_slots: int, num_bins: int, nch: int, cell: torch.dtype,
-               chan_words: int) -> torch.Tensor:
+               chan_words: int, col0: int) -> torch.Tensor:
     """Launch hist_q8 or hist_f32 (the kernel ``name``) on the card: the
     compaction (its count pass only without counts) and the histogram with a
-    slot vector, the histogram alone without one. Counts one launch."""
+    slot vector, the histogram alone without one. The compaction reads the
+    kept rows' bins from columns [col0, col0 + F) of ``bins``, its rows
+    ``bins.shape[1]`` bytes apart. Counts one launch."""
     dev = bins_T.device
     f, n = bins_T.shape
     plan = slot_hist_plan(f, n, nch, num_bins, _num_sms(dev))
@@ -731,7 +747,8 @@ def _slot_hist(name: str, bins_T: torch.Tensor, bins, chans, slot, counts,
             zero=counts is None or num_slots == 1)
     rc = getattr(cuda_lib.load(), f"lgbt_{name}")(
         bins_T.data_ptr(), _ptr(bins), *(_ptr(t) for t in chans), _ptr(slot),
-        _ptr(counts), n, f, num_bins, num_slots, nch, plan.fg, plan.blocks,
+        _ptr(counts), n, f, f if bins is None else int(bins.shape[1]), col0,
+        num_bins, num_slots, nch, plan.fg, plan.blocks,
         plan.min_rows, plan.pass_blocks, _ptr(idx), _ptr(rec), rec_words,
         hist.data_ptr(), _stream(dev))
     cuda_lib.check(rc, name)
@@ -742,7 +759,8 @@ def _slot_hist(name: str, bins_T: torch.Tensor, bins, chans, slot, counts,
 def hist_q8(bins_T: torch.Tensor, gq: torch.Tensor, hq: Optional[torch.Tensor],
             cq: torch.Tensor, slot: Optional[torch.Tensor], num_slots: int,
             num_bins: int, bins: Optional[torch.Tensor] = None,
-            counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+            counts: Optional[torch.Tensor] = None,
+            col0: int = 0) -> torch.Tensor:
     """int8 slot histogram over a precomputed slot vector.
 
     bins_T [F, N] u8; gq/hq/cq [N] i8 (hq None: const-hessian, channels g
@@ -752,8 +770,11 @@ def hist_q8(bins_T: torch.Tensor, gq: torch.Tensor, hq: Optional[torch.Tensor],
     (basic.Dataset.bins), needed on the card with a slot vector. counts [S]
     i32, the kept rows of each slot as route_level returns them, spare the
     kernel its count pass (the plain version needs none; counts that do
-    not match slot raise on the CPU and assert on the card). Returns int32
-    [S, nch, F, B]."""
+    not match slot raise on the CPU and assert on the card). A feature
+    tile: bins_T the rows [lo, hi) of the whole [F_all, N] transpose (a
+    contiguous view), bins the whole [N, F_all] matrix and col0 = lo; the
+    card reads the tile's columns of bins in place (row stride F_all), the
+    records hold the tile's bins only. Returns int32 [S, nch, F, B]."""
     dev = _device_of(bins_T, gq, cq)
     f, n = bins_T.shape
     _check(bins_T, "bins_T", torch.uint8, (f, n))
@@ -770,13 +791,13 @@ def hist_q8(bins_T: torch.Tensor, gq: torch.Tensor, hq: Optional[torch.Tensor],
     if not 1 <= num_bins <= 256:
         raise ValueError(f"hist_q8: num_bins {num_bins} outside [1, 256] "
                          "(uint8 bins)")
-    _check_bins("hist_q8", bins_T, bins, slot is not None)
+    _check_bins("hist_q8", bins_T, bins, slot is not None, col0)
     _check_counts("hist_q8", slot, counts, num_slots)
     if dev.type == "cpu":
         return hist_q8_plain(bins_T, gq, hq, cq, slot, num_slots, num_bins)
     return _slot_hist("hist_q8", bins_T, bins, (gq, hq, cq), slot, counts,
                       num_slots, num_bins, 2 if hq is None else 3,
-                      torch.int32, 1)
+                      torch.int32, 1, col0)
 
 
 def route_level(bins_T: torch.Tensor, leaf_id: torch.Tensor,
@@ -840,7 +861,8 @@ def leaf_sums(g: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
 def hist_f32(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
              c: torch.Tensor, slot: Optional[torch.Tensor], num_slots: int,
              num_bins: int, bins: Optional[torch.Tensor] = None,
-             counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+             counts: Optional[torch.Tensor] = None,
+             col0: int = 0) -> torch.Tensor:
     """f32 slot histogram of (grad, hess, count) rows over a slot vector.
 
     bins_T [F, N] u8; g/h/c [N] f32 (already masked by the bag); slot [N]
@@ -848,8 +870,9 @@ def hist_f32(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
     vector). Rows whose slot lies outside [0, S) are dropped. bins [N, F]
     u8 is the row-major copy of bins_T (basic.Dataset.bins), needed on the
     card with a slot vector. counts [S] i32, as route_level returns them,
-    spare the kernel its count pass (as in hist_q8). Returns f32
-    [S, 3, F, B], channel-major."""
+    spare the kernel its count pass (as in hist_q8); a feature tile as in
+    hist_q8 (bins_T a row range of the transpose, the whole bins, col0).
+    Returns f32 [S, 3, F, B], channel-major."""
     dev = _device_of(bins_T, g, h, c)
     f, n = bins_T.shape
     _check(bins_T, "bins_T", torch.uint8, (f, n))
@@ -863,9 +886,9 @@ def hist_f32(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
     if not 1 <= num_bins <= 256:
         raise ValueError(f"hist_f32: num_bins {num_bins} outside [1, 256] "
                          "(uint8 bins)")
-    _check_bins("hist_f32", bins_T, bins, slot is not None)
+    _check_bins("hist_f32", bins_T, bins, slot is not None, col0)
     _check_counts("hist_f32", slot, counts, num_slots)
     if dev.type == "cpu":
         return hist_f32_plain(bins_T, g, h, c, slot, num_slots, num_bins)
     return _slot_hist("hist_f32", bins_T, bins, (g, h, c), slot, counts,
-                      num_slots, num_bins, 3, torch.float32, 3)
+                      num_slots, num_bins, 3, torch.float32, 3, col0)

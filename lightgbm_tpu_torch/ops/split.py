@@ -85,14 +85,22 @@ class SplitParams:
     cegb_penalty_split: float = 0.0
     cegb_coupled: bool = False
     cegb_lazy: bool = False
+    # the lean grower's feature tiles (grow_depthwise._tile_split_params):
+    # keep the leaf output clamp and the contri rewrite on in a tile whose
+    # own slice of the constraints is trivial, so that every tile's gains
+    # are on one scale
+    monotone_clamp: bool = False
+    contri_active: bool = False
 
     @property
     def has_monotone(self) -> bool:
-        return any(m != 0 for m in self.monotone_constraints)
+        return (any(m != 0 for m in self.monotone_constraints)
+                or self.monotone_clamp)
 
     @property
     def has_contri(self) -> bool:
-        return any(c != 1.0 for c in self.feature_contri)
+        return (any(c != 1.0 for c in self.feature_contri)
+                or self.contri_active)
 
     def contri_array(self, f: int, device=None) -> torch.Tensor:
         """[F] f32 gain multipliers: the tuple clamped at 0 and padded

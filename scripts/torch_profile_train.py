@@ -7,6 +7,7 @@ Run from the repository root on a machine with one CUDA GPU:
         [--max-bin 63|255] [--grow-policy depthwise|lossguide]
         [--quant auto|true|false] [--sampling none|bagged|goss]
         [--models binary-l2|multiclass|weighted]
+        [--histogram-pool-size MB]
 
 It builds a main-path configuration of chip_smoke.py (HIGGS-shaped N x 28
 table, num_leaves=255, learning_rate=0.1, min_data_in_leaf=20) at
@@ -33,7 +34,10 @@ weighted`` path (h)'s (row weights uniform on [0.5, 2): binary, and
 quantile with alpha 0.9 on the L2 target); their objective work gets
 groups of its own too: "gradients" (the objective's gradients, the
 softmax for multiclass) and "leaf renewal" (the quantile model's
-per-leaf percentile). Prints the card's name and power limit first.
+per-leaf percentile). ``--histogram-pool-size`` sets histogram_pool_size
+(MB): the lean depthwise grower's feature tiles, or the leaf-wise grower's
+histogram pool, when the whole frontier's histograms exceed it. Prints the
+card's name and power limit first.
 """
 import argparse
 import json
@@ -46,29 +50,13 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# kernel group -> the exact names of its CUDA kernel functions (the slot
-# histograms' compaction passes, the fused level pass's route and count,
-# and the leaf sums' final pass count as their kernel's time)
-GROUPS = (("grad_quant_hist0", ("max_kernel", "quant_hist_kernel")),
-          ("hist_routed_fused", ("hist_routed_count_kernel",
-                                 "hist_routed_scan_kernel",
-                                 "hist_routed_scatter_kernel",
-                                 "hist_routed_kernel")),
-          ("leaf_sums_grad", ("leaf_sums_grad_rows_kernel",
-                              "leaf_sums_grad_final_kernel",
-                              "leaf_sums_grad_global_kernel")),
-          ("take_small", ("take_kernel",)),
-          ("hist_q8", ("hist_q8_count_kernel", "hist_q8_scan_kernel",
-                       "hist_q8_scatter_kernel", "hist_q8_kernel")),
-          ("route_level", ("route_level_kernel",)),
-          ("leaf_sums", ("leaf_sums_rows_kernel", "leaf_sums_final_kernel",
-                         "leaf_sums_global_kernel")),
-          ("hist_f32", ("hist_f32_count_kernel", "hist_f32_scan_kernel",
-                        "hist_f32_scatter_kernel", "hist_f32_kernel")))
-
 
 sys.path.insert(0, HERE)
-from chip_smoke import synth_higgs   # noqa: E402  (numpy only at import)
+# each kernel's CUDA functions (the slot histograms' compaction passes, the
+# fused level pass's route and count, and the leaf sums' final pass count
+# as their kernel's time): chip_smoke.py's one table
+from chip_smoke import (  # noqa: E402  (numpy only at import)
+    KERNEL_PARTS, synth_higgs)
 
 
 def group_of(name: str) -> str:
@@ -76,10 +64,7 @@ def group_of(name: str) -> str:
     identifier before the argument list), matched exactly."""
     m = re.search(r"(\w+)\(", name)
     fn = m.group(1) if m else name
-    for group, keys in GROUPS:
-        if fn in keys:
-            return group
-    return "other (split search, glue)"
+    return KERNEL_PARTS.get(fn, "other (split search, glue)")
 
 
 SAMPLING = {"none": {},
@@ -175,6 +160,7 @@ def main() -> int:
     ap.add_argument("--sampling", default="none", choices=tuple(SAMPLING))
     ap.add_argument("--models", default="binary-l2",
                     choices=("binary-l2", "multiclass", "weighted"))
+    ap.add_argument("--histogram-pool-size", type=float, default=-1.0)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -205,7 +191,9 @@ def main() -> int:
     base = {"num_leaves": 255, "max_bin": args.max_bin, "learning_rate": 0.1,
             "min_data_in_leaf": 20, "verbosity": -1,
             "grow_policy": args.grow_policy,
-            "use_quantized_grad": args.quant, **SAMPLING[args.sampling]}
+            "use_quantized_grad": args.quant,
+            "histogram_pool_size": args.histogram_pool_size,
+            **SAMPLING[args.sampling]}
     annotate_draws()
     for objective, label, weight, extra in models:
         params = dict(base, objective=objective, **extra)
@@ -229,7 +217,10 @@ def main() -> int:
                    sampling=args.sampling,
                    quant=bst._gbdt.gp.quant, card=card,
                    construct_s=construct_s,
-                   hist_passes=bst._gbdt.hist_passes)
+                   lean_ft=bst._gbdt.gp.lean_ft,
+                   hist_pool=bst._gbdt.gp.hist_pool,
+                   hist_passes=bst._gbdt.hist_passes,
+                   hist_rebuilds=bst._gbdt.hist_rebuilds)
         print(json.dumps(res))
     return 0
 

@@ -65,7 +65,12 @@ Split constraints: three 4000-row trees under monotone constraints,
 feature_contri and extra_trees (fused front), forced splits and bins with
 CEGB (unfused front) and monotone constraints, extra_trees and forced
 splits on lossguide have the CPU trees' structure (leaf values as with
-weights, bit for bit on lossguide's exact-sum labels).
+weights, bit for bit on lossguide's exact-sum labels). histogram_pool_size:
+hist_q8 and hist_f32 on a feature tile of the whole row-major bins (a
+column offset, aligned or not) equal their plain versions on the tile
+(hist_q8 exactly, hist_f32 as above); the lean grower, quantized and not,
+and the pooled leaf-wise grower train the CPU's trees (as with weights;
+the unquantized first tree bit for bit, later ones within 2^-17).
 """
 import os
 import subprocess
@@ -1292,3 +1297,106 @@ def test_gpu_constrained_trees_equal_cpu(dev, path, tmp_path):
             np.testing.assert_array_equal(a.leaf_value, b.leaf_value)
     if path != "m":
         assert all(t.split_feature[0] == 0 for t in ta)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lo,hi", [(0, 12), (12, 24), (5, 17), (37, 40)])
+@pytest.mark.parametrize("kernel", ["hist_q8", "hist_f32"])
+def test_slot_hists_on_a_feature_tile_equal_plain(dev, kernel, lo, hi):
+    # a feature tile read in place: bins_T's rows [lo, hi) (a view), the
+    # whole row-major bins [N, 40] and col0 = lo, with a slot vector (and
+    # route_level-style counts) and without one; hist_q8 exactly, hist_f32
+    # counts exactly and g, h within 2^-15 of the cell's absolute mass; an
+    # unaligned tile (col0 % 4 != 0 or an odd width) takes the byte path
+    rng = np.random.default_rng(lo)
+    n, f, b, s = 7001, 40, 64, 9
+    bins = torch.from_numpy(rng.integers(0, b, size=(n, f)).astype(
+        np.uint8)).to(dev)
+    bins_T = bins.t().contiguous()
+    slot = torch.from_numpy(rng.integers(0, s + 3, size=n).astype(
+        np.int32)).to(dev)
+    counts = torch.bincount(slot[slot < s].long(), minlength=s).to(
+        torch.int32)
+    if kernel == "hist_q8":
+        chans = [torch.from_numpy(rng.integers(-127, 128, n).astype(
+                     np.int8)).to(dev),
+                 torch.from_numpy(rng.integers(0, 128, n).astype(
+                     np.int8)).to(dev),
+                 torch.from_numpy((rng.random(n) < 0.9).astype(
+                     np.int8)).to(dev)]
+    else:
+        chans = [torch.from_numpy(rng.normal(size=n).astype(
+                     np.float32)).to(dev),
+                 torch.from_numpy(rng.random(n).astype(np.float32)).to(dev),
+                 torch.from_numpy((rng.random(n) < 0.9).astype(
+                     np.float32)).to(dev)]
+    tile = bins_T[lo:hi]
+    for sl, ns, cnt in ((slot, s, counts), (slot, s, None), (None, 1, None)):
+        got = getattr(hk, kernel)(tile, *chans, sl, ns, b, bins, cnt,
+                                  col0=lo)
+        want = getattr(hk, f"{kernel}_plain")(
+            tile.cpu(), *(c.cpu() for c in chans),
+            None if sl is None else sl.cpu(), ns, b)
+        if kernel == "hist_q8":
+            assert torch.equal(got.cpu(), want)
+        else:
+            mass = hk.hist_f32_plain(
+                tile.cpu(), chans[0].abs().cpu(), chans[1].abs().cpu(),
+                chans[2].cpu(), None if sl is None else sl.cpu(), ns,
+                b).double()
+            assert torch.equal(got[:, 2].cpu(), want[:, 2])
+            err = (got.cpu().double() - want.double()).abs()
+            assert bool((err[:, :2] <= 2.0 ** -15 * mass[:, :2]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["lean", "lean_f32", "pooled"])
+def test_gpu_lean_and_pooled_trees_equal_cpu(dev, path):
+    # 4000 rows on exact-sum labels: the lean grower (tiles of 5 of 23
+    # columns, so offsets 5, 10, 15 and 20) quantized and not, and the
+    # pooled leaf-wise grower (4 of 31 leaves cached) train on the card
+    # the CPU's trees: structure exact, leaf values within 1e-6 of the
+    # largest (quantized) or the first tree bit for bit and later ones
+    # within 2^-17 (f32 atomics); each path's kernels launched
+    rng = np.random.RandomState(5)
+    X = rng.randn(4000, 23).astype(np.float32)
+    y = np.clip(np.floor((X[:, 0] - 0.7 * X[:, 7] + 0.5 * X[:, 16] ** 2
+                          + 0.5 * rng.rand(4000)) * 8) / 8, -6,
+                5.875).astype(np.float32)
+    L, B = 31, 64
+    extra = {"lean": {"histogram_pool_size": (5 * 30 * 3 * B * 4 + 1)
+                      / 2.0 ** 20},
+             "lean_f32": {"histogram_pool_size": (5 * 30 * 3 * B * 4 + 1)
+                          / 2.0 ** 20, "use_quantized_grad": False},
+             "pooled": {"histogram_pool_size": (4 * 3 * 23 * B * 4 + 1)
+                        / 2.0 ** 20, "grow_policy": "lossguide"}}[path]
+    runs = []
+    for kw in ({}, {"device_type": "cpu"}):
+        params = {"objective": "regression", "num_leaves": L, "max_bin": 63,
+                  "min_data_in_leaf": 20, "verbosity": -1,
+                  "boost_from_average": False, **extra, **kw}
+        hk.reset_launches()
+        runs.append(lt.train(params, lt.Dataset(X, label=y, params=params),
+                             3))
+        if not kw:
+            own = {"lean": ("hist_q8", "route_level", "leaf_sums"),
+                   "lean_f32": ("hist_f32", "route_level", "leaf_sums"),
+                   "pooled": ("hist_f32",)}[path]
+            assert min(hk.LAUNCHES[k] for k in own) > 0
+            assert hk.LAUNCHES["hist_routed_fused"] == 0
+    gp = runs[0]._gbdt.gp
+    assert (gp.lean_ft, gp.hist_pool) == ((0, 4) if path == "pooled"
+                                          else (5, 0))
+    quant = gp.quant
+    ta, tb = runs[0]._host_trees(), runs[1]._host_trees()
+    for i, (a, b) in enumerate(zip(ta, tb)):
+        assert a.num_leaves == b.num_leaves > 4
+        for name in STRUCT:
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+        if quant or i:
+            np.testing.assert_allclose(
+                a.leaf_value, b.leaf_value, rtol=0,
+                atol=(1e-6 if quant else 2 ** -17)
+                * np.abs(b.leaf_value).max())
+        else:
+            np.testing.assert_array_equal(a.leaf_value, b.leaf_value)

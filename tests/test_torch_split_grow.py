@@ -259,8 +259,8 @@ def test_unquantized_growers_match_reference_exactly(grower, B, max_depth):
     args = (_t(bins.T), _t(g), _t(h), _t(c), _t(num_bins), _t(na_bin),
             torch.ones(F, dtype=torch.bool), gp)
     if grower == "lossguide":
-        tree, lid, passes = t_grow.grow_tree(*args)
-        assert passes == tree.num_leaves - 1
+        tree, lid, passes, rebuilds = t_grow.grow_tree(*args)
+        assert passes == tree.num_leaves - 1 and rebuilds == 0
     else:
         tree, lid, passes = t_gd.grow_tree_depthwise(*args, qseed=0)
         assert passes >= 2

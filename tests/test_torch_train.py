@@ -471,12 +471,16 @@ def test_default_device_needs_a_gpu():
 # extra_trees, feature_contri) train since A12c: their cases (item None)
 # keep their ids and hold the first binary tree against the reference
 # (tests/test_torch_constraints.py holds every tree of L2 models on each
-# path); the A13b and A21 cases are still refused
+# path); histogram_pool_size trains since A13b: its cases keep their ids,
+# with budgets that pool 3 of the 7 leaves' histograms (lossguide) and
+# cut the 8 columns into lean tiles of 3 (depthwise), held the same way
+# (tests/test_torch_lean.py holds every path); the A21 cases are still
+# refused
 @pytest.mark.parametrize("extra,item", [
     pytest.param({"forcedbins_filename": "bins.json"}, None,
                  id="extra0-A11"),
-    pytest.param({"grow_policy": "lossguide", "histogram_pool_size": 1.0},
-                 "A13b", id="extra1-A13b"),
+    pytest.param({"grow_policy": "lossguide", "histogram_pool_size": 0.018},
+                 None, id="extra1-A13b"),
     pytest.param({"cegb_penalty_feature_lazy": [0.5] * 8}, None,
                  id="extra2-A11"),
     pytest.param({"monotone_constraints": [0, 0, 1, 0, 0, 0, 0, 0]}, None,
@@ -489,7 +493,7 @@ def test_default_device_needs_a_gpu():
                  id="extra7-A14"),
     pytest.param({"tree_learner": "feature"}, "A21", id="extra8-A14"),
     pytest.param({"tree_learner": "voting"}, "A21", id="extra9-A11"),
-    pytest.param({"histogram_pool_size": 1.0}, "A13b", id="extra10-A13b"),
+    pytest.param({"histogram_pool_size": 0.014}, None, id="extra10-A13b"),
     pytest.param({"tree_learner": "data"}, "A21", id="extra11-A21"),
     pytest.param({"monotone_constraints": [-1, 0, 0, 0, 0, 0, 0, 0],
                   "grow_policy": "lossguide"}, None, id="extra12-A12"),
@@ -530,6 +534,10 @@ def test_out_of_slice_settings_raise(extra, item, tmp_path):
     if "forcedsplits_filename" in p:
         assert ptr[0].split_feature[0] == 1
         assert ptr[0].split_feature[ptr[0].left_child[0]] == 0
+    if "histogram_pool_size" in p:
+        gp, rgp = port._gbdt.gp, ref._gbdt.gp
+        assert (gp.hist_pool, gp.lean_ft) == (rgp.hist_pool, rgp.lean_ft)
+        assert (gp.hist_pool, gp.lean_ft) in ((3, 0), (0, 3))
 
 
 def test_bagging_fraction_without_bagging_freq_trains_as_reference():
