@@ -205,7 +205,27 @@ measured):
    above 0.7 on every fold); save_binary / load_binary of 1M rows training
    the same model text; rollback_one_iter from 3 iterations leaving train
    and valid scores within 1e-6 of the largest of a 2-iteration run's; a
-   pickled Booster predicting identically;
+   pickled Booster predicting identically; (p) "cli": synth_higgs rows as
+   tab-separated text with the label first (2M train rows, the next
+   500,000 of the same draw as valid), path (a)'s parameters with
+   bagging 0.8 every iteration and feature_fraction 0.8: `python -m
+   lightgbm_tpu_torch config=train.conf` trains 8 iterations with a
+   snapshot every 2 (snapshot_keep 3), parsed by the native parser (it
+   fails if the Python parser ran), valid AUC above 0.7; engine.train on
+   the same parsed rows, killed by faults=tree_update@5 and resumed from
+   its snapshot, must end with the CLI model's text byte for byte (fused
+   front B1-B4; else it prints the first differing tree and leaf);
+   task=predict's result file equal to Booster.predict exactly;
+   task=convert_model compiled by g++ within rtol 2e-5, atol 1e-6 of
+   predict's raw scores on 10,000 rows; pred_contrib on 200 rows summing
+   to the raw score within 1e-9 relative; the C API library built and a
+   pure-C host (gcc) training 2 iterations from a config file and
+   predicting 1,000 rows ("%.17g") equal to Booster.predict of its model;
+   a custom objective NaN on 1,000 rows at iteration 2 of 5 (B5 root, B2
+   levels, B7, B4) under nonfinite_policy fatal (raises), warn_skip_tree
+   (4 trees) and clip (5 trees, finite scores), and an L2 run on labels
+   near 1e38 at learning_rate 1e38 (the fused front) raising under fatal;
+   each step's seconds printed beside the card's name and power limit;
 5. agreement, at max_bin=63 and at 255 (the 4000-row table has more than
    128 bins a feature, so the unfused path, which is asserted): the first
    tree of a 4000-row L2 model trained on the card has the structure of
@@ -283,6 +303,18 @@ RF = {"boosting": "rf", "bagging_fraction": 0.8, "bagging_freq": 1,
       "feature_fraction": 0.8}
 # the saved model goes beside the kernel library (ignored by git)
 OUT_DIR = os.path.join(HERE, "lightgbm_tpu_torch", "_build")
+# path (p) "cli": HIGGS rows as the reference's binary.train text (label
+# first, tab-separated), 2M train and the next 500,000 rows of the same
+# draw as valid, through the command line with path (a)'s parameters and
+# every RNG stream on
+N_CLI, N_CLI_VALID = 2_000_000, 500_000
+CLI_PARAMS = {"objective": "binary", "max_bin": 63, "num_leaves": L,
+              "learning_rate": 0.1, "min_data_in_leaf": 20, "metric": "auc",
+              "bagging_fraction": 0.8, "bagging_freq": 1,
+              "feature_fraction": 0.8}
+# the non-finite policies' custom objective turns these rows NaN at its
+# third call
+NF_ROWS = 1000
 
 
 # path (m')'s CEGB: a split penalty, a coupled penalty far above any gain
@@ -547,6 +579,386 @@ def split_queries(X, y, group, n_train):
     cut = int(bounds[q_train - 1])
     return ((X[:cut], y[:cut], group[:q_train]),
             (X[cut:], y[cut:], group[q_train:]))
+
+
+def _write_rows(path, rows):
+    np.savetxt(path, rows, fmt="%.9g", delimiter="\t")
+
+
+def write_tsv(path: str, X, y, workers: int = 8) -> None:
+    """X with the label first, tab-separated, "%.9g" (exact for f32), as
+    the reference's examples/binary_classification/binary.train: parts
+    written by spawned processes, then joined."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    rows = np.column_stack([y, X]).astype(np.float32)
+    parts = [f"{path}.part{i}" for i in range(workers)]
+    with cf.ProcessPoolExecutor(workers,
+                                mp_context=mp.get_context("spawn")) as ex:
+        list(ex.map(_write_rows, parts, np.array_split(rows, workers)))
+    with open(path, "wb") as out:
+        for part in parts:
+            with open(part, "rb") as fh:
+                while True:
+                    block = fh.read(64 << 20)
+                    if not block:
+                        break
+                    out.write(block)
+            os.remove(part)
+
+
+def cli_path(launches_all, card: str) -> dict:
+    """(p) "cli": the command line, snapshots, the C++ codegen, TreeSHAP,
+    the C API and the non-finite guard on the card. Returns its seconds
+    by step."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch import metrics
+    from lightgbm_tpu_torch.io import parser
+    from lightgbm_tpu_torch.native.build_capi import build_capi
+    from lightgbm_tpu_torch.ops import hist_kernels as hk
+    from lightgbm_tpu_torch.utils.faults import FaultInjected
+
+    import shutil
+    tag = "[cli (p), max_bin=63]"
+    # the CLI and the C host are processes of their own on the same card
+    torch.cuda.empty_cache()
+    work = os.path.join(OUT_DIR, "cli_path")
+    if os.path.isdir(work):
+        shutil.rmtree(work)
+    os.makedirs(work)
+    sec = {}
+    t0 = time.perf_counter()
+    # the valid rows are held out of the same draw: another seed draws
+    # another generator's weights (a valid AUC near 0.5)
+    X, y = synth_higgs(N_CLI + N_CLI_VALID, F, seed=0)
+    X, Xv, y, yv = X[:N_CLI], X[N_CLI:], y[:N_CLI], y[N_CLI:]
+    train_f = os.path.join(work, "higgs.train")
+    valid_f = os.path.join(work, "higgs.test")
+    write_tsv(train_f, X, y)
+    write_tsv(valid_f, Xv, yv)
+    sec["write_text_s"] = time.perf_counter() - t0
+    print(f"{tag} text files: {os.path.getsize(train_f)} + "
+          f"{os.path.getsize(valid_f)} bytes, written in "
+          f"{sec['write_text_s']:.3f} s; card: {card}")
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([HERE] + [p for p in sys.path
+                                                    if p]))
+
+    def run(cmd, what, timeout=600):
+        t = time.perf_counter()
+        r = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                           cwd=work, timeout=timeout)
+        dt = time.perf_counter() - t
+        if r.returncode != 0:
+            fail(f"{what}: exit {r.returncode}\n{r.stderr[-3000:]}")
+        return r, dt
+
+    def conf_file(name, extra):
+        path = os.path.join(work, name)
+        with open(path, "w") as fh:
+            for k, v in {**CLI_PARAMS, **extra}.items():
+                fh.write(f"{k}={v}\n")
+        return path
+
+    # 1. python -m lightgbm_tpu_torch config=train.conf
+    snaps = os.path.join(work, "snaps")
+    model_f = os.path.join(work, "model.txt")
+    conf = conf_file("train.conf", {
+        "task": "train", "data": train_f, "valid": valid_f,
+        "num_iterations": 8, "snapshot_freq": 2, "snapshot_dir": snaps,
+        "snapshot_keep": 3, "output_model": model_f, "verbosity": 1})
+    r, dt = run([sys.executable, "-m", "lightgbm_tpu_torch",
+                 f"config={conf}"], "CLI train")
+    sec["cli_train_s"] = dt
+    log_ = r.stderr
+    m_load = re.search(r"Finished loading data in ([0-9.]+) seconds "
+                       r"\(parser: (\w+)\)", log_)
+    m_iter = re.search(r"Finished training (\d+) iterations in ([0-9.]+) "
+                       r"seconds \(([0-9.]+) s/iteration\)", log_)
+    aucs = re.findall(r"higgs.test's auc: ([0-9.]+)", log_)
+    if not (m_load and m_iter and aucs):
+        fail(f"CLI train: unexpected log\n{log_[-3000:]}")
+    if m_load.group(2) != "native":
+        fail(f"CLI train: the {m_load.group(2)} parser ran, not the "
+             "native one")
+    left = sorted(os.listdir(snaps))
+    print(f"{tag} CLI train ({dt:.3f} s with the process start): parse + "
+          f"construct {m_load.group(1)} s (native parser), "
+          f"{m_iter.group(3)} s/iteration over {m_iter.group(1)} "
+          f"iterations, valid AUC {aucs[-1]}; snapshot files left {left}")
+    if int(m_iter.group(1)) != 8 or not float(aucs[-1]) > 0.7 or left != [
+            "snapshot_iter_4.state.npz", "snapshot_iter_4.txt",
+            "snapshot_iter_6.state.npz", "snapshot_iter_6.txt",
+            "snapshot_iter_8.state.npz", "snapshot_iter_8.txt",
+            "snapshot_manifest.json"]:
+        fail(f"CLI train: iterations, valid AUC or snapshots wrong")
+    with open(model_f) as fh:
+        cli_text = fh.read()
+
+    # 2. kill and resume on the card, through engine.train
+    t = time.perf_counter()
+    pf = parser.load_file(train_f)
+    pv = parser.load_file(valid_f)
+    sec["parse_in_process_s"] = time.perf_counter() - t
+    print(f"{tag} in-process parse of both files: "
+          f"{sec['parse_in_process_s']:.3f} s ({parser.LAST_PARSE_PATH})")
+    if parser.LAST_PARSE_PATH != "native" or pf.X.shape != (N_CLI, F):
+        fail(f"parser: {parser.LAST_PARSE_PATH}, shape {pf.X.shape}")
+    params = dict(CLI_PARAMS, verbosity=-1)
+    ds = lt.Dataset(pf.X, label=pf.label, params=params, free_raw_data=False)
+    vs = lt.Dataset(pv.X, label=pv.label, reference=ds)
+    kill_dir = os.path.join(work, "kill")
+    hk.reset_launches()
+    t = time.perf_counter()
+    try:
+        lt.train({**params, "snapshot_freq": 2, "snapshot_dir": kill_dir,
+                  "faults": "tree_update@5"}, ds, 8, valid_sets=[vs],
+                 verbose_eval=False)
+        fail("kill and resume: faults=tree_update@5 did not raise")
+    except FaultInjected as e:
+        print(f"{tag} killed: {e}")
+    from lightgbm_tpu_torch.utils import faults
+    faults.reset()
+    resumed = lt.train({**params, "snapshot_freq": 2,
+                        "snapshot_dir": kill_dir}, ds, 8, valid_sets=[vs],
+                       verbose_eval=False, resume_from_snapshot=kill_dir)
+    torch.cuda.synchronize()
+    sec["kill_and_resume_s"] = time.perf_counter() - t
+    launches = dict(hk.LAUNCHES)
+
+    def body(text):
+        return text.split("\nparameters:\n")[0]
+    same = body(resumed.model_to_string()) == body(cli_text)
+    print(f"{tag} killed at iteration 6, resumed from iteration 4 to "
+          f"{resumed.current_iteration}: model text equal to the CLI "
+          f"run's: {same} ({sec['kill_and_resume_s']:.3f} s); launches "
+          f"{launches}")
+    if not same:
+        ta = lt.Booster(model_str=cli_text,
+                        params={"device_type": "cpu"})._host_trees()
+        tb = resumed._host_trees()
+        for i, (a, b) in enumerate(zip(ta, tb)):
+            for f_ in ("split_feature", "threshold_bin", "leaf_value",
+                       "leaf_count"):
+                d_ = np.flatnonzero(getattr(a, f_) != getattr(b, f_))
+                if len(d_):
+                    print(f"{tag} first difference: tree {i}, {f_}[{d_[0]}]"
+                          f" {getattr(a, f_)[d_[0]]} (CLI) against "
+                          f"{getattr(b, f_)[d_[0]]} (resumed)")
+                    break
+        fail("kill and resume: the resumed model text differs from the "
+             "uninterrupted CLI run's")
+    if resumed.current_iteration != 8:
+        fail(f"kill and resume ended at {resumed.current_iteration}")
+    own = ("grad_quant_hist0", "hist_routed_fused", "leaf_sums_grad",
+           "take_small")
+    if min(launches[k] for k in own) <= 0 or any(
+            v for k, v in launches.items() if k not in own):
+        fail(f"kill and resume: launches {launches} off the fused front")
+    for k, v in launches.items():
+        launches_all[k] += v
+
+    # 3. task=predict on the valid file
+    out_f = os.path.join(work, "pred.txt")
+    # the train config with key=value overrides on the command line
+    r, dt = run([sys.executable, "-m", "lightgbm_tpu_torch", f"config={conf}",
+                 "task=predict", f"data={valid_f}", f"input_model={model_f}",
+                 f"output_result={out_f}"], "CLI predict")
+    m_rate = re.search(r"Predicted (\d+) rows in ([0-9.]+)s \(([0-9,]+) "
+                       r"rows/s\)", r.stderr)
+    cli_pred = np.loadtxt(out_f)
+    bst = lt.Booster(model_file=model_f)
+    t = time.perf_counter()
+    own_pred = bst.predict(pv.X)
+    torch.cuda.synchronize()
+    dt_in = time.perf_counter() - t
+    same = np.array_equal(cli_pred, own_pred)
+    auc = float(metrics.auc(torch.as_tensor(pv.label),
+                            torch.as_tensor(own_pred)))
+    print(f"{tag} CLI predict of {N_CLI_VALID} rows ({dt:.3f} s with the "
+          f"process start and parse): "
+          f"{m_rate.group(3) if m_rate else '?'} rows/s in the CLI, "
+          f"Booster.predict {N_CLI_VALID / dt_in:,.0f} rows/s; result file "
+          f"equal to Booster.predict: {same}; AUC {auc:.6f}")
+    if not same or not m_rate:
+        fail("CLI predict: the result file differs from Booster.predict")
+    sec["predict_rows_per_s"] = N_CLI_VALID / dt_in
+
+    # 4. task=convert_model, compiled by g++, against predict()
+    cpp_f = os.path.join(work, "model.cpp")
+    run([sys.executable, "-m", "lightgbm_tpu_torch", f"config={conf}",
+         "task=convert_model", f"input_model={model_f}",
+         f"convert_model={cpp_f}"], "CLI convert_model")
+    main_f = os.path.join(work, "main.cpp")
+    with open(main_f, "w") as fh:
+        fh.write(f"""#include <cstdio>
+void Predict(const double* features, double* output);
+int main(int argc, char** argv) {{
+  double row[{F}];
+  double out[1];
+  FILE* f = fopen(argv[1], "rb");
+  while (fread(row, sizeof(double), {F}, f) == {F}) {{
+    Predict(row, out);
+    printf("%.17g\\n", out[0]);
+  }}
+  return 0;
+}}
+""")
+    exe = os.path.join(work, "model_cpp")
+    t = time.perf_counter()
+    run(["g++", "-O1", "-o", exe, cpp_f, main_f], "g++ of the generated C++")
+    sec["codegen_compile_s"] = time.perf_counter() - t
+    n_cpp = 10_000
+    rows_f = os.path.join(work, "rows.bin")
+    np.ascontiguousarray(pv.X[:n_cpp], np.float64).tofile(rows_f)
+    r, _ = run([exe, rows_f], "the generated C++")
+    cpp_pred = np.array([float(v) for v in r.stdout.split()])
+    raw = bst.predict(pv.X[:n_cpp], raw_score=True)
+    err = float(np.max(np.abs(cpp_pred - raw) / (np.abs(raw) + 1e-30)))
+    print(f"{tag} convert_model: g++ {sec['codegen_compile_s']:.3f} s, "
+          f"{len(cpp_pred)} rows, largest relative difference to predict "
+          f"{err:.3e}")
+    if cpp_pred.shape != raw.shape or not np.allclose(cpp_pred, raw,
+                                                      rtol=2e-5, atol=1e-6):
+        fail("convert_model: the C++ code predicts differently")
+
+    # 5. TreeSHAP on 200 valid rows
+    t = time.perf_counter()
+    contrib = bst.predict(pv.X[:200], pred_contrib=True)
+    sec["shap_200_rows_s"] = time.perf_counter() - t
+    raw = bst.predict(pv.X[:200], raw_score=True)
+    rel = float(np.max(np.abs(contrib.sum(axis=1) - raw)
+                       / np.maximum(np.abs(raw), 1e-300)))
+    print(f"{tag} pred_contrib of 200 rows: {sec['shap_200_rows_s']:.3f} s "
+          f"(numpy on the host), shape {contrib.shape}, largest relative "
+          f"gap of a row's sum to its raw score {rel:.3e}")
+    if contrib.shape != (200, F + 1) or not rel <= 1e-9:
+        fail("pred_contrib: contributions do not sum to the raw score")
+
+    # 6. the C API from a pure-C host
+    t = time.perf_counter()
+    so = build_capi()
+    if so is None:
+        fail("the C API library did not build")
+    host_c = os.path.join(work, "host.c")
+    with open(host_c, "w") as fh:
+        fh.write(r'''#include <stdio.h>
+#include <stdlib.h>
+extern const char* LGBMTPU_GetLastError(void);
+extern int LGBMTPU_TrainFromConfig(const char*);
+extern int LGBMTPU_BoosterCreateFromModelfile(const char*, void**);
+extern int LGBMTPU_BoosterPredictForMat(void*, const double*, long long,
+    int, int, int, double*, long long, long long*);
+int main(int argc, char** argv) {
+  long long nrow = atoll(argv[4]), n;
+  int ncol = atoi(argv[5]);
+  void* h;
+  if (LGBMTPU_TrainFromConfig(argv[1])) {
+    fprintf(stderr, "%s\n", LGBMTPU_GetLastError()); return 1; }
+  if (LGBMTPU_BoosterCreateFromModelfile(argv[2], &h)) {
+    fprintf(stderr, "%s\n", LGBMTPU_GetLastError()); return 2; }
+  double* x = malloc(nrow * ncol * sizeof(double));
+  double* out = malloc(nrow * sizeof(double));
+  FILE* f = fopen(argv[3], "rb");
+  if (fread(x, sizeof(double), nrow * ncol, f) != (size_t)(nrow * ncol))
+    return 3;
+  fclose(f);
+  if (LGBMTPU_BoosterPredictForMat(h, x, nrow, ncol, 0, 0, out, nrow, &n)) {
+    fprintf(stderr, "%s\n", LGBMTPU_GetLastError()); return 4; }
+  for (long long i = 0; i < n; ++i) printf("%.17g\n", out[i]);
+  return 0;
+}
+''')
+    host = os.path.join(work, "host")
+    run(["gcc", host_c, so, "-o", host,
+         f"-Wl,-rpath,{os.path.dirname(so)}"], "gcc of the C host")
+    c_model = os.path.join(work, "capi_model.txt")
+    c_conf = conf_file("capi.conf", {
+        "task": "train", "data": train_f, "num_iterations": 2,
+        "output_model": c_model, "verbosity": -1})
+    n_c = 1000
+    np.ascontiguousarray(pv.X[:n_c], np.float64).tofile(rows_f)
+    r, dt = run([host, c_conf, c_model, rows_f, str(n_c), str(F)],
+                "the C host")
+    sec["capi_host_s"] = time.perf_counter() - t
+    c_pred = np.array([float(v) for v in r.stdout.split()])
+    want = lt.Booster(model_file=c_model).predict(pv.X[:n_c])
+    same = np.array_equal(c_pred, want)
+    print(f"{tag} C API: a pure-C host trained 2 iterations from "
+          f"{os.path.basename(c_conf)} and predicted {len(c_pred)} rows "
+          f"({dt:.3f} s), equal to Booster.predict of its model: {same}")
+    if not same:
+        fail("C API: the C host's predictions differ from Booster.predict")
+
+    # 7. the non-finite policies on the card: a custom objective whose
+    # third call returns NaN on NF_ROWS rows (B5 root, B2 levels, B7,
+    # B4), then an overflowing L2 run on the fused front
+    def nan_fobj():
+        calls = [0]
+
+        def fobj(score, data):
+            calls[0] += 1
+            p = 1.0 / (1.0 + np.exp(-score.astype(np.float64)))
+            lab = data.get_label()
+            g, h = p - lab, p * (1.0 - p)
+            if calls[0] == 3:
+                g[:NF_ROWS] = np.nan
+            return g, h
+        return fobj
+    hk.reset_launches()
+    t = time.perf_counter()
+    counts = {}
+    for policy in ("fatal", "warn_skip_tree", "clip"):
+        p_ = {**params, "nonfinite_policy": policy}
+        try:
+            b_ = lt.train(p_, ds, 5, fobj=nan_fobj(), verbose_eval=False)
+        except lt.LightGBMError as e:
+            counts[policy] = f"raised: {e}"
+            continue
+        sc = b_._gbdt.train_score
+        counts[policy] = (b_.num_trees(), bool(torch.isfinite(sc).all()))
+    torch.cuda.synchronize()
+    launches = dict(hk.LAUNCHES)
+    own = ("hist_q8", "hist_routed_fused", "leaf_sums", "take_small")
+    print(f"{tag} non-finite policies, a custom objective NaN on {NF_ROWS} "
+          f"rows at iteration 2 of 5: {counts}; launches {launches}")
+    if not str(counts["fatal"]).startswith("raised: custom objective "
+                                           "produced non-finite gradients "
+                                           "at iteration 2"):
+        fail(f"nonfinite_policy=fatal: {counts['fatal']}")
+    if counts["warn_skip_tree"] != (4, True) or counts["clip"] != (5, True):
+        fail(f"nonfinite_policy warn_skip_tree / clip: {counts}")
+    if min(launches[k] for k in own) <= 0 or any(
+            v for k, v in launches.items() if k not in own):
+        fail(f"non-finite policies: launches {launches} off the fobj path")
+    for k, v in launches.items():
+        launches_all[k] += v
+    y_big = (1e38 + 1e37 * np.random.RandomState(3).rand(N_CLI)).astype(
+        np.float32)
+    p_ = {"objective": "regression", "max_bin": 63, "num_leaves": L,
+          "learning_rate": 1e38, "verbosity": -1}
+    hk.reset_launches()
+    try:
+        lt.train(p_, lt.Dataset(pf.X, label=y_big, params=p_), 3)
+        fail("nonfinite_policy=fatal: the overflowing L2 run did not raise")
+    except lt.LightGBMError as e:
+        msg = str(e)
+    launches = dict(hk.LAUNCHES)
+    sec["nonfinite_s"] = time.perf_counter() - t
+    print(f"{tag} overflowing L2 run (labels near 1e38, learning_rate "
+          f"1e38) under fatal: {msg[:80]}...; launches {launches}")
+    if not msg.startswith("non-finite scores detected at iteration 0"):
+        fail(f"the overflowing run raised {msg}")
+    # its first tree is a stump (every gradient is inf), so no level pass
+    if min(launches[k] for k in ("grad_quant_hist0", "leaf_sums_grad",
+                                 "take_small")) <= 0 or launches["hist_q8"]:
+        fail(f"the overflowing run left the fused front: {launches}")
+    for k, v in launches.items():
+        launches_all[k] += v
+    shutil.rmtree(work)
+    print(f"{tag} seconds by step: {json.dumps(sec)}; card: {card}")
+    return sec
 
 
 def card_line() -> str:
@@ -2907,6 +3319,7 @@ def main() -> int:
     categorical_path()
     print(f"elapsed after path (k): {time.perf_counter() - t_start:.1f} s")
     bundled_path()
+    slice_ms["cli"] = cli_path(launches_all, card)
     for nm in kernels:
         kernels[nm]["launches"] = launches_all[nm]
     print(f"elapsed after paths (g)-(l): "

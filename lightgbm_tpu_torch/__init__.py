@@ -10,7 +10,10 @@ f32 histograms, or the leaf-wise grower; bagging, feature_fraction and
 feature_fraction_bynode; validation sets, the reference's metric table,
 custom eval functions, early stopping and callbacks; histogram_pool_size
 on both growers; cross-validation ``cv`` and the scikit-learn style
-``LGBM*`` estimators) on
+``LGBM*`` estimators; crash-safe snapshots and their resume, the non-finite
+guard and fault injection; the command line ``python -m
+lightgbm_tpu_torch``, the text parser, a C API, TreeSHAP contributions,
+C++ code generation and plotting) on
 an NVIDIA Hopper GPU through eight hand-written CUDA kernels
 (``ops/hist_kernels.py``, ``csrc/``). It imports torch and numpy only:
 nothing of JAX and nothing of the ``lightgbm_tpu`` reference package.
@@ -26,9 +29,13 @@ from .callback import (EarlyStopException, early_stopping, print_evaluation,
 from .config import Config
 from .engine import cv, train
 from .log import LightGBMError
+from .plotting import (create_tree_digraph, plot_importance, plot_metric,
+                       plot_split_value_histogram, plot_tree)
 from .sklearn import LGBMClassifier, LGBMModel, LGBMRanker, LGBMRegressor
 
 __all__ = ["Dataset", "Booster", "Config", "train", "cv", "LightGBMError",
            "early_stopping", "print_evaluation", "record_evaluation",
            "reset_parameter", "EarlyStopException", "LGBMModel",
-           "LGBMClassifier", "LGBMRegressor", "LGBMRanker"]
+           "LGBMClassifier", "LGBMRegressor", "LGBMRanker",
+           "plot_importance", "plot_split_value_histogram", "plot_metric",
+           "create_tree_digraph", "plot_tree"]

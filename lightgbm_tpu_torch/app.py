@@ -1,0 +1,242 @@
+"""The command line the reference ships as the
+``lightgbm`` binary (src/application/application.cpp:84-252).
+
+Port of ``lightgbm_tpu/app.py``. Usage, with the reference binary's
+conventions (``key=value`` arguments override the config file's lines,
+main.cpp:26):
+
+    python -m lightgbm_tpu_torch config=train.conf [key=value ...]
+    python -m lightgbm_tpu_torch task=train data=binary.train objective=binary
+
+Tasks: ``train`` (through ``engine.train``, so ``snapshot_freq`` and
+``resume_from_snapshot`` work as in Python; the model goes to
+``output_model``), ``predict`` (``predict_raw_score``,
+``predict_leaf_index``, ``predict_contrib``, ``num_iteration_predict``;
+results to ``output_result``), ``refit`` and ``convert_model`` (C++ to
+``convert_model``). ``serve`` and ``online`` are not ported yet (ROADMAP.md
+A18, A19). Training and prediction run on the GPU unless
+``device_type=cpu`` is given.
+"""
+from __future__ import annotations
+
+import logging
+import os
+import sys
+import time
+from typing import Dict, List
+
+import numpy as np
+
+from . import log
+from .basic import Booster, Dataset
+from .config import Config, canonical_name
+from .engine import train as engine_train
+from .io import parser
+from .io.parser import load_file
+from .utils import atomic_io
+
+
+def parse_args(argv: List[str]) -> Dict[str, str]:
+    """``key=value`` arguments and an optional ``config=file`` whose lines
+    are ``key=value`` (``#`` comments); the arguments override the file's
+    lines (main.cpp:21-30)."""
+    cli = Config.str2map(argv)
+    conf_path = None
+    for k in list(cli):
+        if canonical_name(k) == "config":
+            conf_path = cli.pop(k)
+    merged: Dict[str, str] = {}
+    if conf_path:
+        if not os.path.exists(conf_path):
+            log.fatal(f"Config file {conf_path} does not exist")
+        with open(conf_path) as fh:
+            merged.update(Config.str2map(fh.readlines()))
+    merged.update(cli)
+    return merged
+
+
+def _load_initscore(path: str) -> np.ndarray:
+    """An init-score file (reference: initscore_filename /
+    valid_data_initscores, metadata.cpp:521), through the vfs layer."""
+    from .io.vfs import exists, open_file
+    if not exists(path):
+        log.fatal(f"Initial score file {path} does not exist")
+    with open_file(path, "rb") as fh:
+        init = np.loadtxt(fh, dtype=np.float64)
+    log.info(f"Loading initial scores from {path}")
+    return init
+
+
+def _load_dataset(path: str, conf: Config, params: Dict, reference=None,
+                  num_features_hint: int = 0,
+                  initscore_path: str = "") -> Dataset:
+    """A data file as a Dataset: its ``.bin`` cache (``Dataset.save_binary``)
+    when there is one, else the parsed text; ``save_binary`` writes the
+    cache."""
+    bin_path = path if path.endswith(".bin") else path + ".bin"
+    if os.path.exists(bin_path) and reference is None:
+        try:
+            ds = Dataset.load_binary(bin_path, params=params)
+            log.info(f"Loaded binned dataset from {bin_path}")
+            if initscore_path:
+                ds.set_init_score(_load_initscore(initscore_path))
+            return ds
+        except log.LightGBMError as e:
+            # the reference package's .bin files are pickles of its own
+            # classes, which this package does not read
+            log.info(f"{bin_path} is not this package's binary Dataset "
+                     f"({e}); parsing {path} instead")
+    pf = load_file(path, header=conf.header, label_column=conf.label_column,
+                   weight_column=conf.weight_column,
+                   group_column=conf.group_column,
+                   ignore_column=conf.ignore_column,
+                   num_features_hint=num_features_hint,
+                   two_round=conf.two_round)
+    init = pf.init_score
+    if initscore_path:
+        init = _load_initscore(initscore_path)
+    ds = Dataset(pf.X, label=pf.label, weight=pf.weight, group=pf.group,
+                 init_score=init, reference=reference, params=params,
+                 feature_name=pf.feature_names or "auto")
+    if conf.save_binary and reference is None:
+        ds.save_binary(bin_path)
+    return ds
+
+
+def run_train(conf: Config, params: Dict) -> None:
+    if not conf.data:
+        log.fatal("No training data: set data=<file>")
+    t0 = time.perf_counter()
+    train_set = _load_dataset(conf.data, conf, params,
+                              initscore_path=conf.initscore_filename)
+    valid_sets, valid_names = [], []
+    vinits = list(conf.valid_data_initscores or [])
+    for vi, vpath in enumerate(conf.valid):
+        vs = _load_dataset(vpath, conf, params, reference=train_set,
+                           initscore_path=(vinits[vi]
+                                           if vi < len(vinits) else ""))
+        valid_sets.append(vs)
+        valid_names.append(os.path.basename(vpath))
+    log.info(f"Finished loading data in {time.perf_counter() - t0:.6f} "
+             f"seconds (parser: {parser.LAST_PARSE_PATH})")
+    t1 = time.perf_counter()
+    booster = engine_train(
+        params, train_set, num_boost_round=conf.num_iterations,
+        valid_sets=valid_sets, valid_names=valid_names,
+        init_model=conf.input_model or None,
+        verbose_eval=conf.metric_freq if conf.metric_freq > 0 else False)
+    dt = time.perf_counter() - t1
+    booster.save_model(conf.output_model)
+    log.info(f"Finished training {booster.current_iteration} iterations in "
+             f"{dt:.6f} seconds "
+             f"({dt / max(booster.current_iteration, 1):.6f} s/iteration); "
+             f"model saved to {conf.output_model}")
+
+
+def _load_rows(conf: Config, nf: int):
+    pf = load_file(conf.data, header=conf.header,
+                   label_column=conf.label_column,
+                   weight_column=conf.weight_column,
+                   group_column=conf.group_column,
+                   ignore_column=conf.ignore_column, num_features_hint=nf,
+                   two_round=conf.two_round)
+    X = pf.X
+    if X.shape[1] < nf:   # a file sparser than the train data (LibSVM)
+        X = np.pad(X, ((0, 0), (0, nf - X.shape[1])))
+    return pf, X
+
+
+def run_predict(conf: Config, params: Dict) -> None:
+    if not conf.data:
+        log.fatal("No data to predict: set data=<file>")
+    if not conf.input_model:
+        log.fatal("No model file: set input_model=<file>")
+    booster = Booster(model_file=conf.input_model, params=params)
+    _, X = _load_rows(conf, booster.num_feature())
+    t0 = time.perf_counter()
+    pred = booster.predict(
+        X, raw_score=conf.predict_raw_score,
+        pred_leaf=conf.predict_leaf_index, pred_contrib=conf.predict_contrib,
+        num_iteration=(conf.num_iteration_predict
+                       if conf.num_iteration_predict > 0 else None))
+    dt = time.perf_counter() - t0
+    log.info(f"Predicted {X.shape[0]} rows in {dt:.3f}s "
+             f"({X.shape[0] / max(dt, 1e-9):,.0f} rows/s)")
+    out = np.asarray(pred)
+    if out.ndim == 1:
+        out = out[:, None]
+    fmt = "%d" if conf.predict_leaf_index else "%.18g"
+    np.savetxt(conf.output_result, out, fmt=fmt, delimiter="\t")
+    log.info(f"Finished prediction; results saved to {conf.output_result}")
+
+
+def run_refit(conf: Config, params: Dict) -> None:
+    """task=refit: the model's tree structures with leaf values refit to
+    new data (reference: Application::Refit, application.cpp:215-252)."""
+    if not conf.data:
+        log.fatal("No data to refit on: set data=<file>")
+    if not conf.input_model:
+        log.fatal("No model file: set input_model=<file>")
+    booster = Booster(model_file=conf.input_model, params=params)
+    pf, X = _load_rows(conf, booster.num_feature())
+    if pf.label is None:
+        log.fatal("Refit requires labels in the data file")
+    new_b = booster.refit(X, pf.label, weight=pf.weight, group=pf.group)
+    new_b.save_model(conf.output_model)
+    log.info(f"Finished refit; model saved to {conf.output_model}")
+
+
+def run_convert_model(conf: Config, params: Dict) -> None:
+    if not conf.input_model:
+        log.fatal("No model file: set input_model=<file>")
+    if conf.convert_model_language not in ("", "cpp"):
+        log.fatal(f"convert_model_language={conf.convert_model_language} is "
+                  "not supported; only cpp is (config.h:660)")
+    from .io.model_text import model_to_cpp
+    booster = Booster(model_file=conf.input_model, params=params)
+    out = conf.convert_model or "gbdt_prediction.cpp"
+    atomic_io.atomic_write_text(out,
+                                model_to_cpp(booster, booster._host_trees()))
+    log.info(f"Finished converting model; C++ code saved to {out}")
+
+
+def _configure_logging(conf: Config) -> None:
+    """The CLI's log lines on stderr at the level ``verbosity`` asks for."""
+    logger = logging.getLogger("lightgbm_tpu_torch")
+    if not logger.handlers:
+        h = logging.StreamHandler(sys.stderr)
+        h.setFormatter(logging.Formatter("[LightGBM] [%(levelname)s] "
+                                         "%(message)s"))
+        logger.addHandler(h)
+    logger.setLevel(logging.INFO if conf.verbosity >= 1 else
+                    logging.WARNING if conf.verbosity == 0 else logging.ERROR)
+
+
+def main(argv: List[str], log_to_stderr: bool = False) -> int:
+    """Run one task; ``log_to_stderr`` (the command line's) prints the log
+    on stderr at the level ``verbosity`` asks for."""
+    if not argv or argv[0] in ("-h", "--help"):
+        print(__doc__)
+        return 0
+    params = parse_args(argv)
+    conf = Config(params)
+    if log_to_stderr:
+        _configure_logging(conf)
+    task = conf.task
+    if task == "train":
+        run_train(conf, params)
+    elif task in ("refit", "refit_tree"):
+        run_refit(conf, params)
+    elif task in ("predict", "prediction", "test"):
+        run_predict(conf, params)
+    elif task == "convert_model":
+        run_convert_model(conf, params)
+    elif task == "serve":
+        raise NotImplementedError("task=serve is not ported yet (ROADMAP.md "
+                                  "queue A18: serving)")
+    elif task == "online":
+        raise NotImplementedError("task=online is not ported yet (ROADMAP.md "
+                                  "queue A19: continuous learning)")
+    else:
+        log.fatal(f"Unknown task: {task}")
+    return 0

@@ -48,6 +48,7 @@ from .models.tree import Tree
 from .objectives import create_objective
 from .ops import predict as P
 from .ops.split import SplitParams, leaf_output
+from .utils import atomic_io
 
 _NO_NA_BIN = 256   # na_bin value that never matches a uint8 bin
 
@@ -576,8 +577,8 @@ class Dataset:
         }
         arrays["header"] = np.frombuffer(
             json.dumps(header, default=_json_scalar).encode(), np.uint8)
-        with open(filename, "wb") as fh:
-            np.savez(fh, **arrays)
+        atomic_io.atomic_write_with(filename,
+                                    lambda fh: np.savez(fh, **arrays))
         return self
 
     @staticmethod
@@ -764,14 +765,19 @@ class Booster:
             return gb.train_one_iter()
         grad, hess = fobj(gb.train_score.cpu().numpy().copy(), gb.train_set)
         shape = tuple(gb.train_score.shape)
-        rows = []
+        grad = np.asarray(grad, dtype=np.float32)
+        hess = np.asarray(hess, dtype=np.float32)
         for what, a in (("grad", grad), ("hess", hess)):
-            a = np.asarray(a, dtype=np.float32)
             if a.size != gb.train_score.numel():
                 raise LightGBMError(f"fobj returned {a.size} {what} values "
                                     f"for a score of shape {shape}")
-            rows.append(torch.as_tensor(a.reshape(shape), device=gb.device))
-        return gb.train_one_iter(*rows)
+        # the non-finite guard, on the host before the quantizer
+        grad, hess, skip = gb.guard_gradients(grad, hess)
+        if skip:
+            return gb.skip_one_iter()
+        return gb.train_one_iter(*(torch.as_tensor(a.reshape(shape),
+                                                   device=gb.device)
+                                   for a in (grad, hess)))
 
     def rollback_one_iter(self) -> "Booster":
         """Drop the last iteration's trees and take their scores off the
@@ -835,21 +841,45 @@ class Booster:
         return self._loaded_meta.get("pandas_categorical")
 
     def predict(self, data, num_iteration: Optional[int] = None,
-                raw_score: bool = False, pred_leaf: bool = False
-                ) -> np.ndarray:
+                raw_score: bool = False, pred_leaf: bool = False,
+                pred_contrib: bool = False, data_has_header: bool = False,
+                **kwargs) -> np.ndarray:
         """Predictions on raw features [N, F] (a numpy array, a scipy
-        sparse matrix or a DataFrame) as a numpy array: f64 scores
-        (transformed by the objective unless raw_score), [N] or, with K
-        trees an iteration, [N, K]; or [N, T] leaf indices with
-        pred_leaf. Sparse rows are densified 64 MB of f64 at a time
-        (reference: basic.py:1207-1215)."""
+        sparse matrix, a DataFrame or a data file's path) as a numpy array:
+        f64 scores (transformed by the objective unless raw_score), [N] or,
+        with K trees an iteration, [N, K]; [N, T] leaf indices with
+        pred_leaf; or with pred_contrib the TreeSHAP contributions
+        [N, K (F + 1)], each class's F features then its expected value
+        (``io/shap.py``, on the host), a scipy CSR matrix for sparse input
+        (reference: basic.py:1172-1220). A file is parsed as the CLI parses
+        it (``io/parser.py``; ``data_has_header``), and its first column is
+        taken as a label only when the file has more columns than the
+        model has features. Sparse rows are densified 64 MB of f64 at a
+        time. Other keyword arguments are accepted and ignored, as in the
+        reference."""
+        if isinstance(data, (str, os.PathLike)):
+            from .io.parser import detect_format, load_file
+            kind, _ = detect_format(str(data), skip_header=data_has_header)
+            pf = load_file(str(data), header=data_has_header,
+                           num_features_hint=self.num_feature())
+            x = pf.X
+            nf = self.num_feature()
+            if (kind != "libsvm" and pf.label is not None and nf
+                    and x.shape[1] < nf):
+                # column 0 was taken as a label, but the file is not wider
+                # than the model: it has no label column
+                x = np.column_stack([pf.label, x])
+            data = x
         if _is_sparse(data):
             csr = data.tocsr()
             chunk = max(1, (64 << 20) // max(1, 8 * csr.shape[1]))
-            return np.concatenate([
-                self.predict(csr[i:i + chunk].toarray(), num_iteration,
-                             raw_score, pred_leaf)
-                for i in range(0, max(csr.shape[0], 1), chunk)], axis=0)
+            outs = [self.predict(csr[i:i + chunk].toarray(), num_iteration,
+                                 raw_score, pred_leaf, pred_contrib)
+                    for i in range(0, max(csr.shape[0], 1), chunk)]
+            if pred_contrib:
+                from scipy import sparse as sp
+                return sp.vstack([sp.csr_matrix(o) for o in outs]).tocsr()
+            return np.concatenate(outs, axis=0)
         trees = self._host_trees()
         k = self.num_model_per_iteration()
         if num_iteration is None:
@@ -862,6 +892,10 @@ class Booster:
             raise LightGBMError(f"The number of features in data "
                                 f"({x_np.shape[1]}) is not the same as it "
                                 f"was in training data ({nf})")
+        if pred_contrib:
+            from .io.shap import tree_shap_ensemble
+            return tree_shap_ensemble(np.asarray(x_np, np.float64), trees, k,
+                                      np.zeros(k))
         x = torch.as_tensor(x_np, device=self._device()).to(torch.float64)
         if pred_leaf:
             return P.predict_leaf(trees, x).cpu().numpy()
@@ -974,11 +1008,10 @@ class Booster:
 
     def save_model(self, filename: str, num_iteration: Optional[int] = None,
                    start_iteration: int = 0) -> "Booster":
-        text = self.model_to_string(num_iteration, start_iteration)
-        tmp = f"{filename}.tmp{os.getpid()}"
-        with open(tmp, "w") as fh:
-            fh.write(text)
-        os.replace(tmp, filename)
+        """Write the model text crash-safely (a temporary file, fsync and
+        rename: ``utils/atomic_io.py``), so no reader sees half a model."""
+        atomic_io.atomic_write_text(
+            filename, self.model_to_string(num_iteration, start_iteration))
         return self
 
     def _load_model_string(self, s: str) -> None:

@@ -3,9 +3,9 @@
 Port of ``lightgbm_tpu/callback.py`` (the reference python package's
 callback protocol, python-package/lightgbm/callback.py): each callback
 receives a ``CallbackEnv`` before or after every iteration, ordered by its
-``order``; ``EarlyStopException`` ends the training loop. The reference's
-snapshot hooks of ``early_stopping`` (``_es_export``/``_es_import``) serve
-snapshots, which are ROADMAP.md queue A16, and are not ported.
+``order``; ``EarlyStopException`` ends the training loop. ``early_stopping``
+carries its bookkeeping across a snapshot and resume through
+``_es_export``/``_es_import`` (reference: callback.py:144-171).
 """
 from __future__ import annotations
 
@@ -141,5 +141,33 @@ def early_stopping(stopping_rounds: int, first_metric_only: bool = False,
                     log.info(f"Did not meet early stopping. Best iteration "
                              f"is: [{best_iter[i] + 1}]")
                 raise EarlyStopException(best_iter[i], best_score_list[i])
+
+    # snapshot and resume: the closure's state out and in as JSON-able
+    # dicts, so a resumed run goes on counting instead of starting over
+    def _es_export():
+        if not best_score:
+            return None
+        return {"best_score": list(best_score), "best_iter": list(best_iter),
+                "greater": [bool(op(1, 0)) for op in cmp_op],
+                "enabled": enabled[0], "first_metric": first_metric[0],
+                "best_score_list": [
+                    [list(r) for r in lst] if lst is not None else None
+                    for lst in best_score_list]}
+
+    def _es_import(state) -> None:
+        if not state:
+            return
+        best_score[:] = [float(v) for v in state["best_score"]]
+        best_iter[:] = [int(v) for v in state["best_iter"]]
+        cmp_op[:] = [(lambda x, y: x > y) if g else (lambda x, y: x < y)
+                     for g in state["greater"]]
+        enabled[0] = bool(state["enabled"])
+        first_metric[0] = state["first_metric"]
+        best_score_list[:] = [
+            [tuple(r) for r in lst] if lst is not None else None
+            for lst in state["best_score_list"]]
+
+    _callback._es_export = _es_export
+    _callback._es_import = _es_import
     _callback.order = 30
     return _callback

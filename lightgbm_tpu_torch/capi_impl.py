@@ -1,0 +1,208 @@
+"""Python side of the minimal C ABI (``native/capi.cpp``).
+
+Port of ``lightgbm_tpu/capi_impl.py``. The C library embeds CPython (or
+joins a running interpreter) and forwards each ``LGBMTPU_*`` entry here;
+arguments cross as raw addresses and sizes, which numpy views without a
+copy. The entry names and signatures are the reference's, so one C host
+binds either package's library. The device is chosen as everywhere in
+this package: ``device_type`` in the parameters (a config file's, a
+parameter string's, or the parameter echo of a loaded model file), the GPU
+by default. Serving (``server_*``, ROADMAP.md A18) and continuous learning
+(``dataset_append``, ``online_*``, A19) raise ``NotImplementedError``,
+which the C side returns as an error with its message.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import numpy as np
+
+from .config import Config, canonical_name
+
+
+def train_from_config(config_path: str) -> int:
+    """task=train driven by a config file (the CLI's path)."""
+    from .app import main
+    return int(main([f"config={config_path}"]) or 0)
+
+
+def _echo_params(model_str: str) -> Dict[str, str]:
+    """``device_type`` from a model text's parameter echo, when it names
+    one ("[device_type: cpu]"): a loaded model predicts where it was
+    trained to."""
+    if "\nparameters:\n" not in model_str:
+        return {}
+    block = model_str.split("\nparameters:\n", 1)[1].split(
+        "end of parameters")[0]
+    for line in block.splitlines():
+        line = line.strip()
+        if line.startswith("[") and line.endswith("]") and ": " in line:
+            k, v = line[1:-1].split(": ", 1)
+            if canonical_name(k) == "device_type":
+                return {"device_type": v.strip()}
+    return {}
+
+
+def booster_from_file(path: str):
+    """A Booster handle of a model file (reference:
+    LGBM_BoosterCreateFromModelfile, c_api.h:387)."""
+    from .basic import Booster
+    with open(path) as fh:
+        text = fh.read()
+    return Booster(model_str=text, params=_echo_params(text))
+
+
+def booster_from_string(model_str: str):
+    from .basic import Booster
+    return Booster(model_str=model_str, params=_echo_params(model_str))
+
+
+def num_feature(booster) -> int:
+    return int(booster.num_feature())
+
+
+def num_trees(booster) -> int:
+    return int(booster.num_trees())
+
+
+def _mat(addr: int, nrow: int, ncol: int, copy: bool = False) -> np.ndarray:
+    src = (ctypes.c_double * (nrow * ncol)).from_address(addr)
+    x = np.frombuffer(src, dtype=np.float64).reshape(nrow, ncol)
+    return x.copy() if copy else x
+
+
+def predict_for_mat(booster, data_addr: int, nrow: int, ncol: int,
+                    raw_score: int, pred_leaf: int, out_addr: int,
+                    out_cap: int) -> int:
+    """A dense f64 row-major matrix's predictions (reference:
+    LGBM_BoosterPredictForMat, c_api.h:822); returns the count of doubles
+    written, or -1 when ``out_cap`` is too small."""
+    out = booster.predict(_mat(data_addr, nrow, ncol),
+                          raw_score=bool(raw_score),
+                          pred_leaf=bool(pred_leaf))
+    out = np.ascontiguousarray(np.asarray(out, dtype=np.float64)).reshape(-1)
+    if out.size > out_cap:
+        return -1
+    ctypes.memmove(out_addr, out.ctypes.data, out.nbytes)
+    return int(out.size)
+
+
+def save_model(booster, path: str) -> int:
+    booster.save_model(path)
+    return 0
+
+
+# ---- a Dataset from memory and stepwise training (reference:
+# LGBM_DatasetCreateFromMat, LGBM_DatasetSetField, LGBM_BoosterCreate,
+# LGBM_BoosterUpdateOneIter, c_api.h:215, :322, :387, :482) ----
+
+def _parse_params(params_str: str) -> dict:
+    """The reference's parameter string: space-separated k=v tokens."""
+    return Config.str2map((params_str or "").split())
+
+
+def dataset_from_mat(data_addr: int, nrow: int, ncol: int, params_str: str,
+                     reference):
+    """A Dataset handle of a dense f64 row-major matrix, copied (the host
+    may free its buffer after the call)."""
+    from .basic import Dataset
+    return Dataset(_mat(data_addr, nrow, ncol, copy=True),
+                   params=_parse_params(params_str), reference=reference)
+
+
+def dataset_set_field(ds, name: str, data_addr: int, n: int,
+                      dtype: int) -> int:
+    """label / weight / init_score as f64 (dtype 0), group sizes as i32
+    (dtype 1), the reference's SetField types (c_api.h:322)."""
+    if dtype == 1:
+        src = (ctypes.c_int32 * n).from_address(data_addr)
+        arr = np.frombuffer(src, dtype=np.int32).copy()
+    else:
+        src = (ctypes.c_double * n).from_address(data_addr)
+        arr = np.frombuffer(src, dtype=np.float64).copy()
+    if name == "label":
+        ds.set_label(arr)
+    elif name == "weight":
+        ds.set_weight(arr)
+    elif name == "init_score":
+        ds.set_init_score(arr)
+    elif name in ("group", "query"):
+        ds.set_group(arr.astype(np.int64))
+    else:
+        raise ValueError(f"unknown field name {name!r}")
+    return 0
+
+
+def dataset_num_data(ds) -> int:
+    return int(ds.num_data if ds._constructed
+               else np.shape(ds.raw_data)[0])
+
+
+def dataset_num_feature(ds) -> int:
+    ds.construct()
+    return int(ds.num_features)
+
+
+def booster_create(ds, params_str: str):
+    from .basic import Booster
+    return Booster(params=_parse_params(params_str), train_set=ds)
+
+
+def booster_add_valid(booster, valid_ds, name: str) -> int:
+    booster.add_valid(valid_ds, name)
+    return 0
+
+
+def booster_update_one_iter(booster) -> int:
+    return 1 if booster.update() else 0
+
+
+def booster_get_eval(booster, data_idx: int, out_addr: int, cap: int) -> int:
+    """One eval set's metric values (reference: LGBM_BoosterGetEval,
+    c_api.h:556): data_idx 0 the training set, 1.. the valid sets in the
+    order they were added. Returns the count written, or -1 on overflow or
+    a bad index."""
+    gb = booster._gbdt
+    if data_idx == 0:
+        rows = booster.eval_train()
+    else:
+        if gb is None or not 1 <= data_idx <= len(gb.valid_names):
+            return -1
+        i = data_idx - 1
+        rows = gb._eval(gb.valid_names[i], gb.valid_scores[i],
+                        gb.valid_sets[i])
+    vals = [float(r[2]) for r in rows]
+    if len(vals) > cap:
+        return -1
+    if vals:
+        buf = (ctypes.c_double * len(vals)).from_address(out_addr)
+        buf[:] = vals
+    return len(vals)
+
+
+def booster_finish_training(booster) -> int:
+    """The end of a stepwise loop. The port checks each iteration's stop
+    and non-finite flags as it goes, so nothing is left to flush."""
+    return 0
+
+
+def _unported(what: str, item: str, name: str):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue "
+                              f"{item}: {name})")
+
+
+# ---- serving (ROADMAP.md A18) and continuous learning (A19) ----
+
+def server_create(model_path: str, params_str: str):
+    _unported("the C API's server_* entries", "A18", "serving")
+
+
+def dataset_append(ds, data_addr: int, nrow: int, ncol: int,
+                   label_addr: int) -> int:
+    _unported("Dataset.append (the C API's dataset_append)", "A19",
+              "continuous learning")
+
+
+def online_create(ds, booster, server, params_str: str):
+    _unported("the C API's online_* entries", "A19", "continuous learning")

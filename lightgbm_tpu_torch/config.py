@@ -6,8 +6,9 @@ dict written for the reference parses here to the same values. Two things
 differ: ``device_type`` (alias ``device``) defaults to ``"cuda"``, and
 ``check_slice`` refuses, with ``NotImplementedError`` naming the ROADMAP
 item, every setting that would leave the path this package implements:
-what remains outside it is a tree learner other than serial, or more than
-one machine (A21). ``OBJECTIVES`` is the reference's objective
+what remains outside it is a tree learner other than serial, more than
+one machine, or an ``on_device_fault`` recovery that re-plans a mesh
+(A21). ``OBJECTIVES`` is the reference's objective
 alias table (``lightgbm_tpu/objectives.py:690-709``). The TPU-only knobs
 (``histogram_impl``, ``hist_packed``, ``mesh_axis``, ...) are accepted and
 have no effect.
@@ -226,12 +227,10 @@ _PARAMS: Dict[str, Tuple[Any, Tuple[str, ...]]] = {
     "network_retries": (3, ()),
     # fault-injection spec (utils/faults.py), e.g. "snapshot_write:2"
     "faults": ("", ("fault_spec",)),
-    # recovery policy for device-level faults (XLA RESOURCE_EXHAUSTED during
-    # ingest commit / fused-step dispatch, injected device chaos points):
-    # fatal = re-raise immediately (reference CHECK semantics) | reshard =
-    # halve ingest chunks, then re-plan the row sharding over more devices
-    # when available | fallback_single = degrade to the single-device path
-    # with a warning. Every recovery emits a `device_fault` telemetry event.
+    # recovery policy for device-level faults: fatal = re-raise (reference
+    # CHECK semantics); reshard (the default) behaves as fatal on this
+    # single-device port, since its re-planning of a mesh is A21's;
+    # fallback_single is refused by check_slice (A21)
     "on_device_fault": ("reshard", ("device_fault_policy",)),
     # ---- online serving (task=serve; see lightgbm_tpu/server.py) ----
     # request-coalescing window: a flush waits at most this long after the
@@ -495,6 +494,31 @@ class Config:
         if self.max_bin > 256:
             warning("max_bin > 256 not supported (uint8 bins); clamping to 256")
             self.max_bin = 256
+        if self.nonfinite_policy not in ("fatal", "warn_skip_tree", "clip"):
+            raise LightGBMError("nonfinite_policy must be one of fatal|"
+                                "warn_skip_tree|clip, got "
+                                f"{self.nonfinite_policy!r}")
+        if self.snapshot_keep < 1:
+            raise LightGBMError("snapshot_keep must be >= 1")
+        if self.on_device_fault not in ("fatal", "reshard", "fallback_single"):
+            raise LightGBMError("on_device_fault must be one of fatal|reshard"
+                                f"|fallback_single, got "
+                                f"{self.on_device_fault!r}")
+
+    @staticmethod
+    def str2map(args) -> Dict[str, str]:
+        """``key=value`` tokens (config-file lines or command-line
+        arguments) as a dict; ``#`` starts a comment (reference:
+        Config.str2map, config.py:629-640)."""
+        out: Dict[str, str] = {}
+        for arg in args:
+            arg = arg.strip()
+            if not arg or arg.startswith("#"):
+                continue
+            if "=" in arg:
+                k, v = arg.split("=", 1)
+                out[k.strip()] = v.split("#", 1)[0].strip()
+        return out
 
     def to_dict(self) -> Dict[str, Any]:
         out = {name: getattr(self, name) for name in _PARAMS}
@@ -585,3 +609,8 @@ def check_slice(conf: Config) -> None:
                             f"{conf.objective!r} (got {conf.num_class})")
     if str(conf.tree_learner).lower() != "serial" or conf.num_machines > 1:
         raise _out_of_slice(f"tree_learner={conf.tree_learner!r}", "A21")
+    if conf.on_device_fault not in ("fatal", "reshard"):
+        # the recovery arms re-plan a mesh; reshard, the default, is fatal
+        # on one device
+        raise _out_of_slice(f"on_device_fault={conf.on_device_fault!r}",
+                            "A21")

@@ -20,17 +20,25 @@ continues training: its trees' raw score on the train Dataset's bins is
 the train score's init score (``_warm_start``, :337-387), and the valid
 sets replay it too; the returned Booster holds the new trees, as in the
 reference. ``cv`` (:390) trains one Booster a fold on subsets of one
-constructed Dataset. Snapshots, faults, the non-finite guard and telemetry
-(ROADMAP.md queues A16, A20) are not ported.
+constructed Dataset. ``snapshot_freq`` writes a crash-safe snapshot every
+that many iterations (``snapshot.py``; a write that still fails after its
+retries warns and training goes on, :237-270), ``resume_from_snapshot``
+continues from the newest valid one (:92-170), the ``tree_update`` fault
+point sits at the top of each iteration (:185-187), and each evaluation
+result passes the non-finite guard (``_check_eval_finite``, :296-318).
+Telemetry (ROADMAP.md A20) is not ported.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 
 from . import callback as cb
 from . import log
+from . import snapshot as snap
+from .utils import faults
 from .basic import Booster, Dataset
 from .config import canonical_name, objective_kind, params_to_config
 
@@ -51,15 +59,25 @@ def train(params: Dict[str, Any], train_set: Dataset,
           evals_result: Optional[Dict] = None,
           verbose_eval: Union[bool, int] = True,
           keep_training_booster: bool = False,
-          callbacks: Optional[List[Callable]] = None) -> Booster:
+          callbacks: Optional[List[Callable]] = None,
+          resume_from_snapshot: Optional[Union[str, bool]] = None
+          ) -> Booster:
     """Train a booster (reference: engine.py:35), with the reference's
-    parameters in its order but ``resume_from_snapshot`` (ROADMAP.md queue
-    A16). ``feature_name`` and ``categorical_feature`` other than "auto"
-    are set on the train set (:76-79). ``keep_training_booster`` is
-    accepted for the reference's signature: the returned Booster can
-    always go on training."""
+    parameters in its order. ``feature_name`` and ``categorical_feature``
+    other than "auto" are set on the train set (:76-79).
+    ``keep_training_booster`` is accepted for the reference's signature:
+    the returned Booster can always go on training.
+
+    ``resume_from_snapshot`` names a snapshot directory (True: the one
+    ``snapshot_dir`` gives): the newest valid snapshot there is loaded and
+    training continues from its iteration, with ``num_boost_round`` the
+    total, so that the resumed run ends where the uninterrupted one would
+    have, with its model text. With nothing valid there, or a snapshot of
+    another configuration, it warns and trains from scratch."""
     params = dict(params or {})
     conf = params_to_config(params)
+    if conf.faults:
+        faults.configure(conf.faults)
     if any(canonical_name(str(k)) == "num_iterations" for k in params):
         num_boost_round = conf.num_iterations
     if conf.early_stopping_round and early_stopping_rounds is None:
@@ -77,6 +95,28 @@ def train(params: Dict[str, Any], train_set: Dataset,
         init = (Booster(model_file=init_model)
                 if isinstance(init_model, str) else init_model)
         booster._gbdt.warm_start(init._host_trees())
+    # restore the trainer before the valid sets attach, so that their
+    # replay sees the loaded trees
+    resumed = False
+    es_resume_state = None
+    if resume_from_snapshot:
+        resume_dir = (snap.snapshot_dir_for(conf)
+                      if resume_from_snapshot is True
+                      else str(resume_from_snapshot))
+        payload = snap.load_latest_valid(resume_dir)
+        if payload is None:
+            log.warning(f"resume_from_snapshot: no valid snapshot under "
+                        f"{resume_dir!r}; training from scratch")
+        else:
+            try:
+                booster._gbdt.set_resume_state(payload.arrays, payload.meta)
+                es_resume_state = payload.es_state
+                resumed = True
+                log.info(f"resumed from {payload.model_path} "
+                         f"(iteration {payload.iteration})")
+            except ValueError as e:
+                log.warning(f"cannot resume from {payload.model_path}: {e}; "
+                            "training from scratch")
     valid_sets = list(valid_sets or [])
     valid_names = list(valid_names or [])
     for i, vs in enumerate(valid_sets):
@@ -108,10 +148,29 @@ def train(params: Dict[str, Any], train_set: Dataset,
                     if not getattr(c, "before_iteration", False)),
                    key=lambda c: getattr(c, "order", 0))
 
+    if es_resume_state is not None:
+        for c in callbacks:
+            imp = getattr(c, "_es_import", None)
+            if imp is not None:
+                imp(es_resume_state)
+
     begin_iteration = booster.current_iteration
-    end_iteration = begin_iteration + num_boost_round
+    if resumed:
+        # num_boost_round is the total on resume
+        end_iteration = max(begin_iteration, num_boost_round)
+        if begin_iteration >= num_boost_round:
+            log.warning(f"snapshot already at iteration {begin_iteration} >= "
+                        f"num_boost_round={num_boost_round}; no further "
+                        "boosting")
+    else:
+        end_iteration = begin_iteration + num_boost_round
+    snapshot_dir = snap.snapshot_dir_for(conf)
+    nf_eval_warned: set = set()
     try:
         for i in range(begin_iteration, end_iteration):
+            # the kill-and-resume crash: an armed tree_update fault leaves
+            # train() like a crash at iteration i
+            faults.fault_point("tree_update")
             for c in before:
                 c(cb.CallbackEnv(model=booster, params=params, iteration=i,
                                  begin_iteration=begin_iteration,
@@ -125,11 +184,16 @@ def train(params: Dict[str, Any], train_set: Dataset,
                 results.extend(booster.eval_valid())
                 if feval is not None:
                     results.extend(_run_feval(feval, booster, eval_training))
+                _check_eval_finite(results, conf.nonfinite_policy,
+                                   nf_eval_warned, i)
             for c in after:
                 c(cb.CallbackEnv(model=booster, params=params, iteration=i,
                                  begin_iteration=begin_iteration,
                                  end_iteration=end_iteration,
                                  evaluation_result_list=results))
+            if conf.snapshot_freq > 0 and (i + 1) % conf.snapshot_freq == 0:
+                _write_snapshot(booster, callbacks, snapshot_dir, i + 1,
+                                conf.snapshot_keep)
             if finished:
                 log.warning("Stopped training because there are no more "
                             "leaves that meet the split requirements")
@@ -139,6 +203,50 @@ def train(params: Dict[str, Any], train_set: Dataset,
         for item in (e.best_score or []):
             booster.best_score.setdefault(item[0], {})[item[1]] = item[2]
     return booster
+
+
+def _write_snapshot(booster: Booster, callbacks, directory: str,
+                    iteration: int, keep: int) -> None:
+    """A periodic snapshot with early stopping's state (reference:
+    engine.py:237-270): one that still fails after its retries warns, and
+    training goes on."""
+    es_state = None
+    for c in callbacks:
+        exp = getattr(c, "_es_export", None)
+        if exp is not None:
+            es_state = exp()
+    try:
+        if snap.is_writer_rank():
+            path = snap.write_snapshot(booster, directory, iteration,
+                                       keep=keep, es_state=es_state)
+            log.info(f"Saved snapshot to {path}")
+    except Exception as e:
+        log.warning(f"snapshot at iteration {iteration} failed after "
+                    f"retries ({type(e).__name__}: {e}); training continues")
+
+
+def _check_eval_finite(results, policy: str, warned: set,
+                       iteration: int) -> None:
+    """The non-finite guard on evaluation results (reference: engine.py
+    :296-318): under fatal a non-finite value raises naming its metric,
+    the other policies warn once a (dataset, metric)."""
+    for r in results:
+        name, metric, val = r[0], r[1], r[2]
+        try:
+            finite = math.isfinite(float(val))
+        except (TypeError, ValueError):
+            continue
+        if finite:
+            continue
+        if policy == "fatal":
+            log.fatal(f"non-finite eval value {val!r} for {name}'s {metric} "
+                      f"at iteration {iteration + 1} "
+                      "(nonfinite_policy=fatal)")
+        if (name, metric) not in warned:
+            warned.add((name, metric))
+            log.warning(f"non-finite eval value {val!r} for {name}'s "
+                        f"{metric} at iteration {iteration + 1} "
+                        f"(nonfinite_policy={policy})")
 
 
 def _run_feval(feval, booster: Booster, eval_training: bool) -> List:

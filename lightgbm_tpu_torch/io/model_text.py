@@ -1,7 +1,8 @@
 """Model text serialization, reference-format compatible.
 
 Port of ``lightgbm_tpu/io/model_text.py`` ``dump_model_text`` (:36),
-``parse_model_text`` (:113) and ``dump_model_json`` (:159): the reference's v3 model file (header, one
+``parse_model_text`` (:113), ``dump_model_json`` (:159) and
+``model_to_cpp`` (:175): the reference's v3 model file (header, one
 block per tree with exact ``tree_sizes``, feature importances, parameters
 footer), so models move between the two packages and LightGBM tooling.
 A model of K trees an iteration (multiclass) writes ``num_class`` and
@@ -174,3 +175,41 @@ def parse_model_text(s: str) -> Tuple[Dict, List[Tree]]:
                 b = "Tree=" + b
             trees.append(Tree.from_string(b))
     return meta, trees
+
+
+def model_to_cpp(booster, trees: List[Tree]) -> str:
+    """The whole model as C++ if-else code with a ``Predict(features,
+    output)`` entry of raw scores (reference: ModelToIfElse,
+    gbdt_model_text.cpp:87; model_text.py:175-208), for the CLI's
+    convert_model task."""
+    parts = [
+        "#include <cmath>",
+        "#include <cstdint>",
+        "#include <initializer_list>",
+        "static inline bool IsLeft(double v, double thr, bool default_left) {",
+        "  if (std::isnan(v)) return default_left;",
+        "  return v <= thr;",
+        "}",
+        "static inline bool IsCatLeft(double v, std::initializer_list<int> s) {",
+        "  if (std::isnan(v) || v < 0) return false;",
+        "  int iv = static_cast<int>(v);",
+        "  for (int c : s) if (c == iv) return true;",
+        "  return false;",
+        "}",
+        "",
+    ]
+    for i, t in enumerate(trees):
+        parts.append(t.to_if_else(i))
+    k = booster.num_model_per_iteration()
+    parts.append("double (*PredictTreePtr[])(const double*) = {")
+    parts.append(",\n".join(f"  PredictTree{i}" for i in range(len(trees))))
+    parts.append("};")
+    parts.append(f"""
+void Predict(const double* features, double* output) {{
+  for (int k = 0; k < {k}; ++k) output[k] = 0.0;
+  for (int i = 0; i < {len(trees)}; ++i) {{
+    output[i % {k}] += PredictTreePtr[i](features);
+  }}
+}}
+""")
+    return "\n".join(parts)

@@ -21,3 +21,10 @@ def warning(msg: str, *args) -> None:
 
 def info(msg: str, *args) -> None:
     _LOG.info(msg, *args)
+
+
+def fatal(msg: str, *args) -> None:
+    """Log ``msg`` as an error and raise it as a ``LightGBMError``."""
+    text = msg % args if args else msg
+    _LOG.error(text)
+    raise LightGBMError(text)

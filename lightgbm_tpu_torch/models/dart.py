@@ -122,3 +122,13 @@ class DART(GBDT):
             internal_value=tree.internal_value * scale)
         if in_score:
             self._add_tree_score(tree_idx, cls, 1.0)
+
+    # ---- crash-safe resume (reference: dart.py:121-129) ----
+    def _extra_resume_state(self, arrays, meta) -> None:
+        arrays["dart_tree_weights"] = np.asarray(self.tree_weights,
+                                                 dtype=np.float64)
+
+    def _apply_extra_resume_state(self, arrays, meta) -> None:
+        self.tree_weights = [float(w) for w in
+                             arrays.get("dart_tree_weights", [])]
+        self.drop_idx = []

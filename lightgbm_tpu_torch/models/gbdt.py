@@ -44,7 +44,15 @@ forced-splits JSON as flat arrays of bins (``_build_forced``,
 (:715-719). DART and RF (``dart.py``,
 ``rf.py``) override the score hooks: ``average_output`` (no shrinkage,
 renewal or bias; :1126, :1571, :1681, :1703) and ``_apply_tree_delta``
-(:1027).
+(:1027). The non-finite guard (``nonfinite_policy``, :76-80) checks a
+custom objective's gradients on the host before they reach the quantizer
+(``guard_gradients``, :1705-1735) and each iteration's new train score
+through one device flag, read once an iteration (:965-1005, :1297-1320,
+:1430-1450): ``fatal`` raises, ``warn_skip_tree`` discards the iteration's
+trees and their score, ``clip`` caps the score and the iteration's trees
+at +-``_NF_CLIP`` and warns once. ``get_resume_state`` /
+``set_resume_state`` carry the trainer's exact state through a snapshot
+sidecar (:1747-1917), under the reference's npz key names.
 """
 from __future__ import annotations
 
@@ -57,7 +65,7 @@ import torch
 
 from ..binning import BIN_CATEGORICAL
 from ..config import Config
-from ..log import LightGBMError, info, warning
+from ..log import LightGBMError, fatal, info, warning
 from ..utils import threefry
 from ..ops.gather import take_small
 from ..ops.grow import ForcedSplits, GrowParams, TreeArrays, grow_tree
@@ -69,6 +77,22 @@ from ..ops.split import BundleArrays, SplitParams
 from .tree import Tree
 
 K_EPSILON = 1e-15
+# score magnitude cap of nonfinite_policy=clip (reference: _NF_CLIP,
+# gbdt.py:30): far beyond any sane boosted score, small enough that f32
+# sums of clipped values stay finite
+_NF_CLIP = 1e30
+
+
+def _sanitize(a: torch.Tensor) -> torch.Tensor:
+    """NaN to 0, then clamp to +-_NF_CLIP (nonfinite_policy=clip)."""
+    return torch.clamp(torch.nan_to_num(a, nan=0.0, posinf=_NF_CLIP,
+                                        neginf=-_NF_CLIP),
+                       -_NF_CLIP, _NF_CLIP)
+
+
+def _sanitize_np(a: np.ndarray) -> np.ndarray:
+    return np.clip(np.nan_to_num(a, nan=0.0, posinf=_NF_CLIP,
+                                 neginf=-_NF_CLIP), -_NF_CLIP, _NF_CLIP)
 
 
 def padded_bins(max_num_bins: int) -> int:
@@ -120,6 +144,9 @@ class GBDT:
         self.objective = objective     # None: custom gradients (fobj)
         self.metrics = list(metrics or [])
         self.iter_ = 0
+        # non-finite guard: fatal | warn_skip_tree | clip
+        self._nf_policy = config.nonfinite_policy
+        self._nf_warned = False
         self.learning_rate = float(config.learning_rate)
         self.device = train_set.device
         n = train_set.num_data
@@ -249,6 +276,9 @@ class GBDT:
                                     device=self.device)
         self._bag_mask: Optional[torch.Tensor] = None
         self._bag_key = threefry.prng_key(config.bagging_seed)
+        # the reference's bagging RandomState, which nothing draws from:
+        # carried in the snapshot sidecar as the reference carries it
+        self._bag_rng = np.random.RandomState(config.bagging_seed)
         self._feat_rng = np.random.RandomState(config.feature_fraction_seed)
         self._fmask_ones = torch.ones(f, dtype=torch.bool, device=self.device)
         self._fmask = self._fmask_ones
@@ -561,6 +591,10 @@ class GBDT:
                                 "trains on the gradients of fobj")
         ts = self.train_set
         gp = self.gp if grad is None else self.gp_custom
+        # warn_skip_tree discards a non-finite iteration whole: what the
+        # iteration mutates is kept aside until its flag is read
+        saved = (self._iteration_state()
+                 if self._nf_policy == "warn_skip_tree" else None)
         if grad is None and self._custom_grad:
             grad, hess = self.objective.get_gradients(self.train_score)
         self._update_bag(self.iter_, grad, hess)
@@ -605,8 +639,83 @@ class GBDT:
             self.hist_rebuilds.append(rebuilds)
             any_split = any_split or tree.num_leaves > 1
             self._add_tree(tree, leaf_id, cls)
+        # the non-finite guard: one device flag on the new train score, read
+        # once an iteration (the level loop syncs once a level anyway)
+        ok = bool(torch.isfinite(self.train_score).all())
+        if self._nf_policy == "clip":
+            self.train_score = _sanitize(self.train_score)
+        if not ok:
+            if saved is not None:
+                warning(f"non-finite scores at iteration {self.iter_}; "
+                        "discarding this iteration's tree(s) "
+                        "(nonfinite_policy=warn_skip_tree)")
+                self._restore_iteration_state(saved)
+                self.iter_ += 1
+                return False
+            self._nonfinite_scores(self.iter_)
         self.iter_ += 1
         return self._end_iteration(not any_split)
+
+    def _iteration_state(self):
+        """What one iteration mutates: the scores (copied, since a K-class
+        score updates in place), the tree count and the CEGB bookkeeping."""
+        cegb = None if self.cegb is None else self.cegb._replace(
+            feature_used=self.cegb.feature_used.clone(),
+            data_used=(None if self.cegb.data_used is None
+                       else self.cegb.data_used.clone()))
+        return (self.train_score.clone(), [v.clone() for v in
+                                           self.valid_scores],
+                len(self.models_dev), len(self.hist_passes), cegb)
+
+    def _restore_iteration_state(self, saved) -> None:
+        (self.train_score, self.valid_scores, n_trees, n_passes,
+         self.cegb) = saved
+        del self.models_dev[n_trees:]
+        del self.models_host[n_trees:]
+        del self.hist_passes[n_passes:]
+        del self.hist_rebuilds[n_passes:]
+
+    def _nonfinite_scores(self, it_no: int) -> None:
+        """Iteration ``it_no`` left a non-finite train score (reference:
+        _check_nf_flag, gbdt.py:1432-1450): fatal raises, clip warns
+        once."""
+        if self._nf_policy != "fatal":
+            if not self._nf_warned:
+                self._nf_warned = True
+                warning(f"non-finite scores around iteration {it_no} "
+                        f"(nonfinite_policy={self._nf_policy})")
+            return
+        fatal(f"non-finite scores detected at iteration {it_no} "
+              "(nonfinite_policy=fatal): gradients, hessians or leaf "
+              "values overflowed — lower learning_rate / check the "
+              "objective, or set nonfinite_policy=warn_skip_tree|clip")
+
+    def guard_gradients(self, grad: np.ndarray, hess: np.ndarray):
+        """The non-finite guard on a custom objective's gradients, on the
+        host before they reach the quantizer (reference: guard_gradients,
+        gbdt.py:1705-1735); returns (grad, hess, skip)."""
+        if bool(np.isfinite(grad).all() and np.isfinite(hess).all()):
+            return grad, hess, False
+        if self._nf_policy == "clip":
+            if not self._nf_warned:
+                self._nf_warned = True
+                warning(f"custom objective produced non-finite gradients "
+                        f"at iteration {self.iter_}; clipping "
+                        "(nonfinite_policy=clip)")
+            return _sanitize_np(grad), _sanitize_np(hess), False
+        if self._nf_policy == "fatal":
+            fatal(f"custom objective produced non-finite gradients at "
+                  f"iteration {self.iter_} (nonfinite_policy=fatal)")
+        warning(f"custom objective produced non-finite gradients at "
+                f"iteration {self.iter_}; skipping this iteration "
+                "(nonfinite_policy=warn_skip_tree)")
+        return grad, hess, True
+
+    def skip_one_iter(self) -> bool:
+        """Advance the iteration count without growing trees (the
+        warn_skip_tree policy discarded this iteration's gradients)."""
+        self.iter_ += 1
+        return False
 
     def _end_iteration(self, finished: bool) -> bool:
         """Close an iteration: one whose trees are all stumps ends
@@ -642,6 +751,12 @@ class GBDT:
         delta = take_small(tree.leaf_value, leaf_id)
         self.train_score = self._apply_tree_delta(self.train_score, delta,
                                                   cls)
+        if self._nf_policy == "clip":
+            # the stored tree and its valid-set deltas are capped, as in
+            # the reference's fused step (:1006-1018)
+            tree = tree._replace(
+                leaf_value=_sanitize(tree.leaf_value),
+                internal_value=_sanitize(tree.internal_value))
         bias = self.init_scores[cls] if self.iter_ == 0 else 0.0
         if abs(bias) > K_EPSILON and not self.average_output:
             tree = tree._replace(leaf_value=tree.leaf_value + bias,
@@ -731,3 +846,144 @@ class GBDT:
 
     def num_trees(self) -> int:
         return len(self.models_dev)
+
+    # ---- crash-safe resume (the snapshot sidecar; snapshot.py) ----
+    # the config fields that decide the training trajectory: a snapshot
+    # resumes only under a config that agrees on all of them (reference:
+    # _RESUME_FP_KEYS, gbdt.py:1747-1760)
+    _RESUME_FP_KEYS = (
+        "objective", "boosting", "num_class", "num_leaves", "max_depth",
+        "learning_rate", "max_bin", "min_data_in_leaf",
+        "min_sum_hessian_in_leaf", "lambda_l1", "lambda_l2",
+        "min_gain_to_split", "max_delta_step", "bagging_fraction",
+        "pos_bagging_fraction", "neg_bagging_fraction", "bagging_freq",
+        "bagging_seed", "feature_fraction", "feature_fraction_bynode",
+        "feature_fraction_seed", "extra_trees", "extra_seed", "grow_policy",
+        "tree_learner", "use_quantized_grad", "seed", "data_random_seed",
+        "boost_from_average", "drop_rate", "skip_drop", "max_drop",
+        "uniform_drop", "xgboost_dart_mode", "drop_seed", "top_rate",
+        "other_rate")
+    _RNGS = ("_feat_rng", "_bag_rng", "_drop_rng")
+
+    def _resume_fingerprint(self) -> Dict:
+        c = self.config
+        out = {}
+        for key in self._RESUME_FP_KEYS:
+            v = getattr(c, key, None)
+            out[key] = list(v) if isinstance(v, (list, tuple)) else v
+        out["boosting_class"] = type(self).__name__
+        out["num_data"] = int(self.train_set.num_data)
+        out["num_features"] = int(self.train_set.num_features)
+        return out
+
+    def get_resume_state(self) -> Tuple[Dict[str, np.ndarray], Dict]:
+        """The trainer's exact state for the snapshot sidecar (reference:
+        get_resume_state, gbdt.py:1778-1836): the device trees, the f32
+        train score read back from the device, the init scores in f64, the
+        threefry bag key and the bag mask, every RandomState and the CEGB
+        bookkeeping, under the reference's key names. The model text
+        cannot serve: the first tree's bias is folded in f32 and the text
+        has no bins, so a resume from text would leave the uninterrupted
+        run's path."""
+        arrays: Dict[str, np.ndarray] = {}
+        meta: Dict = {
+            "format_version": 1,
+            "iter": int(self.iter_),
+            "num_trees": len(self.models_dev),
+            "learning_rate": float(self.learning_rate),
+            "has_init_score": bool(self._has_init_score),
+            "has_bag_mask": self._bag_mask is not None,
+            "num_shards": 1,
+            "fingerprint": self._resume_fingerprint(),
+        }
+        arrays["train_score"] = self.train_score.cpu().numpy()
+        arrays["init_scores"] = np.asarray(self.init_scores,
+                                           dtype=np.float64)
+        arrays["bag_key"] = np.asarray(self._bag_key, dtype=np.uint32)
+        if self._bag_mask is not None:
+            arrays["bag_mask"] = self._bag_mask.cpu().numpy()
+        for nm in self._RNGS:
+            r = getattr(self, nm, None)
+            if isinstance(r, np.random.RandomState):
+                st = r.get_state()
+                arrays[f"rng{nm}_keys"] = np.asarray(st[1], dtype=np.uint32)
+                arrays[f"rng{nm}_pos"] = np.asarray([st[2], st[3]],
+                                                    dtype=np.int64)
+                arrays[f"rng{nm}_gauss"] = np.asarray([st[4]],
+                                                      dtype=np.float64)
+        if self.models_dev:
+            for f in TreeArrays._fields:
+                arrays[f"trees_{f}"] = (
+                    np.asarray([t.num_leaves for t in self.models_dev],
+                               dtype=np.int32) if f == "num_leaves"
+                    else torch.stack([getattr(t, f) for t in
+                                      self.models_dev]).cpu().numpy())
+        if self.cegb is not None:
+            arrays["cegb_feature_used"] = \
+                self.cegb.feature_used.cpu().numpy()
+            if self.cegb.data_used is not None:
+                arrays["cegb_data_used"] = self.cegb.data_used.cpu().numpy()
+        self._extra_resume_state(arrays, meta)
+        return arrays, meta
+
+    def set_resume_state(self, arrays: Dict[str, np.ndarray],
+                         meta: Dict) -> None:
+        """Restore what ``get_resume_state`` saved (reference:
+        set_resume_state, gbdt.py:1838-1908). Raises ValueError, before any
+        state changes, when the snapshot was taken under another config or
+        Dataset (naming the fields that differ)."""
+        fp = self._resume_fingerprint()
+        got = dict(meta.get("fingerprint") or {})
+        diff = sorted(k for k in set(fp) | set(got)
+                      if fp.get(k) != got.get(k))
+        if diff:
+            raise ValueError(
+                "snapshot was taken under a different configuration; "
+                "mismatched field(s): " + ", ".join(diff))
+        if tuple(arrays["train_score"].shape) != tuple(self.train_score.shape):
+            raise ValueError(
+                f"snapshot score shape {arrays['train_score'].shape} != "
+                f"trainer score shape {tuple(self.train_score.shape)}")
+        dev = self.device
+        self.iter_ = int(meta["iter"])
+        self.learning_rate = float(meta["learning_rate"])
+        self._has_init_score = bool(meta["has_init_score"])
+        self.init_scores = [float(v) for v in arrays["init_scores"]]
+        self.train_score = torch.as_tensor(
+            np.asarray(arrays["train_score"], np.float32), device=dev)
+        self._bag_key = tuple(int(v) for v in arrays["bag_key"])
+        self._bag_mask = (torch.as_tensor(arrays["bag_mask"], device=dev)
+                          if "bag_mask" in arrays else None)
+        for nm in self._RNGS:
+            r = getattr(self, nm, None)
+            key = f"rng{nm}_keys"
+            if isinstance(r, np.random.RandomState) and key in arrays:
+                pos = arrays[f"rng{nm}_pos"]
+                r.set_state(("MT19937", arrays[key], int(pos[0]),
+                             int(pos[1]),
+                             float(arrays[f"rng{nm}_gauss"][0])))
+        self.models_dev = []
+        self.models_host = []
+        for t in range(int(meta["num_trees"])):
+            self.models_dev.append(TreeArrays(**{
+                f: (int(arrays[f"trees_{f}"][t]) if f == "num_leaves"
+                    else torch.as_tensor(arrays[f"trees_{f}"][t],
+                                         device=dev))
+                for f in TreeArrays._fields}))
+        if self.cegb is not None and "cegb_feature_used" in arrays:
+            self.cegb = self.cegb._replace(
+                feature_used=torch.as_tensor(arrays["cegb_feature_used"],
+                                             device=dev),
+                data_used=(torch.as_tensor(arrays["cegb_data_used"],
+                                           device=dev)
+                           if "cegb_data_used" in arrays
+                           else self.cegb.data_used))
+        self._apply_extra_resume_state(arrays, meta)
+
+    def _extra_resume_state(self, arrays: Dict[str, np.ndarray],
+                            meta: Dict) -> None:
+        """Subclass hook: a booster's own state (DART's tree weights)."""
+
+    def _apply_extra_resume_state(self, arrays: Dict[str, np.ndarray],
+                                  meta: Dict) -> None:
+        """Subclass hook: restore what ``_extra_resume_state`` saved."""

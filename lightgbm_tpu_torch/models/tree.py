@@ -215,6 +215,37 @@ class Tree:
                 "num_cat": self.num_cat, "shrinkage": self.shrinkage,
                 "tree_structure": node_json(root)}
 
+    def _cat_lookup(self, node: int) -> frozenset:
+        """The categories a categorical node sends left."""
+        lut = getattr(self, "_cat_lut", None)
+        if lut is None:
+            lut = self._cat_lut = {
+                i: frozenset(int(v) for v in self.cat_sets[i])
+                for i in np.nonzero(self.is_cat_node)[0]}
+        return lut.get(node, frozenset())
+
+    def to_if_else(self, index: int) -> str:
+        """The tree as a C++ function of if-else branches (reference:
+        Tree::ToIfElse, tree.h:200; tree.py:379-403)."""
+        def rec(ptr: int, indent: str) -> str:
+            if ptr < 0:
+                return f"{indent}return {float(self.leaf_value[~ptr]):.17g};\n"
+            f_ = int(self.split_feature[ptr])
+            if self.is_cat_node[ptr]:
+                vals = ", ".join(str(int(v)) for v in self.cat_sets[ptr])
+                cond = f"IsCatLeft(arr[{f_}], {{{vals}}})"
+            else:
+                dl = "true" if self.default_left[ptr] else "false"
+                cond = (f"IsLeft(arr[{f_}], "
+                        f"{float(self.threshold_real[ptr]):.17g}, {dl})")
+            return (f"{indent}if ({cond}) {{\n"
+                    + rec(int(self.left_child[ptr]), indent + "  ")
+                    + f"{indent}}} else {{\n"
+                    + rec(int(self.right_child[ptr]), indent + "  ")
+                    + f"{indent}}}\n")
+        body = rec(0 if self.num_leaves > 1 else ~0, "  ")
+        return f"double PredictTree{index}(const double* arr) {{\n{body}}}\n"
+
     @staticmethod
     def from_string(block: str) -> "Tree":
         kv: Dict[str, str] = {}

@@ -207,16 +207,14 @@ class LGBMModel:
 
     def predict(self, X, raw_score=False, num_iteration=None,
                 pred_leaf=False, pred_contrib=False, **kwargs):
-        """The booster's predictions (reference: sklearn.py:197-210).
-        pred_contrib (SHAP values) is not ported yet (ROADMAP.md A15)."""
+        """The booster's predictions (reference: sklearn.py:189-201); extra
+        keyword arguments go on to ``Booster.predict``."""
         if self._Booster is None:
             raise ValueError("Estimator not fitted")
-        if pred_contrib:
-            raise NotImplementedError("pred_contrib is not ported yet "
-                                      "(ROADMAP.md queue A15)")
         return self._Booster.predict(X, raw_score=raw_score,
                                      num_iteration=num_iteration,
-                                     pred_leaf=pred_leaf)
+                                     pred_leaf=pred_leaf,
+                                     pred_contrib=pred_contrib, **kwargs)
 
     @property
     def booster_(self) -> Booster:

@@ -481,5 +481,9 @@ def test_estimator_model_is_trains_model():
     direct = lt.train(params, lt.Dataset(X, label=yb, params=params), 3,
                       verbose_eval=False)
     assert clf.booster_.model_to_string() == direct.model_to_string()
-    with pytest.raises(NotImplementedError, match="A15"):
-        clf.predict(X, pred_contrib=True)
+    # pred_contrib (A15): the reference's contributions of the same model
+    # text, exactly (both run the same host TreeSHAP in f64)
+    ref = lgb.Booster(model_str=clf.booster_.model_to_string())
+    np.testing.assert_array_equal(
+        clf.predict(X, pred_contrib=True),
+        np.asarray(ref.predict(X, pred_contrib=True)))

@@ -663,12 +663,11 @@ def test_train_feature_name_matches_reference():
 
 def test_train_parameters_in_reference_order():
     # C8: train's parameters, their order and defaults are the
-    # reference's, but resume_from_snapshot (queue A16), so a positional
+    # reference's, resume_from_snapshot included (A16), so a positional
     # call binds alike
     import inspect
     ref = [(q.name, q.default) for q in
-           inspect.signature(lgb.train).parameters.values()
-           if q.name != "resume_from_snapshot"]
+           inspect.signature(lgb.train).parameters.values()]
     port = [(q.name, q.default) for q in
             inspect.signature(lt.train).parameters.values()]
     assert port == ref
