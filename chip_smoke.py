@@ -11,7 +11,7 @@ measured):
 
 1. card: the GPU's name and power limit (nvidia-smi), torch and CUDA
    versions;
-2. build: the eight Hopper kernels are compiled from lightgbm_tpu_torch/csrc
+2. build: the nine Hopper kernels are compiled from lightgbm_tpu_torch/csrc
    by nvcc into one library (ops/cuda_lib.py), and the build time printed;
 3. kernels: each kernel's wrapper runs on the card at the main paths'
    shapes and is held against its plain PyTorch version on the same
@@ -43,7 +43,10 @@ measured):
    membership at path (k)'s shape, F = 8, B = 256 (six features of
    skewed categories, route tables mixing numerical and categorical
    leaves, an is_cat row and each leaf's bitset; each also timed on the
-   same tables read numerically, without the bitset); route_level with
+   same tables read numerically, without the bitset), and those three
+   levels (S = 1, 32, 127) replayed in one hist_routed_fused_multi call
+   (B2's multi-level replay), exactly against its plain version and the
+   three hist_routed_fused launches; route_level with
    EFB bundle bitsets and hist_q8 fed its slots and counts at path (l)'s
    shape, F = 16, B = 256 (six single columns, ten bundle columns of 127
    one-hot members; bundle leaves sending a member's range prefix and
@@ -85,6 +88,17 @@ measured):
    each path: train AUC on 1M rows > 0.7, the L2 model's squared error
    below the label variance, the saved model text loads back and predicts
    identically; the peak device memory of its training is printed;
+   B2's multi-level replay on (a)'s data: the route tables of the first
+   three level passes of one tree of (a)'s binary model (3 channels) and
+   of its L2 model (2), recorded from the live hist_routed_fused calls of
+   one update with their own slot widths, replayed in one
+   hist_routed_fused_multi launch from the root's leaf ids, equal to the
+   live passes and to the plain version bit for bit and timed beside the
+   three D = 1 launches and its bound; then the path that runs it,
+   scripts/torch_profile_level.py's shallow megapass at (a)'s width:
+   levels 1-5 of one tree in two launches (grad_quant_hist0,
+   hist_routed_fused_multi; the counts zeroed before and read after),
+   bit-identical to five sequential level passes;
    then (e) "sampled": max_bin=63 with bagging_fraction 0.8 every
    iteration, feature_fraction 0.8 and feature_fraction_bynode 0.8, a
    500,000-row synth_higgs valid set (seed 1), early stopping after 3
@@ -205,7 +219,18 @@ measured):
    above 0.7 on every fold); save_binary / load_binary of 1M rows training
    the same model text; rollback_one_iter from 3 iterations leaving train
    and valid scores within 1e-6 of the largest of a 2-iteration run's; a
-   pickled Booster predicting identically; (p) "cli": synth_higgs rows as
+   pickled Booster predicting identically; (q) "telemetry" on (a)'s
+   Dataset, binary with (a)'s parameters: 6 iterations with telemetry,
+   metrics_out, xla_trace_out, snapshot_freq 2 and faults=tree_update@5,
+   resumed from its snapshot at 4 to 6 with telemetry on, and the same 6
+   with telemetry off: the resumed model text equal to the telemetry-off
+   one, events.jsonl's train_iter, snapshot_write, fault_injected and
+   resume events those of the run, metrics.json's train_iterations and
+   device 0's peak memory (above the bins' bytes), metrics.prom parsed,
+   the Chrome trace naming B1-B4's CUDA kernels and each traced
+   iteration's boosting range, the launch counts the fused front's over
+   the 13 trees; s/iteration with telemetry on and off in 5 interleaved
+   pairs, the trace's size and write time printed; (p) "cli": synth_higgs rows as
    tab-separated text with the label first (2M train rows, the next
    500,000 of the same draw as valid), path (a)'s parameters with
    bagging 0.8 every iteration and feature_fraction 0.8: `python -m
@@ -961,6 +986,184 @@ int main(int argc, char** argv) {
     return sec
 
 
+def telemetry_path(ds, launches_all, card: str) -> dict:
+    """(q) "telemetry" on (a)'s Dataset ``ds`` (max_bin=63, the fused front
+    B1-B4), binary with (a)'s parameters: 6 iterations with telemetry,
+    metrics_out, xla_trace_out, snapshot_freq=2 and faults=tree_update@5
+    (killed at the top of iteration 6); resume_from_snapshot to 6 with
+    telemetry on; the same 6 with telemetry off and no fault. Gates: the
+    resumed model text equals the telemetry-off one (up to the parameters
+    echo); events.jsonl holds a train_iter for each iteration run (1-5,
+    then 5-6), snapshot_write at 2, 4 and 6, fault_injected at tree_update
+    and resume at 4; metrics.json counts 7 train_iterations and device 0's
+    peak_bytes_in_use covers the bins on the card; metrics.prom parses;
+    the Chrome trace names the CUDA kernels of B1-B4 by their source
+    names and has the boosting range of the 5 iterations traced; the
+    launch counts are the fused front's contract over the 13 trees
+    trained. Prints s/iteration with telemetry on (no trace) and off in 5
+    interleaved pairs of 6-iteration runs (per iteration, and the run's
+    wall with its set-up and export), the trace's size and write time.
+    Returns its seconds."""
+    import shutil
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch import obs
+    from lightgbm_tpu_torch.obs import tracing
+    from lightgbm_tpu_torch.obs.metrics import parse_prometheus
+    from lightgbm_tpu_torch.ops import hist_kernels as hk
+    from lightgbm_tpu_torch.utils import faults
+    from lightgbm_tpu_torch.utils.faults import FaultInjected
+    tag = "[telemetry (q), max_bin=63]"
+    root = os.path.join(OUT_DIR, "telemetry_q")
+    shutil.rmtree(root, ignore_errors=True)
+    mdir, tdir, sdir = (os.path.join(root, d) for d in ("metrics", "trace",
+                                                        "snaps"))
+    base = {"objective": "binary", "num_leaves": L, "max_bin": 63,
+            "learning_rate": 0.1, "min_data_in_leaf": 20, "verbosity": -1}
+    tele = {**base, "telemetry": True, "metrics_out": mdir,
+            "snapshot_freq": 2, "snapshot_dir": sdir}
+    sec = {}
+    obs.reset()
+    hk.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        lt.train({**tele, "xla_trace_out": tdir, "faults": "tree_update@5"},
+                 ds, num_boost_round=6)
+        fail(f"{tag} the run was not killed at iteration 6")
+    except FaultInjected:
+        pass
+    faults.reset()
+    torch.cuda.synchronize()
+    sec["killed_run"] = time.perf_counter() - t0
+    trace = dict(tracing.LAST_TRACE)
+    t0 = time.perf_counter()
+    resumed = lt.train(tele, ds, num_boost_round=6, resume_from_snapshot=sdir)
+    torch.cuda.synchronize()
+    sec["resumed_run"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    off = lt.train(base, ds, num_boost_round=6)
+    torch.cuda.synchronize()
+    sec["off_run"] = time.perf_counter() - t0
+    launches = dict(hk.LAUNCHES)
+
+    def text(b):
+        return b.model_to_string().split("\nparameters:\n")[0]
+    same = text(resumed) == text(off)
+    print(f"{tag} killed at 6 and resumed from 4 with telemetry: the model "
+          f"text equals the telemetry-off run's: {same}")
+    if not same or resumed.num_trees() != 6:
+        fail(f"{tag}: the resumed model text differs from the run without "
+             "telemetry")
+    # launches: the killed run trained trees 1-5 and the resumed one 5-6 of
+    # the same model (its text is the off run's, so are its level passes)
+    passes = off._gbdt.hist_passes
+    if len(passes) != 6 or resumed._gbdt.hist_passes != passes[4:]:
+        fail(f"{tag}: level passes {resumed._gbdt.hist_passes} against the "
+             f"off run's {passes}")
+    trees = 5 + 2 + 6
+    expected = {k: 0 for k in hk.KERNELS}
+    expected.update(grad_quant_hist0=trees, leaf_sums_grad=trees,
+                    take_small=trees,
+                    hist_routed_fused=sum(passes[:5]) + sum(passes[4:])
+                    + sum(passes))
+    print(f"{tag} launches {launches} expected {expected}")
+    if launches != expected:
+        fail(f"{tag}: launch counts {launches} != expected {expected}")
+    for k, v in launches.items():
+        launches_all[k] += v
+
+    with open(os.path.join(mdir, "events.jsonl")) as fh:
+        events = [json.loads(line) for line in fh]
+    with open(os.path.join(mdir, "metrics.json")) as fh:
+        metrics_ = json.load(fh)
+    with open(os.path.join(mdir, "metrics.prom")) as fh:
+        prom = parse_prometheus(fh.read())
+
+    def its(kind):
+        return [e.get("iteration") for e in events if e["type"] == kind]
+    faulted = [e["point"] for e in events if e["type"] == "fault_injected"]
+    print(f"{tag} events: {len(events)}, by type "
+          f"{metrics_['events_by_type']['series']}; train_iter "
+          f"{its('train_iter')}, snapshot_write {its('snapshot_write')}, "
+          f"resume {its('resume')}, fault_injected {faulted}")
+    if (its("train_iter") != [1, 2, 3, 4, 5, 5, 6]
+            or its("snapshot_write") != [2, 4, 6] or its("resume") != [4]
+            or faulted != ["tree_update"]):
+        fail(f"{tag}: the event stream is not the run's")
+    iters = metrics_["train_iterations"]["series"]["{}"]
+    peak = metrics_["device_memory_bytes"]["series"].get(
+        '{device="0",stat="peak_bytes_in_use"}', 0)
+    print(f"{tag} metrics.json: train_iterations {iters}, device 0 peak "
+          f"bytes in use {peak} (bins on the card {N * F}); metrics.prom: "
+          f"{sum(len(v) for v in prom.values())} samples parsed")
+    if iters != 7 or not peak >= N * F:
+        fail(f"{tag}: train_iterations {iters} != 7 or device memory "
+             f"{peak} below the bins' {N * F} bytes")
+
+    if not trace or not os.path.exists(trace.get("path", "")):
+        fail(f"{tag}: no Chrome trace was written into {tdir}")
+    with open(trace["path"]) as fh:
+        events_t = json.load(fh)["traceEvents"]
+    names = set()
+    for e in events_t:
+        if e.get("cat") == "kernel":
+            m_ = re.search(r"(\w+)\(", e.get("name", ""))
+            names.add(m_.group(1) if m_ else e.get("name"))
+    seen = {k: sorted(n for n in names if KERNEL_PARTS.get(n) == k)
+            for k in ("grad_quant_hist0", "hist_routed_fused",
+                      "leaf_sums_grad", "take_small")}
+    # record_function's range on the host timeline (the card's copy of it,
+    # gpu_user_annotation, is not counted)
+    boosting = sum(e.get("name") == "boosting"
+                   and e.get("cat") == "user_annotation" for e in events_t)
+    print(f"{tag} trace {trace['path']}: {trace['bytes']} bytes, written "
+          f"in {trace['seconds']:.3f} s, {len(events_t)} events; kernels "
+          f"{seen}; boosting ranges {boosting}")
+    if not all(seen.values()) or boosting != 5:
+        fail(f"{tag}: the trace lacks a kernel of B1-B4 ({seen}) or the "
+             f"boosting range of each traced iteration ({boosting})")
+
+    # telemetry's cost: 5 interleaved pairs of 6-iteration runs, each
+    # timed per iteration (the median of the 5 intervals between the ends
+    # of consecutive iterations, read by a callback after a synchronize:
+    # the iteration with its telemetry, without set-up and export) and as
+    # a whole (train's wall / 6, the Booster's set-up and the export of
+    # the three files included)
+    times = {(on, w): [] for on in (True, False) for w in ("iter", "run")}
+    for k in range(5):
+        for on in ((True, False) if k % 2 == 0 else (False, True)):
+            obs.reset()
+            p = {**base, "telemetry": on,
+                 "metrics_out": os.path.join(root, "pairs") if on else ""}
+            ends = []
+
+            def mark(env, ends=ends):
+                torch.cuda.synchronize()
+                ends.append(time.perf_counter())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lt.train(p, ds, num_boost_round=6, callbacks=[mark])
+            torch.cuda.synchronize()
+            times[on, "run"].append((time.perf_counter() - t0) / 6)
+            times[on, "iter"].append(statistics.median(
+                b - a for a, b in zip(ends, ends[1:])))
+    cost = {f"{'on' if on else 'off'}_{w}": dict(
+        median=statistics.median(v), min=min(v), max=max(v), runs=v)
+        for (on, w), v in times.items()}
+    print(f"{tag} s/iteration, telemetry on (no trace) and off, 5 "
+          f"interleaved pairs of 6-iteration runs (iter: the median "
+          f"interval between iteration ends; run: train's wall / 6 with "
+          f"set-up and export): {json.dumps(cost)}; on / off medians: "
+          f"iter {cost['on_iter']['median'] / cost['off_iter']['median']:.4f}"
+          f", run {cost['on_run']['median'] / cost['off_run']['median']:.4f}")
+    obs.reset()
+    obs.configure(enabled=False, metrics_out="")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"{tag} seconds by step: {json.dumps(sec)}; card: {card}")
+    return dict(seconds=sec, overhead=cost, trace_bytes=trace["bytes"],
+                trace_write_s=trace["seconds"])
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1064,7 +1267,11 @@ KERNEL_PARTS = {
                      "leaf_sums_global_kernel"), "leaf_sums"),
     **dict.fromkeys(("hist_f32_count_kernel", "hist_f32_scan_kernel",
                      "hist_f32_scatter_kernel", "hist_f32_kernel"),
-                    "hist_f32")}
+                    "hist_f32"),
+    **dict.fromkeys(("hist_routed_multi_count_kernel",
+                     "hist_routed_multi_scan_kernel",
+                     "hist_routed_multi_scatter_kernel",
+                     "hist_routed_multi_kernel"), "hist_routed_fused_multi")}
 
 
 def iteration_parts(booster, carved=None, reps=2):
@@ -1149,6 +1356,75 @@ def main() -> int:
             fail(f"{name_}: kernel != plain (max abs diff {diff.max()}, "
                  f"{int((diff > 0).sum())} elements)")
         return float(diff.max()) if diff.numel() else 0.0
+
+    def multi_variant(tag, bins_T_, bins_rm, chans, lid0, tabs, na, widths,
+                      nb, catbits=None):
+        """B2's multi-level replay hist_routed_fused_multi of the levels
+        ``tabs`` (each its own slot width) from the leaf ids ``lid0``:
+        exactly against its plain version and against the levels' D
+        sequential hist_routed_fused launches, timed (CUDA events) beside
+        those launches, its plain version and its bound (what the data
+        needs: each row's leaf id in and out, the split bin of each level
+        whose leaf splits, the F bins and channels of each row kept at some
+        level, the D bands, the tables). Returns (variant, hist, lid)."""
+        d_ = len(tabs)
+        catbits = list(catbits or [None] * d_)
+        f_, n_ = bins_T_.shape
+        nch = 2 if chans[1] is None else 3
+        args = (bins_T_, *chans, lid0, tabs, na, widths, nb)
+        kh, kl = hk.hist_routed_fused_multi(*args, bins=bins_rm,
+                                            catbits=catbits)
+        ph, pl_ = hk.hist_routed_fused_multi_plain(*args, catbits=catbits)
+        err = max(exact(f"{tag}.hist", kh, ph), exact(f"{tag}.lid", kl, pl_))
+        del ph, pl_
+
+        def sequential():
+            lid_, hs = lid0, []
+            for t, c, s_ in zip(tabs, catbits, widths):
+                h_, lid_ = hk.hist_routed_fused(bins_T_, *chans, lid_, t, na,
+                                                s_, nb, bins=bins_rm,
+                                                catbits=c)
+                hs.append(h_)
+            return hs, lid_
+        hs, ls = sequential()
+        for dd, h_ in enumerate(hs):
+            if not torch.equal(kh[dd, :widths[dd]], h_) or bool(
+                    kh[dd, widths[dd]:].any()):
+                fail(f"{tag}: level {dd} differs from its hist_routed_fused "
+                     "launch")
+        if not torch.equal(kl, ls):
+            fail(f"{tag}: final leaf ids differ from the sequential launches")
+        del hs, ls
+        lid_, routed, kept, kept_any = lid0, [], [], None
+        for t, c, s_ in zip(tabs, catbits, widths):
+            l_ = t.shape[1]
+            lc = lid_.long()
+            ok = (lc >= 0) & (lc < l_)
+            feat = t[0].long()[lc.clamp(0, l_ - 1)]
+            routed.append(int((ok & (feat >= 0) & (feat < f_)).sum()))
+            slot, lid_, _ = hk.route_plain(bins_T_, lid_, t, na, s_, c)
+            keep = (slot >= 0) & (slot < s_)
+            kept.append(int(keep.sum()))
+            kept_any = keep if kept_any is None else kept_any | keep
+        n_kept = int(kept_any.sum())
+        tab_bytes = sum(t.numel() * 4 for t in tabs) + sum(
+            c.numel() * 4 for c in catbits if c is not None)
+        bms, by = bound(8 * n_ + sum(routed) + n_kept * (f_ + nch)
+                        + d_ * max(widths) * nch * f_ * nb * 4 + tab_bytes
+                        + f_ * 4, sum(kept) * f_ * nch + 10 * n_ * d_)
+        return dict(
+            variant=tag, F=f_, B=nb, D=d_, widths=list(widths), nch=nch,
+            categorical_levels=sum(c is not None for c in catbits),
+            routed_by_level=routed, kept_by_level=kept,
+            kept_at_some_level=n_kept, max_abs_err=err,
+            ms=time_ms(lambda: hk.hist_routed_fused_multi(
+                *args, bins=bins_rm, catbits=catbits)),
+            sequential_ms=time_ms(sequential),
+            plain_ms=time_ms(lambda: hk.hist_routed_fused_multi_plain(
+                *args, catbits=catbits), reps=3),
+            bound_ms=bms, bound_by=by), kh, kl
+
+    multi_variants = []
 
     # ---- 3. kernels against their plain versions ----
     g = torch.Generator(device=dev).manual_seed(0)
@@ -1453,7 +1729,7 @@ def main() -> int:
                              dtype=torch.int64).to(torch.int8),
                (torch.rand(N, generator=gen_cat, device=dev) < 0.9).to(
                    torch.int8))
-    cat_b2, cat_b6 = [], []
+    cat_b2, cat_b6, cat_levels = [], [], []
     for s in (1, 32, 127):
         lid = torch.randint(0, min(L, 2 * s), (N,), generator=gen_cat,
                             device=dev, dtype=torch.int64).to(torch.int32)
@@ -1482,6 +1758,7 @@ def main() -> int:
         member[:, 0] = False
         bits = hk.member_bitset(member)
         words = bits.shape[1]
+        cat_levels.append((tab, bits, s))
         routed = int((lid < s).sum())
         kept = int(hk.route_plain(bins_c, lid, tab, na_c, s, bits)[0].lt(s)
                    .sum())
@@ -1536,7 +1813,18 @@ def main() -> int:
                                          for v in kernels[nm]["variants"])
     print(f"hist_routed_fused with categorical membership: exact; {cat_b2}")
     print(f"route_level with categorical membership: exact; {cat_b6}")
-    del bins_c, rowmajor_c, chans_c, lid, tab, member, bits
+    # B2's multi-level replay at the same shape: the three levels above
+    # (S = 1, 32 and 127, each its own width; numerical and categorical
+    # leaves, each level its bitset) in one call from the first level's
+    # leaf ids (every row in leaf 0)
+    v, _, _ = multi_variant(
+        f"categorical_replay, F={fc}, B={BW}", bins_c, rowmajor_c, chans_c,
+        torch.zeros(N, dtype=torch.int32, device=dev),
+        [t for t, _, _ in cat_levels], na_c, [s_ for _, _, s_ in cat_levels],
+        BW, [b_ for _, b_, _ in cat_levels])
+    multi_variants.append(v)
+    print(f"hist_routed_fused_multi with categorical membership: exact; {v}")
+    del bins_c, rowmajor_c, chans_c, lid, tab, member, bits, cat_levels
 
     # B5 hist_q8 and B8 hist_f32 over shared slot vectors at B = 256: the
     # root (S = 1, no slot vector), the slots route_level gave at S = 32
@@ -2134,11 +2422,115 @@ def main() -> int:
         print(f"{tag} one iteration by part (torch.profiler): "
               f"{json.dumps(iteration_parts(bst, reps=1))}")
 
+    def multi_level_path() -> None:
+        """B2's multi-level replay (hist_routed_fused_multi) on path (a)'s
+        data: the route tables of the first three level passes of one tree
+        of (a)'s binary model (3 channels) and of its L2 model (2, the
+        const-hessian front), recorded from the live hist_routed_fused
+        calls of one update with their own slot widths, replayed in one
+        launch from the root's leaf ids: each band equals its live pass,
+        the final leaf ids the third pass's, and everything the plain
+        version (multi_variant). Then the path that runs it,
+        scripts/torch_profile_level.py's shallow megapass at (a)'s width on
+        its bins: levels 1..5 of one tree in two launches (grad_quant_hist0
+        and hist_routed_fused_multi), its launch counts zeroed just before
+        and read just after them, bit-identical to five sequential level
+        passes."""
+        sys.path.insert(0, os.path.join(HERE, "scripts"))
+        import torch_profile_level as tpl
+        ds, ds_reg = dataset(63)
+        orig_routed, orig_front = hk.hist_routed_fused, hk.grad_quant_hist0
+        for nm, d_, obj in (("binary", ds, "binary"),
+                            ("l2", ds_reg, "regression")):
+            live, front = [], []
+
+            def routed(bins_T_, gq, hq, cq, leaf_id, tables, na_bin,
+                       num_slots, num_bins, bins=None, catbits=None):
+                out = orig_routed(bins_T_, gq, hq, cq, leaf_id, tables,
+                                  na_bin, num_slots, num_bins, bins, catbits)
+                if len(live) < 3:
+                    live.append((leaf_id.clone(), tables.clone(), num_slots,
+                                 num_bins, catbits, out))
+                return out
+
+            def recorded_front(*a, **kw):
+                out = orig_front(*a, **kw)
+                front.append(out)
+                return out
+            hk.hist_routed_fused, hk.grad_quant_hist0 = routed, recorded_front
+            try:
+                lt.Booster(params={"objective": obj, "num_leaves": L,
+                                   "max_bin": 63, "learning_rate": 0.1,
+                                   "min_data_in_leaf": 20, "verbosity": -1},
+                           train_set=d_).update()
+                torch.cuda.synchronize()
+            finally:
+                hk.hist_routed_fused = orig_routed
+                hk.grad_quant_hist0 = orig_front
+            if len(live) < 3 or len(front) != 1 or bool(live[0][0].any()) \
+                    or any(c is not None for *_, c, _ in live):
+                fail(f"multi-level replay [{nm}]: the first tree did not "
+                     "take three numerical fused level passes from the root")
+            widths = [s_ for _, _, s_, _, _, _ in live]
+            nb = live[0][3]
+            tag = f"replay of (a)'s {nm} tree, levels 1-3"
+            v, kh, kl = multi_variant(
+                tag, d_.bins_T, d_.bins, front[0][:3], live[0][0],
+                [t for _, t, _, _, _, _ in live], d_.na_bin_dev, widths, nb)
+            for dd, (*_, (h_, l_)) in enumerate(live):
+                if not torch.equal(kh[dd, :widths[dd]], h_):
+                    fail(f"{tag}: level {dd + 1} differs from the live pass")
+            if not torch.equal(kl, live[2][5][1]):
+                fail(f"{tag}: final leaf ids differ from the live passes")
+            if nm == "binary":
+                split = device_split(lambda: hk.hist_routed_fused_multi(
+                    d_.bins_T, *front[0][:3], live[0][0],
+                    [t for _, t, _, _, _, _ in live], d_.na_bin_dev, widths,
+                    nb, bins=d_.bins))
+                v["device_ms_by_kernel"] = split
+                v["device_ms"] = (None if split is None
+                                  else sum(split.values()))
+            # the replays first, then phase 3's categorical one
+            multi_variants.insert(0 if nm == "binary" else 1, v)
+            print(f"[{tag}] equal to the live passes and the plain version "
+                  f"bit for bit; {json.dumps(v)}")
+            del live, front, kh, kl
+
+        case = tpl.megapass_case(N, F, padded_bins(ds.max_num_bins), L, dev,
+                                 bins=ds.bins)
+        sh = tpl.shallow_megapass(case)
+        own = {"grad_quant_hist0": 1, "hist_routed_fused_multi": 1}
+        print(f"[shallow megapass (scripts/torch_profile_level.py), levels "
+              f"{sh['levels']}, S = {sh['slot_width']}] {json.dumps(sh)}")
+        if sh["launches_by_wrapper"] != own or \
+                not sh["bit_identical_vs_sequential"]:
+            fail(f"shallow megapass: launches {sh['launches_by_wrapper']} != "
+                 f"{own} or not bit-identical to the sequential passes")
+        for k, v_ in own.items():
+            launches_all[k] += v_
+        del case
+        main_v = multi_variants[0]
+        kernels["hist_routed_fused_multi"] = dict(
+            route="cuda",
+            source="lightgbm_tpu_torch/csrc/hist_routed_fused_multi.cu",
+            replaces="lightgbm_tpu/ops/pallas_hist.py:574",
+            max_abs_err=max(v["max_abs_err"] for v in multi_variants),
+            ms=main_v["ms"], device_ms=main_v["device_ms"],
+            sequential_ms=main_v["sequential_ms"],
+            plain_ms=main_v["plain_ms"], bound_ms=main_v["bound_ms"],
+            bound_by=main_v["bound_by"], library_ms=None,
+            variants=multi_variants, shallow_megapass=sh)
+        torch.cuda.empty_cache()
+
     path_auc, path_trees = {}, {}
     for path in PATHS:
         main_path(path)
     pooled_path()
-    print(f"elapsed after paths (a)-(d), (n''): "
+    t0 = time.perf_counter()
+    multi_level_path()
+    print(f"the multi-level replay and the shallow megapass: "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(f"elapsed after paths (a)-(d), (n''), the multi-level replay: "
           f"{time.perf_counter() - t_start:.1f} s")
 
     # ---- 4b. (e) sampled and (f) GOSS, through the public entry points ----
@@ -3313,7 +3705,11 @@ def main() -> int:
     boosters_path()
     constrained_path()
     api_path()
-    print(f"elapsed after paths (m), (o): "
+    t0 = time.perf_counter()
+    slice_ms["telemetry"] = telemetry_path(dataset(63)[0], launches_all,
+                                           card)
+    print(f"path (q) telemetry: {time.perf_counter() - t0:.1f} s")
+    print(f"elapsed after paths (m), (o), (q): "
           f"{time.perf_counter() - t_start:.1f} s")
     del datasets, Xv, yv, yv_reg
     categorical_path()

@@ -15,7 +15,9 @@ Tasks: ``train`` (through ``engine.train``, so ``snapshot_freq`` and
 results to ``output_result``), ``refit`` and ``convert_model`` (C++ to
 ``convert_model``). ``serve`` and ``online`` are not ported yet (ROADMAP.md
 A18, A19). Training and prediction run on the GPU unless
-``device_type=cpu`` is given.
+``device_type=cpu`` is given. The telemetry knobs (``telemetry``,
+``metrics_out``, ``xla_trace_out``) apply to every task: ``train`` exports
+through ``engine.train``, ``predict`` and ``refit`` when they finish.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from typing import Dict, List
 
 import numpy as np
 
-from . import log
+from . import log, obs
 from .basic import Booster, Dataset
 from .config import Config, canonical_name
 from .engine import train as engine_train
@@ -168,6 +170,7 @@ def run_predict(conf: Config, params: Dict) -> None:
     fmt = "%d" if conf.predict_leaf_index else "%.18g"
     np.savetxt(conf.output_result, out, fmt=fmt, delimiter="\t")
     log.info(f"Finished prediction; results saved to {conf.output_result}")
+    _export_telemetry(conf)
 
 
 def run_refit(conf: Config, params: Dict) -> None:
@@ -184,6 +187,15 @@ def run_refit(conf: Config, params: Dict) -> None:
     new_b = booster.refit(X, pf.label, weight=pf.weight, group=pf.group)
     new_b.save_model(conf.output_model)
     log.info(f"Finished refit; model saved to {conf.output_model}")
+    _export_telemetry(conf)
+
+
+def _export_telemetry(conf: Config) -> None:
+    """Write the telemetry files of a task that does not train
+    (reference: app.py:195); engine.train exports a training run's."""
+    out = obs.export_all(conf.metrics_out)
+    if out:
+        log.info(f"telemetry exported to {out}")
 
 
 def run_convert_model(conf: Config, params: Dict) -> None:
@@ -222,6 +234,9 @@ def main(argv: List[str], log_to_stderr: bool = False) -> int:
     conf = Config(params)
     if log_to_stderr:
         _configure_logging(conf)
+    # the telemetry knobs apply to every task (train applies them again a
+    # run; predict and refit see only this one)
+    obs.configure_from_config(conf)
     task = conf.task
     if task == "train":
         run_train(conf, params)

@@ -35,8 +35,9 @@ import torch
 from .binning import (BIN_CATEGORICAL, BinMapper, bin_data, bin_data_sparse,
                       bin_sparse_column, find_bin_mappers,
                       find_bin_mappers_sparse, used_features)
-from . import efb
-from .config import Config, boosting_kind, check_slice, params_to_config
+from . import efb, obs
+from .config import (Config, boosting_kind, canonical_name, check_slice,
+                     params_to_config)
 from .io import model_text
 from .log import LightGBMError, warning
 from .metrics import create_metrics, default_metric_for_objective
@@ -49,6 +50,7 @@ from .objectives import create_objective
 from .ops import predict as P
 from .ops.split import SplitParams, leaf_output
 from .utils import atomic_io
+from .utils.timer import TIMER
 
 _NO_NA_BIN = 256   # na_bin value that never matches a uint8 bin
 
@@ -256,9 +258,14 @@ class Dataset:
         """Bin the rows on the device (reference: _construct_inner,
         basic.py:187-292): the train set finds its mappers (from a
         sample's stored values for sparse input) and its EFB plan; a valid
-        set takes its reference's mappers, plan and pandas categories."""
+        set takes its reference's mappers, plan and pandas categories.
+        Timed as the ``dataset_construct`` phase (basic.py:186)."""
         if self._constructed:
             return self
+        with TIMER.scope("dataset_construct"):
+            return self._construct_inner()
+
+    def _construct_inner(self) -> "Dataset":
         conf = params_to_config(self.params)
         check_slice(conf)
         self.device = resolve_device(conf)
@@ -712,6 +719,13 @@ class Booster:
                  model_str: Optional[str] = None):
         self.params = dict(params or {})
         self.config = params_to_config(self.params)
+        # telemetry knobs given to a Booster (predict-only workflows never
+        # reach engine.train): only an explicit param reconfigures, so that
+        # a Booster of defaults does not switch off what another entry
+        # point enabled (basic.py:1039-1046)
+        if any(canonical_name(str(k)) in ("telemetry", "metrics_out")
+               for k in self.params):
+            obs.configure_from_config(self.config)
         self._gbdt: Optional[GBDT] = None
         self.trees: List[Tree] = []
         self._loaded_meta: Dict[str, Any] = {}

@@ -52,10 +52,9 @@ def resume_state_from_reference(arrays: Mapping[str, np.ndarray],
     train score, the f64 init scores, the threefry bag key as two uint32
     words, the bag mask, each RandomState's MT19937 state, the stacked
     tree arrays ``trees_<field>`` with ``num_leaves`` one a tree, DART's
-    tree weights), so those pass as they are, in the port's dtypes. The
-    reference's CEGB state also carries its penalty vectors, which the
-    port derives from the config, and a [1, 1] placeholder for an absent
-    lazy bitset: both are dropped."""
+    tree weights, the four CEGB fields with the [1, 1] placeholder of an
+    absent lazy bitset), so those pass as they are, in the port's
+    dtypes."""
     out: Dict[str, np.ndarray] = {}
     dtypes = {"split_feature": np.int32, "threshold_bin": np.int32,
               "left_child": np.int32, "right_child": np.int32,
@@ -70,9 +69,7 @@ def resume_state_from_reference(arrays: Mapping[str, np.ndarray],
         elif key == "bag_key":
             val = val.astype(np.uint32)
         elif key.startswith("cegb_"):
-            if key not in ("cegb_feature_used", "cegb_data_used") or (
-                    key == "cegb_data_used" and val.shape == (1, 1)):
-                continue
-            val = val.astype(np.bool_)
+            val = val.astype(np.float32 if key.endswith("_pen")
+                             else np.bool_)
         out[key] = val
     return out, dict(meta)

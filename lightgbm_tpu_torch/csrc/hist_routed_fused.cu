@@ -2,9 +2,11 @@
 // level's slot histogram from the int8 quantized channels.
 //
 // Replaces the TPU kernel lightgbm_tpu/ops/pallas_hist.py
-// hist_routed_fused_q8 (:676) -> hist_routed_fused_multi_q8 (:574), kernel
-// body _kernel_q8_fused (:454), for the live single-level pass (D = 1),
-// numerical and categorical splits (the has_cat branch, :533-543).
+// hist_routed_fused_multi_q8 (:574), kernel body _kernel_q8_fused (:454),
+// in two entries: this one, the live single-level pass (D = 1,
+// hist_routed_fused_q8 :676), and hist_routed_fused_multi.cu, the replay of
+// D > 1 known levels in one call; numerical and categorical splits (the
+// has_cat branch, :533-543).
 //
 // Bound on the H100: bytes. Every row reads its leaf id (4 B) and, when its
 // leaf splits, the bin of the split feature (1 B), and writes its new leaf

@@ -26,19 +26,30 @@ retries warns and training goes on, :237-270), ``resume_from_snapshot``
 continues from the newest valid one (:92-170), the ``tree_update`` fault
 point sits at the top of each iteration (:185-187), and each evaluation
 result passes the non-finite guard (``_check_eval_finite``, :296-318).
-Telemetry (ROADMAP.md A20) is not ported.
+Telemetry (``obs/``) is wired as the reference wires it: the config's
+knobs and a fresh ``TIMER`` namespace at the start (:62-66), the
+``resume`` event (:113), the ``xla_trace_out`` capture and the periodic
+flush around the loop (:173-181, :276-279), the ``boosting`` and ``eval``
+scopes, a ``train_iter`` event with the ``train_iterations`` counter, the
+``train_iter_seconds`` histogram and the device-memory gauges each
+iteration (:193-230), and the ``phase_seconds`` gauges and ``export_all``
+at the end (:283-291).
 """
 from __future__ import annotations
 
 import math
+import time
 from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 
 from . import callback as cb
 from . import log
+from . import obs
 from . import snapshot as snap
+from .obs import tracing
 from .utils import faults
+from .utils.timer import TIMER
 from .basic import Booster, Dataset
 from .config import canonical_name, objective_kind, params_to_config
 
@@ -76,6 +87,10 @@ def train(params: Dict[str, Any], train_set: Dataset,
     another configuration, it warns and trains from scratch."""
     params = dict(params or {})
     conf = params_to_config(params)
+    obs.configure_from_config(conf)
+    # a fresh timing namespace a run (the previous run's table stays in
+    # TIMER.last_run)
+    TIMER.begin_run()
     if conf.faults:
         faults.configure(conf.faults)
     if any(canonical_name(str(k)) == "num_iterations" for k in params):
@@ -114,6 +129,10 @@ def train(params: Dict[str, Any], train_set: Dataset,
                 resumed = True
                 log.info(f"resumed from {payload.model_path} "
                          f"(iteration {payload.iteration})")
+                obs.emit("resume", iteration=int(payload.iteration),
+                         path=payload.model_path, source="snapshot",
+                         num_shards=1, snapshot_shards=int(
+                             payload.meta.get("num_shards", 1) or 1))
             except ValueError as e:
                 log.warning(f"cannot resume from {payload.model_path}: {e}; "
                             "training from scratch")
@@ -166,8 +185,15 @@ def train(params: Dict[str, Any], train_set: Dataset,
         end_iteration = begin_iteration + num_boost_round
     snapshot_dir = snap.snapshot_dir_for(conf)
     nf_eval_warned: set = set()
+    tele = obs.enabled()
+    tracing.maybe_start_xla_trace(conf.xla_trace_out)
+    # metrics_flush_secs > 0: live re-export during the loop; the ownership
+    # token keeps a nested train from stopping an outer run's flusher
+    flush_owner = obs.start_periodic_flush(conf.metrics_flush_secs)
     try:
         for i in range(begin_iteration, end_iteration):
+            if tele:
+                t_iter0 = time.perf_counter()
             # the kill-and-resume crash: an armed tree_update fault leaves
             # train() like a crash at iteration i
             faults.fault_point("tree_update")
@@ -176,14 +202,17 @@ def train(params: Dict[str, Any], train_set: Dataset,
                                  begin_iteration=begin_iteration,
                                  end_iteration=end_iteration,
                                  evaluation_result_list=None))
-            finished = booster.update(fobj=fobj)
+            with TIMER.scope("boosting"):
+                finished = booster.update(fobj=fobj)
             results = []
             if booster._gbdt.valid_sets or eval_training:
-                if eval_training:
-                    results.extend(booster.eval_train())
-                results.extend(booster.eval_valid())
-                if feval is not None:
-                    results.extend(_run_feval(feval, booster, eval_training))
+                with TIMER.scope("eval"):
+                    if eval_training:
+                        results.extend(booster.eval_train())
+                    results.extend(booster.eval_valid())
+                    if feval is not None:
+                        results.extend(_run_feval(feval, booster,
+                                                  eval_training))
                 _check_eval_finite(results, conf.nonfinite_policy,
                                    nf_eval_warned, i)
             for c in after:
@@ -191,6 +220,9 @@ def train(params: Dict[str, Any], train_set: Dataset,
                                  begin_iteration=begin_iteration,
                                  end_iteration=end_iteration,
                                  evaluation_result_list=results))
+            if tele:
+                _iteration_telemetry(booster, train_set, i,
+                                     time.perf_counter() - t_iter0)
             if conf.snapshot_freq > 0 and (i + 1) % conf.snapshot_freq == 0:
                 _write_snapshot(booster, callbacks, snapshot_dir, i + 1,
                                 conf.snapshot_keep)
@@ -202,7 +234,38 @@ def train(params: Dict[str, Any], train_set: Dataset,
         booster.best_iteration = e.best_iteration + 1
         for item in (e.best_score or []):
             booster.best_score.setdefault(item[0], {})[item[1]] = item[2]
+    finally:
+        # the capture brackets the boosting loop and survives fatal exits
+        tracing.stop_xla_trace()
+        obs.stop_periodic_flush(flush_owner)
+    if conf.verbosity >= 2:
+        log.debug(TIMER.summary_string())
+    if tele:
+        for name, rec in TIMER.snapshot().items():
+            obs.METRICS.gauge("phase_seconds", "TIMER phase wall time",
+                              phase=name).set(rec["seconds"])
+        out = obs.export_all(conf.metrics_out)
+        if out:
+            log.info(f"telemetry exported to {out}")
     return booster
+
+
+def _iteration_telemetry(booster: Booster, train_set: Dataset, i: int,
+                         seconds: float) -> None:
+    """Iteration i's telemetry (reference: engine.py:213-230): the
+    train_iter event with its wall clock, rows a second and the last
+    trees' stats, the train_iterations counter, the train_iter_seconds
+    histogram and the device-memory gauges."""
+    fields = {"iteration": i + 1, "duration_s": seconds,
+              "rows_per_s": train_set.num_data / seconds if seconds > 0
+              else 0.0}
+    fields.update(booster._gbdt.obs_lagged_stats() or {})
+    obs.emit("train_iter", **fields)
+    obs.METRICS.counter("train_iterations",
+                        "boosting iterations completed").inc()
+    obs.METRICS.histogram("train_iter_seconds",
+                          "iteration wall time").observe(seconds)
+    obs.memory.update_gauges(obs.METRICS)
 
 
 def _write_snapshot(booster: Booster, callbacks, directory: str,

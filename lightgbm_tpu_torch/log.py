@@ -23,6 +23,10 @@ def info(msg: str, *args) -> None:
     _LOG.info(msg, *args)
 
 
+def debug(msg: str, *args) -> None:
+    _LOG.debug(msg, *args)
+
+
 def fatal(msg: str, *args) -> None:
     """Log ``msg`` as an error and raise it as a ``LightGBMError``."""
     text = msg % args if args else msg

@@ -52,7 +52,11 @@ through one device flag, read once an iteration (:965-1005, :1297-1320,
 trees and their score, ``clip`` caps the score and the iteration's trees
 at +-``_NF_CLIP`` and warns once. ``get_resume_state`` /
 ``set_resume_state`` carry the trainer's exact state through a snapshot
-sidecar (:1747-1917), under the reference's npz key names.
+sidecar (:1747-1917), under the reference's npz key names, the CEGB
+bookkeeping included. Accepted parameters that the port reads nowhere warn
+(``warn_unconsumed``, :444-474). With telemetry on, the guard's trips, the
+packed lattice's fallback (:763) and the train_iter event's tree stats
+(``obs_lagged_stats``, :1277-1298) reach ``obs``.
 """
 from __future__ import annotations
 
@@ -63,6 +67,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..binning import BIN_CATEGORICAL
 from ..config import Config
 from ..log import LightGBMError, fatal, info, warning
@@ -71,7 +76,7 @@ from ..ops.gather import take_small
 from ..ops.grow import ForcedSplits, GrowParams, TreeArrays, grow_tree
 from ..ops.grow_depthwise import (CEGBState, grow_tree_depthwise,
                                   grow_tree_depthwise_lean)
-from ..ops.histogram import ACC_ROWS_MAX
+from ..ops.histogram import ACC_ROWS_MAX, pack_guard_bits
 from ..ops.predict import bin_tree, route_bins
 from ..ops.split import BundleArrays, SplitParams
 from .tree import Tree
@@ -93,6 +98,45 @@ def _sanitize(a: torch.Tensor) -> torch.Tensor:
 def _sanitize_np(a: np.ndarray) -> np.ndarray:
     return np.clip(np.nan_to_num(a, nan=0.0, posinf=_NF_CLIP,
                                  neginf=-_NF_CLIP), -_NF_CLIP, _NF_CLIP)
+
+
+# accepted parameters that the port reads nowhere, with their defaults and
+# why each has no effect on the H100 (reference: _warn_unconsumed,
+# gbdt.py:444-474); device_type is the port's own device choice
+# (config.py), not one of them
+UNCONSUMED = (
+    ("pred_early_stop", False,
+     "Booster.predict walks every tree for all rows at once on the card "
+     "(ops/predict.py); stopping a row early saves no time there"),
+    ("pred_early_stop_freq", 10, "see pred_early_stop"),
+    ("pred_early_stop_margin", 10.0, "see pred_early_stop"),
+    ("force_col_wise", False,
+     "the histogram kernels have one layout: each level's kept rows are "
+     "grouped by slot and summed into a block's shared-memory table "
+     "(csrc/slot_hist.cuh)"),
+    ("force_row_wise", False, "see force_col_wise"),
+    ("is_enable_sparse", True,
+     "bins are a dense uint8 matrix on the card; EFB bundles compress "
+     "sparse columns"),
+    ("gpu_platform_id", -1,
+     "no OpenCL platform: the port runs on torch's current CUDA device"),
+    ("gpu_device_id", -1, "see gpu_platform_id"),
+    ("gpu_use_dp", False,
+     "the leaf sums (leaf_sums_grad, leaf_sums) already sum in f64, the "
+     "unquantized histogram (hist_f32) sums in f32 and the quantized ones "
+     "in int32"),
+    ("hist_dtype", "float32",
+     "histograms sum in int32 (quantized) or f32 (hist_f32); no other "
+     "dtype is implemented"),
+)
+
+
+def warn_unconsumed(config: Config) -> None:
+    """Warn, never silently ignore, for each UNCONSUMED parameter set away
+    from its default."""
+    for name, default, why in UNCONSUMED:
+        if getattr(config, name, default) != default:
+            warning(f"{name} is ignored: {why}")
 
 
 def padded_bins(max_num_bins: int) -> int:
@@ -147,6 +191,8 @@ class GBDT:
         # non-finite guard: fatal | warn_skip_tree | clip
         self._nf_policy = config.nonfinite_policy
         self._nf_warned = False
+        self._pack_checked = False
+        self._obs_trees = None
         self.learning_rate = float(config.learning_rate)
         self.device = train_set.device
         n = train_set.num_data
@@ -258,6 +304,7 @@ class GBDT:
                 coupled_pen=vec(cegb_coupled), lazy_pen=vec(cegb_lazy),
                 lazy_cols=(None if cegb_lazy is None else torch.as_tensor(
                     np.flatnonzero(cegb_lazy), device=self.device)))
+        warn_unconsumed(config)
         self._score_shape = (n,) if k == 1 else (n, k)
         self.train_score = torch.zeros(self._score_shape, dtype=torch.float32,
                                        device=self.device)
@@ -591,6 +638,8 @@ class GBDT:
                                 "trains on the gradients of fobj")
         ts = self.train_set
         gp = self.gp if grad is None else self.gp_custom
+        if grad is None and not self._pack_checked:
+            self._check_pack_budget()
         # warn_skip_tree discards a non-finite iteration whole: what the
         # iteration mutates is kept aside until its flag is read
         saved = (self._iteration_state()
@@ -649,18 +698,59 @@ class GBDT:
                 warning(f"non-finite scores at iteration {self.iter_}; "
                         "discarding this iteration's tree(s) "
                         "(nonfinite_policy=warn_skip_tree)")
+                obs.emit("nonfinite_guard", where="train_score",
+                         policy=self._nf_policy, iteration=int(self.iter_),
+                         action="skip_tree")
                 self._restore_iteration_state(saved)
                 self.iter_ += 1
                 return False
             self._nonfinite_scores(self.iter_)
         self.iter_ += 1
+        # the iteration's trees for the train_iter event's stats
+        self._obs_trees = (self.iter_, self.models_dev[-k:])
         return self._end_iteration(not any_split)
+
+    def _check_pack_budget(self) -> None:
+        """The reference's packed g/h lattice (hist_packed, resolved once
+        a booster at its first step, gbdt.py:745-766): the port's kernels
+        always sum separate channels, which unpacking gives bit for bit,
+        but where the reference would fall back because the guard-bit
+        budget does not fit the row count, the port records the same
+        hist_pack_fallback event."""
+        self._pack_checked = True
+        mode = str(self.config.hist_packed).lower()
+        if mode in ("false", "0") or not self.gp.quant:
+            return
+        n_rows = int(self.train_set.num_data)
+        if pack_guard_bits(n_rows, self.gp.const_hess) == 0:
+            obs.emit("hist_pack_fallback", n_rows=n_rows,
+                     reason="guard_budget", requested=mode,
+                     const_hess=bool(self.gp.const_hess))
+
+    def obs_lagged_stats(self) -> Optional[Dict]:
+        """{lagged_iteration, leaf_count, best_gain} of the newest
+        iteration that kept its trees, for the train_iter event
+        (reference: obs_lagged_stats, gbdt.py:1277-1298, whose stats lag 8
+        iterations behind its asynchronous queue; the port's level loop
+        syncs every level, so they describe the iteration just run unless
+        it was skipped). None before the first such iteration or with
+        telemetry off; reads the trees' split gains from the device."""
+        if not obs.enabled() or self._obs_trees is None:
+            return None
+        it_no, trees = self._obs_trees
+        best = 0.0
+        for t in trees:
+            if t.num_leaves > 1:
+                best = max(best, float(t.split_gain[:t.num_leaves - 1].max()))
+        return {"lagged_iteration": int(it_no),
+                "leaf_count": int(sum(t.num_leaves for t in trees)),
+                "best_gain": best}
 
     def _iteration_state(self):
         """What one iteration mutates: the scores (copied, since a K-class
         score updates in place), the tree count and the CEGB bookkeeping."""
-        cegb = None if self.cegb is None else self.cegb._replace(
-            feature_used=self.cegb.feature_used.clone(),
+        cegb = None if self.cegb is None else dataclasses.replace(
+            self.cegb, feature_used=self.cegb.feature_used.clone(),
             data_used=(None if self.cegb.data_used is None
                        else self.cegb.data_used.clone()))
         return (self.train_score.clone(), [v.clone() for v in
@@ -679,6 +769,8 @@ class GBDT:
         """Iteration ``it_no`` left a non-finite train score (reference:
         _check_nf_flag, gbdt.py:1432-1450): fatal raises, clip warns
         once."""
+        obs.emit("nonfinite_guard", where="train_score",
+                 policy=self._nf_policy, iteration=int(it_no))
         if self._nf_policy != "fatal":
             if not self._nf_warned:
                 self._nf_warned = True
@@ -696,6 +788,8 @@ class GBDT:
         gbdt.py:1705-1735); returns (grad, hess, skip)."""
         if bool(np.isfinite(grad).all() and np.isfinite(hess).all()):
             return grad, hess, False
+        obs.emit("nonfinite_guard", where="custom_gradients",
+                 policy=self._nf_policy, iteration=int(self.iter_))
         if self._nf_policy == "clip":
             if not self._nf_warned:
                 self._nf_warned = True
@@ -919,10 +1013,15 @@ class GBDT:
                     else torch.stack([getattr(t, f) for t in
                                       self.models_dev]).cpu().numpy())
         if self.cegb is not None:
-            arrays["cegb_feature_used"] = \
-                self.cegb.feature_used.cpu().numpy()
-            if self.cegb.data_used is not None:
-                arrays["cegb_data_used"] = self.cegb.data_used.cpu().numpy()
+            # the reference's four CEGBState fields, its [1, 1] placeholder
+            # for an absent lazy bitset included (gbdt.py:1822-1828)
+            du = self.cegb.data_used
+            for f, t in (("feature_used", self.cegb.feature_used),
+                         ("data_used", du),
+                         ("coupled_pen", self.cegb.coupled_pen),
+                         ("lazy_pen", self.cegb.lazy_pen)):
+                arrays[f"cegb_{f}"] = (np.zeros((1, 1), dtype=bool)
+                                       if t is None else t.cpu().numpy())
         self._extra_resume_state(arrays, meta)
         return arrays, meta
 
@@ -944,6 +1043,7 @@ class GBDT:
             raise ValueError(
                 f"snapshot score shape {arrays['train_score'].shape} != "
                 f"trainer score shape {tuple(self.train_score.shape)}")
+        cegb = self._resumed_cegb(arrays)
         dev = self.device
         self.iter_ = int(meta["iter"])
         self.learning_rate = float(meta["learning_rate"])
@@ -970,15 +1070,37 @@ class GBDT:
                     else torch.as_tensor(arrays[f"trees_{f}"][t],
                                          device=dev))
                 for f in TreeArrays._fields}))
-        if self.cegb is not None and "cegb_feature_used" in arrays:
-            self.cegb = self.cegb._replace(
-                feature_used=torch.as_tensor(arrays["cegb_feature_used"],
-                                             device=dev),
-                data_used=(torch.as_tensor(arrays["cegb_data_used"],
-                                           device=dev)
-                           if "cegb_data_used" in arrays
-                           else self.cegb.data_used))
+        self.cegb = cegb
         self._apply_extra_resume_state(arrays, meta)
+
+    def _resumed_cegb(self, arrays: Dict[str, np.ndarray]
+                      ) -> Optional[CEGBState]:
+        """The CEGB bookkeeping of a sidecar (the reference's cegb_* keys):
+        which columns were split on and which (row, column) pairs paid the
+        lazy penalty, over this trainer's own penalty vectors and lazy
+        columns, which its config gives. Raises ValueError when the
+        sidecar's penalties or bitset shape are another run's."""
+        c = self.cegb
+        if c is None or "cegb_feature_used" not in arrays:
+            return c
+        for f in ("coupled_pen", "lazy_pen"):
+            key = f"cegb_{f}"
+            if key in arrays and not np.array_equal(
+                    np.asarray(arrays[key], np.float32),
+                    getattr(c, f).cpu().numpy()):
+                raise ValueError(f"snapshot was taken under other CEGB "
+                                 f"penalties ({key})")
+        du = c.data_used
+        if du is not None:
+            got = np.asarray(arrays.get("cegb_data_used",
+                                        np.zeros((1, 1), bool)))
+            if got.shape != tuple(du.shape):
+                raise ValueError(f"snapshot's cegb_data_used {got.shape} "
+                                 f"!= the trainer's {tuple(du.shape)}")
+            du = torch.as_tensor(got.astype(bool), device=self.device)
+        return dataclasses.replace(c, feature_used=torch.as_tensor(
+            np.asarray(arrays["cegb_feature_used"], bool),
+            device=self.device), data_used=du)
 
     def _extra_resume_state(self, arrays: Dict[str, np.ndarray],
                             meta: Dict) -> None:

@@ -4,20 +4,26 @@ Each TPU kernel of ``lightgbm_tpu/ops/pallas_hist.py`` has a hand-written
 CUDA counterpart in ``lightgbm_tpu_torch/csrc/`` and a plain PyTorch
 version of the same function here:
 
-====================  =============================================  ====================
-wrapper               TPU kernel replaced                            CUDA source
-====================  =============================================  ====================
-grad_quant_hist0      grad_quant_hist0_pallas (:918)                 grad_quant_hist0.cu
-hist_routed_fused     hist_routed_fused_q8 (:676), D = 1             hist_routed_fused.cu
-leaf_sums_grad        leaf_sums_grad_pallas (:1036)                  leaf_sums_grad.cu
-take_small            take_small_pallas (:1213)                      take_small.cu
-hist_q8               hist_pallas_q8 (:372)                          hist_q8.cu
-route_level           route_level_pallas (:1138)                     route_level.cu
-leaf_sums             leaf_sums_pallas (:718)                        leaf_sums.cu
-hist_f32              hist_pallas (:114), hist_leaf_pallas (:175)    hist_f32.cu
-====================  =============================================  ====================
+=======================  ==============================================  ==========================
+wrapper                  TPU kernel replaced                             CUDA source
+=======================  ==============================================  ==========================
+grad_quant_hist0         grad_quant_hist0_pallas (:918)                  grad_quant_hist0.cu
+hist_routed_fused        hist_routed_fused_multi_q8 (:574) at D = 1,     hist_routed_fused.cu
+                         hist_routed_fused_q8 (:676)
+hist_routed_fused_multi  hist_routed_fused_multi_q8 (:574) at D > 1      hist_routed_fused_multi.cu
+leaf_sums_grad           leaf_sums_grad_pallas (:1036)                   leaf_sums_grad.cu
+take_small               take_small_pallas (:1213)                       take_small.cu
+hist_q8                  hist_pallas_q8 (:372)                           hist_q8.cu
+route_level              route_level_pallas (:1138)                      route_level.cu
+leaf_sums                leaf_sums_pallas (:718)                         leaf_sums.cu
+hist_f32                 hist_pallas (:114), hist_leaf_pallas (:175)     hist_f32.cu
+=======================  ==============================================  ==========================
 
-The first four carry the fused quantized path (F * B <= 2048);
+``hist_routed_fused_multi`` replays D levels whose route tables are all
+known (one call, each level's histogram in its own band: the reference's
+shallow megapass, ``scripts/torch_profile_level.py``); no grower calls it,
+since a live level's tables need the level before it. The other first
+four carry the fused quantized path (F * B <= 2048);
 ``hist_q8``, ``route_level`` and ``leaf_sums`` carry the unfused one (the
 root pass, the two-pass level, where route_level hands hist_q8 its per-slot
 counts, and leaf renewal from materialized rows),
@@ -38,6 +44,8 @@ vector over S > 1 slots (count, scan, scatter, histogram;
 (as the two-pass level hands them), two over one slot (scatter, histogram)
 and one without a slot vector; hist_routed_fused four over S > 1 slots
 (route and count, scan, scatter, histogram) and three over one;
+hist_routed_fused_multi one route and count for its D levels, then each
+level's scan (over S > 1 slots), scatter and histogram;
 leaf_sums_grad and leaf_sums two (rows into warp tables, then a final sum
 that writes the f32 output; ``csrc/leaf_sums.cuh``).
 
@@ -54,6 +62,7 @@ f32 sums of ``hist_f32``, whose plain version sums in f64 and rounds once
 from __future__ import annotations
 
 import bisect
+import ctypes
 import functools
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -62,7 +71,8 @@ import torch
 from . import cuda_lib
 
 KERNELS = ("grad_quant_hist0", "hist_routed_fused", "leaf_sums_grad",
-           "take_small", "hist_q8", "route_level", "leaf_sums", "hist_f32")
+           "take_small", "hist_q8", "route_level", "leaf_sums", "hist_f32",
+           "hist_routed_fused_multi")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 # shared-memory budget of one block's private histogram (the H100 allows
@@ -71,6 +81,9 @@ LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 SMEM_BUDGET = 200 * 1024
 # warps a leaf-sum block at most (csrc/leaf_sums.cuh kLeafWarps)
 LEAF_WARPS = 16
+# levels one hist_routed_fused_multi call replays
+# (csrc/hist_routed_fused_multi.cu kMaxLevels)
+MAX_LEVELS = 8
 
 
 def reset_launches() -> None:
@@ -335,6 +348,37 @@ def hist_routed_fused_plain(bins_T, gq, hq, cq, leaf_id, tables, na_bin,
     return hist_q8_plain(bins_T, gq, hq, cq, slot, num_slots, num_bins), lid2
 
 
+def level_slots(num_slots, levels: int) -> List[int]:
+    """Each level's slot width: one int for every level (the reference's
+    one S), or a sequence of ``levels`` widths (a live tree's levels)."""
+    if isinstance(num_slots, int):
+        return [num_slots] * levels
+    out = [int(s) for s in num_slots]
+    if len(out) != levels:
+        raise ValueError(f"{len(out)} slot widths for {levels} levels")
+    return out
+
+
+def hist_routed_fused_multi_plain(bins_T, gq, hq, cq, leaf_id, tables,
+                                  na_bin, num_slots, num_bins,
+                                  catbits=None):
+    """Plain version of hist_routed_fused_multi (same returns): D
+    sequential route + slot histogram passes, level d's histogram in the
+    first S_d slots of band d."""
+    d = len(tables)
+    slots = level_slots(num_slots, d)
+    catbits = [None] * d if catbits is None else list(catbits)
+    f = bins_T.shape[0]
+    hist = torch.zeros((d, max(slots), 2 if hq is None else 3, f, num_bins),
+                       dtype=torch.int32, device=bins_T.device)
+    lid = leaf_id
+    for k in range(d):
+        hist[k, :slots[k]], lid = hist_routed_fused_plain(
+            bins_T, gq, hq, cq, lid, tables[k], na_bin, slots[k], num_bins,
+            catbits[k])
+    return hist, lid
+
+
 def leaf_sums_plain(g, h, c, leaf_id, num_leaves: int):
     """Plain version of leaf_sums: [3, L] f32 from f64 sums; leaf ids
     outside [0, L) are dropped."""
@@ -462,6 +506,109 @@ def hist_routed_fused(bins_T: torch.Tensor, gq: torch.Tensor,
     cuda_lib.check(rc, "hist_routed_fused")
     LAUNCHES["hist_routed_fused"] += 1
     return hist, lid2
+
+
+def _stack_levels(tables: Sequence[torch.Tensor],
+                  catbits: Sequence[Optional[torch.Tensor]]):
+    """The kernel's stacked tables [D, 6, L] i32, or [D, 7, L] when a level
+    has a categorical split (a zero is_cat row for the others), and the
+    [D, L, W] membership words (zero rows for the levels without), or
+    None."""
+    if all(c is None for c in catbits):
+        return torch.stack(list(tables)).contiguous(), None
+    l = tables[0].shape[1]
+    w = max(int(c.shape[1]) for c in catbits if c is not None)
+    tab = torch.zeros((len(tables), 7, l), dtype=torch.int32,
+                      device=tables[0].device)
+    bits = torch.zeros((len(tables), l, w), dtype=torch.int32,
+                       device=tables[0].device)
+    for k, (t, c) in enumerate(zip(tables, catbits)):
+        tab[k, :t.shape[0]] = t
+        if c is not None:
+            bits[k, :, :c.shape[1]] = c
+    return tab, bits
+
+
+def hist_routed_fused_multi(bins_T: torch.Tensor, gq: torch.Tensor,
+                            hq: Optional[torch.Tensor], cq: torch.Tensor,
+                            leaf_id: torch.Tensor,
+                            tables: Sequence[torch.Tensor],
+                            na_bin: torch.Tensor, num_slots,
+                            num_bins: int,
+                            bins: Optional[torch.Tensor] = None,
+                            catbits: Optional[Sequence[
+                                Optional[torch.Tensor]]] = None):
+    """Route each row through D consecutive levels and build each level's
+    slot histogram, in one call: the multi-level replay, whose D route
+    tables are all known up front.
+
+    tables: D route tables as hist_routed_fused takes them ([6, L] i32, or
+    [7, L] with an is_cat row where ``catbits[d]`` [L, W] i32 gives that
+    level's categorical leaves' left bins; catbits None, or None at a
+    level, for numerical levels), over one L; num_slots: one S for every
+    level, or D widths S_d (a live tree's levels; each level drops the
+    slots outside its own [0, S_d)); leaf_id [N] i32 the leaf ids before
+    the first level; the other arguments as hist_routed_fused's. Returns
+    (hist [D, max S_d, nch, F, B] i32, level d's histogram in the first
+    S_d slots of band d and zeros after them; lid [N] i32, the leaf ids
+    after the D levels), equal to D sequential hist_routed_fused calls."""
+    tables = list(tables)
+    d = len(tables)
+    catbits = [None] * d if catbits is None else list(catbits)
+    dev = _device_of(bins_T, gq, cq, leaf_id, na_bin, *tables)
+    f, n = bins_T.shape
+    _check(bins_T, "bins_T", torch.uint8, (f, n))
+    _check(gq, "gq", torch.int8, (n,))
+    _check(cq, "cq", torch.int8, (n,))
+    if hq is not None:
+        _device_of(bins_T, hq)
+        _check(hq, "hq", torch.int8, (n,))
+    _check(leaf_id, "leaf_id", torch.int32, (n,))
+    if not 1 <= d <= MAX_LEVELS or len(catbits) != d:
+        raise ValueError(f"hist_routed_fused_multi: {d} levels ({len(catbits)}"
+                         f" bitsets); 1 to {MAX_LEVELS} levels replay in one "
+                         "call")
+    for t, c in zip(tables, catbits):
+        _check_tables(bins_T, t, c)
+    l = tables[0].shape[1]
+    if any(t.shape[1] != l for t in tables):
+        raise ValueError("hist_routed_fused_multi: the levels' tables "
+                         "cover different leaf counts")
+    _check(na_bin, "na_bin", torch.int32, (f,))
+    slots = level_slots(num_slots, d)
+    if min(slots) < 1:
+        raise ValueError("hist_routed_fused_multi: num_slots must be >= 1")
+    if not 1 <= num_bins <= 256:
+        raise ValueError(f"hist_routed_fused_multi: num_bins {num_bins} "
+                         "outside [1, 256] (uint8 bins)")
+    _check_bins("hist_routed_fused_multi", bins_T, bins, True)
+    if dev.type == "cpu":
+        return hist_routed_fused_multi_plain(bins_T, gq, hq, cq, leaf_id,
+                                             tables, na_bin, slots,
+                                             num_bins, catbits)
+    nch = 2 if hq is None else 3
+    s_max = max(slots)
+    tab, bits = _stack_levels(tables, catbits)
+    plan = slot_hist_plan(f, n, nch, num_bins, _num_sms(dev))
+    hist = torch.zeros((d, s_max, nch, f, num_bins), dtype=torch.int32,
+                       device=dev)
+    lid = torch.empty(n, dtype=torch.int32, device=dev)
+    slot = torch.empty((d, n), dtype=torch.int32, device=dev)
+    idx = torch.zeros((d, 3 * s_max + 1), dtype=torch.int32, device=dev)
+    rec_words = (f + 3) // 4 + 1               # slot_hist.cuh record_words
+    rec = torch.empty(n * rec_words, dtype=torch.int32, device=dev)
+    widths = (ctypes.c_int * d)(*slots)
+    rc = cuda_lib.load().lgbt_hist_routed_fused_multi(
+        bins_T.data_ptr(), bins.data_ptr(), gq.data_ptr(), _ptr(hq),
+        cq.data_ptr(), leaf_id.data_ptr(), tab.data_ptr(), _ptr(bits),
+        0 if bits is None else int(bits.shape[2]), na_bin.data_ptr(), n, f,
+        num_bins, l, d, ctypes.addressof(widths), s_max, nch, plan.fg,
+        plan.blocks, plan.min_rows, plan.pass_blocks, slot.data_ptr(),
+        idx.data_ptr(), rec.data_ptr(), rec_words, hist.data_ptr(),
+        lid.data_ptr(), _stream(dev))
+    cuda_lib.check(rc, "hist_routed_fused_multi")
+    LAUNCHES["hist_routed_fused_multi"] += 1
+    return hist, lid
 
 
 class LeafSumsPlan(NamedTuple):

@@ -8,7 +8,9 @@ gradient front ``grad_quant_hist0``, and the Pallas branches of
 ``hist_leaf`` (the root pass, from quantized channels or from f32 rows) and
 ``hist_routed`` (with quantized channels, the fused level pass when
 F * B <= 2048, else route then histogram; with f32 rows, route then
-histogram at every F * B; numerical and categorical splits alike). The
+histogram at every F * B; numerical and categorical splits alike), and
+``hist_routed_multi``, the multi-level replay of D known levels (the
+reference's ``hist_routed_fused_multi_q8`` at D > 1). The
 kernels themselves live in ``hist_kernels.py``; this module turns their
 sums into the channel-major f32 histograms ``[S, 3, F, B]`` of the
 reference contract.
@@ -20,7 +22,7 @@ operations (``dequant``), whatever ``pack_k`` says.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -187,3 +189,21 @@ def hist_routed(bins_T: torch.Tensor, leaf_id: torch.Tensor,
         acc = K.hist_q8(bins_T, quant.gq, quant.hq, quant.cq, slot,
                         num_slots, num_bins, bins, counts)
     return dequant(acc, quant.hq is None, quant.scale_g, quant.scale_h), lid2
+
+
+def hist_routed_multi(bins_T: torch.Tensor, leaf_id: torch.Tensor,
+                      tables_seq: Sequence[RouteTables],
+                      na_bin: torch.Tensor, num_slots, num_bins: int,
+                      quant: QuantChannels,
+                      bins: Optional[torch.Tensor] = None):
+    """D consecutive levels of quantized channels in one kernel call (the
+    replay of known route tables, the reference's hist_routed_fused_multi_q8
+    at D > 1). ``num_slots``: one S, or each level's. Returns (hist
+    [D, S, 3, F, B] f32, each band dequantized with the tree's one
+    scale_g and scale_h as the reference's are, and the leaf ids [N] i32
+    after the D levels)."""
+    acc, lid = K.hist_routed_fused_multi(
+        bins_T, quant.gq, quant.hq, quant.cq, leaf_id,
+        [t.stacked() for t in tables_seq], na_bin, num_slots, num_bins,
+        bins, [t.bitset() for t in tables_seq])
+    return dequant(acc, quant.hq is None, quant.scale_g, quant.scale_h), lid

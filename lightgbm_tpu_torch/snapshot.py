@@ -23,11 +23,12 @@ from __future__ import annotations
 import json
 import os
 import re
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
 
-from . import log
+from . import log, obs
 from .utils import atomic_io
 from .utils.retry import call_with_backoff
 
@@ -144,9 +145,15 @@ def write_snapshot(booster, directory: str, iteration: int, keep: int = 3,
                 state_path, lambda f: np.savez_compressed(f, **arrays),
                 fault_name="snapshot_write")
 
+    t0 = time.perf_counter()
     call_with_backoff(_write, attempts=max(retries, 0) + 1, base_delay=0.05,
                       name=f"snapshot write (iteration {iteration})")
     _update_manifest(directory, iteration, keep)
+    obs.emit("snapshot_write", iteration=int(iteration), path=model_path,
+             duration_s=time.perf_counter() - t0, kept=int(keep),
+             num_shards=1)
+    if obs.enabled():
+        obs.METRICS.counter("snapshot_writes", "snapshots written").inc()
     return model_path
 
 

@@ -179,6 +179,8 @@ def fault_point(name: str) -> None:
         if state[1] > 0:
             state[1] -= 1
         hit = _hits[name]
+    from .. import obs   # lazy: obs -> atomic_io -> this module
+    obs.emit("fault_injected", point=name, hit=hit)
     raise FaultInjected(name, hit)
 
 

@@ -46,6 +46,10 @@ def call_with_backoff(fn: Callable, *, attempts: int = 3,
                 break
             log.warning(f"{what} failed ({type(e).__name__}: {e}); "
                         f"retry {i + 1}/{attempts - 1} in {delays[i]:.2f}s")
+            from .. import obs   # lazy: obs -> atomic_io -> this package
+            obs.emit("dist_retry", name=what, attempt=i + 1,
+                     error=f"{type(e).__name__}: {e}",
+                     delay_s=float(delays[i]))
             sleep(delays[i])
     assert last is not None
     raise last

@@ -51,6 +51,11 @@ first three trees have the CPU's structure (leaf values within 1e-6 of the
 largest) and it predicts [N, 3] probabilities; with row weights the first
 tree of every grower has the CPU's structure (unquantized: bit for bit on
 exact-sum data; quantized: leaf values within 1e-6 of the largest).
+The multi-level replay (hist_routed_fused_multi) equals its plain version
+and D sequential hist_routed_fused launches exactly: a tree's first levels
+with their own slot widths, wide levels, one level, eight levels on ragged
+N, categorical levels beside numerical ones, route tables too large for
+shared memory and more slots than its count keeps there.
 Categorical features: hist_routed_fused and route_level with categorical
 leaves (an is_cat row and membership bitsets) equal their plain versions
 exactly, at F = 8, B = 256 and with tables too large for shared memory;
@@ -290,6 +295,106 @@ def test_hist_routed_fused_level_shapes_equal_plain(dev, case, n, f, l, s):
             assert not kh.any() and torch.equal(kl, lid)
         else:
             assert kh.any()
+
+
+def _replay(dev, n, f, l, widths, b, cat_levels, seed):
+    """bins over [0, B), int8 channels, leaf ids over [0, min(L, 2 S_0))
+    and one route table a level of a replay: at level d the leaves < S_d
+    split on random features (one child of each kept, the other in the
+    dropped slot S_d), their right children take leaf ids inside [0, L), so
+    that rows go on being routed; the levels in ``cat_levels`` carry an
+    is_cat row and membership bitsets (_cat_tables)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(lo, hi, size):
+        return torch.randint(lo, hi, (size,), generator=gen, device=dev,
+                             dtype=torch.int64)
+    bins_T = torch.stack([draw(0, b, n) for _ in range(f)]).to(torch.uint8)
+    gq = draw(-127, 128, n).to(torch.int8)
+    hq = draw(0, 128, n).to(torch.int8)
+    cq = (torch.rand(n, generator=gen, device=dev) < 0.9).to(torch.int8)
+    lid = draw(0, max(1, min(l, 2 * widths[0])), n).to(torch.int32)
+    na_bin = torch.full((f,), 256, dtype=torch.int32, device=dev)
+    na_bin[: f // 3] = b - 2
+    k = torch.arange(l, device=dev)
+    tables, bits = [], []
+    for d, s in enumerate(widths):
+        split = k < s
+        small_left = torch.rand(l, generator=gen, device=dev) < 0.5
+        tab = torch.stack([
+            torch.where(split, draw(0, f, l), -1), draw(0, b - 2, l),
+            draw(0, 2, l), (k + s) % l,
+            torch.where(split & small_left, k, s),
+            torch.where(split & ~small_left, k, s)]).to(
+                torch.int32).contiguous()
+        if d in cat_levels:
+            tab, bitset, _ = _cat_tables(dev, tab, l, b, seed + d)
+            bits.append(bitset)
+        else:
+            bits.append(None)
+        tables.append(tab)
+    return bins_T, gq, hq, cq, lid, tables, bits, na_bin
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,n,f,l,widths,b,cat", [
+    ("tree_start", 200_000, 28, 255, (1, 2, 4), 64, ()),
+    ("wide", 200_000, 28, 255, (32, 127, 127), 64, ()),
+    ("one_level", 200_000, 28, 255, (127,), 64, ()),
+    ("eight_levels", 1024 * 37 + 13, 9, 255, (3, 5, 7, 9, 11, 13, 15, 17),
+     64, ()),
+    ("categorical", 200_000, 8, 255, (32, 32, 64), 256, (1,)),
+    ("all_categorical", 100_000, 8, 255, (1, 2), 256, (0, 1)),
+    ("tables_in_global", 100_000, 9, 10_000, (4000, 4000), 16, ()),
+    ("counts_in_global", 100_000, 7, 30_000, (13_000, 7000), 16, ())])
+def test_hist_routed_fused_multi_kernel_equals_plain(dev, case, n, f, l,
+                                                     widths, b, cat):
+    # exact, 3 and 2 channels: the D-level replay against its plain
+    # version and against D sequential hist_routed_fused launches: a tree's
+    # first levels with their own slot widths, wide levels, one level, the
+    # most levels a call takes on ragged N, categorical levels beside
+    # numerical ones (zero is_cat rows and bitsets for the latter), route
+    # tables too large for shared memory, and more slots than the count
+    # keeps there
+    bins_T, gq, hq, cq, lid, tables, bits, na_bin = _replay(
+        dev, n, f, l, list(widths), b, cat, n + l)
+    bins = bins_T.t().contiguous()
+    for hq_ in (hq, None):
+        args = (bins_T, gq, hq_, cq, lid, tables, na_bin, list(widths), b)
+        kh, kl = hk.hist_routed_fused_multi(*args, bins=bins, catbits=bits)
+        ph_, pl_ = hk.hist_routed_fused_multi_plain(*args, catbits=bits)
+        assert torch.equal(kh, ph_) and torch.equal(kl, pl_)
+        assert kh.shape == (len(widths), max(widths), 2 if hq_ is None
+                            else 3, f, b)
+        seq = lid
+        for d, (t, c) in enumerate(zip(tables, bits)):
+            h, seq = hk.hist_routed_fused(bins_T, gq, hq_, cq, seq, t,
+                                          na_bin, widths[d], b, bins=bins,
+                                          catbits=c)
+            assert torch.equal(kh[d, :widths[d]], h), d
+            assert not kh[d, widths[d]:].any()
+            assert h.any() or case == "tables_in_global"
+        assert torch.equal(kl, seq)
+
+
+@pytest.mark.cuda
+def test_hist_routed_fused_multi_needs_bins_and_never_falls_back(
+        dev, monkeypatch):
+    # one count a call, never the plain version; without the row-major bins
+    # the card refuses the call
+    def boom(*a, **k):
+        raise AssertionError("plain version called on a CUDA tensor")
+    monkeypatch.setattr(hk, "hist_routed_fused_multi_plain", boom)
+    bins_T, gq, hq, cq, lid, tables, _, na_bin = _replay(
+        dev, 5000, 7, 15, [2, 4, 5], 64, (), 3)
+    args = (bins_T, gq, hq, cq, lid, tables, na_bin, [2, 4, 5], 64)
+    hk.reset_launches()
+    hk.hist_routed_fused_multi(*args, bins=bins_T.t().contiguous())
+    assert hk.LAUNCHES["hist_routed_fused_multi"] == 1
+    assert hk.LAUNCHES["hist_routed_fused"] == 0
+    with pytest.raises(ValueError):
+        hk.hist_routed_fused_multi(*args)
+    assert hk.LAUNCHES["hist_routed_fused_multi"] == 1
 
 
 @pytest.mark.cuda

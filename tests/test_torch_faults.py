@@ -14,9 +14,11 @@ ones (ROADMAP C10), which a byte comparison of two runs would see.
 """
 import logging
 import os
+import re
 
 import numpy as np
 import pytest
+import torch
 
 import lightgbm_tpu as lgb
 from lightgbm_tpu import snapshot as ref_snap
@@ -168,6 +170,38 @@ def test_nonfinite_clip_completes_finite():
     assert port.num_trees() == ref.num_trees() == 6
     assert np.isfinite(port.predict(X)).all()
     _assert_same_outcome(ref, port, X)
+
+
+# ---------------- C13: accepted but ignored parameters ----------------
+
+def test_c13_ignored_parameters_warn_as_in_reference(caplog):
+    """pred_early_stop, gpu_use_dp and force_col_wise away from their
+    defaults: the port warns "<name> is ignored" for the names the
+    reference warns for and for no other; device_type (the port's own
+    device choice) never warns."""
+    from lightgbm_tpu.utils import log as ref_log
+    X, _ = _reg(500, 4)
+    y = (X[:, 0] > 0).astype(np.float64)
+    knobs = {"pred_early_stop": True, "gpu_use_dp": True,
+             "force_col_wise": True}
+    p = {"objective": "binary", "num_leaves": 4, "verbosity": 0, **knobs}
+    lines = []
+    ref_log.set_callback(lines.append)
+    try:
+        lgb.train({**p, **PALLAS}, lgb.Dataset(X, label=y), 1)
+    finally:
+        ref_log.set_callback(None)
+    caplog.set_level(logging.WARNING, logger="lightgbm_tpu_torch")
+    lt.train({**p, **CPU}, lt.Dataset(X, label=y, params={**p, **CPU}), 1)
+
+    def ignored(text):
+        return sorted(set(re.findall(r"(\w+) is ignored: ", text)))
+    assert ignored("".join(lines)) == sorted(knobs)
+    assert ignored(caplog.text) == sorted(knobs)
+    caplog.clear()
+    q = {"objective": "binary", "num_leaves": 4, "verbosity": 0, **CPU}
+    lt.train(q, lt.Dataset(X, label=y, params=q), 1)
+    assert ignored(caplog.text) == []
 
 
 def _nan_feval(score, ds):
@@ -388,31 +422,79 @@ def _model_bytes(bst):
     return bst.model_to_string().split("\nparameters:\n")[0]
 
 
-@pytest.mark.parametrize("boosting", ["gbdt", "dart", "goss"])
+# ROADMAP C11's CEGB runs: 600 x 8 rows of RandomState(0), regression, a
+# lazy or a coupled feature penalty beside the split penalty
+CEGB_RUN = {"num_leaves": 8, "min_data_in_leaf": 10, "seed": 3,
+            "cegb_penalty_split": 1e-3}
+CEGB = {"cegb_lazy": {**CEGB_RUN, "cegb_penalty_feature_lazy": [0.01] * 8},
+        "cegb_coupled": {**CEGB_RUN,
+                         "cegb_penalty_feature_coupled": [0.5] * 8}}
+
+
+@pytest.mark.parametrize("boosting", ["gbdt", "dart", "goss", "cegb_lazy",
+                                      "cegb_coupled"])
 def test_kill_and_resume_byte_identical(tmp_path, boosting):
     """A run killed by tree_update@7 and resumed from its iteration-6
     snapshot ends with the uninterrupted run's model text, byte for byte,
     with bagging and feature_fraction on (every RNG stream crosses the
-    snapshot; DART's drops and tree weights, GOSS's draws too)."""
-    X, y = _reg(500, 8, 5)
-    extra = {"gbdt": SAMPLED, "dart": {**SAMPLED, "boosting": "dart"},
-             "goss": {"boosting": "goss", "feature_fraction": 0.7,
-                      "seed": 7}}[boosting]
+    snapshot; DART's drops and tree weights, GOSS's draws too), and with
+    CEGB's bookkeeping (the columns split on, the (row, column) pairs that
+    paid the lazy penalty) across the snapshot (ROADMAP C11)."""
+    if boosting in CEGB:
+        (X, y), extra, rounds = _reg(600, 8, 0), CEGB[boosting], 10
+    else:
+        (X, y), rounds = _reg(500, 8, 5), 12
+        extra = {"gbdt": SAMPLED, "dart": {**SAMPLED, "boosting": "dart"},
+                 "goss": {"boosting": "goss", "feature_fraction": 0.7,
+                          "seed": 7}}[boosting]
     p = {**P, **CPU, "objective": "regression", **extra}
     ref_text = _model_bytes(lt.train(p, lt.Dataset(X, label=y, params=p),
-                                     12))
+                                     rounds))
     d = str(tmp_path / "snaps")
     with pytest.raises(FaultInjected):
         lt.train({**p, "snapshot_freq": 2, "snapshot_dir": d,
                   "faults": "tree_update@7"},
-                 lt.Dataset(X, label=y, params=p), 12)
+                 lt.Dataset(X, label=y, params=p), rounds)
     faults.reset()
-    assert snap.load_latest_valid(d).iteration == 6
+    payload = snap.load_latest_valid(d)
+    assert payload.iteration == 6
+    if boosting == "cegb_lazy":
+        # the lazy bitset [N, F] crossed the snapshot with paid pairs in it
+        assert payload.arrays["cegb_data_used"].shape == (600, 8)
+        assert payload.arrays["cegb_data_used"].any()
     bst = lt.train({**p, "snapshot_freq": 2, "snapshot_dir": d},
-                   lt.Dataset(X, label=y, params=p), 12,
+                   lt.Dataset(X, label=y, params=p), rounds,
                    resume_from_snapshot=d)
-    assert bst.current_iteration == 12
+    assert bst.current_iteration == rounds
     assert _model_bytes(bst) == ref_text
+    if boosting in CEGB:
+        full = lt.Booster(params=p, train_set=lt.Dataset(X, label=y,
+                                                         params=p))
+        for _ in range(rounds):
+            full.update()
+        a, b = full._gbdt.cegb, bst._gbdt.cegb
+        assert torch.equal(a.feature_used, b.feature_used)
+        assert (a.data_used is None) == (boosting == "cegb_coupled")
+        assert a.data_used is None or torch.equal(a.data_used, b.data_used)
+        assert torch.equal(a.lazy_pen, b.lazy_pen)
+        assert (a.lazy_cols is None and b.lazy_cols is None) or \
+            torch.equal(a.lazy_cols, b.lazy_cols)
+
+
+def test_resume_refuses_other_cegb_penalties(tmp_path, caplog):
+    """A snapshot of another lazy penalty vector is refused before any
+    state changes (the penalties are not in the fingerprint)."""
+    X, y = _reg(600, 8, 0)
+    p = {**P, **CPU, "objective": "regression", **CEGB["cegb_lazy"]}
+    d = str(tmp_path)
+    lt.train({**p, "snapshot_freq": 2, "snapshot_dir": d},
+             lt.Dataset(X, label=y, params=p), 2)
+    q = {**p, "cegb_penalty_feature_lazy": [0.02] * 8}
+    caplog.set_level(logging.WARNING, logger="lightgbm_tpu_torch")
+    bst = lt.train(q, lt.Dataset(X, label=y, params=q), 3,
+                   resume_from_snapshot=d)
+    assert bst.current_iteration == 3
+    assert "cannot resume" in caplog.text and "cegb_lazy_pen" in caplog.text
 
 
 def test_resume_from_empty_dir_trains_from_scratch(tmp_path, caplog):
@@ -469,29 +551,43 @@ def test_early_stopping_survives_resume(tmp_path):
 
 # ---------------- the sidecar against the reference's ----------------
 
-def _payload_pair(tmp_path, rounds, **kw):
-    """Both packages' snapshot at ``rounds`` of the same sampled L2 run."""
+# the sidecar runs: sampled L2, and the same with each CEGB penalty
+SIDECAR = {"sampled": {},
+           **{k: {**v, "num_leaves": 7, "min_data_in_leaf": 5}
+              for k, v in CEGB.items()}}
+
+
+def _payload_pair(tmp_path, rounds, extra=(), **kw):
+    """Both packages' snapshot at ``rounds`` of the same sampled L2 run,
+    with the parameters ``extra`` (6 features: CEGB vectors cut to 6)."""
     X, y = _reg(400, 6, 2)
+    extra = {k: (v[:6] if isinstance(v, list) else v)
+             for k, v in dict(extra).items()}
     out = []
-    for pkg, mod, extra in ((lgb, ref_snap, PALLAS),
-                            (lt, snap, {**PALLAS, **CPU})):
+    for pkg, mod, dev in ((lgb, ref_snap, PALLAS),
+                          (lt, snap, {**PALLAS, **CPU})):
         d = str(tmp_path / pkg.__name__)
         p = {**P, **SAMPLED, "objective": "regression", "snapshot_freq":
-             rounds, "snapshot_dir": d, **extra}
+             rounds, "snapshot_dir": d, **extra, **dev}
         pkg.train(p, pkg.Dataset(X, label=y, params=p), rounds, **kw)
         out.append(mod.load_latest_valid(d))
     return X, y, out
 
 
-def test_sidecar_matches_reference_after_four_iterations(tmp_path):
+@pytest.mark.parametrize("run", list(SIDECAR))
+def test_sidecar_matches_reference_after_four_iterations(tmp_path, run):
     """The port's sidecar has the reference's keys; its RNG states, bag key
     and bag mask equal the reference's bit for bit, its trees' structure
-    too, and its train score and leaves lie within C2."""
-    _, _, (ref, port) = _payload_pair(tmp_path, 4)
+    too, and its train score and leaves lie within C2. Under CEGB the four
+    cegb_* arrays (the columns split on, the lazy bitset or its [1, 1]
+    placeholder, the two penalty vectors) equal the reference's too."""
+    _, _, (ref, port) = _payload_pair(tmp_path, 4, SIDECAR[run])
     assert ref.iteration == port.iteration == 4
     assert set(port.arrays) == set(ref.arrays)
+    assert (run in CEGB) == ("cegb_feature_used" in port.arrays)
     for k in ref.arrays:
-        if k.startswith("rng") or k in ("bag_key", "bag_mask"):
+        if k.startswith(("rng", "cegb_")) or k in ("bag_key", "bag_mask"):
+            assert port.arrays[k].shape == ref.arrays[k].shape, k
             assert np.array_equal(port.arrays[k], ref.arrays[k]), k
     for f in ("split_feature", "threshold_bin", "default_left",
               "left_child", "right_child", "num_leaves"):
@@ -511,19 +607,27 @@ def test_sidecar_matches_reference_after_four_iterations(tmp_path):
         assert port.meta[k] == ref.meta[k], k
 
 
-def test_port_resumes_a_reference_snapshot(tmp_path):
+@pytest.mark.parametrize("run", list(SIDECAR))
+def test_port_resumes_a_reference_snapshot(tmp_path, run):
     """resume_state_from_reference: the port resumes, at iteration 2, a run
-    that the reference snapshotted, and ends with the reference's
-    uninterrupted trees (structure exact, leaves within C2)."""
-    X, y, (ref2, _) = _payload_pair(tmp_path, 2)
+    that the reference snapshotted (with its CEGB bookkeeping under CEGB),
+    and ends with the reference's uninterrupted trees (structure exact,
+    leaves within C2)."""
+    X, y, (ref2, _) = _payload_pair(tmp_path, 2, SIDECAR[run])
     arrays, meta = resume_state_from_reference(ref2.arrays, ref2.meta)
-    p = {**P, **SAMPLED, "objective": "regression", **PALLAS, **CPU}
+    extra = {k: (v[:6] if isinstance(v, list) else v)
+             for k, v in SIDECAR[run].items()}
+    p = {**P, **SAMPLED, "objective": "regression", **extra, **PALLAS,
+         **CPU}
     bst = lt.Booster(params=p, train_set=lt.Dataset(X, label=y, params=p))
     bst._gbdt.set_resume_state(arrays, meta)
+    if run in CEGB:
+        assert np.array_equal(bst._gbdt.cegb.feature_used.numpy(),
+                              ref2.arrays["cegb_feature_used"])
     for _ in range(2):
         bst.update()
-    full = lgb.train({**P, **SAMPLED, "objective": "regression", **PALLAS},
-                     lgb.Dataset(X, label=y), 4)
+    full = lgb.train({**P, **SAMPLED, "objective": "regression", **extra,
+                      **PALLAS}, lgb.Dataset(X, label=y), 4)
     ta, tb = full._ensure_host_trees(), bst._host_trees()
     assert len(ta) == len(tb) == 4
     for a, b in zip(ta, tb):
