@@ -251,6 +251,11 @@ measured):
    (4 trees) and clip (5 trees, finite scores), and an L2 run on labels
    near 1e38 at learning_rate 1e38 (the fused front) raising under fatal;
    each step's seconds printed beside the card's name and power limit;
+   then (r) "cold start and serve" on (a)'s rows: the ingest pipeline in
+   6 chunks and in one, an OOM drill, two cold-start processes, 100
+   iterations under the fused front's contract, the serving engine, a
+   PredictServer under load, its transports and a 2-replica fleet with
+   a shadow rollback and a canary promotion (``serve_path``);
 5. agreement, at max_bin=63 and at 255 (the 4000-row table has more than
    128 bins a feature, so the unfused path, which is asserted): the first
    tree of a 4000-row L2 model trained on the card has the structure of
@@ -804,7 +809,8 @@ def cli_path(launches_all, card: str) -> dict:
     print(f"{tag} CLI predict of {N_CLI_VALID} rows ({dt:.3f} s with the "
           f"process start and parse): "
           f"{m_rate.group(3) if m_rate else '?'} rows/s in the CLI, "
-          f"Booster.predict {N_CLI_VALID / dt_in:,.0f} rows/s; result file "
+          f"Booster.predict {N_CLI_VALID / dt_in:,.0f} rows/s (its first "
+          f"call, {bst.num_trees()} trees); result file "
           f"equal to Booster.predict: {same}; AUC {auc:.6f}")
     if not same or not m_rate:
         fail("CLI predict: the result file differs from Booster.predict")
@@ -1162,6 +1168,540 @@ def telemetry_path(ds, launches_all, card: str) -> dict:
     print(f"{tag} seconds by step: {json.dumps(sec)}; card: {card}")
     return dict(seconds=sec, overhead=cost, trace_bytes=trace["bytes"],
                 trace_write_s=trace["seconds"])
+
+
+N_SERVE = 500_000       # the engine's rows (synth_higgs, seed 1)
+SERVE_CHUNK = 2_000_000  # (r)'s ingest chunk: 6 chunks of (a)'s rows
+SERVE_CANARY = {"canary_fraction": 0.5, "canary_min_samples": 200,
+                "canary_cmp_window": 512, "canary_psi_max": 0.25,
+                "canary_window_s": 600.0}
+
+_C_SERVE_HOST = r"""
+#include <stdio.h>
+#include <stdlib.h>
+int LGBMTPU_ServerCreate(const char*, const char*, void**);
+int LGBMTPU_ServerPredict(void*, const double*, long long, int, int, int,
+                          double*, long long, long long*);
+int LGBMTPU_ServerStatsJSON(void*, char*, long long, long long*);
+int LGBMTPU_ServerClose(void*);
+const char* LGBMTPU_GetLastError(void);
+int main(int argc, char** argv) {
+  int n = atoi(argv[3]), f = atoi(argv[4]);
+  double* x = (double*)malloc(sizeof(double) * n * f);
+  FILE* fh = fopen(argv[2], "rb");
+  if (fread(x, sizeof(double), (size_t)n * f, fh) != (size_t)n * f) return 2;
+  fclose(fh);
+  void* s = 0;
+  if (LGBMTPU_ServerCreate(argv[1], "verbosity=-1", &s)) {
+    fprintf(stderr, "%s\n", LGBMTPU_GetLastError());
+    return 1;
+  }
+  double out[1];
+  long long got = 0;
+  for (int i = 0; i < n; ++i) {
+    if (LGBMTPU_ServerPredict(s, x + (size_t)i * f, 1, f, 0, 0, out, 1,
+                              &got) || got != 1) {
+      fprintf(stderr, "%s\n", LGBMTPU_GetLastError());
+      return 3;
+    }
+    printf("%.17g\n", out[0]);
+  }
+  char buf[1 << 16];
+  if (LGBMTPU_ServerStatsJSON(s, buf, sizeof(buf), &got)) return 4;
+  printf("%s\n", buf);
+  return LGBMTPU_ServerClose(s) ? 5 : 0;
+}
+"""
+
+
+def serve_path(X, y, launches_all, card: str) -> dict:
+    """(r) "cold start and serve" at (a)'s width (synth_higgs 10.5M x 28,
+    seed 0, max_bin=63, num_leaves=255, binary). 1. construct through the
+    ingest pipeline at ingest_chunk_rows=2,000,000 (6 chunks, 6
+    ingest_chunk events) and as one chunk: the bins equal bit for bit, and
+    equal to the plain column-at-a-time encode, each timed, the phases and
+    overlap_efficiency printed;
+    2. faults=device_put_oom:1: one halving, one device_fault, the same
+    bins; 3. two fresh processes (scripts/torch_cold_start.py) on the same
+    rows saved once as .npy, prewarm=1 and prewarm=0, the library already
+    built: seconds from process start to the first tree, the library's
+    load seconds, the aot_prewarm events; 4. 100 iterations on the
+    pipeline's Dataset under the fused front's launch contract (B1-B4),
+    the prewarm's launches counted apart, AUC on 1M rows above 0.7;
+    5. the engine on 500,000 synth_higgs seed-1 rows equal to the plain
+    walk (ops/predict.predict_raw) bit for bit, rows/s; 6. a PredictServer:
+    closed-loop single-row clients (1, 8, 64; 2 s each: qps, p50, p99,
+    p999, coalesce factor), a hot swap to the 50-iteration prefix under
+    load (no error, each answer its version's bit for bit), an overload
+    drill (sheds, the queue bounded, every admitted request answered);
+    7. serve_tcp on an ephemeral port (100 lines), `python -m
+    lightgbm_tpu_torch task=serve` over stdin (100 lines) and a pure-C host
+    through the server entries (100 rows), each bit for bit; 8. a 2-replica
+    FleetServer on the card (every replica bit for bit), a perturbed shadow
+    candidate rolled back on PSI, a clean canary promoted by handing its
+    engine over. Returns its seconds by step."""
+    import shutil
+    import socket
+    import threading
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch import ingest, metrics, obs
+    from lightgbm_tpu_torch.binning import bin_data
+    from lightgbm_tpu_torch.fleet.rollout import canary_name
+    from lightgbm_tpu_torch.fleet.service import FleetServer
+    from lightgbm_tpu_torch.native.build_capi import build_capi
+    from lightgbm_tpu_torch.ops import hist_kernels as hk
+    from lightgbm_tpu_torch.ops import predict as P
+    from lightgbm_tpu_torch.server import (MicroBatcher, PredictServer,
+                                           ServeOverload, serve_tcp)
+    from lightgbm_tpu_torch.utils import faults
+
+    tag = "[serve (r), max_bin=63]"
+    dev = torch.device("cuda", 0)
+    work = os.path.join(OUT_DIR, "serve_path")
+    if os.path.isdir(work):
+        shutil.rmtree(work)
+    os.makedirs(work)
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([HERE] + [p for p in sys.path
+                                                    if p]))
+    params = {"objective": "binary", "num_leaves": L, "max_bin": 63,
+              "learning_rate": 0.1, "min_data_in_leaf": 20,
+              "verbosity": -1}
+    sec = {}
+    torch.cuda.empty_cache()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    def events(kind):
+        return [e for e in obs.EVENTS.snapshot() if e["type"] == kind]
+
+    # 1. construct: 6 chunks, then one, then the plain encode (the
+    # host-binned encode: scripts/torch_host_encode.py)
+    obs.reset()
+    obs.configure(enabled=True)
+    ds, sec["construct_6_chunks_s"] = timed(lambda: lt.Dataset(
+        X, label=y, params={**params, "ingest_chunk_rows": SERVE_CHUNK}
+    ).construct())
+    st6 = ingest.last_stats()
+    n_chunk_ev = len(events("ingest_chunk"))
+    obs.configure(enabled=False)
+    if st6["chunks"] != 6 or n_chunk_ev != 6:
+        fail(f"(r): {st6['chunks']} chunks, {n_chunk_ev} ingest_chunk "
+             "events, not 6")
+    one, sec["construct_1_chunk_s"] = timed(lambda: lt.Dataset(
+        X, label=y, params={**params, "ingest_chunk_rows": 10 ** 9,
+                            "prewarm": 0}).construct())
+    st1 = ingest.last_stats()
+    if not torch.equal(ds.bins, one.bins):
+        fail("(r): the 6-chunk bins differ from the one-chunk bins")
+    del one
+    cols = list(ds.feature_map)
+    plain, sec["column_encode_s"] = timed(
+        lambda: bin_data(X, ds.mappers, cols, dev))
+    if not torch.equal(plain, ds.bins):
+        fail("(r): the pipeline's bins differ from the column-at-a-time "
+             "encode's")
+    del plain
+    torch.cuda.empty_cache()
+    print(f"{tag} construct {X.shape[0]} x {X.shape[1]}: 6 chunks "
+          f"{sec['construct_6_chunks_s']:.3f} s (phases "
+          f"{json.dumps(ds.construct_phases)}; pipeline {json.dumps(st6)}), "
+          f"1 chunk {sec['construct_1_chunk_s']:.3f} s (pipeline "
+          f"{json.dumps(st1)}); bins equal bit for bit; {n_chunk_ev} "
+          f"ingest_chunk events; card: {card}")
+    print(f"{tag} encode alone: the pipeline {st6['wall_s']:.3f} s (6 "
+          f"chunks), {st1['wall_s']:.3f} s (1 chunk), the column-at-a-time "
+          f"plain version {sec['column_encode_s']:.3f} s; all equal bit for "
+          f"bit; card: {card}")
+
+    # 2. the OOM drill
+    obs.reset()
+    obs.configure(enabled=True)
+    faults.configure("device_put_oom:1")
+    try:
+        dd, sec["oom_drill_s"] = timed(lambda: lt.Dataset(
+            X, label=y, params={**params, "ingest_chunk_rows": SERVE_CHUNK,
+                                "prewarm": 0}).construct())
+    finally:
+        faults.reset()
+    df = events("device_fault")
+    obs.configure(enabled=False)
+    sto = ingest.last_stats()
+    if (len(df) != 1 or df[0]["action"] != "halve_chunk"
+            or sto["chunk_rows"] != SERVE_CHUNK // 2
+            or not torch.equal(dd.bins, ds.bins)):
+        fail(f"(r): the OOM drill gave {df} and {sto}")
+    del dd
+    torch.cuda.empty_cache()
+    print(f"{tag} device_put_oom:1: one halving to {sto['chunk_rows']} rows "
+          f"({sto['chunks']} chunks), one device_fault, the same bins, "
+          f"{sec['oom_drill_s']:.3f} s; card: {card}")
+
+    # 3. cold start in two fresh processes, the library already built
+    rows_f = os.path.join(work, "rows.npy")
+    labels_f = os.path.join(work, "labels.npy")
+    np.save(rows_f, X)
+    np.save(labels_f, y)
+    cold = {}
+    for pw in (1, 0):
+        t_spawn = time.time()
+        r = subprocess.run(
+            [sys.executable, os.path.join(HERE, "scripts",
+                                          "torch_cold_start.py"),
+             rows_f, labels_f, "--prewarm", str(pw)],
+            capture_output=True, text=True, env=env, cwd=HERE, timeout=300)
+        if r.returncode != 0:
+            fail(f"(r) cold start prewarm={pw}: exit {r.returncode}\n"
+                 f"{r.stderr[-3000:]}")
+        js = json.loads(r.stdout.strip().splitlines()[-1])
+        js["to_first_tree_s"] = js["t_first_tree"] - t_spawn
+        cold[pw] = js
+        sec[f"cold_start_prewarm{pw}_s"] = js["to_first_tree_s"]
+        print(f"{tag} cold start prewarm={pw}: {js['to_first_tree_s']:.3f} s "
+              f"from process start to the first tree (construct "
+              f"{js['construct_s']:.3f} s, phases "
+              f"{json.dumps(js['construct_phases'])}, first tree "
+              f"{js['first_tree_s']:.3f} s), library load "
+              f"{js['load_s']} s, aot_prewarm {json.dumps(js['aot_prewarm'])}"
+              f", warm-up launches {js['warm_launches']}, adopted "
+              f"{js['adopted']}; card: {card}")
+    os.remove(rows_f)
+    os.remove(labels_f)
+    if not cold[1]["adopted"] or cold[0]["warm_launches"]:
+        fail(f"(r): the prewarm process did not adopt ({cold})")
+
+    # 4. 100 iterations on the pipeline's Dataset: the fused front
+    hk.reset_launches()
+    warm0 = dict(hk.WARM_LAUNCHES)
+    bst, sec["train_100_s"] = timed(lambda: lt.train(params, ds, 100))
+    launches = dict(hk.LAUNCHES)
+    passes = bst._gbdt.hist_passes
+    expected = {k: 0 for k in hk.KERNELS}
+    expected.update(grad_quant_hist0=len(passes),
+                    leaf_sums_grad=len(passes),
+                    hist_routed_fused=sum(passes),
+                    take_small=bst.num_trees())
+    print(f"{tag} train 100 iterations: {sec['train_100_s']:.3f} s "
+          f"({sec['train_100_s'] / 100:.4f} s/iter), prewarm adopted "
+          f"{bst._gbdt.prewarm_adopted}, launches {launches} expected "
+          f"{expected}; the prewarm's launches, counted apart: "
+          f"{ {k: v for k, v in hk.WARM_LAUNCHES.items() if v} } "
+          f"(this Dataset's: {ds._prewarm.result.get('warmed')}); card: "
+          f"{card}")
+    if launches != expected or not bst._gbdt.prewarm_adopted:
+        fail(f"(r): launch counts {launches} != expected {expected}")
+    if dict(hk.WARM_LAUNCHES) != warm0:
+        fail("(r): the training moved the prewarm's launch counts")
+    for k, v in launches.items():
+        launches_all[k] += v
+    m = min(1_000_000, X.shape[0])
+    auc = float(metrics.auc(torch.as_tensor(y[:m]),
+                            bst._gbdt.train_score[:m].cpu()))
+    print(f"{tag} train AUC on {m} rows (train score): {auc:.4f}")
+    if not auc > 0.7:
+        fail(f"(r): AUC {auc} <= 0.7")
+
+    # 5. the engine against the plain walk
+    Xs, _ = synth_higgs(N_SERVE, F, seed=1)
+    trees = bst._host_trees()
+    want, sec["plain_walk_s"] = timed(lambda: P.predict_raw(
+        trees, torch.as_tensor(Xs, device=dev).to(torch.float64),
+        1).cpu().numpy())
+    bst._predict_engine = None
+    got, sec["engine_first_call_s"] = timed(
+        lambda: bst.predict(Xs, raw_score=True))
+    if not np.array_equal(got, want):
+        fail("(r): the engine's raw scores differ from predict_raw's")
+    reps = []
+    for _ in range(3):
+        reps.append(timed(lambda: bst.predict(Xs, raw_score=True))[1])
+    eng_s = statistics.median(reps)
+    leaf = bst.predict(Xs[:10_000], pred_leaf=True)
+    if not np.array_equal(leaf, P.predict_leaf(
+            trees, torch.as_tensor(Xs[:10_000], device=dev).to(
+                torch.float64)).cpu().numpy()):
+        fail("(r): the engine's leaf indices differ from predict_leaf's")
+    eng = bst._predict_engine
+    print(f"{tag} engine on {N_SERVE} rows, 100 trees ({eng.max_steps} "
+          f"steps, {eng.stats['chunks']} chunks so far): raw scores equal "
+          f"predict_raw bit for bit, leaf indices on 10000 rows equal; "
+          f"Booster.predict {N_SERVE / eng_s:.0f} rows/s (median of 3, "
+          f"{eng_s:.4f} s; the first call with its upload "
+          f"{sec['engine_first_call_s']:.4f} s; the plain walk "
+          f"{sec['plain_walk_s']:.4f} s, {N_SERVE / sec['plain_walk_s']:.0f} "
+          f"rows/s; Booster.predict on the plain walk before the engine, on "
+          f"(p)'s model of 8 trees, PERF.md: 8,597,021 rows/s); card: "
+          f"{card}")
+    sec["engine_rows_per_s"] = N_SERVE / eng_s
+
+    # 6. the PredictServer
+    Xq = np.ascontiguousarray(Xs[:4096], dtype=np.float64)
+    want_q = bst.predict(Xq)
+    srv = PredictServer({"verbosity": -1, "serve_max_batch_rows": 1024},
+                        model=bst)
+    errs = []
+
+    def load_point(clients, seconds=2.0):
+        lat = [[] for _ in range(clients)]
+        snap0 = srv.batcher.snapshot()
+        t_end = time.perf_counter() + seconds
+
+        def client(c):
+            i = c
+            try:
+                while time.perf_counter() < t_end:
+                    q = i % len(Xq)
+                    t = time.perf_counter()
+                    out = srv.predict(Xq[q])
+                    lat[c].append(time.perf_counter() - t)
+                    if out[0] != want_q[q]:
+                        raise AssertionError(f"row {q}: {out[0]} != "
+                                             f"{want_q[q]}")
+                    i += clients
+            except Exception as e:
+                errs.append(e)
+        t0 = time.perf_counter()
+        ths = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+        [t.start() for t in ths]
+        [t.join() for t in ths]
+        wall = time.perf_counter() - t0
+        snap1 = srv.batcher.snapshot()
+        all_lat = np.sort(np.concatenate([np.asarray(v) for v in lat]))
+        flushes = snap1["flushes"] - snap0["flushes"]
+        return {"clients": clients, "requests": int(all_lat.size),
+                "qps": all_lat.size / wall,
+                "p50_ms": float(np.quantile(all_lat, 0.5) * 1e3),
+                "p99_ms": float(np.quantile(all_lat, 0.99) * 1e3),
+                "p999_ms": float(np.quantile(all_lat, 0.999) * 1e3),
+                "coalesce_factor": ((snap1["flushed_rows"]
+                                     - snap0["flushed_rows"]) / flushes
+                                    if flushes else 0.0)}
+
+    points = []
+    for clients in (1, 8, 64):
+        pt = load_point(clients)
+        points.append(pt)
+        print(f"{tag} PredictServer, {clients} closed-loop single-row "
+              f"clients for 2 s: {json.dumps(pt)}; card: {card}")
+    if errs:
+        fail(f"(r): the closed-loop clients saw {errs[:3]}")
+    sec["load_points"] = points
+    # a hot swap to the 50-iteration prefix under load
+    v50 = lt.Booster(model_str=bst.model_to_string(num_iteration=50))
+    want_by_v = {1: want_q, 2: v50.predict(Xq)}
+    results, stop = [], threading.Event()
+    res_lock = threading.Lock()
+
+    def swapper(c):
+        j = c
+        try:
+            while not stop.is_set():
+                q = j % len(Xq)
+                r_ = srv.batcher.submit_async(Xq[q])
+                out = r_.result(timeout=30)
+                with res_lock:
+                    results.append((q, r_.version, out[0]))
+                j += 8
+        except Exception as e:
+            errs.append(e)
+    ths = [threading.Thread(target=swapper, args=(c,)) for c in range(8)]
+    [t.start() for t in ths]
+    while len(results) < 2000 and not errs:
+        time.sleep(0.01)
+    t0 = time.perf_counter()
+    if srv.publish(v50) != 2:
+        fail("(r): the hot swap did not publish version 2")
+    sec["publish_s"] = time.perf_counter() - t0
+    n_swap = len(results)
+    while len(results) < n_swap + 2000 and not errs:
+        time.sleep(0.01)
+    stop.set()
+    [t.join() for t in ths]
+    bad = [(q, v) for q, v, o in results if o != want_by_v[v][q]]
+    versions = sorted({v for _, v, _ in results})
+    if errs or bad or versions != [1, 2]:
+        fail(f"(r): hot swap: errors {errs[:3]}, {len(bad)} wrong answers, "
+             f"versions {versions}")
+    print(f"{tag} hot swap to the 50-iteration prefix under 8 clients: "
+          f"{len(results)} answers, 0 errors, each its version's bit for "
+          f"bit, versions {versions}; publish (engine upload + warm-up) "
+          f"{sec['publish_s']:.3f} s; card: {card}")
+    # the overload drill: a 64-request queue, 16 threads submitting
+    mb = MicroBatcher(srv.registry, queue_max=64, max_batch_rows=1024)
+    admitted, shed = [], [0]
+    adm_lock = threading.Lock()
+
+    def flood(c):
+        for k in range(300):
+            q = (c * 300 + k) % len(Xq)
+            try:
+                r_ = mb.submit_async(Xq[q])
+                with adm_lock:
+                    admitted.append((q, r_))
+            except ServeOverload:
+                with adm_lock:
+                    shed[0] += 1
+    ths = [threading.Thread(target=flood, args=(c,)) for c in range(16)]
+    [t.start() for t in ths]
+    [t.join() for t in ths]
+    wrong = sum(r_.result(timeout=60)[0] != want_by_v[2][q]
+                for q, r_ in admitted)
+    snap = mb.snapshot()
+    mb.close()
+    print(f"{tag} overload drill, 16 threads x 300 requests into a 64-"
+          f"request queue: {len(admitted)} admitted and answered ({wrong} "
+          f"wrong), {shed[0]} shed, max queue depth "
+          f"{snap['max_queue_depth']}, coalesce factor "
+          f"{snap['coalesce_factor']}; card: {card}")
+    if (wrong or shed[0] == 0 or snap["max_queue_depth"] > 64
+            or len(admitted) + shed[0] != 16 * 300):
+        fail("(r): the overload drill failed")
+
+    # 7. transports: TCP, task=serve over stdin, the C host
+    ready = threading.Event()
+    th = threading.Thread(target=serve_tcp, args=(srv, "127.0.0.1", 0,
+                                                  ready), daemon=True)
+    th.start()
+    if not ready.wait(30):
+        fail("(r): serve_tcp did not start")
+    host_, port = ready.addr
+    lines = [",".join("%.17g" % v for v in Xq[i]) for i in range(100)]
+    tcp_out = {}
+
+    def tcp_client(c):
+        with socket.create_connection((host_, port), timeout=30) as sck:
+            f = sck.makefile("rw")
+            for i in range(c, 100, 4):
+                f.write(lines[i] + "\n")
+                f.flush()
+                tcp_out[i] = f.readline().strip()
+    t0 = time.perf_counter()
+    ths = [threading.Thread(target=tcp_client, args=(c,)) for c in range(4)]
+    [t.start() for t in ths]
+    [t.join() for t in ths]
+    sec["tcp_100_lines_s"] = time.perf_counter() - t0
+    with socket.create_connection((host_, port), timeout=30) as sck:
+        sck.sendall(b"!quit\n")
+    th.join(30)
+    srv.close()
+    if th.is_alive() or any(tcp_out.get(i) != f"2\t{want_by_v[2][i]:.17g}"
+                            for i in range(100)):
+        fail("(r): serve_tcp answers differ from the direct predict")
+    model_f = os.path.join(work, "model.txt")
+    bst.save_model(model_f)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "lightgbm_tpu_torch",
+                        "task=serve", f"input_model={model_f}",
+                        "verbosity=-1"],
+                       input="\n".join(lines) + "\n!quit\n",
+                       capture_output=True, text=True, env=env, cwd=work,
+                       timeout=300)
+    sec["stdio_100_lines_s"] = time.perf_counter() - t0
+    out = r.stdout.strip().splitlines()
+    if r.returncode != 0 or out != [f"1\t{want_q[i]:.17g}"
+                                    for i in range(100)]:
+        fail(f"(r): task=serve over stdin: exit {r.returncode}, "
+             f"{out[:3]}\n{r.stderr[-2000:]}")
+    so = build_capi()
+    if so is None:
+        fail("(r): the C API library did not build")
+    src = os.path.join(work, "serve_host.c")
+    with open(src, "w") as fh:
+        fh.write(_C_SERVE_HOST)
+    exe = os.path.join(work, "serve_host")
+    subprocess.run(["gcc", src, so, "-o", exe,
+                    f"-Wl,-rpath,{os.path.dirname(so)}"], check=True,
+                   capture_output=True, timeout=120)
+    xb = os.path.join(work, "rows.bin")
+    Xq[:100].tofile(xb)
+    t0 = time.perf_counter()
+    r = subprocess.run([exe, model_f, xb, "100", str(F)],
+                       capture_output=True, text=True, env=env, cwd=work,
+                       timeout=300)
+    sec["c_host_100_rows_s"] = time.perf_counter() - t0
+    out = r.stdout.strip().splitlines()
+    if r.returncode != 0 or [float(v) for v in out[:100]] != \
+            [float(v) for v in want_q[:100]] or '"flushes"' not in out[100]:
+        fail(f"(r): the C host: exit {r.returncode}\n{r.stderr[-2000:]}")
+    print(f"{tag} transports, 100 lines each: serve_tcp (4 connections) "
+          f"{sec['tcp_100_lines_s']:.3f} s, task=serve over stdin "
+          f"{sec['stdio_100_lines_s']:.3f} s (the process included), the "
+          f"C host's server_* {sec['c_host_100_rows_s']:.3f} s (the process "
+          f"included); every answer equal to Booster.predict bit for bit; "
+          f"card: {card}")
+
+    # 8. a 2-replica fleet on the one card, a shadow rollback, a promote
+    text = bst.model_to_string()
+    fs = FleetServer({"verbosity": -1, "fleet_replicas": 2,
+                      "serve_max_batch_rows": 1024, **SERVE_CANARY},
+                     model=bst)
+    try:
+        devs = [str(r_.registry.device) for r_ in fs.pool.replicas]
+        for r_ in fs.pool.replicas:
+            if not np.array_equal(r_.submit_async(Xq[:512]).result(60),
+                                  want_q[:512]):
+                fail(f"(r): fleet replica {r_.rid} differs")
+        pert = lt.Booster(model_str=text)
+        pert._host_trees()[0].leaf_value += 3.0   # a shifted candidate
+        ro = fs.ensure_rollout()
+        ro.start(pert, shadow=True)
+        i, t_end = 0, time.monotonic() + 30
+        while ro.active and time.monotonic() < t_end:
+            q = i % len(Xq)
+            o, v = fs.predict_versioned(Xq[q])
+            if v != 1 or o[0] != want_q[q]:
+                fail("(r): a shadow rollout exposed the candidate")
+            i += 1
+            if i % 64 == 0:
+                ro.tick()
+        hist = list(ro.history)
+        if ro.active or not hist or hist[-1]["event"] != "rollback":
+            fail(f"(r): the perturbed shadow did not roll back: {hist}")
+        print(f"{tag} fleet of 2 replicas on {devs}: each bit for bit; a "
+              f"perturbed shadow candidate rolled back after {i} requests "
+              f"({hist[-1]}); card: {card}")
+        clock = [1000.0]
+        ro.clock = lambda: clock[0]
+        ro.start(lt.Booster(model_str=text))
+        cname = canary_name("default")
+        cands = [r_.registry.current(cname).engine
+                 for r_ in fs.pool.replicas]
+        i = 0
+        while min(*ro.comparator.counts()) < ro.min_samples:
+            q = (i // 2) % len(Xq)   # both sides see query q
+            if fs.predict(Xq[q])[0] != want_q[q]:
+                fail("(r): a clean canary answered differently")
+            i += 1
+            if i > 20_000:
+                fail("(r): the canary's comparator never filled")
+        time.sleep(0.1)
+        state1 = ro.tick()
+        clock[0] += ro.window_s + 1.0
+        state2 = ro.tick()
+        live = [r_.registry.current("default") for r_ in fs.pool.replicas]
+        if (state1, state2) != ("canary", "idle") or any(
+                sm.version != 2 or sm.engine is not e
+                for sm, e in zip(live, cands)):
+            fail(f"(r): the clean canary did not promote by handoff "
+                 f"({state1}, {state2}, {ro.history[-1:]})")
+        o, v = fs.predict_versioned(Xq[7])
+        if v != 2 or o[0] != want_q[7]:
+            fail("(r): the promoted version answers differently")
+        print(f"{tag} a clean canary promoted after {i} requests by handing "
+              f"its warmed engines over (version 2 on every replica, bit "
+              f"for bit); card: {card}")
+    finally:
+        fs.close()
+    del ds, bst
+    torch.cuda.empty_cache()
+    return sec
 
 
 def card_line() -> str:
@@ -3716,6 +4256,9 @@ def main() -> int:
     print(f"elapsed after path (k): {time.perf_counter() - t_start:.1f} s")
     bundled_path()
     slice_ms["cli"] = cli_path(launches_all, card)
+    t0 = time.perf_counter()
+    slice_ms["serve"] = serve_path(X, y, launches_all, card)
+    print(f"path (r) cold start and serve: {time.perf_counter() - t0:.1f} s")
     for nm in kernels:
         kernels[nm]["launches"] = launches_all[nm]
     print(f"elapsed after paths (g)-(l): "

@@ -13,7 +13,10 @@ on both growers; cross-validation ``cv`` and the scikit-learn style
 ``LGBM*`` estimators; crash-safe snapshots and their resume, the non-finite
 guard and fault injection; the command line ``python -m
 lightgbm_tpu_torch``, the text parser, a C API, TreeSHAP contributions,
-C++ code generation and plotting) on
+C++ code generation and plotting; a chunked, pipelined Dataset ingest and
+a background kernel prewarm; serving through ``serving.PredictEngine``,
+the coalescing ``server.PredictServer`` and the ``fleet`` package, over
+``task=serve`` or the C API) on
 an NVIDIA Hopper GPU through eight hand-written CUDA kernels
 (``ops/hist_kernels.py``, ``csrc/``). It imports torch and numpy only:
 nothing of JAX and nothing of the ``lightgbm_tpu`` reference package.

@@ -12,9 +12,11 @@ Tasks: ``train`` (through ``engine.train``, so ``snapshot_freq`` and
 ``resume_from_snapshot`` work as in Python; the model goes to
 ``output_model``), ``predict`` (``predict_raw_score``,
 ``predict_leaf_index``, ``predict_contrib``, ``num_iteration_predict``;
-results to ``output_result``), ``refit`` and ``convert_model`` (C++ to
-``convert_model``). ``serve`` and ``online`` are not ported yet (ROADMAP.md
-A18, A19). Training and prediction run on the GPU unless
+results to ``output_result``), ``refit``, ``convert_model`` (C++ to
+``convert_model``) and ``serve`` (the newline protocol of ``server.py`` over
+stdin/stdout, or TCP with ``serve_port``; ``fleet_replicas`` > 1 serves
+through a ``FleetServer``). ``online`` is not ported yet (ROADMAP.md A19).
+Training, prediction and serving run on the GPU unless
 ``device_type=cpu`` is given. The telemetry knobs (``telemetry``,
 ``metrics_out``, ``xla_trace_out``) apply to every task: ``train`` exports
 through ``engine.train``, ``predict`` and ``refit`` when they finish.
@@ -212,6 +214,54 @@ def run_convert_model(conf: Config, params: Dict) -> None:
     log.info(f"Finished converting model; C++ code saved to {out}")
 
 
+def run_serve(conf: Config, params: Dict) -> None:
+    """task=serve: publish input_model into a hot-swappable registry behind
+    the request-coalescing microbatcher (server.py) and serve the newline
+    protocol, over TCP when serve_port > 0, else over stdin/stdout
+    (reference: app.py:227-273).
+
+    Protocol (one line a request):
+      ``v1,v2,...``       feature row -> ``<version>\t<score>``
+      ``!publish <path>`` atomic hot-swap to a new model version
+      ``!canary <path> [fraction] [shadow|canary]`` start a rollout
+      ``!promote`` / ``!rollback``   manual rollout transitions
+      ``!stats`` / ``!fleet_stats``  one-line JSON
+      ``!quit``           shut down
+
+    With ``fleet_replicas > 1`` a :class:`~.fleet.service.FleetServer`
+    serves instead: N replicas behind the least-outstanding balancer, the
+    same protocol.
+    """
+    if not conf.input_model:
+        log.fatal("No model file: set input_model=<file>")
+    from .server import serve_stdio, serve_tcp
+    if conf.fleet_replicas > 1:
+        from .fleet.service import FleetServer
+        server = FleetServer(conf, model=conf.input_model)
+        log.info(f"Published {conf.input_model} to {conf.fleet_replicas} "
+                 f"{conf.fleet_mode} replicas; serving "
+                 f"(window={conf.serve_batch_window_us}us, "
+                 f"queue_max={conf.serve_queue_max})")
+    else:
+        from .server import PredictServer
+        server = PredictServer(conf, model=conf.input_model)
+        log.info(f"Published {conf.input_model} as version 1; serving "
+                 f"(window={conf.serve_batch_window_us}us, "
+                 f"queue_max={conf.serve_queue_max}, "
+                 f"max_batch_rows={conf.serve_max_batch_rows})")
+    flush_owner = obs.start_periodic_flush(conf.metrics_flush_secs)
+    try:
+        if conf.serve_port > 0:
+            serve_tcp(server, "0.0.0.0", conf.serve_port)
+        else:
+            served = serve_stdio(server, sys.stdin, sys.stdout)
+            log.info(f"Finished serving; {served} lines handled")
+    finally:
+        obs.stop_periodic_flush(flush_owner)
+        server.close()
+        _export_telemetry(conf)
+
+
 def _configure_logging(conf: Config) -> None:
     """The CLI's log lines on stderr at the level ``verbosity`` asks for."""
     logger = logging.getLogger("lightgbm_tpu_torch")
@@ -247,8 +297,7 @@ def main(argv: List[str], log_to_stderr: bool = False) -> int:
     elif task == "convert_model":
         run_convert_model(conf, params)
     elif task == "serve":
-        raise NotImplementedError("task=serve is not ported yet (ROADMAP.md "
-                                  "queue A18: serving)")
+        run_serve(conf, params)
     elif task == "online":
         raise NotImplementedError("task=online is not ported yet (ROADMAP.md "
                                   "queue A19: continuous learning)")

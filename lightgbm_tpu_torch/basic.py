@@ -27,12 +27,12 @@ import dataclasses
 import json
 import os
 import time
-from typing import Any, Callable, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from .binning import (BIN_CATEGORICAL, BinMapper, bin_data, bin_data_sparse,
+from .binning import (BIN_CATEGORICAL, BinMapper, bin_data_sparse,
                       bin_sparse_column, find_bin_mappers,
                       find_bin_mappers_sparse, used_features)
 from . import efb, obs
@@ -143,6 +143,11 @@ def _to_numpy_2d(data, pandas_categorical: Optional[List] = None
     return arr
 
 
+# the trainer of each boosting type (reference: booster_class,
+# basic.py:1010)
+TRAINERS = {"gbdt": GBDT, "goss": GOSS, "dart": DART, "rf": RF}
+
+
 class Dataset:
     """Training or validation data (reference: lightgbm.Dataset).
 
@@ -187,6 +192,8 @@ class Dataset:
         self.label: Optional[torch.Tensor] = None
         self.weight: Optional[torch.Tensor] = None
         self.device: Optional[torch.device] = None
+        # the background kernel warm-up of the construct (prewarm.py)
+        self._prewarm = None
         self._names: List[str] = []
         # data None: a Dataset that subset or load_binary fills in
         self.num_data = 0 if data is None else int(np.shape(data)[0])
@@ -334,8 +341,13 @@ class Dataset:
             mark("find_bins_s")
             self.bundle_meta = self._plan_efb(conf, raw, sparse)
             mark("efb_plan_s")
-        self.bins = self._encode(raw, sparse)
-        mark("encode_s")
+            if not sparse:
+                # the mappers and the plan fix the kernel path: load and
+                # warm the kernels while the bulk ingest below runs
+                from . import prewarm
+                self._prewarm = prewarm.maybe_start(conf, self)
+        self.bins = self._encode(raw, sparse, conf, phases)
+        mark("stream_s")
         self._derive_meta()
         for what, arr in (("label", self.label_np),
                           ("weight", self.weight_np)):
@@ -399,10 +411,14 @@ class Dataset:
             sample_cnt=sample_bins.shape[0], seed=conf.data_random_seed,
             exclude=exclude)
 
-    def _encode(self, raw, sparse: bool) -> torch.Tensor:
+    def _encode(self, raw, sparse: bool, conf: Config,
+                phases: Dict[str, Any]) -> torch.Tensor:
         """The uint8 [N, F] bins on the device: one column a used feature,
         or the EFB plan's columns (encoded straight from the CSC columns
-        for sparse input; bundled on the device for dense input)."""
+        for sparse input; for dense input streamed through the chunked
+        pipeline of ``ingest.py`` at ``ingest_chunk_rows`` rows a chunk and
+        ``encode_threads`` host threads, binned and bundled on the
+        device)."""
         meta = self.bundle_meta
         if sparse:
             if meta is not None:
@@ -410,22 +426,30 @@ class Dataset:
                                          meta, self.device)
             return bin_data_sparse(raw, self.mappers, self.feature_map,
                                    self.device)
-        bins = bin_data(raw, self.mappers, list(self.feature_map),
-                        self.device)
-        return bins if meta is None else efb.apply_bundles(bins, meta)
+        from .ingest import stream_with_recovery
+        bins, _ = stream_with_recovery(
+            raw, self.mappers, list(self.feature_map), meta, self.device,
+            chunk_rows=conf.ingest_chunk_rows,
+            encode_threads=conf.encode_threads, phases=phases,
+            policy=conf.on_device_fault)
+        return bins
 
-    def _derive_meta(self) -> None:
-        """Bins and missing bin of each column of ``bins`` (reference:
+    def column_bins(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Bins and missing bin (-1: none) of each column of ``bins``,
+        known once the mappers and the EFB plan are (reference:
         _derive_meta, basic.py:435-455): a bundle column has its plan's
         bins and no missing bin."""
         meta = self.bundle_meta
         if meta is None:
-            num_bins = np.array([m.num_bins for m in self.mappers])
-            na = np.array([m.na_bin for m in self.mappers])
-        else:
-            num_bins = np.asarray(meta.num_bins)
-            na = np.array([self.mappers[mem[0][0]].na_bin if len(mem) == 1
-                           else -1 for mem in meta.members])
+            return (np.array([m.num_bins for m in self.mappers]),
+                    np.array([m.na_bin for m in self.mappers]))
+        return (np.asarray(meta.num_bins),
+                np.array([self.mappers[mem[0][0]].na_bin if len(mem) == 1
+                          else -1 for mem in meta.members]))
+
+    def _derive_meta(self) -> None:
+        """The columns' bin counts and missing bins on the device."""
+        num_bins, na = self.column_bins()
         self._max_num_bins = int(num_bins.max()) if len(num_bins) else 1
         self.na_bin_dev = torch.as_tensor(
             np.where(na < 0, _NO_NA_BIN, na).astype(np.int32),
@@ -756,10 +780,7 @@ class Booster:
         metrics = create_metrics(
             conf.metric or [default_metric_for_objective(conf.objective)],
             conf)
-        # the trainer of the boosting type (reference: booster_class,
-        # basic.py:1010)
-        trainer = {"gbdt": GBDT, "goss": GOSS, "dart": DART,
-                   "rf": RF}[boosting_kind(conf.boosting)]
+        trainer = TRAINERS[boosting_kind(conf.boosting)]
         self._gbdt = trainer(conf, train_set, objective, metrics)
         self.objective = objective
 
@@ -910,17 +931,38 @@ class Booster:
             from .io.shap import tree_shap_ensemble
             return tree_shap_ensemble(np.asarray(x_np, np.float64), trees, k,
                                       np.zeros(k))
-        x = torch.as_tensor(x_np, device=self._device()).to(torch.float64)
-        if pred_leaf:
-            return P.predict_leaf(trees, x).cpu().numpy()
-        raw = P.predict_raw(trees, x, k)
-        if self.average_output() and trees:
-            raw = raw / (len(trees) // k)
-        if not raw_score:
-            obj = self._objective_for_predict()
-            if obj is not None:
-                raw = obj.convert_output(raw)
-        return raw.cpu().numpy()
+        # the cached serving engine (serving.py): the tables stay on the
+        # device across calls; ops/predict.predict_raw / predict_leaf are
+        # its plain versions
+        return self._predict_engine_for(trees, x_np.shape[1], k).predict(
+            x_np, raw_score=raw_score, pred_leaf=pred_leaf)
+
+    def _predict_engine_for(self, trees: List[Tree], n_features: int,
+                            k: int):
+        """The PredictEngine of the current tree list, cached; rebuilt when
+        the list holds another tree at any position: another count (the
+        reference's key, _predict_engine_for, basic.py:1256-1276), or the
+        same count after a rollback and an update, a shuffle or a
+        reload."""
+        from .serving import PredictEngine
+        engine = getattr(self, "_predict_engine", None)
+        if engine is None or len(engine.trees) != len(trees) or any(
+                a is not b for a, b in zip(engine.trees, trees)):
+            reason = "new" if engine is None else "invalidated"
+            engine = PredictEngine(trees, n_features, k,
+                                   self.average_output(),
+                                   objective=self._objective_for_predict(),
+                                   upload_reason=reason,
+                                   device=self._device())
+            self._predict_engine = engine
+            if obs.enabled():
+                obs.METRICS.counter("predict_engine_cache",
+                                    "engine cache lookups",
+                                    outcome="miss").inc()
+        elif obs.enabled():
+            obs.METRICS.counter("predict_engine_cache",
+                                "engine cache lookups", outcome="hit").inc()
+        return engine
 
     def _objective_for_predict(self):
         if self._gbdt is not None:

@@ -458,7 +458,8 @@ def used_features(mappers: Sequence[BinMapper]) -> List[int]:
 def bin_data(data: np.ndarray, mappers: Sequence[BinMapper],
              columns: Sequence[int], device: torch.device) -> torch.Tensor:
     """Encode the raw columns ``columns`` of ``data`` [N, F] with their
-    mappers into a uint8 [N, len(columns)] matrix on ``device``."""
+    mappers into a uint8 [N, len(columns)] matrix on ``device``, a column
+    at a time: the plain version of ``ingest.py``'s pipeline."""
     n = data.shape[0]
     out = torch.empty((n, len(columns)), dtype=torch.uint8, device=device)
     for k, j in enumerate(columns):

@@ -7,9 +7,11 @@ copy. The entry names and signatures are the reference's, so one C host
 binds either package's library. The device is chosen as everywhere in
 this package: ``device_type`` in the parameters (a config file's, a
 parameter string's, or the parameter echo of a loaded model file), the GPU
-by default. Serving (``server_*``, ROADMAP.md A18) and continuous learning
-(``dataset_append``, ``online_*``, A19) raise ``NotImplementedError``,
-which the C side returns as an error with its message.
+by default. Serving (``server_*``: create, predict, publish, stats,
+canary, promote, rollback, fleet stats, close) runs ``server.py`` and
+``fleet/``; continuous learning (``dataset_append``, ``online_*``, ROADMAP.md
+A19) raises ``NotImplementedError``, which the C side returns as an error
+with its message.
 """
 from __future__ import annotations
 
@@ -192,11 +194,119 @@ def _unported(what: str, item: str, name: str):
                               f"{item}: {name})")
 
 
-# ---- serving (ROADMAP.md A18) and continuous learning (A19) ----
+# ---- online serving (server.py; reference analog:
+# LGBM_BoosterPredictForMatSingleRowFast, c_api.h:919, a pre-configured
+# fast path for interactive traffic; this one also coalesces concurrent
+# callers into shared device batches and hot-swaps model versions) ----
 
 def server_create(model_path: str, params_str: str):
-    _unported("the C API's server_* entries", "A18", "serving")
+    """Opaque PredictServer handle (a FleetServer with fleet_replicas > 1):
+    publishes ``model_path`` as version 1, its engine built and warmed on
+    the device before the call returns; the device is the parameters'
+    ``device_type``, else the model file's parameter echo's. A missing
+    file fails with its name."""
+    import os
+    if not os.path.exists(model_path):
+        raise FileNotFoundError(f"model file {model_path!r} not found")
+    with open(model_path) as fh:
+        # a model serves where it was trained unless the parameters say
+        params = {**_echo_params(fh.read()), **_parse_params(params_str)}
+    if int(Config(params).fleet_replicas) > 1:
+        from .fleet.service import FleetServer
+        return FleetServer(params, model=model_path)
+    from .server import PredictServer
+    return PredictServer(params, model=model_path)
 
+
+def server_predict(server, data_addr: int, nrow: int, ncol: int,
+                   raw_score: int, pred_leaf: int, out_addr: int,
+                   out_cap: int) -> int:
+    """Coalesced predict: blocks until the scheduler's flush serves this
+    request (concurrent C threads share device dispatches). Returns doubles
+    written, -1 if out_cap is too small, -2 if shed at overload."""
+    from .server import ServeOverload
+    src = (ctypes.c_double * (nrow * ncol)).from_address(data_addr)
+    x = np.frombuffer(src, dtype=np.float64).reshape(nrow, ncol)
+    try:
+        out = server.predict(x, raw_score=bool(raw_score),
+                             pred_leaf=bool(pred_leaf))
+    except ServeOverload:
+        return -2
+    out = np.ascontiguousarray(np.asarray(out, dtype=np.float64)).reshape(-1)
+    if out.size > out_cap:
+        return -1
+    ctypes.memmove(out_addr, out.ctypes.data, out.nbytes)
+    return int(out.size)
+
+
+def server_publish(server, model_path: str) -> int:
+    """Atomic hot-swap to a new model version; returns the new version
+    number. In-flight requests finish on the version that was current when
+    their flush started; the old version's device tables are freed once it
+    drains."""
+    return int(server.publish(model_path))
+
+
+def server_stats_json(server) -> str:
+    """One-line JSON: scheduler counters (requests/flushes/shed/coalesce
+    factor/queue depth), per-model registry state incl. ``age_s`` freshness,
+    and — when configured — SLO attainment/burn-rate plus p50/p95/p99
+    request-latency summaries."""
+    import json
+    return json.dumps(server.stats(), sort_keys=True)
+
+
+def server_canary(server, model_path: str, fraction: float,
+                  shadow: int) -> int:
+    """Start a canary/shadow rollout of ``model_path`` against the live
+    model: canary routes ``fraction`` of traffic to the candidate, shadow
+    duplicates it with zero user exposure. Auto-promotes after the
+    drift-free window, auto-rolls-back on PSI/KS divergence. Returns the
+    candidate version, -1 on failure."""
+    try:
+        ro = server.ensure_rollout()
+        return int(ro.start(model_path,
+                            fraction=fraction if fraction > 0 else None,
+                            shadow=bool(shadow)))
+    except Exception:
+        return -1
+
+
+def server_promote(server) -> int:
+    """Promote the active canary now (its warmed engine is re-homed as the
+    live version, no rebuild). Returns the new live version, -1 if no
+    canary is active."""
+    try:
+        return int(server.ensure_rollout().promote())
+    except Exception:
+        return -1
+
+
+def server_rollback(server) -> int:
+    """Roll the active canary back now: the candidate drains and is freed,
+    the incumbent keeps serving. Returns the incumbent version, -1 if no
+    canary is active."""
+    try:
+        return int(server.ensure_rollout().rollback())
+    except Exception:
+        return -1
+
+
+def server_fleet_stats_json(server) -> str:
+    """One-line JSON of the fleet/rollout plane: replica health + routing
+    counters (FleetServer), admission-control states, rollout state machine
+    + comparator PSI/KS."""
+    import json
+    return json.dumps(server.fleet_stats(), sort_keys=True)
+
+
+def server_close(server) -> int:
+    """Drain queued requests, stop the scheduler thread."""
+    server.close()
+    return 0
+
+
+# ---- continuous learning (ROADMAP.md A19) ----
 
 def dataset_append(ds, data_addr: int, nrow: int, ncol: int,
                    label_addr: int) -> int:

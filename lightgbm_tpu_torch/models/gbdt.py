@@ -18,7 +18,7 @@ column, with the grower ``_grow_fn`` picks (:1297-1304):
 ``grow_tree_depthwise`` for ``grow_policy=depthwise``, or
 ``grow_tree_depthwise_lean`` when ``histogram_pool_size`` gives it a
 feature tile, the leaf-wise ``grow_tree`` otherwise, with a histogram pool
-when ``histogram_pool_size`` caps its cached leaves (``_pool_sizes``,
+when ``histogram_pool_size`` caps its cached leaves (``pool_sizes``,
 :136-184; the lean grower keeps the fused front off, :716). Each tree
 is finished as ``_finish_tree`` (:1559-1578) does: the objective's leaf
 renewal (L1 family) on the pre-tree score column, shrinkage, the first
@@ -67,7 +67,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import obs
+from .. import obs, prewarm
 from ..binning import BIN_CATEGORICAL
 from ..config import Config
 from ..log import LightGBMError, fatal, info, warning
@@ -144,7 +144,7 @@ def padded_bins(max_num_bins: int) -> int:
     return 64 if max_num_bins <= 64 else (128 if max_num_bins <= 128 else 256)
 
 
-def resolve_quant(config: Config) -> bool:
+def resolve_quant(config: Config, log: bool = True) -> bool:
     """use_quantized_grad as the reference resolves it (gbdt.py:123-134):
     true, or auto on the kernel path, turns the int8 histograms on, but
     only for the depthwise grower. The port always runs the kernel path
@@ -152,11 +152,177 @@ def resolve_quant(config: Config) -> bool:
     uq = str(config.use_quantized_grad).lower()
     quant_on = uq in ("true", "1", "auto")
     if quant_on and config.grow_policy != "depthwise":
-        if uq in ("true", "1"):
+        if log and uq in ("true", "1"):
             warning("use_quantized_grad only applies to the depthwise "
                     f"grower; ignoring for grow_policy={config.grow_policy}")
         quant_on = False
     return quant_on
+
+
+def cegb_enabled(config: Config) -> bool:
+    """Whether any cegb_* penalty is set."""
+    return (config.cegb_penalty_split > 0.0
+            or any(config.cegb_penalty_feature_coupled or [])
+            or any(config.cegb_penalty_feature_lazy or []))
+
+
+def pool_sizes(config: Config, f: int, B: int, cegb: bool,
+               log: bool = True) -> Tuple[int, int]:
+    """(hist_pool, lean_ft) of histogram_pool_size MB (reference:
+    gbdt.py:136-184): when the whole frontier's [L, 3, F, B] f32
+    histograms exceed the budget, the leaf-wise grower caches
+    max(2, budget // one leaf's) of them, and the depthwise grower
+    turns lean with a feature tile of width budget // (2 (L // 2) 3 B
+    4), unless CEGB, forced splits, feature_fraction_bynode or
+    extra_trees keep its whole frontier (a warning)."""
+    if config.histogram_pool_size <= 0:
+        return 0, 0
+    per_leaf = 3 * f * B * 4
+    budget = int(config.histogram_pool_size * (1 << 20))
+    cap = budget // max(1, per_leaf)
+    if cap >= config.num_leaves:
+        return 0, 0
+    if config.grow_policy != "depthwise":
+        if log:
+            info(f"histogram pool: {max(2, cap)} cached leaf histograms "
+                 "(evicted parents rebuild)")
+        return max(2, cap), 0
+    incompat = [what for what, on in (
+        ("CEGB", cegb),
+        ("forced splits", bool(config.forcedsplits_filename)),
+        ("feature_fraction_bynode", config.feature_fraction_bynode < 1.0),
+        ("extra_trees", bool(config.extra_trees))) if on]
+    if incompat:
+        if log:
+            warning("histogram_pool_size is ignored for the depthwise grower "
+                    f"with {', '.join(incompat)}; the whole-frontier state "
+                    "is kept")
+        return 0, 0
+    slots = 2 * max(1, config.num_leaves // 2)
+    lean_ft = max(1, min(f, budget // max(1, slots * 3 * B * 4)))
+    if log:
+        info(f"histogram pool: lean depthwise mode, feature tile {lean_ft}/"
+             f"{f} (budget {config.histogram_pool_size}MB < "
+             f"{per_leaf * config.num_leaves >> 20}MB whole-frontier state)")
+    return 0, lean_ft
+
+
+# the CUDA kernels (ops/hist_kernels names) each trainer path launches
+_FUSED_KERNELS = ("grad_quant_hist0", "hist_routed_fused", "leaf_sums_grad",
+                  "take_small")
+_Q8_KERNELS = ("hist_q8", "route_level", "leaf_sums", "take_small",
+               "hist_routed_fused")
+_F32_KERNELS = ("hist_f32", "route_level", "take_small")
+_LOSSGUIDE_KERNELS = ("hist_f32", "take_small")
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelPath:
+    """What decides a trainer's kernel path: its grower, the int8
+    histograms, CEGB, forced splits, the histogram pool, the fused front
+    and the const-hessian elision."""
+    depthwise: bool
+    quant: bool
+    cegb: bool
+    forced: bool
+    hist_pool: int
+    lean_ft: int
+    fused: bool
+    const_hess: bool
+
+    @property
+    def kernels(self) -> Tuple[str, ...]:
+        """The CUDA kernels this path launches."""
+        if not self.depthwise:
+            return _LOSSGUIDE_KERNELS
+        if self.fused:
+            return _FUSED_KERNELS
+        return _Q8_KERNELS if self.quant else _F32_KERNELS
+
+
+def kernel_path(config: Config, f: int, B: int, k: int, fused_obj: bool,
+                const_hess_obj: bool, custom_grad: bool, forced: bool,
+                log: bool = True) -> KernelPath:
+    """The kernel path of a trainer of ``config`` on F grower columns of B
+    padded bins with k trees an iteration, whose objective has a fused
+    spec (``fused_obj``) and a constant hessian (``const_hess_obj``), and
+    which is handed materialized gradients (``custom_grad``) or forced
+    splits. The reference's fused-front gate (``_fused_front``,
+    :695-729): one model an iteration of an objective with a fused spec
+    (unweighted L2 or binary), the quantized depthwise grower, no CEGB or
+    forced splits, no lean feature tile, and an [F * B] root histogram of
+    at most 2048 cells; anything else materializes the gradients and takes
+    the unfused front. ``GBDT.__init__`` and ``prewarm.expected_spec``
+    both decide the path here."""
+    depthwise = config.grow_policy == "depthwise"
+    quant = resolve_quant(config, log)
+    cegb = depthwise and cegb_enabled(config)
+    hist_pool, lean_ft = pool_sizes(config, f, B, cegb, log)
+    fused = (fused_obj and not custom_grad and k == 1 and quant
+             and depthwise and f * B <= ACC_ROWS_MAX and not cegb
+             and not forced and lean_ft == 0)
+    # constant-hessian elision is a property of the quantized channels of
+    # the objective's own gradients (gbdt.py:737-744)
+    return KernelPath(depthwise=depthwise, quant=quant, cegb=cegb,
+                      forced=forced, hist_pool=hist_pool, lean_ft=lean_ft,
+                      fused=fused, const_hess=(quant and const_hess_obj
+                                               and not custom_grad))
+
+
+def forced_split_arrays(config: Config, train_set, log: bool = True
+                        ) -> Optional[Tuple[List[int], ...]]:
+    """The forcedsplits_filename JSON tree as flat lists (feature, bin,
+    left, right), or None (reference: ``_build_forced``, gbdt.py:476-531):
+    each node's feature in the grower's columns and its threshold as a bin
+    through the feature's mapper. A forced feature that EFB bundled, or a
+    categorical one, warns and drops its subtree."""
+    if not config.forcedsplits_filename:
+        return None
+    with open(config.forcedsplits_filename) as fh:
+        root = json.load(fh)
+    inv = {int(o): u for u, o in enumerate(train_set.feature_map)}
+    meta = train_set.bundle_meta
+    col_of = None
+    if meta is not None:
+        col_of = {mem[0][0]: c for c, mem in enumerate(meta.members)
+                  if len(mem) == 1}
+    feats: List[int] = []
+    bins_: List[int] = []
+    lefts: List[int] = []
+    rights: List[int] = []
+
+    def rec(node) -> int:
+        if node is None or "feature" not in node:
+            return -1
+        raw_f = int(node["feature"])
+        used = inv.get(raw_f, raw_f)
+        col = used
+        if col_of is not None:
+            if used not in col_of:
+                if log:
+                    warning(f"forced split feature {raw_f} was bundled by "
+                            "EFB; ignoring this forced subtree")
+                return -1
+            col = col_of[used]
+        m = train_set.mappers[used]
+        if m.bin_type == BIN_CATEGORICAL:
+            if log:
+                warning("categorical forced splits are not supported; "
+                        "ignoring this forced subtree")
+            return -1
+        b = int(m.values_to_bins(np.asarray([float(node["threshold"])]))[0])
+        i = len(feats)
+        feats.append(col)
+        bins_.append(b)
+        lefts.append(-1)
+        rights.append(-1)
+        lefts[i] = rec(node.get("left"))
+        rights[i] = rec(node.get("right"))
+        return i
+
+    if rec(root) < 0:
+        return None
+    return feats, bins_, lefts, rights
 
 
 def tree_delta(tree: TreeArrays, data) -> torch.Tensor:
@@ -208,7 +374,6 @@ class GBDT:
             fs = objective.fused_grad_spec()
             if fs is not None:
                 spec, self._aux = fs
-        quant = resolve_quant(config)
         # the grower's columns: the EFB plan's (bundles and single
         # features), else one a used feature
         meta = train_set.bundle_meta
@@ -231,16 +396,12 @@ class GBDT:
         self.depthwise = config.grow_policy == "depthwise"
         cegb_coupled, cegb_lazy = self._cegb_setup(config, train_set)
         self.forced = self._build_forced(config, train_set)
-        # the reference's fused-front gate (_fused_front, :695-729): one
-        # model an iteration of an objective with a fused spec (unweighted
-        # L2 or binary), the quantized depthwise grower, no CEGB or forced
-        # splits, and an [F * B] root histogram of at most 2048 cells;
-        # anything else materializes the gradients and takes the unfused
-        # front
-        hist_pool, lean_ft = self._pool_sizes(config, f, B)
-        if (self._custom_grad or k != 1 or not (quant and self.depthwise)
-                or f * B > ACC_ROWS_MAX or self._cegb_ok
-                or self.forced is not None or lean_ft > 0):
+        self.path = kernel_path(
+            config, f, B, k, fused_obj=spec is not None,
+            const_hess_obj=(objective is not None
+                            and bool(objective.is_constant_hessian)),
+            custom_grad=self._custom_grad, forced=self.forced is not None)
+        if not self.path.fused:
             spec = None
         self.gp = GrowParams(
             num_leaves=config.num_leaves, max_depth=config.max_depth,
@@ -271,14 +432,9 @@ class GBDT:
                                     if self._cegb_ok else 0.0),
                 cegb_coupled=cegb_coupled is not None,
                 cegb_lazy=cegb_lazy is not None),
-            quant=quant,
-            # constant-hessian elision is a property of the quantized
-            # channels of the objective's own gradients (gbdt.py:737-744)
-            const_hess=(quant and objective is not None
-                        and bool(objective.is_constant_hessian)
-                        and not self._custom_grad),
+            quant=self.path.quant, const_hess=self.path.const_hess,
             fused_obj=spec, ff_bynode=float(config.feature_fraction_bynode),
-            hist_pool=hist_pool, lean_ft=lean_ft)
+            hist_pool=self.path.hist_pool, lean_ft=self.path.lean_ft)
         # the step's parameters for gradients handed in (fobj): neither the
         # fused front nor the const-hessian elision
         self.gp_custom = dataclasses.replace(self.gp, fused_obj=None,
@@ -340,43 +496,11 @@ class GBDT:
         self.valid_sets: List = []
         self.valid_names: List[str] = []
         self.valid_scores: List[torch.Tensor] = []
-
-    def _pool_sizes(self, config: Config, f: int, B: int
-                    ) -> Tuple[int, int]:
-        """(hist_pool, lean_ft) of histogram_pool_size MB (reference:
-        gbdt.py:136-184): when the whole frontier's [L, 3, F, B] f32
-        histograms exceed the budget, the leaf-wise grower caches
-        max(2, budget // one leaf's) of them, and the depthwise grower
-        turns lean with a feature tile of width budget // (2 (L // 2) 3 B
-        4), unless CEGB, forced splits, feature_fraction_bynode or
-        extra_trees keep its whole frontier (a warning)."""
-        if config.histogram_pool_size <= 0:
-            return 0, 0
-        per_leaf = 3 * f * B * 4
-        budget = int(config.histogram_pool_size * (1 << 20))
-        cap = budget // max(1, per_leaf)
-        if cap >= config.num_leaves:
-            return 0, 0
-        if not self.depthwise:
-            info(f"histogram pool: {max(2, cap)} cached leaf histograms "
-                 "(evicted parents rebuild)")
-            return max(2, cap), 0
-        incompat = [what for what, on in (
-            ("CEGB", self._cegb_ok),
-            ("forced splits", bool(config.forcedsplits_filename)),
-            ("feature_fraction_bynode", config.feature_fraction_bynode < 1.0),
-            ("extra_trees", bool(config.extra_trees))) if on]
-        if incompat:
-            warning("histogram_pool_size is ignored for the depthwise grower "
-                    f"with {', '.join(incompat)}; the whole-frontier state is "
-                    "kept")
-            return 0, 0
-        slots = 2 * max(1, config.num_leaves // 2)
-        lean_ft = max(1, min(f, budget // max(1, slots * 3 * B * 4)))
-        info(f"histogram pool: lean depthwise mode, feature tile {lean_ft}/"
-             f"{f} (budget {config.histogram_pool_size}MB < "
-             f"{per_leaf * config.num_leaves >> 20}MB whole-frontier state)")
-        return 0, lean_ft
+        # the background kernel warm-up of the Dataset's construct
+        # (prewarm.py): joined here, before the first launch
+        handle = getattr(train_set, "_prewarm", None)
+        self.prewarm_adopted = (handle is not None
+                                and prewarm.adopt(handle, self))
 
     def _cegb_setup(self, config: Config, train_set):
         """The CEGB penalty vectors in the grower's columns, or None each
@@ -387,7 +511,7 @@ class GBDT:
         ignores it. Sets ``self._cegb_ok``."""
         cp = list(config.cegb_penalty_feature_coupled or [])
         lp = list(config.cegb_penalty_feature_lazy or [])
-        enabled = config.cegb_penalty_split > 0.0 or any(cp) or any(lp)
+        enabled = cegb_enabled(config)
         self._cegb_ok = enabled and config.grow_policy == "depthwise"
         if not enabled:
             return None, None
@@ -417,62 +541,15 @@ class GBDT:
 
     def _build_forced(self, config: Config, train_set
                       ) -> Optional[ForcedSplits]:
-        """The forcedsplits_filename JSON tree as flat arrays (reference:
-        ``_build_forced``, gbdt.py:476-531): each node's feature in the
-        grower's columns and its threshold as a bin through the feature's
-        mapper. A forced feature that EFB bundled, or a categorical one,
-        warns and drops its subtree."""
-        if not config.forcedsplits_filename:
-            return None
-        with open(config.forcedsplits_filename) as fh:
-            root = json.load(fh)
-        inv = {int(o): u for u, o in enumerate(train_set.feature_map)}
-        meta = train_set.bundle_meta
-        col_of = None
-        if meta is not None:
-            col_of = {mem[0][0]: c for c, mem in enumerate(meta.members)
-                      if len(mem) == 1}
-        feats: List[int] = []
-        bins_: List[int] = []
-        lefts: List[int] = []
-        rights: List[int] = []
-
-        def rec(node) -> int:
-            if node is None or "feature" not in node:
-                return -1
-            raw_f = int(node["feature"])
-            used = inv.get(raw_f, raw_f)
-            col = used
-            if col_of is not None:
-                if used not in col_of:
-                    warning(f"forced split feature {raw_f} was bundled by "
-                            "EFB; ignoring this forced subtree")
-                    return -1
-                col = col_of[used]
-            m = train_set.mappers[used]
-            if m.bin_type == BIN_CATEGORICAL:
-                warning("categorical forced splits are not supported; "
-                        "ignoring this forced subtree")
-                return -1
-            b = int(m.values_to_bins(
-                np.asarray([float(node["threshold"])]))[0])
-            i = len(feats)
-            feats.append(col)
-            bins_.append(b)
-            lefts.append(-1)
-            rights.append(-1)
-            lefts[i] = rec(node.get("left"))
-            rights[i] = rec(node.get("right"))
-            return i
-
-        if rec(root) < 0:
+        """``forced_split_arrays`` on the training device."""
+        arrays = forced_split_arrays(config, train_set)
+        if arrays is None:
             return None
 
         def dev(v):
             return torch.as_tensor(np.asarray(v, np.int64),
                                    device=self.device)
-        return ForcedSplits(feat=dev(feats), bin=dev(bins_), left=dev(lefts),
-                            right=dev(rights))
+        return ForcedSplits(*(dev(v) for v in arrays))
 
     @staticmethod
     def _monotone_tuple(config: Config, train_set) -> tuple:

@@ -17,6 +17,9 @@ from .gbdt import GBDT
 
 class RF(GBDT):
     average_output = True
+    # every tree is handed the constant gradients as materialized rows:
+    # the reference's custom step, no fused front
+    _custom_grad = True
 
     def __init__(self, config, train_set, objective, metrics=None):
         if not (config.bagging_freq > 0

@@ -299,3 +299,40 @@ class Tree:
             threshold_real=thr, missing_type=mt,
             shrinkage=float(kv.get("shrinkage", 1.0)),
             is_cat_node=is_cat, cat_sets=cat_sets)
+
+
+def ensemble_max_depth(stack: Dict[str, np.ndarray]) -> int:
+    """Longest root->leaf DECISION count across stacked trees (host-side).
+
+    The serving walk (serving.py) runs this many steps, every tree at once,
+    with no host sync inside; num_leaves - 1 (254 at L=255) instead of the
+    actual depth (~10 for depthwise trees) would run ~25x the steps.
+    Children always carry larger node ids than their parents (both growers
+    assign ids split- or level-ordered), so one forward pass over nodes
+    computes exact depths. (Reference: models/tree.py:510.)"""
+    lc = np.asarray(stack["left_child"])
+    rc = np.asarray(stack["right_child"])
+    nl = np.asarray(stack["num_leaves"])
+    t_cnt, m = lc.shape
+    if t_cnt == 0:
+        return 1
+    node_iota = np.arange(m)[None, :]
+    if (((lc >= 0) & (lc <= node_iota)) | ((rc >= 0) & (rc <= node_iota))).any():
+        # non-monotone node ordering (foreign model file): conservative bound
+        return int(max(1, nl.max() - 1))
+    depth = np.zeros((t_cnt, m), dtype=np.int32)
+    depth[:, 0] = (nl > 1).astype(np.int32)
+    best = depth[:, 0].copy()
+    rows = np.arange(t_cnt)
+    for t in range(m):
+        d = depth[:, t]
+        active = d > 0
+        if not active.any():
+            continue
+        best = np.maximum(best, d)
+        for ch in (lc[:, t], rc[:, t]):
+            valid = active & (ch > t) & (ch < m)
+            idx = np.where(valid, ch, 0)
+            nd = np.where(valid, d + 1, 0)
+            np.maximum.at(depth, (rows, idx), nd)
+    return int(max(1, best.max()))

@@ -8,10 +8,11 @@
 // lightgbm_tpu_torch.capi_impl. The LGBMTPU_* names and signatures are the
 // reference package's, so one C host binds either library: train from a
 // config file, a booster from a model file or string, dense-matrix
-// predict, save, a Dataset from memory with stepwise training, and
-// LGBMTPU_GetLastError, the reference c_api.cpp's error convention (a
-// nonzero return, the message through GetLastError). The serving and
-// continuous-learning entries return an error naming their ROADMAP item.
+// predict, save, a Dataset from memory with stepwise training, a
+// coalescing prediction server (LGBMTPU_Server*), and LGBMTPU_GetLastError,
+// the reference c_api.cpp's error convention (a nonzero return, the
+// message through GetLastError). The continuous-learning entries return
+// an error naming their ROADMAP item.
 //
 // Threading: every entry takes the GIL through PyGILState_Ensure, so a
 // host may call from any thread, one that already runs Python too.
@@ -21,6 +22,7 @@
 
 #include <Python.h>
 
+#include <cstring>
 #include <mutex>
 #include <string>
 
@@ -402,9 +404,76 @@ int LGBMTPU_BoosterSaveModel(void* handle, const char* filename) {
   return 0;
 }
 
-// ---- serving (ROADMAP.md A18) and continuous learning (A19): each returns
-// -1 with GetLastError naming its item ----
+// ---- serving (server.py, fleet/): an opaque server handle, coalesced
+// predicts from any host thread, hot-swap, canary rollouts and stats ----
 
+namespace {
+
+// a server entry returning an int through ``out`` (-1 from Python: the
+// entry's own failure, named by ``what``)
+int server_int(const char* method, PyObject* args, int* out,
+               const char* what) {
+  if (args == nullptr) {
+    capture_py_error();
+    return -1;
+  }
+  PyObject* fn = PyObject_GetAttrString(g_impl, method);
+  if (fn == nullptr) {
+    capture_py_error();
+    Py_XDECREF(args);
+    return -1;
+  }
+  PyObject* r = PyObject_CallObject(fn, args);
+  Py_DECREF(fn);
+  Py_XDECREF(args);
+  if (r == nullptr) {
+    capture_py_error();
+    return -1;
+  }
+  long v = PyLong_AsLong(r);
+  Py_DECREF(r);
+  if (v < 0) {
+    set_error(what);
+    return -1;
+  }
+  if (out != nullptr) *out = static_cast<int>(v);
+  return 0;
+}
+
+// a server entry returning a JSON string into buf (capacity cap, NUL
+// included); out_len receives the string's length. Returns -1 with the
+// needed length in out_len when buf is too small
+int server_json(void* server, const char* method, char* buf, long long cap,
+                long long* out_len) {
+  PyObject* r = PyObject_CallMethod(g_impl, method, "O",
+                                    static_cast<PyObject*>(server));
+  if (r == nullptr) {
+    capture_py_error();
+    return -1;
+  }
+  Py_ssize_t n = 0;
+  const char* c = PyUnicode_AsUTF8AndSize(r, &n);
+  if (c == nullptr) {
+    capture_py_error();
+    Py_DECREF(r);
+    return -1;
+  }
+  *out_len = static_cast<long long>(n);
+  if (static_cast<long long>(n) + 1 > cap) {
+    Py_DECREF(r);
+    set_error("output buffer too small");
+    return -1;
+  }
+  std::memcpy(buf, c, static_cast<size_t>(n) + 1);
+  Py_DECREF(r);
+  return 0;
+}
+
+}  // namespace
+
+// Start a PredictServer (a FleetServer with fleet_replicas > 1 in params)
+// on a model file: version 1 is published and warmed before the call
+// returns. Free with LGBMTPU_ServerClose.
 int LGBMTPU_ServerCreate(const char* model_path, const char* params,
                          void** out) {
   ensure_interpreter();
@@ -419,6 +488,120 @@ int LGBMTPU_ServerCreate(const char* model_path, const char* params,
   *out = static_cast<void*>(r);
   return 0;
 }
+
+// Coalesced predict on a dense row-major double matrix: blocks until the
+// scheduler's flush that serves it (concurrent host threads share device
+// batches). Returns 0, -1 on an error, -2 when the request was shed at
+// overload (back off and retry).
+int LGBMTPU_ServerPredict(void* server, const double* data, long long nrow,
+                          int ncol, int raw_score, int pred_leaf,
+                          double* out_result, long long out_cap,
+                          long long* out_len) {
+  ensure_interpreter();
+  GilGuard gil;
+  if (ensure_impl() != 0) return -1;
+  PyObject* r = PyObject_CallMethod(
+      g_impl, "server_predict", "OLLiiiLL", static_cast<PyObject*>(server),
+      static_cast<long long>(reinterpret_cast<intptr_t>(data)), nrow, ncol,
+      raw_score, pred_leaf,
+      static_cast<long long>(reinterpret_cast<intptr_t>(out_result)),
+      out_cap);
+  if (r == nullptr) {
+    capture_py_error();
+    return -1;
+  }
+  long long n = PyLong_AsLongLong(r);
+  Py_DECREF(r);
+  if (n == -2) {
+    set_error("request shed: the serving queue is full");
+    return -2;
+  }
+  if (n < 0) {
+    set_error("output buffer too small");
+    return -1;
+  }
+  *out_len = n;
+  return 0;
+}
+
+// Atomic hot-swap to a new model file; out_version receives its version.
+int LGBMTPU_ServerPublish(void* server, const char* model_path,
+                          int* out_version) {
+  ensure_interpreter();
+  GilGuard gil;
+  if (ensure_impl() != 0) return -1;
+  return server_int("server_publish",
+                    Py_BuildValue("(Os)", static_cast<PyObject*>(server),
+                                  model_path),
+                    out_version, "publish failed");
+}
+
+// One-line JSON of the scheduler, registry, SLO and latency state.
+int LGBMTPU_ServerStatsJSON(void* server, char* buf, long long cap,
+                            long long* out_len) {
+  ensure_interpreter();
+  GilGuard gil;
+  if (ensure_impl() != 0) return -1;
+  return server_json(server, "server_stats_json", buf, cap, out_len);
+}
+
+// Start a canary (shadow != 0: a shadow) rollout of a model file;
+// fraction <= 0 takes canary_fraction. out_version: the candidate's.
+int LGBMTPU_ServerCanary(void* server, const char* model_path,
+                         double fraction, int shadow, int* out_version) {
+  ensure_interpreter();
+  GilGuard gil;
+  if (ensure_impl() != 0) return -1;
+  return server_int("server_canary",
+                    Py_BuildValue("(Osdi)", static_cast<PyObject*>(server),
+                                  model_path, fraction, shadow),
+                    out_version, "canary failed");
+}
+
+// Promote the active canary now; out_version: the new live version.
+int LGBMTPU_ServerPromote(void* server, int* out_version) {
+  ensure_interpreter();
+  GilGuard gil;
+  if (ensure_impl() != 0) return -1;
+  return server_int("server_promote",
+                    Py_BuildValue("(O)", static_cast<PyObject*>(server)),
+                    out_version, "no active canary to promote");
+}
+
+// Roll the active canary back now; out_version: the incumbent's.
+int LGBMTPU_ServerRollback(void* server, int* out_version) {
+  ensure_interpreter();
+  GilGuard gil;
+  if (ensure_impl() != 0) return -1;
+  return server_int("server_rollback",
+                    Py_BuildValue("(O)", static_cast<PyObject*>(server)),
+                    out_version, "no active canary to roll back");
+}
+
+// One-line JSON of the fleet and rollout state.
+int LGBMTPU_ServerFleetStatsJSON(void* server, char* buf, long long cap,
+                                 long long* out_len) {
+  ensure_interpreter();
+  GilGuard gil;
+  if (ensure_impl() != 0) return -1;
+  return server_json(server, "server_fleet_stats_json", buf, cap, out_len);
+}
+
+// Drain queued requests, stop the scheduler and free the handle.
+int LGBMTPU_ServerClose(void* server) {
+  if (server == nullptr) return 0;
+  ensure_interpreter();
+  GilGuard gil;
+  if (ensure_impl() != 0) return -1;
+  int rc = server_int("server_close",
+                      Py_BuildValue("(O)", static_cast<PyObject*>(server)),
+                      nullptr, "close failed");
+  Py_DECREF(static_cast<PyObject*>(server));
+  return rc;
+}
+
+// ---- continuous learning (ROADMAP.md A19): each returns -1 with
+// GetLastError naming its item ----
 
 int LGBMTPU_DatasetAppend(void* handle, const double* data, long long nrow,
                           int ncol, const double* label) {

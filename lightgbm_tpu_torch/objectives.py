@@ -97,8 +97,18 @@ class ObjectiveFunction:
         self.label = label
         self.weight = weight
         self.num_data = int(label.shape[0])
-        self.is_constant_hessian = (type(self).is_constant_hessian
-                                    and weight is None)
+        self.is_constant_hessian = self.constant_hessian(weight is not None)
+
+    @classmethod
+    def constant_hessian(cls, weighted: bool) -> bool:
+        """``is_constant_hessian`` after ``init`` with or without weights."""
+        return cls.is_constant_hessian and not weighted
+
+    def fuses(self, weighted: bool) -> bool:
+        """Whether the fused gradient front replays this objective's
+        gradients: only the exact unweighted L2 and binary objectives
+        (subclasses override get_gradients)."""
+        return not weighted and type(self) in (RegressionL2, Binary)
 
     def get_gradients(self, score: torch.Tensor):
         raise NotImplementedError
@@ -134,9 +144,7 @@ class RegressionL2(ObjectiveFunction):
                          self.weight)
 
     def fused_grad_spec(self):
-        # subclasses override get_gradients, so only the exact unweighted
-        # L2 objective replays in the fused front
-        if type(self) is not RegressionL2 or self.weight is not None:
+        if not self.fuses(self.weight is not None):
             return None
         return ("l2",), self.label
 
@@ -317,7 +325,7 @@ class Binary(ObjectiveFunction):
                          self.weight)
 
     def fused_grad_spec(self):
-        if type(self) is not Binary or self.weight is not None:
+        if not self.fuses(self.weight is not None):
             return None
         return self._spec(), self.label_pos
 

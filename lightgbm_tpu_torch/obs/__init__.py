@@ -26,12 +26,17 @@ The port emits the reference's events where its code has the reference's
 moments: ``train_iter``, ``resume``, ``snapshot_write``,
 ``fault_injected``, ``dist_retry``, ``nonfinite_guard``,
 ``hist_pack_fallback``, ``flight_dump``, ``obs_server``, ``slo_breach``,
-``freshness_breach``. Every type of the reference stays registered with
-its fields, and these are not emitted: ``compile`` (it counts jit cache
-growth; the port traces nothing), ``aot_prewarm`` and ``ingest_chunk``
-(cold start, ROADMAP A17), ``hist_allreduce``, ``device_fault`` and the
-``mesh_*`` events (multi-GPU, A21), ``dataset_append`` and the online and
-WAL events (continuous learning, A19), the serving and fleet events (A18).
+``freshness_breach``; the cold start's ``ingest_chunk``, ``aot_prewarm``
+and ``device_fault`` (ingest.py, prewarm.py; a serving flush's device
+fault too); the serving and fleet events (``engine_upload``,
+``predict_batch``, ``serve_publish``, ``serve_retire``, ``serve_flush``,
+``serve_shed``, ``admission_state``, ``admission_shed``,
+``canary_start``, ``canary_promote``, ``canary_rollback``,
+``fleet_publish``, ``replica_health``). Every type of the reference stays
+registered with its fields, and these are not emitted: ``compile`` (it
+counts jit cache growth; the port traces nothing), ``hist_allreduce`` and
+the ``mesh_*`` events (multi-GPU, A21), ``dataset_append`` and the online
+and WAL events (continuous learning, A19).
 """
 from __future__ import annotations
 

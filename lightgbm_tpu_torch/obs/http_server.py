@@ -1,9 +1,10 @@
 """In-process HTTP observability endpoint (stdlib ``http.server``).
 
-Port of ``lightgbm_tpu/obs/http_server.py`` (host code, copied). In the
-reference only serving starts it (``maybe_start``); the port's serving and
-fleet (ROADMAP A18) will wire it. Off by default; ``obs_port=<port>`` starts one daemon-threaded server bound
-to 127.0.0.1 serving three read-only paths:
+Port of ``lightgbm_tpu/obs/http_server.py`` (host code, copied). Serving
+starts it (``maybe_start``): ``server.PredictServer`` and
+``fleet.FleetServer`` call it with their parameters and register their
+status sections. Off by default; ``obs_port=<port>`` starts one
+daemon-threaded server bound to 127.0.0.1 serving three read-only paths:
 
     /metrics   live Prometheus scrape of ``obs.METRICS`` (collectors run
                first, so derived gauges — event drops, model age — are fresh)

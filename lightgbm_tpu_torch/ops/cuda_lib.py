@@ -138,6 +138,7 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
+        t0 = time.perf_counter()
         target = os.path.join(BUILD_DIR, f"liblgbt_kernels_{_digest()}.so")
         BUILD_INFO.update(path=target, built=False, seconds=0.0, log="")
         if not os.path.exists(target):
@@ -147,6 +148,8 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        # the seconds of this load, the build included when there was one
+        BUILD_INFO["load_s"] = time.perf_counter() - t0
         _lib = lib
         return lib
 

@@ -37,8 +37,10 @@ and then launches the CUDA kernel when its tensors lie on a CUDA device, or
 runs the plain version when they lie on the CPU. A CUDA tensor never falls
 back to the plain version: the kernel launches or the wrapper raises.
 ``LAUNCHES`` counts kernel launches, one per wrapper call on the CUDA path
-and nowhere else. A call can issue several CUDA launches: grad_quant_hist0
-two (max, quantize + histogram); hist_q8 and hist_f32 four with a slot
+and nowhere else; the launches of :func:`warm` (the cold-start prewarm's
+tiny inputs, ``prewarm.py``) go to ``WARM_LAUNCHES`` instead. A call can
+issue several CUDA launches: grad_quant_hist0 two (max, quantize +
+histogram); hist_q8 and hist_f32 four with a slot
 vector over S > 1 slots (count, scan, scatter, histogram;
 ``csrc/slot_hist.cuh``), three when handed route_level's per-slot counts
 (as the two-pass level hands them), two over one slot (scatter, histogram)
@@ -64,6 +66,7 @@ from __future__ import annotations
 import bisect
 import ctypes
 import functools
+import threading
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -86,9 +89,22 @@ LEAF_WARPS = 16
 MAX_LEVELS = 8
 
 
+# launches made by warm(), counted apart so that no path's launch contract
+# sees them
+WARM_LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
+_counting = threading.local()
+
+
 def reset_launches() -> None:
     for k in KERNELS:
         LAUNCHES[k] = 0
+
+
+def _count(name: str) -> None:
+    """One launch of ``name``: into ``LAUNCHES``, or into
+    ``WARM_LAUNCHES`` on a thread inside :func:`warm`."""
+    table = WARM_LAUNCHES if getattr(_counting, "warm", False) else LAUNCHES
+    table[name] += 1
 
 
 def _device_of(*tensors: torch.Tensor) -> torch.device:
@@ -449,7 +465,7 @@ def grad_quant_hist0(bins_T: torch.Tensor, score: torch.Tensor,
         cq.data_ptr(), scales.data_ptr(), hist.data_ptr(), plan.max_grid,
         plan.blocks, plan.quads, _stream(dev))
     cuda_lib.check(rc, "grad_quant_hist0")
-    LAUNCHES["grad_quant_hist0"] += 1
+    _count("grad_quant_hist0")
     return gq, hq, cq, scales, hist
 
 
@@ -504,7 +520,7 @@ def hist_routed_fused(bins_T: torch.Tensor, gq: torch.Tensor,
         slot.data_ptr(), idx.data_ptr(), rec.data_ptr(), rec_words,
         hist.data_ptr(), lid2.data_ptr(), _stream(dev))
     cuda_lib.check(rc, "hist_routed_fused")
-    LAUNCHES["hist_routed_fused"] += 1
+    _count("hist_routed_fused")
     return hist, lid2
 
 
@@ -607,7 +623,7 @@ def hist_routed_fused_multi(bins_T: torch.Tensor, gq: torch.Tensor,
         idx.data_ptr(), rec.data_ptr(), rec_words, hist.data_ptr(),
         lid.data_ptr(), _stream(dev))
     cuda_lib.check(rc, "hist_routed_fused_multi")
-    LAUNCHES["hist_routed_fused_multi"] += 1
+    _count("hist_routed_fused_multi")
     return hist, lid
 
 
@@ -651,7 +667,7 @@ def _leaf_sums_launch(name: str, fn, args, n: int, num_leaves: int,
     rc = fn(*args, plan.warps, plan.grid, part.data_ptr(), out.data_ptr(),
             _stream(dev))
     cuda_lib.check(rc, name)
-    LAUNCHES[name] += 1
+    _count(name)
     return out
 
 
@@ -692,7 +708,7 @@ def take_small(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                                          l, out.data_ptr(), grid,
                                          _stream(dev))
     cuda_lib.check(rc, "take_small")
-    LAUNCHES["take_small"] += 1
+    _count("take_small")
     return out
 
 
@@ -899,7 +915,7 @@ def _slot_hist(name: str, bins_T: torch.Tensor, bins, chans, slot, counts,
         plan.min_rows, plan.pass_blocks, _ptr(idx), _ptr(rec), rec_words,
         hist.data_ptr(), _stream(dev))
     cuda_lib.check(rc, name)
-    LAUNCHES[name] += 1
+    _count(name)
     return hist
 
 
@@ -983,7 +999,7 @@ def route_level(bins_T: torch.Tensor, leaf_id: torch.Tensor,
         num_slots, slot.data_ptr(), lid2.data_ptr(), counts.data_ptr(),
         pass_blocks(n, _num_sms(dev)), _stream(dev))
     cuda_lib.check(rc, "route_level")
-    LAUNCHES["route_level"] += 1
+    _count("route_level")
     return slot, lid2, counts
 
 
@@ -1039,3 +1055,55 @@ def hist_f32(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
         return hist_f32_plain(bins_T, g, h, c, slot, num_slots, num_bins)
     return _slot_hist("hist_f32", bins_T, bins, (g, h, c), slot, counts,
                       num_slots, num_bins, 3, torch.float32, 3, col0)
+
+
+def warm(names: Sequence[str], device: torch.device, num_bins: int = 64,
+         const_hess: bool = False) -> Dict[str, int]:
+    """Launch each kernel of ``names`` once on a tiny input on ``device``
+    (256 rows, 2 features, ``num_bins`` bins, a root split into 2 slots),
+    so that the library is loaded and each kernel's function is resident
+    before training launches it. Runs on a stream of its own and counts
+    its launches in ``WARM_LAUNCHES``, never in ``LAUNCHES``; returns the
+    launches it made."""
+    before = dict(WARM_LAUNCHES)
+    n, f = 256, 2
+    gen = torch.Generator().manual_seed(0)
+    bins_T = torch.randint(0, num_bins, (f, n), generator=gen,
+                           dtype=torch.int64).to(torch.uint8).to(device)
+    bins = bins_T.t().contiguous()
+    na_bin = torch.full((f,), 256, dtype=torch.int32, device=device)
+    # leaf 0 splits on feature 0 at bin num_bins // 2 into slots 0 and 1
+    tables = torch.tensor([[0], [num_bins // 2], [0], [1], [0], [1]],
+                          dtype=torch.int32, device=device)
+    leaf = torch.zeros(n, dtype=torch.int32, device=device)
+    score = torch.zeros(n, dtype=torch.float32, device=device)
+    ones = torch.ones(n, dtype=torch.float32, device=device)
+    q = torch.ones(n, dtype=torch.int8, device=device)
+    hq = None if const_hess else q
+    _counting.warm = True
+    try:
+        if "grad_quant_hist0" in names:
+            grad_quant_hist0(bins_T, score, ones, ones, 0, ("l2",), num_bins,
+                             const_hess)
+        if "hist_routed_fused" in names:
+            hist_routed_fused(bins_T, q, hq, q, leaf, tables, na_bin, 2,
+                              num_bins, bins=bins)
+        if "leaf_sums_grad" in names:
+            leaf_sums_grad(score, ones, ones, leaf, ("l2",), 2)
+        if "take_small" in names:
+            take_small(torch.zeros(2, dtype=torch.float32, device=device),
+                       leaf)
+        route = route_level if "route_level" in names else route_plain
+        slot, _, counts = route(bins_T, leaf, tables, na_bin, 2)
+        if "hist_q8" in names:
+            hist_q8(bins_T, q, hq, q, slot, 2, num_bins, bins=bins,
+                    counts=counts)
+        if "hist_f32" in names:
+            hist_f32(bins_T, score, ones, ones, slot, 2, num_bins,
+                     bins=bins, counts=counts)
+        if "leaf_sums" in names:
+            leaf_sums(score, ones, ones, leaf, 2)
+    finally:
+        _counting.warm = False
+    return {k: WARM_LAUNCHES[k] - before[k] for k in KERNELS
+            if WARM_LAUNCHES[k] != before[k]}

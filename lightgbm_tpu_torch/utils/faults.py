@@ -24,14 +24,19 @@ point                     fires in
                           through it
 ``tree_update``           engine.train, at the top of each boosting
                           iteration (the kill-and-resume crash)
+``device_put_oom``        ingest.py, at each chunk's host-to-device copy,
+                          and serving.py, at the upload of a batch's
+                          pseudo-bins; raises the real
+                          ``torch.cuda.OutOfMemoryError`` type
+``prewarm_compile``       prewarm.py, at the start of the background
+                          library load and kernel warm-up
 ========================  ===================================================
 
 The others fire in modules that are not ported yet, and arming one raises
 ``NotImplementedError`` naming its ROADMAP.md item (``UNPORTED_POINTS``):
-the device points (``DEVICE_FAULT_POINTS``: simulated device OOM, a lost
-shard, a dead collective) and the distributed bootstrap belong to the
-multi-GPU work (A21), the feed log and online trainer points to
-continuous learning (A19).
+the sharded device points (a lost shard, a dead collective) and the
+distributed bootstrap belong to the multi-GPU work (A21), the feed log
+and online trainer points to continuous learning (A19).
 """
 from __future__ import annotations
 
@@ -57,8 +62,8 @@ _OOM_POINTS = ("device_put_oom",)
 
 # point -> the ROADMAP.md item whose module holds its site
 UNPORTED_POINTS = {
-    **{p: "A21" for p in DEVICE_FAULT_POINTS + ("mapper_allgather",
-                                                "dist_init")},
+    **{p: "A21" for p in ("shard_commit", "hist_allreduce",
+                          "mapper_allgather", "dist_init")},
     **{p: "A19" for p in ("wal_append", "dataset_append", "online_train",
                           "online_publish", "join_capture", "join_label",
                           "join_commit")},
@@ -81,6 +86,15 @@ class FaultInjected(RuntimeError):
         self.hit = hit
 
 
+def _oom_error(point: str, hit: int) -> BaseException:
+    """A simulated device OOM of the real type, ``torch.cuda.OutOfMemoryError``
+    (the reference raises XLA's RESOURCE_EXHAUSTED error type), so the
+    recovery paths take the branch a real OOM takes."""
+    import torch
+    return torch.cuda.OutOfMemoryError(
+        f"CUDA out of memory: injected device OOM at '{point}' (hit #{hit})")
+
+
 def is_resource_exhausted(exc: BaseException) -> bool:
     """True for a device allocation failure: torch's
     ``OutOfMemoryError`` (the reference matches XLA's RESOURCE_EXHAUSTED
@@ -96,6 +110,19 @@ def is_device_fault(exc: BaseException) -> bool:
     if isinstance(exc, FaultInjected):
         return exc.point in DEVICE_FAULT_POINTS
     return is_resource_exhausted(exc)
+
+
+def classify_point(exc: BaseException, default: str = "device") -> str:
+    """The fault point's name for telemetry: a ``FaultInjected``'s point, a
+    registry name in a simulated OOM's message, else ``default`` (a real
+    fault carries no point)."""
+    if isinstance(exc, FaultInjected):
+        return exc.point
+    msg = str(exc)
+    for p in DEVICE_FAULT_POINTS:
+        if p in msg:
+            return p
+    return default
 
 
 def _parse_spec(spec: str) -> Dict[str, list]:
@@ -164,7 +191,8 @@ def _ensure_env_loaded() -> None:
 
 def fault_point(name: str) -> None:
     """Hot-path hook: nothing unless ``name`` is armed; else raise
-    ``FaultInjected`` while the armed count lasts."""
+    ``FaultInjected`` (for the simulated-OOM points the real
+    ``torch.cuda.OutOfMemoryError`` type) while the armed count lasts."""
     with _lock:
         _ensure_env_loaded()
         state = _armed.get(name)
@@ -181,6 +209,8 @@ def fault_point(name: str) -> None:
         hit = _hits[name]
     from .. import obs   # lazy: obs -> atomic_io -> this module
     obs.emit("fault_injected", point=name, hit=hit)
+    if name in _OOM_POINTS:
+        raise _oom_error(name, hit)
     raise FaultInjected(name, hit)
 
 

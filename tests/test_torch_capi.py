@@ -11,8 +11,9 @@ tests/test_torch_train.py's loaded reference models). A C host trains
 stepwise from an
 in-memory matrix and ends with the model text of ``train`` on the same
 rows. The error convention: a failing call returns nonzero and
-LGBMTPU_GetLastError names the cause; the serving and continuous-learning
-entries name their ROADMAP item. Skips where there is no g++, gcc or
+LGBMTPU_GetLastError names the cause (a server on a missing model file
+names the file); the continuous-learning entries name their ROADMAP item.
+The server entries' round trip is in tests/test_torch_server.py. Skips where there is no g++, gcc or
 Python.h to build and link against.
 """
 import ctypes
@@ -288,8 +289,10 @@ def test_capi_error_convention(capi, tmp_path):
     assert capi.LGBMTPU_BoosterCreateFromModelfile(
         str(tmp_path / "no_such_model.txt").encode(), ctypes.byref(h)) == -1
     assert b"no_such_model" in capi.LGBMTPU_GetLastError()
-    assert capi.LGBMTPU_ServerCreate(b"m.txt", b"", ctypes.byref(h)) == -1
-    assert b"A18" in capi.LGBMTPU_GetLastError()
+    assert capi.LGBMTPU_ServerCreate(
+        str(tmp_path / "no_such_server_model.txt").encode(), b"",
+        ctypes.byref(h)) == -1
+    assert b"no_such_server_model" in capi.LGBMTPU_GetLastError()
     X, _ = _data(20, 3)
     d = ctypes.c_void_p()
     assert capi.LGBMTPU_DatasetCreateFromMat(_dptr(X), 20, 3, PARAMS.encode(),

@@ -11,6 +11,7 @@ tree's structure exact (C1: later binary trees inherit the CPU exp gap),
 predictions rtol 1e-4 (C2: the reference renews leaves from bf16 hi/lo
 sums), refit leaves rtol 1e-4.
 """
+import io
 import os
 import pickle
 import subprocess
@@ -347,9 +348,38 @@ def test_cli_refit_matches_reference(cli_runs):
 
 
 @pytest.mark.parametrize("task,item", [("serve", "A18"), ("online", "A19")])
-def test_cli_serve_and_online_not_ported(tmp_path, task, item):
-    with pytest.raises(NotImplementedError, match=item):
-        app.main([f"task={task}", "input_model=m.txt", "data=d.tsv"])
+def test_cli_serve_and_online_not_ported(tmp_path, monkeypatch, capsys, task,
+                                         item):
+    """task=online (A19) is not ported and raises naming its item; task=serve
+    (A18) is: over stdin/stdout it answers each feature row with its version
+    and the model's prediction, hot-swaps on !publish and stops at !quit."""
+    if task == "online":
+        with pytest.raises(NotImplementedError, match=item):
+            app.main([f"task={task}", "input_model=m.txt", "data=d.tsv"])
+        return
+    X, y = _rows(300, 4, 9)
+    p = {"objective": "binary", "num_leaves": 7, "verbosity": -1,
+         "device_type": "cpu"}
+    models = []
+    for rounds in (2, 3):
+        b = lt.train(p, lt.Dataset(X, label=y, params=p), rounds)
+        path = str(tmp_path / f"m{rounds}.txt")
+        b.save_model(path)
+        models.append((b, path))
+    rows = ["\t".join("%.17g" % v for v in X[i]) for i in range(3)]
+    script = (f"{rows[0]}\n{rows[1]}\n!publish {models[1][1]}\n{rows[2]}\n"
+              "!quit\n")
+    monkeypatch.setattr(sys, "stdin", io.StringIO(script))
+    app.main([f"task={task}", f"input_model={models[0][1]}",
+              "device_type=cpu", "verbosity=-1"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[2] == "ok version=2"
+    for line, (i, ver, b) in zip((out[0], out[1], out[3]),
+                                 ((0, "1", models[0][0]),
+                                  (1, "1", models[0][0]),
+                                  (2, "2", models[1][0]))):
+        v, score = line.split("\t")
+        assert v == ver and float(score) == b.predict(X[i:i + 1])[0]
 
 
 def test_cli_binary_cache_and_reference_pickle(tmp_path, caplog):

@@ -76,6 +76,16 @@ column offset, aligned or not) equal their plain versions on the tile
 (hist_q8 exactly, hist_f32 as above); the lean grower, quantized and not,
 and the pooled leaf-wise grower train the CPU's trees (as with weights;
 the unquantized first tree bit for bit, later ones within 2^-17).
+Cold start and serving: the chunked ingest pipeline on the card (pinned
+staging buffers, a copy stream, events) gives the bins of its plain
+version (the column-at-a-time encode) and of the CPU pipeline byte for
+byte, with chunks that reuse each staging buffer several times, and
+after a device_put_oom halving; the prewarm
+loads the library and warms the fused path's kernels with its launches
+counted apart; the serving engine's walk on the card gives the CPU walk's
+leaf indices and scores bit for bit, and a steady-state loop of flushes
+through a PredictServer adds no allocator retry
+(``torch.cuda.memory_stats()["num_alloc_retries"]``).
 """
 import os
 import subprocess
@@ -1505,3 +1515,124 @@ def test_gpu_lean_and_pooled_trees_equal_cpu(dev, path):
                 * np.abs(b.leaf_value).max())
         else:
             np.testing.assert_array_equal(a.leaf_value, b.leaf_value)
+
+
+# ---- cold start and serving ----
+
+def _ingest_rows(n, f, seed):
+    rng = np.random.RandomState(seed)
+    X = rng.rand(n, f).astype(np.float32)
+    X[:, 3] = rng.randint(0, 5, n)
+    X[rng.rand(n, f) < 0.02] = np.nan
+    return X, (X[:, 0] > 0.5).astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_ingest_pipeline_on_the_card_equals_plain(dev):
+    from lightgbm_tpu_torch import ingest
+    from lightgbm_tpu_torch.binning import bin_data
+    X, y = _ingest_rows(200_003, 9, 1)
+    ds = lt.Dataset(X, label=y, params={"verbosity": -1,
+                                        "ingest_chunk_rows": 10 ** 9})
+    ds.construct()
+    plain = bin_data(X, ds.mappers, list(ds.feature_map), dev)
+    assert torch.equal(ds.bins, plain)
+    # 7 threads x many small chunks: each staging buffer is reused
+    got = ingest.stream_encode_upload(
+        X, ds.mappers, list(ds.feature_map), None, dev, chunk_rows=4097,
+        encode_threads=7)
+    assert torch.equal(got, plain)
+    st = ingest.last_stats()
+    assert st["chunks"] == -(-X.shape[0] // 4097)
+    assert st["h2d_s"] > 0 and st["commit_s"] > 0
+    cpu = ingest.stream_encode_upload(
+        X, ds.mappers, list(ds.feature_map), None, torch.device("cpu"),
+        chunk_rows=50_000, encode_threads=2)
+    assert torch.equal(got.cpu(), cpu)
+
+
+@pytest.mark.cuda
+def test_ingest_oom_halving_on_the_card(dev):
+    from lightgbm_tpu_torch import ingest
+    from lightgbm_tpu_torch.utils import faults
+    X, y = _ingest_rows(100_000, 6, 2)
+    want = lt.Dataset(X, label=y, params={"verbosity": -1}).construct().bins
+    faults.configure("device_put_oom:1")
+    try:
+        ds = lt.Dataset(X, label=y, params={"verbosity": -1,
+                                            "ingest_chunk_rows": 30_000})
+        ds.construct()
+    finally:
+        faults.reset()
+    assert ingest.last_stats()["chunk_rows"] == 15_000
+    assert torch.equal(ds.bins, want)
+
+
+@pytest.mark.cuda
+def test_prewarm_warms_the_fused_path_counted_apart(dev, monkeypatch):
+    from lightgbm_tpu_torch import prewarm
+    monkeypatch.setattr(prewarm, "MIN_PREWARM_ROWS", 0)
+    X, y = _ingest_rows(50_000, 8, 3)
+    p = {"objective": "binary", "max_bin": 63, "verbosity": -1}
+    ds = lt.Dataset(X, label=y, params=p)
+    ds.construct()
+    h = ds._prewarm.join()
+    assert "error" not in h.result, h.result
+    assert h.result["warmed"] == {k: 1 for k in h.kernels}
+    hk.reset_launches()
+    bst = lt.train(p, ds, 1)
+    assert bst._gbdt.prewarm_adopted
+    assert hk.LAUNCHES["grad_quant_hist0"] == 1   # the training's own
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cat", [False, True])
+def test_engine_walk_on_the_card_equals_cpu(dev, cat):
+    from lightgbm_tpu_torch.serving import PredictEngine
+    rng = np.random.RandomState(4)
+    X = rng.rand(3000, 8)
+    if cat:
+        X[:, 2] = rng.randint(0, 9, 3000)
+    y = X[:, 0] * 3 + (X[:, 2] % 3 == 0) + rng.randn(3000) * 0.05
+    p = {"objective": "regression", "num_leaves": 31, "verbosity": -1,
+         "device_type": "cpu"}
+    b = lt.train(p, lt.Dataset(X, label=y, params=p,
+                               categorical_feature=[2] if cat else "auto"),
+                 10)
+    q = rng.rand(1000, 8)
+    if cat:
+        q[:, 2] = rng.randint(-1, 11, 1000)
+    q[rng.rand(1000, 8) < 0.05] = np.nan
+    engines = [PredictEngine(b._host_trees(), 8, 1, False,
+                             objective=b._objective_for_predict(),
+                             chunk_rows=256, device=d)
+               for d in (dev, torch.device("cpu"))]
+    for kw in ({"pred_leaf": True}, {"raw_score": True}, {}):
+        on_card, on_cpu = (e.predict(q, **kw) for e in engines)
+        assert np.array_equal(on_card, on_cpu), kw
+
+
+@pytest.mark.cuda
+def test_serve_flush_loop_adds_no_allocator_retry(dev):
+    from lightgbm_tpu_torch.server import PredictServer
+    rng = np.random.RandomState(5)
+    X = rng.rand(2000, 8)
+    y = (X[:, 0] + X[:, 1] > 1).astype(float)
+    p = {"objective": "binary", "num_leaves": 31, "verbosity": -1}
+    b = lt.train(p, lt.Dataset(X, label=y, params=p), 10)
+    srv = PredictServer({"verbosity": -1, "serve_max_batch_rows": 64},
+                        model=b)
+    try:
+        for n in (1, 8, 64):
+            srv.predict(X[:n])
+        retries = torch.cuda.memory_stats()["num_alloc_retries"]
+        eng = srv.registry.current().engine
+        seen = set(eng.stats["buckets_seen"])
+        want = b.predict(X[:64])
+        for i in range(200):
+            n = (1, 5, 8, 33, 64)[i % 5]
+            assert np.array_equal(srv.predict(X[:n]), want[:n])
+        assert torch.cuda.memory_stats()["num_alloc_retries"] == retries
+        assert eng.stats["buckets_seen"] == seen
+    finally:
+        srv.close()

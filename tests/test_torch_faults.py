@@ -274,9 +274,14 @@ def test_fault_spec_counts_skips_and_forever():
 def test_fault_spec_unknown_and_unported_points():
     with pytest.raises(ValueError, match="unknown fault point"):
         faults.configure("snapshot_wirte:1")
-    # armed points whose site is not ported are refused, never ignored
+    # armed points whose site is not ported are refused, never ignored;
+    # device_put_oom and prewarm_compile fire in ingest.py, serving.py and
+    # prewarm.py and arm
+    faults.configure("device_put_oom:1,prewarm_compile:1")
+    assert faults.is_armed("device_put_oom")
+    faults.configure(None)
     with pytest.raises(NotImplementedError, match="A21"):
-        faults.configure("device_put_oom:1")
+        faults.configure("hist_allreduce:1")
     with pytest.raises(NotImplementedError, match="A21"):
         faults.configure("dist_init:1")
     with pytest.raises(NotImplementedError, match="A19"):

@@ -6,8 +6,13 @@ Both packages train the same small models with ``telemetry=true`` and
 ``metrics_out`` and write events.jsonl, metrics.json and metrics.prom; the
 reference trains on its Pallas kernels in interpret mode. The reference's
 JAX-only events are filtered from its stream (``compile``: jit cache
-growth; ``aot_prewarm`` and ``ingest_chunk``: its cold start, ROADMAP A17),
-with the metric families only they feed. Then the event types come in the
+growth), with the metric families only they feed. The training streams
+also leave the cold start aside (``aot_prewarm``, ``ingest_chunk``): the
+port streams a valid set through its ingest pipeline where the reference
+bins it on the host; tests/test_torch_ingest.py compares the cold-start
+events of one construct. The serving streams (a publish, flushes, a shed,
+a canary and its rollback) are compared event for event. Then the event
+types come in the
 same order, each event has the same field names, and ``iteration``,
 ``path`` (relative to its run's snapshot directory), ``point``, ``policy``
 and ``where`` have the same values; timings are left aside. One
@@ -44,7 +49,8 @@ PALLAS = {"histogram_impl": "pallas", "use_quantized_grad": "true",
           "prewarm": 0}
 CPU = {"device_type": "cpu"}
 BASE = {"objective": "binary", "num_leaves": 4, "verbosity": -1}
-# the reference's events and metric families that the port does not emit
+# the reference's events and metric families that the port does not emit,
+# and the cold start, which the training streams leave aside
 JAX_ONLY_EVENTS = ("compile", "aot_prewarm", "ingest_chunk")
 JAX_ONLY_FAMILIES = ("jit_compiles", "jit_retraces", "ingest_chunks",
                      "ingest_pipeline_depth")
@@ -482,3 +488,64 @@ def test_memory_sample_and_timer_on_the_cpu():
     TIMER.begin_run()
     assert TIMER.last_run["unit"][1] == 2 and TIMER.snapshot() == {}
     assert time_op(torch.add, x, x, reps=3) >= 0.0
+
+
+def _serve_stream(server_mod, p1, p2, params, X):
+    """A publish (warm-up included), three single-row flushes, a shed of a
+    stopped one-slot queue, a shadow canary and its rollback."""
+    srv = server_mod.PredictServer(params, model=p1)
+    try:
+        for i in range(3):
+            srv.predict(X[i])
+        mb = server_mod.MicroBatcher(srv.registry, queue_max=1, start=False)
+        mb.submit_async(X[0])
+        with pytest.raises(server_mod.ServeOverload):
+            mb.submit_async(X[1])
+        mb.start()
+        mb.close(drain=True)
+        ro = srv.ensure_rollout()
+        ro.start(p2, shadow=True)
+        ro.rollback()
+    finally:
+        srv.close()
+
+
+SERVE_COMPARED = ("model", "version", "mode", "reason", "rows", "bucket",
+                  "requests", "n_trees", "num_class", "queued", "limit",
+                  "chunked")
+
+
+def test_serving_stream_matches_reference(tmp_path):
+    """The same two model files served by both packages: the same serving
+    events in the same order (engine_upload, predict_batch, serve_publish,
+    serve_flush, serve_shed, canary_start, serve_retire, canary_rollback),
+    the same field names and the same versions, models, buckets, rows and
+    reasons; the reference's compile events filtered."""
+    from lightgbm_tpu import server as ref_server
+    from lightgbm_tpu_torch import server
+    X, y = _data()
+    paths = []
+    for rounds in (2, 3):
+        p = {**BASE, **CPU}
+        path = str(tmp_path / f"m{rounds}.txt")
+        lt.train(p, lt.Dataset(X, label=y, params=p), rounds).save_model(path)
+        paths.append(path)
+    streams = []
+    for mod, o, extra in ((ref_server, ref_obs, {}), (server, obs, CPU)):
+        o.configure(enabled=True)
+        _serve_stream(mod, *paths, {"verbosity": -1,
+                                    "serve_max_batch_rows": 8, **extra},
+                      X.astype(np.float64))
+        streams.append([(e["type"],
+                         sorted(k for k in e if k not in ("ts", "type")),
+                         {k: e[k] for k in SERVE_COMPARED if k in e})
+                        for e in o.EVENTS.snapshot()
+                        if e["type"] not in ("compile", "obs_server")])
+    ref, mine = streams
+    assert mine == ref
+    types = [t for t, _, _ in mine]
+    for t in ("engine_upload", "predict_batch", "serve_publish",
+              "serve_flush", "serve_shed", "canary_start", "serve_retire",
+              "canary_rollback"):
+        assert t in types, t
+    assert types.count("serve_flush") == 4
