@@ -255,7 +255,17 @@ measured):
    6 chunks and in one, an OOM drill, two cold-start processes, 100
    iterations under the fused front's contract, the serving engine, a
    PredictServer under load, its transports and a 2-replica fleet with
-   a shadow rollback and a canary promotion (``serve_path``);
+   a shadow rollback and a canary promotion (``serve_path``); then (s)
+   "online" on (a)'s rows: b1 trained on the first 10M, the next 500,000
+   fed into a write-ahead-logged OnlineTrainer attached to a
+   PredictServer under 8 closed-loop clients, one boost cycle under the
+   fused front's launch contract (B1-B4, B4 also for b1's 20 replayed
+   trees) byte for byte the offline append + train(init_model=) + merge,
+   a refit cycle, a kill-and-replay drill across two processes
+   (scripts/torch_online_drill.py), and the !learn / capture / !label
+   lines, task=online and the C host's LGBMTPU_Online* entries
+   (scripts/torch_online_host.c), each against the Python API
+   (``online_path``);
 5. agreement, at max_bin=63 and at 255 (the 4000-row table has more than
    128 bins a feature, so the unfused path, which is asserted): the first
    tree of a 4000-row L2 model trained on the card has the structure of
@@ -1214,6 +1224,21 @@ int main(int argc, char** argv) {
 """
 
 
+_SAVED_ROWS = {}
+
+
+def saved_rows(X, y):
+    """(a)'s rows and labels as .npy files under OUT_DIR, written once for
+    the paths that hand them to other processes ((r), (s)); main removes
+    them at its end."""
+    if not _SAVED_ROWS:
+        os.makedirs(OUT_DIR, exist_ok=True)
+        for name, a in (("rows", X), ("labels", y)):
+            _SAVED_ROWS[name] = os.path.join(OUT_DIR, f"{name}.npy")
+            np.save(_SAVED_ROWS[name], a)
+    return _SAVED_ROWS["rows"], _SAVED_ROWS["labels"]
+
+
 def serve_path(X, y, launches_all, card: str) -> dict:
     """(r) "cold start and serve" at (a)'s width (synth_higgs 10.5M x 28,
     seed 0, max_bin=63, num_leaves=255, binary). 1. construct through the
@@ -1344,10 +1369,7 @@ def serve_path(X, y, launches_all, card: str) -> dict:
           f"{sec['oom_drill_s']:.3f} s; card: {card}")
 
     # 3. cold start in two fresh processes, the library already built
-    rows_f = os.path.join(work, "rows.npy")
-    labels_f = os.path.join(work, "labels.npy")
-    np.save(rows_f, X)
-    np.save(labels_f, y)
+    rows_f, labels_f = saved_rows(X, y)
     cold = {}
     for pw in (1, 0):
         t_spawn = time.time()
@@ -1371,8 +1393,6 @@ def serve_path(X, y, launches_all, card: str) -> dict:
               f"{js['load_s']} s, aot_prewarm {json.dumps(js['aot_prewarm'])}"
               f", warm-up launches {js['warm_launches']}, adopted "
               f"{js['adopted']}; card: {card}")
-    os.remove(rows_f)
-    os.remove(labels_f)
     if not cold[1]["adopted"] or cold[0]["warm_launches"]:
         fail(f"(r): the prewarm process did not adopt ({cold})")
 
@@ -1701,6 +1721,448 @@ def serve_path(X, y, launches_all, card: str) -> dict:
         fs.close()
     del ds, bst
     torch.cuda.empty_cache()
+    return sec
+
+
+# path (s) "online": (a)'s rows [0, ONLINE_BASE) train the initial model,
+# the next four batches of ONLINE_BATCH rows feed one boost cycle under
+# live serving; the CLI's task=online runs on the first ONLINE_CLI_BASE
+# rows with a feed file of ONLINE_CLI_FEED rows, the C host on the first
+# ONLINE_C_BASE with ONLINE_C_FEED rows
+ONLINE_BATCH = 125_000
+ONLINE_BASE = N - 4 * ONLINE_BATCH
+ONLINE_CLI_BASE, ONLINE_CLI_FEED = 1_000_000, 20_000
+ONLINE_C_BASE, ONLINE_C_FEED = 200_000, 1_000
+
+
+def online_path(X, y, launches_all, card: str,
+                device_type: str = "cuda") -> dict:
+    """(s) "online" at (a)'s width (synth_higgs 10.5M x 28, seed 0,
+    max_bin=63, num_leaves=255, learning_rate 0.1, min_data_in_leaf 20,
+    binary). 1. a Dataset of rows [0, 10M) and 20 iterations: b1;
+    2. PredictServer(model=b1) with an OnlineTrainer attached (online_wal
+    in a directory of its own, online_refit_rows 500,000,
+    online_boost_rounds 4, online_max_rows 10M) while 8 closed-loop
+    single-row clients run: rows [10M, 10.5M) fed in four batches of
+    125,000 with batch ids, the fourth triggering one cycle (trigger rows,
+    mode boost, 500,000 rows, version 2, the Dataset back at 10M rows, the
+    fused front's launches: B1 and B3 4, B2 one per level pass, B4 for the
+    4 new trees and b1's 20 replayed); the merged model text byte for byte
+    the offline continuation (a Dataset of rows [500,000, 10.5M) with
+    reference= the first, train(init_model=b1) 4, merge_boosters), its bins
+    the appended bins bit for bit; every client answer its version's
+    predict bit for bit, nothing shed; qps and p99 during the cycle against
+    a window without one; the cycle's seconds by part, the WAL's bytes and
+    fsync seconds; 3. a refit cycle (online_boost_rounds 0): 125,000 rows
+    of seed 1 fed and flushed publish version 3, equal to Booster.refit on
+    the same rows; 4. scripts/torch_online_drill.py in two processes over
+    one new WAL: the first feeds the 500,000 rows under
+    faults=online_publish:1 and dies, the second recovers, trains the
+    batches once and commits them, deduplicates their re-send, and ends
+    with step 2's model text byte for byte (the recovery's seconds);
+    5. serve_tcp: 100 !learn lines, 100 "<rid>|" captures and their
+    !label lines counted in the stats' online section; `python -m
+    lightgbm_tpu_torch task=online` on a 20,000-row feed file over the
+    first 1M rows (a save_binary Dataset) and the C host
+    (scripts/torch_online_host.c: LGBMTPU_DatasetAppend, LGBMTPU_Online*)
+    on 1,000 rows over the first 200,000, each model text equal to the
+    same feed through the Python API. Returns its seconds by step."""
+    import shutil
+    import socket
+    import threading
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.native.build_capi import build_capi
+    from lightgbm_tpu_torch.online import (OnlineTrainer, last_cycle_stats,
+                                           merge_boosters, tail_source)
+    from lightgbm_tpu_torch.ops import hist_kernels as hk
+    from lightgbm_tpu_torch.server import PredictServer, serve_tcp
+
+    tag = "[online (s), max_bin=63]"
+    cuda = device_type == "cuda"
+    work = os.path.join(OUT_DIR, "online_path")
+    if os.path.isdir(work):
+        shutil.rmtree(work)
+    os.makedirs(work)
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([HERE] + [p for p in sys.path
+                                                    if p]))
+    n0, nb = ONLINE_BASE, ONLINE_BATCH
+    params = {"objective": "binary", "num_leaves": L, "max_bin": 63,
+              "learning_rate": 0.1, "min_data_in_leaf": 20,
+              "verbosity": -1, "device_type": device_type}
+    cycle = {"online_refit_rows": 4 * nb, "online_boost_rounds": 4,
+             "online_max_rows": n0}
+    sec = {}
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def timed(fn):
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t
+
+    def first_diff(a, b):
+        for i, (la, lb) in enumerate(zip(a.splitlines(), b.splitlines())):
+            if la != lb:
+                return f"line {i}: {la[:120]!r} != {lb[:120]!r}"
+        return f"lengths {len(a)} != {len(b)}"
+
+    # 1. the initial model
+    ds, sec["construct_s"] = timed(lambda: lt.Dataset(
+        X[:n0], label=y[:n0], params=params).construct())
+    b1, sec["train_20_s"] = timed(lambda: lt.train(params, ds, 20))
+    b1_file = os.path.join(work, "b1.txt")
+    b1.save_model(b1_file)
+    print(f"{tag} initial model b1: construct {n0} x {X.shape[1]} "
+          f"{sec['construct_s']:.3f} s, 20 iterations "
+          f"{sec['train_20_s']:.3f} s; card: {card}")
+
+    # 2. the boost cycle under live serving
+    online = {**params, **cycle, "online_wal": True,
+              "online_wal_dir": os.path.join(work, "wal")}
+    srv = PredictServer({"verbosity": -1, "serve_max_batch_rows": 1024,
+                         "device_type": device_type}, model=b1)
+    tr = OnlineTrainer(online, ds, booster=b1, server=srv)
+    srv.attach_online(tr)
+    if tr.version != 1:
+        fail(f"(s): the trainer sees version {tr.version}, not 1")
+    Xq = np.ascontiguousarray(synth_higgs(4096, F, seed=3)[0])
+    want = {1: b1.predict(Xq)}
+    log, errs, stop = [], [], threading.Event()
+    log_lock = threading.Lock()
+
+    def client(c):
+        i = c
+        try:
+            while not stop.is_set():
+                q = i % len(Xq)
+                t0 = time.perf_counter()
+                out, v = srv.predict_versioned(Xq[q])
+                t1 = time.perf_counter()
+                with log_lock:
+                    log.append((t0, t1, q, v, out[0]))
+                i += 8
+        except Exception as e:
+            errs.append(e)
+
+    def window(t_a, t_b):
+        """qps and latency of the requests that completed in [t_a, t_b]."""
+        with log_lock:
+            lat = np.sort([t1 - t0 for t0, t1, *_ in log if t_a <= t1 <= t_b])
+        if lat.size == 0:
+            return {"seconds": t_b - t_a, "requests": 0, "qps": 0.0}
+        return {"seconds": t_b - t_a, "requests": int(lat.size),
+                "qps": lat.size / (t_b - t_a),
+                "p50_ms": float(np.quantile(lat, 0.5) * 1e3),
+                "p99_ms": float(np.quantile(lat, 0.99) * 1e3),
+                "max_ms": float(lat[-1] * 1e3)}
+
+    ths = [threading.Thread(target=client, args=(c,)) for c in range(8)]
+    [t.start() for t in ths]
+    try:
+        time.sleep(0.5)
+        t_a = time.perf_counter()
+        time.sleep(2.0)
+        idle = window(t_a, time.perf_counter())
+        hk.reset_launches()
+        feeds = []
+        for i in range(4):
+            lo = n0 + i * nb
+            t0 = time.perf_counter()
+            v = tr.feed(X[lo:lo + nb], y[lo:lo + nb], batch_id=f"b{i}")
+            feeds.append((t0, time.perf_counter(), v))
+        launches = dict(hk.LAUNCHES)
+        busy = window(feeds[3][0], feeds[3][1])
+        time.sleep(1.0)
+    finally:
+        stop.set()
+        [t.join() for t in ths]
+    shed = srv.stats()["scheduler"]["shed"]
+    st = last_cycle_stats()
+    wal_st = tr.wal.stats()
+    v2_text = tr.booster.model_to_string()
+    want[2] = tr.booster.predict(Xq)
+    bad = sum(1 for _, _, q, v, o in log if o != want[v][q])
+    versions = sorted({e[3] for e in log})
+    if errs or shed or bad or versions != [1, 2]:
+        fail(f"(s): clients: errors {errs[:3]}, {shed} shed, {bad} answers "
+             f"not their version's, versions {versions}")
+    if ([f[2] for f in feeds] != [None, None, None, 2]
+            or (st["trigger"], st["mode"], st["rows"], st["version"])
+            != ("rows", "boost", 4 * nb, 2) or ds.num_data != n0):
+        fail(f"(s): the cycle: feeds {[f[2] for f in feeds]}, stats {st}, "
+             f"{ds.num_data} rows")
+    sec["cycle"] = {k: st[k] for k in ("duration_s", "append_s", "train_s",
+                                       "merge_s", "publish_s", "lag_s")}
+    sec["feed_s"] = [f[1] - f[0] for f in feeds]
+    print(f"{tag} boost cycle under 8 clients: trigger {st['trigger']}, "
+          f"mode {st['mode']}, {st['rows']} rows, version {st['version']}, "
+          f"{ds.num_data} rows kept; {st['duration_s']:.3f} s (append "
+          f"{st['append_s']:.3f}, train {st['train_s']:.3f}, merge "
+          f"{st['merge_s']:.3f}, publish {st['publish_s']:.3f}); the four "
+          f"feeds {[round(s, 4) for s in sec['feed_s']]} s; card: {card}")
+    print(f"{tag} feed log: {wal_st['bytes']} bytes on disk, "
+          f"{wal_st['bytes_appended']} appended, fsync "
+          f"{wal_st['fsync_s']:.4f} s over {wal_st['appends']} batches and "
+          f"{wal_st['commits']} commits; card: {card}")
+    print(f"{tag} 8 closed-loop single-row clients: without a cycle "
+          f"{json.dumps(idle)}; during the cycle {json.dumps(busy)}; "
+          f"{len(log)} answers, each its version's bit for bit, versions "
+          f"{versions}, 0 shed; card: {card}")
+    sec["serving_idle"], sec["serving_cycle"] = idle, busy
+    # the offline continuation of the same window
+    win = slice(4 * nb, n0 + 4 * nb)
+    off, sec["offline_construct_s"] = timed(lambda: lt.Dataset(
+        X[win], label=y[win], reference=ds, params=params).construct())
+    if not (torch.equal(off.bins, ds.bins) and torch.equal(off.label,
+                                                           ds.label)):
+        fail("(s): the appended bins differ from the window's construct")
+    delta, sec["offline_train_s"] = timed(
+        lambda: lt.train(online, off, 4, init_model=b1))
+    off_text = merge_boosters(b1, delta).model_to_string()
+    if off_text != v2_text:
+        fail(f"(s): the cycle's model differs from the offline "
+             f"continuation: {first_diff(v2_text, off_text)}")
+    passes = delta._gbdt.hist_passes
+    expected = {k: 0 for k in hk.KERNELS}
+    expected.update(grad_quant_hist0=4, leaf_sums_grad=4,
+                    hist_routed_fused=sum(passes),
+                    take_small=4 + b1.num_trees())
+    print(f"{tag} the cycle's model text equals the offline continuation "
+          f"byte for byte ({len(v2_text)} bytes, {tr.booster.num_trees()} "
+          f"trees), the appended bins the window's construct bit for bit; "
+          f"launches {launches}, expected {expected} (level passes "
+          f"{passes}); card: {card}")
+    if launches != expected:
+        fail(f"(s): launch counts {launches} != expected {expected}")
+    for k, v in launches.items():
+        launches_all[k] += v
+    del off, delta
+    tr.close()
+
+    # 3. a refit cycle
+    X3, y3 = synth_higgs(nb, F, seed=1)
+    want3 = tr.booster.refit(X3, y3)
+    tr3 = OnlineTrainer({**params, **cycle, "online_boost_rounds": 0}, ds,
+                        booster=tr.booster, server=srv)
+    srv.attach_online(tr3)
+    hk.reset_launches()
+    if tr3.feed(X3, y3) is not None:
+        fail("(s): 125,000 rows triggered the refit cycle early")
+    v3, sec["refit_flush_s"] = timed(tr3.flush)
+    st3 = last_cycle_stats()
+    t3, w3 = tr3.booster.model_to_string(), want3.model_to_string()
+    if v3 != 3 or st3["mode"] != "refit" or ds.num_data != n0 or t3 != w3:
+        fail(f"(s): the refit cycle: version {v3}, {st3}, "
+             f"{first_diff(t3, w3)}")
+    want[3] = tr3.booster.predict(Xq)
+    print(f"{tag} refit cycle: {nb} rows of seed 1 flushed, version 3, "
+          f"leaves equal Booster.refit on the same rows; {json.dumps(st3)}; "
+          f"launches {({k: v for k, v in hk.LAUNCHES.items() if v})}; "
+          f"card: {card}")
+
+    # 4. kill and replay across processes
+    rows_f, labels_f = saved_rows(X, y)
+    drill = [sys.executable, os.path.join(HERE, "scripts",
+                                          "torch_online_drill.py"),
+             rows_f, labels_f, b1_file, os.path.join(work, "wal_drill"),
+             json.dumps({k: v for k, v in {**params, **cycle}.items()
+                         if k != "device_type"}),
+             "--base-rows", str(n0), "--batch-rows", str(nb), "--batches",
+             "4", "--device", device_type]
+    r = subprocess.run(drill + ["--crash"], capture_output=True, text=True,
+                       env=env, cwd=HERE, timeout=600)
+    crash = json.loads((r.stdout.strip().splitlines() or ["{}"])[-1])
+    if (r.returncode != 3 or crash.get("died_at") != "online_publish"
+            or (crash["last_seq"], crash["committed_seq"]) != (4, 0)):
+        fail(f"(s): the crashing process: exit {r.returncode}, {crash}\n"
+             f"{r.stderr[-3000:]}")
+    rec_f = os.path.join(work, "recovered.txt")
+    r = subprocess.run(drill + ["--recover", "--out", rec_f],
+                       capture_output=True, text=True, env=env, cwd=HERE,
+                       timeout=600)
+    if r.returncode != 0:
+        fail(f"(s): the recovering process: exit {r.returncode}\n"
+             f"{r.stderr[-3000:]}")
+    rec = json.loads(r.stdout.strip().splitlines()[-1])
+    art = os.path.join(work, "wal_drill", "model_00000004.txt")
+    rec_text = open(rec_f).read()
+    if (rec_text != v2_text or open(art).read() != v2_text
+            or rec["batch_seqs"] != [1, 2, 3, 4]
+            or rec["batch_seqs_after_resend"] != [1, 2, 3, 4]
+            or rec["committed_seq"] != 4 or rec["last_seq"] != 4
+            or not rec["resend_deduped"] or rec["num_data"] != n0
+            or rec["recovery"]["replayed"] != 4 or rec["cycles"] != 1):
+        fail(f"(s): the recovery: {rec}; "
+             f"{first_diff(v2_text, rec_text)}")
+    if {k: rec["launches"].get(k, 0) for k in expected} != expected:
+        fail(f"(s): the replayed cycle launched {rec['launches']}")
+    sec["recover_s"] = rec["recover_s"]
+    sec["recovery"] = rec["recovery"]
+    print(f"{tag} kill and replay across processes: the first died at "
+          f"{crash['died_at']} with seqs 1-{crash['last_seq']} logged "
+          f"({crash['wal_bytes']} bytes, fsync {crash['fsync_s']:.4f} s; "
+          f"{crash['seconds']:.1f} s in the process); the second recovered "
+          f"in {rec['recover_s']:.3f} s ({json.dumps(rec['recovery'])}; "
+          f"{rec['seconds']:.1f} s in the process), trained each batch "
+          f"once, committed through seq {rec['committed_seq']}, dropped "
+          f"the four re-sent batches by id, its model text and the "
+          f"committed artifact equal to step 2's byte for byte, launches "
+          f"{rec['launches']}; card: {card}")
+
+    # 5. the protocols: TCP, task=online, the C host
+    ready = threading.Event()
+    th = threading.Thread(target=serve_tcp, args=(srv, "127.0.0.1", 0,
+                                                  ready), daemon=True)
+    th.start()
+    if not ready.wait(30):
+        fail("(s): serve_tcp did not start")
+    XL, yL = synth_higgs(200, F, seed=5)
+    rows_txt = [",".join("%.17g" % v for v in XL[i]) for i in range(200)]
+    lines = ([f"!learn {yL[i]:.17g},{rows_txt[i]}" for i in range(100)]
+             + [f"c{i}|{rows_txt[100 + i]}" for i in range(100)]
+             + [f"!label c{i} {yL[100 + i]:.17g}" for i in range(100)])
+    t0 = time.perf_counter()
+    with socket.create_connection(ready.addr, timeout=60) as sck:
+        f = sck.makefile("rw")
+        replies = []
+        for ln in lines + ["!stats"]:
+            f.write(ln + "\n")
+            f.flush()
+            replies.append(f.readline().strip())
+        f.write("!quit\n")
+        f.flush()
+    sec["tcp_300_lines_s"] = time.perf_counter() - t0
+    th.join(30)
+    stats = json.loads(replies[-1])
+    want_cap = tr3.booster.predict(XL[100:])
+    ok = (all(replies[i] == f"ok pending={i + 1}" for i in range(100))
+          and all(replies[100 + i] == f"3\t{want_cap[i]:.17g}"
+                  for i in range(100))
+          and all(replies[200 + i] == f"ok pending={99 - i} joined={i + 1}"
+                  for i in range(100)))
+    on = stats.get("online", {})
+    if (not ok or on.get("pending_rows") != 200
+            or on["join"]["captured"] != 100 or on["join"]["joined"] != 100):
+        fail(f"(s): the protocol lines: {replies[:2]} {replies[100:102]} "
+             f"{replies[200:202]}; online stats {on}")
+    print(f"{tag} serve_tcp: 100 !learn lines, 100 captures (each answered "
+          f"by version 3 bit for bit) and their !label lines in "
+          f"{sec['tcp_300_lines_s']:.3f} s; the stats' online section: "
+          f"pending_rows {on['pending_rows']}, join {json.dumps(on['join'])}"
+          f"; card: {card}")
+    tr3.close()
+    srv.close()
+    del ds
+    if cuda:
+        torch.cuda.empty_cache()
+    small = lt.Dataset(X[:ONLINE_CLI_BASE], label=y[:ONLINE_CLI_BASE],
+                       params=params).construct()
+    bin_f = os.path.join(work, "base.bin")
+    small.save_binary(bin_f)
+    del small
+    XF, yF = synth_higgs(ONLINE_CLI_FEED, F, seed=6)
+    feed_f = os.path.join(work, "feed.csv")
+    np.savetxt(feed_f, np.column_stack([yF, XF]), delimiter=",",
+               fmt="%.17g")
+    cli = {**params, "online_refit_rows": ONLINE_CLI_FEED // 2,
+           "online_boost_rounds": 4}
+    cli_out = os.path.join(work, "cli_model.txt")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "lightgbm_tpu_torch",
+                        "task=online", f"data={bin_f}",
+                        f"input_model={b1_file}", f"online_feed={feed_f}",
+                        f"output_model={cli_out}"]
+                       + [f"{k}={v}" for k, v in cli.items()],
+                       capture_output=True, text=True, env=env, cwd=work,
+                       timeout=600)
+    sec["cli_s"] = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"(s): task=online: exit {r.returncode}\n{r.stderr[-3000:]}")
+    api = OnlineTrainer(cli, lt.Dataset.load_binary(bin_f, params=cli),
+                        booster=lt.Booster(model_file=b1_file, params=cli))
+    fed = api.run(tail_source(feed_f, follow=False))
+    api.close()
+    cli_text = open(cli_out).read()
+    api_text = api.booster.model_to_string()
+    if fed != ONLINE_CLI_FEED or cli_text != api_text:
+        fail(f"(s): task=online's model differs from the Python API's: "
+             f"{first_diff(cli_text, api_text)}")
+    print(f"{tag} python -m lightgbm_tpu_torch task=online: "
+          f"{ONLINE_CLI_FEED} feed rows over a {ONLINE_CLI_BASE}-row binary "
+          f"Dataset in {sec['cli_s']:.3f} s (the process included), "
+          f"{api.cycles} cycle(s), the model text equal to the Python "
+          f"API's byte for byte; card: {card}")
+    so = build_capi()
+    if so is None:
+        fail("(s): the C API library did not build")
+    exe = os.path.join(work, "online_host")
+    subprocess.run(["gcc", os.path.join(HERE, "scripts",
+                                        "torch_online_host.c"), so, "-o",
+                    exe, f"-Wl,-rpath,{os.path.dirname(so)}"], check=True,
+                   capture_output=True, timeout=120)
+    bx, by = X[:ONLINE_C_BASE], y[:ONLINE_C_BASE]
+    fx, fy = synth_higgs(ONLINE_C_FEED, F, seed=7)
+    for name, a in (("bx", bx), ("by", by), ("fx", fx), ("fy", fy)):
+        np.ascontiguousarray(a, dtype=np.float64).tofile(
+            os.path.join(work, f"{name}.bin"))
+    c_keys = {**params, "online_refit_rows": ONLINE_C_FEED // 5,
+              "online_boost_rounds": 2, "online_wal": True}
+    pstr = " ".join(f"{k}={v}" for k, v in c_keys.items()) + \
+        f" online_wal_dir={os.path.join(work, 'cwal')}"
+    t0 = time.perf_counter()
+    r = subprocess.run([exe, b1_file, os.path.join(work, "bx.bin"),
+                        os.path.join(work, "by.bin"), str(ONLINE_C_BASE),
+                        str(F), os.path.join(work, "fx.bin"),
+                        os.path.join(work, "fy.bin"), str(ONLINE_C_FEED),
+                        pstr], capture_output=True, text=True, env=env,
+                       cwd=work, timeout=600)
+    sec["c_host_s"] = time.perf_counter() - t0
+    if r.returncode != 0:
+        fail(f"(s): the C host: exit {r.returncode}\n{r.stderr[-3000:]}")
+    out = r.stdout.strip().splitlines()
+    q = ONLINE_C_FEED // 4
+    c_js = json.loads(out[-2])
+    ds_c = lt.Dataset(bx, label=by, params=c_keys)
+    ds_c.append(fx[:q], label=fy[:q])
+    tr_c = OnlineTrainer({**c_keys, "online_wal_dir":
+                          os.path.join(work, "pwal")}, ds_c,
+                         booster=lt.Booster(model_file=b1_file,
+                                            params=c_keys))
+    for i in range(q, 2 * q, 50):
+        tr_c.feed(fx[i:min(i + 50, 2 * q)], fy[i:min(i + 50, 2 * q)])
+    for i in range(2 * q, ONLINE_C_FEED):
+        tr_c.feed_features(f"r{i}", fx[i:i + 1])
+    for i in range(2 * q, ONLINE_C_FEED):
+        tr_c.feed_label(f"r{i}", float(fy[i]))
+    tr_c.feed_label("ghost", 1.0)
+    js = tr_c.join_stats()
+    v_c = tr_c.flush()
+    tr_c.close()
+    arts = [fn for fn in os.listdir(os.path.join(work, "cwal"))
+            if fn.startswith("model_")]
+    c_text = open(os.path.join(work, "cwal", arts[-1])).read() \
+        if len(arts) == 1 else ""
+    if (c_text != tr_c.booster.model_to_string()
+            or out[-1] != f"flush: version {v_c or 0}"
+            or any(c_js[k] != js[k] for k in ("captured", "joined",
+                                              "unmatched", "pending"))):
+        fail(f"(s): the C host's model or counters differ from the Python "
+             f"API's: {out[-3:]} {js} {arts}; "
+             f"{first_diff(c_text, tr_c.booster.model_to_string())}")
+    print(f"{tag} the C host (LGBMTPU_DatasetAppend, LGBMTPU_Online*): "
+          f"{ONLINE_C_FEED} rows over {ONLINE_C_BASE} in {sec['c_host_s']:.3f}"
+          f" s (the process included): {out[0]}; {out[-3]}; join "
+          f"{json.dumps(c_js)}; the committed model equal to the Python "
+          f"API's byte for byte (version {v_c}, {tr_c.cycles} cycles); "
+          f"card: {card}")
+    if cuda:
+        torch.cuda.empty_cache()
     return sec
 
 
@@ -4259,6 +4721,11 @@ def main() -> int:
     t0 = time.perf_counter()
     slice_ms["serve"] = serve_path(X, y, launches_all, card)
     print(f"path (r) cold start and serve: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    slice_ms["online"] = online_path(X, y, launches_all, card)
+    print(f"path (s) online: {time.perf_counter() - t0:.1f} s")
+    for f_ in _SAVED_ROWS.values():
+        os.remove(f_)
     for nm in kernels:
         kernels[nm]["launches"] = launches_all[nm]
     print(f"elapsed after paths (g)-(l): "

@@ -16,7 +16,9 @@ lightgbm_tpu_torch``, the text parser, a C API, TreeSHAP contributions,
 C++ code generation and plotting; a chunked, pipelined Dataset ingest and
 a background kernel prewarm; serving through ``serving.PredictEngine``,
 the coalescing ``server.PredictServer`` and the ``fleet`` package, over
-``task=serve`` or the C API) on
+``task=serve`` or the C API; continuous learning through
+``Dataset.append``, ``online.OnlineTrainer`` with its write-ahead feed log
+and delayed-label joins, over ``task=online`` or the C API) on
 an NVIDIA Hopper GPU through eight hand-written CUDA kernels
 (``ops/hist_kernels.py``, ``csrc/``). It imports torch and numpy only:
 nothing of JAX and nothing of the ``lightgbm_tpu`` reference package.

@@ -13,9 +13,10 @@ Tasks: ``train`` (through ``engine.train``, so ``snapshot_freq`` and
 ``output_model``), ``predict`` (``predict_raw_score``,
 ``predict_leaf_index``, ``predict_contrib``, ``num_iteration_predict``;
 results to ``output_result``), ``refit``, ``convert_model`` (C++ to
-``convert_model``) and ``serve`` (the newline protocol of ``server.py`` over
+``convert_model``), ``serve`` (the newline protocol of ``server.py`` over
 stdin/stdout, or TCP with ``serve_port``; ``fleet_replicas`` > 1 serves
-through a ``FleetServer``). ``online`` is not ported yet (ROADMAP.md A19).
+through a ``FleetServer``) and ``online`` (continuous training,
+``online.py``: tail ``online_feed``, append, refit, publish).
 Training, prediction and serving run on the GPU unless
 ``device_type=cpu`` is given. The telemetry knobs (``telemetry``,
 ``metrics_out``, ``xla_trace_out``) apply to every task: ``train`` exports
@@ -262,6 +263,75 @@ def run_serve(conf: Config, params: Dict) -> None:
         _export_telemetry(conf)
 
 
+def run_online(conf: Config, params: Dict) -> None:
+    """task=online: continuous training (online.py; reference: app.py:276).
+    Train an initial model on ``data`` (or load ``input_model``), then tail
+    ``online_feed`` for label-first rows, appending them to the Dataset
+    under its frozen bin boundaries and refitting/publishing per the
+    ``online_*`` triggers.
+
+    With ``serve_port > 0`` the hot-swapping PredictServer serves the
+    newline protocol on that port concurrently (``!learn`` lines feed the
+    same trainer) and the feed file is followed until interrupted; with no
+    port the feed is drained once and the final model saved — a batch
+    catch-up job.
+
+    With ``online_wal=1`` the feed is tailed with per-row batch ids and
+    every batch write-ahead-logged, so a crashed run restarted with the
+    same params resumes exactly-once: the trainer reloads the committed
+    model artifact, replays unacknowledged batches, and the re-read of the
+    feed file from the start deduplicates against the logged ids."""
+    import threading
+    if not conf.data:
+        log.fatal("No training data: set data=<file>")
+    if not conf.online_feed:
+        log.fatal("No streaming feed: set online_feed=<file>")
+    train_set = _load_dataset(conf.data, conf, params,
+                              initscore_path=conf.initscore_filename)
+    if conf.input_model:
+        booster = Booster(model_file=conf.input_model, params=params)
+    else:
+        booster = engine_train(params, train_set,
+                               num_boost_round=conf.num_iterations)
+    from .online import OnlineTrainer, tail_source
+    from .server import PredictServer, serve_tcp
+    server = PredictServer(conf, model=booster)
+    trainer = OnlineTrainer(params, train_set, booster=booster,
+                            server=server)
+    server.attach_online(trainer)
+    if trainer.recovery:
+        log.info(f"online: WAL recovery re-appended "
+                 f"{trainer.recovery['committed']} committed and replayed "
+                 f"{trainer.recovery['replayed']} pending batches "
+                 f"({trainer.recovery['rows']} rows)")
+    stop = threading.Event()
+    follow = conf.serve_port > 0
+    if follow:
+        threading.Thread(target=serve_tcp,
+                         args=(server, "0.0.0.0", conf.serve_port),
+                         daemon=True).start()
+    flush_owner = obs.start_periodic_flush(conf.metrics_flush_secs)
+    try:
+        fed = trainer.run(tail_source(conf.online_feed, stop=stop,
+                                      follow=follow,
+                                      with_ids=bool(conf.online_wal)),
+                          stop=stop)
+        log.info(f"online: fed {fed} rows over {trainer.cycles} refit "
+                 f"cycles (version {trainer.version})")
+    except KeyboardInterrupt:
+        stop.set()
+        log.info("online: interrupted; flushing pending rows")
+        trainer.flush()
+    finally:
+        obs.stop_periodic_flush(flush_owner)
+        server.close()
+        trainer.close()
+        trainer.booster.save_model(conf.output_model)
+        log.info(f"Finished online training; model saved to "
+                 f"{conf.output_model}")
+        _export_telemetry(conf)
+
+
 def _configure_logging(conf: Config) -> None:
     """The CLI's log lines on stderr at the level ``verbosity`` asks for."""
     logger = logging.getLogger("lightgbm_tpu_torch")
@@ -299,8 +369,7 @@ def main(argv: List[str], log_to_stderr: bool = False) -> int:
     elif task == "serve":
         run_serve(conf, params)
     elif task == "online":
-        raise NotImplementedError("task=online is not ported yet (ROADMAP.md "
-                                  "queue A19: continuous learning)")
+        run_online(conf, params)
     else:
         log.fatal(f"Unknown task: {task}")
     return 0

@@ -571,6 +571,142 @@ class Dataset:
         self.num_features_raw = na + nb
         return self
 
+    def append(self, data, label=None, weight=None, group=None,
+               init_score=None, max_rows: Optional[int] = None
+               ) -> "Dataset":
+        """Append rows to a constructed Dataset under its frozen binning
+        (reference: basic.py:690-880): the mappers, feature map and EFB
+        plan of the construct bin the new rows, on the device, through the
+        ingest pipeline (``ingest.stream_with_recovery``), so values out of
+        range clip to the edge bins, NaN takes the missing bin and unseen
+        categories bin 0, as in a ``reference=`` construct. Labels and
+        weights grow on the device, query sizes and init scores on the
+        host.
+
+        ``max_rows`` (default: the ``online_max_rows`` parameter; 0 or
+        None: unbounded) keeps the newest ``max_rows`` rows, a FIFO window;
+        training on it equals training on a ``reference=`` construct of
+        the same rows. Grouped data refuses a window (it would split a
+        query), sparse rows are refused. The ``dataset_append`` fault point
+        fires once the rows are binned and before anything changes in
+        place, so a failed append leaves the Dataset as it was.
+
+        A trainer or Booster built before an append keeps training on the
+        rows it was built on; build a new one (``train(init_model=...)``)
+        after appending. The construct's kernel prewarm is dropped. The
+        reference's re-planned row sharding of the grown rows is multi-GPU
+        work (ROADMAP A21)."""
+        from .ingest import last_stats, stream_with_recovery
+        from .utils import faults
+        self.construct()
+        if _is_sparse(data):
+            raise LightGBMError("Dataset.append does not support sparse "
+                                "input; densify the appended rows")
+        conf = params_to_config(self.params)
+        raw = _to_numpy_2d(data, self.pandas_categorical)
+        n_new = int(raw.shape[0])
+        if n_new == 0:
+            return self
+        if self.num_features_raw and raw.shape[1] != self.num_features_raw:
+            raise LightGBMError(
+                f"Dataset.append: appended rows have {raw.shape[1]} features,"
+                f" dataset was constructed with {self.num_features_raw}")
+        new = {name: None if v is None else
+               np.asarray(v, dtype=np.float32).reshape(-1)
+               for name, v in (("label", label), ("weight", weight))}
+        for name, have in (("label", self.label_np is not None),
+                           ("weight", self.weight_np is not None)):
+            got = new[name]
+            if have and got is None:
+                raise LightGBMError(f"Dataset.append: dataset has {name} "
+                                    "but appended rows do not")
+            if not have and got is not None:
+                raise LightGBMError(f"Dataset.append: appended rows carry "
+                                    f"{name} but the dataset has none")
+            if got is not None and len(got) != n_new:
+                raise LightGBMError(f"Dataset.append: {name} has {len(got)} "
+                                    f"entries for {n_new} appended rows")
+        if self.group is not None and group is None:
+            raise LightGBMError("Dataset.append: dataset has group "
+                                "boundaries; appended rows must supply their "
+                                "own group")
+        g_new = None
+        if group is not None:
+            g_new = np.asarray(group, dtype=np.int64).reshape(-1)
+            if int(g_new.sum()) != n_new:
+                raise LightGBMError(f"Dataset.append: group sums to "
+                                    f"{int(g_new.sum())} but {n_new} rows "
+                                    "were appended")
+        old_n = int(self.num_data)
+        isc = None
+        if self.init_score_np is not None or init_score is not None:
+            if self.init_score_np is None or init_score is None:
+                raise LightGBMError("Dataset.append: init_score must be "
+                                    "supplied on both the dataset and the "
+                                    "appended rows, or neither")
+            old_isc = self.init_score_np
+            isc_new = np.asarray(init_score, dtype=np.float32)
+            # [N], [N, K] or a flat [N * K] (row-major by row)
+            k = old_isc.size // max(old_n, 1)
+            if old_isc.size != old_n * k or isc_new.size != n_new * k:
+                raise LightGBMError(f"Dataset.append: init_score size "
+                                    f"{isc_new.size} does not match {n_new} "
+                                    f"rows x {k} classes")
+            isc = (old_isc.reshape(old_n, k), isc_new.reshape(n_new, k))
+        cap = int(max_rows) if max_rows is not None else \
+            int(conf.online_max_rows)
+        if cap > 0 and (self.group is not None or group is not None):
+            raise LightGBMError("Dataset.append: online_max_rows eviction is "
+                                "not supported on grouped (ranking) data — a "
+                                "FIFO row window would split query groups")
+        t0 = time.perf_counter()
+        new_dev, _ = stream_with_recovery(
+            raw, self.mappers, list(self.feature_map), self.bundle_meta,
+            self.device, chunk_rows=conf.ingest_chunk_rows,
+            encode_threads=conf.encode_threads, policy=conf.on_device_fault)
+        chunks = int(last_stats().get("chunks", 0))
+        # the FIFO window: one global row offset splits the kept old rows
+        # from the kept new ones
+        n_total = old_n + n_new
+        evicted = keep_from = new_from = 0
+        if cap > 0 and n_total > cap:
+            evicted = n_total - cap
+            keep_from = min(evicted, old_n)
+            new_from = evicted - keep_from
+            n_total = cap
+        bins = torch.cat([self.bins[keep_from:old_n], new_dev[new_from:]])
+        # the crash window of the kill-and-replay drill: the rows are binned
+        # on the device and nothing has changed in place yet
+        faults.fault_point("dataset_append")
+        self.bins = bins
+        self._bins_T = None
+        self._prewarm = None
+        for name in ("label", "weight"):
+            arr = new[name]
+            if arr is None:
+                continue
+            setattr(self, f"{name}_np", np.concatenate(
+                [getattr(self, f"{name}_np")[keep_from:], arr[new_from:]]))
+            setattr(self, name, torch.cat(
+                [getattr(self, name)[keep_from:old_n],
+                 torch.as_tensor(arr[new_from:], device=self.device)]))
+        if g_new is not None:
+            self.group = (g_new if self.group is None
+                          else np.concatenate([self.group, g_new]))
+        if isc is not None:
+            shape = self.init_score_np.shape[1:]
+            self.init_score_np = np.concatenate(
+                [isc[0][keep_from:], isc[1][new_from:]]).reshape(
+                    (-1,) + shape)
+            self.init_score = torch.as_tensor(self.init_score_np,
+                                              device=self.device)
+        self.num_data = n_total
+        if obs.enabled():
+            obs.emit("dataset_append", rows=n_new, total_rows=n_total,
+                     chunks=chunks, duration_s=time.perf_counter() - t0,
+                     num_shards=1, resharded=False, evicted=int(evicted))
+        return self
+
     # ---- the binned Dataset on disk ----
     _BIN_MAGIC = "lightgbm_tpu_torch_dataset_v1"
 

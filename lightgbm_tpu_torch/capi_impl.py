@@ -9,9 +9,9 @@ this package: ``device_type`` in the parameters (a config file's, a
 parameter string's, or the parameter echo of a loaded model file), the GPU
 by default. Serving (``server_*``: create, predict, publish, stats,
 canary, promote, rollback, fleet stats, close) runs ``server.py`` and
-``fleet/``; continuous learning (``dataset_append``, ``online_*``, ROADMAP.md
-A19) raises ``NotImplementedError``, which the C side returns as an error
-with its message.
+``fleet/``; continuous learning (``dataset_append``, ``online_*``: create,
+feed, capture, label, join stats, flush, close) runs ``Dataset.append``
+and ``online.py``.
 """
 from __future__ import annotations
 
@@ -189,11 +189,6 @@ def booster_finish_training(booster) -> int:
     return 0
 
 
-def _unported(what: str, item: str, name: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue "
-                              f"{item}: {name})")
-
-
 # ---- online serving (server.py; reference analog:
 # LGBM_BoosterPredictForMatSingleRowFast, c_api.h:919, a pre-configured
 # fast path for interactive traffic; this one also coalesces concurrent
@@ -306,13 +301,99 @@ def server_close(server) -> int:
     return 0
 
 
-# ---- continuous learning (ROADMAP.md A19) ----
+# ---- continuous training (online.py; reference analog: LGBM_BoosterRefit,
+# c_api.h:652 — ours additionally grows the Dataset in place under frozen
+# bin boundaries and hot-swaps each refit version into the server) ----
 
 def dataset_append(ds, data_addr: int, nrow: int, ncol: int,
                    label_addr: int) -> int:
-    _unported("Dataset.append (the C API's dataset_append)", "A19",
-              "continuous learning")
+    """Append dense f64 rows (+ labels) to a CONSTRUCTED Dataset under its
+    frozen bin boundaries and EFB plan (basic.Dataset.append). Returns the
+    new total row count. The buffer is copied, like dataset_from_mat."""
+    src = (ctypes.c_double * (nrow * ncol)).from_address(data_addr)
+    x = np.frombuffer(src, dtype=np.float64).reshape(nrow, ncol).copy()
+    label = None
+    if label_addr:
+        lsrc = (ctypes.c_double * nrow).from_address(label_addr)
+        label = np.frombuffer(lsrc, dtype=np.float64).copy()
+    ds.append(x, label=label)
+    return int(ds.num_data)
 
 
 def online_create(ds, booster, server, params_str: str):
-    _unported("the C API's online_* entries", "A19", "continuous learning")
+    """Opaque OnlineTrainer handle bound to a Dataset + current model; when
+    ``server`` is non-None each refit cycle hot-swaps into its registry and
+    the serve protocol's ``!learn`` lines feed this trainer."""
+    from .online import OnlineTrainer
+    trainer = OnlineTrainer(_parse_params(params_str), ds, booster=booster,
+                            server=server)
+    if server is not None:
+        server.attach_online(trainer)
+    return trainer
+
+
+def online_feed(trainer, data_addr: int, nrow: int, ncol: int,
+                label_addr: int) -> int:
+    """Feed one labeled batch; returns the newly published model version
+    when this batch triggered a synchronous refit cycle, else 0 (always 0
+    with ``online_async_refit=1`` — the cycle runs on the trainer's worker
+    thread and this call never blocks on training)."""
+    src = (ctypes.c_double * (nrow * ncol)).from_address(data_addr)
+    x = np.frombuffer(src, dtype=np.float64).reshape(nrow, ncol).copy()
+    lsrc = (ctypes.c_double * nrow).from_address(label_addr)
+    label = np.frombuffer(lsrc, dtype=np.float64).copy()
+    version = trainer.feed(x, label)
+    return int(version or 0)
+
+
+def online_capture(trainer, rid: str, data_addr: int, nrow: int,
+                   ncol: int) -> int:
+    """Capture served features under request id ``rid`` for a delayed-label
+    join (online.feed_features): the rows are WAL-logged immediately and
+    enter training only when ``online_label`` later supplies the outcome.
+    Returns the pending-join count (a duplicate rid is counted and ignored
+    — first capture wins), -1 on malformed input."""
+    src = (ctypes.c_double * (nrow * ncol)).from_address(data_addr)
+    x = np.frombuffer(src, dtype=np.float64).reshape(nrow, ncol).copy()
+    try:
+        return int(trainer.feed_features(rid, x))
+    except ValueError:
+        return -1
+
+
+def online_label(trainer, rid: str, label: float, weight: float) -> int:
+    """Join a late-arriving label against the features captured under
+    ``rid`` and feed the joined rows (online.feed_label). Returns the newly
+    published version when the join triggered a synchronous refit, 0 when
+    it merely buffered, -1 when ``rid`` matched nothing (expired or never
+    captured — counted, never silent)."""
+    w = weight if weight > 0 else None
+    joined_before = trainer.join_stats()["joined"]
+    version = trainer.feed_label(rid, float(label), weight=w)
+    if version is not None:
+        return int(version)
+    # feed_label returns None both for a buffered join and an unmatched
+    # label; the joined counter moving is what distinguishes them
+    return 0 if trainer.join_stats()["joined"] > joined_before else -1
+
+
+def online_join_stats_json(trainer) -> str:
+    """One-line JSON of the delayed-label join plane: pending/joined/
+    expired/unmatched counters plus oldest-pending age (online.join_stats).
+    For an OnlineTrainerGroup handle this reports the default model."""
+    import json
+    return json.dumps(trainer.join_stats(), sort_keys=True)
+
+
+def online_flush(trainer) -> int:
+    """Drain pending rows through refit cycles now (synchronous even under
+    ``online_async_refit=1``); returns the published version, or 0 when
+    nothing pended."""
+    return int(trainer.flush() or 0)
+
+
+def online_close(trainer) -> int:
+    """Stop the trainer's async refit worker, deregister its freshness
+    collector, and close the write-ahead feed log (idempotent)."""
+    trainer.close()
+    return 0

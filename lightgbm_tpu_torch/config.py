@@ -504,6 +504,45 @@ class Config:
             raise LightGBMError("on_device_fault must be one of fatal|reshard"
                                 f"|fallback_single, got "
                                 f"{self.on_device_fault!r}")
+        self._check_online()
+
+    def _check_online(self) -> None:
+        """The continuous-training knobs (reference: config.py:565-596)."""
+        checks = (
+            (self.online_refit_rows < 1, "online_refit_rows must be >= 1"),
+            (self.online_drift_metric_delta < 0,
+             "online_drift_metric_delta must be >= 0 (0 = row-count trigger "
+             "only)"),
+            (self.online_boost_rounds < 0,
+             "online_boost_rounds must be >= 0 (0 = leaf refit only)"),
+            (self.online_max_rows < 0,
+             "online_max_rows must be >= 0 (0 = unbounded growth)"),
+            (0 < self.online_max_rows < self.online_refit_rows,
+             "online_max_rows must be >= online_refit_rows (a window "
+             "smaller than one refit trigger would evict rows before they "
+             f"can train), got {self.online_max_rows} < "
+             f"{self.online_refit_rows}"),
+            (self.online_freshness_slo_s < 0,
+             "online_freshness_slo_s must be >= 0 (0 = freshness tracking "
+             "off)"),
+            (self.online_label_timeout_s < 0,
+             "online_label_timeout_s must be >= 0 (0 = pending joins never "
+             "time out)"),
+            (self.online_join_max_pending < 0,
+             "online_join_max_pending must be >= 0 (0 = unbounded resident "
+             "join memory)"),
+            (self.online_drift_psi_max < 0,
+             "online_drift_psi_max must be >= 0 (0 = unlabeled drift "
+             "detection off)"),
+            (self.online_drift_mode not in ("refit", "alarm"),
+             f"online_drift_mode must be 'refit' or 'alarm', got "
+             f"'{self.online_drift_mode}'"),
+            (self.online_wal_full not in ("degrade", "fatal"),
+             f"online_wal_full must be 'degrade' or 'fatal', got "
+             f"'{self.online_wal_full}'"))
+        for bad, msg in checks:
+            if bad:
+                raise LightGBMError(msg)
 
     @staticmethod
     def str2map(args) -> Dict[str, str]:

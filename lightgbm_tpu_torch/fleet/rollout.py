@@ -1,9 +1,8 @@
 """RolloutManager: canary/shadow deployment with auto-promote/rollback.
 
-Port of ``lightgbm_tpu/fleet/rollout.py`` (host code, copied). A
-candidate's publish from an online trainer (``submit_candidate``) waits on
-continuous learning (ROADMAP A19); ``start`` takes a Booster or a model
-file.
+Port of ``lightgbm_tpu/fleet/rollout.py`` (host code, copied). An online
+trainer's publish enters through ``submit_candidate`` when
+``canary_fraction > 0``; ``start`` takes a Booster or a model file.
 
 Online-trained models (online.py) used to hot-swap straight into the live
 registry — correct but trusting. The rollout manager inserts a judgement

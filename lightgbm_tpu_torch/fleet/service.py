@@ -91,7 +91,7 @@ class FleetServer:
         self.admission = AdmissionController.from_config(conf)
         self.store = ArtifactStore(conf.fleet_store) \
             if conf.fleet_store else None
-        self.online = None   # protocol parity: an online trainer is A19
+        self.online = None   # protocol parity: !learn answers "no trainer"
         self.rollout = None
         model_path: Optional[str] = None
         if conf.fleet_mode == "process":
@@ -170,9 +170,12 @@ class FleetServer:
     # ---- continuous training (protocol parity with PredictServer) ----
 
     def attach_online(self, trainer) -> None:
-        """Attach an online trainer (ROADMAP A19, not ported)."""
-        from ..server import _A19
-        raise NotImplementedError(_A19)
+        """Attach an OnlineTrainer/OnlineTrainerGroup so the !learn and
+        !label protocol commands feed it through this facade; its refit
+        publishes go through :meth:`publish` (fanning to every replica)."""
+        self.online = trainer
+        if hasattr(trainer, "statusz"):
+            obs_http.add_status_section("online", trainer.statusz)
 
     # ---- rollout ----
 
@@ -201,6 +204,8 @@ class FleetServer:
             out["admission"] = self.admission.snapshot()
         if self.rollout is not None:
             out["rollout"] = self.rollout.snapshot()
+        if self.online is not None and hasattr(self.online, "statusz"):
+            out["online"] = self.online.statusz()
         return out
 
     def fleet_stats(self) -> Dict:
@@ -217,6 +222,8 @@ class FleetServer:
     def close(self) -> None:
         self.rollout = None
         self.pool.close()
+        if self.online is not None:
+            obs_http.remove_status_section("online")
         obs_http.remove_status_section("fleet")
         obs_http.stop(self._obs_http)
         self._obs_http = None

@@ -9,10 +9,10 @@
 // reference package's, so one C host binds either library: train from a
 // config file, a booster from a model file or string, dense-matrix
 // predict, save, a Dataset from memory with stepwise training, a
-// coalescing prediction server (LGBMTPU_Server*), and LGBMTPU_GetLastError,
-// the reference c_api.cpp's error convention (a nonzero return, the
-// message through GetLastError). The continuous-learning entries return
-// an error naming their ROADMAP item.
+// coalescing prediction server (LGBMTPU_Server*), continuous learning
+// (LGBMTPU_DatasetAppend, LGBMTPU_Online*), and LGBMTPU_GetLastError, the
+// reference c_api.cpp's error convention (a nonzero return, the message
+// through GetLastError).
 //
 // Threading: every entry takes the GIL through PyGILState_Ensure, so a
 // host may call from any thread, one that already runs Python too.
@@ -600,9 +600,10 @@ int LGBMTPU_ServerClose(void* server) {
   return rc;
 }
 
-// ---- continuous learning (ROADMAP.md A19): each returns -1 with
-// GetLastError naming its item ----
+// ---- continuous learning (Dataset.append, online.py) ----
 
+// Append dense rows (and labels, or null) to a constructed Dataset under
+// its frozen binning.
 int LGBMTPU_DatasetAppend(void* handle, const double* data, long long nrow,
                           int ncol, const double* label) {
   ensure_interpreter();
@@ -620,6 +621,9 @@ int LGBMTPU_DatasetAppend(void* handle, const double* data, long long nrow,
   return 0;
 }
 
+// An OnlineTrainer over a constructed Dataset, continuing from a Booster
+// (null: it trains the initial model); a non-null server takes its
+// publishes and its !learn / !label lines.
 int LGBMTPU_OnlineCreate(void* dataset, void* booster, void* server,
                          const char* params, void** out) {
   ensure_interpreter();
@@ -637,6 +641,138 @@ int LGBMTPU_OnlineCreate(void* dataset, void* booster, void* server,
   }
   *out = static_cast<void*>(r);
   return 0;
+}
+
+namespace {
+
+// call capi_impl.<method>(*args) (GIL held; args owned) and store its
+// integer result, negative ones included; returns 0 or -1 on a Python
+// error
+int impl_long(const char* method, PyObject* args, long long* out) {
+  if (args == nullptr) {
+    capture_py_error();
+    return -1;
+  }
+  PyObject* fn = PyObject_GetAttrString(g_impl, method);
+  if (fn == nullptr) {
+    capture_py_error();
+    Py_DECREF(args);
+    return -1;
+  }
+  PyObject* r = PyObject_CallObject(fn, args);
+  Py_DECREF(fn);
+  Py_DECREF(args);
+  if (r == nullptr) {
+    capture_py_error();
+    return -1;
+  }
+  long long v = PyLong_AsLongLong(r);
+  Py_DECREF(r);
+  if (v == -1 && PyErr_Occurred()) {
+    capture_py_error();
+    return -1;
+  }
+  if (out != nullptr) *out = v;
+  return 0;
+}
+
+long long addr(const void* p) {
+  return static_cast<long long>(reinterpret_cast<intptr_t>(p));
+}
+
+}  // namespace
+
+// Feed one labeled batch; out_version: the version its synchronous refit
+// cycle published, else 0.
+int LGBMTPU_OnlineFeed(void* trainer, const double* data, long long nrow,
+                       int ncol, const double* label, int* out_version) {
+  ensure_interpreter();
+  GilGuard gil;
+  if (ensure_impl() != 0) return -1;
+  long long v = 0;
+  if (impl_long("online_feed",
+                Py_BuildValue("(OLLiL)", static_cast<PyObject*>(trainer),
+                              addr(data), nrow, ncol, addr(label)),
+                &v) != 0)
+    return -1;
+  if (out_version != nullptr) *out_version = static_cast<int>(v);
+  return 0;
+}
+
+// Capture served features under request id rid for a delayed-label join;
+// out_pending: the pending joins (a duplicate rid is counted and ignored).
+int LGBMTPU_OnlineCapture(void* trainer, const char* rid, const double* data,
+                          long long nrow, int ncol, int* out_pending) {
+  ensure_interpreter();
+  GilGuard gil;
+  if (ensure_impl() != 0) return -1;
+  long long v = 0;
+  if (impl_long("online_capture",
+                Py_BuildValue("(OsLLi)", static_cast<PyObject*>(trainer), rid,
+                              addr(data), nrow, ncol),
+                &v) != 0)
+    return -1;
+  if (v < 0) {
+    set_error("capture failed: malformed input");
+    return -1;
+  }
+  if (out_pending != nullptr) *out_pending = static_cast<int>(v);
+  return 0;
+}
+
+// Join a late label (weight <= 0: none) against the features captured
+// under rid; out_result: the published version when the join triggered a
+// synchronous refit, 0 when it buffered, -1 when rid matched nothing.
+int LGBMTPU_OnlineLabel(void* trainer, const char* rid, double label,
+                        double weight, int* out_result) {
+  ensure_interpreter();
+  GilGuard gil;
+  if (ensure_impl() != 0) return -1;
+  long long v = 0;
+  if (impl_long("online_label",
+                Py_BuildValue("(Osdd)", static_cast<PyObject*>(trainer), rid,
+                              label, weight),
+                &v) != 0)
+    return -1;
+  if (out_result != nullptr) *out_result = static_cast<int>(v);
+  return 0;
+}
+
+// One-line JSON of the join counters.
+int LGBMTPU_OnlineJoinStatsJSON(void* trainer, char* buf, long long cap,
+                                long long* out_len) {
+  ensure_interpreter();
+  GilGuard gil;
+  if (ensure_impl() != 0) return -1;
+  return server_json(trainer, "online_join_stats_json", buf, cap, out_len);
+}
+
+// Drain the pending rows through refit cycles now; out_version: the last
+// published version, 0 when nothing pended.
+int LGBMTPU_OnlineFlush(void* trainer, int* out_version) {
+  ensure_interpreter();
+  GilGuard gil;
+  if (ensure_impl() != 0) return -1;
+  long long v = 0;
+  if (impl_long("online_flush",
+                Py_BuildValue("(O)", static_cast<PyObject*>(trainer)),
+                &v) != 0)
+    return -1;
+  if (out_version != nullptr) *out_version = static_cast<int>(v);
+  return 0;
+}
+
+// Stop the trainer's worker, close its feed log and free the handle.
+int LGBMTPU_OnlineClose(void* trainer) {
+  if (trainer == nullptr) return 0;
+  ensure_interpreter();
+  GilGuard gil;
+  if (ensure_impl() != 0) return -1;
+  int rc = impl_long("online_close",
+                     Py_BuildValue("(O)", static_cast<PyObject*>(trainer)),
+                     nullptr);
+  Py_DECREF(static_cast<PyObject*>(trainer));
+  return rc;
 }
 
 }  // extern "C"

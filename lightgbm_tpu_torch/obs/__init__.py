@@ -32,11 +32,13 @@ fault too); the serving and fleet events (``engine_upload``,
 ``predict_batch``, ``serve_publish``, ``serve_retire``, ``serve_flush``,
 ``serve_shed``, ``admission_state``, ``admission_shed``,
 ``canary_start``, ``canary_promote``, ``canary_rollback``,
-``fleet_publish``, ``replica_health``). Every type of the reference stays
-registered with its fields, and these are not emitted: ``compile`` (it
-counts jit cache growth; the port traces nothing), ``hist_allreduce`` and
-the ``mesh_*`` events (multi-GPU, A21), ``dataset_append`` and the online
-and WAL events (continuous learning, A19).
+``fleet_publish``, ``replica_health``); the continuous-learning events
+(``dataset_append``, ``online_refit``, ``online_cycle_failed``,
+``drift_trigger``, ``drift_unlabeled``, ``freshness_breach``,
+``join_expired`` and the ``wal_*`` events). Every type of the reference
+stays registered with its fields, and these are not emitted: ``compile``
+(it counts jit cache growth; the port traces nothing), ``hist_allreduce``
+and the ``mesh_*`` events (multi-GPU, A21).
 """
 from __future__ import annotations
 

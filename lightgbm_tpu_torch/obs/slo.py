@@ -1,7 +1,7 @@
 """Per-model latency SLOs: rolling attainment windows + error-budget burn.
 
 Port of ``lightgbm_tpu/obs/slo.py`` (host code, copied); the port's serving
-(ROADMAP A18) and continuous training (A19) will feed it. In the
+and continuous training (``online.py``) feed it. In the
 reference the serve path (server.MicroBatcher._flush_group) feeds one
 ``observe`` per
 completed request; the tracker keeps a bounded window of in/out-of-SLO

@@ -30,9 +30,10 @@ requests cost about one walk instead of k:
 The engine's walk is row-independent and the padding rows are dropped
 before any sum, so coalesced outputs equal per-request engine calls bit
 for bit (tests/test_torch_server.py). A CUDA error in a flush fails that
-flush's requests; nothing answers them from another path. Continuous
-learning (``attach_online``, a capture id, ``!learn``, ``!label``) is
-ROADMAP A19 and raises ``NotImplementedError`` naming it.
+flush's requests; nothing answers them from another path. An attached
+online trainer (``attach_online``, ``online.py``) takes the ``!learn``
+rows, the features of a request with a capture id (``<rid>|...``) and its
+late ``!label``, and watches the served scores for drift.
 """
 from __future__ import annotations
 
@@ -54,9 +55,6 @@ from .obs import http_server as obs_http
 from .obs.metrics import histogram_quantiles
 from .serving import PredictEngine, bucket_rows
 from .utils import faults
-
-_A19 = ("continuous learning is not ported yet (ROADMAP.md queue A19: "
-        "continuous learning)")
 
 # scheduler idle poll: the ONLY place the scheduler blocks is the staging
 # queue, and only ever with a timeout, so close() is seen within this bound
@@ -715,7 +713,7 @@ class PredictServer:
             trace_sample=conf.serve_trace_sample,
             flush_interval_us=conf.serve_flush_interval_us,
             admission=self.admission)
-        self.online = None   # an online trainer: ROADMAP A19
+        self.online = None   # OnlineTrainer, via attach_online
         self.rollout = None  # RolloutManager, via ensure_rollout
         slo.TRACKER.configure(slo_ms=conf.serve_slo_ms,
                               target=conf.serve_slo_target,
@@ -727,9 +725,45 @@ class PredictServer:
             self.publish(model, name=name)
 
     def attach_online(self, trainer) -> None:
-        """Attach an online trainer for ``!learn`` / ``!label`` (ROADMAP
-        A19, not ported)."""
-        raise NotImplementedError(_A19)
+        """Attach an :class:`~.online.OnlineTrainer` (or a keyed
+        :class:`~.online.OnlineTrainerGroup`) so the ``!learn``/``!label``
+        protocol commands feed it and served predictions stream into its
+        unlabeled drift comparator; each refit cycle it triggers publishes
+        back into this server's registry (zero-downtime swap)."""
+        self.online = trainer
+        if hasattr(trainer, "statusz"):
+            obs_http.add_status_section("online", trainer.statusz)
+
+    def _online_capture(self, rid: str, x, model: str) -> None:
+        """Serve-time ingress half of the delayed-label join: file the
+        request's features with the online trainer BEFORE predicting, so a
+        label arriving after a crash still joins (the capture is
+        WAL-durable when the trainer logs)."""
+        tr = self.online
+        if tr is None or not hasattr(tr, "feed_features"):
+            raise LightGBMError(
+                "capture_id needs an attached online trainer")
+        from .online import OnlineTrainerGroup
+        if isinstance(tr, OnlineTrainerGroup):
+            tr.feed_features(rid, x, model=model)
+        else:
+            tr.feed_features(rid, x)
+
+    def _online_observe(self, out, model: str) -> None:
+        """Drift tap: stream served scores into the trainer's unlabeled
+        drift comparator (no-op unless online_drift_psi_max is set)."""
+        tr = self.online
+        fn = None if tr is None else getattr(tr, "observe_served", None)
+        if fn is None:
+            return
+        try:
+            from .online import OnlineTrainerGroup
+            if isinstance(tr, OnlineTrainerGroup):
+                fn(out, model=model)
+            else:
+                fn(out)
+        except KeyError:
+            pass   # no trainer under this serve-model name: nothing to watch
 
     def _warmup_sizes(self) -> Tuple[int, ...]:
         """1 + every power-of-two bucket up to serve_max_batch_rows, so the
@@ -768,12 +802,17 @@ class PredictServer:
                 pred_leaf: bool = False,
                 timeout: Optional[float] = None,
                 capture_id: Optional[str] = None) -> np.ndarray:
-        """Predict through the coalescing scheduler; ``capture_id`` (a
-        delayed-label join) is continuous learning, ROADMAP A19."""
+        """Predict through the coalescing scheduler; with ``capture_id``
+        the features are first filed with the attached online trainer for a
+        delayed-label join (the label arrives later via
+        ``feed_label``/``!label``)."""
         if capture_id is not None:
-            raise NotImplementedError(_A19)
-        return self.submit(x, model=model, raw_score=raw_score,
-                           pred_leaf=pred_leaf).result(timeout)
+            self._online_capture(capture_id, x, model)
+        out = self.submit(x, model=model, raw_score=raw_score,
+                          pred_leaf=pred_leaf).result(timeout)
+        if self.online is not None and not raw_score and not pred_leaf:
+            self._online_observe(out, model)
+        return out
 
     def predict_versioned(self, x, model: str = "default",
                           timeout: Optional[float] = None,
@@ -783,9 +822,11 @@ class PredictServer:
         request itself, so the answer is race-free across concurrent
         hot-swaps (and reflects canary routing when a rollout is live)."""
         if capture_id is not None:
-            raise NotImplementedError(_A19)
+            self._online_capture(capture_id, x, model)
         req = self.submit(x, model=model)
         out = req.result(timeout)
+        if self.online is not None:
+            self._online_observe(out, model)
         return out, req.version
 
     def submit(self, x, **kw) -> _Request:
@@ -848,6 +889,10 @@ class PredictServer:
             out["admission"] = self.admission.snapshot()
         if self.rollout is not None:
             out["rollout"] = self.rollout.snapshot()
+        if self.online is not None and hasattr(self.online, "statusz"):
+            # per-model join/drift/WAL state rides along, so !stats and
+            # server_stats_json mirror the /statusz online section
+            out["online"] = self.online.statusz()
         return out
 
     def fleet_stats(self) -> Dict:
@@ -866,6 +911,8 @@ class PredictServer:
         self.batcher.close(drain=drain)
         obs.remove_collector("serving")
         obs_http.remove_status_section("serving")
+        if self.online is not None:
+            obs_http.remove_status_section("online")
         obs_http.stop(self._obs_http)
         self._obs_http = None
 
@@ -873,11 +920,21 @@ class PredictServer:
 # ---- transports (task=serve): newline-delimited request protocol ----
 #
 #   <v1>,<v2>,...      feature row  ->  "<version>\t<val>[,<val>...]"
-#   <rid>|<v1>,<v2>,.. feature row + delayed-label capture (continuous
-#                      learning, ROADMAP A19: answers an error naming it)
+#   <rid>|<v1>,<v2>,.. feature row + delayed-label capture: the features
+#                      are filed with the online trainer under request id
+#                      <rid> (WAL-durable) BEFORE predicting, so a later
+#                      "!label <rid> ..." joins them
+#                                   ->  "<version>\t<val>[,<val>...]"
 #   !publish <path>    hot-swap     ->  "ok version=<n>"
-#   !learn, !label     the online trainer's commands (ROADMAP A19: answer
-#                      an error naming it)
+#   !learn <y>,<v1>,.. labeled row into the attached OnlineTrainer
+#                                   ->  "ok pending=<n>[ version=<v>]"
+#                      (version only when the row triggered a synchronous
+#                      refit; under online_async_refit the cycle runs on
+#                      the trainer's worker and the reply never waits)
+#   !label <rid> <y>   late-arriving label joins the features captured
+#                      under <rid>; unmatched/duplicate labels are counted,
+#                      never trained
+#                                   ->  "ok pending=<n> joined=<n>[ version=<v>]"
 #   !canary <path> [fraction] [shadow|canary]
 #                      start a rollout -> "ok version=<n> mode=<m>"
 #   !promote           promote the canary now -> "ok version=<n>"
@@ -910,9 +967,44 @@ def handle_line(server, line: str, model: str = "default") -> Optional[str]:
             except Exception as e:
                 return f"error: publish failed: {e}"
             return f"ok version={v}"
-        if cmd[0] in ("!learn", "!label"):
-            # the online trainer's commands (continuous learning, A19)
-            return f"error: {cmd[0]} failed: {_A19}"
+        if cmd[0] == "!learn":
+            # labeled row for the attached OnlineTrainer (label first, the
+            # label_index=0 file convention): "!learn <label>,<v1>,<v2>,..."
+            if server.online is None:
+                return "error: no online trainer attached"
+            if len(cmd) < 2:
+                return "error: !learn needs <label>,<v1>,<v2>,..."
+            try:
+                vals = [float(p)
+                        for p in cmd[1].replace(",", " ").split()]
+                if len(vals) < 2:
+                    raise ValueError("need a label and at least one feature")
+                ver = server.online.feed(
+                    np.asarray(vals[1:], dtype=np.float64)[None, :],
+                    [vals[0]])
+            except Exception as e:
+                return f"error: learn failed: {e}"
+            tail = f" version={ver}" if ver else ""
+            return f"ok pending={server.online.pending_rows}{tail}"
+        if cmd[0] == "!label":
+            # delayed-label join: "!label <request-id> <label> [weight]"
+            # joins a late label against the features a "<rid>|<v1>,..."
+            # predict line captured earlier
+            if server.online is None:
+                return "error: no online trainer attached"
+            args = cmd[1].split() if len(cmd) > 1 else []
+            if len(args) < 2:
+                return "error: !label needs <request-id> <label>"
+            try:
+                w = float(args[2]) if len(args) > 2 else None
+                ver = server.online.feed_label(args[0], float(args[1]),
+                                               weight=w)
+                js = server.online.join_stats()
+            except Exception as e:
+                return f"error: label failed: {e}"
+            tail = f" version={ver}" if ver else ""
+            return (f"ok pending={js.get('pending', 0)} "
+                    f"joined={js.get('joined', 0)}{tail}")
         if cmd[0] == "!canary":
             # "!canary <path> [fraction] [shadow|canary]" — start a rollout
             args = cmd[1].split() if len(cmd) > 1 else []
@@ -963,7 +1055,9 @@ def handle_line(server, line: str, model: str = "default") -> Optional[str]:
             raise ValueError("no features parsed")
         x = np.array([float(p) for p in parts], dtype=np.float64)
         if rid is not None:
-            raise NotImplementedError(_A19)
+            if server.online is None:
+                return "error: no online trainer attached for capture"
+            server.online.feed_features(rid, x)
         # version comes off the request itself (not a second registry read):
         # race-free under hot-swap, and honest under canary routing
         out, ver = server.predict_versioned(x, model=model)

@@ -30,13 +30,25 @@ point                     fires in
                           ``torch.cuda.OutOfMemoryError`` type
 ``prewarm_compile``       prewarm.py, at the start of the background
                           library load and kernel warm-up
+``wal_append``            wal.py, once a feed batch is durable and before
+                          the trainer buffers it
+``dataset_append``        basic.Dataset.append, once the rows are binned on
+                          the device and before anything changes in place
+``online_train``          online.py, a refit cycle after its append and
+                          before its training
+``online_publish``        online.py, a refit cycle after its training and
+                          before its publish and WAL commit
+``join_capture``          wal.py, once a captured feature row-set is durable
+``join_label``            join.py, a label in hand and its join not yet
+                          durable
+``join_commit``           join.py, the joined batch durable and its ack not
+                          yet returned
 ========================  ===================================================
 
 The others fire in modules that are not ported yet, and arming one raises
 ``NotImplementedError`` naming its ROADMAP.md item (``UNPORTED_POINTS``):
 the sharded device points (a lost shard, a dead collective) and the
-distributed bootstrap belong to the multi-GPU work (A21), the feed log
-and online trainer points to continuous learning (A19).
+distributed bootstrap belong to the multi-GPU work (A21).
 """
 from __future__ import annotations
 
@@ -64,9 +76,6 @@ _OOM_POINTS = ("device_put_oom",)
 UNPORTED_POINTS = {
     **{p: "A21" for p in ("shard_commit", "hist_allreduce",
                           "mapper_allgather", "dist_init")},
-    **{p: "A19" for p in ("wal_append", "dataset_append", "online_train",
-                          "online_publish", "join_capture", "join_label",
-                          "join_commit")},
 }
 
 _lock = threading.Lock()

@@ -12,7 +12,9 @@ stepwise from an
 in-memory matrix and ends with the model text of ``train`` on the same
 rows. The error convention: a failing call returns nonzero and
 LGBMTPU_GetLastError names the cause (a server on a missing model file
-names the file); the continuous-learning entries name their ROADMAP item.
+names the file); the continuous-learning entries append rows to a Dataset
+and create an online trainer (their whole round trip is in
+tests/test_torch_online_join.py).
 The server entries' round trip is in tests/test_torch_server.py. Skips where there is no g++, gcc or
 Python.h to build and link against.
 """
@@ -77,6 +79,8 @@ def capi(so):
         "LGBMTPU_DatasetAppend": [vp, dp, ctypes.c_longlong, ctypes.c_int,
                                   dp],
         "LGBMTPU_OnlineCreate": [vp, vp, vp, ctypes.c_char_p, pvp],
+        "LGBMTPU_DatasetNumData": [vp, ctypes.POINTER(ctypes.c_longlong)],
+        "LGBMTPU_OnlineClose": [vp],
     }
     for name, args in sigs.items():
         getattr(lib, name).argtypes = args
@@ -297,11 +301,23 @@ def test_capi_error_convention(capi, tmp_path):
     d = ctypes.c_void_p()
     assert capi.LGBMTPU_DatasetCreateFromMat(_dptr(X), 20, 3, PARAMS.encode(),
                                              None, ctypes.byref(d)) == 0
-    assert capi.LGBMTPU_DatasetAppend(d, _dptr(X), 20, 3, _dptr(X)) == -1
-    assert b"A19" in capi.LGBMTPU_GetLastError()
-    assert capi.LGBMTPU_OnlineCreate(d, None, None, b"",
-                                     ctypes.byref(h)) == -1
-    assert b"A19" in capi.LGBMTPU_GetLastError()
+    y = np.ascontiguousarray(X[:, 0] > 0, dtype=np.float64)
+    assert capi.LGBMTPU_DatasetSetField(d, b"label", y.ctypes.data, 20,
+                                        0) == 0
+    # continuous learning: rows append under the frozen binning, and an
+    # online trainer (its initial model trained here) takes the Dataset
+    assert capi.LGBMTPU_DatasetAppend(d, _dptr(X), 20, 3, _dptr(y)) == 0
+    n = ctypes.c_longlong()
+    assert capi.LGBMTPU_DatasetNumData(d, ctypes.byref(n)) == 0
+    assert n.value == 40
+    assert capi.LGBMTPU_OnlineCreate(
+        d, None, None, b"objective=binary num_leaves=7 min_data_in_leaf=5 "
+        b"num_iterations=2 verbosity=-1 device_type=cpu",
+        ctypes.byref(h)) == 0
+    assert capi.LGBMTPU_OnlineClose(h) == 0
+    # a label of the wrong width is an error naming the field
+    assert capi.LGBMTPU_DatasetAppend(d, _dptr(X), 20, 3, None) == -1
+    assert b"label" in capi.LGBMTPU_GetLastError()
     assert capi.LGBMTPU_DatasetSetField(d, b"colour", X.ctypes.data, 20,
                                         0) == -1
     assert b"colour" in capi.LGBMTPU_GetLastError()

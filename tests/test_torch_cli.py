@@ -350,12 +350,48 @@ def test_cli_refit_matches_reference(cli_runs):
 @pytest.mark.parametrize("task,item", [("serve", "A18"), ("online", "A19")])
 def test_cli_serve_and_online_not_ported(tmp_path, monkeypatch, capsys, task,
                                          item):
-    """task=online (A19) is not ported and raises naming its item; task=serve
-    (A18) is: over stdin/stdout it answers each feature row with its version
-    and the model's prediction, hot-swaps on !publish and stops at !quit."""
+    """task=serve (A18) over stdin/stdout answers each feature row with its
+    version and the model's prediction, hot-swaps on !publish and stops at
+    !quit. task=online (A19) trains on ``data``, drains ``online_feed``
+    through the online trainer and saves the model: its trees equal the
+    same feed through the Python API (OnlineTrainer over tail_source) byte
+    for byte, and the reference's task=online in structure (leaves rtol
+    1e-4 plus 1e-4 of the largest, C2; L2 labels on a 1/8 grid)."""
     if task == "online":
-        with pytest.raises(NotImplementedError, match=item):
-            app.main([f"task={task}", "input_model=m.txt", "data=d.tsv"])
+        X, _ = _rows(300, 4, 9)
+        y = np.round((X[:, 0] - np.nan_to_num(X[:, 2])) * 8) / 8
+        data = _write(tmp_path / "d.tsv", y[:200], X[:200])
+        feed = _write(tmp_path / "feed.csv", y[200:], X[200:], delim=",")
+        keys = {**TRAIN, "objective": "regression", "online_feed": feed,
+                "online_refit_rows": 60, "online_boost_rounds": 2}
+        argv = [f"task={task}", f"data={data}"] + \
+            [f"{k}={v}" for k, v in keys.items()]
+        out = {}
+        for pkg, main, extra in ((lt, app.main, ["device_type=cpu"]),
+                                 (lgb, ref_app.main, [])):
+            path = str(tmp_path / f"{pkg.__name__}.txt")
+            main(argv + extra + [f"output_model={path}"])
+            out[pkg] = open(path).read()
+        from lightgbm_tpu_torch.online import OnlineTrainer, tail_source
+        pp = {**keys, "device_type": "cpu"}
+        tr = OnlineTrainer(pp, lt.Dataset(X[:200], label=y[:200], params=pp))
+        assert tr.run(tail_source(feed, follow=False)) == 100
+        assert tr.cycles == 1 and tr.dataset.num_data == 300
+        # the trees byte for byte (the parameter echo holds the CLI's keys)
+        assert out[lt].split("\nparameters:")[0] == \
+            tr.booster.model_to_string().split("\nparameters:")[0]
+        tr.close()
+        _, ta = parse_model_text(out[lgb])
+        _, tb = parse_model_text(out[lt])
+        assert len(ta) == len(tb) == 5
+        for t_ref, t_port in zip(ta, tb):
+            for f in ("split_feature", "threshold_bin", "left_child",
+                      "right_child"):
+                np.testing.assert_array_equal(getattr(t_port, f),
+                                              getattr(t_ref, f))
+            np.testing.assert_allclose(
+                t_port.leaf_value, t_ref.leaf_value, rtol=1e-4,
+                atol=1e-4 * np.abs(t_ref.leaf_value).max())
         return
     X, y = _rows(300, 4, 9)
     p = {"objective": "binary", "num_leaves": 7, "verbosity": -1,

@@ -85,7 +85,14 @@ loads the library and warms the fused path's kernels with its launches
 counted apart; the serving engine's walk on the card gives the CPU walk's
 leaf indices and scores bit for bit, and a steady-state loop of flushes
 through a PredictServer adds no allocator retry
-(``torch.cuda.memory_stats()["num_alloc_retries"]``).
+(``torch.cuda.memory_stats()["num_alloc_retries"]``). Continuous learning:
+Dataset.append on the card (chunks through the ingest pipeline, a FIFO
+window, NaN and out-of-range values) gives the bins of a reference=
+construct of the same rows and of the CPU's append byte for byte, labels
+and weights on the card beside them; an online boost cycle on the card
+launches the fused front (B1-B4, B4 for the init model's replay too) and
+its merged model equals the offline append + train(init_model=) + merge
+byte for byte.
 """
 import os
 import subprocess
@@ -1636,3 +1643,66 @@ def test_serve_flush_loop_adds_no_allocator_retry(dev):
         assert eng.stats["buckets_seen"] == seen
     finally:
         srv.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cap", [0, 2500])
+def test_dataset_append_on_the_card_equals_construct_and_cpu(dev, cap):
+    rng = np.random.RandomState(6)
+    X = rng.rand(4000, 8)
+    X[3100, 0] = np.nan
+    X[3200, 1] = 50.0
+    y = (X[:, 0] > 0.5).astype(float)
+    w = rng.uniform(0.5, 2.0, 4000)
+    p = {"verbosity": -1, "max_bin": 63, "ingest_chunk_rows": 300}
+    out = {}
+    for d in ("cuda", "cpu"):
+        pp = {**p, "device_type": d}
+        ds = lt.Dataset(X[:2000], label=y[:2000], weight=w[:2000],
+                        params=pp).construct()
+        for lo, hi in ((2000, 3001), (3001, 3002), (3002, 4000)):
+            ds.append(X[lo:hi], label=y[lo:hi], weight=w[lo:hi],
+                      max_rows=cap or None)
+        out[d] = ds
+    n = cap or 4000
+    ds = out["cuda"]
+    assert ds.bins.is_cuda and ds.label.is_cuda and ds.weight.is_cuda
+    assert ds.num_data == n and ds.bins.shape[0] == n
+    ref = lt.Dataset(X[4000 - n:], label=y[4000 - n:], weight=w[4000 - n:],
+                     reference=ds, params={**p, "device_type": "cuda"})
+    ref.construct()
+    assert torch.equal(ds.bins, ref.bins)
+    assert torch.equal(ds.bins.cpu(), out["cpu"].bins)
+    assert torch.equal(ds.bins_T, ds.bins.t().contiguous())
+    assert torch.equal(ds.label, ref.label)
+    assert torch.equal(ds.weight, ref.weight)
+
+
+@pytest.mark.cuda
+def test_online_boost_cycle_on_the_card_equals_offline(dev):
+    from lightgbm_tpu_torch.online import OnlineTrainer, merge_boosters
+    rng = np.random.RandomState(7)
+    X = rng.rand(6000, 8)
+    y = (X[:, 0] + X[:, 1] > 1).astype(float)
+    p = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
+         "verbosity": -1, "online_refit_rows": 2000,
+         "online_boost_rounds": 2, "online_max_rows": 4000}
+    b1 = lt.train(p, lt.Dataset(X[:4000], label=y[:4000], params=p), 3)
+    ds = lt.Dataset(X[:4000], label=y[:4000], params=p)
+    tr = OnlineTrainer(p, ds, booster=b1)
+    hk.reset_launches()
+    assert tr.feed(X[4000:5000], y[4000:5000]) is None
+    assert tr.feed(X[5000:], y[5000:]) == 1
+    launches = dict(hk.LAUNCHES)
+    tr.close()
+    assert ds.num_data == 4000
+    off = lt.Dataset(X[2000:], label=y[2000:], reference=ds, params=p)
+    delta = lt.train(p, off, 2, init_model=b1)
+    assert torch.equal(ds.bins, off.bins)
+    assert tr.booster.model_to_string() == \
+        merge_boosters(b1, delta).model_to_string()
+    passes = sum(delta._gbdt.hist_passes)
+    assert launches["grad_quant_hist0"] == 2
+    assert launches["leaf_sums_grad"] == 2
+    assert launches["hist_routed_fused"] == passes
+    assert launches["take_small"] == 2 + b1.num_trees()

@@ -276,7 +276,8 @@ def test_fault_spec_unknown_and_unported_points():
         faults.configure("snapshot_wirte:1")
     # armed points whose site is not ported are refused, never ignored;
     # device_put_oom and prewarm_compile fire in ingest.py, serving.py and
-    # prewarm.py and arm
+    # prewarm.py and arm, and so do the continuous-learning points (wal.py,
+    # join.py, online.py, Dataset.append)
     faults.configure("device_put_oom:1,prewarm_compile:1")
     assert faults.is_armed("device_put_oom")
     faults.configure(None)
@@ -284,8 +285,16 @@ def test_fault_spec_unknown_and_unported_points():
         faults.configure("hist_allreduce:1")
     with pytest.raises(NotImplementedError, match="A21"):
         faults.configure("dist_init:1")
-    with pytest.raises(NotImplementedError, match="A19"):
-        faults.configure("wal_append:1")
+    online = ("wal_append", "dataset_append", "online_train",
+              "online_publish", "join_capture", "join_label", "join_commit")
+    faults.configure(",".join(f"{p}:1" for p in online))
+    assert all(faults.is_armed(p) for p in online)
+    with pytest.raises(FaultInjected, match="wal_append"):
+        faults.fault_point("wal_append")
+    faults.fault_point("wal_append")
+    faults.configure(None)
+    assert set(faults.UNPORTED_POINTS) == {"shard_commit", "hist_allreduce",
+                                           "mapper_allgather", "dist_init"}
     assert set(faults.KNOWN_POINTS) == set(ref_faults.KNOWN_POINTS)
     assert faults.DEVICE_FAULT_POINTS == ref_faults.DEVICE_FAULT_POINTS
 

@@ -299,11 +299,25 @@ def test_request_validation(boosters, queries):
             srv.predict(RNG.rand(2, 2, 2))
         with pytest.raises(KeyError, match="no model"):
             srv.predict(queries[0], model="ghost")
-        # continuous learning is A19
-        with pytest.raises(NotImplementedError, match="A19"):
+        # a capture id (a delayed-label join) needs an online trainer
+        with pytest.raises(lt.LightGBMError, match="online trainer"):
             srv.predict(queries[0], capture_id="r1")
-        with pytest.raises(NotImplementedError, match="A19"):
-            srv.attach_online(object())
+        # attached, the trainer files the captured features before the
+        # predict, and the late label joins them
+        from lightgbm_tpu_torch.online import OnlineTrainer
+        X = np.random.RandomState(3).rand(100, N_FEAT)
+        p = {"objective": "binary", "num_leaves": 15, "verbosity": -1,
+             "min_data_in_leaf": 5, "online_refit_rows": 1000, **CPU}
+        tr = OnlineTrainer(p, lt.Dataset(X, label=X[:, 0] > 0.5, params=p),
+                           booster=b1, server=srv)
+        srv.attach_online(tr)
+        got = srv.predict(queries[0], capture_id="r1")
+        assert np.array_equal(got, b1.predict(queries[:1]))
+        assert tr.join_stats()["pending"] == 1
+        tr.feed_label("r1", 1.0)
+        assert tr.join_stats()["joined"] == 1 and tr.pending_rows == 1
+        assert srv.stats()["online"]["join"]["joined"] == 1
+        tr.close()
     finally:
         srv.close()
     with pytest.raises(RuntimeError, match="shut down"):
@@ -346,10 +360,9 @@ def test_line_protocol_and_stdio_match_reference(boosters, queries, tmp_path):
             assert a.startswith("{") and ('"flushes"' in a) == \
                 ('"flushes"' in r)
         elif i in (6, 7, 8):
-            # the online trainer's commands: no trainer in the reference,
-            # continuous learning (A19) not ported here
-            assert r.startswith("error:") and a.startswith("error:")
-            assert "A19" in a, a
+            # the online trainer's commands with no trainer attached: the
+            # reference's errors word for word
+            assert r.startswith("error:") and a == r, (a, r)
         else:
             assert a.split(":")[0] == r.split(":")[0], (i, a, r)
     v1, s1 = port[0].split("\t")
