@@ -265,7 +265,17 @@ measured):
    (scripts/torch_online_drill.py), and the !learn / capture / !label
    lines, task=online and the C host's LGBMTPU_Online* entries
    (scripts/torch_online_host.c), each against the Python API
-   (``online_path``);
+   (``online_path``); then (t) "mesh" on (a)'s rows over 4 virtual copies
+   of the card (``mesh_path``): the data-parallel learner on exact sums
+   byte for byte serial (B8, B6, B4 per shard), the fused quantized path
+   on 4 shards (B1-B4 per shard; s/iteration and the bytes a level sums
+   beside serial's, the valid AUC within 0.002, a 4,000-row model equal
+   to the CPU's), the feature-parallel learner on 7-feature tiles, the
+   voting learner (every feature elected: byte for byte; top_k=5 fused and
+   at max_bin=255 through B5, B6, B7 at up to 254 slots), the 2-D mesh,
+   the mesh faults (a retried hist_allreduce, device_put_oom's reshard and
+   fallback_single rungs, a kill on 4 shards resumed on 2) and the real
+   device count;
 5. agreement, at max_bin=63 and at 255 (the 4000-row table has more than
    128 bins a feature, so the unfused path, which is asserted): the first
    tree of a 4000-row L2 model trained on the card has the structure of
@@ -2163,6 +2173,454 @@ def online_path(X, y, launches_all, card: str,
           f"card: {card}")
     if cuda:
         torch.cuda.empty_cache()
+    return sec
+
+
+MESH_SHARDS = 4
+MESH_PARAMS = {"num_leaves": L, "max_bin": 63, "learning_rate": 0.1,
+               "min_data_in_leaf": 20, "verbosity": -1, "prewarm": 0}
+
+
+def mesh_path(X, y, launches_all, card: str,
+              device_type: str = "cuda") -> dict:
+    """(t) "mesh": (a)'s rows (synth_higgs 10.5M x 28, max_bin=63,
+    num_leaves=255) on a mesh of MESH_SHARDS virtual copies of the card
+    (parallel/mesh.virtual_devices), through Dataset(num_shards=...) and
+    train():
+
+    (t1) use_quantized_grad=false with a custom objective of integer
+    gradients in {-1, 0, 1} and hessian 0.25 (``lattice_fobj``: every sum
+    exact in f32 at 10.5M rows), 3 iterations on 4 shards, byte for byte
+    the serial card run (hist_f32 + route_level + take_small per shard);
+    (t2) the fused quantized binary path, 5 iterations on 4 shards and
+    serially (B1, B3, B4 4 a tree, B2 4 a level pass; s/iteration of
+    each, the bytes each level sums), the 500,000-row valid AUC within
+    0.002 of the serial model's, and a 4,000-row 4-shard model on L2
+    labels on a 1/8 grid equal to the same run on the CPU under
+    virtual_devices(4, "cpu") byte for byte; (t3) tree_learner=feature on
+    the 4 devices (7-feature tiles), (t1)'s objective, 2 iterations, byte
+    for byte serial; (t4) tree_learner=voting, 3 iterations: top_k=28 on
+    (t1)'s objective byte for byte (t1)'s data-parallel model (the pass
+    width printed), top_k=5 on the quantized binary objective (AUC and the
+    bytes a level against (t2)'s), and (t4') top_k=5 at max_bin=255 (the
+    unfused front: B5 root and level passes at up to 254 slots, B6, B7,
+    B4), 2 iterations; (t5) num_shards=2 with feature_shards=2 byte for
+    byte num_shards=2 (fused binary, 2 iterations); (t6) faults:
+    hist_allreduce:1 retried, byte for byte a clean run; device_put_oom
+    under a 2-shard plan, resharded to 4 shards and then dropped
+    (fallback_single), the bins bit for bit; a kill at iteration 2 on 4
+    shards resumed on 2, byte for byte (t1)'s model; (t7) the real device
+    count, and (t1) over the real devices where there is more than one.
+    The launch counts are zeroed before each run and read after it;
+    each run's expected counts are per shard. Returns its seconds by
+    part."""
+    import shutil
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch import metrics
+    from lightgbm_tpu_torch.ops import grow as G
+    from lightgbm_tpu_torch.ops import hist_kernels as hk
+    from lightgbm_tpu_torch.ops import histogram as Hmod
+    from lightgbm_tpu_torch.parallel.mesh import virtual_devices
+    from lightgbm_tpu_torch.utils import faults
+    from lightgbm_tpu_torch.utils.faults import FaultInjected
+
+    tag = "[mesh (t), max_bin=63]"
+    k = MESH_SHARDS
+    cuda = device_type == "cuda"
+    dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    work = os.path.join(OUT_DIR, "mesh_path")
+    if os.path.isdir(work):
+        shutil.rmtree(work)
+    os.makedirs(work)
+    base = {**MESH_PARAMS, "device_type": device_type}
+    quant_bin = {**base, "objective": "binary"}
+    lattice = {**base, "objective": "none", "use_quantized_grad": False}
+    sec = {}
+    t_path = time.perf_counter()
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def lattice_fobj(preds, ds):
+        """Integer gradients in {-1, 0, 1}, hessian 0.25."""
+        g = np.clip(np.round(np.asarray(preds, np.float64) * 2.0)
+                    - (2.0 * ds.get_label() - 1.0), -1.0, 1.0)
+        return g.astype(np.float32), np.full(g.shape, 0.25, np.float32)
+
+    def head(bst, num_iteration=None):
+        """The model text without its parameter echo."""
+        return bst.model_to_string(num_iteration=num_iteration).split(
+            "\nparameters:\n")[0]
+
+    def run(what, fn, expect):
+        """fn() with the launch counts zeroed before it and read after,
+        held to expect (kernel -> launches) and zero elsewhere."""
+        hk.reset_launches()
+        sync()
+        t = time.perf_counter()
+        out = fn()
+        sync()
+        dt = time.perf_counter() - t
+        got = dict(hk.LAUNCHES)
+        want = {n: 0 for n in hk.KERNELS}
+        want.update(expect(out))
+        if cuda and got != want:
+            fail(f"{what}: launch counts {got} != expected {want}")
+        for n, v in got.items():
+            launches_all[n] += v
+        return out, dt, got
+
+    def passes(bst):
+        return sum(bst._gbdt.hist_passes)
+
+    def same(what, a, b):
+        if a != b:
+            la, lb = a.splitlines(), b.splitlines()
+            i = next((i for i, (p, q) in enumerate(zip(la, lb)) if p != q),
+                     min(len(la), len(lb)))
+            fail(f"{what}: model texts differ at line {i}: "
+                 f"{(la[i] if i < len(la) else '')[:100]!r} != "
+                 f"{(lb[i] if i < len(lb) else '')[:100]!r}")
+
+    def construct(params, rows=None):
+        sync()
+        t = time.perf_counter()
+        ds = lt.Dataset(X if rows is None else X[:rows],
+                        label=y if rows is None else y[:rows],
+                        params=params).construct()
+        sync()
+        return ds, time.perf_counter() - t
+
+    def mesh_ids(bst):
+        plan = bst._gbdt._shard_plan
+        return None if plan is None else plan.num_shards
+
+    with virtual_devices(k, dev):
+        # ---- (t1) exact sums: 4 shards byte for byte serial ----
+        ds1, sec["construct_serial_s"] = construct(lattice)
+        ds4, sec["construct_4_shards_s"] = construct({**lattice,
+                                                      "num_shards": k})
+        if ds4.shard_plan is None or ds4.shard_plan.num_shards != k or \
+                ds1.shard_plan is not None:
+            fail(f"(t1): plans {ds1.shard_plan} / {ds4.shard_plan}")
+        if not torch.equal(ds4.bins, ds1.bins):
+            fail("(t1): the sharded ingest's bins differ from the serial")
+        print(f"{tag} construct: serial {sec['construct_serial_s']:.3f} s, "
+              f"{k} shards x {ds4.shard_plan.rows_per_shard} rows "
+              f"{sec['construct_4_shards_s']:.3f} s (pad "
+              f"{ds4.shard_plan.pad_rows}), bins bit for bit; card: {card}")
+        serial1, t_s1, _ = run(
+            "(t1) serial", lambda: lt.train(lattice, ds1, 3,
+                                            fobj=lattice_fobj),
+            lambda b: dict(hist_f32=3 + passes(b), route_level=passes(b),
+                           take_small=3))
+        G.reset_allreduce()
+        shard1, t_k1, got1 = run(
+            "(t1) 4 shards", lambda: lt.train({**lattice, "num_shards": k},
+                                              ds4, 3, fobj=lattice_fobj),
+            lambda b: dict(hist_f32=k * (3 + passes(b)),
+                           route_level=k * passes(b), take_small=k * 3))
+        if mesh_ids(shard1) != k:
+            fail(f"(t1): the trainer has {mesh_ids(shard1)} shards")
+        same("(t1) 4 shards vs serial", head(shard1), head(serial1))
+        sec["t1_serial_s_per_iter"] = t_s1 / 3
+        sec["t1_sharded_s_per_iter"] = t_k1 / 3
+        print(f"{tag} (t1) integer gradients, h 0.25, unquantized, 3 "
+              f"iterations: 4 shards byte for byte serial ({len(head(shard1))}"
+              f" bytes, level passes {shard1._gbdt.hist_passes}); launches "
+              f"{ {n: v for n, v in got1.items() if v} } ({k} a shard a "
+              f"tree / level pass); s/iteration serial {t_s1 / 3:.4f}, "
+              f"4 shards {t_k1 / 3:.4f}; shard sums {dict(G.ALLREDUCE)}")
+
+        # ---- (t2) the fused quantized path ----
+        serial2, t_s2, _ = run(
+            "(t2) serial", lambda: lt.train(quant_bin, ds1, 5),
+            lambda b: dict(grad_quant_hist0=5, hist_routed_fused=passes(b),
+                           leaf_sums_grad=5, take_small=5))
+        G.reset_allreduce()
+        shard2, t_k2, got2 = run(
+            "(t2) 4 shards", lambda: lt.train({**quant_bin,
+                                               "num_shards": k}, ds4, 5),
+            lambda b: dict(grad_quant_hist0=k * 5,
+                           hist_routed_fused=k * passes(b),
+                           leaf_sums_grad=k * 5, take_small=k * 5))
+        red2 = dict(G.ALLREDUCE)
+        levels2 = passes(shard2) + 5
+        level_bytes2 = red2["hist_bytes"] / max(1, red2["hist_calls"])
+        # one level's shard sum at its widest, S 127: 4 [127, 3, 28, 64]
+        # f32 histograms (2.73 MB each) summed in shard order
+        gen = torch.Generator(device=dev).manual_seed(5)
+        hparts = [torch.randn((L // 2, 3, F, 64), generator=gen, device=dev)
+                  for _ in range(k)]
+        gp_k = shard2._gbdt.gp
+        sum_ms = (time_ms(lambda: G._hist_allreduce(hparts, gp_k, 2))
+                  if cuda else None)
+        G.reset_allreduce()
+        del hparts
+        sec["t2_shard_sum_ms_s127"] = sum_ms
+        Xv, yv = synth_higgs(N_VALID, F, seed=1)
+        aucs = [float(metrics.auc(torch.as_tensor(yv), torch.as_tensor(
+            b.predict(Xv).astype(np.float64)))) for b in (serial2, shard2)]
+        sec["t2_serial_s_per_iter"] = t_s2 / 5
+        sec["t2_sharded_s_per_iter"] = t_k2 / 5
+        sec["t2_level_sum_bytes"] = level_bytes2
+        print(f"{tag} (t2) fused quantized binary, 5 iterations: s/iteration "
+              f"serial {t_s2 / 5:.4f}, {k} shards {t_k2 / 5:.4f}; launches "
+              f"{ {n: v for n, v in got2.items() if v} } ({k} a shard a "
+              f"tree / level pass, level passes {shard2._gbdt.hist_passes});"
+              f" shard sums {red2} over {levels2} histograms, "
+              f"{level_bytes2:.0f} bytes a sum ({level_bytes2 / k:.0f} a "
+              f"shard), a sum at S 127 {sum_ms} ms (CUDA events); valid "
+              f"AUC (500,000 rows of seed 1) serial {aucs[0]:.6f}, "
+              f"{k} shards {aucs[1]:.6f}; card: {card}")
+        if abs(aucs[0] - aucs[1]) > 0.002:
+            fail(f"(t2): 4-shard valid AUC {aucs[1]} vs serial {aucs[0]}")
+        del Xv, yv
+        # a 4,000-row 4-shard model: the card and the CPU byte for byte
+        ys = (np.round(y[:4000] * 2.0 + X[:4000, 0] * 2.0) / 8.0).astype(
+            np.float32)
+        small = {**base, "objective": "regression", "num_leaves": 31,
+                 "boost_from_average": False, "num_shards": k}
+        texts = {}
+        for d_ in (device_type, "cpu"):
+            with virtual_devices(k, d_ if d_ == "cpu" else dev):
+                p_ = {**small, "device_type": d_}
+                b_ = lt.train(p_, lt.Dataset(X[:4000], label=ys, params=p_),
+                              3)
+                if mesh_ids(b_) != k or not b_._gbdt.path.fused:
+                    fail(f"(t2) 4,000 rows on {d_}: not the fused 4-shard "
+                         "path")
+                texts[d_] = head(b_)
+        same("(t2) 4,000 rows card vs CPU", texts[device_type], texts["cpu"])
+        print(f"{tag} (t2) 4,000 rows, 4 shards, fused L2 on a 1/8 grid, 3 "
+              "iterations: the card's model text equals the CPU's "
+              "(virtual_devices(4, 'cpu')) byte for byte")
+
+        # ---- (t3) feature-parallel: 7-feature tiles ----
+        fp, t_fp, got3 = run(
+            "(t3) feature", lambda: lt.train({**lattice,
+                                              "tree_learner": "feature"},
+                                             ds1, 2, fobj=lattice_fobj),
+            lambda b: dict(hist_f32=k * (2 + passes(b)),
+                           route_level=passes(b), take_small=2))
+        tiles = [(t.lo, t.hi) for t in fp._gbdt._fp_tiles.tiles]
+        if not fp._gbdt._fp or tiles != [(7 * i, 7 * i + 7)
+                                         for i in range(k)]:
+            fail(f"(t3): feature-parallel {fp._gbdt._fp}, tiles {tiles}")
+        same("(t3) feature vs serial", head(fp), head(serial1, 2))
+        print(f"{tag} (t3) tree_learner=feature, tiles {tiles}, 2 "
+              f"iterations: byte for byte serial; launches "
+              f"{ {n: v for n, v in got3.items() if v} } (hist_f32 a tile, "
+              f"route_level once a level pass); s/iteration {t_fp / 2:.4f}")
+
+        # ---- (t4) voting ----
+        widths = []
+        real_routed = Hmod.hist_routed
+        real_b2, real_b5 = hk.hist_routed_fused, hk.hist_q8
+        wide = {}
+
+        def routed(*a, **kw):
+            widths.append(int(a[4]))
+            return real_routed(*a, **kw)
+
+        def b2_wide(bins_T_, gq, hq, cq, lid, tab, na, s_, nb, bins=None,
+                    catbits=None):
+            """B2; its first pass wider than 128 slots also against its
+            plain version (which launches nothing)."""
+            out = real_b2(bins_T_, gq, hq, cq, lid, tab, na, s_, nb,
+                          bins=bins, catbits=catbits)
+            if s_ > 128 and "hist_routed_fused" not in wide:
+                ref = hk.hist_routed_fused_plain(bins_T_, gq, hq, cq, lid,
+                                                 tab, na, s_, nb, catbits)
+                if not (torch.equal(out[0], ref[0])
+                        and torch.equal(out[1], ref[1])):
+                    fail(f"(t4): hist_routed_fused at {s_} slots differs "
+                         "from its plain version")
+                wide["hist_routed_fused"] = s_
+            return out
+
+        def b5_wide(bins_T_, gq, hq, cq, slot, s_, nb, bins=None,
+                    counts=None, col0=0):
+            out = real_b5(bins_T_, gq, hq, cq, slot, s_, nb, bins, counts,
+                          col0)
+            if s_ > 128 and "hist_q8" not in wide:
+                if not torch.equal(out, hk.hist_q8_plain(
+                        bins_T_, gq, hq, cq, slot, s_, nb)):
+                    fail(f"(t4'): hist_q8 at {s_} slots differs from its "
+                         "plain version")
+                wide["hist_q8"] = s_
+            return out
+
+        Hmod.hist_routed = routed
+        try:
+            vote, t_v, got4 = run(
+                "(t4) voting top_k=28", lambda: lt.train(
+                    {**lattice, "num_shards": k, "tree_learner": "voting",
+                     "top_k": 28}, ds4, 3, fobj=lattice_fobj),
+                lambda b: dict(hist_f32=k * (3 + passes(b)),
+                               route_level=k * passes(b), take_small=k * 3))
+            w28 = max(widths)
+            same("(t4) voting top_k=28 vs (t1) data-parallel", head(vote),
+                 head(shard1))
+            widths.clear()
+            G.reset_allreduce()
+            hk.hist_routed_fused = b2_wide
+            vote5, t_v5, got5 = run(
+                "(t4) voting top_k=5", lambda: lt.train(
+                    {**quant_bin, "num_shards": k, "tree_learner": "voting",
+                     "top_k": 5}, ds4, 3),
+                lambda b: dict(grad_quant_hist0=k * 3,
+                               hist_routed_fused=k * passes(b),
+                               leaf_sums_grad=k * 3, take_small=k * 3))
+            red5 = dict(G.ALLREDUCE)
+            w5 = max(widths)
+        finally:
+            Hmod.hist_routed = real_routed
+            hk.hist_routed_fused = real_b2
+        auc5 = float(metrics.auc(torch.as_tensor(y[:1_000_000]),
+                                 torch.as_tensor(vote5.predict(
+                                     X[:1_000_000]).astype(np.float64))))
+        auc2 = float(metrics.auc(torch.as_tensor(y[:1_000_000]),
+                                 torch.as_tensor(shard2.predict(
+                                     X[:1_000_000]).astype(np.float64))))
+        level_bytes5 = red5["hist_bytes"] / max(1, red5["hist_calls"])
+        sec["t4_voting5_level_sum_bytes"] = level_bytes5
+        print(f"{tag} (t4) voting top_k=28, 3 iterations: byte for byte "
+              f"(t1)'s data-parallel model, widest pass {w28} slots (B8 "
+              f"and B6), launches {({n: v for n, v in got4.items() if v})};"
+              f" top_k=5 on the quantized binary objective: train AUC (1M "
+              f"rows) {auc5:.6f} against (t2)'s {auc2:.6f} (5 "
+              f"iterations), widest pass {w5} slots (B2), bytes a level's "
+              f"histogram sum {level_bytes5:.0f} against (t2)'s "
+              f"{level_bytes2:.0f}, s/iteration {t_v5 / 3:.4f}, launches "
+              f"{ {n: v for n, v in got5.items() if v} }; card: {card}")
+        del vote, vote5
+        ds255, sec["construct_255_s"] = construct({**quant_bin, "max_bin": 255,
+                                                   "num_shards": k})
+        widths.clear()
+        Hmod.hist_routed = routed
+        hk.hist_q8 = b5_wide
+        try:
+            vote255, t_v255, got6 = run(
+                "(t4') voting top_k=5 at max_bin=255", lambda: lt.train(
+                    {**quant_bin, "max_bin": 255, "num_shards": k,
+                     "tree_learner": "voting", "top_k": 5}, ds255, 2),
+                lambda b: dict(hist_q8=k * (2 + passes(b)),
+                               route_level=k * passes(b), leaf_sums=k * 2,
+                               take_small=k * 2))
+        finally:
+            Hmod.hist_routed = real_routed
+            hk.hist_q8 = real_b5
+        for nm, w_ in (("hist_routed_fused", w5), ("hist_q8", max(widths))):
+            if w_ > 128 and nm not in wide:
+                fail(f"(t4): {nm}'s {w_}-slot pass was not checked")
+        print(f"{tag} (t4') voting top_k=5 at max_bin=255 (F * B = 7168, the "
+              f"unfused front), 2 iterations: widest pass {max(widths)} "
+              f"slots (B5 after B6); B2 and B5 equal their plain versions "
+              f"at {wide} slots; launches "
+              f"{ {n: v for n, v in got6.items() if v} }, s/iteration "
+              f"{t_v255 / 2:.4f}")
+        del ds255, vote255
+
+        # ---- (t5) the 2-D mesh ----
+        ds2, _ = construct({**quant_bin, "num_shards": 2})
+        ds22, _ = construct({**quant_bin, "num_shards": 2,
+                             "feature_shards": 2})
+        if ds22.shard_plan.feature_shards != 2:
+            fail(f"(t5): feature_shards {ds22.shard_plan.feature_shards}")
+        exp2 = (lambda b: dict(grad_quant_hist0=4,
+                               hist_routed_fused=2 * passes(b),
+                               leaf_sums_grad=4, take_small=4))
+        b2, _, _ = run("(t5) 2 shards", lambda: lt.train(
+            {**quant_bin, "num_shards": 2}, ds2, 2), exp2)
+        b22, _, _ = run("(t5) 2 x 2", lambda: lt.train(
+            {**quant_bin, "num_shards": 2, "feature_shards": 2}, ds22, 2),
+            exp2)
+        same("(t5) 2 x 2 vs 2 shards", head(b22), head(b2))
+        print(f"{tag} (t5) num_shards=2, feature_shards=2 (each level's sum "
+              "in two feature blocks of 14), 2 iterations: byte for byte "
+              "num_shards=2")
+        del ds22, b2, b22
+
+        # ---- (t6) faults ----
+        faults.configure("hist_allreduce:1")
+        try:
+            fb, _, _ = run(
+                "(t6) hist_allreduce:1", lambda: lt.train(
+                    {**lattice, "num_shards": k}, ds4, 2, fobj=lattice_fobj),
+                lambda b: dict(hist_f32=k * (2 + passes(b)),
+                               route_level=k * passes(b), take_small=k * 2))
+            hits = faults.hits("hist_allreduce")
+        finally:
+            faults.reset()
+        same("(t6) hist_allreduce retry vs clean", head(fb), head(shard1, 2))
+        if hits != 3:
+            fail(f"(t6): hist_allreduce hit {hits} times, expected 3")
+        plans = {}
+        for policy in ("reshard", "fallback_single"):
+            faults.configure("device_put_oom:4")
+            try:
+                ds_f, t_f = construct({**quant_bin, "num_shards": 2,
+                                       "on_device_fault": policy})
+            finally:
+                faults.reset()
+            plans[policy] = (ds_f.shard_plan.num_shards
+                             if ds_f.shard_plan is not None else None)
+            if not torch.equal(ds_f.bins, ds1.bins):
+                fail(f"(t6) device_put_oom, {policy}: bins differ")
+            del ds_f
+        if plans != {"reshard": 4, "fallback_single": None}:
+            fail(f"(t6): device_put_oom left plans {plans}")
+        snaps = os.path.join(work, "snaps")
+        try:
+            lt.train({**lattice, "num_shards": k, "snapshot_freq": 1,
+                      "snapshot_dir": snaps, "faults": "tree_update@2"},
+                     ds4, 3, fobj=lattice_fobj)
+            fail("(t6): the kill at iteration 2 did not happen")
+        except FaultInjected:
+            pass
+        finally:
+            faults.reset()
+        resumed = lt.train({**lattice, "num_shards": 2, "snapshot_freq": 1,
+                            "snapshot_dir": snaps}, ds2, 3,
+                           fobj=lattice_fobj, resume_from_snapshot=snaps)
+        if mesh_ids(resumed) != 2:
+            fail(f"(t6): resumed on {mesh_ids(resumed)} shards")
+        same("(t6) kill on 4 shards, resume on 2", head(resumed),
+             head(serial1))
+        print(f"{tag} (t6) hist_allreduce:1 retried (3 hits), byte for byte "
+              f"a clean run; device_put_oom:4 under a 2-shard plan: reshard "
+              f"-> {plans['reshard']} shards, fallback_single -> no plan, "
+              "bins bit for bit; killed at iteration 2 on 4 shards, resumed "
+              "on 2: byte for byte (t1)'s model")
+        del ds2, resumed, fb
+
+    # ---- (t7) the real devices ----
+    count = torch.cuda.device_count() if cuda else 1
+    if count > 1:
+        dsr, _ = construct({**lattice, "num_shards": count})
+        real, _, _ = run(
+            "(t7) real devices", lambda: lt.train(
+                {**lattice, "num_shards": count}, dsr, 3,
+                fobj=lattice_fobj),
+            lambda b: dict(hist_f32=count * (3 + passes(b)),
+                           route_level=count * passes(b),
+                           take_small=count * 3))
+        same("(t7) real devices vs serial", head(real), head(serial1))
+        print(f"{tag} (t7) torch.cuda.device_count() = {count}: (t1) over "
+              f"{count} real devices byte for byte serial")
+        del dsr, real
+    else:
+        print(f"{tag} (t7) torch.cuda.device_count() = {count}: one real "
+              "device, the distinct-card path (each shard on its own card, "
+              "the sums' copies between them) not run")
+    del ds1, ds4, serial1, shard1, serial2, shard2, fp
+    shutil.rmtree(work)
+    if cuda:
+        torch.cuda.empty_cache()
+    sec["total_s"] = time.perf_counter() - t_path
     return sec
 
 
@@ -4472,6 +4930,7 @@ def main() -> int:
         launch contracts, the monotone sweep exact on (m) and (m''), every
         (m') tree forced and none on features 20-27, AUC on 1M rows above
         0.7; (a)'s sweep violations and AUC printed beside."""
+        from lightgbm_tpu_torch.ops.grow import RowShard, ShardedRows
         from lightgbm_tpu_torch.ops.grow_depthwise import cegb_penalty
         ds, _ = dataset(63)
         base = {"objective": "binary", "num_leaves": L, "max_bin": 63,
@@ -4596,9 +5055,11 @@ def main() -> int:
         leaf_id = torch.randint(0, L, (N,), generator=g_, device=dev,
                                 dtype=torch.int32)
         leaf_c = torch.bincount(leaf_id.long(), minlength=L).float()
-        ones = torch.ones(N, device=dev)
+        rows = ShardedRows([RowShard(gb.train_set.bins_T,
+                                     c=torch.ones(N, device=dev),
+                                     data_used=gb.cegb.data_used)])
         plane = time_ms(lambda: cegb_penalty(gb.gp.split, gb.cegb, leaf_c,
-                                             leaf_id, ones))
+                                             rows, [leaf_id], gb.gp))
         lv = statistics.mean(gb.hist_passes) + 1
         slice_ms["cegb_lazy_plane_ms"] = plane
         print(f"{tag3} lazy CEGB plane ([N, 3] over the lazy columns, then "
@@ -4724,6 +5185,9 @@ def main() -> int:
     t0 = time.perf_counter()
     slice_ms["online"] = online_path(X, y, launches_all, card)
     print(f"path (s) online: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    slice_ms["mesh"] = mesh_path(X, y, launches_all, card)
+    print(f"path (t) mesh: {time.perf_counter() - t0:.1f} s")
     for f_ in _SAVED_ROWS.values():
         os.remove(f_)
     for nm in kernels:

@@ -39,7 +39,7 @@ from . import efb, obs
 from .config import (Config, boosting_kind, canonical_name, check_slice,
                      params_to_config)
 from .io import model_text
-from .log import LightGBMError, warning
+from .log import LightGBMError, info, warning
 from .metrics import create_metrics, default_metric_for_objective
 from .models.dart import DART
 from .models.gbdt import GBDT
@@ -189,6 +189,12 @@ class Dataset:
         self._max_num_bins = 1
         self.bins: Optional[torch.Tensor] = None
         self._bins_T: Optional[torch.Tensor] = None
+        # the row-shard plan of a mesh (parallel/mesh.RowShardPlan, None on
+        # one shard) and the shards' [rows_per_shard, F] bin blocks, each on
+        # its shard's device, the padding rows zero
+        self.shard_plan = None
+        self.shard_bins: Optional[List[torch.Tensor]] = None
+        self._shard_bins_T: Optional[List[torch.Tensor]] = None
         self.label: Optional[torch.Tensor] = None
         self.weight: Optional[torch.Tensor] = None
         self.device: Optional[torch.device] = None
@@ -207,6 +213,24 @@ class Dataset:
         if self._bins_T is None:
             self._bins_T = self.bins.t().contiguous()
         return self._bins_T
+
+    @property
+    def shard_bins_T(self) -> Optional[List[torch.Tensor]]:
+        """The shards' [F, rows_per_shard] blocks (cached transposes of
+        ``shard_bins``), which the kernels of each shard read."""
+        if self._shard_bins_T is None and self.shard_bins is not None:
+            self._shard_bins_T = [b.t().contiguous()
+                                  for b in self.shard_bins]
+        return self._shard_bins_T
+
+    def _set_shards(self, plan, blocks=None) -> None:
+        """Adopt a row-shard plan and its blocks (split from ``bins`` when
+        not given)."""
+        self.shard_plan = plan
+        self._shard_bins_T = None
+        self.shard_bins = (None if plan is None else
+                           blocks if blocks is not None
+                           else plan.split(self.bins))
 
     @property
     def num_features(self) -> int:
@@ -341,12 +365,16 @@ class Dataset:
             mark("find_bins_s")
             self.bundle_meta = self._plan_efb(conf, raw, sparse)
             mark("efb_plan_s")
+            # the row-shard plan (pure metadata) is published before the
+            # ingest, so that the chunk routing, the prewarm and the trainer
+            # agree on one grid (reference: basic.py:351-373)
+            self._plan_shards(conf, raw.shape[0])
             if not sparse:
                 # the mappers and the plan fix the kernel path: load and
                 # warm the kernels while the bulk ingest below runs
                 from . import prewarm
                 self._prewarm = prewarm.maybe_start(conf, self)
-        self.bins = self._encode(raw, sparse, conf, phases)
+        self._encode(raw, sparse, conf, phases)
         mark("stream_s")
         self._derive_meta()
         for what, arr in (("label", self.label_np),
@@ -411,28 +439,59 @@ class Dataset:
             sample_cnt=sample_bins.shape[0], seed=conf.data_random_seed,
             exclude=exclude)
 
+    def _plan_shards(self, conf: Config, n_rows: int) -> None:
+        """The row-shard plan of ``num_shards`` and ``feature_shards``
+        (``parallel/mesh.py``), or None on one shard."""
+        from .parallel.mesh import (plan_row_sharding,
+                                    resolve_feature_shards,
+                                    resolve_num_shards)
+        kind = self.device.type
+        ns = resolve_num_shards(int(conf.num_shards or 0), kind)
+        fs = resolve_feature_shards(int(conf.feature_shards or 0),
+                                    len(self.column_bins()[0]), ns, kind)
+        self.shard_plan = plan_row_sharding(
+            int(n_rows), ns, axis_name=conf.mesh_axis, feature_shards=fs,
+            kind=kind)
+        if self.shard_plan is not None:
+            p = self.shard_plan
+            info(f"row-sharded ingest: {p.num_shards} shards x "
+                 f"{p.rows_per_shard} rows (pad {p.pad_rows}, "
+                 f"feature_shards {p.feature_shards})")
+
     def _encode(self, raw, sparse: bool, conf: Config,
-                phases: Dict[str, Any]) -> torch.Tensor:
-        """The uint8 [N, F] bins on the device: one column a used feature,
-        or the EFB plan's columns (encoded straight from the CSC columns
-        for sparse input; for dense input streamed through the chunked
-        pipeline of ``ingest.py`` at ``ingest_chunk_rows`` rows a chunk and
-        ``encode_threads`` host threads, binned and bundled on the
-        device)."""
+                phases: Dict[str, Any]) -> None:
+        """Set the uint8 [N, F] bins on the device: one column a used
+        feature, or the EFB plan's columns (encoded straight from the CSC
+        columns for sparse input; for dense input streamed through the
+        chunked pipeline of ``ingest.py`` at ``ingest_chunk_rows`` rows a
+        chunk and ``encode_threads`` host threads, binned and bundled on
+        the device). Under a row-shard plan the dense ingest commits each
+        shard's block on its device (the plan the recovery ladder ended
+        with is adopted) and ``bins`` is their real rows on the Dataset's
+        device; sparse bins are split into the blocks."""
         meta = self.bundle_meta
         if sparse:
             if meta is not None:
-                return efb.encode_sparse(raw, self.mappers, self.feature_map,
-                                         meta, self.device)
-            return bin_data_sparse(raw, self.mappers, self.feature_map,
-                                   self.device)
+                self.bins = efb.encode_sparse(raw, self.mappers,
+                                              self.feature_map, meta,
+                                              self.device)
+            else:
+                self.bins = bin_data_sparse(raw, self.mappers,
+                                            self.feature_map, self.device)
+            self._set_shards(self.shard_plan)
+            return
         from .ingest import stream_with_recovery
-        bins, _ = stream_with_recovery(
+        bins, plan, _ = stream_with_recovery(
             raw, self.mappers, list(self.feature_map), meta, self.device,
             chunk_rows=conf.ingest_chunk_rows,
             encode_threads=conf.encode_threads, phases=phases,
-            policy=conf.on_device_fault)
-        return bins
+            policy=conf.on_device_fault, shard_plan=self.shard_plan)
+        if plan is None:
+            self.bins = bins
+            self._set_shards(None)
+        else:
+            self.bins = plan.gather(bins, self.device)
+            self._set_shards(plan, bins)
 
     def column_bins(self) -> Tuple[np.ndarray, np.ndarray]:
         """Bins and missing bin (-1: none) of each column of ``bins``,
@@ -539,6 +598,10 @@ class Dataset:
         if other.num_data != self.num_data:
             raise LightGBMError("Cannot add features from other Dataset with "
                                 "a different number of rows")
+        if self.shard_plan is not None or other.shard_plan is not None:
+            raise LightGBMError("add_features_from does not support "
+                                "row-sharded Datasets (construct with "
+                                "num_shards=1 first)")
         if self.bundle_meta is not None or other.bundle_meta is not None:
             a = self.bundle_meta or efb.identity_meta(self.mappers)
             b = other.bundle_meta or efb.identity_meta(other.mappers)
@@ -593,9 +656,10 @@ class Dataset:
 
         A trainer or Booster built before an append keeps training on the
         rows it was built on; build a new one (``train(init_model=...)``)
-        after appending. The construct's kernel prewarm is dropped. The
-        reference's re-planned row sharding of the grown rows is multi-GPU
-        work (ROADMAP A21)."""
+        after appending. The construct's kernel prewarm is dropped. A
+        row-sharded Dataset re-plans its sharding for the grown total over
+        the same shard count and re-splits its rows onto the new grid
+        (reference: basic.py:813-827); ``num_data`` never counts padding."""
         from .ingest import last_stats, stream_with_recovery
         from .utils import faults
         self.construct()
@@ -660,7 +724,7 @@ class Dataset:
                                 "not supported on grouped (ranking) data — a "
                                 "FIFO row window would split query groups")
         t0 = time.perf_counter()
-        new_dev, _ = stream_with_recovery(
+        new_dev, _, _ = stream_with_recovery(
             raw, self.mappers, list(self.feature_map), self.bundle_meta,
             self.device, chunk_rows=conf.ingest_chunk_rows,
             encode_threads=conf.encode_threads, policy=conf.on_device_fault)
@@ -681,6 +745,15 @@ class Dataset:
         self.bins = bins
         self._bins_T = None
         self._prewarm = None
+        old_plan = self.shard_plan
+        resharded = False
+        if old_plan is not None:
+            # same shard count, grown row total: every row's owner moves
+            from .parallel.mesh import plan_row_sharding
+            self._set_shards(plan_row_sharding(
+                n_total, old_plan.num_shards, axis_name=old_plan.axis_name,
+                kind=self.device.type))
+            resharded = self.shard_plan is not None
         for name in ("label", "weight"):
             arr = new[name]
             if arr is None:
@@ -704,7 +777,9 @@ class Dataset:
         if obs.enabled():
             obs.emit("dataset_append", rows=n_new, total_rows=n_total,
                      chunks=chunks, duration_s=time.perf_counter() - t0,
-                     num_shards=1, resharded=False, evicted=int(evicted))
+                     num_shards=(self.shard_plan.num_shards
+                                 if self.shard_plan is not None else 1),
+                     resharded=resharded, evicted=int(evicted))
         return self
 
     # ---- the binned Dataset on disk ----

@@ -6,12 +6,13 @@ dict written for the reference parses here to the same values. Two things
 differ: ``device_type`` (alias ``device``) defaults to ``"cuda"``, and
 ``check_slice`` refuses, with ``NotImplementedError`` naming the ROADMAP
 item, every setting that would leave the path this package implements:
-what remains outside it is a tree learner other than serial, more than
-one machine, or an ``on_device_fault`` recovery that re-plans a mesh
-(A21). ``OBJECTIVES`` is the reference's objective
+what remains outside it is more than one machine (the process-spanning
+mesh, A21b). ``OBJECTIVES`` is the reference's objective
 alias table (``lightgbm_tpu/objectives.py:690-709``). The TPU-only knobs
-(``histogram_impl``, ``hist_packed``, ``mesh_axis``, ...) are accepted and
-have no effect.
+(``histogram_impl``, ``hist_packed``, ...) are accepted and have no
+effect; the mesh knobs (``num_shards``, ``feature_shards``,
+``voting_parallel``, ``mesh_axis``) shape the in-process mesh of
+``parallel/``.
 """
 from __future__ import annotations
 
@@ -189,9 +190,9 @@ _PARAMS: Dict[str, Tuple[Any, Tuple[str, ...]]] = {
     "grow_policy": ("depthwise", ()),      # depthwise | lossguide (leaf-wise)
     "hist_dtype": ("float32", ()),         # histogram accumulator dtype
     "mesh_axis": ("data", ()),             # mesh axis name for data-parallel sharding
-    # row shards for mesh-native data-parallel training: 0 = auto (all local
-    # devices on accelerator backends; 1 on the cpu backend where extra
-    # devices are virtual), 1 = force single-chip, k = shard over k devices
+    # row shards for mesh-native data-parallel training (parallel/mesh.py):
+    # 0 = auto (every CUDA device when there is more than one; 1 on a
+    # virtual device list), 1 = one device, k = shard over k devices
     "num_shards": (0, ("data_shards",)),
     # feature shards of the 2-D (data, feature) mesh (parallel/mesh.py
     # FEATURE_AXIS): 0/1 = 1-D data-parallel mesh; k>1 slices the grower's
@@ -228,9 +229,8 @@ _PARAMS: Dict[str, Tuple[Any, Tuple[str, ...]]] = {
     # fault-injection spec (utils/faults.py), e.g. "snapshot_write:2"
     "faults": ("", ("fault_spec",)),
     # recovery policy for device-level faults: fatal = re-raise (reference
-    # CHECK semantics); reshard (the default) behaves as fatal on this
-    # single-device port, since its re-planning of a mesh is A21's;
-    # fallback_single is refused by check_slice (A21)
+    # CHECK semantics); reshard (the default) re-plans a row-shard plan over
+    # more devices; fallback_single drops the plan (ingest.py)
     "on_device_fault": ("reshard", ("device_fault_policy",)),
     # ---- online serving (task=serve; see lightgbm_tpu/server.py) ----
     # request-coalescing window: a flush waits at most this long after the
@@ -504,7 +504,25 @@ class Config:
             raise LightGBMError("on_device_fault must be one of fatal|reshard"
                                 f"|fallback_single, got "
                                 f"{self.on_device_fault!r}")
+        self._check_mesh()
         self._check_online()
+
+    def _check_mesh(self) -> None:
+        """The mesh knobs (reference: config.py:512-527)."""
+        checks = (
+            (self.num_shards < 0, "num_shards must be >= 0 (0 = auto)"),
+            (self.feature_shards < 0,
+             "feature_shards must be >= 0 (0/1 = 1-D mesh)"),
+            (bool(self.voting_parallel) and self.top_k < 1,
+             "voting_parallel requires top_k >= 1"),
+            (not self.mesh_axis, "mesh_axis must be a non-empty axis name"),
+            (self.feature_shards > 1 and self.mesh_axis == "feature",
+             "mesh_axis must differ from the reserved 'feature' axis of the "
+             "2-D mesh"),
+            (self.network_retries < 1, "network_retries must be >= 1"))
+        for bad, msg in checks:
+            if bad:
+                raise LightGBMError(msg)
 
     def _check_online(self) -> None:
         """The continuous-training knobs (reference: config.py:565-596)."""
@@ -646,10 +664,7 @@ def check_slice(conf: Config) -> None:
     if kind not in MULTICLASS_OBJECTIVES + ("none",) and conf.num_class != 1:
         raise LightGBMError(f"num_class must be 1 for objective="
                             f"{conf.objective!r} (got {conf.num_class})")
-    if str(conf.tree_learner).lower() != "serial" or conf.num_machines > 1:
-        raise _out_of_slice(f"tree_learner={conf.tree_learner!r}", "A21")
-    if conf.on_device_fault not in ("fatal", "reshard"):
-        # the recovery arms re-plan a mesh; reshard, the default, is fatal
-        # on one device
-        raise _out_of_slice(f"on_device_fault={conf.on_device_fault!r}",
-                            "A21")
+    if conf.num_machines > 1:
+        # the process-spanning mesh (multihost, dist_data, the consistency
+        # fence) over torch.distributed
+        raise _out_of_slice(f"num_machines={conf.num_machines}", "A21b")

@@ -33,9 +33,17 @@ completion order can change a bit of the result (tests/test_torch_ingest.py).
 
 On the card, a stage's busy seconds are device times (CUDA events around
 each copy and each commit) and the encode's are host seconds summed over
-the workers; on the CPU all three are host seconds. The row-sharded
-ingest of the reference (a mesh plan, per-shard accumulators) belongs to
-the multi-GPU work (ROADMAP A21).
+the workers; on the CPU all three are host seconds.
+
+Row-sharded ingest (reference: ingest.py:121-175, :278-315): with a
+``RowShardPlan`` (parallel/mesh.py) the chunk grid is aligned to the shard
+grid, so that a chunk never spans two shards; each chunk is copied
+straight to its shard's device and committed into that shard's own
+``[rows_per_shard, width]`` block there (the ``shard_commit`` fault point,
+the ``mesh_shard_commit`` event), so the whole matrix is never needed on
+one device; the padding rows of the last shard stay zero. The recovery
+rungs (``stream_with_recovery``) halve the chunk, then re-plan the
+sharding over more devices (``reshard``) or drop it (``fallback_single``).
 """
 from __future__ import annotations
 
@@ -112,23 +120,36 @@ def _check_widths(mappers: Sequence[BinMapper], columns) -> None:
 def stream_encode_upload(raw: np.ndarray, mappers: Sequence[BinMapper],
                          columns: Sequence[int], meta, device: torch.device,
                          *, chunk_rows: int, encode_threads: int = 0,
-                         phases: Optional[Dict[str, Any]] = None
-                         ) -> torch.Tensor:
+                         phases: Optional[Dict[str, Any]] = None,
+                         shard_plan=None):
     """Run the three stages over ``raw`` [N, F_raw] and return the bin
     matrix [N, width] uint8 on ``device``: one column a used feature
     (``columns`` are their raw indices), or the EFB plan ``meta``'s columns.
-    ``phases`` (optional) receives the stages' busy breakdown and
+    With a ``shard_plan``, the list of the shards' ``[rows_per_shard,
+    width]`` blocks instead, each on its shard's device. ``phases``
+    (optional) receives the stages' busy breakdown and
     ``overlap_efficiency``."""
     _check_widths(mappers, columns)
     n = int(raw.shape[0])
     f_used = len(columns)
     width = meta.num_columns if meta is not None else f_used
-    if n == 0:
+    if n == 0 and shard_plan is None:
         return torch.zeros((0, width), dtype=torch.uint8, device=device)
     chunk_rows = max(1, int(chunk_rows))
-    tasks = [(ci, g0, min(g0 + chunk_rows, n))
-             for ci, g0 in enumerate(range(0, n, chunk_rows))]
-    threads = min(resolve_encode_threads(encode_threads), len(tasks))
+    if shard_plan is not None:
+        # the chunk grid aligned to the shard grid: each chunk lies in one
+        # shard's rows
+        chunk_rows = min(chunk_rows, shard_plan.rows_per_shard)
+        spans = []
+        for s in range(shard_plan.num_shards):
+            lo, hi = shard_plan.shard_rows_range(s)
+            spans.extend((s, g0, min(g0 + chunk_rows, hi))
+                         for g0 in range(lo, hi, chunk_rows))
+        tasks = [(ci, s, g0, g1) for ci, (s, g0, g1) in enumerate(spans)]
+    else:
+        tasks = [(ci, None, g0, min(g0 + chunk_rows, n))
+                 for ci, g0 in enumerate(range(0, n, chunk_rows))]
+    threads = min(resolve_encode_threads(encode_threads), max(len(tasks), 1))
     cuda = device.type == "cuda"
     tele = obs.enabled()
     cols = np.asarray(columns, dtype=np.int64)
@@ -138,7 +159,7 @@ def stream_encode_upload(raw: np.ndarray, mappers: Sequence[BinMapper],
     # staging buffers: every encoder one, plus one queued for the copy
     # (the copy's own is free again once its event fires)
     n_buf = min(threads + 2, len(tasks) + 1)
-    buf_rows = min(chunk_rows, n)
+    buf_rows = max(1, min(chunk_rows, n))
     free_q: "queue.Queue" = queue.Queue()
     for _ in range(n_buf):
         free_q.put((torch.empty((buf_rows, f_used), dtype=tdt,
@@ -154,9 +175,20 @@ def stream_encode_upload(raw: np.ndarray, mappers: Sequence[BinMapper],
     # commit order: (ci, rows, encode s, h2d, commit, queue depth); h2d and
     # commit are CUDA event pairs on the card, host seconds on the CPU
     done: List[tuple] = []
-    compute = torch.cuda.current_stream(device) if cuda else None
-    copy_stream = torch.cuda.Stream(device) if cuda else None
-    acc = torch.empty((n, width), dtype=torch.uint8, device=device)
+    # the commit device of each shard (one device without a plan), its
+    # compute stream and a copy stream of its own
+    shard_dev = (list(shard_plan.devices) if shard_plan is not None
+                 else [device])
+    streams = {}
+    for d in shard_dev:
+        if cuda and d not in streams:
+            streams[d] = (torch.cuda.current_stream(d), torch.cuda.Stream(d))
+    if shard_plan is None:
+        accs = [torch.empty((n, width), dtype=torch.uint8, device=device)]
+    else:
+        # the padding rows past the last real row stay zero
+        accs = [torch.zeros((shard_plan.rows_per_shard, width),
+                            dtype=torch.uint8, device=d) for d in shard_dev]
 
     def failed() -> bool:
         with lock:
@@ -170,7 +202,7 @@ def stream_encode_upload(raw: np.ndarray, mappers: Sequence[BinMapper],
     def encode_loop():
         while True:
             try:
-                ci, g0, g1 = work_q.get_nowait()
+                ci, shard, g0, g1 = work_q.get_nowait()
             except queue.Empty:
                 return
             if failed():
@@ -190,7 +222,7 @@ def stream_encode_upload(raw: np.ndarray, mappers: Sequence[BinMapper],
                 dt = time.perf_counter() - t0
                 with lock:
                     state["encode_s"] += dt
-                enc_q.put((ci, g0, rows, buf, dt))
+                enc_q.put((ci, shard, g0, rows, buf, dt))
             except BaseException as e:   # surfaced after the join
                 free_q.put((buf, None))
                 fail(e)
@@ -201,7 +233,8 @@ def stream_encode_upload(raw: np.ndarray, mappers: Sequence[BinMapper],
             if item is None:
                 dev_q.put(None)
                 return
-            ci, g0, rows, buf, enc_dt = item
+            ci, shard, g0, rows, buf, enc_dt = item
+            dev = shard_dev[shard or 0]
             if failed():
                 free_q.put((buf, None))
                 continue   # keep draining so that no encoder blocks
@@ -211,23 +244,24 @@ def stream_encode_upload(raw: np.ndarray, mappers: Sequence[BinMapper],
                 # the real torch.cuda.OutOfMemoryError type)
                 faults.fault_point("device_put_oom")
                 if cuda:
+                    copy_stream = streams[dev][1]
                     with torch.cuda.stream(copy_stream):
                         ev0 = torch.cuda.Event(enable_timing=True)
                         ev1 = torch.cuda.Event(enable_timing=True)
                         chunk = torch.empty((rows, f_used), dtype=tdt,
-                                            device=device)
+                                            device=dev)
                         ev0.record(copy_stream)
                         chunk.copy_(buf[:rows], non_blocking=True)
                         ev1.record(copy_stream)
                     free_q.put((buf, ev1))
                     timing = (ev0, ev1)
                 else:
-                    chunk = buf[:rows].clone()
+                    chunk = buf[:rows].to(dev, copy=True)
                     free_q.put((buf, None))
                     timing = time.perf_counter() - t0
                     with lock:
                         state["h2d_s"] += timing
-                dev_q.put((ci, g0, rows, chunk, timing, enc_dt))
+                dev_q.put((ci, shard, g0, rows, chunk, timing, enc_dt))
             except BaseException as e:
                 free_q.put((buf, None))
                 fail(e)
@@ -239,26 +273,31 @@ def stream_encode_upload(raw: np.ndarray, mappers: Sequence[BinMapper],
                 return
             if failed():
                 continue
-            ci, g0, rows, chunk, timing, enc_dt = item
+            ci, shard, g0, rows, chunk, timing, enc_dt = item
             try:
                 t0 = time.perf_counter()
+                if shard is not None:
+                    # chaos point: a chunk's commit into its row shard's
+                    # block failed (a lost device, a dead buffer)
+                    faults.fault_point("shard_commit")
                 if cuda:
+                    compute = streams[shard_dev[shard or 0]][0]
                     with torch.cuda.stream(compute):
                         compute.wait_event(timing[1])
                         chunk.record_stream(compute)
                         c0 = torch.cuda.Event(enable_timing=True)
                         c1 = torch.cuda.Event(enable_timing=True)
                         c0.record(compute)
-                        _commit(chunk, g0, rows)
+                        _commit(chunk, shard, g0, rows)
                         c1.record(compute)
                     commit = (c0, c1)
                 else:
-                    _commit(chunk, g0, rows)
+                    _commit(chunk, shard, g0, rows)
                     commit = time.perf_counter() - t0
                     with lock:
                         state["commit_s"] += commit
                 depth = enc_q.qsize() + dev_q.qsize()
-                done.append((ci, rows, enc_dt, timing, commit, depth))
+                done.append((ci, shard, rows, enc_dt, timing, commit, depth))
                 if tele:
                     obs.METRICS.gauge(
                         "ingest_pipeline_depth",
@@ -269,11 +308,16 @@ def stream_encode_upload(raw: np.ndarray, mappers: Sequence[BinMapper],
             except BaseException as e:
                 fail(e)
 
-    def _commit(chunk: torch.Tensor, g0: int, rows: int) -> None:
+    def _commit(chunk: torch.Tensor, shard: Optional[int], g0: int,
+                rows: int) -> None:
         bins = bin_rows_device(chunk, mappers)
         if meta is not None:
             bins = efb.apply_bundles(bins, meta)
-        acc[g0:g0 + rows] = bins
+        if shard is None:
+            accs[0][g0:g0 + rows] = bins
+        else:
+            local0 = g0 - shard * shard_plan.rows_per_shard
+            accs[shard][local0:local0 + rows] = bins
 
     t_wall = time.perf_counter()
     encoders = [threading.Thread(target=encode_loop, daemon=True,
@@ -295,26 +339,32 @@ def stream_encode_upload(raw: np.ndarray, mappers: Sequence[BinMapper],
         try:
             # a CUDA error of any chunk surfaces here, on the caller's
             # thread, and fails the construct
-            copy_stream.synchronize()
-            compute.synchronize()
+            for compute, copy_stream in streams.values():
+                copy_stream.synchronize()
+                compute.synchronize()
         except BaseException as e:
             fail(e)
     if state["exc"] is not None:
         raise state["exc"]
     wall = time.perf_counter() - t_wall
     events = []
-    for ci, rows, enc_dt, h2d, commit, depth in done:
+    for ci, shard, rows, enc_dt, h2d, commit, depth in done:
         if cuda:
             h2d = h2d[0].elapsed_time(h2d[1]) * 1e-3
             commit = commit[0].elapsed_time(commit[1]) * 1e-3
             state["h2d_s"] += h2d
             state["commit_s"] += commit
-        events.append((ci, rows, enc_dt, h2d, commit, depth))
+        events.append((ci, shard, rows, enc_dt, h2d, commit, depth))
     if tele:
-        for ci, rows, enc_dt, h2d, commit, depth in events:
+        for ci, shard, rows, enc_dt, h2d, commit, depth in events:
             obs.emit("ingest_chunk", chunk=int(ci), rows=int(rows),
                      encode_s=float(enc_dt), h2d_s=float(h2d),
                      commit_s=float(commit), depth=int(depth))
+            if shard is not None:
+                obs.emit("mesh_shard_commit", shard=int(shard),
+                         rows=int(rows), bytes=int(rows * width),
+                         chunk=int(ci), h2d_s=float(h2d),
+                         commit_s=float(commit))
     # per-stage ideal spans: the encode's busy time is summed over the
     # workers, so it is divided by the pool size
     spans = (state["encode_s"] / max(threads, 1), state["h2d_s"],
@@ -325,7 +375,9 @@ def stream_encode_upload(raw: np.ndarray, mappers: Sequence[BinMapper],
              "commit_s": round(state["commit_s"], 6),
              "encode_threads": threads, "chunks": len(tasks),
              "chunk_rows": chunk_rows, "wall_s": round(wall, 6),
-             "overlap_efficiency": round(eff, 3), "shards": 1}
+             "overlap_efficiency": round(eff, 3),
+             "shards": (shard_plan.num_shards if shard_plan is not None
+                        else 1)}
     with _STATS_LOCK:
         LAST_INGEST_STATS.clear()
         LAST_INGEST_STATS.update(stats)
@@ -335,7 +387,7 @@ def stream_encode_upload(raw: np.ndarray, mappers: Sequence[BinMapper],
                                   "encode_threads", "chunks")}
         phases["overlap_efficiency"] = stats["overlap_efficiency"]
     debug("ingest pipeline: %s", stats)
-    return acc
+    return accs if shard_plan is not None else accs[0]
 
 
 def last_stats() -> Dict[str, Any]:
@@ -351,21 +403,46 @@ MAX_CHUNK_HALVINGS = 3
 MAX_RECOVERY_ATTEMPTS = 8
 
 
+def _grow_plan(plan):
+    """The row sharding re-planned over more devices (double, clamped to
+    the device count), or None when it cannot grow."""
+    if plan is None:
+        return None
+    from .parallel.mesh import device_count, plan_row_sharding
+    fs = int(plan.feature_shards or 1)
+    kind = plan.devices[0].type
+    nd = device_count(kind) // fs
+    if plan.num_shards >= nd:
+        return None
+    return plan_row_sharding(plan.n_rows, min(nd, plan.num_shards * 2),
+                             axis_name=plan.axis_name, feature_shards=fs,
+                             kind=kind)
+
+
 def stream_with_recovery(raw, mappers, columns, meta, device, *,
                          chunk_rows: int, encode_threads: int = 0,
                          phases: Optional[Dict[str, Any]] = None,
-                         policy: str = "reshard", sleep=time.sleep):
+                         policy: str = "reshard", sleep=time.sleep,
+                         shard_plan=None):
     """:func:`stream_encode_upload` with OOM-adaptive degradation
-    (reference: stream_with_recovery, ingest.py:407). A device fault in
-    the pipeline (``torch.cuda.OutOfMemoryError``, or the armed
-    ``device_put_oom`` point) halves the chunk, up to
-    :data:`MAX_CHUNK_HALVINGS` times, emits ``device_fault`` and backs off;
-    then the ``reshard`` and ``fallback_single`` rungs raise, as the
-    reference's do when no plan can grow, and ``fatal`` (or a fault that is
-    not a device fault) raises at once. Returns ``(bins, chunk_rows)``, the
-    chunk size actually used."""
+    (reference: stream_with_recovery, ingest.py:407-494). A device fault in
+    the pipeline (``torch.cuda.OutOfMemoryError``, or an armed device
+    point: ``device_put_oom``, ``shard_commit``) is recovered by the
+    ``on_device_fault`` policy, each rung emitting ``device_fault`` and
+    backing off:
+
+    1. the chunk is halved, up to :data:`MAX_CHUNK_HALVINGS` times;
+    2. then ``reshard`` re-plans the row sharding over more devices (each
+       shard's block shrinks), or ``fallback_single`` drops the plan and
+       drains through the single-device path with a warning; without a
+       plan that can change, the fault is raised;
+    3. ``fatal`` (or a fault that is not a device fault) raises at once.
+
+    Returns ``(bins, plan, chunk_rows)``: the plan and the chunk size
+    actually used, which the caller adopts."""
     from .utils.retry import backoff_delays
 
+    plan = shard_plan
     rows = max(1, int(chunk_rows))
     halvings = 0
     attempt = 0
@@ -375,28 +452,43 @@ def stream_with_recovery(raw, mappers, columns, meta, device, *,
         try:
             bins = stream_encode_upload(
                 raw, mappers, columns, meta, device, chunk_rows=rows,
-                encode_threads=encode_threads, phases=phases)
-            return bins, rows
+                encode_threads=encode_threads, phases=phases,
+                shard_plan=plan)
+            return bins, plan, rows
         except BaseException as e:
             if policy == "fatal" or not faults.is_device_fault(e):
                 raise
             attempt += 1
             if attempt > MAX_RECOVERY_ATTEMPTS:
                 raise
-            if halvings >= MAX_CHUNK_HALVINGS or rows <= 1:
-                # the next rungs re-plan a row sharding (reshard) or drop
-                # it (fallback_single); one device holds no plan to grow
-                # (ROADMAP A21), so they raise as the reference's do
+            before = plan.num_shards if plan is not None else 1
+            if halvings < MAX_CHUNK_HALVINGS and rows > 1:
+                rows = max(1, rows // 2)
+                halvings += 1
+                action = "halve_chunk"
+                warning(f"device fault during ingest ({type(e).__name__}: "
+                        f"{e}); halving chunk to {rows} rows and retrying "
+                        f"({halvings}/{MAX_CHUNK_HALVINGS})")
+            elif policy == "reshard" and _grow_plan(plan) is not None:
+                plan = _grow_plan(plan)
+                action = "reshard"
+                warning("device fault persists after chunk halving; "
+                        f"re-planning row sharding {before} -> "
+                        f"{plan.num_shards} shards")
+            elif policy == "fallback_single" and plan is not None:
+                plan = None
+                action = "fallback_single"
+                warning("device fault persists after chunk halving; "
+                        "draining to the single-device ingest path (mesh "
+                        "training disabled for this dataset)")
+            else:
                 raise
-            rows = max(1, rows // 2)
-            halvings += 1
-            warning(f"device fault during ingest ({type(e).__name__}: {e}); "
-                    f"halving chunk to {rows} rows and retrying "
-                    f"({halvings}/{MAX_CHUNK_HALVINGS})")
             if device.type == "cuda":
                 torch.cuda.empty_cache()
             obs.emit("device_fault", point=faults.classify_point(e),
-                     policy=policy, action="halve_chunk",
+                     policy=policy, action=action,
                      error=f"{type(e).__name__}: {e}", attempt=attempt,
-                     chunk_rows=int(rows), shards_before=1, shards_after=1)
+                     chunk_rows=int(rows), shards_before=int(before),
+                     shards_after=int(plan.num_shards if plan is not None
+                                      else 1))
             sleep(delays[min(attempt - 1, len(delays) - 1)])

@@ -54,7 +54,17 @@ at +-``_NF_CLIP`` and warns once. ``get_resume_state`` /
 ``set_resume_state`` carry the trainer's exact state through a snapshot
 sidecar (:1747-1917), under the reference's npz key names, the CEGB
 bookkeeping included. Accepted parameters that the port reads nowhere warn
-(``warn_unconsumed``, :444-474). With telemetry on, the guard's trips, the
+(``warn_unconsumed``, :444-474). The tree learner (``_setup_learner``,
+:278-392): a Dataset constructed over a row-shard plan, or
+``tree_learner=data|voting`` with more than one local device, grows each
+tree data-parallel (``parallel/data_parallel.grow_tree_dp``: each shard's
+rows on its device, padding rows with zero g, h and count, the CEGB lazy
+bitset in row blocks, the score update through take_small a shard, the
+iteration behind the ``hist_allreduce`` fault point and its retry,
+:1099-1200); ``tree_learner=feature`` with more than one device grows it
+on feature tiles (``parallel/feature_parallel.py``, unquantized and
+depthwise whatever the grow policy, as the reference's, :862-880). The
+snapshot's state stays unsharded, so a resume takes any shard count. With telemetry on, the guard's trips, the
 packed lattice's fallback (:763) and the train_iter event's tree stats
 (``obs_lagged_stats``, :1277-1298) reach ``obs``.
 """
@@ -71,7 +81,11 @@ from .. import obs, prewarm
 from ..binning import BIN_CATEGORICAL
 from ..config import Config
 from ..log import LightGBMError, fatal, info, warning
-from ..utils import threefry
+from ..parallel import mesh as M
+from ..parallel.data_parallel import grow_tree_dp
+from ..parallel.feature_parallel import (grow_tree_fp, make_feature_mesh,
+                                         pad_mask, shard_features_once)
+from ..utils import faults, threefry
 from ..ops.gather import take_small
 from ..ops.grow import ForcedSplits, GrowParams, TreeArrays, grow_tree
 from ..ops.grow_depthwise import (CEGBState, grow_tree_depthwise,
@@ -166,6 +180,26 @@ def cegb_enabled(config: Config) -> bool:
             or any(config.cegb_penalty_feature_lazy or []))
 
 
+def device_kind(config: Config) -> str:
+    """The torch device type of ``device_type``."""
+    return "cuda" if str(config.device_type).lower() in ("cuda", "gpu") \
+        else "cpu"
+
+
+def voting_on(config: Config) -> bool:
+    """tree_learner=voting, or voting_parallel (reference: gbdt.py:213)."""
+    return (str(config.tree_learner).lower() == "voting"
+            or bool(int(config.voting_parallel or 0)))
+
+
+def feature_parallel_on(config: Config) -> bool:
+    """tree_learner=feature with more than one local device (reference:
+    gbdt.py:318-319)."""
+    return (str(config.tree_learner).lower() in ("feature",
+                                                 "feature_parallel")
+            and M.device_count(device_kind(config)) > 1)
+
+
 def pool_sizes(config: Config, f: int, B: int, cegb: bool,
                log: bool = True) -> Tuple[int, int]:
     """(hist_pool, lean_ft) of histogram_pool_size MB (reference:
@@ -188,6 +222,10 @@ def pool_sizes(config: Config, f: int, B: int, cegb: bool,
                  "(evicted parents rebuild)")
         return max(2, cap), 0
     incompat = [what for what, on in (
+        ("voting-parallel", voting_on(config)),
+        ("feature-parallel",
+         str(config.tree_learner).lower() in ("feature",
+                                              "feature_parallel")),
         ("CEGB", cegb),
         ("forced splits", bool(config.forcedsplits_filename)),
         ("feature_fraction_bynode", config.feature_fraction_bynode < 1.0),
@@ -254,9 +292,12 @@ def kernel_path(config: Config, f: int, B: int, k: int, fused_obj: bool,
     at most 2048 cells; anything else materializes the gradients and takes
     the unfused front. ``GBDT.__init__`` and ``prewarm.expected_spec``
     both decide the path here."""
-    depthwise = config.grow_policy == "depthwise"
-    quant = resolve_quant(config, log)
-    cegb = depthwise and cegb_enabled(config)
+    fp = feature_parallel_on(config)
+    # the feature-parallel learner grows depthwise, unquantized, whatever
+    # the grow policy (reference: gbdt.py:862-880, feature_parallel.py:52)
+    depthwise = config.grow_policy == "depthwise" or fp
+    quant = resolve_quant(config, log) and not fp
+    cegb = depthwise and cegb_enabled(config) and not fp
     hist_pool, lean_ft = pool_sizes(config, f, B, cegb, log)
     fused = (fused_obj and not custom_grad and k == 1 and quant
              and depthwise and f * B <= ACC_ROWS_MAX and not cegb
@@ -393,7 +434,8 @@ class GBDT:
                 incl_default=on_dev(meta.incl_default[:, :B], torch.bool),
                 valid=on_dev(meta.valid[:, :B], torch.bool),
                 is_bundle=on_dev(meta.is_bundle, torch.bool))
-        self.depthwise = config.grow_policy == "depthwise"
+        self._fp = feature_parallel_on(config)
+        self.depthwise = config.grow_policy == "depthwise" or self._fp
         cegb_coupled, cegb_lazy = self._cegb_setup(config, train_set)
         self.forced = self._build_forced(config, train_set)
         self.path = kernel_path(
@@ -434,7 +476,13 @@ class GBDT:
                 cegb_lazy=cegb_lazy is not None),
             quant=self.path.quant, const_hess=self.path.const_hess,
             fused_obj=spec, ff_bynode=float(config.feature_fraction_bynode),
-            hist_pool=self.path.hist_pool, lean_ft=self.path.lean_ft)
+            hist_pool=self.path.hist_pool, lean_ft=self.path.lean_ft,
+            voting_top_k=int(config.top_k) if voting_on(config) else 0)
+        if voting_on(config) and not self.depthwise:
+            warning("tree_learner=voting is only implemented for the "
+                    "depthwise grower; falling back to plain data-parallel "
+                    "histogram exchange")
+        self._setup_learner(config, train_set)
         # the step's parameters for gradients handed in (fobj): neither the
         # fused front nor the const-hessian elision
         self.gp_custom = dataclasses.replace(self.gp, fused_obj=None,
@@ -460,6 +508,7 @@ class GBDT:
                 coupled_pen=vec(cegb_coupled), lazy_pen=vec(cegb_lazy),
                 lazy_cols=(None if cegb_lazy is None else torch.as_tensor(
                     np.flatnonzero(cegb_lazy), device=self.device)))
+        self._shard_cegb()
         warn_unconsumed(config)
         self._score_shape = (n,) if k == 1 else (n, k)
         self.train_score = torch.zeros(self._score_shape, dtype=torch.float32,
@@ -515,6 +564,13 @@ class GBDT:
         self._cegb_ok = enabled and config.grow_policy == "depthwise"
         if not enabled:
             return None, None
+        if feature_parallel_on(config):
+            # the feature-parallel learner tiles the columns; the reference
+            # ignores CEGB there (gbdt.py:334-341)
+            warning("CEGB is not supported with the feature-parallel tree "
+                    "learner; ignoring cegb_* parameters")
+            self._cegb_ok = False
+            return None, None
         if not self._cegb_ok:
             warning("CEGB is only supported with grow_policy=depthwise "
                     "(the default); ignoring cegb_* parameters")
@@ -538,6 +594,110 @@ class GBDT:
 
         return (map_vec(cp, "cegb_penalty_feature_coupled"),
                 map_vec(lp, "cegb_penalty_feature_lazy"))
+
+    def _setup_learner(self, config: Config, train_set) -> None:
+        """The tree learner (reference: gbdt.py:278-392). A Dataset
+        constructed over a ``RowShardPlan`` trains data-parallel whatever
+        ``tree_learner`` says; ``data`` and ``voting`` shard the rows over
+        every local device (the plan made here, the bins split once);
+        ``feature`` tiles the columns over every local device. One device
+        trains serially. Sets ``_dp``, ``_fp``, ``_shard_plan``, the
+        per-shard bins (``_dp_bins``, ``_dp_bins_T``) or the feature tiles
+        (``_fp_tiles``), and the mesh axes of ``gp``."""
+        kind = self.device.type
+        nd = M.device_count(kind)
+        plan = getattr(train_set, "shard_plan", None)
+        learner = str(config.tree_learner).lower()
+        self._dp = ((learner in ("data", "data_parallel", "voting")
+                     and nd > 1) or plan is not None)
+        if self._fp and plan is not None:
+            fatal("tree_learner=feature cannot train on a row-sharded "
+                  "Dataset; construct with num_shards=1")
+        if self._fp:
+            self._dp = False
+        self._shard_plan = None
+        if self._fp:
+            self._fmesh = make_feature_mesh(kind=kind)
+            (self._fp_tiles, self._fp_num_bins, self._fp_na_bin,
+             self._fp_bundle, self._fp_pad) = shard_features_once(
+                 train_set.bins_T, train_set.bins, train_set.num_bins_dev,
+                 train_set.na_bin_dev, self.bundle, self._fmesh)
+            info(f"feature-parallel tree learner over {self._fmesh.size} "
+                 "devices")
+            return
+        if not self._dp:
+            return
+        if plan is not None:
+            # the construct committed each row block to its shard's device
+            self._shard_plan = plan
+            self._dp_bins = list(train_set.shard_bins)
+            self._dp_bins_T = train_set.shard_bins_T
+        else:
+            # tree_learner=data on an unsharded Dataset: a plan over every
+            # local device, the bins split once here
+            self._shard_plan = M.plan_row_sharding(
+                train_set.num_data, nd, axis_name=config.mesh_axis,
+                kind=kind)
+            self._dp_bins = self._shard_plan.split(train_set.bins)
+            self._dp_bins_T = [b.t().contiguous() for b in self._dp_bins]
+        sp = self._shard_plan
+        feat_kw = ({} if sp.feature_shards <= 1 else
+                   dict(feature_axis_name=sp.feature_axis,
+                        feature_shards=sp.feature_shards))
+        self.gp = dataclasses.replace(self.gp, axis_name=sp.axis_name,
+                                      **feat_kw)
+        info(f"data-parallel tree learner over {sp.num_shards} shards "
+             f"(axis '{sp.axis_name}', "
+             f"{'mesh-native' if plan is not None else 'resharded'})")
+        if plan is not None:
+            # fail before step 0 on a dead device or a stale plan
+            from ..parallel.fence import mesh_preflight
+            mesh_preflight(config, train_set, plan)
+        self._emit_hist_allreduce_probe()
+
+    def _shard_cegb(self) -> None:
+        """Under the data-parallel learner the CEGB lazy bitset lives in
+        row blocks, one on each shard's device (reference: gbdt.py:371-381;
+        padding rows never pay: their count is zero)."""
+        if self._shard_plan is not None and self.cegb is not None and \
+                self.cegb.data_used is not None:
+            self.cegb = dataclasses.replace(
+                self.cegb, data_used=self._shard_plan.split(
+                    self.cegb.data_used))
+
+    def _cegb_data_used(self) -> Optional[torch.Tensor]:
+        """The CEGB lazy bitset [N, F] (gathered from its row blocks)."""
+        du = None if self.cegb is None else self.cegb.data_used
+        if isinstance(du, list):
+            return self._shard_plan.gather(du, self.device)
+        return du
+
+    def _emit_hist_allreduce_probe(self) -> None:
+        """One timed shard sum of a root-histogram-shaped [3, F, B] f32
+        tensor at set-up (reference: gbdt.py:1059-1097), as the
+        ``hist_allreduce`` event; with telemetry on only."""
+        if not obs.enabled():
+            return
+        import time
+        from ..ops import grow as G
+        sp = self._shard_plan
+        shape = (3, self.train_set.num_features, self.gp.max_bin)
+        parts = [torch.ones(shape, dtype=torch.float32, device=d)
+                 for d in sp.devices]
+        saved = dict(G.ALLREDUCE)   # the probe is not training traffic
+        G._hist_allreduce(parts, self.gp, 1, sp.feature_devices)  # warm-up
+        self._sync()
+        t0 = time.perf_counter()
+        G._hist_allreduce(parts, self.gp, 1, sp.feature_devices)
+        self._sync()
+        dt = time.perf_counter() - t0
+        G.ALLREDUCE.update(saved)
+        obs.emit("hist_allreduce", shards=int(sp.num_shards),
+                 bytes=int(np.prod(shape)) * 4, psum_s=float(dt))
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _build_forced(self, config: Config, train_set
                       ) -> Optional[ForcedSplits]:
@@ -728,43 +888,32 @@ class GBDT:
         self._fmask = self._feature_mask()
         if gp.fused_obj is None and grad is None:
             grad, hess = self.objective.get_gradients(self.train_score)
-        any_split = False
-        for cls in range(k):
-            if gp.fused_obj is not None:
-                # fused front: the kernels recompute the gradients from
-                # (score, aux, bag) and never materialize them
-                ghc = (None, None, None)
-                fused = (self.train_score, self._aux, bag)
-            else:
-                # the class' contiguous gradient column (the kernels take
-                # no strided view)
-                g = grad if k == 1 else grad[:, cls].contiguous()
-                h = hess if k == 1 else hess[:, cls].contiguous()
-                ghc = (g * bag, h * bag, (bag > 0).to(torch.float32))
-                fused = None
-            qseed = self.iter_ * k + cls     # gbdt.py:1504
-            rebuilds = 0
-            if self.depthwise and gp.lean_ft > 0:
-                tree, leaf_id, passes = grow_tree_depthwise_lean(
-                    ts.bins_T, *ghc, ts.num_bins_dev, ts.na_bin_dev,
-                    self._fmask, gp, qseed=qseed, bins=ts.bins,
-                    bundle=self.bundle)
-            elif self.depthwise:
-                tree, leaf_id, passes = grow_tree_depthwise(
-                    ts.bins_T, *ghc, ts.num_bins_dev, ts.na_bin_dev,
-                    self._fmask, gp, qseed=qseed, fused=fused, bins=ts.bins,
-                    bundle=self.bundle, forced=self.forced, cegb=self.cegb)
-            else:
-                tree, leaf_id, passes, rebuilds = grow_tree(
-                    ts.bins_T, *ghc, ts.num_bins_dev, ts.na_bin_dev,
-                    self._fmask, gp, bins=ts.bins,
-                    qseed=(qseed if gp.ff_bynode < 1.0 or gp.split.extra_trees
-                           else None),
-                    bundle=self.bundle, forced=self.forced)
-            self.hist_passes.append(passes)
-            self.hist_rebuilds.append(rebuilds)
-            any_split = any_split or tree.num_leaves > 1
-            self._add_tree(tree, leaf_id, cls)
+        def grow_all() -> bool:
+            any_split = False
+            for cls in range(k):
+                if gp.fused_obj is not None:
+                    # fused front: the kernels recompute the gradients from
+                    # (score, aux, bag) and never materialize them
+                    ghc = (None, None, None)
+                    fused = (self.train_score, self._aux, bag)
+                else:
+                    # the class' contiguous gradient column (the kernels
+                    # take no strided view)
+                    g = grad if k == 1 else grad[:, cls].contiguous()
+                    h = hess if k == 1 else hess[:, cls].contiguous()
+                    ghc = (g * bag, h * bag, (bag > 0).to(torch.float32))
+                    fused = None
+                qseed = self.iter_ * k + cls     # gbdt.py:1504
+                tree, leaf_id, passes, rebuilds = self._grow(gp, ghc, fused,
+                                                             qseed)
+                self.hist_passes.append(passes)
+                self.hist_rebuilds.append(rebuilds)
+                any_split = any_split or tree.num_leaves > 1
+                self._add_tree(tree, leaf_id, cls)
+            return any_split
+
+        any_split = (self._dp_dispatch(grow_all) if self._dp
+                     else grow_all())
         # the non-finite guard: one device flag on the new train score, read
         # once an iteration (the level loop syncs once a level anyway)
         ok = bool(torch.isfinite(self.train_score).all())
@@ -786,6 +935,101 @@ class GBDT:
         # the iteration's trees for the train_iter event's stats
         self._obs_trees = (self.iter_, self.models_dev[-k:])
         return self._end_iteration(not any_split)
+
+    def _grow(self, gp: GrowParams, ghc, fused, qseed: int):
+        """One class tree from the grower of the trainer's learner:
+        (tree, leaf ids, passes, pool rebuilds); under the data-parallel
+        learner the leaf ids are a list, one a shard."""
+        ts = self.train_set
+        # the leaf-wise grower draws only for bynode and extra_trees
+        lossguide_q = qseed if (gp.ff_bynode < 1.0 or gp.split.extra_trees) \
+            else None
+        if self._fp:
+            g, h, c = ghc
+            tree, leaf_id, passes = grow_tree_fp(
+                None, g, h, c, self._fp_num_bins, self._fp_na_bin,
+                (pad_mask(self._fmask, self._fp_pad) if self._fp_pad
+                 else self._fmask), gp, self._fmesh, bundle=self._fp_bundle,
+                qseed=qseed, tiles=self._fp_tiles, forced=self.forced)
+            return tree, leaf_id, passes, 0
+        if self._dp:
+            sp = self._shard_plan
+            if fused is not None:
+                fused_parts = list(zip(*(sp.split(x) for x in fused)))
+                g_p = h_p = c_p = None
+            else:
+                fused_parts = None
+                g_p, h_p, c_p = (sp.split(x) for x in ghc)
+            if self.depthwise and gp.lean_ft > 0:
+                fn, kw = grow_tree_depthwise_lean, {}
+            elif self.depthwise:
+                fn, kw = grow_tree_depthwise, dict(forced=self.forced,
+                                                   cegb=self.cegb)
+            else:
+                fn, kw = grow_tree, dict(forced=self.forced)
+                qseed = lossguide_q
+            out = grow_tree_dp(
+                self._dp_bins, g_p, h_p, c_p, ts.num_bins_dev,
+                ts.na_bin_dev, self._fmask, gp, sp.mesh, grow_fn=fn,
+                bundle=self.bundle, qseed=qseed, bins_T=self._dp_bins_T,
+                fused=fused_parts,
+                data_used=(self.cegb.data_used if self.cegb is not None
+                           and fn is grow_tree_depthwise else None),
+                feature_devices=sp.feature_devices, **kw)
+            return out if len(out) == 4 else out + (0,)
+        if self.depthwise and gp.lean_ft > 0:
+            tree, leaf_id, passes = grow_tree_depthwise_lean(
+                ts.bins_T, *ghc, ts.num_bins_dev, ts.na_bin_dev,
+                self._fmask, gp, qseed=qseed, bins=ts.bins,
+                bundle=self.bundle)
+            return tree, leaf_id, passes, 0
+        if self.depthwise:
+            tree, leaf_id, passes = grow_tree_depthwise(
+                ts.bins_T, *ghc, ts.num_bins_dev, ts.na_bin_dev,
+                self._fmask, gp, qseed=qseed, fused=fused, bins=ts.bins,
+                bundle=self.bundle, forced=self.forced, cegb=self.cegb)
+            return tree, leaf_id, passes, 0
+        return grow_tree(ts.bins_T, *ghc, ts.num_bins_dev, ts.na_bin_dev,
+                         self._fmask, gp, bins=ts.bins, qseed=lossguide_q,
+                         bundle=self.bundle, forced=self.forced)
+
+    def _dp_dispatch(self, grow_all):
+        """An iteration's trees under the data-parallel learner, behind the
+        ``hist_allreduce`` fault point (reference: _fused_step's dispatch,
+        gbdt.py:1148-1200): a device fault there, or in the growth, is
+        retried with backoff from the iteration's saved state under a
+        policy other than ``fatal``, as the reference retries its step."""
+        policy = self.config.on_device_fault
+        saved = self._iteration_state() if policy != "fatal" else None
+
+        def attempt():
+            # chaos point: the iteration's shard sums
+            faults.fault_point("hist_allreduce")
+            return grow_all()
+
+        try:
+            return attempt()
+        except BaseException as e:
+            if policy == "fatal" or not faults.is_device_fault(e):
+                raise
+            obs.emit("device_fault",
+                     point=faults.classify_point(e, default="hist_allreduce"),
+                     policy=policy, action="retry",
+                     error=f"{type(e).__name__}: {e}", attempt=1)
+            warning(f"device fault during the sharded step "
+                    f"({type(e).__name__}: {e}); retrying")
+
+        def again():
+            nonlocal saved
+            self._restore_iteration_state(saved)
+            saved = self._iteration_state()
+            return attempt()
+
+        from ..utils.retry import call_with_backoff
+        return call_with_backoff(
+            again, attempts=max(2, int(self.config.network_retries)),
+            base_delay=0.05, max_delay=1.0,
+            should_retry=faults.is_device_fault, name="sharded step")
 
     def _check_pack_budget(self) -> None:
         """The reference's packed g/h lattice (hist_packed, resolved once
@@ -826,10 +1070,12 @@ class GBDT:
     def _iteration_state(self):
         """What one iteration mutates: the scores (copied, since a K-class
         score updates in place), the tree count and the CEGB bookkeeping."""
+        du = None if self.cegb is None else self.cegb.data_used
         cegb = None if self.cegb is None else dataclasses.replace(
             self.cegb, feature_used=self.cegb.feature_used.clone(),
-            data_used=(None if self.cegb.data_used is None
-                       else self.cegb.data_used.clone()))
+            data_used=(None if du is None else
+                       [b.clone() for b in du] if isinstance(du, list)
+                       else du.clone()))
         return (self.train_score.clone(), [v.clone() for v in
                                            self.valid_scores],
                 len(self.models_dev), len(self.hist_passes), cegb)
@@ -906,6 +1152,9 @@ class GBDT:
         the bias."""
         k = self.num_tree_per_iteration
         lv = tree.leaf_value
+        shard_ids = leaf_id if isinstance(leaf_id, list) else None
+        if shard_ids is not None:
+            leaf_id = self._shard_plan.gather(shard_ids, self.device)
         if self.objective is not None and not self.average_output:
             renewed = self.objective.renew_leaf_values(
                 self.train_score if k == 1 else self.train_score[:, cls],
@@ -919,7 +1168,13 @@ class GBDT:
                               device=self.device)
         tree = tree._replace(leaf_value=lv * shrink,
                              internal_value=tree.internal_value * shrink)
-        delta = take_small(tree.leaf_value, leaf_id)
+        if shard_ids is None:
+            delta = take_small(tree.leaf_value, leaf_id)
+        else:
+            # the score update runs on each shard's rows
+            delta = self._shard_plan.gather(
+                [take_small(tree.leaf_value.to(i.device), i)
+                 for i in shard_ids], self.device)
         self.train_score = self._apply_tree_delta(self.train_score, delta,
                                                   cls)
         if self._nf_policy == "clip":
@@ -1064,7 +1319,10 @@ class GBDT:
             "learning_rate": float(self.learning_rate),
             "has_init_score": bool(self._has_init_score),
             "has_bag_mask": self._bag_mask is not None,
-            "num_shards": 1,
+            # informational: the state is stored unsharded, so a resume
+            # re-shards onto any shard count (reference: gbdt.py:1784-1792)
+            "num_shards": (self._shard_plan.num_shards
+                           if self._shard_plan is not None else 1),
             "fingerprint": self._resume_fingerprint(),
         }
         arrays["train_score"] = self.train_score.cpu().numpy()
@@ -1092,7 +1350,7 @@ class GBDT:
         if self.cegb is not None:
             # the reference's four CEGBState fields, its [1, 1] placeholder
             # for an absent lazy bitset included (gbdt.py:1822-1828)
-            du = self.cegb.data_used
+            du = self._cegb_data_used()
             for f, t in (("feature_used", self.cegb.feature_used),
                          ("data_used", du),
                          ("coupled_pen", self.cegb.coupled_pen),
@@ -1167,7 +1425,7 @@ class GBDT:
                     getattr(c, f).cpu().numpy()):
                 raise ValueError(f"snapshot was taken under other CEGB "
                                  f"penalties ({key})")
-        du = c.data_used
+        du = self._cegb_data_used()
         if du is not None:
             got = np.asarray(arrays.get("cegb_data_used",
                                         np.zeros((1, 1), bool)))
@@ -1175,6 +1433,8 @@ class GBDT:
                 raise ValueError(f"snapshot's cegb_data_used {got.shape} "
                                  f"!= the trainer's {tuple(du.shape)}")
             du = torch.as_tensor(got.astype(bool), device=self.device)
+            if self._shard_plan is not None:
+                du = self._shard_plan.split(du)
         return dataclasses.replace(c, feature_used=torch.as_tensor(
             np.asarray(arrays["cegb_feature_used"], bool),
             device=self.device), data_used=du)

@@ -12,6 +12,14 @@ CEGB is not supported on this grower (GBDT warns and ignores it, as the
 reference does). Internal
 node ``i`` is created by split ``i``; child pointers use the reference
 encoding: >= 0 an internal node, < 0 ``~leaf``.
+
+Data-parallel growth (``GrowParams.axis_name`` set, reference: :82-126,
+:254, :375, :391): the rows come as ``ShardedRows``, one ``RowShard`` a
+mesh shard on its device; every kernel runs on each shard's own rows, and
+``_psum`` / ``_hist_allreduce`` sum the shards' histograms and sums in
+shard order, in f32, on the first shard's device, where the split search
+runs once. On a 2-D (data, feature) mesh each feature block is summed on
+its own device and the blocks gathered, bit for bit the 1-D sum.
 """
 from __future__ import annotations
 
@@ -53,6 +61,114 @@ class GrowParams:
     # depthwise grower's feature tile (0: the whole-frontier grower)
     hist_pool: int = 0
     lean_ft: int = 0
+    # voting-parallel (reference: VotingParallelTreeLearner, top_k): the
+    # features elected a level for the histogram sum; 0 = off
+    voting_top_k: int = 0
+    # data-parallel axis of the mesh (reference: :82-88): set, the rows come
+    # sharded and every histogram and root or leaf sum is summed over the
+    # shards (_psum, _hist_allreduce); the optional feature axis of a 2-D
+    # mesh splits each histogram sum into feature_shards blocks
+    axis_name: str = ""
+    feature_axis_name: str = ""
+    feature_shards: int = 1
+
+
+class RowShard(NamedTuple):
+    """One mesh shard's rows on its device: the [F, n] bins and their
+    row-major copy, the (g, h, c) rows or the fused front's (score, aux,
+    bag), and the shard's block of the CEGB lazy bitset. Padding rows
+    carry zero g, h and count (bag 0)."""
+    bins_T: torch.Tensor
+    bins: Optional[torch.Tensor] = None
+    g: Optional[torch.Tensor] = None
+    h: Optional[torch.Tensor] = None
+    c: Optional[torch.Tensor] = None
+    fused: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
+    data_used: Optional[torch.Tensor] = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.bins_T.device
+
+    @property
+    def rows(self):
+        return (self.g, self.h, self.c)
+
+
+@dataclass
+class ShardedRows:
+    """The shards of a data-parallel grow, in mesh order, and the device
+    that sums each feature block on a 2-D mesh (empty on a 1-D one)."""
+    shards: list
+    feature_devices: Tuple[torch.device, ...] = ()
+
+    @property
+    def home(self) -> torch.device:
+        """The first shard's device: the sums land there and the split
+        search runs there."""
+        return self.shards[0].device
+
+
+def as_sharded(shards: Optional[ShardedRows], bins_T, bins=None, g=None,
+               h=None, c=None, fused=None, data_used=None) -> ShardedRows:
+    """``shards`` as given, or the serial rows as one shard."""
+    if shards is not None:
+        return shards
+    return ShardedRows([RowShard(bins_T, bins, g, h, c, fused, data_used)])
+
+
+# bytes and calls of the shard sums (mesh runs only): the histogram sums
+# and every sum; scripts and chip_smoke.py read and reset them
+ALLREDUCE = {"calls": 0, "bytes": 0, "hist_calls": 0, "hist_bytes": 0}
+
+
+def reset_allreduce() -> None:
+    for k in ALLREDUCE:
+        ALLREDUCE[k] = 0
+
+
+def _sum_parts(parts, device: torch.device) -> torch.Tensor:
+    acc = parts[0].to(device=device, dtype=torch.float32)
+    for p in parts[1:]:
+        acc = acc + p.to(device=device, dtype=torch.float32)
+    return acc
+
+
+def _psum(parts, gp: GrowParams) -> torch.Tensor:
+    """The shards' tensors summed in shard order, in f32, on the first
+    shard's device (the reference's ``psum`` over the data axis); one
+    part is returned as it is."""
+    if len(parts) == 1:
+        return parts[0]
+    ALLREDUCE["calls"] += 1
+    ALLREDUCE["bytes"] += sum(p.numel() * p.element_size() for p in parts)
+    return _sum_parts(parts, parts[0].device)
+
+
+def _hist_allreduce(parts, gp: GrowParams, f_dim: int,
+                    feature_devices: Tuple[torch.device, ...] = ()
+                    ) -> torch.Tensor:
+    """Sum histogram-shaped shard tensors (reference: :105-126). On a 1-D
+    mesh a ``_psum``; on a 2-D mesh each feature block of ``F //
+    feature_shards`` columns is summed over the shards on its block's
+    device and the blocks are gathered on the first shard's device: bit
+    for bit the 1-D sum, since the sum is elementwise."""
+    if len(parts) == 1:
+        return parts[0]
+    ALLREDUCE["hist_calls"] += 1
+    ALLREDUCE["hist_bytes"] += sum(p.numel() * p.element_size()
+                                   for p in parts)
+    k, fdim = gp.feature_shards, parts[0].shape[f_dim]
+    if not gp.feature_axis_name or k <= 1 or fdim % k or \
+            len(feature_devices) != k:
+        return _psum(parts, gp)
+    ALLREDUCE["calls"] += 1
+    ALLREDUCE["bytes"] += sum(p.numel() * p.element_size() for p in parts)
+    blk = fdim // k
+    home = parts[0].device
+    blocks = [_sum_parts([p.narrow(f_dim, j * blk, blk) for p in parts],
+                         feature_devices[j]).to(home) for j in range(k)]
+    return torch.cat(blocks, dim=f_dim)
 
 
 class TreeArrays(NamedTuple):
@@ -194,7 +310,8 @@ def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
               bins: Optional[torch.Tensor] = None,
               qseed: Optional[int] = None,
               bundle: Optional[BundleArrays] = None,
-              forced=None) -> Tuple[TreeArrays, torch.Tensor, int, int]:
+              forced=None, shards: Optional[ShardedRows] = None
+              ) -> Tuple[TreeArrays, torch.Tensor, int, int]:
     """Grow one tree leaf-wise (best-first), unquantized.
 
     bins_T [F, N] u8 on the device; g/h/c [N] f32 grad/hess/in-bag count
@@ -227,12 +344,20 @@ def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
     the oldest slot left (the lower index first on equal age, as argmin);
     a parent whose histogram was evicted is rebuilt by one more hist_f32
     pass with its pre-split rows in slot 0. The pool's bookkeeping lives on
-    the host: it follows from the chosen leaves alone."""
-    f, n = bins_T.shape
-    dev = bins_T.device
+    the host: it follows from the chosen leaves alone.
+
+    ``shards`` (data-parallel): the rows as ``ShardedRows`` (bins_T, g,
+    h, c and bins are then unused); each shard builds its histograms and
+    partitions its own rows, and the leaf ids come back as a list, one
+    [n_s] i32 tensor a shard."""
+    sh = as_sharded(shards, bins_T, bins, g, h, c)
+    f = sh.shards[0].bins_T.shape[0]
+    dev = sh.home
+    fdev = sh.feature_devices
     L, B = gp.num_leaves, gp.max_bin
     sp = gp.split
-    hist0 = H.hist_leaf(bins_T, B, rows=(g, h, c))
+    hist0 = _hist_allreduce([H.hist_leaf(s.bins_T, B, rows=s.rows)
+                             for s in sh.shards], gp, 1, fdev)
     g0, h0, c0 = tree_sum(hist0[0, 0]), tree_sum(hist0[1, 0]), \
         tree_sum(hist0[2, 0])
     ones = torch.ones(2, dtype=torch.bool, device=dev)
@@ -268,7 +393,8 @@ def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
                               for _ in range(3))
     leaf_g[0], leaf_h[0], leaf_c[0] = g0, h0, c0
     tree = empty_tree(L, B, dev)
-    leaf_id = torch.zeros(n, dtype=torch.int32, device=dev)
+    leaf_ids = [torch.zeros(s.bins_T.shape[1], dtype=torch.int32,
+                            device=s.device) for s in sh.shards]
     # monotone output bounds and forced-node pointers of the leaves
     leaf_min = torch.full((L,), -float("inf"), device=dev)
     leaf_max = torch.full((L,), float("inf"), device=dev)
@@ -300,17 +426,21 @@ def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
         new_leaf = t + 1
         feat = best_eff.feature[l]
 
-        # ---- partition rows (DataPartition::Split: a where on leaf_id) ----
-        col = bins_T.index_select(0, feat.view(1))[0].to(torch.int32)
-        is_na = col == na_bin.index_select(0, feat.view(1))
-        go_right = torch.where(is_na, ~best_eff.default_left[l],
-                               col > best_eff.bin[l])
-        if sp.cat_features or sp.has_bundles:
-            # a categorical or bundle split sends its member bins left
-            # (reference: grow.py:355-358)
-            go_right = torch.where(best_eff.is_cat[l],
-                                   ~best_eff.cat_member[l][col.long()], go_right)
-        leaf_id = torch.where((leaf_id == l) & go_right, new_leaf, leaf_id)
+        # ---- partition rows (DataPartition::Split: a where on leaf_id),
+        # each shard its own ----
+        split_rec = (feat.view(1), na_bin.index_select(0, feat.view(1)),
+                     best_eff.default_left[l], best_eff.bin[l],
+                     best_eff.is_cat[l], best_eff.cat_member[l])
+        for i, s in enumerate(sh.shards):
+            ft, na_f, dl, thr, isc, mem = (x.to(s.device) for x in split_rec)
+            col = s.bins_T.index_select(0, ft)[0].to(torch.int32)
+            go_right = torch.where(col == na_f, ~dl, col > thr)
+            if sp.cat_features or sp.has_bundles:
+                # a categorical or bundle split sends its member bins left
+                # (reference: grow.py:355-358)
+                go_right = torch.where(isc, ~mem[col.long()], go_right)
+            leaf_ids[i] = torch.where((leaf_ids[i] == l) & go_right,
+                                      new_leaf, leaf_ids[i])
 
         # ---- child stats ----
         lg, lh, lc = best_eff.left_g[l], best_eff.left_h[l], best_eff.left_cnt[l]
@@ -320,17 +450,22 @@ def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
         # ---- smaller-child histogram + sibling by subtraction ----
         small_is_left = lc <= rc
         small_leaf = torch.where(small_is_left, l, new_leaf)
-        slot = (leaf_id != small_leaf).to(torch.int32)   # 1: dropped
-        hist_small = K.hist_f32(bins_T, g, h, c, slot, 1, B, bins)[0]
+        hist_small = _hist_allreduce([
+            K.hist_f32(s.bins_T, s.g, s.h, s.c,
+                       (lid != small_leaf.to(s.device)).to(torch.int32), 1,
+                       B, s.bins)[0]          # slot 1: dropped
+            for s, lid in zip(sh.shards, leaf_ids)], gp, 1, fdev)
         if not pooled:
             hist_parent = hist[l]
         elif slot_of_leaf[l] >= 0:
             hist_parent = hist[slot_of_leaf[l]]
         else:
             # the parent was evicted: one pass over its pre-split rows
-            pre = (leaf_id == l) | (leaf_id == new_leaf)
-            hist_parent = K.hist_f32(bins_T, g, h, c, (~pre).to(torch.int32),
-                                     1, B, bins)[0]
+            hist_parent = _hist_allreduce([
+                K.hist_f32(s.bins_T, s.g, s.h, s.c,
+                           (~((lid == l) | (lid == new_leaf))).to(
+                               torch.int32), 1, B, s.bins)[0]
+                for s, lid in zip(sh.shards, leaf_ids)], gp, 1, fdev)
             rebuilds += 1
         hist_large = hist_parent - hist_small
         hist_left = torch.where(small_is_left, hist_small, hist_large)
@@ -415,8 +550,9 @@ def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
         tree.leaf_value[0] = leaf_output(g0, h0, sp)
         tree.leaf_weight[0] = h0
         tree.leaf_count[0] = c0
-    return tree._replace(num_leaves=num_leaves), leaf_id, num_leaves - 1, \
-        rebuilds
+    return (tree._replace(num_leaves=num_leaves),
+            leaf_ids if shards is not None else leaf_ids[0], num_leaves - 1,
+            rebuilds)
 
 
 def _pool_slots(slot_p: int, slot_age: list) -> Tuple[int, int]:

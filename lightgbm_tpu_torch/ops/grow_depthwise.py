@@ -1,7 +1,9 @@
-"""Depthwise (level-wise) tree growing: the serial path.
+"""Depthwise (level-wise) tree growing.
 
 Port of ``lightgbm_tpu/ops/grow_depthwise.py`` ``grow_tree_depthwise``
-(:238) for the serial path, quantized or not: the fused gradient +
+(:238), serial or over row shards (``ShardedRows``: the data-parallel and
+voting learners) or feature tiles (the feature-parallel learner),
+quantized or not: the fused gradient +
 quantization + root histogram front (:281-294) or the unfused one from
 materialized rows (:295-308), the level function with budgeted top-gain
 selection and sibling subtraction (:349-632), the level schedule (:167,
@@ -47,12 +49,13 @@ import torch
 
 from . import hist_kernels as K
 from . import histogram as H
-from .grow import (ForcedSplits, GrowParams, TreeArrays, empty_tree,
+from .grow import (ForcedSplits, GrowParams, ShardedRows, TreeArrays,
+                   _hist_allreduce, _psum, as_sharded, empty_tree,
                    extra_trees_key, forced_override, monotone_child_bounds,
                    node_feature_mask)
 from .scan import tree_sum
 from .split import (NEG_INF, BundleArrays, SplitParams, SplitResult,
-                    best_split, leaf_output)
+                    best_split, leaf_output, per_feature_gains)
 
 # the reference's master slot widths and slot floor on its kernel path
 # (pallas_hist.MASTER_SLOT_WIDTHS, grow_depthwise._SLOT_FLOOR)
@@ -77,13 +80,16 @@ class CEGBState:
 
 
 def cegb_penalty(sp: SplitParams, cegb: CEGBState, leaf_c: torch.Tensor,
-                 leaf_id: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+                 sh: ShardedRows, leaf_ids: list,
+                 gp: GrowParams) -> torch.Tensor:
     """The CEGB penalty plane [L, F] of a frontier (reference:
     grow_depthwise.py:369-390): tradeoff * (penalty_split * the leaf's
     rows + the coupled penalty of a column never split on + the lazy
     penalty of each in-bag row of the leaf that has not paid for the
     column yet). The lazy sums run over the columns of a nonzero lazy
-    penalty only: every other column's sum is of zeros."""
+    penalty only: every other column's sum is of zeros; each shard sums
+    its own rows against its block of the bitset, and the shards' sums
+    are summed."""
     L, f = leaf_c.shape[0], cegb.feature_used.shape[0]
     pen = (torch.tensor(sp.cegb_tradeoff * sp.cegb_penalty_split,
                         dtype=torch.float32, device=leaf_c.device)
@@ -93,16 +99,20 @@ def cegb_penalty(sp: SplitParams, cegb: CEGBState, leaf_c: torch.Tensor,
         pen = pen + sp.cegb_tradeoff * torch.where(
             cegb.feature_used, zero, cegb.coupled_pen)[None, :]
     if sp.cegb_lazy:
-        cols = cegb.lazy_cols
-        fresh = torch.where(cegb.data_used[:, cols], zero,
-                            cegb.lazy_pen[cols][None, :])
-        fresh = fresh * (c > 0)[:, None]
-        sums = torch.zeros((L, cols.numel()), dtype=torch.float32,
-                           device=leaf_c.device)
-        sums.index_add_(0, leaf_id.to(torch.int64), fresh)
+        parts = []
+        for s, lid in zip(sh.shards, leaf_ids):
+            d = s.device
+            cols = cegb.lazy_cols.to(d)
+            fresh = torch.where(s.data_used[:, cols], zero.to(d),
+                                cegb.lazy_pen.to(d)[cols][None, :])
+            fresh = fresh * (s.c > 0)[:, None]
+            sums = torch.zeros((L, cols.numel()), dtype=torch.float32,
+                               device=d)
+            sums.index_add_(0, lid.to(torch.int64), fresh)
+            parts.append(sums)
         lazy_cost = torch.zeros((L, f), dtype=torch.float32,
                                 device=leaf_c.device)
-        lazy_cost[:, cols] = sums
+        lazy_cost[:, cegb.lazy_cols] = _psum(parts, gp)
         pen = pen + sp.cegb_tradeoff * lazy_cost
     return pen
 
@@ -208,6 +218,61 @@ def select_level(res: SplitResult, active: torch.Tensor, sp: SplitParams,
                                                        0) - 1
 
 
+def _tables_on(tables: H.RouteTables, device: torch.device
+               ) -> H.RouteTables:
+    """A level's route tables on a shard's device."""
+    return H.RouteTables(*[None if x is None else x.to(device)
+                           for x in tables])
+
+
+def _on_devices(x: torch.Tensor, sh: ShardedRows) -> list:
+    """``x`` on each shard's device (the same tensor where it lies)."""
+    return [x.to(s.device) for s in sh.shards]
+
+
+def _stable_top(key: torch.Tensor, k: int) -> torch.Tensor:
+    """The indices of the k largest entries, the lower index first on a
+    tie (``jax.lax.top_k``)."""
+    return torch.sort(key, descending=True, stable=True).indices[:k]
+
+
+def voting_exchange(parts: list, sh: ShardedRows, num_bins: torch.Tensor,
+                    na_bin: torch.Tensor, sp: SplitParams, gp: GrowParams
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The voting-parallel histogram exchange of one level (PV-Tree;
+    reference: grow_depthwise.py:493-560, VotingParallelTreeLearner
+    GlobalVoting + CopyLocalHistogram): each shard scores every feature by
+    the sum over its level slots of the feature's best local gain and
+    votes for its top 2k; the votes and the scores are summed over the
+    shards, the k features of the most votes (then score) are elected, and
+    only their histograms are summed. Returns (the summed [S, 3, F, B]
+    histograms, zero off the elected features; the [F] elected mask), on
+    the first shard's device."""
+    f = parts[0].shape[2]
+    k = min(gp.voting_top_k, f)
+    k2 = min(2 * k, f)
+    scores, votes = [], []
+    for hp, nb, na in zip(parts, _on_devices(num_bins, sh),
+                          _on_devices(na_bin, sh)):
+        lg = per_feature_gains(hp, nb, na, tree_sum(hp[:, 0, 0]),
+                               tree_sum(hp[:, 1, 0]), tree_sum(hp[:, 2, 0]),
+                               sp)                               # [S, F]
+        score = torch.where(lg > NEG_INF / 2, lg,
+                            torch.zeros_like(lg)).sum(0)
+        thresh2 = torch.sort(score, descending=True).values[k2 - 1]
+        scores.append(score)
+        votes.append((score >= thresh2).to(torch.float32))
+    elect_key = _psum(votes, gp) * 1e12 + _psum(scores, gp)
+    elected = _stable_top(elect_key, k)
+    sub = _hist_allreduce([hp.index_select(2, elected.to(hp.device))
+                           for hp in parts], gp, 2)
+    out = torch.zeros_like(parts[0], device=sh.home)
+    out[:, :, elected] = sub
+    mask = torch.zeros(f, dtype=torch.bool, device=sh.home)
+    mask[elected] = True
+    return out, mask
+
+
 def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
                         h: Optional[torch.Tensor], c: Optional[torch.Tensor],
                         num_bins: torch.Tensor, na_bin: torch.Tensor,
@@ -217,7 +282,9 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
                         bins: Optional[torch.Tensor] = None,
                         bundle: Optional[BundleArrays] = None,
                         forced: Optional[ForcedSplits] = None,
-                        cegb: Optional[CEGBState] = None
+                        cegb: Optional[CEGBState] = None,
+                        shards: Optional[ShardedRows] = None,
+                        fp_tiles=None
                         ) -> Tuple[TreeArrays, torch.Tensor, int]:
     """Grow one tree level-wise.
 
@@ -232,32 +299,62 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
     ``bundle`` the EFB arrays when ``gp.split.has_bundles``; ``forced``
     the forced-splits tree; ``cegb`` the CEGB bookkeeping, updated in
     place (needs the materialized rows). Returns (TreeArrays, leaf_id [N]
-    i32, number of level passes)."""
-    f, n = bins_T.shape
-    dev = bins_T.device
+    i32, number of level passes).
+
+    ``shards`` (data-parallel, reference: :284-309, :570, :668-681): the
+    rows as ``ShardedRows`` (the row arguments are then unused, and the
+    CEGB lazy bitset comes as each shard's ``data_used`` block). Each
+    shard runs the kernels on its own rows: its front (B1, or make_quant
+    and B5, or B8), each level's pass and its leaf sums, with its own
+    quantization scales and dither (the row index within the shard), as
+    each shard of the reference's shard_map does; the dequantized f32
+    histograms and the sums are summed over the shards and the split
+    search runs once. Under ``gp.voting_top_k`` both children of a split
+    are measured (2 slots a split) and only the elected features'
+    histograms are summed (``voting_exchange``). The leaf ids come back as
+    a list, one [n_s] i32 tensor a shard.
+
+    ``fp_tiles`` (feature-parallel, ``parallel/feature_parallel.py``
+    ``FeatureTiles``, unquantized only): the root and each level's
+    histograms are built tile by tile on the tiles' devices and gathered
+    before the search."""
+    if fp_tiles is not None and (gp.quant or shards is not None):
+        raise ValueError("feature tiles take the unquantized serial rows")
+    sh = as_sharded(shards, bins_T, bins, g, h, c, fused,
+                    None if cegb is None else cegb.data_used)
+    f = sh.shards[0].bins_T.shape[0]
+    dev = sh.home
+    fdev = sh.feature_devices
     L, B = gp.num_leaves, gp.max_bin
     sp = gp.split
     spec = gp.fused_obj
+    use_fused = sh.shards[0].fused is not None
+    voting = bool(gp.axis_name) and gp.voting_top_k > 0
     max_levels = gp.max_depth if gp.max_depth > 0 else max(1, L - 1)
 
-    rows = (g, h, c)
-    if fused is not None:
-        if spec is None or not gp.quant or cegb is not None:
-            raise ValueError("the fused front needs gp.quant and "
-                             "gp.fused_obj, and no CEGB")
-        score, aux, bag = fused
-        quant, hist0 = H.grad_quant_hist0(bins_T, score, aux, bag, qseed,
-                                          spec, B, const_hess=gp.const_hess)
-    elif gp.quant:
-        # int8 quantized channels of the materialized rows, built once per
-        # tree, then the root histogram
-        quant = H.make_quant(g, h, c, qseed, const_hess=gp.const_hess)
-        hist0 = H.hist_leaf(bins_T, B, quant)
-    else:
-        quant = None
-        hist0 = H.hist_leaf(bins_T, B, rows=rows)
+    if use_fused and (spec is None or not gp.quant or cegb is not None):
+        raise ValueError("the fused front needs gp.quant and gp.fused_obj, "
+                         "and no CEGB")
+    quants, parts = [], []
+    for s in sh.shards:
+        if use_fused:
+            q, h0 = H.grad_quant_hist0(s.bins_T, *s.fused, qseed, spec, B,
+                                       const_hess=gp.const_hess)
+        elif gp.quant:
+            # int8 quantized channels of the materialized rows, built once
+            # per tree, then the root histogram
+            q = H.make_quant(s.g, s.h, s.c, qseed, const_hess=gp.const_hess)
+            h0 = H.hist_leaf(s.bins_T, B, q)
+        elif fp_tiles is not None:
+            q, h0 = None, fp_tiles.root(B)
+        else:
+            q, h0 = None, H.hist_leaf(s.bins_T, B, rows=s.rows)
+        quants.append(q)
+        parts.append(h0)
+    hist0 = _hist_allreduce(parts, gp, 1, fdev)
     g0, h0, c0 = tree_sum(hist0[0, 0]), tree_sum(hist0[1, 0]), \
         tree_sum(hist0[2, 0])
+    na_of = _on_devices(na_bin, sh)
 
     f32 = dict(dtype=torch.float32, device=dev)
     hist = torch.zeros((L, 3, f, B), **f32)
@@ -273,7 +370,8 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
     tree.leaf_weight[0] = h0
     tree.leaf_count[0] = c0
     num_leaves = 1
-    leaf_id = torch.zeros(n, dtype=torch.int32, device=dev)
+    leaf_ids = [torch.zeros(s.bins_T.shape[1], dtype=torch.int32,
+                            device=s.device) for s in sh.shards]
     leaves_iota = torch.arange(L, device=dev)
     passes = 0
     leaf_min = torch.full((L,), -math.inf, **f32)
@@ -281,13 +379,18 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
     forced_ptr = torch.full((L,), -1, dtype=torch.int64, device=dev)
     if forced is not None:
         forced_ptr[0] = 0
+    # voting: the features each leaf's stored histograms were elected
+    # under (reference: _DWState.vote_mask)
+    vote_mask = (torch.ones((L, f), dtype=torch.bool, device=dev)
+                 if voting else None)
 
     for lvl, slots in enumerate(level_widths(L, max_levels)):
         if num_leaves >= L:
             break
-        search_mask = node_feature_mask(feature_mask.expand(L, f), gp, qseed,
-                                        lvl)
-        pen = (cegb_penalty(sp, cegb, leaf_c, leaf_id, c)
+        base_mask = (feature_mask.expand(L, f) if vote_mask is None
+                     else feature_mask & vote_mask)
+        search_mask = node_feature_mask(base_mask, gp, qseed, lvl)
+        pen = (cegb_penalty(sp, cegb, leaf_c, sh, leaf_ids, gp)
                if cegb is not None else None)
         res = best_split(hist, num_bins, na_bin, leaf_g, leaf_h, leaf_c,
                          search_mask, sp, active, bundle,
@@ -318,37 +421,66 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
         if cegb is not None and sp.cegb_coupled:
             cegb.feature_used[res.feature[si]] = True
         if cegb is not None and sp.cegb_lazy:
-            f_row = torch.where(sel, res.feature,
-                                torch.full_like(res.feature, -1))[
-                                    leaf_id.to(torch.int64)]
-            pay = (f_row >= 0) & (c > 0)
-            cegb.data_used[pay.nonzero().squeeze(1), f_row[pay]] = True
+            f_leaf = torch.where(sel, res.feature,
+                                 torch.full_like(res.feature, -1))
+            for s, lid in zip(sh.shards, leaf_ids):
+                f_row = f_leaf.to(s.device)[lid.to(torch.int64)]
+                pay = (f_row >= 0) & (s.c > 0)
+                s.data_used[pay.nonzero().squeeze(1), f_row[pay]] = True
 
-        # ---- route + smaller-child histogram pass: one slot per selected
-        # leaf (in leaf order); the larger child is the parent minus the
-        # smaller ----
+        # ---- route + child histogram pass, each shard its own rows: one
+        # slot per selected leaf (in leaf order) for the smaller child,
+        # the larger child the parent minus the smaller; under voting both
+        # children, in slots 2i and 2i + 1 ----
         small_is_left = lc <= rc
-        sentinel = torch.full_like(idx_in_lvl, num_sel)
+        if voting:
+            s_pass = 2 * num_sel
+            none = torch.full_like(idx_in_lvl, s_pass)
+            slot_l = torch.where(sel, 2 * idx_in_lvl, none)
+            slot_r = torch.where(sel, 2 * idx_in_lvl + 1, none)
+        else:
+            s_pass = num_sel
+            sentinel = torch.full_like(idx_in_lvl, num_sel)
+            slot_l = torch.where(sel & small_is_left, idx_in_lvl, sentinel)
+            slot_r = torch.where(sel & ~small_is_left, idx_in_lvl, sentinel)
         tables = H.RouteTables(
             feat=torch.where(sel, res.feature, torch.full_like(res.feature, -1)),
             thr=res.bin, dleft=res.default_left.to(torch.int32),
-            new_leaf=new_leaf,
-            slot_left=torch.where(sel & small_is_left, idx_in_lvl, sentinel),
-            slot_right=torch.where(sel & ~small_is_left, idx_in_lvl, sentinel),
+            new_leaf=new_leaf, slot_left=slot_l, slot_right=slot_r,
             # a level with a categorical or bundle split routes by
             # membership (reference: grow_depthwise.py:521-524); others
             # pass no bitset
             is_cat=cat_sel,
             member=(None if cat_sel is None
                     else res.cat_member & sel[:, None]))
-        hist_pass, leaf_id = H.hist_routed(bins_T, leaf_id, tables, na_bin,
-                                           num_sel, B, quant, rows, bins)
+        parts = []
+        for i, s in enumerate(sh.shards):
+            if fp_tiles is not None:
+                hp, leaf_ids[i] = fp_tiles.routed(leaf_ids[i], tables,
+                                                  na_of[i], s_pass, B)
+                parts.append(hp)
+                continue
+            hp, leaf_ids[i] = H.hist_routed(
+                s.bins_T, leaf_ids[i], _tables_on(tables, s.device), na_of[i],
+                s_pass, B, quants[i], s.rows, s.bins)
+            parts.append(hp)
         passes += 1
-        parent_hist = hist[si]
-        hist_sib = parent_hist - hist_pass
-        sl = small_is_left[si][:, None, None, None]
-        hist[si] = torch.where(sl, hist_pass, hist_sib)
-        hist[nl] = torch.where(sl, hist_sib, hist_pass)
+        if voting:
+            hist_pass, elected = voting_exchange(parts, sh, num_bins, na_bin,
+                                                 sp, gp)
+            hist[si] = hist_pass[0::2]
+            hist[nl] = hist_pass[1::2]
+            # only the leaves whose histograms were replaced narrow to the
+            # new election
+            vote_mask[si] = elected
+            vote_mask[nl] = elected
+        else:
+            hist_pass = _hist_allreduce(parts, gp, 2, fdev)
+            parent_hist = hist[si]
+            hist_sib = parent_hist - hist_pass
+            sl = small_is_left[si][:, None, None, None]
+            hist[si] = torch.where(sl, hist_pass, hist_sib)
+            hist[nl] = torch.where(sl, hist_sib, hist_pass)
 
         # ---- monotone bounds and forced pointers of the children ----
         if sp.has_monotone:
@@ -378,14 +510,15 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
         parent_right[nl] = True
         num_leaves += num_sel
 
+    out_ids = leaf_ids if shards is not None else leaf_ids[0]
     if not gp.quant:
-        return tree._replace(num_leaves=num_leaves), leaf_id, passes
+        return tree._replace(num_leaves=num_leaves), out_ids, passes
     # ---- leaf renewal from exact sums (quantized-training: splits
-    # tolerate int8 gains, leaf outputs use exact sums) ----
-    if fused is not None:
-        sums = K.leaf_sums_grad(score, aux, bag, leaf_id, spec, L)
-    else:
-        sums = K.leaf_sums(g, h, c, leaf_id, L)
+    # tolerate int8 gains, leaf outputs use exact sums), each shard's rows
+    # summed ----
+    sums = _psum([K.leaf_sums_grad(*s.fused, lid, spec, L) if use_fused
+                  else K.leaf_sums(s.g, s.h, s.c, lid, L)
+                  for s, lid in zip(sh.shards, leaf_ids)], gp)
     eg, eh, ec = sums[0], sums[1], sums[2]
     w = leaf_output(eg, eh, sp)
     if sp.has_monotone:
@@ -396,7 +529,7 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
         leaf_weight=torch.where(live, eh, tree.leaf_weight),
         leaf_count=torch.where(live, ec, tree.leaf_count),
         num_leaves=num_leaves)
-    return tree, leaf_id, passes
+    return tree, out_ids, passes
 
 
 # ---------------------------------------------------------------------------
@@ -455,7 +588,8 @@ def grow_tree_depthwise_lean(bins_T: torch.Tensor, g: torch.Tensor,
                              num_bins: torch.Tensor, na_bin: torch.Tensor,
                              feature_mask: torch.Tensor, gp: GrowParams,
                              qseed: int, bins: Optional[torch.Tensor] = None,
-                             bundle: Optional[BundleArrays] = None
+                             bundle: Optional[BundleArrays] = None,
+                             shards: Optional[ShardedRows] = None
                              ) -> Tuple[TreeArrays, torch.Tensor, int]:
     """Grow one tree level-wise under a histogram-memory budget (reference:
     ``grow_tree_depthwise_lean``, grow_depthwise.py:751-1022).
@@ -480,35 +614,48 @@ def grow_tree_depthwise_lean(bins_T: torch.Tensor, g: torch.Tensor,
     tile. One host sync a level, the selection's count. Not combined with
     CEGB, forced splits, feature_fraction_bynode or extra_trees (GBDT keeps
     the default grower then). Returns (TreeArrays, leaf_id [N] i32, number
-    of level passes)."""
-    f, n = bins_T.shape
-    dev = bins_T.device
+    of level passes).
+
+    ``shards`` (data-parallel, reference: :811-852, :1010): the rows as
+    ``ShardedRows``; each shard routes, measures each tile and sums its
+    leaves on its own rows, with its own quantization, and each tile's
+    histograms and the sums are summed over the shards. The leaf ids come
+    back as a list, one a shard."""
+    shd = as_sharded(shards, bins_T, bins, g, h, c)
+    f = shd.shards[0].bins_T.shape[0]
+    dev = shd.home
     L, B = gp.num_leaves, gp.max_bin
     sp = gp.split
     max_levels = gp.max_depth if gp.max_depth > 0 else max(1, L - 1)
     tiles = [(lo, hi, tile_split_params(sp, lo, hi),
               slice_bundle(bundle, lo, hi)) for lo, hi in
              lean_tiles(f, gp.lean_ft)]
-    quant = (H.make_quant(g, h, c, qseed, const_hess=gp.const_hess)
-             if gp.quant else None)
+    quants = [H.make_quant(s.g, s.h, s.c, qseed, const_hess=gp.const_hess)
+              if gp.quant else None for s in shd.shards]
+    na_of = _on_devices(na_bin, shd)
 
-    def measure_tile(slot, counts, n_slots, lo, hi):
-        """[S, 3, hi - lo, B] f32 histograms of one tile, read in place."""
+    def measure_tile(s, quant, slot, counts, n_slots, lo, hi):
+        """[S, 3, hi - lo, B] f32 histograms of one tile of one shard's
+        rows, read in place."""
         if quant is None:
-            return K.hist_f32(bins_T[lo:hi], g, h, c, slot, n_slots, B, bins,
-                              counts, col0=lo)
-        acc = K.hist_q8(bins_T[lo:hi], quant.gq, quant.hq, quant.cq, slot,
-                        n_slots, B, bins, counts, col0=lo)
+            return K.hist_f32(s.bins_T[lo:hi], s.g, s.h, s.c, slot, n_slots,
+                              B, s.bins, counts, col0=lo)
+        acc = K.hist_q8(s.bins_T[lo:hi], quant.gq, quant.hq, quant.cq, slot,
+                        n_slots, B, s.bins, counts, col0=lo)
         return H.dequant(acc, quant.hq is None, quant.scale_g, quant.scale_h)
 
-    def tiled_search(slot, counts, n_slots, sg, sh, sc, lmin, lmax):
-        """Each slot's best split from the tiles' passes and searches."""
+    def tiled_search(routed, n_slots, sg, sh, sc, lmin, lmax):
+        """Each slot's best split from the tiles' passes and searches;
+        ``routed`` each shard's (slot, counts)."""
         best = None
         allow = torch.ones(n_slots, dtype=torch.bool, device=dev)
         for lo, hi, sp_t, bun_t in tiles:
-            res_t = best_split(measure_tile(slot, counts, n_slots, lo, hi),
-                               num_bins[lo:hi], na_bin[lo:hi], sg, sh, sc,
-                               feature_mask[lo:hi], sp_t, allow, bun_t,
+            hist_t = _hist_allreduce(
+                [measure_tile(s, q, slot, counts, n_slots, lo, hi)
+                 for s, q, (slot, counts) in zip(shd.shards, quants, routed)],
+                gp, 2, shd.feature_devices)
+            res_t = best_split(hist_t, num_bins[lo:hi], na_bin[lo:hi], sg, sh,
+                               sc, feature_mask[lo:hi], sp_t, allow, bun_t,
                                leaf_min=lmin, leaf_max=lmax)
             res_t = res_t._replace(feature=res_t.feature + lo)
             best = res_t if best is None else fold_best(best, res_t)
@@ -516,13 +663,15 @@ def grow_tree_depthwise_lean(bins_T: torch.Tensor, g: torch.Tensor,
 
     # ---- root: exact stats from one leaf sum, its record from the tiles'
     # natural-order passes ----
-    leaf_id = torch.zeros(n, dtype=torch.int32, device=dev)
-    sums0 = K.leaf_sums(g, h, c, leaf_id, 1)
+    leaf_ids = [torch.zeros(s.bins_T.shape[1], dtype=torch.int32,
+                            device=s.device) for s in shd.shards]
+    sums0 = _psum([K.leaf_sums(s.g, s.h, s.c, lid, 1)
+                   for s, lid in zip(shd.shards, leaf_ids)], gp)
     g0, h0, c0 = sums0[0, 0], sums0[1, 0], sums0[2, 0]
     f32 = dict(dtype=torch.float32, device=dev)
     inf = torch.full((1,), math.inf, **f32)
-    rec0 = tiled_search(None, None, 1, g0[None], h0[None], c0[None], -inf,
-                        inf)
+    rec0 = tiled_search([(None, None)] * len(shd.shards), 1, g0[None],
+                        h0[None], c0[None], -inf, inf)
     rec = SplitResult(*[
         torch.cat([v, torch.full((L - 1,) + v.shape[1:],
                                  NEG_INF if v.is_floating_point() else 0,
@@ -573,9 +722,13 @@ def grow_tree_depthwise_lean(bins_T: torch.Tensor, g: torch.Tensor,
             is_cat=cat_sel,
             member=(None if cat_sel is None
                     else rec.cat_member & sel[:, None]))
-        slot, leaf_id, counts = K.route_level(
-            bins_T, leaf_id, tables.stacked(), na_bin, s_pass,
-            tables.bitset())
+        routed = []
+        for i, s in enumerate(shd.shards):
+            t_d = _tables_on(tables, s.device)
+            slot, leaf_ids[i], counts = K.route_level(
+                s.bins_T, leaf_ids[i], t_d.stacked(), na_of[i], s_pass,
+                t_d.bitset())
+            routed.append((slot, counts))
         passes += 1
 
         # ---- monotone bounds, per-leaf stats, frontier ----
@@ -599,16 +752,18 @@ def grow_tree_depthwise_lean(bins_T: torch.Tensor, g: torch.Tensor,
 
         # ---- fresh records of the 2S children from the tiled search ----
         slot_leaf = torch.stack([si, nl], dim=1).reshape(s_pass)
-        child = tiled_search(slot, counts, s_pass, leaf_g[slot_leaf],
+        child = tiled_search(routed, s_pass, leaf_g[slot_leaf],
                              leaf_h[slot_leaf], leaf_c[slot_leaf],
                              leaf_min[slot_leaf], leaf_max[slot_leaf])
         for arr, vals in zip(rec, child):
             arr[slot_leaf] = vals
 
+    out_ids = leaf_ids if shards is not None else leaf_ids[0]
     if not gp.quant:
-        return tree._replace(num_leaves=num_leaves), leaf_id, passes
+        return tree._replace(num_leaves=num_leaves), out_ids, passes
     # ---- leaf renewal from exact sums, as the default grower ----
-    sums = K.leaf_sums(g, h, c, leaf_id, L)
+    sums = _psum([K.leaf_sums(s.g, s.h, s.c, lid, L)
+                  for s, lid in zip(shd.shards, leaf_ids)], gp)
     w = leaf_output(sums[0], sums[1], sp)
     if sp.has_monotone:
         w = torch.clamp(w, leaf_min, leaf_max)
@@ -618,4 +773,4 @@ def grow_tree_depthwise_lean(bins_T: torch.Tensor, g: torch.Tensor,
         leaf_weight=torch.where(live, sums[1], tree.leaf_weight),
         leaf_count=torch.where(live, sums[2], tree.leaf_count),
         num_leaves=num_leaves)
-    return tree, leaf_id, passes
+    return tree, out_ids, passes

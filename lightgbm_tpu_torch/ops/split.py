@@ -186,6 +186,37 @@ def leaf_split_gain(sum_g: torch.Tensor, sum_h: torch.Tensor,
                                   leaf_output(sum_g, sum_h, p), p)
 
 
+def per_feature_gains(hist: torch.Tensor, num_bins: torch.Tensor,
+                      na_bin: torch.Tensor, parent_g: torch.Tensor,
+                      parent_h: torch.Tensor, parent_cnt: torch.Tensor,
+                      p: SplitParams) -> torch.Tensor:
+    """Each feature's best numerical gain [L, F], the voting-parallel
+    learner's vote (reference: ``per_feature_gains``, split.py:179-215):
+    numerical planes only, missing rows to the right, the gain rewritten
+    under feature_contri as the final search ranks it. hist [L, 3, F, B];
+    parent_* [L]."""
+    L, _, f, b = hist.shape
+    dev = hist.device
+    iota = torch.arange(b, device=dev)[None, None, :]
+    na_sel = iota == na_bin.to(torch.int64)[None, :, None]
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    cum = blocked_cumsum(torch.where(na_sel[:, None], zero, hist))
+    lg, lh, lc = cum[:, 0], cum[:, 1], cum[:, 2]
+    pg, ph, pc = (x[:, None, None] for x in (parent_g, parent_h, parent_cnt))
+    rg, rh, rc = pg - lg, ph - lh, pc - lc
+    ok = ((lc >= p.min_data_in_leaf) & (rc >= p.min_data_in_leaf)
+          & (lh >= p.min_sum_hessian_in_leaf)
+          & (rh >= p.min_sum_hessian_in_leaf)
+          & (iota < num_bins.to(torch.int64)[None, :, None] - 1) & ~na_sel)
+    gain = leaf_split_gain(lg, lh, p) + leaf_split_gain(rg, rh, p)
+    best = torch.where(ok, gain, torch.full_like(gain, NEG_INF)).amax(-1)
+    if p.has_contri:
+        parent = leaf_split_gain(parent_g, parent_h, p)
+        best = p.contri_array(f, dev)[None, :] * (
+            best - parent[:, None] - p.min_gain_to_split)
+    return best
+
+
 def best_split(hist: torch.Tensor, num_bins: torch.Tensor,
                na_bin: torch.Tensor, parent_g: torch.Tensor,
                parent_h: torch.Tensor, parent_cnt: torch.Tensor,

@@ -56,8 +56,9 @@ class PrewarmHandle:
 
 
 def _spec(cls_name: str, k: int, n: int, f: int, bundle: bool,
-          path) -> Dict[str, Any]:
+          path, shards: int = 1) -> Dict[str, Any]:
     return {"class": cls_name, "k": int(k), "n": int(n), "f": int(f),
+            "shards": int(shards),
             "bundle": bool(bundle), "cegb": path.cegb,
             "forced": path.forced, "fused": path.fused,
             "quantized": path.quant,
@@ -67,9 +68,31 @@ def _spec(cls_name: str, k: int, n: int, f: int, bundle: bool,
 def step_spec(gbdt) -> Dict[str, Any]:
     """What shapes the trainer's kernel path, read off the trainer."""
     ts = gbdt.train_set
+    plan = gbdt._shard_plan
     return _spec(type(gbdt).__name__, gbdt.num_tree_per_iteration,
                  ts.num_data, ts.num_features, ts.bundle_meta is not None,
-                 gbdt.path)
+                 gbdt.path, plan.num_shards if plan is not None else 1)
+
+
+def _shard_devices(conf, dataset):
+    """The shard count the trainer of ``conf`` on ``dataset`` will have
+    and the distinct devices its kernels run on (reference: the prewarm's
+    sharded avals follow the published plan)."""
+    from .parallel.mesh import local_devices
+    plan = dataset.shard_plan
+    if plan is not None:
+        devs = list(plan.devices)
+    elif str(conf.tree_learner).lower() in ("data", "data_parallel",
+                                             "voting") and \
+            len(local_devices(dataset.device.type)) > 1:
+        devs = local_devices(dataset.device.type)
+    else:
+        devs = [dataset.device]
+    uniq = []
+    for d in devs:
+        if d not in uniq:
+            uniq.append(d)
+    return len(devs), uniq
 
 
 def expected_spec(conf, dataset) -> Tuple[Dict[str, Any], Any, int]:
@@ -97,7 +120,8 @@ def expected_spec(conf, dataset) -> Tuple[Dict[str, Any], Any, int]:
         forced=forced_split_arrays(conf, dataset, log=False) is not None,
         log=False)
     spec = _spec(cls.__name__, k, dataset.num_data, f,
-                 dataset.bundle_meta is not None, path)
+                 dataset.bundle_meta is not None, path,
+                 _shard_devices(conf, dataset)[0])
     return spec, path, B
 
 
@@ -118,8 +142,8 @@ def _skip_reason(conf, dataset) -> Optional[str]:
         return f"num_data={n} < {MIN_PREWARM_ROWS} (nothing to hide behind)"
     if str(conf.boosting).lower() not in BOOSTING:
         return f"boosting={conf.boosting} (unknown booster)"
-    if conf.tree_learner not in ("serial",):
-        return f"tree_learner={conf.tree_learner} (sharded args differ)"
+    if str(conf.tree_learner).lower() in ("feature", "feature_parallel"):
+        return f"tree_learner={conf.tree_learner} (feature tiles differ)"
     if conf.num_machines > 1:
         return "num_machines>1"
     if dataset.label_np is None:
@@ -142,8 +166,6 @@ def maybe_start(conf, dataset) -> Optional[PrewarmHandle]:
         debug("kernel prewarm skipped: %s", reason)
         return None
     handle = PrewarmHandle()
-    device = dataset.device
-
     def _worker():
         t0 = time.perf_counter()
         try:
@@ -156,18 +178,25 @@ def maybe_start(conf, dataset) -> Optional[PrewarmHandle]:
             spec, path, B = expected_spec(conf, dataset)
             handle.spec, handle.kernels = spec, path.kernels
             t1 = time.perf_counter()
-            if device.type == "cuda":
-                cuda_lib.load()
-                load_s = time.perf_counter() - t1
-                stream = torch.cuda.Stream(device)
-                with torch.cuda.stream(stream):
-                    warmed = hist_kernels.warm(path.kernels, device, B,
-                                               path.const_hess)
-                stream.synchronize()
-            else:
-                load_s = 0.0
-                warmed = hist_kernels.warm(path.kernels, device, B,
-                                           path.const_hess)
+            # every distinct device the shards' kernels run on (one
+            # without a plan)
+            devices = _shard_devices(conf, dataset)[1]
+            load_s, warmed = 0.0, {}
+            for dev in devices:
+                if dev.type == "cuda":
+                    if not load_s:
+                        cuda_lib.load()
+                        load_s = time.perf_counter() - t1
+                    stream = torch.cuda.Stream(dev)
+                    with torch.cuda.stream(stream):
+                        w = hist_kernels.warm(path.kernels, dev, B,
+                                              path.const_hess)
+                    stream.synchronize()
+                else:
+                    w = hist_kernels.warm(path.kernels, dev, B,
+                                          path.const_hess)
+                for name, cnt in w.items():
+                    warmed[name] = warmed.get(name, 0) + cnt
             handle.result.update(load_s=load_s, warmed=warmed,
                                  built=bool(cuda_lib.BUILD_INFO.get("built")),
                                  duration_s=time.perf_counter() - t0)

@@ -151,10 +151,17 @@ def write_snapshot(booster, directory: str, iteration: int, keep: int = 3,
     _update_manifest(directory, iteration, keep)
     obs.emit("snapshot_write", iteration=int(iteration), path=model_path,
              duration_s=time.perf_counter() - t0, kept=int(keep),
-             num_shards=1)
+             num_shards=_num_shards(booster))
     if obs.enabled():
         obs.METRICS.counter("snapshot_writes", "snapshots written").inc()
     return model_path
+
+
+def _num_shards(booster) -> int:
+    """The shard count the snapshot was taken at (informational: the state
+    is stored unsharded, so a resume re-shards onto any count)."""
+    plan = getattr(getattr(booster, "_gbdt", None), "_shard_plan", None)
+    return plan.num_shards if plan is not None else 1
 
 
 def _validate(directory: str, iteration: int) -> SnapshotPayload:

@@ -43,12 +43,17 @@ point                     fires in
                           durable
 ``join_commit``           join.py, the joined batch durable and its ack not
                           yet returned
+``shard_commit``          ingest.py, at each chunk's commit into its row
+                          shard's block under a mesh plan
+``hist_allreduce``        models/gbdt.py, at each iteration of the
+                          data-parallel learner, before its shard sums;
+                          retried from the iteration's saved state
 ========================  ===================================================
 
 The others fire in modules that are not ported yet, and arming one raises
 ``NotImplementedError`` naming its ROADMAP.md item (``UNPORTED_POINTS``):
-the sharded device points (a lost shard, a dead collective) and the
-distributed bootstrap belong to the multi-GPU work (A21).
+the distributed bootstrap and the cross-process mapper exchange belong to
+the process-spanning mesh (A21b).
 """
 from __future__ import annotations
 
@@ -73,10 +78,7 @@ DEVICE_FAULT_POINTS = ("shard_commit", "hist_allreduce", "device_put_oom",
 _OOM_POINTS = ("device_put_oom",)
 
 # point -> the ROADMAP.md item whose module holds its site
-UNPORTED_POINTS = {
-    **{p: "A21" for p in ("shard_commit", "hist_allreduce",
-                          "mapper_allgather", "dist_init")},
-}
+UNPORTED_POINTS = {p: "A21b" for p in ("mapper_allgather", "dist_init")}
 
 _lock = threading.Lock()
 # name -> [skip_remaining, fail_remaining]; fail_remaining < 0 = forever

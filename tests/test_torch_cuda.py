@@ -92,7 +92,12 @@ construct of the same rows and of the CPU's append byte for byte, labels
 and weights on the card beside them; an online boost cycle on the card
 launches the fused front (B1-B4, B4 for the init model's replay too) and
 its merged model equals the offline append + train(init_model=) + merge
-byte for byte.
+byte for byte. The mesh (parallel/): the shard sum on virtual copies of
+the card is the sequential f32 sum bit for bit, on a 2-D mesh too; each
+shard's fused front quantizes with its own scale and its local rows'
+dither, as the CPU does; (t1) of chip_smoke.py at 100,000 rows, 4 virtual
+shards of the card byte for byte the serial card run, each kernel
+launched once a shard.
 """
 import os
 import subprocess
@@ -1706,3 +1711,93 @@ def test_online_boost_cycle_on_the_card_equals_offline(dev):
     assert launches["leaf_sums_grad"] == 2
     assert launches["hist_routed_fused"] == passes
     assert launches["take_small"] == 2 + b1.num_trees()
+
+
+# ---- multi-GPU in one process (parallel/): the mesh on cuda:0 copies ----
+
+@pytest.mark.cuda
+def test_shard_sum_on_virtual_card_copies(dev):
+    """The shard sum (ops/grow._hist_allreduce) of four histograms on
+    virtual copies of the card: in shard order, in f32, on the first
+    shard's device, bit for bit the sequential sum; the 2-D mesh's feature
+    blocks gathered give the same bits."""
+    import dataclasses
+    from lightgbm_tpu_torch.ops import grow as G
+    gen = torch.Generator(device=dev).manual_seed(3)
+    parts = [torch.randn((31, 3, 28, 64), generator=gen, device=dev)
+             for _ in range(4)]
+    gp = G.GrowParams(axis_name="data")
+    want = ((parts[0] + parts[1]) + parts[2]) + parts[3]
+    got = G._hist_allreduce(parts, gp, 2)
+    assert got.device == parts[0].device and torch.equal(got, want)
+    gp2 = dataclasses.replace(gp, feature_axis_name="feature",
+                              feature_shards=2)
+    got2 = G._hist_allreduce(parts, gp2, 2, (dev, dev))
+    assert torch.equal(got2, want)
+
+
+@pytest.mark.cuda
+def test_sharded_front_dithers_each_shard_by_its_local_row(dev, rows):
+    """Each shard's fused front (grad_quant_hist0) on its own row block
+    quantizes with its own max-abs scale and the dither of its local row
+    index: shard s's channels equal the front run alone on its rows, on
+    the card and on the CPU, and not the whole run's rows of that range."""
+    from lightgbm_tpu_torch.parallel.mesh import (plan_row_sharding,
+                                                  virtual_devices)
+    spec = LOGLOSS
+    with virtual_devices(4, dev):
+        plan = plan_row_sharding(N, 4, kind=dev.type)
+    blocks = plan.split(rows["bins_T"].t().contiguous())
+    parts = [plan.split(rows[k]) for k in ("score", "label_pos", "bag")]
+    whole = hk.grad_quant_hist0(rows["bins_T"], rows["score"],
+                                rows["label_pos"], rows["bag"], 7, spec, B,
+                                False)
+    for s in range(4):
+        bt = blocks[s].t().contiguous()
+        got = hk.grad_quant_hist0(bt, parts[0][s], parts[1][s], parts[2][s],
+                                  7, spec, B, False)
+        cpu = hk.grad_quant_hist0(bt.cpu(), parts[0][s].cpu(),
+                                  parts[1][s].cpu(), parts[2][s].cpu(), 7,
+                                  spec, B, False)
+        for a, b in zip(got, cpu):
+            if a is not None:
+                assert torch.equal(a.cpu(), b)
+        lo, hi = plan.shard_rows_range(s)
+        if s:
+            assert not torch.equal(got[0][:hi - lo], whole[0][lo:hi])
+
+
+@pytest.mark.cuda
+def test_t1_lattice_four_shards_equal_serial_on_the_card(dev):
+    """Path (t1) of chip_smoke.py at 100,000 rows: integer gradients, a
+    constant hessian 0.25, unquantized, 3 iterations on 4 virtual shards
+    of the card byte for byte the serial card run; each shard launches
+    hist_f32, route_level and take_small."""
+    from lightgbm_tpu_torch.parallel.mesh import virtual_devices
+    rng = np.random.RandomState(8)
+    X = rng.standard_normal((100_000, 28)).astype(np.float32)
+    y = (X[:, 0] + X[:, 1] * X[:, 2] > 0).astype(np.float32)
+
+    def fobj(preds, ds):
+        g = np.sign(np.round(np.asarray(preds, np.float64) * 4.0)
+                    - (2.0 * ds.get_label() - 1.0))
+        return g.astype(np.float32), np.full(g.shape, 0.25, np.float32)
+
+    p = {"objective": "none", "num_leaves": 255, "max_bin": 63,
+         "use_quantized_grad": False, "verbosity": -1, "prewarm": 0,
+         "min_data_in_leaf": 20}
+    serial = lt.train(p, lt.Dataset(X, label=y, params=p), 3, fobj=fobj)
+    with virtual_devices(4, dev):
+        q = {**p, "num_shards": 4}
+        hk.reset_launches()
+        sharded = lt.train(q, lt.Dataset(X, label=y, params=q), 3,
+                           fobj=fobj)
+        launches = dict(hk.LAUNCHES)
+    assert sharded._gbdt._shard_plan.num_shards == 4
+    head = [b.model_to_string().split("\nparameters:\n")[0]
+            for b in (serial, sharded)]
+    assert head[0] == head[1]
+    passes = sum(sharded._gbdt.hist_passes)
+    assert launches["hist_f32"] == 4 * (3 + passes)
+    assert launches["route_level"] == 4 * passes
+    assert launches["take_small"] == 4 * 3

@@ -241,13 +241,15 @@ def test_nonfinite_policy_knobs_are_checked():
         lt.Config({"nonfinite_policy": "ignore"})
     with pytest.raises(LightGBMError, match="snapshot_keep"):
         lt.Config({"snapshot_keep": 0})
+    with pytest.raises(LightGBMError, match="on_device_fault"):
+        lt.Config({"on_device_fault": "ignore"})
     X, y = _reg()
-    with pytest.raises(NotImplementedError, match="A21"):
-        lt.train({**P, **CPU, "on_device_fault": "fallback_single"},
-                 lt.Dataset(X, label=y, params=CPU), 1)
-    # the default, reshard, is fatal on one device and trains
-    assert lt.train({**P, **CPU, "on_device_fault": "reshard"},
-                    lt.Dataset(X, label=y, params=CPU), 1).num_trees() == 1
+    # every policy trains: the recovery rungs re-plan or drop a mesh plan
+    # (A21a; tests/test_torch_mesh_faults.py drives them)
+    for policy in ("fallback_single", "reshard", "fatal"):
+        assert lt.train({**P, **CPU, "on_device_fault": policy},
+                        lt.Dataset(X, label=y, params=CPU),
+                        1).num_trees() == 1
 
 
 # ---------------- the fault-injection harness ----------------
@@ -281,9 +283,14 @@ def test_fault_spec_unknown_and_unported_points():
     faults.configure("device_put_oom:1,prewarm_compile:1")
     assert faults.is_armed("device_put_oom")
     faults.configure(None)
-    with pytest.raises(NotImplementedError, match="A21"):
-        faults.configure("hist_allreduce:1")
-    with pytest.raises(NotImplementedError, match="A21"):
+    # the sharded device points fire since A21a (ingest.py, models/gbdt.py)
+    faults.configure("shard_commit:1,hist_allreduce:1")
+    assert faults.is_armed("shard_commit")
+    assert faults.is_armed("hist_allreduce")
+    faults.configure(None)
+    with pytest.raises(NotImplementedError, match="A21b"):
+        faults.configure("mapper_allgather:1")
+    with pytest.raises(NotImplementedError, match="A21b"):
         faults.configure("dist_init:1")
     online = ("wal_append", "dataset_append", "online_train",
               "online_publish", "join_capture", "join_label", "join_commit")
@@ -293,8 +300,7 @@ def test_fault_spec_unknown_and_unported_points():
         faults.fault_point("wal_append")
     faults.fault_point("wal_append")
     faults.configure(None)
-    assert set(faults.UNPORTED_POINTS) == {"shard_commit", "hist_allreduce",
-                                           "mapper_allgather", "dist_init"}
+    assert set(faults.UNPORTED_POINTS) == {"mapper_allgather", "dist_init"}
     assert set(faults.KNOWN_POINTS) == set(ref_faults.KNOWN_POINTS)
     assert faults.DEVICE_FAULT_POINTS == ref_faults.DEVICE_FAULT_POINTS
 

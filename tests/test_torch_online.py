@@ -17,7 +17,8 @@ on a 1/8 grid with the reference on its Pallas kernels in interpret mode
 (the logloss exp's ulp gap, C1). The reference's end-to-end drill also
 counts jax lowerings; the port traces nothing, and that assertion has no
 counterpart here. The sharded append (test_append_resharded_under_mesh)
-waits on the multi-GPU work (ROADMAP A21).
+runs on ``virtual_devices(8, "cpu")`` against the reference's 8 virtual
+devices.
 """
 import threading
 import time
@@ -35,6 +36,7 @@ from lightgbm_tpu_torch.io.model_text import parse_model_text
 from lightgbm_tpu_torch.log import LightGBMError
 from lightgbm_tpu_torch.online import (OnlineTrainer, last_cycle_stats,
                                        merge_boosters, tail_source)
+from lightgbm_tpu_torch.parallel.mesh import virtual_devices
 from lightgbm_tpu_torch.server import PredictServer, handle_line
 
 from test_torch_objectives import BASE, CPU, STRUCT
@@ -109,6 +111,38 @@ def test_append_bins_bit_identical():
     # labels grew in step, on the host and the device
     assert np.array_equal(ds.get_label(), y.astype(np.float32))
     assert np.array_equal(ds.label.numpy(), ds.get_label())
+
+
+def test_append_resharded_under_mesh():
+    """Appending to a row-sharded Dataset re-plans the shard grid for the
+    grown total over the same shard count and re-splits the rows, the
+    padding zero; the binned rows equal an unsharded grow of the same
+    stream and the reference's sharded append, bit for bit."""
+    X, y = _make_data(n=600, f=6, seed=9)
+    params = {"verbose": -1, "num_shards": 4}
+    with virtual_devices(8, "cpu"):
+        ds = Dataset(X[:401], label=y[:401], params={**params, **CPU})
+        ds.construct()                                  # non-divisible
+        assert ds.shard_plan is not None and ds.shard_plan.num_shards == 4
+        assert ds.shard_plan.rows_per_shard == 101
+        ds.append(X[401:], label=y[401:])
+    plan = ds.shard_plan
+    assert plan is not None and plan.num_shards == 4
+    assert plan.n_rows == 600 and ds.num_data == 600
+    assert plan.rows_per_shard == 150
+    assert len(ds.shard_bins) == 4
+    assert all(b.shape[0] == plan.rows_per_shard for b in ds.shard_bins)
+    flat = Dataset(X[:401], label=y[:401], params={"verbose": -1, **CPU})
+    flat.construct()
+    flat.append(X[401:], label=y[401:])
+    got = np.concatenate([b.numpy() for b in ds.shard_bins])
+    assert np.array_equal(got[:600], flat.bins.numpy())
+    assert np.array_equal(ds.bins.numpy(), flat.bins.numpy())
+    rd = lgb.Dataset(X[:401], label=y[:401], params=params)
+    rd.construct()
+    rd.append(X[401:], label=y[401:])
+    assert rd.shard_plan.rows_per_shard == plan.rows_per_shard
+    assert np.array_equal(got, np.asarray(rd.bins))
 
 
 def _bundled_and_categorical(seed=3):

@@ -17,9 +17,9 @@ recovers a model from the other's log, and the sliding window's bins equal
 the reference's. Exact throughout (bins, bytes, seqs, model texts within
 one package). The reference's wall-clock bound on ``feed`` under a storm
 is replaced by a deterministic one: the cycle is held on an Event while
-every feed returns. The reference's sharded cases
-(test_eviction_window_bit_exact_sharded) wait on the multi-GPU work
-(ROADMAP A21).
+every feed returns. The reference's sharded case
+(test_eviction_window_bit_exact_sharded) runs on ``virtual_devices(8,
+"cpu")`` against the reference's 8 virtual devices.
 """
 import glob
 import os
@@ -39,6 +39,7 @@ from lightgbm_tpu_torch.basic import Dataset
 from lightgbm_tpu_torch.config import params_to_config
 from lightgbm_tpu_torch.log import LightGBMError
 from lightgbm_tpu_torch.online import OnlineTrainer, tail_source
+from lightgbm_tpu_torch.parallel.mesh import virtual_devices
 from lightgbm_tpu_torch.utils import faults
 from lightgbm_tpu_torch.utils.faults import FaultInjected
 from lightgbm_tpu_torch.wal import FeedLog
@@ -786,6 +787,40 @@ def test_trainer_recovers_across_packages(tmp_path, monkeypatch, writer):
                                       want.astype(np.float32))
     finally:
         tr2.close()
+
+
+def test_eviction_window_bit_exact_sharded():
+    """The FIFO window on a row-sharded Dataset: the window is re-planned
+    over the same shard count; its bins equal a reference= construct of
+    the window and the reference's sharded window bit for bit, and a
+    4-shard train on it is byte-identical to a one-shard train on the
+    construct (both unquantized, as the reference's CPU run is)."""
+    X, y = _make_data(n=260, f=6, seed=32)
+    params = {"objective": "regression", "num_leaves": 7, "verbose": -1,
+              "min_data_in_leaf": 5, "num_shards": 4}
+    pp = {**params, **CPU, "use_quantized_grad": False}
+    with virtual_devices(8, "cpu"):
+        ds = Dataset(X[:101], label=y[:101], params=pp)   # non-divisible
+        ds.construct()
+        ds.append(X[101:180], label=y[101:180], max_rows=96)
+        assert ds.num_data == 96
+        plan = ds.shard_plan
+        assert plan is not None and plan.num_shards == 4 and \
+            plan.n_rows == 96
+        assert len(ds.shard_bins) == 4
+        ref = Dataset(X[84:180], label=y[84:180], params=pp, reference=ds)
+        ref.construct()
+        assert ref.shard_plan is None
+        assert np.array_equal(ds.bins.numpy(), ref.bins.numpy())
+        rd = lgb.Dataset(X[:101], label=y[:101], params=params)
+        rd.construct()
+        rd.append(X[101:180], label=y[101:180], max_rows=96)
+        assert np.array_equal(np.concatenate(
+            [b.numpy() for b in ds.shard_bins]), np.asarray(rd.bins))
+        ma = lt.train(pp, ds, num_boost_round=3)
+        mb = lt.train(pp, ref, num_boost_round=3)
+    assert ma._gbdt._shard_plan.num_shards == 4 and not mb._gbdt._dp
+    assert ma.model_to_string() == mb.model_to_string()
 
 
 def test_trainer_sliding_window_caps_dataset(tmp_path):

@@ -19,6 +19,7 @@ f32, the port in f64; the logloss objective's gradients within the CPU
 exp gap (queue C1).
 """
 import ast
+import contextlib
 import dataclasses
 import json
 import os
@@ -44,6 +45,7 @@ from lightgbm_tpu_torch.log import LightGBMError
 from lightgbm_tpu_torch.models.gbdt import padded_bins
 from lightgbm_tpu_torch.ops import hist_kernels as hk
 from lightgbm_tpu_torch.ops.histogram import ACC_ROWS_MAX
+from lightgbm_tpu_torch.parallel.mesh import virtual_devices
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "golden")
@@ -474,8 +476,13 @@ def test_default_device_needs_a_gpu():
 # path); histogram_pool_size trains since A13b: its cases keep their ids,
 # with budgets that pool 3 of the 7 leaves' histograms (lossguide) and
 # cut the 8 columns into lean tiles of 3 (depthwise), held the same way
-# (tests/test_torch_lean.py holds every path); the A21 cases are still
-# refused
+# (tests/test_torch_lean.py holds every path); the tree learners train
+# since A21a: their cases (marked with the virtual device count the port
+# runs them on, "_virtual") keep their ids and hold the port on 8 virtual
+# CPU devices against the reference on its 8 (the quantized data-parallel
+# and voting learners take each shard's own int8 scales and dither in both
+# packages; the feature-parallel one runs unquantized in both); more than
+# one machine is still refused (A21b)
 @pytest.mark.parametrize("extra,item", [
     pytest.param({"forcedbins_filename": "bins.json"}, None,
                  id="extra0-A11"),
@@ -491,13 +498,16 @@ def test_default_device_needs_a_gpu():
                                      1.0]}, None, id="extra6-A12"),
     pytest.param({"cegb_penalty_feature_coupled": [0.5] * 8}, None,
                  id="extra7-A14"),
-    pytest.param({"tree_learner": "feature"}, "A21", id="extra8-A14"),
-    pytest.param({"tree_learner": "voting"}, "A21", id="extra9-A11"),
+    pytest.param({"tree_learner": "feature", "_virtual": 8}, None,
+                 id="extra8-A14"),
+    pytest.param({"tree_learner": "voting", "top_k": 4, "_virtual": 8},
+                 None, id="extra9-A11"),
     pytest.param({"histogram_pool_size": 0.014}, None, id="extra10-A13b"),
-    pytest.param({"tree_learner": "data"}, "A21", id="extra11-A21"),
+    pytest.param({"tree_learner": "data", "_virtual": 8}, None,
+                 id="extra11-A21"),
     pytest.param({"monotone_constraints": [-1, 0, 0, 0, 0, 0, 0, 0],
                   "grow_policy": "lossguide"}, None, id="extra12-A12"),
-    pytest.param({"num_machines": 2}, "A21", id="extra13-A11"),
+    pytest.param({"num_machines": 2}, "A21b", id="extra13-A11"),
     pytest.param({"forcedsplits_filename": "forced.json"}, None,
                  id="extra14-A12"),
 ])
@@ -505,6 +515,7 @@ def test_out_of_slice_settings_raise(extra, item, tmp_path):
     X, yb, _ = _data()
     p = dict(PALLAS_PARAMS, objective="binary", **CPU)
     p.update(extra)
+    n_virtual = p.pop("_virtual", 0)
     if item is not None:
         with pytest.raises(NotImplementedError, match=item):
             lt.train(p, lt.Dataset(X, label=yb, params=p), num_boost_round=1)
@@ -521,7 +532,13 @@ def test_out_of_slice_settings_raise(extra, item, tmp_path):
             p[key] = str(fn)
     ref_p = {k: v for k, v in p.items() if k != "device_type"}
     ref = lgb.train(ref_p, lgb.Dataset(X, label=yb, params=ref_p), 2)
-    port = lt.train(p, lt.Dataset(X, label=yb, params=p), 2)
+    with (virtual_devices(n_virtual, "cpu") if n_virtual
+          else contextlib.nullcontext()):
+        port = lt.train(p, lt.Dataset(X, label=yb, params=p), 2)
+    if n_virtual:
+        gb = port._gbdt
+        assert gb._fp if extra["tree_learner"] == "feature" else (
+            gb._dp and gb._shard_plan.num_shards == n_virtual)
     rt, ptr = _trees(ref, port)
     assert len(rt) == len(ptr) == 2
     for name in STRUCT:
