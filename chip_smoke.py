@@ -275,7 +275,18 @@ measured):
    at max_bin=255 through B5, B6, B7 at up to 254 slots), the 2-D mesh,
    the mesh faults (a retried hist_allreduce, device_put_oom's reshard and
    fallback_single rungs, a kill on 4 shards resumed on 2) and the real
-   device count;
+   device count; then (u) "pod" on (a)'s rows over 2 rank processes
+   (``pod_path``, scripts/torch_pod_worker.py: a torch.distributed
+   group, gloo on one card and NCCL when each rank has its own, each rank
+   reading its half of one .npy on 2 virtual copies of its card, so
+   (t)'s 4-shard grid): (t1)'s lattice model (B8, B6, B4 a rank) with the
+   merged-sketch mappers equal to serial bins and the model byte for byte
+   (t1)'s, one cross-rank sum at S 127 timed, the fused binary path (B1-B4)
+   with the valid AUC within 1e-4 of (t2)'s 4 shards, voting at
+   max_bin=255 (B5, B6, B7, B4), a rank at another learning_rate failing
+   the consistency fence on both ranks, and both ranks killed at
+   iteration 2 and rank 0's snapshots resumed in this process, byte for
+   byte (t1);
 5. agreement, at max_bin=63 and at 255 (the 4000-row table has more than
    128 bins a feature, so the unfused path, which is asserted): the first
    tree of a 4000-row L2 model trained on the card has the structure of
@@ -2243,11 +2254,9 @@ def mesh_path(X, y, launches_all, card: str,
         if cuda:
             torch.cuda.synchronize()
 
-    def lattice_fobj(preds, ds):
-        """Integer gradients in {-1, 0, 1}, hessian 0.25."""
-        g = np.clip(np.round(np.asarray(preds, np.float64) * 2.0)
-                    - (2.0 * ds.get_label() - 1.0), -1.0, 1.0)
-        return g.astype(np.float32), np.full(g.shape, 0.25, np.float32)
+    # integer gradients in {-1, 0, 1}, hessian 0.25; (u)'s ranks take the
+    # same function
+    lattice_fobj = pod_worker().int_fobj
 
     def head(bst, num_iteration=None):
         """The model text without its parameter echo."""
@@ -2377,6 +2386,13 @@ def mesh_path(X, y, launches_all, card: str,
               f"{k} shards {aucs[1]:.6f}; card: {card}")
         if abs(aucs[0] - aucs[1]) > 0.002:
             fail(f"(t2): 4-shard valid AUC {aucs[1]} vs serial {aucs[0]}")
+        MESH_REF.update(
+            t1_head=head(shard1), serial_head=head(serial1), ds4=ds4,
+            mappers63=pod_worker().mapper_digest(ds1.mappers),
+            t2_auc4=aucs[1], t2_level_bytes=level_bytes2,
+            t2_sum_ms=sum_ms, lattice=lattice, quant_bin=quant_bin,
+            s_per_iter={"t1_serial": t_s1 / 3, "t1_4_shards": t_k1 / 3,
+                        "t2_serial": t_s2 / 5, "t2_4_shards": t_k2 / 5})
         del Xv, yv
         # a 4,000-row 4-shard model: the card and the CPU byte for byte
         ys = (np.round(y[:4000] * 2.0 + X[:4000, 0] * 2.0) / 8.0).astype(
@@ -2499,6 +2515,7 @@ def mesh_path(X, y, launches_all, card: str,
         del vote, vote5
         ds255, sec["construct_255_s"] = construct({**quant_bin, "max_bin": 255,
                                                    "num_shards": k})
+        MESH_REF["mappers255"] = pod_worker().mapper_digest(ds255.mappers)
         widths.clear()
         Hmod.hist_routed = routed
         hk.hist_q8 = b5_wide
@@ -2516,6 +2533,7 @@ def mesh_path(X, y, launches_all, card: str,
         for nm, w_ in (("hist_routed_fused", w5), ("hist_q8", max(widths))):
             if w_ > 128 and nm not in wide:
                 fail(f"(t4): {nm}'s {w_}-slot pass was not checked")
+        MESH_REF["t4_255_s_per_iter"] = t_v255 / 2
         print(f"{tag} (t4') voting top_k=5 at max_bin=255 (F * B = 7168, the "
               f"unfused front), 2 iterations: widest pass {max(widths)} "
               f"slots (B5 after B6); B2 and B5 equal their plain versions "
@@ -2617,6 +2635,232 @@ def mesh_path(X, y, launches_all, card: str,
               "device, the distinct-card path (each shard on its own card, "
               "the sums' copies between them) not run")
     del ds1, ds4, serial1, shard1, serial2, shard2, fp
+    shutil.rmtree(work)
+    if cuda:
+        torch.cuda.empty_cache()
+    sec["total_s"] = time.perf_counter() - t_path
+    return sec
+
+
+# (t)'s models, digests, Dataset and times, which (u) holds its ranks to
+MESH_REF = {}
+POD_RANKS = 2
+POD_RANK_TIMEOUT_S = 300
+
+
+def pod_worker():
+    """scripts/torch_pod_worker.py as a module (its objectives and
+    digests)."""
+    scripts = os.path.join(HERE, "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    import torch_pod_worker
+    return torch_pod_worker
+
+
+def pod_path(X, y, launches_all, card: str,
+             device_type: str = "cuda") -> dict:
+    """(u) "pod": (a)'s rows over POD_RANKS rank processes
+    (scripts/torch_pod_worker.py, a torch.distributed group: both ranks on
+    the one card over gloo, or rank r on card r over NCCL when there are
+    as many cards), each reading only its contiguous half of the rows from
+    one .npy file (multihost.load_file_shard) and holding 2 virtual copies
+    of its card, so the grid is (t)'s 4 shards. In one pair of processes:
+
+    (u1) (t1)'s lattice objective, unquantized, 3 iterations (B8, B6, B4
+    on each rank's 2 shards): the merged-sketch mappers equal serial
+    find_bin_mappers over all rows ((t)'s serial Dataset), and both ranks'
+    model texts are (t1)'s 4-shard and serial models byte for byte; then
+    one cross-rank sum of a level's histograms at S 127 timed; (u2) the
+    fused binary path, 5 iterations (B1-B4): the ranks agree and the valid
+    AUC on (t2)'s 500,000 rows is within 1e-4 of (t2)'s 4-shard run (the
+    cross-rank sum's order, ROADMAP C16); (u3) tree_learner=voting, top_k
+    5 at max_bin=255, 2 iterations (B5, B6, B7, B4): the ranks agree; (u5)
+    rank 1 at another learning_rate: the consistency fence raises on both
+    ranks naming config.learning_rate, no kernel launched; (u4) (u1) with
+    a snapshot an iteration, both ranks killed at iteration 2 (exit 17):
+    rank 0's snapshots resumed in this process on 4 virtual shards give
+    (t1)'s model byte for byte. Launches are counted a rank and added to
+    the run's. Returns its seconds by part."""
+    import shutil
+    import socket
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import hist_kernels as hk
+    from lightgbm_tpu_torch.parallel.mesh import virtual_devices
+
+    tag = "[pod (u), 2 processes x 2 virtual shards]"
+    w = pod_worker()
+    cuda = device_type == "cuda"
+    dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    work = os.path.join(OUT_DIR, "pod_path")
+    if os.path.isdir(work):
+        shutil.rmtree(work)
+    os.makedirs(os.path.join(work, "valid"))
+    sec = {}
+    t_path = time.perf_counter()
+    np.save(os.path.join(work, "X.npy"), X)
+    np.save(os.path.join(work, "y.npy"), y)
+    Xv, yv = synth_higgs(N_VALID, F, seed=1)
+    np.save(os.path.join(work, "valid", "X.npy"), Xv)
+    np.save(os.path.join(work, "valid", "y.npy"), yv)
+    del Xv, yv
+    sec["write_rows_s"] = time.perf_counter() - t_path
+    lattice = {**MESH_REF["lattice"], "num_shards": 4}
+    quant = {**MESH_REF["quant_bin"], "num_shards": 4}
+    snaps = os.path.join(work, "snaps")
+    jobs = [
+        {"name": "u1", "data": work, "params": lattice, "rounds": 3,
+         "fobj": "int"},
+        {"name": "probe", "probe_shape": [L // 2, 3, F, B], "reps": 5},
+        {"name": "u2", "data": work, "params": quant, "rounds": 5,
+         "valid": os.path.join(work, "valid")},
+        {"name": "u3", "data": work, "rounds": 2,
+         "params": {**quant, "max_bin": 255, "tree_learner": "voting",
+                    "top_k": 5}},
+        {"name": "u5", "data": work, "params": lattice, "rounds": 3,
+         "fobj": "int", "rank_params": {"1": {"learning_rate": 0.2}},
+         "expect_error": "config.learning_rate"},
+        {"name": "u4", "data": work, "rounds": 3, "fobj": "int",
+         "params": {**lattice, "snapshot_freq": 1, "snapshot_dir": snaps},
+         "faults": "tree_update@2"}]
+    with socket.socket() as so:
+        so.bind(("127.0.0.1", 0))
+        port = so.getsockname()[1]
+    spec = os.path.join(work, "spec.json")
+    with open(spec, "w") as fh:
+        json.dump({"world": POD_RANKS, "port": port, "devices": 2,
+                   "device_type": device_type, "out": work, "jobs": jobs},
+                  fh)
+    threads = str(max(1, (os.cpu_count() or 2) // POD_RANKS))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "scripts",
+                                      "torch_pod_worker.py"), spec],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=dict(os.environ, RANK=str(r),
+                            OMP_NUM_THREADS=threads))
+        for r in range(POD_RANKS)]
+    outs = []
+    try:
+        for q in procs:
+            outs.append(q.communicate(timeout=POD_RANK_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        for q in procs:
+            q.kill()
+            q.communicate()
+        fail(f"(u): a rank ran past {POD_RANK_TIMEOUT_S} s")
+    sec["ranks_s"] = time.perf_counter() - t0
+    with open(os.path.join(work, "ranks.log"), "w") as fh:
+        fh.write("\n\n".join(outs))
+    for r, (q, o) in enumerate(zip(procs, outs)):
+        if q.returncode != 17 or f"POD_KILLED rank={r}" not in o:
+            fail(f"(u): rank {r} exited {q.returncode} (17 expected after "
+                 f"(u4)'s kill):\n{o[-3000:]}")
+    res = [{j["name"]: j for j in (json.loads(ln[11:])
+                                   for ln in o.splitlines()
+                                   if ln.startswith("POD_RESULT "))}
+           for o in outs]
+    for r, got in enumerate(res):
+        if sorted(got) != sorted(j["name"] for j in jobs[:-1]):
+            fail(f"(u): rank {r} reported {sorted(got)}")
+    backend = res[0]["u1"]["backend"]
+    if backend != ("nccl" if cuda and torch.cuda.device_count()
+                   >= POD_RANKS else "gloo"):
+        fail(f"(u): backend {backend} with {torch.cuda.device_count()} "
+             "card(s)")
+
+    def passes(j):
+        return sum(j["passes"])
+
+    expect = {
+        "u1": lambda j: dict(hist_f32=2 * (3 + passes(j)),
+                             route_level=2 * passes(j), take_small=2 * 3),
+        "u2": lambda j: dict(grad_quant_hist0=2 * 5,
+                             hist_routed_fused=2 * passes(j),
+                             leaf_sums_grad=2 * 5, take_small=2 * 5),
+        "u3": lambda j: dict(hist_q8=2 * (2 + passes(j)),
+                             route_level=2 * passes(j), leaf_sums=2 * 2,
+                             take_small=2 * 2)}
+    for name, want_of in expect.items():
+        js = [got[name] for got in res]
+        if len({j["tree"] for j in js}) != 1 or not all(
+                j["ranks_agree"] for j in js):
+            fail(f"({name}): the ranks' models differ")
+        for r, j in enumerate(js):
+            want = {n: 0 for n in hk.KERNELS}
+            want.update(want_of(j))
+            if cuda and j["launches"] != want:
+                fail(f"({name}) rank {r}: launches {j['launches']} != "
+                     f"expected {want}")
+            for n, v in j["launches"].items():
+                launches_all[n] += v
+    u1, u2, u3 = (res[0][n] for n in ("u1", "u2", "u3"))
+    if u1["mappers"] != MESH_REF["mappers63"] or \
+            u3["mappers"] != MESH_REF["mappers255"]:
+        fail("(u1)/(u3): the merged-sketch mappers differ from serial "
+             "find_bin_mappers over all rows")
+    t1_digest = w.tree_digest(MESH_REF["t1_head"])
+    if u1["tree"] != t1_digest or \
+            w.tree_digest(MESH_REF["serial_head"]) != t1_digest:
+        fail("(u1): the ranks' model differs from (t1)'s 4-shard and "
+             "serial models")
+    if abs(u2["valid_auc"] - MESH_REF["t2_auc4"]) > 1e-4:
+        fail(f"(u2): valid AUC {u2['valid_auc']} vs (t2)'s 4 shards "
+             f"{MESH_REF['t2_auc4']}")
+    for r, got in enumerate(res):
+        e = got["u5"]
+        if "config.learning_rate" not in e.get("error", "") or \
+                any(e["launches"].values()):
+            fail(f"(u5) rank {r}: {e.get('error')!r}, launches "
+                 f"{e['launches']}")
+    probe = [got["probe"]["probe_ms"] for got in res]
+    sec["probe_ms_s127"] = statistics.median(probe[0])
+    t = time.perf_counter()
+    with virtual_devices(4, dev):
+        resumed = lt.train({**lattice, "device_type": device_type,
+                            "snapshot_dir": snaps}, MESH_REF["ds4"], 3,
+                           fobj=w.int_fobj, resume_from_snapshot=snaps)
+    sec["u4_resume_s"] = time.perf_counter() - t
+    if resumed._gbdt._shard_plan.num_shards != 4 or w.tree_digest(
+            resumed.model_to_string()) != t1_digest:
+        fail("(u4): the resumed model differs from (t1)'s")
+    x = u2["allreduce"]
+    lvl = x["x_hist_bytes"] / max(1, x["x_hist_calls"])
+    ref_s = MESH_REF["s_per_iter"]
+    print(f"{tag} backend {backend} ({'card' if cuda else 'CPU'} "
+          f"{[got['u1']['card'] for got in res]}); s/iteration a rank: "
+          f"(u1) {[round(got['u1']['s_per_iter'], 4) for got in res]} vs "
+          f"(t1) 4 shards {ref_s['t1_4_shards']:.4f}, serial "
+          f"{ref_s['t1_serial']:.4f}; (u2) "
+          f"{[round(got['u2']['s_per_iter'], 4) for got in res]} vs (t2) "
+          f"4 shards {ref_s['t2_4_shards']:.4f}, serial "
+          f"{ref_s['t2_serial']:.4f}; (u3) "
+          f"{[round(got['u3']['s_per_iter'], 4) for got in res]} vs "
+          f"(t4') {MESH_REF['t4_255_s_per_iter']:.4f}; card: {card}")
+    print(f"{tag} cross-rank sums: (u2) {x['x_hist_calls']} histogram sums"
+          f" of {lvl:.0f} bytes a level a rank ({x['x_calls']} sums, "
+          f"{x['x_bytes']} bytes in all), host copies {u2['xfer']}; one "
+          f"cross-rank sum of [{L // 2}, 3, {F}, {B}] f32 "
+          f"({res[0]['probe']['probe_bytes']} bytes) over {backend}: "
+          f"{probe} ms a rank (median {sec['probe_ms_s127']:.3f}); (t2)'s "
+          f"in-process 4-shard sum at S 127 {MESH_REF['t2_sum_ms']} ms")
+    for name in ("u1", "u2", "u3"):
+        used = [{n: v for n, v in got[name]["launches"].items() if v}
+                for got in res]
+        cons = [round(got[name]["construct_s"], 3) for got in res]
+        print(f"{tag} ({name}) launches a rank {used}; construct s {cons}, "
+              f"phases rank 0 {json.dumps(res[0][name]['phases'])}")
+    print(f"{tag} (u1) mappers = serial find_bin_mappers over all {len(X)} "
+          f"rows, model byte for byte (t1)'s 4-shard and serial; (u2) "
+          f"valid AUC {u2['valid_auc']:.6f} vs (t2) 4 shards "
+          f"{MESH_REF['t2_auc4']:.6f}; (u3) ranks agree; (u5) the fence "
+          f"raised on both ranks: {res[0]['u5']['error'].splitlines()[-1]}"
+          f"; (u4) killed at iteration 2, rank 0's snapshots resumed on "
+          f"4 virtual shards in one process: byte for byte (t1); ranks "
+          f"{sec['ranks_s']:.1f} s, path {time.perf_counter() - t_path:.1f}"
+          " s")
+    MESH_REF.clear()
     shutil.rmtree(work)
     if cuda:
         torch.cuda.empty_cache()
@@ -5188,6 +5432,9 @@ def main() -> int:
     t0 = time.perf_counter()
     slice_ms["mesh"] = mesh_path(X, y, launches_all, card)
     print(f"path (t) mesh: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    slice_ms["pod"] = pod_path(X, y, launches_all, card)
+    print(f"path (u) pod: {time.perf_counter() - t0:.1f} s")
     for f_ in _SAVED_ROWS.values():
         os.remove(f_)
     for nm in kernels:

@@ -77,9 +77,13 @@ def _load_dataset(path: str, conf: Config, params: Dict, reference=None,
                   initscore_path: str = "") -> Dataset:
     """A data file as a Dataset: its ``.bin`` cache (``Dataset.save_binary``)
     when there is one, else the parsed text; ``save_binary`` writes the
-    cache."""
+    cache. With ``num_machines > 1`` and no ``pre_partition`` every rank
+    parses the file and keeps its round-robin rows (reference:
+    app.py:74, :95-125), and there is no cache: the ranks would race to
+    write their own rows to one path."""
+    use_bin_cache = not (conf.num_machines > 1 and not conf.pre_partition)
     bin_path = path if path.endswith(".bin") else path + ".bin"
-    if os.path.exists(bin_path) and reference is None:
+    if use_bin_cache and os.path.exists(bin_path) and reference is None:
         try:
             ds = Dataset.load_binary(bin_path, params=params)
             log.info(f"Loaded binned dataset from {bin_path}")
@@ -97,14 +101,41 @@ def _load_dataset(path: str, conf: Config, params: Dict, reference=None,
                    ignore_column=conf.ignore_column,
                    num_features_hint=num_features_hint,
                    two_round=conf.two_round)
-    init = pf.init_score
+    X, label, weight, init = pf.X, pf.label, pf.weight, pf.init_score
     if initscore_path:
         init = _load_initscore(initscore_path)
-    ds = Dataset(pf.X, label=pf.label, weight=pf.weight, group=pf.group,
+    if conf.num_machines > 1 and not conf.pre_partition and \
+            reference is None:
+        if pf.group is not None:
+            # the whole file on every rank would count each row
+            # num_machines times in the cross-rank sums, and round-robin
+            # rows cannot keep a query whole
+            log.fatal("num_machines > 1 with query/group data: automatic "
+                      "round-robin row sharding cannot split whole "
+                      "queries. Pre-partition the data by query and set "
+                      "pre_partition=true")
+        from .parallel.dist_data import round_robin_rows
+        from .parallel.mesh import init_distributed
+        from .parallel.multihost import process_count, process_index
+        init_distributed(conf)
+        if process_count() > 1:
+            keep = round_robin_rows(X.shape[0], process_index(),
+                                    process_count())
+            X = X[keep]
+            label, weight, init = (None if v is None else v[keep]
+                                   for v in (label, weight, init))
+            log.info(f"rank {process_index()}: kept {len(keep)} of "
+                     f"{pf.X.shape[0]} rows (round-robin)")
+    ds = Dataset(X, label=label, weight=weight, group=pf.group,
                  init_score=init, reference=reference, params=params,
                  feature_name=pf.feature_names or "auto")
     if conf.save_binary and reference is None:
-        ds.save_binary(bin_path)
+        if use_bin_cache:
+            ds.save_binary(bin_path)
+        else:
+            log.warning("save_binary is ignored for auto-partitioned "
+                        "distributed loading (ranks hold different rows); "
+                        "use pre_partition=true with per-rank files")
     return ds
 
 

@@ -193,6 +193,9 @@ class Dataset:
         # one shard) and the shards' [rows_per_shard, F] bin blocks, each on
         # its shard's device, the padding rows zero
         self.shard_plan = None
+        # a train set over several processes: (its first row among every
+        # process's rows, the rows of all), else None
+        self._pod_rows_of: Optional[Tuple[int, int]] = None
         self.shard_bins: Optional[List[torch.Tensor]] = None
         self._shard_bins_T: Optional[List[torch.Tensor]] = None
         self.label: Optional[torch.Tensor] = None
@@ -299,6 +302,15 @@ class Dataset:
     def _construct_inner(self) -> "Dataset":
         conf = params_to_config(self.params)
         check_slice(conf)
+        # a train set over several processes holds this process's rows
+        # only (reference: basic.py:259-268, :295-395); the group starts
+        # first, since it picks this process's card
+        pod = False
+        if conf.num_machines > 1 and self.reference is None:
+            from .parallel.mesh import init_distributed
+            from .parallel.multihost import process_count
+            init_distributed(conf)
+            pod = process_count() > 1
         self.device = resolve_device(conf)
         phases = self.construct_phases = {}
         t_last = time.perf_counter()
@@ -312,6 +324,15 @@ class Dataset:
             t_last = now
 
         sparse = _is_sparse(self.raw_data)
+        if pod and sparse:
+            # bins found from one process's stored values would differ
+            # from the others' and corrupt the cross-rank sums
+            raise LightGBMError("scipy-sparse input is not supported with "
+                                "num_machines > 1; densify it")
+        if pod and self.group is not None:
+            raise LightGBMError("query groups are not supported with "
+                                "num_machines > 1: a query cannot span "
+                                "processes")
         if self.reference is not None:
             ref = self.reference.construct()
             if ref.device != self.device:
@@ -343,8 +364,8 @@ class Dataset:
                 with open(conf.forcedbins_filename) as fh:
                     forced_bins = {int(e["feature"]): e["bin_upper_bound"]
                                    for e in json.load(fh)}
-            mappers = find(
-                raw, max_bin=conf.max_bin, min_data_in_bin=conf.min_data_in_bin,
+            bin_kw = dict(
+                max_bin=conf.max_bin, min_data_in_bin=conf.min_data_in_bin,
                 sample_cnt=conf.bin_construct_sample_cnt,
                 use_missing=conf.use_missing,
                 zero_as_missing=conf.zero_as_missing,
@@ -353,6 +374,10 @@ class Dataset:
                 categorical=self._resolve_categorical(conf, raw.shape[1],
                                                       columns),
                 forced_bins=forced_bins)
+            if pod:
+                mappers = self._pod_rows(conf, raw, bin_kw, mark)
+            else:
+                mappers = find(raw, **bin_kw)
             used = used_features(mappers)
             self.mappers = [mappers[j] for j in used]
             self.feature_map = np.asarray(used, dtype=np.int32)
@@ -369,6 +394,9 @@ class Dataset:
             # ingest, so that the chunk routing, the prewarm and the trainer
             # agree on one grid (reference: basic.py:351-373)
             self._plan_shards(conf, raw.shape[0])
+            if pod:
+                self._pod_plan_check(conf, raw.shape[0])
+                mark("rows_allgather_s")
             if not sparse:
                 # the mappers and the plan fix the kernel path: load and
                 # warm the kernels while the bulk ingest below runs
@@ -376,6 +404,9 @@ class Dataset:
                 self._prewarm = prewarm.maybe_start(conf, self)
         self._encode(raw, sparse, conf, phases)
         mark("stream_s")
+        if pod:
+            # the trainer's row-length state is every process's rows
+            self.num_data = self.shard_plan.n_global
         self._derive_meta()
         for what, arr in (("label", self.label_np),
                           ("weight", self.weight_np)):
@@ -419,7 +450,19 @@ class Dataset:
         mc = list(conf.monotone_constraints or [])
         exclude = [u for u, orig in enumerate(self.feature_map)
                    if int(orig) < len(mc) and mc[int(orig)] != 0]
-        idx = efb.plan_sample_index(raw.shape[0], conf.data_random_seed)
+        pod = self._pod_rows_of is not None
+        if pod:
+            # the one-process draw over every process's rows, kept where
+            # it falls in this process's rows; the counts are summed over
+            # the ranks, so every rank plans the one-process plan
+            # (reference: basic.py:319-333, :486-499)
+            from .parallel.multihost import wire_allgather
+            row0, n_global = self._pod_rows_of
+            idx = efb.plan_sample_index(n_global, conf.data_random_seed)
+            idx = (np.arange(raw.shape[0]) if idx is None else
+                   idx[(idx >= row0) & (idx < row0 + raw.shape[0])] - row0)
+        else:
+            idx = efb.plan_sample_index(raw.shape[0], conf.data_random_seed)
         if sparse:
             sample = raw if idx is None else raw[idx].tocsc()
             sample_bins = np.empty((sample.shape[0], len(self.mappers)),
@@ -436,16 +479,90 @@ class Dataset:
             sample_bins, self.mappers,
             max_conflict_rate=conf.max_conflict_rate,
             sparse_threshold=conf.sparse_threshold,
-            sample_cnt=sample_bins.shape[0], seed=conf.data_random_seed,
-            exclude=exclude)
+            sample_cnt=max(1, sample_bins.shape[0]),
+            seed=conf.data_random_seed, exclude=exclude,
+            reduce_fn=(None if not pod else lambda a: np.sum(
+                wire_allgather(np.ascontiguousarray(a), uniform=True),
+                axis=0)))
+
+    def _pod_rows(self, conf: Config, raw, bin_kw: Dict[str, Any],
+                  mark) -> List[BinMapper]:
+        """This process's place among the processes' rows (a row-count
+        gather) and the merged-sketch mappers, the same on every rank and
+        bit for bit those of the rows concatenated (reference:
+        basic.py:300-316). Sets ``_pod_rows_of`` = (row0, rows of all)."""
+        from .parallel import multihost
+        p = multihost.process_index()
+        counts = multihost.allgather_rows(
+            np.array([raw.shape[0]], np.int64), multihost.process_count(),
+            p, retries=conf.network_retries,
+            name="row-count allgather").reshape(-1)
+        self._pod_rows_of = (int(counts[:p].sum()), int(counts.sum()))
+        mark("row_count_allgather_s")
+        return multihost.find_bin_mappers_pod(
+            raw, self._pod_rows_of[1], self._pod_rows_of[0],
+            retries=conf.network_retries, phases=self.construct_phases,
+            **bin_kw)
+
+    def _pod_plan_check(self, conf: Config, n_local: int) -> None:
+        """The process-spanning grid checked against this process's rows
+        (``verify_pod_plan``, ``host_row_range``), then the labels,
+        weights and init scores of every process gathered (reference:
+        basic.py:375-395)."""
+        from .parallel import multihost
+        plan = self.shard_plan
+        multihost.verify_pod_plan(plan)
+        row0, n_global = self._pod_rows_of
+        lo, hi = multihost.host_row_range(plan)
+        if (lo, hi) != (row0, row0 + n_local):
+            raise LightGBMError(
+                f"multi-process row split mismatch: this process holds "
+                f"rows [{row0}, {row0 + n_local}) but the shard plan "
+                f"assigns [{lo}, {hi}); load each process's rows with "
+                "parallel.multihost.host_row_range / load_file_shard")
+        for attr in ("label_np", "weight_np", "init_score_np"):
+            v = getattr(self, attr)
+            if v is not None:
+                setattr(self, attr, multihost.allgather_rows(
+                    np.asarray(v, np.float32).reshape(n_local, -1),
+                    n_global, row0, retries=conf.network_retries,
+                    name=f"{attr[:-3]} allgather").reshape(
+                        (-1,) + np.shape(v)[1:]))
+
+    def _refuse_pod(self, what: str) -> None:
+        """A train set over several processes holds this process's bins
+        and every process's labels: a row-wise operation on it would mix
+        them."""
+        if self._pod_rows_of is not None:
+            raise LightGBMError(f"{what} is not supported on a Dataset "
+                                "spanning processes (num_machines > 1)")
 
     def _plan_shards(self, conf: Config, n_rows: int) -> None:
         """The row-shard plan of ``num_shards`` and ``feature_shards``
-        (``parallel/mesh.py``), or None on one shard."""
-        from .parallel.mesh import (plan_row_sharding,
+        (``parallel/mesh.py``), or None on one shard. Across processes
+        ``num_shards`` counts the grid's shards (0: every process's local
+        devices) and the plan is this process's block of it."""
+        from .parallel.mesh import (device_count, plan_row_sharding,
                                     resolve_feature_shards,
                                     resolve_num_shards)
         kind = self.device.type
+        if self._pod_rows_of is not None:
+            from .parallel import multihost
+            nproc = multihost.process_count()
+            fs_req = int(conf.feature_shards or 0)
+            ns = int(conf.num_shards or 0) or nproc * max(
+                1, device_count(kind) // max(1, fs_req))
+            fs = resolve_feature_shards(fs_req, len(self.column_bins()[0]),
+                                        ns // nproc, kind)
+            self.shard_plan = multihost.plan_pod_sharding(
+                self._pod_rows_of[1], ns, multihost.process_index(), nproc,
+                axis_name=conf.mesh_axis, feature_shards=fs, kind=kind)
+            p = self.shard_plan
+            info(f"process-spanning ingest: shards [{p.shard0}, "
+                 f"{p.shard0 + p.num_shards}) of {p.global_shards} x "
+                 f"{p.rows_per_shard} rows, rows [{p.row0}, "
+                 f"{p.row0 + p.n_rows}) of {p.global_rows}")
+            return
         ns = resolve_num_shards(int(conf.num_shards or 0), kind)
         fs = resolve_feature_shards(int(conf.feature_shards or 0),
                                     len(self.column_bins()[0]), ns, kind)
@@ -549,6 +666,7 @@ class Dataset:
         Query groups survive when the rows cover whole queries in order;
         otherwise they are dropped with a warning."""
         self.construct()
+        self._refuse_pod("subset")
         idx = np.asarray(used_indices, dtype=np.int64).reshape(-1)
         ds = self._constructed_like(params)
         ds.reference = self
@@ -663,6 +781,7 @@ class Dataset:
         from .ingest import last_stats, stream_with_recovery
         from .utils import faults
         self.construct()
+        self._refuse_pod("append")
         if _is_sparse(data):
             raise LightGBMError("Dataset.append does not support sparse "
                                 "input; densify the appended rows")
@@ -793,6 +912,7 @@ class Dataset:
         feature map, names, parameters and plan members. Nothing in it is
         pickled."""
         self.construct()
+        self._refuse_pod("save_binary")
         arrays = {"bins": self.bins.cpu().numpy()}
         for name in ("label_np", "weight_np", "group", "init_score_np"):
             val = getattr(self, name)

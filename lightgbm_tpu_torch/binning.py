@@ -7,7 +7,10 @@ categorical mappers with count-ordered category bins, :323-370),
 ``categorical`` columns of :543) and ``bin_data``, and for CSC input
 ``find_bin_mappers_sparse`` (:598; only stored values are sampled, the
 rest of the sample counts as zeros), ``bin_sparse_column`` (:644) and
-``bin_data_sparse`` (:657; an absent entry takes the bin of 0.0); the
+``bin_data_sparse`` (:657; an absent entry takes the bin of 0.0), the
+exact mergeable sketches of the process-spanning bin finding
+(``FeatureSketch``, ``sketch_feature``, ``merge_sketches``,
+``BinMapper.from_sketch``; :134, :421-520); the
 forced bin bounds of ``forcedbins_filename`` (``forced_bins``: a
 feature's bounds used verbatim, at most max_bin - 1 of them, then +inf;
 :234-239, :552-573, :607-639). Bin
@@ -117,6 +120,52 @@ class BinMapper:
             allv = nonzero if zero_cnt == 0 else np.append(nonzero, 0.0)
             m.min_value = float(allv.min())
             m.max_value = float(allv.max())
+        return m
+
+    @staticmethod
+    def from_sketch(sketch: "FeatureSketch", max_bin: int,
+                    min_data_in_bin: int = 3, use_missing: bool = True,
+                    zero_as_missing: bool = False,
+                    forced_bounds: Optional[Sequence[float]] = None
+                    ) -> "BinMapper":
+        """Bins from a (possibly merged) ``FeatureSketch`` (reference:
+        :134): ``from_sample(values)`` equals
+        ``from_sketch(sketch_feature(values))`` bit for bit, and a merge of
+        per-process sketches changes nothing, since a sketch is exact."""
+        if sketch.bin_type == BIN_CATEGORICAL:
+            return BinMapper._categorical_from_weighted(
+                sketch.distinct, sketch.counts, max_bin, min_data_in_bin,
+                use_missing)
+        na_cnt = int(sketch.na_cnt)
+        zero_cnt = int(sketch.zero_cnt)
+        if zero_as_missing:
+            missing_type = MISSING_ZERO
+        elif use_missing and na_cnt > 0:
+            missing_type = MISSING_NAN
+        else:
+            missing_type = MISSING_NONE
+            zero_cnt += na_cnt
+        distinct = np.asarray(sketch.distinct, dtype=np.float64)
+        counts = np.asarray(sketch.counts, dtype=np.int64)
+        n_avail = max_bin - (1 if missing_type == MISSING_NAN else 0)
+        bounds = _find_weighted_bounds(distinct, counts, zero_cnt, n_avail,
+                                       min_data_in_bin, forced_bounds)
+        num_bins = len(bounds)
+        if missing_type == MISSING_NAN:
+            bounds = np.append(bounds, np.nan)
+            num_bins += 1
+        m = BinMapper(num_bins=num_bins, missing_type=missing_type,
+                      upper_bounds=bounds)
+        m.default_bin = int(m.values_to_bins(np.array([0.0]))[0])
+        m.is_trivial = num_bins <= 1
+        m.sparse_rate = zero_cnt / max(1, sketch.total_cnt)
+        m.most_freq_bin = m.default_bin if m.sparse_rate >= 0.5 else 0
+        if len(distinct) or zero_cnt:
+            lo = float(distinct[0]) if len(distinct) else 0.0
+            hi = float(distinct[-1]) if len(distinct) else 0.0
+            if zero_cnt:
+                lo, hi = min(lo, 0.0), max(hi, 0.0)
+            m.min_value, m.max_value = lo, hi
         return m
 
     @staticmethod
@@ -324,6 +373,73 @@ def _fix_zero_boundary(bounds: np.ndarray, distinct: np.ndarray) -> np.ndarray:
         bounds = np.unique(np.concatenate([bounds, add]))
         bounds = bounds[~(np.abs(bounds) < K_ZERO_THRESHOLD)]
     return bounds
+
+
+@dataclass
+class FeatureSketch:
+    """Exact mergeable sketch of one feature over one process's sample
+    (reference: :421): the sorted distinct nonzero values with their
+    multiplicities and the zero, NaN and row tallies. A categorical
+    sketch holds the categories (implicit zeros included) as f64 and
+    ``zero_cnt`` 0. A merge is the union of the distinct values with
+    summed counts: commutative and associative, so a merge in any order
+    is the sketch of the concatenated sample."""
+    bin_type: int = BIN_NUMERICAL
+    distinct: np.ndarray = field(
+        default_factory=lambda: np.array([], dtype=np.float64))
+    counts: np.ndarray = field(
+        default_factory=lambda: np.array([], dtype=np.int64))
+    zero_cnt: int = 0
+    na_cnt: int = 0
+    total_cnt: int = 0
+
+
+def sketch_feature(values: np.ndarray, total_cnt: int,
+                   bin_type: int = BIN_NUMERICAL) -> FeatureSketch:
+    """Sketch one feature's sampled values (reference: :447), with
+    ``from_sample``'s conventions: NaN allowed, ``total_cnt >
+    len(values)`` means the rest are implicit zeros."""
+    values = np.asarray(values, dtype=np.float64)
+    implicit_zeros = max(0, total_cnt - len(values))
+    if bin_type == BIN_CATEGORICAL:
+        na_mask = np.isnan(values) | (values < 0)
+        cats = values[~na_mask].astype(np.int64)
+        if implicit_zeros:
+            cats = np.concatenate([cats, np.zeros(implicit_zeros,
+                                                  dtype=np.int64)])
+        distinct, counts = np.unique(cats, return_counts=True)
+        return FeatureSketch(BIN_CATEGORICAL, distinct.astype(np.float64),
+                             counts.astype(np.int64), 0,
+                             int(na_mask.sum()), int(total_cnt))
+    na_cnt = int(np.isnan(values).sum())
+    vals = values[~np.isnan(values)]
+    zero_cnt = implicit_zeros + int((np.abs(vals) < K_ZERO_THRESHOLD).sum())
+    distinct, counts = np.unique(vals[np.abs(vals) >= K_ZERO_THRESHOLD],
+                                 return_counts=True)
+    return FeatureSketch(BIN_NUMERICAL, distinct, counts.astype(np.int64),
+                         int(zero_cnt), na_cnt, int(total_cnt))
+
+
+def merge_sketches(sketches: Sequence[FeatureSketch]) -> FeatureSketch:
+    """Merge the sketches of one feature (reference: :488): the union of
+    the distinct values with summed counts, in any order the same."""
+    sketches = list(sketches)
+    if not sketches:
+        return FeatureSketch()
+    bt = sketches[0].bin_type
+    if any(s.bin_type != bt for s in sketches):
+        raise ValueError("merge_sketches: mixed bin_type sketches")
+    alld = np.concatenate([np.asarray(s.distinct, dtype=np.float64)
+                           for s in sketches])
+    allc = np.concatenate([np.asarray(s.counts, dtype=np.int64)
+                           for s in sketches])
+    distinct, inverse = np.unique(alld, return_inverse=True)
+    counts = np.zeros(len(distinct), dtype=np.int64)
+    np.add.at(counts, np.asarray(inverse).ravel(), allc)
+    return FeatureSketch(bt, distinct, counts,
+                         int(sum(s.zero_cnt for s in sketches)),
+                         int(sum(s.na_cnt for s in sketches)),
+                         int(sum(s.total_cnt for s in sketches)))
 
 
 def check_max_bin_by_feature(max_bin_by_feature, num_features: int,

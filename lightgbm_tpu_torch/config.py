@@ -2,17 +2,17 @@
 
 Port of ``lightgbm_tpu/config.py``: the same flat parameter table with the
 same aliases, ``canonical_name`` and ``params_to_config``, so a parameter
-dict written for the reference parses here to the same values. Two things
-differ: ``device_type`` (alias ``device``) defaults to ``"cuda"``, and
-``check_slice`` refuses, with ``NotImplementedError`` naming the ROADMAP
-item, every setting that would leave the path this package implements:
-what remains outside it is more than one machine (the process-spanning
-mesh, A21b). ``OBJECTIVES`` is the reference's objective
-alias table (``lightgbm_tpu/objectives.py:690-709``). The TPU-only knobs
+dict written for the reference parses here to the same values.
+``device_type`` (alias ``device``) defaults to ``"cuda"``; ``check_slice``
+checks the objective, boosting type and class count. ``OBJECTIVES`` is
+the reference's objective alias table
+(``lightgbm_tpu/objectives.py:690-709``). The TPU-only knobs
 (``histogram_impl``, ``hist_packed``, ...) are accepted and have no
 effect; the mesh knobs (``num_shards``, ``feature_shards``,
-``voting_parallel``, ``mesh_axis``) shape the in-process mesh of
-``parallel/``.
+``voting_parallel``, ``mesh_axis``) shape the mesh of ``parallel/``, and
+the network knobs (``num_machines``, ``machines``,
+``machine_list_filename``, ``local_listen_port``, ``time_out``,
+``network_retries``) its ``torch.distributed`` group.
 """
 from __future__ import annotations
 
@@ -637,11 +637,6 @@ def objective_kind(name) -> str:
     return kind
 
 
-def _out_of_slice(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue {item})")
-
-
 def boosting_kind(name) -> str:
     """The trainer of a configured boosting type; unknown types are fatal,
     as in the reference (basic.py:1025)."""
@@ -652,10 +647,10 @@ def boosting_kind(name) -> str:
 
 
 def check_slice(conf: Config) -> None:
-    """Raise NotImplementedError for any setting outside the ported path,
-    and LightGBMError for a num_class the objective cannot take (LightGBM's
-    config check: multiclass needs num_class > 1, any other objective but
-    a custom one num_class = 1)."""
+    """Raise LightGBMError for an unknown objective or boosting type and
+    for a num_class the objective cannot take (LightGBM's config check:
+    multiclass needs num_class > 1, any other objective but a custom one
+    num_class = 1). Every other setting is on the ported path."""
     kind = objective_kind(conf.objective)
     boosting_kind(conf.boosting)
     if kind in MULTICLASS_OBJECTIVES and conf.num_class <= 1:
@@ -664,7 +659,3 @@ def check_slice(conf: Config) -> None:
     if kind not in MULTICLASS_OBJECTIVES + ("none",) and conf.num_class != 1:
         raise LightGBMError(f"num_class must be 1 for objective="
                             f"{conf.objective!r} (got {conf.num_class})")
-    if conf.num_machines > 1:
-        # the process-spanning mesh (multihost, dist_data, the consistency
-        # fence) over torch.distributed
-        raise _out_of_slice(f"num_machines={conf.num_machines}", "A21b")

@@ -87,7 +87,8 @@ def plan_bundles(bins: np.ndarray, mappers: Sequence[BinMapper],
                  sparse_threshold: float = 0.8,
                  max_bundle_bins: int = MAX_BUNDLE_BINS,
                  sample_cnt: int = PLAN_SAMPLE, seed: int = 0,
-                 exclude: Sequence[int] = ()) -> Optional[BundleMeta]:
+                 exclude: Sequence[int] = (),
+                 reduce_fn=None) -> Optional[BundleMeta]:
     """Greedy conflict-bounded bundling plan over binned rows ``bins``
     [n, F_used] uint8 (reference: plan_bundles, efb.py:63): the candidates
     are numerical features without a missing bin whose most frequent bin
@@ -95,7 +96,11 @@ def plan_bundles(bins: np.ndarray, mappers: Sequence[BinMapper],
     non-default count (ties by index), each joins the first bundle whose
     bins stay under ``max_bundle_bins`` and whose summed pairwise conflicts
     stay within ``max_conflict_rate`` of the sample. None when no bundle
-    has two members. ``exclude``: features kept out of bundles."""
+    has two members. ``exclude``: features kept out of bundles.
+    ``reduce_fn`` sums a count array across the ranks of a
+    multi-process run (every quantity of the greedy is a count), so that
+    each rank plans from the whole sample and all plan alike
+    (reference: efb.py:63-75)."""
     n, f = bins.shape
     rng = np.random.RandomState(seed)
     sample_idx = (np.arange(n) if n <= sample_cnt
@@ -105,6 +110,8 @@ def plan_bundles(bins: np.ndarray, mappers: Sequence[BinMapper],
     counts = np.zeros((f, maxb), dtype=np.int64)
     for j in range(f):
         counts[j] = np.bincount(sub[:, j], minlength=maxb)[:maxb]
+    if reduce_fn is not None:
+        counts = reduce_fn(counts)
     total = float(counts[0].sum()) if f else 0.0
     max_conflicts = max_conflict_rate * total
 
@@ -124,6 +131,8 @@ def plan_bundles(bins: np.ndarray, mappers: Sequence[BinMapper],
         return None
     cj = [j for j, _ in cand]
     conf = _conflicts(sub, cj, default_bin)
+    if reduce_fn is not None:
+        conf = reduce_fn(conf)
     cidx = {j: k for k, j in enumerate(cj)}
 
     # greedy first-fit by non-default count, descending (dataset.cpp:120)

@@ -405,8 +405,9 @@ MAX_RECOVERY_ATTEMPTS = 8
 
 def _grow_plan(plan):
     """The row sharding re-planned over more devices (double, clamped to
-    the device count), or None when it cannot grow."""
-    if plan is None:
+    the device count), or None when it cannot grow (one process cannot
+    re-plan a grid that spans processes)."""
+    if plan is None or plan.process_count > 1:
         return None
     from .parallel.mesh import device_count, plan_row_sharding
     fs = int(plan.feature_shards or 1)
@@ -475,7 +476,8 @@ def stream_with_recovery(raw, mappers, columns, meta, device, *,
                 warning("device fault persists after chunk halving; "
                         f"re-planning row sharding {before} -> "
                         f"{plan.num_shards} shards")
-            elif policy == "fallback_single" and plan is not None:
+            elif (policy == "fallback_single" and plan is not None
+                  and plan.process_count <= 1):
                 plan = None
                 action = "fallback_single"
                 warning("device fault persists after chunk halving; "

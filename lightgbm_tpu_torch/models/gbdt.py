@@ -79,9 +79,11 @@ import torch
 
 from .. import obs, prewarm
 from ..binning import BIN_CATEGORICAL
+from ..objectives import ObjectiveFunction
 from ..config import Config
 from ..log import LightGBMError, fatal, info, warning
 from ..parallel import mesh as M
+from ..parallel import multihost
 from ..parallel.data_parallel import grow_tree_dp
 from ..parallel.feature_parallel import (grow_tree_fp, make_feature_mesh,
                                          pad_mask, shard_features_once)
@@ -368,10 +370,16 @@ def forced_split_arrays(config: Config, train_set, log: bool = True
 
 def tree_delta(tree: TreeArrays, data) -> torch.Tensor:
     """A device tree's leaf value for each row of a Dataset's bins
-    (route_bins, then the take_small kernel)."""
-    return take_small(tree.leaf_value,
-                      route_bins(tree, data.bins, data.na_bin_dev,
-                                 data.routes_by_membership))
+    (route_bins, then the take_small kernel); for a train set over
+    several processes, every process's rows (each process routes its
+    own)."""
+    delta = take_small(tree.leaf_value,
+                       route_bins(tree, data.bins, data.na_bin_dev,
+                                  data.routes_by_membership))
+    plan = getattr(data, "shard_plan", None)
+    if multihost.plan_spans_processes(plan):
+        return multihost.gather_rows_tensor(delta, plan)
+    return delta
 
 
 def _f32(x: float) -> float:
@@ -402,6 +410,15 @@ class GBDT:
         self._obs_trees = None
         self.learning_rate = float(config.learning_rate)
         self.device = train_set.device
+        # across processes: the group, then the fence before the first
+        # collective of training (reference: gbdt.py:276-297)
+        self._pod = multihost.plan_spans_processes(
+            getattr(train_set, "shard_plan", None))
+        if config.num_machines > 1:
+            M.init_distributed(config)
+            if multihost.process_count() > 1:
+                from ..parallel.fence import consistency_fence
+                consistency_fence(config, train_set)
         n = train_set.num_data
         f = train_set.num_features
         B = padded_bins(train_set.max_num_bins)
@@ -409,6 +426,11 @@ class GBDT:
             objective.num_model_per_iteration if objective is not None
             else int(config.num_class))
         spec = self._aux = None
+        # whether the objective renews leaf values from the rows' leaf ids
+        # (the L1 family)
+        self._renews = objective is not None and \
+            type(objective).renew_leaf_values is not \
+            ObjectiveFunction.renew_leaf_values
         if objective is not None:
             objective.init(train_set.label, train_set.weight,
                            train_set.group)
@@ -645,10 +667,12 @@ class GBDT:
                    dict(feature_axis_name=sp.feature_axis,
                         feature_shards=sp.feature_shards))
         self.gp = dataclasses.replace(self.gp, axis_name=sp.axis_name,
-                                      **feat_kw)
+                                      processes=sp.process_count, **feat_kw)
         info(f"data-parallel tree learner over {sp.num_shards} shards "
              f"(axis '{sp.axis_name}', "
-             f"{'mesh-native' if plan is not None else 'resharded'})")
+             f"{'mesh-native' if plan is not None else 'resharded'}"
+             + (f", {sp.process_count} processes, {sp.shards_global} "
+                "shards in all)" if self._pod else ")"))
         if plan is not None:
             # fail before step 0 on a dead device or a stale plan
             from ..parallel.fence import mesh_preflight
@@ -669,8 +693,16 @@ class GBDT:
         """The CEGB lazy bitset [N, F] (gathered from its row blocks)."""
         du = None if self.cegb is None else self.cegb.data_used
         if isinstance(du, list):
-            return self._shard_plan.gather(du, self.device)
+            return self._gather_rows(du)
         return du
+
+    def _gather_rows(self, parts) -> torch.Tensor:
+        """The shards' blocks of a per-row tensor as the trainer's rows,
+        every process's across processes."""
+        local = self._shard_plan.gather(parts, self.device)
+        if self._pod:
+            return multihost.gather_rows_tensor(local, self._shard_plan)
+        return local
 
     def _emit_hist_allreduce_probe(self) -> None:
         """One timed shard sum of a root-histogram-shaped [3, F, B] f32
@@ -1154,7 +1186,9 @@ class GBDT:
         lv = tree.leaf_value
         shard_ids = leaf_id if isinstance(leaf_id, list) else None
         if shard_ids is not None:
-            leaf_id = self._shard_plan.gather(shard_ids, self.device)
+            # across processes the leaf ids cross only for a renewal
+            leaf_id = (self._gather_rows(shard_ids)
+                       if not self._pod or self._renews else None)
         if self.objective is not None and not self.average_output:
             renewed = self.objective.renew_leaf_values(
                 self.train_score if k == 1 else self.train_score[:, cls],
@@ -1172,9 +1206,9 @@ class GBDT:
             delta = take_small(tree.leaf_value, leaf_id)
         else:
             # the score update runs on each shard's rows
-            delta = self._shard_plan.gather(
+            delta = self._gather_rows(
                 [take_small(tree.leaf_value.to(i.device), i)
-                 for i in shard_ids], self.device)
+                 for i in shard_ids])
         self.train_score = self._apply_tree_delta(self.train_score, delta,
                                                   cls)
         if self._nf_policy == "clip":
@@ -1321,7 +1355,7 @@ class GBDT:
             "has_bag_mask": self._bag_mask is not None,
             # informational: the state is stored unsharded, so a resume
             # re-shards onto any shard count (reference: gbdt.py:1784-1792)
-            "num_shards": (self._shard_plan.num_shards
+            "num_shards": (self._shard_plan.shards_global
                            if self._shard_plan is not None else 1),
             "fingerprint": self._resume_fingerprint(),
         }

@@ -19,7 +19,10 @@ mesh shard on its device; every kernel runs on each shard's own rows, and
 ``_psum`` / ``_hist_allreduce`` sum the shards' histograms and sums in
 shard order, in f32, on the first shard's device, where the split search
 runs once. On a 2-D (data, feature) mesh each feature block is summed on
-its own device and the blocks gathered, bit for bit the 1-D sum.
+its own device and the blocks gathered, bit for bit the 1-D sum. When the
+data axis spans processes (``GrowParams.processes``), each local sum is
+then summed across the ranks (``_xsum``); the histograms are f32 before
+that sum, as in the reference (grow_depthwise.py:286-298).
 """
 from __future__ import annotations
 
@@ -71,6 +74,9 @@ class GrowParams:
     axis_name: str = ""
     feature_axis_name: str = ""
     feature_shards: int = 1
+    # processes the data axis spans (parallel/multihost.py): above one,
+    # every shard sum is then summed across the ranks
+    processes: int = 1
 
 
 class RowShard(NamedTuple):
@@ -118,8 +124,12 @@ def as_sharded(shards: Optional[ShardedRows], bins_T, bins=None, g=None,
 
 
 # bytes and calls of the shard sums (mesh runs only): the histogram sums
-# and every sum; scripts and chip_smoke.py read and reset them
-ALLREDUCE = {"calls": 0, "bytes": 0, "hist_calls": 0, "hist_bytes": 0}
+# and every sum, and apart from them the sums across the ranks (x_*; their
+# bytes are one rank's payload); scripts and chip_smoke.py read and reset
+# them
+ALLREDUCE = {"calls": 0, "bytes": 0, "hist_calls": 0, "hist_bytes": 0,
+             "x_calls": 0, "x_bytes": 0, "x_hist_calls": 0,
+             "x_hist_bytes": 0}
 
 
 def reset_allreduce() -> None:
@@ -134,15 +144,32 @@ def _sum_parts(parts, device: torch.device) -> torch.Tensor:
     return acc
 
 
-def _psum(parts, gp: GrowParams) -> torch.Tensor:
+def _xsum(t: torch.Tensor, gp: GrowParams, hist: bool = False
+          ) -> torch.Tensor:
+    """``t`` summed across the ranks when the data axis spans processes
+    (``multihost.allreduce_sum``: the same bytes on every rank), else
+    ``t``."""
+    if gp.processes <= 1:
+        return t
+    from ..parallel.multihost import allreduce_sum
+    nbytes = t.numel() * t.element_size()
+    ALLREDUCE["x_calls"] += 1
+    ALLREDUCE["x_bytes"] += nbytes
+    if hist:
+        ALLREDUCE["x_hist_calls"] += 1
+        ALLREDUCE["x_hist_bytes"] += nbytes
+    return allreduce_sum(t)
+
+
+def _psum(parts, gp: GrowParams, hist: bool = False) -> torch.Tensor:
     """The shards' tensors summed in shard order, in f32, on the first
-    shard's device (the reference's ``psum`` over the data axis); one
-    part is returned as it is."""
+    shard's device (the reference's ``psum`` over the data axis), then
+    across the ranks; one part in one process is returned as it is."""
     if len(parts) == 1:
-        return parts[0]
+        return _xsum(parts[0], gp, hist)
     ALLREDUCE["calls"] += 1
     ALLREDUCE["bytes"] += sum(p.numel() * p.element_size() for p in parts)
-    return _sum_parts(parts, parts[0].device)
+    return _xsum(_sum_parts(parts, parts[0].device), gp, hist)
 
 
 def _hist_allreduce(parts, gp: GrowParams, f_dim: int,
@@ -152,22 +179,24 @@ def _hist_allreduce(parts, gp: GrowParams, f_dim: int,
     mesh a ``_psum``; on a 2-D mesh each feature block of ``F //
     feature_shards`` columns is summed over the shards on its block's
     device and the blocks are gathered on the first shard's device: bit
-    for bit the 1-D sum, since the sum is elementwise."""
+    for bit the 1-D sum, since the sum is elementwise. Across processes
+    each block is then summed across the ranks on its device."""
     if len(parts) == 1:
-        return parts[0]
+        return _xsum(parts[0], gp, hist=True)
     ALLREDUCE["hist_calls"] += 1
     ALLREDUCE["hist_bytes"] += sum(p.numel() * p.element_size()
                                    for p in parts)
     k, fdim = gp.feature_shards, parts[0].shape[f_dim]
     if not gp.feature_axis_name or k <= 1 or fdim % k or \
             len(feature_devices) != k:
-        return _psum(parts, gp)
+        return _psum(parts, gp, hist=True)
     ALLREDUCE["calls"] += 1
     ALLREDUCE["bytes"] += sum(p.numel() * p.element_size() for p in parts)
     blk = fdim // k
     home = parts[0].device
-    blocks = [_sum_parts([p.narrow(f_dim, j * blk, blk) for p in parts],
-                         feature_devices[j]).to(home) for j in range(k)]
+    blocks = [_xsum(_sum_parts([p.narrow(f_dim, j * blk, blk)
+                                for p in parts], feature_devices[j]),
+                    gp, hist=True).to(home) for j in range(k)]
     return torch.cat(blocks, dim=f_dim)
 
 

@@ -18,18 +18,26 @@ devices, as the reference's suite does, and ``chip_smoke.py`` on 4 copies
 of ``cuda:0``. Auto (``num_shards=0``) shards over every device only when
 there is more than one real CUDA device; a virtual list keeps auto at one
 shard, as the reference's ``cpu`` platform does.
+
+Across processes (``num_machines > 1``), ``init_distributed`` starts the
+``torch.distributed`` group, and a ``RowShardPlan`` describes this
+process's block of a grid that spans the processes
+(``parallel/multihost.plan_pod_sharding``); the growers then sum each
+histogram across the ranks after the local shard sum.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
+import os
 import threading
 from typing import Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..log import warning
+from ..log import LightGBMError, info, warning
 
 DATA_AXIS = "data"
 # the second axis of the optional 2-D (data, feature) mesh: rows stay
@@ -131,6 +139,34 @@ class RowShardPlan:
     rows_per_shard: int    # ceil(n_rows / num_shards)
     feature_shards: int = 1
     feature_axis: str = FEATURE_AXIS
+    # the process-spanning grid (parallel/multihost.py): this process
+    # holds global row shards [shard0, shard0 + num_shards) of
+    # global_shards and global rows [row0, row0 + n_rows) of global_rows,
+    # rows_per_shard being the global grid's; in one process the plan is
+    # the whole grid (process_count 1, the globals 0)
+    shard0: int = 0
+    row0: int = 0
+    global_shards: int = 0
+    global_rows: int = 0
+    process_index: int = 0
+    process_count: int = 1
+
+    @property
+    def n_global(self) -> int:
+        """The rows of the whole grid, every process's."""
+        return self.global_rows or self.n_rows
+
+    @property
+    def shards_global(self) -> int:
+        return self.global_shards or self.num_shards
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        """This process's rows of a tensor of every process's rows (the
+        trainer's row-length state is global in a process-spanning run);
+        ``x`` as it is when it already holds this process's rows."""
+        if self.process_count > 1 and int(x.shape[0]) == self.global_rows:
+            return x[self.row0:self.row0 + self.n_rows]
+        return x
 
     @property
     def n_padded(self) -> int:
@@ -174,8 +210,10 @@ class RowShardPlan:
         """The per-shard blocks of a row-major tensor of ``n_rows`` rows:
         ``rows_per_shard`` rows each on the shard's device, the padding
         rows zero. A block that needs no padding and already lies on its
-        device is a view of ``x``."""
-        return _split(x, self.rows_per_shard, self.devices, self.n_rows)
+        device is a view of ``x``. A tensor of every process's rows is
+        cut to this process's first (``local``)."""
+        return _split(self.local(x), self.rows_per_shard, self.devices,
+                      self.n_rows)
 
     def gather(self, parts: Sequence[torch.Tensor],
                device: torch.device) -> torch.Tensor:
@@ -185,6 +223,8 @@ class RowShardPlan:
             lo, hi = self.shard_rows_range(s)
             if hi > lo:
                 out.append(p[:hi - lo].to(device))
+        if not out:   # a process of padding only
+            return parts[0][:0].to(device)
         return torch.cat(out) if len(out) > 1 else out[0]
 
 
@@ -300,3 +340,95 @@ def pad_rows_to_devices(x: np.ndarray, n_dev: int):
     if pad:
         x = np.pad(x, [(0, pad)] + [(0, 0)] * (x.ndim - 1))
     return x, n
+
+
+# the process group's transport once init_distributed has run: the
+# backend, and the device its payloads cross from (the rank's card under
+# NCCL, the host under gloo)
+DIST = {"backend": "", "device": None, "card": None}
+
+
+def machine_list(config) -> List[str]:
+    """The ``machines`` entries (``host:port``, comma-separated), else the
+    lines of ``machine_list_filename`` (``host port`` or ``host:port`` a
+    line, ``#`` comments; reference: linkers_socket.cpp:80)."""
+    machines = str(config.machines or "")
+    if not machines and config.machine_list_filename:
+        with open(config.machine_list_filename) as fh:
+            entries = [ln.split("#", 1)[0].strip() for ln in fh]
+        machines = ",".join(":".join(e.split()) for e in entries if e)
+    return [m.strip() for m in machines.split(",") if m.strip()]
+
+
+def choose_backend(config) -> Tuple[str, Optional[torch.device]]:
+    """(backend, card) of this rank: NCCL when every rank of this host
+    owns a distinct card, gloo when ranks share a card or train on the
+    CPU. The rank's card is its local rank (``LOCAL_RANK``, else
+    ``RANK``) modulo the visible cards; the ranks of this host are
+    ``LOCAL_WORLD_SIZE``, else ``num_machines``."""
+    if str(config.device_type).lower() not in ("cuda", "gpu"):
+        return "gloo", None
+    cards = torch.cuda.device_count()
+    if cards < 1:
+        raise RuntimeError("device_type='cuda' but no CUDA device is "
+                           "available; pass device_type='cpu'")
+    env = os.environ
+    local_rank = int(env.get("LOCAL_RANK", env.get("RANK", "0")))
+    local_world = int(env.get("LOCAL_WORLD_SIZE", config.num_machines))
+    card = torch.device("cuda", local_rank % cards)
+    return ("nccl" if local_world <= cards else "gloo"), card
+
+
+def init_distributed(config) -> bool:
+    """The multi-process bootstrap (reference: :218-283; Network::Init,
+    network.cpp:30): ``torch.distributed.init_process_group`` over
+    ``tcp://`` the first ``machines`` entry (an entry without a port
+    listens on ``local_listen_port``; no list: torch's ``env://``), with
+    ``world_size=num_machines``, the rank from the ``RANK`` environment
+    variable and a timeout of ``time_out`` minutes. The ``dist_init``
+    fault point and transient failures retry with backoff,
+    ``network_retries`` attempts. Idempotent; True when running
+    multi-process. A failure of either backend raises."""
+    if config.num_machines <= 1:
+        return False
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return True
+    if "RANK" not in os.environ:
+        raise LightGBMError("num_machines > 1 needs this process's rank in "
+                            "the RANK environment variable")
+    machines = machine_list(config)
+    if machines:
+        coord = machines[0]
+        if ":" not in coord:
+            coord = f"{coord}:{config.local_listen_port}"
+        init_method = f"tcp://{coord}"
+    else:
+        init_method = "env://"
+    backend, card = choose_backend(config)
+    kwargs = dict(backend=backend, init_method=init_method,
+                  world_size=int(config.num_machines),
+                  rank=int(os.environ["RANK"]))
+    if config.time_out and config.time_out > 0:
+        kwargs["timeout"] = datetime.timedelta(minutes=int(config.time_out))
+    from ..utils import faults
+    from ..utils.retry import call_with_backoff
+
+    def _init_once():
+        faults.fault_point("dist_init")
+        dist.init_process_group(**kwargs)
+
+    call_with_backoff(_init_once, attempts=max(1, int(config.network_retries)),
+                      base_delay=0.5, name="torch.distributed init")
+    if card is not None:
+        torch.cuda.set_device(card)
+    DIST.update(backend=backend, card=card,
+                device=card if backend == "nccl" else torch.device("cpu"))
+    from .. import obs
+    obs.METRICS.gauge("lgbmtpu_dist_world_size",
+                      "processes of the torch.distributed group",
+                      backend=backend).set(dist.get_world_size())
+    info(f"torch.distributed initialized: rank {dist.get_rank()} of "
+         f"{dist.get_world_size()} over {backend} ({init_method}"
+         f"{', card ' + str(card) if card is not None else ', CPU'})")
+    return True

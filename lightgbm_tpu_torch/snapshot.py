@@ -15,8 +15,8 @@ the text holds no bins), so the sidecar is what makes a run killed at
 iteration k and resumed end with the uninterrupted run's model text.
 ``load_latest_valid`` walks the snapshots newest first and parses each
 before it returns one, so a truncated snapshot is skipped with a warning,
-never loaded. One process writes (``is_writer_rank``, always true until
-the multi-GPU work, ROADMAP.md A21).
+never loaded. One process writes (``is_writer_rank``: rank 0 of a
+multi-process group).
 """
 from __future__ import annotations
 
@@ -54,8 +54,12 @@ def snapshot_dir_for(conf) -> str:
 
 
 def is_writer_rank() -> bool:
-    """Whether this process writes snapshots: one process trains."""
-    return True
+    """Whether this process writes snapshots: rank 0 of a multi-process
+    group, or the one process (reference: snapshot.py:70-78). Every rank
+    holds the whole trainer state, so rank 0's snapshot resumes onto any
+    process count and shard grid."""
+    from .parallel.multihost import process_index
+    return process_index() == 0
 
 
 class SnapshotPayload:

@@ -48,12 +48,20 @@ point                     fires in
 ``hist_allreduce``        models/gbdt.py, at each iteration of the
                           data-parallel learner, before its shard sums;
                           retried from the iteration's saved state
+``dist_init``             parallel/mesh.init_distributed, before the
+                          process group starts; retried with backoff
+``sketch_allgather``      parallel/multihost.py, before the bin sketches'
+                          exchange; retried
+``rows_allgather``        parallel/multihost.allgather_rows, before a row
+                          block exchange (row counts, labels, tree deltas);
+                          retried
+``mapper_allgather``      parallel/dist_data.py, before the encoded
+                          mappers' exchange; retried
 ========================  ===================================================
 
-The others fire in modules that are not ported yet, and arming one raises
-``NotImplementedError`` naming its ROADMAP.md item (``UNPORTED_POINTS``):
-the distributed bootstrap and the cross-process mapper exchange belong to
-the process-spanning mesh (A21b).
+A point whose module is not ported would be listed in ``UNPORTED_POINTS``
+and raise ``NotImplementedError`` naming its ROADMAP.md item when armed;
+since the process-spanning mesh (A21b) there is none.
 """
 from __future__ import annotations
 
@@ -70,15 +78,20 @@ KNOWN_POINTS = ("snapshot_write", "mapper_allgather", "dist_init",
                 "device_put_oom", "prewarm_compile",
                 "wal_append", "dataset_append", "online_train",
                 "online_publish",
-                "join_capture", "join_label", "join_commit")
+                "join_capture", "join_label", "join_commit",
+                # the reference fires these two (multihost.py:267, :340)
+                # but leaves them out of its registry, so they never arm
+                # there
+                "sketch_allgather", "rows_allgather")
 
 # the points that simulate device failures (reference: faults.py:107-113)
 DEVICE_FAULT_POINTS = ("shard_commit", "hist_allreduce", "device_put_oom",
                        "prewarm_compile")
 _OOM_POINTS = ("device_put_oom",)
 
-# point -> the ROADMAP.md item whose module holds its site
-UNPORTED_POINTS = {p: "A21b" for p in ("mapper_allgather", "dist_init")}
+# point -> the ROADMAP.md item whose module holds its site, for points
+# whose module is not ported yet (none since A21b)
+UNPORTED_POINTS: Dict[str, str] = {}
 
 _lock = threading.Lock()
 # name -> [skip_remaining, fail_remaining]; fail_remaining < 0 = forever

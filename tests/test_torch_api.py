@@ -29,6 +29,12 @@ from lightgbm_tpu.sklearn import (LGBMClassifier as RefClassifier,
                                   LGBMRegressor as RefRegressor)
 from lightgbm_tpu_torch import convert
 from lightgbm_tpu_torch.engine import stratified_folds
+import torch
+
+# six pytest workers share the box's cores: with torch's default of
+# one intra-op thread a core, their OpenMP threads spin against each
+# other's, so each test process keeps one
+torch.set_num_threads(1)
 
 CPU = {"device_type": "cpu"}
 BASE = {"num_leaves": 7, "max_bin": 31, "min_data_in_leaf": 5,

@@ -27,6 +27,12 @@ import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lt
 
 from test_torch_objectives import BASE, CPU, STRUCT
+import torch
+
+# six pytest workers share the box's cores: with torch's default of
+# one intra-op thread a core, their OpenMP threads spin against each
+# other's, so each test process keeps one
+torch.set_num_threads(1)
 
 # xgboost_dart_mode weighs drops by 1 - tree weight, which is 0 for every
 # tree until one was dropped, so it runs on uniform drops here (see

@@ -23,6 +23,12 @@ from lightgbm_tpu import callback as ref_cb
 from lightgbm_tpu.utils import log as ref_log
 import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch import callback as t_cb
+import torch
+
+# six pytest workers share the box's cores: with torch's default of
+# one intra-op thread a core, their OpenMP threads spin against each
+# other's, so each test process keeps one
+torch.set_num_threads(1)
 
 BASE = {"num_leaves": 7, "min_data_in_leaf": 5, "verbosity": -1,
         "prewarm": 0, "histogram_impl": "pallas",

@@ -30,6 +30,12 @@ import pytest
 
 import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lt
+import torch
+
+# six pytest workers share the box's cores: with torch's default of
+# one intra-op thread a core, their OpenMP threads spin against each
+# other's, so each test process keeps one
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = {"device_type": "cpu"}
@@ -105,7 +111,7 @@ def _run_host(so, tmp_path, source, args):
     subprocess.run(["gcc", str(src), so, "-o", host,
                     f"-Wl,-rpath,{os.path.dirname(so)}"], check=True,
                    capture_output=True, timeout=120)
-    env = dict(os.environ,
+    env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join([REPO] + [p for p in sys.path
                                                     if p]))
     r = subprocess.run([host, *args], capture_output=True, timeout=600,

@@ -29,6 +29,12 @@ from lightgbm_tpu_torch import app, native
 from lightgbm_tpu_torch.binning import MISSING_NAN, find_bin_mappers
 from lightgbm_tpu_torch.io import parser, vfs
 from lightgbm_tpu_torch.io.model_text import model_to_cpp, parse_model_text
+import torch
+
+# six pytest workers share the box's cores: with torch's default of
+# one intra-op thread a core, their OpenMP threads spin against each
+# other's, so each test process keeps one
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PALLAS = {"histogram_impl": "pallas", "use_quantized_grad": "true",
@@ -451,7 +457,7 @@ def test_python_m_entry_point(tmp_path):
         "min_data_in_leaf": 5, "snapshot_freq": 2, "snapshot_keep": 1,
         "snapshot_dir": tmp_path / "snaps",
         "output_model": tmp_path / "m.txt"})
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO] + sys.path))
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join([REPO] + sys.path))
     r = subprocess.run([sys.executable, "-m", "lightgbm_tpu_torch",
                         f"config={conf}"], capture_output=True, text=True,
                        env=env, timeout=300, cwd=str(tmp_path))

@@ -97,7 +97,10 @@ the card is the sequential f32 sum bit for bit, on a 2-D mesh too; each
 shard's fused front quantizes with its own scale and its local rows'
 dither, as the CPU does; (t1) of chip_smoke.py at 100,000 rows, 4 virtual
 shards of the card byte for byte the serial card run, each kernel
-launched once a shard.
+launched once a shard. Across processes: the gloo transport stages a
+card's payloads through the host (counted), and two rank processes on
+the card train (t1)'s lattice model byte for byte the one-process run
+on the same 4-shard grid.
 """
 import os
 import subprocess
@@ -110,6 +113,11 @@ import torch
 
 import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch.ops import hist_kernels as hk
+
+# six pytest workers share the box's cores: with torch's default of
+# one intra-op thread a core, their OpenMP threads spin against each
+# other's, so each test process keeps one
+torch.set_num_threads(1)
 
 N, F, B, L, S = 5000, 7, 16, 8, 3
 LOGLOSS = ("logloss", 1.0, 1.0, 1.0)
@@ -599,7 +607,8 @@ def test_slot_hist_asserts_on_counts_of_another_slot_vector(dev, fault):
     """)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     run = subprocess.run([sys.executable, "-c", code], cwd=root,
-                         capture_output=True, text=True, timeout=300)
+                         capture_output=True, text=True, timeout=300,
+                         env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert "own counts exact" in run.stdout, run.stderr[-2000:]
     assert run.returncode != 0 and "no assert" not in run.stdout
     assert "device-side assert" in run.stderr, run.stderr[-2000:]
@@ -1801,3 +1810,87 @@ def test_t1_lattice_four_shards_equal_serial_on_the_card(dev):
     assert launches["hist_f32"] == 4 * (3 + passes)
     assert launches["route_level"] == 4 * passes
     assert launches["take_small"] == 4 * 3
+
+
+@pytest.mark.cuda
+def test_gloo_transport_stages_card_payloads_through_the_host(dev):
+    """Ranks that share a card sum over gloo: a card tensor is copied to
+    the host, summed there and copied back to its card, the copy counted
+    (``multihost.XFER``); the input is left as it was."""
+    import torch.distributed as dist
+    from lightgbm_tpu_torch.parallel import mesh as M
+    from lightgbm_tpu_torch.parallel import multihost as PM
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from _mp_util import free_port
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", rank=0, world_size=1)
+    saved = dict(M.DIST)
+    try:
+        M.DIST.update(backend="gloo", device=torch.device("cpu"), card=dev)
+        PM.reset_xfer()
+        t = torch.arange(3 * 28 * 64, dtype=torch.float32,
+                         device=dev).reshape(3, 28, 64)
+        out = PM.allreduce_sum(t)
+        assert out.device == t.device and out is not t
+        assert torch.equal(out, t)
+        assert PM.XFER["calls"] == 1
+        assert PM.XFER["bytes"] == 2 * t.numel() * 4
+        (back,) = PM.wire_allgather(np.arange(5, dtype=np.float64))
+        assert np.array_equal(back, np.arange(5))
+    finally:
+        M.DIST.update(saved)
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_two_rank_lattice_drill_on_the_card(dev, tmp_path):
+    """Two rank processes (scripts/torch_pod_worker.py) share the card over
+    gloo, 2 virtual shards each: integer gradients, hessian 0.25,
+    unquantized, 3 iterations at 20,000 rows, byte for byte the
+    one-process run on 4 virtual shards of the card; each rank launches
+    hist_f32, route_level and take_small on its own 2 shards."""
+    import json
+    from lightgbm_tpu_torch.parallel.mesh import virtual_devices
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from _mp_util import free_port
+    rng = np.random.RandomState(8)
+    X = rng.standard_normal((20_000, 28))
+    y = (X[:, 0] + X[:, 1] * X[:, 2] > 0).astype(np.float64)
+    np.save(tmp_path / "X.npy", X)
+    np.save(tmp_path / "y.npy", y)
+    p = {"objective": "none", "num_leaves": 31, "max_bin": 63,
+         "use_quantized_grad": False, "verbosity": -1,
+         "min_data_in_leaf": 20, "num_shards": 4}
+    spec = tmp_path / "spec.json"
+    spec.write_text(json.dumps({
+        "world": 2, "port": free_port(), "devices": 2,
+        "device_type": "cuda", "out": str(tmp_path),
+        "jobs": [{"name": "u", "data": str(tmp_path), "params": p,
+                  "rounds": 3, "fobj": "int"}]}))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(root, "scripts",
+                                      "torch_pod_worker.py"), str(spec)],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=dict(os.environ, RANK=str(r), OMP_NUM_THREADS="1"))
+        for r in (0, 1)]
+    outs = [q.communicate(timeout=300)[0] for q in procs]
+    assert all(q.returncode == 0 for q in procs), outs[0][-2000:]
+    res = [json.loads(next(ln for ln in o.splitlines()
+                           if ln.startswith("POD_RESULT "))[11:])
+           for o in outs]
+    assert res[0]["tree"] == res[1]["tree"] and res[0]["ranks_agree"]
+    assert res[0]["backend"] == ("gloo" if torch.cuda.device_count() < 2
+                                 else "nccl")
+    sys.path.insert(0, os.path.join(root, "scripts"))
+    from torch_pod_worker import int_fobj, tree_digest
+    with virtual_devices(4, dev):
+        q = {**p, "device_type": "cuda"}
+        one = lt.train(q, lt.Dataset(X, label=y, params=q), 3,
+                       fobj=int_fobj)
+    assert res[0]["tree"] == tree_digest(one.model_to_string())
+    for r in res:
+        passes = sum(r["passes"])
+        assert r["launches"]["hist_f32"] == 2 * (3 + passes)
+        assert r["launches"]["route_level"] == 2 * passes
+        assert r["launches"]["take_small"] == 2 * 3

@@ -32,6 +32,11 @@ from lightgbm_tpu_torch.parallel.data_parallel import grow_tree_dp
 from lightgbm_tpu_torch.parallel.mesh import (make_mesh, shard_rows,
                                               virtual_devices)
 
+# six pytest workers share the box's cores: with torch's default of
+# one intra-op thread a core, their OpenMP threads spin against each
+# other's, so each test process keeps one
+torch.set_num_threads(1)
+
 CPU = {"device_type": "cpu", "use_quantized_grad": False, "prewarm": 0}
 
 

@@ -51,6 +51,11 @@ from lightgbm_tpu_torch.ops import hist_kernels as hk
 from lightgbm_tpu_torch.ops import split as t_split
 from lightgbm_tpu_torch.ops.histogram import ACC_ROWS_MAX
 
+# six pytest workers share the box's cores: with torch's default of
+# one intra-op thread a core, their OpenMP threads spin against each
+# other's, so each test process keeps one
+torch.set_num_threads(1)
+
 CPU = {"device_type": "cpu"}
 BASE = {"num_leaves": 15, "max_bin": 63, "min_data_in_leaf": 5,
         "verbosity": -1, "prewarm": 0, "histogram_impl": "pallas"}

@@ -37,6 +37,11 @@ from lightgbm_tpu_torch.log import LightGBMError
 from lightgbm_tpu_torch.server import (PredictServer, ServeOverload,
                                        handle_line)
 
+# six pytest workers share the box's cores: with torch's default of
+# one intra-op thread a core, their OpenMP threads spin against each
+# other's, so each test process keeps one
+torch.set_num_threads(1)
+
 N_FEAT = 8
 CPU = {"device_type": "cpu"}
 
@@ -583,6 +588,7 @@ def test_process_mode_worker_round_trip(tmp_path, boosters, queries,
     refused."""
     from lightgbm_tpu_torch.fleet import replica
     monkeypatch.setattr(replica.WorkerReplica, "START_TIMEOUT_S", 60.0)
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")   # the worker inherits it
     live, divergent, _ = boosters
     p1, p2 = str(tmp_path / "v1.txt"), str(tmp_path / "v2.txt")
     live.save_model(p1)

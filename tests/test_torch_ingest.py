@@ -31,6 +31,11 @@ from lightgbm_tpu_torch import ingest, obs, prewarm
 from lightgbm_tpu_torch.binning import bin_data
 from lightgbm_tpu_torch.utils import faults
 
+# six pytest workers share the box's cores: with torch's default of
+# one intra-op thread a core, their OpenMP threads spin against each
+# other's, so each test process keeps one
+torch.set_num_threads(1)
+
 RNG = np.random.RandomState(7)
 N, F = 2000, 9
 X = RNG.rand(N, F).astype(np.float32)

@@ -45,6 +45,11 @@ from lightgbm_tpu.ops import pallas_hist as ph
 from lightgbm_tpu_torch.ops import hist_kernels as hk
 from lightgbm_tpu_torch.ops import histogram as th
 
+# six pytest workers share the box's cores: with torch's default of
+# one intra-op thread a core, their OpenMP threads spin against each
+# other's, so each test process keeps one
+torch.set_num_threads(1)
+
 N, F, B, L, S = 220, 7, 16, 8, 3
 SEED = 12345
 LOGLOSS = ("logloss", 1.0, 1.0, 1.0)

@@ -38,6 +38,11 @@ from lightgbm_tpu_torch.ops.split import SplitResult
 from test_torch_categorical import CATS, _cat_data
 from test_torch_efb import _efb_data
 
+# six pytest workers share the box's cores: with torch's default of
+# one intra-op thread a core, their OpenMP threads spin against each
+# other's, so each test process keeps one
+torch.set_num_threads(1)
+
 CPU = {"device_type": "cpu"}
 BASE = {"num_leaves": 15, "max_bin": 31, "min_data_in_leaf": 5,
         "verbosity": -1, "prewarm": 0}

@@ -31,6 +31,11 @@ from lightgbm_tpu_torch.parallel.mesh import (device_count, local_devices,
                                               resolve_num_shards, shard_rows,
                                               virtual_devices)
 
+# six pytest workers share the box's cores: with torch's default of
+# one intra-op thread a core, their OpenMP threads spin against each
+# other's, so each test process keeps one
+torch.set_num_threads(1)
+
 N = 4097            # non-divisible by 8: the last shard's padding
 F = 10
 ROUNDS = 5

@@ -33,6 +33,11 @@ from lightgbm_tpu_torch.parallel.mesh import local_devices, virtual_devices
 from lightgbm_tpu_torch.utils import faults
 from lightgbm_tpu_torch.utils.faults import FaultInjected
 
+# six pytest workers share the box's cores: with torch's default of
+# one intra-op thread a core, their OpenMP threads spin against each
+# other's, so each test process keeps one
+torch.set_num_threads(1)
+
 N, F = 1025, 5          # odd row count: every shard grid needs padding
 ROUNDS = 4              # resume tests; the chaos tests train 3 rounds
 

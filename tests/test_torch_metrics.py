@@ -19,6 +19,11 @@ from lightgbm_tpu_torch import config as t_config
 from lightgbm_tpu_torch import metrics as t_metrics
 from lightgbm_tpu_torch.log import LightGBMError
 
+# six pytest workers share the box's cores: with torch's default of
+# one intra-op thread a core, their OpenMP threads spin against each
+# other's, so each test process keeps one
+torch.set_num_threads(1)
+
 N, K = 1000, 4
 CONF = {"alpha": 0.7, "fair_c": 0.8, "tweedie_variance_power": 1.3,
         "num_class": K}

@@ -24,6 +24,12 @@ import pytest
 import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lt
 from test_torch_objectives import BASE, CPU, STRUCT, assert_models_match
+import torch
+
+# six pytest workers share the box's cores: with torch's default of
+# one intra-op thread a core, their OpenMP threads spin against each
+# other's, so each test process keeps one
+torch.set_num_threads(1)
 
 K = 3
 SAMPLED = {"bagging_fraction": 0.7, "bagging_freq": 1,

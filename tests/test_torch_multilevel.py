@@ -33,6 +33,11 @@ import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch.ops import histogram as H
 from lightgbm_tpu_torch.ops import hist_kernels as hk
 
+# six pytest workers share the box's cores: with torch's default of
+# one intra-op thread a core, their OpenMP threads spin against each
+# other's, so each test process keeps one
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, F, B, L, S = 1000, 7, 16, 8, 4
 SEED = 12345
@@ -222,7 +227,8 @@ def test_profile_level_script_bit_identical_on_cpu():
         [sys.executable, os.path.join(REPO, "scripts",
                                       "torch_profile_level.py"),
          "--json", "--rows", "2000", "--leaves", "8", "--device", "cpu"],
-        cwd=REPO, capture_output=True, text=True, timeout=300)
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert r.returncode == 0, r.stdout + r.stderr
     out = json.loads(r.stdout.strip().splitlines()[-1])
     sh = out["shallow"]

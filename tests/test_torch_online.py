@@ -40,6 +40,12 @@ from lightgbm_tpu_torch.parallel.mesh import virtual_devices
 from lightgbm_tpu_torch.server import PredictServer, handle_line
 
 from test_torch_objectives import BASE, CPU, STRUCT
+import torch
+
+# six pytest workers share the box's cores: with torch's default of
+# one intra-op thread a core, their OpenMP threads spin against each
+# other's, so each test process keeps one
+torch.set_num_threads(1)
 
 RNG = np.random.RandomState(23)
 N_FEAT = 8

@@ -48,6 +48,12 @@ from lightgbm_tpu_torch.utils.faults import FaultInjected
 from lightgbm_tpu_torch.wal import FeedLog, WalUnavailable
 import lightgbm_tpu_torch.join as join_module
 import lightgbm_tpu_torch.wal as wal_module
+import torch
+
+# six pytest workers share the box's cores: with torch's default of
+# one intra-op thread a core, their OpenMP threads spin against each
+# other's, so each test process keeps one
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = {"device_type": "cpu"}
@@ -960,7 +966,7 @@ def test_c_host_online_entries_match_python_api(tmp_path):
                                         "torch_online_host.c"), so, "-o",
                     host, f"-Wl,-rpath,{os.path.dirname(so)}"], check=True,
                    capture_output=True, timeout=120)
-    env = dict(os.environ,
+    env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join([REPO] + [q for q in sys.path
                                                     if q]))
     r = subprocess.run([host, model, *(str(tmp_path / f"{n}.bin")

@@ -43,6 +43,12 @@ from lightgbm_tpu_torch.parallel.mesh import virtual_devices
 from lightgbm_tpu_torch.utils import faults
 from lightgbm_tpu_torch.utils.faults import FaultInjected
 from lightgbm_tpu_torch.wal import FeedLog
+import torch
+
+# six pytest workers share the box's cores: with torch's default of
+# one intra-op thread a core, their OpenMP threads spin against each
+# other's, so each test process keeps one
+torch.set_num_threads(1)
 
 CPU = {"device_type": "cpu"}
 
@@ -1018,7 +1024,7 @@ def test_kill_and_replay_across_processes(tmp_path):
            str(tmp_path / "rows.npy"), str(tmp_path / "labels.npy"), model,
            str(tmp_path / "wal"), json.dumps(base), "--base-rows", "400",
            "--batch-rows", "30", "--batches", "4", "--device", "cpu"]
-    env = dict(os.environ, PYTHONPATH=os.pathsep.join([repo] + sys.path))
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join([repo] + sys.path))
     r1 = subprocess.run(cmd + ["--crash"], capture_output=True, text=True,
                         timeout=600, env=env, cwd=str(tmp_path))
     assert r1.returncode == 3, r1.stderr[-2000:]

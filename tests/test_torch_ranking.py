@@ -37,6 +37,11 @@ from lightgbm_tpu_torch import objectives as t_obj
 
 from test_torch_objectives import BASE, CPU, STRUCT
 
+# six pytest workers share the box's cores: with torch's default of
+# one intra-op thread a core, their OpenMP threads spin against each
+# other's, so each test process keeps one
+torch.set_num_threads(1)
+
 RANK = dict(BASE, objective="lambdarank", metric="ndcg", eval_at=[1, 3, 5])
 OBJ_CASES = {
     "default": {},

@@ -34,6 +34,11 @@ from lightgbm_tpu_torch.ops import hist_kernels as hk
 from lightgbm_tpu_torch.ops.grow import GrowParams, node_feature_mask
 from lightgbm_tpu_torch.utils import threefry
 
+# six pytest workers share the box's cores: with torch's default of
+# one intra-op thread a core, their OpenMP threads spin against each
+# other's, so each test process keeps one
+torch.set_num_threads(1)
+
 BASE = {"num_leaves": 7, "min_data_in_leaf": 5, "verbosity": -1,
         "prewarm": 0, "histogram_impl": "pallas",
         "use_quantized_grad": "true"}

@@ -35,6 +35,11 @@ from lightgbm_tpu_torch.server import (MicroBatcher, ModelRegistry,
                                        PredictServer, ServeOverload,
                                        handle_line, serve_stdio, serve_tcp)
 
+# six pytest workers share the box's cores: with torch's default of
+# one intra-op thread a core, their OpenMP threads spin against each
+# other's, so each test process keeps one
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RNG = np.random.RandomState(11)
 N_FEAT = 8
@@ -503,7 +508,7 @@ def test_c_host_server_roundtrip(boosters, queries, tmp_path):
     subprocess.run(["gcc", str(src), so, "-o", host,
                     f"-Wl,-rpath,{os.path.dirname(so)}"], check=True,
                    capture_output=True, timeout=120)
-    env = dict(os.environ,
+    env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join([REPO] + [p for p in sys.path
                                                     if p]))
     r = subprocess.run([host, p1, p2, str(tmp_path / "x.bin")],

@@ -25,6 +25,11 @@ from lightgbm_tpu_torch.io.pseudo_bins import PseudoRouter
 from lightgbm_tpu_torch.ops import predict as P
 from lightgbm_tpu_torch.serving import PredictEngine, bucket_rows
 
+# six pytest workers share the box's cores: with torch's default of
+# one intra-op thread a core, their OpenMP threads spin against each
+# other's, so each test process keeps one
+torch.set_num_threads(1)
+
 CPU = {"device_type": "cpu"}
 RTOL = 1e-6
 # sizes straddling bucket edges: the n = 1 fast path, the minimum bucket

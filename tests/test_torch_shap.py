@@ -23,6 +23,12 @@ from scipy import sparse
 import lightgbm_tpu as lgb
 from lightgbm_tpu import plotting as ref_plotting
 import lightgbm_tpu_torch as lt
+import torch
+
+# six pytest workers share the box's cores: with torch's default of
+# one intra-op thread a core, their OpenMP threads spin against each
+# other's, so each test process keeps one
+torch.set_num_threads(1)
 
 CPU = {"device_type": "cpu"}
 

@@ -26,6 +26,11 @@ from lightgbm_tpu_torch.ops import grow as t_grow
 from lightgbm_tpu_torch.ops import grow_depthwise as t_gd
 from lightgbm_tpu_torch.ops import scan, split as t_split
 
+# six pytest workers share the box's cores: with torch's default of
+# one intra-op thread a core, their OpenMP threads spin against each
+# other's, so each test process keeps one
+torch.set_num_threads(1)
+
 
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))

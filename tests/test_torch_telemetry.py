@@ -44,6 +44,11 @@ from lightgbm_tpu_torch.obs.metrics import parse_prometheus
 from lightgbm_tpu_torch.utils import faults
 from lightgbm_tpu_torch.utils.timer import TIMER, time_op, timed
 
+# six pytest workers share the box's cores: with torch's default of
+# one intra-op thread a core, their OpenMP threads spin against each
+# other's, so each test process keeps one
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PALLAS = {"histogram_impl": "pallas", "use_quantized_grad": "true",
           "prewarm": 0}

@@ -47,6 +47,11 @@ from lightgbm_tpu_torch.ops import hist_kernels as hk
 from lightgbm_tpu_torch.ops.histogram import ACC_ROWS_MAX
 from lightgbm_tpu_torch.parallel.mesh import virtual_devices
 
+# six pytest workers share the box's cores: with torch's default of
+# one intra-op thread a core, their OpenMP threads spin against each
+# other's, so each test process keeps one
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLDEN = os.path.join(REPO, "tests", "golden")
 PALLAS_PARAMS = {"num_leaves": 7, "max_bin": 31, "min_data_in_leaf": 5,
@@ -470,7 +475,7 @@ def test_default_device_needs_a_gpu():
 # and A14 (test_torch_ranking.py, test_torch_boosters.py); categorical_feature
 # (A12a) trains since A12a (test_torch_categorical.py). The split
 # constraints (forced bins and splits, CEGB, monotone constraints,
-# extra_trees, feature_contri) train since A12c: their cases (item None)
+# extra_trees, feature_contri) train since A12c: their cases
 # keep their ids and hold the first binary tree against the reference
 # (tests/test_torch_constraints.py holds every tree of L2 models on each
 # path); histogram_pool_size trains since A13b: its cases keep their ids,
@@ -481,45 +486,38 @@ def test_default_device_needs_a_gpu():
 # runs them on, "_virtual") keep their ids and hold the port on 8 virtual
 # CPU devices against the reference on its 8 (the quantized data-parallel
 # and voting learners take each shard's own int8 scales and dither in both
-# packages; the feature-parallel one runs unquantized in both); more than
-# one machine is still refused (A21b)
-@pytest.mark.parametrize("extra,item", [
-    pytest.param({"forcedbins_filename": "bins.json"}, None,
-                 id="extra0-A11"),
+# packages; the feature-parallel one runs unquantized in both). More than
+# one machine trains since A21b: its case went, and the process-spanning
+# drills of tests/test_torch_pod_drill.py hold it against the reference
+@pytest.mark.parametrize("extra", [
+    pytest.param({"forcedbins_filename": "bins.json"}, id="extra0-A11"),
     pytest.param({"grow_policy": "lossguide", "histogram_pool_size": 0.018},
-                 None, id="extra1-A13b"),
-    pytest.param({"cegb_penalty_feature_lazy": [0.5] * 8}, None,
-                 id="extra2-A11"),
-    pytest.param({"monotone_constraints": [0, 0, 1, 0, 0, 0, 0, 0]}, None,
+                 id="extra1-A13b"),
+    pytest.param({"cegb_penalty_feature_lazy": [0.5] * 8}, id="extra2-A11"),
+    pytest.param({"monotone_constraints": [0, 0, 1, 0, 0, 0, 0, 0]},
                  id="extra3-A12"),
-    pytest.param({"cegb_penalty_split": 0.1}, None, id="extra4-A12"),
-    pytest.param({"extra_trees": True}, None, id="extra5-A12"),
+    pytest.param({"cegb_penalty_split": 0.1}, id="extra4-A12"),
+    pytest.param({"extra_trees": True}, id="extra5-A12"),
     pytest.param({"feature_contri": [1.0, 1.0, 1.0, 0.5, 1.0, 1.0, 1.0,
-                                     1.0]}, None, id="extra6-A12"),
-    pytest.param({"cegb_penalty_feature_coupled": [0.5] * 8}, None,
+                                     1.0]}, id="extra6-A12"),
+    pytest.param({"cegb_penalty_feature_coupled": [0.5] * 8},
                  id="extra7-A14"),
-    pytest.param({"tree_learner": "feature", "_virtual": 8}, None,
+    pytest.param({"tree_learner": "feature", "_virtual": 8},
                  id="extra8-A14"),
     pytest.param({"tree_learner": "voting", "top_k": 4, "_virtual": 8},
-                 None, id="extra9-A11"),
-    pytest.param({"histogram_pool_size": 0.014}, None, id="extra10-A13b"),
-    pytest.param({"tree_learner": "data", "_virtual": 8}, None,
+                 id="extra9-A11"),
+    pytest.param({"histogram_pool_size": 0.014}, id="extra10-A13b"),
+    pytest.param({"tree_learner": "data", "_virtual": 8},
                  id="extra11-A21"),
     pytest.param({"monotone_constraints": [-1, 0, 0, 0, 0, 0, 0, 0],
-                  "grow_policy": "lossguide"}, None, id="extra12-A12"),
-    pytest.param({"num_machines": 2}, "A21b", id="extra13-A11"),
-    pytest.param({"forcedsplits_filename": "forced.json"}, None,
-                 id="extra14-A12"),
+                  "grow_policy": "lossguide"}, id="extra12-A12"),
+    pytest.param({"forcedsplits_filename": "forced.json"}, id="extra14-A12"),
 ])
-def test_out_of_slice_settings_raise(extra, item, tmp_path):
+def test_out_of_slice_settings_raise(extra, tmp_path):
     X, yb, _ = _data()
     p = dict(PALLAS_PARAMS, objective="binary", **CPU)
     p.update(extra)
     n_virtual = p.pop("_virtual", 0)
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
-            lt.train(p, lt.Dataset(X, label=yb, params=p), num_boost_round=1)
-        return
     # exact: the first binary tree (queue C1) equals the reference's;
     # predictions after 2 iterations rtol 1e-4 (queue C2)
     files = {"bins.json": [{"feature": 0, "bin_upper_bound": [0.3, 0.65]}],
@@ -736,7 +734,8 @@ def test_import_leaves_jax_and_reference_out():
             "m.startswith('lightgbm_tpu.')); print(bad); "
             "sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                       capture_output=True, text=True, timeout=120)
+                       capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, OMP_NUM_THREADS="1"))
     assert r.returncode == 0, r.stdout + r.stderr
 
 
@@ -772,6 +771,7 @@ def test_chip_smoke_refuses_without_gpu_or_checkout(tmp_path):
     for script, cwd in ((os.path.join(REPO, "chip_smoke.py"), REPO),
                         (str(lone), str(tmp_path))):
         r = subprocess.run([sys.executable, script], cwd=cwd,
-                           capture_output=True, text=True, timeout=120)
+                           capture_output=True, text=True, timeout=120,
+                           env=dict(os.environ, OMP_NUM_THREADS="1"))
         assert r.returncode != 0
         assert '"ok"' not in r.stdout

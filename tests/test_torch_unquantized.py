@@ -26,6 +26,12 @@ import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch.ops import hist_kernels as hk
 from test_torch_train import CPU, STRUCT, _data, _data255
+import torch
+
+# six pytest workers share the box's cores: with torch's default of
+# one intra-op thread a core, their OpenMP threads spin against each
+# other's, so each test process keeps one
+torch.set_num_threads(1)
 
 BASE = {"num_leaves": 7, "min_data_in_leaf": 5, "verbosity": -1,
         "prewarm": 0, "histogram_impl": "pallas"}

@@ -25,6 +25,12 @@ import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch.ops import grow as G
 from lightgbm_tpu_torch.parallel.mesh import virtual_devices
+import torch
+
+# six pytest workers share the box's cores: with torch's default of
+# one intra-op thread a core, their OpenMP threads spin against each
+# other's, so each test process keeps one
+torch.set_num_threads(1)
 
 _P = {"objective": "binary", "num_leaves": 15, "verbosity": -1,
       "min_data_in_leaf": 5}
