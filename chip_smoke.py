@@ -286,7 +286,25 @@ measured):
    max_bin=255 (B5, B6, B7, B4), a rank at another learning_rate failing
    the consistency fence on both ranks, and both ranks killed at
    iteration 2 and rank 0's snapshots resumed in this process, byte for
-   byte (t1);
+   byte (t1); then, in a second pair of rank processes, (u6) (u1)'s
+   lattice model with lazy CEGB on 8 features and a snapshot every 2
+   iterations (whose lazy bitset the snapshot gathers from both ranks,
+   ROADMAP C18), killed at iteration 3, each rank under
+   POD_RANK_TIMEOUT_S, and resumed in this process on 4 virtual shards,
+   byte for byte the unkilled 4-shard model; then (v)
+   "analysis" (``analysis_path``): (v1) the port's lint
+   (lightgbm_tpu_torch.analysis, pure AST) over its tree, clean against
+   its empty baseline, with the inventory of host syncs in the level, step
+   and iteration loops by file:line and its host seconds; (v2) the
+   nonfinite-policy-smoke rule trained on the card (fatal raises,
+   warn_skip_tree keeps 2 trees, clip 5 with finite predictions); (v3)
+   scripts/torch_lockwatch_drill.py in a fresh process: the port's
+   lockwatch installed before the port is imported, (a)'s parameters 5
+   iterations (B1-B4) on (a)'s first 10M rows, a PredictServer under 8
+   closed-loop clients for 2 s and through an OnlineTrainer boost cycle
+   on the next 500,000 rows, then a 2-replica fleet promoting a clean
+   canary: every answer its version's bit for bit and no lock-order
+   inversion, the lock sites and edges counted;
 5. agreement, at max_bin=63 and at 255 (the 4000-row table has more than
    128 bins a feature, so the unfused path, which is asserted): the first
    tree of a 4000-row L2 model trained on the card has the structure of
@@ -331,6 +349,10 @@ The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
 of the repository, it exits non-zero and prints no result.
 """
+# Every file this run writes (rank specs, text rows for the CLI, logs, C
+# hosts) is a transient input or record of this run under its own work
+# directory, read back within the run: atomic writes buy nothing here.
+# tpu-lint: disable-file=non-atomic-artifact-write
 import dataclasses
 import json
 import os
@@ -2681,9 +2703,9 @@ def pod_path(X, y, launches_all, card: str,
     a snapshot an iteration, both ranks killed at iteration 2 (exit 17):
     rank 0's snapshots resumed in this process on 4 virtual shards give
     (t1)'s model byte for byte. Launches are counted a rank and added to
-    the run's. Returns its seconds by part."""
+    the run's. Then (u6) (``pod_cegb_snapshots``). Returns its seconds by
+    part."""
     import shutil
-    import socket
     import torch
     import lightgbm_tpu_torch as lt
     from lightgbm_tpu_torch.ops import hist_kernels as hk
@@ -2724,43 +2746,10 @@ def pod_path(X, y, launches_all, card: str,
         {"name": "u4", "data": work, "rounds": 3, "fobj": "int",
          "params": {**lattice, "snapshot_freq": 1, "snapshot_dir": snaps},
          "faults": "tree_update@2"}]
-    with socket.socket() as so:
-        so.bind(("127.0.0.1", 0))
-        port = so.getsockname()[1]
-    spec = os.path.join(work, "spec.json")
-    with open(spec, "w") as fh:
-        json.dump({"world": POD_RANKS, "port": port, "devices": 2,
-                   "device_type": device_type, "out": work, "jobs": jobs},
-                  fh)
-    threads = str(max(1, (os.cpu_count() or 2) // POD_RANKS))
     t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.join(HERE, "scripts",
-                                      "torch_pod_worker.py"), spec],
-        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True, env=dict(os.environ, RANK=str(r),
-                            OMP_NUM_THREADS=threads))
-        for r in range(POD_RANKS)]
-    outs = []
-    try:
-        for q in procs:
-            outs.append(q.communicate(timeout=POD_RANK_TIMEOUT_S)[0])
-    except subprocess.TimeoutExpired:
-        for q in procs:
-            q.kill()
-            q.communicate()
-        fail(f"(u): a rank ran past {POD_RANK_TIMEOUT_S} s")
+    res = spawn_pod(work, "spec.json", jobs, device_type, 17,
+                    "(u) after (u4)'s kill")
     sec["ranks_s"] = time.perf_counter() - t0
-    with open(os.path.join(work, "ranks.log"), "w") as fh:
-        fh.write("\n\n".join(outs))
-    for r, (q, o) in enumerate(zip(procs, outs)):
-        if q.returncode != 17 or f"POD_KILLED rank={r}" not in o:
-            fail(f"(u): rank {r} exited {q.returncode} (17 expected after "
-                 f"(u4)'s kill):\n{o[-3000:]}")
-    res = [{j["name"]: j for j in (json.loads(ln[11:])
-                                   for ln in o.splitlines()
-                                   if ln.startswith("POD_RESULT "))}
-           for o in outs]
     for r, got in enumerate(res):
         if sorted(got) != sorted(j["name"] for j in jobs[:-1]):
             fail(f"(u): rank {r} reported {sorted(got)}")
@@ -2825,6 +2814,8 @@ def pod_path(X, y, launches_all, card: str,
     if resumed._gbdt._shard_plan.num_shards != 4 or w.tree_digest(
             resumed.model_to_string()) != t1_digest:
         fail("(u4): the resumed model differs from (t1)'s")
+    sec["u6"] = pod_cegb_snapshots(work, lattice, launches_all, card,
+                                   device_type)
     x = u2["allreduce"]
     lvl = x["x_hist_bytes"] / max(1, x["x_hist_calls"])
     ref_s = MESH_REF["s_per_iter"]
@@ -2865,6 +2856,209 @@ def pod_path(X, y, launches_all, card: str,
     if cuda:
         torch.cuda.empty_cache()
     sec["total_s"] = time.perf_counter() - t_path
+    return sec
+
+
+def free_port() -> int:
+    """A free localhost port for a torch.distributed group."""
+    import socket
+    with socket.socket() as so:
+        so.bind(("127.0.0.1", 0))
+        return so.getsockname()[1]
+
+
+def spawn_pod(work, spec_name, jobs, device_type, expect_rc, tag):
+    """Run ``jobs`` on POD_RANKS rank processes (scripts/torch_pod_worker.py,
+    2 virtual shards a rank), each under POD_RANK_TIMEOUT_S; returns each
+    rank's {job name: result} after checking its exit code (17 and its
+    POD_KILLED line for a job list that ends in a kill)."""
+    port = free_port()
+    spec = os.path.join(work, spec_name)
+    with open(spec, "w") as fh:
+        json.dump({"world": POD_RANKS, "port": port, "devices": 2,
+                   "device_type": device_type, "out": work, "jobs": jobs},
+                  fh)
+    threads = str(max(1, (os.cpu_count() or 2) // POD_RANKS))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "scripts",
+                                      "torch_pod_worker.py"), spec],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=dict(os.environ, RANK=str(r),
+                            OMP_NUM_THREADS=threads))
+        for r in range(POD_RANKS)]
+    outs = []
+    try:
+        for q in procs:
+            outs.append(q.communicate(timeout=POD_RANK_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        for q in procs:
+            q.kill()
+            q.communicate()
+        fail(f"{tag}: a rank ran past {POD_RANK_TIMEOUT_S} s")
+    with open(os.path.join(work, spec_name + ".log"), "w") as fh:
+        fh.write("\n\n".join(outs))
+    for r, (q, o) in enumerate(zip(procs, outs)):
+        if q.returncode != expect_rc or (
+                expect_rc == 17 and f"POD_KILLED rank={r}" not in o):
+            fail(f"{tag}: rank {r} exited {q.returncode} ({expect_rc} "
+                 f"expected):\n{o[-3000:]}")
+    return [{j["name"]: j for j in (json.loads(ln[11:])
+                                    for ln in o.splitlines()
+                                    if ln.startswith("POD_RESULT "))}
+            for o in outs]
+
+
+def pod_cegb_snapshots(work, lattice, launches_all, card: str,
+                       device_type: str = "cuda") -> dict:
+    """(u6), ROADMAP C18 on the card: (u1)'s lattice model with
+    cegb_penalty_feature_lazy on features 0-7 and snapshot_freq=2 on the
+    two ranks, killed at iteration 3. The snapshot of iteration 2 gathers
+    the lazy bitset across the ranks, the collective the non-writer rank
+    once skipped (both ranks then hung to their timeout); rank 0's
+    snapshot resumed in this process on 4 virtual shards is the unkilled
+    4-shard model (the ranks' grid, byte for byte serial as (u1) shows)
+    byte for byte. Returns its seconds."""
+    import torch
+    import lightgbm_tpu_torch as lt
+    from lightgbm_tpu_torch.ops import hist_kernels as hk
+    from lightgbm_tpu_torch.parallel.mesh import virtual_devices
+
+    tag = "(u6)"
+    w = pod_worker()
+    cuda = device_type == "cuda"
+    dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    cegb = {**lattice, "cegb_penalty_feature_lazy": [1e-3] * 8
+            + [0.0] * (F - 8), "snapshot_freq": 2}
+    snaps = os.path.join(work, "snaps6")
+    t0 = time.perf_counter()
+    spawn_pod(work, "spec6.json", [
+        {"name": "u6", "data": work, "rounds": 4, "fobj": "int",
+         "params": {**cegb, "snapshot_dir": snaps},
+         "faults": "tree_update@3"}], device_type, 17, tag)
+    sec = {"ranks_s": time.perf_counter() - t0}
+    kept = sorted(f for f in os.listdir(snaps) if f.endswith(".txt"))
+    if kept != ["snapshot_iter_2.txt"]:
+        fail(f"{tag}: snapshots {kept}")
+    hk.reset_launches()
+    t = time.perf_counter()
+    with virtual_devices(4, dev):
+        resumed = lt.train({**cegb, "device_type": device_type,
+                            "snapshot_dir": snaps}, MESH_REF["ds4"], 4,
+                           fobj=w.int_fobj, resume_from_snapshot=snaps)
+        sec["resume_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        clean = lt.train({**cegb, "device_type": device_type,
+                          "snapshot_freq": 0}, MESH_REF["ds4"], 4,
+                         fobj=w.int_fobj)
+        sec["unkilled_s"] = time.perf_counter() - t
+    used = {k: v for k, v in hk.LAUNCHES.items() if v}
+    if cuda and sorted(used) != ["hist_f32", "route_level", "take_small"]:
+        fail(f"{tag}: launches {used}")
+    for k, v in hk.LAUNCHES.items():
+        launches_all[k] += v
+    if resumed._gbdt._shard_plan.num_shards != 4 or \
+            resumed.num_trees() != 4 or w.tree_digest(
+                resumed.model_to_string()) != w.tree_digest(
+                    clean.model_to_string()):
+        fail(f"{tag}: the resumed model differs from the unkilled one")
+    print(f"[pod (u6), 2 processes x 2 virtual shards] lazy CEGB on 8 "
+          f"features, a snapshot every 2 iterations, both ranks killed at "
+          f"iteration 3 ({sec['ranks_s']:.1f} s under a "
+          f"{POD_RANK_TIMEOUT_S} s timeout each): rank 0's snapshot of "
+          f"iteration 2 resumed in this process on 4 virtual shards "
+          f"({sec['resume_s']:.1f} s) is the unkilled 4-shard model byte "
+          f"for byte ({sec['unkilled_s']:.1f} s); launches of both "
+          f"{used}; card: {card}")
+    return sec
+
+
+# (v3): the rows of (a) appended in the drill's online cycle
+LOCKWATCH_APPEND_ROWS = 500_000
+
+
+def analysis_path(X, y, launches_all, card: str,
+                  device_type: str = "cuda") -> dict:
+    """(v) "analysis": the port's static and runtime checks on the card's
+    machine. (v1) the lint over the port's tree, clean against the empty
+    baseline, and its inventory of the host syncs the level, step and
+    iteration loops reach; (v2) the nonfinite-policy-smoke rule on the
+    device; (v3) scripts/torch_lockwatch_drill.py in a fresh process (the
+    watchdog must patch threading before any port lock exists, and stays
+    out of this process's serving numbers) on (a)'s rows. Returns its
+    seconds by part."""
+    from lightgbm_tpu_torch import analysis as lint
+    from lightgbm_tpu_torch.analysis.rules.host_sync import loop_sync_sites
+    from lightgbm_tpu_torch.ops import hist_kernels as hk
+
+    tag = "[analysis (v)]"
+    sec = {}
+    # (v1) the lint
+    t0 = time.perf_counter()
+    res = lint.analyze_paths()
+    sec["lint_s"] = time.perf_counter() - t0
+    if res.failed:
+        fail(f"(v1): the port's lint failed:\n{lint.render_human(res)}")
+    inventory = []
+    for rel in ("ops/grow_depthwise.py", "ops/grow.py", "engine.py",
+                "models/gbdt.py"):
+        path = os.path.join(HERE, "lightgbm_tpu_torch", rel)
+        with open(path) as fh:
+            ctx = lint.ModuleContext("lightgbm_tpu_torch/" + rel, fh.read())
+        for line, kind, where in loop_sync_sites(ctx):
+            inventory.append(f"{rel}:{line} {kind} ({where.split(',')[0]})")
+    print(f"{tag} (v1) lint: {res.files} files, {len(res.findings)} "
+          f"findings, {len(res.suppressed)} suppressed with their reasons, "
+          f"{len(res.baselined)} baselined, {sec['lint_s']:.3f} s on the "
+          f"host; card: {card}")
+    print(f"{tag} (v1) host syncs the hot loops reach ({len(inventory)}, "
+          f"each suppressed with its reason): {json.dumps(inventory)}")
+    # (v2) the non-finite smoke on the device
+    hk.reset_launches()
+    t0 = time.perf_counter()
+    bad = lint.all_rules()["nonfinite-policy-smoke"].run_dynamic(
+        device=device_type)
+    sec["nonfinite_s"] = time.perf_counter() - t0
+    used = {k: v for k, v in hk.LAUNCHES.items() if v}
+    if bad or (device_type == "cuda" and not used):
+        fail(f"(v2): {[f.render() for f in bad]}; launches {used}")
+    for k, v in hk.LAUNCHES.items():
+        launches_all[k] += v
+    print(f"{tag} (v2) nonfinite-policy-smoke on {device_type}: fatal "
+          f"raised, warn_skip_tree kept 2 trees, clip 5 with finite "
+          f"predictions ({sec['nonfinite_s']:.2f} s); launches {used}; "
+          f"card: {card}")
+    # (v3) lockwatch under real concurrency, in a fresh process
+    rows, labels = saved_rows(X, y)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(HERE, "scripts",
+                                      "torch_lockwatch_drill.py"),
+         rows, labels, "--device", device_type, "--work", OUT_DIR,
+         "--append-rows", str(LOCKWATCH_APPEND_ROWS)],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    sec["lockwatch_s"] = time.perf_counter() - t0
+    out = [ln for ln in proc.stdout.splitlines()
+           if ln.startswith("LOCKWATCH_RESULT ")]
+    if proc.returncode != 0 or not out:
+        fail(f"(v3): rc {proc.returncode}\n{proc.stdout[-3000:]}\n"
+             f"{proc.stderr[-3000:]}")
+    r = json.loads(out[-1][len("LOCKWATCH_RESULT "):])
+    front = ("grad_quant_hist0", "hist_routed_fused", "leaf_sums_grad",
+             "take_small")
+    if device_type == "cuda" and not all(r["launches_train"][k] > 0
+                                         for k in front):
+        fail(f"(v3): the drill's training launched {r['launches_train']}")
+    for k, v in r["launches_train"].items():
+        launches_all[k] += v
+    sec["lockwatch_parts_s"] = r["seconds"]
+    print(f"{tag} (v3) lockwatch drill ({r['total_s']:.1f} s in the "
+          f"process, {sec['lockwatch_s']:.1f} s with its start): "
+          f"{len(r['sites'])} lock sites, {len(r['edges'])} order edges, "
+          f"0 inversions over {r['requests']} answers (serving and an "
+          f"online cycle {r['cycle']}, then a 2-replica fleet promoting a "
+          f"clean canary); parts {json.dumps(r['seconds'])}; launches of "
+          f"its training {r['launches_train']}; card: {card}")
+    print(f"{tag} (v3) edges: {json.dumps(r['edges'])}")
     return sec
 
 
@@ -5435,6 +5629,9 @@ def main() -> int:
     t0 = time.perf_counter()
     slice_ms["pod"] = pod_path(X, y, launches_all, card)
     print(f"path (u) pod: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    slice_ms["analysis"] = analysis_path(X, y, launches_all, card)
+    print(f"path (v) analysis: {time.perf_counter() - t0:.1f} s")
     for f_ in _SAVED_ROWS.values():
         os.remove(f_)
     for nm in kernels:

@@ -23,24 +23,39 @@ an NVIDIA Hopper GPU through eight hand-written CUDA kernels
 (``ops/hist_kernels.py``, ``csrc/``). It imports torch and numpy only:
 nothing of JAX and nothing of the ``lightgbm_tpu`` reference package.
 
+``LGBMTPU_LINT_ONLY=1`` skips the API surface, so that ``python -m
+lightgbm_tpu_torch.analysis`` (the port's lint) runs without torch.
+
 Entry points run on the GPU (``device_type="cuda"``, the default) unless
 the caller passes ``device_type="cpu"``; then every kernel wrapper runs its
 plain PyTorch version. Settings outside the ported path raise
 ``NotImplementedError`` naming their ROADMAP.md item.
 """
-from .basic import Booster, Dataset
-from .callback import (EarlyStopException, early_stopping, print_evaluation,
-                       record_evaluation, reset_parameter)
-from .config import Config
-from .engine import cv, train
-from .log import LightGBMError
-from .plotting import (create_tree_digraph, plot_importance, plot_metric,
-                       plot_split_value_histogram, plot_tree)
-from .sklearn import LGBMClassifier, LGBMModel, LGBMRanker, LGBMRegressor
+import os as _os
 
-__all__ = ["Dataset", "Booster", "Config", "train", "cv", "LightGBMError",
-           "early_stopping", "print_evaluation", "record_evaluation",
-           "reset_parameter", "EarlyStopException", "LGBMModel",
-           "LGBMClassifier", "LGBMRegressor", "LGBMRanker",
-           "plot_importance", "plot_split_value_histogram", "plot_metric",
-           "create_tree_digraph", "plot_tree"]
+if _os.environ.get("LGBMTPU_LINT_ONLY"):
+    # Lint-only mode: ``python -m lightgbm_tpu_torch.analysis`` must import
+    # this parent package (that is how -m works) but the analyzer is
+    # pure-stdlib AST and must never pull in torch. Skip the API surface;
+    # the analysis subpackage imports nothing from it.
+    __all__ = []
+else:
+    from .basic import Booster, Dataset
+    from .callback import (EarlyStopException, early_stopping,
+                           print_evaluation, record_evaluation,
+                           reset_parameter)
+    from .config import Config
+    from .engine import cv, train
+    from .log import LightGBMError
+    from .plotting import (create_tree_digraph, plot_importance,
+                           plot_metric, plot_split_value_histogram,
+                           plot_tree)
+    from .sklearn import (LGBMClassifier, LGBMModel, LGBMRanker,
+                          LGBMRegressor)
+
+    __all__ = ["Dataset", "Booster", "Config", "train", "cv",
+               "LightGBMError", "early_stopping", "print_evaluation",
+               "record_evaluation", "reset_parameter", "EarlyStopException",
+               "LGBMModel", "LGBMClassifier", "LGBMRegressor", "LGBMRanker",
+               "plot_importance", "plot_split_value_histogram",
+               "plot_metric", "create_tree_digraph", "plot_tree"]

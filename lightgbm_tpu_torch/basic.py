@@ -239,6 +239,11 @@ class Dataset:
     def num_features(self) -> int:
         return int(self.bins.shape[1])
 
+    def num_feature(self) -> int:
+        """The number of feature columns of the raw data (reference:
+        Dataset.num_feature, basic.py:884)."""
+        return self.num_features_raw or self.num_features
+
     @property
     def max_num_bins(self) -> int:
         """The most bins of a column of ``bins`` (a bundle column's under
@@ -302,6 +307,11 @@ class Dataset:
     def _construct_inner(self) -> "Dataset":
         conf = params_to_config(self.params)
         check_slice(conf)
+        if conf.num_threads and conf.num_threads > 0:
+            # the native parser's and binner's worker threads (reference:
+            # basic.py:192-194)
+            from .native import set_num_threads
+            set_num_threads(conf.num_threads)
         # a train set over several processes holds this process's rows
         # only (reference: basic.py:259-268, :295-395); the group starts
         # first, since it picks this process's card
@@ -1099,6 +1109,16 @@ class Booster:
     # ---- training ----
     def _setup_train(self, train_set: Dataset) -> None:
         check_slice(self.config)
+        if train_set._constructed:
+            # the binning parameters can no longer apply; the reference
+            # warns on a mismatched max_bin, comparing the effective
+            # (alias-resolved, defaulted) values (basic.py:1072-1083)
+            mb_b = params_to_config(self.params or {}).max_bin
+            mb_d = params_to_config(train_set.params or {}).max_bin
+            if mb_d != mb_b:
+                warning(f"Dataset was constructed before max_bin={mb_b} "
+                        f"could apply (effective max_bin={mb_d}); pass "
+                        "params to Dataset() or let Booster construct it")
         train_set.params = {**self.params, **train_set.params}
         train_set.construct()
         if train_set.label is None:
@@ -1119,13 +1139,16 @@ class Booster:
         data.construct()
         self._gbdt.add_valid(data, name)
 
-    def update(self, fobj: Optional[Callable] = None) -> bool:
+    def update(self, train_set: Optional[Dataset] = None,
+               fobj: Optional[Callable] = None) -> bool:
         """One boosting iteration; True when no further split was found.
 
-        ``fobj(score, train_set) -> (grad, hess)`` is called with the raw
-        training score as a numpy array, [N] or [N, K], and may return
-        [N] / [N, K] arrays or row-major flat ones of N * K values
-        (reference: Booster.update, basic.py:1100-1117)."""
+        ``train_set`` is accepted for LightGBM's signature and, as in the
+        reference, not used: the Booster trains on the Dataset it was
+        built with. ``fobj(score, train_set) -> (grad, hess)`` is called
+        with the raw training score as a numpy array, [N] or [N, K], and
+        may return [N] / [N, K] arrays or row-major flat ones of N * K
+        values (reference: Booster.update, basic.py:1100-1117)."""
         gb = self._gbdt
         if fobj is None:
             return gb.train_one_iter()
@@ -1321,7 +1344,7 @@ class Booster:
         return bool(self._loaded_meta.get("average_output", False))
 
     def refit(self, data, label, decay_rate: Optional[float] = None,
-              weight=None, group=None) -> "Booster":
+              weight=None, group=None, **kwargs) -> "Booster":
         """A new Booster with this model's tree structures and leaf values
         refit to new data, rows as ``predict`` takes them (reference:
         Booster.refit, basic.py:1318-1362, which densifies no sparse rows):
@@ -1330,7 +1353,8 @@ class Booster:
         refit so far, on the port's device; their leaf sums on the host in
         f64, the regularized leaf outputs ``ops/split.leaf_output`` in f32
         times the tree's shrinkage, blended as ``decay * old + (1 - decay)
-        * new``."""
+        * new``. Other keyword arguments (LightGBM's ``dataset_params``,
+        ...) are accepted and unused, as in the reference."""
         conf = params_to_config(self.params)
         decay = conf.refit_decay_rate if decay_rate is None else decay_rate
         new_b = Booster(model_str=self.model_to_string(), params=self.params)

@@ -279,10 +279,21 @@ def _write_snapshot(booster: Booster, callbacks, directory: str,
         if exp is not None:
             es_state = exp()
     try:
+        # rank-uniform in practice: _gbdt is None on EVERY rank or none
+        # (boosters construct identically before the loop), and
+        # write_snapshot enters the same get_resume_state collective the
+        # elif arm does
+        # tpu-lint: disable=collective-divergence
         if snap.is_writer_rank():
             path = snap.write_snapshot(booster, directory, iteration,
                                        keep=keep, es_state=es_state)
             log.info(f"Saved snapshot to {path}")
+        elif booster._gbdt is not None:
+            # across processes get_resume_state gathers the lazy-CEGB
+            # bitset from every rank's rows (multihost.gather_rows_tensor)
+            # -- a COLLECTIVE every rank must enter even though only the
+            # writer rank touches the disk
+            booster._gbdt.get_resume_state()
     except Exception as e:
         log.warning(f"snapshot at iteration {iteration} failed after "
                     f"retries ({type(e).__name__}: {e}); training continues")
@@ -323,6 +334,9 @@ def _run_feval(feval, booster: Booster, eval_training: bool) -> List:
     out = []
     for f in (feval if isinstance(feval, (list, tuple)) else [feval]):
         for name, score, ds in sets:
+            # feval's API takes the score as numpy (reference: engine.py
+            # _run_feval): a copy an iteration and eval set, only with a feval
+            # tpu-lint: disable=host-sync-in-jit
             res = f(np.array(score.cpu().numpy()), ds)
             for metric, value, greater in ([res] if isinstance(res, tuple)
                                            else res):

@@ -532,6 +532,12 @@ class GBDT:
                     np.flatnonzero(cegb_lazy), device=self.device)))
         self._shard_cegb()
         warn_unconsumed(config)
+        if str(config.packed_levels).lower() in ("true", "1"):
+            # the reference's wording (models/gbdt.py:221-226)
+            warning("packed_levels was an experiment falsified on this "
+                    "runtime (10-24x slower; see docs/PERF_NOTES.md) and its "
+                    "implementation is archived on branch "
+                    "archive/packed-levels; the flag is ignored")
         self._score_shape = (n,) if k == 1 else (n, k)
         self.train_score = torch.zeros(self._score_shape, dtype=torch.float32,
                                        device=self.device)
@@ -948,6 +954,7 @@ class GBDT:
                      else grow_all())
         # the non-finite guard: one device flag on the new train score, read
         # once an iteration (the level loop syncs once a level anyway)
+        # tpu-lint: disable=host-sync-in-jit
         ok = bool(torch.isfinite(self.train_score).all())
         if self._nf_policy == "clip":
             self.train_score = _sanitize(self.train_score)

@@ -86,6 +86,8 @@ def get_lib():
         lib.libsvm_fill.argtypes = [ctypes.c_char_p, ctypes.c_int64,
                                     ctypes.c_int64, ctypes.c_int64,
                                     ctypes.POINTER(ctypes.c_double)]
+        lib.set_num_threads.restype = None
+        lib.set_num_threads.argtypes = [ctypes.c_int]
         for name, ptr in (("bin_columns", ctypes.c_double),
                           ("bin_columns_f32", ctypes.c_float)):
             fn = getattr(lib, name)
@@ -102,6 +104,14 @@ def get_lib():
                     "falls back to Python")
         _lib = None
     return _lib
+
+
+def set_num_threads(n: int) -> None:
+    """Cap the native worker threads (reference: num_threads, config.h:122,
+    lightgbm_tpu/native/__init__.py:116-121)."""
+    lib = get_lib()
+    if lib is not None:
+        lib.set_num_threads(int(n))
 
 
 def _dptr(a):

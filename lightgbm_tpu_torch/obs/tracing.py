@@ -148,9 +148,11 @@ def stop_xla_trace() -> Optional[str]:
                                  f"{os.getpid()}.json")
         t0 = time.perf_counter()
         prof.export_chrome_trace(path)
-        LAST_TRACE.clear()
-        LAST_TRACE.update(path=path, bytes=os.path.getsize(path),
-                          seconds=time.perf_counter() - t0)
+        done = dict(path=path, bytes=os.path.getsize(path),
+                    seconds=time.perf_counter() - t0)
+        with _trace_lock:
+            LAST_TRACE.clear()
+            LAST_TRACE.update(done)
     except Exception as e:  # pragma: no cover - symmetric guard
         log.warning(f"could not write the profiler trace "
                     f"({type(e).__name__}: {e})")

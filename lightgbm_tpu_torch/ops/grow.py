@@ -449,6 +449,9 @@ def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
                                      forced_ptr)
         lt = torch.argmax(best_eff.gain)
         ok = best_eff.gain[lt] > NEG_INF / 2
+        # the one intended sync a step: the host picks the leaf to split
+        # and stops when none can
+        # tpu-lint: disable=host-sync-in-jit
         l, can_split = torch.stack([lt, ok.to(lt.dtype)]).tolist()
         if not can_split:
             break

@@ -193,6 +193,9 @@ def _membership_leaves(res: SplitResult, sel: torch.Tensor,
     if not (sp.cat_features or sp.has_bundles):
         return None
     cat_sel = res.is_cat & sel
+    # a second read a level, only with categorical features or bundles:
+    # route_level takes the membership tables only on a level that splits
+    # on one  # tpu-lint: disable=host-sync-in-jit
     return cat_sel if bool(cat_sel.any()) else None
 
 
@@ -214,6 +217,10 @@ def select_level(res: SplitResult, active: torch.Tensor, sp: SplitParams,
     better = (kj > ki) | ((kj == ki) & (iota[None, :] < iota[:, None]))
     rank = better.sum(dim=1)
     sel = cand & (rank < min(budget, slots))
+    # the one intended sync a level: the host sizes the level's route and
+    # histogram launches by the number of leaves that split, and stops the
+    # tree when none does
+    # tpu-lint: disable=host-sync-in-jit
     return sel, sel.nonzero().squeeze(1), torch.cumsum(sel.to(torch.int64),
                                                        0) - 1
 
@@ -426,7 +433,11 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
             for s, lid in zip(sh.shards, leaf_ids):
                 f_row = f_leaf.to(s.device)[lid.to(torch.int64)]
                 pay = (f_row >= 0) & (s.c > 0)
-                s.data_used[pay.nonzero().squeeze(1), f_row[pay]] = True
+                # each row's one cell OR-ed with its flag: no host read of
+                # how many rows paid
+                rows = torch.arange(f_row.shape[0], device=s.device)
+                col = f_row.clamp(min=0)
+                s.data_used[rows, col] = s.data_used[rows, col] | pay
 
         # ---- route + child histogram pass, each shard its own rows: one
         # slot per selected leaf (in leaf order) for the smaller child,

@@ -33,6 +33,7 @@ milliseconds counted (``XFER``).
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import List, Optional, Sequence, Tuple
 
@@ -50,11 +51,14 @@ from . import mesh as M
 # host copies of the gloo transport (cross-rank payloads of a card run
 # staged through the host): calls, bytes each way and milliseconds
 XFER = {"calls": 0, "bytes": 0, "ms": 0.0}
+# the ingest's worker threads may still commit while a collective runs
+_XFER_LOCK = threading.Lock()
 
 
 def reset_xfer() -> None:
-    for k in XFER:
-        XFER[k] = 0
+    with _XFER_LOCK:
+        for k in XFER:
+            XFER[k] = 0
 
 
 def _dist():
@@ -183,9 +187,11 @@ def _gather_raw(wire: np.ndarray) -> np.ndarray:
 
 
 def _count_host(nbytes: int, t0: float) -> None:
-    XFER["calls"] += 1
-    XFER["bytes"] += int(nbytes)
-    XFER["ms"] += (time.perf_counter() - t0) * 1e3
+    ms = (time.perf_counter() - t0) * 1e3
+    with _XFER_LOCK:
+        XFER["calls"] += 1
+        XFER["bytes"] += int(nbytes)
+        XFER["ms"] += ms
 
 
 def wire_encode(arr: np.ndarray) -> np.ndarray:

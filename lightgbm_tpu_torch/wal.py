@@ -244,7 +244,7 @@ class FeedLog:
         # append-only log handle: crash-safety comes from the record framing
         # + truncate-on-recovery scan above, not from atomic replace — this
         # is the one durable write that MUST be an in-place append
-        self._fh = open(self.path, "ab")
+        self._fh = open(self.path, "ab")  # tpu-lint: disable=non-atomic-artifact-write
 
     # ---- recovery scan ----
     def _scan(self) -> None:
@@ -330,7 +330,9 @@ class FeedLog:
                 pass
             self._fh = None
         try:
-            fh = open(self.path, "ab")
+            # the recovery truncate of the same append-only log: it cuts a
+            # torn tail back to the last whole record
+            fh = open(self.path, "ab")  # tpu-lint: disable=non-atomic-artifact-write
             fh.truncate(self._good_size)
         except OSError:
             return False
@@ -685,7 +687,7 @@ class FeedLog:
         self._fh.close()
         atomic_io.atomic_write_bytes(self.path, new_blob)
         # append-only log handle, same contract as __init__
-        self._fh = open(self.path, "ab")
+        self._fh = open(self.path, "ab")  # tpu-lint: disable=non-atomic-artifact-write
         self._batches = [b for b in self._batches if b.seq not in drop_seqs]
         self._feats = new_feats
         self._good_size = len(new_blob)

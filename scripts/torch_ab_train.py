@@ -6,7 +6,7 @@ Run from the repository root on a machine with one CUDA GPU:
     python3 scripts/torch_ab_train.py A_DIR B_DIR [--max-bin 255]
         [--objective binary|regression] [--grow-policy depthwise|lossguide]
         [--quant auto|true|false] [--sampling none|bagged|goss]
-        [--pairs 10] [--iters 1]
+        [--cegb-lazy] [--pairs 10] [--iters 1]
 
 A_DIR and B_DIR are checkouts of the repository (for example the parent
 commit unpacked with git archive, and this tree). Both copies of
@@ -16,7 +16,9 @@ binary model (or, with --objective regression, an L2 model on
 chip_smoke.py's continuous target) on the same HIGGS-shaped table
 (chip_smoke.py's generator, 10.5M x 28, seed 0) with chip_smoke.py's
 parameters, with ``--sampling`` chip_smoke.py path (e)'s bagging and
-feature fractions or path (f)'s GOSS. After one warm-up
+feature fractions or path (f)'s GOSS, and with ``--cegb-lazy`` path
+(m')'s lazy CEGB penalty (0.0005 on features 8-10), which runs the
+depthwise grower's lazy bookkeeping at every level. After one warm-up
 iteration each, the two boosters take turns, `--iters` iterations a turn,
 A first in even pairs and B first in odd ones, each turn timed on the host
 clock and ended by torch.cuda.synchronize(). Host load then falls on both
@@ -87,6 +89,7 @@ def main() -> int:
     ap.add_argument("--quant", default="auto",
                     choices=("auto", "true", "false"))
     ap.add_argument("--sampling", default="none", choices=tuple(SAMPLING))
+    ap.add_argument("--cegb-lazy", action="store_true")
     ap.add_argument("--pairs", type=int, default=10)
     ap.add_argument("--iters", type=int, default=1)
     args = ap.parse_args()
@@ -109,6 +112,10 @@ def main() -> int:
               "min_data_in_leaf": 20, "verbosity": -1,
               "grow_policy": args.grow_policy,
               "use_quantized_grad": args.quant, **SAMPLING[args.sampling]}
+    if args.cegb_lazy:                     # chip_smoke.py (m')'s
+        params["cegb_penalty_feature_lazy"] = ([0.0] * 8 + [0.0005] * 3
+                                               + [0.0] * 17)
+    lazy = params.get("cegb_penalty_feature_lazy")
     boosters = {}
     for side, root in (("A", args.a), ("B", args.b)):
         lt = load_port(root, f"lightgbm_tpu_torch_{side}")
@@ -132,7 +139,7 @@ def main() -> int:
     print(json.dumps(dict(
         a=args.a, b=args.b, max_bin=args.max_bin, objective=args.objective,
         grow_policy=args.grow_policy, quant=args.quant,
-        sampling=args.sampling, rows=args.rows,
+        sampling=args.sampling, cegb_lazy=lazy, rows=args.rows,
         card=card, a_quartiles=quartiles(times["A"]),
         b_quartiles=quartiles(times["B"]),
         b_wins=sum(b < a for a, b in zip(times["A"], times["B"])),

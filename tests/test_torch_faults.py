@@ -208,6 +208,109 @@ def test_c13_ignored_parameters_warn_as_in_reference(caplog):
     lt.train(q, lt.Dataset(X, label=y, params=q), 1)
     assert ignored(caplog.text) == []
 
+    # C21: packed_levels=true, and a Dataset constructed at max_bin=15
+    # trained at max_bin=63, warn in the reference's words
+    def warned(text):
+        return sorted(set(re.findall(
+            r"(packed_levels was an experiment falsified on this runtime "
+            r"\(10-24x slower; see docs/PERF_NOTES\.md\) and its "
+            r"implementation is archived on branch archive/packed-levels; "
+            r"the flag is ignored|Dataset was constructed before "
+            r"max_bin=\d+ could apply \(effective max_bin=\d+\))", text)))
+    base = {"objective": "binary", "num_leaves": 4, "verbosity": 0}
+    want = {}
+    for pkg, extra in ((lgb, PALLAS), (lt, CPU)):
+        lines.clear()
+        caplog.clear()
+        if pkg is lgb:
+            ref_log.set_callback(lines.append)
+        try:
+            pk = {**base, **extra, "packed_levels": True}
+            pkg.train(pk, pkg.Dataset(X, label=y, params=pk), 1)
+            d15 = {**base, **extra, "max_bin": 15}
+            ds = pkg.Dataset(X, label=y, params=d15)
+            ds.construct()
+            pkg.train({**base, **extra, "max_bin": 63}, ds, 1)
+        finally:
+            ref_log.set_callback(None)
+        want[pkg.__name__] = warned("".join(lines) if pkg is lgb
+                                    else caplog.text)
+    assert len(want["lightgbm_tpu"]) == 2, want
+    assert "effective max_bin=15" in want["lightgbm_tpu"][0]
+    assert want["lightgbm_tpu_torch"] == want["lightgbm_tpu"]
+    # the same max_bin under an alias and the default do not warn
+    caplog.clear()
+    ds = lt.Dataset(X, label=y, params={**base, **CPU, "max_bins": 63})
+    ds.construct()
+    lt.train({**base, **CPU, "max_bin": 63}, ds, 1)
+    assert warned(caplog.text) == []
+
+
+def _l2_fobj(preds, ds):
+    g = np.asarray(preds, np.float64) - _label(ds)
+    return g, np.ones_like(g)
+
+
+def _trees_text(bst):
+    """The lines of the model text that fix each tree's structure."""
+    return [ln for ln in bst.model_to_string().splitlines()
+            if ln.startswith(("split_feature=", "threshold=",
+                              "decision_type=", "left_child=",
+                              "right_child="))]
+
+
+@pytest.mark.parametrize("form", ["positional_set", "keyword_set",
+                                  "positional_fobj", "keyword_fobj"])
+def test_c19_update_takes_the_reference_arguments(form):
+    """C19: Booster.update(train_set=None, fobj=None) as in the reference
+    (and LightGBM): a Dataset passed as train_set is taken and not
+    called, fobj works by position and by keyword. Two iterations on a
+    300 x 5 L2 Booster give the reference's trees (structure exact, raw
+    predictions within C2's rtol 1e-4)."""
+    X, y = _reg(300, 5)
+    out = []
+    for pkg, extra in ((lgb, PALLAS), (lt, CPU)):
+        p = {**P, "objective": "regression", **extra}
+        ds = pkg.Dataset(X, label=y, params=p)
+        bst = pkg.Booster(params=p, train_set=ds)
+        for _ in range(2):
+            if form == "positional_set":
+                bst.update(ds)
+            elif form == "keyword_set":
+                bst.update(train_set=ds)
+            elif form == "positional_fobj":
+                bst.update(None, _l2_fobj)
+            else:
+                bst.update(train_set=None, fobj=_l2_fobj)
+        out.append(bst)
+    ref, port = out
+    assert port.num_trees() == ref.num_trees() == 2
+    assert _trees_text(port) == _trees_text(ref)
+    _assert_same_outcome(ref, port, X)
+
+
+def test_c19_refit_takes_keyword_arguments():
+    """C19: refit(X, y, decay_rate=0.9, dataset_params={}) as in the
+    reference, whose refit takes **kwargs."""
+    X, y = _reg(300, 5)
+    X2, y2 = _reg(300, 5, seed=1)
+    ref, port = _both({**P, "objective": "regression"}, X, y, 3)
+    r2 = ref.refit(X2, y2, decay_rate=0.9, dataset_params={})
+    p2 = port.refit(X2, y2, decay_rate=0.9, dataset_params={})
+    assert _trees_text(p2) == _trees_text(r2)
+    _assert_same_outcome(r2, p2, X2)
+
+
+def test_c20_dataset_num_feature():
+    """C20: Dataset.num_feature() on a constructed 300 x 5 Dataset is the
+    reference's, 5."""
+    X, y = _reg(300, 5)
+    ref = lgb.Dataset(X, label=y, params=PALLAS)
+    ref.construct()
+    port = lt.Dataset(X, label=y, params=CPU)
+    port.construct()
+    assert port.num_feature() == ref.num_feature() == 5
+
 
 def _nan_feval(score, ds):
     return [("explodes", float("nan"), False)]

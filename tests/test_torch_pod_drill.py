@@ -18,7 +18,9 @@ hessian 0.25), so that every histogram sum is exact in any order and
   ranks x 2 devices (data-parallel) and 2 x 4 (voting-parallel);
 - a kill of both ranks at iteration 4 (2 ranks x 2), resumed from rank
   0's snapshots in one process on the same 4-shard grid, is the
-  uninterrupted model;
+  uninterrupted model; with lazy CEGB, whose snapshot gathers the
+  rows' feature bitset across the ranks (ROADMAP C18), the same at a
+  kill at iteration 3;
 - a rank with another learning_rate fails the consistency fence on every
   rank, naming the field, before any tree;
 - the CLI's round-robin load trains through ``app.main`` with the
@@ -100,10 +102,11 @@ def _spawn(out, world, devices, jobs, expect_rc=0):
     for p, o in zip(procs, outs):
         assert p.returncode == expect_rc, \
             f"rank rc={p.returncode} (expected {expect_rc}):\n{o[-3000:]}"
-    if expect_rc:
-        return None
     results = [[json.loads(ln.split(" ", 1)[1]) for ln in o.splitlines()
                 if ln.startswith("POD_RESULT ")] for o in outs]
+    if expect_rc:
+        # a killed job: the results of the jobs that ran before it
+        return results
     assert all(len(r) == len(jobs) for r in results), outs[0][-3000:]
     paths = [os.path.join(out, f"collwatch_rank{r}.jsonl")
              for r in range(world)]
@@ -169,6 +172,35 @@ def test_chaos_kill_and_resume_in_one_process(pod_data, tmp_path):
     clean = _port_digest(X, y, _params("chaos"), 4, 6)
     assert resumed == clean
     assert clean == _ref_digest(X, y, _params("chaos"), 4, 6)
+
+
+def test_c18_lazy_cegb_snapshot_across_ranks_resumes(pod_data, tmp_path):
+    """C18: a lazy-CEGB run with a snapshot every 2 iterations on 2 ranks
+    x 2 shards. The snapshot gathers the lazy bitset from both ranks'
+    rows, a collective the non-writer rank once skipped, so both ranks
+    hung until their timeout. Now both ranks finish the unkilled run, and
+    a run killed at iteration 3, resumed from rank 0's snapshot of
+    iteration 2 in one process on the same 4 shards, is the unkilled
+    model byte for byte."""
+    cegb = dict(_params("chaos"), cegb_penalty_feature_lazy=[0.001] * 8)
+    snaps = str(tmp_path / "snaps")
+    killed = dict(cegb, snapshot_freq=2, snapshot_dir=snaps)
+    res = _spawn(str(tmp_path), 2, 2, [
+        {"name": "clean", "data": pod_data, "rounds": 4, "fobj": "grid9",
+         "params": dict(cegb, snapshot_freq=2,
+                        snapshot_dir=str(tmp_path / "clean_snaps"))},
+        {"name": "killed", "data": pod_data, "params": killed, "rounds": 4,
+         "fobj": "grid9", "faults": "tree_update@3"}], expect_rc=17)
+    clean = [r[0] for r in res]
+    assert [len(r) for r in res] == [1, 1]
+    assert all(r["ranks_agree"] for r in clean)
+    assert clean[0]["tree"] == clean[1]["tree"]
+    assert sorted(f for f in os.listdir(snaps) if f.endswith(".txt")) \
+        == ["snapshot_iter_2.txt"], os.listdir(snaps)
+    X, y = make_data()
+    resumed = _port_digest(X, y, killed, 4, 4, resume_from_snapshot=snaps)
+    assert resumed == clean[0]["tree"]
+    assert resumed == _port_digest(X, y, cegb, 4, 4)
 
 
 def test_fence_mismatch_raises_on_every_rank(pod_data, tmp_path):

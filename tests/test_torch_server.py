@@ -40,6 +40,16 @@ from lightgbm_tpu_torch.server import (MicroBatcher, ModelRegistry,
 # other's, so each test process keeps one
 torch.set_num_threads(1)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _lockwatch_zero_inversions():
+    """The runtime watchdog conftest installs before any lock exists (its
+    prefix also matches the port's files) must record no lock-order
+    inversion after this file's real concurrency (ROADMAP A22)."""
+    from lightgbm_tpu.analysis import lockwatch
+    yield
+    lockwatch.WATCH.assert_clean("tests/test_torch_server.py")
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RNG = np.random.RandomState(11)
 N_FEAT = 8
