@@ -3148,7 +3148,7 @@ def device_split(fn, reps=10, tries=3):
 
 # each kernel's CUDA functions (the slot histograms' compaction passes and
 # the leaf sums' final pass count as their kernel's time), as
-# scripts/torch_profile_train.py groups them
+# gbdt_bench/hw.py groups them
 KERNEL_PARTS = {
     **dict.fromkeys(("max_kernel", "quant_hist_kernel"), "grad_quant_hist0"),
     **dict.fromkeys(("hist_routed_count_kernel", "hist_routed_scan_kernel",

@@ -47,10 +47,10 @@ from .models.goss import GOSS
 from .models.rf import RF
 from .models.tree import Tree
 from .objectives import create_objective
+from .obs.tracing import span
 from .ops import predict as P
 from .ops.split import SplitParams, leaf_output
 from .utils import atomic_io
-from .utils.timer import TIMER
 
 _NO_NA_BIN = 256   # na_bin value that never matches a uint8 bin
 
@@ -298,10 +298,10 @@ class Dataset:
         basic.py:187-292): the train set finds its mappers (from a
         sample's stored values for sparse input) and its EFB plan; a valid
         set takes its reference's mappers, plan and pandas categories.
-        Timed as the ``dataset_construct`` phase (basic.py:186)."""
+        Timed as the ``dataset_construct`` span (basic.py:186)."""
         if self._constructed:
             return self
-        with TIMER.scope("dataset_construct"):
+        with span("dataset_construct", timed=True):
             return self._construct_inner()
 
     def _construct_inner(self) -> "Dataset":
@@ -1152,7 +1152,9 @@ class Booster:
         gb = self._gbdt
         if fobj is None:
             return gb.train_one_iter()
-        grad, hess = fobj(gb.train_score.cpu().numpy().copy(), gb.train_set)
+        with span("sync.fobj_score"):
+            score = gb.train_score.cpu().numpy().copy()
+        grad, hess = fobj(score, gb.train_set)
         shape = tuple(gb.train_score.shape)
         grad = np.asarray(grad, dtype=np.float32)
         hess = np.asarray(hess, dtype=np.float32)
@@ -1164,9 +1166,12 @@ class Booster:
         grad, hess, skip = gb.guard_gradients(grad, hess)
         if skip:
             return gb.skip_one_iter()
-        return gb.train_one_iter(*(torch.as_tensor(a.reshape(shape),
-                                                   device=gb.device)
-                                   for a in (grad, hess)))
+        gh = []
+        for a in (grad, hess):
+            # a blocking copy from the host: it waits for the stream
+            with span("sync.fobj_grad"):
+                gh.append(torch.as_tensor(a.reshape(shape), device=gb.device))
+        return gb.train_one_iter(*gh)
 
     def rollback_one_iter(self) -> "Booster":
         """Drop the last iteration's trees and take their scores off the

@@ -30,10 +30,11 @@ Telemetry (``obs/``) is wired as the reference wires it: the config's
 knobs and a fresh ``TIMER`` namespace at the start (:62-66), the
 ``resume`` event (:113), the ``xla_trace_out`` capture and the periodic
 flush around the loop (:173-181, :276-279), the ``boosting`` and ``eval``
-scopes, a ``train_iter`` event with the ``train_iterations`` counter, the
-``train_iter_seconds`` histogram and the device-memory gauges each
-iteration (:193-230), and the ``phase_seconds`` gauges and ``export_all``
-at the end (:283-291).
+spans (``obs/tracing.py``; at ``verbosity >= 2`` every span of the
+iteration is timed into the table), a ``train_iter`` event with the
+``train_iterations`` counter, the ``train_iter_seconds`` histogram and the
+device-memory gauges each iteration (:193-230), and the ``phase_seconds``
+gauges and ``export_all`` at the end (:283-291).
 """
 from __future__ import annotations
 
@@ -186,6 +187,8 @@ def train(params: Dict[str, Any], train_set: Dataset,
     snapshot_dir = snap.snapshot_dir_for(conf)
     nf_eval_warned: set = set()
     tele = obs.enabled()
+    # the timing table times every span of the loop, not just these two
+    table_was = tracing.set_timing_table(conf.verbosity >= 2)
     tracing.maybe_start_xla_trace(conf.xla_trace_out)
     # metrics_flush_secs > 0: live re-export during the loop; the ownership
     # token keeps a nested train from stopping an outer run's flusher
@@ -202,11 +205,11 @@ def train(params: Dict[str, Any], train_set: Dataset,
                                  begin_iteration=begin_iteration,
                                  end_iteration=end_iteration,
                                  evaluation_result_list=None))
-            with TIMER.scope("boosting"):
+            with tracing.span("boosting", timed=True):
                 finished = booster.update(fobj=fobj)
             results = []
             if booster._gbdt.valid_sets or eval_training:
-                with TIMER.scope("eval"):
+                with tracing.span("eval", timed=True):
                     if eval_training:
                         results.extend(booster.eval_train())
                     results.extend(booster.eval_valid())
@@ -237,6 +240,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
     finally:
         # the capture brackets the boosting loop and survives fatal exits
         tracing.stop_xla_trace()
+        tracing.set_timing_table(table_was)
         obs.stop_periodic_flush(flush_owner)
     if conf.verbosity >= 2:
         log.debug(TIMER.summary_string())
@@ -336,8 +340,10 @@ def _run_feval(feval, booster: Booster, eval_training: bool) -> List:
         for name, score, ds in sets:
             # feval's API takes the score as numpy (reference: engine.py
             # _run_feval): a copy an iteration and eval set, only with a feval
-            # tpu-lint: disable=host-sync-in-jit
-            res = f(np.array(score.cpu().numpy()), ds)
+            with tracing.span("sync.feval"):
+                # tpu-lint: disable=host-sync-in-jit
+                host = np.array(score.cpu().numpy())
+            res = f(host, ds)
             for metric, value, greater in ([res] if isinstance(res, tuple)
                                            else res):
                 out.append((name, metric, value, greater))

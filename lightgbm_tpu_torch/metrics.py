@@ -18,6 +18,7 @@ import torch
 
 from .config import Config
 from .log import LightGBMError
+from .obs.tracing import span
 from .utils.query import query_grid
 
 _EPS = 1e-15
@@ -38,13 +39,18 @@ class Metric:
                  weight: Optional[torch.Tensor] = None,
                  group: Optional[np.ndarray] = None) -> float:
         if self.eval_at is not None:
-            # the reference's numpy ranking metrics: f32 labels and scores
-            return float(self.fn(label.cpu().numpy(),
-                                 pred.to(torch.float32).cpu().numpy(),
-                                 None, group, self.eval_at))
+            # the reference's numpy ranking metrics: f32 labels and scores,
+            # each a host read
+            with span("sync.metric"):
+                lab = label.cpu().numpy()
+            with span("sync.metric"):
+                pr = pred.to(torch.float32).cpu().numpy()
+            return float(self.fn(lab, pr, None, group, self.eval_at))
         w = None if weight is None else weight.to(torch.float64)
-        return float(self.fn(label.to(torch.float64),
-                             pred.to(torch.float64), w))
+        value = self.fn(label.to(torch.float64), pred.to(torch.float64), w)
+        # the metric's one host read
+        with span("sync.metric"):
+            return float(value)
 
 
 def _wmean(err, w):

@@ -87,6 +87,7 @@ from ..parallel import multihost
 from ..parallel.data_parallel import grow_tree_dp
 from ..parallel.feature_parallel import (grow_tree_fp, make_feature_mesh,
                                          pad_mask, shard_features_once)
+from ..obs.tracing import span
 from ..utils import faults, threefry
 from ..ops.gather import take_small
 from ..ops.grow import ForcedSplits, GrowParams, TreeArrays, grow_tree
@@ -882,7 +883,9 @@ class GBDT:
         idx = self._feat_rng.choice(f, k, replace=False)
         mask = np.zeros(f, dtype=bool)
         mask[idx] = True
-        return torch.as_tensor(mask, device=self.device)
+        # a blocking copy from the host: it waits for the stream
+        with span("sync.column_mask"):
+            return torch.as_tensor(mask, device=self.device)
 
     def train_one_iter(self, grad: Optional[torch.Tensor] = None,
                        hess: Optional[torch.Tensor] = None) -> bool:
@@ -902,9 +905,10 @@ class GBDT:
                 if abs(init) > K_EPSILON:
                     self.init_scores[cls] = init
             if any(abs(v) > K_EPSILON for v in self.init_scores):
-                shift = torch.as_tensor(
-                    np.asarray(self.init_scores, dtype=np.float32),
-                    device=self.device)
+                with span("sync.init_score"):
+                    shift = torch.as_tensor(
+                        np.asarray(self.init_scores, dtype=np.float32),
+                        device=self.device)
                 shift = shift[0] if k == 1 else shift
                 self.train_score = self.train_score + shift
                 self.valid_scores = [s + shift for s in self.valid_scores]
@@ -920,12 +924,16 @@ class GBDT:
         saved = (self._iteration_state()
                  if self._nf_policy == "warn_skip_tree" else None)
         if grad is None and self._custom_grad:
-            grad, hess = self.objective.get_gradients(self.train_score)
-        self._update_bag(self.iter_, grad, hess)
-        bag = self._bag
-        self._fmask = self._feature_mask()
+            with span("iter.gradients"):
+                grad, hess = self.objective.get_gradients(self.train_score)
+        with span("iter.sample"):
+            self._update_bag(self.iter_, grad, hess)
+            bag = self._bag
+            self._fmask = self._feature_mask()
         if gp.fused_obj is None and grad is None:
-            grad, hess = self.objective.get_gradients(self.train_score)
+            with span("iter.gradients"):
+                grad, hess = self.objective.get_gradients(self.train_score)
+
         def grow_all() -> bool:
             any_split = False
             for cls in range(k):
@@ -942,8 +950,9 @@ class GBDT:
                     ghc = (g * bag, h * bag, (bag > 0).to(torch.float32))
                     fused = None
                 qseed = self.iter_ * k + cls     # gbdt.py:1504
-                tree, leaf_id, passes, rebuilds = self._grow(gp, ghc, fused,
-                                                             qseed)
+                with span("grow.tree"):
+                    tree, leaf_id, passes, rebuilds = self._grow(
+                        gp, ghc, fused, qseed)
                 self.hist_passes.append(passes)
                 self.hist_rebuilds.append(rebuilds)
                 any_split = any_split or tree.num_leaves > 1
@@ -954,8 +963,9 @@ class GBDT:
                      else grow_all())
         # the non-finite guard: one device flag on the new train score, read
         # once an iteration (the level loop syncs once a level anyway)
-        # tpu-lint: disable=host-sync-in-jit
-        ok = bool(torch.isfinite(self.train_score).all())
+        with span("sync.finite"):
+            # tpu-lint: disable=host-sync-in-jit
+            ok = bool(torch.isfinite(self.train_score).all())
         if self._nf_policy == "clip":
             self.train_score = _sanitize(self.train_score)
         if not ok:
@@ -1197,43 +1207,46 @@ class GBDT:
             leaf_id = (self._gather_rows(shard_ids)
                        if not self._pod or self._renews else None)
         if self.objective is not None and not self.average_output:
-            renewed = self.objective.renew_leaf_values(
-                self.train_score if k == 1 else self.train_score[:, cls],
-                leaf_id, self.gp.num_leaves)
-            if renewed is not None:
-                live = torch.arange(lv.shape[0], device=lv.device) \
-                    < tree.num_leaves
-                lv = torch.where(live, renewed.to(lv.dtype), lv)
-        shrink = torch.tensor(1.0 if self.average_output
-                              else self.learning_rate, dtype=torch.float32,
-                              device=self.device)
-        tree = tree._replace(leaf_value=lv * shrink,
-                             internal_value=tree.internal_value * shrink)
-        if shard_ids is None:
-            delta = take_small(tree.leaf_value, leaf_id)
-        else:
-            # the score update runs on each shard's rows
-            delta = self._gather_rows(
-                [take_small(tree.leaf_value.to(i.device), i)
-                 for i in shard_ids])
-        self.train_score = self._apply_tree_delta(self.train_score, delta,
-                                                  cls)
-        if self._nf_policy == "clip":
-            # the stored tree and its valid-set deltas are capped, as in
-            # the reference's fused step (:1006-1018)
-            tree = tree._replace(
-                leaf_value=_sanitize(tree.leaf_value),
-                internal_value=_sanitize(tree.internal_value))
-        bias = self.init_scores[cls] if self.iter_ == 0 else 0.0
-        if abs(bias) > K_EPSILON and not self.average_output:
-            tree = tree._replace(leaf_value=tree.leaf_value + bias,
-                                 internal_value=tree.internal_value + bias)
-        else:
-            bias = 0.0
-        for i, vs in enumerate(self.valid_sets):
-            self.valid_scores[i] = self._apply_tree_delta(
-                self.valid_scores[i], tree_delta(tree, vs) - bias, cls)
-        self.models_dev.append(tree)
+            with span("grow.leaf_renew"):
+                renewed = self.objective.renew_leaf_values(
+                    self.train_score if k == 1 else self.train_score[:, cls],
+                    leaf_id, self.gp.num_leaves)
+                if renewed is not None:
+                    live = torch.arange(lv.shape[0], device=lv.device) \
+                        < tree.num_leaves
+                    lv = torch.where(live, renewed.to(lv.dtype), lv)
+        with span("iter.score_update"):
+            with span("sync.shrink"):
+                shrink = torch.tensor(1.0 if self.average_output
+                                      else self.learning_rate,
+                                      dtype=torch.float32, device=self.device)
+            tree = tree._replace(leaf_value=lv * shrink,
+                                 internal_value=tree.internal_value * shrink)
+            if shard_ids is None:
+                delta = take_small(tree.leaf_value, leaf_id)
+            else:
+                # the score update runs on each shard's rows
+                delta = self._gather_rows(
+                    [take_small(tree.leaf_value.to(i.device), i)
+                     for i in shard_ids])
+            self.train_score = self._apply_tree_delta(self.train_score, delta,
+                                                      cls)
+            if self._nf_policy == "clip":
+                # the stored tree and its valid-set deltas are capped, as in
+                # the reference's fused step (:1006-1018)
+                tree = tree._replace(
+                    leaf_value=_sanitize(tree.leaf_value),
+                    internal_value=_sanitize(tree.internal_value))
+            bias = self.init_scores[cls] if self.iter_ == 0 else 0.0
+            if abs(bias) > K_EPSILON and not self.average_output:
+                tree = tree._replace(leaf_value=tree.leaf_value + bias,
+                                     internal_value=tree.internal_value + bias)
+            else:
+                bias = 0.0
+            for i, vs in enumerate(self.valid_sets):
+                self.valid_scores[i] = self._apply_tree_delta(
+                    self.valid_scores[i], tree_delta(tree, vs) - bias, cls)
+            self.models_dev.append(tree)
 
     def _apply_tree_delta(self, score: torch.Tensor, delta: torch.Tensor,
                           cls: int) -> torch.Tensor:

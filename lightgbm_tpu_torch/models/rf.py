@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ..log import LightGBMError
+from ..obs.tracing import span
 from .gbdt import GBDT
 
 
@@ -41,9 +42,10 @@ class RF(GBDT):
                     for cls in range(k):
                         self.init_scores[cls] = \
                             self.objective.boost_from_score()
-                shift = torch.as_tensor(
-                    np.asarray(self.init_scores, dtype=np.float32),
-                    device=self.device)
+                with span("sync.init_score"):
+                    shift = torch.as_tensor(
+                        np.asarray(self.init_scores, dtype=np.float32),
+                        device=self.device)
                 const = torch.zeros(self._score_shape, dtype=torch.float32,
                                     device=self.device) \
                     + (shift[0] if k == 1 else shift)
@@ -54,8 +56,9 @@ class RF(GBDT):
     def _apply_tree_delta(self, score, delta, cls):
         """The running mean over the iter_ + 1 trees so far (rf.hpp
         TrainOneIter), train and valid scores alike."""
-        titer = torch.tensor(float(self.iter_ + 1), dtype=torch.float32,
-                             device=score.device)
+        with span("sync.rf_mean"):
+            titer = torch.tensor(float(self.iter_ + 1), dtype=torch.float32,
+                                 device=score.device)
         if self.num_tree_per_iteration == 1:
             return (score * (titer - 1.0) + delta) / titer
         score[:, cls] = (score[:, cls] * (titer - 1.0) + delta) / titer

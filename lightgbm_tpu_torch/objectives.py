@@ -26,6 +26,7 @@ import torch
 
 from .config import Config, objective_kind
 from .log import LightGBMError
+from .obs.tracing import span
 from .ops.hist_kernels import grad_rows
 from .utils.query import query_grid
 
@@ -36,10 +37,18 @@ def _weighted(grad, hess, weight):
     return grad * weight, hess * weight
 
 
+def _host(x: torch.Tensor) -> float:
+    """A one-element tensor read on the host: a sync, in a span of its
+    own."""
+    with span("sync.objective"):
+        return float(x)
+
+
 def _f32(x) -> float:
     """x (a number or a one-element tensor on any device) rounded to f32:
     the value of a reference f32 scalar."""
-    return float(np.float32(float(x)))
+    return float(np.float32(_host(x) if isinstance(x, torch.Tensor)
+                            else float(x)))
 
 
 def _wmean(x: torch.Tensor, weight: Optional[torch.Tensor]) -> float:
@@ -165,7 +174,7 @@ class RegressionL1(RegressionL2):
                          torch.ones_like(score), self.weight)
 
     def boost_from_score(self) -> float:
-        return float(weighted_percentile(self.label, self.weight, 0.5))
+        return _host(weighted_percentile(self.label, self.weight, 0.5))
 
     def renew_leaf_values(self, score, leaf_id, num_leaves):
         # the leaf's weighted median residual (RegressionL1loss::
@@ -228,7 +237,7 @@ class Quantile(RegressionL2):
         return _weighted(grad, torch.ones_like(score), self.weight)
 
     def boost_from_score(self) -> float:
-        return float(weighted_percentile(self.label, self.weight,
+        return _host(weighted_percentile(self.label, self.weight,
                                          self.config.alpha))
 
     def renew_leaf_values(self, score, leaf_id, num_leaves):
@@ -252,7 +261,7 @@ class Mape(RegressionL2):
         return torch.sign(score - self.label) * self._mape_w, self._mape_w
 
     def boost_from_score(self) -> float:
-        return float(weighted_percentile(self.label, self._mape_w, 0.5))
+        return _host(weighted_percentile(self.label, self._mape_w, 0.5))
 
     def renew_leaf_values(self, score, leaf_id, num_leaves):
         return leaf_percentile(self.label - score, leaf_id, num_leaves, 0.5,
@@ -634,8 +643,10 @@ def weighted_percentile(values: torch.Tensor,
     if weights is None:
         return v[min(max(int(alpha * n), 0), n - 1)]
     cw = torch.cumsum(weights[order].to(torch.float64), 0)
-    cutoff = torch.tensor(_f32(alpha), dtype=torch.float32,
-                          device=v.device) * cw[-1].to(torch.float32)
+    # a blocking copy of a Python scalar
+    with span("sync.objective"):
+        a = torch.tensor(_f32(alpha), dtype=torch.float32, device=v.device)
+    cutoff = a * cw[-1].to(torch.float32)
     idx = torch.searchsorted(cw, cutoff.to(torch.float64).reshape(1))
     return v[idx.clamp(0, n - 1)][0]
 
@@ -670,11 +681,14 @@ def leaf_percentile(residual: torch.Tensor, leaf_id: torch.Tensor,
     end = torch.searchsorted(l_s, leaves, right=True)
     cw0 = torch.cat([cw.new_zeros(1), cw])
     before = cw0[start]
-    cutoff = torch.tensor(_f32(alpha), dtype=torch.float32, device=dev) \
-        * (cw0[end] - before).to(torch.float32)
+    # a blocking copy of a Python scalar, and the picked rows' count
+    with span("sync.objective"):
+        a = torch.tensor(_f32(alpha), dtype=torch.float32, device=dev)
+    cutoff = a * (cw0[end] - before).to(torch.float32)
     cw_in = cw - before[l_s]
     c = cutoff.to(torch.float64)[l_s]
-    hit = ((cw_in >= c) & (cw_in - w_s < c)).nonzero().squeeze(1)
+    with span("sync.objective"):
+        hit = ((cw_in >= c) & (cw_in - w_s < c)).nonzero().squeeze(1)
     out = torch.zeros(num_leaves, dtype=torch.float32, device=dev)
     out[l_s[hit]] = r_s[hit]
     return torch.where(torch.isfinite(out), out, torch.zeros_like(out))

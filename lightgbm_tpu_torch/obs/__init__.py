@@ -80,6 +80,10 @@ def enabled() -> bool:
     return _STATE.enabled
 
 
+# an environment that switches telemetry on times the spans from the start
+tracing.refresh_timing()
+
+
 def configure(enabled: Optional[bool] = None,
               metrics_out: Optional[str] = None) -> None:
     with _STATE.lock:
@@ -87,6 +91,7 @@ def configure(enabled: Optional[bool] = None,
             _STATE.enabled = bool(enabled)
         if metrics_out is not None:
             _STATE.metrics_out = str(metrics_out)
+    tracing.refresh_timing()
 
 
 def configure_from_config(conf) -> None:

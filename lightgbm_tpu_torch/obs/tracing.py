@@ -1,10 +1,30 @@
 """Trace spans: one name, three sinks.
 
-Port of ``lightgbm_tpu/obs/tracing.py``. A :func:`span` scope feeds the
-same name to (1) the ``TIMER`` wall-clock registry (whose scopes open
-``torch.profiler.record_function`` ranges, so the name lines up in a
-torch.profiler trace) and (2), when telemetry is enabled, a log2 latency
-histogram ``span_seconds{span=<name>}`` in the metrics registry.
+Port of ``lightgbm_tpu/obs/tracing.py``. :func:`span` is the program's one
+span API. Each span feeds its name to whichever sinks are on:
+
+- while a torch profiler records (torch's own flag), a
+  ``torch.profiler.record_function`` range of the name, on the profiler's
+  clock beside the device's kernels, copies and memsets, its parent the
+  range that contains it on the same thread;
+- with telemetry on (``telemetry=1``) or the timing table asked for
+  (``verbosity >= 2``, :func:`set_timing_table`), its wall time into the
+  ``TIMER`` registry and, with telemetry on, into the log2 latency
+  histogram ``span_seconds{span=<name>}`` of the metrics registry.
+
+With none of them on, a span reads one flag and the profiler's and
+returns a shared no-op scope: no clock read, no lock, no range. A
+``timed`` span (the engine's ``boosting`` and ``eval``, the Dataset's
+``dataset_construct``) adds its wall time to ``TIMER`` whatever the
+settings, since ``TIMER.last_run`` and the ``phase_seconds`` gauges read
+it.
+
+The boosting iteration's spans (fixed names; nesting by containment):
+``iter.sample``, ``iter.gradients``, ``grow.tree`` holding ``grow.front``,
+``grow.pass`` (``pass.search``, ``pass.apply``, ``pass.hist``) and
+``grow.leaf_renew``, then ``iter.score_update``; every call that blocks
+the host on the card sits in a ``sync.<site>`` span of its own, so the
+number of ``sync.*`` spans is the number of host syncs.
 
 Request tracing (the serve path, ROADMAP A18): :func:`mint_trace_id`
 stamps a process-unique id on each request; :func:`record_span` observes an
@@ -31,8 +51,11 @@ import threading
 import time
 from typing import Any, Dict, List, Optional
 
+from torch._C._autograd import _profiler_enabled as _recording
+from torch.profiler import record_function
+
 from .. import log
-from ..utils.timer import TIMER
+from ..utils.timer import TIMER, sync_on
 
 # the running capture (its directory and profiler) is check-then-acted on
 # from whichever thread calls maybe_start/stop; the lock makes the "already
@@ -43,18 +66,81 @@ _trace: Optional[tuple] = None
 LAST_TRACE: Dict[str, Any] = {}
 
 
-@contextlib.contextmanager
-def span(name: str, block_on=None):
-    """Timed scope: TIMER accumulation + record_function range + latency
-    histogram (histogram only when telemetry is on; the disabled path adds
-    only a clock read over a bare ``TIMER.scope``)."""
-    from . import enabled, METRICS
-    t0 = time.perf_counter()
-    with TIMER.scope(name, block_on=block_on):
-        yield
-    if enabled():
-        METRICS.histogram("span_seconds", "span wall time by name",
-                          span=name).observe(time.perf_counter() - t0)
+# spans time themselves while telemetry is on or the timing table is asked
+# for: one module flag, which refresh_timing rewrites under the lock and a
+# span reads without it (a stale read times one span more or less)
+_timing_lock = threading.Lock()
+_timing = False
+_table = False
+_NOOP = contextlib.nullcontext()
+
+
+def refresh_timing() -> None:
+    """Re-read whether spans time themselves (``obs.configure`` and
+    :func:`set_timing_table` call it)."""
+    global _timing
+    from . import enabled
+    with _timing_lock:
+        _timing = _table or enabled()
+
+
+def set_timing_table(on: bool) -> bool:
+    """Ask for (or stop asking for) the timing table, which times every
+    span into ``TIMER`` (``engine.train`` at ``verbosity >= 2``); returns
+    the previous setting."""
+    global _table
+    with _timing_lock:
+        was, _table = _table, bool(on)
+    refresh_timing()
+    return was
+
+
+class _Span:
+    """A span that records, times, or both (``span`` decides which)."""
+    __slots__ = ("name", "rec", "timed", "block_on", "rf", "t0")
+
+    def __init__(self, name: str, rec: bool, timed: bool, block_on):
+        self.name, self.rec, self.timed = name, rec, timed
+        self.block_on = block_on
+        self.rf = None
+
+    def __enter__(self):
+        if self.rec:
+            self.rf = record_function(self.name)
+            self.rf.__enter__()
+        if self.timed:
+            self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            if self.timed and self.block_on is not None and exc[0] is None:
+                b = self.block_on
+                sync_on(b() if callable(b) else b)
+        finally:
+            if self.rf is not None:
+                self.rf.__exit__(*exc)
+        if self.timed:
+            dt = time.perf_counter() - self.t0
+            TIMER.add(self.name, dt)
+            from . import METRICS, enabled
+            if enabled():
+                METRICS.histogram("span_seconds", "span wall time by name",
+                                  span=self.name).observe(dt)
+        return False
+
+
+def span(name: str, block_on=None, timed: bool = False):
+    """The scope of one named span (see the module's docstring).
+    ``block_on`` (tensors, or a callable returning them): a timed span
+    synchronizes their CUDA devices before its clock stops, so that it
+    covers the device's work, not just its launch. ``timed``: add the wall
+    time to ``TIMER`` whatever the settings."""
+    rec = _recording()
+    timed = (timed and TIMER.enabled) or _timing
+    if not (rec or timed):
+        return _NOOP
+    return _Span(name, rec, timed, block_on)
 
 
 def record_span(name: str, seconds: float) -> None:

@@ -32,6 +32,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..obs.tracing import span
 from ..utils import threefry
 from . import hist_kernels as K
 from . import histogram as H
@@ -324,8 +325,14 @@ def monotone_child_bounds(sp: SplitParams, f: int, is_cat: torch.Tensor,
     its parent's; a split on a constrained column pins the midpoint of
     the two outputs as the bound between them. Returns (left min, left
     max, right min, right max), shaped like ``w_l``."""
-    mf = torch.where(is_cat, torch.zeros_like(feat),
-                     sp.monotone_array(f, feat.device)[feat])
+    mono = sp.monotone_array(f, feat.device)
+    if feat.dim() == 0:
+        # a leaf-wise step's 0-d index: indexing reads it on the host
+        with span("sync.monotone"):
+            mono_f = mono[feat]
+    else:
+        mono_f = mono[feat]
+    mf = torch.where(is_cat, torch.zeros_like(feat), mono_f)
     mid = (w_l + w_r) / 2.0
     return (torch.where(mf < 0, torch.maximum(lo, mid), lo),
             torch.where(mf > 0, torch.minimum(hi, mid), hi),
@@ -362,8 +369,10 @@ def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
     then searches both children's best splits at once. Node t is created
     by step t and its right child is leaf t + 1. The reference runs the
     L - 1 steps in one ``lax.scan``; here the step loop runs on the host and
-    reads the chosen leaf and its "can split" flag once a step, the one
-    host sync of a step.
+    reads the chosen leaf and its "can split" flag once a step. A step
+    blocks the host on the card four or five times: that read, the
+    chosen gain's 0-d index, and the node's pointers written as Python
+    ints; each sits in a ``sync.*`` span (``obs/tracing.py``).
 
     With ``gp.hist_pool`` = P < L (and no forced splits, which keep every
     histogram resident, reference :278) at most P leaf histograms are
@@ -385,58 +394,10 @@ def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
     fdev = sh.feature_devices
     L, B = gp.num_leaves, gp.max_bin
     sp = gp.split
-    hist0 = _hist_allreduce([H.hist_leaf(s.bins_T, B, rows=s.rows)
-                             for s in sh.shards], gp, 1, fdev)
-    g0, h0, c0 = tree_sum(hist0[0, 0]), tree_sum(hist0[1, 0]), \
-        tree_sum(hist0[2, 0])
-    ones = torch.ones(2, dtype=torch.bool, device=dev)
-    best0 = best_split(hist0[None], num_bins, na_bin, g0[None], h0[None],
-                       c0[None], node_feature_mask(feature_mask, gp, qseed, L),
-                       sp, ones[:1], bundle,
-                       rand_key=extra_trees_key(sp, qseed, L))
-
-    def tile(x: torch.Tensor, fill) -> torch.Tensor:
-        out = torch.full((L,), fill, dtype=x.dtype, device=dev)
-        out[0] = x[0]
-        return out
-
-    member0 = torch.zeros((L, B), dtype=torch.bool, device=dev)
-    member0[0] = best0.cat_member[0]
-    best = SplitResult(
-        gain=tile(best0.gain, NEG_INF), feature=tile(best0.feature, 0),
-        bin=tile(best0.bin, 0), default_left=tile(best0.default_left, False),
-        left_g=tile(best0.left_g, 0.0), left_h=tile(best0.left_h, 0.0),
-        left_cnt=tile(best0.left_cnt, 0.0),
-        is_cat=tile(best0.is_cat, False), cat_member=member0)
-    # the histogram pool: P cached slots, each leaf's slot (-1: evicted),
-    # each slot's leaf (-1: free) and the step that last wrote it
-    P = gp.hist_pool if 0 < gp.hist_pool < L and forced is None else L
-    pooled = P < L
-    hist = torch.zeros((P, 3, f, B), dtype=torch.float32, device=dev)
-    hist[0] = hist0
-    slot_of_leaf = [0] + [-1] * (L - 1)
-    leaf_of_slot = [0] + [-1] * (P - 1)
-    slot_age = [0] * P
-    rebuilds = 0
-    leaf_g, leaf_h, leaf_c = (torch.zeros(L, dtype=torch.float32, device=dev)
-                              for _ in range(3))
-    leaf_g[0], leaf_h[0], leaf_c[0] = g0, h0, c0
-    tree = empty_tree(L, B, dev)
-    leaf_ids = [torch.zeros(s.bins_T.shape[1], dtype=torch.int32,
-                            device=s.device) for s in sh.shards]
-    # monotone output bounds and forced-node pointers of the leaves
-    leaf_min = torch.full((L,), -float("inf"), device=dev)
-    leaf_max = torch.full((L,), float("inf"), device=dev)
-    forced_ptr = torch.full((L,), -1, dtype=torch.int64, device=dev)
-    if forced is not None:
-        forced_ptr[0] = 0
-    # host-side bookkeeping: every entry follows from the chosen leaves
-    depth = [0] * L
-    parent_node = [-1] * L
-    parent_right = [False] * L
-    num_leaves = 1
-
-    for t in range(L - 1):
+    def choose():
+        """The step's choice: (the records with any forced split applied,
+        the leaf to split, whether it can split)."""
+        nonlocal forced_ptr
         best_eff = best
         if forced is not None:
             # a leaf holding a forced node splits on it first (gain 1e30);
@@ -448,134 +409,227 @@ def grow_tree(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
                                      torch.full_like(forced_ptr, -1),
                                      forced_ptr)
         lt = torch.argmax(best_eff.gain)
-        ok = best_eff.gain[lt] > NEG_INF / 2
+        # a 0-d index tensor: indexing reads it on the host
+        with span("sync.step_index"):
+            ok = best_eff.gain[lt] > NEG_INF / 2
         # the one intended sync a step: the host picks the leaf to split
         # and stops when none can
-        # tpu-lint: disable=host-sync-in-jit
-        l, can_split = torch.stack([lt, ok.to(lt.dtype)]).tolist()
+        with span("sync.step"):
+            # tpu-lint: disable=host-sync-in-jit
+            l, can_split = torch.stack([lt, ok.to(lt.dtype)]).tolist()
+        return best_eff, l, can_split
+
+    with span("grow.front"):
+        hist0 = _hist_allreduce([H.hist_leaf(s.bins_T, B, rows=s.rows)
+                                 for s in sh.shards], gp, 1, fdev)
+        g0, h0, c0 = tree_sum(hist0[0, 0]), tree_sum(hist0[1, 0]), \
+            tree_sum(hist0[2, 0])
+        ones = torch.ones(2, dtype=torch.bool, device=dev)
+        best0 = best_split(hist0[None], num_bins, na_bin, g0[None], h0[None],
+                           c0[None],
+                           node_feature_mask(feature_mask, gp, qseed, L),
+                           sp, ones[:1], bundle,
+                           rand_key=extra_trees_key(sp, qseed, L))
+
+        def tile(x: torch.Tensor, fill) -> torch.Tensor:
+            out = torch.full((L,), fill, dtype=x.dtype, device=dev)
+            out[0] = x[0]
+            return out
+
+        member0 = torch.zeros((L, B), dtype=torch.bool, device=dev)
+        member0[0] = best0.cat_member[0]
+        best = SplitResult(
+            gain=tile(best0.gain, NEG_INF), feature=tile(best0.feature, 0),
+            bin=tile(best0.bin, 0),
+            default_left=tile(best0.default_left, False),
+            left_g=tile(best0.left_g, 0.0), left_h=tile(best0.left_h, 0.0),
+            left_cnt=tile(best0.left_cnt, 0.0),
+            is_cat=tile(best0.is_cat, False), cat_member=member0)
+        # the histogram pool: P cached slots, each leaf's slot (-1:
+        # evicted), each slot's leaf (-1: free) and the step that last
+        # wrote it
+        P = gp.hist_pool if 0 < gp.hist_pool < L and forced is None else L
+        pooled = P < L
+        hist = torch.zeros((P, 3, f, B), dtype=torch.float32, device=dev)
+        hist[0] = hist0
+        slot_of_leaf = [0] + [-1] * (L - 1)
+        leaf_of_slot = [0] + [-1] * (P - 1)
+        slot_age = [0] * P
+        rebuilds = 0
+        leaf_g, leaf_h, leaf_c = (torch.zeros(L, dtype=torch.float32,
+                                              device=dev) for _ in range(3))
+        leaf_g[0], leaf_h[0], leaf_c[0] = g0, h0, c0
+        tree = empty_tree(L, B, dev)
+        leaf_ids = [torch.zeros(s.bins_T.shape[1], dtype=torch.int32,
+                                device=s.device) for s in sh.shards]
+        # monotone output bounds and forced-node pointers of the leaves
+        leaf_min = torch.full((L,), -float("inf"), device=dev)
+        leaf_max = torch.full((L,), float("inf"), device=dev)
+        forced_ptr = torch.full((L,), -1, dtype=torch.int64, device=dev)
+        if forced is not None:
+            with span("sync.forced"):
+                forced_ptr[0] = 0
+        # host-side bookkeeping: every entry follows from the chosen leaves
+        depth = [0] * L
+        parent_node = [-1] * L
+        parent_right = [False] * L
+        num_leaves = 1
+        # the root's choice is the front's, and each step ends with the
+        # choice of the next: a choice that finds no split opens no pass
+        step = choose() if L > 1 else None
+
+    for t in range(L - 1):
+        best_eff, l, can_split = step
         if not can_split:
             break
         new_leaf = t + 1
-        feat = best_eff.feature[l]
+        with span("grow.pass"):
+            with span("pass.hist"):
+                feat = best_eff.feature[l]
 
-        # ---- partition rows (DataPartition::Split: a where on leaf_id),
-        # each shard its own ----
-        split_rec = (feat.view(1), na_bin.index_select(0, feat.view(1)),
-                     best_eff.default_left[l], best_eff.bin[l],
-                     best_eff.is_cat[l], best_eff.cat_member[l])
-        for i, s in enumerate(sh.shards):
-            ft, na_f, dl, thr, isc, mem = (x.to(s.device) for x in split_rec)
-            col = s.bins_T.index_select(0, ft)[0].to(torch.int32)
-            go_right = torch.where(col == na_f, ~dl, col > thr)
-            if sp.cat_features or sp.has_bundles:
-                # a categorical or bundle split sends its member bins left
-                # (reference: grow.py:355-358)
-                go_right = torch.where(isc, ~mem[col.long()], go_right)
-            leaf_ids[i] = torch.where((leaf_ids[i] == l) & go_right,
-                                      new_leaf, leaf_ids[i])
+                # ---- partition rows (DataPartition::Split: a where on
+                # leaf_id), each shard its own ----
+                split_rec = (feat.view(1),
+                             na_bin.index_select(0, feat.view(1)),
+                             best_eff.default_left[l], best_eff.bin[l],
+                             best_eff.is_cat[l], best_eff.cat_member[l])
+                for i, s in enumerate(sh.shards):
+                    ft, na_f, dl, thr, isc, mem = (x.to(s.device)
+                                                   for x in split_rec)
+                    col = s.bins_T.index_select(0, ft)[0].to(torch.int32)
+                    go_right = torch.where(col == na_f, ~dl, col > thr)
+                    if sp.cat_features or sp.has_bundles:
+                        # a categorical or bundle split sends its member
+                        # bins left (reference: grow.py:355-358)
+                        go_right = torch.where(isc, ~mem[col.long()],
+                                               go_right)
+                    leaf_ids[i] = torch.where((leaf_ids[i] == l) & go_right,
+                                              new_leaf, leaf_ids[i])
 
-        # ---- child stats ----
-        lg, lh, lc = best_eff.left_g[l], best_eff.left_h[l], best_eff.left_cnt[l]
-        pg, ph, pc = leaf_g[l], leaf_h[l], leaf_c[l]
-        rg, rh, rc = pg - lg, ph - lh, pc - lc
+                # ---- child stats ----
+                lg, lh, lc = (best_eff.left_g[l], best_eff.left_h[l],
+                              best_eff.left_cnt[l])
+                pg, ph, pc = leaf_g[l], leaf_h[l], leaf_c[l]
+                rg, rh, rc = pg - lg, ph - lh, pc - lc
 
-        # ---- smaller-child histogram + sibling by subtraction ----
-        small_is_left = lc <= rc
-        small_leaf = torch.where(small_is_left, l, new_leaf)
-        hist_small = _hist_allreduce([
-            K.hist_f32(s.bins_T, s.g, s.h, s.c,
-                       (lid != small_leaf.to(s.device)).to(torch.int32), 1,
-                       B, s.bins)[0]          # slot 1: dropped
-            for s, lid in zip(sh.shards, leaf_ids)], gp, 1, fdev)
-        if not pooled:
-            hist_parent = hist[l]
-        elif slot_of_leaf[l] >= 0:
-            hist_parent = hist[slot_of_leaf[l]]
-        else:
-            # the parent was evicted: one pass over its pre-split rows
-            hist_parent = _hist_allreduce([
-                K.hist_f32(s.bins_T, s.g, s.h, s.c,
-                           (~((lid == l) | (lid == new_leaf))).to(
-                               torch.int32), 1, B, s.bins)[0]
-                for s, lid in zip(sh.shards, leaf_ids)], gp, 1, fdev)
-            rebuilds += 1
-        hist_large = hist_parent - hist_small
-        hist_left = torch.where(small_is_left, hist_small, hist_large)
-        hist_right = torch.where(small_is_left, hist_large, hist_small)
-        if pooled:
-            slot_l, slot_r = _pool_slots(slot_of_leaf[l], slot_age)
-            for sl, leaf in ((slot_l, l), (slot_r, new_leaf)):
-                if leaf_of_slot[sl] >= 0:
-                    slot_of_leaf[leaf_of_slot[sl]] = -1
-                leaf_of_slot[sl] = leaf
-                slot_of_leaf[leaf] = sl
-                slot_age[sl] = t + 1
-        else:
-            slot_l, slot_r = l, new_leaf
-        hist[slot_l] = hist_left
-        hist[slot_r] = hist_right
+                # ---- smaller-child histogram + sibling by subtraction ----
+                small_is_left = lc <= rc
+                small_leaf = torch.where(small_is_left, l, new_leaf)
+                hist_small = _hist_allreduce([
+                    K.hist_f32(s.bins_T, s.g, s.h, s.c,
+                               (lid != small_leaf.to(s.device)).to(
+                                   torch.int32), 1, B, s.bins)[0]
+                    for s, lid in zip(sh.shards, leaf_ids)], gp, 1, fdev)
+                if not pooled:
+                    hist_parent = hist[l]
+                elif slot_of_leaf[l] >= 0:
+                    hist_parent = hist[slot_of_leaf[l]]
+                else:
+                    # the parent was evicted: one pass over its pre-split
+                    # rows
+                    hist_parent = _hist_allreduce([
+                        K.hist_f32(s.bins_T, s.g, s.h, s.c,
+                                   (~((lid == l) | (lid == new_leaf))).to(
+                                       torch.int32), 1, B, s.bins)[0]
+                        for s, lid in zip(sh.shards, leaf_ids)], gp, 1, fdev)
+                    rebuilds += 1
+                hist_large = hist_parent - hist_small
+                hist_left = torch.where(small_is_left, hist_small, hist_large)
+                hist_right = torch.where(small_is_left, hist_large,
+                                         hist_small)
+                if pooled:
+                    slot_l, slot_r = _pool_slots(slot_of_leaf[l], slot_age)
+                    for sl, leaf in ((slot_l, l), (slot_r, new_leaf)):
+                        if leaf_of_slot[sl] >= 0:
+                            slot_of_leaf[leaf_of_slot[sl]] = -1
+                        leaf_of_slot[sl] = leaf
+                        slot_of_leaf[leaf] = sl
+                        slot_age[sl] = t + 1
+                else:
+                    slot_l, slot_r = l, new_leaf
+                hist[slot_l] = hist_left
+                hist[slot_r] = hist_right
 
-        # ---- tree arrays (node t) ----
-        par = parent_node[l]
-        if par >= 0:
-            (tree.right_child if parent_right[l] else tree.left_child)[par] = t
-        tree.left_child[t] = ~l
-        tree.right_child[t] = ~new_leaf
-        tree.split_feature[t] = feat
-        tree.threshold_bin[t] = best_eff.bin[l]
-        tree.default_left[t] = best_eff.default_left[l]
-        tree.split_gain[t] = best_eff.gain[l]
-        tree.is_cat[t] = best_eff.is_cat[l]
-        tree.cat_mask[t] = best_eff.cat_member[l]
-        # (pg, ph, pc are views of the leaf stats rewritten below)
-        w_l, w_r = leaf_output(lg, lh, sp), leaf_output(rg, rh, sp)
-        w_p = leaf_output(pg, ph, sp)
-        if sp.has_monotone:
-            # outputs clamped to the parent's bounds; the children's
-            # bounds pin the midpoint on a constrained column
-            lo, hi = leaf_min[l].clone(), leaf_max[l].clone()
-            w_l, w_r, w_p = (torch.clamp(w, lo, hi) for w in (w_l, w_r, w_p))
-            lo_l, hi_l, lo_r, hi_r = monotone_child_bounds(
-                sp, f, best_eff.is_cat[l], feat, w_l, w_r, lo, hi)
-            leaf_min[l], leaf_max[l] = lo_l, hi_l
-            leaf_min[new_leaf], leaf_max[new_leaf] = lo_r, hi_r
-        if forced is not None:
-            # the forced pointer moves to the children
-            fnode = torch.clamp(forced_ptr[l], min=0)
-            applied = forced_ptr[l] >= 0
-            fl_next = torch.where(applied, forced.left[fnode], -1)
-            fr_next = torch.where(applied, forced.right[fnode], -1)
-            forced_ptr[l], forced_ptr[new_leaf] = fl_next, fr_next
-        tree.internal_value[t] = w_p
-        tree.internal_weight[t] = ph
-        tree.internal_count[t] = pc
-        for arr, left, right in ((tree.leaf_value, w_l, w_r),
-                                 (tree.leaf_weight, lh, rh),
-                                 (tree.leaf_count, lc, rc),
-                                 (leaf_g, lg, rg), (leaf_h, lh, rh),
-                                 (leaf_c, lc, rc)):
-            arr[l] = left
-            arr[new_leaf] = right
+            with span("pass.apply"):
+                # ---- tree arrays (node t) ----
+                # the node's pointers are Python ints written into device
+                # tensors: each a blocking copy
+                par = parent_node[l]
+                if par >= 0:
+                    with span("sync.node"):
+                        (tree.right_child if parent_right[l]
+                         else tree.left_child)[par] = t
+                with span("sync.node"):
+                    tree.left_child[t] = ~l
+                with span("sync.node"):
+                    tree.right_child[t] = ~new_leaf
+                tree.split_feature[t] = feat
+                tree.threshold_bin[t] = best_eff.bin[l]
+                tree.default_left[t] = best_eff.default_left[l]
+                tree.split_gain[t] = best_eff.gain[l]
+                tree.is_cat[t] = best_eff.is_cat[l]
+                tree.cat_mask[t] = best_eff.cat_member[l]
+                # (pg, ph, pc are views of the leaf stats rewritten below)
+                w_l, w_r = leaf_output(lg, lh, sp), leaf_output(rg, rh, sp)
+                w_p = leaf_output(pg, ph, sp)
+                if sp.has_monotone:
+                    # outputs clamped to the parent's bounds; the
+                    # children's bounds pin the midpoint on a constrained
+                    # column
+                    lo, hi = leaf_min[l].clone(), leaf_max[l].clone()
+                    w_l, w_r, w_p = (torch.clamp(w, lo, hi)
+                                     for w in (w_l, w_r, w_p))
+                    lo_l, hi_l, lo_r, hi_r = monotone_child_bounds(
+                        sp, f, best_eff.is_cat[l], feat, w_l, w_r, lo, hi)
+                    leaf_min[l], leaf_max[l] = lo_l, hi_l
+                    leaf_min[new_leaf], leaf_max[new_leaf] = lo_r, hi_r
+                if forced is not None:
+                    # the forced pointer moves to the children
+                    fnode = torch.clamp(forced_ptr[l], min=0)
+                    applied = forced_ptr[l] >= 0
+                    fl_next = torch.where(applied, forced.left[fnode], -1)
+                    fr_next = torch.where(applied, forced.right[fnode], -1)
+                    forced_ptr[l], forced_ptr[new_leaf] = fl_next, fr_next
+                tree.internal_value[t] = w_p
+                tree.internal_weight[t] = ph
+                tree.internal_count[t] = pc
+                for arr, left, right in ((tree.leaf_value, w_l, w_r),
+                                         (tree.leaf_weight, lh, rh),
+                                         (tree.leaf_count, lc, rc),
+                                         (leaf_g, lg, rg), (leaf_h, lh, rh),
+                                         (leaf_c, lc, rc)):
+                    arr[l] = left
+                    arr[new_leaf] = right
+                d = depth[l] + 1
+                depth[l] = depth[new_leaf] = d
+                parent_node[l] = parent_node[new_leaf] = t
+                parent_right[l], parent_right[new_leaf] = False, True
+                num_leaves += 1
 
-        # ---- best splits of the two children (batched) ----
-        d = depth[l] + 1
-        allow = ones if gp.max_depth <= 0 or d < gp.max_depth else ~ones
-        ch_mask = node_feature_mask(feature_mask.expand(2, f), gp, qseed, t)
-        bs = best_split(torch.stack([hist_left, hist_right]), num_bins,
-                        na_bin, torch.stack([lg, rg]), torch.stack([lh, rh]),
-                        torch.stack([lc, rc]), ch_mask, sp, allow, bundle,
-                        leaf_min=(leaf_min[[l, new_leaf]] if sp.has_monotone
-                                  else None),
-                        leaf_max=(leaf_max[[l, new_leaf]] if sp.has_monotone
-                                  else None),
-                        rand_key=extra_trees_key(sp, qseed, t))
-        for arr, vals in zip(best, bs):
-            arr[l] = vals[0]
-            arr[new_leaf] = vals[1]
-        depth[l] = depth[new_leaf] = d
-        parent_node[l] = parent_node[new_leaf] = t
-        parent_right[l], parent_right[new_leaf] = False, True
-        num_leaves += 1
+            with span("pass.search"):
+                # ---- best splits of the two children (batched), then
+                # the next step's choice ----
+                allow = ones if gp.max_depth <= 0 or d < gp.max_depth \
+                    else ~ones
+                lmin = lmax = None
+                if sp.has_monotone:
+                    # indexing by a host list: each a blocking copy
+                    with span("sync.monotone"):
+                        lmin = leaf_min[[l, new_leaf]]
+                    with span("sync.monotone"):
+                        lmax = leaf_max[[l, new_leaf]]
+                ch_mask = node_feature_mask(feature_mask.expand(2, f), gp,
+                                            qseed, t)
+                bs = best_split(
+                    torch.stack([hist_left, hist_right]), num_bins, na_bin,
+                    torch.stack([lg, rg]), torch.stack([lh, rh]),
+                    torch.stack([lc, rc]), ch_mask, sp, allow, bundle,
+                    leaf_min=lmin, leaf_max=lmax,
+                    rand_key=extra_trees_key(sp, qseed, t))
+                for arr, vals in zip(best, bs):
+                    arr[l] = vals[0]
+                    arr[new_leaf] = vals[1]
+                step = choose() if t + 1 < L - 1 else None
 
     if num_leaves == 1:
         # single-leaf tree: constant output

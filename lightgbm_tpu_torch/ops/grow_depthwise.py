@@ -38,15 +38,21 @@ reads the level's split count to the host once per level, and the level
 pass is launched with exactly that many histogram slots (the reference's
 wider padded slot axis only ever holds zeros past it). The schedule's slot
 widths still bound the per-level selection exactly as in the reference.
+A level pass blocks the host on the card eight times: that read, four
+boolean-mask gathers of the parents' child pointers and three Python
+scalars written into the frontier; each sits in a ``sync.*`` span
+(``obs/tracing.py``), and the pass's phases in ``pass.*`` spans.
 """
 from __future__ import annotations
 
 import math
+from contextlib import nullcontext
 from dataclasses import dataclass, replace
 from typing import List, Optional, Tuple
 
 import torch
 
+from ..obs.tracing import span
 from . import hist_kernels as K
 from . import histogram as H
 from .grow import (ForcedSplits, GrowParams, ShardedRows, TreeArrays,
@@ -91,9 +97,10 @@ def cegb_penalty(sp: SplitParams, cegb: CEGBState, leaf_c: torch.Tensor,
     its own rows against its block of the bitset, and the shards' sums
     are summed."""
     L, f = leaf_c.shape[0], cegb.feature_used.shape[0]
-    pen = (torch.tensor(sp.cegb_tradeoff * sp.cegb_penalty_split,
-                        dtype=torch.float32, device=leaf_c.device)
-           * leaf_c[:, None]).expand(L, f)
+    with span("sync.cegb"):
+        per_row = torch.tensor(sp.cegb_tradeoff * sp.cegb_penalty_split,
+                               dtype=torch.float32, device=leaf_c.device)
+    pen = (per_row * leaf_c[:, None]).expand(L, f)
     zero = torch.zeros((), dtype=torch.float32, device=leaf_c.device)
     if sp.cegb_coupled:
         pen = pen + sp.cegb_tradeoff * torch.where(
@@ -149,8 +156,19 @@ def apply_level_to_tree(tree: TreeArrays, parent_node: torch.Tensor,
     par = parent_node[si]
     has_par = par >= 0
     pr = parent_right[si]
-    tree.left_child[par[has_par & ~pr]] = nid[has_par & ~pr].to(torch.int32)
-    tree.right_child[par[has_par & pr]] = nid[has_par & pr].to(torch.int32)
+    # the parents' child pointers: four boolean-mask gathers, each a host
+    # read of how many rows its mask keeps
+    to_left, to_right = has_par & ~pr, has_par & pr
+    with span("sync.apply"):
+        par_l = par[to_left]
+    with span("sync.apply"):
+        nid_l = nid[to_left]
+    with span("sync.apply"):
+        par_r = par[to_right]
+    with span("sync.apply"):
+        nid_r = nid[to_right]
+    tree.left_child[par_l] = nid_l.to(torch.int32)
+    tree.right_child[par_r] = nid_r.to(torch.int32)
     tree.split_feature[nid] = res.feature[si].to(torch.int32)
     tree.threshold_bin[nid] = res.bin[si].to(torch.int32)
     tree.default_left[nid] = res.default_left[si]
@@ -195,8 +213,11 @@ def _membership_leaves(res: SplitResult, sel: torch.Tensor,
     cat_sel = res.is_cat & sel
     # a second read a level, only with categorical features or bundles:
     # route_level takes the membership tables only on a level that splits
-    # on one  # tpu-lint: disable=host-sync-in-jit
-    return cat_sel if bool(cat_sel.any()) else None
+    # on one
+    with span("sync.membership"):
+        # tpu-lint: disable=host-sync-in-jit
+        any_cat = bool(cat_sel.any())
+    return cat_sel if any_cat else None
 
 
 def select_level(res: SplitResult, active: torch.Tensor, sp: SplitParams,
@@ -220,9 +241,10 @@ def select_level(res: SplitResult, active: torch.Tensor, sp: SplitParams,
     # the one intended sync a level: the host sizes the level's route and
     # histogram launches by the number of leaves that split, and stops the
     # tree when none does
-    # tpu-lint: disable=host-sync-in-jit
-    return sel, sel.nonzero().squeeze(1), torch.cumsum(sel.to(torch.int64),
-                                                       0) - 1
+    with span("sync.select"):
+        # tpu-lint: disable=host-sync-in-jit
+        si = sel.nonzero().squeeze(1)
+    return sel, si, torch.cumsum(sel.to(torch.int64), 0) - 1
 
 
 def _tables_on(tables: H.RouteTables, device: torch.device
@@ -276,7 +298,8 @@ def voting_exchange(parts: list, sh: ShardedRows, num_bins: torch.Tensor,
     out = torch.zeros_like(parts[0], device=sh.home)
     out[:, :, elected] = sub
     mask = torch.zeros(f, dtype=torch.bool, device=sh.home)
-    mask[elected] = True
+    with span("sync.voting"):
+        mask[elected] = True
     return out, mask
 
 
@@ -342,58 +365,9 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
     if use_fused and (spec is None or not gp.quant or cegb is not None):
         raise ValueError("the fused front needs gp.quant and gp.fused_obj, "
                          "and no CEGB")
-    quants, parts = [], []
-    for s in sh.shards:
-        if use_fused:
-            q, h0 = H.grad_quant_hist0(s.bins_T, *s.fused, qseed, spec, B,
-                                       const_hess=gp.const_hess)
-        elif gp.quant:
-            # int8 quantized channels of the materialized rows, built once
-            # per tree, then the root histogram
-            q = H.make_quant(s.g, s.h, s.c, qseed, const_hess=gp.const_hess)
-            h0 = H.hist_leaf(s.bins_T, B, q)
-        elif fp_tiles is not None:
-            q, h0 = None, fp_tiles.root(B)
-        else:
-            q, h0 = None, H.hist_leaf(s.bins_T, B, rows=s.rows)
-        quants.append(q)
-        parts.append(h0)
-    hist0 = _hist_allreduce(parts, gp, 1, fdev)
-    g0, h0, c0 = tree_sum(hist0[0, 0]), tree_sum(hist0[1, 0]), \
-        tree_sum(hist0[2, 0])
-    na_of = _on_devices(na_bin, sh)
-
-    f32 = dict(dtype=torch.float32, device=dev)
-    hist = torch.zeros((L, 3, f, B), **f32)
-    hist[0] = hist0
-    leaf_g, leaf_h, leaf_c = (torch.zeros(L, **f32) for _ in range(3))
-    leaf_g[0], leaf_h[0], leaf_c[0] = g0, h0, c0
-    active = torch.zeros(L, dtype=torch.bool, device=dev)
-    active[0] = True
-    parent_node = torch.full((L,), -1, dtype=torch.int64, device=dev)
-    parent_right = torch.zeros(L, dtype=torch.bool, device=dev)
-    tree = empty_tree(L, B, dev)
-    tree.leaf_value[0] = leaf_output(g0, h0, sp)
-    tree.leaf_weight[0] = h0
-    tree.leaf_count[0] = c0
-    num_leaves = 1
-    leaf_ids = [torch.zeros(s.bins_T.shape[1], dtype=torch.int32,
-                            device=s.device) for s in sh.shards]
-    leaves_iota = torch.arange(L, device=dev)
-    passes = 0
-    leaf_min = torch.full((L,), -math.inf, **f32)
-    leaf_max = torch.full((L,), math.inf, **f32)
-    forced_ptr = torch.full((L,), -1, dtype=torch.int64, device=dev)
-    if forced is not None:
-        forced_ptr[0] = 0
-    # voting: the features each leaf's stored histograms were elected
-    # under (reference: _DWState.vote_mask)
-    vote_mask = (torch.ones((L, f), dtype=torch.bool, device=dev)
-                 if voting else None)
-
-    for lvl, slots in enumerate(level_widths(L, max_levels)):
-        if num_leaves >= L:
-            break
+    def search(lvl: int, slots: int):
+        """Level ``lvl``'s split search and its budgeted selection: (the
+        records, where a forced split applies, sel, si, idx_in_lvl)."""
         base_mask = (feature_mask.expand(L, f) if vote_mask is None
                      else feature_mask & vote_mask)
         search_mask = node_feature_mask(base_mask, gp, qseed, lvl)
@@ -404,6 +378,7 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
                          leaf_min=leaf_min, leaf_max=leaf_max,
                          gain_penalty=pen,
                          rand_key=extra_trees_key(sp, qseed, lvl))
+        okf = None
         if forced is not None:
             res, okf = forced_override(res, forced, forced_ptr,
                                        (forced_ptr >= 0) & active, hist,
@@ -411,115 +386,202 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
         # budgeted selection: top-gain candidates win, ties by leaf index
         sel, si, idx_in_lvl = select_level(res, active, sp, L - num_leaves,
                                            slots)
+        return res, okf, sel, si, idx_in_lvl
+
+    widths = level_widths(L, max_levels)
+    with span("grow.front"):
+        quants, parts = [], []
+        for s in sh.shards:
+            if use_fused:
+                q, h0 = H.grad_quant_hist0(s.bins_T, *s.fused, qseed, spec,
+                                           B, const_hess=gp.const_hess)
+            elif gp.quant:
+                # int8 quantized channels of the materialized rows, built
+                # once per tree, then the root histogram
+                q = H.make_quant(s.g, s.h, s.c, qseed,
+                                 const_hess=gp.const_hess)
+                h0 = H.hist_leaf(s.bins_T, B, q)
+            elif fp_tiles is not None:
+                q, h0 = None, fp_tiles.root(B)
+            else:
+                q, h0 = None, H.hist_leaf(s.bins_T, B, rows=s.rows)
+            quants.append(q)
+            parts.append(h0)
+        hist0 = _hist_allreduce(parts, gp, 1, fdev)
+        g0, h0, c0 = tree_sum(hist0[0, 0]), tree_sum(hist0[1, 0]), \
+            tree_sum(hist0[2, 0])
+        na_of = _on_devices(na_bin, sh)
+
+        f32 = dict(dtype=torch.float32, device=dev)
+        hist = torch.zeros((L, 3, f, B), **f32)
+        hist[0] = hist0
+        leaf_g, leaf_h, leaf_c = (torch.zeros(L, **f32) for _ in range(3))
+        leaf_g[0], leaf_h[0], leaf_c[0] = g0, h0, c0
+        active = torch.zeros(L, dtype=torch.bool, device=dev)
+        # a Python scalar written into a device tensor: a blocking copy
+        with span("sync.frontier"):
+            active[0] = True
+        parent_node = torch.full((L,), -1, dtype=torch.int64, device=dev)
+        parent_right = torch.zeros(L, dtype=torch.bool, device=dev)
+        tree = empty_tree(L, B, dev)
+        tree.leaf_value[0] = leaf_output(g0, h0, sp)
+        tree.leaf_weight[0] = h0
+        tree.leaf_count[0] = c0
+        num_leaves = 1
+        leaf_ids = [torch.zeros(s.bins_T.shape[1], dtype=torch.int32,
+                                device=s.device) for s in sh.shards]
+        leaves_iota = torch.arange(L, device=dev)
+        passes = 0
+        leaf_min = torch.full((L,), -math.inf, **f32)
+        leaf_max = torch.full((L,), math.inf, **f32)
+        forced_ptr = torch.full((L,), -1, dtype=torch.int64, device=dev)
+        if forced is not None:
+            with span("sync.forced"):
+                forced_ptr[0] = 0
+        # voting: the features each leaf's stored histograms were elected
+        # under (reference: _DWState.vote_mask)
+        vote_mask = (torch.ones((L, f), dtype=torch.bool, device=dev)
+                     if voting else None)
+        # the root's search is the front's, and each level pass ends with
+        # the search of the level it made: a search that selects no split
+        # opens no pass
+        step = search(0, widths[0]) if widths and num_leaves < L else None
+
+    for lvl in range(len(widths)):
+        if step is None:
+            break
+        res, okf, sel, si, idx_in_lvl = step
         num_sel = int(si.shape[0])
         if num_sel == 0:
             break
-        new_leaf = num_leaves + idx_in_lvl
-        nid, nl = (num_leaves - 1 + idx_in_lvl)[si], new_leaf[si]
-        (lg, lh, lc), (rg, rh, rc), (w_l, w_r, w_p) = split_outputs(
-            res, leaf_g, leaf_h, leaf_c, leaf_min, leaf_max, sp)
-        apply_level_to_tree(tree, parent_node, parent_right, res, si, nid,
-                            nl, (lg, lh, lc), (rg, rh, rc), (w_l, w_r, w_p),
-                            sp)
-        cat_sel = _membership_leaves(res, sel, sp)
+        with span("grow.pass"):
+            with span("pass.apply"):
+                new_leaf = num_leaves + idx_in_lvl
+                nid, nl = (num_leaves - 1 + idx_in_lvl)[si], new_leaf[si]
+                (lg, lh, lc), (rg, rh, rc), (w_l, w_r, w_p) = split_outputs(
+                    res, leaf_g, leaf_h, leaf_c, leaf_min, leaf_max, sp)
+                apply_level_to_tree(tree, parent_node, parent_right, res, si,
+                                    nid, nl, (lg, lh, lc), (rg, rh, rc),
+                                    (w_l, w_r, w_p), sp)
+                cat_sel = _membership_leaves(res, sel, sp)
 
-        # ---- CEGB bookkeeping: a split marks its column used, and every
-        # in-bag row of the split leaf paid for it ----
-        if cegb is not None and sp.cegb_coupled:
-            cegb.feature_used[res.feature[si]] = True
-        if cegb is not None and sp.cegb_lazy:
-            f_leaf = torch.where(sel, res.feature,
-                                 torch.full_like(res.feature, -1))
-            for s, lid in zip(sh.shards, leaf_ids):
-                f_row = f_leaf.to(s.device)[lid.to(torch.int64)]
-                pay = (f_row >= 0) & (s.c > 0)
-                # each row's one cell OR-ed with its flag: no host read of
-                # how many rows paid
-                rows = torch.arange(f_row.shape[0], device=s.device)
-                col = f_row.clamp(min=0)
-                s.data_used[rows, col] = s.data_used[rows, col] | pay
+                # ---- CEGB bookkeeping: a split marks its column used, and
+                # every in-bag row of the split leaf paid for it ----
+                if cegb is not None and sp.cegb_coupled:
+                    with span("sync.cegb"):
+                        cegb.feature_used[res.feature[si]] = True
+                if cegb is not None and sp.cegb_lazy:
+                    f_leaf = torch.where(sel, res.feature,
+                                         torch.full_like(res.feature, -1))
+                    for s, lid in zip(sh.shards, leaf_ids):
+                        f_row = f_leaf.to(s.device)[lid.to(torch.int64)]
+                        pay = (f_row >= 0) & (s.c > 0)
+                        # each row's one cell OR-ed with its flag: no host
+                        # read of how many rows paid
+                        rows = torch.arange(f_row.shape[0], device=s.device)
+                        col = f_row.clamp(min=0)
+                        s.data_used[rows, col] = \
+                            s.data_used[rows, col] | pay
 
-        # ---- route + child histogram pass, each shard its own rows: one
-        # slot per selected leaf (in leaf order) for the smaller child,
-        # the larger child the parent minus the smaller; under voting both
-        # children, in slots 2i and 2i + 1 ----
-        small_is_left = lc <= rc
-        if voting:
-            s_pass = 2 * num_sel
-            none = torch.full_like(idx_in_lvl, s_pass)
-            slot_l = torch.where(sel, 2 * idx_in_lvl, none)
-            slot_r = torch.where(sel, 2 * idx_in_lvl + 1, none)
-        else:
-            s_pass = num_sel
-            sentinel = torch.full_like(idx_in_lvl, num_sel)
-            slot_l = torch.where(sel & small_is_left, idx_in_lvl, sentinel)
-            slot_r = torch.where(sel & ~small_is_left, idx_in_lvl, sentinel)
-        tables = H.RouteTables(
-            feat=torch.where(sel, res.feature, torch.full_like(res.feature, -1)),
-            thr=res.bin, dleft=res.default_left.to(torch.int32),
-            new_leaf=new_leaf, slot_left=slot_l, slot_right=slot_r,
-            # a level with a categorical or bundle split routes by
-            # membership (reference: grow_depthwise.py:521-524); others
-            # pass no bitset
-            is_cat=cat_sel,
-            member=(None if cat_sel is None
-                    else res.cat_member & sel[:, None]))
-        parts = []
-        for i, s in enumerate(sh.shards):
-            if fp_tiles is not None:
-                hp, leaf_ids[i] = fp_tiles.routed(leaf_ids[i], tables,
-                                                  na_of[i], s_pass, B)
-                parts.append(hp)
-                continue
-            hp, leaf_ids[i] = H.hist_routed(
-                s.bins_T, leaf_ids[i], _tables_on(tables, s.device), na_of[i],
-                s_pass, B, quants[i], s.rows, s.bins)
-            parts.append(hp)
-        passes += 1
-        if voting:
-            hist_pass, elected = voting_exchange(parts, sh, num_bins, na_bin,
-                                                 sp, gp)
-            hist[si] = hist_pass[0::2]
-            hist[nl] = hist_pass[1::2]
-            # only the leaves whose histograms were replaced narrow to the
-            # new election
-            vote_mask[si] = elected
-            vote_mask[nl] = elected
-        else:
-            hist_pass = _hist_allreduce(parts, gp, 2, fdev)
-            parent_hist = hist[si]
-            hist_sib = parent_hist - hist_pass
-            sl = small_is_left[si][:, None, None, None]
-            hist[si] = torch.where(sl, hist_pass, hist_sib)
-            hist[nl] = torch.where(sl, hist_sib, hist_pass)
+                # ---- route tables of the child histogram pass: one slot
+                # per selected leaf (in leaf order) for the smaller child,
+                # the larger child the parent minus the smaller; under
+                # voting both children, in slots 2i and 2i + 1 ----
+                small_is_left = lc <= rc
+                if voting:
+                    s_pass = 2 * num_sel
+                    none = torch.full_like(idx_in_lvl, s_pass)
+                    slot_l = torch.where(sel, 2 * idx_in_lvl, none)
+                    slot_r = torch.where(sel, 2 * idx_in_lvl + 1, none)
+                else:
+                    s_pass = num_sel
+                    sentinel = torch.full_like(idx_in_lvl, num_sel)
+                    slot_l = torch.where(sel & small_is_left, idx_in_lvl,
+                                         sentinel)
+                    slot_r = torch.where(sel & ~small_is_left, idx_in_lvl,
+                                         sentinel)
+                tables = H.RouteTables(
+                    feat=torch.where(sel, res.feature,
+                                     torch.full_like(res.feature, -1)),
+                    thr=res.bin, dleft=res.default_left.to(torch.int32),
+                    new_leaf=new_leaf, slot_left=slot_l, slot_right=slot_r,
+                    # a level with a categorical or bundle split routes by
+                    # membership (reference: grow_depthwise.py:521-524);
+                    # others pass no bitset
+                    is_cat=cat_sel,
+                    member=(None if cat_sel is None
+                            else res.cat_member & sel[:, None]))
 
-        # ---- monotone bounds and forced pointers of the children ----
-        if sp.has_monotone:
-            lo_l, hi_l, lo_r, hi_r = monotone_child_bounds(
-                sp, f, res.is_cat[si], res.feature[si], w_l[si], w_r[si],
-                leaf_min[si], leaf_max[si])
-            leaf_min[si], leaf_max[si] = lo_l, hi_l
-            leaf_min[nl], leaf_max[nl] = lo_r, hi_r
-        if forced is not None:
-            fp = torch.clamp(forced_ptr, min=0)
-            none = torch.full_like(forced_ptr, -1)
-            nxt_l = torch.where(okf, forced.left[fp], none)[si]
-            nxt_r = torch.where(okf, forced.right[fp], none)[si]
-            forced_ptr[si] = nxt_l
-            forced_ptr[nl] = nxt_r
+            # ---- route + child histogram pass, each shard its own rows,
+            # and the siblings by subtraction ----
+            with span("pass.hist"):
+                parts = []
+                for i, s in enumerate(sh.shards):
+                    if fp_tiles is not None:
+                        hp, leaf_ids[i] = fp_tiles.routed(
+                            leaf_ids[i], tables, na_of[i], s_pass, B)
+                        parts.append(hp)
+                        continue
+                    hp, leaf_ids[i] = H.hist_routed(
+                        s.bins_T, leaf_ids[i], _tables_on(tables, s.device),
+                        na_of[i], s_pass, B, quants[i], s.rows, s.bins)
+                    parts.append(hp)
+                passes += 1
+                if voting:
+                    hist_pass, elected = voting_exchange(
+                        parts, sh, num_bins, na_bin, sp, gp)
+                    hist[si] = hist_pass[0::2]
+                    hist[nl] = hist_pass[1::2]
+                    # only the leaves whose histograms were replaced narrow
+                    # to the new election
+                    vote_mask[si] = elected
+                    vote_mask[nl] = elected
+                else:
+                    hist_pass = _hist_allreduce(parts, gp, 2, fdev)
+                    parent_hist = hist[si]
+                    hist_sib = parent_hist - hist_pass
+                    sl = small_is_left[si][:, None, None, None]
+                    hist[si] = torch.where(sl, hist_pass, hist_sib)
+                    hist[nl] = torch.where(sl, hist_sib, hist_pass)
 
-        # ---- per-leaf stats / frontier ----
-        for arr, left, right in ((leaf_g, lg, rg), (leaf_h, lh, rh),
-                                 (leaf_c, lc, rc)):
-            arr[si] = left[si]
-            arr[nl] = right[si]
-        active = sel.clone()
-        active[nl] = True
-        parent_node[si] = nid
-        parent_node[nl] = nid
-        parent_right[si] = False
-        parent_right[nl] = True
-        num_leaves += num_sel
+            with span("pass.apply"):
+                # ---- monotone bounds and forced pointers of the children
+                if sp.has_monotone:
+                    lo_l, hi_l, lo_r, hi_r = monotone_child_bounds(
+                        sp, f, res.is_cat[si], res.feature[si], w_l[si],
+                        w_r[si], leaf_min[si], leaf_max[si])
+                    leaf_min[si], leaf_max[si] = lo_l, hi_l
+                    leaf_min[nl], leaf_max[nl] = lo_r, hi_r
+                if forced is not None:
+                    fp = torch.clamp(forced_ptr, min=0)
+                    none = torch.full_like(forced_ptr, -1)
+                    nxt_l = torch.where(okf, forced.left[fp], none)[si]
+                    nxt_r = torch.where(okf, forced.right[fp], none)[si]
+                    forced_ptr[si] = nxt_l
+                    forced_ptr[nl] = nxt_r
+
+                # ---- per-leaf stats / frontier ----
+                for arr, left, right in ((leaf_g, lg, rg), (leaf_h, lh, rh),
+                                         (leaf_c, lc, rc)):
+                    arr[si] = left[si]
+                    arr[nl] = right[si]
+                active = sel.clone()
+                # three Python scalars written into device tensors: each
+                # a blocking copy
+                with span("sync.frontier"):
+                    active[nl] = True
+                parent_node[si] = nid
+                parent_node[nl] = nid
+                with span("sync.frontier"):
+                    parent_right[si] = False
+                with span("sync.frontier"):
+                    parent_right[nl] = True
+                num_leaves += num_sel
+
+            step = None
+            if lvl + 1 < len(widths) and num_leaves < L:
+                with span("pass.search"):
+                    step = search(lvl + 1, widths[lvl + 1])
 
     out_ids = leaf_ids if shards is not None else leaf_ids[0]
     if not gp.quant:
@@ -527,19 +589,20 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
     # ---- leaf renewal from exact sums (quantized-training: splits
     # tolerate int8 gains, leaf outputs use exact sums), each shard's rows
     # summed ----
-    sums = _psum([K.leaf_sums_grad(*s.fused, lid, spec, L) if use_fused
-                  else K.leaf_sums(s.g, s.h, s.c, lid, L)
-                  for s, lid in zip(sh.shards, leaf_ids)], gp)
-    eg, eh, ec = sums[0], sums[1], sums[2]
-    w = leaf_output(eg, eh, sp)
-    if sp.has_monotone:
-        w = torch.clamp(w, leaf_min, leaf_max)
-    live = leaves_iota < num_leaves
-    tree = tree._replace(
-        leaf_value=torch.where(live, w, tree.leaf_value),
-        leaf_weight=torch.where(live, eh, tree.leaf_weight),
-        leaf_count=torch.where(live, ec, tree.leaf_count),
-        num_leaves=num_leaves)
+    with span("grow.leaf_renew"):
+        sums = _psum([K.leaf_sums_grad(*s.fused, lid, spec, L) if use_fused
+                      else K.leaf_sums(s.g, s.h, s.c, lid, L)
+                      for s, lid in zip(sh.shards, leaf_ids)], gp)
+        eg, eh, ec = sums[0], sums[1], sums[2]
+        w = leaf_output(eg, eh, sp)
+        if sp.has_monotone:
+            w = torch.clamp(w, leaf_min, leaf_max)
+        live = leaves_iota < num_leaves
+        tree = tree._replace(
+            leaf_value=torch.where(live, w, tree.leaf_value),
+            leaf_weight=torch.where(live, eh, tree.leaf_weight),
+            leaf_count=torch.where(live, ec, tree.leaf_count),
+            num_leaves=num_leaves)
     return tree, out_ids, passes
 
 
@@ -622,10 +685,10 @@ def grow_tree_depthwise_lean(bins_T: torch.Tensor, g: torch.Tensor,
     renewal under ``gp.quant``); at the root and after each level's
     ``route_level`` (one a level, full width, 2S slots, its counts handed
     to every tile), ``hist_q8`` (``gp.quant``) or ``hist_f32`` once a
-    tile. One host sync a level, the selection's count. Not combined with
-    CEGB, forced splits, feature_fraction_bynode or extra_trees (GBDT keeps
-    the default grower then). Returns (TreeArrays, leaf_id [N] i32, number
-    of level passes).
+    tile. The host syncs of a level are the default grower's. Not
+    combined with CEGB, forced splits, feature_fraction_bynode or
+    extra_trees (GBDT keeps the default grower then). Returns (TreeArrays,
+    leaf_id [N] i32, number of level passes).
 
     ``shards`` (data-parallel, reference: :811-852, :1010): the rows as
     ``ShardedRows``; each shard routes, measures each tile and sums its
@@ -641,9 +704,6 @@ def grow_tree_depthwise_lean(bins_T: torch.Tensor, g: torch.Tensor,
     tiles = [(lo, hi, tile_split_params(sp, lo, hi),
               slice_bundle(bundle, lo, hi)) for lo, hi in
              lean_tiles(f, gp.lean_ft)]
-    quants = [H.make_quant(s.g, s.h, s.c, qseed, const_hess=gp.const_hess)
-              if gp.quant else None for s in shd.shards]
-    na_of = _on_devices(na_bin, shd)
 
     def measure_tile(s, quant, slot, counts, n_slots, lo, hi):
         """[S, 3, hi - lo, B] f32 histograms of one tile of one shard's
@@ -655,133 +715,170 @@ def grow_tree_depthwise_lean(bins_T: torch.Tensor, g: torch.Tensor,
                         n_slots, B, s.bins, counts, col0=lo)
         return H.dequant(acc, quant.hq is None, quant.scale_g, quant.scale_h)
 
-    def tiled_search(routed, n_slots, sg, sh, sc, lmin, lmax):
+    def tiled_search(routed, n_slots, sg, sh, sc, lmin, lmax, in_pass=True):
         """Each slot's best split from the tiles' passes and searches;
-        ``routed`` each shard's (slot, counts)."""
+        ``routed`` each shard's (slot, counts). In a level pass each
+        tile's histograms are a ``pass.hist`` span and its search a
+        ``pass.search`` one."""
+        def phase(name):
+            return span(name) if in_pass else nullcontext()
+
         best = None
         allow = torch.ones(n_slots, dtype=torch.bool, device=dev)
         for lo, hi, sp_t, bun_t in tiles:
-            hist_t = _hist_allreduce(
-                [measure_tile(s, q, slot, counts, n_slots, lo, hi)
-                 for s, q, (slot, counts) in zip(shd.shards, quants, routed)],
-                gp, 2, shd.feature_devices)
-            res_t = best_split(hist_t, num_bins[lo:hi], na_bin[lo:hi], sg, sh,
-                               sc, feature_mask[lo:hi], sp_t, allow, bun_t,
-                               leaf_min=lmin, leaf_max=lmax)
-            res_t = res_t._replace(feature=res_t.feature + lo)
-            best = res_t if best is None else fold_best(best, res_t)
+            with phase("pass.hist"):
+                hist_t = _hist_allreduce(
+                    [measure_tile(s, q, slot, counts, n_slots, lo, hi)
+                     for s, q, (slot, counts) in zip(shd.shards, quants,
+                                                     routed)],
+                    gp, 2, shd.feature_devices)
+            with phase("pass.search"):
+                res_t = best_split(hist_t, num_bins[lo:hi], na_bin[lo:hi],
+                                   sg, sh, sc, feature_mask[lo:hi], sp_t,
+                                   allow, bun_t, leaf_min=lmin, leaf_max=lmax)
+                res_t = res_t._replace(feature=res_t.feature + lo)
+                best = res_t if best is None else fold_best(best, res_t)
         return best
 
-    # ---- root: exact stats from one leaf sum, its record from the tiles'
-    # natural-order passes ----
-    leaf_ids = [torch.zeros(s.bins_T.shape[1], dtype=torch.int32,
-                            device=s.device) for s in shd.shards]
-    sums0 = _psum([K.leaf_sums(s.g, s.h, s.c, lid, 1)
-                   for s, lid in zip(shd.shards, leaf_ids)], gp)
-    g0, h0, c0 = sums0[0, 0], sums0[1, 0], sums0[2, 0]
-    f32 = dict(dtype=torch.float32, device=dev)
-    inf = torch.full((1,), math.inf, **f32)
-    rec0 = tiled_search([(None, None)] * len(shd.shards), 1, g0[None],
-                        h0[None], c0[None], -inf, inf)
-    rec = SplitResult(*[
-        torch.cat([v, torch.full((L - 1,) + v.shape[1:],
-                                 NEG_INF if v.is_floating_point() else 0,
-                                 dtype=v.dtype, device=dev)])
-        for v in rec0])
-    leaf_g, leaf_h, leaf_c = (torch.zeros(L, **f32) for _ in range(3))
-    leaf_g[0], leaf_h[0], leaf_c[0] = g0, h0, c0
-    active = torch.zeros(L, dtype=torch.bool, device=dev)
-    active[0] = True
-    parent_node = torch.full((L,), -1, dtype=torch.int64, device=dev)
-    parent_right = torch.zeros(L, dtype=torch.bool, device=dev)
-    leaf_min = torch.full((L,), -math.inf, **f32)
-    leaf_max = torch.full((L,), math.inf, **f32)
-    tree = empty_tree(L, B, dev)
-    tree.leaf_value[0] = leaf_output(g0, h0, sp)
-    tree.leaf_weight[0] = h0
-    tree.leaf_count[0] = c0
-    num_leaves, passes = 1, 0
+    widths = level_widths(L, max_levels)
+    with span("grow.front"):
+        quants = [H.make_quant(s.g, s.h, s.c, qseed,
+                               const_hess=gp.const_hess)
+                  if gp.quant else None for s in shd.shards]
+        na_of = _on_devices(na_bin, shd)
+        # ---- root: exact stats from one leaf sum, its record from the
+        # tiles' natural-order passes ----
+        leaf_ids = [torch.zeros(s.bins_T.shape[1], dtype=torch.int32,
+                                device=s.device) for s in shd.shards]
+        sums0 = _psum([K.leaf_sums(s.g, s.h, s.c, lid, 1)
+                       for s, lid in zip(shd.shards, leaf_ids)], gp)
+        g0, h0, c0 = sums0[0, 0], sums0[1, 0], sums0[2, 0]
+        f32 = dict(dtype=torch.float32, device=dev)
+        inf = torch.full((1,), math.inf, **f32)
+        rec0 = tiled_search([(None, None)] * len(shd.shards), 1, g0[None],
+                            h0[None], c0[None], -inf, inf, in_pass=False)
+        rec = SplitResult(*[
+            torch.cat([v, torch.full((L - 1,) + v.shape[1:],
+                                     NEG_INF if v.is_floating_point() else 0,
+                                     dtype=v.dtype, device=dev)])
+            for v in rec0])
+        leaf_g, leaf_h, leaf_c = (torch.zeros(L, **f32) for _ in range(3))
+        leaf_g[0], leaf_h[0], leaf_c[0] = g0, h0, c0
+        active = torch.zeros(L, dtype=torch.bool, device=dev)
+        # a Python scalar written into a device tensor: a blocking copy
+        with span("sync.frontier"):
+            active[0] = True
+        parent_node = torch.full((L,), -1, dtype=torch.int64, device=dev)
+        parent_right = torch.zeros(L, dtype=torch.bool, device=dev)
+        leaf_min = torch.full((L,), -math.inf, **f32)
+        leaf_max = torch.full((L,), math.inf, **f32)
+        tree = empty_tree(L, B, dev)
+        tree.leaf_value[0] = leaf_output(g0, h0, sp)
+        tree.leaf_weight[0] = h0
+        tree.leaf_count[0] = c0
+        num_leaves, passes = 1, 0
+        # the root's selection is the front's, and each level pass ends
+        # with the selection of the next: one that selects no split opens
+        # no pass
+        step = (select_level(rec, active, sp, L - num_leaves, widths[0])
+                if widths and num_leaves < L else None)
 
-    for slots in level_widths(L, max_levels):
-        if num_leaves >= L:
+    for lvl in range(len(widths)):
+        if step is None:
             break
-        sel, si, idx_in_lvl = select_level(rec, active, sp, L - num_leaves,
-                                           slots)
+        sel, si, idx_in_lvl = step
         num_sel = int(si.shape[0])
         if num_sel == 0:
             break
-        new_leaf = num_leaves + idx_in_lvl
-        nid, nl = (num_leaves - 1 + idx_in_lvl)[si], new_leaf[si]
-        (lg, lh, lc), (rg, rh, rc), (w_l, w_r, w_p) = split_outputs(
-            rec, leaf_g, leaf_h, leaf_c, leaf_min, leaf_max, sp)
-        apply_level_to_tree(tree, parent_node, parent_right, rec, si, nid,
-                            nl, (lg, lh, lc), (rg, rh, rc), (w_l, w_r, w_p),
-                            sp)
-        cat_sel = _membership_leaves(rec, sel, sp)
+        with span("grow.pass"):
+            with span("pass.apply"):
+                new_leaf = num_leaves + idx_in_lvl
+                nid, nl = (num_leaves - 1 + idx_in_lvl)[si], new_leaf[si]
+                (lg, lh, lc), (rg, rh, rc), (w_l, w_r, w_p) = split_outputs(
+                    rec, leaf_g, leaf_h, leaf_c, leaf_min, leaf_max, sp)
+                apply_level_to_tree(tree, parent_node, parent_right, rec, si,
+                                    nid, nl, (lg, lh, lc), (rg, rh, rc),
+                                    (w_l, w_r, w_p), sp)
+                cat_sel = _membership_leaves(rec, sel, sp)
 
-        # ---- route: both children measured, split i's in slots 2i and
-        # 2i + 1 ----
-        s_pass = 2 * num_sel
-        none = torch.full_like(idx_in_lvl, s_pass)
-        tables = H.RouteTables(
-            feat=torch.where(sel, rec.feature, torch.full_like(rec.feature,
-                                                               -1)),
-            thr=rec.bin, dleft=rec.default_left.to(torch.int32),
-            new_leaf=new_leaf,
-            slot_left=torch.where(sel, 2 * idx_in_lvl, none),
-            slot_right=torch.where(sel, 2 * idx_in_lvl + 1, none),
-            is_cat=cat_sel,
-            member=(None if cat_sel is None
-                    else rec.cat_member & sel[:, None]))
-        routed = []
-        for i, s in enumerate(shd.shards):
-            t_d = _tables_on(tables, s.device)
-            slot, leaf_ids[i], counts = K.route_level(
-                s.bins_T, leaf_ids[i], t_d.stacked(), na_of[i], s_pass,
-                t_d.bitset())
-            routed.append((slot, counts))
-        passes += 1
+                # ---- route tables: both children measured, split i's in
+                # slots 2i and 2i + 1 ----
+                s_pass = 2 * num_sel
+                none = torch.full_like(idx_in_lvl, s_pass)
+                tables = H.RouteTables(
+                    feat=torch.where(sel, rec.feature,
+                                     torch.full_like(rec.feature, -1)),
+                    thr=rec.bin, dleft=rec.default_left.to(torch.int32),
+                    new_leaf=new_leaf,
+                    slot_left=torch.where(sel, 2 * idx_in_lvl, none),
+                    slot_right=torch.where(sel, 2 * idx_in_lvl + 1, none),
+                    is_cat=cat_sel,
+                    member=(None if cat_sel is None
+                            else rec.cat_member & sel[:, None]))
 
-        # ---- monotone bounds, per-leaf stats, frontier ----
-        if sp.has_monotone:
-            lo_l, hi_l, lo_r, hi_r = monotone_child_bounds(
-                sp, f, rec.is_cat[si], rec.feature[si], w_l[si], w_r[si],
-                leaf_min[si], leaf_max[si])
-            leaf_min[si], leaf_max[si] = lo_l, hi_l
-            leaf_min[nl], leaf_max[nl] = lo_r, hi_r
-        for arr, left, right in ((leaf_g, lg, rg), (leaf_h, lh, rh),
-                                 (leaf_c, lc, rc)):
-            arr[si] = left[si]
-            arr[nl] = right[si]
-        active = sel.clone()
-        active[nl] = True
-        parent_node[si] = nid
-        parent_node[nl] = nid
-        parent_right[si] = False
-        parent_right[nl] = True
-        num_leaves += num_sel
+            with span("pass.hist"):
+                routed = []
+                for i, s in enumerate(shd.shards):
+                    t_d = _tables_on(tables, s.device)
+                    slot, leaf_ids[i], counts = K.route_level(
+                        s.bins_T, leaf_ids[i], t_d.stacked(), na_of[i],
+                        s_pass, t_d.bitset())
+                    routed.append((slot, counts))
+                passes += 1
 
-        # ---- fresh records of the 2S children from the tiled search ----
-        slot_leaf = torch.stack([si, nl], dim=1).reshape(s_pass)
-        child = tiled_search(routed, s_pass, leaf_g[slot_leaf],
-                             leaf_h[slot_leaf], leaf_c[slot_leaf],
-                             leaf_min[slot_leaf], leaf_max[slot_leaf])
-        for arr, vals in zip(rec, child):
-            arr[slot_leaf] = vals
+            with span("pass.apply"):
+                # ---- monotone bounds, per-leaf stats, frontier ----
+                if sp.has_monotone:
+                    lo_l, hi_l, lo_r, hi_r = monotone_child_bounds(
+                        sp, f, rec.is_cat[si], rec.feature[si], w_l[si],
+                        w_r[si], leaf_min[si], leaf_max[si])
+                    leaf_min[si], leaf_max[si] = lo_l, hi_l
+                    leaf_min[nl], leaf_max[nl] = lo_r, hi_r
+                for arr, left, right in ((leaf_g, lg, rg), (leaf_h, lh, rh),
+                                         (leaf_c, lc, rc)):
+                    arr[si] = left[si]
+                    arr[nl] = right[si]
+                active = sel.clone()
+                # three Python scalars written into device tensors: each
+                # a blocking copy
+                with span("sync.frontier"):
+                    active[nl] = True
+                parent_node[si] = nid
+                parent_node[nl] = nid
+                with span("sync.frontier"):
+                    parent_right[si] = False
+                with span("sync.frontier"):
+                    parent_right[nl] = True
+                num_leaves += num_sel
+                slot_leaf = torch.stack([si, nl], dim=1).reshape(s_pass)
+
+            # ---- fresh records of the 2S children from the tiled search,
+            # then the next level's selection ----
+            child = tiled_search(routed, s_pass, leaf_g[slot_leaf],
+                                 leaf_h[slot_leaf], leaf_c[slot_leaf],
+                                 leaf_min[slot_leaf], leaf_max[slot_leaf])
+            with span("pass.search"):
+                for arr, vals in zip(rec, child):
+                    arr[slot_leaf] = vals
+                step = None
+                if lvl + 1 < len(widths) and num_leaves < L:
+                    step = select_level(rec, active, sp, L - num_leaves,
+                                        widths[lvl + 1])
 
     out_ids = leaf_ids if shards is not None else leaf_ids[0]
     if not gp.quant:
         return tree._replace(num_leaves=num_leaves), out_ids, passes
     # ---- leaf renewal from exact sums, as the default grower ----
-    sums = _psum([K.leaf_sums(s.g, s.h, s.c, lid, L)
-                  for s, lid in zip(shd.shards, leaf_ids)], gp)
-    w = leaf_output(sums[0], sums[1], sp)
-    if sp.has_monotone:
-        w = torch.clamp(w, leaf_min, leaf_max)
-    live = torch.arange(L, device=dev) < num_leaves
-    tree = tree._replace(
-        leaf_value=torch.where(live, w, tree.leaf_value),
-        leaf_weight=torch.where(live, sums[1], tree.leaf_weight),
-        leaf_count=torch.where(live, sums[2], tree.leaf_count),
-        num_leaves=num_leaves)
+    with span("grow.leaf_renew"):
+        sums = _psum([K.leaf_sums(s.g, s.h, s.c, lid, L)
+                      for s, lid in zip(shd.shards, leaf_ids)], gp)
+        w = leaf_output(sums[0], sums[1], sp)
+        if sp.has_monotone:
+            w = torch.clamp(w, leaf_min, leaf_max)
+        live = torch.arange(L, device=dev) < num_leaves
+        tree = tree._replace(
+            leaf_value=torch.where(live, w, tree.leaf_value),
+            leaf_weight=torch.where(live, sums[1], tree.leaf_weight),
+            leaf_count=torch.where(live, sums[2], tree.leaf_count),
+            num_leaves=num_leaves)
     return tree, out_ids, passes

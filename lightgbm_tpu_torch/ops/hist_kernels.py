@@ -71,6 +71,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..obs.tracing import span
 from . import cuda_lib
 
 KERNELS = ("grad_quant_hist0", "hist_routed_fused", "leaf_sums_grad",
@@ -191,10 +192,12 @@ def grad_rows(spec, score: torch.Tensor, aux: torch.Tensor):
     if kind == 0:
         return score - aux, torch.ones_like(score)
     t = 2.0 * aux - 1.0
-    lw = torch.where(aux > 0, torch.tensor(lw_pos, dtype=torch.float32,
-                                           device=aux.device),
-                     torch.tensor(lw_neg, dtype=torch.float32,
-                                  device=aux.device))
+    # two blocking copies of the label weights from the host
+    with span("sync.label_weight"):
+        w_pos = torch.tensor(lw_pos, dtype=torch.float32, device=aux.device)
+    with span("sync.label_weight"):
+        w_neg = torch.tensor(lw_neg, dtype=torch.float32, device=aux.device)
+    lw = torch.where(aux > 0, w_pos, w_neg)
     one = torch.ones((), dtype=torch.float32, device=score.device)
     resp = torch.div(one, 1.0 + torch.exp(t * sigmoid * score))
     grad = -t * resp * sigmoid * lw

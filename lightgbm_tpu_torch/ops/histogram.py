@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..obs.tracing import span
 from . import hist_kernels as K
 
 # _ACC_ROWS_MAX of the reference: the fused kernels need F * B <= 2048
@@ -81,8 +82,10 @@ def quantize_sr(x: torch.Tensor, seed: int, salt: int):
     """Stochastic-rounding int8 quantization: (q [N] int8, scale f32)."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     mx = x.abs().max() if x.numel() else zero
-    scale = torch.maximum(mx, torch.tensor(1e-20, dtype=torch.float32,
-                                           device=x.device))
+    # a blocking copy of the floor from the host
+    with span("sync.quant_floor"):
+        floor = torch.tensor(1e-20, dtype=torch.float32, device=x.device)
+    scale = torch.maximum(mx, floor)
     u = K.sr_dither(x.shape[0], seed, salt, x.device)
     return K.quantize_rows(x, scale, u), scale
 

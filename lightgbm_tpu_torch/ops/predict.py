@@ -20,6 +20,7 @@ import torch
 
 from ..binning import MISSING_NAN, MISSING_NONE, MISSING_ZERO
 from ..models.tree import Tree
+from ..obs.tracing import span
 from .grow import TreeArrays
 
 
@@ -49,7 +50,10 @@ def route_bins(tree: TreeArrays, bins: torch.Tensor,
                                   tree.cat_mask[node, col], go_left)
         nxt = torch.where(go_left, lc[node], rc[node])
         ptr = torch.where(ptr >= 0, nxt, ptr)
-        if not bool((ptr >= 0).any()):
+        # the walk's one host read a level: stop once every row is on a leaf
+        with span("sync.route"):
+            done = not bool((ptr >= 0).any())
+        if done:
             break
     return ~ptr
 

@@ -43,6 +43,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..obs.tracing import span
 from ..utils import threefry
 from .scan import blocked_cumsum
 
@@ -109,14 +110,22 @@ class SplitParams:
         vals = torch.tensor(self.feature_contri, dtype=torch.float32)
         vals = torch.clamp(vals, min=0.0)[:f]
         out[: vals.numel()] = vals
-        return out.to(device) if device is not None else out
+        if device is None:
+            return out
+        # a blocking copy from the host
+        with span("sync.contri"):
+            return out.to(device)
 
     def monotone_array(self, f: int, device=None) -> torch.Tensor:
         """[F] i64 constraints padded with 0 to width f."""
         out = torch.zeros(f, dtype=torch.int64)
         vals = torch.tensor(self.monotone_constraints, dtype=torch.int64)[:f]
         out[: vals.numel()] = vals
-        return out.to(device) if device is not None else out
+        if device is None:
+            return out
+        # a blocking copy from the host
+        with span("sync.monotone"):
+            return out.to(device)
 
     @property
     def has_cegb(self) -> bool:
@@ -290,7 +299,11 @@ def best_split(hist: torch.Tensor, num_bins: torch.Tensor,
     if cat_idx:
         # the numerical planes skip categorical features
         is_num = torch.ones(f, dtype=torch.bool, device=dev)
-        is_num[cat_idx] = False
+        # a host list of indices and a Python scalar: two blocking copies
+        with span("sync.categorical"):
+            cols = torch.as_tensor(cat_idx, dtype=torch.int64, device=dev)
+        with span("sync.categorical"):
+            is_num[cols] = False
         valid_t = valid_t & is_num[None, :, None]
     bun = bundle if p.has_bundles else None
     if bun is not None:
@@ -407,7 +420,9 @@ def _categorical_planes(hist, num_bins, fm_lf, pg, ph, pc, cat_idx,
     missing) is never a member."""
     L, _, f, b = hist.shape
     dev = hist.device
-    ci = torch.as_tensor(cat_idx, dtype=torch.int64, device=dev)
+    # a blocking copy of the host list of categorical columns
+    with span("sync.categorical"):
+        ci = torch.as_tensor(cat_idx, dtype=torch.int64, device=dev)
     hcat = hist[:, :, ci, :]                                     # [L,3,Fc,B]
     gch, hch, cch = hcat[:, 0], hcat[:, 1], hcat[:, 2]
     nb_c = num_bins.to(torch.int64)[ci][None, :, None]           # [1,Fc,1]

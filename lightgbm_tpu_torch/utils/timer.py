@@ -2,13 +2,14 @@
 
 Port of ``lightgbm_tpu/utils/timer.py``, the analog of LightGBM's
 ``Timer``/``FunctionTimer`` registry (src/utils/common.h:1032-1093, enabled
-with USE_TIMER): named accumulating wall-clock scopes, printed as a sorted
-table. Each scope also opens a ``torch.profiler.record_function`` range of
-its name, so the same names line up in a torch.profiler trace (the Chrome
-trace ``xla_trace_out`` writes, ``obs/tracing.py``), and a scope can block
-on device results (``block_on``: a tensor, or a callable returning tensors,
-whose CUDA devices are synchronized before the clock stops) so that work
-the card still runs is not attributed to the next scope.
+with USE_TIMER): named accumulating wall-clock times, printed as a sorted
+table. It is the accumulator of the program's one span API,
+``obs.tracing.span``, which also opens the ``torch.profiler``
+range of the same name while a profiler records; ``TIMER.scope`` and
+``timed`` are that span, always timed (the span can block on device
+results, ``block_on``: a tensor, or a callable returning tensors, whose
+CUDA devices are synchronized before the clock stops, so that work the
+card still runs is not attributed to the next span).
 
 The registry is thread-safe and namespaced per training run:
 ``engine.train`` calls :meth:`TimerRegistry.begin_run` so accumulations
@@ -17,9 +18,12 @@ previous run's table stays readable via ``last_run``.
 
 Usage::
 
+    from lightgbm_tpu_torch.obs.tracing import span
     from lightgbm_tpu_torch.utils.timer import TIMER, timed
 
-    with TIMER.scope("hist"):
+    with span("pass.hist"):       # timed with telemetry or the table on
+        ...
+    with TIMER.scope("hist"):     # always timed
         ...
     @timed("construct_bins")
     def f(...): ...
@@ -28,7 +32,6 @@ Usage::
 """
 from __future__ import annotations
 
-import contextlib
 import functools
 import statistics
 import threading
@@ -58,23 +61,11 @@ class TimerRegistry:
             self._acc.clear()
             self._cnt.clear()
 
-    @contextlib.contextmanager
     def scope(self, name: str, block_on=None):
-        """Accumulate wall time under ``name`` inside a
-        ``torch.profiler.record_function`` range of the same name. With
-        ``block_on`` (tensors, or a callable returning them) the CUDA
-        devices they lie on are synchronized before the clock stops, so the
-        scope covers the device's work, not just its launch."""
-        if not self.enabled:
-            yield
-            return
-        from torch.profiler import record_function
-        t0 = time.perf_counter()
-        with record_function(name):
-            yield
-            if block_on is not None:
-                sync_on(block_on() if callable(block_on) else block_on)
-        self.add(name, time.perf_counter() - t0)
+        """``obs.tracing.span(name, block_on, timed=True)``: wall time
+        accumulated under ``name`` whatever the telemetry settings."""
+        from ..obs.tracing import span
+        return span(name, block_on=block_on, timed=True)
 
     def add(self, name: str, seconds: float) -> None:
         with self._lock:
