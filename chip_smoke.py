@@ -91,7 +91,8 @@ measured):
    B2's multi-level replay on (a)'s data: the route tables of the first
    three level passes of one tree of (a)'s binary model (3 channels) and
    of its L2 model (2), recorded from the live hist_routed_fused calls of
-   one update with their own slot widths, replayed in one
+   one update of the count-sized passes (the grower's sharded loop on one
+   shard) with their own slot widths, replayed in one
    hist_routed_fused_multi launch from the root's leaf ids, equal to the
    live passes and to the plain version bit for bit and timed beside the
    three D = 1 launches and its bound; then the path that runs it,
@@ -4325,9 +4326,10 @@ def main() -> int:
         data: the route tables of the first three level passes of one tree
         of (a)'s binary model (3 channels) and of its L2 model (2, the
         const-hessian front), recorded from the live hist_routed_fused
-        calls of one update with their own slot widths, replayed in one
-        launch from the root's leaf ids: each band equals its live pass,
-        the final leaf ids the third pass's, and everything the plain
+        calls of one update of the grower's count-sized passes (its
+        sharded loop on one shard) with their own slot widths, replayed
+        in one launch from the root's leaf ids: each band equals its live
+        pass, the final leaf ids the third pass's, and everything the plain
         version (multi_variant). Then the path that runs it,
         scripts/torch_profile_level.py's shallow megapass at (a)'s width on
         its bins: levels 1..5 of one tree in two launches (grad_quant_hist0
@@ -4336,8 +4338,23 @@ def main() -> int:
         passes."""
         sys.path.insert(0, os.path.join(HERE, "scripts"))
         import torch_profile_level as tpl
+        from lightgbm_tpu_torch.models import gbdt as gbdt_mod
+        from lightgbm_tpu_torch.ops import grow_depthwise as gd_mod
+        from lightgbm_tpu_torch.ops.grow import RowShard, ShardedRows
         ds, ds_reg = dataset(63)
         orig_routed, orig_front = hk.hist_routed_fused, hk.grad_quant_hist0
+        orig_grow = gbdt_mod.grow_tree_depthwise
+
+        def count_sized(bins_T_, g, h, c, num_bins, na_bin, fmask, gp,
+                        qseed=0, fused=None, bins=None, **kw):
+            """The grower's count-sized passes (its sharded loop on one
+            shard), each level at its own slot width: the serial grower
+            runs every pass at the schedule's width, as a CUDA graph."""
+            tree, lids, passes = gd_mod.grow_tree_depthwise(
+                bins_T_, None, None, None, num_bins, na_bin, fmask, gp,
+                qseed=qseed, shards=ShardedRows([RowShard(
+                    bins_T_, bins, g, h, c, fused)]))
+            return tree, lids[0], passes
         for nm, d_, obj in (("binary", ds, "binary"),
                             ("l2", ds_reg, "regression")):
             live, front = [], []
@@ -4356,6 +4373,7 @@ def main() -> int:
                 front.append(out)
                 return out
             hk.hist_routed_fused, hk.grad_quant_hist0 = routed, recorded_front
+            gbdt_mod.grow_tree_depthwise = count_sized
             try:
                 lt.Booster(params={"objective": obj, "num_leaves": L,
                                    "max_bin": 63, "learning_rate": 0.1,
@@ -4365,6 +4383,7 @@ def main() -> int:
             finally:
                 hk.hist_routed_fused = orig_routed
                 hk.grad_quant_hist0 = orig_front
+                gbdt_mod.grow_tree_depthwise = orig_grow
             if len(live) < 3 or len(front) != 1 or bool(live[0][0].any()) \
                     or any(c is not None for *_, c, _ in live):
                 fail(f"multi-level replay [{nm}]: the first tree did not "

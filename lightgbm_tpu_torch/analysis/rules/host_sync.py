@@ -16,7 +16,8 @@ level deep, so ``select_level`` and ``_membership_leaves`` count as the
 level loop's):
 
 - the depthwise grower's level loops (``ops/grow_depthwise.py``
-  ``grow_tree_depthwise`` and ``grow_tree_depthwise_lean``);
+  ``grow_tree_depthwise``, its serial ``_grow_serial`` and
+  ``grow_tree_depthwise_lean``);
 - the lossguide grower's step loop (``ops/grow.py`` ``grow_tree``);
 - the engine's iteration loop (``engine.py`` ``train``) and the trainer's
   per-iteration methods (``models/gbdt.py`` ``train_one_iter``, ``_grow``),
@@ -57,6 +58,8 @@ _REDUCTIONS = {"any", "all", "sum", "max", "min", "argmax", "argmin",
 # (path, function) -> what the loop is, for the message
 HOT_LOOPS: Dict[Tuple[str, str], str] = {
     ("lightgbm_tpu_torch/ops/grow_depthwise.py", "grow_tree_depthwise"):
+        "level loop",
+    ("lightgbm_tpu_torch/ops/grow_depthwise.py", "_grow_serial"):
         "level loop",
     ("lightgbm_tpu_torch/ops/grow_depthwise.py", "grow_tree_depthwise_lean"):
         "level loop",

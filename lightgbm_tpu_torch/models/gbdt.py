@@ -91,7 +91,8 @@ from ..obs.tracing import span
 from ..utils import faults, threefry
 from ..ops.gather import take_small
 from ..ops.grow import ForcedSplits, GrowParams, TreeArrays, grow_tree
-from ..ops.grow_depthwise import (CEGBState, grow_tree_depthwise,
+from ..ops.grow_depthwise import (CEGBState, LevelGraphs,
+                                  grow_tree_depthwise,
                                   grow_tree_depthwise_lean)
 from ..ops.histogram import ACC_ROWS_MAX, pack_guard_bits
 from ..ops.predict import bin_tree, route_bins
@@ -461,6 +462,9 @@ class GBDT:
         self.depthwise = config.grow_policy == "depthwise" or self._fp
         cegb_coupled, cegb_lazy = self._cegb_setup(config, train_set)
         self.forced = self._build_forced(config, train_set)
+        # the serial depthwise grower's level passes, captured as CUDA
+        # graphs across this trainer's trees where capture engages
+        self._level_graphs = LevelGraphs()
         self.path = kernel_path(
             config, f, B, k, fused_obj=spec is not None,
             const_hess_obj=(objective is not None
@@ -1036,7 +1040,8 @@ class GBDT:
             tree, leaf_id, passes = grow_tree_depthwise(
                 ts.bins_T, *ghc, ts.num_bins_dev, ts.na_bin_dev,
                 self._fmask, gp, qseed=qseed, fused=fused, bins=ts.bins,
-                bundle=self.bundle, forced=self.forced, cegb=self.cegb)
+                bundle=self.bundle, forced=self.forced, cegb=self.cegb,
+                graphs=self._level_graphs)
             return tree, leaf_id, passes, 0
         return grow_tree(ts.bins_T, *ghc, ts.num_bins_dev, ts.na_bin_dev,
                          self._fmask, gp, bins=ts.bins, qseed=lossguide_q,

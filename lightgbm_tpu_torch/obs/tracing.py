@@ -21,7 +21,8 @@ it.
 
 The boosting iteration's spans (fixed names; nesting by containment):
 ``iter.sample``, ``iter.gradients``, ``grow.tree`` holding ``grow.front``,
-``grow.pass`` (``pass.search``, ``pass.apply``, ``pass.hist``) and
+``grow.pass`` (``pass.search``, ``pass.apply``, ``pass.hist``, or
+``pass.replay`` where the pass replays as a CUDA graph) and
 ``grow.leaf_renew``, then ``iter.score_update``; every call that blocks
 the host on the card sits in a ``sync.<site>`` span of its own, so the
 number of ``sync.*`` spans is the number of host syncs.

@@ -220,8 +220,12 @@ class TreeArrays(NamedTuple):
     num_leaves: int
 
 
-def empty_tree(L: int, B: int, device: torch.device) -> TreeArrays:
-    m = max(L - 1, 1)
+def empty_tree(L: int, B: int, device: torch.device,
+               spare: int = 0) -> TreeArrays:
+    """A tree of no split; ``spare`` more rows on every node and leaf
+    array (the fixed-width level pass's trash rows)."""
+    m = max(L - 1, 1) + spare
+    L = L + spare
 
     def zi():
         return torch.zeros(m, dtype=torch.int32, device=device)

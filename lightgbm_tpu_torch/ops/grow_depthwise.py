@@ -33,22 +33,32 @@ search at the leaves that hold a forced-node pointer, with left stats
 from the leaf histogram's prefix sums, the missing bin excluded
 (:406-428), and the pointers move to the children (:613-622).
 The reference builds the whole tree inside one jitted program with
-fixed-width masked scatters; here the level schedule is a Python loop that
-reads the level's split count to the host once per level, and the level
-pass is launched with exactly that many histogram slots (the reference's
-wider padded slot axis only ever holds zeros past it). The schedule's slot
-widths still bound the per-level selection exactly as in the reference.
-A level pass blocks the host on the card eight times: that read, four
-boolean-mask gathers of the parents' child pointers and three Python
-scalars written into the frontier; each sits in a ``sync.*`` span
-(``obs/tracing.py``), and the pass's phases in ``pass.*`` spans.
+fixed-width masked scatters. On one shard the port's level pass
+(``level_pass``) does the same at the level's slot width from the
+schedule (32 or 127 at 255 leaves): the selected leaves in ascending
+order, then one trash row each for the slots the level leaves empty, the
+route tables' sentinel the width, and the budget, the leaf count and the
+selected count on the card. A pass makes one host read, the next level's
+selected count (``sync.select``), which stops the tree at 0; the
+parents' child pointers and the frontier are scattered on the card.
+On the card the pass is captured as a CUDA graph, one per (width, next
+width), and replayed for every later level of every tree of the trainer
+(``LevelGraphs``, a ``pass.replay`` span in ``grow.pass``), where
+``capture_engages``; CEGB, forced splits, feature_fraction_bynode,
+extra_trees, categorical features, EFB bundles, monotone constraints and
+feature_contri run the same pass eagerly, in its ``pass.*`` spans. The
+sharded, voting and feature-tile paths keep a loop that sizes each pass
+by the selected count read on the host, with four more reads of the
+parents' child pointers and three frontier scalars a pass; each read sits
+in a ``sync.*`` span (``obs/tracing.py``).
 """
 from __future__ import annotations
 
 import math
 from contextlib import nullcontext
 from dataclasses import dataclass, replace
-from typing import List, Optional, Tuple
+from functools import partial
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -152,7 +162,6 @@ def apply_level_to_tree(tree: TreeArrays, parent_node: torch.Tensor,
     children are the new leaves ``nl``; each parent's child pointer moves
     to its node; ``left`` / ``right`` the (g, h, count) stats and
     ``outputs`` the (left, right, parent) outputs of every leaf [L]."""
-    (lg, lh, lc), (rg, rh, rc), (w_l, w_r, w_p) = left, right, outputs
     par = parent_node[si]
     has_par = par >= 0
     pr = parent_right[si]
@@ -169,6 +178,33 @@ def apply_level_to_tree(tree: TreeArrays, parent_node: torch.Tensor,
         nid_r = nid[to_right]
     tree.left_child[par_l] = nid_l.to(torch.int32)
     tree.right_child[par_r] = nid_r.to(torch.int32)
+    _write_level_nodes(tree, res, si, nid, nl, left, right, outputs, sp)
+
+
+def apply_level_fixed(tree: TreeArrays, parent_node: torch.Tensor,
+                      parent_right: torch.Tensor, res: SplitResult,
+                      si: torch.Tensor, nid: torch.Tensor, nl: torch.Tensor,
+                      valid: torch.Tensor, trash_node: torch.Tensor,
+                      left, right, outputs, sp: SplitParams) -> None:
+    """``apply_level_to_tree`` at a fixed slot width W and with no host
+    read: ``si``, ``nid``, ``nl`` [W], slot j past the level's count
+    (``valid`` False) pointing at trash rows of its own; each parent's
+    child pointer is written where it points, every other slot's at its
+    trash node ``trash_node`` [W]."""
+    par = parent_node[si]
+    has_par = valid & (par >= 0)
+    pr = parent_right[si]
+    nid32 = nid.to(torch.int32)
+    tree.left_child[torch.where(has_par & ~pr, par, trash_node)] = nid32
+    tree.right_child[torch.where(has_par & pr, par, trash_node)] = nid32
+    _write_level_nodes(tree, res, si, nid, nl, left, right, outputs, sp)
+
+
+def _write_level_nodes(tree: TreeArrays, res: SplitResult, si, nid, nl,
+                       left, right, outputs, sp: SplitParams) -> None:
+    """The new nodes and both children's leaf values of the splits of
+    leaves ``si`` (nodes ``nid``, right children ``nl``)."""
+    (lg, lh, lc), (rg, rh, rc), (w_l, w_r, w_p) = left, right, outputs
     tree.split_feature[nid] = res.feature[si].to(torch.int32)
     tree.threshold_bin[nid] = res.bin[si].to(torch.int32)
     tree.default_left[nid] = res.default_left[si]
@@ -220,6 +256,23 @@ def _membership_leaves(res: SplitResult, sel: torch.Tensor,
     return cat_sel if any_cat else None
 
 
+def _select(gain: torch.Tensor, active: torch.Tensor, sp: SplitParams,
+            cap) -> torch.Tensor:
+    """sel [L] bool: the leaves whose record gains pass the gate, ranked
+    by gain with ties to the lower leaf index, the first ``cap`` (an int,
+    or a 0-d tensor on the card)."""
+    # under feature_contri the records hold the penalized improvement,
+    # min_gain_to_split taken off already
+    gain_gate = 0.0 if sp.has_contri else float(max(sp.min_gain_to_split,
+                                                    0.0))
+    iota = torch.arange(active.shape[0], device=active.device)
+    cand = active & (gain > gain_gate) & (gain > NEG_INF / 2)
+    key = torch.where(cand, gain, torch.full_like(gain, -math.inf))
+    kj, ki = key[None, :], key[:, None]
+    better = (kj > ki) | ((kj == ki) & (iota[None, :] < iota[:, None]))
+    return cand & (better.sum(dim=1) < cap)
+
+
 def select_level(res: SplitResult, active: torch.Tensor, sp: SplitParams,
                  budget: int, slots: int):
     """The level's budgeted selection (reference: grow_depthwise.py
@@ -227,17 +280,7 @@ def select_level(res: SplitResult, active: torch.Tensor, sp: SplitParams,
     gain with ties to the lower leaf index, the first min(budget, slots).
     Returns (sel [L] bool, si the selected leaves ascending, idx_in_lvl
     [L] i64: each selected leaf's place among them)."""
-    # under feature_contri the records hold the penalized improvement,
-    # min_gain_to_split taken off already
-    gain_gate = 0.0 if sp.has_contri else float(max(sp.min_gain_to_split,
-                                                    0.0))
-    iota = torch.arange(active.shape[0], device=active.device)
-    cand = active & (res.gain > gain_gate) & (res.gain > NEG_INF / 2)
-    key = torch.where(cand, res.gain, torch.full_like(res.gain, -math.inf))
-    kj, ki = key[None, :], key[:, None]
-    better = (kj > ki) | ((kj == ki) & (iota[None, :] < iota[:, None]))
-    rank = better.sum(dim=1)
-    sel = cand & (rank < min(budget, slots))
+    sel = _select(res.gain, active, sp, min(budget, slots))
     # the one intended sync a level: the host sizes the level's route and
     # histogram launches by the number of leaves that split, and stops the
     # tree when none does
@@ -303,6 +346,459 @@ def voting_exchange(parts: list, sh: ShardedRows, num_bins: torch.Tensor,
     return out, mask
 
 
+# ---------------------------------------------------------------------------
+# the serial level pass: a fixed slot width, one host read, replayed as a
+# CUDA graph on the card
+# ---------------------------------------------------------------------------
+
+_LEAF_FIELDS = ("leaf_value", "leaf_weight", "leaf_count")
+
+
+class LevelState:
+    """What the serial level pass reads and writes. Every per-leaf array
+    has ``L + W`` rows and every per-node array ``m + W`` (``W`` the widest
+    level, ``m`` the tree's L - 1 nodes): slot j of a level that selects
+    fewer leaves than its width writes leaf row ``L + j`` and node row
+    ``m + j``, trash rows that no search and no tree reads, so that no
+    write repeats an index. The step is the last search's records and
+    selection over the first L rows: ``sel``, each selected leaf's place
+    ``idx``, and their ``count``, on the card like ``num_leaves``. The
+    tree's front and row inputs and the leaf ids live in buffers of the
+    state's own, whose addresses a captured graph keeps."""
+
+    def __init__(self, L: int, f: int, B: int, n: int, W: int,
+                 dev: torch.device):
+        T = L + W
+        f32 = dict(dtype=torch.float32, device=dev)
+        i64 = dict(dtype=torch.int64, device=dev)
+        b8 = dict(dtype=torch.bool, device=dev)
+        self.L, self.m = L, max(L - 1, 1)
+        self.hist = torch.zeros((T, 3, f, B), **f32)
+        self.leaf_g, self.leaf_h, self.leaf_c, self.leaf_min, \
+            self.leaf_max = (torch.zeros(T, **f32) for _ in range(5))
+        self.active, self.parent_right = (torch.zeros(T, **b8)
+                                          for _ in range(2))
+        self.parent_node, self.forced_ptr = (torch.zeros(T, **i64)
+                                             for _ in range(2))
+        self.num_leaves = torch.ones((), **i64)
+        self.tree = empty_tree(L, B, dev, spare=W)
+        self.leaf_id = torch.zeros(n, dtype=torch.int32, device=dev)
+        self.res = SplitResult(
+            gain=torch.zeros(T, **f32), feature=torch.zeros(T, **i64),
+            bin=torch.zeros(T, **i64),
+            default_left=torch.zeros(T, **b8), left_g=torch.zeros(T, **f32),
+            left_h=torch.zeros(T, **f32), left_cnt=torch.zeros(T, **f32),
+            is_cat=torch.zeros(T, **b8),
+            cat_member=torch.zeros((T, B), **b8))
+        self.okf, self.sel = (torch.zeros(T, **b8) for _ in range(2))
+        self.idx = torch.zeros(T, **i64)
+        self.count = torch.zeros((), **i64)
+        self.slots = torch.arange(W, **i64)
+        self.quant: Optional[H.QuantChannels] = None
+        self.hist0 = self.rows = self.fmask = None
+
+    def bind(self, hist0, quant, rows, fmask) -> None:
+        """The tree's front: the root histogram, the row inputs (the
+        quantized channels, or the f32 rows without quantization) and the
+        column mask, copied into the state's own buffers."""
+        rows = rows if quant is None else None
+        if self.fmask is None:
+            self.hist0, self.fmask = hist0.clone(), fmask.clone()
+            self.quant = None if quant is None else H.QuantChannels(
+                *(None if t is None else t.clone() for t in quant))
+            self.rows = None if rows is None else tuple(t.clone()
+                                                        for t in rows)
+        else:
+            self.hist0.copy_(hist0)
+            self.fmask.copy_(fmask)
+            for dst, src in zip(self.quant or self.rows, quant or rows):
+                if dst is not None:
+                    dst.copy_(src)
+
+    def begin(self, sp: SplitParams, forced) -> None:
+        """A new tree from the bound root histogram: the root's sums, a
+        tree of no split, every row in leaf 0."""
+        hist0 = self.hist0
+        g0, h0, c0 = tree_sum(hist0[0, 0]), tree_sum(hist0[1, 0]), \
+            tree_sum(hist0[2, 0])
+        self.hist.zero_()
+        self.hist[0] = hist0
+        for arr, v in ((self.leaf_g, g0), (self.leaf_h, h0),
+                       (self.leaf_c, c0)):
+            arr.zero_()
+            arr[0] = v
+        self.leaf_min.fill_(-math.inf)
+        self.leaf_max.fill_(math.inf)
+        self.active.zero_()
+        self.active[:1].fill_(True)
+        self.parent_node.fill_(-1)
+        self.parent_right.zero_()
+        self.forced_ptr.fill_(-1)
+        if forced is not None:
+            self.forced_ptr[:1].fill_(0)
+        self.num_leaves.fill_(1)
+        for name, arr in self.tree._asdict().items():
+            if name != "num_leaves":
+                arr.zero_()
+        self.tree.leaf_value[0] = leaf_output(g0, h0, sp)
+        self.tree.leaf_weight[0] = h0
+        self.tree.leaf_count[0] = c0
+        self.leaf_id.zero_()
+
+    def tree_out(self, num_leaves: int) -> TreeArrays:
+        """The tree's arrays, trash rows left out, in tensors of their
+        own."""
+        return TreeArrays(num_leaves=num_leaves, **{
+            k: v[:self.L if k in _LEAF_FIELDS else self.m].clone()
+            for k, v in self.tree._asdict().items() if k != "num_leaves"})
+
+
+class PassIO(NamedTuple):
+    """What a serial level pass reads besides its ``LevelState``: the
+    Dataset's bins and bin tables, and the per-tree inputs of the paths
+    that run the pass eagerly."""
+    gp: GrowParams
+    bins_T: torch.Tensor
+    bins: Optional[torch.Tensor]
+    num_bins: torch.Tensor
+    na_bin: torch.Tensor
+    bundle: Optional[BundleArrays]
+    forced: Optional[ForcedSplits]
+    cegb: Optional[CEGBState]
+    sh: ShardedRows
+    qseed: int
+
+
+def _no_phase(name: str):
+    return nullcontext()
+
+
+def _read_count(st: LevelState) -> int:
+    """The last search's selected count, on the host: the one read of a
+    level; the host stops the tree when it is 0."""
+    with span("sync.select"):
+        # the one intended read a level: the host stops the tree on 0
+        # tpu-lint: disable=host-sync-in-jit
+        return int(st.count.item())
+
+
+def _search(st: LevelState, io: PassIO, lvl: int, slots: int) -> None:
+    """Level ``lvl``'s split search over the first L rows and its budgeted
+    selection of at most ``slots`` leaves (reference: grow_depthwise.py
+    :446-458), into the step; the budget stays on the card."""
+    gp, sp, L = io.gp, io.gp.split, st.L
+    hist, leaf_c, active = st.hist[:L], st.leaf_c[:L], st.active[:L]
+    mask = node_feature_mask(st.fmask.expand(L, hist.shape[2]), gp,
+                             io.qseed, lvl)
+    pen = (cegb_penalty(sp, io.cegb, leaf_c, io.sh, [st.leaf_id], gp)
+           if io.cegb is not None else None)
+    res = best_split(hist, io.num_bins, io.na_bin, st.leaf_g[:L],
+                     st.leaf_h[:L], leaf_c, mask, sp, active, io.bundle,
+                     leaf_min=st.leaf_min[:L], leaf_max=st.leaf_max[:L],
+                     gain_penalty=pen,
+                     rand_key=extra_trees_key(sp, io.qseed, lvl))
+    if io.forced is not None:
+        fptr = st.forced_ptr[:L]
+        res, okf = forced_override(res, io.forced, fptr,
+                                   (fptr >= 0) & active, hist, io.na_bin,
+                                   leaf_c)
+        st.okf[:L] = okf
+    sel = _select(res.gain, active, sp,
+                  torch.clamp(L - st.num_leaves, max=slots))
+    cum = torch.cumsum(sel.to(torch.int64), 0)
+    for dst, src in zip(st.res, res):
+        dst[:L] = src
+    st.sel[:L] = sel
+    st.idx[:L] = cum - 1
+    st.count.copy_(cum[-1])
+
+
+def begin_tree(st: LevelState, io: PassIO,
+               width: Optional[int]) -> None:
+    """A tree's start from its bound front, then, unless ``width`` is
+    None, the root's search and selection of at most ``width`` leaves."""
+    st.begin(io.gp.split, io.forced)
+    if width is not None:
+        _search(st, io, 0, width)
+
+
+def level_pass(st: LevelState, io: PassIO, lvl: int, width: int,
+               next_width: Optional[int], phase=span,
+               read: bool = True) -> int:
+    """One serial level pass at slot width ``width``, from the step's
+    selection (reference: grow_depthwise.py :459-632, the same masked
+    scatters): the selected leaves become nodes, their rows are routed and
+    the smaller children measured in ``width`` slots, the larger by
+    subtraction, and the stats and frontier follow; then, unless
+    ``next_width`` is None, level ``lvl`` + 1's search. Its one host read,
+    when ``read`` is set, is the count of that search's selection, which
+    it returns (else 0); the paths that run it eagerly add their own (the
+    categorical membership, CEGB's copies). Slot j past the selected count
+    writes only its trash rows, so a level that selects nothing leaves the
+    tree, the leaf ids and the live rows as they were. ``phase`` opens the
+    pass's ``pass.*`` spans."""
+    sp, L = io.gp.split, st.L
+    res, sel, idx = st.res, st.sel, st.idx
+    with phase("pass.apply"):
+        j = st.slots[:width]
+        valid = j < st.count
+        # slot j: the (j + 1)-th selected leaf in leaf order, else trash
+        si = torch.where(valid, torch.searchsorted(idx[:L] + 1, j,
+                                                   right=True), L + j)
+        nl = torch.where(valid, st.num_leaves + j, L + j)
+        trash_node = st.m + j
+        nid = torch.where(valid, st.num_leaves - 1 + j, trash_node)
+        left, right, outs = split_outputs(res, st.leaf_g, st.leaf_h,
+                                          st.leaf_c, st.leaf_min,
+                                          st.leaf_max, sp)
+        apply_level_fixed(st.tree, st.parent_node, st.parent_right, res, si,
+                          nid, nl, valid, trash_node, left, right, outs, sp)
+        cat_sel = _membership_leaves(res, sel, sp)
+        # ---- CEGB bookkeeping: a split marks its column used, and every
+        # in-bag row of the split leaf paid for it ----
+        if io.cegb is not None and sp.cegb_coupled:
+            cols = torch.arange(io.cegb.feature_used.shape[0],
+                                device=sel.device)
+            io.cegb.feature_used |= ((res.feature[:, None] == cols)
+                                     & sel[:, None]).any(0)
+        if io.cegb is not None and sp.cegb_lazy:
+            s = io.sh.shards[0]
+            f_row = torch.where(sel, res.feature, torch.full_like(
+                res.feature, -1))[st.leaf_id.to(torch.int64)]
+            pay = (f_row >= 0) & (s.c > 0)
+            rows = torch.arange(f_row.shape[0], device=s.device)
+            col = f_row.clamp(min=0)
+            s.data_used[rows, col] = s.data_used[rows, col] | pay
+        # ---- route tables: slot idx for the smaller child of each
+        # selected leaf, the sentinel ``width`` elsewhere ----
+        small_is_left = left[2] <= right[2]
+        none = torch.full_like(idx, width)
+        tables = H.RouteTables(
+            feat=torch.where(sel, res.feature,
+                             torch.full_like(res.feature, -1))[:L],
+            thr=res.bin[:L], dleft=res.default_left[:L].to(torch.int32),
+            new_leaf=(st.num_leaves + idx)[:L],
+            slot_left=torch.where(sel & small_is_left, idx, none)[:L],
+            slot_right=torch.where(sel & ~small_is_left, idx, none)[:L],
+            is_cat=None if cat_sel is None else cat_sel[:L],
+            member=(None if cat_sel is None
+                    else (res.cat_member & sel[:, None])[:L]))
+
+    with phase("pass.hist"):
+        hp, lid = H.hist_routed(io.bins_T, st.leaf_id, tables, io.na_bin,
+                                width, st.hist.shape[3], st.quant, st.rows,
+                                io.bins)
+        st.leaf_id.copy_(lid)
+        sib = st.hist[si] - hp
+        sl = small_is_left[si][:, None, None, None]
+        st.hist[si] = torch.where(sl, hp, sib)
+        st.hist[nl] = torch.where(sl, sib, hp)
+
+    with phase("pass.apply"):
+        (lg, lh, lc), (rg, rh, rc), (w_l, w_r, _) = left, right, outs
+        if sp.has_monotone:
+            lo_l, hi_l, lo_r, hi_r = monotone_child_bounds(
+                sp, st.hist.shape[2], res.is_cat[si], res.feature[si],
+                w_l[si], w_r[si], st.leaf_min[si], st.leaf_max[si])
+            st.leaf_min[si], st.leaf_max[si] = lo_l, hi_l
+            st.leaf_min[nl], st.leaf_max[nl] = lo_r, hi_r
+        if io.forced is not None:
+            fp = torch.clamp(st.forced_ptr, min=0)
+            none = torch.full_like(st.forced_ptr, -1)
+            nxt_l = torch.where(st.okf, io.forced.left[fp], none)[si]
+            nxt_r = torch.where(st.okf, io.forced.right[fp], none)[si]
+            st.forced_ptr[si] = nxt_l
+            st.forced_ptr[nl] = nxt_r
+        for arr, a, b in ((st.leaf_g, lg, rg), (st.leaf_h, lh, rh),
+                          (st.leaf_c, lc, rc)):
+            arr[si] = a[si]
+            arr[nl] = b[si]
+        # the frontier: the split leaves and their new siblings (a level
+        # that selects nothing keeps the one it had)
+        st.active.copy_(torch.where(st.count > 0, sel, st.active))
+        st.active.index_fill_(0, nl, True)
+        st.parent_node[si] = nid
+        st.parent_node[nl] = nid
+        st.parent_right.index_fill_(0, si, False)
+        st.parent_right.index_fill_(0, nl, True)
+        st.num_leaves += st.count
+
+    if next_width is None:
+        return 0
+    with phase("pass.search"):
+        _search(st, io, lvl + 1, next_width)
+        return _read_count(st) if read else 0
+
+
+def capture_engages(dev: torch.device, gp: GrowParams, cegb, forced) -> bool:
+    """Whether the serial level pass runs as a captured CUDA graph: on the
+    card, where the pass takes no host input that changes from level to
+    level and copies nothing from the host. CEGB (its copies), forced
+    splits, feature_fraction_bynode and extra_trees (draws keyed on the
+    level's number), categorical features and EFB bundles (the membership
+    read), monotone constraints and feature_contri (the search's copies of
+    their arrays) run the same pass eagerly."""
+    sp = gp.split
+    return (dev.type == "cuda" and cegb is None and forced is None
+            and gp.ff_bynode >= 1.0 and not sp.extra_trees
+            and not sp.cat_features and not sp.has_bundles
+            and not sp.has_monotone and not sp.has_contri)
+
+
+class LevelGraphs:
+    """A trainer's captured level passes: one CUDA graph per (slot width
+    of the pass, slot width of the next search, or None where the pass
+    ends the tree's searches), in one memory pool, over one
+    ``LevelState``. ``key`` names what the graphs were captured on (the
+    grow parameters, the shapes, and the addresses of the bins and bin
+    tables); another key drops them and captures anew. ``captures``
+    counts the graphs captured."""
+
+    def __init__(self):
+        self.key = None
+        self.state: Optional[LevelState] = None
+        self.graphs: dict = {}
+        self.pool = None
+        self.captures = 0
+
+    def state_for(self, key, make) -> LevelState:
+        if key != self.key:
+            self.graphs.clear()
+            self.state = None
+            self.key, self.state = key, make()
+            self.pool = torch.cuda.graph_pool_handle()
+        return self.state
+
+    def replay(self, key) -> None:
+        graph, ran = self.graphs[key]
+        graph.replay()
+        for k, v in ran.items():
+            K.LAUNCHES[k] += v
+
+    def run(self, key, eager, captured, replay_span: str = "") -> None:
+        """Replay the graph of ``key``, in a ``replay_span`` span if one is
+        named. The first time, run ``eager`` on a side stream (the warm-up
+        torch.cuda.graphs documents, here the work itself), then capture
+        ``captured``, the same work with no span and no host read. A
+        capture records launches and runs none, so the launches the kernel
+        wrappers counted during it are taken back, and each replay adds
+        them."""
+        if key in self.graphs:
+            with span(replay_span) if replay_span else nullcontext():
+                self.replay(key)
+            return
+        main = torch.cuda.current_stream()
+        side = torch.cuda.Stream()
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            eager()
+        main.wait_stream(side)
+        before = dict(K.LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            # other threads may use the card meanwhile (a server answering
+            # on it while a model trains): only this thread's capture is
+            # held to the capture's rules
+            graph.capture_begin(pool=self.pool,
+                                capture_error_mode="thread_local")
+            try:
+                captured()
+            finally:
+                graph.capture_end()
+        main.wait_stream(side)
+        self.graphs[key] = (graph, {k: K.LAUNCHES[k] - v
+                                    for k, v in before.items()
+                                    if K.LAUNCHES[k] != v})
+        K.LAUNCHES.update(before)
+        self.captures += 1
+
+
+def _grow_serial(bins_T, g, h, c, num_bins, na_bin, feature_mask,
+                 gp: GrowParams, qseed: int, fused, bins, bundle, forced,
+                 cegb, graphs: Optional[LevelGraphs]):
+    """``grow_tree_depthwise`` on one shard: the front, then one
+    fixed-width ``level_pass`` a level, replayed from ``graphs`` where
+    capture engages (its first run at a (width, next width) is eager, on
+    the warm-up stream, and then captured)."""
+    f, n = bins_T.shape
+    dev = bins_T.device
+    L, B = gp.num_leaves, gp.max_bin
+    sp, spec = gp.split, gp.fused_obj
+    max_levels = gp.max_depth if gp.max_depth > 0 else max(1, L - 1)
+    widths = level_widths(L, max_levels)
+    io = PassIO(gp, bins_T, bins, num_bins, na_bin, bundle, forced, cegb,
+                as_sharded(None, bins_T, bins, g, h, c, fused,
+                           None if cegb is None else cegb.data_used), qseed)
+    graphed = graphs is not None and capture_engages(dev, gp, cegb, forced)
+    with span("grow.front"):
+        if fused is not None:
+            quant, hist0 = H.grad_quant_hist0(bins_T, *fused, qseed, spec,
+                                              B, const_hess=gp.const_hess)
+        elif gp.quant:
+            quant = H.make_quant(g, h, c, qseed, const_hess=gp.const_hess)
+            hist0 = H.hist_leaf(bins_T, B, quant)
+        else:
+            quant, hist0 = None, H.hist_leaf(bins_T, B, rows=(g, h, c))
+
+        def make() -> LevelState:
+            return LevelState(L, f, B, n, max(widths, default=1), dev)
+
+        st = (graphs.state_for(
+            (gp, n, f, dev, bins_T.data_ptr(),
+             0 if bins is None else bins.data_ptr(), num_bins.data_ptr(),
+             na_bin.data_ptr(), quant is None or quant.hq is None), make)
+              if graphed else make())
+        st.bind(hist0, quant, (g, h, c), feature_mask)
+        # the root's search is the front's, and each level pass ends with
+        # the search of the level it made: a search that selects no split
+        # opens no pass
+        first = widths[0] if widths and L > 1 else None
+        if graphed:
+            root = partial(begin_tree, st, io, first)
+            graphs.run(("root", first), root, root)
+        else:
+            begin_tree(st, io, first)
+        count = _read_count(st) if first is not None else 0
+
+    leaves, passes = 1, 0
+    for lvl, width in enumerate(widths):
+        if count == 0:
+            break
+        leaves += count
+        nxt = (widths[lvl + 1] if lvl + 1 < len(widths) and leaves < L
+               else None)
+        with span("grow.pass"):
+            passes += 1
+            if not graphed:
+                count = level_pass(st, io, lvl, width, nxt)
+                continue
+            graphs.run(
+                (width, nxt),
+                partial(level_pass, st, io, lvl, width, nxt, read=False),
+                partial(level_pass, st, io, lvl, width, nxt, _no_phase,
+                        read=False), "pass.replay")
+            count = _read_count(st) if nxt is not None else 0
+
+    tree = st.tree_out(leaves)
+    lid = st.leaf_id.clone()
+    if not gp.quant:
+        return tree, lid, passes
+    # ---- leaf renewal from exact sums ----
+    with span("grow.leaf_renew"):
+        sums = (K.leaf_sums_grad(*fused, lid, spec, L) if fused is not None
+                else K.leaf_sums(g, h, c, lid, L))
+        w = leaf_output(sums[0], sums[1], sp)
+        if sp.has_monotone:
+            w = torch.clamp(w, st.leaf_min[:L], st.leaf_max[:L])
+        live = torch.arange(L, device=dev) < leaves
+        tree = tree._replace(
+            leaf_value=torch.where(live, w, tree.leaf_value),
+            leaf_weight=torch.where(live, sums[1], tree.leaf_weight),
+            leaf_count=torch.where(live, sums[2], tree.leaf_count))
+    return tree, lid, passes
+
+
 def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
                         h: Optional[torch.Tensor], c: Optional[torch.Tensor],
                         num_bins: torch.Tensor, na_bin: torch.Tensor,
@@ -314,7 +810,8 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
                         forced: Optional[ForcedSplits] = None,
                         cegb: Optional[CEGBState] = None,
                         shards: Optional[ShardedRows] = None,
-                        fp_tiles=None
+                        fp_tiles=None,
+                        graphs: Optional[LevelGraphs] = None
                         ) -> Tuple[TreeArrays, torch.Tensor, int]:
     """Grow one tree level-wise.
 
@@ -347,9 +844,24 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
     ``fp_tiles`` (feature-parallel, ``parallel/feature_parallel.py``
     ``FeatureTiles``, unquantized only): the root and each level's
     histograms are built tile by tile on the tiles' devices and gathered
-    before the search."""
+    before the search.
+
+    On one shard in one process (no ``shards``, tiles or mesh axis) each
+    level runs ``level_pass`` at its slot width; ``graphs`` (the trainer's
+    ``LevelGraphs``) keeps the passes captured as CUDA graphs across trees
+    where ``capture_engages``. The other paths keep the loop below, which
+    sizes each pass by its selected count."""
     if fp_tiles is not None and (gp.quant or shards is not None):
         raise ValueError("feature tiles take the unquantized serial rows")
+    if fused is not None and (gp.fused_obj is None or not gp.quant
+                              or cegb is not None):
+        raise ValueError("the fused front needs gp.quant and gp.fused_obj, "
+                         "and no CEGB")
+    if shards is None and fp_tiles is None and not gp.axis_name and \
+            gp.processes <= 1:
+        return _grow_serial(bins_T, g, h, c, num_bins, na_bin,
+                            feature_mask, gp, qseed, fused, bins, bundle,
+                            forced, cegb, graphs)
     sh = as_sharded(shards, bins_T, bins, g, h, c, fused,
                     None if cegb is None else cegb.data_used)
     f = sh.shards[0].bins_T.shape[0]

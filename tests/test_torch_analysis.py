@@ -225,7 +225,9 @@ def test_host_sync_per_iteration_body():
 
 def test_host_sync_inventory_of_the_port():
     """The syncs the audited loops reach today: one a depthwise level
-    (select_level), one a lossguide step, the categorical membership read,
+    (the serial pass's count read, ``.item()``; select_level on the
+    sharded and lean loops), one a lossguide step, the categorical
+    membership read,
     the non-finite guard and feval's numpy copy, each suppressed with its
     reason; chip_smoke.py prints the same inventory."""
     inv = {}
@@ -239,7 +241,8 @@ def test_host_sync_inventory_of_the_port():
             assert "tpu-lint: disable=host-sync-in-jit" in \
                 "\n".join(ctx.lines[line - 4:line]), (rel, line)
         inv[rel] = [kind for _line, kind, _where in sites]
-    assert inv == {"ops/grow_depthwise.py": ["bool(...any())", ".nonzero()"],
+    assert inv == {"ops/grow_depthwise.py": ["bool(...any())", ".nonzero()",
+                                             ".item()"],
                    "ops/grow.py": [".tolist()"],
                    "engine.py": [".cpu()", ".numpy()"],
                    "models/gbdt.py": ["bool(...all())"]}, inv

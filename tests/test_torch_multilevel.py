@@ -12,7 +12,9 @@ leaf ids, with 3 channels, with 2 (const-hessian elision) and with one
 level's tables categorical; and the one call equals D sequential
 ``hist_routed_fused`` calls of the port. The replay of a live tree's
 levels, each with its own slot width, equals the grower's own level
-passes. ``scripts/torch_profile_level.py`` reports bit-identity against
+passes (the count-sized passes of its sharded loop on one shard: the
+serial grower runs every pass at the schedule's width).
+``scripts/torch_profile_level.py`` reports bit-identity against
 the sequential passes on the CPU. The kernel itself needs the card
 (tests/test_torch_cuda.py, chip_smoke.py phase 3).
 """
@@ -30,8 +32,11 @@ import jax.numpy as jnp
 from lightgbm_tpu.ops import histogram as hg
 from lightgbm_tpu.ops import pallas_hist as ph
 import lightgbm_tpu_torch as lt
+from lightgbm_tpu_torch.models import gbdt as gbdt_mod
+from lightgbm_tpu_torch.ops import grow_depthwise as gd
 from lightgbm_tpu_torch.ops import histogram as H
 from lightgbm_tpu_torch.ops import hist_kernels as hk
+from lightgbm_tpu_torch.ops.grow import RowShard, ShardedRows
 
 # six pytest workers share the box's cores: with torch's default of
 # one intra-op thread a core, their OpenMP threads spin against each
@@ -153,7 +158,8 @@ def test_one_call_equals_sequential_level_passes(rows, case):
 
 def test_replay_of_a_live_tree_with_its_own_slot_widths(rows):
     """The route tables of a grown tree's first three level passes,
-    recorded from the grower, replayed in one call from the root's leaf
+    recorded from the grower's count-sized passes (its sharded loop on one
+    shard), replayed in one call from the root's leaf
     ids with each level's own slot width: each band's first S_d slots
     equal the live pass's histogram, the rest are zero (a level drops the
     slots past its own width: the larger children's sentinel), and the
@@ -179,9 +185,17 @@ def test_replay_of_a_live_tree_with_its_own_slot_widths(rows):
         live.append((leaf_id.clone(), tables.clone(), num_slots, out))
         seen["num_bins"] = num_bins
         return out
+    def count_sized(bins_T, g, h, c, num_bins, na_bin, fmask, gp, qseed=0,
+                    fused=None, bins=None, **kw):
+        tree, lids, passes = gd.grow_tree_depthwise(
+            bins_T, None, None, None, num_bins, na_bin, fmask, gp,
+            qseed=qseed, shards=ShardedRows([RowShard(bins_T, bins, g, h, c,
+                                                      fused)]))
+        return tree, lids[0], passes
     mp = pytest.MonkeyPatch()
     mp.setattr(hk, "hist_routed_fused", routed)
     mp.setattr(hk, "grad_quant_hist0", front)
+    mp.setattr(gbdt_mod, "grow_tree_depthwise", count_sized)
     try:
         bst = lt.Booster(params=p, train_set=ds)
         bst.update()

@@ -6,7 +6,9 @@ Small depthwise and leaf-wise models train for 2 iterations under a CPU
 program nests them (``grow.pass`` tiled by ``pass.search``, ``pass.apply``
 and ``pass.hist``; each host sync in a ``sync.<site>`` span), one
 ``grow.pass`` a level pass or split step the trainer counts, one
-``sync.select`` in each depthwise ``pass.search``. With no profiler and
+``sync.select`` in each depthwise ``pass.search`` and no other sync in a
+depthwise ``grow.pass`` (a replayed pass on the card reads its count in
+``grow.pass``, after ``pass.replay``). With no profiler and
 telemetry off a span opens no range and reads no clock, and ``TIMER``
 holds only the engine's and the Dataset's spans; the timing table
 (``verbosity >= 2``) times every span. No tracing setting changes the
@@ -32,7 +34,7 @@ DEPTHWISE = {"objective": "binary", "num_leaves": 15, **CPU}
 LEAFWISE = {**DEPTHWISE, "grow_policy": "lossguide"}
 PHASES = ("iter.sample", "iter.gradients", "grow.tree", "grow.front",
           "grow.pass", "pass.search", "pass.apply", "pass.hist",
-          "grow.leaf_renew", "iter.score_update")
+          "pass.replay", "grow.leaf_renew", "iter.score_update")
 ENGINE = ("boosting", "eval", "dataset_construct")
 # each span's allowed parents: the innermost program span that holds it
 PARENTS = {
@@ -40,9 +42,10 @@ PARENTS = {
     "grow.tree": {"boosting"}, "grow.front": {"grow.tree"},
     "grow.pass": {"grow.tree"}, "pass.search": {"grow.pass"},
     "pass.apply": {"grow.pass"}, "pass.hist": {"grow.pass"},
+    "pass.replay": {"grow.pass"},
     "grow.leaf_renew": {"grow.tree", "boosting"},
     "iter.score_update": {"boosting"},
-    "sync.select": {"pass.search", "grow.front"},
+    "sync.select": {"pass.search", "grow.front", "grow.pass"},
     "sync.step": {"pass.search", "grow.front"},
     "sync.apply": {"pass.apply"}, "sync.finite": {"boosting"},
     "sync.shrink": {"iter.score_update"},
@@ -122,7 +125,7 @@ def test_spans_nest_as_the_program_nests_them(params):
             "grow.pass", "pass.search", "pass.apply", "pass.hist",
             "iter.score_update", "sync.finite", "sync.shrink",
             "sync.route", "sync.metric"}
-    want |= ({"grow.leaf_renew", "sync.select", "sync.apply"}
+    want |= ({"grow.leaf_renew", "sync.select"}
              if params is DEPTHWISE else {"iter.gradients", "sync.step"})
     assert want <= set(names), sorted(want - set(names))
     assert names["boosting"] == names["eval"] == 2
@@ -140,10 +143,13 @@ def test_each_depthwise_search_holds_one_selection_read():
     assert per_search and set(per_search) == {1}
     # the root's selection is the front's, one a tree
     assert _inside(events, "grow.front", "sync.select") == [1, 1]
-    # the parents' child pointers: four boolean-mask gathers a pass
-    assert set(_inside(events, "pass.apply", "sync.apply")) <= {0, 4}
-    assert sum(_inside(events, "grow.pass", "sync.apply")) == \
-        4 * len(_inside(events, "grow.pass", "pass.hist"))
+    # the level pass writes the parents' child pointers and the frontier
+    # on the card: no read but the selection's
+    assert len(_inside(events, "grow.pass", "pass.hist")) > 2
+    for site in ("sync.apply", "sync.frontier"):
+        assert set(_inside(events, "grow.pass", site)) == {0}, site
+    assert sum(_inside(events, "grow.pass", "sync.select")) == \
+        len(_inside(events, "pass.search", "sync.select"))
 
 
 def test_spans_cost_no_range_and_no_clock_when_off(monkeypatch):
