@@ -463,7 +463,16 @@ class LambdaRank(ObjectiveFunction):
     objectives.py:432-507). The queries are padded into a [Q, M] doc grid;
     the pairs of each query are a masked [T, M] block, T =
     min(lambdarank_truncation_level, M) score-sorted positions against all
-    M, run over query chunks of about 16M pair cells (lambdarank_grid)."""
+    M, run over query chunks of about 16M pair cells (lambdarank_grid).
+
+    Each query's lambdas are normalised by its ideal DCG at the truncation
+    level, over its top min(lambdarank_truncation_level, n) label gains, as
+    LightGBM's CalMaxDCGAtK(truncation_level_, ...) in rank_objective.hpp
+    takes it. Here the port departs from the reference
+    (objectives.py:485-499), which sums the ideal DCG over all n documents:
+    the two differ on every query with more relevant documents than the
+    truncation level, and agree at a level at or above every query's
+    size."""
     name = "lambdarank"
 
     def init(self, label, weight=None, group=None):
@@ -490,11 +499,13 @@ class LambdaRank(ObjectiveFunction):
         self.sigmoid = self.config.sigmoid
         self.trunc = self.config.lambdarank_truncation_level
         self.norm = self.config.lambdarank_norm
-        # the inverse ideal DCG of each query, in f64, then f32
+        # the inverse ideal DCG of each query at the truncation level, in
+        # f64, then f32
         lab_grid = np.where(msk, label_np[idx], -1)
         inv_max_dcg = np.zeros(len(self.group), dtype=np.float64)
+        top = max(int(self.trunc), 1)
         for q in range(len(self.group)):
-            ls = np.sort(lab_grid[q][msk[q]])[::-1]
+            ls = np.sort(lab_grid[q][msk[q]])[::-1][:top]
             g = np.array([gains[int(v)] for v in ls], dtype=np.float64)
             disc = 1.0 / np.log2(np.arange(len(ls)) + 2.0)
             dcg = float((g * disc).sum())
@@ -514,13 +525,15 @@ class LambdaRank(ObjectiveFunction):
         return _weighted(grad, torch.clamp(hess, min=1e-16), self.weight)
 
     def get_gradients(self, score):
-        lab = self.label[self._idx] * self._msk
-        sc = torch.where(self._msk, score[self._idx],
-                         torch.full((), -np.inf, device=score.device))
-        grad_grid, hess_grid = lambdarank_grid(
-            sc, lab.to(torch.int32), self._msk, self._label_gain,
-            self._inv_max_dcg, self.sigmoid, self.trunc, self.norm)
-        return self._scatter(grad_grid, hess_grid, score)
+        # the pair grid, from the rows into the grid and back
+        with span("obj.pair_grid"):
+            lab = self.label[self._idx] * self._msk
+            sc = torch.where(self._msk, score[self._idx],
+                             torch.full((), -np.inf, device=score.device))
+            grad_grid, hess_grid = lambdarank_grid(
+                sc, lab.to(torch.int32), self._msk, self._label_gain,
+                self._inv_max_dcg, self.sigmoid, self.trunc, self.norm)
+            return self._scatter(grad_grid, hess_grid, score)
 
 
 def _sum_in_order(x: torch.Tensor, dim: int) -> torch.Tensor:

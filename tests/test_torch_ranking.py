@@ -4,9 +4,18 @@ lambdarank and rank_xendcg objectives and the ndcg@k / map@k metrics.
 
 The data: 40 ragged queries, about 600 rows, 6 features, graded labels
 0-4, with a one-doc query, queries whose labels are all equal (all 2, and
-all 0: inverse ideal DCG 0) and a 45-doc query, longer than the
+all 0: inverse ideal DCG 0) and a 45-doc query, longer than the default
 truncation level 20. The reference trains on its Pallas kernels in
 interpret mode (histogram_impl=pallas), the port with device_type="cpu".
+
+The port normalises each query's lambdas by its ideal DCG at the
+truncation level, as LightGBM does; the reference by the ideal DCG over
+all of a query's documents. The two agree at a level at or above every
+query's size, so the port is held against the reference at
+``FULL_LEVEL`` (45, the longest query), and at the default level 20
+against the plain reference of the benchmark (gbdt_bench/reference/,
+written to LightGBM's definition) and against the reference's pair grid
+fed the port's normalisers.
 
 Exact: the query grid, the inverse ideal DCGs and label gains, the
 rank_xendcg gradients at a constant score, the chunked pair grid against
@@ -20,6 +29,10 @@ axis in another order (ROADMAP.md C6); first-tree leaf values rtol 1e-4
 plus 1e-4 of the largest leaf (C2), predictions after 3 iterations rtol
 1e-4 plus 1e-4 of the largest.
 """
+import math
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -37,12 +50,22 @@ from lightgbm_tpu_torch import objectives as t_obj
 
 from test_torch_objectives import BASE, CPU, STRUCT
 
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+from gbdt_bench.reference import metrics as plain_metrics  # noqa: E402
+from gbdt_bench.reference import objectives as plain_obj  # noqa: E402
+
 # six pytest workers share the box's cores: with torch's default of
 # one intra-op thread a core, their OpenMP threads spin against each
 # other's, so each test process keeps one
 torch.set_num_threads(1)
 
-RANK = dict(BASE, objective="lambdarank", metric="ndcg", eval_at=[1, 3, 5])
+# a truncation level at or above every query's size: there the port's
+# normaliser (ideal DCG at the level) and the reference's (over all
+# documents) agree
+FULL_LEVEL = 45
+RANK = dict(BASE, objective="lambdarank", metric="ndcg", eval_at=[1, 3, 5],
+            lambdarank_truncation_level=FULL_LEVEL)
 OBJ_CASES = {
     "default": {},
     "no_norm": {"lambdarank_norm": False},
@@ -103,8 +126,9 @@ def models():
 def test_objective_init_matches_reference():
     X, y, group = ranking_data()
     for extra in ({}, {"label_gain": [0, 1, 3, 7, 20]}):
-        ref, got = _objectives(dict({"objective": "lambdarank"}, **extra),
-                               y, group)
+        ref, got = _objectives(dict({"objective": "lambdarank",
+                                     "lambdarank_truncation_level":
+                                     FULL_LEVEL}, **extra), y, group)
         np.testing.assert_array_equal(got._idx.numpy(), np.asarray(ref._idx))
         np.testing.assert_array_equal(got._msk.numpy(), np.asarray(ref._msk))
         np.testing.assert_array_equal(got._label_gain.numpy(),
@@ -119,7 +143,9 @@ def test_objective_init_matches_reference():
 @pytest.mark.parametrize("case", list(OBJ_CASES))
 def test_gradients_match_reference(models, case):
     X, y, group = ranking_data()
-    params = dict({"objective": "lambdarank"}, **OBJ_CASES[case])
+    params = dict({"objective": "lambdarank",
+                   "lambdarank_truncation_level": FULL_LEVEL},
+                  **OBJ_CASES[case])
     ref, got = _objectives(params, y, group)
     rng = np.random.RandomState(1)
     # iteration 0 (every score 0), a random score, and the reference's
@@ -180,6 +206,113 @@ def test_chunked_pair_grid_equals_one_chunk(norm):
     chunked = t_obj.lambdarank_grid(*args, max_cells=20 * m * 3)
     for a, b in zip(whole, chunked):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+# ---- the truncation level: the port against LightGBM's definition ----
+
+def _plain(y, group, level):
+    """The plain reference's query grid and inverse ideal DCGs at
+    ``level``, f64."""
+    grid = plain_obj.QueryGrid(group, torch.device("cpu"))
+    return grid, plain_obj.max_dcg_inv(torch.from_numpy(y), grid, level)
+
+
+def _scores(n):
+    """Every score 0, and two random scores (the second with ties)."""
+    rng = np.random.RandomState(3)
+    return [np.zeros(n, np.float32),
+            (rng.randn(n) * 0.8).astype(np.float32),
+            (np.round(rng.randn(n) * 4) / 4).astype(np.float32)]
+
+
+@pytest.mark.parametrize("level", [1, 5, 20, FULL_LEVEL])
+def test_inverse_ideal_dcg_at_the_level_equals_the_plain_reference(level):
+    X, y, group = ranking_data()
+    _, got = _objectives({"objective": "lambdarank",
+                          "lambdarank_truncation_level": level}, y, group)
+    _, inv = _plain(y, group, level)
+    np.testing.assert_array_equal(got._inv_max_dcg.numpy(),
+                                  inv.to(torch.float32).numpy())
+    assert float(got._inv_max_dcg[-1]) == 0.0
+    # the 45-doc query is the one whose ideal DCG the level cuts short
+    long_q = int(np.flatnonzero(group == 45)[0])
+    full = _objectives({"objective": "lambdarank",
+                        "lambdarank_truncation_level": FULL_LEVEL},
+                       y, group)[1]._inv_max_dcg
+    relevant = int((y[group[:long_q].sum():][:45] > 0).sum())
+    assert relevant > 20
+    assert (float(got._inv_max_dcg[long_q]) > float(full[long_q])) == (
+        level < relevant)
+
+
+def test_a_hand_checked_query_of_25_documents_22_relevant():
+    # labels 4, 3, 3, then 2 x 3, 1 x 16, 0 x 3: at level 20 the ideal DCG
+    # takes the gains 15, 7, 7, 3, 3, 3 and fourteen 1s at positions 0-19
+    labels = [4, 3, 3] + [2] * 3 + [1] * 16 + [0] * 3
+    y = np.array(labels[::-1], np.float32)         # any document order
+    group = np.array([25])
+    gains = [15, 7, 7, 3, 3, 3] + [1] * 14
+    want = 1.0 / sum(g / math.log2(i + 2) for i, g in enumerate(gains))
+    every = [15, 7, 7, 3, 3, 3] + [1] * 16
+    old = 1.0 / sum(g / math.log2(i + 2) for i, g in enumerate(every))
+    _, got = _objectives({"objective": "lambdarank"}, y, group)
+    assert got.trunc == 20
+    assert float(got._inv_max_dcg[0]) == np.float32(want)
+    assert np.float32(want) != np.float32(old)
+    # the gradients at a random score: the plain reference's, within C6
+    score = (np.random.RandomState(9).randn(25) * 0.5).astype(np.float32)
+    grid, inv = _plain(y, group, 20)
+    pg, ph = plain_obj.lambdarank_gradients(torch.from_numpy(score),
+                                            torch.from_numpy(y), grid, inv,
+                                            20)
+    g, h = got.get_gradients(torch.from_numpy(score))
+    _close(g.numpy(), pg.numpy())
+    _close(h.numpy(), ph.numpy())
+
+
+def test_gradients_at_level_20_match_the_plain_reference():
+    # LightGBM's LambdaRank (norm on, sigmoid 1, gains 2^l - 1) as the
+    # benchmark's plain reference writes it
+    X, y, group = ranking_data()
+    _, got = _objectives({"objective": "lambdarank"}, y, group)
+    assert got.trunc == 20 and got.norm
+    grid, inv = _plain(y, group, 20)
+    for score in _scores(len(y)):
+        pg, ph = plain_obj.lambdarank_gradients(
+            torch.from_numpy(score), torch.from_numpy(y), grid, inv, 20)
+        g, h = got.get_gradients(torch.from_numpy(score))
+        _close(g.numpy(), pg.numpy())
+        _close(h.numpy(), ph.numpy())
+
+
+@pytest.mark.parametrize("norm", [True, False])
+def test_gradients_at_level_20_match_the_reference_grid_on_these_normalisers(
+        norm):
+    # the reference's pair grid at level 20, fed the port's normalisers
+    X, y, group = ranking_data()
+    params = {"objective": "lambdarank", "lambdarank_norm": norm}
+    ref, got = _objectives(params, y, group)
+    assert not np.array_equal(np.asarray(ref._inv_max_dcg),
+                              got._inv_max_dcg.numpy())
+    ref._inv_max_dcg = jnp.asarray(got._inv_max_dcg.numpy())
+    for score in _scores(len(y)):
+        rg, rh = ref.get_gradients(jnp.asarray(score))
+        g, h = got.get_gradients(torch.from_numpy(score))
+        _close(g.numpy(), rg)
+        _close(h.numpy(), rh)
+
+
+@pytest.mark.parametrize("k", [1, 5, 10, 20])
+def test_ndcg_matches_the_plain_reference(k):
+    X, y, group = ranking_data()
+    grid = plain_obj.QueryGrid(group, torch.device("cpu"))
+    for score in _scores(len(y)):
+        got = t_metrics.create_metrics(
+            ["ndcg"], t_config.Config({"eval_at": [k]}))[0](
+                torch.from_numpy(y), torch.from_numpy(score), None, group)
+        want = plain_metrics.ndcg(torch.from_numpy(y),
+                                  torch.from_numpy(score), grid, k)
+        assert got == pytest.approx(want, rel=1e-12, abs=0)
 
 
 @pytest.mark.parametrize("case", list(OBJ_CASES))
@@ -294,7 +427,7 @@ def test_model_text_across_packages_both_ways(models, case, tmp_path):
     ptext = port.model_to_string()
     assert f"objective={obj}" in ptext
     if case == "default":
-        assert "lambdarank_truncation_level:20" in ptext
+        assert f"lambdarank_truncation_level:{FULL_LEVEL}" in ptext
     # (the reference sums the trees' leaf values in f32, the port in f64)
     ref_loaded = lgb.Booster(model_str=ptext)
     np.testing.assert_allclose(np.asarray(ref_loaded.predict(X)),

@@ -11,8 +11,9 @@ depthwise ``grow.pass`` (a replayed pass on the card reads its count in
 ``grow.pass``, after ``pass.replay``). With no profiler and
 telemetry off a span opens no range and reads no clock, and ``TIMER``
 holds only the engine's and the Dataset's spans; the timing table
-(``verbosity >= 2``) times every span. No tracing setting changes the
-model text.
+(``verbosity >= 2``) times every span. A LambdaRank model opens one
+``obj.pair_grid`` a gradients call, inside ``iter.gradients``. No tracing
+setting changes the model text.
 """
 import collections
 
@@ -32,13 +33,16 @@ torch.set_num_threads(1)
 CPU = {"device_type": "cpu", "verbosity": -1}
 DEPTHWISE = {"objective": "binary", "num_leaves": 15, **CPU}
 LEAFWISE = {**DEPTHWISE, "grow_policy": "lossguide"}
-PHASES = ("iter.sample", "iter.gradients", "grow.tree", "grow.front",
-          "grow.pass", "pass.search", "pass.apply", "pass.hist",
-          "pass.replay", "grow.leaf_renew", "iter.score_update")
+RANKING = {**DEPTHWISE, "objective": "lambdarank", "metric": "ndcg",
+           "eval_at": [10]}
+PHASES = ("iter.sample", "iter.gradients", "obj.pair_grid", "grow.tree",
+          "grow.front", "grow.pass", "pass.search", "pass.apply",
+          "pass.hist", "pass.replay", "grow.leaf_renew", "iter.score_update")
 ENGINE = ("boosting", "eval", "dataset_construct")
 # each span's allowed parents: the innermost program span that holds it
 PARENTS = {
     "iter.sample": {"boosting"}, "iter.gradients": {"boosting"},
+    "obj.pair_grid": {"iter.gradients"},
     "grow.tree": {"boosting"}, "grow.front": {"grow.tree"},
     "grow.pass": {"grow.tree"}, "pass.search": {"grow.pass"},
     "pass.apply": {"grow.pass"}, "pass.hist": {"grow.pass"},
@@ -71,10 +75,39 @@ def _data(n=1500, f=6, seed=0):
     return X, y
 
 
+def _query_sizes(n, mean, rng):
+    """Query sizes max(2, geometric(1 / mean)) summing to n."""
+    sizes = []
+    while sum(sizes) < n:
+        sizes.append(max(2, int(rng.geometric(1.0 / mean))))
+    sizes[-1] -= sum(sizes) - n
+    if sizes[-1] < 1:
+        sizes[-2] += sizes.pop()
+    return np.asarray(sizes, np.int64)
+
+
+def _ranking_rows(n, f, seed, mean=25):
+    """(X, y, group): graded labels 0-4 from a noisy linear score, in
+    queries of about ``mean`` documents."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, f).astype(np.float32)
+    score = X[:, :4].sum(1) + 0.7 * rng.randn(n)
+    y = np.digitize(score, np.quantile(score, [0.55, 0.8, 0.93, 0.985]))
+    return X, y.astype(np.float32), _query_sizes(n, mean, rng)
+
+
 def _train(params, rounds=2, seed=0):
-    X, y = _data(seed=seed)
-    ds = lt.Dataset(X, label=y, params=params)
-    vs = lt.Dataset(X[:400], label=y[:400], reference=ds, params=params)
+    if params["objective"] == "lambdarank":
+        X, y, group = _ranking_rows(1500, 6, seed)
+        cut = int(np.searchsorted(np.cumsum(group), 400)) + 1
+        kw, vkw = {"group": group}, {"group": group[:cut]}
+        n_valid = int(group[:cut].sum())
+    else:
+        X, y = _data(seed=seed)
+        kw, vkw, n_valid = {}, {}, 400
+    ds = lt.Dataset(X, label=y, params=params, **kw)
+    vs = lt.Dataset(X[:n_valid], label=y[:n_valid], reference=ds,
+                    params=params, **vkw)
     return lt.train(params, ds, rounds, valid_sets=[vs], verbose_eval=False)
 
 
@@ -152,6 +185,23 @@ def test_each_depthwise_search_holds_one_selection_read():
         len(_inside(events, "pass.search", "sync.select"))
 
 
+def test_the_pair_grid_opens_once_a_gradients_call():
+    bst, events = _profiled(RANKING)
+    names = collections.Counter(n for n, _, _ in events)
+    assert names["obj.pair_grid"] == names["iter.gradients"] == 2
+    assert {p for n, p, _ in events if n == "obj.pair_grid"} == \
+        {"iter.gradients"}
+    assert _inside(events, "iter.gradients", "obj.pair_grid") == [1, 1]
+    # the grid reads nothing back to the host
+    grids = [e.time_range for n, _, e in events if n == "obj.pair_grid"]
+    syncs = [e.time_range for n, _, e in events if n.startswith("sync.")]
+    assert syncs and not any(g.start <= c.start and c.end <= g.end
+                             for g in grids for c in syncs)
+    # no other objective opens it
+    _, binary = _profiled(DEPTHWISE)
+    assert "obj.pair_grid" not in {n for n, _, _ in binary}
+
+
 def test_spans_cost_no_range_and_no_clock_when_off(monkeypatch):
     ranges, clocks = [], []
     real_rf, real_clock = tracing.record_function, tracing.time.perf_counter
@@ -220,8 +270,8 @@ def test_timer_scope_is_an_always_timed_span():
 
 @pytest.mark.parametrize("params", [
     {**DEPTHWISE, "objective": "regression"},
-    {**LEAFWISE, "objective": "regression"}],
-    ids=["depthwise", "leafwise"])
+    {**LEAFWISE, "objective": "regression"}, RANKING],
+    ids=["depthwise", "leafwise", "ranking"])
 def test_no_tracing_setting_changes_the_model(params):
     plain = _train(params, 3, seed=1).model_to_string()
     with torch.profiler.profile(
@@ -246,6 +296,11 @@ CARD_SHAPES = {
                "feature_fraction": 0.8},
     "lossguide": {"max_bin": 255, "grow_policy": "lossguide",
                   "num_leaves": 63},
+    # the Yahoo LTR cell's path: LambdaRank's pair grid on the unfused
+    # front, NDCG@10 on the host; 20,000 train documents in queries of
+    # about 25, 50 columns
+    "ranking": {"max_bin": 63, "objective": "lambdarank", "metric": "ndcg",
+                "eval_at": [10]},
 }
 
 
@@ -274,10 +329,16 @@ def test_every_host_sync_on_the_card_has_its_span(shape):
               "min_sum_hessian_in_leaf": 1, "use_quantized_grad": "auto",
               "device_type": "cuda", "verbosity": 2,
               **CARD_SHAPES[shape]}
-    X, y = _higgs_rows(120_000, 5)
-    ds = lt.Dataset(X[:100_000], label=y[:100_000], params=params)
-    vs = lt.Dataset(X[100_000:], label=y[100_000:], reference=ds,
-                    params=params)
+    if params["objective"] == "lambdarank":
+        X, y, group = _ranking_rows(24_000, 50, 5)
+        cut = int(np.searchsorted(np.cumsum(group), 20_000)) + 1
+        n = int(group[:cut].sum())
+        kw, vkw = {"group": group[:cut]}, {"group": group[cut:]}
+    else:
+        X, y = _higgs_rows(120_000, 5)
+        n, kw, vkw = 100_000, {}, {}
+    ds = lt.Dataset(X[:n], label=y[:n], params=params, **kw)
+    vs = lt.Dataset(X[n:], label=y[n:], reference=ds, params=params, **vkw)
     ds.construct()
     vs.construct()
     torch.cuda.synchronize()
