@@ -4787,7 +4787,8 @@ def main() -> int:
               f"train {len(yt)} rows in {len(gt)} queries (longest "
               f"{int(gt.max())}), valid {len(yq)} rows in {len(gq)} queries; "
               f"{ds.num_features} used features, max bins {ds.max_num_bins}")
-        const = metrics.ndcg(yq, np.zeros(len(yq), np.float32), None, gq, 10)
+        const = float(metrics.ndcg(yq, np.zeros(len(yq), np.float32), None,
+                                   gq, 10))
         hk.reset_launches()
         boosters, ndcg_of = [], {}
         for objective, iters in (("lambdarank", 3), ("rank_xendcg", 2)):

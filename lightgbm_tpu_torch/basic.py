@@ -40,7 +40,8 @@ from .config import (Config, boosting_kind, canonical_name, check_slice,
                      params_to_config)
 from .io import model_text
 from .log import LightGBMError, info, warning
-from .metrics import create_metrics, default_metric_for_objective
+from .metrics import (QueryGrid, create_metrics,
+                      default_metric_for_objective)
 from .models.dart import DART
 from .models.gbdt import GBDT
 from .models.goss import GOSS
@@ -1054,6 +1055,26 @@ class Dataset:
         self.group = None if group is None else \
             np.asarray(group, dtype=np.int64).reshape(-1)
         return self
+
+    @property
+    def group(self) -> Optional[np.ndarray]:
+        """The query sizes; setting them drops the kept query grid."""
+        return self._group
+
+    @group.setter
+    def group(self, group: Optional[np.ndarray]) -> None:
+        self._group = group
+        self._query_grid: Optional[QueryGrid] = None
+
+    def query_grid(self, device: torch.device) -> Optional[QueryGrid]:
+        """The ranking metrics' grid of the queries on ``device`` (None
+        without groups): built at the first call, kept until the groups
+        are set again."""
+        if self._group is None:
+            return None
+        if self._query_grid is None or self._query_grid.device != device:
+            self._query_grid = QueryGrid(self._group, device)
+        return self._query_grid
 
     def get_init_score(self) -> Optional[np.ndarray]:
         return self.init_score_np

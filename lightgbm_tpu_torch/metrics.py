@@ -5,9 +5,14 @@ metric.cpp:16): each pointwise metric is a function of (label, prediction,
 row weight or None), a weighted mean of a per-row loss where it is one,
 computed in f64 on the scores' device (the reference computes in f32). The
 ranking metrics ndcg@k and map@k (one metric for each ``eval_at`` entry,
-:216-263, :294-300) take the Dataset's query groups and are numpy f64 on
-the host, as in the reference, so they agree with it to the last bit. An
-unknown metric name raises where the reference warns and skips.
+:216-263, :294-300) take the Dataset's query groups as a ``QueryGrid`` on
+the scores' device, which the Dataset builds once and keeps, and run there
+in f64 too, one host read a metric. They add in numpy's order
+(``SumPlan``), so they equal the reference's numpy functions to the bit on
+the CPU (tests/test_torch_ranking.py) and come within an ulp of them on the
+H100 (1.4e-16 relative on the Yahoo LTR valid set's shape; the card test of
+tests/test_torch_spans.py holds them to 1e-12). An unknown metric name
+raises where the reference warns and skips.
 """
 from __future__ import annotations
 
@@ -37,17 +42,17 @@ class Metric:
 
     def __call__(self, label: torch.Tensor, pred: torch.Tensor,
                  weight: Optional[torch.Tensor] = None,
-                 group: Optional[np.ndarray] = None) -> float:
+                 group=None) -> float:
+        """The metric's value; ``group``, for a ranking metric, is a
+        QueryGrid or the query sizes."""
         if self.eval_at is not None:
-            # the reference's numpy ranking metrics: f32 labels and scores,
-            # each a host read
-            with span("sync.metric"):
-                lab = label.cpu().numpy()
-            with span("sync.metric"):
-                pr = pred.to(torch.float32).cpu().numpy()
-            return float(self.fn(lab, pr, None, group, self.eval_at))
-        w = None if weight is None else weight.to(torch.float64)
-        value = self.fn(label.to(torch.float64), pred.to(torch.float64), w)
+            # f32 scores, as the reference's numpy reads them
+            value = self.fn(label, pred.to(torch.float32), None, group,
+                            self.eval_at)
+        else:
+            w = None if weight is None else weight.to(torch.float64)
+            value = self.fn(label.to(torch.float64), pred.to(torch.float64),
+                            w)
         # the metric's one host read
         with span("sync.metric"):
             return float(value)
@@ -239,46 +244,197 @@ def kullback_leibler(label, prob, w=None):
                   w)
 
 
-# ---- ranking (dcg_calculator.cpp), numpy f64 on the host ----
+# ---- ranking (dcg_calculator.cpp), f64 on the scores' device ----
+
+# numpy sums a float row (``x.sum(axis=-1)``, ``x.mean()``) pairwise
+# (pairwise_sum, numpy's loops_utils.h.src) within runs of 8192 values, its
+# iterator's buffer, which it adds in turn. A run of more than 128 values
+# splits at half its length rounded down to a multiple of 8; a leaf of at
+# most 128 keeps eight running sums over its whole groups of 8, adds them as
+# ((0+1)+(2+3))+((4+5)+(6+7)), then its last n % 8 values one by one.
+_NP_RUN = 8192
+_NP_LEAF = 128
+
+
+def _pairwise_split(start: int, n: int, leaves: list):
+    """numpy's pairwise split of [start, start + n): a leaf's number, or
+    the pair of its halves' splits; the leaves' (start, length) go to
+    ``leaves`` in order."""
+    if n <= _NP_LEAF:
+        leaves.append((start, n))
+        return len(leaves) - 1
+    half = n // 2 - (n // 2) % 8
+    return (_pairwise_split(start, half, leaves),
+            _pairwise_split(start + half, n - half, leaves))
+
+
+def _depth(node) -> int:
+    return 0 if isinstance(node, int) else 1 + max(map(_depth, node))
+
+
+class SumPlan:
+    """numpy's sum over a last axis of length ``n``, replayed with tensor
+    ops in numpy's order of additions, so that it equals numpy's to the
+    bit. Each run's split tree is laid into a perfect binary tree of
+    ``depth`` levels, a leaf in the first slot of its subtree and zeros in
+    the others (x + 0 is x), so that adjacent pairs add level by level.
+    ``groups`` [C, 2^depth, G, 8] and ``tails`` [C, 2^depth, T] index each
+    slot's whole groups of 8 and its last values (``n`` pads: a zero)."""
+
+    def __init__(self, n: int):
+        runs = []
+        for lo in range(0, n, _NP_RUN):
+            leaves: list = []
+            runs.append((_pairwise_split(lo, min(_NP_RUN, n - lo), leaves),
+                         leaves))
+        self.depth = max(_depth(tree) for tree, _ in runs)
+        slots = [{} for _ in runs]
+
+        def place(node, slot, level, c):
+            if isinstance(node, int):
+                slots[c][slot] = runs[c][1][node]
+            else:
+                place(node[0], slot, level + 1, c)
+                place(node[1], slot + (1 << (self.depth - level - 1)),
+                      level + 1, c)
+        for c, (tree, _) in enumerate(runs):
+            place(tree, 0, 0, c)
+        # a leaf of fewer than 8 values adds them all one by one
+        main = {(lo, ln): ln - ln % 8 if ln >= 8 else 0
+                for _, leaves in runs for lo, ln in leaves}
+        groups = np.full((len(runs), 1 << self.depth,
+                          max(max(main.values()) // 8, 1), 8), n)
+        tails = np.full((len(runs), 1 << self.depth,
+                         max(ln - m for (_, ln), m in main.items())), n)
+        for c, placed in enumerate(slots):
+            for slot, (lo, ln) in placed.items():
+                m = main[lo, ln]
+                groups[c, slot].reshape(-1)[:m] = np.arange(lo, lo + m)
+                tails[c, slot, :ln - m] = np.arange(lo + m, lo + ln)
+        self.groups, self.tails = groups, tails
+        # the first column each group and tail step reads
+        self.group_first = groups.min(axis=(0, 1, 3)).tolist()
+        self.tail_first = tails.min(axis=(0, 1)).tolist()
+
+    def __call__(self, x: torch.Tensor, nonzero: Optional[int] = None
+                 ) -> torch.Tensor:
+        """``x`` [..., n] -> [...], numpy's ``x.sum(axis=-1)``. With
+        ``nonzero``, the columns from ``nonzero`` on hold zeros, and the
+        steps that read only them are skipped (they would add 0)."""
+        bound = x.shape[-1] if nonzero is None else nonzero
+        x = torch.nn.functional.pad(x, (0, 1))
+        g = x[..., self.groups]
+        r = g[..., 0, :]
+        for j in range(1, g.shape[-2]):
+            if self.group_first[j] < bound:
+                r = r + g[..., j, :]
+        r = r[..., 0::2] + r[..., 1::2]
+        r = r[..., 0::2] + r[..., 1::2]
+        r = r[..., 0] + r[..., 1]
+        steps = [j for j, lo in enumerate(self.tail_first) if lo < bound]
+        if steps:
+            t = x[..., self.tails]
+            for j in steps:
+                r = r + t[..., j]
+        for _ in range(self.depth):
+            r = r[..., 0::2] + r[..., 1::2]
+        out = r[..., 0, 0]
+        for c in range(1, r.shape[-2]):
+            out = out + r[..., c, 0]
+        return out
+
+
+def _upload(arrays: list, device: torch.device) -> list:
+    """Host arrays as tensors on ``device``, in one blocking copy (a host
+    sync of its own, ``sync.query_grid``)."""
+    offsets, parts, at = [], [], 0
+    for a in arrays:
+        raw = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+        pad = -raw.size % 8
+        offsets.append(at)
+        parts += [raw, np.zeros(pad, np.uint8)]
+        at += raw.size + pad
+    with span("sync.query_grid"):
+        flat = torch.as_tensor(np.concatenate(parts), device=device)
+    return [flat[lo:lo + a.nbytes].view(torch.from_numpy(a).dtype)
+            .view(a.shape) for lo, a in zip(offsets, arrays)]
+
+
+class QueryGrid:
+    """A Dataset's queries as the ranking metrics read them, on one device:
+    ``query_grid``'s [Q, M] row index (int32, M the longest query) and
+    mask, numpy's discounts 1 / log2(i + 2), and numpy's order of summation
+    over the M positions (``rows``) and over the Q queries (``queries``).
+    Made in one host copy under ``metric.query_grid``;
+    ``Dataset.query_grid`` keeps it until the groups change."""
+
+    def __init__(self, group, device: torch.device):
+        with span("metric.query_grid"):
+            index, mask = query_grid(np.asarray(group, dtype=np.int64))
+            self.q, self.m = index.shape
+            self.rows, self.queries = SumPlan(self.m), SumPlan(self.q)
+            disc = 1.0 / np.log2(np.arange(self.m) + 2.0)
+            (self.index, self.mask, self.disc, self.rows.groups,
+             self.rows.tails, self.queries.groups, self.queries.tails) = \
+                _upload([index, mask, disc, self.rows.groups,
+                         self.rows.tails, self.queries.groups,
+                         self.queries.tails], device)
+            self.device = self.mask.device
+            self.pos = torch.arange(self.m, device=self.device)
+
+
+def _grid(group, score: torch.Tensor, name: str) -> QueryGrid:
+    if group is None:
+        raise LightGBMError(f"{name} requires group info")
+    return group if isinstance(group, QueryGrid) else \
+        QueryGrid(group, score.device)
+
+
+def _ranked(label: torch.Tensor, score: torch.Tensor, grid: QueryGrid):
+    """(lab, ranked) [Q, M] f64: the labels on the grid (0 off it), and
+    in each query's order of score, descending, ties in document order."""
+    f64 = torch.float64
+    rows = grid.index.reshape(-1)
+    lab = torch.where(grid.mask, label.to(grid.device, f64)
+                      .index_select(0, rows).view(grid.q, grid.m), 0.0)
+    sc = torch.where(grid.mask, score.to(grid.device, f64)
+                     .index_select(0, rows).view(grid.q, grid.m),
+                     -float("inf"))
+    # keys 0 - s: +0.0 for either zero, which a radix sort would part
+    order = torch.sort(0.0 - sc, dim=1, stable=True).indices
+    return lab, lab.gather(1, order)
+
 
 def ndcg(label, score, weight, group, k):
     """Mean NDCG@k over the queries, gains 2^label - 1; a query with no
-    positive gain counts 1."""
-    if group is None:
-        raise LightGBMError("ndcg requires group info")
-    idx, msk = query_grid(np.asarray(group))
-    lab = np.asarray(label)[idx] * msk
-    sc = np.where(msk, np.asarray(score)[idx], -np.inf)
-    gains = (2.0 ** lab - 1.0) * msk
-    order = np.argsort(-sc, axis=1, kind="stable")
-    g_sorted = np.take_along_axis(gains, order, axis=1)
-    m_sorted = np.take_along_axis(msk, order, axis=1)
-    disc = 1.0 / np.log2(np.arange(gains.shape[1]) + 2.0)
-    topk = np.arange(gains.shape[1]) < k
-    dcg = (g_sorted * disc * topk * m_sorted).sum(axis=1)
-    ideal = np.sort(gains + np.where(msk, 0, -np.inf), axis=1)[:, ::-1]
-    ideal = np.where(np.isfinite(ideal), ideal, 0.0)
-    idcg = (ideal * disc * topk).sum(axis=1)
-    out = np.where(idcg > 0, dcg / np.maximum(idcg, 1e-30), 1.0)
-    return float(out.mean())
+    positive gain counts 1. ``group``: a QueryGrid, or the query sizes
+    (a grid made for this call)."""
+    label, score = torch.as_tensor(label), torch.as_tensor(score)
+    grid = _grid(group, score, "ndcg")
+    lab, ranked = _ranked(label, score, grid)
+    top = (grid.pos < k).to(torch.float64) * grid.disc
+    ideal = torch.sort(torch.where(grid.mask, torch.exp2(lab) - 1.0,
+                                   -float("inf")),
+                       dim=1, descending=True).values
+    ideal = torch.where(torch.isfinite(ideal), ideal, 0.0)
+    dcg, idcg = grid.rows(torch.stack([(torch.exp2(ranked) - 1.0) * top,
+                                       ideal * top]), nonzero=k)
+    out = torch.where(idcg > 0, dcg / torch.clamp(idcg, min=1e-30), 1.0)
+    return grid.queries(out) / grid.q
 
 
 def map_at(label, score, weight, group, k):
-    """Mean average precision at k over the queries (label > 0 relevant)."""
-    if group is None:
-        raise LightGBMError("map requires group info")
-    idx, msk = query_grid(np.asarray(group))
-    lab = (np.asarray(label)[idx] > 0) & msk
-    sc = np.where(msk, np.asarray(score)[idx], -np.inf)
-    order = np.argsort(-sc, axis=1, kind="stable")
-    rel = np.take_along_axis(lab, order, axis=1).astype(np.float64)
-    pos = np.arange(rel.shape[1]) + 1.0
-    prec = np.cumsum(rel, axis=1) / pos
-    topk = np.arange(rel.shape[1]) < k
-    ap_num = (prec * rel * topk).sum(axis=1)
-    denom = np.minimum(lab.sum(axis=1), k)
-    ap = np.where(denom > 0, ap_num / np.maximum(denom, 1), 0.0)
-    return float(ap.mean())
+    """Mean average precision at k over the queries (label > 0 relevant);
+    ``group`` as for :func:`ndcg`."""
+    label, score = torch.as_tensor(label), torch.as_tensor(score)
+    grid = _grid(group, score, "map")
+    lab, ranked = _ranked(label, score, grid)
+    rel = (ranked > 0).to(torch.float64)
+    prec = torch.cumsum(rel, dim=1) / (grid.pos + 1).to(torch.float64)
+    ap_num = grid.rows(prec * rel * (grid.pos < k), nonzero=k)
+    denom = torch.clamp((lab > 0).sum(dim=1), max=k)
+    ap = torch.where(denom > 0, ap_num / torch.clamp(denom, min=1), 0.0)
+    return grid.queries(ap) / grid.q
 
 
 # ---- factory (metric.cpp:16) ----

@@ -1300,9 +1300,13 @@ class GBDT:
         score = score.to(torch.float64)
         conv = (self.objective.convert_output(score)
                 if self.objective is not None else score)
+        # the ranking metrics read the Dataset's kept grid of its queries
+        group = (data.query_grid(score.device)
+                 if any(m.eval_at is not None for m in self.metrics)
+                 else None)
         return [(name, m.name,
                  m(data.label, conv if m.use_prob else score, data.weight,
-                   data.group),
+                   group),
                  m.greater_is_better) for m in self.metrics]
 
     def eval_train(self):

@@ -19,7 +19,10 @@ fed the port's normalisers.
 
 Exact: the query grid, the inverse ideal DCGs and label gains, the
 rank_xendcg gradients at a constant score, the chunked pair grid against
-one chunk, ndcg@k and map@k for several eval_at lists (numpy f64 in both),
+one chunk, ndcg@k and map@k for several eval_at lists and on edge queries
+(ties, queries of 1 and 2 documents, an all-0 query, k = 1, k beyond the
+longest query, a 249-document query; the port's torch f64 adds in numpy's
+order, SumPlan, itself held against numpy's sums),
 the first tree's structure quantized and not, the structure of every tree
 of 3-iteration models. Tolerances: gradients and hessians within 1e-6 of
 the array's largest magnitude (measured up to 2.51e-7): the discounts
@@ -368,6 +371,128 @@ def test_ranking_metrics_match_reference_exactly(eval_at, metric):
         want = b(jnp.asarray(y), jnp.asarray(score), None, group)
         assert a(torch.from_numpy(y), torch.from_numpy(score), None,
                  group) == want
+
+
+def _edge_case(case, rng):
+    """(y, score, group, k) of one edge case of the ranking metrics."""
+    group = rng.randint(3, 30, 40)
+    k = 10
+    if case == "tiny_queries":
+        group = np.array([1, 2, 1, 2, 2, 1, 2, 1] * 5)
+    elif case == "long_query":
+        group[17] = 249
+    elif case == "k1":
+        k = 1
+    elif case == "k_beyond_longest":
+        k = int(group.max()) + 7
+    n = int(group.sum())
+    y = rng.randint(0, 5, n).astype(np.float32)
+    if case == "all_zero_query":
+        lo = int(group[:5].sum())
+        y[lo:lo + group[5]] = 0.0
+    # 2-3 distinct scores a query, as early trees give: ties decide DCG
+    score = rng.randint(0, 3, n).astype(np.float32) * np.float32(0.25)
+    return y, score, group, k
+
+
+@pytest.mark.parametrize("metric", ["ndcg", "map"])
+@pytest.mark.parametrize("case", ["ties", "tiny_queries", "all_zero_query",
+                                  "k1", "k_beyond_longest", "long_query"])
+def test_ranking_metrics_on_edge_queries_match_reference(case, metric):
+    # the port adds in numpy's order: equal to the bit (the bound asked of
+    # it is rel 1e-12)
+    y, score, group, k = _edge_case(case, np.random.RandomState(11))
+    want = (ref_metrics._ndcg if metric == "ndcg" else ref_metrics._map)(
+        y, score, None, group, k)
+    fn = t_metrics.ndcg if metric == "ndcg" else t_metrics.map_at
+    got = fn(torch.from_numpy(y), torch.from_numpy(score), None, group, k)
+    assert got.dtype == torch.float64 and float(got) == want
+    grid = t_metrics.QueryGrid(group, torch.device("cpu"))
+    assert float(fn(torch.from_numpy(y), torch.from_numpy(score), None,
+                    grid, k)) == want
+
+
+@pytest.mark.parametrize("n", [1, 7, 8, 13, 128, 129, 206, 249, 1000,
+                               6983, 8192, 8193, 20071, 70001])
+def test_sum_plan_adds_in_numpys_order(n):
+    rng = np.random.RandomState(n % 10007)
+    # magnitudes over 40 binades, so that any other order of additions
+    # rounds differently
+    x = rng.randn(3, n) * np.exp2(rng.randint(-20, 20, (3, n)))
+    plan = t_metrics.SumPlan(n)
+    got = plan(torch.from_numpy(x)).numpy()
+    np.testing.assert_array_equal(got, x.sum(axis=1))
+    assert float(plan(torch.from_numpy(x[1]))) / n == x[1].mean()
+    # rows that are zero from column k on skip the steps that add only 0
+    for k in (1, 5, 10, 61, n):
+        z = np.where(np.arange(n) < k, x, 0.0)
+        np.testing.assert_array_equal(
+            plan(torch.from_numpy(z), nonzero=k).numpy(), z.sum(axis=1))
+
+
+def _grids_built(fn):
+    """(fn's result, the metric.query_grid spans it opened, their parents
+    among the program's spans)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        out = fn()
+    grids = [e for e in prof.events() if e.name == "metric.query_grid"]
+    parents = set()
+    for e in grids:
+        up = e.cpu_parent
+        while up is not None and up.name not in ("eval", "boosting"):
+            up = up.cpu_parent
+        parents.add(None if up is None else up.name)
+    return out, len(grids), parents
+
+
+def test_query_grid_is_built_once_for_each_evaluated_dataset():
+    X, y, group = ranking_data()
+    Xv, yv, gv = ranking_data(seed=5)
+    p = dict(RANK, metric=["ndcg", "map"], **CPU)
+    ds = lt.Dataset(X, label=y, group=group, params=p)
+    vs = lt.Dataset(Xv, label=yv, group=gv, reference=ds, params=p)
+    res = {}
+    _, built, parents = _grids_built(lambda: lt.train(
+        p, ds, num_boost_round=3, valid_sets=[ds, vs],
+        valid_names=["train", "valid"], evals_result=res,
+        verbose_eval=False))
+    assert built == 2 and parents == {"eval"}
+    assert len(res["valid"]["ndcg@1"]) == 3
+    assert ds._query_grid is not None and vs._query_grid is not None
+
+
+def test_set_group_drops_the_query_grid(monkeypatch):
+    X, y, group = ranking_data()
+    Xv, yv, gv = ranking_data(seed=5)
+    p = dict(RANK, **CPU)
+    ds = lt.Dataset(X, label=y, group=group, params=p)
+    vs = lt.Dataset(Xv, label=yv, group=gv, reference=ds, params=p)
+    bst = lt.train(p, ds, num_boost_round=2, valid_sets=[vs],
+                   verbose_eval=False)
+    first, built, _ = _grids_built(bst.eval_valid)
+    assert built == 0 and vs._query_grid is not None
+
+    # with the grid kept, an evaluation makes no numpy call and one host
+    # read a metric
+    class NoNumpy:
+        def __getattr__(self, name):
+            raise AssertionError(f"numpy.{name} called")
+    monkeypatch.setattr(t_metrics, "np", NoNumpy())
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        assert bst.eval_valid() == first
+    syncs = [e.name for e in prof.events() if e.name.startswith("sync.")]
+    assert syncs == ["sync.metric"] * len(first) == ["sync.metric"] * 3
+    monkeypatch.undo()
+    vs.set_group(gv)
+    assert vs._query_grid is None
+    again, built, _ = _grids_built(bst.eval_valid)
+    assert built == 1 and again == first
+    # new query sizes, a new grid and new values
+    vs.set_group(np.concatenate([gv[:-2], [gv[-2:].sum()]]))
+    changed, built, _ = _grids_built(bst.eval_valid)
+    assert built == 1 and changed != first
 
 
 def test_training_evaluation_matches_reference(models):

@@ -12,8 +12,11 @@ depthwise ``grow.pass`` (a replayed pass on the card reads its count in
 telemetry off a span opens no range and reads no clock, and ``TIMER``
 holds only the engine's and the Dataset's spans; the timing table
 (``verbosity >= 2``) times every span. A LambdaRank model opens one
-``obj.pair_grid`` a gradients call, inside ``iter.gradients``. No tracing
-setting changes the model text.
+``obj.pair_grid`` a gradients call, inside ``iter.gradients``, and its
+ranking metric one ``metric.query_grid`` (holding its one host copy,
+``sync.query_grid``) for its valid Dataset, inside the first ``eval``,
+then one ``sync.metric`` an evaluation. No tracing setting changes the
+model text.
 """
 import collections
 
@@ -39,6 +42,8 @@ PHASES = ("iter.sample", "iter.gradients", "obj.pair_grid", "grow.tree",
           "grow.front", "grow.pass", "pass.search", "pass.apply",
           "pass.hist", "pass.replay", "grow.leaf_renew", "iter.score_update")
 ENGINE = ("boosting", "eval", "dataset_construct")
+# a ranking metric's grid of a Dataset's queries, built once a Dataset
+METRIC = ("metric.query_grid",)
 # each span's allowed parents: the innermost program span that holds it
 PARENTS = {
     "iter.sample": {"boosting"}, "iter.gradients": {"boosting"},
@@ -55,6 +60,7 @@ PARENTS = {
     "sync.shrink": {"iter.score_update"},
     "sync.route": {"iter.score_update"}, "sync.metric": {"eval"},
     "sync.init_score": {"boosting"}, "sync.column_mask": {"iter.sample"},
+    "metric.query_grid": {"eval"}, "sync.query_grid": {"metric.query_grid"},
 }
 
 
@@ -112,7 +118,8 @@ def _train(params, rounds=2, seed=0):
 
 
 def _program(name):
-    return name in PHASES or name in ENGINE or name.startswith("sync.")
+    return (name in PHASES or name in ENGINE or name in METRIC
+            or name.startswith("sync."))
 
 
 def _profiled(params):
@@ -200,6 +207,22 @@ def test_the_pair_grid_opens_once_a_gradients_call():
     # no other objective opens it
     _, binary = _profiled(DEPTHWISE)
     assert "obj.pair_grid" not in {n for n, _, _ in binary}
+
+
+def test_the_query_grid_opens_once_a_dataset_inside_eval():
+    _, events = _profiled(RANKING)
+    names = collections.Counter(n for n, _, _ in events)
+    # one valid Dataset over two evaluations: one grid, one host copy
+    assert names["metric.query_grid"] == 1 and names["eval"] == 2
+    for name in ("metric.query_grid", "sync.query_grid", "sync.metric"):
+        assert {p for n, p, _ in events if n == name} == PARENTS[name], name
+    assert _inside(events, "metric.query_grid", "sync.query_grid") == [1]
+    # one host read a metric an evaluation, and no other in eval
+    assert _inside(events, "eval", "sync.metric") == [1, 1]
+    assert {n for n, p, _ in events if p == "eval"} == {
+        "metric.query_grid", "sync.metric"}
+    _, binary = _profiled(DEPTHWISE)
+    assert "metric.query_grid" not in {n for n, _, _ in binary}
 
 
 def test_spans_cost_no_range_and_no_clock_when_off(monkeypatch):
@@ -297,7 +320,7 @@ CARD_SHAPES = {
     "lossguide": {"max_bin": 255, "grow_policy": "lossguide",
                   "num_leaves": 63},
     # the Yahoo LTR cell's path: LambdaRank's pair grid on the unfused
-    # front, NDCG@10 on the host; 20,000 train documents in queries of
+    # front, NDCG@10 on the card; 20,000 train documents in queries of
     # about 25, 50 columns
     "ranking": {"max_bin": 63, "objective": "lambdarank", "metric": "ndcg",
                 "eval_at": [10]},
@@ -374,3 +397,85 @@ def test_every_host_sync_on_the_card_has_its_span(shape):
     assert len(rows) == 4
     for hits, spans, where in rows:
         assert hits == spans > 0, (shape, hits, spans, where)
+
+
+def _reference_numpy(*names):
+    """The JAX package's numpy ranking metrics, compiled from its source:
+    importing the package imports JAX, which the card's machine lacks."""
+    import __future__
+    import ast
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), "lightgbm_tpu", "metrics.py")
+    with open(path) as fh:
+        tree = ast.parse(fh.read())
+    defs = [n for n in tree.body if isinstance(n, ast.FunctionDef)
+            and n.name in ("_group_grid",) + names]
+    scope = {"np": np}
+    exec(compile(ast.Module(body=defs, type_ignores=[]), path, "exec",
+                 flags=__future__.annotations.compiler_flag,
+                 dont_inherit=True), scope)
+    return [scope[n] for n in names]
+
+
+@pytest.mark.cuda
+def test_card_ranking_metrics_on_the_yahoo_valid_shape():
+    """The Yahoo LTR cell's 6,983 valid queries, drawn as its generator
+    draws them, with one stretched to 249 documents (the train set's
+    longest), on the card: ndcg@10 and map@10 within 1e-12 of the JAX
+    package's numpy functions on the same numbers, on scores with 2-3
+    distinct values a query and on untied ones, and each evaluation of a
+    kept grid one host read (one ``sync.metric``, one synchronizing call)."""
+    import json
+    import os
+    import sys
+    import warnings
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (CUDA kernels have no CPU "
+                    "mode)")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    from gbdt_bench.gen.ranking import query_sizes
+    from lightgbm_tpu_torch import metrics
+    from lightgbm_tpu_torch.config import Config
+    with open(os.path.join(root, "gbdt_bench", "configs",
+                           "yahoo_ltr_set1.json")) as fh:
+        _, group = query_sizes(json.load(fh))
+    group[100] = 249
+    assert len(group) == 6983 and group.max() == 249
+    rng = np.random.RandomState(3)
+    n = int(group.sum())
+    y = rng.choice(5, n, p=[0.55, 0.25, 0.13, 0.055, 0.015]).astype(
+        np.float32)
+    ref_ndcg, ref_map = _reference_numpy("_ndcg", "_map")
+    dev = torch.device("cuda")
+    grid = metrics.QueryGrid(group, dev)
+    label = torch.as_tensor(y, device=dev)
+    gaps = {}
+    for kind, score in (
+            ("tied", rng.randint(0, 3, n).astype(np.float32) * 0.125),
+            ("untied", rng.randn(n).astype(np.float32))):
+        pred = torch.as_tensor(score, device=dev)
+        torch.cuda.synchronize()
+        for name, ref in (("ndcg", ref_ndcg), ("map", ref_map)):
+            m = metrics.create_metrics([name], Config({"eval_at": [10]}))[0]
+            want = ref(y, score, None, group, 10)
+            TIMER.begin_run()
+            was = tracing.set_timing_table(True)
+            with warnings.catch_warnings(record=True) as seen:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    got = m(label, pred, None, grid)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                    tracing.set_timing_table(was)
+            hits = [w for w in seen
+                    if "synchronizing CUDA operation" in str(w.message)]
+            syncs = {k: v["count"] for k, v in TIMER.snapshot().items()
+                     if k.startswith("sync.")}
+            assert syncs == {"sync.metric": 1} and len(hits) == 1, \
+                (kind, name, syncs, len(hits))
+            gaps[kind, name] = abs(got - want) / abs(want)
+            assert gaps[kind, name] <= 1e-12, (kind, name, got, want)
+    print("relative gaps to the reference's numpy", gaps)
