@@ -91,8 +91,8 @@ measured):
    B2's multi-level replay on (a)'s data: the route tables of the first
    three level passes of one tree of (a)'s binary model (3 channels) and
    of its L2 model (2), recorded from the live hist_routed_fused calls of
-   one update of the count-sized passes (the grower's sharded loop on one
-   shard) with their own slot widths, replayed in one
+   one update of the serial grower with capture off, each level at its
+   own slot width (the slots its tables fill), replayed in one
    hist_routed_fused_multi launch from the root's leaf ids, equal to the
    live passes and to the plain version bit for bit and timed beside the
    three D = 1 launches and its bound; then the path that runs it,
@@ -4326,35 +4326,21 @@ def main() -> int:
         data: the route tables of the first three level passes of one tree
         of (a)'s binary model (3 channels) and of its L2 model (2, the
         const-hessian front), recorded from the live hist_routed_fused
-        calls of one update of the grower's count-sized passes (its
-        sharded loop on one shard) with their own slot widths, replayed
-        in one launch from the root's leaf ids: each band equals its live
-        pass, the final leaf ids the third pass's, and everything the plain
-        version (multi_variant). Then the path that runs it,
-        scripts/torch_profile_level.py's shallow megapass at (a)'s width on
-        its bins: levels 1..5 of one tree in two launches (grad_quant_hist0
-        and hist_routed_fused_multi), its launch counts zeroed just before
-        and read just after them, bit-identical to five sequential level
-        passes."""
+        calls of one update of the serial grower with capture off (each
+        pass at the schedule's width, its slots past the level's count
+        empty), replayed in one launch from the root's leaf ids with each
+        level's own slot width, the slots its tables fill: each band
+        equals its live pass, the final leaf ids the third pass's, and
+        everything the plain version (multi_variant). Then the path that
+        runs it, scripts/torch_profile_level.py's shallow megapass at
+        (a)'s width on its bins: levels 1..5 of one tree in two launches
+        (grad_quant_hist0 and hist_routed_fused_multi), its launch counts
+        zeroed just before and read just after them, bit-identical to five
+        sequential level passes."""
         sys.path.insert(0, os.path.join(HERE, "scripts"))
         import torch_profile_level as tpl
-        from lightgbm_tpu_torch.models import gbdt as gbdt_mod
-        from lightgbm_tpu_torch.ops import grow_depthwise as gd_mod
-        from lightgbm_tpu_torch.ops.grow import RowShard, ShardedRows
         ds, ds_reg = dataset(63)
         orig_routed, orig_front = hk.hist_routed_fused, hk.grad_quant_hist0
-        orig_grow = gbdt_mod.grow_tree_depthwise
-
-        def count_sized(bins_T_, g, h, c, num_bins, na_bin, fmask, gp,
-                        qseed=0, fused=None, bins=None, **kw):
-            """The grower's count-sized passes (its sharded loop on one
-            shard), each level at its own slot width: the serial grower
-            runs every pass at the schedule's width, as a CUDA graph."""
-            tree, lids, passes = gd_mod.grow_tree_depthwise(
-                bins_T_, None, None, None, num_bins, na_bin, fmask, gp,
-                qseed=qseed, shards=ShardedRows([RowShard(
-                    bins_T_, bins, g, h, c, fused)]))
-            return tree, lids[0], passes
         for nm, d_, obj in (("binary", ds, "binary"),
                             ("l2", ds_reg, "regression")):
             live, front = [], []
@@ -4364,8 +4350,13 @@ def main() -> int:
                 out = orig_routed(bins_T_, gq, hq, cq, leaf_id, tables,
                                   na_bin, num_slots, num_bins, bins, catbits)
                 if len(live) < 3:
-                    live.append((leaf_id.clone(), tables.clone(), num_slots,
-                                 num_bins, catbits, out))
+                    # the level's own width: the slots of its splits
+                    s_ = int((tables[0] >= 0).sum())
+                    if out[0][s_:].any():
+                        fail(f"multi-level replay [{nm}]: a live pass "
+                             "filled a slot past its level's count")
+                    live.append((leaf_id.clone(), tables.clone(), s_,
+                                 num_bins, catbits, (out[0][:s_], out[1])))
                 return out
 
             def recorded_front(*a, **kw):
@@ -4373,17 +4364,18 @@ def main() -> int:
                 front.append(out)
                 return out
             hk.hist_routed_fused, hk.grad_quant_hist0 = routed, recorded_front
-            gbdt_mod.grow_tree_depthwise = count_sized
             try:
-                lt.Booster(params={"objective": obj, "num_leaves": L,
-                                   "max_bin": 63, "learning_rate": 0.1,
-                                   "min_data_in_leaf": 20, "verbosity": -1},
-                           train_set=d_).update()
+                bst_ = lt.Booster(params={"objective": obj, "num_leaves": L,
+                                          "max_bin": 63, "learning_rate": 0.1,
+                                          "min_data_in_leaf": 20,
+                                          "verbosity": -1}, train_set=d_)
+                # capture off: the passes run eagerly, each one recorded
+                bst_._gbdt._level_graphs = None
+                bst_.update()
                 torch.cuda.synchronize()
             finally:
                 hk.hist_routed_fused = orig_routed
                 hk.grad_quant_hist0 = orig_front
-                gbdt_mod.grow_tree_depthwise = orig_grow
             if len(live) < 3 or len(front) != 1 or bool(live[0][0].any()) \
                     or any(c is not None for *_, c, _ in live):
                 fail(f"multi-level replay [{nm}]: the first tree did not "

@@ -15,8 +15,8 @@ Audited, lexically and through the same module's helpers they call (one
 level deep, so ``select_level`` and ``_membership_leaves`` count as the
 level loop's):
 
-- the depthwise grower's level loops (``ops/grow_depthwise.py``
-  ``grow_tree_depthwise``, its serial ``_grow_serial`` and
+- the depthwise growers' level loops (``ops/grow_depthwise.py``
+  ``grow_tree_depthwise``, whose ``level_pass`` every case runs, and
   ``grow_tree_depthwise_lean``);
 - the lossguide grower's step loop (``ops/grow.py`` ``grow_tree``);
 - the engine's iteration loop (``engine.py`` ``train``) and the trainer's
@@ -58,8 +58,6 @@ _REDUCTIONS = {"any", "all", "sum", "max", "min", "argmax", "argmin",
 # (path, function) -> what the loop is, for the message
 HOT_LOOPS: Dict[Tuple[str, str], str] = {
     ("lightgbm_tpu_torch/ops/grow_depthwise.py", "grow_tree_depthwise"):
-        "level loop",
-    ("lightgbm_tpu_torch/ops/grow_depthwise.py", "_grow_serial"):
         "level loop",
     ("lightgbm_tpu_torch/ops/grow_depthwise.py", "grow_tree_depthwise_lean"):
         "level loop",

@@ -33,24 +33,24 @@ search at the leaves that hold a forced-node pointer, with left stats
 from the leaf histogram's prefix sums, the missing bin excluded
 (:406-428), and the pointers move to the children (:613-622).
 The reference builds the whole tree inside one jitted program with
-fixed-width masked scatters. On one shard the port's level pass
-(``level_pass``) does the same at the level's slot width from the
-schedule (32 or 127 at 255 leaves): the selected leaves in ascending
-order, then one trash row each for the slots the level leaves empty, the
-route tables' sentinel the width, and the budget, the leaf count and the
-selected count on the card. A pass makes one host read, the next level's
-selected count (``sync.select``), which stops the tree at 0; the
-parents' child pointers and the frontier are scattered on the card.
-On the card the pass is captured as a CUDA graph, one per (width, next
-width), and replayed for every later level of every tree of the trainer
-(``LevelGraphs``, a ``pass.replay`` span in ``grow.pass``), where
+fixed-width masked scatters. The port's level pass (``level_pass``) does
+the same at the level's slot width from the schedule (32 or 127 at 255
+leaves): the selected leaves in ascending order, then one trash row each
+for the slots the level leaves empty, the route tables' sentinel the
+width, and the budget, the leaf count and the selected count on the card.
+A pass makes one host read, the next level's selected count
+(``sync.select``), which stops the tree at 0; the parents' child pointers
+and the frontier are scattered on the card. Where the rows live is
+``LevelRows``: one shard, row shards whose histograms are summed (the
+data-parallel learner, across processes too), the voting election, or
+feature tiles; the pass runs the same on each. On one shard in one
+process on the card the pass is captured as a CUDA graph, one per (width,
+next width), and replayed for every later level of every tree of the
+trainer (``LevelGraphs``, a ``pass.replay`` span in ``grow.pass``), where
 ``capture_engages``; CEGB, forced splits, feature_fraction_bynode,
 extra_trees, categorical features, EFB bundles, monotone constraints and
-feature_contri run the same pass eagerly, in its ``pass.*`` spans. The
-sharded, voting and feature-tile paths keep a loop that sizes each pass
-by the selected count read on the host, with four more reads of the
-parents' child pointers and three frontier scalars a pass; each read sits
-in a ``sync.*`` span (``obs/tracing.py``).
+feature_contri run the same pass eagerly, in its ``pass.*`` spans; each
+host read sits in a ``sync.*`` span (``obs/tracing.py``).
 """
 from __future__ import annotations
 
@@ -152,45 +152,19 @@ def level_widths(num_leaves: int, max_levels: int) -> List[int]:
     return widths + [max_slots] * (max_levels - n_unroll)
 
 
-def apply_level_to_tree(tree: TreeArrays, parent_node: torch.Tensor,
-                        parent_right: torch.Tensor, res: SplitResult,
-                        si: torch.Tensor, nid: torch.Tensor, nl: torch.Tensor,
-                        left, right, outputs, sp: SplitParams) -> None:
-    """Write one level's selected splits into the tree arrays, in place
-    (reference: ``_apply_level_to_tree``, grow_depthwise.py:103-141): the
-    selected leaves ``si`` (ascending) become nodes ``nid`` whose right
-    children are the new leaves ``nl``; each parent's child pointer moves
-    to its node; ``left`` / ``right`` the (g, h, count) stats and
-    ``outputs`` the (left, right, parent) outputs of every leaf [L]."""
-    par = parent_node[si]
-    has_par = par >= 0
-    pr = parent_right[si]
-    # the parents' child pointers: four boolean-mask gathers, each a host
-    # read of how many rows its mask keeps
-    to_left, to_right = has_par & ~pr, has_par & pr
-    with span("sync.apply"):
-        par_l = par[to_left]
-    with span("sync.apply"):
-        nid_l = nid[to_left]
-    with span("sync.apply"):
-        par_r = par[to_right]
-    with span("sync.apply"):
-        nid_r = nid[to_right]
-    tree.left_child[par_l] = nid_l.to(torch.int32)
-    tree.right_child[par_r] = nid_r.to(torch.int32)
-    _write_level_nodes(tree, res, si, nid, nl, left, right, outputs, sp)
-
-
 def apply_level_fixed(tree: TreeArrays, parent_node: torch.Tensor,
                       parent_right: torch.Tensor, res: SplitResult,
                       si: torch.Tensor, nid: torch.Tensor, nl: torch.Tensor,
                       valid: torch.Tensor, trash_node: torch.Tensor,
                       left, right, outputs, sp: SplitParams) -> None:
-    """``apply_level_to_tree`` at a fixed slot width W and with no host
-    read: ``si``, ``nid``, ``nl`` [W], slot j past the level's count
-    (``valid`` False) pointing at trash rows of its own; each parent's
-    child pointer is written where it points, every other slot's at its
-    trash node ``trash_node`` [W]."""
+    """Write one level's splits into the tree arrays, in place and with no
+    host read (reference: grow_depthwise.py:103-141): slot j's leaf
+    ``si`` becomes node ``nid`` whose right child is the new leaf ``nl``,
+    a slot past the level's count (``valid`` False) pointing at trash
+    rows of its own; each parent's child pointer moves to its node, every
+    other slot's write lands on its trash node ``trash_node``; ``left`` /
+    ``right`` the (g, h, count) stats and ``outputs`` the (left, right,
+    parent) outputs of every leaf."""
     par = parent_node[si]
     has_par = valid & (par >= 0)
     pr = parent_right[si]
@@ -347,27 +321,177 @@ def voting_exchange(parts: list, sh: ShardedRows, num_bins: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# the serial level pass: a fixed slot width, one host read, replayed as a
-# CUDA graph on the card
+# the level pass: a fixed slot width, one host read, replayed as a CUDA
+# graph on the card
 # ---------------------------------------------------------------------------
 
 _LEAF_FIELDS = ("leaf_value", "leaf_weight", "leaf_count")
 
 
-class LevelState:
-    """What the serial level pass reads and writes. Every per-leaf array
-    has ``L + W`` rows and every per-node array ``m + W`` (``W`` the widest
-    level, ``m`` the tree's L - 1 nodes): slot j of a level that selects
-    fewer leaves than its width writes leaf row ``L + j`` and node row
-    ``m + j``, trash rows that no search and no tree reads, so that no
-    write repeats an index. The step is the last search's records and
-    selection over the first L rows: ``sel``, each selected leaf's place
-    ``idx``, and their ``count``, on the card like ``num_leaves``. The
-    tree's front and row inputs and the leaf ids live in buffers of the
-    state's own, whose addresses a captured graph keeps."""
+def trim_tree(tree: TreeArrays, L: int, num_leaves: int) -> TreeArrays:
+    """A tree's arrays without the trash rows of ``empty_tree(...,
+    spare=)``, in tensors of their own."""
+    m = max(L - 1, 1)
+    return TreeArrays(num_leaves=num_leaves, **{
+        k: v[:L if k in _LEAF_FIELDS else m].clone()
+        for k, v in tree._asdict().items() if k != "num_leaves"})
 
-    def __init__(self, L: int, f: int, B: int, n: int, W: int,
-                 dev: torch.device):
+
+class LevelRows:
+    """Where a tree's rows live, for the level pass: one shard (the serial
+    grower), row shards whose histograms and sums are summed over the
+    shards and the processes (the data-parallel learner, reference:
+    :284-309, :570, :668-681), the same under the voting election, or one
+    shard whose histograms are built tile by tile (``fp_tiles``, the
+    feature-parallel learner's ``FeatureTiles``). It holds each shard's
+    row inputs (its quantized channels with their own scales and dither,
+    or the f32 rows without quantization) and leaf ids, the summed root
+    histogram and the column mask, and measures each pass's histograms.
+    Under voting it keeps the features each leaf's stored histograms were
+    elected under (reference: ``_DWState.vote_mask``), which narrow the
+    leaf's column mask."""
+
+    def __init__(self, sh: ShardedRows, fmask: torch.Tensor,
+                 num_bins: torch.Tensor, na_bin: torch.Tensor,
+                 gp: GrowParams, width: int, fp_tiles=None):
+        self.sh, self.fmask, self.num_bins, self.gp = sh, fmask, num_bins, gp
+        self.tiles = fp_tiles
+        self.na_of = _on_devices(na_bin, sh)
+        # zeroed by each tree's start (``begin_tree``)
+        self.leaf_ids = [torch.empty(s.bins_T.shape[1], dtype=torch.int32,
+                                     device=s.device) for s in sh.shards]
+        self.summed = len(sh.shards) > 1 or gp.processes > 1
+        self.voting = bool(gp.axis_name) and gp.voting_top_k > 0
+        self.vote_mask = (torch.ones((gp.num_leaves + width, fmask.shape[0]),
+                                     dtype=torch.bool, device=sh.home)
+                          if self.voting else None)
+        self.quants: list = []
+        self.inputs: list = []
+        self.hist0: Optional[torch.Tensor] = None
+
+    @property
+    def serial(self) -> bool:
+        return not (self.summed or self.voting or self.tiles is not None)
+
+    def front(self, qseed: int) -> None:
+        """Each shard's row inputs and root histogram (B1; make_quant and
+        B5; B8; or the tiles'), the histograms summed into ``hist0``."""
+        gp, B = self.gp, self.gp.max_bin
+        parts = []
+        for s in self.sh.shards:
+            if s.fused is not None:
+                q, h0 = H.grad_quant_hist0(s.bins_T, *s.fused, qseed,
+                                           gp.fused_obj, B,
+                                           const_hess=gp.const_hess)
+            elif gp.quant:
+                q = H.make_quant(s.g, s.h, s.c, qseed,
+                                 const_hess=gp.const_hess)
+                h0 = H.hist_leaf(s.bins_T, B, q)
+            elif self.tiles is not None:
+                q, h0 = None, self.tiles.root(B)
+            else:
+                q, h0 = None, H.hist_leaf(s.bins_T, B, rows=s.rows)
+            self.quants.append(q)
+            self.inputs.append(s.rows if q is None else None)
+            parts.append(h0)
+        self.hist0 = _hist_allreduce(parts, gp, 1, self.sh.feature_devices)
+
+    def pin(self, held: Optional[list]) -> list:
+        """Move the one shard's leaf ids, root histogram, column mask and
+        row inputs into buffers whose addresses a captured graph keeps:
+        ``held``, the last tree's (its leaf ids as they are, the rest
+        copied into), or the first time this tree's leaf ids and clones.
+        Returns the buffers for the next tree."""
+        q = self.quants[0]
+        now = [self.hist0, self.fmask, *(self.inputs[0] if q is None else q)]
+        if held is None:
+            held = [self.leaf_ids[0]] + [None if t is None else t.clone()
+                                         for t in now]
+        else:
+            for dst, src in zip(held[1:], now):
+                if dst is not None:
+                    dst.copy_(src)
+        self.leaf_ids[0], self.hist0, self.fmask = held[:3]
+        if q is None:
+            self.inputs[0] = tuple(held[3:])
+        else:
+            self.quants[0] = H.QuantChannels(*held[3:])
+        return held
+
+    def column_mask(self, L: int) -> torch.Tensor:
+        """[L, F] the columns each leaf's search may take."""
+        if self.vote_mask is None:
+            return self.fmask.expand(L, self.fmask.shape[0])
+        return self.fmask & self.vote_mask[:L]
+
+    def measure(self, tables: H.RouteTables, slots: int, used: int,
+                si: torch.Tensor, nl: torch.Tensor) -> torch.Tensor:
+        """Route each shard's rows through the level's splits and measure
+        its [slots, 3, F, B] slot histograms; the shards' are summed over
+        their first ``used`` slots, the ones the level fills, so that an
+        exchange sends no empty slot. Under voting only the elected
+        features' are summed (``voting_exchange``), and the leaves ``si``
+        and ``nl`` whose histograms they become take the election's
+        mask."""
+        gp, B = self.gp, self.gp.max_bin
+        parts = []
+        for i, s in enumerate(self.sh.shards):
+            if self.tiles is not None:
+                hp, lid = self.tiles.routed(self.leaf_ids[i], tables,
+                                            self.na_of[i], slots, B)
+            else:
+                hp, lid = H.hist_routed(
+                    s.bins_T, self.leaf_ids[i], _tables_on(tables, s.device),
+                    self.na_of[i], slots, B, self.quants[i], self.inputs[i],
+                    s.bins)
+            self.leaf_ids[i].copy_(lid)
+            parts.append(hp)
+        hp = parts[0]
+        if self.voting:
+            hp[:used], elected = voting_exchange(
+                [p[:used] for p in parts], self.sh, self.num_bins,
+                self.na_of[0], gp.split, gp)
+            self.vote_mask[si] = elected
+            self.vote_mask[nl] = elected
+        elif self.summed:
+            hp[:used] = _hist_allreduce([p[:used] for p in parts], gp, 2,
+                                        self.sh.feature_devices)
+        return hp
+
+    def pay_lazy(self, f_leaf: torch.Tensor) -> None:
+        """CEGB's lazy bookkeeping on every shard: each in-bag row of a
+        leaf that splits (``f_leaf`` its column, -1 elsewhere) has paid for
+        the column; each row's one cell OR-ed with its flag, no host read
+        of how many rows paid."""
+        for s, lid in zip(self.sh.shards, self.leaf_ids):
+            f_row = f_leaf.to(s.device)[lid.to(torch.int64)]
+            pay = (f_row >= 0) & (s.c > 0)
+            rows = torch.arange(f_row.shape[0], device=s.device)
+            col = f_row.clamp(min=0)
+            s.data_used[rows, col] = s.data_used[rows, col] | pay
+
+    def leaf_sums(self, lids: list, L: int) -> torch.Tensor:
+        """[3, L] exact (g, h, count) sums of each leaf's rows, summed over
+        the shards (B3, or B7)."""
+        spec = self.gp.fused_obj
+        return _psum([K.leaf_sums_grad(*s.fused, lid, spec, L)
+                      if s.fused is not None
+                      else K.leaf_sums(s.g, s.h, s.c, lid, L)
+                      for s, lid in zip(self.sh.shards, lids)], self.gp)
+
+
+class LevelState:
+    """The frontier and the tree the level pass reads and writes. Every
+    per-leaf array has ``L + W`` rows and every per-node array ``m + W``
+    (``W`` the widest level, ``m`` the tree's L - 1 nodes): slot j of a
+    level that selects fewer leaves than its width writes leaf row ``L +
+    j`` and node row ``m + j``, trash rows that no search and no tree
+    reads, so that no write repeats an index. The step is the last
+    search's records and selection over the first L rows: ``sel``, each
+    selected leaf's place ``idx``, and their ``count``, on the card like
+    ``num_leaves``."""
+
+    def __init__(self, L: int, f: int, B: int, W: int, dev: torch.device):
         T = L + W
         f32 = dict(dtype=torch.float32, device=dev)
         i64 = dict(dtype=torch.int64, device=dev)
@@ -382,7 +506,6 @@ class LevelState:
                                              for _ in range(2))
         self.num_leaves = torch.ones((), **i64)
         self.tree = empty_tree(L, B, dev, spare=W)
-        self.leaf_id = torch.zeros(n, dtype=torch.int32, device=dev)
         self.res = SplitResult(
             gain=torch.zeros(T, **f32), feature=torch.zeros(T, **i64),
             bin=torch.zeros(T, **i64),
@@ -394,31 +517,10 @@ class LevelState:
         self.idx = torch.zeros(T, **i64)
         self.count = torch.zeros((), **i64)
         self.slots = torch.arange(W, **i64)
-        self.quant: Optional[H.QuantChannels] = None
-        self.hist0 = self.rows = self.fmask = None
 
-    def bind(self, hist0, quant, rows, fmask) -> None:
-        """The tree's front: the root histogram, the row inputs (the
-        quantized channels, or the f32 rows without quantization) and the
-        column mask, copied into the state's own buffers."""
-        rows = rows if quant is None else None
-        if self.fmask is None:
-            self.hist0, self.fmask = hist0.clone(), fmask.clone()
-            self.quant = None if quant is None else H.QuantChannels(
-                *(None if t is None else t.clone() for t in quant))
-            self.rows = None if rows is None else tuple(t.clone()
-                                                        for t in rows)
-        else:
-            self.hist0.copy_(hist0)
-            self.fmask.copy_(fmask)
-            for dst, src in zip(self.quant or self.rows, quant or rows):
-                if dst is not None:
-                    dst.copy_(src)
-
-    def begin(self, sp: SplitParams, forced) -> None:
-        """A new tree from the bound root histogram: the root's sums, a
-        tree of no split, every row in leaf 0."""
-        hist0 = self.hist0
+    def begin(self, sp: SplitParams, forced, hist0: torch.Tensor) -> None:
+        """A new tree from the root histogram ``hist0``: the root's sums
+        and a tree of no split."""
         g0, h0, c0 = tree_sum(hist0[0, 0]), tree_sum(hist0[1, 0]), \
             tree_sum(hist0[2, 0])
         self.hist.zero_()
@@ -443,30 +545,20 @@ class LevelState:
         self.tree.leaf_value[0] = leaf_output(g0, h0, sp)
         self.tree.leaf_weight[0] = h0
         self.tree.leaf_count[0] = c0
-        self.leaf_id.zero_()
-
-    def tree_out(self, num_leaves: int) -> TreeArrays:
-        """The tree's arrays, trash rows left out, in tensors of their
-        own."""
-        return TreeArrays(num_leaves=num_leaves, **{
-            k: v[:self.L if k in _LEAF_FIELDS else self.m].clone()
-            for k, v in self.tree._asdict().items() if k != "num_leaves"})
 
 
 class PassIO(NamedTuple):
-    """What a serial level pass reads besides its ``LevelState``: the
-    Dataset's bins and bin tables, and the per-tree inputs of the paths
-    that run the pass eagerly."""
+    """What a level pass reads besides its ``LevelState``: the bin
+    tables, the per-tree inputs of the paths that run the pass eagerly,
+    and the tree's rows."""
     gp: GrowParams
-    bins_T: torch.Tensor
-    bins: Optional[torch.Tensor]
     num_bins: torch.Tensor
     na_bin: torch.Tensor
     bundle: Optional[BundleArrays]
     forced: Optional[ForcedSplits]
     cegb: Optional[CEGBState]
-    sh: ShardedRows
     qseed: int
+    rows: LevelRows
 
 
 def _no_phase(name: str):
@@ -486,11 +578,10 @@ def _search(st: LevelState, io: PassIO, lvl: int, slots: int) -> None:
     """Level ``lvl``'s split search over the first L rows and its budgeted
     selection of at most ``slots`` leaves (reference: grow_depthwise.py
     :446-458), into the step; the budget stays on the card."""
-    gp, sp, L = io.gp, io.gp.split, st.L
+    gp, sp, L, rows = io.gp, io.gp.split, st.L, io.rows
     hist, leaf_c, active = st.hist[:L], st.leaf_c[:L], st.active[:L]
-    mask = node_feature_mask(st.fmask.expand(L, hist.shape[2]), gp,
-                             io.qseed, lvl)
-    pen = (cegb_penalty(sp, io.cegb, leaf_c, io.sh, [st.leaf_id], gp)
+    mask = node_feature_mask(rows.column_mask(L), gp, io.qseed, lvl)
+    pen = (cegb_penalty(sp, io.cegb, leaf_c, rows.sh, rows.leaf_ids, gp)
            if io.cegb is not None else None)
     res = best_split(hist, io.num_bins, io.na_bin, st.leaf_g[:L],
                      st.leaf_h[:L], leaf_c, mask, sp, active, io.bundle,
@@ -515,29 +606,35 @@ def _search(st: LevelState, io: PassIO, lvl: int, slots: int) -> None:
 
 def begin_tree(st: LevelState, io: PassIO,
                width: Optional[int]) -> None:
-    """A tree's start from its bound front, then, unless ``width`` is
-    None, the root's search and selection of at most ``width`` leaves."""
-    st.begin(io.gp.split, io.forced)
+    """A tree's start from its rows' root histogram, every row in leaf 0,
+    then, unless ``width`` is None, the root's search and selection of at
+    most ``width`` leaves."""
+    st.begin(io.gp.split, io.forced, io.rows.hist0)
+    for lid in io.rows.leaf_ids:
+        lid.zero_()
     if width is not None:
         _search(st, io, 0, width)
 
 
 def level_pass(st: LevelState, io: PassIO, lvl: int, width: int,
-               next_width: Optional[int], phase=span,
+               next_width: Optional[int], count: int, phase=span,
                read: bool = True) -> int:
-    """One serial level pass at slot width ``width``, from the step's
-    selection (reference: grow_depthwise.py :459-632, the same masked
-    scatters): the selected leaves become nodes, their rows are routed and
-    the smaller children measured in ``width`` slots, the larger by
-    subtraction, and the stats and frontier follow; then, unless
-    ``next_width`` is None, level ``lvl`` + 1's search. Its one host read,
-    when ``read`` is set, is the count of that search's selection, which
-    it returns (else 0); the paths that run it eagerly add their own (the
-    categorical membership, CEGB's copies). Slot j past the selected count
-    writes only its trash rows, so a level that selects nothing leaves the
-    tree, the leaf ids and the live rows as they were. ``phase`` opens the
-    pass's ``pass.*`` spans."""
-    sp, L = io.gp.split, st.L
+    """One level pass at slot width ``width``, from the step's selection
+    of ``count`` leaves (reference: grow_depthwise.py :459-632, the same
+    masked scatters): the selected leaves become nodes, their rows are
+    routed and the smaller children measured in ``width`` slots, the
+    larger by subtraction (under voting both, in slots 2j and 2j + 1),
+    and the stats and frontier follow; then, unless ``next_width`` is
+    None, level ``lvl`` + 1's search. Its one host read, when ``read`` is
+    set, is the count of that search's selection, which it returns (else
+    0); the paths that run it eagerly add their own (the categorical
+    membership, CEGB's copies, the voting election). ``count``, read by
+    the host before, sizes only the shards' exchange: the pass itself
+    takes the count on the card, so that slot j past it writes only its
+    trash rows and a level that selects nothing leaves the tree, the leaf
+    ids and the live rows as they were. ``phase`` opens the pass's
+    ``pass.*`` spans."""
+    sp, L, rows = io.gp.split, st.L, io.rows
     res, sel, idx = st.res, st.sel, st.idx
     with phase("pass.apply"):
         j = st.slots[:width]
@@ -562,37 +659,41 @@ def level_pass(st: LevelState, io: PassIO, lvl: int, width: int,
             io.cegb.feature_used |= ((res.feature[:, None] == cols)
                                      & sel[:, None]).any(0)
         if io.cegb is not None and sp.cegb_lazy:
-            s = io.sh.shards[0]
-            f_row = torch.where(sel, res.feature, torch.full_like(
-                res.feature, -1))[st.leaf_id.to(torch.int64)]
-            pay = (f_row >= 0) & (s.c > 0)
-            rows = torch.arange(f_row.shape[0], device=s.device)
-            col = f_row.clamp(min=0)
-            s.data_used[rows, col] = s.data_used[rows, col] | pay
+            rows.pay_lazy(torch.where(sel, res.feature,
+                                      torch.full_like(res.feature, -1)))
         # ---- route tables: slot idx for the smaller child of each
-        # selected leaf, the sentinel ``width`` elsewhere ----
+        # selected leaf (under voting slots 2 idx and 2 idx + 1 for both),
+        # the sentinel, the pass's slot count, elsewhere ----
         small_is_left = left[2] <= right[2]
-        none = torch.full_like(idx, width)
+        slots = 2 * width if rows.voting else width
+        none = torch.full_like(idx, slots)
+        if rows.voting:
+            slot_l = torch.where(sel, 2 * idx, none)
+            slot_r = torch.where(sel, 2 * idx + 1, none)
+        else:
+            slot_l = torch.where(sel & small_is_left, idx, none)
+            slot_r = torch.where(sel & ~small_is_left, idx, none)
         tables = H.RouteTables(
             feat=torch.where(sel, res.feature,
                              torch.full_like(res.feature, -1))[:L],
             thr=res.bin[:L], dleft=res.default_left[:L].to(torch.int32),
             new_leaf=(st.num_leaves + idx)[:L],
-            slot_left=torch.where(sel & small_is_left, idx, none)[:L],
-            slot_right=torch.where(sel & ~small_is_left, idx, none)[:L],
+            slot_left=slot_l[:L], slot_right=slot_r[:L],
             is_cat=None if cat_sel is None else cat_sel[:L],
             member=(None if cat_sel is None
                     else (res.cat_member & sel[:, None])[:L]))
 
     with phase("pass.hist"):
-        hp, lid = H.hist_routed(io.bins_T, st.leaf_id, tables, io.na_bin,
-                                width, st.hist.shape[3], st.quant, st.rows,
-                                io.bins)
-        st.leaf_id.copy_(lid)
-        sib = st.hist[si] - hp
-        sl = small_is_left[si][:, None, None, None]
-        st.hist[si] = torch.where(sl, hp, sib)
-        st.hist[nl] = torch.where(sl, sib, hp)
+        hp = rows.measure(tables, slots,
+                          2 * count if rows.voting else count, si, nl)
+        if rows.voting:
+            st.hist[si] = hp[0::2]
+            st.hist[nl] = hp[1::2]
+        else:
+            sib = st.hist[si] - hp
+            sl = small_is_left[si][:, None, None, None]
+            st.hist[si] = torch.where(sl, hp, sib)
+            st.hist[nl] = torch.where(sl, sib, hp)
 
     with phase("pass.apply"):
         (lg, lh, lc), (rg, rh, rc), (w_l, w_r, _) = left, right, outs
@@ -649,24 +750,29 @@ class LevelGraphs:
     """A trainer's captured level passes: one CUDA graph per (slot width
     of the pass, slot width of the next search, or None where the pass
     ends the tree's searches), in one memory pool, over one
-    ``LevelState``. ``key`` names what the graphs were captured on (the
-    grow parameters, the shapes, and the addresses of the bins and bin
-    tables); another key drops them and captures anew. ``captures``
-    counts the graphs captured."""
+    ``LevelState`` and one set of pinned row buffers (``LevelRows.pin``).
+    ``key`` names what the graphs were captured on (the grow parameters,
+    the shapes, and the addresses of the bins and bin tables); another key
+    drops them and captures anew. ``captures`` counts the graphs
+    captured."""
 
     def __init__(self):
         self.key = None
         self.state: Optional[LevelState] = None
+        self.held: Optional[list] = None
         self.graphs: dict = {}
         self.pool = None
         self.captures = 0
 
-    def state_for(self, key, make) -> LevelState:
+    def state_for(self, key, make, rows: LevelRows) -> LevelState:
+        """The state of ``key``, made anew when the key changes, with
+        ``rows`` pinned in the buffers the graphs read."""
         if key != self.key:
             self.graphs.clear()
-            self.state = None
+            self.state = self.held = None
             self.key, self.state = key, make()
             self.pool = torch.cuda.graph_pool_handle()
+        self.held = rows.pin(self.held)
         return self.state
 
     def replay(self, key) -> None:
@@ -714,91 +820,6 @@ class LevelGraphs:
         self.captures += 1
 
 
-def _grow_serial(bins_T, g, h, c, num_bins, na_bin, feature_mask,
-                 gp: GrowParams, qseed: int, fused, bins, bundle, forced,
-                 cegb, graphs: Optional[LevelGraphs]):
-    """``grow_tree_depthwise`` on one shard: the front, then one
-    fixed-width ``level_pass`` a level, replayed from ``graphs`` where
-    capture engages (its first run at a (width, next width) is eager, on
-    the warm-up stream, and then captured)."""
-    f, n = bins_T.shape
-    dev = bins_T.device
-    L, B = gp.num_leaves, gp.max_bin
-    sp, spec = gp.split, gp.fused_obj
-    max_levels = gp.max_depth if gp.max_depth > 0 else max(1, L - 1)
-    widths = level_widths(L, max_levels)
-    io = PassIO(gp, bins_T, bins, num_bins, na_bin, bundle, forced, cegb,
-                as_sharded(None, bins_T, bins, g, h, c, fused,
-                           None if cegb is None else cegb.data_used), qseed)
-    graphed = graphs is not None and capture_engages(dev, gp, cegb, forced)
-    with span("grow.front"):
-        if fused is not None:
-            quant, hist0 = H.grad_quant_hist0(bins_T, *fused, qseed, spec,
-                                              B, const_hess=gp.const_hess)
-        elif gp.quant:
-            quant = H.make_quant(g, h, c, qseed, const_hess=gp.const_hess)
-            hist0 = H.hist_leaf(bins_T, B, quant)
-        else:
-            quant, hist0 = None, H.hist_leaf(bins_T, B, rows=(g, h, c))
-
-        def make() -> LevelState:
-            return LevelState(L, f, B, n, max(widths, default=1), dev)
-
-        st = (graphs.state_for(
-            (gp, n, f, dev, bins_T.data_ptr(),
-             0 if bins is None else bins.data_ptr(), num_bins.data_ptr(),
-             na_bin.data_ptr(), quant is None or quant.hq is None), make)
-              if graphed else make())
-        st.bind(hist0, quant, (g, h, c), feature_mask)
-        # the root's search is the front's, and each level pass ends with
-        # the search of the level it made: a search that selects no split
-        # opens no pass
-        first = widths[0] if widths and L > 1 else None
-        if graphed:
-            root = partial(begin_tree, st, io, first)
-            graphs.run(("root", first), root, root)
-        else:
-            begin_tree(st, io, first)
-        count = _read_count(st) if first is not None else 0
-
-    leaves, passes = 1, 0
-    for lvl, width in enumerate(widths):
-        if count == 0:
-            break
-        leaves += count
-        nxt = (widths[lvl + 1] if lvl + 1 < len(widths) and leaves < L
-               else None)
-        with span("grow.pass"):
-            passes += 1
-            if not graphed:
-                count = level_pass(st, io, lvl, width, nxt)
-                continue
-            graphs.run(
-                (width, nxt),
-                partial(level_pass, st, io, lvl, width, nxt, read=False),
-                partial(level_pass, st, io, lvl, width, nxt, _no_phase,
-                        read=False), "pass.replay")
-            count = _read_count(st) if nxt is not None else 0
-
-    tree = st.tree_out(leaves)
-    lid = st.leaf_id.clone()
-    if not gp.quant:
-        return tree, lid, passes
-    # ---- leaf renewal from exact sums ----
-    with span("grow.leaf_renew"):
-        sums = (K.leaf_sums_grad(*fused, lid, spec, L) if fused is not None
-                else K.leaf_sums(g, h, c, lid, L))
-        w = leaf_output(sums[0], sums[1], sp)
-        if sp.has_monotone:
-            w = torch.clamp(w, st.leaf_min[:L], st.leaf_max[:L])
-        live = torch.arange(L, device=dev) < leaves
-        tree = tree._replace(
-            leaf_value=torch.where(live, w, tree.leaf_value),
-            leaf_weight=torch.where(live, sums[1], tree.leaf_weight),
-            leaf_count=torch.where(live, sums[2], tree.leaf_count))
-    return tree, lid, passes
-
-
 def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
                         h: Optional[torch.Tensor], c: Optional[torch.Tensor],
                         num_bins: torch.Tensor, na_bin: torch.Tensor,
@@ -831,290 +852,103 @@ def grow_tree_depthwise(bins_T: torch.Tensor, g: Optional[torch.Tensor],
     ``shards`` (data-parallel, reference: :284-309, :570, :668-681): the
     rows as ``ShardedRows`` (the row arguments are then unused, and the
     CEGB lazy bitset comes as each shard's ``data_used`` block). Each
-    shard runs the kernels on its own rows: its front (B1, or make_quant
-    and B5, or B8), each level's pass and its leaf sums, with its own
-    quantization scales and dither (the row index within the shard), as
-    each shard of the reference's shard_map does; the dequantized f32
-    histograms and the sums are summed over the shards and the split
-    search runs once. Under ``gp.voting_top_k`` both children of a split
-    are measured (2 slots a split) and only the elected features'
-    histograms are summed (``voting_exchange``). The leaf ids come back as
-    a list, one [n_s] i32 tensor a shard.
+    shard runs the kernels on its own rows: its front, each level's pass
+    and its leaf sums, with its own quantization scales and dither (the
+    row index within the shard), as each shard of the reference's
+    shard_map does; the dequantized f32 histograms and the sums are
+    summed over the shards and the split search runs once. Under
+    ``gp.voting_top_k`` both children of a split are measured (2 slots a
+    split) and only the elected features' histograms are summed
+    (``voting_exchange``). The leaf ids come back as a list, one [n_s]
+    i32 tensor a shard.
 
     ``fp_tiles`` (feature-parallel, ``parallel/feature_parallel.py``
     ``FeatureTiles``, unquantized only): the root and each level's
     histograms are built tile by tile on the tiles' devices and gathered
     before the search.
 
-    On one shard in one process (no ``shards``, tiles or mesh axis) each
-    level runs ``level_pass`` at its slot width; ``graphs`` (the trainer's
-    ``LevelGraphs``) keeps the passes captured as CUDA graphs across trees
-    where ``capture_engages``. The other paths keep the loop below, which
-    sizes each pass by its selected count."""
+    Every case runs ``level_pass`` at each level's slot width
+    (``LevelRows`` holds what differs); on one shard in one process
+    ``graphs`` (the trainer's ``LevelGraphs``) keeps the passes captured as
+    CUDA graphs across trees where ``capture_engages``."""
     if fp_tiles is not None and (gp.quant or shards is not None):
         raise ValueError("feature tiles take the unquantized serial rows")
-    if fused is not None and (gp.fused_obj is None or not gp.quant
-                              or cegb is not None):
-        raise ValueError("the fused front needs gp.quant and gp.fused_obj, "
-                         "and no CEGB")
-    if shards is None and fp_tiles is None and not gp.axis_name and \
-            gp.processes <= 1:
-        return _grow_serial(bins_T, g, h, c, num_bins, na_bin,
-                            feature_mask, gp, qseed, fused, bins, bundle,
-                            forced, cegb, graphs)
     sh = as_sharded(shards, bins_T, bins, g, h, c, fused,
                     None if cegb is None else cegb.data_used)
-    f = sh.shards[0].bins_T.shape[0]
-    dev = sh.home
-    fdev = sh.feature_devices
-    L, B = gp.num_leaves, gp.max_bin
-    sp = gp.split
-    spec = gp.fused_obj
-    use_fused = sh.shards[0].fused is not None
-    voting = bool(gp.axis_name) and gp.voting_top_k > 0
-    max_levels = gp.max_depth if gp.max_depth > 0 else max(1, L - 1)
-
-    if use_fused and (spec is None or not gp.quant or cegb is not None):
+    if sh.shards[0].fused is not None and (
+            gp.fused_obj is None or not gp.quant or cegb is not None):
         raise ValueError("the fused front needs gp.quant and gp.fused_obj, "
                          "and no CEGB")
-    def search(lvl: int, slots: int):
-        """Level ``lvl``'s split search and its budgeted selection: (the
-        records, where a forced split applies, sel, si, idx_in_lvl)."""
-        base_mask = (feature_mask.expand(L, f) if vote_mask is None
-                     else feature_mask & vote_mask)
-        search_mask = node_feature_mask(base_mask, gp, qseed, lvl)
-        pen = (cegb_penalty(sp, cegb, leaf_c, sh, leaf_ids, gp)
-               if cegb is not None else None)
-        res = best_split(hist, num_bins, na_bin, leaf_g, leaf_h, leaf_c,
-                         search_mask, sp, active, bundle,
-                         leaf_min=leaf_min, leaf_max=leaf_max,
-                         gain_penalty=pen,
-                         rand_key=extra_trees_key(sp, qseed, lvl))
-        okf = None
-        if forced is not None:
-            res, okf = forced_override(res, forced, forced_ptr,
-                                       (forced_ptr >= 0) & active, hist,
-                                       na_bin, leaf_c)
-        # budgeted selection: top-gain candidates win, ties by leaf index
-        sel, si, idx_in_lvl = select_level(res, active, sp, L - num_leaves,
-                                           slots)
-        return res, okf, sel, si, idx_in_lvl
-
+    f, n = sh.shards[0].bins_T.shape
+    dev = sh.home
+    L, B = gp.num_leaves, gp.max_bin
+    sp = gp.split
+    max_levels = gp.max_depth if gp.max_depth > 0 else max(1, L - 1)
     widths = level_widths(L, max_levels)
+    W = max(widths, default=1)
+    rows = LevelRows(sh, feature_mask, num_bins, na_bin, gp, W, fp_tiles)
+    io = PassIO(gp, num_bins, na_bin, bundle, forced, cegb, qseed, rows)
+    graphed = (graphs is not None and rows.serial
+               and capture_engages(dev, gp, cegb, forced))
     with span("grow.front"):
-        quants, parts = [], []
-        for s in sh.shards:
-            if use_fused:
-                q, h0 = H.grad_quant_hist0(s.bins_T, *s.fused, qseed, spec,
-                                           B, const_hess=gp.const_hess)
-            elif gp.quant:
-                # int8 quantized channels of the materialized rows, built
-                # once per tree, then the root histogram
-                q = H.make_quant(s.g, s.h, s.c, qseed,
-                                 const_hess=gp.const_hess)
-                h0 = H.hist_leaf(s.bins_T, B, q)
-            elif fp_tiles is not None:
-                q, h0 = None, fp_tiles.root(B)
-            else:
-                q, h0 = None, H.hist_leaf(s.bins_T, B, rows=s.rows)
-            quants.append(q)
-            parts.append(h0)
-        hist0 = _hist_allreduce(parts, gp, 1, fdev)
-        g0, h0, c0 = tree_sum(hist0[0, 0]), tree_sum(hist0[1, 0]), \
-            tree_sum(hist0[2, 0])
-        na_of = _on_devices(na_bin, sh)
-
-        f32 = dict(dtype=torch.float32, device=dev)
-        hist = torch.zeros((L, 3, f, B), **f32)
-        hist[0] = hist0
-        leaf_g, leaf_h, leaf_c = (torch.zeros(L, **f32) for _ in range(3))
-        leaf_g[0], leaf_h[0], leaf_c[0] = g0, h0, c0
-        active = torch.zeros(L, dtype=torch.bool, device=dev)
-        # a Python scalar written into a device tensor: a blocking copy
-        with span("sync.frontier"):
-            active[0] = True
-        parent_node = torch.full((L,), -1, dtype=torch.int64, device=dev)
-        parent_right = torch.zeros(L, dtype=torch.bool, device=dev)
-        tree = empty_tree(L, B, dev)
-        tree.leaf_value[0] = leaf_output(g0, h0, sp)
-        tree.leaf_weight[0] = h0
-        tree.leaf_count[0] = c0
-        num_leaves = 1
-        leaf_ids = [torch.zeros(s.bins_T.shape[1], dtype=torch.int32,
-                                device=s.device) for s in sh.shards]
-        leaves_iota = torch.arange(L, device=dev)
-        passes = 0
-        leaf_min = torch.full((L,), -math.inf, **f32)
-        leaf_max = torch.full((L,), math.inf, **f32)
-        forced_ptr = torch.full((L,), -1, dtype=torch.int64, device=dev)
-        if forced is not None:
-            with span("sync.forced"):
-                forced_ptr[0] = 0
-        # voting: the features each leaf's stored histograms were elected
-        # under (reference: _DWState.vote_mask)
-        vote_mask = (torch.ones((L, f), dtype=torch.bool, device=dev)
-                     if voting else None)
+        rows.front(qseed)
+        make = partial(LevelState, L, f, B, W, dev)
+        if graphed:
+            q = rows.quants[0]
+            st = graphs.state_for(
+                (gp, n, f, dev, sh.shards[0].bins_T.data_ptr(),
+                 0 if bins is None else bins.data_ptr(), num_bins.data_ptr(),
+                 na_bin.data_ptr(), q is None or q.hq is None), make, rows)
+        else:
+            st = make()
         # the root's search is the front's, and each level pass ends with
         # the search of the level it made: a search that selects no split
         # opens no pass
-        step = search(0, widths[0]) if widths and num_leaves < L else None
+        first = widths[0] if widths and L > 1 else None
+        if graphed:
+            root = partial(begin_tree, st, io, first)
+            graphs.run(("root", first), root, root)
+        else:
+            begin_tree(st, io, first)
+        count = _read_count(st) if first is not None else 0
 
-    for lvl in range(len(widths)):
-        if step is None:
+    leaves, passes = 1, 0
+    for lvl, width in enumerate(widths):
+        if count == 0:
             break
-        res, okf, sel, si, idx_in_lvl = step
-        num_sel = int(si.shape[0])
-        if num_sel == 0:
-            break
+        leaves += count
+        nxt = (widths[lvl + 1] if lvl + 1 < len(widths) and leaves < L
+               else None)
         with span("grow.pass"):
-            with span("pass.apply"):
-                new_leaf = num_leaves + idx_in_lvl
-                nid, nl = (num_leaves - 1 + idx_in_lvl)[si], new_leaf[si]
-                (lg, lh, lc), (rg, rh, rc), (w_l, w_r, w_p) = split_outputs(
-                    res, leaf_g, leaf_h, leaf_c, leaf_min, leaf_max, sp)
-                apply_level_to_tree(tree, parent_node, parent_right, res, si,
-                                    nid, nl, (lg, lh, lc), (rg, rh, rc),
-                                    (w_l, w_r, w_p), sp)
-                cat_sel = _membership_leaves(res, sel, sp)
+            passes += 1
+            if not graphed:
+                count = level_pass(st, io, lvl, width, nxt, count)
+                continue
+            graphs.run(
+                (width, nxt),
+                partial(level_pass, st, io, lvl, width, nxt, count,
+                        read=False),
+                partial(level_pass, st, io, lvl, width, nxt, count,
+                        _no_phase, read=False), "pass.replay")
+            count = _read_count(st) if nxt is not None else 0
 
-                # ---- CEGB bookkeeping: a split marks its column used, and
-                # every in-bag row of the split leaf paid for it ----
-                if cegb is not None and sp.cegb_coupled:
-                    with span("sync.cegb"):
-                        cegb.feature_used[res.feature[si]] = True
-                if cegb is not None and sp.cegb_lazy:
-                    f_leaf = torch.where(sel, res.feature,
-                                         torch.full_like(res.feature, -1))
-                    for s, lid in zip(sh.shards, leaf_ids):
-                        f_row = f_leaf.to(s.device)[lid.to(torch.int64)]
-                        pay = (f_row >= 0) & (s.c > 0)
-                        # each row's one cell OR-ed with its flag: no host
-                        # read of how many rows paid
-                        rows = torch.arange(f_row.shape[0], device=s.device)
-                        col = f_row.clamp(min=0)
-                        s.data_used[rows, col] = \
-                            s.data_used[rows, col] | pay
-
-                # ---- route tables of the child histogram pass: one slot
-                # per selected leaf (in leaf order) for the smaller child,
-                # the larger child the parent minus the smaller; under
-                # voting both children, in slots 2i and 2i + 1 ----
-                small_is_left = lc <= rc
-                if voting:
-                    s_pass = 2 * num_sel
-                    none = torch.full_like(idx_in_lvl, s_pass)
-                    slot_l = torch.where(sel, 2 * idx_in_lvl, none)
-                    slot_r = torch.where(sel, 2 * idx_in_lvl + 1, none)
-                else:
-                    s_pass = num_sel
-                    sentinel = torch.full_like(idx_in_lvl, num_sel)
-                    slot_l = torch.where(sel & small_is_left, idx_in_lvl,
-                                         sentinel)
-                    slot_r = torch.where(sel & ~small_is_left, idx_in_lvl,
-                                         sentinel)
-                tables = H.RouteTables(
-                    feat=torch.where(sel, res.feature,
-                                     torch.full_like(res.feature, -1)),
-                    thr=res.bin, dleft=res.default_left.to(torch.int32),
-                    new_leaf=new_leaf, slot_left=slot_l, slot_right=slot_r,
-                    # a level with a categorical or bundle split routes by
-                    # membership (reference: grow_depthwise.py:521-524);
-                    # others pass no bitset
-                    is_cat=cat_sel,
-                    member=(None if cat_sel is None
-                            else res.cat_member & sel[:, None]))
-
-            # ---- route + child histogram pass, each shard its own rows,
-            # and the siblings by subtraction ----
-            with span("pass.hist"):
-                parts = []
-                for i, s in enumerate(sh.shards):
-                    if fp_tiles is not None:
-                        hp, leaf_ids[i] = fp_tiles.routed(
-                            leaf_ids[i], tables, na_of[i], s_pass, B)
-                        parts.append(hp)
-                        continue
-                    hp, leaf_ids[i] = H.hist_routed(
-                        s.bins_T, leaf_ids[i], _tables_on(tables, s.device),
-                        na_of[i], s_pass, B, quants[i], s.rows, s.bins)
-                    parts.append(hp)
-                passes += 1
-                if voting:
-                    hist_pass, elected = voting_exchange(
-                        parts, sh, num_bins, na_bin, sp, gp)
-                    hist[si] = hist_pass[0::2]
-                    hist[nl] = hist_pass[1::2]
-                    # only the leaves whose histograms were replaced narrow
-                    # to the new election
-                    vote_mask[si] = elected
-                    vote_mask[nl] = elected
-                else:
-                    hist_pass = _hist_allreduce(parts, gp, 2, fdev)
-                    parent_hist = hist[si]
-                    hist_sib = parent_hist - hist_pass
-                    sl = small_is_left[si][:, None, None, None]
-                    hist[si] = torch.where(sl, hist_pass, hist_sib)
-                    hist[nl] = torch.where(sl, hist_sib, hist_pass)
-
-            with span("pass.apply"):
-                # ---- monotone bounds and forced pointers of the children
-                if sp.has_monotone:
-                    lo_l, hi_l, lo_r, hi_r = monotone_child_bounds(
-                        sp, f, res.is_cat[si], res.feature[si], w_l[si],
-                        w_r[si], leaf_min[si], leaf_max[si])
-                    leaf_min[si], leaf_max[si] = lo_l, hi_l
-                    leaf_min[nl], leaf_max[nl] = lo_r, hi_r
-                if forced is not None:
-                    fp = torch.clamp(forced_ptr, min=0)
-                    none = torch.full_like(forced_ptr, -1)
-                    nxt_l = torch.where(okf, forced.left[fp], none)[si]
-                    nxt_r = torch.where(okf, forced.right[fp], none)[si]
-                    forced_ptr[si] = nxt_l
-                    forced_ptr[nl] = nxt_r
-
-                # ---- per-leaf stats / frontier ----
-                for arr, left, right in ((leaf_g, lg, rg), (leaf_h, lh, rh),
-                                         (leaf_c, lc, rc)):
-                    arr[si] = left[si]
-                    arr[nl] = right[si]
-                active = sel.clone()
-                # three Python scalars written into device tensors: each
-                # a blocking copy
-                with span("sync.frontier"):
-                    active[nl] = True
-                parent_node[si] = nid
-                parent_node[nl] = nid
-                with span("sync.frontier"):
-                    parent_right[si] = False
-                with span("sync.frontier"):
-                    parent_right[nl] = True
-                num_leaves += num_sel
-
-            step = None
-            if lvl + 1 < len(widths) and num_leaves < L:
-                with span("pass.search"):
-                    step = search(lvl + 1, widths[lvl + 1])
-
-    out_ids = leaf_ids if shards is not None else leaf_ids[0]
+    tree = trim_tree(st.tree, L, leaves)
+    lids = [lid.clone() for lid in rows.leaf_ids]
+    out_ids = lids if shards is not None else lids[0]
     if not gp.quant:
-        return tree._replace(num_leaves=num_leaves), out_ids, passes
+        return tree, out_ids, passes
     # ---- leaf renewal from exact sums (quantized-training: splits
-    # tolerate int8 gains, leaf outputs use exact sums), each shard's rows
-    # summed ----
+    # tolerate int8 gains, leaf outputs use exact sums) ----
     with span("grow.leaf_renew"):
-        sums = _psum([K.leaf_sums_grad(*s.fused, lid, spec, L) if use_fused
-                      else K.leaf_sums(s.g, s.h, s.c, lid, L)
-                      for s, lid in zip(sh.shards, leaf_ids)], gp)
-        eg, eh, ec = sums[0], sums[1], sums[2]
-        w = leaf_output(eg, eh, sp)
+        sums = rows.leaf_sums(lids, L)
+        w = leaf_output(sums[0], sums[1], sp)
         if sp.has_monotone:
-            w = torch.clamp(w, leaf_min, leaf_max)
-        live = leaves_iota < num_leaves
+            w = torch.clamp(w, st.leaf_min[:L], st.leaf_max[:L])
+        live = torch.arange(L, device=dev) < leaves
         tree = tree._replace(
             leaf_value=torch.where(live, w, tree.leaf_value),
-            leaf_weight=torch.where(live, eh, tree.leaf_weight),
-            leaf_count=torch.where(live, ec, tree.leaf_count),
-            num_leaves=num_leaves)
+            leaf_weight=torch.where(live, sums[1], tree.leaf_weight),
+            leaf_count=torch.where(live, sums[2], tree.leaf_count))
     return tree, out_ids, passes
 
 
@@ -1197,10 +1031,14 @@ def grow_tree_depthwise_lean(bins_T: torch.Tensor, g: torch.Tensor,
     renewal under ``gp.quant``); at the root and after each level's
     ``route_level`` (one a level, full width, 2S slots, its counts handed
     to every tile), ``hist_q8`` (``gp.quant``) or ``hist_f32`` once a
-    tile. The host syncs of a level are the default grower's. Not
-    combined with CEGB, forced splits, feature_fraction_bynode or
-    extra_trees (GBDT keeps the default grower then). Returns (TreeArrays,
-    leaf_id [N] i32, number of level passes).
+    tile. A level reads the host for its selection (``select_level``),
+    and for the membership with categorical features or bundles; its tree
+    update and frontier are written on the card, as the default grower's
+    (``apply_level_fixed``, into trash rows for the parent pointers of the
+    slots that have none). Not combined with CEGB, forced splits,
+    feature_fraction_bynode or extra_trees (GBDT keeps the default grower
+    then). Returns (TreeArrays, leaf_id [N] i32, number of level
+    passes).
 
     ``shards`` (data-parallel, reference: :811-852, :1010): the rows as
     ``ShardedRows``; each shard routes, measures each tile and sums its
@@ -1277,14 +1115,15 @@ def grow_tree_depthwise_lean(bins_T: torch.Tensor, g: torch.Tensor,
         leaf_g, leaf_h, leaf_c = (torch.zeros(L, **f32) for _ in range(3))
         leaf_g[0], leaf_h[0], leaf_c[0] = g0, h0, c0
         active = torch.zeros(L, dtype=torch.bool, device=dev)
-        # a Python scalar written into a device tensor: a blocking copy
-        with span("sync.frontier"):
-            active[0] = True
+        active[:1].fill_(True)
         parent_node = torch.full((L,), -1, dtype=torch.int64, device=dev)
         parent_right = torch.zeros(L, dtype=torch.bool, device=dev)
         leaf_min = torch.full((L,), -math.inf, **f32)
         leaf_max = torch.full((L,), math.inf, **f32)
-        tree = empty_tree(L, B, dev)
+        # a trash row a slot for the tree update's parent pointers
+        W = max(widths, default=1)
+        tree = empty_tree(L, B, dev, spare=W)
+        trash_node = max(L - 1, 1) + torch.arange(W, device=dev)
         tree.leaf_value[0] = leaf_output(g0, h0, sp)
         tree.leaf_weight[0] = h0
         tree.leaf_count[0] = c0
@@ -1308,9 +1147,11 @@ def grow_tree_depthwise_lean(bins_T: torch.Tensor, g: torch.Tensor,
                 nid, nl = (num_leaves - 1 + idx_in_lvl)[si], new_leaf[si]
                 (lg, lh, lc), (rg, rh, rc), (w_l, w_r, w_p) = split_outputs(
                     rec, leaf_g, leaf_h, leaf_c, leaf_min, leaf_max, sp)
-                apply_level_to_tree(tree, parent_node, parent_right, rec, si,
-                                    nid, nl, (lg, lh, lc), (rg, rh, rc),
-                                    (w_l, w_r, w_p), sp)
+                apply_level_fixed(tree, parent_node, parent_right, rec, si,
+                                  nid, nl,
+                                  torch.ones_like(si, dtype=torch.bool),
+                                  trash_node[:num_sel], (lg, lh, lc),
+                                  (rg, rh, rc), (w_l, w_r, w_p), sp)
                 cat_sel = _membership_leaves(rec, sel, sp)
 
                 # ---- route tables: both children measured, split i's in
@@ -1351,16 +1192,11 @@ def grow_tree_depthwise_lean(bins_T: torch.Tensor, g: torch.Tensor,
                     arr[si] = left[si]
                     arr[nl] = right[si]
                 active = sel.clone()
-                # three Python scalars written into device tensors: each
-                # a blocking copy
-                with span("sync.frontier"):
-                    active[nl] = True
+                active.index_fill_(0, nl, True)
                 parent_node[si] = nid
                 parent_node[nl] = nid
-                with span("sync.frontier"):
-                    parent_right[si] = False
-                with span("sync.frontier"):
-                    parent_right[nl] = True
+                parent_right.index_fill_(0, si, False)
+                parent_right.index_fill_(0, nl, True)
                 num_leaves += num_sel
                 slot_leaf = torch.stack([si, nl], dim=1).reshape(s_pass)
 
@@ -1378,8 +1214,9 @@ def grow_tree_depthwise_lean(bins_T: torch.Tensor, g: torch.Tensor,
                                         widths[lvl + 1])
 
     out_ids = leaf_ids if shards is not None else leaf_ids[0]
+    tree = trim_tree(tree, L, num_leaves)
     if not gp.quant:
-        return tree._replace(num_leaves=num_leaves), out_ids, passes
+        return tree, out_ids, passes
     # ---- leaf renewal from exact sums, as the default grower ----
     with span("grow.leaf_renew"):
         sums = _psum([K.leaf_sums(s.g, s.h, s.c, lid, L)
@@ -1391,6 +1228,5 @@ def grow_tree_depthwise_lean(bins_T: torch.Tensor, g: torch.Tensor,
         tree = tree._replace(
             leaf_value=torch.where(live, w, tree.leaf_value),
             leaf_weight=torch.where(live, sums[1], tree.leaf_weight),
-            leaf_count=torch.where(live, sums[2], tree.leaf_count),
-            num_leaves=num_leaves)
+            leaf_count=torch.where(live, sums[2], tree.leaf_count))
     return tree, out_ids, passes

@@ -8,7 +8,10 @@ with the same kernels as the serial grower, the shards' histograms are
 summed (``ops/grow.py`` ``_hist_allreduce``, the reference's ``psum``
 inside ``shard_map``) and the split search runs once on the sums, which
 replaces the reference's ``SyncUpGlobalBestSplit``: every shard would
-see the same sums, so no second collective is needed.
+see the same sums, so no second collective is needed. The depthwise
+growers run the serial grower's level pass over the shards
+(``ops/grow_depthwise.py`` ``LevelRows``), which sums only the slots a
+level fills.
 """
 from __future__ import annotations
 

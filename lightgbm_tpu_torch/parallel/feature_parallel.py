@@ -7,9 +7,10 @@ feature_parallel_tree_learner.cpp): every device holds all the rows and
 builds the histograms of its own feature tile; the best split is elected
 across the tiles. The reference lays its arrays out sharded over a
 ``feature`` mesh axis and lets XLA partition the one jitted grower. Here
-the depthwise grower takes the tiles (``FeatureTiles``): each level's rows
-are routed once (``route_level`` on the first device, which holds the
-whole bin matrix), and each tile's f32 histograms come from ``hist_f32``
+the depthwise grower's level pass measures through the tiles
+(``FeatureTiles``, held by ``ops/grow_depthwise.py`` ``LevelRows``):
+each level's rows are routed once (``route_level`` on the first device,
+which holds the whole bin matrix), and each tile's f32 histograms come from ``hist_f32``
 on its device over the tile's columns, handed the route's slot vector and
 counts. The tiles' histograms are gathered in feature order on the first
 device, where one split search over the whole feature axis takes the

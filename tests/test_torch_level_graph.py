@@ -1,15 +1,15 @@
 """The serial depthwise level pass at a fixed slot width, and its CUDA graph.
 
-On the CPU: the fixed-width pass (``ops/grow_depthwise.py``
-``level_pass``) grows the same trees as the pass sized by each level's
-selected count, byte for byte in the model text, on the benchmark cells'
-paths (max_bin 63 on the fused front, 255 on the unfused one, bagged
-with feature_fraction) under L2 and under ``max_depth`` 4, at 20,000
-rows. The reference is the grower's sharded loop on one shard, which
-keeps the count-sized pass: on one shard it is the serial grower as it
-was before the fixed-width pass. A level that selects nothing leaves
-every live array as it was. ``capture_engages`` takes only the device
-and the pass's host-fed inputs.
+On the CPU: the level pass (``ops/grow_depthwise.py`` ``level_pass``)
+measuring one row shard through the data-parallel learner
+(``LevelRows`` over a one-shard plan: the front, the exchange and the
+leaf sums of the sharded path) grows the serial grower's trees, byte
+for byte in the model text, on the benchmark cells' paths (max_bin 63
+on the fused front, 255 on the unfused one, bagged with
+feature_fraction) under L2 and under ``max_depth`` 4, at 20,000 rows. A
+level that selects nothing leaves every live array as it was.
+``capture_engages`` takes only the device and the pass's host-fed
+inputs.
 
 On the card (marker ``cuda``, no JAX imported, so this file also runs
 with ``--noconftest``): the graphed grower gives the model text of the
@@ -26,13 +26,11 @@ import pytest
 import torch
 
 import lightgbm_tpu_torch as lt
-from lightgbm_tpu_torch.models import gbdt as gbdt_mod
 from lightgbm_tpu_torch.ops import grow_depthwise as gd
 from lightgbm_tpu_torch.ops import hist_kernels as K
-from lightgbm_tpu_torch.ops import histogram as H
-from lightgbm_tpu_torch.ops.grow import (GrowParams, RowShard, ShardedRows,
-                                         as_sharded)
+from lightgbm_tpu_torch.ops.grow import GrowParams, as_sharded
 from lightgbm_tpu_torch.ops.split import SplitParams
+from lightgbm_tpu_torch.parallel.mesh import RowShardPlan, make_mesh
 
 # six pytest workers share the box's cores: each test process keeps one
 # intra-op thread
@@ -61,37 +59,31 @@ def _higgs_rows(n, seed):
     return X, y
 
 
-def _count_sized(bins_T, g, h, c, num_bins, na_bin, fmask, gp, qseed=0,
-                 fused=None, bins=None, bundle=None, forced=None, cegb=None,
-                 graphs=None):
-    """The grower's pass sized by each level's selected count: its
-    sharded loop, on the rows as one shard."""
-    shards = ShardedRows([RowShard(bins_T, bins, g, h, c, fused,
-                                   None if cegb is None else cegb.data_used)])
-    tree, lids, passes = gd.grow_tree_depthwise(
-        bins_T, None, None, None, num_bins, na_bin, fmask, gp, qseed=qseed,
-        bundle=bundle, forced=forced, cegb=cegb, shards=shards)
-    return tree, lids[0], passes
-
-
-def _train(params, X, y, rounds):
-    ds = lt.Dataset(X, label=y, params=params)
-    return lt.train(params, ds, rounds)
+def _train(params, X, y, rounds, one_shard=False):
+    """A model trained serially, or by the data-parallel learner over a
+    one-shard plan of the rows (``grow_tree_dp`` on a one-device mesh)."""
+    ds = lt.Dataset(X, label=y, params=params).construct()
+    if one_shard:
+        n = ds.num_data
+        ds._set_shards(RowShardPlan(mesh=make_mesh(1), axis_name="data",
+                                    num_shards=1, n_rows=n,
+                                    rows_per_shard=n))
+    bst = lt.train(params, ds, rounds)
+    assert bst._gbdt._dp == one_shard
+    return bst
 
 
 @pytest.mark.parametrize("setting", sorted(SETTINGS))
 @pytest.mark.parametrize("path", sorted(PATHS))
-def test_fixed_width_pass_grows_the_count_sized_trees(path, setting,
-                                                      monkeypatch):
+def test_one_shard_measurement_is_the_serial_pass(path, setting):
     params = {**BASE, **PATHS[path], **SETTINGS[setting],
               "device_type": "cpu"}
     X, y = _higgs_rows(20_000, 3)
-    fixed = _train(params, X, y, 2)
-    monkeypatch.setattr(gbdt_mod, "grow_tree_depthwise", _count_sized)
-    sized = _train(params, X, y, 2)
-    assert fixed.model_to_string() == sized.model_to_string()
-    assert fixed._gbdt.hist_passes == sized._gbdt.hist_passes
-    assert sum(fixed._gbdt.hist_passes) >= 6
+    serial = _train(params, X, y, 2)
+    sharded = _train(params, X, y, 2, one_shard=True)
+    assert serial.model_to_string() == sharded.model_to_string()
+    assert serial._gbdt.hist_passes == sharded._gbdt.hist_passes
+    assert sum(serial._gbdt.hist_passes) >= 6
 
 
 def _full_tree_state():
@@ -108,29 +100,33 @@ def _full_tree_state():
     c = torch.ones(n)
     gp = GrowParams(num_leaves=4, max_bin=B, quant=True,
                     split=SplitParams(min_data_in_leaf=1))
-    quant = H.make_quant(g, h, c, 0)
-    hist0 = H.hist_leaf(bins_T, B, quant)
     widths = gd.level_widths(4, 3)
-    st = gd.LevelState(4, f, B, n, max(widths), bins_T.device)
-    st.bind(hist0, quant, (g, h, c), torch.ones(f, dtype=torch.bool))
-    io = gd.PassIO(gp, bins_T, bins, ds.num_bins_dev, ds.na_bin_dev, None,
-                   None, None, as_sharded(None, bins_T, bins, g, h, c), 0)
+    rows = gd.LevelRows(as_sharded(None, bins_T, bins, g, h, c),
+                        torch.ones(f, dtype=torch.bool), ds.num_bins_dev,
+                        ds.na_bin_dev, gp, max(widths))
+    rows.front(0)
+    st = gd.LevelState(4, f, B, max(widths), bins_T.device)
+    io = gd.PassIO(gp, ds.num_bins_dev, ds.na_bin_dev, None, None, None, 0,
+                   rows)
     gd.begin_tree(st, io, widths[0])
     count, lvl = int(st.count), 0
     while count:
-        count = gd.level_pass(st, io, lvl, widths[lvl], widths[lvl + 1])
+        count = gd.level_pass(st, io, lvl, widths[lvl], widths[lvl + 1],
+                              count)
         lvl += 1
     return st, io, lvl, widths
 
 
-def _live(st):
+def _live(st, rows):
     """Every array of the state that a search or the tree reads: the first
-    L rows of the per-leaf arrays, the first L - 1 of the per-node ones."""
+    L rows of the per-leaf arrays, the first L - 1 of the per-node ones,
+    and the rows' leaf ids."""
     L, m = st.L, st.m
     out = {k: v[:L].clone() for k, v in vars(st).items()
            if isinstance(v, torch.Tensor) and v.dim() >= 1
-           and k not in ("leaf_id", "slots")}
-    out.update({"leaf_id": st.leaf_id.clone(), "count": st.count.clone(),
+           and k != "slots"}
+    out.update({"leaf_id": rows.leaf_ids[0].clone(),
+                "count": st.count.clone(),
                 "num_leaves": st.num_leaves.clone()})
     out.update({f"res.{k}": v[:L].clone()
                 for k, v in st.res._asdict().items()})
@@ -144,10 +140,10 @@ def test_a_level_that_selects_nothing_changes_nothing(search):
     """With and without the next level's search at the pass's end."""
     st, io, lvl, widths = _full_tree_state()
     assert int(st.num_leaves) == 4 and int(st.count) == 0
-    before = _live(st)
+    before = _live(st, io.rows)
     nxt = widths[-1] if search else None
-    assert gd.level_pass(st, io, lvl, widths[-1], nxt) == 0
-    after = _live(st)
+    assert gd.level_pass(st, io, lvl, widths[-1], nxt, 0) == 0
+    after = _live(st, io.rows)
     for k, v in before.items():
         assert torch.equal(v, after[k]), k
 

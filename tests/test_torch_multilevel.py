@@ -11,9 +11,9 @@ the reference's kernel in interpret mode bit for bit, histograms and final
 leaf ids, with 3 channels, with 2 (const-hessian elision) and with one
 level's tables categorical; and the one call equals D sequential
 ``hist_routed_fused`` calls of the port. The replay of a live tree's
-levels, each with its own slot width, equals the grower's own level
-passes (the count-sized passes of its sharded loop on one shard: the
-serial grower runs every pass at the schedule's width).
+levels, each at its own slot width (the slots its route tables fill),
+equals the serial grower's own level passes, which run at the
+schedule's width with the slots past the level's count empty.
 ``scripts/torch_profile_level.py`` reports bit-identity against
 the sequential passes on the CPU. The kernel itself needs the card
 (tests/test_torch_cuda.py, chip_smoke.py phase 3).
@@ -32,11 +32,8 @@ import jax.numpy as jnp
 from lightgbm_tpu.ops import histogram as hg
 from lightgbm_tpu.ops import pallas_hist as ph
 import lightgbm_tpu_torch as lt
-from lightgbm_tpu_torch.models import gbdt as gbdt_mod
-from lightgbm_tpu_torch.ops import grow_depthwise as gd
 from lightgbm_tpu_torch.ops import histogram as H
 from lightgbm_tpu_torch.ops import hist_kernels as hk
-from lightgbm_tpu_torch.ops.grow import RowShard, ShardedRows
 
 # six pytest workers share the box's cores: with torch's default of
 # one intra-op thread a core, their OpenMP threads spin against each
@@ -158,12 +155,13 @@ def test_one_call_equals_sequential_level_passes(rows, case):
 
 def test_replay_of_a_live_tree_with_its_own_slot_widths(rows):
     """The route tables of a grown tree's first three level passes,
-    recorded from the grower's count-sized passes (its sharded loop on one
-    shard), replayed in one call from the root's leaf
-    ids with each level's own slot width: each band's first S_d slots
-    equal the live pass's histogram, the rest are zero (a level drops the
-    slots past its own width: the larger children's sentinel), and the
-    final leaf ids equal the third pass's."""
+    recorded from the serial grower's passes run uncaptured (each at the
+    schedule's width, its slots past the level's count empty), replayed in
+    one call from the root's leaf ids with each level's own slot width,
+    the S_d slots its tables fill: each band's first S_d slots equal the
+    live pass's histogram, the rest are zero (a level drops the slots
+    past its own width: the larger children's sentinel), and the final
+    leaf ids equal the third pass's."""
     X = rows["bins"].astype(np.float64) + 0.5
     y = rows["g"].astype(np.float64)
     p = {"objective": "regression", "num_leaves": 31, "max_bin": B,
@@ -182,20 +180,16 @@ def test_replay_of_a_live_tree_with_its_own_slot_widths(rows):
                num_bins, bins=None, catbits=None):
         out = orig_routed(bins_T, gq, hq, cq, leaf_id, tables, na_bin,
                           num_slots, num_bins, bins, catbits)
-        live.append((leaf_id.clone(), tables.clone(), num_slots, out))
+        # the level's own width: the slots of its selected leaves
+        s = int((tables[0] >= 0).sum())
+        assert not out[0][s:].any()
+        live.append((leaf_id.clone(), tables.clone(), s,
+                     (out[0][:s], out[1])))
         seen["num_bins"] = num_bins
         return out
-    def count_sized(bins_T, g, h, c, num_bins, na_bin, fmask, gp, qseed=0,
-                    fused=None, bins=None, **kw):
-        tree, lids, passes = gd.grow_tree_depthwise(
-            bins_T, None, None, None, num_bins, na_bin, fmask, gp,
-            qseed=qseed, shards=ShardedRows([RowShard(bins_T, bins, g, h, c,
-                                                      fused)]))
-        return tree, lids[0], passes
     mp = pytest.MonkeyPatch()
     mp.setattr(hk, "hist_routed_fused", routed)
     mp.setattr(hk, "grad_quant_hist0", front)
-    mp.setattr(gbdt_mod, "grow_tree_depthwise", count_sized)
     try:
         bst = lt.Booster(params=p, train_set=ds)
         bst.update()

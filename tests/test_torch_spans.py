@@ -27,6 +27,8 @@ import torch
 import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch import obs
 from lightgbm_tpu_torch.obs import tracing
+from lightgbm_tpu_torch.ops import grow_depthwise as gd
+from lightgbm_tpu_torch.parallel.mesh import virtual_devices
 from lightgbm_tpu_torch.utils.timer import TIMER
 
 # six pytest workers share the box's cores: each test process keeps one
@@ -56,7 +58,7 @@ PARENTS = {
     "iter.score_update": {"boosting"},
     "sync.select": {"pass.search", "grow.front", "grow.pass"},
     "sync.step": {"pass.search", "grow.front"},
-    "sync.apply": {"pass.apply"}, "sync.finite": {"boosting"},
+    "sync.finite": {"boosting"},
     "sync.shrink": {"iter.score_update"},
     "sync.route": {"iter.score_update"}, "sync.metric": {"eval"},
     "sync.init_score": {"boosting"}, "sync.column_mask": {"iter.sample"},
@@ -177,8 +179,40 @@ def test_spans_nest_as_the_program_nests_them(params):
         assert min(_inside(events, "grow.pass", ph)) >= 1
 
 
-def test_each_depthwise_search_holds_one_selection_read():
-    _, events = _profiled(DEPTHWISE)
+@pytest.mark.parametrize("shards", [1, 2])
+def test_each_depthwise_search_holds_one_selection_read(shards,
+                                                        monkeypatch):
+    """On one shard and on two (the data-parallel learner), whose pass
+    sums the shards' histograms over the slots the level fills, not its
+    width."""
+    measured, exchanged = [], []
+    real_measure, real_exchange = gd.LevelRows.measure, gd._hist_allreduce
+
+    def measure(self, tables, slots, used, si, nl):
+        measured.append(slots)
+        return real_measure(self, tables, slots, used, si, nl)
+
+    def exchange(parts, gp, f_dim, *a):
+        if f_dim == 2:
+            exchanged.append(parts[0].shape[0])
+        return real_exchange(parts, gp, f_dim, *a)
+
+    monkeypatch.setattr(gd.LevelRows, "measure", measure)
+    monkeypatch.setattr(gd, "_hist_allreduce", exchange)
+    with virtual_devices(shards, "cpu"):
+        bst, events = _profiled({**DEPTHWISE, "tree_learner": "data"})
+    assert bst._gbdt._dp == (shards > 1)
+    if shards == 1:
+        assert not exchanged
+    else:
+        # one exchange a pass, of the level's selected count: the root's
+        # one split first, each tree's counts summing to its splits
+        assert len(exchanged) == len(measured) == sum(bst._gbdt.hist_passes)
+        assert exchanged[0] == 1 and any(
+            e < w for e, w in zip(exchanged, measured))
+        assert all(e <= w for e, w in zip(exchanged, measured))
+        assert sum(exchanged) == sum(t.num_leaves - 1
+                                     for t in bst._host_trees())
     per_search = _inside(events, "pass.search", "sync.select")
     assert per_search and set(per_search) == {1}
     # the root's selection is the front's, one a tree
