@@ -11,7 +11,7 @@ measured):
 
 1. card: the GPU's name and power limit (nvidia-smi), torch and CUDA
    versions;
-2. build: the nine Hopper kernels are compiled from lightgbm_tpu_torch/csrc
+2. build: the ten Hopper kernels are compiled from lightgbm_tpu_torch/csrc
    by nvcc into one library (ops/cuda_lib.py), and the build time printed;
 3. kernels: each kernel's wrapper runs on the card at the main paths'
    shapes and is held against its plain PyTorch version on the same
@@ -836,7 +836,7 @@ def cli_path(launches_all, card: str) -> dict:
     if resumed.current_iteration != 8:
         fail(f"kill and resume ended at {resumed.current_iteration}")
     own = ("grad_quant_hist0", "hist_routed_fused", "leaf_sums_grad",
-           "take_small")
+           "take_small", "split_search")
     if min(launches[k] for k in own) <= 0 or any(
             v for k, v in launches.items() if k not in own):
         fail(f"kill and resume: launches {launches} off the fused front")
@@ -1005,7 +1005,8 @@ int main(int argc, char** argv) {
         counts[policy] = (b_.num_trees(), bool(torch.isfinite(sc).all()))
     torch.cuda.synchronize()
     launches = dict(hk.LAUNCHES)
-    own = ("hist_q8", "hist_routed_fused", "leaf_sums", "take_small")
+    own = ("hist_q8", "hist_routed_fused", "leaf_sums", "take_small",
+           "split_search")
     print(f"{tag} non-finite policies, a custom objective NaN on {NF_ROWS} "
           f"rows at iteration 2 of 5: {counts}; launches {launches}")
     if not str(counts["fatal"]).startswith("raised: custom objective "
@@ -1121,11 +1122,19 @@ def telemetry_path(ds, launches_all, card: str) -> dict:
         fail(f"{tag}: level passes {resumed._gbdt.hist_passes} against the "
              f"off run's {passes}")
     trees = 5 + 2 + 6
+    gp = off._gbdt.gp
+    leaves = [t.num_leaves for t in off._gbdt.models_dev]
+
+    def searches(lo, hi):
+        return tree_searches(passes[lo:hi], leaves[lo:hi], gp.num_leaves,
+                             gp.max_depth)
     expected = {k: 0 for k in hk.KERNELS}
     expected.update(grad_quant_hist0=trees, leaf_sums_grad=trees,
                     take_small=trees,
                     hist_routed_fused=sum(passes[:5]) + sum(passes[4:])
-                    + sum(passes))
+                    + sum(passes),
+                    split_search=searches(0, 5) + searches(4, 6)
+                    + searches(0, 6))
     print(f"{tag} launches {launches} expected {expected}")
     if launches != expected:
         fail(f"{tag}: launch counts {launches} != expected {expected}")
@@ -1450,7 +1459,8 @@ def serve_path(X, y, launches_all, card: str) -> dict:
     expected.update(grad_quant_hist0=len(passes),
                     leaf_sums_grad=len(passes),
                     hist_routed_fused=sum(passes),
-                    take_small=bst.num_trees())
+                    take_small=bst.num_trees(),
+                    split_search=split_searches(bst))
     print(f"{tag} train 100 iterations: {sec['train_100_s']:.3f} s "
           f"({sec['train_100_s'] / 100:.4f} s/iter), prewarm adopted "
           f"{bst._gbdt.prewarm_adopted}, launches {launches} expected "
@@ -1976,7 +1986,8 @@ def online_path(X, y, launches_all, card: str,
     expected = {k: 0 for k in hk.KERNELS}
     expected.update(grad_quant_hist0=4, leaf_sums_grad=4,
                     hist_routed_fused=sum(passes),
-                    take_small=4 + b1.num_trees())
+                    take_small=4 + b1.num_trees(),
+                    split_search=split_searches(delta))
     print(f"{tag} the cycle's model text equals the offline continuation "
           f"byte for byte ({len(v2_text)} bytes, {tr.booster.num_trees()} "
           f"trees), the appended bins the window's construct bit for bit; "
@@ -2297,7 +2308,7 @@ def mesh_path(X, y, launches_all, card: str,
         dt = time.perf_counter() - t
         got = dict(hk.LAUNCHES)
         want = {n: 0 for n in hk.KERNELS}
-        want.update(expect(out))
+        want.update(split_search=split_searches(out), **expect(out))
         if cuda and got != want:
             fail(f"{what}: launch counts {got} != expected {want}")
         for n, v in got.items():
@@ -2671,6 +2682,48 @@ POD_RANKS = 2
 POD_RANK_TIMEOUT_S = 300
 
 
+def tree_searches(passes, leaves, num_leaves: int, max_depth: int) -> int:
+    """The split searches of depthwise trees of these level passes and leaf
+    counts: each tree's root search and one a level pass, but the pass
+    that spends the leaf budget or the last level (it searches no
+    more)."""
+    from lightgbm_tpu_torch.ops.grow_depthwise import level_widths
+    levels = len(level_widths(num_leaves, max_depth if max_depth > 0
+                              else max(1, num_leaves - 1)))
+    return sum(1 + p - (p > 0 and (n == num_leaves or p == levels))
+               for p, n in zip(passes, leaves))
+
+
+def split_searches(*boosters) -> int:
+    """LAUNCHES["split_search"] of these boosters' grown trees: on the card
+    a numerical-only search without a CEGB penalty (ops/split.py
+    best_split) launches S1 once; the default depthwise grower searches as
+    ``tree_searches`` counts, the leaf-wise one its root and the children
+    of every split. The lean grower (once a feature tile) is counted where
+    it runs."""
+    from lightgbm_tpu_torch.ops import split as S
+    n = 0
+    for b in boosters:
+        gb = b._gbdt
+        gp, passes = gb.gp, gb.hist_passes
+        if (not S.numerical_only(gp.split, 1 << 30)
+                or (gb.depthwise and gb.cegb is not None)):
+            continue
+        if not gb.depthwise:
+            n += len(passes) + sum(passes)
+            continue
+        if gp.lean_ft:
+            raise ValueError("split_searches: the lean grower searches once "
+                             "a feature tile; count it where it runs")
+        trees = gb.models_dev[len(gb.models_dev) - len(passes):]
+        if len(trees) != len(passes):
+            fail(f"split_searches: {len(passes)} trees grown, "
+                 f"{len(trees)} kept")
+        n += tree_searches(passes, [t.num_leaves for t in trees],
+                           gp.num_leaves, gp.max_depth)
+    return n
+
+
 def pod_worker():
     """scripts/torch_pod_worker.py as a module (its objectives and
     digests)."""
@@ -2763,15 +2816,21 @@ def pod_path(X, y, launches_all, card: str,
     def passes(j):
         return sum(j["passes"])
 
+    def searches(j):
+        return tree_searches(j["passes"], j["leaves"], j["num_leaves"],
+                             j["max_depth"])
+
     expect = {
         "u1": lambda j: dict(hist_f32=2 * (3 + passes(j)),
-                             route_level=2 * passes(j), take_small=2 * 3),
+                             route_level=2 * passes(j), take_small=2 * 3,
+                             split_search=searches(j)),
         "u2": lambda j: dict(grad_quant_hist0=2 * 5,
                              hist_routed_fused=2 * passes(j),
-                             leaf_sums_grad=2 * 5, take_small=2 * 5),
+                             leaf_sums_grad=2 * 5, take_small=2 * 5,
+                             split_search=searches(j)),
         "u3": lambda j: dict(hist_q8=2 * (2 + passes(j)),
                              route_level=2 * passes(j), leaf_sums=2 * 2,
-                             take_small=2 * 2)}
+                             take_small=2 * 2, split_search=searches(j))}
     for name, want_of in expect.items():
         js = [got[name] for got in res]
         if len({j["tree"] for j in js}) != 1 or not all(
@@ -3540,6 +3599,64 @@ def main() -> int:
     del bins_T, idx, idx_in
     torch.cuda.empty_cache()
 
+    # S1 split_search at the cells' shapes (yahoo_ltr.bin63's F 700 at
+    # B 64, higgs.bin255's F 28 at B 256, higgs.bin63's at B 64): 255
+    # leaves of random histograms, features below the padded axis, missing
+    # bins on a fifth of them, the parents from feature 0: every field bit
+    # for bit against best_split's planes, timed beside its bound (each
+    # histogram read once, one row a leaf again) and the planes
+    from lightgbm_tpu_torch.ops import split as S
+    variants = []
+    for f_, nb_ in ((700, 64), (28, 256), (28, 64)):
+        cnt = torch.randint(0, 12, (L, f_, nb_), generator=g, device=dev,
+                            dtype=torch.int64).float()
+        nbins = torch.full((f_,), nb_, dtype=torch.int32, device=dev)
+        nbins[1::3] = nb_ - 5
+        cnt[:, 1::3, nb_ - 5:] = 0.0
+        na_ = torch.full((f_,), 256, dtype=torch.int32, device=dev)
+        na_[1::5] = nbins[1::5] - 1
+        hist = torch.stack([
+            torch.randn((L, f_, nb_), generator=g, device=dev) * cnt,
+            (0.1 + 0.2 * torch.rand((L, f_, nb_), generator=g, device=dev))
+            * cnt, cnt], dim=1).contiguous()
+        pg_, ph_, pc_ = (hist[:, c, 0].sum(-1) for c in range(3))
+        fm_ = torch.ones(f_, dtype=torch.bool, device=dev)
+        allow_ = torch.ones(L, dtype=torch.bool, device=dev)
+        sp = S.SplitParams(min_data_in_leaf=1, min_sum_hessian_in_leaf=5.0)
+        args = (hist, nbins, na_, pg_, ph_, pc_, fm_, allow_, sp)
+        got = hk.split_search(*args)
+        want = S.best_split_planes(hist, nbins, na_, pg_, ph_, pc_, fm_, sp,
+                                   allow_)
+        for nm_, a, b in zip(S.SplitResult._fields, got, want):
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            if not torch.equal(a, b):
+                fail(f"split_search [{L}, 3, {f_}, {nb_}]: {nm_} differs "
+                     "from best_split's planes")
+        split = device_split(lambda: hk.split_search(*args))
+        bms, by = bound(L * 3 * f_ * nb_ * 4 + L * 3 * nb_ * 4,
+                        20 * 2 * L * f_ * nb_)
+        variants.append(dict(
+            shape=[L, 3, f_, nb_], max_abs_err=0.0,
+            ms=time_ms(lambda: hk.split_search(*args)),
+            device_ms=None if split is None else sum(split.values()),
+            device_ms_by_kernel=split,
+            plain_ms=time_ms(lambda: S.best_split_planes(
+                hist, nbins, na_, pg_, ph_, pc_, fm_, sp, allow_), reps=3),
+            bound_ms=bms, bound_by=by))
+        del cnt, hist, got, want
+    v = variants[0]
+    kernels["split_search"] = dict(
+        route="cuda", source="lightgbm_tpu_torch/csrc/split_search.cu",
+        replaces="none (lightgbm_tpu/ops/split.py:218 best_split is plain "
+                 "JAX)", max_abs_err=0.0,
+        **{k: v[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                             "bound_by")},
+        variants=variants)
+    print(f"split_search: every field of the records bit for bit the "
+          f"planes'; {variants}")
+    torch.cuda.empty_cache()
+
     # B5 / B6 at B = 256: route_level gives hist_q8 its slot vector, as on
     # the main path. Route tables: leaves 0 .. S-1 split (NA bins on ten
     # features, both missing directions), the others do not; leaf ids in
@@ -4161,8 +4278,10 @@ def main() -> int:
             datasets[max_bin] = (ds, ds_reg)
         return datasets[max_bin]
 
-    def expected_launches(path: str, trees: int, n_pass: int, added: int):
-        """(launch count of every kernel, the path's own kernels)."""
+    def expected_launches(path: str, trees: int, n_pass: int, added: int,
+                          searches: int):
+        """(launch count of every kernel, the path's own kernels);
+        ``searches`` S1's (split_searches)."""
         if path == "fused":
             exp = {"grad_quant_hist0": trees, "leaf_sums_grad": trees,
                    "hist_routed_fused": n_pass}
@@ -4179,7 +4298,9 @@ def main() -> int:
         else:
             exp = {"hist_f32": trees + n_pass}
         exp["take_small"] = added
-        return {k: exp.get(k, 0) for k in hk.KERNELS}, tuple(exp)
+        out = {k: exp.get(k, 0) for k in hk.KERNELS}
+        out["split_search"] = searches
+        return out, tuple(exp)
 
     def main_path(path: str) -> None:
         max_bin, extra, iters = PATHS[path]
@@ -4205,7 +4326,8 @@ def main() -> int:
         passes = bst._gbdt.hist_passes + reg._gbdt.hist_passes
         trees, n_pass = len(passes), sum(passes)
         added = bst.num_trees() + reg.num_trees()
-        expected, own = expected_launches(path, trees, n_pass, added)
+        expected, own = expected_launches(path, trees, n_pass, added,
+                                          split_searches(bst, reg))
         what = "splits" if path == "lossguide" else "level passes"
         print(f"{tag} train binary: {bin_s:.3f} s for {iters} iterations "
               f"({bin_s / iters:.3f} s/iter), {what} a tree "
@@ -4298,6 +4420,7 @@ def main() -> int:
         expected["hist_f32"] = (trees + sum(gb.hist_passes)
                                 + sum(gb.hist_rebuilds))
         expected["take_small"] = bst.num_trees()
+        expected["split_search"] = split_searches(bst)
         print(f"{tag} launches {launches} expected {expected}")
         if launches != expected or trees != bst.num_trees():
             fail(f"{tag}: launch counts {launches} != expected {expected}")
@@ -4457,7 +4580,8 @@ def main() -> int:
         passes = [p for b in boosters for p in b._gbdt.hist_passes]
         added = sum(b.num_trees() for b in boosters)
         expected, own = expected_launches(path, len(passes), sum(passes),
-                                          added * (1 + n_valid))
+                                          added * (1 + n_valid),
+                                          split_searches(*boosters))
         if len(passes) != added:
             fail(f"{tag}: {len(passes)} trees grown, {added} kept")
         print(f"{tag} launches {launches} expected {expected}")
@@ -4884,7 +5008,8 @@ def main() -> int:
             expected.update({hist: len(tiles) * (trees + n_pass),
                              "route_level": n_pass,
                              "leaf_sums": trees * (2 if gp.quant else 1),
-                             "take_small": 2 * bst.num_trees()})
+                             "take_small": 2 * bst.num_trees(),
+                             "split_search": len(tiles) * (trees + n_pass)})
             launches = dict(hk.LAUNCHES)
             print(f"{tag} launches {launches} expected {expected}")
             if launches != expected or trees != bst.num_trees():
@@ -4974,7 +5099,8 @@ def main() -> int:
         launches = dict(hk.LAUNCHES)
         expected, own = expected_launches("fused", len(gb.hist_passes),
                                           sum(gb.hist_passes),
-                                          bst.num_trees() + extra)
+                                          bst.num_trees() + extra,
+                                          split_searches(bst))
         print(f"{tag} launches {launches} expected {expected}")
         if launches != expected or min(launches[k] for k in own) <= 0:
             fail(f"{tag}: launch counts {launches} != expected {expected}")
@@ -5053,7 +5179,8 @@ def main() -> int:
         passes = first._gbdt.hist_passes + cont._gbdt.hist_passes
         expected, own = expected_launches(
             "fused", len(passes), sum(passes),
-            first.num_trees() + 2 * old.num_trees() + 2 * cont.num_trees())
+            first.num_trees() + 2 * old.num_trees() + 2 * cont.num_trees(),
+            split_searches(first, cont))
         print(f"{tag} continued 2 iterations in {sec:.3f} s; launches "
               f"{launches} expected {expected}")
         if launches != expected or min(launches[k] for k in own) <= 0:
@@ -5700,7 +5827,8 @@ def main() -> int:
             hk.reset_launches()
             gpu = lt.train(small, lt.Dataset(Xs, label=y8, params=small), 1)
             other = sum(v for k, v in hk.LAUNCHES.items()
-                        if k not in ("hist_f32", "route_level", "take_small"))
+                        if k not in ("hist_f32", "route_level", "take_small",
+                                     "split_search"))
             if hk.LAUNCHES["hist_f32"] < 2 or other:
                 fail(f"{path}, max_bin={max_bin}: the 4000-row model did "
                      f"not take its path ({dict(hk.LAUNCHES)})")

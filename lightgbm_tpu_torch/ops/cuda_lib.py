@@ -29,7 +29,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("grad_quant_hist0.cu", "hist_routed_fused.cu",
            "leaf_sums_grad.cu", "take_small.cu", "hist_q8.cu",
            "route_level.cu", "leaf_sums.cu", "hist_f32.cu",
-           "hist_routed_fused_multi.cu")
+           "hist_routed_fused_multi.cu", "split_search.cu")
 HEADERS = ("lgbt_common.cuh", "slot_hist.cuh", "leaf_sums.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-Xcompiler", "-fPIC",
@@ -62,6 +62,9 @@ _SIGNATURES: Dict[str, List] = {
     "lgbt_hist_routed_fused_multi": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
                                      _I, _I, _I, _I, _I, _P, _I, _I, _I, _I,
                                      _I, _I, _P, _P, _P, _I, _P, _P, _P],
+    "lgbt_split_search": [_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
+                          _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _I, _I,
+                          _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 _lock = threading.Lock()

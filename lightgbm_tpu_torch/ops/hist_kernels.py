@@ -17,7 +17,14 @@ hist_q8                  hist_pallas_q8 (:372)                           hist_q8
 route_level              route_level_pallas (:1138)                      route_level.cu
 leaf_sums                leaf_sums_pallas (:718)                         leaf_sums.cu
 hist_f32                 hist_pallas (:114), hist_leaf_pallas (:175)     hist_f32.cu
+split_search             none: lightgbm_tpu/ops/split.py best_split      split_search.cu
+                         (:218) is plain JAX
 =======================  ==============================================  ==========================
+
+``split_search`` (S1) is the numerical split search of ``ops/split.py``
+``best_split``, whose plain version is the planes
+(``split.best_split_planes``); ``best_split`` takes it on the card for a
+numerical-only search.
 
 ``hist_routed_fused_multi`` replays D levels whose route tables are all
 known (one call, each level's histogram in its own band: the reference's
@@ -49,7 +56,8 @@ and one without a slot vector; hist_routed_fused four over S > 1 slots
 hist_routed_fused_multi one route and count for its D levels, then each
 level's scan (over S > 1 slots), scatter and histogram;
 leaf_sums_grad and leaf_sums two (rows into warp tables, then a final sum
-that writes the f32 output; ``csrc/leaf_sums.cuh``).
+that writes the f32 output; ``csrc/leaf_sums.cuh``); split_search two (rows,
+elect).
 
 The quantized histograms come back as int32 channel sums ([S, nch, F, B],
 nch = 3 for (g, h, count) or 2 for (g, count) under const-hessian elision);
@@ -76,7 +84,7 @@ from . import cuda_lib
 
 KERNELS = ("grad_quant_hist0", "hist_routed_fused", "leaf_sums_grad",
            "take_small", "hist_q8", "route_level", "leaf_sums", "hist_f32",
-           "hist_routed_fused_multi")
+           "hist_routed_fused_multi", "split_search")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 # shared-memory budget of one block's private histogram (the H100 allows
@@ -88,6 +96,9 @@ LEAF_WARPS = 16
 # levels one hist_routed_fused_multi call replays
 # (csrc/hist_routed_fused_multi.cu kMaxLevels)
 MAX_LEVELS = 8
+# bin axes split_search takes (csrc/split_search.cu: G = B / 16 threads a
+# row of one warp)
+SPLIT_SEARCH_BINS = (64, 128, 256)
 
 
 # launches made by warm(), counted apart so that no path's launch contract
@@ -1058,6 +1069,85 @@ def hist_f32(bins_T: torch.Tensor, g: torch.Tensor, h: torch.Tensor,
         return hist_f32_plain(bins_T, g, h, c, slot, num_slots, num_bins)
     return _slot_hist("hist_f32", bins_T, bins, (g, h, c), slot, counts,
                       num_slots, num_bins, 3, torch.float32, 3, col0)
+
+
+def split_search(hist: torch.Tensor, num_bins: torch.Tensor,
+                 na_bin: torch.Tensor, parent_g: torch.Tensor,
+                 parent_h: torch.Tensor, parent_cnt: torch.Tensor,
+                 feature_mask: torch.Tensor, allow_split: torch.Tensor,
+                 p) -> Tuple[torch.Tensor, ...]:
+    """S1: the best numerical split of every leaf of a frontier, the fields
+    of ``split.SplitResult`` in order (gain, feature, bin, default_left,
+    left_g, left_h, left_cnt, is_cat, cat_member).
+
+    hist [L, 3, F, B] f32 with B in ``SPLIT_SEARCH_BINS``; num_bins and
+    na_bin [F] i32; parent_g/h/cnt [L] f32; feature_mask [F] or [L, F]
+    bool (any row stride, its last stride 1); allow_split [L] bool; ``p``
+    the ``split.SplitParams``, numerical only (``split.numerical_only``).
+    The plain version is ``split.best_split_planes``: the records agree
+    bit for bit (csrc/split_search.cu). Two CUDA launches (rows, elect);
+    outputs and scratch from ``torch.empty``, no host read, so a CUDA
+    graph captures it."""
+    from .split import NEG_INF, TIE_RTOL, _EPS_H, best_split_planes, \
+        numerical_only
+    dev = _device_of(hist, num_bins, na_bin, parent_g, parent_h, parent_cnt,
+                     feature_mask, allow_split)
+    if hist.dim() != 4:
+        raise ValueError(f"hist: expected [L, 3, F, B], got "
+                         f"{tuple(hist.shape)}")
+    l, f, b = hist.shape[0], hist.shape[2], hist.shape[3]
+    _check(hist, "hist", torch.float32, (l, 3, f, b))
+    _check(num_bins, "num_bins", torch.int32, (f,))
+    _check(na_bin, "na_bin", torch.int32, (f,))
+    for name, t in (("parent_g", parent_g), ("parent_h", parent_h),
+                    ("parent_cnt", parent_cnt)):
+        _check(t, name, torch.float32, (l,))
+    _check(allow_split, "allow_split", torch.bool, (l,))
+    if (feature_mask.dtype != torch.bool
+            or tuple(feature_mask.shape) not in ((f,), (l, f))):
+        raise ValueError(f"feature_mask: expected [F] or [L, F] bool, got "
+                         f"{tuple(feature_mask.shape)} {feature_mask.dtype}")
+    if b not in SPLIT_SEARCH_BINS:
+        raise ValueError(f"split_search: B {b} not in {SPLIT_SEARCH_BINS}")
+    if l < 1 or f < 1:
+        raise ValueError("split_search: an empty frontier or no column")
+    if not numerical_only(p, f):
+        raise ValueError("split_search: categorical, bundle or constrained "
+                         "split parameters take best_split's planes")
+    if dev.type == "cpu":
+        return tuple(best_split_planes(hist, num_bins, na_bin, parent_g,
+                                       parent_h, parent_cnt, feature_mask,
+                                       p, allow_split))
+    if hist.data_ptr() % 16:
+        raise ValueError("hist: must start on 16 bytes")
+    fm = feature_mask.reshape(-1, f)
+    if fm.stride(1) != 1:
+        fm = fm.contiguous()
+    fm_stride = 0 if fm.shape[0] == 1 else fm.stride(0)
+    f32 = dict(dtype=torch.float32, device=dev)
+    i64 = dict(dtype=torch.int64, device=dev)
+    b8 = dict(dtype=torch.bool, device=dev)
+    gain, left_g, left_h, left_c = (torch.empty(l, **f32) for _ in range(4))
+    feature, tbin = torch.empty(l, **i64), torch.empty(l, **i64)
+    default_left, is_cat = torch.empty(l, **b8), torch.empty(l, **b8)
+    member = torch.empty((l, b), **b8)
+    rowmax = torch.empty(l * 2 * f, **f32)
+    rc = cuda_lib.load().lgbt_split_search(
+        hist.data_ptr(), num_bins.data_ptr(), na_bin.data_ptr(),
+        parent_g.data_ptr(), parent_h.data_ptr(), parent_cnt.data_ptr(),
+        fm.data_ptr(), fm_stride, allow_split.data_ptr(), l, f, b,
+        p.lambda_l1, p.lambda_l2, p.max_delta_step,
+        float(p.min_data_in_leaf), p.min_sum_hessian_in_leaf,
+        p.min_gain_to_split, _EPS_H, TIE_RTOL, NEG_INF, NEG_INF / 2,
+        int(p.lambda_l1 > 0.0), int(p.max_delta_step > 0.0),
+        rowmax.data_ptr(), gain.data_ptr(), feature.data_ptr(),
+        tbin.data_ptr(), default_left.data_ptr(), left_g.data_ptr(),
+        left_h.data_ptr(), left_c.data_ptr(), is_cat.data_ptr(),
+        member.data_ptr(), _stream(dev))
+    cuda_lib.check(rc, "split_search")
+    _count("split_search")
+    return (gain, feature, tbin, default_left, left_g, left_h, left_c, is_cat,
+            member)
 
 
 def warm(names: Sequence[str], device: torch.device, num_bins: int = 64,

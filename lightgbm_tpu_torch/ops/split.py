@@ -31,7 +31,11 @@ leaf's split, so the lowest flat index wins a tie as in the reference.
 
 Every f32 operation is the reference's, in its order; the bin-axis prefix
 sums use the reference's summation order (``scan.blocked_cumsum``), so on
-the same histograms the split records agree bit for bit. The reference
+the same histograms the split records agree bit for bit. On the card a
+numerical-only search runs the kernel pair S1 (``csrc/split_search.cu``,
+``hist_kernels.split_search``), which replays these planes' arithmetic
+and election on each histogram read once; ``best_split_planes`` is its
+plain version and runs every other search. The reference
 ranks the categories with ``[L, Fc, B, B]`` compare and one-hot tensors;
 here a stable sort gives the same order (equal means by bin index,
 invalid bins last) and a gather the same sorted stats.
@@ -45,6 +49,7 @@ import torch
 
 from ..obs.tracing import span
 from ..utils import threefry
+from . import hist_kernels as K
 from .scan import blocked_cumsum
 
 NEG_INF = -1e30
@@ -226,6 +231,14 @@ def per_feature_gains(hist: torch.Tensor, num_bins: torch.Tensor,
     return best
 
 
+def numerical_only(p: SplitParams, f: int) -> bool:
+    """Whether a search of ``f`` columns under ``p`` scores only the
+    numerical sections [num_r, num_l]: no categorical column among them,
+    no bundles, monotone constraints, feature_contri or extra_trees."""
+    return not (any(0 <= c < f for c in p.cat_features) or p.has_bundles
+                or p.has_monotone or p.has_contri or p.extra_trees)
+
+
 def best_split(hist: torch.Tensor, num_bins: torch.Tensor,
                na_bin: torch.Tensor, parent_g: torch.Tensor,
                parent_h: torch.Tensor, parent_cnt: torch.Tensor,
@@ -246,7 +259,42 @@ def best_split(hist: torch.Tensor, num_bins: torch.Tensor,
     / ``leaf_max`` [L] bound each leaf's outputs (unbounded when None);
     ``gain_penalty`` [L, F] is subtracted from every candidate of that
     (leaf, feature) (CEGB); under ``p.extra_trees``, ``rand_key`` draws
-    the one threshold each (leaf, feature) may take."""
+    the one threshold each (leaf, feature) may take.
+
+    On the card a numerical-only search (``numerical_only``, no penalty)
+    at B = 64, 128 or 256 runs the kernel pair S1
+    (``hist_kernels.split_search``), whose records equal the planes' bit
+    for bit; every other search, and every search on the CPU, runs the
+    planes (``best_split_planes``)."""
+    f, b = hist.shape[2], hist.shape[3]
+    if (hist.device.type == "cuda" and gain_penalty is None
+            and b in K.SPLIT_SEARCH_BINS and numerical_only(p, f)):
+        return SplitResult(*K.split_search(
+            hist.contiguous(), num_bins.to(torch.int32).contiguous(),
+            na_bin.to(torch.int32).contiguous(),
+            parent_g.contiguous(), parent_h.contiguous(),
+            parent_cnt.contiguous(), feature_mask, allow_split.contiguous(),
+            p))
+    return best_split_planes(hist, num_bins, na_bin, parent_g, parent_h,
+                             parent_cnt, feature_mask, p, allow_split,
+                             bundle, leaf_min, leaf_max, gain_penalty,
+                             rand_key)
+
+
+def best_split_planes(hist: torch.Tensor, num_bins: torch.Tensor,
+                      na_bin: torch.Tensor, parent_g: torch.Tensor,
+                      parent_h: torch.Tensor, parent_cnt: torch.Tensor,
+                      feature_mask: torch.Tensor, p: SplitParams,
+                      allow_split: torch.Tensor,
+                      bundle: Optional[BundleArrays] = None,
+                      leaf_min: Optional[torch.Tensor] = None,
+                      leaf_max: Optional[torch.Tensor] = None,
+                      gain_penalty: Optional[torch.Tensor] = None,
+                      rand_key: Optional[threefry.Key] = None
+                      ) -> SplitResult:
+    """``best_split`` over whole planes in PyTorch (its arguments): every
+    section's gains as [L, F, B] tensors and one masked election, on any
+    device. The plain version of ``hist_kernels.split_search``."""
     L, _, f, b = hist.shape
     dev = hist.device
     iota = torch.arange(b, device=dev)[None, None, :]              # [1,1,B]

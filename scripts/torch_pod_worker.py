@@ -24,7 +24,8 @@ job::
 reads only this rank's rows of ``X.npy`` (``multihost.host_row_range`` of
 the grid, ``load_file_shard``), trains, and prints one line ``POD_RESULT
 {json}``: the mapper and tree digests (the model text before its
-parameter echo), seconds a iteration, the kernel launches, the
+parameter echo), seconds a iteration, the kernel launches, each tree's
+level passes and leaves (with num_leaves and max_depth), the
 cross-rank sums (``ops.grow.ALLREDUCE``) and host copies
 (``multihost.XFER``), the construct's phases, the backend and the fault
 points' hits. ``expect_error``: the training must raise a
@@ -209,6 +210,9 @@ def run_job(job, spec, rank, card):
                s_per_iter=train_s / job["rounds"],
                launches=dict(hk.LAUNCHES), allreduce=dict(G.ALLREDUCE),
                xfer=dict(multihost.XFER), passes=bst._gbdt.hist_passes,
+               leaves=[t.num_leaves for t in bst._gbdt.models_dev],
+               num_leaves=bst._gbdt.gp.num_leaves,
+               max_depth=bst._gbdt.gp.max_depth,
                shards=bst._gbdt._shard_plan.num_shards)
     if job.get("valid"):
         Xv = np.load(os.path.join(job["valid"], "X.npy"))

@@ -62,14 +62,16 @@ def _hist(rng, L, F, B, num_bins, na_bin):
     return np.stack([g, h, cnt], axis=1)
 
 
-def _compare_split(hist, num_bins, na_bin, params):
+def _compare_split(hist, num_bins, na_bin, params, fmask=None, allow=None):
     L = hist.shape[0]
     pg = hist[:, 0, 0].sum(-1).astype(np.float32)
     ph = hist[:, 1, 0].sum(-1).astype(np.float32)
     pc = hist[:, 2, 0].sum(-1).astype(np.float32)
-    allow = np.ones(L, bool)
-    allow[-1] = False
-    fmask = np.ones(hist.shape[2], bool)
+    if allow is None:
+        allow = np.ones(L, bool)
+        allow[-1] = False
+    if fmask is None:
+        fmask = np.ones(hist.shape[2], bool)
     ref = ref_split.best_split(
         jnp.asarray(hist), jnp.asarray(num_bins), jnp.asarray(na_bin),
         jnp.asarray(pg), jnp.asarray(ph), jnp.asarray(pc), jnp.asarray(fmask),
@@ -79,10 +81,14 @@ def _compare_split(hist, num_bins, na_bin, params):
         _t(fmask), t_split.SplitParams(**params), _t(allow))
     for name in ("gain", "feature", "bin", "default_left", "left_g",
                  "left_h", "left_cnt"):
-        np.testing.assert_array_equal(
-            getattr(got, name).numpy(),
-            np.asarray(getattr(ref, name)).astype(
-                getattr(got, name).numpy().dtype), err_msg=name)
+        # bit for bit: a -0.0 against +0.0 fails too
+        a = getattr(got, name).numpy()
+        b = np.asarray(getattr(ref, name)).astype(a.dtype)
+        if a.dtype == np.float32:
+            a, b = a.view(np.int32), b.view(np.int32)
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    assert not got.is_cat.any() and not got.cat_member.any()
+    return got
 
 
 @pytest.mark.parametrize("params", [
@@ -92,7 +98,7 @@ def _compare_split(hist, num_bins, na_bin, params):
     {"min_data_in_leaf": 3, "max_delta_step": 0.4,
      "min_sum_hessian_in_leaf": 2.0},
 ])
-@pytest.mark.parametrize("B", [16, 64])
+@pytest.mark.parametrize("B", [16, 64, 128, 256])
 def test_best_split_exact_random(params, B):
     # exact split records, with missing bins (both directions searched) and
     # features whose bin count is below the padded axis
@@ -118,6 +124,94 @@ def test_best_split_exact_near_ties():
     hist[:, 0, 4] = hist[:, 0, 1] * np.float32(1 + 3e-7)
     hist[:, 1:, 4] = hist[:, 1:, 1]
     _compare_split(hist, num_bins, na_bin, {"min_data_in_leaf": 3})
+
+
+@pytest.mark.parametrize("B", [64, 128, 256])
+def test_best_split_exact_near_ties_at_the_kernel_widths(B):
+    # the near-tie case at the bin axes the card's kernel takes, with a
+    # missing bin on the tied features, so that the band spans both planes
+    rng = np.random.default_rng(B + 5)
+    L, F = 6, 5
+    num_bins = np.full(F, B - 3, np.int32)
+    na_bin = np.full(F, 256, np.int32)
+    na_bin[[1, 3]] = B - 4
+    hist = _hist(rng, L, F, B, num_bins, na_bin)
+    hist[:, :, 3] = hist[:, :, 1]
+    hist[:, 0, 4] = hist[:, 0, 1] * np.float32(1 + 3e-7)
+    hist[:, 1:, 4] = hist[:, 1:, 1]
+    _compare_split(hist, num_bins, na_bin, {"min_data_in_leaf": 3})
+
+
+SPLIT_CASES = ("leaf_mask", "allow_partly", "all_masked", "empty_child",
+               "neg_zero")
+
+
+@pytest.mark.parametrize("B", [64, 128, 256])
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_best_split_exact_cases(case, B):
+    # the edges of the numerical search the card's kernel must equal: a
+    # feature mask per leaf; allow_split partly false; a leaf whose every
+    # candidate is masked (flat index 0: feature 0, bin 0, missing right);
+    # an empty child (h = 0 on one side, 0 / eps); a -0.0 in the first bin
+    # (the first block's + 0.0 makes it +0.0)
+    rng = np.random.default_rng(B * 7 + SPLIT_CASES.index(case))
+    L, F = 8, 6
+    num_bins = rng.integers(3, B + 1, size=F).astype(np.int32)
+    na_bin = np.full(F, 256, np.int32)
+    na_bin[1] = num_bins[1] - 1
+    na_bin[4] = 0
+    hist = _hist(rng, L, F, B, num_bins, na_bin)
+    params = {"min_data_in_leaf": 2, "lambda_l2": 0.5}
+    fmask = allow = None
+    if case == "leaf_mask":
+        fmask = rng.random((L, F)) < 0.6
+        fmask[2] = False
+    elif case == "allow_partly":
+        allow = rng.random(L) < 0.5
+        allow[0], allow[1] = True, False
+    elif case == "all_masked":
+        fmask = np.ones((L, F), bool)
+        fmask[3] = False
+        hist[5] = 0.0
+    elif case == "empty_child":
+        # each leaf's rows lie in the bins below num_bins // 2: every
+        # threshold from there on leaves the right child empty
+        for f in range(F):
+            hist[:, :, f, num_bins[f] // 2:] = 0.0
+        # lambda_l2 > 0: at 0 the denominator of an empty side is the
+        # 1e-38 guard alone, a subnormal that XLA:CPU flushes to zero
+        # (an infinite gain) and torch keeps (the card's test takes it)
+        params = {"min_data_in_leaf": 0, "min_sum_hessian_in_leaf": 0.0,
+                  "lambda_l2": 0.5}
+    else:
+        hist[:, 0, :, 0] = -0.0
+        hist[:, 1, :, 0] = -0.0
+    got = _compare_split(hist, num_bins, na_bin, params, fmask, allow)
+    if case == "all_masked":
+        assert got.feature[3] == 0 and got.bin[3] == 0
+        assert not got.default_left[3] and got.gain[3] == t_split.NEG_INF
+        assert got.gain[5] == t_split.NEG_INF
+    if case == "neg_zero":
+        # the first block's + 0.0: the prefix sum at bin 0 is +0.0
+        cum = scan.blocked_cumsum(_t(hist))
+        assert not torch.signbit(cum[:, :2, :, 0]).any()
+
+
+def test_numerical_only_takes_the_kernel_paths():
+    # the card's dispatch: only searches without categorical columns (in
+    # range), bundles, monotone constraints, feature_contri or extra_trees
+    # take S1; CEGB's penalty is checked at the call
+    assert t_split.numerical_only(t_split.SplitParams(), 6)
+    assert t_split.numerical_only(t_split.SplitParams(cat_features=(7,)), 6)
+    assert t_split.numerical_only(
+        t_split.SplitParams(monotone_constraints=(0, 0)), 6)
+    assert t_split.numerical_only(
+        t_split.SplitParams(feature_contri=(1.0,)), 6)
+    for kw in ({"cat_features": (3,)}, {"has_bundles": True},
+               {"monotone_constraints": (1, 0)}, {"monotone_clamp": True},
+               {"feature_contri": (0.5,)}, {"contri_active": True},
+               {"extra_trees": True}):
+        assert not t_split.numerical_only(t_split.SplitParams(**kw), 6), kw
 
 
 @pytest.mark.parametrize("objective", ["l2", "logloss"])
